@@ -25,6 +25,30 @@
 //   * fragments loaded with ldmatrix.x4 from rows padded to 80 bytes, which
 //     keeps the eight 16-byte row reads of each 8x8 matrix in distinct banks.
 // Not yet done (later work): wgmma and TMA.
+//
+// One template flag, kGnSilu, gives the kernel's two instances:
+//   * without the prologue it also stands for aid_tpu/ops/conv.py::
+//     _kernel_packed (conv.py:47-75, conv3x3_same(packed=True)). Packing the
+//     three dx shifts into one K = 3*Cin dot per dy is what the TPU's
+//     128-lane MXU tiles needed; this K loop already runs over all 9*Cin
+//     (tap, cin) pairs in 32-channel steps, so the packed contract is the
+//     same kernel, and both wrapper flags launch this one instance;
+//   * with it, it replaces aid_tpu/ops/conv.py::_kernel_packed_gnsilu
+//     (conv.py:78-121, conv3x3_gnsilu): y = conv(silu(x * sc + sh)) + bias
+//     with per-(batch, Cin) f32 factors sc/sh that fold the GroupNorm
+//     statistics and affine (computed outside, as the JAX package computes
+//     them in XLA). It reads the RAW bf16 activation, so the normalised
+//     tensor never exists in device memory.
+//
+// The SAME halo under the prologue: conv pads AFTER norm and activation, so
+// the halo must stay zero, but silu(sh) != 0. The halo comes from cp.async
+// copies with a zero source size; each thread transforms, in shared memory
+// and after its own copies of a stage have landed, exactly the 16-byte
+// chunks it staged whose source pixel lies inside the image, and leaves the
+// zero-filled ones alone. The transform is f32 silu(x * sc + sh), rounded
+// once to bf16 before the MMA, as conv.py:105-109 does.
+// ptxas (CUDA 12.8, sm_90a): 128 registers for both instances; the
+// prologue instance spills 4 bytes, the other none.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -76,9 +100,37 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// silu(a) = a * sigmoid(a) = h + h * tanh(h) with h = a / 2: one MUFU
+// tanh.approx (relative error ~2^-11, below the bf16 rounding that follows)
+__device__ __forceinline__ float silu_fast(float a) {
+  const float h = 0.5f * a;
+  float t;
+  asm("tanh.approx.f32 %0, %1;" : "=f"(t) : "f"(h));
+  return fmaf(h, t, h);
+}
+
+// silu(x * sc + sh) of 8 bf16 channels in place, in f32, rounded to bf16
+__device__ __forceinline__ void gn_silu8(__nv_bfloat16* p, const float* sc, const float* sh) {
+  uint4 raw = *reinterpret_cast<const uint4*>(p);
+  __nv_bfloat162* v = reinterpret_cast<__nv_bfloat162*>(&raw);
+  const float4 s0 = *reinterpret_cast<const float4*>(sc), s1 = *reinterpret_cast<const float4*>(sc + 4);
+  const float4 h0 = *reinterpret_cast<const float4*>(sh), h1 = *reinterpret_cast<const float4*>(sh + 4);
+  const float s[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
+  const float h[8] = {h0.x, h0.y, h0.z, h0.w, h1.x, h1.y, h1.z, h1.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 f = __bfloat1622float2(v[j]);
+    v[j] = __floats2bfloat162_rn(silu_fast(fmaf(f.x, s[2 * j], h[2 * j])),
+                                 silu_fast(fmaf(f.y, s[2 * j + 1], h[2 * j + 1])));
+  }
+  *reinterpret_cast<uint4*>(p) = raw;
+}
+
+template <bool kGnSilu>
 __global__ void __launch_bounds__(kThreads)
     conv3x3_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
-                   const float* __restrict__ bias, __nv_bfloat16* __restrict__ out, int B, int H, int W, int Cin,
+                   const float* __restrict__ bias, const float* __restrict__ gn_scale,
+                   const float* __restrict__ gn_shift, __nv_bfloat16* __restrict__ out, int B, int H, int W, int Cin,
                    int Cout) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16(*As)[kBM][kLd] = reinterpret_cast<__nv_bfloat16(*)[kBM][kLd]>(smem_raw);
@@ -108,6 +160,28 @@ __global__ void __launch_bounds__(kThreads)
     const int rem = (int)(pp % hw);
     py[i] = rem / W;
     px[i] = rem % W;
+  }
+
+  // The prologue's per-(batch, Cin) factors of the (at most two) images this
+  // block's pixels lie in, staged once in shared memory after the tiles;
+  // blocks that span more images (images under 128 pixels) read them from
+  // global memory instead.
+  float* aff = reinterpret_cast<float*>(smem_raw + kSmemBytes);  // [image][scale, shift][Cin]
+  int b_lo = 0;
+  bool aff_staged = false;
+  if (kGnSilu) {
+    const long long hw = (long long)H * W;
+    b_lo = (int)(m0 / hw);
+    const int n_img = (int)((min(m0 + kBM, M) - 1) / hw) - b_lo + 1;
+    aff_staged = n_img <= 2;
+    if (aff_staged) {
+      for (int i = tid; i < n_img * Cin; i += kThreads) {
+        const int bb = i / Cin, c = i - bb * Cin;
+        aff[(2 * bb) * Cin + c] = gn_scale[(long long)(b_lo + bb) * Cin + c];
+        aff[(2 * bb + 1) * Cin + c] = gn_shift[(long long)(b_lo + bb) * Cin + c];
+      }
+    }
+    __syncthreads();  // the first prologue runs before the main loop's first barrier
   }
 
   const int kc = (Cin + kBK - 1) / kBK;  // K steps per tap
@@ -154,6 +228,23 @@ __global__ void __launch_bounds__(kThreads)
 
   for (int kt = 0; kt < kt_total; ++kt) {
     cp_async_wait<kStages - 2>();  // step kt has landed (for this thread's copies)
+    if (kGnSilu) {
+      // the prologue on this thread's own in-image chunks of step kt; the
+      // zero-filled halo (and pixels past M, channels past Cin) stay zero
+      const int tap = kt / kc, cin = (kt - tap * kc) * kBK + chunk * 8;
+      const int dy = tap / 3 - 1, dx = tap % 3 - 1;
+      if (cin < Cin) {
+#pragma unroll
+        for (int i = 0; i < kARows; ++i) {
+          const int iy = py[i] + dy, ix = px[i] + dx;
+          if (pv[i] && iy >= 0 && iy < H && ix >= 0 && ix < W) {
+            const float* sc = aff_staged ? aff + 2 * (pb[i] - b_lo) * Cin + cin : gn_scale + (long long)pb[i] * Cin + cin;
+            const float* sh = aff_staged ? sc + Cin : gn_shift + (long long)pb[i] * Cin + cin;
+            gn_silu8(&As[kt % kStages][(tid + i * kThreads) >> 2][chunk * 8], sc, sh);
+          }
+        }
+      }
+    }
     __syncthreads();               // ... for every thread's, and step kt-1's stage is free
     const int nk = kt + kStages - 1;
     if (nk < kt_total) load_stage(nk % kStages, nk);
@@ -201,15 +292,20 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-int launch(const void* x, const void* w, const void* bias, void* out, int B, int H, int W, int Cin, int Cout,
-           cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(conv3x3_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+template <bool kGnSilu>
+int launch(const void* x, const void* w, const void* bias, const void* gn_scale, const void* gn_shift, void* out,
+           int B, int H, int W, int Cin, int Cout, cudaStream_t stream) {
+  // the prologue instance also stages two images' scale and shift rows
+  const int smem = kSmemBytes + (kGnSilu ? 2 * 2 * Cin * (int)sizeof(float) : 0);
+  cudaError_t err = cudaFuncSetAttribute(reinterpret_cast<const void*>(&conv3x3_kernel<kGnSilu>),
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const long long M = (long long)B * H * W;
   const dim3 grid((unsigned)((M + kBM - 1) / kBM), (unsigned)((Cout + kBN - 1) / kBN));
-  conv3x3_kernel<<<grid, kThreads, kSmemBytes, stream>>>(
+  conv3x3_kernel<kGnSilu><<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w), static_cast<const float*>(bias),
-      static_cast<__nv_bfloat16*>(out), B, H, W, Cin, Cout);
+      static_cast<const float*>(gn_scale), static_cast<const float*>(gn_shift), static_cast<__nv_bfloat16*>(out), B,
+      H, W, Cin, Cout);
   return (int)cudaGetLastError();
 }
 
@@ -221,7 +317,17 @@ int launch(const void* x, const void* w, const void* bias, void* out, int B, int
 extern "C" int aid_conv3x3_bf16(const void* x, const void* w, const void* bias, void* out, int B, int H, int W,
                                 int Cin, int Cout, void* stream) {
   if (Cin % 8 != 0 || Cout % 2 != 0) return (int)cudaErrorInvalidValue;
-  return launch(x, w, bias, out, B, H, W, Cin, Cout, static_cast<cudaStream_t>(stream));
+  return launch<false>(x, w, bias, nullptr, nullptr, out, B, H, W, Cin, Cout, static_cast<cudaStream_t>(stream));
+}
+
+// y = conv(silu(x * scale + shift)) + bias with SAME zero padding applied
+// after the prologue. scale, shift: (B, Cin) f32, 16-byte aligned; the rest
+// as aid_conv3x3_bf16. Returns the launch's cudaError_t (0 on success).
+extern "C" int aid_conv3x3_gnsilu_bf16(const void* x, const void* w, const void* bias, void* out,
+                                       const void* scale, const void* shift, int B, int H, int W, int Cin, int Cout,
+                                       void* stream) {
+  if (Cin % 8 != 0 || Cout % 2 != 0) return (int)cudaErrorInvalidValue;
+  return launch<true>(x, w, bias, scale, shift, out, B, H, W, Cin, Cout, static_cast<cudaStream_t>(stream));
 }
 
 // Message for a cudaError_t returned by an entry point of this library.

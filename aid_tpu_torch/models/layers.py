@@ -8,9 +8,14 @@ checkpoints. Every attention layer takes an optional :class:`AidContext`:
 the AID processor family is a per-call mode plus a per-frame coefficient
 vector, not module state.
 
+The fused GroupNorm+SiLU resnet prologue is here as in the JAX package and
+off by default as there (``_FUSED_GN_CONV = False``): switched on, every
+resnet conv of the classes ``gn_conv_fused`` names runs
+``ops.conv.conv3x3_gnsilu`` (its kernel on CUDA, its plain version on the
+CPU) with the same parameters, so the ``state_dict`` is the same either way.
+
 Not yet ported: the IP-Adapter branch of ``CrossAttention`` and frame
-sharding (``frame_axis``); the fused GroupNorm+SiLU conv prologue, which the
-JAX package leaves off (``_FUSED_GN_CONV = False``).
+sharding (``frame_axis``).
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from aid_tpu_torch.ops.attention import AttnMode, dispatch_attention
-from aid_tpu_torch.ops.conv import conv3x3_same
+from aid_tpu_torch.ops.conv import conv3x3_gnsilu, conv3x3_same
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,6 +109,19 @@ def conv_lowering(hw: int, cin: int) -> str:
     return "kernel" if hw > 4096 and cin >= 512 else "torch"
 
 
+# Routing flag for the fused GN+SiLU+conv resnet prologue, as
+# aid_tpu/models/layers.py:167-171: off by default (the JAX package measured
+# it slower on the TPU v5e; on the H100 chip_smoke.py measures both ways).
+_FUSED_GN_CONV = False
+
+
+def gn_conv_fused(hw: int, cin: int) -> bool:
+    """The classes whose resnet GN+SiLU prologue fuses into the conv when
+    ``_FUSED_GN_CONV`` is on: the UNet's spatial range at cin >= 320
+    (aid_tpu/models/layers.py:174-182)."""
+    return _FUSED_GN_CONV and 1024 <= hw <= 16384 and cin >= 320
+
+
 class Conv3x3(nn.Module):
     """3x3 same-padding conv (weight (Cout, Cin, 3, 3) + bias, as nn.Conv2d).
 
@@ -142,10 +160,19 @@ class ResnetBlock2D(nn.Module):
         self.conv_shortcut = (nn.Conv2d(in_channels, out_channels, 1, **kw)
                               if in_channels != out_channels else None)
 
+    @staticmethod
+    def _gn_silu_conv(h, norm: nn.GroupNorm, conv: Conv3x3):
+        """norm -> SiLU -> 3x3 conv; one fused op on the ``gn_conv_fused``
+        classes (the GroupNorm module then only holds gamma and beta)."""
+        _, cin, H, W = h.shape
+        if gn_conv_fused(H * W, cin) and cin % norm.num_groups == 0:
+            return conv3x3_gnsilu(h, conv.weight, conv.bias, norm.weight, norm.bias, norm.num_groups, norm.eps)
+        return conv(F.silu(norm(h)))
+
     def forward(self, x, temb):
-        h = self.conv1(F.silu(self.norm1(x)))
+        h = self._gn_silu_conv(x, self.norm1, self.conv1)
         h = h + self.time_emb_proj(F.silu(temb))[:, :, None, None]
-        h = self.conv2(F.silu(self.norm2(h)))
+        h = self._gn_silu_conv(h, self.norm2, self.conv2)
         if self.conv_shortcut is not None:
             x = self.conv_shortcut(x)
         return x + h

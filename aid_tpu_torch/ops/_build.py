@@ -25,7 +25,7 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "aid_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def sources() -> list:
@@ -64,8 +64,16 @@ def build() -> Path:
     if proc.returncode != 0:
         raise RuntimeError(
             f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
+    # ptxas -v: registers, shared memory and spills of every kernel
+    out.with_suffix(".ptxas.txt").write_text(proc.stderr)
     os.replace(tmp, out)
     return out
+
+
+def ptxas_report() -> str:
+    """ptxas's resource lines from the build of the current sources ('' if none)."""
+    log = library_path().with_suffix(".ptxas.txt")
+    return log.read_text() if log.exists() else ""
 
 
 @functools.lru_cache(maxsize=None)
@@ -91,6 +99,20 @@ def library() -> ctypes.CDLL:
         vp,                  # cudaStream_t
     ]
     lib.aid_conv3x3_bf16.restype = ctypes.c_int
+    lib.aid_conv3x3_gnsilu_bf16.argtypes = [
+        vp, vp, vp, vp,      # x (NHWC), w (Cout,3,3,Cin), bias (f32), out (NHWC)
+        vp, vp,              # GN+SiLU scale, shift: (B, Cin) f32
+        i32, i32, i32, i32, i32,  # B, H, W, Cin, Cout
+        vp,                  # cudaStream_t
+    ]
+    lib.aid_conv3x3_gnsilu_bf16.restype = ctypes.c_int
+    lib.aid_flash_attn_f32_d512.argtypes = [
+        vp, vp, vp, vp,      # q, k, v, out (f32)
+        i64p,                # dims + strides, see flash_attention_f32_d512.cu
+        ctypes.c_float,      # softmax scale
+        vp,                  # cudaStream_t
+    ]
+    lib.aid_flash_attn_f32_d512.restype = ctypes.c_int
     lib.aid_cuda_error_string.argtypes = [i32]
     lib.aid_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -9,9 +9,16 @@ kernels behind that function (``_kernel``, flash_attention.py:101, and
 bounds it on the card and how the design answers. On a CPU tensor it runs
 :func:`flash_interpolated_attention_plain`.
 
-The kernel takes bf16 with head dim 64 (every SDXL and SD2.x attention). The
-f32 D=512 VAE mid-block shape and the SD1.5 head dims 40/80/160 are still to
-be ported: on a CUDA tensor they raise ``NotImplementedError``.
+Two kernels take CUDA calls:
+  * bf16 with head dim 64, every mode (every SDXL and SD2.x UNet attention):
+    ``csrc/flash_interpolated_attention.cu``, counted by
+    ``flash_interpolated_attention.launches``;
+  * f32 with head dim 512, self mode (the VAE mid-block attention, one head
+    over 16384 tokens at 1024px): ``csrc/flash_attention_f32_d512.cu``,
+    reached through :func:`flash_self_attention_f32` and counted by its
+    ``launches``.
+Any other dtype, head dim or mode on a CUDA tensor (the SD1.5 head dims
+40/80/160 among them) raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ from aid_tpu_torch.ops.attention import AttnMode, _softmax_attn, interpolated_at
 from aid_tpu_torch.ops.routing import use_kernel
 
 KERNEL_HEAD_DIM = 64
+F32_KERNEL_HEAD_DIM = 512
 
 
 def flash_interpolated_attention_plain(
@@ -51,17 +59,56 @@ def flash_interpolated_attention_plain(
     return out
 
 
-def _check_operand(name: str, x: torch.Tensor) -> None:
-    if x.dtype != torch.bfloat16:
-        raise NotImplementedError(
-            f"flash kernel takes bf16 only; {name} is {x.dtype} (the f32 VAE shape is still to be ported)")
-    if x.shape[-1] != KERNEL_HEAD_DIM:
-        raise NotImplementedError(
-            f"flash kernel takes head dim {KERNEL_HEAD_DIM} only; {name} has {x.shape[-1]}")
+def _check_operand(name: str, x: torch.Tensor, dtype=torch.bfloat16, head_dim: int = KERNEL_HEAD_DIM) -> None:
+    if x.dtype != dtype:
+        raise NotImplementedError(f"flash kernel takes {dtype} here; {name} is {x.dtype}")
+    if x.shape[-1] != head_dim:
+        raise NotImplementedError(f"flash kernel takes head dim {head_dim} here; {name} has {x.shape[-1]}")
     if x.stride(-1) != 1:
         raise ValueError(f"{name}: the head dim must be contiguous, strides {x.stride()}")
-    if any(s % 8 for s in x.stride()[:-1]) or x.data_ptr() % 16:
+    per_16_bytes = 16 // x.element_size()
+    if any(s % per_16_bytes for s in x.stride()[:-1]) or x.data_ptr() % 16:
         raise ValueError(f"{name}: 16-byte row alignment needed, strides {x.stride()}")
+
+
+def flash_self_attention_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             scale: Optional[float] = None) -> torch.Tensor:
+    """softmax(q k^T * scale) v in f32 with head dim 512 (the VAE mid-block
+    contract): ``csrc/flash_attention_f32_d512.cu`` on CUDA tensors, the
+    plain ``_softmax_attn`` on CPU tensors.
+
+    q: (B, H, Sq, 512), k/v: (B, H, Lk, 512), all f32. Returns (B, H, Sq, 512) f32.
+    """
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if not use_kernel(q, k, v):
+        return _softmax_attn(q, k, v, scale)
+    B, H, Sq, D = q.shape
+    if k.dim() != 4 or k.shape[:2] != (B, H) or k.shape[-1] != D or v.shape != k.shape:
+        raise ValueError(f"k/v shapes {tuple(k.shape)}/{tuple(v.shape)} do not match q {tuple(q.shape)}")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        _check_operand(name, x, torch.float32, F32_KERNEL_HEAD_DIM)
+    if Sq == 0 or k.shape[2] == 0:
+        raise ValueError("empty query or key sequence")
+    out = torch.empty((B, H, Sq, D), dtype=torch.float32, device=q.device)
+    dims = [B, H, Sq, k.shape[2]]
+    for x in (q, k, v, out):
+        dims += _bhs_strides(x)
+    dims_c = (ctypes.c_longlong * len(dims))(*dims)
+
+    from aid_tpu_torch.ops import _build
+
+    lib = _build.library()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    code = lib.aid_flash_attn_f32_d512(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                                       dims_c, float(scale), stream)
+    _build.check(code, "flash_self_attention_f32 launch")
+    flash_self_attention_f32.launches += 1
+    return out
+
+
+#: kernel launches since the last reset (chip_smoke.py reads it around each path)
+flash_self_attention_f32.launches = 0
 
 
 def _bhs_strides(x: torch.Tensor) -> list:
@@ -96,6 +143,9 @@ def flash_interpolated_attention(
         return flash_interpolated_attention_plain(
             q, k, v, coef, mode, k_begin=k_begin, v_begin=v_begin, k_end=k_end, v_end=v_end,
             scale=scale, skip_endpoints=skip_endpoints)
+
+    if q.dtype == torch.float32 and mode == AttnMode.SELF and q.shape[-1] == F32_KERNEL_HEAD_DIM:
+        return flash_self_attention_f32(q, k, v, scale)
 
     B, H, Sq, D = q.shape
     if k.dim() != 4 or k.shape[:2] != (B, H) or k.shape[-1] != D or v.shape != k.shape:

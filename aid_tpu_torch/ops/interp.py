@@ -47,6 +47,32 @@ def slerp(v0: torch.Tensor, v1: torch.Tensor, t, threshold: float = SLERP_COLINE
     return torch.where(gotta_lerp, lerped, slerped)
 
 
+def _schedule(ts, size: int, like: torch.Tensor) -> torch.Tensor:
+    """``ts`` as an f32 tensor on ``like``'s device, or uniform i/(size-1)."""
+    if ts is None:
+        return torch.linspace(0.0, 1.0, size, device=like.device)
+    return torch.as_tensor(np.asarray(ts, np.float32), device=like.device)
+
+
+def linear_interpolation(l1: torch.Tensor, l2: torch.Tensor, ts=None, size: int = 5) -> torch.Tensor:
+    """Batched lerp between two ``(1, *)`` tensors -> ``(size, *)``; ``ts``,
+    when given, is the coefficient schedule (and sets the size)."""
+    if l1.shape != l2.shape:
+        raise ValueError(f"shapes of l1 and l2 must match: {tuple(l1.shape)} vs {tuple(l2.shape)}")
+    t = _schedule(ts, size, l1).reshape((-1,) + (1,) * (l1.dim() - 1))
+    return lerp(l1, l2, t).reshape((t.shape[0],) + tuple(l1.shape[1:]))
+
+
+def spherical_interpolation(l1: torch.Tensor, l2: torch.Tensor, size: int = 5, ts=None) -> torch.Tensor:
+    """Batched slerp between two ``(1, *)`` tensors -> ``(size, *)``; ``ts``,
+    when given, is the coefficient schedule (and sets the size)."""
+    if l1.shape != l2.shape:
+        raise ValueError(f"shapes of l1 and l2 must match: {tuple(l1.shape)} vs {tuple(l2.shape)}")
+    t = _schedule(ts, size, l1).reshape((-1,) + (1,) * (l1.dim() - 1))
+    out = slerp(l1[None], l2[None], t[:, None])
+    return out.reshape((t.shape[0],) + tuple(l1.shape[1:]))
+
+
 def beta_ppf(q, alpha: float, beta: float) -> np.ndarray:
     """Host-side Beta(alpha, beta) inverse CDF (percent point function)."""
     return _beta_dist.ppf(q, alpha, beta)

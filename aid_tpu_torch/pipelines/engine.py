@@ -7,9 +7,13 @@ the ``early`` AID mode, the rest the ``late`` one. CFG matches the
 reference: a conditional UNet pass with AID active, then an unconditional
 pass with AID off (vanilla attention in attn1 and attn2).
 
+``decode_latents`` and ``to_uint8`` are the counterparts of engine.py:319-348
+and 422-426: an f32 VAE decode, optionally one frame at a time, with the
+latents mean/std denormalisation.
+
 Not yet ported: ``cfg_mode="batched"``, ``loop_mode="fused"`` (force-vanilla
 endpoint skipping), ``denoise_steps`` / ``denoise_range``, IP-Adapter embeds
-and the VAE decode.
+and ``tiled_decode``.
 """
 
 from __future__ import annotations
@@ -80,3 +84,33 @@ def denoise_sequence(
             noise = rescale_noise_cfg(noise, noise_text.float(), guidance_rescale)
         latents, sched_state = scheduler.step(sched_state, noise, i, latents)
     return latents
+
+
+@torch.no_grad()
+def decode_latents(vae, latents: torch.Tensor, scaling_factor: float, latents_mean=None, latents_std=None,
+                   per_frame: bool = False) -> torch.Tensor:
+    """VAE decode -> f32 images in [0, 1], NHWC (the JAX package's image layout).
+
+    latents: (B, C, h, w). The decode runs in f32 whatever the latents'
+    dtype. ``per_frame`` decodes one frame at a time to cap peak memory.
+    ``latents_mean/std`` (per channel) apply the playground-style
+    denormalisation ``z * std / scaling_factor + mean``; otherwise
+    ``z / scaling_factor``.
+    """
+    z = latents.float()
+    if latents_mean is not None:
+        mean = torch.as_tensor(latents_mean, dtype=torch.float32, device=z.device).reshape(1, -1, 1, 1)
+        std = torch.as_tensor(latents_std, dtype=torch.float32, device=z.device).reshape(1, -1, 1, 1)
+        z = z * std / scaling_factor + mean
+    else:
+        z = z / scaling_factor
+    if per_frame:
+        image = torch.cat([vae.decode(z[i:i + 1]) for i in range(z.shape[0])])
+    else:
+        image = vae.decode(z)
+    return (image.float() / 2.0 + 0.5).clamp(0.0, 1.0).permute(0, 2, 3, 1)
+
+
+def to_uint8(images: torch.Tensor):
+    """[0, 1] float NHWC -> host uint8 numpy (N, H, W, 3)."""
+    return torch.round(images * 255.0).to(torch.uint8).cpu().numpy()

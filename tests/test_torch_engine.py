@@ -99,7 +99,8 @@ def test_import_leaves_jax_out():
     import itself adds count, so a jax preloaded at interpreter start does not)."""
     code = ("import sys; before = set(sys.modules); "
             "import aid_tpu_torch, aid_tpu_torch.ops.flash_attention, aid_tpu_torch.ops.conv, "
-            "aid_tpu_torch.ops._build, aid_tpu_torch.models.params; "
+            "aid_tpu_torch.ops._build, aid_tpu_torch.models.params, aid_tpu_torch.models.vae, "
+            "aid_tpu_torch.models.clip, aid_tpu_torch.pipelines.sdxl, aid_tpu_torch.utils.tokenizer; "
             "bad = sorted(m for m in set(sys.modules) - before if m.split('.')[0] in ('jax', 'flax', 'aid_tpu')); "
             "print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)

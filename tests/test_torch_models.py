@@ -148,3 +148,42 @@ def test_aid_changes_only_interior_frames(models):
         aid = unet(x, torch.tensor(500.0), ehs, AidContext(coef, AidMode.from_name("fused_outer")), added)
     assert th.max_rel_err(aid[[0, 2]].numpy(), van[[0, 2]].numpy()) < FWD_TOL
     assert th.max_rel_err(aid[1].numpy(), van[1].numpy()) > 1e-3
+
+
+def test_resnet_fused_gn_conv_matches_jax(monkeypatch):
+    """ResnetBlock2D with the fused GN+SiLU prologue switched on in both
+    packages, at a class the rule fuses (cin 320 at 32x32): the port runs
+    its conv3x3_gnsilu plain version, the JAX package its inline prologue
+    (layers.py:239-245). The parameters, and so the state_dict keys, are
+    those of the unfused branch."""
+    from aid_tpu.models import layers as jl
+
+    from aid_tpu_torch.models import layers as tl
+    from aid_tpu_torch.models.params import unet_state_dict_from_flax
+
+    B, s, C, cout, groups, temb_dim = 2, 32, 320, 320, 32, 16
+    x = th.normal(30, (B, s, s, C), scale=2.0) + 0.5
+    temb = th.normal(31, (B, temb_dim))
+    jmod = jl.ResnetBlock2D(cout, groups)
+    params = jax.tree_util.tree_map(np.asarray, jmod.init(jax.random.PRNGKey(4), jnp.asarray(x), jnp.asarray(temb)))
+    noise = th.rng(32)
+    params = jax.tree_util.tree_map(
+        lambda a: a + (noise.standard_normal(a.shape) * 0.05).astype(np.float32), params)
+    tmod = tl.ResnetBlock2D(C, cout, temb_dim, groups)
+    tmod.load_state_dict(unet_state_dict_from_flax(params), strict=True)
+    unfused_keys = list(tmod.state_dict())
+    with torch.no_grad():
+        unfused = tmod(th.nhwc_to_nchw(x), torch.from_numpy(temb))
+
+    monkeypatch.setattr(jl, "_FUSED_GN_CONV", True)
+    monkeypatch.setattr(tl, "_FUSED_GN_CONV", True)
+    fused_params = jmod.init(jax.random.PRNGKey(4), jnp.asarray(x), jnp.asarray(temb))
+    assert jax.tree_util.tree_structure(fused_params) == jax.tree_util.tree_structure(params)
+    want = jmod.apply(th.to_jnp(params), jnp.asarray(x), jnp.asarray(temb))
+    with torch.no_grad():
+        got = tmod(th.nhwc_to_nchw(x), torch.from_numpy(temb))
+    assert list(tl.ResnetBlock2D(C, cout, temb_dim, groups).state_dict()) == unfused_keys
+    assert th.max_rel_err(th.nchw_to_nhwc(got), np.asarray(want)) < FWD_TOL
+    # the fused branch really ran: the one-pass statistics round differently
+    assert not torch.equal(got, unfused)
+    assert th.max_rel_err(got.numpy(), unfused.numpy()) < FWD_TOL

@@ -16,12 +16,14 @@ import torch
 import torch_helpers as th
 from aid_tpu.ops import interp as jax_interp
 from aid_tpu.ops.attention import interpolated_attention as jax_interpolated_attention
+from aid_tpu.ops.conv import conv3x3_gnsilu as jax_conv3x3_gnsilu
 from aid_tpu.ops.conv import conv3x3_same as jax_conv3x3_same
 from aid_tpu.ops.flash_attention import flash_interpolated_attention as jax_flash
+from aid_tpu_torch.models import layers
 from aid_tpu_torch.models.layers import Conv3x3, conv_lowering
 from aid_tpu_torch.ops import interp
 from aid_tpu_torch.ops.attention import AttnMode, dispatch_attention, interpolated_attention
-from aid_tpu_torch.ops.conv import conv3x3_same
+from aid_tpu_torch.ops.conv import conv3x3_gnsilu, conv3x3_same
 from aid_tpu_torch.ops.flash_attention import flash_interpolated_attention, flash_interpolated_attention_plain
 from aid_tpu_torch.ops.routing import reference_ops, use_kernel
 
@@ -144,6 +146,49 @@ def test_conv_plain_matches_pallas_interpret(hw, cin, cout):
     assert th.max_rel_err(th.nchw_to_nhwc(got), np.asarray(want)) < CONV_TOL
 
 
+@pytest.mark.parametrize("hw,cin,cout", [(16, 32, 24), (8, 64, 64)])
+def test_conv_packed_plain_matches_pallas_interpret(hw, cin, cout):
+    """conv3x3_same(packed=True): the JAX packed-K kernel, the same result."""
+    x = th.normal(53, (2, hw, hw, cin))
+    w = th.normal(54, (3, 3, cin, cout), scale=cin ** -0.5)
+    b = th.normal(55, (cout,))
+    want = jax_conv3x3_same(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), block_rows=8, interpret=True,
+                            packed=True)
+    got = conv3x3_same(th.nhwc_to_nchw(x), torch.from_numpy(np.ascontiguousarray(w.transpose(3, 2, 0, 1))),
+                       torch.from_numpy(b), packed=True)
+    assert th.max_rel_err(th.nchw_to_nhwc(got), np.asarray(want)) < CONV_TOL
+
+
+@pytest.mark.parametrize("hw,cin,cout,groups", [(16, 64, 48, 8), (8, 32, 32, 32)])
+def test_conv_gnsilu_plain_matches_pallas_interpret(hw, cin, cout, groups):
+    """conv3x3_gnsilu: one-pass GN statistics folded into scale/shift, SiLU,
+    conv with the halo zero after the prologue. The input has a mean and
+    scale far from 0/1 and per-channel gamma/beta, so both the statistics
+    and a halo that took silu(shift) would show."""
+    x = th.normal(56, (2, hw, hw, cin), scale=3.0) + 1.5
+    w = th.normal(57, (3, 3, cin, cout), scale=cin ** -0.5)
+    b = th.normal(58, (cout,))
+    gamma, beta = 1.0 + th.normal(59, (cin,), scale=0.3), th.normal(60, (cin,), scale=0.5)
+    want = jax_conv3x3_gnsilu(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), jnp.asarray(gamma),
+                              jnp.asarray(beta), num_groups=groups, block_rows=8, interpret=True)
+    got = conv3x3_gnsilu(th.nhwc_to_nchw(x), torch.from_numpy(np.ascontiguousarray(w.transpose(3, 2, 0, 1))),
+                         torch.from_numpy(b), torch.from_numpy(gamma), torch.from_numpy(beta), groups)
+    assert th.max_rel_err(th.nchw_to_nhwc(got), np.asarray(want)) < CONV_TOL
+
+
+def test_gn_conv_fused_rule(monkeypatch):
+    """The fused prologue's classes are the JAX package's: 1024 <= hw <= 16384
+    at cin >= 320, and none while the flag is off (its default)."""
+    from aid_tpu.models import layers as jl
+
+    cases = [(1024, 320), (16384, 2560), (4096, 640), (512, 1280), (32768, 320), (4096, 256), (1024, 319)]
+    assert not any(layers.gn_conv_fused(hw, cin) for hw, cin in cases)
+    monkeypatch.setattr(layers, "_FUSED_GN_CONV", True)
+    monkeypatch.setattr(jl, "_FUSED_GN_CONV", True)
+    assert [layers.gn_conv_fused(hw, cin) for hw, cin in cases] == [jl.gn_conv_fused(hw, cin) for hw, cin in cases]
+    assert [layers.gn_conv_fused(hw, cin) for hw, cin in cases] == [True, True, True, False, False, False, False]
+
+
 def test_conv_routing_classes():
     """The kernel class is the JAX package's Pallas class: cin >= 512 at hw > 4096."""
     assert conv_lowering(128 * 128, 960) == "kernel"
@@ -160,12 +205,14 @@ def test_cpu_routes_to_plain_versions():
     assert not use_kernel(x)
     with pytest.raises(ValueError):
         use_kernel(torch.zeros(1, device="meta"))
-    n_attn, n_conv = flash_interpolated_attention.launches, conv3x3_same.launches
+    n_attn, n_conv, n_gn = flash_interpolated_attention.launches, conv3x3_same.launches, conv3x3_gnsilu.launches
     q, k, v, coef, _ = _attn_inputs(seed=60)
     dispatch_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), torch.from_numpy(coef),
                        "fused_outer")
     Conv3x3(512, 8)(torch.zeros(1, 512, 65, 65))
-    assert (flash_interpolated_attention.launches, conv3x3_same.launches) == (n_attn, n_conv)
+    conv3x3_gnsilu(torch.zeros(1, 8, 4, 4), torch.zeros(8, 8, 3, 3), torch.zeros(8), torch.ones(8), torch.zeros(8), 4)
+    assert (flash_interpolated_attention.launches, conv3x3_same.launches, conv3x3_gnsilu.launches) == (
+        n_attn, n_conv, n_gn)
     with reference_ops():
         with reference_ops():
             assert not use_kernel(x)
