@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels.
 
 Every ``aid_tpu_torch/csrc/*.cu`` file is compiled by ``nvcc`` for Hopper
-(``sm_90a``) into ONE shared library with a plain C interface, loaded with
-``ctypes``. No PyTorch header is included, so a build takes seconds, not
-minutes. The library is named by a hash of the sources and flags and lives in
+(``sm_90a``), one ``nvcc`` process per source, all started together, and
+the objects are linked into ONE shared library with a plain C interface,
+loaded with ``ctypes``. No PyTorch header is included, so a build takes
+seconds, not minutes. The library is named by a hash of the sources and flags and lives in
 ``build/aid_tpu_torch/`` at the repository root (git-ignored): a change to
 any source rebuilds it, an unchanged tree reuses it.
 
@@ -25,7 +26,7 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "aid_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def sources() -> list:
@@ -58,14 +59,32 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
+    nvcc, tag = _nvcc(), os.getpid()
+    srcs = sources()
+    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in srcs]
+    # one nvcc per source, all running at once: the build lasts as long as
+    # the slowest file, not the sum
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for src, obj in zip(srcs, objs)]
+    logs, failed = [], []
+    for src, proc in zip(srcs, procs):
+        _, err = proc.communicate()
+        logs.append(err)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {src.name} (exit {proc.returncode}):\n{err}")
+    try:
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        tmp = out.with_suffix(f".{tag}.tmp")
+        link = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed (exit {proc.returncode}): {' '.join(link)}\n{proc.stderr}")
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     # ptxas -v: registers, shared memory and spills of every kernel
-    out.with_suffix(".ptxas.txt").write_text(proc.stderr)
+    out.with_suffix(".ptxas.txt").write_text("".join(logs))
     os.replace(tmp, out)
     return out
 

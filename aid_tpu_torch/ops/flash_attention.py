@@ -10,15 +10,17 @@ bounds it on the card and how the design answers. On a CPU tensor it runs
 :func:`flash_interpolated_attention_plain`.
 
 Two kernels take CUDA calls:
-  * bf16 with head dim 64, every mode (every SDXL and SD2.x UNet attention):
-    ``csrc/flash_interpolated_attention.cu``, counted by
-    ``flash_interpolated_attention.launches``;
+  * bf16 with head dim 40, 64, 80 or 160, every mode (every UNet attention:
+    64 for SDXL and SD2.x, 40/80/160 for SD1.x's 8 heads at widths
+    320/640/1280): ``csrc/flash_interpolated_attention.cu``, counted by
+    ``flash_interpolated_attention.launches`` and, per head dim, by
+    ``flash_interpolated_attention.launches_by_head_dim``;
   * f32 with head dim 512, self mode (the VAE mid-block attention, one head
-    over 16384 tokens at 1024px): ``csrc/flash_attention_f32_d512.cu``,
-    reached through :func:`flash_self_attention_f32` and counted by its
-    ``launches``.
-Any other dtype, head dim or mode on a CUDA tensor (the SD1.5 head dims
-40/80/160 among them) raises ``NotImplementedError``.
+    over 4096 tokens at 512px, 16384 at 1024px):
+    ``csrc/flash_attention_f32_d512.cu``, reached through
+    :func:`flash_self_attention_f32` and counted by its ``launches``.
+Any other dtype, head dim or mode on a CUDA tensor raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ import torch
 from aid_tpu_torch.ops.attention import AttnMode, _softmax_attn, interpolated_attention
 from aid_tpu_torch.ops.routing import use_kernel
 
-KERNEL_HEAD_DIM = 64
+KERNEL_HEAD_DIMS = (40, 64, 80, 160)
 F32_KERNEL_HEAD_DIM = 512
 
 
@@ -59,11 +61,11 @@ def flash_interpolated_attention_plain(
     return out
 
 
-def _check_operand(name: str, x: torch.Tensor, dtype=torch.bfloat16, head_dim: int = KERNEL_HEAD_DIM) -> None:
+def _check_operand(name: str, x: torch.Tensor, dtype=torch.bfloat16, head_dims=KERNEL_HEAD_DIMS) -> None:
     if x.dtype != dtype:
         raise NotImplementedError(f"flash kernel takes {dtype} here; {name} is {x.dtype}")
-    if x.shape[-1] != head_dim:
-        raise NotImplementedError(f"flash kernel takes head dim {head_dim} here; {name} has {x.shape[-1]}")
+    if x.shape[-1] not in head_dims:
+        raise NotImplementedError(f"flash kernel takes head dims {head_dims} here; {name} has {x.shape[-1]}")
     if x.stride(-1) != 1:
         raise ValueError(f"{name}: the head dim must be contiguous, strides {x.stride()}")
     per_16_bytes = 16 // x.element_size()
@@ -87,7 +89,7 @@ def flash_self_attention_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.dim() != 4 or k.shape[:2] != (B, H) or k.shape[-1] != D or v.shape != k.shape:
         raise ValueError(f"k/v shapes {tuple(k.shape)}/{tuple(v.shape)} do not match q {tuple(q.shape)}")
     for name, x in (("q", q), ("k", k), ("v", v)):
-        _check_operand(name, x, torch.float32, F32_KERNEL_HEAD_DIM)
+        _check_operand(name, x, torch.float32, (F32_KERNEL_HEAD_DIM,))
     if Sq == 0 or k.shape[2] == 0:
         raise ValueError("empty query or key sequence")
     out = torch.empty((B, H, Sq, D), dtype=torch.float32, device=q.device)
@@ -207,8 +209,16 @@ def flash_interpolated_attention(
         dims_c, float(scale), has_own, n_sets, stream)
     _build.check(code, "flash_interpolated_attention launch")
     flash_interpolated_attention.launches += 1
+    flash_interpolated_attention.launches_by_head_dim[D] += 1
     return out
 
 
-#: kernel launches since the last reset (chip_smoke.py reads it around the main path)
-flash_interpolated_attention.launches = 0
+def reset_launch_counts() -> None:
+    """Set the bf16 kernel's launch counts (total and per head dim) to 0."""
+    flash_interpolated_attention.launches = 0
+    flash_interpolated_attention.launches_by_head_dim = dict.fromkeys(KERNEL_HEAD_DIMS, 0)
+
+
+#: kernel launches since the last reset, in all and by head dim (chip_smoke.py
+#: reads them around each path)
+reset_launch_counts()

@@ -1,19 +1,23 @@
 """The denoising engine: warmup-split AID with sequential classifier-free guidance.
 
-Counterpart of ``aid_tpu.pipelines.engine.denoise_sequence`` (engine.py:32-228).
-PyTorch runs eagerly, so the JAX package's two ``fori_loop`` phases become
-one Python loop with a static warmup split: steps ``[0, warmup_steps)`` run
-the ``early`` AID mode, the rest the ``late`` one. CFG matches the
-reference: a conditional UNet pass with AID active, then an unconditional
-pass with AID off (vanilla attention in attn1 and attn2).
+Counterpart of ``aid_tpu.pipelines.engine``'s ``denoise_sequence``,
+``denoise_steps`` and ``denoise_range`` (engine.py:32-318). PyTorch runs
+eagerly, so the JAX package's ``fori_loop`` phases become one Python loop
+over a step range ``[start, end)`` with a warmup split: steps
+``i < warmup_steps`` run the ``early`` AID mode, the rest the ``late`` one.
+CFG matches the reference: a conditional UNet pass with AID active, then an
+unconditional pass with AID off (vanilla attention in attn1 and attn2).
+``denoise_steps`` returns the scheduler state too, so chunks of one schedule
+compose (the pipelines' interruptible path); ``denoise_range`` is the
+vanilla-attention loop of the denoising-interpolation baseline and plain
+text-to-image.
 
 ``decode_latents`` and ``to_uint8`` are the counterparts of engine.py:319-348
 and 422-426: an f32 VAE decode, optionally one frame at a time, with the
 latents mean/std denormalisation.
 
 Not yet ported: ``cfg_mode="batched"``, ``loop_mode="fused"`` (force-vanilla
-endpoint skipping), ``denoise_steps`` / ``denoise_range``, IP-Adapter embeds
-and ``tiled_decode``.
+endpoint skipping), IP-Adapter embeds and ``tiled_decode``.
 """
 
 from __future__ import annotations
@@ -40,39 +44,39 @@ def _make_aid(mode: AidMode, coef: torch.Tensor) -> Optional[AidContext]:
 
 
 @torch.no_grad()
-def denoise_sequence(
+def denoise_steps(
     unet,
     scheduler,
     latents: torch.Tensor,  # (B, C, h, w) NCHW
     embs: torch.Tensor,  # (B, S, D) conditional text embeds
     uncond_embs: torch.Tensor,  # (B, S, D)
-    coef: torch.Tensor,  # (B,) per-frame interpolation coefficients
+    coef: Optional[torch.Tensor],  # (B,) per-frame interpolation coefficients
     sched_state,
     guidance_scale: float,
     *,
     early: AidMode,
     late: AidMode,
-    num_steps: int,
+    start: int,
+    end: int,
     warmup_steps: int,
     guidance_rescale: float = 0.0,
     added_cond: Optional[dict] = None,  # SDXL cond dict (pooled text_embeds, time_ids)
     added_cond_uncond: Optional[dict] = None,  # SDXL uncond dict; defaults to added_cond
-) -> torch.Tensor:
-    """Run the full warmup-split CFG denoise loop; returns the final latents.
-
-    The caller's ``latents`` are never written: the loop starts from a copy
-    (the JAX function donates its buffer instead).
-    """
+    eta: float = 0.0,
+    generator: Optional[torch.Generator] = None,  # the step noise when eta > 0
+):
+    """Warmup-split CFG steps ``[start, end)`` of a schedule; returns
+    ``(latents, sched_state)`` so chunks compose. The caller's ``latents``
+    are never written in place."""
     if early.cfg_split or late.cfg_split:
         raise NotImplementedError("batched CFG (cfg_split) is not yet ported to the engine")
     if added_cond is not None and added_cond_uncond is None:
         added_cond_uncond = added_cond
     uncond_mode = AidMode.vanilla()
-    early_end = min(max(warmup_steps, 0), num_steps)
+    step_kw = dict(eta=eta, generator=generator) if eta > 0.0 else {}
 
-    latents = latents.clone()
-    for i in range(num_steps):
-        mode = early if i < early_end else late
+    for i in range(start, end):
+        mode = early if i < warmup_steps else late
         t = sched_state.timesteps[i]
         latent_in = scheduler.scale_model_input(sched_state, latents, i)
         noise_text = unet(latent_in, t, embs, _make_aid(mode, coef), added_cond)
@@ -82,8 +86,29 @@ def denoise_sequence(
         noise = noise_uncond + guidance_scale * (noise_text.float() - noise_uncond)
         if guidance_rescale > 0.0:
             noise = rescale_noise_cfg(noise, noise_text.float(), guidance_rescale)
-        latents, sched_state = scheduler.step(sched_state, noise, i, latents)
+        latents, sched_state = scheduler.step(sched_state, noise, i, latents, **step_kw)
+    return latents, sched_state
+
+
+def denoise_sequence(unet, scheduler, latents, embs, uncond_embs, coef, sched_state, guidance_scale, *,
+                     early: AidMode, late: AidMode, num_steps: int, warmup_steps: int, **kwargs) -> torch.Tensor:
+    """The whole warmup-split CFG loop, steps ``[0, num_steps)``; returns
+    the final latents (see :func:`denoise_steps`)."""
+    latents, _ = denoise_steps(unet, scheduler, latents, embs, uncond_embs, coef, sched_state, guidance_scale,
+                               early=early, late=late, start=0, end=num_steps, warmup_steps=warmup_steps, **kwargs)
     return latents
+
+
+def denoise_range(unet, scheduler, latents, embs, uncond_embs, sched_state, guidance_scale, *, start: int,
+                  end: int, eta: float = 0.0, generator: Optional[torch.Generator] = None, added_cond=None,
+                  added_cond_uncond=None):
+    """Vanilla-attention CFG steps ``[start, end)``; returns
+    ``(latents, sched_state)``. The composition primitive of the
+    denoising-interpolation baseline and of ``__call__``."""
+    vanilla = AidMode.vanilla()
+    return denoise_steps(unet, scheduler, latents, embs, uncond_embs, None, sched_state, guidance_scale,
+                         early=vanilla, late=vanilla, start=start, end=end, warmup_steps=0, eta=eta,
+                         generator=generator, added_cond=added_cond, added_cond_uncond=added_cond_uncond)
 
 
 @torch.no_grad()

@@ -1,16 +1,29 @@
-"""The interpolation pipeline's shared core (the part ``interpolate`` needs).
+"""The SD1.x interpolation pipeline and the core its subclasses share.
 
 Counterpart of ``aid_tpu.pipelines.interpolation.InterpolationPipeline``:
-``generate_latent``, ``_aid_modes``, ``_run_sequence`` (interpolation.py:
-301-403, without chunking or callbacks) and ``_decode``. Modules are the
-port's ``nn.Module``s with their weights inside, so there are no separate
-parameter trees. Latents are NCHW; decoded images are NHWC uint8 numpy, as
-the JAX package returns them.
+``generate_latent``, ``encode_prompt``, ``_run_sequence`` with chunked
+generation, ``interrupt`` and both callback kinds, the entry points
+``interpolate`` (PAID guide prompt, explicit ``ts``), ``interpolate_single``,
+``interpolate_save_gpu`` (both ways), ``denoising_interpolate`` and
+``__call__``, and ``_decode``. Modules are the port's ``nn.Module``s with
+their weights inside, so there are no separate parameter trees. Latents are
+NCHW; decoded images are NHWC uint8 numpy, as the JAX package returns them.
 
-Not yet ported: the SD1.x entry points (``interpolate``,
-``interpolate_single``, ``interpolate_save_gpu``, ``denoising_interpolate``),
-chunked generation with ``interrupt`` and callbacks, the safety checker, the
-IP-Adapter attachments, VAE tiling and the bf16 decode option.
+One layout trap: ``slerp`` works over the LAST axis. The JAX package's
+latents are NHWC, so its latent slerps (``spherical_interpolation`` in
+``interpolate``, the one-point ``slerp`` in ``interpolate_single``) slerp
+each pixel's channel vector. The port's latents are NCHW, so
+:func:`slerp_latents` and :func:`slerp_latent` slerp them channels-last and
+turn the result back. Text embeds (1, 77, D) have the same layout on both
+sides.
+
+Random latents come from a ``torch.Generator``: torch and JAX draw
+different numbers from one seed, so parity tests hand both pipelines the
+same latents.
+
+Not yet ported: the IP-Adapter attachments (image embeds raise
+``NotImplementedError``), the prompt-embeds shortcuts, the safety checker,
+VAE tiling and the bf16 decode option.
 """
 
 from __future__ import annotations
@@ -18,24 +31,70 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Optional
 
+import numpy as np
 import torch
 
 from aid_tpu_torch.models.layers import AidMode
+from aid_tpu_torch.ops.interp import (
+    generate_beta_schedule,
+    lerp,
+    linear_interpolation,
+    slerp,
+    spherical_interpolation,
+)
 from aid_tpu_torch.pipelines import engine
+from aid_tpu_torch.schedulers.ddim import DDIMScheduler
+
+
+def _channels_last(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 2, 3, 1)
+
+
+def _channels_first(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 3, 1, 2).contiguous()
+
+
+def slerp_latents(latent_start: torch.Tensor, latent_end: torch.Tensor, size: int, ts=None) -> torch.Tensor:
+    """(1, C, h, w) x 2 -> (size, C, h, w), slerped over channels per pixel
+    at uniform points or at ``ts`` (the JAX package's NHWC slerp)."""
+    out = spherical_interpolation(_channels_last(latent_start), _channels_last(latent_end), size, ts=ts)
+    return _channels_first(out)
+
+
+def slerp_latent(latent_start: torch.Tensor, latent_end: torch.Tensor, t: float) -> torch.Tensor:
+    """One point of :func:`slerp_latents`: (1, C, h, w) at coefficient ``t``."""
+    return _channels_first(slerp(_channels_last(latent_start), _channels_last(latent_end), t))
+
+
+def _check_ts(ts) -> np.ndarray:
+    ts = np.asarray(ts, np.float32)
+    if ts.ndim != 1 or ts[0] != 0.0 or ts[-1] != 1.0:
+        raise ValueError("ts must be a 1-D schedule with endpoints 0 and 1")
+    return ts
+
+
+def _no_ip(*image_embeds) -> None:
+    if any(x is not None for x in image_embeds):
+        raise NotImplementedError("image embeds need the IP-Adapter branch, which is not yet ported")
 
 
 @dataclasses.dataclass
 class InterpolationPipeline:
-    """``tokenizer`` is any callable ``prompt -> (1, max_len) int ids``;
-    ``scheduler`` is the port's Euler (the only scheduler ported yet)."""
+    """SD1.x / 2.x attention-interpolation pipeline. ``tokenizer`` is any
+    callable ``prompt -> (1, max_len) int ids``; ``scheduler`` is the port's
+    DDIM (the default) or Euler."""
 
     unet: Any
     vae: Any
     text_encoder: Any
     tokenizer: Any
-    scheduler: Any
+    scheduler: Any = dataclasses.field(default_factory=DDIMScheduler)
     vae_scale_factor: int = 8
     guidance_scale: float = 7.5
+    # When set, generation runs as ceil(steps / chunk) ``engine.denoise_steps``
+    # segments and ``interrupt()`` is honoured between them.
+    denoise_chunk_size: Optional[int] = None
+    _interrupt: bool = dataclasses.field(default=False, repr=False)
 
     @property
     def device(self) -> torch.device:
@@ -45,6 +104,12 @@ class InterpolationPipeline:
     def latent_channels(self) -> int:
         return self.unet.config.in_channels
 
+    def interrupt(self) -> None:
+        """Request a cooperative cancel of the running generation: it stops
+        at the next chunk boundary (``denoise_chunk_size`` or a callback)
+        and decodes the latents it has."""
+        self._interrupt = True
+
     def _latent_hw(self, height: Optional[int], width: Optional[int]):
         size = self.unet.config.sample_size
         h = (height // self.vae_scale_factor) if height else size
@@ -53,15 +118,26 @@ class InterpolationPipeline:
 
     def generate_latent(self, generator: torch.Generator, height: Optional[int] = None,
                         width: Optional[int] = None) -> torch.Tensor:
-        """Random (1, C, h, w) f32 latent from ``generator``, on its device.
-        (torch and JAX draw different numbers from one seed; parity tests
-        hand both pipelines the same latents.)"""
+        """Random (1, C, h, w) f32 latent from ``generator``, on its device."""
         h, w = self._latent_hw(height, width)
         return torch.randn((1, self.latent_channels, h, w), generator=generator, device=generator.device,
                            dtype=torch.float32)
 
+    def _seeded_latent(self, seed: int, height: Optional[int] = None, width: Optional[int] = None):
+        return self.generate_latent(torch.Generator(device=self.device).manual_seed(seed), height, width)
+
     def _ids(self, tokenizer, text: str) -> torch.Tensor:
         return torch.as_tensor(tokenizer(text), device=self.device)
+
+    @torch.no_grad()
+    def encode_prompt(self, prompt: str, negative_prompt: str = "", clip_skip: int = 0):
+        """Prompt -> (cond, uncond) embeddings, each (1, S, D)."""
+        emb, _, _ = self.text_encoder(self._ids(self.tokenizer, prompt), clip_skip=clip_skip)
+        neg, _, _ = self.text_encoder(self._ids(self.tokenizer, negative_prompt), clip_skip=clip_skip)
+        return emb, neg
+
+    def _interp_pair(self, a, b, t, init: str):
+        return lerp(a, b, t) if init == "linear" else slerp(a, b, t)
 
     def _aid_modes(self, early: str, late: str):
         return AidMode.from_name(early), AidMode.from_name(late)
@@ -83,6 +159,8 @@ class InterpolationPipeline:
         output_type: str = "np",
         per_frame_decode: bool = False,
         num_run_steps: Optional[int] = None,  # denoising_end truncation
+        callback_on_chunk_end=None,  # fn(pipe, step_end, latents) -> latents | None
+        callback_on_step_end=None,  # reference-style fn(pipe, i, t, {"latents": ...}) -> dict | None
     ):
         if output_type not in ("np", "latent"):
             raise ValueError(f"output_type must be 'np' or 'latent', got {output_type!r}")
@@ -92,16 +170,274 @@ class InterpolationPipeline:
         latents = latents * state.init_noise_sigma
         if num_run_steps is None:
             num_run_steps = int(state.timesteps.shape[0])
+        self._interrupt = False
         # early mode for steps i < warmup_steps, 0-based (interpolation.py:335-342)
         warmup_steps = min(int(num_inference_steps * warmup_ratio), num_run_steps)
         early_mode, late_mode = self._aid_modes(early, late)
-        final = engine.denoise_sequence(
-            self.unet, self.scheduler, latents, embs, uncond_embs, coef, state, guidance_scale,
-            early=early_mode, late=late_mode, num_steps=num_run_steps, warmup_steps=warmup_steps,
-            guidance_rescale=guidance_rescale, added_cond=added_cond, added_cond_uncond=added_cond_uncond)
+        common = dict(early=early_mode, late=late_mode, warmup_steps=warmup_steps, guidance_rescale=guidance_rescale,
+                      added_cond=added_cond, added_cond_uncond=added_cond_uncond)
+        chunk = self.denoise_chunk_size
+        if callback_on_step_end is not None:
+            # the reference's per-step signature: every step ends a chunk
+            if callback_on_chunk_end is not None:
+                raise ValueError("pass callback_on_step_end or callback_on_chunk_end, not both")
+            timesteps = state.timesteps
+
+            def callback_on_chunk_end(pipe, step_end, lat, _cb=callback_on_step_end):
+                out = _cb(pipe, step_end - 1, timesteps[step_end - 1], {"latents": lat})
+                return None if out is None else out.get("latents")
+
+            chunk = 1
+        if chunk is None and callback_on_chunk_end is None:
+            final = engine.denoise_sequence(self.unet, self.scheduler, latents, embs, uncond_embs, coef, state,
+                                            guidance_scale, num_steps=num_run_steps, **common)
+        else:
+            chunk = chunk or num_run_steps
+            final = latents
+            for s in range(0, num_run_steps, chunk):
+                end = min(s + chunk, num_run_steps)
+                final, state = engine.denoise_steps(self.unet, self.scheduler, final, embs, uncond_embs, coef,
+                                                    state, guidance_scale, start=s, end=end, **common)
+                if callback_on_chunk_end is not None:
+                    out = callback_on_chunk_end(self, end, final)
+                    if out is not None:
+                        final = out
+                if self._interrupt:
+                    break
         if output_type == "latent":
             return final
         return self._decode(final, per_frame=per_frame_decode)
+
+    def interpolate(
+        self,
+        latent_start: torch.Tensor,  # (1, C, h, w)
+        latent_end: torch.Tensor,
+        prompt_start: str,
+        prompt_end: str,
+        guide_prompt: Optional[str] = None,
+        negative_prompt: str = "",
+        size: int = 7,
+        num_inference_steps: int = 25,
+        warmup_ratio: float = 0.5,
+        early: str = "fused_outer",
+        late: str = "self",
+        alpha: Optional[float] = None,
+        beta: Optional[float] = None,
+        guidance_scale: Optional[float] = None,
+        ts=None,
+        output_type: str = "np",
+        callback_on_chunk_end=None,
+        callback_on_step_end=None,
+    ):
+        """A ``size``-frame sequence from ``prompt_start`` to ``prompt_end``
+        in one batch.
+
+        Latents slerp and text embeds lerp at uniform points, or every
+        interior frame takes ``guide_prompt`` (PAID); the per-frame attention
+        coefficients follow the Beta(alpha, beta) schedule (alpha, beta
+        default to ``num_inference_steps``). ``ts`` ((N,) with ts[0] = 0,
+        ts[-1] = 1) sets the points of all three and the size. Returns
+        (size, H, W, 3) uint8 numpy, or the final latents for
+        ``output_type="latent"``.
+        """
+        if alpha is None:
+            alpha = float(num_inference_steps)
+        if beta is None:
+            beta = float(num_inference_steps)
+        if ts is not None:
+            ts = _check_ts(ts)
+            size = int(ts.shape[0])
+        latents = slerp_latents(latent_start.to(self.device), latent_end.to(self.device), size, ts=ts)
+        emb_s, un_s = self.encode_prompt(prompt_start, negative_prompt)
+        emb_e, un_e = self.encode_prompt(prompt_end, negative_prompt)
+        if guide_prompt is not None:
+            emb_g, un_g = self.encode_prompt(guide_prompt, negative_prompt)
+            embs = torch.cat([emb_s] + [emb_g] * (size - 2) + [emb_e], dim=0)
+            uncond = torch.cat([un_s] + [un_g] * (size - 2) + [un_e], dim=0)
+        else:
+            embs = linear_interpolation(emb_s, emb_e, size=size, ts=ts)
+            uncond = linear_interpolation(un_s, un_e, size=size, ts=ts)
+        coef = ts if ts is not None else generate_beta_schedule(size, alpha, beta, force_endpoints=True)
+        coef = torch.as_tensor(coef, dtype=torch.float32, device=self.device)
+        return self._run_sequence(latents, embs, uncond, coef, num_inference_steps, warmup_ratio, early, late,
+                                  guidance_scale, output_type=output_type, callback_on_chunk_end=callback_on_chunk_end,
+                                  callback_on_step_end=callback_on_step_end)
+
+    def interpolate_single(
+        self,
+        it: float,
+        latent_start: Optional[torch.Tensor] = None,
+        latent_end: Optional[torch.Tensor] = None,
+        prompt_start: str = "",
+        prompt_end: str = "",
+        guide_prompt: Optional[str] = None,
+        negative_prompt: str = "",
+        num_inference_steps: int = 25,
+        warmup_ratio: float = 0.5,
+        early: str = "fused_outer",
+        late: str = "self",
+        init: str = "linear",
+        guidance_scale: Optional[float] = None,
+        guidance_rescale: float = 0.0,
+        image_embeds_start: Optional[torch.Tensor] = None,
+        image_embeds_end: Optional[torch.Tensor] = None,
+        negative_image_embeds: Optional[torch.Tensor] = None,
+        seed: int = 0,
+        output_type: str = "np",
+        callback_on_chunk_end=None,
+        callback_on_step_end=None,
+    ):
+        """3-frame [A, interpolated, B] generation: the middle latent is
+        slerp(A, B, it) per pixel, its text embeds the guide prompt's (PAID)
+        or the lerp/slerp (``init``) of the endpoints', coefficients
+        [0, it, 1]. Missing latents come from ``seed`` and ``seed + 1``."""
+        if not 0.0 < it < 1.0:
+            raise ValueError("t must be between 0 and 1")
+        _no_ip(image_embeds_start, image_embeds_end, negative_image_embeds)
+        latent_start = self._seeded_latent(seed) if latent_start is None else latent_start.to(self.device)
+        latent_end = self._seeded_latent(seed + 1) if latent_end is None else latent_end.to(self.device)
+        latents = torch.cat([latent_start, slerp_latent(latent_start, latent_end, it), latent_end], dim=0)
+
+        emb_s, un_s = self.encode_prompt(prompt_start, negative_prompt)
+        emb_e, un_e = self.encode_prompt(prompt_end, negative_prompt)
+        if guide_prompt is not None:
+            emb_t = self.encode_prompt(guide_prompt, negative_prompt)[0]
+        else:
+            emb_t = self._interp_pair(emb_s, emb_e, it, init)
+        un_t = self._interp_pair(un_s, un_e, it, init)
+        embs = torch.cat([emb_s, emb_t, emb_e], dim=0)
+        uncond = torch.cat([un_s, un_t, un_e], dim=0)
+        coef = torch.tensor([0.0, it, 1.0], dtype=torch.float32, device=self.device)
+        return self._run_sequence(latents, embs, uncond, coef, num_inference_steps, warmup_ratio, early, late,
+                                  guidance_scale, guidance_rescale, output_type=output_type,
+                                  callback_on_chunk_end=callback_on_chunk_end,
+                                  callback_on_step_end=callback_on_step_end)
+
+    def interpolate_save_gpu(
+        self,
+        latent_start: torch.Tensor,
+        latent_end: torch.Tensor,
+        prompt_start: str,
+        prompt_end: str,
+        guide_prompt: Optional[str] = None,
+        negative_prompt: str = "",
+        size: int = 7,
+        num_inference_steps: int = 25,
+        warmup_ratio: float = 0.5,
+        early: str = "fused_outer",
+        late: str = "self",
+        alpha: Optional[float] = None,
+        beta: Optional[float] = None,
+        init: str = "linear",
+        guidance_scale: Optional[float] = None,
+        batched: bool = False,
+    ) -> np.ndarray:
+        """Frame-at-a-time stitched generation: (size - 2) 3-frame runs at
+        the Beta-PPF points, stitched [first 2] + middles + [last], so peak
+        memory stays that of one 3-frame run. ``batched=True`` runs the same
+        sequence as ONE ``interpolate(ts=...)`` batch (every AID mode takes
+        K/V only from the endpoint rows, so each middle frame depends only on
+        its own inputs and the endpoint trajectories). ``init="denoising"``
+        takes the denoising-interpolation baseline per frame."""
+        if alpha is None:
+            alpha = float(num_inference_steps)
+        if beta is None:
+            beta = float(num_inference_steps)
+        betas = generate_beta_schedule(size, alpha, beta, force_endpoints=True)
+        if batched and init == "linear":
+            return self.interpolate(latent_start, latent_end, prompt_start, prompt_end, guide_prompt=guide_prompt,
+                                    negative_prompt=negative_prompt, size=size,
+                                    num_inference_steps=num_inference_steps, warmup_ratio=warmup_ratio,
+                                    early=early, late=late, guidance_scale=guidance_scale, ts=betas)
+        final = None
+        for i in range(size - 2):
+            it = float(betas[i + 1])
+            if init == "denoising":
+                images = self.denoising_interpolate(latent_start, prompt_start, prompt_end, negative_prompt,
+                                                    interpolated_ratio=it, timesteps=num_inference_steps)
+            else:
+                images = self.interpolate_single(it, latent_start, latent_end, prompt_start, prompt_end,
+                                                 guide_prompt=guide_prompt, negative_prompt=negative_prompt,
+                                                 num_inference_steps=num_inference_steps, warmup_ratio=warmup_ratio,
+                                                 early=early, late=late, init=init, guidance_scale=guidance_scale)
+            if size == 3:
+                return images
+            if i == 0:
+                final = images[:2]
+            elif i == size - 3:
+                final = np.concatenate([final, images[1:]], axis=0)
+            else:
+                final = np.concatenate([final, images[1:2]], axis=0)
+        return final
+
+    def _cond_kwargs(self, prompt: str, negative_prompt: str, batch: int, latent_hw) -> tuple:
+        """(cond embeds, uncond embeds, extra engine kwargs) of a vanilla CFG
+        run, repeated to ``batch`` rows. The SDXL subclass adds its
+        micro-conditioning dicts."""
+        emb, uncond = self.encode_prompt(prompt, negative_prompt)[:2]
+        return emb.repeat_interleave(batch, dim=0), uncond.repeat_interleave(batch, dim=0), {}
+
+    def denoising_interpolate(
+        self,
+        latents: torch.Tensor,
+        text_1: str,
+        text_2: str,
+        negative_prompt: str = "",
+        interpolated_ratio: float = 1.0,
+        timesteps: int = 25,
+        guidance_scale: Optional[float] = None,
+    ) -> np.ndarray:
+        """Baseline without AID: condition on ``text_1`` for the first
+        ``int(timesteps * interpolated_ratio)`` steps, then on ``text_2``."""
+        if guidance_scale is None:
+            guidance_scale = self.guidance_scale
+        latents = latents.to(self.device)
+        n = latents.shape[0]
+        emb1, uncond, extra1 = self._cond_kwargs(text_1, negative_prompt, n, latents.shape[2:])
+        emb2, _, extra2 = self._cond_kwargs(text_2, negative_prompt, n, latents.shape[2:])
+        state = self.scheduler.init(timesteps, device=latents.device)
+        latents = latents * state.init_noise_sigma
+        switch = int(timesteps * interpolated_ratio)
+        end = int(state.timesteps.shape[0])
+        latents, state = engine.denoise_range(self.unet, self.scheduler, latents, emb1, uncond, state, guidance_scale,
+                                              start=0, end=switch, **extra1)
+        latents, state = engine.denoise_range(self.unet, self.scheduler, latents, emb2, uncond, state, guidance_scale,
+                                              start=switch, end=end, **extra2)
+        return self._decode(latents)
+
+    def __call__(
+        self,
+        prompt: str,
+        negative_prompt: str = "",
+        height: Optional[int] = None,
+        width: Optional[int] = None,
+        num_inference_steps: int = 50,
+        guidance_scale: Optional[float] = None,
+        num_images_per_prompt: int = 1,
+        seed: int = 0,
+        latents: Optional[torch.Tensor] = None,
+        output_type: str = "np",
+    ):
+        """Plain text-to-image, always vanilla attention. Without
+        ``latents``, image i starts from the latent of seed ``seed + i``."""
+        if output_type not in ("np", "latent"):
+            raise ValueError(f"output_type must be 'np' or 'latent', got {output_type!r}")
+        if guidance_scale is None:
+            guidance_scale = self.guidance_scale
+        if latents is None:
+            latents = torch.cat([self._seeded_latent(seed + i, height, width) for i in range(num_images_per_prompt)])
+        elif num_images_per_prompt not in (1, latents.shape[0]):
+            raise ValueError(f"num_images_per_prompt={num_images_per_prompt} but explicit latents have batch "
+                             f"{latents.shape[0]}; pass matching latents or omit one of the two")
+        latents = latents.to(self.device)
+        emb, uncond, extra = self._cond_kwargs(prompt, negative_prompt, latents.shape[0], latents.shape[2:])
+        state = self.scheduler.init(num_inference_steps, device=latents.device)
+        latents = latents * state.init_noise_sigma
+        final, _ = engine.denoise_range(self.unet, self.scheduler, latents, emb, uncond, state, guidance_scale,
+                                        start=0, end=int(state.timesteps.shape[0]), **extra)
+        if output_type == "latent":
+            return final
+        return self._decode(final)
 
     def _decode(self, latents: torch.Tensor, per_frame: bool = False):
         cfg = self.vae.config

@@ -1,18 +1,20 @@
 """SDXL interpolation pipeline: two prompts in, uint8 frames out.
 
-Counterpart of ``aid_tpu.pipelines.sdxl.InterpolationXLPipeline``'s
-``interpolate`` (sdxl.py:156-238) and what it needs: ``encode_prompt`` (the
-two text encoders' hidden states concatenated, pooled embeds from encoder
-2), the micro-conditioning ``time_ids``, ``denoising_end`` and the
-frame-by-frame f32 VAE decode.
+Counterpart of ``aid_tpu.pipelines.sdxl.InterpolationXLPipeline``:
+``interpolate`` (sdxl.py:156-238), ``interpolate_single`` (sdxl.py:240-380)
+and ``_cond_kwargs`` (sdxl.py:138-154), and what they need:
+``encode_prompt`` (the two text encoders' hidden states concatenated, pooled
+embeds from encoder 2), the micro-conditioning ``time_ids``,
+``denoising_end`` and the frame-by-frame f32 VAE decode. ``_cond_kwargs``
+gives the inherited vanilla entry points (``__call__``,
+``denoising_interpolate``) the added conditioning SDXL's UNet needs, and
+``interpolate_save_gpu`` runs through this class's ``interpolate`` and
+``interpolate_single``. Latents are slerped channels-last, as in the base
+module.
 
-One layout trap: ``spherical_interpolation`` slerps over the LAST axis. The
-JAX package's latents are NHWC, so it slerps each pixel's channel vector;
-the port's latents are NCHW, so ``interpolate`` slerps them channels-last
-and turns the result back.
-
-Not yet ported: ``interpolate_single``, the prompt-embeds entry points, the
-invisible watermark (the JAX default, None, is what runs here).
+Not yet ported: the IP-Adapter branch (image embeds raise
+``NotImplementedError``), the prompt-embeds entry points, the invisible
+watermark (the JAX default, None, is what runs here).
 """
 
 from __future__ import annotations
@@ -23,15 +25,14 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from aid_tpu_torch.ops.interp import generate_beta_schedule, linear_interpolation, spherical_interpolation
-from aid_tpu_torch.pipelines.interpolation import InterpolationPipeline
-
-
-def slerp_latents(latent_start: torch.Tensor, latent_end: torch.Tensor, size: int, ts=None) -> torch.Tensor:
-    """(1, C, h, w) x 2 -> (size, C, h, w), slerped over channels per pixel
-    (the JAX package's NHWC slerp)."""
-    out = spherical_interpolation(latent_start.permute(0, 2, 3, 1), latent_end.permute(0, 2, 3, 1), size, ts=ts)
-    return out.permute(0, 3, 1, 2).contiguous()
+from aid_tpu_torch.ops.interp import generate_beta_schedule, linear_interpolation
+from aid_tpu_torch.pipelines.interpolation import (
+    InterpolationPipeline,
+    _check_ts,
+    _no_ip,
+    slerp_latent,
+    slerp_latents,
+)
 
 
 @dataclasses.dataclass
@@ -93,6 +94,16 @@ class InterpolationXLPipeline(InterpolationPipeline):
         return time_ids, self._time_ids(batch, height, width, negative_original_size,
                                         negative_crops_coords_top_left, negative_target_size)
 
+    def _cond_kwargs(self, prompt: str, negative_prompt: str, batch: int, latent_hw) -> tuple:
+        """The vanilla entry points' conditioning: embeds, and the pooled
+        embeds + time_ids of the latent's pixel size (sdxl.py:138-154)."""
+        emb, uncond, pooled, neg_pooled = (x.repeat_interleave(batch, dim=0)
+                                           for x in self.encode_prompt(prompt, negative_prompt))
+        f = 2 ** (len(self.vae.config.block_out_channels) - 1)
+        time_ids = self._time_ids(batch, latent_hw[0] * f, latent_hw[1] * f)
+        return emb, uncond, {"added_cond": {"text_embeds": pooled, "time_ids": time_ids},
+                             "added_cond_uncond": {"text_embeds": neg_pooled, "time_ids": time_ids}}
+
     def interpolate(
         self,
         latent_start: torch.Tensor,  # (1, C, h, w)
@@ -120,6 +131,8 @@ class InterpolationXLPipeline(InterpolationPipeline):
         negative_crops_coords_top_left: tuple = (0, 0),
         negative_target_size: Optional[tuple] = None,
         output_type: str = "np",
+        callback_on_chunk_end=None,
+        callback_on_step_end=None,
     ):
         """A ``size``-frame sequence from ``prompt_start`` to ``prompt_end``.
 
@@ -138,9 +151,7 @@ class InterpolationXLPipeline(InterpolationPipeline):
         height = height or self.default_size
         width = width or self.default_size
         if ts is not None:
-            ts = np.asarray(ts, np.float32)
-            if ts.ndim != 1 or ts[0] != 0.0 or ts[-1] != 1.0:
-                raise ValueError("ts must be a 1-D schedule with endpoints 0 and 1")
+            ts = _check_ts(ts)
             size = int(ts.shape[0])
 
         latents = slerp_latents(latent_start.to(self.device), latent_end.to(self.device), size, ts=ts)
@@ -171,4 +182,79 @@ class InterpolationXLPipeline(InterpolationPipeline):
             added_cond_uncond={"text_embeds": neg_pooled, "time_ids": neg_time_ids},
             output_type="latent" if denoising_end is not None else output_type,
             per_frame_decode=True,
-            num_run_steps=self._effective_steps(num_inference_steps, denoising_end))
+            num_run_steps=self._effective_steps(num_inference_steps, denoising_end),
+            callback_on_chunk_end=callback_on_chunk_end, callback_on_step_end=callback_on_step_end)
+
+    def interpolate_single(
+        self,
+        it: float,
+        latent_start: Optional[torch.Tensor] = None,
+        latent_end: Optional[torch.Tensor] = None,
+        prompt_start: str = "",
+        prompt_end: str = "",
+        guide_prompt: Optional[str] = None,
+        negative_prompt: str = "",
+        num_inference_steps: int = 28,
+        warmup_ratio: float = 0.5,
+        early: str = "fused_outer",
+        late: str = "self",
+        init: str = "linear",
+        guidance_scale: Optional[float] = None,
+        guidance_rescale: float = 0.0,
+        image_embeds_start: Optional[torch.Tensor] = None,
+        image_embeds_end: Optional[torch.Tensor] = None,
+        negative_image_embeds: Optional[torch.Tensor] = None,
+        height: Optional[int] = None,
+        width: Optional[int] = None,
+        denoising_end: Optional[float] = None,
+        original_size: Optional[tuple] = None,
+        crops_coords_top_left: tuple = (0, 0),
+        target_size: Optional[tuple] = None,
+        negative_original_size: Optional[tuple] = None,
+        negative_crops_coords_top_left: tuple = (0, 0),
+        negative_target_size: Optional[tuple] = None,
+        seed: int = 0,
+        output_type: str = "np",
+        callback_on_chunk_end=None,
+        callback_on_step_end=None,
+    ):
+        """SDXL 3-frame [A, interpolated, B] generation (sdxl.py:240-380):
+        as the base class's, with pooled embeds interpolated beside the text
+        embeds (a guide prompt brings its own) and the micro-conditioning
+        kwargs, whose negatives change only the uncond pass's time_ids."""
+        if not 0.0 < it < 1.0:
+            raise ValueError("t must be between 0 and 1")
+        _no_ip(image_embeds_start, image_embeds_end, negative_image_embeds)
+        height = height or self.default_size
+        width = width or self.default_size
+        latent_start = self._seeded_latent(seed) if latent_start is None else latent_start.to(self.device)
+        latent_end = self._seeded_latent(seed + 1) if latent_end is None else latent_end.to(self.device)
+        latents = torch.cat([latent_start, slerp_latent(latent_start, latent_end, it), latent_end], dim=0)
+
+        emb_s, un_s, pooled_s, neg_pooled_s = self.encode_prompt(prompt_start, negative_prompt)
+        emb_e, un_e, pooled_e, neg_pooled_e = self.encode_prompt(prompt_end, negative_prompt)
+        if guide_prompt is not None:
+            emb_t, _, pooled_t, _ = self.encode_prompt(guide_prompt, negative_prompt)
+        else:
+            emb_t = self._interp_pair(emb_s, emb_e, it, init)
+            pooled_t = self._interp_pair(pooled_s, pooled_e, it, init)
+        un_t = self._interp_pair(un_s, un_e, it, init)
+        neg_pooled_t = self._interp_pair(neg_pooled_s, neg_pooled_e, it, init)
+
+        embs = torch.cat([emb_s, emb_t, emb_e], dim=0)
+        uncond = torch.cat([un_s, un_t, un_e], dim=0)
+        pooled = torch.cat([pooled_s, pooled_t, pooled_e], dim=0)
+        neg_pooled = torch.cat([neg_pooled_s, neg_pooled_t, neg_pooled_e], dim=0)
+        coef = torch.tensor([0.0, it, 1.0], dtype=torch.float32, device=self.device)
+        time_ids, neg_time_ids = self._time_ids_pair(
+            3, height, width, original_size, crops_coords_top_left, target_size, negative_original_size,
+            negative_crops_coords_top_left, negative_target_size)
+        return self._run_sequence(
+            latents, embs, uncond, coef, num_inference_steps, warmup_ratio, early, late, guidance_scale,
+            guidance_rescale,
+            added_cond={"text_embeds": pooled, "time_ids": time_ids},
+            added_cond_uncond={"text_embeds": neg_pooled, "time_ids": neg_time_ids},
+            output_type="latent" if denoising_end is not None else output_type,
+            per_frame_decode=True,
+            num_run_steps=self._effective_steps(num_inference_steps, denoising_end),
+            callback_on_chunk_end=callback_on_chunk_end, callback_on_step_end=callback_on_step_end)

@@ -1,1 +1,1 @@
-"""Diffusion schedulers (Euler so far)."""
+"""Diffusion schedulers (DDIM and Euler so far)."""

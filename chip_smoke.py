@@ -1,33 +1,47 @@
 """Drive the PyTorch port's paths once on an NVIDIA GPU and check them.
 
-    python3 chip_smoke.py            # 4 denoise steps (2 fused_outer warmup + 2 vanilla)
-    python3 chip_smoke.py --steps 28 # the full headline schedule
+    python3 chip_smoke.py            # SDXL paths at 4 denoise steps (2 fused_outer warmup)
+    python3 chip_smoke.py --steps 28 # the SDXL headline schedule; SD1.5 always runs its 25
 
-Three paths, each driven with every launch count set to 0 just before it
+Five paths, each driven with every launch count set to 0 just before it
 and read just after:
-  * the denoise (``bench.py::build_headline``, ported): ``denoise_sequence``
-    over the full-width SDXL UNet (bf16, N(0, 0.02) random weights from a
-    seeded CUDA generator), 7 frames at 128x128 latents, Euler, guidance
-    5.0, Beta(28, 28) frame coefficients, fused_outer AID for the first half
-    of the steps and vanilla after, sequential CFG;
+  * the SDXL denoise (``bench.py::build_headline``, ported):
+    ``denoise_sequence`` over the full-width SDXL UNet (bf16, N(0, 0.02)
+    random weights from a seeded CUDA generator), 7 frames at 128x128
+    latents, Euler, guidance 5.0, Beta(28, 28) frame coefficients,
+    fused_outer AID for the first half of the steps and vanilla after,
+    sequential CFG;
   * the same UNet with the fused GroupNorm+SiLU resnet prologue switched on
     (``layers._FUSED_GN_CONV``, off by default as in the JAX package);
-  * image out: ``InterpolationXLPipeline.interpolate`` from two prompts to
-    seven 1024px uint8 frames, through random f32 CLIP ViT-L and OpenCLIP
-    bigG text encoders, that UNet and the f32 SDXL VAE decode.
+  * SDXL image out: ``InterpolationXLPipeline.interpolate`` from two prompts
+    to seven 1024px uint8 frames, through random f32 CLIP ViT-L and OpenCLIP
+    bigG text encoders, that UNet and the f32 SDXL VAE decode;
+  * SD1.5 ``InterpolationPipeline.interpolate``: a PAID guide prompt, seven
+    512px frames, 25 DDIM steps, the full-width SD1.5 UNet (bf16, N(0, 0.02)
+    weights; attention at head dims 40, 80 and 160), random f32 CLIP ViT-L
+    and the f32 SD VAE decode of all frames at once;
+  * SD1.5 ``interpolate_single(0.5)``: three 512px frames, the same modules.
 
 Phases (each prints its own lines; any failure exits non-zero):
   1. device      needs CUDA; prints the card's name and power limit
-  2. build       compiles the CUDA kernels from aid_tpu_torch/csrc; ptxas resources
+  2. build       compiles the CUDA kernels from aid_tpu_torch/csrc, one nvcc
+                 per source at once; ptxas resources
   3. kernels     each kernel against its plain PyTorch version at the paths'
-                 shapes, with stated tolerances, and both times
+                 shapes (SDXL and SD1.5), with stated tolerances, both times
   4. whole UNet  one full-width SDXL forward in fused_outer through the
                  kernels and through the plain versions (test-only seam)
-  5. denoise     the main path; launch counts, finite checksum, s/step, peak memory
+  5. denoise     the SDXL main path; launch counts, finite checksum, s/step,
+                 peak memory
   6. fused GN    the fused-prologue configuration: a whole-UNet check with a
                  planted halo fault, then a 2-step denoise both ways
-  7. image out   interpolate() at 1024px; stage times, launch counts, the raw
-                 decoder output through the kernels vs the plain versions
+  7. image out   SDXL interpolate() at 1024px; stage times, launch counts,
+                 the raw decoder output through the kernels vs the plain
+                 versions
+  8. SD1.5 UNet  one full-width SD1.5 forward in fused_outer, kernels vs
+                 plain, with two planted faults
+  9. SD1.5 out   interpolate() and interpolate_single() at 512px; stage
+                 times, peak memory, launches by head dim, the raw decoder
+                 output through the kernels vs the plain versions
 The second-to-last line is the kernels' JSON record, the last the result.
 """
 
@@ -36,9 +50,16 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import subprocess
 import sys
 import time
+
+# The package beside this script goes first on the import path, whatever the
+# working directory, and also under PYTHONSAFEPATH (which keeps the script's
+# own directory off sys.path): the script runs the checkout it lies in.
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, ROOT)
 
 
 def fail(msg: str) -> None:
@@ -104,10 +125,26 @@ GNSILU_TOL = CONV_TOL
 # reading, 0.7x the fault, both deterministic for these seeds. The sharper
 # check of the halo is phase 3's border ring, per class.
 FUSED_UNET_TOL = 4e-3
-# The raw decoder output of one 1024px frame, kernels vs plain: only the
-# mid-block attention differs (the convs are cuDNN f32 on both sides, TF32
-# off), so the output moves by about that attention's ~1e-6 relative error.
+# The raw decoder output of one frame (1024px SDXL, 512px SD1.5), kernels
+# vs plain: only the mid-block attention differs (the convs are cuDNN f32 on
+# both sides, TF32 off), so the output moves by about that attention's ~1e-6
+# relative error.
 VAE_TOL = 1e-4
+# The SD1.5 whole UNet (phase 8), kernels vs plain: the LARGEST PER-FRAME
+# relative L2 of the output, not the whole batch's. Beta(25, 25) puts the
+# interior coefficients at 0.43-0.57, so exchanging the endpoints moves a
+# frame by about |1 - 2c| of what they differ by: frames 0, 3 and 6 do not
+# move, and over the whole batch the swapped fault read 3.94e-3 on an H100,
+# beside a sound reading of 3.36e-3. Per frame (H100, these seeds, the same
+# to the last digit in a second forward): sound 3.27-3.44e-3 in every
+# frame; endpoints swapped 6.09e-3 at most (frame 1); fused_outer computed
+# as self 4.38e-2 at most. 4.5e-3 lies between: 1.3x the sound reading,
+# 0.74x the smaller fault. Phase 8 measures both faults in every run and
+# fails if the bound does not separate either.
+SD15_UNET_TOL = 4.5e-3
+# DDIM steps of the SD1.5 sequences (bench.py's SD1.5 workloads), run in
+# full; also the Beta(25, 25) of their frame coefficients.
+SD15_STEPS = 25
 
 
 def kernel_wrappers() -> dict:
@@ -121,12 +158,22 @@ def kernel_wrappers() -> dict:
 
 
 def reset_counts() -> None:
+    from aid_tpu_torch.ops.flash_attention import reset_launch_counts
+
     for fn in kernel_wrappers().values():
         fn.launches = 0
+    reset_launch_counts()
 
 
 def read_counts() -> dict:
-    return {name: fn.launches for name, fn in kernel_wrappers().items()}
+    """Every wrapper's launches, and the bf16 attention's by head dim under
+    ``flash_interpolated_attention[D=...]``."""
+    from aid_tpu_torch.ops.flash_attention import flash_interpolated_attention
+
+    counts = {name: fn.launches for name, fn in kernel_wrappers().items()}
+    for d, n in flash_interpolated_attention.launches_by_head_dim.items():
+        counts[f"flash_interpolated_attention[D={d}]"] = n
+    return counts
 
 
 def check_path(path: str, counts: dict, needed) -> None:
@@ -138,6 +185,12 @@ def check_path(path: str, counts: dict, needed) -> None:
 
 def rel_l2(a, b) -> float:
     return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+def frame_rel_l2(a, b) -> list:
+    """Relative L2 of each frame (dim 0) of ``a`` against ``b``."""
+    a, b = a.float().flatten(1), b.float().flatten(1)
+    return ((a - b).norm(dim=1) / b.norm(dim=1)).tolist()
 
 
 def phase_device():
@@ -173,7 +226,7 @@ def phase_build():
             print(f"  {line.strip()}", flush=True)
 
 
-def phase_kernels(coef, fused_classes):
+def phase_kernels(coef, sd_coef, fused_classes):
     """Each kernel vs its plain version at the paths' shapes. Returns
     {kernel name: (max abs err, ms, plain ms) at its heaviest shape}."""
     import torch
@@ -194,18 +247,45 @@ def phase_kernels(coef, fused_classes):
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32).to(torch.bfloat16)
 
-    coef = coef.to(dev)
-    B = coef.shape[0]
-    skip = skip_mask(coef, B)  # rows 0 (coef 0) and N-1 (coef 1)
     records = {}
 
-    def heads(x, H):  # a (B, S, H*64) projection viewed as (B, H, S, 64), as the model passes it
-        return x.view(x.shape[0], x.shape[1], H, 64).transpose(1, 2)
+    def attention(label, mode, c, H, Sq, L, D, reps, Le=None):
+        """One bf16 attention case, B = len(c): (B, S, H*D) projections viewed
+        as (B, H, S, D), as the model passes them; skip rows as the model
+        marks them; optional shared (H, Le, D) endpoints. Returns (max abs
+        err, kernel ms, plain ms)."""
+        B = c.shape[0]
 
-    # (label, mode, H, Sq, Lkv, reps): self/fused_outer self-attention and
-    # the 77-token cross-attention at both SDXL attention levels, then the
-    # other three modes at one small shape
-    attn_cases = [
+        def heads(x):
+            return x.view(x.shape[0], x.shape[1], H, D).transpose(1, 2)
+
+        q = heads(randn(B, Sq, H * D))
+        k, v = heads(randn(B, L, H * D)), heads(randn(B, L, H * D))
+        kw = {} if mode == "self" else {"skip_endpoints": skip_mask(c, B)}
+        if Le is not None:
+            kw.update({n: randn(H, Le, D) for n in ("k_begin", "v_begin", "k_end", "v_end")})
+        got = flash_interpolated_attention(q, k, v, c, mode, **kw)
+        torch.cuda.synchronize()
+        want = flash_interpolated_attention_plain(q, k, v, c, mode, **kw)
+        err = (got.float() - want.float()).abs().max().item()
+        ref = want.float().abs().max().item()
+        rl2 = rel_l2(got, want)
+        ms = cuda_ms(lambda: flash_interpolated_attention(q, k, v, c, mode, **kw), reps)
+        plain_ms = cuda_ms(lambda: flash_interpolated_attention_plain(q, k, v, c, mode, **kw), max(1, reps // 5))
+        ok = math.isfinite(err) and err <= ATTN_TOL * ref
+        print(f"attention {label:32s} B={B} H={H} D={D}: max_abs_err {err:.3e} (max|ref| {ref:.3e}, "
+              f"tol {ATTN_TOL * ref:.3e}) rel_l2 {rl2:.3e}  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms"
+              f"  {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            fail(f"attention {label} (D={D}): kernel disagrees with the plain version")
+        return err, ms, plain_ms
+
+    # SDXL, D=64 (label, mode, H, Sq, Lkv, reps): self/fused_outer
+    # self-attention and the 77-token cross-attention at both SDXL attention
+    # levels, then the other three modes at one small shape
+    coef = coef.to(dev)
+    B = coef.shape[0]  # the SDXL frames; the conv cases below use it too
+    sdxl_cases = [
         ("self 4096", "self", 10, 4096, 4096, 10),
         ("fused_outer 4096", "fused_outer", 10, 4096, 4096, 5),
         ("self 1024", "self", 20, 1024, 1024, 20),
@@ -219,30 +299,39 @@ def phase_kernels(coef, fused_classes):
         ("fused_inner 256", "fused_inner", 10, 256, 256, 20),
     ]
     worst = 0.0
-    for label, mode, H, Sq, L, reps in attn_cases:
-        q = heads(randn(B, Sq, H * 64), H)
-        k, v = heads(randn(B, L, H * 64), H), heads(randn(B, L, H * 64), H)
-        sk = skip if mode != "self" else None
-        got = flash_interpolated_attention(q, k, v, coef, mode, skip_endpoints=sk)
-        torch.cuda.synchronize()
-        want = flash_interpolated_attention_plain(q, k, v, coef, mode, skip_endpoints=sk)
-        err = (got.float() - want.float()).abs().max().item()
-        ref = want.float().abs().max().item()
-        rl2 = rel_l2(got, want)
-        ms = cuda_ms(lambda: flash_interpolated_attention(q, k, v, coef, mode, skip_endpoints=sk), reps)
-        plain_ms = cuda_ms(lambda: flash_interpolated_attention_plain(q, k, v, coef, mode, skip_endpoints=sk),
-                           max(1, reps // 5))
-        ok = math.isfinite(err) and err <= ATTN_TOL * ref
-        print(f"attention {label:28s} B={B} H={H}: max_abs_err {err:.3e} (max|ref| {ref:.3e}, "
-              f"tol {ATTN_TOL * ref:.3e}) rel_l2 {rl2:.3e}  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms"
-              f"  {'ok' if ok else 'FAIL'}", flush=True)
-        if not ok:
-            fail(f"attention {label}: kernel disagrees with the plain version")
+    for label, mode, H, Sq, L, reps in sdxl_cases:
+        err, ms, plain_ms = attention(label, mode, coef, H, Sq, L, 64, reps)
         worst = max(worst, err)
         if label == "fused_outer 4096":
             main = (ms, plain_ms)
-        del q, k, v, got, want
     records["flash_interpolated_attention"] = (worst, *main)
+
+    # SD1.5, 8 heads at D = 40 / 80 / 160 (widths 320 / 640 / 1280, 64^2 /
+    # 32^2 / 16^2 tokens, 8^2 in the mid block), Beta(25, 25) coefficients
+    # (label, mode, Sq, Lkv, D, reps, shared endpoint length)
+    sd_coef = sd_coef.to(dev)
+    sd_cases = [
+        ("self 4096", "self", 4096, 4096, 40, 10, None),
+        ("fused_outer 4096", "fused_outer", 4096, 4096, 40, 5, None),
+        ("self 1024", "self", 1024, 1024, 80, 20, None),
+        ("fused_outer 1024", "fused_outer", 1024, 1024, 80, 20, None),
+        ("self 256", "self", 256, 256, 160, 20, None),
+        ("fused_outer 256", "fused_outer", 256, 256, 160, 20, None),
+        ("self 64 (mid block)", "self", 64, 64, 160, 20, None),
+        ("fused_outer 64 (mid block)", "fused_outer", 64, 64, 160, 20, None),
+    ]
+    for Sq, D in ((4096, 40), (1024, 80), (256, 160)):
+        sd_cases += [(f"cross {m} {Sq}x77", m, Sq, 77, D, 20, None) for m in ("self", "fused_outer")]
+    for Sq, D in ((4096, 40), (256, 160)):
+        sd_cases += [(f"{m} {Sq}", m, Sq, Sq, D, 10, None) for m in ("pure_outer", "pure_inner", "fused_inner")]
+    sd_cases.append(("fused_outer 4096, shared Le=333", "fused_outer", 4096, 4096, 40, 5, 333))
+    worst = 0.0
+    for label, mode, Sq, L, D, reps, Le in sd_cases:
+        err, ms, plain_ms = attention(f"SD1.5 {label}", mode, sd_coef, 8, Sq, L, D, reps, Le)
+        worst = max(worst, err)
+        if (label, D) == ("fused_outer 4096", 40):
+            main = (ms, plain_ms)
+    records["flash_interpolated_attention(D=40/80/160)"] = (worst, *main)
 
     worst = 0.0
     for cin, cout in ((960, 320), (640, 320), (640, 640)):
@@ -287,22 +376,29 @@ def phase_kernels(coef, fused_classes):
     records["conv3x3_same(packed=True)"] = (err, ms, plain_ms)
     del x, w, b, got, want
 
-    # kernel A: the VAE mid-block attention, one head over 16384 tokens in f32
-    q, k, v = (torch.randn((1, 1, 16384, 512), generator=gen, device=dev) for _ in range(3))
-    got = flash_interpolated_attention(q, k, v)  # routed by dtype and head dim, as the VAE calls it
-    torch.cuda.synchronize()
-    want = flash_interpolated_attention_plain(q, k, v)
-    err, ref = (got - want).abs().max().item(), want.abs().max().item()
-    ms = cuda_ms(lambda: flash_self_attention_f32(q, k, v), 3)
-    plain_ms = cuda_ms(lambda: flash_interpolated_attention_plain(q, k, v), 3)
-    ok = math.isfinite(err) and err <= F32_ATTN_TOL * ref
-    print(f"attention f32 self (1,1,16384,512): max_abs_err {err:.3e} (max|ref| {ref:.3e}, "
-          f"tol {F32_ATTN_TOL * ref:.3e}) rel_l2 {rel_l2(got, want):.3e}  kernel {ms:.3f} ms  "
-          f"plain {plain_ms:.3f} ms  {'ok' if ok else 'FAIL'}", flush=True)
-    if not ok:
-        fail("f32 D=512 attention: kernel disagrees with the plain version")
-    records["flash_self_attention_f32"] = (err, ms, plain_ms)
-    del q, k, v, got, want
+    # kernel A: the VAE mid-block attention in f32, one head over 16384
+    # tokens (SDXL, one 1024px frame) and over 4096 tokens of 7 frames at
+    # once (SD1.5, the batched 512px decode)
+    worst = 0.0
+    for n, S, reps in ((1, 16384, 3), (7, 4096, 5)):
+        q, k, v = (torch.randn((n, 1, S, 512), generator=gen, device=dev) for _ in range(3))
+        got = flash_interpolated_attention(q, k, v)  # routed by dtype and head dim, as the VAE calls it
+        torch.cuda.synchronize()
+        want = flash_interpolated_attention_plain(q, k, v)
+        err, ref = (got - want).abs().max().item(), want.abs().max().item()
+        ms = cuda_ms(lambda: flash_self_attention_f32(q, k, v), reps)
+        plain_ms = cuda_ms(lambda: flash_interpolated_attention_plain(q, k, v), reps)
+        ok = math.isfinite(err) and err <= F32_ATTN_TOL * ref
+        print(f"attention f32 self ({n},1,{S},512): max_abs_err {err:.3e} (max|ref| {ref:.3e}, "
+              f"tol {F32_ATTN_TOL * ref:.3e}) rel_l2 {rel_l2(got, want):.3e}  kernel {ms:.3f} ms  "
+              f"plain {plain_ms:.3f} ms  {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            fail(f"f32 D=512 attention ({n},1,{S},512): kernel disagrees with the plain version")
+        worst = max(worst, err)
+        if S == 16384:
+            main = (ms, plain_ms)
+        del q, k, v, got, want
+    records["flash_self_attention_f32"] = (worst, *main)
 
     # kernel B at every (H, W, Cin, Cout) class the fused configuration routes
     # to it; inputs off zero mean and gamma/beta off 1/0, so silu(shift) is
@@ -565,36 +661,15 @@ def phase_fused(unet, sample, ehs, uncond, added, coef, n_fused_calls: int, card
     return counts
 
 
-def phase_image(unet, steps: int, card: str):
-    """InterpolationXLPipeline.interpolate at 1024px: stage times, launch
-    counts, peak memory, and one frame's raw decoder output through the
-    kernels vs the plain versions. Returns the path's launch counts."""
-    import numpy as np
+def run_image_path(pipe, vae, call, steps: int, frames: int):
+    """Drive one image-out entry point with the launch counts set to 0 just
+    before it and read just after; time its stages (encode per prompt
+    pair, denoise per step, decode per frame) with the host clock around
+    synchronized calls, and keep the decoder's input. Returns (images,
+    counts, stage times, decoder inputs, seconds in all, peak bytes)."""
     import torch
 
-    from aid_tpu_torch.models.clip import CLIPTextModel
-    from aid_tpu_torch.models.configs import CLIP_VIT_L_TEXT, SDXL_TEXT_ENCODER_2, SDXL_VAE
-    from aid_tpu_torch.models.vae import AutoencoderKL
-    from aid_tpu_torch.ops.routing import reference_ops
     from aid_tpu_torch.pipelines import engine
-    from aid_tpu_torch.pipelines.sdxl import InterpolationXLPipeline
-    from aid_tpu_torch.schedulers.euler import EulerDiscreteScheduler
-    from aid_tpu_torch.utils.tokenizer import HashTokenizer
-
-    print(f"== phase 7: image out, InterpolationXLPipeline.interpolate, 7 frames at 1024px, {steps} steps",
-          flush=True)
-    dev = torch.device("cuda")
-    torch.manual_seed(7)  # the modules' default initialisations draw from it
-    with torch.no_grad():
-        text1 = CLIPTextModel(CLIP_VIT_L_TEXT, device=dev).eval()
-        text2 = CLIPTextModel(SDXL_TEXT_ENCODER_2, device=dev).eval()
-        vae = AutoencoderKL(SDXL_VAE, device=dev).eval()
-    pipe = InterpolationXLPipeline(
-        unet=unet, vae=vae, text_encoder=text1, tokenizer=HashTokenizer(CLIP_VIT_L_TEXT.vocab_size),
-        scheduler=EulerDiscreteScheduler(), text_encoder_2=text2,
-        tokenizer_2=HashTokenizer(SDXL_TEXT_ENCODER_2.vocab_size))
-    gen = torch.Generator(device=dev).manual_seed(1)
-    latent_a, latent_b = pipe.generate_latent(gen), pipe.generate_latent(gen)
 
     stages = {"encode": [], "denoise": [], "decode": []}
     decoder_inputs = []
@@ -623,50 +698,251 @@ def phase_image(unet, steps: int, card: str):
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
         t0 = time.perf_counter()
-        images = pipe.interpolate(latent_a, latent_b, "prompt A", "prompt B", size=7, num_inference_steps=steps)
+        images = call()
         elapsed = time.perf_counter() - t0
         counts = read_counts()
     finally:
         engine.denoise_sequence = real_denoise
         del vae.decode, pipe.encode_prompt
-    peak = torch.cuda.max_memory_allocated()
+    times = {"encode": stages["encode"], "s_per_step": stages["denoise"][0] / steps,
+             "s_per_frame": sum(stages["decode"]) / frames}
+    return images, counts, times, decoder_inputs, elapsed, torch.cuda.max_memory_allocated()
 
-    print(f"output {images.shape} {images.dtype}; {elapsed:.2f} s in all on {card}: encode "
-          f"{' / '.join(f'{x:.3f}' for x in stages['encode'])} s per prompt pair (prompt + negative), "
-          f"denoise {stages['denoise'][0] / steps:.3f} s/step, decode "
-          f"{sum(stages['decode']) / len(stages['decode']):.3f} s/frame; peak memory {peak / 2**30:.2f} GiB",
-          flush=True)
-    if images.shape != (7, 1024, 1024, 3) or images.dtype != np.uint8:
-        fail(f"interpolate returned {images.shape} {images.dtype}, want (7, 1024, 1024, 3) uint8")
+
+def check_images(label: str, images, shape, times, elapsed: float, peak: int, card: str) -> None:
+    import numpy as np
+
+    print(f"{label}: output {images.shape} {images.dtype}; {elapsed:.2f} s in all on {card}: encode "
+          f"{' / '.join(f'{x:.3f}' for x in times['encode'])} s per prompt pair (prompt + negative), "
+          f"denoise {times['s_per_step']:.3f} s/step, decode {times['s_per_frame']:.3f} s/frame; "
+          f"peak memory {peak / 2**30:.2f} GiB", flush=True)
+    if images.shape != shape or images.dtype != np.uint8:
+        fail(f"{label} returned {images.shape} {images.dtype}, want {shape} uint8")
     inside = float(((images > 0) & (images < 255)).mean())
     print(f"share of output values strictly inside (0, 255): {inside:.4f}", flush=True)
-    check_path("image out", counts, ("flash_interpolated_attention", "flash_self_attention_f32", "conv3x3_same"))
-    if counts["flash_self_attention_f32"] != 7:
-        fail(f"the f32 attention kernel ran {counts['flash_self_attention_f32']} times, once per frame (7) expected")
 
-    frame = 3
+
+def check_decoder(decode, z, images, frame: int) -> float:
+    """One frame's raw decoder output through the kernels vs the plain
+    versions; fails on disagreement or on a mostly saturated frame."""
+    import torch
+
+    from aid_tpu_torch.ops.routing import reference_ops
+
     with torch.no_grad():
-        got = decode(decoder_inputs[frame])
+        got = decode(z)
         with reference_ops():
-            want = decode(decoder_inputs[frame])
+            want = decode(z)
     frame_inside = float(((images[frame] > 0) & (images[frame] < 255)).mean())
     rel = rel_l2(got, want)
     ok = math.isfinite(rel) and rel <= VAE_TOL and bool(torch.isfinite(got).all())
-    print(f"raw decoder output, frame {frame} (1,3,1024,1024) f32: rel_l2 kernels vs plain {rel:.3e} "
+    print(f"raw decoder output, frame {frame} {tuple(got.shape)} f32: rel_l2 kernels vs plain {rel:.3e} "
           f"(tol {VAE_TOL:.0e}; TF32 off on both sides); its uint8 values strictly inside (0, 255): "
           f"{frame_inside:.4f}  {'ok' if ok else 'FAIL'}", flush=True)
     if frame_inside < 0.5:
         fail("the compared frame is mostly saturated: the comparison would not see the kernel")
     if not ok:
         fail("the decoder output through the kernels disagrees with the plain versions")
+    return rel
+
+
+def phase_image(unet, steps: int, card: str):
+    """InterpolationXLPipeline.interpolate at 1024px: stage times, launch
+    counts, peak memory, and one frame's raw decoder output through the
+    kernels vs the plain versions. Returns the path's launch counts."""
+    import torch
+
+    from aid_tpu_torch.models.clip import CLIPTextModel
+    from aid_tpu_torch.models.configs import CLIP_VIT_L_TEXT, SDXL_TEXT_ENCODER_2, SDXL_VAE
+    from aid_tpu_torch.models.vae import AutoencoderKL
+    from aid_tpu_torch.pipelines.sdxl import InterpolationXLPipeline
+    from aid_tpu_torch.schedulers.euler import EulerDiscreteScheduler
+    from aid_tpu_torch.utils.tokenizer import HashTokenizer
+
+    print(f"== phase 7: image out, InterpolationXLPipeline.interpolate, 7 frames at 1024px, {steps} steps",
+          flush=True)
+    dev = torch.device("cuda")
+    torch.manual_seed(7)  # the modules' default initialisations draw from it
+    with torch.no_grad():
+        text1 = CLIPTextModel(CLIP_VIT_L_TEXT, device=dev).eval()
+        text2 = CLIPTextModel(SDXL_TEXT_ENCODER_2, device=dev).eval()
+        vae = AutoencoderKL(SDXL_VAE, device=dev).eval()
+    pipe = InterpolationXLPipeline(
+        unet=unet, vae=vae, text_encoder=text1, tokenizer=HashTokenizer(CLIP_VIT_L_TEXT.vocab_size),
+        scheduler=EulerDiscreteScheduler(), text_encoder_2=text2,
+        tokenizer_2=HashTokenizer(SDXL_TEXT_ENCODER_2.vocab_size))
+    gen = torch.Generator(device=dev).manual_seed(1)
+    latent_a, latent_b = pipe.generate_latent(gen), pipe.generate_latent(gen)
+
+    images, counts, times, decoder_inputs, elapsed, peak = run_image_path(
+        pipe, vae, lambda: pipe.interpolate(latent_a, latent_b, "prompt A", "prompt B", size=7,
+                                            num_inference_steps=steps), steps, 7)
+    check_images("interpolate", images, (7, 1024, 1024, 3), times, elapsed, peak, card)
+    check_path("image out", counts, ("flash_interpolated_attention", "flash_self_attention_f32", "conv3x3_same"))
+    if counts["flash_self_attention_f32"] != 7:
+        fail(f"the f32 attention kernel ran {counts['flash_self_attention_f32']} times, once per frame (7) expected")
+    check_decoder(vae.decode, decoder_inputs[3], images, 3)  # frame by frame: input 3 is frame 3
     return counts
+
+
+def sd15_coef():
+    """Beta(25, 25) coefficients of 7 frames (the 25-step SD1.5 sequence),
+    endpoints forced, on the host."""
+    import torch
+
+    from aid_tpu_torch.ops.interp import generate_beta_schedule
+
+    return torch.from_numpy(generate_beta_schedule(7, SD15_STEPS, SD15_STEPS, force_endpoints=True))
+
+
+def build_sd15(seed: int = 0, cfg=None, device: str = "cuda"):
+    """The full-width SD1.5 UNet (``configs.SD15_UNET``, bf16, N(0, 0.02)
+    weights from a seeded CUDA generator, as bench.py's SD1.5 workloads).
+    ``cfg``/``device`` exist for rehearsing the phases on the CPU."""
+    import torch
+
+    from aid_tpu_torch.models.configs import SD15_UNET
+    from aid_tpu_torch.models.unet import UNet2DCondition
+
+    dev = torch.device(device)
+    unet = UNet2DCondition(cfg or SD15_UNET, device=dev, dtype=torch.bfloat16).eval()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    with torch.no_grad():
+        for p in unet.parameters():
+            p.normal_(0.0, 0.02, generator=gen)
+    return unet
+
+
+def swapped_endpoints(plain):
+    """A planted fault: the plain attention ``plain`` with the begin and end
+    endpoints exchanged."""
+    def fault(q, k, v, coef=None, mode="self", k_begin=None, v_begin=None, k_end=None, v_end=None, **kwargs):
+        if k_begin is None:
+            k_begin, v_begin = k[0], v[0]
+        if k_end is None:
+            k_end, v_end = k[-1], v[-1]
+        return plain(q, k, v, coef, mode, k_begin=k_end, v_begin=v_end, k_end=k_begin, v_end=v_begin, **kwargs)
+    return fault
+
+
+def phase_sd15_unet(unet, coef):
+    """One full-width SD1.5 forward in fused_outer, 7 frames at 64^2
+    latents, through the kernels and through the plain versions, with two
+    faults planted through the plain versions. Returns the sound reading."""
+    import torch
+
+    from aid_tpu_torch.models.layers import AidContext, AidMode
+    from aid_tpu_torch.ops import flash_attention
+    from aid_tpu_torch.ops.routing import reference_ops
+
+    cfg, dev, frames = unet.config, coef.device, coef.shape[0]
+    s = cfg.sample_size
+    print(f"== phase 8: whole SD1.5 UNet forward, kernels vs plain (fused_outer, {frames} frames, {s}x{s} latents)",
+          flush=True)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    sample = torch.randn((frames, cfg.in_channels, s, s), generator=gen, device=dev).to(torch.bfloat16)
+    ehs = torch.randn((frames, 77, cfg.cross_attention_dim), generator=gen, device=dev).to(torch.bfloat16)
+    aid = AidContext(coef=coef, mode=AidMode.from_name("fused_outer"))
+    t = torch.tensor(500, device=dev)
+    with torch.no_grad():
+        reset_counts()
+        got = unet(sample, t, ehs, aid)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        with reference_ops():
+            want = unet(sample, t, ehs, aid)
+            fault_self = unet(sample, t, ehs, None)  # planted fault 1: fused_outer computed as self
+            real_plain = flash_attention.flash_interpolated_attention_plain
+            flash_attention.flash_interpolated_attention_plain = swapped_endpoints(real_plain)
+            try:
+                fault_swap = unet(sample, t, ehs, aid)  # planted fault 2: begin and end exchanged
+            finally:
+                flash_attention.flash_interpolated_attention_plain = real_plain
+    if not torch.isfinite(got).all():
+        fail("whole SD1.5 UNet kernel output is not finite")
+    readings = {"kernels": got, "fused_outer->self": fault_self, "endpoints swapped": fault_swap}
+    per_frame = {name: frame_rel_l2(x, want) for name, x in readings.items()}
+    for name, x in readings.items():
+        print(f"  {name:18s} rel_l2 whole {rel_l2(x, want):.3e}, by frame "
+              f"{' '.join(f'{r:.3e}' for r in per_frame[name])}", flush=True)
+    rel, f_self, f_swap = (max(per_frame[name]) for name in readings)
+    ok = math.isfinite(rel) and rel <= SD15_UNET_TOL
+    by_dim = {d: counts[f"flash_interpolated_attention[D={d}]"] for d in (40, 80, 160)}
+    print(f"unet SD1.5 fused_outer B={frames} {s}x{s}: attention launches by head dim {by_dim}; largest per-frame "
+          f"rel_l2 kernels vs plain {rel:.3e} (tol {SD15_UNET_TOL:.1e}; planted faults: fused_outer->self "
+          f"{f_self:.3e}, endpoints swapped {f_swap:.3e})  {'ok' if ok else 'FAIL'}", flush=True)
+    if not min(by_dim.values()) > 0:
+        fail(f"the SD1.5 forward did not reach the kernel at every head dim: {by_dim}")
+    for name, f in (("fused_outer->self", f_self), ("endpoints swapped", f_swap)):
+        if not f > SD15_UNET_TOL:
+            fail(f"the SD1.5 whole-UNet bound {SD15_UNET_TOL:.1e} does not separate the planted fault {name} "
+                 f"({f:.3e})")
+    if not ok:
+        fail("whole SD1.5 UNet output through the kernels disagrees with the plain versions")
+    return rel
+
+
+def phase_sd15_image(unet, card: str, steps: int, text_cfg=None, vae_cfg=None):
+    """The SD1.5 pipeline's two entry points at 512px with DDIM:
+    ``interpolate`` (PAID guide prompt, 7 frames) and
+    ``interpolate_single(0.5)`` (3 frames), random f32 CLIP ViT-L,
+    HashTokenizer, the f32 SD VAE decode batched (the JAX default). Each is
+    its own path for the launch counts. Returns the two paths' counts.
+    ``text_cfg``/``vae_cfg`` exist for rehearsing on the CPU."""
+    import torch
+
+    from aid_tpu_torch.models.clip import CLIPTextModel
+    from aid_tpu_torch.models.configs import CLIP_VIT_L_TEXT, SD_VAE
+    from aid_tpu_torch.models.vae import AutoencoderKL
+    from aid_tpu_torch.pipelines.interpolation import InterpolationPipeline
+    from aid_tpu_torch.schedulers.ddim import DDIMScheduler
+    from aid_tpu_torch.utils.tokenizer import HashTokenizer
+
+    text_cfg, vae_cfg = text_cfg or CLIP_VIT_L_TEXT, vae_cfg or SD_VAE
+    px = unet.config.sample_size * 2 ** (len(vae_cfg.block_out_channels) - 1)
+    print(f"== phase 9: image out, SD1.5 InterpolationPipeline at {px}px, {steps} DDIM steps: interpolate (PAID, "
+          f"7 frames), then interpolate_single(0.5) (3 frames)", flush=True)
+    dev = next(unet.parameters()).device
+    torch.manual_seed(9)  # the modules' default initialisations draw from it
+    with torch.no_grad():
+        text = CLIPTextModel(text_cfg, device=dev).eval()
+        vae = AutoencoderKL(vae_cfg, device=dev).eval()
+    pipe = InterpolationPipeline(unet=unet, vae=vae, text_encoder=text,
+                                 tokenizer=HashTokenizer(text_cfg.vocab_size), scheduler=DDIMScheduler())
+    gen = torch.Generator(device=dev).manual_seed(2)
+    latent_a, latent_b = pipe.generate_latent(gen), pipe.generate_latent(gen)
+
+    entry_points = [
+        ("interpolate", 7, lambda: pipe.interpolate(latent_a, latent_b, "prompt A", "prompt B",
+                                                    guide_prompt="a guide prompt", size=7,
+                                                    num_inference_steps=steps)),
+        ("interpolate_single", 3, lambda: pipe.interpolate_single(0.5, latent_a, latent_b, "prompt A", "prompt B",
+                                                                  num_inference_steps=steps)),
+    ]
+    needed = ("flash_interpolated_attention[D=40]", "flash_interpolated_attention[D=80]",
+              "flash_interpolated_attention[D=160]", "flash_self_attention_f32")
+    paths = []
+    for label, frames, call in entry_points:
+        images, counts, times, decoder_inputs, elapsed, peak = run_image_path(pipe, vae, call, steps, frames)
+        check_images(f"SD1.5 {label}", images, (frames, px, px, 3), times, elapsed, peak, card)
+        check_path(f"SD1.5 {label}", counts, needed)
+        # one decode of all frames: compare its least saturated frame
+        inside = ((images > 0) & (images < 255)).reshape(frames, -1).mean(axis=1)
+        frame = int(inside.argmax())
+        check_decoder(vae.decode, decoder_inputs[0][frame:frame + 1], images, frame)
+        paths.append(counts)
+    return paths
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=4,
-                    help="denoise steps of the main path and of the image-out path (half fused_outer warmup)")
+                    help="SDXL denoise steps of the main path and of the image-out path (half fused_outer warmup)")
     args = ap.parse_args(argv)
+    try:
+        import aid_tpu_torch  # noqa: F401
+    except ImportError as e:
+        fail(f"the port's package aid_tpu_torch is not beside this script in {ROOT}: {e}")
 
     card = phase_device()
     import torch
@@ -674,37 +950,49 @@ def main(argv=None) -> int:
     phase_build()
     unet, sample, ehs, uncond, added, coef = build_headline()
     fused_classes = fused_conv_classes(unet, sample, ehs, added)
-    kernels = phase_kernels(coef, fused_classes)
+    kernels = phase_kernels(coef, sd15_coef(), fused_classes)
     phase_unet(unet, sample, ehs, added, coef)
     paths = [phase_main(unet, sample, ehs, uncond, added, coef, args.steps, card),
              phase_fused(unet, sample, ehs, uncond, added, coef, sum(fused_classes.values()), card)]
     del sample, ehs, uncond, added, coef
     paths.append(phase_image(unet, args.steps, card))
-    launches = {name: sum(p[name] for p in paths) for name in kernel_wrappers()}
-    print(f"launches over the three paths: {launches}", flush=True)
+    del unet
+    torch.cuda.empty_cache()
+    sd_unet = build_sd15()
+    phase_sd15_unet(sd_unet, sd15_coef().cuda())
+    paths += phase_sd15_image(sd_unet, card, SD15_STEPS)
+    launches = {name: sum(p[name] for p in paths) for name in paths[0]}
+    print(f"launches over the five paths: {launches}", flush=True)
 
     flash_src = "aid_tpu_torch/csrc/flash_interpolated_attention.cu"
     conv_src = "aid_tpu_torch/csrc/conv3x3.cu"
-    # name -> (source, TPU kernel replaced, the launch count it is read from, extra fields)
+    flash_replaces = ("aid_tpu/ops/flash_attention.py:101", {"also_replaces": "aid_tpu/ops/flash_attention.py:339"})
+    # name -> (source, TPU kernel replaced, the launch counts it is read from, extra fields)
     rows = {
-        "flash_interpolated_attention": (flash_src, "aid_tpu/ops/flash_attention.py:101",
-                                         "flash_interpolated_attention",
-                                         {"also_replaces": "aid_tpu/ops/flash_attention.py:339"}),
+        "flash_interpolated_attention": (flash_src, flash_replaces[0], ("flash_interpolated_attention[D=64]",),
+                                         {**flash_replaces[1],
+                                          "contract": "bf16, head dim 64, every mode (SDXL / SD2.x UNet)"}),
+        "flash_interpolated_attention(D=40/80/160)": (
+            flash_src, flash_replaces[0],
+            tuple(f"flash_interpolated_attention[D={d}]" for d in (40, 80, 160)),
+            {**flash_replaces[1], "contract": "bf16, head dims 40/80/160, every mode (SD1.x UNet); "
+                                              "ms at fused_outer (7,8,4096,40)"}),
         "flash_self_attention_f32": ("aid_tpu_torch/csrc/flash_attention_f32_d512.cu",
-                                     "aid_tpu/ops/flash_attention.py:101", "flash_self_attention_f32",
+                                     "aid_tpu/ops/flash_attention.py:101", ("flash_self_attention_f32",),
                                      {"contract": "f32, head dim 512, self (VAE mid block)"}),
-        "conv3x3_same": (conv_src, "aid_tpu/ops/conv.py:30", "conv3x3_same", {}),
+        "conv3x3_same": (conv_src, "aid_tpu/ops/conv.py:30", ("conv3x3_same",), {}),
         # the packed-K TPU kernel's port is the same (prologue-free) kernel
         # instance, so its launches are that instance's
-        "conv3x3_same(packed=True)": (conv_src, "aid_tpu/ops/conv.py:47", "conv3x3_same",
+        "conv3x3_same(packed=True)": (conv_src, "aid_tpu/ops/conv.py:47", ("conv3x3_same",),
                                       {"shares_kernel_with": "conv3x3_same"}),
-        "conv3x3_gnsilu": (conv_src, "aid_tpu/ops/conv.py:78", "conv3x3_gnsilu", {}),
+        "conv3x3_gnsilu": (conv_src, "aid_tpu/ops/conv.py:78", ("conv3x3_gnsilu",), {}),
     }
     record = []
-    for name, (src, replaces, counter, extra) in rows.items():
+    for name, (src, replaces, counters, extra) in rows.items():
         err, ms, plain_ms = kernels[name]
         record.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                       "launches": launches[counter], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **extra})
+                       "launches": sum(launches[c] for c in counters), "max_abs_err": err, "ms": ms,
+                       "plain_ms": plain_ms, **extra})
     print(json.dumps({"kernels": record}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}), flush=True)

@@ -87,6 +87,45 @@ def test_flash_kernel_matches_plain(dev, mode, B, H, S, L, Le, ep):
     assert _attn_err(got, want) < ATTN_RTOL
 
 
+@pytest.mark.parametrize("D", [40, 80, 160])
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("B,H,S,L,Le,ep", [
+    (3, 2, 100, 100, None, None),     # rows 0 / B-1 as endpoints, ragged q and kv tails
+    (4, 3, 130, 77, 77, 3),           # cross-like: 77 keys, shared 77-token endpoints
+    (2, 2, 64, 64, 23, 4),            # per-row endpoints of their own length
+])
+def test_flash_kernel_head_dims_match_plain(dev, D, mode, B, H, S, L, Le, ep):
+    """SD1.x's head dims: 40 (Q K^T padded to 48, an odd number of output
+    tiles), 80, and 160 (two blocks per q tile, one half of the output
+    columns each). The operands are (B, S, H*D) projections viewed as
+    (B, H, S, D), as the model passes them, so each row's columns past D
+    are the next head's: a kernel that read them would disagree."""
+    def heads(x):
+        return x.view(x.shape[0], x.shape[1], H, D).transpose(1, 2)
+
+    q = heads(_randn((B, S, H * D), 1))
+    k, v = heads(_randn((B, L, H * D), 2)), heads(_randn((B, L, H * D), 3))
+    coef = torch.linspace(0, 1, B, device=dev)
+    skip = torch.zeros(B, dtype=torch.bool, device=dev)
+    skip[0] = skip[-1] = True
+    eps = {}
+    if ep is not None:
+        shape = (H, Le, D) if ep == 3 else (B, H, Le, D)
+        eps = {n: _randn(shape, 10 + i) for i, n in enumerate(("k_begin", "v_begin", "k_end", "v_end"))}
+    before, before_d = flash_interpolated_attention.launches, flash_interpolated_attention.launches_by_head_dim[D]
+    got = flash_interpolated_attention(q, k, v, coef, mode, skip_endpoints=skip, **eps)
+    torch.cuda.synchronize()
+    assert flash_interpolated_attention.launches == before + 1
+    assert flash_interpolated_attention.launches_by_head_dim[D] == before_d + 1
+    want = flash_interpolated_attention_plain(q, k, v, coef, mode, skip_endpoints=skip, **eps)
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    assert torch.isfinite(got).all()
+    assert _attn_err(got, want) < ATTN_RTOL
+    # the strided views and contiguous copies give the same bits
+    args = [x.contiguous() for x in (q, k, v)]
+    assert torch.equal(got, flash_interpolated_attention(*args, coef, mode, skip_endpoints=skip, **eps))
+
+
 def test_flash_kernel_strided_heads(dev):
     """(B, S, H*D) projections viewed as (B, H, S, D) go in without a copy.
 
@@ -111,7 +150,7 @@ def test_flash_kernel_refuses_what_it_does_not_take(dev):
     q = _randn((2, 2, 64, 64), 30, torch.float32)
     with pytest.raises(NotImplementedError):
         flash_interpolated_attention(q, q, q)
-    q = _randn((2, 2, 64, 40), 31)
+    q = _randn((2, 2, 64, 48), 31)  # a head dim with no kernel instance
     with pytest.raises(NotImplementedError):
         flash_interpolated_attention(q, q, q)
     q = _randn((2, 1, 64, 512), 32, torch.float32)

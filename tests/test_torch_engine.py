@@ -3,7 +3,8 @@
 The whole slice: tiny-SDXL ``denoise_sequence`` over 5 frames, 4 Euler
 steps (2 fused_outer warmup + 2 vanilla), sequential CFG at guidance 5, Beta
 (28, 28) frame coefficients, f32 on the CPU, the same weights and inputs on
-both sides.
+both sides. The SD1.x engine pieces, ``denoise_steps`` (chunks of one
+schedule) and ``denoise_range`` (vanilla CFG), run a tiny SD UNet with DDIM.
 """
 
 import subprocess
@@ -17,12 +18,14 @@ import torch
 import torch_helpers as th
 from aid_tpu.models.layers import AidMode as JaxAidMode
 from aid_tpu.pipelines import engine as jax_engine
+from aid_tpu.schedulers.ddim import DDIMScheduler as JaxDDIM
 from aid_tpu.schedulers.euler import EulerDiscreteScheduler as JaxEuler
 from aid_tpu_torch.models import configs
 from aid_tpu_torch.models.layers import AidMode
 from aid_tpu_torch.ops.interp import generate_beta_schedule
 from aid_tpu_torch.pipelines import engine
 from aid_tpu_torch.schedulers.base import SchedulerConfig
+from aid_tpu_torch.schedulers.ddim import DDIMScheduler
 from aid_tpu_torch.schedulers.euler import EulerDiscreteScheduler
 
 # f32 over 4 steps x 2 UNet passes: the per-forward ~1e-6 relative
@@ -94,13 +97,53 @@ def test_denoise_sequence_slice_matches_jax(early):
     assert th.max_rel_err(th.nchw_to_nhwc(got), np.asarray(want)) < SLICE_TOL
 
 
+def test_denoise_steps_and_range_match_jax():
+    """denoise_steps over the chunks [0, 1) and [1, 3) of a 3-step DDIM
+    schedule (warmup 2, so the split falls inside the second chunk) and
+    denoise_range over [1, 3), against the JAX functions; the port's chunks
+    compose exactly to one denoise_sequence."""
+    cfg = configs.TINY_UNET
+    frames, steps, warmup, s = 3, 3, 2, cfg.sample_size
+    jax_unet, params = th.jax_unet_and_params(cfg, seed=12)
+    unet = th.port_unet(cfg, params)
+    latents = th.normal(13, (frames, s, s, cfg.in_channels))
+    embs = th.normal(14, (frames, 77, cfg.cross_attention_dim))
+    uncond = th.normal(15, (frames, 77, cfg.cross_attention_dim))
+    coef = np.array([0.0, 0.4, 1.0], np.float32)
+    jsched, sched = JaxDDIM(), DDIMScheduler()
+    jargs = (jax_unet, jsched, th.to_jnp(params))
+    jin = (jnp.asarray(embs), jnp.asarray(uncond), jnp.asarray(coef))
+    jmodes = dict(early=JaxAidMode.from_name("fused_outer"), late=JaxAidMode.vanilla(), warmup_steps=warmup)
+    args = (unet, sched)
+    tin = (torch.from_numpy(embs), torch.from_numpy(uncond), torch.from_numpy(coef))
+    modes = dict(early=AidMode.from_name("fused_outer"), late=AidMode.vanilla(), warmup_steps=warmup)
+
+    want, jstate = jnp.asarray(latents), jsched.init(steps)
+    got, state = th.nhwc_to_nchw(latents), sched.init(steps)
+    for start, end in ((0, 1), (1, steps)):
+        want, jstate = jax_engine.denoise_steps(*jargs, want, *jin, jstate, jnp.float32(7.5), start=start, end=end,
+                                                **jmodes)
+        got, state = engine.denoise_steps(*args, got, *tin, state, 7.5, start=start, end=end, **modes)
+        assert th.max_rel_err(th.nchw_to_nhwc(got), np.asarray(want)) < SLICE_TOL
+    whole = engine.denoise_sequence(*args, th.nhwc_to_nchw(latents), *tin, sched.init(steps), 7.5,
+                                    num_steps=steps, **modes)
+    torch.testing.assert_close(got, whole, rtol=0, atol=0)
+
+    want, _ = jax_engine.denoise_range(*jargs, jnp.asarray(latents), jin[0], jin[1], jsched.init(steps),
+                                       jnp.float32(7.5), start=1, end=steps)
+    got, _ = engine.denoise_range(*args, th.nhwc_to_nchw(latents), tin[0], tin[1], sched.init(steps), 7.5,
+                                  start=1, end=steps)
+    assert th.max_rel_err(th.nchw_to_nhwc(got), np.asarray(want)) < SLICE_TOL
+
+
 def test_import_leaves_jax_out():
     """The port never imports jax, flax or the JAX package (only modules the
     import itself adds count, so a jax preloaded at interpreter start does not)."""
     code = ("import sys; before = set(sys.modules); "
             "import aid_tpu_torch, aid_tpu_torch.ops.flash_attention, aid_tpu_torch.ops.conv, "
             "aid_tpu_torch.ops._build, aid_tpu_torch.models.params, aid_tpu_torch.models.vae, "
-            "aid_tpu_torch.models.clip, aid_tpu_torch.pipelines.sdxl, aid_tpu_torch.utils.tokenizer; "
+            "aid_tpu_torch.models.clip, aid_tpu_torch.pipelines.sdxl, aid_tpu_torch.pipelines.interpolation, "
+            "aid_tpu_torch.schedulers.ddim, aid_tpu_torch.utils.tokenizer; "
             "bad = sorted(m for m in set(sys.modules) - before if m.split('.')[0] in ('jax', 'flax', 'aid_tpu')); "
             "print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)

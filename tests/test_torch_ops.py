@@ -24,10 +24,15 @@ from aid_tpu_torch.models.layers import Conv3x3, conv_lowering
 from aid_tpu_torch.ops import interp
 from aid_tpu_torch.ops.attention import AttnMode, dispatch_attention, interpolated_attention
 from aid_tpu_torch.ops.conv import conv3x3_gnsilu, conv3x3_same
-from aid_tpu_torch.ops.flash_attention import flash_interpolated_attention, flash_interpolated_attention_plain
+from aid_tpu_torch.ops.flash_attention import (
+    KERNEL_HEAD_DIMS,
+    flash_interpolated_attention,
+    flash_interpolated_attention_plain,
+)
 from aid_tpu_torch.ops.routing import reference_ops, use_kernel
 
 MODES = [m.value for m in AttnMode]
+HEAD_DIMS = list(KERNEL_HEAD_DIMS)  # 40, 64, 80, 160: SD1.x's three and SDXL's
 
 # f32 attention on both sides: only summation order differs (~1e-7 of the
 # output scale); 1e-5 of max |ref| catches any wrong segment, scale or blend.
@@ -82,12 +87,14 @@ def test_plain_attention_matches_jax(mode, endpoints):
     assert th.max_rel_err(got.numpy(), np.asarray(want)) < ATTN_TOL
 
 
+@pytest.mark.parametrize("D", HEAD_DIMS)
 @pytest.mark.parametrize("mode", MODES)
-def test_flash_wrapper_matches_pallas_interpret(mode):
+def test_flash_wrapper_matches_pallas_interpret(mode, D):
     """The wrapper's CPU route against the Pallas kernel run in interpret
     mode: a ragged cross-attention-like shape (S=64 queries, 77 keys), coef
-    0/1 endpoint rows marked as skip rows (dropped in fused modes)."""
-    B, H, S, L, D = 3, 2, 64, 77, 64
+    0/1 endpoint rows marked as skip rows (dropped in fused modes), at every
+    head dim the CUDA kernel has an instance for."""
+    B, H, S, L = 3, 2, 64, 77
     q, k, v, _, _ = _attn_inputs(B, H, S, L, D, seed=10)
     coef = np.array([0.0, 0.35, 1.0], np.float32)
     skip = np.array([True, False, True])
@@ -98,10 +105,11 @@ def test_flash_wrapper_matches_pallas_interpret(mode):
     assert th.max_rel_err(got.numpy(), np.asarray(want)) < FLASH_TOL
 
 
+@pytest.mark.parametrize("D", HEAD_DIMS)
 @pytest.mark.parametrize("mode", ["fused_outer", "pure_inner"])
-def test_flash_wrapper_explicit_endpoints_match_pallas_interpret(mode):
+def test_flash_wrapper_explicit_endpoints_match_pallas_interpret(mode, D):
     """Shared 3D endpoints of their own ragged length (Le=48 vs Lk=32)."""
-    q, k, v, coef, eps = _attn_inputs(3, 2, 64, 32, 64, Le=48, ep_rank=3, seed=20)
+    q, k, v, coef, eps = _attn_inputs(3, 2, 64, 32, D, Le=48, ep_rank=3, seed=20)
     want = jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(coef), mode,
                      block_q=64, block_k=64, interpret=True, **{n: jnp.asarray(e) for n, e in eps.items()})
     got = flash_interpolated_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),

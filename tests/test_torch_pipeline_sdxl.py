@@ -126,3 +126,46 @@ def test_encode_prompt_and_time_ids_match_jax(pipes):
               negative_target_size=(12, 12))
     for got, want in zip(pipe._time_ids_pair(3, 16, 16, **kw), jax_pipe._time_ids_pair(3, 16, 16, **kw)):
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("guide,init", [(None, "linear"), ("a small bird", "slerp")])
+def test_interpolate_single_matches_jax(pipes, guide, init):
+    """XL interpolate_single: pooled embeds interpolated beside the text
+    embeds (the guide prompt brings its own), micro-conditioning kwargs whose
+    negatives change only the uncond pass's time_ids."""
+    jax_pipe, pipe = pipes
+    a, b = _latents()
+    kw = dict(prompt_start="a red cat", prompt_end="a blue dog", guide_prompt=guide, init=init,
+              num_inference_steps=2, output_type="latent", original_size=(20, 24), crops_coords_top_left=(1, 2),
+              negative_original_size=(8, 8), negative_target_size=(12, 12))
+    want = np.asarray(jax_pipe.interpolate_single(0.4, jnp.asarray(a), jnp.asarray(b), **kw))
+    got = pipe.interpolate_single(0.4, th.nhwc_to_nchw(a), th.nhwc_to_nchw(b), **kw)
+    assert tuple(got.shape) == (3, UNET_CFG.in_channels, 8, 8)
+    assert th.max_rel_err(th.nchw_to_nhwc(got), want) < SLICE_TOL
+
+
+def test_vanilla_entry_points_match_jax(pipes):
+    """__call__ and denoising_interpolate, inherited from the SD1.x class,
+    run SDXL with the added conditioning of the XL _cond_kwargs."""
+    jax_pipe, pipe = pipes
+    a, b = _latents()
+    kw = dict(prompt="a red cat", negative_prompt="blurry", num_inference_steps=2, output_type="latent")
+    want = np.asarray(jax_pipe(latents=jnp.asarray(a), **kw))
+    got = pipe(latents=th.nhwc_to_nchw(a), **kw)
+    assert th.max_rel_err(th.nchw_to_nhwc(got), want) < SLICE_TOL
+    lat = np.concatenate([a, b])
+    kw = dict(text_1="a red cat", text_2="a blue dog", interpolated_ratio=0.5, timesteps=2)
+    want = jax_pipe.denoising_interpolate(jnp.asarray(lat), **kw)
+    got = pipe.denoising_interpolate(th.nhwc_to_nchw(lat), **kw)
+    assert got.dtype == np.uint8 and got.shape == want.shape == (2, 16, 16, 3)
+    assert np.abs(got.astype(int) - np.asarray(want).astype(int)).max() <= 1
+
+
+def test_xl_image_embeds_raise(pipes):
+    """The IP-Adapter branch is not ported: image embeds raise on the XL
+    entry point as on the SD1.x one."""
+    _, pipe = pipes
+    a, b = _latents()
+    with pytest.raises(NotImplementedError):
+        pipe.interpolate_single(0.5, th.nhwc_to_nchw(a), th.nhwc_to_nchw(b), image_embeds_end=torch.zeros(1, 8),
+                                num_inference_steps=1)

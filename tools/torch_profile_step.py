@@ -1,11 +1,14 @@
 """Where the device time of one denoise step goes, for the PyTorch port on an NVIDIA GPU.
 
-    python3 tools/torch_profile_step.py [--out chiprun_out]
+    python3 tools/torch_profile_step.py [--model sdxl|sd15] [--out chiprun_out]
 
-Builds the headline program of ``chip_smoke.py`` (full-width SDXL UNet, bf16,
-N(0, 0.02) random weights, 7 frames at 128x128 latents, Beta(28, 28)
-coefficients, Euler, guidance 5), runs two steps of each kind untraced to warm
-up, then traces with ``torch.profiler``:
+Builds one of ``chip_smoke.py``'s programs: ``sdxl`` (the default) is the
+headline (full-width SDXL UNet, bf16, N(0, 0.02) random weights, 7 frames at
+128x128 latents, Beta(28, 28) coefficients, Euler, guidance 5); ``sd15`` is
+the SD1.5 sequence (full-width SD1.5 UNet, bf16, N(0, 0.02) random weights,
+7 frames at 64x64 latents, Beta(25, 25) coefficients, DDIM, guidance 7.5).
+It runs two steps of each kind untraced to warm up, then traces with
+``torch.profiler``:
 
   warmup step  fused_outer cond forward + vanilla uncond forward
   late step    two vanilla forwards
@@ -39,8 +42,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 # (class, pattern on the kernel name); the first match wins
 CLASSES = [
-    ("attention kernel, fused_outer", re.compile(r"flash_kernel<true, 2>")),
-    ("attention kernel, self and cross", re.compile(r"flash_kernel<true, 0>")),
+    ("attention kernel, fused_outer", re.compile(r"flash_kernel<\d+, true, 2>")),
+    ("attention kernel, self and cross", re.compile(r"flash_kernel<\d+, true, 0>")),
     ("attention kernel, other modes", re.compile(r"flash_kernel<")),
     ("conv kernel", re.compile(r"conv3x3_kernel")),
     ("cuDNN convs", re.compile(r"fprop|implicit_convolve|conv2d|cudnn", re.I)),
@@ -80,6 +83,7 @@ def device_summary(trace_path: Path) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--model", choices=("sdxl", "sd15"), default="sdxl", help="which program's step to trace")
     ap.add_argument("--out", default="chiprun_out", help="directory for the Chrome traces")
     args = ap.parse_args(argv)
 
@@ -91,22 +95,32 @@ def main(argv=None) -> int:
 
     from aid_tpu_torch.models.layers import AidMode
     from aid_tpu_torch.pipelines.engine import denoise_sequence
+    from aid_tpu_torch.schedulers.ddim import DDIMScheduler
     from aid_tpu_torch.schedulers.euler import EulerDiscreteScheduler
-    from chip_smoke import build_headline, phase_device
+    from chip_smoke import build_headline, build_sd15, phase_device, sd15_coef
 
     card = phase_device()
     out_dir = Path(args.out)
     out_dir.mkdir(parents=True, exist_ok=True)
-    unet, sample, ehs, uncond, added, coef = build_headline()
-    scheduler = EulerDiscreteScheduler()
+    if args.model == "sdxl":
+        unet, sample, ehs, uncond, added, coef = build_headline()
+        scheduler, guidance = EulerDiscreteScheduler(), 5.0
+    else:
+        unet, coef = build_sd15(), sd15_coef().cuda()
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        cfg = unet.config
+        sample = torch.randn((7, cfg.in_channels, 64, 64), generator=gen, device="cuda")
+        ehs, uncond = (torch.randn((7, 77, cfg.cross_attention_dim), generator=gen, device="cuda").to(torch.bfloat16)
+                       for _ in range(2))
+        added, scheduler, guidance = None, DDIMScheduler(), 7.5
     state = scheduler.init(1, device=sample.device)
 
     def step(warmup: bool):
-        return denoise_sequence(unet, scheduler, sample, ehs, uncond, coef, state, 5.0,
+        return denoise_sequence(unet, scheduler, sample, ehs, uncond, coef, state, guidance,
                                 early=AidMode.from_name("fused_outer"), late=AidMode.vanilla(),
                                 num_steps=1, warmup_steps=int(warmup), added_cond=added)
 
-    result = {"card": card, "steps": {}}
+    result = {"card": card, "model": args.model, "steps": {}}
     for label, warmup in (("warmup step", True), ("late step", False)):
         for _ in range(2):
             step(warmup)
@@ -119,7 +133,7 @@ def main(argv=None) -> int:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             step(warmup)
             torch.cuda.synchronize()
-        trace = out_dir / f"trace_{label.replace(' ', '_')}.json"
+        trace = out_dir / f"trace_{args.model}_{label.replace(' ', '_')}.json"
         prof.export_chrome_trace(str(trace))
         summary = device_summary(trace)
         summary.update(wall_ms_unprofiled=wall_ms, idle_share_of_wall=1.0 - summary["busy_ms"] / wall_ms)
