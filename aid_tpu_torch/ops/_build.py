@@ -113,18 +113,25 @@ def library() -> ctypes.CDLL:
     ]
     lib.aid_flash_attn_bf16.restype = ctypes.c_int
     lib.aid_conv3x3_bf16.argtypes = [
-        vp, vp, vp, vp,      # x (NHWC), w (Cout,3,3,Cin), bias (f32), out (NHWC)
+        vp, vp, vp, vp,      # x (B,Cin/8,H,W,8), w (tiled, see conv.py), bias (f32), out (NHWC)
         i32, i32, i32, i32, i32,  # B, H, W, Cin, Cout
         vp,                  # cudaStream_t
     ]
     lib.aid_conv3x3_bf16.restype = ctypes.c_int
     lib.aid_conv3x3_gnsilu_bf16.argtypes = [
-        vp, vp, vp, vp,      # x (NHWC), w (Cout,3,3,Cin), bias (f32), out (NHWC)
+        vp, vp, vp, vp,      # x (B,Cin/8,H,W,8), w (tiled, see conv.py), bias (f32), out (NHWC)
         vp, vp,              # GN+SiLU scale, shift: (B, Cin) f32
         i32, i32, i32, i32, i32,  # B, H, W, Cin, Cout
         vp,                  # cudaStream_t
     ]
     lib.aid_conv3x3_gnsilu_bf16.restype = ctypes.c_int
+    lib.aid_conv3x3_blocked_bf16.argtypes = [
+        vp, vp,              # x (B, C, H, W) at any strides, xb (B, C/8, H, W, 8)
+        i32, i32, i32, i32,  # B, C, H, W
+        i64p,                # x's element strides (b, c, h, w)
+        vp,                  # cudaStream_t
+    ]
+    lib.aid_conv3x3_blocked_bf16.restype = ctypes.c_int
     lib.aid_flash_attn_f32_d512.argtypes = [
         vp, vp, vp, vp,      # q, k, v, out (f32)
         i64p,                # dims + strides, see flash_attention_f32_d512.cu

@@ -19,15 +19,22 @@ plain torch ops, as the JAX package computes them in XLA outside its kernel.
 
 On a CPU tensor both run their plain versions. The sources' headers say what
 bounds the kernel on the card and how the design answers. The interface
-keeps PyTorch's NCHW / OIHW layout; the kernel reads channels-last
-activations (NHWC in memory) and (Cout, 3, 3, Cin) weights, so the wrappers
-convert both and return channels-last tensors.
+keeps PyTorch's NCHW / OIHW layout; the kernel reads activations with
+their channels in blocks of 8 and weights tiled by its N tile and K chunk,
+so the wrappers convert both (:func:`kernel_operands`) and return
+channels-last tensors. A weight is tiled once and the tiling kept for
+later calls (:func:`tiled_weight`): at inference the weights are constant,
+so a call copies only its activation, on the card by the layout kernel of
+the same source (:func:`blocked_input`).
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 import torch.nn.functional as F
+from torch.utils.weak import WeakIdKeyDictionary
 
 from aid_tpu_torch.ops.routing import use_kernel
 
@@ -37,9 +44,76 @@ def conv3x3_same_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> tor
     return F.conv2d(x, w, b, padding=1)
 
 
-def _launch(entry: str, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *factors: torch.Tensor) -> torch.Tensor:
-    """Check the operands, lay them out as the kernel reads them and launch
-    the C entry point ``entry`` (``factors``: the prologue's scale, shift)."""
+#: the kernel's output tile (image rows x columns per block), N tile
+#: (output channels per block) and K chunk (input channels per pipeline
+#: stage): csrc/conv3x3.cu's kTR, kTW, kBN and kKc. The layouts below
+#: follow them.
+KERNEL_TILE_ROWS, KERNEL_TILE_COLS = 4, 64
+KERNEL_N_TILE, KERNEL_K_CHUNK = 160, 16
+
+#: weight -> (the weight's storage and version when tiled, its tiling)
+_TILED = WeakIdKeyDictionary()
+
+
+def tiled_weight(w: torch.Tensor) -> torch.Tensor:
+    """w (Cout, Cin, 3, 3) tiled as the kernel reads it:
+    (ceil(Cout/160), ceil(Cin/16), 3, 3, 2, 160, 8) with zeros past Cout and
+    Cin, so that each N tile's K chunk is one contiguous copy that lands as
+    the wgmma operand. The tiling is kept while w lives, keyed by w's
+    storage and version counter: a parameter is tiled on its first call,
+    and again only after an in-place update (``load_state_dict``, ``copy_``
+    under ``torch.no_grad``) or a move to new storage. Writes that bypass
+    the version counter are not seen: those through ``w.data``, and those
+    to an inference tensor, which has no counter."""
+    key = (w.data_ptr(), None if w.is_inference() else w._version)
+    hit = _TILED.get(w)
+    if hit is not None and hit[0] == key:
+        return hit[1]
+    Cout, Cin = w.shape[:2]
+    nt, kc = -(-Cout // KERNEL_N_TILE), -(-Cin // KERNEL_K_CHUNK)
+    with torch.no_grad():
+        wp = w.new_zeros((nt * KERNEL_N_TILE, kc * KERNEL_K_CHUNK, 3, 3))
+        wp[:Cout, :Cin] = w
+        wt = wp.view(nt, KERNEL_N_TILE, kc, 2, 8, 3, 3).permute(0, 2, 5, 6, 3, 1, 4).contiguous()
+    _TILED[w] = (key, wt)
+    return wt
+
+
+def blocked_input_plain(x: torch.Tensor) -> torch.Tensor:
+    """x (B, C, H, W) as (B, C/8, H, W, 8): channels in blocks of 8, each
+    pixel's block one contiguous 16-byte run (the layout kernel's plain
+    version)."""
+    B, C, H, W = x.shape
+    return x.reshape(B, C // 8, 8, H, W).permute(0, 1, 3, 4, 2).contiguous()
+
+
+def blocked_input(x: torch.Tensor) -> torch.Tensor:
+    """:func:`blocked_input_plain` of a bf16 x with C % 8 == 0: on a CUDA
+    tensor by ``csrc/conv3x3.cu``'s layout kernel, which reads x at its own
+    strides (NCHW, channels-last or a view) once and writes the result
+    once; on a CPU tensor by the plain version."""
+    if not use_kernel(x):
+        return blocked_input_plain(x)
+    B, C, H, W = x.shape
+    if x.dtype != torch.bfloat16 or C % 8:
+        raise NotImplementedError(f"the layout kernel takes bf16 with C % 8 == 0; got {x.dtype}, C = {C}")
+    xb = torch.empty((B, C // 8, H, W, 8), dtype=x.dtype, device=x.device)
+    strides = (ctypes.c_longlong * 4)(*x.stride())
+
+    from aid_tpu_torch.ops import _build
+
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    code = _build.library().aid_conv3x3_blocked_bf16(x.data_ptr(), xb.data_ptr(), B, C, H, W, strides, stream)
+    _build.check(code, "conv input layout launch")
+    return xb
+
+
+def kernel_operands(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *factors: torch.Tensor) -> tuple:
+    """Check the operands and lay them out as the kernel reads them:
+    x as (B, Cin/8, H, W, 8) by :func:`blocked_input` (channels in blocks
+    of 8, so that one row of the kernel's input window is one contiguous
+    run), w by :func:`tiled_weight`, b and ``factors`` (the prologue's
+    scale, shift) f32. Returns the tuple :func:`launch_kernel` takes."""
     B, Cin, H, W = x.shape
     Cout = w.shape[0]
     if w.shape != (Cout, Cin, 3, 3) or b.shape != (Cout,):
@@ -48,17 +122,22 @@ def _launch(entry: str, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *fact
         raise NotImplementedError(f"conv kernel takes bf16 only; got x {x.dtype}, w {w.dtype}")
     if Cin % 8 or Cout % 2:
         raise NotImplementedError(f"conv kernel needs Cin % 8 == 0 and Cout % 2 == 0; got {Cin}, {Cout}")
-    xl = x.contiguous(memory_format=torch.channels_last)  # NHWC in memory
-    wl = w.permute(0, 2, 3, 1).contiguous()  # (Cout, 3, 3, Cin)
-    bf = b.float().contiguous()
-    factors = [f.float().contiguous() for f in factors]
-    out = torch.empty((B, Cout, H, W), dtype=x.dtype, device=x.device, memory_format=torch.channels_last)
+    return blocked_input(x), tiled_weight(w), b.float().contiguous(), tuple(f.float().contiguous() for f in factors)
+
+
+def launch_kernel(entry: str, xb: torch.Tensor, wt: torch.Tensor, bf: torch.Tensor, factors: tuple) -> torch.Tensor:
+    """Launch the C entry point ``entry`` on operands from
+    :func:`kernel_operands`; returns a channels-last (B, Cout, H, W) tensor.
+    Counts nothing: the wrappers below count their launches."""
+    B, G, H, W, _ = xb.shape
+    Cout = bf.shape[0]
+    out = torch.empty((B, Cout, H, W), dtype=xb.dtype, device=xb.device, memory_format=torch.channels_last)
 
     from aid_tpu_torch.ops import _build
 
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    code = getattr(_build.library(), entry)(xl.data_ptr(), wl.data_ptr(), bf.data_ptr(), out.data_ptr(),
-                                            *(f.data_ptr() for f in factors), B, H, W, Cin, Cout, stream)
+    stream = torch.cuda.current_stream(xb.device).cuda_stream
+    code = getattr(_build.library(), entry)(xb.data_ptr(), wt.data_ptr(), bf.data_ptr(), out.data_ptr(),
+                                            *(f.data_ptr() for f in factors), B, H, W, 8 * G, Cout, stream)
     _build.check(code, f"{entry} launch")
     return out
 
@@ -75,7 +154,7 @@ def conv3x3_same(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, packed: bool
     del packed  # one kernel serves both TPU contracts
     if not use_kernel(x, w, b):
         return conv3x3_same_plain(x, w, b)
-    out = _launch("aid_conv3x3_bf16", x, w, b)
+    out = launch_kernel("aid_conv3x3_bf16", *kernel_operands(x, w, b))
     conv3x3_same.launches += 1
     return out
 
@@ -92,9 +171,11 @@ def gn_scale_shift(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, num
     B, C = x.shape[:2]
     if C % num_groups:
         raise ValueError(f"{C} channels do not split into {num_groups} groups")
-    xf = x.float().reshape(B, num_groups, -1)
-    mean = xf.mean(dim=-1)
-    var = xf.square().mean(dim=-1) - mean.square()
+    xg = x.reshape(B, num_groups, -1)
+    # both sums accumulate x's elements in f32 as they are read: no f32
+    # copy of x is made (on the card, the reduction reads bf16 directly)
+    mean = xg.mean(dim=-1, dtype=torch.float32)
+    var = torch.linalg.vector_norm(xg, dim=-1, dtype=torch.float32).square() / xg.shape[-1] - mean.square()
     rstd = torch.rsqrt(var + eps)
     per_group = C // num_groups
     scale = gamma.float()[None] * rstd.repeat_interleave(per_group, dim=1)
@@ -122,7 +203,8 @@ def conv3x3_gnsilu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, gamma: tor
     """
     if not use_kernel(x, w, b, gamma, beta):
         return conv3x3_gnsilu_plain(x, w, b, gamma, beta, num_groups, eps)
-    out = _launch("aid_conv3x3_gnsilu_bf16", x, w, b, *gn_scale_shift(x, gamma, beta, num_groups, eps))
+    out = launch_kernel("aid_conv3x3_gnsilu_bf16",
+                        *kernel_operands(x, w, b, *gn_scale_shift(x, gamma, beta, num_groups, eps)))
     conv3x3_gnsilu.launches += 1
     return out
 

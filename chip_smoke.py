@@ -27,7 +27,12 @@ Phases (each prints its own lines; any failure exits non-zero):
   2. build       compiles the CUDA kernels from aid_tpu_torch/csrc, one nvcc
                  per source at once; ptxas resources
   3. kernels     each kernel against its plain PyTorch version at the paths'
-                 shapes (SDXL and SD1.5), with stated tolerances, both times
+                 shapes (SDXL and SD1.5), with stated tolerances; its time
+                 (the conv also launched alone on operands already laid
+                 out), the plain version's, its bound from the shapes and
+                 the card's peaks, and one PyTorch call computing the same
+                 function where there is one (cuDNN conv in both layouts,
+                 SDPA under each backend) as the yardstick library_ms
   4. whole UNet  one full-width SDXL forward in fused_outer through the
                  kernels and through the plain versions (test-only seam)
   5. denoise     the SDXL main path; launch counts, finite checksum, s/step,
@@ -107,10 +112,11 @@ CONV_TOL = 1e-2
 # reading, under half the smaller fault. Phase 4 measures the first fault
 # again in every run and fails if the bound does not separate it.
 UNET_TOL = 1e-2
-# The f32 D=512 attention (VAE mid block), f32 FMA in the kernel against the
-# plain version's full-f32 matmuls (TF32 off on both sides, phase 1):
-# summation order and exp2 vs exp, ~1e-6 of max |ref| over 16384 keys.
-# 1e-4 of max |ref| leaves margin; TF32 rounding (~1e-3) would not pass.
+# The f32 D=512 attention (VAE mid block), 3xTF32 products in the kernel
+# against the plain version's full-f32 matmuls (TF32 off on both sides,
+# phase 1): the dropped lo*lo terms, summation order and exp2 vs exp, ~1e-5
+# of max |ref| at most over 16384 keys (measured 6e-6). 1e-4 of max |ref|
+# leaves margin; plain TF32 (~4e-4, tests/test_torch_ops.py) would not pass.
 F32_ATTN_TOL = 1e-4
 # The GN+SiLU conv kernel against its plain chain (the same one-pass
 # statistics and bf16 rounding of silu's output, then cuDNN): as CONV_TOL,
@@ -145,6 +151,102 @@ SD15_UNET_TOL = 4.5e-3
 # DDIM steps of the SD1.5 sequences (bench.py's SD1.5 workloads), run in
 # full; also the Beta(25, 25) of their frame coefficients.
 SD15_STEPS = 25
+
+# The card's published dense peaks (NVIDIA H100 SXM data sheet, at its 700 W
+# limit): tensor cores in bf16 and TF32, f32 outside the tensor cores, HBM.
+# bound_ms of a kernel is the larger of its operations over the peak of
+# their type and its bytes (each input read once, each output written once)
+# over the memory rate; where a call mixes types, the slowest type sets it.
+PEAK_OPS_PER_S = {"bf16": 989e12, "tf32": 495e12, "f32": 67e12}
+HBM_BYTES_PER_S = 3.35e12
+
+
+def bound(ops: dict, nbytes: float) -> tuple:
+    """(least ms on the card, "operations" or "bytes") for ``ops`` {type:
+    count} and ``nbytes`` of device-memory traffic."""
+    t_ops = max(n / PEAK_OPS_PER_S[kind] for kind, n in ops.items())
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def conv_bound(B, H, W, cin, cout, prologue=False) -> tuple:
+    """The 3x3 conv's bound: 2 * 9 * Cin flops per output element on the
+    bf16 tensor cores; x, w, bias (f32), out read or written once; the
+    GN+SiLU prologue adds its (B, Cin) f32 scale and shift and ~6 f32
+    operations per input element (fma, halving, tanh, fma)."""
+    ops = {"bf16": 2.0 * B * H * W * cout * 9 * cin}
+    nbytes = 2.0 * (B * H * W * cin + 9 * cin * cout + B * H * W * cout) + 4.0 * cout
+    if prologue:
+        ops["f32"] = 6.0 * B * H * W * cin
+        nbytes += 2 * 4.0 * B * cin
+    return bound(ops, nbytes)
+
+
+def attention_bound(mode, B, H, Sq, L, D, Le=None, elem=2, skip_rows=0, tf32_passes=None) -> tuple:
+    """The attention's bound from the key segments the kernel's segment
+    loop visits (flash_interpolated_attention.cu: the own segment in self
+    and fused modes, begin and end in outer modes, one lerped segment in
+    inner modes; skip rows of fused modes visit their own segment only):
+    4 * D flops per (query, key) pair (Q K^T and P V; the exps are not
+    counted). Bytes: q and out, the own K/V where the mode reads it, and
+    the K and V of both endpoints where they are passed apart (``Le``) or,
+    in pure modes, are rows 0 and B-1 of K/V. ``tf32_passes`` = 3 reckons f32 operands at three TF32
+    tensor-core passes (3xTF32); None means bf16."""
+    has_own = mode in ("self", "fused_outer", "fused_inner")
+    n_seg = {"self": 0, "fused_outer": 2, "pure_outer": 2, "fused_inner": 1, "pure_inner": 1}[mode]
+    seg_len = Le if Le is not None else L
+    keys = (B - skip_rows) * ((L if has_own else 0) + n_seg * seg_len) + skip_rows * L
+    flops = 4.0 * H * Sq * D * keys
+    nbytes = elem * (2.0 * B * H * Sq * D + (2.0 * B * H * L * D if has_own else 0.0))
+    if n_seg and (Le is not None or not has_own):
+        nbytes += elem * 4.0 * H * seg_len * D  # K and V of both endpoints
+    ops = {"bf16": flops} if tf32_passes is None else {"tf32": tf32_passes * flops}
+    return bound(ops, nbytes)
+
+
+def sdpa_backends(q, k, v, want, reps: int) -> dict:
+    """F.scaled_dot_product_attention on (q, k, v) under each backend of
+    ``torch.nn.attention.sdpa_kernel`` that accepts the input: {backend:
+    (ms, max abs error against ``want``)}. A yardstick for the kernel
+    (library_ms); the port never calls it."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    times = {}
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                    SDPBackend.MATH):
+        try:
+            with sdpa_kernel(backend):
+                got = F.scaled_dot_product_attention(q, k, v)
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs().max().item()
+                del got
+                ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), reps)
+        except RuntimeError:  # this backend does not take the input
+            continue
+        times[backend.name] = (ms, err)
+    return times
+
+
+def fastest(times: dict) -> tuple:
+    """(name, ms) of the fastest entry of {name: (ms, ...)}, or (None, None)."""
+    if not times:
+        return None, None
+    name = min(times, key=lambda n: times[n][0])
+    return name, times[name][0]
+
+
+def library_conv_ms(x, w, b, reps: int) -> dict:
+    """cuDNN's F.conv2d on the same conv with NCHW and with channels_last
+    operands: {layout: ms} (a yardstick; the port never calls it)."""
+    import torch
+    import torch.nn.functional as F
+
+    xc, wc = x.contiguous(memory_format=torch.channels_last), w.contiguous(memory_format=torch.channels_last)
+    xn, wn = x.contiguous(), w.contiguous()
+    return {"cudnn NCHW": cuda_ms(lambda: F.conv2d(xn, wn, b, padding=1), reps),
+            "cudnn channels_last": cuda_ms(lambda: F.conv2d(xc, wc, b, padding=1), reps)}
 
 
 def kernel_wrappers() -> dict:
@@ -227,12 +329,14 @@ def phase_build():
 
 
 def phase_kernels(coef, sd_coef, fused_classes):
-    """Each kernel vs its plain version at the paths' shapes. Returns
-    {kernel name: (max abs err, ms, plain ms) at its heaviest shape}."""
+    """Each kernel vs its plain version at the paths' shapes, timed beside
+    its bound and, where one PyTorch call computes the same function, that
+    call (library_ms). Returns {kernel name: record} for the kernels line,
+    each record at the kernel's heaviest main-path shape."""
     import torch
-    import torch.nn.functional as F
 
     from aid_tpu_torch.models.layers import skip_mask
+    from aid_tpu_torch.ops import conv
     from aid_tpu_torch.ops.conv import conv3x3_gnsilu, conv3x3_gnsilu_plain, conv3x3_same, conv3x3_same_plain
     from aid_tpu_torch.ops.flash_attention import (
         flash_interpolated_attention,
@@ -240,20 +344,26 @@ def phase_kernels(coef, sd_coef, fused_classes):
         flash_self_attention_f32,
     )
 
-    print("== phase 3: kernels vs plain versions", flush=True)
+    print("== phase 3: kernels vs plain versions, bounds and library calls", flush=True)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(11)
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32).to(torch.bfloat16)
 
+    def yardsticks(bound_ms, bound_by, library):
+        """One line of the bound and the library calls' times."""
+        lib = ", ".join(f"{n} {t[0] if isinstance(t, tuple) else t:.3f} ms" for n, t in library.items()) or "—"
+        return f"bound {bound_ms:.3f} ms ({bound_by}); library: {lib}"
+
     records = {}
 
     def attention(label, mode, c, H, Sq, L, D, reps, Le=None):
         """One bf16 attention case, B = len(c): (B, S, H*D) projections viewed
         as (B, H, S, D), as the model passes them; skip rows as the model
-        marks them; optional shared (H, Le, D) endpoints. Returns (max abs
-        err, kernel ms, plain ms)."""
+        marks them; optional shared (H, Le, D) endpoints. In self mode SDPA
+        computes the same function and is timed under each backend. Returns
+        a record."""
         B = c.shape[0]
 
         def heads(x):
@@ -272,43 +382,56 @@ def phase_kernels(coef, sd_coef, fused_classes):
         rl2 = rel_l2(got, want)
         ms = cuda_ms(lambda: flash_interpolated_attention(q, k, v, c, mode, **kw), reps)
         plain_ms = cuda_ms(lambda: flash_interpolated_attention_plain(q, k, v, c, mode, **kw), max(1, reps // 5))
+        skip_rows = int(kw["skip_endpoints"].sum()) if "skip_endpoints" in kw else 0
+        bound_ms, bound_by = attention_bound(mode, B, H, Sq, L, D, Le, skip_rows=skip_rows)
+        library = sdpa_backends(q, k, v, want, reps) if mode == "self" else {}
         ok = math.isfinite(err) and err <= ATTN_TOL * ref
         print(f"attention {label:32s} B={B} H={H} D={D}: max_abs_err {err:.3e} (max|ref| {ref:.3e}, "
-              f"tol {ATTN_TOL * ref:.3e}) rel_l2 {rl2:.3e}  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms"
-              f"  {'ok' if ok else 'FAIL'}", flush=True)
+              f"tol {ATTN_TOL * ref:.3e}) rel_l2 {rl2:.3e}  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  "
+              f"{yardsticks(bound_ms, bound_by, library)}  {'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
             fail(f"attention {label} (D={D}): kernel disagrees with the plain version")
-        return err, ms, plain_ms
+        lib_name, lib_ms = fastest(library)
+        return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": lib_ms, "library": lib_name}
 
-    # SDXL, D=64 (label, mode, H, Sq, Lkv, reps): self/fused_outer
+    def attention_record(cases, coefs, main_label, self_label):
+        """Run ``cases``; the record is the main (fused_outer) case's, with
+        the self case's time, bound and fastest SDPA beside it."""
+        worst = 0.0
+        for label, mode, H, Sq, L, D, reps, Le in cases:
+            r = attention(label, mode, coefs, H, Sq, L, D, reps, Le)
+            worst = max(worst, r["max_abs_err"])
+            if label == main_label:
+                main = r
+            if label == self_label:
+                self_case = r
+        return {**main, "max_abs_err": worst, "library_ms": None, "library": None,
+                "self_ms": self_case["ms"], "self_bound_ms": self_case["bound_ms"],
+                "self_library_ms": self_case["library_ms"], "self_library": self_case["library"]}
+
+    # SDXL, D=64 (label, mode, H, Sq, Lkv, D, reps, Le): self/fused_outer
     # self-attention and the 77-token cross-attention at both SDXL attention
     # levels, then the other three modes at one small shape
     coef = coef.to(dev)
     B = coef.shape[0]  # the SDXL frames; the conv cases below use it too
     sdxl_cases = [
-        ("self 4096", "self", 10, 4096, 4096, 10),
-        ("fused_outer 4096", "fused_outer", 10, 4096, 4096, 5),
-        ("self 1024", "self", 20, 1024, 1024, 20),
-        ("fused_outer 1024", "fused_outer", 20, 1024, 1024, 20),
-        ("cross self 4096x77", "self", 10, 4096, 77, 20),
-        ("cross fused_outer 4096x77", "fused_outer", 10, 4096, 77, 20),
-        ("cross self 1024x77", "self", 20, 1024, 77, 20),
-        ("cross fused_outer 1024x77", "fused_outer", 20, 1024, 77, 20),
-        ("pure_outer 256", "pure_outer", 10, 256, 256, 20),
-        ("pure_inner 256", "pure_inner", 10, 256, 256, 20),
-        ("fused_inner 256", "fused_inner", 10, 256, 256, 20),
+        ("self 4096", "self", 10, 4096, 4096, 64, 10, None),
+        ("fused_outer 4096", "fused_outer", 10, 4096, 4096, 64, 5, None),
+        ("self 1024", "self", 20, 1024, 1024, 64, 20, None),
+        ("fused_outer 1024", "fused_outer", 20, 1024, 1024, 64, 20, None),
+        ("cross self 4096x77", "self", 10, 4096, 77, 64, 20, None),
+        ("cross fused_outer 4096x77", "fused_outer", 10, 4096, 77, 64, 20, None),
+        ("cross self 1024x77", "self", 20, 1024, 77, 64, 20, None),
+        ("cross fused_outer 1024x77", "fused_outer", 20, 1024, 77, 64, 20, None),
+        ("pure_outer 256", "pure_outer", 10, 256, 256, 64, 20, None),
+        ("pure_inner 256", "pure_inner", 10, 256, 256, 64, 20, None),
+        ("fused_inner 256", "fused_inner", 10, 256, 256, 64, 20, None),
     ]
-    worst = 0.0
-    for label, mode, H, Sq, L, reps in sdxl_cases:
-        err, ms, plain_ms = attention(label, mode, coef, H, Sq, L, 64, reps)
-        worst = max(worst, err)
-        if label == "fused_outer 4096":
-            main = (ms, plain_ms)
-    records["flash_interpolated_attention"] = (worst, *main)
+    records["flash_interpolated_attention"] = attention_record(sdxl_cases, coef, "fused_outer 4096", "self 4096")
 
     # SD1.5, 8 heads at D = 40 / 80 / 160 (widths 320 / 640 / 1280, 64^2 /
     # 32^2 / 16^2 tokens, 8^2 in the mid block), Beta(25, 25) coefficients
-    # (label, mode, Sq, Lkv, D, reps, shared endpoint length)
     sd_coef = sd_coef.to(dev)
     sd_cases = [
         ("self 4096", "self", 4096, 4096, 40, 10, None),
@@ -325,37 +448,71 @@ def phase_kernels(coef, sd_coef, fused_classes):
     for Sq, D in ((4096, 40), (256, 160)):
         sd_cases += [(f"{m} {Sq}", m, Sq, Sq, D, 10, None) for m in ("pure_outer", "pure_inner", "fused_inner")]
     sd_cases.append(("fused_outer 4096, shared Le=333", "fused_outer", 4096, 4096, 40, 5, 333))
-    worst = 0.0
-    for label, mode, Sq, L, D, reps, Le in sd_cases:
-        err, ms, plain_ms = attention(f"SD1.5 {label}", mode, sd_coef, 8, Sq, L, D, reps, Le)
-        worst = max(worst, err)
-        if (label, D) == ("fused_outer 4096", 40):
-            main = (ms, plain_ms)
-    records["flash_interpolated_attention(D=40/80/160)"] = (worst, *main)
+    records["flash_interpolated_attention(D=40/80/160)"] = attention_record(
+        [(f"SD1.5 {label}", mode, 8, Sq, L, D, reps, Le) for label, mode, Sq, L, D, reps, Le in sd_cases],
+        sd_coef, "SD1.5 fused_outer 4096", "SD1.5 self 4096")
+
+    def conv_case(label, x, w, b, factors=(), ring=None, reps=10, packed=False):
+        """One conv class: the kernel through its wrapper (ms: the call the
+        model makes, the layout kernel's pass over x included, the weight's
+        tiling kept from the first call), launched alone on operands
+        already laid out by conv.kernel_operands (kernel_ms), the layout
+        kernel alone on NCHW x (layout_ms; exact against its plain version
+        from NCHW and channels-last x, whose torch copy is timed too), the
+        plain version, cuDNN with both layouts (the prologue-free conv
+        only). Returns (record, want)."""
+        entry = "aid_conv3x3_gnsilu_bf16" if factors else "aid_conv3x3_bf16"
+        wrapper = (lambda: conv3x3_gnsilu(x, w, b, *factors, 32)) if factors else (
+            lambda: conv3x3_same(x, w, b, packed=packed))
+        plain = (lambda: conv3x3_gnsilu_plain(x, w, b, *factors, 32)) if factors else (
+            lambda: conv3x3_same_plain(x, w, b))
+        got = wrapper()
+        torch.cuda.synchronize()
+        want = plain()
+        diff = (got.float() - want.float()).abs()
+        ref = want.float().abs().max().item()
+        tol = (GNSILU_TOL if factors else CONV_TOL) * ref
+        if ring is None:
+            errs = {"": diff.max().item()}
+        else:
+            errs = {"interior ": diff[:, :, ~ring].max().item(), "border ": diff[:, :, ring].max().item()}
+        ops = conv.kernel_operands(x, w, b, *(conv.gn_scale_shift(x, *factors, 32, 1e-5) if factors else ()))
+        blocked = conv.blocked_input_plain(x)
+        if not (torch.equal(ops[0], blocked) and torch.equal(
+                conv.blocked_input(x.contiguous(memory_format=torch.channels_last)), blocked)):
+            fail(f"{label}: the conv's layout kernel disagrees with its plain version")
+        del blocked
+        kernel_ms = cuda_ms(lambda: conv.launch_kernel(entry, *ops), reps)
+        layout_ms = cuda_ms(lambda: conv.blocked_input(x), reps)
+        layout_plain_ms = cuda_ms(lambda: conv.blocked_input_plain(x), reps)
+        ms = cuda_ms(wrapper, reps)
+        plain_ms = cuda_ms(plain, reps)
+        Bx, cin, H, W = x.shape
+        bound_ms, bound_by = conv_bound(Bx, H, W, cin, w.shape[0], prologue=bool(factors))
+        library = {} if factors else library_conv_ms(x, w, b, reps)
+        ok = all(math.isfinite(e) and e <= tol for e in errs.values())
+        print(f"{label}: max_abs_err {' '.join(f'{k}{e:.3e}' for k, e in errs.items())} (max|ref| {ref:.3e}, "
+              f"tol {tol:.3e})  kernel {ms:.3f} ms (launch alone {kernel_ms:.3f}, layout {layout_ms:.3f}, torch's "
+              f"layout copy {layout_plain_ms:.3f})  plain {plain_ms:.3f} ms  "
+              f"{yardsticks(bound_ms, bound_by, library)}  {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            fail(f"{label}: kernel disagrees with the plain version")
+        lib_name, lib_ms = fastest({n: (t,) for n, t in library.items()})
+        return {"max_abs_err": max(errs.values()), "ms": ms, "kernel_ms": kernel_ms, "layout_ms": layout_ms,
+                "layout_plain_ms": layout_plain_ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms, "library": lib_name}, want
 
     worst = 0.0
     for cin, cout in ((960, 320), (640, 320), (640, 640)):
         x = randn(B, cin, 128, 128)
         w = randn(cout, cin, 3, 3) * (9 * cin) ** -0.5
         b = randn(cout)
-        got = conv3x3_same(x, w, b)
-        torch.cuda.synchronize()
-        want = conv3x3_same_plain(x, w, b)
-        err = (got.float() - want.float()).abs().max().item()
-        ref = want.float().abs().max().item()
-        ms = cuda_ms(lambda: conv3x3_same(x, w, b), 10)
-        plain_ms = cuda_ms(lambda: F.conv2d(x, w, b, padding=1), 10)
-        ok = math.isfinite(err) and err <= CONV_TOL * ref
-        print(f"conv3x3 B={B} {cin}->{cout} @128x128: max_abs_err {err:.3e} (max|ref| {ref:.3e}, "
-              f"tol {CONV_TOL * ref:.3e})  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  {'ok' if ok else 'FAIL'}",
-              flush=True)
-        if not ok:
-            fail(f"conv3x3 {cin}->{cout}: kernel disagrees with the plain version")
-        worst = max(worst, err)
+        r, _ = conv_case(f"conv3x3 B={B} {cin}->{cout} @128x128", x, w, b)
+        worst = max(worst, r["max_abs_err"])
         if cin == 960:
-            main = (ms, plain_ms)
-        del x, w, b, got, want
-    records["conv3x3_same"] = (worst, *main)
+            main = r
+        del x, w, b
+    records["conv3x3_same"] = {**main, "max_abs_err": worst}
 
     # TPU kernel #4: conv3x3_same(packed=True), the same kernel instance
     x = randn(B, 640, 128, 128)
@@ -363,22 +520,17 @@ def phase_kernels(coef, sd_coef, fused_classes):
     b = randn(320)
     got = conv3x3_same(x, w, b, packed=True)
     torch.cuda.synchronize()
-    want = conv3x3_same_plain(x, w, b)
-    err, ref = (got.float() - want.float()).abs().max().item(), want.float().abs().max().item()
-    ms = cuda_ms(lambda: conv3x3_same(x, w, b, packed=True), 10)
-    plain_ms = cuda_ms(lambda: F.conv2d(x, w, b, padding=1), 10)
-    ok = math.isfinite(err) and err <= CONV_TOL * ref
-    print(f"conv3x3 packed=True B={B} 640->320 @128x128: max_abs_err {err:.3e} (max|ref| {ref:.3e}, "
-          f"tol {CONV_TOL * ref:.3e})  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  {'ok' if ok else 'FAIL'}",
-          flush=True)
-    if not ok:
-        fail("conv3x3 packed=True: kernel disagrees with the plain version")
-    records["conv3x3_same(packed=True)"] = (err, ms, plain_ms)
-    del x, w, b, got, want
+    if not torch.equal(got, conv3x3_same(x, w, b)):
+        fail("conv3x3_same(packed=True) does not launch the prologue-free kernel")
+    r, _ = conv_case(f"conv3x3 packed=True B={B} 640->320 @128x128", x, w, b, packed=True)
+    records["conv3x3_same(packed=True)"] = r
+    del x, w, b, got
 
     # kernel A: the VAE mid-block attention in f32, one head over 16384
     # tokens (SDXL, one 1024px frame) and over 4096 tokens of 7 frames at
-    # once (SD1.5, the batched 512px decode)
+    # once (SD1.5, the batched 512px decode); SDPA under each backend that
+    # takes f32 at D=512, with its error, since a backend may compute f32
+    # through TF32
     worst = 0.0
     for n, S, reps in ((1, 16384, 3), (7, 4096, 5)):
         q, k, v = (torch.randn((n, 1, S, 512), generator=gen, device=dev) for _ in range(3))
@@ -388,17 +540,25 @@ def phase_kernels(coef, sd_coef, fused_classes):
         err, ref = (got - want).abs().max().item(), want.abs().max().item()
         ms = cuda_ms(lambda: flash_self_attention_f32(q, k, v), reps)
         plain_ms = cuda_ms(lambda: flash_interpolated_attention_plain(q, k, v), reps)
+        bound_ms, bound_by = attention_bound("self", n, 1, S, S, 512, elem=4, tf32_passes=3)
+        cuda_core_ms = 4.0 * n * S * S * 512 / PEAK_OPS_PER_S["f32"] * 1e3  # the same flops in plain f32 FMA
+        library = sdpa_backends(q, k, v, want, reps)
         ok = math.isfinite(err) and err <= F32_ATTN_TOL * ref
         print(f"attention f32 self ({n},1,{S},512): max_abs_err {err:.3e} (max|ref| {ref:.3e}, "
               f"tol {F32_ATTN_TOL * ref:.3e}) rel_l2 {rel_l2(got, want):.3e}  kernel {ms:.3f} ms  "
-              f"plain {plain_ms:.3f} ms  {'ok' if ok else 'FAIL'}", flush=True)
+              f"plain {plain_ms:.3f} ms  {yardsticks(bound_ms, bound_by, library)} (3xTF32; "
+              f"{cuda_core_ms:.3f} ms at the f32 CUDA-core rate); library max_abs_err "
+              f"{', '.join(f'{b} {t[1]:.3e}' for b, t in library.items())}  {'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
             fail(f"f32 D=512 attention ({n},1,{S},512): kernel disagrees with the plain version")
         worst = max(worst, err)
         if S == 16384:
-            main = (ms, plain_ms)
+            lib_name, lib_ms = fastest(library)
+            main = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                    "f32_cuda_core_bound_ms": cuda_core_ms, "library_ms": lib_ms, "library": lib_name,
+                    "library_max_abs_err": library[lib_name][1] if lib_name else None}
         del q, k, v, got, want
-    records["flash_self_attention_f32"] = (worst, *main)
+    records["flash_self_attention_f32"] = {**main, "max_abs_err": worst}
 
     # kernel B at every (H, W, Cin, Cout) class the fused configuration routes
     # to it; inputs off zero mean and gamma/beta off 1/0, so silu(shift) is
@@ -410,31 +570,20 @@ def phase_kernels(coef, sd_coef, fused_classes):
         b = randn(cout)
         gamma = 1.0 + 0.3 * torch.randn(cin, generator=gen, device=dev)
         beta = 0.5 * torch.randn(cin, generator=gen, device=dev)
-        got = conv3x3_gnsilu(x, w, b, gamma, beta, 32)
-        torch.cuda.synchronize()
-        want = conv3x3_gnsilu_plain(x, w, b, gamma, beta, 32)
-        diff = (got.float() - want.float()).abs()
         ring = torch.zeros(H, W, dtype=torch.bool, device=dev)
         ring[0], ring[-1], ring[:, 0], ring[:, -1] = True, True, True, True
-        err_ring, err_in = diff[:, :, ring].max().item(), diff[:, :, ~ring].max().item()
-        ref = want.float().abs().max().item()
-        ms = cuda_ms(lambda: conv3x3_gnsilu(x, w, b, gamma, beta, 32), 5)
-        plain_ms = cuda_ms(lambda: conv3x3_gnsilu_plain(x, w, b, gamma, beta, 32), 5)
-        ok = all(math.isfinite(e) and e <= GNSILU_TOL * ref for e in (err_ring, err_in))
-        print(f"conv3x3_gnsilu B={B} {cin}->{cout} @{H}x{W} ({calls}/forward): max_abs_err interior {err_in:.3e} "
-              f"border {err_ring:.3e} (max|ref| {ref:.3e}, tol {GNSILU_TOL * ref:.3e})  kernel {ms:.3f} ms  "
-              f"plain {plain_ms:.3f} ms  {'ok' if ok else 'FAIL'}", flush=True)
-        if not ok:
-            fail(f"conv3x3_gnsilu {cin}->{cout} @{H}x{W}: kernel disagrees with the plain version")
-        worst = max(worst, err_ring, err_in)
-        total_ms += calls * ms
-        total_plain += calls * plain_ms
+        r, want = conv_case(f"conv3x3_gnsilu B={B} {cin}->{cout} @{H}x{W} ({calls}/forward)", x, w, b,
+                            (gamma, beta), ring, reps=5)
+        worst = max(worst, r["max_abs_err"])
+        total_ms += calls * r["ms"]
+        total_plain += calls * r["plain_ms"]
         if (H, cin, cout) == (128, 960, 320):
-            main = (ms, plain_ms)
+            main = r
     print(f"conv3x3_gnsilu per fused UNet forward (B={B}, {sum(fused_classes.values())} calls): "
-          f"kernel {total_ms:.2f} ms, plain chain {total_plain:.2f} ms", flush=True)
+          f"kernel {total_ms:.2f} ms through the wrapper, plain chain {total_plain:.2f} ms", flush=True)
     # the border-ring check must see a halo that took silu(shift): the
     # planted fault on the last class moves the ring, not the interior
+    ref = want.float().abs().max().item()
     fault = halo_fault_plain(x, w, b, gamma, beta, 32)
     fdiff = (fault.float() - want.float()).abs()
     f_ring, f_in = fdiff[:, :, ring].max().item(), fdiff[:, :, ~ring].max().item()
@@ -442,7 +591,7 @@ def phase_kernels(coef, sd_coef, fused_classes):
           f"(tol {GNSILU_TOL * ref:.3e})", flush=True)
     if not f_ring > GNSILU_TOL * ref:
         fail("the border-ring check does not see a halo fault")
-    records["conv3x3_gnsilu"] = (worst, *main)
+    records["conv3x3_gnsilu"] = {**main, "max_abs_err": worst}
     return records
 
 
@@ -934,6 +1083,60 @@ def phase_sd15_image(unet, card: str, steps: int, text_cfg=None, vae_cfg=None):
     return paths
 
 
+# the keys every entry of the kernels line carries, in this order
+KERNEL_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+               "bound_by", "library_ms")
+
+
+def kernels_line(kernels: dict, launches: dict) -> str:
+    """The kernels' JSON record: one entry per kernel, with KERNEL_KEYS
+    first, then what phase 3 measured besides (the conv's kernel_ms, the
+    library call's name, the self case of the attention kernels, ...).
+    ``kernels`` is phase 3's {name: record}, ``launches`` the counts summed
+    over the five paths."""
+    flash_src = "aid_tpu_torch/csrc/flash_interpolated_attention.cu"
+    conv_src = "aid_tpu_torch/csrc/conv3x3.cu"
+    flash_replaces = ("aid_tpu/ops/flash_attention.py:101", {"also_replaces": "aid_tpu/ops/flash_attention.py:339"})
+    conv_note = ("ms: through the wrapper, as the model calls it (w tiled once; x laid out by the layout kernel "
+                 "aid_conv3x3_blocked_bf16 of the same source, which every launch runs first); kernel_ms: the "
+                 "conv launch alone on operands laid out by aid_tpu_torch/ops/conv.py::kernel_operands; "
+                 "layout_ms: the layout kernel alone, layout_plain_ms: torch's permuting copy")
+    # name -> (source, TPU kernel replaced, the launch counts it is read from, extra fields)
+    rows = {
+        "flash_interpolated_attention": (
+            flash_src, flash_replaces[0], ("flash_interpolated_attention[D=64]",),
+            {**flash_replaces[1], "contract": "bf16, head dim 64, every mode (SDXL / SD2.x UNet); ms at "
+                                              "fused_outer (7,10,4096,64), self_* at self (7,10,4096,64)"}),
+        "flash_interpolated_attention(D=40/80/160)": (
+            flash_src, flash_replaces[0],
+            tuple(f"flash_interpolated_attention[D={d}]" for d in (40, 80, 160)),
+            {**flash_replaces[1], "contract": "bf16, head dims 40/80/160, every mode (SD1.x UNet); "
+                                              "ms at fused_outer (7,8,4096,40), self_* at self (7,8,4096,40)"}),
+        "flash_self_attention_f32": (
+            "aid_tpu_torch/csrc/flash_attention_f32_d512.cu", "aid_tpu/ops/flash_attention.py:101",
+            ("flash_self_attention_f32",),
+            {"contract": "f32, head dim 512, self (VAE mid block), 3xTF32; at (1,1,16384,512)"}),
+        "conv3x3_same": (conv_src, "aid_tpu/ops/conv.py:30", ("conv3x3_same",),
+                         {"contract": f"bf16, (7,960,128,128) -> 320; {conv_note}"}),
+        # the packed-K TPU kernel's port is the same (prologue-free) kernel
+        # instance, so its launches are that instance's
+        "conv3x3_same(packed=True)": (conv_src, "aid_tpu/ops/conv.py:47", ("conv3x3_same",),
+                                      {"shares_kernel_with": "conv3x3_same",
+                                       "contract": f"bf16, (7,640,128,128) -> 320; {conv_note}"}),
+        "conv3x3_gnsilu": (conv_src, "aid_tpu/ops/conv.py:78", ("conv3x3_gnsilu",),
+                           {"contract": f"bf16, (7,960,128,128) -> 320 with the GN+SiLU prologue; {conv_note}"}),
+    }
+    record = []
+    for name, (src, replaces, counters, extra) in rows.items():
+        r = kernels[name]
+        record.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
+                       "launches": sum(launches[c] for c in counters), "max_abs_err": r["max_abs_err"],
+                       "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                       "bound_by": r["bound_by"], "library_ms": r["library_ms"], **extra,
+                       **{k: v for k, v in r.items() if k not in KERNEL_KEYS}})
+    return json.dumps({"kernels": record})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=4,
@@ -964,36 +1167,7 @@ def main(argv=None) -> int:
     launches = {name: sum(p[name] for p in paths) for name in paths[0]}
     print(f"launches over the five paths: {launches}", flush=True)
 
-    flash_src = "aid_tpu_torch/csrc/flash_interpolated_attention.cu"
-    conv_src = "aid_tpu_torch/csrc/conv3x3.cu"
-    flash_replaces = ("aid_tpu/ops/flash_attention.py:101", {"also_replaces": "aid_tpu/ops/flash_attention.py:339"})
-    # name -> (source, TPU kernel replaced, the launch counts it is read from, extra fields)
-    rows = {
-        "flash_interpolated_attention": (flash_src, flash_replaces[0], ("flash_interpolated_attention[D=64]",),
-                                         {**flash_replaces[1],
-                                          "contract": "bf16, head dim 64, every mode (SDXL / SD2.x UNet)"}),
-        "flash_interpolated_attention(D=40/80/160)": (
-            flash_src, flash_replaces[0],
-            tuple(f"flash_interpolated_attention[D={d}]" for d in (40, 80, 160)),
-            {**flash_replaces[1], "contract": "bf16, head dims 40/80/160, every mode (SD1.x UNet); "
-                                              "ms at fused_outer (7,8,4096,40)"}),
-        "flash_self_attention_f32": ("aid_tpu_torch/csrc/flash_attention_f32_d512.cu",
-                                     "aid_tpu/ops/flash_attention.py:101", ("flash_self_attention_f32",),
-                                     {"contract": "f32, head dim 512, self (VAE mid block)"}),
-        "conv3x3_same": (conv_src, "aid_tpu/ops/conv.py:30", ("conv3x3_same",), {}),
-        # the packed-K TPU kernel's port is the same (prologue-free) kernel
-        # instance, so its launches are that instance's
-        "conv3x3_same(packed=True)": (conv_src, "aid_tpu/ops/conv.py:47", ("conv3x3_same",),
-                                      {"shares_kernel_with": "conv3x3_same"}),
-        "conv3x3_gnsilu": (conv_src, "aid_tpu/ops/conv.py:78", ("conv3x3_gnsilu",), {}),
-    }
-    record = []
-    for name, (src, replaces, counters, extra) in rows.items():
-        err, ms, plain_ms = kernels[name]
-        record.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                       "launches": sum(launches[c] for c in counters), "max_abs_err": err, "ms": ms,
-                       "plain_ms": plain_ms, **extra})
-    print(json.dumps({"kernels": record}), flush=True)
+    print(kernels_line(kernels, launches), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}), flush=True)
     return 0

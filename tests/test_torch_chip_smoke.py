@@ -39,3 +39,70 @@ def test_lone_script_fails_without_a_result(tmp_path):
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
     assert "aid_tpu_torch" in out.stderr
+
+
+def _load_smoke():
+    """chip_smoke.py as a module (its top level imports the standard library only)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke_under_test", REPO / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+KERNEL_NAMES = ("flash_interpolated_attention", "flash_interpolated_attention(D=40/80/160)",
+                "flash_self_attention_f32", "conv3x3_same", "conv3x3_same(packed=True)", "conv3x3_gnsilu")
+
+
+def test_kernels_line_carries_bound_and_library_time():
+    """The kernels line parses as JSON, and every entry carries the keys the
+    contract names, first and in order: bound_ms and library_ms too (null
+    where no single PyTorch call computes the function), beside what phase 3
+    measured besides (the conv's kernel_ms, the library call's name). A
+    conv entry's ms is its wrapper's time, as in every kernels line before,
+    and the launch alone is kernel_ms beside it."""
+    import json
+
+    smoke = _load_smoke()
+    records = {}
+    for i, name in enumerate(KERNEL_NAMES):
+        lib = None if name.startswith("flash_interpolated") or name == "conv3x3_gnsilu" else 0.5 + i
+        records[name] = {"max_abs_err": 1e-3 * i, "ms": 1.0 + i, "plain_ms": 2.0 + i, "bound_ms": 0.25 * (i + 1),
+                         "bound_by": "operations", "library_ms": lib, "library": lib and "cudnn channels_last"}
+        if name.startswith("conv"):
+            records[name]["kernel_ms"] = 0.5 + i
+    launches = {c: 3 for c in ("flash_interpolated_attention[D=64]", "flash_interpolated_attention[D=40]",
+                               "flash_interpolated_attention[D=80]", "flash_interpolated_attention[D=160]",
+                               "flash_self_attention_f32", "conv3x3_same", "conv3x3_gnsilu")}
+    entries = json.loads(smoke.kernels_line(records, launches))["kernels"]
+    assert [e["name"] for e in entries] == list(KERNEL_NAMES)
+    for e, name in zip(entries, KERNEL_NAMES):
+        assert tuple(e)[:len(smoke.KERNEL_KEYS)] == smoke.KERNEL_KEYS
+        assert e["route"] == "cuda" and e["bound_by"] in ("bytes", "operations")
+        assert e["bound_ms"] == records[name]["bound_ms"] and e["library_ms"] == records[name]["library_ms"]
+        assert e["ms"] == records[name]["ms"]
+        if name.startswith("conv"):
+            assert e["kernel_ms"] == records[name]["kernel_ms"]
+            for part in ("ms: through the wrapper", "kernel_ms: the conv launch alone", "layout_ms: the layout kernel"):
+                assert part in e["contract"]
+        assert (REPO / e["source"]).is_file()
+        path, line = e["replaces"].split(":")
+        assert path.startswith("aid_tpu/") and (REPO / path).is_file() and int(line) > 0
+    assert entries[1]["launches"] == 9  # the bf16 kernel at D = 40, 80 and 160
+
+
+def test_bounds_follow_the_work():
+    """bound_ms from shapes: the larger of operations over the peak of their
+    type and bytes over the memory rate (the figures of the kernel table)."""
+    smoke = _load_smoke()
+    ms, by = smoke.conv_bound(7, 128, 128, 960, 320)  # 634 GFLOP of bf16 products
+    assert by == "operations" and abs(ms - 0.641) < 1e-3
+    ms, by = smoke.attention_bound("self", 1, 1, 16384, 16384, 512, elem=4, tf32_passes=3)
+    assert by == "operations" and abs(ms - 3.332) < 1e-3  # 550 GFLOP at three TF32 passes
+    ms, by = smoke.attention_bound("self", 7, 10, 4096, 77, 64)  # 77 keys: the bytes bind
+    assert by == "bytes"
+    # fused_outer: own, begin and end segments, except the two skip rows
+    self_ms, _ = smoke.attention_bound("self", 7, 10, 4096, 4096, 64)
+    outer_ms, _ = smoke.attention_bound("fused_outer", 7, 10, 4096, 4096, 64, skip_rows=2)
+    assert abs(outer_ms / self_ms - (5 * 3 + 2) / 7) < 1e-9

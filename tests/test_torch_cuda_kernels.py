@@ -34,10 +34,11 @@ ATTN_RTOL = 2e-2
 # bf16 conv, f32 accumulation on both sides: one rounding of the output
 # (relative 2^-8) plus order differences; relative to max |ref|.
 CONV_RTOL = 1e-2
-# f32 attention with f32 FMA in the kernel and full-f32 matmuls in the plain
-# version (TF32 off, set in the fixture): summation order and exp2 vs exp,
-# ~1e-6 of max |ref| over thousands of keys. 1e-4 leaves margin; TF32
-# (~1e-3) or a wrong mask, scale or tile would not pass.
+# f32 attention with 3xTF32 products in the kernel and full-f32 matmuls in
+# the plain version (TF32 off, set in the fixture): the dropped lo*lo terms
+# (~2^-22 relative), summation order and exp2 vs exp, ~1e-6 of max |ref|
+# over thousands of keys. 1e-4 leaves margin; plain TF32 (~1e-3) or a wrong
+# mask, scale or tile would not pass.
 F32_ATTN_RTOL = 1e-4
 
 
@@ -164,9 +165,11 @@ def test_flash_kernel_refuses_what_it_does_not_take(dev):
 
 
 @pytest.mark.parametrize("B,H,S,L", [
-    (1, 1, 1000, 1000),   # ragged: not a multiple of the 32-row/32-key tiles
+    (1, 1, 1000, 1000),   # ragged: not a multiple of the 64-row/16-key tiles
     (1, 1, 4096, 4096),
     (3, 2, 300, 200),     # B > 1, H > 1, fewer keys than queries
+    (1, 1, 16384, 16384),  # one 1024px SDXL frame
+    (2, 3, 1000, 1000),   # B, H > 1 with ragged tails
 ])
 def test_flash_f32_d512_kernel_matches_plain(dev, B, H, S, L):
     q = _randn((B, H, S, 512), 50, torch.float32)
@@ -180,11 +183,19 @@ def test_flash_f32_d512_kernel_matches_plain(dev, B, H, S, L):
     assert _attn_err(got, want) < F32_ATTN_RTOL
 
 
+# the redesigned kernel's tile classes: 4 x 64-pixel tiles against W = 96
+# (SD 2.1's 96^2 latents, a half tile at the edge) and W = 100 (ragged in
+# both), N tiles of 160 against Cout 320 / 640 (exact) and 130 (ragged), a
+# 16-channel K chunk against Cin = 40 (the last chunk half zero-filled), and
+# the SDXL 960 -> 320 class at 128^2 with all 7 frames
+REDESIGN_CLASSES = [(2, 40, cout, w, w) for w in (96, 100) for cout in (320, 640, 130)] + [(7, 960, 320, 128, 128)]
+
+
 @pytest.mark.parametrize("B,Cin,Cout,H,W", [
     (2, 64, 64, 16, 16),
-    (1, 40, 24, 13, 7),     # ragged pixels, Cin not a multiple of 32, Cout of 128
+    (1, 40, 24, 13, 7),     # ragged pixels, Cin not a multiple of 16, Cout of 160
     (3, 96, 130, 9, 11),
-])
+] + REDESIGN_CLASSES)
 def test_conv_kernel_matches_plain(dev, B, Cin, Cout, H, W):
     x = _randn((B, Cin, H, W), 40)
     w = _randn((Cout, Cin, 3, 3), 41) * Cin ** -0.5
@@ -210,8 +221,8 @@ def _ring(H, W, device):
     (7, 320, 640, 16, 16, 32),
     (2, 2560, 1280, 9, 7, 32),    # the widest SDXL resnet input
     (7, 2560, 1280, 8, 8, 32),
-    (3, 40, 24, 5, 6, 8),         # Cin not a multiple of the 32-channel K step
-])
+    (3, 40, 24, 5, 6, 8),         # Cin not a multiple of the 16-channel K chunk
+] + [(*c, 8) for c in REDESIGN_CLASSES])
 def test_conv_gnsilu_kernel_matches_plain(dev, B, Cin, Cout, H, W, groups):
     """The prologue kernel against its plain version (same one-pass
     statistics, silu in f32 rounded to bf16, cuDNN conv with zero padding).
@@ -249,3 +260,41 @@ def test_conv_packed_is_the_prologue_free_kernel(dev):
     assert torch.equal(packed, plain_flag)
     want = F.conv2d(x.float(), w.float(), b.float(), padding=1)
     assert (packed.float() - want).abs().max().item() < CONV_RTOL * want.abs().max().item()
+
+
+def test_conv_retiles_a_weight_updated_in_place(dev):
+    """The wrapper keeps a weight's tiling between calls; an in-place update
+    (a new version of the weight) must reach the kernel on the next call."""
+    x = _randn((2, 64, 12, 10), 73)
+    w = torch.nn.Parameter(_randn((96, 64, 3, 3), 74) * 64 ** -0.5)
+    b = _randn((96,), 75)
+    with torch.no_grad():
+        first = conv3x3_same(x, w, b)
+        w.mul_(-2)
+        second = conv3x3_same(x, w, b)
+    torch.cuda.synchronize()
+    want = F.conv2d(x.float(), w.detach().float(), b.float(), padding=1)
+    assert not torch.equal(first, second)
+    assert (second.float() - want).abs().max().item() < CONV_RTOL * want.abs().max().item()
+
+
+@pytest.mark.parametrize("layout", ["nchw", "channels_last", "channel_slice", "misaligned_slice", "row_slice"])
+def test_conv_layout_kernel_matches_plain(dev, layout):
+    """The conv's layout kernel writes (B, C/8, H, W, 8) from x at its own
+    strides, bit for bit: NCHW, channels-last (16-byte loads), a
+    channels-last view 16 bytes in, one 8 bytes in (no 16-byte loads), and
+    a view of rows."""
+    from aid_tpu_torch.ops.conv import blocked_input, blocked_input_plain
+
+    x = _randn((3, 48, 13, 11), 76)
+    if layout == "channels_last":
+        x = x.contiguous(memory_format=torch.channels_last)
+    elif layout == "channel_slice":
+        x = x.contiguous(memory_format=torch.channels_last)[:, 8:40]
+    elif layout == "misaligned_slice":
+        x = x.contiguous(memory_format=torch.channels_last)[:, 4:36]
+    elif layout == "row_slice":
+        x = x[:, :, 1:]
+    got = blocked_input(x)
+    assert got.shape == (x.shape[0], x.shape[1] // 8, x.shape[2], x.shape[3], 8)
+    assert torch.equal(got, blocked_input_plain(x))

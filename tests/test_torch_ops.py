@@ -225,3 +225,184 @@ def test_cpu_routes_to_plain_versions():
         with reference_ops():
             assert not use_kernel(x)
         assert not use_kernel(x)
+
+
+def _emulate_conv_kernel(x, w, b, factors=()):
+    """csrc/conv3x3.cu's data movement, replayed in plain torch (f32 math).
+
+    The operands go through ``kernel_operands``' layouts; per K chunk the
+    window arrives as the kernel's TMA box (8-byte elements, zero outside
+    the tensor) and the weights as the chunk's contiguous bulk copy, both as
+    bytes of shared memory; the GN+SiLU prologue (if ``factors``) rewrites
+    the in-image, in-Cin part of the window; each tap's wgmma operands are
+    read through their no-swizzle descriptors (start address, LBO along K,
+    SBO between 8-row groups), exactly as the kernel builds them. A layout,
+    box or descriptor that disagrees with the others breaks the conv."""
+    from aid_tpu_torch.ops import conv as C
+
+    xb, wt, bf, fac = C.kernel_operands(x, w, b, *factors)
+    B, G, H, W, _ = xb.shape
+    Cin, Cout, BN = 8 * G, bf.shape[0], C.KERNEL_N_TILE
+    TR, TW, KC = C.KERNEL_TILE_ROWS, C.KERNEL_TILE_COLS, C.KERNEL_K_CHUNK  # one wgmma's M is TW, its K is KC
+    WR, WC = TR + 2, TW + 2
+    plane = WR * WC * 16  # bytes of one 8-channel group of the window
+    xe = xb.reshape(B, G, H, 2 * W, 4)  # 8-byte elements: 4 bf16 each
+    m = torch.arange(TW)[:, None]
+    n = torch.arange(BN)[:, None]
+    k = torch.arange(KC)[None, :]
+
+    def operand(start, rows, lbo):  # bf16 element index of (row, k) through a descriptor
+        return (start + (rows // 8) * 128 + (rows % 8) * 16 + (k // 8) * lbo + (k % 8) * 2) // 2
+
+    out = torch.zeros(B, Cout, H, W)
+    for bi in range(B):
+        for y0 in range(0, H, TR):
+            for x0 in range(0, W, TW):
+                for nt in range(wt.shape[0]):
+                    acc = torch.zeros(TR, TW, BN)
+                    for kt in range(wt.shape[1]):
+                        box = torch.zeros(2, WR, 2 * WC, 4, dtype=xb.dtype)  # (groups, rows, elements, bf16)
+                        for g in range(2):
+                            for r in range(WR):
+                                gy, yy = 2 * kt + g, y0 - 1 + r
+                                if gy < G and 0 <= yy < H:
+                                    e0 = 2 * (x0 - 1)
+                                    lo, hi = max(e0, 0), min(e0 + 2 * WC, 2 * W)
+                                    box[g, r, lo - e0:hi - e0] = xe[bi, gy, yy, lo:hi]
+                        if fac:
+                            win = box.reshape(2, WR, WC, 8).float()
+                            for g in range(2):
+                                c = (2 * kt + g) * 8
+                                if c >= Cin:
+                                    continue
+                                sc, sh = fac[0][bi, c:c + 8], fac[1][bi, c:c + 8]
+                                ys = torch.arange(WR)[:, None] + y0 - 1
+                                xs = torch.arange(WC)[None, :] + x0 - 1
+                                inside = ((ys >= 0) & (ys < H) & (xs >= 0) & (xs < W))[..., None]
+                                act = torch.nn.functional.silu(win[g] * sc + sh).to(xb.dtype).float()
+                                win[g] = torch.where(inside, act, win[g])
+                            box = win.to(xb.dtype)
+                        smem_x = box.reshape(-1).float()
+                        smem_w = wt[nt, kt].reshape(-1).float()
+                        for tap in range(9):
+                            dy, dx = divmod(tap, 3)
+                            bmat = smem_w[operand(tap * 2 * BN * 16, n, BN * 16)]
+                            for r in range(TR):
+                                amat = smem_x[operand(((r + dy) * WC + dx) * 16, m, plane)]
+                                acc[r] += amat @ bmat.T
+                    for r in range(TR):
+                        y = y0 + r
+                        xs = min(TW, W - x0)
+                        nn = min(BN, Cout - nt * BN)
+                        if y < H:
+                            out[bi, nt * BN:nt * BN + nn, y, x0:x0 + xs] = (
+                                acc[r, :xs, :nn].T + bf[nt * BN:nt * BN + nn, None])
+    return out
+
+
+@pytest.mark.parametrize("B,Cin,Cout,H,W", [
+    (1, 40, 24, 13, 7),    # ragged rows, Cin not a multiple of the 16-channel chunk
+    (2, 16, 170, 5, 70),   # two column tiles, two N tiles (the second ragged)
+])
+@pytest.mark.parametrize("prologue", [False, True])
+def test_conv_kernel_layouts_replayed(B, Cin, Cout, H, W, prologue):
+    """The CUDA conv kernel's operand layouts, TMA box, bulk copy and wgmma
+    descriptors, replayed on the CPU, compute the conv (and, with the
+    prologue, the GN+SiLU conv with its halo zero). The arithmetic is f32
+    on both sides, so only summation order differs."""
+    from aid_tpu_torch.ops.conv import conv3x3_same_plain, gn_scale_shift
+
+    g = torch.Generator().manual_seed(5)
+    x = (torch.randn(B, Cin, H, W, generator=g) * 2 + 1).to(torch.bfloat16)
+    w = (torch.randn(Cout, Cin, 3, 3, generator=g) * (9 * Cin) ** -0.5).to(torch.bfloat16)
+    b = torch.randn(Cout, generator=g)
+    if prologue:
+        gamma, beta = 1 + 0.3 * torch.randn(Cin, generator=g), 0.5 * torch.randn(Cin, generator=g)
+        scale, shift = gn_scale_shift(x, gamma, beta, 8, 1e-5)
+        got = _emulate_conv_kernel(x, w, b, (scale, shift))
+        # conv3x3_gnsilu_plain's arithmetic (silu rounded once to bf16), with an f32 conv
+        act = torch.nn.functional.silu(x.float() * scale[:, :, None, None] + shift[:, :, None, None])
+        want = conv3x3_same_plain(act.to(torch.bfloat16).float(), w.float(), b)
+    else:
+        got = _emulate_conv_kernel(x, w, b)
+        want = conv3x3_same_plain(x.float(), w.float(), b)
+    assert got.shape == want.shape
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+def test_conv_tile_constants_follow_the_kernel_source():
+    """ops/conv.py's tile constants, which its weight tiling and the replay
+    above use, are the ones csrc/conv3x3.cu compiles with."""
+    import re
+    from pathlib import Path
+
+    from aid_tpu_torch.ops import conv as C
+
+    src = (Path(C.__file__).resolve().parents[1] / "csrc" / "conv3x3.cu").read_text()
+    found = {name: int(v) for name, v in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+    assert (found["kTR"], found["kTW"], found["kBN"], found["kKc"]) == (
+        C.KERNEL_TILE_ROWS, C.KERNEL_TILE_COLS, C.KERNEL_N_TILE, C.KERNEL_K_CHUNK)
+
+
+def test_weight_is_tiled_once_until_it_changes():
+    """tiled_weight keeps a weight's tiling: the second call returns the same
+    tensor, an in-place update (a new version) tiles again, and another
+    weight gets its own tiling."""
+    from aid_tpu_torch.ops.conv import tiled_weight
+
+    g = torch.Generator().manual_seed(8)
+    w = torch.nn.Parameter(torch.randn(170, 24, 3, 3, generator=g).to(torch.bfloat16))
+    first = tiled_weight(w)
+    assert first.shape == (2, 2, 3, 3, 2, 160, 8)
+    assert tiled_weight(w) is first
+    with torch.no_grad():
+        w.mul_(2)
+    again = tiled_weight(w)
+    assert again is not first and torch.equal(again, 2 * first)
+    other = w.detach().clone()
+    assert tiled_weight(other) is not again and torch.equal(tiled_weight(other), again)
+    # the tiling holds w's values at (N tile, K chunk, dy, dx, 8-group, co, ci % 8), zeros past Cout and Cin
+    assert torch.equal(again[1, 1, 2, 0, 0, 9, 3], w[169, 19, 2, 0]) and not again[1, 1, :, :, 1].any()
+
+
+def _tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> tf32 by round to nearest, ties away from zero (cvt.rna.tf32.f32):
+    add half of the 13 dropped mantissa bits to the magnitude, then clear them."""
+    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_trunc(x: torch.Tensor) -> torch.Tensor:
+    """The tf32 part of an f32 operand as the tensor cores read it: the low 13
+    mantissa bits dropped."""
+    return (x.view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_matmul(a: torch.Tensor, b: torch.Tensor, passes: int) -> torch.Tensor:
+    """a @ b.T with the operands rounded as csrc/flash_attention_f32_d512.cu
+    rounds them: 1 pass is plain TF32 (hi * hi); 3 passes add hi * lo + lo *
+    hi with lo = a - hi. The products are summed in f64, so only the
+    operands' rounding is measured."""
+    ah, bh = _tf32_round(a), _tf32_round(b)
+    out = ah.double() @ bh.double().T
+    if passes == 3:
+        al, bl = _tf32_trunc(a - ah), _tf32_trunc(b - bh)
+        out = out + ah.double() @ bl.double().T + al.double() @ bh.double().T
+    return out
+
+
+@pytest.mark.parametrize("passes,within", [(3, True), (1, False)])
+def test_three_tf32_passes_keep_the_f32_attention_promise(passes, within):
+    """Why the f32 D=512 kernel spends three tensor-core passes per product:
+    softmax(Q K^T / sqrt(d)) V at (1, 1, 1024, 512) with both products in
+    3xTF32 stays within the f32 attention's 1e-4 of max |out| (chip_smoke.py's
+    F32_ATTN_TOL, the VAE decode's promise) of the f64 result; plain TF32
+    misses it."""
+    f32_attn_tol = 1e-4
+    rng = np.random.default_rng(0)
+    S, D = 1024, 512
+    q, k, v = (torch.from_numpy(rng.standard_normal((S, D), dtype=np.float32)) for _ in range(3))
+    want = torch.softmax(q.double() @ k.double().T * D ** -0.5, dim=-1) @ v.double()
+    p = torch.softmax(_tf32_matmul(q, k, passes) * D ** -0.5, dim=-1).float()
+    got = _tf32_matmul(p, v.T.contiguous(), passes)
+    err = ((got - want).abs().max() / want.abs().max()).item()
+    assert (err < f32_attn_tol) == within, err

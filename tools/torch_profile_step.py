@@ -46,6 +46,7 @@ CLASSES = [
     ("attention kernel, self and cross", re.compile(r"flash_kernel<\d+, true, 0>")),
     ("attention kernel, other modes", re.compile(r"flash_kernel<")),
     ("conv kernel", re.compile(r"conv3x3_kernel")),
+    ("conv layout pass", re.compile(r"blocked_kernel")),
     ("cuDNN convs", re.compile(r"fprop|implicit_convolve|conv2d|cudnn", re.I)),
     ("cuBLAS GEMMs", re.compile(r"nvjet|gemm|cutlass", re.I)),
     ("GroupNorm / LayerNorm", re.compile(r"norm|Moments|ComputeFusedParams", re.I)),
