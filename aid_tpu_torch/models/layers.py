@@ -68,6 +68,14 @@ class AidContext:
 
     coef: torch.Tensor
     mode: AidMode = AidMode()
+    _skip: dict = dataclasses.field(default_factory=dict, init=False, repr=False, compare=False)
+
+    def skip_rows(self, n_cond: int) -> torch.Tensor:
+        """``skip_mask(coef, n_cond)``, computed on the first attention layer
+        that asks and kept for the others of the forward."""
+        if n_cond not in self._skip:
+            self._skip[n_cond] = skip_mask(self.coef, n_cond)
+        return self._skip[n_cond]
 
 
 def timestep_embedding(
@@ -240,8 +248,7 @@ class CrossAttention(nn.Module):
 
         q, k, v = heads(self.to_q(hidden)), heads(self.to_k(kv_src)), heads(self.to_v(kv_src))
         mode = AttnMode.SELF if aid is None else aid.mode.text
-        coef = (aid.coef if aid is not None
-                else torch.zeros(B, dtype=torch.float32, device=hidden.device))
+        coef = None if aid is None else aid.coef  # self mode reads no coefficients
         eps, skip = {}, None
         if mode != AttnMode.SELF:
             if aid.mode.cfg_split:
@@ -249,9 +256,9 @@ class CrossAttention(nn.Module):
                 kb, ke = per_row_endpoints(k, n)
                 vb, ve = per_row_endpoints(v, n)
                 eps = dict(k_begin=kb, v_begin=vb, k_end=ke, v_end=ve)
-                skip = skip_mask(coef, n)
+                skip = aid.skip_rows(n)
             else:
-                skip = skip_mask(coef, B)
+                skip = aid.skip_rows(B)
         out = dispatch_attention(q, k, v, coef, mode, skip_endpoints=skip, **eps)
         out = out.transpose(1, 2).reshape(B, S, self.num_heads * self.head_dim)
         return self.to_out[0](out)

@@ -105,7 +105,7 @@ def library() -> ctypes.CDLL:
         vp, vp, vp,          # q, k, v
         vp, vp, vp, vp,      # k_begin, v_begin, k_end, v_end
         vp,                  # out
-        vp, vp,              # coef (f32, B), skip (int32, B)
+        vp, vp,              # coef (f32, B) or null, skip (bool, B) or null
         i64p,                # dims + strides, see flash_interpolated_attention.cu
         ctypes.c_float,      # softmax scale
         i32, i32,            # has_own, n_sets

@@ -20,7 +20,10 @@ Two kernels take CUDA calls:
     ``csrc/flash_attention_f32_d512.cu``, reached through
     :func:`flash_self_attention_f32` and counted by its ``launches``.
 Any other dtype, head dim or mode on a CUDA tensor raises
-``NotImplementedError``.
+``NotImplementedError``. :func:`kernel_operands` checks the bf16 kernel's
+operands and lays out its C entry's arguments (the CPU tests replay the
+kernel's data movement from them); :func:`kernel_launch` returns the launch
+itself, which ``chip_smoke.py`` times apart from the wrapper's host work.
 """
 
 from __future__ import annotations
@@ -35,6 +38,10 @@ from aid_tpu_torch.ops.routing import use_kernel
 
 KERNEL_HEAD_DIMS = (40, 64, 80, 160)
 F32_KERNEL_HEAD_DIM = 512
+#: the bf16 kernel's tiles by head dim: (query rows per block, keys per K/V
+#: tile, K/V stages in its ring), csrc/flash_interpolated_attention.cu's
+#: Tiles<D>: one consumer warpgroup per 64 query rows.
+KERNEL_TILES = {40: (192, 128, 3), 64: (192, 128, 3), 80: (128, 128, 2), 160: (64, 64, 3)}
 
 
 def flash_interpolated_attention_plain(
@@ -48,7 +55,7 @@ def flash_interpolated_attention_plain(
     mode = AttnMode(mode)
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    if coef is None:
+    if coef is None and mode != AttnMode.SELF:
         coef = torch.zeros(q.shape[0], dtype=torch.float32, device=q.device)
     out = interpolated_attention(q, k, v, coef, mode, k_begin=k_begin, v_begin=v_begin,
                                  k_end=k_end, v_end=v_end, scale=scale)
@@ -66,11 +73,12 @@ def _check_operand(name: str, x: torch.Tensor, dtype=torch.bfloat16, head_dims=K
         raise NotImplementedError(f"flash kernel takes {dtype} here; {name} is {x.dtype}")
     if x.shape[-1] not in head_dims:
         raise NotImplementedError(f"flash kernel takes head dims {head_dims} here; {name} has {x.shape[-1]}")
-    if x.stride(-1) != 1:
-        raise ValueError(f"{name}: the head dim must be contiguous, strides {x.stride()}")
+    strides = x.stride()
+    if strides[-1] != 1:
+        raise ValueError(f"{name}: the head dim must be contiguous, strides {strides}")
     per_16_bytes = 16 // x.element_size()
-    if any(s % per_16_bytes for s in x.stride()[:-1]) or x.data_ptr() % 16:
-        raise ValueError(f"{name}: 16-byte row alignment needed, strides {x.stride()}")
+    if any(s % per_16_bytes for s in strides[:-1]) or x.data_ptr() % 16:
+        raise ValueError(f"{name}: 16-byte row alignment needed, strides {strides}")
 
 
 def flash_self_attention_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -115,16 +123,110 @@ flash_self_attention_f32.launches = 0
 
 def _bhs_strides(x: torch.Tensor) -> list:
     """(b, h, s) element strides of a (B, H, L, D) or shared (H, L, D) tensor."""
-    if x.dim() == 3:
-        return [0, x.stride(0), x.stride(1)]
-    return [x.stride(0), x.stride(1), x.stride(2)]
+    st = x.stride()
+    return [0, st[0], st[1]] if len(st) == 3 else list(st[:3])
+
+
+def kernel_operands(
+    q: torch.Tensor,  # (B, H, Sq, D)
+    k: torch.Tensor,  # (B, H, Lk, D)
+    v: torch.Tensor,
+    coef: Optional[torch.Tensor] = None,  # (B,)
+    mode: AttnMode | str = AttnMode.SELF,
+    k_begin: Optional[torch.Tensor] = None,  # (H, Le, D) shared or (B, H, Le, D) per row; default k[0]
+    v_begin: Optional[torch.Tensor] = None,
+    k_end: Optional[torch.Tensor] = None,  # default k[-1]
+    v_end: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+    skip_endpoints: Optional[torch.Tensor] = None,  # (B,) bool: rows whose endpoint segments are dropped
+) -> dict:
+    """Check the bf16 kernel's operands and lay out one call of its C entry:
+    ``tensors`` (q, k, v, k_begin, v_begin, k_end, v_end and the output, a
+    (B, H, Sq, D) view of a new (B, Sq, H, D) buffer), ``dims`` (the entry's
+    30 shape and stride values), ``coef`` and ``skip`` (None where the mode
+    reads neither), ``scale``, ``has_own`` and ``n_sets``. Self mode reads
+    no endpoint: its slots repeat k and v. Nothing here needs a device."""
+    mode = AttnMode(mode)
+    B, H, Sq, D = q.shape
+    if k.dim() != 4 or k.shape[:2] != (B, H) or k.shape[-1] != D or v.shape != k.shape:
+        raise ValueError(f"k/v shapes {tuple(k.shape)}/{tuple(v.shape)} do not match q {tuple(q.shape)}")
+    if Sq == 0 or k.shape[2] == 0:
+        raise ValueError("empty query or key sequence")
+    dev = q.device
+    coef_t = skip = None
+    if mode == AttnMode.SELF:  # no coefficient, skip row or endpoint tensor is made
+        eps = [k, v, k, v]
+    else:
+        eps = [k[0] if k_begin is None else k_begin, v[0] if k_begin is None else v_begin,
+               k[-1] if k_end is None else k_end, v[-1] if k_end is None else v_end]
+        if any(e is None for e in eps):
+            raise ValueError("pass endpoint K and V together")
+        Le = eps[0].shape[-2]
+        for i, (name, e) in enumerate(zip(("k_begin", "v_begin", "k_end", "v_end"), eps)):
+            if e.dim() not in (3, 4) or e.shape[-3:] != (H, Le, D) or (e.dim() == 4 and e.shape[0] != B):
+                raise ValueError(f"{name} shape {tuple(e.shape)}: want (H, Le, D) or (B, H, Le, D) with Le={Le}")
+            if e.dim() == 4 and e.stride(0) == 0:  # one endpoint broadcast over the rows: pass it shared
+                eps[i] = e[0]
+        coef_t = (torch.zeros(B, dtype=torch.float32, device=dev) if coef is None
+                  else coef.to(device=dev, dtype=torch.float32).reshape(B).contiguous())
+        if mode.is_inner:
+            # the lerped cross endpoint is made in f32 and stored in the input
+            # dtype, as pack_stream does on the TPU; it rides the begin slot
+            c = coef_t.reshape(B, 1, 1, 1)
+
+            def lerped(e0, e1):
+                return ((1.0 - c) * e0.float() + c * e1.float()).to(q.dtype).contiguous()
+
+            eps[0], eps[1] = lerped(eps[0], eps[2]), lerped(eps[1], eps[3])
+            eps[2], eps[3] = eps[0], eps[1]
+        if skip_endpoints is not None and mode.is_fused:
+            skip = torch.as_tensor(skip_endpoints, device=dev).reshape(B).to(torch.bool).contiguous()
+
+    tensors = [q, k, v, *eps]
+    names = ("q", "k", "v", "k_begin", "v_begin", "k_end", "v_end")
+    for i, (name, x) in enumerate(zip(names, tensors)):
+        if any(x is y for y in tensors[:i]):
+            continue  # checked already
+        if x.device != dev:
+            raise ValueError(f"{name} is on {x.device}, q on {dev}")
+        _check_operand(name, x)
+    tensors.append(torch.empty((B, Sq, H, D), dtype=q.dtype, device=dev).transpose(1, 2))
+    dims = [B, H, Sq, k.shape[2], tensors[3].shape[-2], D]
+    for x in tensors:
+        dims += _bhs_strides(x)
+    return dict(tensors=tensors, dims=dims, coef=coef_t, skip=skip, scale=D ** -0.5 if scale is None else scale,
+                has_own=int(mode in (AttnMode.SELF, AttnMode.FUSED_OUTER, AttnMode.FUSED_INNER)),
+                n_sets=2 if mode.is_outer else (1 if mode.is_inner else 0))
+
+
+def kernel_launch(*args, **kwargs) -> tuple:
+    """:func:`kernel_operands` on CUDA tensors, prepared for launching:
+    returns ``(out, launch)``, where ``launch()`` runs the kernel into
+    ``out`` on the current stream, as often as it is called. Counts
+    nothing: the wrapper counts its launches."""
+    ops = kernel_operands(*args, **kwargs)
+    tensors, out = ops["tensors"], ops["tensors"][-1]
+
+    from aid_tpu_torch.ops import _build
+
+    lib = _build.library()
+    c_args = (*(x.data_ptr() for x in tensors),
+              *(None if x is None else x.data_ptr() for x in (ops["coef"], ops["skip"])),
+              (ctypes.c_longlong * len(ops["dims"]))(*ops["dims"]), float(ops["scale"]), ops["has_own"],
+              ops["n_sets"], torch.cuda.current_stream(out.device).cuda_stream)
+
+    def launch() -> None:
+        _build.check(lib.aid_flash_attn_bf16(*c_args), "flash_interpolated_attention launch")
+
+    launch.operands = ops  # the pointers in c_args stay valid while launch lives
+    return out, launch
 
 
 def flash_interpolated_attention(
     q: torch.Tensor,  # (B, H, Sq, D)
     k: torch.Tensor,  # (B, H, Lk, D)
     v: torch.Tensor,
-    coef: Optional[torch.Tensor] = None,  # (B,)
+    coef: Optional[torch.Tensor] = None,  # (B,); not read in self mode
     mode: AttnMode | str = AttnMode.SELF,
     k_begin: Optional[torch.Tensor] = None,  # (H, Le, D) shared or (B, H, Le, D) per row; default k[0]
     v_begin: Optional[torch.Tensor] = None,
@@ -149,67 +251,11 @@ def flash_interpolated_attention(
     if q.dtype == torch.float32 and mode == AttnMode.SELF and q.shape[-1] == F32_KERNEL_HEAD_DIM:
         return flash_self_attention_f32(q, k, v, scale)
 
-    B, H, Sq, D = q.shape
-    if k.dim() != 4 or k.shape[:2] != (B, H) or k.shape[-1] != D or v.shape != k.shape:
-        raise ValueError(f"k/v shapes {tuple(k.shape)}/{tuple(v.shape)} do not match q {tuple(q.shape)}")
-    if scale is None:
-        scale = D ** -0.5
-    if k_begin is None:
-        k_begin, v_begin = k[0], v[0]
-    if k_end is None:
-        k_end, v_end = k[-1], v[-1]
-    eps = (k_begin, v_begin, k_end, v_end)
-    if any(e is None for e in eps):
-        raise ValueError("pass endpoint K and V together")
-    Le = k_begin.shape[-2]
-    for name, e in zip(("k_begin", "v_begin", "k_end", "v_end"), eps):
-        if e.dim() not in (3, 4) or e.shape[-3:] != (H, Le, D) or (e.dim() == 4 and e.shape[0] != B):
-            raise ValueError(f"{name} shape {tuple(e.shape)}: want (H, Le, D) or (B, H, Le, D) with Le={Le}")
-
-    dev = q.device
-    coef = (torch.zeros(B, dtype=torch.float32, device=dev) if coef is None
-            else coef.to(device=dev, dtype=torch.float32).reshape(B).contiguous())
-    if mode.is_inner:
-        # the lerped cross endpoint is made in f32 and stored in the input
-        # dtype, as pack_stream does on the TPU; it rides the begin slot
-        c = coef.reshape(B, 1, 1, 1)
-
-        def lerped(e0, e1):
-            return ((1.0 - c) * e0.float() + c * e1.float()).to(q.dtype).contiguous()
-
-        k_begin, v_begin = lerped(k_begin, k_end), lerped(v_begin, v_end)
-        k_end, v_end = k_begin, v_begin
-    if skip_endpoints is None or not mode.is_fused:
-        skip = torch.zeros(B, dtype=torch.int32, device=dev)
-    else:
-        skip = torch.as_tensor(skip_endpoints, device=dev).reshape(B).to(torch.int32).contiguous()
-
-    tensors = dict(q=q, k=k, v=v, k_begin=k_begin, v_begin=v_begin, k_end=k_end, v_end=v_end)
-    for name, x in tensors.items():
-        if x.device != dev:
-            raise ValueError(f"{name} is on {x.device}, q on {dev}")
-        _check_operand(name, x)
-    out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=dev).transpose(1, 2)
-
-    dims = [B, H, Sq, k.shape[2], Le, D]
-    for x in (q, k, v, k_begin, v_begin, k_end, v_end, out):
-        dims += _bhs_strides(x)
-    dims_c = (ctypes.c_longlong * len(dims))(*dims)
-    has_own = int(mode in (AttnMode.SELF, AttnMode.FUSED_OUTER, AttnMode.FUSED_INNER))
-    n_sets = 2 if mode.is_outer else (1 if mode.is_inner else 0)
-
-    from aid_tpu_torch.ops import _build
-
-    lib = _build.library()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    code = lib.aid_flash_attn_bf16(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        k_begin.data_ptr(), v_begin.data_ptr(), k_end.data_ptr(), v_end.data_ptr(),
-        out.data_ptr(), coef.data_ptr(), skip.data_ptr(),
-        dims_c, float(scale), has_own, n_sets, stream)
-    _build.check(code, "flash_interpolated_attention launch")
+    out, launch = kernel_launch(q, k, v, coef, mode, k_begin=k_begin, v_begin=v_begin, k_end=k_end, v_end=v_end,
+                                scale=scale, skip_endpoints=skip_endpoints)
+    launch()
     flash_interpolated_attention.launches += 1
-    flash_interpolated_attention.launches_by_head_dim[D] += 1
+    flash_interpolated_attention.launches_by_head_dim[q.shape[-1]] += 1
     return out
 
 

@@ -28,11 +28,12 @@ Phases (each prints its own lines; any failure exits non-zero):
                  per source at once; ptxas resources
   3. kernels     each kernel against its plain PyTorch version at the paths'
                  shapes (SDXL and SD1.5), with stated tolerances; its time
-                 (the conv also launched alone on operands already laid
-                 out), the plain version's, its bound from the shapes and
-                 the card's peaks, and one PyTorch call computing the same
-                 function where there is one (cuDNN conv in both layouts,
-                 SDPA under each backend) as the yardstick library_ms
+                 through its wrapper and (bf16 attention and conv) launched
+                 alone on operands already laid out, the plain version's,
+                 its bound from the shapes and the card's peaks, and one
+                 PyTorch call computing the same function where there is
+                 one (cuDNN conv in both layouts, SDPA under each backend)
+                 as the yardstick library_ms
   4. whole UNet  one full-width SDXL forward in fused_outer through the
                  kernels and through the plain versions (test-only seam)
   5. denoise     the SDXL main path; launch counts, finite checksum, s/step,
@@ -342,6 +343,7 @@ def phase_kernels(coef, sd_coef, fused_classes):
         flash_interpolated_attention,
         flash_interpolated_attention_plain,
         flash_self_attention_f32,
+        kernel_launch,
     )
 
     print("== phase 3: kernels vs plain versions, bounds and library calls", flush=True)
@@ -361,9 +363,11 @@ def phase_kernels(coef, sd_coef, fused_classes):
     def attention(label, mode, c, H, Sq, L, D, reps, Le=None):
         """One bf16 attention case, B = len(c): (B, S, H*D) projections viewed
         as (B, H, S, D), as the model passes them; skip rows as the model
-        marks them; optional shared (H, Le, D) endpoints. In self mode SDPA
-        computes the same function and is timed under each backend. Returns
-        a record."""
+        marks them; optional shared (H, Le, D) endpoints. Timed through the
+        wrapper (ms: the call the model makes, its host work included) and
+        launched alone on operands kernel_launch prepared once (kernel_ms).
+        In self mode SDPA computes the same function and is timed under each
+        backend. Returns a record."""
         B = c.shape[0]
 
         def heads(x):
@@ -380,6 +384,8 @@ def phase_kernels(coef, sd_coef, fused_classes):
         err = (got.float() - want.float()).abs().max().item()
         ref = want.float().abs().max().item()
         rl2 = rel_l2(got, want)
+        _, launch = kernel_launch(q, k, v, c, mode, **kw)  # operands checked and laid out once
+        kernel_ms = cuda_ms(launch, reps)
         ms = cuda_ms(lambda: flash_interpolated_attention(q, k, v, c, mode, **kw), reps)
         plain_ms = cuda_ms(lambda: flash_interpolated_attention_plain(q, k, v, c, mode, **kw), max(1, reps // 5))
         skip_rows = int(kw["skip_endpoints"].sum()) if "skip_endpoints" in kw else 0
@@ -387,13 +393,14 @@ def phase_kernels(coef, sd_coef, fused_classes):
         library = sdpa_backends(q, k, v, want, reps) if mode == "self" else {}
         ok = math.isfinite(err) and err <= ATTN_TOL * ref
         print(f"attention {label:32s} B={B} H={H} D={D}: max_abs_err {err:.3e} (max|ref| {ref:.3e}, "
-              f"tol {ATTN_TOL * ref:.3e}) rel_l2 {rl2:.3e}  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  "
-              f"{yardsticks(bound_ms, bound_by, library)}  {'ok' if ok else 'FAIL'}", flush=True)
+              f"tol {ATTN_TOL * ref:.3e}) rel_l2 {rl2:.3e}  kernel {ms:.4f} ms (launch alone {kernel_ms:.4f})  "
+              f"plain {plain_ms:.3f} ms  {yardsticks(bound_ms, bound_by, library)}  {'ok' if ok else 'FAIL'}",
+              flush=True)
         if not ok:
             fail(f"attention {label} (D={D}): kernel disagrees with the plain version")
         lib_name, lib_ms = fastest(library)
-        return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                "library_ms": lib_ms, "library": lib_name}
+        return {"max_abs_err": err, "ms": ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": lib_ms, "library": lib_name}
 
     def attention_record(cases, coefs, main_label, self_label):
         """Run ``cases``; the record is the main (fused_outer) case's, with
@@ -407,7 +414,8 @@ def phase_kernels(coef, sd_coef, fused_classes):
             if label == self_label:
                 self_case = r
         return {**main, "max_abs_err": worst, "library_ms": None, "library": None,
-                "self_ms": self_case["ms"], "self_bound_ms": self_case["bound_ms"],
+                "self_ms": self_case["ms"], "self_kernel_ms": self_case["kernel_ms"],
+                "self_bound_ms": self_case["bound_ms"],
                 "self_library_ms": self_case["library_ms"], "self_library": self_case["library"]}
 
     # SDXL, D=64 (label, mode, H, Sq, Lkv, D, reps, Le): self/fused_outer
@@ -1101,17 +1109,21 @@ def kernels_line(kernels: dict, launches: dict) -> str:
                  "aid_conv3x3_blocked_bf16 of the same source, which every launch runs first); kernel_ms: the "
                  "conv launch alone on operands laid out by aid_tpu_torch/ops/conv.py::kernel_operands; "
                  "layout_ms: the layout kernel alone, layout_plain_ms: torch's permuting copy")
+    attn_note = ("ms: through the wrapper, as the model calls it; kernel_ms: the launch alone on operands "
+                 "aid_tpu_torch/ops/flash_attention.py::kernel_launch prepared once")
     # name -> (source, TPU kernel replaced, the launch counts it is read from, extra fields)
     rows = {
         "flash_interpolated_attention": (
             flash_src, flash_replaces[0], ("flash_interpolated_attention[D=64]",),
             {**flash_replaces[1], "contract": "bf16, head dim 64, every mode (SDXL / SD2.x UNet); ms at "
-                                              "fused_outer (7,10,4096,64), self_* at self (7,10,4096,64)"}),
+                                              "fused_outer (7,10,4096,64), self_* at self (7,10,4096,64); "
+                                              f"{attn_note}"}),
         "flash_interpolated_attention(D=40/80/160)": (
             flash_src, flash_replaces[0],
             tuple(f"flash_interpolated_attention[D={d}]" for d in (40, 80, 160)),
             {**flash_replaces[1], "contract": "bf16, head dims 40/80/160, every mode (SD1.x UNet); "
-                                              "ms at fused_outer (7,8,4096,40), self_* at self (7,8,4096,40)"}),
+                                              "ms at fused_outer (7,8,4096,40), self_* at self (7,8,4096,40); "
+                                              f"{attn_note}"}),
         "flash_self_attention_f32": (
             "aid_tpu_torch/csrc/flash_attention_f32_d512.cu", "aid_tpu/ops/flash_attention.py:101",
             ("flash_self_attention_f32",),

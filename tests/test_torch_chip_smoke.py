@@ -59,9 +59,9 @@ def test_kernels_line_carries_bound_and_library_time():
     """The kernels line parses as JSON, and every entry carries the keys the
     contract names, first and in order: bound_ms and library_ms too (null
     where no single PyTorch call computes the function), beside what phase 3
-    measured besides (the conv's kernel_ms, the library call's name). A
-    conv entry's ms is its wrapper's time, as in every kernels line before,
-    and the launch alone is kernel_ms beside it."""
+    measured besides (kernel_ms, the library call's name). A conv or bf16
+    attention entry's ms is its wrapper's time, as in every kernels line
+    before, and the launch alone is kernel_ms beside it."""
     import json
 
     smoke = _load_smoke()
@@ -70,8 +70,7 @@ def test_kernels_line_carries_bound_and_library_time():
         lib = None if name.startswith("flash_interpolated") or name == "conv3x3_gnsilu" else 0.5 + i
         records[name] = {"max_abs_err": 1e-3 * i, "ms": 1.0 + i, "plain_ms": 2.0 + i, "bound_ms": 0.25 * (i + 1),
                          "bound_by": "operations", "library_ms": lib, "library": lib and "cudnn channels_last"}
-        if name.startswith("conv"):
-            records[name]["kernel_ms"] = 0.5 + i
+        records[name]["kernel_ms"] = 0.5 + i
     launches = {c: 3 for c in ("flash_interpolated_attention[D=64]", "flash_interpolated_attention[D=40]",
                                "flash_interpolated_attention[D=80]", "flash_interpolated_attention[D=160]",
                                "flash_self_attention_f32", "conv3x3_same", "conv3x3_gnsilu")}
@@ -83,8 +82,12 @@ def test_kernels_line_carries_bound_and_library_time():
         assert e["bound_ms"] == records[name]["bound_ms"] and e["library_ms"] == records[name]["library_ms"]
         assert e["ms"] == records[name]["ms"]
         if name.startswith("conv"):
-            assert e["kernel_ms"] == records[name]["kernel_ms"]
             for part in ("ms: through the wrapper", "kernel_ms: the conv launch alone", "layout_ms: the layout kernel"):
+                assert part in e["contract"]
+        if name.startswith("conv") or name.startswith("flash_interpolated"):
+            assert e["kernel_ms"] == records[name]["kernel_ms"]
+        if name.startswith("flash_interpolated"):
+            for part in ("ms: through the wrapper", "kernel_ms: the launch alone"):
                 assert part in e["contract"]
         assert (REPO / e["source"]).is_file()
         path, line = e["replaces"].split(":")

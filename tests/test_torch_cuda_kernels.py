@@ -96,9 +96,9 @@ def test_flash_kernel_matches_plain(dev, mode, B, H, S, L, Le, ep):
     (2, 2, 64, 64, 23, 4),            # per-row endpoints of their own length
 ])
 def test_flash_kernel_head_dims_match_plain(dev, D, mode, B, H, S, L, Le, ep):
-    """SD1.x's head dims: 40 (Q K^T padded to 48, an odd number of output
-    tiles), 80, and 160 (two blocks per q tile, one half of the output
-    columns each). The operands are (B, S, H*D) projections viewed as
+    """SD1.x's head dims: 40 (Q K^T over 48 columns, the pad zero-filled by
+    the tensor map), 80 (two 64-column boxes), and 160 (three boxes, 64-row
+    q tiles, one accumulator set of 160 columns). The operands are (B, S, H*D) projections viewed as
     (B, H, S, D), as the model passes them, so each row's columns past D
     are the next head's: a kernel that read them would disagree."""
     def heads(x):
@@ -125,6 +125,58 @@ def test_flash_kernel_head_dims_match_plain(dev, D, mode, B, H, S, L, Le, ep):
     # the strided views and contiguous copies give the same bits
     args = [x.contiguous() for x in (q, k, v)]
     assert torch.equal(got, flash_interpolated_attention(*args, coef, mode, skip_endpoints=skip, **eps))
+
+
+@pytest.mark.parametrize("D", [40, 64, 80, 160])
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("B,H,S,L,Le,ep", [
+    (3, 2, 200, 129, None, None),   # Sq past one q tile (192, 128 or 64 rows), 129 keys: a 1-key last tile
+    (2, 3, 77, 77, 23, 4),          # 77 keys and queries (one tile), per-row endpoints of 23 keys
+    (4, 2, 130, 77, 129, 3),        # shared 3D endpoints of 129 keys
+])
+def test_flash_kernel_tile_edges(dev, D, mode, B, H, S, L, Le, ep):
+    """The edges of the kernel's tiles at every head dim and mode: q tails
+    of the q tile (192 rows at D=40/64, 128 at D=80, 64 at D=160), KV
+    segments around one 128-key tile (two 64-key tiles at D=160),
+    per-row and shared endpoints, skip rows at both ends; operands are the
+    model's (B, S, H*D) views, and equal contiguous copies bit for bit."""
+    def heads(x):
+        return x.view(x.shape[0], x.shape[1], H, D).transpose(1, 2)
+
+    q = heads(_randn((B, S, H * D), 81))
+    k, v = heads(_randn((B, L, H * D), 82)), heads(_randn((B, L, H * D), 83))
+    coef = torch.linspace(0, 1, B, device=dev)
+    skip = torch.zeros(B, dtype=torch.bool, device=dev)
+    skip[0] = skip[-1] = True
+    eps = {}
+    if ep is not None:
+        shape = (H, Le, D) if ep == 3 else (B, H, Le, D)
+        eps = {n: _randn(shape, 90 + i) for i, n in enumerate(("k_begin", "v_begin", "k_end", "v_end"))}
+    got = flash_interpolated_attention(q, k, v, coef, mode, skip_endpoints=skip, **eps)
+    torch.cuda.synchronize()
+    want = flash_interpolated_attention_plain(q, k, v, coef, mode, skip_endpoints=skip, **eps)
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    assert _attn_err(got, want) < ATTN_RTOL
+    args = [x.contiguous() for x in (q, k, v)]
+    assert torch.equal(got, flash_interpolated_attention(*args, coef, mode, skip_endpoints=skip, **eps))
+
+
+def test_flash_kernel_launch_alone_repeats(dev):
+    """kernel_launch prepares the operands once; each call of its launch
+    writes the same result into the same buffer, and counts nothing."""
+    from aid_tpu_torch.ops.flash_attention import kernel_launch
+
+    q, k, v = _randn((3, 2, 150, 64), 84), _randn((3, 2, 90, 64), 85), _randn((3, 2, 90, 64), 86)
+    coef = torch.tensor([0.0, 0.4, 1.0], device=dev)
+    before = flash_interpolated_attention.launches
+    out, launch = kernel_launch(q, k, v, coef, "fused_outer")
+    launch()
+    first = out.clone()
+    launch()
+    torch.cuda.synchronize()
+    assert flash_interpolated_attention.launches == before
+    assert torch.equal(out, first)
+    assert torch.equal(out, flash_interpolated_attention(q, k, v, coef, "fused_outer"))
 
 
 def test_flash_kernel_strided_heads(dev):

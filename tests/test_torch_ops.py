@@ -8,6 +8,8 @@ pin; the kernels themselves are held to the same plain versions on the card
 (tests/test_torch_cuda_kernels.py, chip_smoke.py).
 """
 
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -406,3 +408,160 @@ def test_three_tf32_passes_keep_the_f32_attention_promise(passes, within):
     got = _tf32_matmul(p, v.T.contiguous(), passes)
     err = ((got - want).abs().max() / want.abs().max()).item()
     assert (err < f32_attn_tol) == within, err
+
+
+def _swizzle128(addr: torch.Tensor) -> torch.Tensor:
+    """The 128-byte swizzle of a byte address in a 1024-byte-aligned tile:
+    16-byte chunk j of row r (128-byte rows) lies at chunk j ^ (r % 8)."""
+    return addr ^ (((addr >> 7) & 7) << 4)
+
+
+def _emulate_flash_kernel(ops: dict) -> torch.Tensor:
+    """csrc/flash_interpolated_attention.cu's data movement, replayed in plain
+    torch from the C entry's own arguments (``kernel_operands``).
+
+    Each operand is read as its tensor map reads it: (D, H, S, B) over the
+    tensor's storage at the strides in ``dims`` (a batch stride of 0: batch
+    extent 1), boxes of 64 columns by a tile of rows, zeros outside the
+    extents (columns past D, rows past the segment), stored 128-byte
+    swizzled. Q K^T reads Q and K through K-major descriptors (start + 32
+    bytes per k16 step, 8-row groups 1024 bytes apart), P V reads V through
+    the MN-major descriptor (LBO = one box of the tile, 2048 bytes per 16
+    keys). Softmax, bf16 P, the outer modes' parked state and the swizzled
+    output tile clipped by the TMA store follow the kernel. f32 arithmetic."""
+    from aid_tpu_torch.ops.flash_attention import KERNEL_TILES
+
+    tensors, dims = ops["tensors"], ops["dims"]
+    B, H, Sq, Lk, Le, D = dims[:6]
+    BQ, BK, _ = KERNEL_TILES[D]
+    chunks, ksteps = -(-D // 64), -(-D // 16)
+    sl2 = ops["scale"] * 1.4426950408889634
+    flat = [torch.as_strided(x, (x.untyped_storage().nbytes() // 2 - x.storage_offset(),), (1,),
+                             x.storage_offset()).float() for x in tensors]
+    strides = [dims[6 + 3 * i:9 + 3 * i] for i in range(8)]
+    extents = [Sq, Lk, Lk, Le, Le, Le, Le, Sq]
+
+    def box(i, c, h, s0, b, rows):  # one TMA box of map i into a swizzled tile (bf16 elements)
+        sb, sh, ss = strides[i]
+        b = 0 if sb == 0 else b
+        r = torch.arange(rows)[:, None]
+        x = torch.arange(64)[None, :]
+        ok = (64 * c + x < D) & (s0 + r < extents[i])
+        idx = torch.where(ok, b * sb + h * sh + (s0 + r) * ss + 64 * c + x, 0)
+        tile = torch.zeros(rows * 64)
+        tile[_swizzle128(r * 128 + x * 2).reshape(-1) // 2] = torch.where(ok, flat[i][idx], 0.0).reshape(-1)
+        return tile
+
+    def tiles(i, h, s0, b, rows):  # the kChunks boxes of a row tile, one after the other
+        return torch.cat([box(i, c, h, s0, b, rows) for c in range(chunks)])
+
+    def kmajor(smem, start, rows):  # (rows, 16) through a K-major descriptor
+        r, kc = torch.arange(rows)[:, None], torch.arange(16)[None, :]
+        return smem[_swizzle128(start + (r // 8) * 1024 + (r % 8) * 128 + kc * 2) // 2]
+
+    def mnmajor(smem, start, lbo):  # (16 keys, D) through the MN-major (transposed) descriptor
+        kr, n = torch.arange(16)[:, None], torch.arange(D)[None, :]
+        return smem[_swizzle128(start + (kr // 8) * 1024 + (kr % 8) * 128 + (n // 64) * lbo + (n % 64) * 2) // 2]
+
+    coef, skip = ops["coef"], ops["skip"]
+    has_own, n_sets = ops["has_own"], ops["n_sets"]
+    out_flat = torch.zeros_like(flat[7])
+    for b in range(B):
+        skipped = n_sets > 0 and skip is not None and bool(skip[b])
+        segs = ([(1, 2, Lk)] if has_own else []) + ([(3, 4, Le)] if n_sets and not skipped else []) + (
+            [(5, 6, Le)] if n_sets == 2 and not skipped else [])
+        for h in range(H):
+            for q0 in range(0, Sq, BQ):
+                for w in range(BQ // 64):
+                    qt = tiles(0, h, q0 + 64 * w, b, 64)
+                    o, m, lsum = torch.zeros(64, D), torch.full((64,), -math.inf), torch.zeros(64)
+                    park = None
+                    for n, (ki, vi, length) in enumerate(segs):
+                        if n_sets == 2 and not skipped and n == len(segs) - 1:  # the end segment
+                            if has_own:
+                                park, (o, m, lsum) = o / lsum[:, None] * (1 - coef[b]), park
+                            else:
+                                park = o / lsum[:, None] * (1 - coef[b])
+                                o, m, lsum = torch.zeros(64, D), torch.full((64,), -math.inf), torch.zeros(64)
+                        for r0 in range(0, length, BK):
+                            kt, vt = tiles(ki, h, r0, b, BK), tiles(vi, h, r0, b, BK)
+                            s = sum(kmajor(qt, (kk // 4) * 8192 + (kk % 4) * 32, 64)
+                                    @ kmajor(kt, (kk // 4) * BK * 128 + (kk % 4) * 32, BK).T for kk in range(ksteps))
+                            s[:, min(BK, length - r0):] = -math.inf
+                            mn = torch.maximum(m, s.max(dim=1).values)
+                            alpha = torch.exp2((m - mn) * sl2)
+                            p = torch.exp2(s * sl2 - (mn * sl2)[:, None])
+                            m, lsum = mn, lsum * alpha + p.sum(dim=1)
+                            pb = p.to(torch.bfloat16).float()
+                            o = o * alpha[:, None] + sum(pb[:, 16 * kk:16 * kk + 16] @ mnmajor(vt, kk * 2048, BK * 128)
+                                                         for kk in range(BK // 16))
+                        if n_sets == 2 and not skipped and has_own and n == 0:
+                            park = (o, m, lsum)
+                    o = o / lsum[:, None] * (coef[b] if n_sets == 2 and not skipped else 1.0)
+                    if park is not None and n_sets == 2 and not skipped:
+                        o = o + park
+                    # the output tile, swizzled, then the TMA store clipped to (D, Sq)
+                    ob = o.to(torch.bfloat16).float()
+                    r, col = torch.arange(64)[:, None], torch.arange(64 * chunks)[None, :]
+                    tile = torch.zeros(64 * 64 * chunks)
+                    addr = (col // 64) * 8192 + _swizzle128(r * 128 + (col % 64) * 2)
+                    tile[(addr // 2)[:, :D].reshape(-1)] = ob.reshape(-1)
+                    sb, sh, ss = strides[7]
+                    rows = q0 + 64 * w + r
+                    keep = (rows < Sq) & (col < D)
+                    dst = (b * sb + h * sh + rows * ss + col)[keep]
+                    out_flat[dst] = tile[(addr // 2)[keep]]
+    out = tensors[7]
+    return torch.as_strided(out_flat, out.shape, out.stride()).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("D", HEAD_DIMS)
+@pytest.mark.parametrize("mode,endpoints", [("self", None), ("fused_outer", 3), ("pure_outer", 4),
+                                            ("fused_inner", None), ("pure_inner", 3)])
+def test_flash_kernel_data_movement_replayed(D, mode, endpoints):
+    """The bf16 attention kernel's tensor-map boxes (zero fill past D and past
+    each segment), 128-byte swizzle and wgmma descriptors for Q, K and
+    transposed V, replayed on the CPU from the wrapper's own C arguments,
+    compute the attention: on (B, S, H*D) projections viewed as (B, H, S, D),
+    whose columns past D are the next head's, with skip rows at both ends,
+    q tails past a tile and KV segments of 129 and 77 keys. Against the
+    plain version in f32, the replay differs by P's bf16 rounding and the
+    output's (a wrong box, swizzle or descriptor is O(1))."""
+    from aid_tpu_torch.ops.flash_attention import kernel_operands
+
+    g = torch.Generator().manual_seed(D)
+    B, H, S, L, Le = 3, 2, 150, 129, 77
+
+    def heads(n):
+        return (torch.randn(B, n, H * D, generator=g)).to(torch.bfloat16).view(B, n, H, D).transpose(1, 2)
+
+    q, k, v = heads(S), heads(L), heads(L)
+    coef = torch.tensor([0.0, 0.4, 1.0])
+    skip = torch.tensor([True, False, True])
+    eps = {}
+    if endpoints is not None:
+        shape = (H, Le, D) if endpoints == 3 else (B, H, Le, D)
+        eps = {n: torch.randn(shape, generator=g).to(torch.bfloat16)
+               for n in ("k_begin", "v_begin", "k_end", "v_end")}
+    ops = kernel_operands(q, k, v, coef, mode, skip_endpoints=skip, **eps)
+    got = _emulate_flash_kernel(ops)
+    want = flash_interpolated_attention_plain(q.float(), k.float(), v.float(), coef, mode, skip_endpoints=skip,
+                                              **{n: e.float() for n, e in eps.items()})
+    assert got.shape == want.shape
+    assert th.max_rel_err(got.float().numpy(), want.numpy()) < 1e-2
+
+
+def test_flash_tile_constants_follow_the_kernel_source():
+    """ops/flash_attention.py's tile table, which the replay above uses, is
+    the one csrc/flash_interpolated_attention.cu compiles with: query rows
+    per block, keys per K/V tile and ring stages for each head dim."""
+    import re
+    from pathlib import Path
+
+    from aid_tpu_torch.ops import flash_attention as FA
+
+    src = (Path(FA.__file__).resolve().parents[1] / "csrc" / "flash_interpolated_attention.cu").read_text()
+    pat = r"struct Tiles<(\d+)> \{ static constexpr int kBQ = (\d+), kBK = (\d+), kStages = (\d+); \};"
+    found = {int(d): (int(bq), int(bk), int(st)) for d, bq, bk, st in re.findall(pat, src)}
+    assert found == FA.KERNEL_TILES
+    assert sorted(found) == HEAD_DIMS
