@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 import torch.nn.functional as F
@@ -64,10 +64,15 @@ class AidMode:
 @dataclasses.dataclass
 class AidContext:
     """AID inputs for one UNet forward pass: ``coef`` (B,) per-frame
-    interpolation coefficients and the :class:`AidMode`."""
+    interpolation coefficients and the :class:`AidMode`.
+
+    ``force_vanilla``: optional bool, scalar (a Python bool or a 0-d tensor)
+    or (B,), rows whose attention is computed as vanilla attention although
+    the mode interpolates (the fused denoise loop's late steps)."""
 
     coef: torch.Tensor
     mode: AidMode = AidMode()
+    force_vanilla: Optional[Union[bool, torch.Tensor]] = None
     _skip: dict = dataclasses.field(default_factory=dict, init=False, repr=False, compare=False)
 
     def skip_rows(self, n_cond: int) -> torch.Tensor:
@@ -249,7 +254,7 @@ class CrossAttention(nn.Module):
         q, k, v = heads(self.to_q(hidden)), heads(self.to_k(kv_src)), heads(self.to_v(kv_src))
         mode = AttnMode.SELF if aid is None else aid.mode.text
         coef = None if aid is None else aid.coef  # self mode reads no coefficients
-        eps, skip = {}, None
+        eps, skip, force = {}, None, None
         if mode != AttnMode.SELF:
             if aid.mode.cfg_split:
                 n = aid.mode.cfg_split
@@ -259,7 +264,10 @@ class CrossAttention(nn.Module):
                 skip = aid.skip_rows(n)
             else:
                 skip = aid.skip_rows(B)
-        out = dispatch_attention(q, k, v, coef, mode, skip_endpoints=skip, **eps)
+            force = aid.force_vanilla
+            if force is not None:  # forced rows drop their endpoint segments too (aid_tpu/models/layers.py:444-445)
+                skip = skip | torch.as_tensor(force, dtype=torch.bool, device=skip.device)
+        out = dispatch_attention(q, k, v, coef, mode, skip_endpoints=skip, force_vanilla=force, **eps)
         out = out.transpose(1, 2).reshape(B, S, self.num_heads * self.head_dim)
         return self.to_out[0](out)
 

@@ -50,7 +50,7 @@ def _leaf_to_torch(name: str, w: np.ndarray):
     return name, w
 
 
-def _state_dict(tree: Dict, unfold, skip=()) -> "OrderedDict[str, torch.Tensor]":
+def _state_dict(tree: Dict, unfold) -> "OrderedDict[str, torch.Tensor]":
     """Walk a flax tree; ``unfold(name, depth)`` gives each module name's dotted path."""
     if "params" in tree:
         tree = tree["params"]
@@ -59,8 +59,7 @@ def _state_dict(tree: Dict, unfold, skip=()) -> "OrderedDict[str, torch.Tensor]"
     def walk(node, prefix):
         for key, value in node.items():
             if isinstance(value, dict):
-                if prefix or key not in skip:
-                    walk(value, prefix + [unfold(key, len(prefix))])
+                walk(value, prefix + [unfold(key, len(prefix))])
             else:
                 name, w = _leaf_to_torch(key, np.asarray(value))
                 out[".".join(prefix + [name])] = torch.tensor(w)  # a copy: the input may be read-only
@@ -75,17 +74,17 @@ def unet_state_dict_from_flax(tree: Dict) -> "OrderedDict[str, torch.Tensor]":
 
 
 _VAE_UNFOLD = (
-    # the VAE's upsampler is a bare flax Conv; diffusers wraps it as upsamplers.0.conv
-    (re.compile(r"^up_blocks_(\d+)_upsamplers_0$"), r"up_blocks.\1.upsamplers.0.conv"),
+    # the VAE's up- and downsamplers are bare flax Convs; diffusers wraps
+    # them as upsamplers.0.conv / downsamplers.0.conv
+    (re.compile(r"^(up|down)_blocks_(\d+)_(up|down)samplers_0$"), r"\1_blocks.\2.\3samplers.0.conv"),
     # nested mid block (params.py:139-152): mid_block/resnets_0 -> mid_block.resnets.0
     (re.compile(r"^(resnets|attentions)_(\d+)$"), r"\1.\2"),
 )
 
 
 def vae_state_dict_from_flax(tree: Dict) -> "OrderedDict[str, torch.Tensor]":
-    """JAX AutoencoderKL params -> the port's (decode-side) AutoencoderKL
-    state_dict. The encoder and ``quant_conv`` are dropped: the port has no
-    encoder yet."""
+    """JAX AutoencoderKL params (encoder, decoder, ``quant_conv``,
+    ``post_quant_conv``) -> the port's AutoencoderKL state_dict."""
 
     def unfold(key, depth):
         for pattern, repl in _VAE_UNFOLD:
@@ -93,7 +92,7 @@ def vae_state_dict_from_flax(tree: Dict) -> "OrderedDict[str, torch.Tensor]":
                 return pattern.sub(repl, key)
         return _unfold(key)
 
-    return _state_dict(tree, unfold, skip=("encoder", "quant_conv"))
+    return _state_dict(tree, unfold)
 
 
 _CLIP_TOP = {

@@ -5,8 +5,8 @@ parameter names (``down_blocks.1.attentions.0...``, ``mid_block.resnets.0``,
 ``time_embedding.linear_1``, ``add_embedding.linear_1``, ...). Supports the
 SD1.x/2.x four-level layout and SDXL's three levels with per-level
 transformer depth and ``text_time`` added conditioning (pooled text embeds +
-micro-conditioning time_ids). Not yet ported: IP-Adapter K/V projections and
-FreeU.
+micro-conditioning time_ids), and FreeU on the first two up blocks
+(``freeu=FreeUConfig(...)``). Not yet ported: IP-Adapter K/V projections.
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from aid_tpu_torch.models.configs import UNetConfig
+from aid_tpu_torch.models.freeu import FreeUConfig, apply_freeu
 from aid_tpu_torch.models.layers import (
     AidContext,
     Downsample2D,
@@ -118,6 +119,7 @@ class UNet2DCondition(nn.Module):
         encoder_hidden_states: torch.Tensor,  # (B, S, cross_attention_dim)
         aid: Optional[AidContext] = None,
         added_cond: Optional[dict] = None,  # SDXL: {"text_embeds": (B, P), "time_ids": (B, 6)}
+        freeu: Optional[FreeUConfig] = None,  # diffusers' enable_freeu
     ) -> torch.Tensor:
         cfg = self.config
         B = sample.shape[0]
@@ -160,10 +162,11 @@ class UNet2DCondition(nn.Module):
             h = attn(h, ehs, aid)
         h = self.mid_block.resnets[1](h, emb)
 
-        # 5. up path with skip concat
-        for blk in self.up_blocks:
+        # 5. up path with skip concat (FreeU on the first two up blocks)
+        for up_idx, blk in enumerate(self.up_blocks):
             for j, resnet in enumerate(blk.resnets):
-                h = resnet(torch.cat([h, skips.pop()], dim=1), emb)
+                h, skip = apply_freeu(up_idx, h, skips.pop(), freeu)
+                h = resnet(torch.cat([h, skip], dim=1), emb)
                 if len(blk.attentions):
                     h = blk.attentions[j](h, ehs, aid)
             if hasattr(blk, "upsamplers"):

@@ -139,6 +139,13 @@ def library() -> ctypes.CDLL:
         vp,                  # cudaStream_t
     ]
     lib.aid_flash_attn_f32_d512.restype = ctypes.c_int
+    lib.aid_flash_attn_bf16_d512.argtypes = [
+        vp, vp, vp, vp,      # q, k, v, out (bf16)
+        i64p,                # dims + strides, see flash_attention_bf16_d512.cu
+        ctypes.c_float,      # softmax scale
+        vp,                  # cudaStream_t
+    ]
+    lib.aid_flash_attn_bf16_d512.restype = ctypes.c_int
     lib.aid_cuda_error_string.argtypes = [i32]
     lib.aid_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -141,10 +141,36 @@ def interpolated_attention(
     return out.to(q.dtype)
 
 
+def _force_rows(force_vanilla, device) -> torch.Tensor:
+    """``force_vanilla`` as a bool tensor that selects whole (B, H, S, D)
+    rows: a scalar stays 0-d, a (B,) vector gains three trailing axes."""
+    fv = torch.as_tensor(force_vanilla, dtype=torch.bool, device=device)
+    return fv if fv.dim() == 0 else fv.reshape(-1, 1, 1, 1)
+
+
+def _force_vanilla_endpoints(force_vanilla, k, v, k_begin, v_begin, k_end, v_end):
+    """Realise ``force_vanilla`` in the pure modes by the duplicated-KV
+    identity (aid_tpu/ops/attention.py:229-253): each forced row's own K/V
+    stands in for both endpoints, which reduces every mode exactly to
+    vanilla attention. Returns the four (B, H, Le, D) endpoints, or None
+    where an endpoint's length differs from the own KV's."""
+    if any(ep is not None and ep.shape[-2] != x.shape[-2]
+           for ep, x in ((k_begin, k), (k_end, k), (v_begin, v), (v_end, v))):
+        return None
+    fv = _force_rows(force_vanilla, k.device)
+
+    def own_or_endpoint(explicit, x, row):
+        ep = x[row] if explicit is None else explicit
+        return torch.where(fv, x, ep.expand(x.shape[0], *ep.shape[-3:]))
+
+    return (own_or_endpoint(k_begin, k, 0), own_or_endpoint(v_begin, v, 0),
+            own_or_endpoint(k_end, k, -1), own_or_endpoint(v_end, v, -1))
+
+
 def dispatch_attention(
     q, k, v, coef, mode,
     k_begin=None, v_begin=None, k_end=None, v_end=None,
-    scale=None, skip_endpoints=None,
+    scale=None, skip_endpoints=None, force_vanilla=None,
 ):
     """The model's attention entry: the flash kernel on CUDA, its plain
     version on the CPU (see module docstring).
@@ -152,8 +178,28 @@ def dispatch_attention(
     ``skip_endpoints``: optional (B,) bool, rows whose endpoint segments
     provably reduce to vanilla attention. Fused modes drop those segments;
     pure modes ignore it (their streams have no own segment to fall back on).
+
+    ``force_vanilla``: optional bool, scalar or (B,), rows computed as
+    vanilla attention whatever the mode (aid_tpu/ops/attention.py:312-339).
+    Fused modes fold it into ``skip_endpoints``; pure modes substitute each
+    forced row's own K/V for both endpoints. Both keep one kernel launch.
+    Only where an endpoint's length differs from the own KV's (never on the
+    model's path) is the vanilla result computed apart and selected.
     """
     from aid_tpu_torch.ops.flash_attention import flash_interpolated_attention
+
+    mode = AttnMode(mode)
+    if force_vanilla is not None and mode.is_fused:
+        fv = torch.as_tensor(force_vanilla, dtype=torch.bool, device=q.device).expand(q.shape[0])
+        skip_endpoints = fv if skip_endpoints is None else skip_endpoints | fv
+    elif force_vanilla is not None and mode != AttnMode.SELF:
+        subst = _force_vanilla_endpoints(force_vanilla, k, v, k_begin, v_begin, k_end, v_end)
+        if subst is None:
+            out = flash_interpolated_attention(q, k, v, coef, mode, k_begin=k_begin, v_begin=v_begin, k_end=k_end,
+                                               v_end=v_end, scale=scale, skip_endpoints=skip_endpoints)
+            van = flash_interpolated_attention(q, k, v, scale=scale)
+            return torch.where(_force_rows(force_vanilla, q.device), van, out)
+        k_begin, v_begin, k_end, v_end = subst
 
     return flash_interpolated_attention(
         q, k, v, coef, mode,

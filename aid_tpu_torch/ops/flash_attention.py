@@ -9,7 +9,7 @@ kernels behind that function (``_kernel``, flash_attention.py:101, and
 bounds it on the card and how the design answers. On a CPU tensor it runs
 :func:`flash_interpolated_attention_plain`.
 
-Two kernels take CUDA calls:
+Three kernels take CUDA calls:
   * bf16 with head dim 40, 64, 80 or 160, every mode (every UNet attention:
     64 for SDXL and SD2.x, 40/80/160 for SD1.x's 8 heads at widths
     320/640/1280): ``csrc/flash_interpolated_attention.cu``, counted by
@@ -18,12 +18,17 @@ Two kernels take CUDA calls:
   * f32 with head dim 512, self mode (the VAE mid-block attention, one head
     over 4096 tokens at 512px, 16384 at 1024px):
     ``csrc/flash_attention_f32_d512.cu``, reached through
-    :func:`flash_self_attention_f32` and counted by its ``launches``.
+    :func:`flash_self_attention_f32` and counted by its ``launches``;
+  * bf16 with head dim 512, self mode (the same attention in a bf16 VAE):
+    ``csrc/flash_attention_bf16_d512.cu``, reached through
+    :func:`flash_self_attention_bf16` and counted by its ``launches``.
 Any other dtype, head dim or mode on a CUDA tensor raises
-``NotImplementedError``. :func:`kernel_operands` checks the bf16 kernel's
-operands and lays out its C entry's arguments (the CPU tests replay the
-kernel's data movement from them); :func:`kernel_launch` returns the launch
-itself, which ``chip_smoke.py`` times apart from the wrapper's host work.
+``NotImplementedError`` (ROADMAP Queue 2 lists the instances still to port).
+:func:`kernel_operands` checks the bf16 kernel's operands and lays out its
+C entry's arguments (the CPU tests replay the kernel's data movement from
+them); :func:`kernel_launch` and, for the D=512 kernels, :func:`d512_launch`
+return the launch itself, which ``chip_smoke.py`` times apart from the
+wrapper's host work.
 """
 
 from __future__ import annotations
@@ -37,7 +42,7 @@ from aid_tpu_torch.ops.attention import AttnMode, _softmax_attn, interpolated_at
 from aid_tpu_torch.ops.routing import use_kernel
 
 KERNEL_HEAD_DIMS = (40, 64, 80, 160)
-F32_KERNEL_HEAD_DIM = 512
+D512 = 512  # the VAE mid block's head dim: the self-mode kernels in f32 and bf16
 #: the bf16 kernel's tiles by head dim: (query rows per block, keys per K/V
 #: tile, K/V stages in its ring), csrc/flash_interpolated_attention.cu's
 #: Tiles<D>: one consumer warpgroup per 64 query rows.
@@ -70,15 +75,55 @@ def flash_interpolated_attention_plain(
 
 def _check_operand(name: str, x: torch.Tensor, dtype=torch.bfloat16, head_dims=KERNEL_HEAD_DIMS) -> None:
     if x.dtype != dtype:
-        raise NotImplementedError(f"flash kernel takes {dtype} here; {name} is {x.dtype}")
+        raise NotImplementedError(f"flash kernel takes {dtype} here; {name} is {x.dtype} "
+                                  "(ROADMAP Queue 2 lists the instances still to port)")
     if x.shape[-1] not in head_dims:
-        raise NotImplementedError(f"flash kernel takes head dims {head_dims} here; {name} has {x.shape[-1]}")
+        raise NotImplementedError(f"flash kernel takes head dims {head_dims} here; {name} has {x.shape[-1]} "
+                                  "(ROADMAP Queue 2 lists the instances still to port)")
     strides = x.stride()
     if strides[-1] != 1:
         raise ValueError(f"{name}: the head dim must be contiguous, strides {strides}")
     per_16_bytes = 16 // x.element_size()
     if any(s % per_16_bytes for s in strides[:-1]) or x.data_ptr() % 16:
         raise ValueError(f"{name}: 16-byte row alignment needed, strides {strides}")
+
+
+def d512_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: Optional[float] = None) -> tuple:
+    """The D=512 self-attention kernel of q's dtype (f32: ``csrc/
+    flash_attention_f32_d512.cu``, bf16: ``csrc/flash_attention_bf16_d512.cu``)
+    prepared for launching on CUDA tensors: checks the operands, allocates
+    the output and returns ``(out, launch)``, where ``launch()`` runs the
+    kernel into ``out`` on the current stream, as often as it is called.
+    Counts nothing: the wrappers count their launches."""
+    B, H, Sq, D = q.shape
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise NotImplementedError(f"the D={D512} self-attention kernels take f32 or bf16; q is {q.dtype} "
+                                  "(ROADMAP Queue 2 lists the instances still to port)")
+    if k.dim() != 4 or k.shape[:2] != (B, H) or k.shape[-1] != D or v.shape != k.shape:
+        raise ValueError(f"k/v shapes {tuple(k.shape)}/{tuple(v.shape)} do not match q {tuple(q.shape)}")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        _check_operand(name, x, q.dtype, (D512,))
+    if Sq == 0 or k.shape[2] == 0:
+        raise ValueError("empty query or key sequence")
+    if q.dtype == torch.float32:
+        entry, out = "aid_flash_attn_f32_d512", torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    else:  # a view of a (B, Sq, H, D) buffer, as the other bf16 kernel writes
+        entry, out = "aid_flash_attn_bf16_d512", torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device).transpose(1, 2)
+    dims = [B, H, Sq, k.shape[2]]
+    for x in (q, k, v, out):
+        dims += _bhs_strides(x)
+
+    from aid_tpu_torch.ops import _build
+
+    fn = getattr(_build.library(), entry)
+    c_args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), (ctypes.c_longlong * len(dims))(*dims),
+              float(D ** -0.5 if scale is None else scale), torch.cuda.current_stream(q.device).cuda_stream)
+
+    def launch() -> None:
+        _build.check(fn(*c_args), f"{entry} launch")
+
+    launch.operands = (q, k, v, out)  # the pointers in c_args stay valid while launch lives
+    return out, launch
 
 
 def flash_self_attention_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -93,32 +138,41 @@ def flash_self_attention_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         scale = q.shape[-1] ** -0.5
     if not use_kernel(q, k, v):
         return _softmax_attn(q, k, v, scale)
-    B, H, Sq, D = q.shape
-    if k.dim() != 4 or k.shape[:2] != (B, H) or k.shape[-1] != D or v.shape != k.shape:
-        raise ValueError(f"k/v shapes {tuple(k.shape)}/{tuple(v.shape)} do not match q {tuple(q.shape)}")
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        _check_operand(name, x, torch.float32, (F32_KERNEL_HEAD_DIM,))
-    if Sq == 0 or k.shape[2] == 0:
-        raise ValueError("empty query or key sequence")
-    out = torch.empty((B, H, Sq, D), dtype=torch.float32, device=q.device)
-    dims = [B, H, Sq, k.shape[2]]
-    for x in (q, k, v, out):
-        dims += _bhs_strides(x)
-    dims_c = (ctypes.c_longlong * len(dims))(*dims)
-
-    from aid_tpu_torch.ops import _build
-
-    lib = _build.library()
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    code = lib.aid_flash_attn_f32_d512(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                                       dims_c, float(scale), stream)
-    _build.check(code, "flash_self_attention_f32 launch")
+    _check_operand("q", q, torch.float32, (D512,))
+    out, launch = d512_launch(q, k, v, scale)
+    launch()
     flash_self_attention_f32.launches += 1
     return out
 
 
 #: kernel launches since the last reset (chip_smoke.py reads it around each path)
 flash_self_attention_f32.launches = 0
+
+
+def flash_self_attention_bf16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              scale: Optional[float] = None) -> torch.Tensor:
+    """softmax(q k^T * scale) v in bf16 with head dim 512 (the mid-block
+    attention of a bf16 VAE): ``csrc/flash_attention_bf16_d512.cu`` on CUDA
+    tensors, the plain ``_softmax_attn`` (f32 logits and softmax, the
+    probabilities rounded to bf16 before P V) on CPU tensors.
+
+    q: (B, H, Sq, 512), k/v: (B, H, Lk, 512), all bf16. Returns (B, H, Sq,
+    512) bf16; on CUDA a view of a (B, Sq, H, 512) buffer, as the other bf16
+    kernel writes.
+    """
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if not use_kernel(q, k, v):
+        return _softmax_attn(q, k, v, scale)
+    _check_operand("q", q, torch.bfloat16, (D512,))
+    out, launch = d512_launch(q, k, v, scale)
+    launch()
+    flash_self_attention_bf16.launches += 1
+    return out
+
+
+#: kernel launches since the last reset (chip_smoke.py reads it around each path)
+flash_self_attention_bf16.launches = 0
 
 
 def _bhs_strides(x: torch.Tensor) -> list:
@@ -248,8 +302,11 @@ def flash_interpolated_attention(
             q, k, v, coef, mode, k_begin=k_begin, v_begin=v_begin, k_end=k_end, v_end=v_end,
             scale=scale, skip_endpoints=skip_endpoints)
 
-    if q.dtype == torch.float32 and mode == AttnMode.SELF and q.shape[-1] == F32_KERNEL_HEAD_DIM:
-        return flash_self_attention_f32(q, k, v, scale)
+    if mode == AttnMode.SELF and q.shape[-1] == D512:
+        if q.dtype == torch.float32:
+            return flash_self_attention_f32(q, k, v, scale)
+        if q.dtype == torch.bfloat16:
+            return flash_self_attention_bf16(q, k, v, scale)
 
     out, launch = kernel_launch(q, k, v, coef, mode, k_begin=k_begin, v_begin=v_begin, k_end=k_end, v_end=v_end,
                                 scale=scale, skip_endpoints=skip_endpoints)

@@ -1,23 +1,34 @@
-"""The denoising engine: warmup-split AID with sequential classifier-free guidance.
+"""The denoising engine: warmup-split AID with classifier-free guidance.
 
 Counterpart of ``aid_tpu.pipelines.engine``'s ``denoise_sequence``,
 ``denoise_steps`` and ``denoise_range`` (engine.py:32-318). PyTorch runs
 eagerly, so the JAX package's ``fori_loop`` phases become one Python loop
 over a step range ``[start, end)`` with a warmup split: steps
 ``i < warmup_steps`` run the ``early`` AID mode, the rest the ``late`` one.
-CFG matches the reference: a conditional UNet pass with AID active, then an
-unconditional pass with AID off (vanilla attention in attn1 and attn2).
+
+``cfg_mode="sequential"`` matches the reference: a conditional UNet pass
+with AID active, then an unconditional pass with AID off (vanilla attention
+in attn1 and attn2). ``cfg_mode="batched"`` runs ONE 2N-row pass a step:
+the cond rows take their endpoints from cond rows 0 / N-1, the uncond rows
+their own K/V as both endpoints, which reduces every AID mode exactly to
+vanilla attention (``AidMode.cfg_split``). ``loop_mode="fused"`` (with a
+fused early mode and a vanilla late mode) runs the early mode on every step
+with ``force_vanilla = i >= warmup_steps``: its late steps drop every
+endpoint segment, which is vanilla attention again. The JAX package uses it
+to trace one loop instead of two; eagerly it only changes which kernel
+calls a late step makes. ``"auto"`` is ``"split"``.
+
 ``denoise_steps`` returns the scheduler state too, so chunks of one schedule
 compose (the pipelines' interruptible path); ``denoise_range`` is the
 vanilla-attention loop of the denoising-interpolation baseline and plain
 text-to-image.
 
-``decode_latents`` and ``to_uint8`` are the counterparts of engine.py:319-348
-and 422-426: an f32 VAE decode, optionally one frame at a time, with the
-latents mean/std denormalisation.
+``decode_latents``, ``tiled_decode`` and ``to_uint8`` are the counterparts
+of engine.py:319-426: the VAE decode in the VAE's parameter dtype from f32
+latents, optionally one frame at a time or in overlapping spatial tiles,
+with the latents mean/std denormalisation.
 
-Not yet ported: ``cfg_mode="batched"``, ``loop_mode="fused"`` (force-vanilla
-endpoint skipping), IP-Adapter embeds and ``tiled_decode``.
+Not yet ported: IP-Adapter embeds.
 """
 
 from __future__ import annotations
@@ -25,6 +36,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from aid_tpu_torch.models.layers import AidContext, AidMode
 from aid_tpu_torch.ops.attention import AttnMode
@@ -39,8 +51,12 @@ def rescale_noise_cfg(noise_cfg: torch.Tensor, noise_pred_text: torch.Tensor, gu
     return guidance_rescale * rescaled + (1.0 - guidance_rescale) * noise_cfg
 
 
-def _make_aid(mode: AidMode, coef: torch.Tensor) -> Optional[AidContext]:
-    return None if mode.text == AttnMode.SELF else AidContext(coef=coef, mode=mode)
+def _make_aid(mode: AidMode, coef: torch.Tensor, force_vanilla=None) -> Optional[AidContext]:
+    return None if mode.text == AttnMode.SELF else AidContext(coef=coef, mode=mode, force_vanilla=force_vanilla)
+
+
+CFG_MODES = ("sequential", "batched")
+LOOP_MODES = ("auto", "split", "fused")
 
 
 @torch.no_grad()
@@ -64,23 +80,48 @@ def denoise_steps(
     added_cond_uncond: Optional[dict] = None,  # SDXL uncond dict; defaults to added_cond
     eta: float = 0.0,
     generator: Optional[torch.Generator] = None,  # the step noise when eta > 0
+    cfg_mode: str = "sequential",  # "sequential" (two passes a step) | "batched" (one 2N-row pass)
+    loop_mode: str = "auto",  # "auto" (= "split") | "split" | "fused"
 ):
     """Warmup-split CFG steps ``[start, end)`` of a schedule; returns
     ``(latents, sched_state)`` so chunks compose. The caller's ``latents``
-    are never written in place."""
-    if early.cfg_split or late.cfg_split:
-        raise NotImplementedError("batched CFG (cfg_split) is not yet ported to the engine")
+    are never written in place. ``cfg_mode`` and ``loop_mode`` as in the
+    module docstring (engine.py:68-169)."""
+    if cfg_mode not in CFG_MODES:
+        raise ValueError(f"cfg_mode must be one of {CFG_MODES}, got {cfg_mode!r}")
+    if loop_mode not in LOOP_MODES:
+        raise ValueError(f"loop_mode must be one of {LOOP_MODES}, got {loop_mode!r}")
     if added_cond is not None and added_cond_uncond is None:
         added_cond_uncond = added_cond
     uncond_mode = AidMode.vanilla()
     step_kw = dict(eta=eta, generator=generator) if eta > 0.0 else {}
 
+    if cfg_mode == "batched":
+        N = latents.shape[0]
+        embs_all = torch.cat([embs, uncond_embs])
+        coef_all = None if coef is None else torch.cat([coef, coef])
+        added_all = None if added_cond is None else {
+            k: torch.cat([v, added_cond_uncond[k]]) for k, v in added_cond.items()}
+
+    def unet_noise(latent_in, t, mode: AidMode, force=None):
+        if cfg_mode == "batched":
+            aid = _make_aid(AidMode(text=mode.text, cfg_split=N), coef_all, force)
+            out = unet(torch.cat([latent_in, latent_in]), t, embs_all, aid, added_all)
+            return out[:N], out[N:]
+        noise_text = unet(latent_in, t, embs, _make_aid(mode, coef, force), added_cond)
+        noise_uncond = unet(latent_in, t, uncond_embs, _make_aid(uncond_mode, coef), added_cond_uncond)
+        return noise_text, noise_uncond
+
+    # one mode on every step, its endpoint segments dropped from the warmup
+    # boundary on (engine.py:160-169)
+    fused = loop_mode == "fused" and early.text.is_fused and late.text == AttnMode.SELF
     for i in range(start, end):
-        mode = early if i < warmup_steps else late
         t = sched_state.timesteps[i]
         latent_in = scheduler.scale_model_input(sched_state, latents, i)
-        noise_text = unet(latent_in, t, embs, _make_aid(mode, coef), added_cond)
-        noise_uncond = unet(latent_in, t, uncond_embs, _make_aid(uncond_mode, coef), added_cond_uncond)
+        if fused:
+            noise_text, noise_uncond = unet_noise(latent_in, t, early, force=i >= warmup_steps)
+        else:
+            noise_text, noise_uncond = unet_noise(latent_in, t, early if i < warmup_steps else late)
         # f32 guidance, as the JAX package promotes it against its f32 scale
         noise_uncond = noise_uncond.float()
         noise = noise_uncond + guidance_scale * (noise_text.float() - noise_uncond)
@@ -113,14 +154,17 @@ def denoise_range(unet, scheduler, latents, embs, uncond_embs, sched_state, guid
 
 @torch.no_grad()
 def decode_latents(vae, latents: torch.Tensor, scaling_factor: float, latents_mean=None, latents_std=None,
-                   per_frame: bool = False) -> torch.Tensor:
+                   per_frame: bool = False, tile_latent_size: Optional[int] = None) -> torch.Tensor:
     """VAE decode -> f32 images in [0, 1], NHWC (the JAX package's image layout).
 
-    latents: (B, C, h, w). The decode runs in f32 whatever the latents'
-    dtype. ``per_frame`` decodes one frame at a time to cap peak memory.
-    ``latents_mean/std`` (per channel) apply the playground-style
-    denormalisation ``z * std / scaling_factor + mean``; otherwise
-    ``z / scaling_factor``.
+    latents: (B, C, h, w). The denormalisation runs in f32 whatever the
+    latents' dtype: ``latents_mean/std`` (per channel) apply the
+    playground-style ``z * std / scaling_factor + mean``; otherwise
+    ``z / scaling_factor``. The decode then runs in the VAE's parameter
+    dtype (a bf16 VAE decodes the rounded f32 latents in bf16, as flax
+    computes a ``dtype=bfloat16`` module). ``per_frame`` decodes one frame
+    at a time to cap peak memory; ``tile_latent_size`` decodes through
+    :func:`tiled_decode` where the latent is larger than one tile.
     """
     z = latents.float()
     if latents_mean is not None:
@@ -129,11 +173,64 @@ def decode_latents(vae, latents: torch.Tensor, scaling_factor: float, latents_me
         z = z * std / scaling_factor + mean
     else:
         z = z / scaling_factor
-    if per_frame:
-        image = torch.cat([vae.decode(z[i:i + 1]) for i in range(z.shape[0])])
+    z = z.to(vae.dtype)
+    if tile_latent_size is not None and max(z.shape[2:]) > tile_latent_size:
+        def dec(zi):
+            return tiled_decode(vae, zi, tile_latent_size=tile_latent_size)
     else:
-        image = vae.decode(z)
+        dec = vae.decode
+    image = torch.cat([dec(z[i:i + 1]) for i in range(z.shape[0])]) if per_frame else dec(z)
     return (image.float() / 2.0 + 0.5).clamp(0.0, 1.0).permute(0, 2, 3, 1)
+
+
+@torch.no_grad()
+def tiled_decode(vae, z: torch.Tensor, tile_latent_size: int = 64, tile_overlap_factor: float = 0.25) -> torch.Tensor:
+    """Spatially tiled VAE decode with overlap blending (engine.py:355-419).
+
+    ``z`` (B, C, h, w), already scaled. The latent is edge-padded so every
+    tile has the full (tl, tl) shape; tiles start every ``stride = max(1,
+    int(tl * (1 - overlap)))`` latent pixels and decode one at a time. The
+    blend extent and each tile's contribution derive from that stride, so
+    the assembly stays seam-aligned for every tile size: each tile's top
+    edge is blended with the tile above, then its left edge with the tile to
+    its left (linear ramps, both neighbours as decoded), it is cropped to
+    the stride, and the whole to ``h * f x w * f``. Returns the raw decoder
+    output (B, out_channels, h * f, w * f) in the VAE's dtype.
+    """
+    B, C, h, w = z.shape
+    f = 2 ** (len(vae.config.block_out_channels) - 1)
+    tl = tile_latent_size
+    stride = max(1, int(tl * (1.0 - tile_overlap_factor)))  # latent stride
+    ts = tl * f  # decoded tile size (px)
+    limit = stride * f  # each tile's contribution (px)
+    blend = ts - limit  # blend extent (px)
+
+    n_rows = max(1, -(-h // stride))  # ceil; tile starts at i * stride
+    n_cols = max(1, -(-w // stride))
+    pad_h = (n_rows - 1) * stride + tl - h
+    pad_w = (n_cols - 1) * stride + tl - w
+    zp = F.pad(z, (0, pad_w, 0, pad_h), mode="replicate")
+    raw = [[vae.decode(zp[:, :, i * stride:i * stride + tl, j * stride:j * stride + tl]) for j in range(n_cols)]
+           for i in range(n_rows)]
+
+    ramp = torch.arange(blend, dtype=raw[0][0].dtype, device=z.device) / max(blend, 1)
+    ramp_v, ramp_h = ramp.reshape(1, 1, blend, 1), ramp.reshape(1, 1, 1, blend)
+    out_rows = []
+    for i in range(n_rows):
+        row = []
+        for j in range(n_cols):
+            tile = raw[i][j]
+            if blend > 0 and (i > 0 or j > 0):
+                tile = tile.clone()
+            if i > 0 and blend > 0:  # top edge with the tile above
+                above = raw[i - 1][j][:, :, ts - blend:ts]
+                tile[:, :, :blend] = above * (1.0 - ramp_v) + tile[:, :, :blend] * ramp_v
+            if j > 0 and blend > 0:  # left edge with the tile to the left
+                left = raw[i][j - 1][:, :, :, ts - blend:ts]
+                tile[:, :, :, :blend] = left * (1.0 - ramp_h) + tile[:, :, :, :blend] * ramp_h
+            row.append(tile[:, :, :limit, :limit])
+        out_rows.append(torch.cat(row, dim=3))
+    return torch.cat(out_rows, dim=2)[:, :, :h * f, :w * f]
 
 
 def to_uint8(images: torch.Tensor):

@@ -5,7 +5,8 @@ Counterpart of ``aid_tpu.pipelines.interpolation.InterpolationPipeline``:
 generation, ``interrupt`` and both callback kinds, the entry points
 ``interpolate`` (PAID guide prompt, explicit ``ts``), ``interpolate_single``,
 ``interpolate_save_gpu`` (both ways), ``denoising_interpolate`` and
-``__call__``, and ``_decode``. Modules are the port's ``nn.Module``s with
+``__call__``, ``_decode``, batched CFG (``cfg_mode``), VAE tiling
+(``enable_vae_tiling``) and the bf16 decode (``enable_bf16_vae_decode``). Modules are the port's ``nn.Module``s with
 their weights inside, so there are no separate parameter trees. Latents are
 NCHW; decoded images are NHWC uint8 numpy, as the JAX package returns them.
 
@@ -22,8 +23,7 @@ different numbers from one seed, so parity tests hand both pipelines the
 same latents.
 
 Not yet ported: the IP-Adapter attachments (image embeds raise
-``NotImplementedError``), the prompt-embeds shortcuts, the safety checker,
-VAE tiling and the bf16 decode option.
+``NotImplementedError``), the prompt-embeds shortcuts and the safety checker.
 """
 
 from __future__ import annotations
@@ -91,10 +91,16 @@ class InterpolationPipeline:
     scheduler: Any = dataclasses.field(default_factory=DDIMScheduler)
     vae_scale_factor: int = 8
     guidance_scale: float = 7.5
+    # "sequential": the reference's two UNet passes a step; "batched": one
+    # 2N-row pass (the same result; see pipelines/engine.py)
+    cfg_mode: str = "sequential"
     # When set, generation runs as ceil(steps / chunk) ``engine.denoise_steps``
     # segments and ``interrupt()`` is honoured between them.
     denoise_chunk_size: Optional[int] = None
     _interrupt: bool = dataclasses.field(default=False, repr=False)
+    # Spatial VAE tiling: None = off, else the latent tile edge (64 = 512px
+    # tiles); see enable_vae_tiling()
+    vae_tile_latent_size: Optional[int] = None
 
     @property
     def device(self) -> torch.device:
@@ -136,6 +142,25 @@ class InterpolationPipeline:
         neg, _, _ = self.text_encoder(self._ids(self.tokenizer, negative_prompt), clip_skip=clip_skip)
         return emb, neg
 
+    def enable_vae_tiling(self, tile_latent_size: int = 64):
+        """Decode in overlapping spatial tiles (``engine.tiled_decode``), so
+        large outputs fit in device memory."""
+        self.vae_tile_latent_size = tile_latent_size
+        return self
+
+    def disable_vae_tiling(self):
+        self.vae_tile_latent_size = None
+        return self
+
+    def enable_bf16_vae_decode(self):
+        """Decode in bf16: the VAE module is cast to bf16 in place, on its
+        device (interpolation.py:143-153; bf16 keeps f32's exponent range,
+        so the fp16 overflow that makes the reference upcast does not
+        arise). Its mid-block attention then runs the bf16 D=512 kernel on
+        the card. The default stays f32, the reference's numerics."""
+        self.vae.to(dtype=torch.bfloat16)
+        return self
+
     def _interp_pair(self, a, b, t, init: str):
         return lerp(a, b, t) if init == "linear" else slerp(a, b, t)
 
@@ -175,7 +200,7 @@ class InterpolationPipeline:
         warmup_steps = min(int(num_inference_steps * warmup_ratio), num_run_steps)
         early_mode, late_mode = self._aid_modes(early, late)
         common = dict(early=early_mode, late=late_mode, warmup_steps=warmup_steps, guidance_rescale=guidance_rescale,
-                      added_cond=added_cond, added_cond_uncond=added_cond_uncond)
+                      added_cond=added_cond, added_cond_uncond=added_cond_uncond, cfg_mode=self.cfg_mode)
         chunk = self.denoise_chunk_size
         if callback_on_step_end is not None:
             # the reference's per-step signature: every step ends a chunk
@@ -442,5 +467,6 @@ class InterpolationPipeline:
     def _decode(self, latents: torch.Tensor, per_frame: bool = False):
         cfg = self.vae.config
         images = engine.decode_latents(self.vae, latents, cfg.scaling_factor, latents_mean=cfg.latents_mean,
-                                       latents_std=cfg.latents_std, per_frame=per_frame)
+                                       latents_std=cfg.latents_std, per_frame=per_frame,
+                                       tile_latent_size=self.vae_tile_latent_size)
         return engine.to_uint8(images)

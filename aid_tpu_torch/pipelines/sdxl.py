@@ -5,12 +5,12 @@ Counterpart of ``aid_tpu.pipelines.sdxl.InterpolationXLPipeline``:
 and ``_cond_kwargs`` (sdxl.py:138-154), and what they need:
 ``encode_prompt`` (the two text encoders' hidden states concatenated, pooled
 embeds from encoder 2), the micro-conditioning ``time_ids``,
-``denoising_end`` and the frame-by-frame f32 VAE decode. ``_cond_kwargs``
+``denoising_end`` and the frame-by-frame VAE decode. ``_cond_kwargs``
 gives the inherited vanilla entry points (``__call__``,
 ``denoising_interpolate``) the added conditioning SDXL's UNet needs, and
 ``interpolate_save_gpu`` runs through this class's ``interpolate`` and
-``interpolate_single``. Latents are slerped channels-last, as in the base
-module.
+``interpolate_single``. Batched CFG, VAE tiling and the bf16 decode are the
+base class's. Latents are slerped channels-last, as in the base module.
 
 Not yet ported: the IP-Adapter branch (image embeds raise
 ``NotImplementedError``), the prompt-embeds entry points, the invisible

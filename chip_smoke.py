@@ -3,23 +3,28 @@
     python3 chip_smoke.py            # SDXL paths at 4 denoise steps (2 fused_outer warmup)
     python3 chip_smoke.py --steps 28 # the SDXL headline schedule; SD1.5 always runs its 25
 
-Five paths, each driven with every launch count set to 0 just before it
-and read just after:
+Each path is driven with every launch count set to 0 just before it and
+read just after:
   * the SDXL denoise (``bench.py::build_headline``, ported):
     ``denoise_sequence`` over the full-width SDXL UNet (bf16, N(0, 0.02)
     random weights from a seeded CUDA generator), 7 frames at 128x128
     latents, Euler, guidance 5.0, Beta(28, 28) frame coefficients,
     fused_outer AID for the first half of the steps and vanilla after,
     sequential CFG;
+  * the same denoise over 2 steps with batched CFG (one 14-row pass a
+    step) and with the fused loop (force_vanilla late steps);
   * the same UNet with the fused GroupNorm+SiLU resnet prologue switched on
     (``layers._FUSED_GN_CONV``, off by default as in the JAX package);
   * SDXL image out: ``InterpolationXLPipeline.interpolate`` from two prompts
     to seven 1024px uint8 frames, through random f32 CLIP ViT-L and OpenCLIP
-    bigG text encoders, that UNet and the f32 SDXL VAE decode;
+    bigG text encoders, that UNet and the f32 SDXL VAE decode; then again
+    after ``enable_bf16_vae_decode()`` (the bf16 VAE: its mid-block
+    attention is the bf16 D=512 kernel);
   * SD1.5 ``InterpolationPipeline.interpolate``: a PAID guide prompt, seven
     512px frames, 25 DDIM steps, the full-width SD1.5 UNet (bf16, N(0, 0.02)
     weights; attention at head dims 40, 80 and 160), random f32 CLIP ViT-L
-    and the f32 SD VAE decode of all frames at once;
+    and the f32 SD VAE decode of all frames at once; in sequential and in
+    batched CFG, then with the bf16 VAE; then ``vae.encode`` of its frames;
   * SD1.5 ``interpolate_single(0.5)``: three 512px frames, the same modules.
 
 Phases (each prints its own lines; any failure exits non-zero):
@@ -28,7 +33,7 @@ Phases (each prints its own lines; any failure exits non-zero):
                  per source at once; ptxas resources
   3. kernels     each kernel against its plain PyTorch version at the paths'
                  shapes (SDXL and SD1.5), with stated tolerances; its time
-                 through its wrapper and (bf16 attention and conv) launched
+                 through its wrapper and (attention and conv) launched
                  alone on operands already laid out, the plain version's,
                  its bound from the shapes and the card's peaks, and one
                  PyTorch call computing the same function where there is
@@ -38,22 +43,30 @@ Phases (each prints its own lines; any failure exits non-zero):
                  kernels and through the plain versions (test-only seam)
   5. denoise     the SDXL main path; launch counts, finite checksum, s/step,
                  peak memory
-  6. fused GN    the fused-prologue configuration: a whole-UNet check with a
+  6. engine      2 SDXL steps in batched CFG against sequential, and in the
+                 fused loop against split, each with a planted fault
+  7. fused GN    the fused-prologue configuration: a whole-UNet check with a
                  planted halo fault, then a 2-step denoise both ways
-  7. image out   SDXL interpolate() at 1024px; stage times, launch counts,
-                 the raw decoder output through the kernels vs the plain
-                 versions
-  8. SD1.5 UNet  one full-width SD1.5 forward in fused_outer, kernels vs
+  8. image out   SDXL interpolate() at 1024px with the f32 VAE, then with
+                 the bf16 VAE; stage times, launch counts, the raw decoder
+                 output through the kernels vs the plain versions (f32 and
+                 bf16, the bf16 one with a planted fault), one frame's tiled
+                 decode (512px tiles) kernels vs plain
+  9. SD1.5 UNet  one full-width SD1.5 forward in fused_outer, kernels vs
                  plain, with two planted faults
-  9. SD1.5 out   interpolate() and interpolate_single() at 512px; stage
-                 times, peak memory, launches by head dim, the raw decoder
-                 output through the kernels vs the plain versions
+ 10. SD1.5 out   interpolate() in sequential and batched CFG (s/step, best
+                 and p50 of three warm runs each; the two modes' latents
+                 against each other, with a planted fault), with the bf16
+                 VAE, vae.encode() of its frames, and interpolate_single();
+                 stage times, peak memory, launches by head dim, the raw
+                 decoder output through the kernels vs the plain versions
 The second-to-last line is the kernels' JSON record, the last the result.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -149,6 +162,49 @@ VAE_TOL = 1e-4
 # 0.74x the smaller fault. Phase 8 measures both faults in every run and
 # fails if the bound does not separate either.
 SD15_UNET_TOL = 4.5e-3
+# The bf16 D=512 attention (a bf16 VAE's mid block) against its plain
+# version: both round the probabilities to bf16 before P V (the kernel
+# unnormalised per tile, the plain version normalised) and sum in another
+# order; with the output's own bf16 rounding that is a few 2^-9 of max |ref|.
+# As ATTN_TOL; a wrong mask, scale or tile is tens of percent.
+BF16_D512_TOL = ATTN_TOL
+# Engine modes (phase 6), 2 SDXL steps from the same inputs, the LARGEST
+# PER-FRAME relative L2 of the final latents: batched CFG against
+# sequential, and the fused loop against split; phase 6 fails if a bound
+# does not separate its fault. Batched CFG changes every GEMM's and conv's
+# batch (14 rows for 7) and the attention's call pattern (per-row
+# endpoints, the uncond half skipped), so bf16 rounding differs everywhere:
+# sound 1.74e-3 at most (frame 6; frame 0 exact) on an H100, the uncond
+# rows given the cond endpoints 1.88e-2. 5e-3 lies between: 2.9x the sound
+# reading, 0.27x the fault.
+BATCHED_CFG_TOL = 5e-3
+# The fused loop's late step (fused_outer with every endpoint segment
+# dropped) equals split's (self mode) bit for bit on an H100: sound 0.
+# Its planted fault, force_vanilla ignored on the late step, reads 9.4e-4
+# (5.9e-4 in its smallest interior frame). 1e-4 lies under both.
+FUSED_LOOP_TOL = 1e-4
+# The bf16 VAE's raw decoder output (phase 8, one 1024px frame; a 512px
+# tiled frame; phase 10, one 512px frame) and its encoder's posterior mean
+# (phase 10, 7 frames, largest per-frame value), kernels vs plain. Only the
+# mid-block attention differs (the bf16 convs are cuDNN's on both sides),
+# by ~3e-3 relative; but any difference at all re-rounds every later bf16
+# layer, so the decoder output settles at bf16's noise floor: 1.10e-2
+# (SDXL frame), 1.05e-2 (tiled), 9.4e-3 (SD1.5 frame), encoder 3.9e-3 on an
+# H100, the same in every run. With torch's default initialisation the
+# VAE's attention is nearly uniform and its residual ~1% of the decoder's
+# output, so faults that only reweight keys or misplace columns hide under
+# that floor (softmax scale x sqrt(2): 1.27e-2 / 9.9e-3; output columns
+# rolled by 64: 1.49e-2 / 1.06e-2, encoder 0.34); the kernel's own accuracy
+# is phase 3's to hold at these shapes. The planted fault here is a gross
+# one, the epilogue's 1 / l left out. 2e-2 is 1.8x the largest sound
+# reading.
+BF16_VAE_TOL = 2e-2
+# The SD1.5 interpolate's final latents, batched CFG against sequential
+# (phase 10), largest per-frame relative L2 after 25 steps: sound 2.63e-4 on
+# an H100, the uncond rows given the cond endpoints 1.81e-3 (1.41e-3 in its
+# smallest frame; the fault acts in the 12 warmup steps only). 7e-4 lies
+# between: 2.7x the sound reading, 0.39x the fault.
+SD15_CFG_TOL = 7e-4
 # DDIM steps of the SD1.5 sequences (bench.py's SD1.5 workloads), run in
 # full; also the Beta(25, 25) of their frame coefficients.
 SD15_STEPS = 25
@@ -253,10 +309,15 @@ def library_conv_ms(x, w, b, reps: int) -> dict:
 def kernel_wrappers() -> dict:
     """Each kernel's wrapper, by the name its launch count is reported under."""
     from aid_tpu_torch.ops.conv import conv3x3_gnsilu, conv3x3_same
-    from aid_tpu_torch.ops.flash_attention import flash_interpolated_attention, flash_self_attention_f32
+    from aid_tpu_torch.ops.flash_attention import (
+        flash_interpolated_attention,
+        flash_self_attention_bf16,
+        flash_self_attention_f32,
+    )
 
     return {"flash_interpolated_attention": flash_interpolated_attention,
             "flash_self_attention_f32": flash_self_attention_f32,
+            "flash_self_attention_bf16": flash_self_attention_bf16,
             "conv3x3_same": conv3x3_same, "conv3x3_gnsilu": conv3x3_gnsilu}
 
 
@@ -340,8 +401,10 @@ def phase_kernels(coef, sd_coef, fused_classes):
     from aid_tpu_torch.ops import conv
     from aid_tpu_torch.ops.conv import conv3x3_gnsilu, conv3x3_gnsilu_plain, conv3x3_same, conv3x3_same_plain
     from aid_tpu_torch.ops.flash_attention import (
+        d512_launch,
         flash_interpolated_attention,
         flash_interpolated_attention_plain,
+        flash_self_attention_bf16,
         flash_self_attention_f32,
         kernel_launch,
     )
@@ -568,6 +631,43 @@ def phase_kernels(coef, sd_coef, fused_classes):
         del q, k, v, got, want
     records["flash_self_attention_f32"] = {**main, "max_abs_err": worst}
 
+    # the same attention in a bf16 VAE: one 1024px SDXL frame, SD1.5's
+    # batched 512px decode (also a 512px tile or encode), and a ragged
+    # sequence; timed through the wrapper (ms) and launched alone on
+    # operands d512_launch prepared once (kernel_ms); SDPA under each
+    # backend that takes bf16 at D=512
+    worst = 0.0
+    for n, S, reps in ((1, 16384, 5), (7, 4096, 5), (1, 4000, 10)):
+        q, k, v = (randn(n, 1, S, 512) for _ in range(3))
+        got = flash_interpolated_attention(q, k, v)  # routed by dtype and head dim, as the VAE calls it
+        torch.cuda.synchronize()
+        want = flash_interpolated_attention_plain(q, k, v)
+        err, ref = (got.float() - want.float()).abs().max().item(), want.float().abs().max().item()
+        _, launch = d512_launch(q, k, v)
+        kernel_ms = cuda_ms(launch, reps)
+        ms = cuda_ms(lambda: flash_self_attention_bf16(q, k, v), reps)
+        plain_ms = cuda_ms(lambda: flash_interpolated_attention_plain(q, k, v), reps)
+        bound_ms, bound_by = attention_bound("self", n, 1, S, S, 512)
+        library = sdpa_backends(q, k, v, want, reps)
+        ok = math.isfinite(err) and err <= BF16_D512_TOL * ref
+        print(f"attention bf16 self ({n},1,{S},512): max_abs_err {err:.3e} (max|ref| {ref:.3e}, "
+              f"tol {BF16_D512_TOL * ref:.3e}) rel_l2 {rel_l2(got, want):.3e}  kernel {ms:.4f} ms (launch alone "
+              f"{kernel_ms:.4f})  plain {plain_ms:.3f} ms  {yardsticks(bound_ms, bound_by, library)}; library "
+              f"max_abs_err {', '.join(f'{b} {t[1]:.3e}' for b, t in library.items())}  {'ok' if ok else 'FAIL'}",
+              flush=True)
+        if not ok:
+            fail(f"bf16 D=512 attention ({n},1,{S},512): kernel disagrees with the plain version")
+        worst = max(worst, err)
+        if S == 16384:
+            lib_name, lib_ms = fastest(library)
+            main = {"ms": ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "library_ms": lib_ms, "library": lib_name}
+        elif S == 4096:
+            sd15 = {"sd15_ms": ms, "sd15_kernel_ms": kernel_ms, "sd15_bound_ms": bound_ms,
+                    "sd15_library_ms": fastest(library)[1]}
+        del q, k, v, got, want, launch
+    records["flash_self_attention_bf16"] = {**main, **sd15, "max_abs_err": worst}
+
     # kernel B at every (H, W, Cin, Cout) class the fused configuration routes
     # to it; inputs off zero mean and gamma/beta off 1/0, so silu(shift) is
     # far from 0 and a halo that took it would show on the border ring
@@ -699,9 +799,10 @@ def phase_unet(unet, sample, ehs, added, coef):
     return rel
 
 
-def run_denoise(unet, sample, ehs, uncond, added, coef, steps: int):
+def run_denoise(unet, sample, ehs, uncond, added, coef, steps: int, warmup_steps=None, **modes):
     """The denoise of the headline program: (final latents, seconds), host
-    clock around work that ends in a synchronize."""
+    clock around work that ends in a synchronize. ``modes``: the engine's
+    cfg_mode / loop_mode; ``warmup_steps`` defaults to half the steps."""
     import torch
 
     from aid_tpu_torch.models.layers import AidMode
@@ -715,7 +816,7 @@ def run_denoise(unet, sample, ehs, uncond, added, coef, steps: int):
     out = denoise_sequence(
         unet, scheduler, sample, ehs, uncond, coef, state, 5.0,
         early=AidMode.from_name("fused_outer"), late=AidMode.vanilla(),
-        num_steps=steps, warmup_steps=steps // 2, added_cond=added)
+        num_steps=steps, warmup_steps=steps // 2 if warmup_steps is None else warmup_steps, added_cond=added, **modes)
     torch.cuda.synchronize()
     return out, time.perf_counter() - t0
 
@@ -742,6 +843,79 @@ def phase_main(unet, sample, ehs, uncond, added, coef, steps: int, card: str):
     return launches
 
 
+@contextlib.contextmanager
+def uncond_rows_interpolated():
+    """A planted fault of batched CFG: the uncond rows take the cond rows'
+    endpoints (cond rows 0 / N-1) and none of them is skipped, so they
+    interpolate like the cond rows instead of computing vanilla attention."""
+    import torch
+
+    from aid_tpu_torch.models import layers
+
+    real_endpoints, real_skip = layers.per_row_endpoints, layers.skip_mask
+
+    def endpoints(x, n):
+        return x[0:1].expand_as(x), x[n - 1:n].expand_as(x)
+
+    def skip(c, n_cond):
+        return real_skip(c, n_cond) & (torch.arange(c.shape[0], device=c.device) < n_cond)
+
+    layers.per_row_endpoints, layers.skip_mask = endpoints, skip
+    try:
+        yield
+    finally:
+        layers.per_row_endpoints, layers.skip_mask = real_endpoints, real_skip
+
+
+def check_bound(label: str, sound: list, fault: list, tol: float, fault_label: str) -> None:
+    """Print per-frame readings of a sound run and of a planted fault against
+    the bound on their largest frame; fail unless the sound reading is under
+    the bound and the fault's over it."""
+    worst, worst_fault = max(sound), max(fault)
+    ok = math.isfinite(worst) and worst <= tol
+    print(f"{label}: largest per-frame rel_l2 {worst:.3e} (by frame {' '.join(f'{r:.3e}' for r in sound)}; "
+          f"tol {tol:.1e}; planted fault {fault_label} {worst_fault:.3e}, by frame "
+          f"{' '.join(f'{r:.3e}' for r in fault)})  {'ok' if ok else 'FAIL'}", flush=True)
+    if not worst_fault > tol:
+        fail(f"{label}: the bound {tol:.1e} does not separate the planted fault {fault_label} ({worst_fault:.3e})")
+    if not ok:
+        fail(f"{label}: over its bound")
+
+
+def phase_engine(unet, sample, ehs, uncond, added, coef, card: str):
+    """2 SDXL steps (1 fused_outer warmup, 1 vanilla) in batched CFG against
+    sequential, and in the fused loop against split, from the same inputs,
+    each with a planted fault; the batched and fused runs are paths of their
+    own for the launch counts. Returns their counts."""
+    import torch
+
+    print("== phase 6: engine modes, 2 SDXL steps: batched CFG vs sequential, fused loop vs split", flush=True)
+    steps, paths, outs = 2, [], {}
+    for label, modes in (("sequential split", {}), ("batched CFG", dict(cfg_mode="batched")),
+                         ("fused loop", dict(loop_mode="fused"))):
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        outs[label], elapsed = run_denoise(unet, sample, ehs, uncond, added, coef, steps, **modes)
+        counts = read_counts()
+        print(f"{label}: {elapsed / steps:.3f} s/step (first steps included); peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {card}", flush=True)
+        if not torch.isfinite(outs[label]).all():
+            fail(f"2-step {label} denoise is not finite")
+        if modes:
+            check_path(label, counts, ("flash_interpolated_attention", "conv3x3_same"))
+            paths.append(counts)
+    with uncond_rows_interpolated():
+        fault_batched, _ = run_denoise(unet, sample, ehs, uncond, added, coef, steps, cfg_mode="batched")
+    # the fused loop with force_vanilla never set: the late step keeps its endpoints
+    fault_fused, _ = run_denoise(unet, sample, ehs, uncond, added, coef, steps, warmup_steps=steps, loop_mode="fused")
+    split = outs["sequential split"]
+    check_bound("batched CFG vs sequential", frame_rel_l2(outs["batched CFG"], split),
+                frame_rel_l2(fault_batched, split), BATCHED_CFG_TOL, "uncond rows given the cond endpoints")
+    check_bound("fused loop vs split", frame_rel_l2(outs["fused loop"], split), frame_rel_l2(fault_fused, split),
+                FUSED_LOOP_TOL, "force_vanilla ignored on the late step")
+    return paths
+
+
 def halo_fault_plain(x, w, b, gamma, beta, num_groups=32, eps=1e-5):
     """A planted fault: conv3x3_gnsilu_plain with the zero padding applied
     BEFORE the prologue, so the halo takes silu(shift) instead of 0."""
@@ -765,7 +939,7 @@ def phase_fused(unet, sample, ehs, uncond, added, coef, n_fused_calls: int, card
     from aid_tpu_torch.ops import conv
     from aid_tpu_torch.ops.routing import reference_ops
 
-    print("== phase 6: fused GroupNorm+SiLU resnet prologue (layers._FUSED_GN_CONV = True)", flush=True)
+    print("== phase 7: fused GroupNorm+SiLU resnet prologue (layers._FUSED_GN_CONV = True)", flush=True)
     aid = AidContext(coef=coef, mode=AidMode.from_name("fused_outer"))
     t = torch.tensor(500.0, device=sample.device)
     times = {True: [], False: []}
@@ -879,44 +1053,85 @@ def check_images(label: str, images, shape, times, elapsed: float, peak: int, ca
     print(f"share of output values strictly inside (0, 255): {inside:.4f}", flush=True)
 
 
-def check_decoder(decode, z, images, frame: int) -> float:
-    """One frame's raw decoder output through the kernels vs the plain
-    versions; fails on disagreement or on a mostly saturated frame."""
+@contextlib.contextmanager
+def attention_unnormalised_fault():
+    """A planted fault of the VAE's attention: the plain attention at head
+    dim 512 without the softmax's division by the row sum, as a kernel
+    whose epilogue left out its 1 / l would give."""
+    import torch
+
+    from aid_tpu_torch.ops import flash_attention
+
+    real_plain = flash_attention.flash_interpolated_attention_plain
+
+    def fault(q, k, v, *args, scale=None, **kwargs):
+        if q.shape[-1] != 512:
+            return real_plain(q, k, v, *args, scale=scale, **kwargs)
+        logits = (q.float() @ k.float().transpose(-1, -2)) * (512 ** -0.5 if scale is None else scale)
+        return (torch.exp(logits - logits.amax(-1, keepdim=True)) @ v.float()).to(q.dtype)
+
+    flash_attention.flash_interpolated_attention_plain = fault
+    try:
+        yield
+    finally:
+        flash_attention.flash_interpolated_attention_plain = real_plain
+
+
+def check_decoder(decode, z, images, frame: int, tol: float = VAE_TOL, label: str = "raw decoder output",
+                  planted_fault=None) -> float:
+    """One frame's raw decoder output through the kernels (timed, host clock
+    around synchronized work) vs the plain versions (and, with
+    ``planted_fault``, the plain versions with that fault, which must land
+    over ``tol``); fails on disagreement or on a mostly saturated frame."""
     import torch
 
     from aid_tpu_torch.ops.routing import reference_ops
 
     with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         got = decode(z)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
         with reference_ops():
             want = decode(z)
+            if planted_fault is not None:
+                with planted_fault():
+                    fault = decode(z)
     frame_inside = float(((images[frame] > 0) & (images[frame] < 255)).mean())
     rel = rel_l2(got, want)
-    ok = math.isfinite(rel) and rel <= VAE_TOL and bool(torch.isfinite(got).all())
-    print(f"raw decoder output, frame {frame} {tuple(got.shape)} f32: rel_l2 kernels vs plain {rel:.3e} "
-          f"(tol {VAE_TOL:.0e}; TF32 off on both sides); its uint8 values strictly inside (0, 255): "
-          f"{frame_inside:.4f}  {'ok' if ok else 'FAIL'}", flush=True)
+    ok = math.isfinite(rel) and rel <= tol and bool(torch.isfinite(got).all())
+    fault_note = "" if planted_fault is None else f"; planted fault attention not normalised {rel_l2(fault, want):.3e}"
+    print(f"{label}, frame {frame} {tuple(got.shape)} {str(got.dtype).replace('torch.', '')} in {elapsed:.3f} s: "
+          f"rel_l2 kernels vs "
+          f"plain {rel:.3e} (tol {tol:.0e}; TF32 off on both sides{fault_note}); its uint8 values strictly inside "
+          f"(0, 255): {frame_inside:.4f}  {'ok' if ok else 'FAIL'}", flush=True)
     if frame_inside < 0.5:
         fail("the compared frame is mostly saturated: the comparison would not see the kernel")
+    if planted_fault is not None and not rel_l2(fault, want) > tol:
+        fail(f"{label}: the bound {tol:.0e} does not separate the planted fault")
     if not ok:
-        fail("the decoder output through the kernels disagrees with the plain versions")
+        fail(f"{label}: the output through the kernels disagrees with the plain versions")
     return rel
 
 
 def phase_image(unet, steps: int, card: str):
-    """InterpolationXLPipeline.interpolate at 1024px: stage times, launch
-    counts, peak memory, and one frame's raw decoder output through the
-    kernels vs the plain versions. Returns the path's launch counts."""
+    """InterpolationXLPipeline.interpolate at 1024px with the f32 VAE, then
+    with the bf16 VAE: stage times, launch counts, peak memory, one frame's
+    raw decoder output through the kernels vs the plain versions, and that
+    frame's tiled bf16 decode. Returns the two paths' launch counts."""
+    import numpy as np
     import torch
 
     from aid_tpu_torch.models.clip import CLIPTextModel
     from aid_tpu_torch.models.configs import CLIP_VIT_L_TEXT, SDXL_TEXT_ENCODER_2, SDXL_VAE
     from aid_tpu_torch.models.vae import AutoencoderKL
+    from aid_tpu_torch.pipelines import engine
     from aid_tpu_torch.pipelines.sdxl import InterpolationXLPipeline
     from aid_tpu_torch.schedulers.euler import EulerDiscreteScheduler
     from aid_tpu_torch.utils.tokenizer import HashTokenizer
 
-    print(f"== phase 7: image out, InterpolationXLPipeline.interpolate, 7 frames at 1024px, {steps} steps",
+    print(f"== phase 8: image out, InterpolationXLPipeline.interpolate, 7 frames at 1024px, {steps} steps",
           flush=True)
     dev = torch.device("cuda")
     torch.manual_seed(7)  # the modules' default initialisations draw from it
@@ -931,15 +1146,41 @@ def phase_image(unet, steps: int, card: str):
     gen = torch.Generator(device=dev).manual_seed(1)
     latent_a, latent_b = pipe.generate_latent(gen), pipe.generate_latent(gen)
 
-    images, counts, times, decoder_inputs, elapsed, peak = run_image_path(
-        pipe, vae, lambda: pipe.interpolate(latent_a, latent_b, "prompt A", "prompt B", size=7,
-                                            num_inference_steps=steps), steps, 7)
+    def call():
+        return pipe.interpolate(latent_a, latent_b, "prompt A", "prompt B", size=7, num_inference_steps=steps)
+
+    images, counts, times, decoder_inputs, elapsed, peak = run_image_path(pipe, vae, call, steps, 7)
     check_images("interpolate", images, (7, 1024, 1024, 3), times, elapsed, peak, card)
     check_path("image out", counts, ("flash_interpolated_attention", "flash_self_attention_f32", "conv3x3_same"))
     if counts["flash_self_attention_f32"] != 7:
         fail(f"the f32 attention kernel ran {counts['flash_self_attention_f32']} times, once per frame (7) expected")
     check_decoder(vae.decode, decoder_inputs[3], images, 3)  # frame by frame: input 3 is frame 3
-    return counts
+
+    # the same call with the bf16 VAE: its mid-block attention is the bf16
+    # D=512 kernel, once per frame
+    pipe.enable_bf16_vae_decode()
+    f32_images, f32_times = images, times
+    images, counts_bf16, times, decoder_inputs, elapsed, peak = run_image_path(pipe, vae, call, steps, 7)
+    check_images("interpolate, bf16 VAE", images, (7, 1024, 1024, 3), times, elapsed, peak, card)
+    check_path("image out, bf16 VAE", counts_bf16,
+               ("flash_interpolated_attention", "flash_self_attention_bf16", "conv3x3_same"))
+    if counts_bf16["flash_self_attention_bf16"] != 7 or counts_bf16["flash_self_attention_f32"]:
+        fail(f"the bf16 VAE ran the bf16 D=512 kernel {counts_bf16['flash_self_attention_bf16']} times and the f32 "
+             f"one {counts_bf16['flash_self_attention_f32']} times; 7 and 0 expected")
+    diff = np.abs(images.astype(np.int32) - f32_images.astype(np.int32))
+    print(f"decode {f32_times['s_per_frame']:.3f} s/frame with the f32 VAE, {times['s_per_frame']:.3f} s/frame with "
+          f"the bf16 VAE on {card}; bf16 frames against the f32 ones (information): mean |diff| {diff.mean():.3f}, "
+          f"max {diff.max()} uint8 steps, {float((diff > 1).mean()):.4f} of values more than one step apart",
+          flush=True)
+    check_decoder(vae.decode, decoder_inputs[3], images, 3, BF16_VAE_TOL, "raw bf16 decoder output",
+                  attention_unnormalised_fault)
+    # one frame in 512px tiles (64-latent tiles, 4096-token attention each)
+    reset_counts()
+    check_decoder(lambda z: engine.tiled_decode(vae, z, tile_latent_size=64), decoder_inputs[3], images, 3,
+                  BF16_VAE_TOL, "tiled bf16 decode (64-latent tiles)", attention_unnormalised_fault)
+    print(f"tiled decode of one frame: {read_counts()['flash_self_attention_bf16']} bf16 D=512 launches (one per "
+          f"tile)", flush=True)
+    return [counts, counts_bf16]
 
 
 def sd15_coef():
@@ -994,7 +1235,7 @@ def phase_sd15_unet(unet, coef):
 
     cfg, dev, frames = unet.config, coef.device, coef.shape[0]
     s = cfg.sample_size
-    print(f"== phase 8: whole SD1.5 UNet forward, kernels vs plain (fused_outer, {frames} frames, {s}x{s} latents)",
+    print(f"== phase 9: whole SD1.5 UNet forward, kernels vs plain (fused_outer, {frames} frames, {s}x{s} latents)",
           flush=True)
     gen = torch.Generator(device=dev).manual_seed(3)
     sample = torch.randn((frames, cfg.in_channels, s, s), generator=gen, device=dev).to(torch.bfloat16)
@@ -1040,25 +1281,31 @@ def phase_sd15_unet(unet, coef):
 
 
 def phase_sd15_image(unet, card: str, steps: int, text_cfg=None, vae_cfg=None):
-    """The SD1.5 pipeline's two entry points at 512px with DDIM:
-    ``interpolate`` (PAID guide prompt, 7 frames) and
-    ``interpolate_single(0.5)`` (3 frames), random f32 CLIP ViT-L,
-    HashTokenizer, the f32 SD VAE decode batched (the JAX default). Each is
-    its own path for the launch counts. Returns the two paths' counts.
-    ``text_cfg``/``vae_cfg`` exist for rehearsing on the CPU."""
+    """The SD1.5 pipeline at 512px with DDIM, random f32 CLIP ViT-L,
+    HashTokenizer and the SD VAE decode of all frames at once (the JAX
+    default): ``interpolate`` (PAID guide prompt, 7 frames) in sequential
+    and in batched CFG (s/step of each over three warm runs; their
+    final latents against each other, with a planted fault),
+    ``interpolate_single(0.5)`` (3 frames), ``interpolate`` again with the
+    bf16 VAE, and ``vae.encode`` of those frames. Each call is its own path
+    for the launch counts; returns their counts. ``text_cfg``/``vae_cfg``
+    exist for rehearsing on the CPU."""
+    import numpy as np
     import torch
 
     from aid_tpu_torch.models.clip import CLIPTextModel
     from aid_tpu_torch.models.configs import CLIP_VIT_L_TEXT, SD_VAE
     from aid_tpu_torch.models.vae import AutoencoderKL
+    from aid_tpu_torch.ops.routing import reference_ops
     from aid_tpu_torch.pipelines.interpolation import InterpolationPipeline
     from aid_tpu_torch.schedulers.ddim import DDIMScheduler
     from aid_tpu_torch.utils.tokenizer import HashTokenizer
 
     text_cfg, vae_cfg = text_cfg or CLIP_VIT_L_TEXT, vae_cfg or SD_VAE
     px = unet.config.sample_size * 2 ** (len(vae_cfg.block_out_channels) - 1)
-    print(f"== phase 9: image out, SD1.5 InterpolationPipeline at {px}px, {steps} DDIM steps: interpolate (PAID, "
-          f"7 frames), then interpolate_single(0.5) (3 frames)", flush=True)
+    print(f"== phase 10: image out, SD1.5 InterpolationPipeline at {px}px, {steps} DDIM steps: interpolate (PAID, "
+          f"7 frames) in sequential and batched CFG, interpolate_single(0.5) (3 frames), interpolate with the bf16 "
+          f"VAE, vae.encode of its frames", flush=True)
     dev = next(unet.parameters()).device
     torch.manual_seed(9)  # the modules' default initialisations draw from it
     with torch.no_grad():
@@ -1069,25 +1316,84 @@ def phase_sd15_image(unet, card: str, steps: int, text_cfg=None, vae_cfg=None):
     gen = torch.Generator(device=dev).manual_seed(2)
     latent_a, latent_b = pipe.generate_latent(gen), pipe.generate_latent(gen)
 
-    entry_points = [
-        ("interpolate", 7, lambda: pipe.interpolate(latent_a, latent_b, "prompt A", "prompt B",
-                                                    guide_prompt="a guide prompt", size=7,
-                                                    num_inference_steps=steps)),
-        ("interpolate_single", 3, lambda: pipe.interpolate_single(0.5, latent_a, latent_b, "prompt A", "prompt B",
-                                                                  num_inference_steps=steps)),
-    ]
-    needed = ("flash_interpolated_attention[D=40]", "flash_interpolated_attention[D=80]",
-              "flash_interpolated_attention[D=160]", "flash_self_attention_f32")
+    def interpolate(**kw):
+        return pipe.interpolate(latent_a, latent_b, "prompt A", "prompt B", guide_prompt="a guide prompt", size=7,
+                                num_inference_steps=steps, **kw)
+
+    def interpolate_single():
+        return pipe.interpolate_single(0.5, latent_a, latent_b, "prompt A", "prompt B", num_inference_steps=steps)
+
+    heads = ("flash_interpolated_attention[D=40]", "flash_interpolated_attention[D=80]",
+             "flash_interpolated_attention[D=160]")
     paths = []
-    for label, frames, call in entry_points:
+
+    def run_path(label, frames, call, vae_kernel="flash_self_attention_f32", tol=VAE_TOL, planted_fault=None):
         images, counts, times, decoder_inputs, elapsed, peak = run_image_path(pipe, vae, call, steps, frames)
         check_images(f"SD1.5 {label}", images, (frames, px, px, 3), times, elapsed, peak, card)
-        check_path(f"SD1.5 {label}", counts, needed)
+        check_path(f"SD1.5 {label}", counts, heads + (vae_kernel,))
+        if counts[vae_kernel] != 1:
+            fail(f"SD1.5 {label}: {counts[vae_kernel]} launches of {vae_kernel}, one batched decode (1) expected")
         # one decode of all frames: compare its least saturated frame
         inside = ((images > 0) & (images < 255)).reshape(frames, -1).mean(axis=1)
         frame = int(inside.argmax())
-        check_decoder(vae.decode, decoder_inputs[0][frame:frame + 1], images, frame)
+        check_decoder(vae.decode, decoder_inputs[0][frame:frame + 1], images, frame, tol,
+                      "raw decoder output" if planted_fault is None else "raw bf16 decoder output", planted_fault)
         paths.append(counts)
+        return images, times
+
+    _, f32_times = run_path("interpolate", 7, interpolate)
+    pipe.cfg_mode = "batched"
+    run_path("interpolate, batched CFG", 7, interpolate)
+
+    # s/step of both CFG modes over warm runs, in turns; the final latents
+    # of the two modes against each other, and against a planted fault
+    per_step, finals = {"sequential": [], "batched": []}, {}
+    for mode in ("sequential", "batched", "batched", "sequential", "sequential", "batched"):
+        pipe.cfg_mode = mode
+        finals[mode], _, times, _, _, _ = run_image_path(pipe, vae, lambda: interpolate(output_type="latent"), steps, 7)
+        per_step[mode].append(times["s_per_step"])
+    for mode, t in per_step.items():
+        print(f"SD1.5 interpolate, {mode} CFG: {len(t)} warm runs, best {min(t):.4f} s/step, p50 "
+              f"{float(np.median(t)):.4f} s/step (all: {' '.join(f'{x:.4f}' for x in t)}) on {card}", flush=True)
+    pipe.cfg_mode = "batched"
+    with uncond_rows_interpolated():
+        fault = interpolate(output_type="latent")
+    pipe.cfg_mode = "sequential"
+    check_bound("SD1.5 interpolate, batched CFG vs sequential (final latents)",
+                frame_rel_l2(finals["batched"], finals["sequential"]), frame_rel_l2(fault, finals["sequential"]),
+                SD15_CFG_TOL, "uncond rows given the cond endpoints")
+
+    run_path("interpolate_single", 3, interpolate_single)
+
+    # the bf16 VAE: one (7,1,4096,512) launch of the bf16 D=512 kernel in the
+    # decode, then the encode of those frames (4096-token encoder attention)
+    pipe.enable_bf16_vae_decode()
+    images, times = run_path("interpolate, bf16 VAE", 7, interpolate, "flash_self_attention_bf16", BF16_VAE_TOL,
+                             attention_unnormalised_fault)
+    print(f"SD1.5 decode {f32_times['s_per_frame']:.4f} s/frame with the f32 VAE, {times['s_per_frame']:.4f} s/frame "
+          f"with the bf16 VAE on {card}", flush=True)
+    x = (torch.from_numpy(images).to(dev).permute(0, 3, 1, 2).float() / 127.5 - 1.0).contiguous()
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        got = vae.encode(x)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        counts = read_counts()
+        with reference_ops():
+            want = vae.encode(x)
+            with attention_unnormalised_fault():
+                fault = vae.encode(x)
+    print(f"SD1.5 vae.encode of 7 frames (bf16): {tuple(got.shape)} {got.dtype} in {elapsed:.3f} s on {card}",
+          flush=True)
+    check_path("SD1.5 encode", counts, ("flash_self_attention_bf16",))
+    s = unet.config.sample_size
+    if tuple(got.shape) != (7, vae_cfg.latent_channels, s, s) or not torch.isfinite(got).all():
+        fail(f"vae.encode returned {tuple(got.shape)} or non-finite values")
+    check_bound("SD1.5 vae.encode (bf16), kernels vs plain (posterior mean)", frame_rel_l2(got, want),
+                frame_rel_l2(fault, want), BF16_VAE_TOL, "attention not normalised")
+    paths.append(counts)
     return paths
 
 
@@ -1101,7 +1407,7 @@ def kernels_line(kernels: dict, launches: dict) -> str:
     first, then what phase 3 measured besides (the conv's kernel_ms, the
     library call's name, the self case of the attention kernels, ...).
     ``kernels`` is phase 3's {name: record}, ``launches`` the counts summed
-    over the five paths."""
+    over the paths."""
     flash_src = "aid_tpu_torch/csrc/flash_interpolated_attention.cu"
     conv_src = "aid_tpu_torch/csrc/conv3x3.cu"
     flash_replaces = ("aid_tpu/ops/flash_attention.py:101", {"also_replaces": "aid_tpu/ops/flash_attention.py:339"})
@@ -1128,6 +1434,13 @@ def kernels_line(kernels: dict, launches: dict) -> str:
             "aid_tpu_torch/csrc/flash_attention_f32_d512.cu", "aid_tpu/ops/flash_attention.py:101",
             ("flash_self_attention_f32",),
             {"contract": "f32, head dim 512, self (VAE mid block), 3xTF32; at (1,1,16384,512)"}),
+        "flash_self_attention_bf16": (
+            "aid_tpu_torch/csrc/flash_attention_bf16_d512.cu", flash_replaces[0], ("flash_self_attention_bf16",),
+            {**flash_replaces[1], "contract": "bf16, head dim 512, self (a bf16 VAE's mid block, encoder and "
+                                              "decoder); ms at (1,1,16384,512), sd15_* at (7,1,4096,512); ms: "
+                                              "through the wrapper, as the model calls it; kernel_ms: the launch "
+                                              "alone on operands aid_tpu_torch/ops/flash_attention.py::d512_launch "
+                                              "prepared once"}),
         "conv3x3_same": (conv_src, "aid_tpu/ops/conv.py:30", ("conv3x3_same",),
                          {"contract": f"bf16, (7,960,128,128) -> 320; {conv_note}"}),
         # the packed-K TPU kernel's port is the same (prologue-free) kernel
@@ -1167,17 +1480,18 @@ def main(argv=None) -> int:
     fused_classes = fused_conv_classes(unet, sample, ehs, added)
     kernels = phase_kernels(coef, sd15_coef(), fused_classes)
     phase_unet(unet, sample, ehs, added, coef)
-    paths = [phase_main(unet, sample, ehs, uncond, added, coef, args.steps, card),
-             phase_fused(unet, sample, ehs, uncond, added, coef, sum(fused_classes.values()), card)]
+    paths = [phase_main(unet, sample, ehs, uncond, added, coef, args.steps, card)]
+    paths += phase_engine(unet, sample, ehs, uncond, added, coef, card)
+    paths.append(phase_fused(unet, sample, ehs, uncond, added, coef, sum(fused_classes.values()), card))
     del sample, ehs, uncond, added, coef
-    paths.append(phase_image(unet, args.steps, card))
+    paths += phase_image(unet, args.steps, card)
     del unet
     torch.cuda.empty_cache()
     sd_unet = build_sd15()
     phase_sd15_unet(sd_unet, sd15_coef().cuda())
     paths += phase_sd15_image(sd_unet, card, SD15_STEPS)
     launches = {name: sum(p[name] for p in paths) for name in paths[0]}
-    print(f"launches over the five paths: {launches}", flush=True)
+    print(f"launches over the {len(paths)} paths: {launches}", flush=True)
 
     print(kernels_line(kernels, launches), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

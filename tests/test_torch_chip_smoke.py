@@ -52,7 +52,8 @@ def _load_smoke():
 
 
 KERNEL_NAMES = ("flash_interpolated_attention", "flash_interpolated_attention(D=40/80/160)",
-                "flash_self_attention_f32", "conv3x3_same", "conv3x3_same(packed=True)", "conv3x3_gnsilu")
+                "flash_self_attention_f32", "flash_self_attention_bf16", "conv3x3_same", "conv3x3_same(packed=True)",
+                "conv3x3_gnsilu")
 
 
 def test_kernels_line_carries_bound_and_library_time():
@@ -73,7 +74,8 @@ def test_kernels_line_carries_bound_and_library_time():
         records[name]["kernel_ms"] = 0.5 + i
     launches = {c: 3 for c in ("flash_interpolated_attention[D=64]", "flash_interpolated_attention[D=40]",
                                "flash_interpolated_attention[D=80]", "flash_interpolated_attention[D=160]",
-                               "flash_self_attention_f32", "conv3x3_same", "conv3x3_gnsilu")}
+                               "flash_self_attention_f32", "flash_self_attention_bf16", "conv3x3_same",
+                               "conv3x3_gnsilu")}
     entries = json.loads(smoke.kernels_line(records, launches))["kernels"]
     assert [e["name"] for e in entries] == list(KERNEL_NAMES)
     for e, name in zip(entries, KERNEL_NAMES):
@@ -84,15 +86,16 @@ def test_kernels_line_carries_bound_and_library_time():
         if name.startswith("conv"):
             for part in ("ms: through the wrapper", "kernel_ms: the conv launch alone", "layout_ms: the layout kernel"):
                 assert part in e["contract"]
-        if name.startswith("conv") or name.startswith("flash_interpolated"):
+        if name.startswith("conv") or name.startswith("flash_interpolated") or name == "flash_self_attention_bf16":
             assert e["kernel_ms"] == records[name]["kernel_ms"]
-        if name.startswith("flash_interpolated"):
+        if name.startswith("flash_interpolated") or name == "flash_self_attention_bf16":
             for part in ("ms: through the wrapper", "kernel_ms: the launch alone"):
                 assert part in e["contract"]
         assert (REPO / e["source"]).is_file()
         path, line = e["replaces"].split(":")
         assert path.startswith("aid_tpu/") and (REPO / path).is_file() and int(line) > 0
     assert entries[1]["launches"] == 9  # the bf16 kernel at D = 40, 80 and 160
+    assert entries[3]["launches"] == 3 and entries[3]["source"].endswith("flash_attention_bf16_d512.cu")
 
 
 def test_bounds_follow_the_work():
@@ -103,6 +106,10 @@ def test_bounds_follow_the_work():
     assert by == "operations" and abs(ms - 0.641) < 1e-3
     ms, by = smoke.attention_bound("self", 1, 1, 16384, 16384, 512, elem=4, tf32_passes=3)
     assert by == "operations" and abs(ms - 3.332) < 1e-3  # 550 GFLOP at three TF32 passes
+    ms, by = smoke.attention_bound("self", 1, 1, 16384, 16384, 512)  # the same flops in bf16
+    assert by == "operations" and abs(ms - 0.556) < 1e-3
+    ms, by = smoke.attention_bound("self", 7, 1, 4096, 4096, 512)
+    assert by == "operations" and abs(ms - 0.243) < 1e-3
     ms, by = smoke.attention_bound("self", 7, 10, 4096, 77, 64)  # 77 keys: the bytes bind
     assert by == "bytes"
     # fused_outer: own, begin and end segments, except the two skip rows

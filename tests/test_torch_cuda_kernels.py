@@ -14,11 +14,13 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from aid_tpu_torch.ops.attention import AttnMode
+from aid_tpu_torch.models.layers import per_row_endpoints, skip_mask
+from aid_tpu_torch.ops.attention import AttnMode, dispatch_attention
 from aid_tpu_torch.ops.conv import conv3x3_gnsilu, conv3x3_gnsilu_plain, conv3x3_same
 from aid_tpu_torch.ops.flash_attention import (
     flash_interpolated_attention,
     flash_interpolated_attention_plain,
+    flash_self_attention_bf16,
     flash_self_attention_f32,
 )
 
@@ -233,6 +235,90 @@ def test_flash_f32_d512_kernel_matches_plain(dev, B, H, S, L):
     want = flash_interpolated_attention_plain(q, k, v)
     assert got.shape == want.shape and got.dtype == torch.float32
     assert _attn_err(got, want) < F32_ATTN_RTOL
+
+
+@pytest.mark.parametrize("B,H,S,L", [
+    (1, 1, 16384, 16384),  # one 1024px SDXL frame
+    (7, 1, 4096, 4096),    # SD 1.5's batched 512px decode, a 512px tile, a 512px encode
+    (1, 1, 4000, 4000),    # ragged: not a multiple of the 64-row / 32-key tiles
+    (1, 1, 1, 1),          # one query, one key
+    (2, 1, 63, 31),        # one row short of a q tile, one key short of a K/V tile
+    (1, 2, 65, 33),        # one past each
+    (3, 1, 100, 200),      # more keys than queries
+    (2, 3, 129, 97),       # B, H > 1, ragged in both
+])
+def test_flash_bf16_d512_kernel_matches_plain(dev, B, H, S, L):
+    """The bf16 D=512 self kernel, routed as the bf16 VAE calls it, against
+    its plain version; operands are (B, S, H*512) projections viewed as
+    (B, H, S, 512), and equal contiguous copies bit for bit."""
+    def heads(x):
+        return x.view(x.shape[0], x.shape[1], H, 512).transpose(1, 2)
+
+    q = heads(_randn((B, S, H * 512), 53))
+    k, v = heads(_randn((B, L, H * 512), 54)), heads(_randn((B, L, H * 512), 55))
+    before = flash_self_attention_bf16.launches
+    got = flash_interpolated_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_self_attention_bf16.launches == before + 1
+    want = flash_interpolated_attention_plain(q, k, v)
+    assert got.shape == want.shape and got.dtype == torch.bfloat16 and torch.isfinite(got).all()
+    assert _attn_err(got, want) < ATTN_RTOL
+    args = [x.contiguous() for x in (q, k, v)]
+    assert torch.equal(got, flash_self_attention_bf16(*args))
+
+
+def test_flash_d512_refuses_other_instances(dev):
+    """At D=512 only self mode has a kernel, in f32 and bf16; an f32 call at
+    a UNet head dim has none: each raises on the card."""
+    q = _randn((2, 1, 64, 512), 56)
+    coef = torch.tensor([0.0, 1.0], device=dev)
+    for mode in ("fused_outer", "pure_outer", "fused_inner", "pure_inner"):
+        with pytest.raises(NotImplementedError):
+            flash_interpolated_attention(q, q, q, coef, mode)
+    for D in (40, 64, 80, 160):
+        q = _randn((2, 2, 64, D), 57, torch.float32)
+        with pytest.raises(NotImplementedError):
+            flash_interpolated_attention(q, q, q, coef, "fused_outer")
+
+
+@pytest.mark.parametrize("D", [40, 64])
+@pytest.mark.parametrize("mode", [m for m in MODES if m != "self"])
+def test_flash_kernel_batched_cfg_rows(dev, D, mode):
+    """Batched CFG's call: 2N rows [cond; uncond], per-row (B, H, S, D)
+    endpoints (cond rows 0 / N-1 for the cond half, each uncond row its
+    own), the uncond half skipped in fused modes; the kernel against the
+    plain version, and its uncond half against vanilla attention."""
+    N, H, S = 3, 2, 200
+
+    def heads(x):
+        return x.view(x.shape[0], x.shape[1], H, D).transpose(1, 2)
+
+    q, k, v = (heads(_randn((2 * N, S, H * D), 87 + i)) for i in range(3))
+    coef = torch.linspace(0, 1, N, device=dev).repeat(2)
+    kb, ke = per_row_endpoints(k, N)
+    vb, ve = per_row_endpoints(v, N)
+    eps = dict(k_begin=kb, v_begin=vb, k_end=ke, v_end=ve, skip_endpoints=skip_mask(coef, N))
+    got = flash_interpolated_attention(q, k, v, coef, mode, **eps)
+    torch.cuda.synchronize()
+    assert _attn_err(got, flash_interpolated_attention_plain(q, k, v, coef, mode, **eps)) < ATTN_RTOL
+    assert _attn_err(got[N:], flash_interpolated_attention_plain(q[N:], k[N:], v[N:])) < ATTN_RTOL
+
+
+@pytest.mark.parametrize("mode", [m for m in MODES if m != "self"])
+def test_force_vanilla_is_one_launch(dev, mode):
+    """dispatch_attention's force_vanilla on the card: one kernel launch
+    (fused modes fold it into the skip rows, pure modes substitute the
+    endpoints), the forced rows vanilla, the others as without it."""
+    q, k, v = (_randn((4, 2, 150, 64), 95 + i) for i in range(3))
+    coef = torch.tensor([0.0, 0.3, 0.7, 1.0], device=dev)
+    force = torch.tensor([False, True, False, True], device=dev)
+    before = flash_interpolated_attention.launches
+    got = dispatch_attention(q, k, v, coef, mode, force_vanilla=force)
+    torch.cuda.synchronize()
+    assert flash_interpolated_attention.launches == before + 1
+    assert _attn_err(got[force], flash_interpolated_attention_plain(q, k, v)[force]) < ATTN_RTOL
+    free = flash_interpolated_attention_plain(q, k, v, coef, mode)
+    assert _attn_err(got[~force], free[~force]) < ATTN_RTOL
 
 
 # the redesigned kernel's tile classes: 4 x 64-pixel tiles against W = 96

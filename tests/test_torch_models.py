@@ -187,3 +187,43 @@ def test_resnet_fused_gn_conv_matches_jax(monkeypatch):
     # the fused branch really ran: the one-pass statistics round differently
     assert not torch.equal(got, unfused)
     assert th.max_rel_err(got.numpy(), unfused.numpy()) < FWD_TOL
+
+
+@pytest.mark.parametrize("shape,threshold", [((2, 8, 8, 4), 1), ((2, 7, 9, 3), 1), ((1, 16, 12, 2), 3)])
+def test_fourier_filter_matches_jax(shape, threshold):
+    """FreeU's low-pass rescale: the half-open 2t x 2t block around the
+    shifted spectrum's centre, even and odd sizes; f32 FFTs on both sides
+    (pocketfft on the CPU in both frameworks, ~1e-7 of max |ref|)."""
+    from aid_tpu.models.freeu import fourier_filter as jax_fourier_filter
+    from aid_tpu_torch.models.freeu import fourier_filter
+
+    x = th.normal(20, shape)
+    want = jax_fourier_filter(jnp.asarray(x), threshold, 0.3)
+    got = fourier_filter(th.nhwc_to_nchw(x), threshold, 0.3)
+    assert got.dtype == torch.float32
+    assert th.max_rel_err(th.nchw_to_nhwc(got), np.asarray(want)) < 1e-5
+    # the block is scaled and nothing else: scale 1 is the identity
+    torch.testing.assert_close(fourier_filter(th.nhwc_to_nchw(x), threshold, 1.0), th.nhwc_to_nchw(x),
+                               rtol=0, atol=1e-5)
+
+
+def test_unet_forward_with_freeu_matches_jax(models):
+    """A UNet forward with FreeU on both up stages, against the JAX UNet's
+    ``freeu`` argument; FreeU moves the output, so the check is not vacuous."""
+    from aid_tpu.models.freeu import FreeUConfig as JaxFreeUConfig
+    from aid_tpu_torch.models.freeu import FreeUConfig
+
+    cfg, jax_model, params, unet = models
+    B, s = 2, cfg.sample_size
+    x = th.normal(4, (B, s, s, cfg.in_channels))
+    ehs = th.normal(5, (B, 77, cfg.cross_attention_dim))
+    added = th.sdxl_added_cond(cfg, B, 6)
+    freeu = dict(s1=0.6, s2=0.4, b1=1.1, b2=1.2)
+    want = jax_model.apply(th.to_jnp(params), jnp.asarray(x), jnp.array(321.0), jnp.asarray(ehs), None,
+                           None if added is None else th.to_jnp(added), JaxFreeUConfig(**freeu))
+    with torch.no_grad():
+        args = (th.nhwc_to_nchw(x), torch.tensor(321.0), torch.from_numpy(ehs), None, th.to_torch(added))
+        got = unet(*args, freeu=FreeUConfig(**freeu))
+        base = unet(*args)
+    assert th.max_rel_err(th.nchw_to_nhwc(got), np.asarray(want)) < FWD_TOL
+    assert th.max_rel_err(got, base) > 1e-3

@@ -232,3 +232,26 @@ def test_entry_point_guards(pipes):
             pipe.interpolate_single(it, ta, tb, num_inference_steps=1)
     with pytest.raises(ValueError):
         pipe.interpolate(ta, tb, "a", "b", size=3, num_inference_steps=1, output_type="pil")
+
+
+@pytest.mark.parametrize("option", ["bf16_vae", "vae_tiling", "batched_cfg"])
+def test_pipeline_options_match_jax(pipes, option):
+    """interpolate with the bf16 VAE decode, VAE tiling or batched CFG on,
+    both pipelines alike: frames (bf16 within BF16_UINT8_STEPS, the others
+    one step), and for batched CFG the latents too."""
+    jax_pipe, pipe = th.with_pipeline_option(*pipes, option)
+    (ja, jb), (ta, tb) = _both(*_latents(120))
+    kw = dict(prompt_start="a red cat", prompt_end="a blue dog", size=4, num_inference_steps=STEPS)
+    want, got = jax_pipe.interpolate(ja, jb, **kw), pipe.interpolate(ta, tb, **kw)
+    assert got.shape == (4, 16, 16, 3)
+    if option == "bf16_vae":
+        want = np.asarray(want)
+        assert got.dtype == np.uint8 and got.shape == want.shape and np.unique(got).size > 2
+        assert np.abs(got.astype(int) - want.astype(int)).max() <= th.BF16_UINT8_STEPS
+    else:
+        _same_images(got, want)
+    if option == "batched_cfg":
+        kw["output_type"] = "latent"
+        _same_latents(pipe.interpolate(ta, tb, **kw), jax_pipe.interpolate(ja, jb, **kw))
+    pipe.disable_vae_tiling()
+    assert pipe.vae_tile_latent_size is None

@@ -169,3 +169,22 @@ def test_xl_image_embeds_raise(pipes):
     with pytest.raises(NotImplementedError):
         pipe.interpolate_single(0.5, th.nhwc_to_nchw(a), th.nhwc_to_nchw(b), image_embeds_end=torch.zeros(1, 8),
                                 num_inference_steps=1)
+
+
+@pytest.mark.parametrize("option", ["bf16_vae", "vae_tiling", "batched_cfg"])
+def test_xl_pipeline_options_match_jax(pipes, option):
+    """XL interpolate (frame-by-frame decode) with the bf16 VAE decode, VAE
+    tiling or batched CFG on, both pipelines alike (the options are the
+    SD1.x class's; torch_helpers states the bounds)."""
+    jax_pipe, pipe = th.with_pipeline_option(*pipes, option)
+    a, b = _latents()
+    kw = dict(prompt_start="a red cat", prompt_end="a blue dog", size=4, num_inference_steps=2)
+    want = np.asarray(jax_pipe.interpolate(jnp.asarray(a), jnp.asarray(b), **kw))
+    got = pipe.interpolate(th.nhwc_to_nchw(a), th.nhwc_to_nchw(b), **kw)
+    assert got.dtype == np.uint8 and got.shape == want.shape == (4, 16, 16, 3)
+    assert np.abs(got.astype(int) - want.astype(int)).max() <= (th.BF16_UINT8_STEPS if option == "bf16_vae" else 1)
+    if option == "batched_cfg":
+        kw["output_type"] = "latent"
+        want = np.asarray(jax_pipe.interpolate(jnp.asarray(a), jnp.asarray(b), **kw))
+        got = pipe.interpolate(th.nhwc_to_nchw(a), th.nhwc_to_nchw(b), **kw)
+        assert th.max_rel_err(th.nchw_to_nhwc(got), want) < SLICE_TOL

@@ -9,6 +9,9 @@ Layouts differ: ``aid_tpu`` is NHWC, the port NCHW; transpose only here.
 
 from __future__ import annotations
 
+import copy
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -88,3 +91,25 @@ def to_jnp(tree):
 
 def to_torch(d):
     return None if d is None else {k: torch.from_numpy(np.asarray(v)) for k, v in d.items()}
+
+
+# The bf16 decode's uint8 frames: bf16 decoders on both sides agree to ~2e-2
+# of the [0, 1] range (tests/test_torch_vae.py, BF16_DECODE_TOL 5e-2), so a
+# frame may differ by a few uint8 steps; 0.05 * 255 = 12 steps.
+BF16_UINT8_STEPS = 12
+
+
+def with_pipeline_option(jax_pipe, pipe, option):
+    """Copies of both pipelines with one option on (enable_bf16_vae_decode
+    casts the VAE in place, so the port's copy gets its own VAE)."""
+    jax_pipe = dataclasses.replace(jax_pipe)
+    pipe = dataclasses.replace(pipe, vae=copy.deepcopy(pipe.vae))
+    if option == "bf16_vae":
+        jax_pipe.enable_bf16_vae_decode(), pipe.enable_bf16_vae_decode()
+        assert all(p.dtype == torch.bfloat16 for p in pipe.vae.parameters())
+    elif option == "vae_tiling":
+        jax_pipe.enable_vae_tiling(6), pipe.enable_vae_tiling(6)  # 2 x 2 tiles of 6 at 8x8 latents
+        assert pipe.vae_tile_latent_size == 6
+    else:
+        jax_pipe.cfg_mode = pipe.cfg_mode = "batched"
+    return jax_pipe, pipe
