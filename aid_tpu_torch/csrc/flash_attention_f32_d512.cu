@@ -116,19 +116,7 @@ struct Params {
   float scale_log2;  // softmax scale * log2(e)
 };
 
-// 16-byte async copy global -> shared; copies zeros when !pred.
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool pred) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int n = pred ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
+#include "tf32_mma.cuh"
 
 // Stage rows [row0, row0 + ROWS) of one (b, h) sequence into rows of LD
 // floats; rows at or past len are zero-filled. 128 threads cover one 2 KB
@@ -143,36 +131,6 @@ __device__ __forceinline__ void load_rows(float* dst, const float* base, long lo
     const bool ok = row < len;
     cp_async16(dst + r * LD + c, ok ? base + (long long)row * stride + c : base, ok);
   }
-}
-
-// a = hi + lo: hi = tf32(a) rounded to nearest, lo = a - hi exactly (the
-// tensor cores read lo's tf32 part)
-__device__ __forceinline__ void split_tf32(float a, uint32_t& hi, uint32_t& lo) {
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(a));
-  lo = __float_as_uint(a - __uint_as_float(hi));
-}
-
-// c(16x8, f32) += a(16x8, tf32, row) * b(8x8, tf32, col)
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// The k order inside an 8-wide step is free as long as A and B agree: the
-// fragments' k = t and k = t + 4 are taken from columns 2t and 2t + 1, so
-// each thread's pair is one 8-byte load.
-// The A fragment (rows g, g + 8) of the 8 columns at p, row pitch ld, split.
-__device__ __forceinline__ void load_a_split(const float* p, int ld, int g, int t, uint32_t (&hi)[4],
-                                             uint32_t (&lo)[4]) {
-  const float2 r0 = *reinterpret_cast<const float2*>(p + g * ld + 2 * t);
-  const float2 r1 = *reinterpret_cast<const float2*>(p + (g + 8) * ld + 2 * t);
-  split_tf32(r0.x, hi[0], lo[0]);
-  split_tf32(r1.x, hi[1], lo[1]);
-  split_tf32(r0.y, hi[2], lo[2]);
-  split_tf32(r1.y, hi[3], lo[3]);
 }
 
 __global__ void __launch_bounds__(kThreads, 1) flash_f32_d512_kernel(const Params p) {

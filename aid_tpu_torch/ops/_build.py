@@ -4,7 +4,8 @@ Every ``aid_tpu_torch/csrc/*.cu`` file is compiled by ``nvcc`` for Hopper
 (``sm_90a``), one ``nvcc`` process per source, all started together, and
 the objects are linked into ONE shared library with a plain C interface,
 loaded with ``ctypes``. No PyTorch header is included, so a build takes
-seconds, not minutes. The library is named by a hash of the sources and flags and lives in
+seconds, not minutes. The library is named by a hash of the sources, the
+``csrc/*.cuh`` headers they include and the flags, and lives in
 ``build/aid_tpu_torch/`` at the repository root (git-ignored): a change to
 any source rebuilds it, an unchanged tree reuses it.
 
@@ -46,7 +47,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256()
-    for src in sources():
+    for src in sources() + sorted(CSRC.glob("*.cuh")):  # the headers the sources include, too
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -112,6 +113,9 @@ def library() -> ctypes.CDLL:
         vp,                  # cudaStream_t
     ]
     lib.aid_flash_attn_bf16.restype = ctypes.c_int
+    # the same C signature over f32 operands (flash_interpolated_attention_f32.cu)
+    lib.aid_flash_attn_f32.argtypes = lib.aid_flash_attn_bf16.argtypes
+    lib.aid_flash_attn_f32.restype = ctypes.c_int
     lib.aid_conv3x3_bf16.argtypes = [
         vp, vp, vp, vp,      # x (B,Cin/8,H,W,8), w (tiled, see conv.py), bias (f32), out (NHWC)
         i32, i32, i32, i32, i32,  # B, H, W, Cin, Cout
@@ -132,6 +136,19 @@ def library() -> ctypes.CDLL:
         vp,                  # cudaStream_t
     ]
     lib.aid_conv3x3_blocked_bf16.restype = ctypes.c_int
+    lib.aid_conv3x3_f32.argtypes = [
+        vp, vp, vp, vp,      # x (B,Cin/4,H,W,4), w (tiled, see conv.py), bias, out (NHWC), all f32
+        i32, i32, i32, i32, i32,  # B, H, W, Cin, Cout
+        vp,                  # cudaStream_t
+    ]
+    lib.aid_conv3x3_f32.restype = ctypes.c_int
+    lib.aid_conv3x3_blocked_f32.argtypes = [
+        vp, vp,              # x (B, C, H, W) at any strides, xb (B, C/4, H, W, 4), f32
+        i32, i32, i32, i32,  # B, C, H, W
+        i64p,                # x's element strides (b, c, h, w)
+        vp,                  # cudaStream_t
+    ]
+    lib.aid_conv3x3_blocked_f32.restype = ctypes.c_int
     lib.aid_flash_attn_f32_d512.argtypes = [
         vp, vp, vp, vp,      # q, k, v, out (f32)
         i64p,                # dims + strides, see flash_attention_f32_d512.cu

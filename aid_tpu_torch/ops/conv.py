@@ -10,6 +10,10 @@ dy was a TPU lane-tiling measure; the CUDA kernel's K loop already runs over
 all 9*Cin, so both flags launch the same kernel instance and count in
 ``conv3x3_same.launches``.
 
+On an f32 CUDA tensor ``conv3x3_same`` routes to :func:`conv3x3_same_f32`,
+which launches ``csrc/conv3x3_f32.cu`` (3xTF32 products; the f32 instance
+of the same two TPU kernels) and counts in ``conv3x3_same_f32.launches``.
+
 ``conv3x3_gnsilu`` is the counterpart of ``aid_tpu.ops.conv.conv3x3_gnsilu``:
 conv(silu(group_norm(x))) with the SAME padding applied after the prologue.
 On a CUDA tensor it launches the same kernel with its prologue, which
@@ -22,7 +26,8 @@ bounds the kernel on the card and how the design answers. The interface
 keeps PyTorch's NCHW / OIHW layout; the kernel reads activations with
 their channels in blocks of 8 and weights tiled by its N tile and K chunk,
 so the wrappers convert both (:func:`kernel_operands`) and return
-channels-last tensors. A weight is tiled once and the tiling kept for
+channels-last tensors. The f32 kernel reads channels in blocks of 4 (16
+bytes again) and weights tiled by its own N tile and K chunk. A weight is tiled once and the tiling kept for
 later calls (:func:`tiled_weight`): at inference the weights are constant,
 so a call copies only its activation, on the card by the layout kernel of
 the same source (:func:`blocked_input`).
@@ -50,78 +55,99 @@ def conv3x3_same_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> tor
 #: follow them.
 KERNEL_TILE_ROWS, KERNEL_TILE_COLS = 4, 64
 KERNEL_N_TILE, KERNEL_K_CHUNK = 160, 16
+#: the same of the f32 kernel, csrc/conv3x3_f32.cu's kTR, kTW, kBN and kKc
+F32_TILE_ROWS, F32_TILE_COLS = 2, 64
+F32_N_TILE, F32_K_CHUNK = 160, 8
 
 #: weight -> (the weight's storage and version when tiled, its tiling)
 _TILED = WeakIdKeyDictionary()
 
 
 def tiled_weight(w: torch.Tensor) -> torch.Tensor:
-    """w (Cout, Cin, 3, 3) tiled as the kernel reads it:
-    (ceil(Cout/160), ceil(Cin/16), 3, 3, 2, 160, 8) with zeros past Cout and
-    Cin, so that each N tile's K chunk is one contiguous copy that lands as
-    the wgmma operand. The tiling is kept while w lives, keyed by w's
-    storage and version counter: a parameter is tiled on its first call,
-    and again only after an in-place update (``load_state_dict``, ``copy_``
-    under ``torch.no_grad``) or a move to new storage. Writes that bypass
-    the version counter are not seen: those through ``w.data``, and those
-    to an inference tensor, which has no counter."""
-    key = (w.data_ptr(), None if w.is_inference() else w._version)
+    """w (Cout, Cin, 3, 3) tiled as the kernel of its dtype reads it, with
+    zeros past Cout and Cin, so that each N tile's K chunk is one contiguous
+    copy: bf16 as (ceil(Cout/160), ceil(Cin/16), 3, 3, 2, 160, 8), which
+    lands as the wgmma operand; f32 as (ceil(Cout/160), ceil(Cin/8), 3, 3,
+    160, 8), 8 channels a row. The tiling is kept while w lives, keyed by
+    w's storage, dtype and version counter: a parameter is tiled on its
+    first call, and again only after an in-place update (``load_state_dict``,
+    ``copy_`` under ``torch.no_grad``) or a move to new storage. Writes that
+    bypass the version counter are not seen: those through ``w.data``, and
+    those to an inference tensor, which has no counter."""
+    key = (w.data_ptr(), w.dtype, None if w.is_inference() else w._version)
     hit = _TILED.get(w)
     if hit is not None and hit[0] == key:
         return hit[1]
     Cout, Cin = w.shape[:2]
-    nt, kc = -(-Cout // KERNEL_N_TILE), -(-Cin // KERNEL_K_CHUNK)
+    f32 = w.dtype == torch.float32
+    bn, kc = (F32_N_TILE, F32_K_CHUNK) if f32 else (KERNEL_N_TILE, KERNEL_K_CHUNK)
+    nt, nk = -(-Cout // bn), -(-Cin // kc)
     with torch.no_grad():
-        wp = w.new_zeros((nt * KERNEL_N_TILE, kc * KERNEL_K_CHUNK, 3, 3))
+        wp = w.new_zeros((nt * bn, nk * kc, 3, 3))
         wp[:Cout, :Cin] = w
-        wt = wp.view(nt, KERNEL_N_TILE, kc, 2, 8, 3, 3).permute(0, 2, 5, 6, 3, 1, 4).contiguous()
+        if f32:
+            wt = wp.view(nt, bn, nk, kc, 3, 3).permute(0, 2, 4, 5, 1, 3).contiguous()
+        else:
+            wt = wp.view(nt, bn, nk, 2, 8, 3, 3).permute(0, 2, 5, 6, 3, 1, 4).contiguous()
     _TILED[w] = (key, wt)
     return wt
 
 
 def blocked_input_plain(x: torch.Tensor) -> torch.Tensor:
-    """x (B, C, H, W) as (B, C/8, H, W, 8): channels in blocks of 8, each
-    pixel's block one contiguous 16-byte run (the layout kernel's plain
-    version)."""
+    """x (B, C, H, W) as (B, C/n, H, W, n) with n channels in a 16-byte
+    block (8 in bf16, 4 in f32), each pixel's block one contiguous run (the
+    layout kernels' plain version)."""
     B, C, H, W = x.shape
-    return x.reshape(B, C // 8, 8, H, W).permute(0, 1, 3, 4, 2).contiguous()
+    n = 16 // x.element_size()
+    return x.reshape(B, C // n, n, H, W).permute(0, 1, 3, 4, 2).contiguous()
+
+
+#: the layout kernel by dtype: (C entry, channels a 16-byte block)
+_LAYOUT = {torch.bfloat16: ("aid_conv3x3_blocked_bf16", 8), torch.float32: ("aid_conv3x3_blocked_f32", 4)}
 
 
 def blocked_input(x: torch.Tensor) -> torch.Tensor:
-    """:func:`blocked_input_plain` of a bf16 x with C % 8 == 0: on a CUDA
-    tensor by ``csrc/conv3x3.cu``'s layout kernel, which reads x at its own
-    strides (NCHW, channels-last or a view) once and writes the result
-    once; on a CPU tensor by the plain version."""
+    """:func:`blocked_input_plain` of a bf16 x with C % 8 == 0 or an f32 x
+    with C % 4 == 0: on a CUDA tensor by the layout kernel of
+    ``csrc/conv3x3.cu`` (bf16) or ``csrc/conv3x3_f32.cu`` (f32), which reads
+    x at its own strides (NCHW, channels-last or a view) once and writes the
+    result once; on a CPU tensor by the plain version."""
     if not use_kernel(x):
         return blocked_input_plain(x)
     B, C, H, W = x.shape
-    if x.dtype != torch.bfloat16 or C % 8:
-        raise NotImplementedError(f"the layout kernel takes bf16 with C % 8 == 0; got {x.dtype}, C = {C}")
-    xb = torch.empty((B, C // 8, H, W, 8), dtype=x.dtype, device=x.device)
+    entry, n = _LAYOUT.get(x.dtype, (None, 8))
+    if entry is None or C % n:
+        raise NotImplementedError(f"the layout kernels take bf16 with C % 8 == 0 or f32 with C % 4 == 0; got "
+                                  f"{x.dtype}, C = {C}")
+    xb = torch.empty((B, C // n, H, W, n), dtype=x.dtype, device=x.device)
     strides = (ctypes.c_longlong * 4)(*x.stride())
 
     from aid_tpu_torch.ops import _build
 
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    code = _build.library().aid_conv3x3_blocked_bf16(x.data_ptr(), xb.data_ptr(), B, C, H, W, strides, stream)
+    code = getattr(_build.library(), entry)(x.data_ptr(), xb.data_ptr(), B, C, H, W, strides, stream)
     _build.check(code, "conv input layout launch")
     return xb
 
 
 def kernel_operands(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *factors: torch.Tensor) -> tuple:
-    """Check the operands and lay them out as the kernel reads them:
-    x as (B, Cin/8, H, W, 8) by :func:`blocked_input` (channels in blocks
-    of 8, so that one row of the kernel's input window is one contiguous
-    run), w by :func:`tiled_weight`, b and ``factors`` (the prologue's
-    scale, shift) f32. Returns the tuple :func:`launch_kernel` takes."""
+    """Check the operands and lay them out as the kernel of their dtype
+    reads them: x as (B, Cin/n, H, W, n) by :func:`blocked_input` (channels
+    in 16-byte blocks, so that one row of the kernel's input window is one
+    contiguous run), w by :func:`tiled_weight`, b and ``factors`` (the
+    prologue's scale, shift) f32. bf16 takes Cin % 8 == 0, f32 Cin % 4 == 0
+    and no prologue. Returns the tuple :func:`launch_kernel` takes."""
     B, Cin, H, W = x.shape
     Cout = w.shape[0]
     if w.shape != (Cout, Cin, 3, 3) or b.shape != (Cout,):
         raise ValueError(f"weight {tuple(w.shape)} / bias {tuple(b.shape)} do not fit input {tuple(x.shape)}")
-    if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
-        raise NotImplementedError(f"conv kernel takes bf16 only; got x {x.dtype}, w {w.dtype}")
-    if Cin % 8 or Cout % 2:
-        raise NotImplementedError(f"conv kernel needs Cin % 8 == 0 and Cout % 2 == 0; got {Cin}, {Cout}")
+    if x.dtype not in _LAYOUT or w.dtype != x.dtype:
+        raise NotImplementedError(f"conv kernels take bf16 or f32 x and w of one dtype; got x {x.dtype}, w {w.dtype}")
+    if factors and x.dtype == torch.float32:
+        raise NotImplementedError("the GN+SiLU conv kernel takes bf16 only (ROADMAP Queue 2 lists the f32 instance)")
+    n = _LAYOUT[x.dtype][1]
+    if Cin % n or Cout % 2:
+        raise NotImplementedError(f"conv kernel needs Cin % {n} == 0 and Cout % 2 == 0; got {Cin}, {Cout}")
     return blocked_input(x), tiled_weight(w), b.float().contiguous(), tuple(f.float().contiguous() for f in factors)
 
 
@@ -129,7 +155,7 @@ def launch_kernel(entry: str, xb: torch.Tensor, wt: torch.Tensor, bf: torch.Tens
     """Launch the C entry point ``entry`` on operands from
     :func:`kernel_operands`; returns a channels-last (B, Cout, H, W) tensor.
     Counts nothing: the wrappers below count their launches."""
-    B, G, H, W, _ = xb.shape
+    B, G, H, W, n = xb.shape
     Cout = bf.shape[0]
     out = torch.empty((B, Cout, H, W), dtype=xb.dtype, device=xb.device, memory_format=torch.channels_last)
 
@@ -137,7 +163,7 @@ def launch_kernel(entry: str, xb: torch.Tensor, wt: torch.Tensor, bf: torch.Tens
 
     stream = torch.cuda.current_stream(xb.device).cuda_stream
     code = getattr(_build.library(), entry)(xb.data_ptr(), wt.data_ptr(), bf.data_ptr(), out.data_ptr(),
-                                            *(f.data_ptr() for f in factors), B, H, W, 8 * G, Cout, stream)
+                                            *(f.data_ptr() for f in factors), B, H, W, n * G, Cout, stream)
     _build.check(code, f"{entry} launch")
     return out
 
@@ -148,12 +174,16 @@ def conv3x3_same(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, packed: bool
     x: (B, Cin, H, W); w: (Cout, Cin, 3, 3); b: (Cout,). Accumulates in f32
     and returns x's dtype. ``packed`` names the JAX package's packed-K TPU
     kernel; on the card both flags launch the same kernel (module
-    docstring). The kernel takes bf16 with Cin % 8 == 0 and Cout % 2 == 0
-    and raises on anything else.
+    docstring). On CUDA the bf16 kernel takes Cin % 8 == 0 and Cout % 2 ==
+    0; f32 goes to :func:`conv3x3_same_f32`; anything else raises.
     """
     del packed  # one kernel serves both TPU contracts
     if not use_kernel(x, w, b):
         return conv3x3_same_plain(x, w, b)
+    if x.dtype == torch.float32:
+        return conv3x3_same_f32(x, w, b)
+    if x.dtype != torch.bfloat16:
+        raise NotImplementedError(f"conv kernels take bf16 or f32; got {x.dtype}")
     out = launch_kernel("aid_conv3x3_bf16", *kernel_operands(x, w, b))
     conv3x3_same.launches += 1
     return out
@@ -161,6 +191,23 @@ def conv3x3_same(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, packed: bool
 
 #: kernel launches since the last reset (chip_smoke.py reads it around each path)
 conv3x3_same.launches = 0
+
+
+def conv3x3_same_f32(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """conv3x3_same in f32 at f32 accuracy: ``csrc/conv3x3_f32.cu`` (3xTF32
+    products, f32 sums) on CUDA tensors with Cin % 4 == 0 and Cout % 2 == 0,
+    returning a channels-last tensor; the plain version on CPU tensors."""
+    if not use_kernel(x, w, b):
+        return conv3x3_same_plain(x, w, b)
+    if x.dtype != torch.float32:
+        raise NotImplementedError(f"the f32 conv kernel takes f32; got {x.dtype}")
+    out = launch_kernel("aid_conv3x3_f32", *kernel_operands(x, w, b))
+    conv3x3_same_f32.launches += 1
+    return out
+
+
+#: kernel launches since the last reset (chip_smoke.py reads it around each path)
+conv3x3_same_f32.launches = 0
 
 
 def gn_scale_shift(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, num_groups: int,
@@ -199,7 +246,7 @@ def conv3x3_gnsilu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, gamma: tor
 
     x: (B, Cin, H, W); w: (Cout, Cin, 3, 3); b: (Cout,); gamma, beta: (Cin,).
     On CUDA the kernel takes bf16 x and w with Cin % 8 == 0 and Cout % 2 == 0
-    and raises on anything else.
+    and raises on anything else (there is no f32 instance yet).
     """
     if not use_kernel(x, w, b, gamma, beta):
         return conv3x3_gnsilu_plain(x, w, b, gamma, beta, num_groups, eps)

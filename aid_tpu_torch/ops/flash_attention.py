@@ -9,12 +9,17 @@ kernels behind that function (``_kernel``, flash_attention.py:101, and
 bounds it on the card and how the design answers. On a CPU tensor it runs
 :func:`flash_interpolated_attention_plain`.
 
-Three kernels take CUDA calls:
+Four kernels take CUDA calls:
   * bf16 with head dim 40, 64, 80 or 160, every mode (every UNet attention:
     64 for SDXL and SD2.x, 40/80/160 for SD1.x's 8 heads at widths
     320/640/1280): ``csrc/flash_interpolated_attention.cu``, counted by
     ``flash_interpolated_attention.launches`` and, per head dim, by
     ``flash_interpolated_attention.launches_by_head_dim``;
+  * f32 with head dim 40, 64, 80 or 160, every mode (the same attentions in
+    an f32 UNet, the reference's default dtype): the same C signature in
+    ``csrc/flash_interpolated_attention_f32.cu`` (3xTF32), reached through
+    :func:`flash_interpolated_attention_f32` and counted by its
+    ``launches`` and ``launches_by_head_dim``;
   * f32 with head dim 512, self mode (the VAE mid-block attention, one head
     over 4096 tokens at 512px, 16384 at 1024px):
     ``csrc/flash_attention_f32_d512.cu``, reached through
@@ -24,11 +29,11 @@ Three kernels take CUDA calls:
     :func:`flash_self_attention_bf16` and counted by its ``launches``.
 Any other dtype, head dim or mode on a CUDA tensor raises
 ``NotImplementedError`` (ROADMAP Queue 2 lists the instances still to port).
-:func:`kernel_operands` checks the bf16 kernel's operands and lays out its
-C entry's arguments (the CPU tests replay the kernel's data movement from
-them); :func:`kernel_launch` and, for the D=512 kernels, :func:`d512_launch`
-return the launch itself, which ``chip_smoke.py`` times apart from the
-wrapper's host work.
+:func:`kernel_operands` checks the operands of the D <= 160 kernels (bf16 or
+f32, one C signature) and lays out their C entry's arguments (the CPU tests
+replay the kernels' data movement from them); :func:`kernel_launch` and, for
+the D=512 kernels, :func:`d512_launch` return the launch itself, which
+``chip_smoke.py`` times apart from the wrapper's host work.
 """
 
 from __future__ import annotations
@@ -47,6 +52,13 @@ D512 = 512  # the VAE mid block's head dim: the self-mode kernels in f32 and bf1
 #: tile, K/V stages in its ring), csrc/flash_interpolated_attention.cu's
 #: Tiles<D>: one consumer warpgroup per 64 query rows.
 KERNEL_TILES = {40: (192, 128, 3), 64: (192, 128, 3), 80: (128, 128, 2), 160: (64, 64, 3)}
+#: the f32 kernel's tiles by head dim: (keys per K/V tile, row pitch of Q and
+#: K, row pitch of V, in floats), csrc/flash_interpolated_attention_f32.cu's
+#: Tiles<D>; every block holds 64 query rows, 16 a warp.
+KERNEL_F32_TILES = {40: (64, 40, 44), 64: (64, 72, 68), 80: (64, 88, 84), 160: (32, 168, 164)}
+KERNEL_F32_ROWS = 64
+#: the C entry of the D <= 160 kernels by operand dtype (one C signature)
+KERNEL_ENTRIES = {torch.bfloat16: "aid_flash_attn_bf16", torch.float32: "aid_flash_attn_f32"}
 
 
 def flash_interpolated_attention_plain(
@@ -194,7 +206,8 @@ def kernel_operands(
     scale: Optional[float] = None,
     skip_endpoints: Optional[torch.Tensor] = None,  # (B,) bool: rows whose endpoint segments are dropped
 ) -> dict:
-    """Check the bf16 kernel's operands and lay out one call of its C entry:
+    """Check the operands of the D <= 160 kernel of q's dtype (bf16 or f32)
+    and lay out one call of its C entry (``entry``, :data:`KERNEL_ENTRIES`):
     ``tensors`` (q, k, v, k_begin, v_begin, k_end, v_end and the output, a
     (B, H, Sq, D) view of a new (B, Sq, H, D) buffer), ``dims`` (the entry's
     30 shape and stride values), ``coef`` and ``skip`` (None where the mode
@@ -202,6 +215,9 @@ def kernel_operands(
     no endpoint: its slots repeat k and v. Nothing here needs a device."""
     mode = AttnMode(mode)
     B, H, Sq, D = q.shape
+    if q.dtype not in KERNEL_ENTRIES:
+        raise NotImplementedError(f"the flash kernels take bf16 or f32 at head dims {KERNEL_HEAD_DIMS}; q is "
+                                  f"{q.dtype} (ROADMAP Queue 2 lists the instances still to port)")
     if k.dim() != 4 or k.shape[:2] != (B, H) or k.shape[-1] != D or v.shape != k.shape:
         raise ValueError(f"k/v shapes {tuple(k.shape)}/{tuple(v.shape)} do not match q {tuple(q.shape)}")
     if Sq == 0 or k.shape[2] == 0:
@@ -243,12 +259,13 @@ def kernel_operands(
             continue  # checked already
         if x.device != dev:
             raise ValueError(f"{name} is on {x.device}, q on {dev}")
-        _check_operand(name, x)
+        _check_operand(name, x, q.dtype)
     tensors.append(torch.empty((B, Sq, H, D), dtype=q.dtype, device=dev).transpose(1, 2))
     dims = [B, H, Sq, k.shape[2], tensors[3].shape[-2], D]
     for x in tensors:
         dims += _bhs_strides(x)
-    return dict(tensors=tensors, dims=dims, coef=coef_t, skip=skip, scale=D ** -0.5 if scale is None else scale,
+    return dict(entry=KERNEL_ENTRIES[q.dtype], tensors=tensors, dims=dims, coef=coef_t, skip=skip,
+                scale=D ** -0.5 if scale is None else scale,
                 has_own=int(mode in (AttnMode.SELF, AttnMode.FUSED_OUTER, AttnMode.FUSED_INNER)),
                 n_sets=2 if mode.is_outer else (1 if mode.is_inner else 0))
 
@@ -269,8 +286,10 @@ def kernel_launch(*args, **kwargs) -> tuple:
               (ctypes.c_longlong * len(ops["dims"]))(*ops["dims"]), float(ops["scale"]), ops["has_own"],
               ops["n_sets"], torch.cuda.current_stream(out.device).cuda_stream)
 
+    fn = getattr(lib, ops["entry"])
+
     def launch() -> None:
-        _build.check(lib.aid_flash_attn_bf16(*c_args), "flash_interpolated_attention launch")
+        _build.check(fn(*c_args), f"{ops['entry']} launch")
 
     launch.operands = ops  # the pointers in c_args stay valid while launch lives
     return out, launch
@@ -307,7 +326,11 @@ def flash_interpolated_attention(
             return flash_self_attention_f32(q, k, v, scale)
         if q.dtype == torch.bfloat16:
             return flash_self_attention_bf16(q, k, v, scale)
+    if q.dtype == torch.float32:
+        return flash_interpolated_attention_f32(q, k, v, coef, mode, k_begin=k_begin, v_begin=v_begin, k_end=k_end,
+                                                v_end=v_end, scale=scale, skip_endpoints=skip_endpoints)
 
+    _check_operand("q", q)  # bf16 from here on; kernel_operands checks the rest
     out, launch = kernel_launch(q, k, v, coef, mode, k_begin=k_begin, v_begin=v_begin, k_end=k_end, v_end=v_end,
                                 scale=scale, skip_endpoints=skip_endpoints)
     launch()
@@ -316,12 +339,47 @@ def flash_interpolated_attention(
     return out
 
 
+def flash_interpolated_attention_f32(
+    q: torch.Tensor,  # (B, H, Sq, D) f32, D in KERNEL_HEAD_DIMS
+    k: torch.Tensor,  # (B, H, Lk, D)
+    v: torch.Tensor,
+    coef: Optional[torch.Tensor] = None,  # (B,); not read in self mode
+    mode: AttnMode | str = AttnMode.SELF,
+    k_begin: Optional[torch.Tensor] = None,  # (H, Le, D) shared or (B, H, Le, D) per row; default k[0]
+    v_begin: Optional[torch.Tensor] = None,
+    k_end: Optional[torch.Tensor] = None,  # default k[-1]
+    v_end: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+    skip_endpoints: Optional[torch.Tensor] = None,  # (B,) bool: rows whose endpoint segments are dropped
+) -> torch.Tensor:
+    """:func:`flash_interpolated_attention`'s contract in f32 at head dim
+    40, 64, 80 or 160, every mode (an f32 UNet's attentions):
+    ``csrc/flash_interpolated_attention_f32.cu`` (both products in 3xTF32)
+    on CUDA tensors, the plain version on CPU tensors. Returns (B, H, Sq, D)
+    f32; on CUDA a view of a (B, Sq, H, D) buffer, as the bf16 kernel writes.
+    """
+    mode = AttnMode(mode)
+    if not use_kernel(q, k, v):
+        return flash_interpolated_attention_plain(
+            q, k, v, coef, mode, k_begin=k_begin, v_begin=v_begin, k_end=k_end, v_end=v_end,
+            scale=scale, skip_endpoints=skip_endpoints)
+    _check_operand("q", q, torch.float32)
+    out, launch = kernel_launch(q, k, v, coef, mode, k_begin=k_begin, v_begin=v_begin, k_end=k_end, v_end=v_end,
+                                scale=scale, skip_endpoints=skip_endpoints)
+    launch()
+    flash_interpolated_attention_f32.launches += 1
+    flash_interpolated_attention_f32.launches_by_head_dim[q.shape[-1]] += 1
+    return out
+
+
 def reset_launch_counts() -> None:
-    """Set the bf16 kernel's launch counts (total and per head dim) to 0."""
-    flash_interpolated_attention.launches = 0
-    flash_interpolated_attention.launches_by_head_dim = dict.fromkeys(KERNEL_HEAD_DIMS, 0)
+    """Set the D <= 160 kernels' launch counts (bf16 and f32, total and per
+    head dim) to 0."""
+    for fn in (flash_interpolated_attention, flash_interpolated_attention_f32):
+        fn.launches = 0
+        fn.launches_by_head_dim = dict.fromkeys(KERNEL_HEAD_DIMS, 0)
 
 
-#: kernel launches since the last reset, in all and by head dim (chip_smoke.py
-#: reads them around each path)
+#: kernel launches since the last reset, in all and by head dim, of the bf16
+#: and the f32 kernel (chip_smoke.py reads them around each path)
 reset_launch_counts()

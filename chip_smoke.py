@@ -25,7 +25,13 @@ read just after:
     weights; attention at head dims 40, 80 and 160), random f32 CLIP ViT-L
     and the f32 SD VAE decode of all frames at once; in sequential and in
     batched CFG, then with the bf16 VAE; then ``vae.encode`` of its frames;
-  * SD1.5 ``interpolate_single(0.5)``: three 512px frames, the same modules.
+  * SD1.5 ``interpolate_single(0.5)``: three 512px frames, the same modules;
+  * the f32 SDXL UNet (the reference's default dtype; full width and depth,
+    N(0, 0.02) weights): a 2-step Euler denoise, every attention through the
+    f32 instance at D=64 and every wide conv through the f32 conv kernel;
+  * the f32 SD1.5 UNet in ``InterpolationPipeline.interpolate`` (PAID, 7
+    frames, 512px, 25 DDIM steps, f32 CLIP and VAE): the f32 attention at
+    D=40/80/160.
 
 Phases (each prints its own lines; any failure exits non-zero):
   1. device      needs CUDA; prints the card's name and power limit
@@ -60,6 +66,16 @@ Phases (each prints its own lines; any failure exits non-zero):
                  VAE, vae.encode() of its frames, and interpolate_single();
                  stage times, peak memory, launches by head dim, the raw
                  decoder output through the kernels vs the plain versions
+ 11. f32 SDXL    one full-width f32 SDXL forward in fused_outer, kernels vs
+                 plain (largest per-frame relative L2, two planted faults),
+                 then 2 Euler steps; checksum, s/step, peak memory, f32
+                 launches only
+ 12. f32 SD1.5   the same forward check on the f32 SD1.5 UNet, then
+                 interpolate() with f32 CLIP and VAE; stage times, s/step
+                 (best and p50 of three warm runs), peak memory, f32
+                 attention launches at D=40, 80 and 160
+Phase 1 turns TF32 off for cuBLAS and cuDNN, so every plain f32 version and
+library call computes in full f32.
 The second-to-last line is the kernels' JSON record, the last the result.
 """
 
@@ -205,6 +221,26 @@ BF16_VAE_TOL = 2e-2
 # smallest frame; the fault acts in the 12 warmup steps only). 7e-4 lies
 # between: 2.7x the sound reading, 0.39x the fault.
 SD15_CFG_TOL = 7e-4
+# The f32 attention at the UNet's head dims (D = 40/64/80/160, every mode)
+# against its plain version: 3xTF32 products as in the D=512 kernel, so the
+# same reasoning and the same bound, F32_ATTN_TOL.
+# The f32 conv, 3xTF32 products and each K chunk's sum added in f32, against
+# cuDNN in full f32 (TF32 off, phase 1): the dropped lo*lo terms and
+# summation order, ~1e-6 of max |ref| at K = 9 * 960; plain TF32 would read
+# ~4e-4 (tests/test_torch_ops.py). Measured on an H100: 3.2e-6 of max |ref|
+# at 960->320 (the f32 attention: 1e-6..3e-6 at every D and mode). 1e-4 of
+# max |ref| as for the attention; a wrong tap, halo or channel block is O(1).
+F32_CONV_TOL = 1e-4
+# The f32 UNets' whole forward (phases 11 and 12), kernels vs plain, the
+# LARGEST PER-FRAME relative L2 of the output. Every attention and wide conv
+# differs from its plain version by ~1e-6 of max |ref|. On an H100 (these
+# seeds; deterministic): sound 3.68e-7 (SDXL) and 5.40e-7 (SD1.5); planted
+# faults fused_outer computed as self 4.48e-2 / 4.34e-2, endpoints swapped
+# 8.84e-3 / 3.86e-3. 1e-5 lies between: 18x the larger sound reading, 0.0026x
+# the smaller fault; kernels at plain TF32 accuracy (~4e-4 an op) would read
+# well over it. Both phases measure both faults in every run and fail if the
+# bound does not separate either.
+F32_UNET_TOL = 1e-5
 # DDIM steps of the SD1.5 sequences (bench.py's SD1.5 workloads), run in
 # full; also the Beta(25, 25) of their frame coefficients.
 SD15_STEPS = 25
@@ -226,13 +262,16 @@ def bound(ops: dict, nbytes: float) -> tuple:
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
-def conv_bound(B, H, W, cin, cout, prologue=False) -> tuple:
+def conv_bound(B, H, W, cin, cout, prologue=False, tf32_passes=None) -> tuple:
     """The 3x3 conv's bound: 2 * 9 * Cin flops per output element on the
-    bf16 tensor cores; x, w, bias (f32), out read or written once; the
+    bf16 tensor cores, or with ``tf32_passes`` = 3 on f32 operands at three
+    TF32 passes (3xTF32); x, w, bias (f32), out read or written once; the
     GN+SiLU prologue adds its (B, Cin) f32 scale and shift and ~6 f32
     operations per input element (fma, halving, tanh, fma)."""
-    ops = {"bf16": 2.0 * B * H * W * cout * 9 * cin}
-    nbytes = 2.0 * (B * H * W * cin + 9 * cin * cout + B * H * W * cout) + 4.0 * cout
+    flops = 2.0 * B * H * W * cout * 9 * cin
+    ops = {"bf16": flops} if tf32_passes is None else {"tf32": tf32_passes * flops}
+    elem = 2.0 if tf32_passes is None else 4.0
+    nbytes = elem * (B * H * W * cin + 9 * cin * cout + B * H * W * cout) + 4.0 * cout
     if prologue:
         ops["f32"] = 6.0 * B * H * W * cin
         nbytes += 2 * 4.0 * B * cin
@@ -308,17 +347,19 @@ def library_conv_ms(x, w, b, reps: int) -> dict:
 
 def kernel_wrappers() -> dict:
     """Each kernel's wrapper, by the name its launch count is reported under."""
-    from aid_tpu_torch.ops.conv import conv3x3_gnsilu, conv3x3_same
+    from aid_tpu_torch.ops.conv import conv3x3_gnsilu, conv3x3_same, conv3x3_same_f32
     from aid_tpu_torch.ops.flash_attention import (
         flash_interpolated_attention,
+        flash_interpolated_attention_f32,
         flash_self_attention_bf16,
         flash_self_attention_f32,
     )
 
     return {"flash_interpolated_attention": flash_interpolated_attention,
+            "flash_interpolated_attention_f32": flash_interpolated_attention_f32,
             "flash_self_attention_f32": flash_self_attention_f32,
             "flash_self_attention_bf16": flash_self_attention_bf16,
-            "conv3x3_same": conv3x3_same, "conv3x3_gnsilu": conv3x3_gnsilu}
+            "conv3x3_same": conv3x3_same, "conv3x3_same_f32": conv3x3_same_f32, "conv3x3_gnsilu": conv3x3_gnsilu}
 
 
 def reset_counts() -> None:
@@ -330,13 +371,14 @@ def reset_counts() -> None:
 
 
 def read_counts() -> dict:
-    """Every wrapper's launches, and the bf16 attention's by head dim under
-    ``flash_interpolated_attention[D=...]``."""
-    from aid_tpu_torch.ops.flash_attention import flash_interpolated_attention
-
-    counts = {name: fn.launches for name, fn in kernel_wrappers().items()}
-    for d, n in flash_interpolated_attention.launches_by_head_dim.items():
-        counts[f"flash_interpolated_attention[D={d}]"] = n
+    """Every wrapper's launches, and the D <= 160 attention kernels' by head
+    dim under ``flash_interpolated_attention[D=...]`` (bf16) and
+    ``flash_interpolated_attention_f32[D=...]``."""
+    wrappers = kernel_wrappers()
+    counts = {name: fn.launches for name, fn in wrappers.items()}
+    for name in ("flash_interpolated_attention", "flash_interpolated_attention_f32"):
+        for d, n in wrappers[name].launches_by_head_dim.items():
+            counts[f"{name}[D={d}]"] = n
     return counts
 
 
@@ -423,24 +465,30 @@ def phase_kernels(coef, sd_coef, fused_classes):
 
     records = {}
 
-    def attention(label, mode, c, H, Sq, L, D, reps, Le=None):
-        """One bf16 attention case, B = len(c): (B, S, H*D) projections viewed
-        as (B, H, S, D), as the model passes them; skip rows as the model
-        marks them; optional shared (H, Le, D) endpoints. Timed through the
-        wrapper (ms: the call the model makes, its host work included) and
-        launched alone on operands kernel_launch prepared once (kernel_ms).
-        In self mode SDPA computes the same function and is timed under each
-        backend. Returns a record."""
+    def attention(label, mode, c, H, Sq, L, D, reps, Le=None, dtype=torch.bfloat16):
+        """One bf16 (or f32) attention case, B = len(c): (B, S, H*D)
+        projections viewed as (B, H, S, D), as the model passes them; skip
+        rows as the model marks them; optional shared (H, Le, D) endpoints.
+        Timed through the wrapper (ms: the call the model makes, its host
+        work included) and launched alone on operands kernel_launch prepared
+        once (kernel_ms). In self mode SDPA computes the same function and is
+        timed under each backend that takes the input. f32 is held to
+        F32_ATTN_TOL and bounded at three TF32 passes. Returns a record."""
         B = c.shape[0]
+        f32 = dtype == torch.float32
+        tol = F32_ATTN_TOL if f32 else ATTN_TOL
 
         def heads(x):
             return x.view(x.shape[0], x.shape[1], H, D).transpose(1, 2)
 
-        q = heads(randn(B, Sq, H * D))
-        k, v = heads(randn(B, L, H * D)), heads(randn(B, L, H * D))
+        def make(*shape):  # f32 draws keep their full mantissa (bf16 ones would be exact in TF32)
+            return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32).to(dtype)
+
+        q = heads(make(B, Sq, H * D))
+        k, v = heads(make(B, L, H * D)), heads(make(B, L, H * D))
         kw = {} if mode == "self" else {"skip_endpoints": skip_mask(c, B)}
         if Le is not None:
-            kw.update({n: randn(H, Le, D) for n in ("k_begin", "v_begin", "k_end", "v_end")})
+            kw.update({n: make(H, Le, D) for n in ("k_begin", "v_begin", "k_end", "v_end")})
         got = flash_interpolated_attention(q, k, v, c, mode, **kw)
         torch.cuda.synchronize()
         want = flash_interpolated_attention_plain(q, k, v, c, mode, **kw)
@@ -452,25 +500,28 @@ def phase_kernels(coef, sd_coef, fused_classes):
         ms = cuda_ms(lambda: flash_interpolated_attention(q, k, v, c, mode, **kw), reps)
         plain_ms = cuda_ms(lambda: flash_interpolated_attention_plain(q, k, v, c, mode, **kw), max(1, reps // 5))
         skip_rows = int(kw["skip_endpoints"].sum()) if "skip_endpoints" in kw else 0
-        bound_ms, bound_by = attention_bound(mode, B, H, Sq, L, D, Le, skip_rows=skip_rows)
+        bound_ms, bound_by = attention_bound(mode, B, H, Sq, L, D, Le, skip_rows=skip_rows, elem=4 if f32 else 2,
+                                             tf32_passes=3 if f32 else None)
         library = sdpa_backends(q, k, v, want, reps) if mode == "self" else {}
-        ok = math.isfinite(err) and err <= ATTN_TOL * ref
-        print(f"attention {label:32s} B={B} H={H} D={D}: max_abs_err {err:.3e} (max|ref| {ref:.3e}, "
-              f"tol {ATTN_TOL * ref:.3e}) rel_l2 {rl2:.3e}  kernel {ms:.4f} ms (launch alone {kernel_ms:.4f})  "
-              f"plain {plain_ms:.3f} ms  {yardsticks(bound_ms, bound_by, library)}  {'ok' if ok else 'FAIL'}",
+        lib_err = (f"; library max_abs_err {', '.join(f'{n} {t[1]:.3e}' for n, t in library.items())}"
+                   if f32 and library else "")
+        ok = math.isfinite(err) and err <= tol * ref
+        print(f"attention {'f32 ' if f32 else ''}{label:32s} B={B} H={H} D={D}: max_abs_err {err:.3e} (max|ref| "
+              f"{ref:.3e}, tol {tol * ref:.3e}) rel_l2 {rl2:.3e}  kernel {ms:.4f} ms (launch alone {kernel_ms:.4f})  "
+              f"plain {plain_ms:.3f} ms  {yardsticks(bound_ms, bound_by, library)}{lib_err}  {'ok' if ok else 'FAIL'}",
               flush=True)
         if not ok:
-            fail(f"attention {label} (D={D}): kernel disagrees with the plain version")
+            fail(f"attention {label} (D={D}, {dtype}): kernel disagrees with the plain version")
         lib_name, lib_ms = fastest(library)
         return {"max_abs_err": err, "ms": ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                 "bound_by": bound_by, "library_ms": lib_ms, "library": lib_name}
 
-    def attention_record(cases, coefs, main_label, self_label):
+    def attention_record(cases, coefs, main_label, self_label, dtype=torch.bfloat16):
         """Run ``cases``; the record is the main (fused_outer) case's, with
         the self case's time, bound and fastest SDPA beside it."""
         worst = 0.0
         for label, mode, H, Sq, L, D, reps, Le in cases:
-            r = attention(label, mode, coefs, H, Sq, L, D, reps, Le)
+            r = attention(label, mode, coefs, H, Sq, L, D, reps, Le, dtype)
             worst = max(worst, r["max_abs_err"])
             if label == main_label:
                 main = r
@@ -523,6 +574,18 @@ def phase_kernels(coef, sd_coef, fused_classes):
         [(f"SD1.5 {label}", mode, 8, Sq, L, D, reps, Le) for label, mode, Sq, L, D, reps, Le in sd_cases],
         sd_coef, "SD1.5 fused_outer 4096", "SD1.5 self 4096")
 
+    # the f32 instance at the f32 UNets' shapes (phases 11 and 12): SDXL's
+    # D=64 self, fused_outer and 77-key cross calls at both attention levels
+    # and the other modes at one shape; SD1.5's D=40/80/160, fewer reps
+    f32_sdxl = [(label, mode, H, Sq, L, D, max(1, reps // 2), Le)
+                for label, mode, H, Sq, L, D, reps, Le in sdxl_cases if "cross self 1024" not in label]
+    records["flash_interpolated_attention_f32"] = attention_record(f32_sdxl, coef, "fused_outer 4096", "self 4096",
+                                                                   torch.float32)
+    f32_sd = [(f"SD1.5 {label}", mode, 8, Sq, L, D, max(1, reps // 2), Le) for label, mode, Sq, L, D, reps, Le
+              in sd_cases if not label.startswith(("pure", "fused_inner")) or Sq == 256]
+    records["flash_interpolated_attention_f32(D=40/80/160)"] = attention_record(
+        f32_sd, sd_coef, "SD1.5 fused_outer 4096", "SD1.5 self 4096", torch.float32)
+
     def conv_case(label, x, w, b, factors=(), ring=None, reps=10, packed=False):
         """One conv class: the kernel through its wrapper (ms: the call the
         model makes, the layout kernel's pass over x included, the weight's
@@ -531,8 +594,10 @@ def phase_kernels(coef, sd_coef, fused_classes):
         kernel alone on NCHW x (layout_ms; exact against its plain version
         from NCHW and channels-last x, whose torch copy is timed too), the
         plain version, cuDNN with both layouts (the prologue-free conv
-        only). Returns (record, want)."""
-        entry = "aid_conv3x3_gnsilu_bf16" if factors else "aid_conv3x3_bf16"
+        only). f32 operands take the f32 kernel, F32_CONV_TOL and a bound at
+        three TF32 passes. Returns (record, want)."""
+        f32 = x.dtype == torch.float32
+        entry = "aid_conv3x3_gnsilu_bf16" if factors else ("aid_conv3x3_f32" if f32 else "aid_conv3x3_bf16")
         wrapper = (lambda: conv3x3_gnsilu(x, w, b, *factors, 32)) if factors else (
             lambda: conv3x3_same(x, w, b, packed=packed))
         plain = (lambda: conv3x3_gnsilu_plain(x, w, b, *factors, 32)) if factors else (
@@ -542,7 +607,7 @@ def phase_kernels(coef, sd_coef, fused_classes):
         want = plain()
         diff = (got.float() - want.float()).abs()
         ref = want.float().abs().max().item()
-        tol = (GNSILU_TOL if factors else CONV_TOL) * ref
+        tol = (GNSILU_TOL if factors else F32_CONV_TOL if f32 else CONV_TOL) * ref
         if ring is None:
             errs = {"": diff.max().item()}
         else:
@@ -559,7 +624,8 @@ def phase_kernels(coef, sd_coef, fused_classes):
         ms = cuda_ms(wrapper, reps)
         plain_ms = cuda_ms(plain, reps)
         Bx, cin, H, W = x.shape
-        bound_ms, bound_by = conv_bound(Bx, H, W, cin, w.shape[0], prologue=bool(factors))
+        bound_ms, bound_by = conv_bound(Bx, H, W, cin, w.shape[0], prologue=bool(factors),
+                                        tf32_passes=3 if f32 else None)
         library = {} if factors else library_conv_ms(x, w, b, reps)
         ok = all(math.isfinite(e) and e <= tol for e in errs.values())
         print(f"{label}: max_abs_err {' '.join(f'{k}{e:.3e}' for k, e in errs.items())} (max|ref| {ref:.3e}, "
@@ -596,6 +662,22 @@ def phase_kernels(coef, sd_coef, fused_classes):
     r, _ = conv_case(f"conv3x3 packed=True B={B} 640->320 @128x128", x, w, b, packed=True)
     records["conv3x3_same(packed=True)"] = r
     del x, w, b, got
+
+    # the f32 conv at the f32 SDXL UNet's classes (phase 11), f32 draws at
+    # full mantissa; cuDNN in f32 with TF32 off is the library call
+    worst = 0.0
+    for cin, cout in ((960, 320), (640, 320), (640, 640)):
+        x = torch.randn((B, cin, 128, 128), generator=gen, device=dev)
+        w = torch.randn((cout, cin, 3, 3), generator=gen, device=dev) * (9 * cin) ** -0.5
+        b = torch.randn((cout,), generator=gen, device=dev)
+        r, _ = conv_case(f"conv3x3 f32 B={B} {cin}->{cout} @128x128", x, w, b, reps=3)
+        worst = max(worst, r["max_abs_err"])
+        if cin == 960:
+            main = r
+            if not torch.equal(conv3x3_same(x, w, b, packed=True), conv3x3_same(x, w, b)):
+                fail("f32 conv3x3_same(packed=True) does not launch the f32 kernel")
+        del x, w, b
+    records["conv3x3_same_f32"] = {**main, "max_abs_err": worst}
 
     # kernel A: the VAE mid-block attention in f32, one head over 16384
     # tokens (SDXL, one 1024px frame) and over 4096 tokens of 7 frames at
@@ -732,15 +814,16 @@ def fused_conv_classes(unet, sample, ehs, added) -> dict:
     return seen
 
 
-def build_headline(frames: int = 7, latent: int = 128, seed: int = 0):
-    """The headline program's pieces (bench.py::build_headline, ported)."""
+def build_headline(frames: int = 7, latent: int = 128, seed: int = 0, dtype=None):
+    """The headline program's pieces (bench.py::build_headline, ported), in
+    bf16 unless ``dtype`` says otherwise."""
     import torch
 
     from aid_tpu_torch.models.configs import SDXL_UNET
     from aid_tpu_torch.models.unet import UNet2DCondition
     from aid_tpu_torch.ops.interp import generate_beta_schedule
 
-    dev, dtype = torch.device("cuda"), torch.bfloat16
+    dev, dtype = torch.device("cuda"), dtype or torch.bfloat16
     cfg = SDXL_UNET
     unet = UNet2DCondition(cfg, device=dev, dtype=dtype).eval()
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -1193,17 +1276,18 @@ def sd15_coef():
     return torch.from_numpy(generate_beta_schedule(7, SD15_STEPS, SD15_STEPS, force_endpoints=True))
 
 
-def build_sd15(seed: int = 0, cfg=None, device: str = "cuda"):
-    """The full-width SD1.5 UNet (``configs.SD15_UNET``, bf16, N(0, 0.02)
-    weights from a seeded CUDA generator, as bench.py's SD1.5 workloads).
-    ``cfg``/``device`` exist for rehearsing the phases on the CPU."""
+def build_sd15(seed: int = 0, cfg=None, device: str = "cuda", dtype=None):
+    """The full-width SD1.5 UNet (``configs.SD15_UNET``, bf16 unless
+    ``dtype`` says otherwise, N(0, 0.02) weights from a seeded CUDA
+    generator, as bench.py's SD1.5 workloads). ``cfg``/``device`` exist for
+    rehearsing the phases on the CPU."""
     import torch
 
     from aid_tpu_torch.models.configs import SD15_UNET
     from aid_tpu_torch.models.unet import UNet2DCondition
 
     dev = torch.device(device)
-    unet = UNet2DCondition(cfg or SD15_UNET, device=dev, dtype=torch.bfloat16).eval()
+    unet = UNet2DCondition(cfg or SD15_UNET, device=dev, dtype=dtype or torch.bfloat16).eval()
     gen = torch.Generator(device=dev).manual_seed(seed)
     with torch.no_grad():
         for p in unet.parameters():
@@ -1226,12 +1310,11 @@ def swapped_endpoints(plain):
 def phase_sd15_unet(unet, coef):
     """One full-width SD1.5 forward in fused_outer, 7 frames at 64^2
     latents, through the kernels and through the plain versions, with two
-    faults planted through the plain versions. Returns the sound reading."""
+    faults planted through the plain versions (check_unet_vs_plain). Returns
+    the forward's launch counts."""
     import torch
 
     from aid_tpu_torch.models.layers import AidContext, AidMode
-    from aid_tpu_torch.ops import flash_attention
-    from aid_tpu_torch.ops.routing import reference_ops
 
     cfg, dev, frames = unet.config, coef.device, coef.shape[0]
     s = cfg.sample_size
@@ -1240,44 +1323,64 @@ def phase_sd15_unet(unet, coef):
     gen = torch.Generator(device=dev).manual_seed(3)
     sample = torch.randn((frames, cfg.in_channels, s, s), generator=gen, device=dev).to(torch.bfloat16)
     ehs = torch.randn((frames, 77, cfg.cross_attention_dim), generator=gen, device=dev).to(torch.bfloat16)
-    aid = AidContext(coef=coef, mode=AidMode.from_name("fused_outer"))
     t = torch.tensor(500, device=dev)
+    counts = check_unet_vs_plain(f"unet SD1.5 fused_outer B={frames} {s}x{s}", lambda aid: unet(sample, t, ehs, aid),
+                                 AidContext(coef=coef, mode=AidMode.from_name("fused_outer")), SD15_UNET_TOL)
+    by_dim = {d: counts[f"flash_interpolated_attention[D={d}]"] for d in (40, 80, 160)}
+    print(f"SD1.5 forward: attention launches by head dim {by_dim}", flush=True)
+    if not min(by_dim.values()) > 0:
+        fail(f"the SD1.5 forward did not reach the kernel at every head dim: {by_dim}")
+    return counts
+
+
+def check_unet_vs_plain(label: str, forward, aid, tol: float) -> dict:
+    """One UNet forward ``forward(aid)`` through the kernels and through the
+    plain versions, with two faults planted through the plain versions
+    (fused_outer computed as self; begin and end endpoints exchanged): the
+    LARGEST PER-FRAME relative L2 must lie under ``tol`` and both faults over
+    it. Returns the forward's launch counts."""
+    import torch
+
+    from aid_tpu_torch.ops import flash_attention
+    from aid_tpu_torch.ops.routing import reference_ops
+
     with torch.no_grad():
         reset_counts()
-        got = unet(sample, t, ehs, aid)
         torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = forward(aid)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
         counts = read_counts()
         with reference_ops():
-            want = unet(sample, t, ehs, aid)
-            fault_self = unet(sample, t, ehs, None)  # planted fault 1: fused_outer computed as self
+            want = forward(aid)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            fault_self = forward(None)
             real_plain = flash_attention.flash_interpolated_attention_plain
             flash_attention.flash_interpolated_attention_plain = swapped_endpoints(real_plain)
             try:
-                fault_swap = unet(sample, t, ehs, aid)  # planted fault 2: begin and end exchanged
+                fault_swap = forward(aid)
             finally:
                 flash_attention.flash_interpolated_attention_plain = real_plain
     if not torch.isfinite(got).all():
-        fail("whole SD1.5 UNet kernel output is not finite")
+        fail(f"{label}: the kernel output is not finite")
     readings = {"kernels": got, "fused_outer->self": fault_self, "endpoints swapped": fault_swap}
     per_frame = {name: frame_rel_l2(x, want) for name, x in readings.items()}
     for name, x in readings.items():
         print(f"  {name:18s} rel_l2 whole {rel_l2(x, want):.3e}, by frame "
               f"{' '.join(f'{r:.3e}' for r in per_frame[name])}", flush=True)
     rel, f_self, f_swap = (max(per_frame[name]) for name in readings)
-    ok = math.isfinite(rel) and rel <= SD15_UNET_TOL
-    by_dim = {d: counts[f"flash_interpolated_attention[D={d}]"] for d in (40, 80, 160)}
-    print(f"unet SD1.5 fused_outer B={frames} {s}x{s}: attention launches by head dim {by_dim}; largest per-frame "
-          f"rel_l2 kernels vs plain {rel:.3e} (tol {SD15_UNET_TOL:.1e}; planted faults: fused_outer->self "
-          f"{f_self:.3e}, endpoints swapped {f_swap:.3e})  {'ok' if ok else 'FAIL'}", flush=True)
-    if not min(by_dim.values()) > 0:
-        fail(f"the SD1.5 forward did not reach the kernel at every head dim: {by_dim}")
+    ok = math.isfinite(rel) and rel <= tol
+    print(f"{label}: largest per-frame rel_l2 kernels vs plain {rel:.3e} (tol {tol:.1e}; planted faults: "
+          f"fused_outer->self {f_self:.3e}, endpoints swapped {f_swap:.3e}); forward "
+          f"{t1 - t0:.3f} s with kernels (first call), {t2 - t1:.3f} s plain  {'ok' if ok else 'FAIL'}", flush=True)
     for name, f in (("fused_outer->self", f_self), ("endpoints swapped", f_swap)):
-        if not f > SD15_UNET_TOL:
-            fail(f"the SD1.5 whole-UNet bound {SD15_UNET_TOL:.1e} does not separate the planted fault {name} "
-                 f"({f:.3e})")
+        if not f > tol:
+            fail(f"{label}: the bound {tol:.1e} does not separate the planted fault {name} ({f:.3e})")
     if not ok:
-        fail("whole SD1.5 UNet output through the kernels disagrees with the plain versions")
-    return rel
+        fail(f"{label}: the output through the kernels disagrees with the plain versions")
+    return counts
 
 
 def phase_sd15_image(unet, card: str, steps: int, text_cfg=None, vae_cfg=None):
@@ -1397,6 +1500,108 @@ def phase_sd15_image(unet, card: str, steps: int, text_cfg=None, vae_cfg=None):
     return paths
 
 
+def check_f32_only(path: str, counts: dict, needed) -> None:
+    """check_path, and no launch of a bf16 kernel on an f32 path."""
+    check_path(path, counts, needed)
+    bf16 = {n: counts[n] for n in ("flash_interpolated_attention", "flash_self_attention_bf16", "conv3x3_same",
+                                   "conv3x3_gnsilu")}
+    if any(bf16.values()):
+        fail(f"the f32 {path} path launched bf16 kernels: {bf16}")
+
+
+def phase_f32_sdxl(card: str):
+    """The SDXL UNet in f32 at full width and depth (N(0, 0.02) weights from
+    a seeded CUDA generator), 7 frames at 128^2 latents, Beta(28, 28): one
+    fused_outer forward, kernels vs plain, then a 2-step Euler denoise (1
+    fused_outer warmup step, 1 vanilla). Returns the denoise's counts."""
+    import torch
+
+    from aid_tpu_torch.models.layers import AidContext, AidMode
+
+    print("== phase 11: f32 SDXL UNet, full width and depth, 7 frames at 128x128: one fused_outer forward kernels "
+          "vs plain, then 2 Euler steps (1 fused_outer warmup, 1 vanilla); TF32 off for cuBLAS and cuDNN",
+          flush=True)
+    unet, sample, ehs, uncond, added, coef = build_headline(dtype=torch.float32)
+    t = torch.tensor(500.0, device=sample.device)
+    counts = check_unet_vs_plain(f"f32 SDXL unet fused_outer B={sample.shape[0]} 128x128",
+                                 lambda aid: unet(sample, t, ehs, aid, added),
+                                 AidContext(coef=coef, mode=AidMode.from_name("fused_outer")), F32_UNET_TOL)
+    check_f32_only("f32 SDXL forward", counts, ("flash_interpolated_attention_f32[D=64]", "conv3x3_same_f32"))
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    out, elapsed = run_denoise(unet, sample, ehs, uncond, added, coef, 2)
+    counts = read_counts()
+    checksum = float(out.float().sum())
+    print(f"f32 SDXL denoise: checksum {checksum!r}; output {tuple(out.shape)} {out.dtype}; {elapsed / 2:.3f} s/step "
+          f"(2 steps, the first included); peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {card}",
+          flush=True)
+    if tuple(out.shape) != tuple(sample.shape) or out.dtype != torch.float32 or not math.isfinite(checksum):
+        fail(f"f32 SDXL denoise returned {tuple(out.shape)} {out.dtype}, checksum {checksum}")
+    check_f32_only("f32 SDXL denoise", counts, ("flash_interpolated_attention_f32[D=64]", "conv3x3_same_f32"))
+    return counts
+
+
+def phase_f32_sd15(card: str, steps: int, unet=None, text_cfg=None, vae_cfg=None):
+    """The SD1.5 UNet in f32 (D = 40/80/160), random f32 CLIP ViT-L and the
+    f32 SD VAE: one fused_outer forward, kernels vs plain, then
+    ``InterpolationPipeline.interpolate`` (PAID guide prompt, 7 frames,
+    512px, DDIM) and three warm runs of its denoise for s/step. Returns the
+    interpolate path's counts. ``unet``/``text_cfg``/``vae_cfg`` exist for
+    rehearsing on the CPU."""
+    import numpy as np
+    import torch
+
+    from aid_tpu_torch.models.clip import CLIPTextModel
+    from aid_tpu_torch.models.configs import CLIP_VIT_L_TEXT, SD_VAE
+    from aid_tpu_torch.models.layers import AidContext, AidMode
+    from aid_tpu_torch.models.vae import AutoencoderKL
+    from aid_tpu_torch.pipelines.interpolation import InterpolationPipeline
+    from aid_tpu_torch.schedulers.ddim import DDIMScheduler
+    from aid_tpu_torch.utils.tokenizer import HashTokenizer
+
+    print(f"== phase 12: f32 SD1.5 UNet: one fused_outer forward kernels vs plain, then interpolate (PAID, 7 "
+          f"frames, {steps} DDIM steps) with f32 CLIP and VAE; TF32 off for cuBLAS and cuDNN", flush=True)
+    unet = unet or build_sd15(dtype=torch.float32)
+    text_cfg, vae_cfg = text_cfg or CLIP_VIT_L_TEXT, vae_cfg or SD_VAE
+    cfg, dev = unet.config, next(unet.parameters()).device
+    s = cfg.sample_size
+    px = s * 2 ** (len(vae_cfg.block_out_channels) - 1)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    sample = torch.randn((7, cfg.in_channels, s, s), generator=gen, device=dev)
+    ehs = torch.randn((7, 77, cfg.cross_attention_dim), generator=gen, device=dev)
+    t = torch.tensor(500, device=dev)
+    heads = tuple(f"flash_interpolated_attention_f32[D={d}]" for d in (40, 80, 160))
+    counts = check_unet_vs_plain(f"f32 SD1.5 unet fused_outer B=7 {s}x{s}", lambda aid: unet(sample, t, ehs, aid),
+                                 AidContext(coef=sd15_coef().to(dev), mode=AidMode.from_name("fused_outer")),
+                                 F32_UNET_TOL)
+    check_f32_only("f32 SD1.5 forward", counts, heads)
+
+    torch.manual_seed(9)  # the modules' default initialisations draw from it
+    with torch.no_grad():
+        text = CLIPTextModel(text_cfg, device=dev).eval()
+        vae = AutoencoderKL(vae_cfg, device=dev).eval()
+    pipe = InterpolationPipeline(unet=unet, vae=vae, text_encoder=text,
+                                 tokenizer=HashTokenizer(text_cfg.vocab_size), scheduler=DDIMScheduler())
+    gen = torch.Generator(device=dev).manual_seed(2)
+    latent_a, latent_b = pipe.generate_latent(gen), pipe.generate_latent(gen)
+
+    def interpolate(**kw):
+        return pipe.interpolate(latent_a, latent_b, "prompt A", "prompt B", guide_prompt="a guide prompt", size=7,
+                                num_inference_steps=steps, **kw)
+
+    images, counts, times, _, elapsed, peak = run_image_path(pipe, vae, interpolate, steps, 7)
+    check_images("f32 SD1.5 interpolate", images, (7, px, px, 3), times, elapsed, peak, card)
+    check_f32_only("f32 SD1.5 interpolate", counts, heads + ("flash_self_attention_f32",))
+    per_step = []
+    for _ in range(3):
+        _, _, warm, _, _, _ = run_image_path(pipe, vae, lambda: interpolate(output_type="latent"), steps, 7)
+        per_step.append(warm["s_per_step"])
+    print(f"f32 SD1.5 interpolate, sequential CFG: 3 warm runs, best {min(per_step):.4f} s/step, p50 "
+          f"{float(np.median(per_step)):.4f} s/step (all: {' '.join(f'{x:.4f}' for x in per_step)}) on {card}",
+          flush=True)
+    return counts
+
+
 # the keys every entry of the kernels line carries, in this order
 KERNEL_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
                "bound_by", "library_ms")
@@ -1410,6 +1615,7 @@ def kernels_line(kernels: dict, launches: dict) -> str:
     over the paths."""
     flash_src = "aid_tpu_torch/csrc/flash_interpolated_attention.cu"
     conv_src = "aid_tpu_torch/csrc/conv3x3.cu"
+    flash_f32_src = "aid_tpu_torch/csrc/flash_interpolated_attention_f32.cu"
     flash_replaces = ("aid_tpu/ops/flash_attention.py:101", {"also_replaces": "aid_tpu/ops/flash_attention.py:339"})
     conv_note = ("ms: through the wrapper, as the model calls it (w tiled once; x laid out by the layout kernel "
                  "aid_conv3x3_blocked_bf16 of the same source, which every launch runs first); kernel_ms: the "
@@ -1450,6 +1656,21 @@ def kernels_line(kernels: dict, launches: dict) -> str:
                                        "contract": f"bf16, (7,640,128,128) -> 320; {conv_note}"}),
         "conv3x3_gnsilu": (conv_src, "aid_tpu/ops/conv.py:78", ("conv3x3_gnsilu",),
                            {"contract": f"bf16, (7,960,128,128) -> 320 with the GN+SiLU prologue; {conv_note}"}),
+        "flash_interpolated_attention_f32": (
+            flash_f32_src, flash_replaces[0], ("flash_interpolated_attention_f32[D=64]",),
+            {**flash_replaces[1], "contract": "f32, head dim 64, every mode (an f32 SDXL / SD2.x UNet), 3xTF32; "
+                                              "ms at fused_outer (7,10,4096,64), self_* at self (7,10,4096,64); "
+                                              f"{attn_note}"}),
+        "flash_interpolated_attention_f32(D=40/80/160)": (
+            flash_f32_src, flash_replaces[0],
+            tuple(f"flash_interpolated_attention_f32[D={d}]" for d in (40, 80, 160)),
+            {**flash_replaces[1], "contract": "f32, head dims 40/80/160, every mode (an f32 SD1.x UNet), 3xTF32; "
+                                              "ms at fused_outer (7,8,4096,40), self_* at self (7,8,4096,40); "
+                                              f"{attn_note}"}),
+        "conv3x3_same_f32": ("aid_tpu_torch/csrc/conv3x3_f32.cu", "aid_tpu/ops/conv.py:30", ("conv3x3_same_f32",),
+                             {"also_replaces": "aid_tpu/ops/conv.py:47",
+                              "contract": "f32, (7,960,128,128) -> 320, 3xTF32; "
+                                          + conv_note.replace("aid_conv3x3_blocked_bf16", "aid_conv3x3_blocked_f32")}),
     }
     record = []
     for name, (src, replaces, counters, extra) in rows.items():
@@ -1490,6 +1711,12 @@ def main(argv=None) -> int:
     sd_unet = build_sd15()
     phase_sd15_unet(sd_unet, sd15_coef().cuda())
     paths += phase_sd15_image(sd_unet, card, SD15_STEPS)
+    # the f32 UNets: free the bf16 one first (the f32 SDXL weights alone are 10.3 GB)
+    del sd_unet
+    torch.cuda.empty_cache()
+    paths.append(phase_f32_sdxl(card))
+    torch.cuda.empty_cache()
+    paths.append(phase_f32_sd15(card, SD15_STEPS))
     launches = {name: sum(p[name] for p in paths) for name in paths[0]}
     print(f"launches over the {len(paths)} paths: {launches}", flush=True)
 

@@ -53,7 +53,8 @@ def _load_smoke():
 
 KERNEL_NAMES = ("flash_interpolated_attention", "flash_interpolated_attention(D=40/80/160)",
                 "flash_self_attention_f32", "flash_self_attention_bf16", "conv3x3_same", "conv3x3_same(packed=True)",
-                "conv3x3_gnsilu")
+                "conv3x3_gnsilu", "flash_interpolated_attention_f32", "flash_interpolated_attention_f32(D=40/80/160)",
+                "conv3x3_same_f32")
 
 
 def test_kernels_line_carries_bound_and_library_time():
@@ -72,10 +73,10 @@ def test_kernels_line_carries_bound_and_library_time():
         records[name] = {"max_abs_err": 1e-3 * i, "ms": 1.0 + i, "plain_ms": 2.0 + i, "bound_ms": 0.25 * (i + 1),
                          "bound_by": "operations", "library_ms": lib, "library": lib and "cudnn channels_last"}
         records[name]["kernel_ms"] = 0.5 + i
-    launches = {c: 3 for c in ("flash_interpolated_attention[D=64]", "flash_interpolated_attention[D=40]",
-                               "flash_interpolated_attention[D=80]", "flash_interpolated_attention[D=160]",
-                               "flash_self_attention_f32", "flash_self_attention_bf16", "conv3x3_same",
-                               "conv3x3_gnsilu")}
+    launches = {f"{k}[D={d}]": 3 for k in ("flash_interpolated_attention", "flash_interpolated_attention_f32")
+                for d in (40, 64, 80, 160)}
+    launches.update({c: 3 for c in ("flash_self_attention_f32", "flash_self_attention_bf16", "conv3x3_same",
+                                    "conv3x3_gnsilu", "conv3x3_same_f32")})
     entries = json.loads(smoke.kernels_line(records, launches))["kernels"]
     assert [e["name"] for e in entries] == list(KERNEL_NAMES)
     for e, name in zip(entries, KERNEL_NAMES):
@@ -96,6 +97,28 @@ def test_kernels_line_carries_bound_and_library_time():
         assert path.startswith("aid_tpu/") and (REPO / path).is_file() and int(line) > 0
     assert entries[1]["launches"] == 9  # the bf16 kernel at D = 40, 80 and 160
     assert entries[3]["launches"] == 3 and entries[3]["source"].endswith("flash_attention_bf16_d512.cu")
+    # the f32 instances: their own sources and launch counts
+    by_name = {e["name"]: e for e in entries}
+    assert by_name["flash_interpolated_attention_f32"]["source"].endswith("flash_interpolated_attention_f32.cu")
+    assert by_name["flash_interpolated_attention_f32"]["launches"] == 3
+    assert by_name["flash_interpolated_attention_f32(D=40/80/160)"]["launches"] == 9
+    assert by_name["conv3x3_same_f32"]["source"].endswith("conv3x3_f32.cu")
+    assert by_name["conv3x3_same_f32"]["launches"] == 3 and by_name["conv3x3_same_f32"]["replaces"].endswith(":30")
+
+
+def test_f32_phases_follow_the_bf16_paths():
+    """Phases 11 (f32 SDXL) and 12 (f32 SD 1.5) exist with their banners,
+    run after phase 10 in main(), and every name the kernels line reads is a
+    count that read_counts reports."""
+    import inspect
+
+    smoke = _load_smoke()
+    assert "== phase 11: f32 SDXL UNet" in inspect.getsource(smoke.phase_f32_sdxl)
+    assert "== phase 12: f32 SD1.5 UNet" in inspect.getsource(smoke.phase_f32_sd15)
+    main = inspect.getsource(smoke.main)
+    assert main.index("phase_sd15_image") < main.index("phase_f32_sdxl") < main.index("phase_f32_sd15")
+    for tag in ("11. f32 SDXL", "12. f32 SD1.5"):
+        assert tag in smoke.__doc__
 
 
 def test_bounds_follow_the_work():
@@ -116,3 +139,12 @@ def test_bounds_follow_the_work():
     self_ms, _ = smoke.attention_bound("self", 7, 10, 4096, 4096, 64)
     outer_ms, _ = smoke.attention_bound("fused_outer", 7, 10, 4096, 4096, 64, skip_rows=2)
     assert abs(outer_ms / self_ms - (5 * 3 + 2) / 7) < 1e-9
+    # the f32 instances at three TF32 passes, the f32 UNets' shapes
+    ms, by = smoke.attention_bound("self", 7, 10, 4096, 4096, 64, elem=4, tf32_passes=3)
+    assert by == "operations" and abs(ms - 1.822) < 1e-3
+    ms, by = smoke.attention_bound("fused_outer", 7, 10, 4096, 4096, 64, elem=4, tf32_passes=3, skip_rows=2)
+    assert by == "operations" and abs(ms - 4.425) < 1e-3
+    ms, by = smoke.attention_bound("self", 7, 8, 4096, 4096, 40, elem=4, tf32_passes=3)
+    assert by == "operations" and abs(ms - 0.911) < 1e-3
+    ms, by = smoke.conv_bound(7, 128, 128, 960, 320, tf32_passes=3)  # 634 GFLOP at three TF32 passes
+    assert by == "operations" and abs(ms - 3.843) < 1e-3

@@ -16,9 +16,10 @@ import torch.nn.functional as F
 
 from aid_tpu_torch.models.layers import per_row_endpoints, skip_mask
 from aid_tpu_torch.ops.attention import AttnMode, dispatch_attention
-from aid_tpu_torch.ops.conv import conv3x3_gnsilu, conv3x3_gnsilu_plain, conv3x3_same
+from aid_tpu_torch.ops.conv import conv3x3_gnsilu, conv3x3_gnsilu_plain, conv3x3_same, conv3x3_same_f32
 from aid_tpu_torch.ops.flash_attention import (
     flash_interpolated_attention,
+    flash_interpolated_attention_f32,
     flash_interpolated_attention_plain,
     flash_self_attention_bf16,
     flash_self_attention_f32,
@@ -42,6 +43,11 @@ CONV_RTOL = 1e-2
 # over thousands of keys. 1e-4 leaves margin; plain TF32 (~1e-3) or a wrong
 # mask, scale or tile would not pass.
 F32_ATTN_RTOL = 1e-4
+# f32 conv with 3xTF32 products and f32 sums of each K chunk in the kernel,
+# cuDNN in full f32 on the other side (TF32 off): the dropped lo*lo terms and
+# summation order, ~1e-6 of max |ref| at K = 9 * 960. 1e-4 as for the f32
+# attention; plain TF32 (~4e-4 at that K) or a wrong tap would not pass.
+F32_CONV_RTOL = 1e-4
 
 
 def _attn_err(got, want):
@@ -200,22 +206,37 @@ def test_flash_kernel_strided_heads(dev):
 
 
 def test_flash_kernel_refuses_what_it_does_not_take(dev):
-    """On a CUDA tensor an unsupported dtype, head dim or mode raises: no
-    quiet fallback to the plain version."""
+    """On a CUDA tensor a dtype, head dim or mode with no kernel instance
+    raises: no quiet fallback to the plain version. f32 at a UNet head dim
+    has its instance: it launches the f32 kernel and matches the plain
+    version."""
     q = _randn((2, 2, 64, 64), 30, torch.float32)
-    with pytest.raises(NotImplementedError):
-        flash_interpolated_attention(q, q, q)
+    before = flash_interpolated_attention_f32.launches
+    got = flash_interpolated_attention(q, q, q)
+    torch.cuda.synchronize()
+    assert flash_interpolated_attention_f32.launches == before + 1
+    assert _attn_err(got, flash_interpolated_attention_plain(q, q, q)) < F32_ATTN_RTOL
+    with pytest.raises(NotImplementedError):  # f16 has no instance
+        flash_interpolated_attention(q.half(), q.half(), q.half())
     q = _randn((2, 2, 64, 48), 31)  # a head dim with no kernel instance
     with pytest.raises(NotImplementedError):
         flash_interpolated_attention(q, q, q)
+    with pytest.raises(NotImplementedError):
+        flash_interpolated_attention(q.float(), q.float(), q.float())
     q = _randn((2, 1, 64, 512), 32, torch.float32)
-    with pytest.raises(NotImplementedError):  # the f32 kernel is self mode only
+    with pytest.raises(NotImplementedError):  # the f32 D=512 kernel is self mode only
         flash_interpolated_attention(q, q, q, torch.tensor([0.0, 1.0], device=dev), "fused_outer")
     with pytest.raises(NotImplementedError):
         flash_self_attention_f32(q.to(torch.bfloat16), q.to(torch.bfloat16), q.to(torch.bfloat16))
     x = _randn((1, 12, 8, 8), 33)  # Cin % 8 != 0
     with pytest.raises(NotImplementedError):
         conv3x3_gnsilu(x, _randn((8, 12, 3, 3), 34), _randn((8,), 35), _randn((12,), 36), _randn((12,), 37), 4)
+    x = _randn((1, 16, 8, 8), 38, torch.float32)  # the GN+SiLU conv has no f32 instance
+    with pytest.raises(NotImplementedError):
+        conv3x3_gnsilu(x, _randn((8, 16, 3, 3), 34, torch.float32), _randn((8,), 35, torch.float32),
+                       _randn((16,), 36, torch.float32), _randn((16,), 37, torch.float32), 4)
+    with pytest.raises(NotImplementedError):  # nor has f16 a conv instance
+        conv3x3_same(x.half(), _randn((8, 16, 3, 3), 34).half(), _randn((8,), 35).half())
 
 
 @pytest.mark.parametrize("B,H,S,L", [
@@ -268,8 +289,10 @@ def test_flash_bf16_d512_kernel_matches_plain(dev, B, H, S, L):
 
 
 def test_flash_d512_refuses_other_instances(dev):
-    """At D=512 only self mode has a kernel, in f32 and bf16; an f32 call at
-    a UNet head dim has none: each raises on the card."""
+    """At D=512 only self mode has a kernel, in f32 and bf16: the other modes
+    raise on the card. An f32 call at a UNet head dim has its own kernel:
+    it launches the f32 instance, counted by head dim, and matches the plain
+    version."""
     q = _randn((2, 1, 64, 512), 56)
     coef = torch.tensor([0.0, 1.0], device=dev)
     for mode in ("fused_outer", "pure_outer", "fused_inner", "pure_inner"):
@@ -277,8 +300,71 @@ def test_flash_d512_refuses_other_instances(dev):
             flash_interpolated_attention(q, q, q, coef, mode)
     for D in (40, 64, 80, 160):
         q = _randn((2, 2, 64, D), 57, torch.float32)
-        with pytest.raises(NotImplementedError):
-            flash_interpolated_attention(q, q, q, coef, "fused_outer")
+        before = flash_interpolated_attention_f32.launches_by_head_dim[D]
+        got = flash_interpolated_attention(q, q, q, coef, "fused_outer")
+        torch.cuda.synchronize()
+        assert flash_interpolated_attention_f32.launches_by_head_dim[D] == before + 1
+        assert got.dtype == torch.float32
+        assert _attn_err(got, flash_interpolated_attention_plain(q, q, q, coef, "fused_outer")) < F32_ATTN_RTOL
+
+
+@pytest.mark.parametrize("D", [40, 64, 80, 160])
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("B,H,S,L,Le,ep", [
+    (3, 2, 200, 129, None, None),   # Sq past a 64-row q tile, 129 keys: a 1-key last tile (64- and 32-key tiles)
+    (2, 3, 77, 77, 23, 4),          # 77 keys and queries (a ragged key tail), per-row endpoints of 23 keys
+    (4, 2, 130, 77, 129, 3),        # shared 3D endpoints of 129 keys
+])
+def test_flash_f32_kernel_matches_plain(dev, D, mode, B, H, S, L, Le, ep):
+    """The f32 kernel at every head dim and mode, as an f32 UNet calls it:
+    (B, S, H*D) projections viewed as (B, H, S, D) (columns past D are the
+    next head's), q and key tails past every tile, per-row and shared
+    endpoints, skip rows at both ends; one launch of the f32 instance, within
+    the f32 promise of the plain version (TF32 off), and the strided views
+    equal to contiguous copies bit for bit."""
+    def heads(x):
+        return x.view(x.shape[0], x.shape[1], H, D).transpose(1, 2)
+
+    q = heads(_randn((B, S, H * D), 181, torch.float32))
+    k, v = heads(_randn((B, L, H * D), 182, torch.float32)), heads(_randn((B, L, H * D), 183, torch.float32))
+    coef = torch.linspace(0, 1, B, device=dev)
+    skip = torch.zeros(B, dtype=torch.bool, device=dev)
+    skip[0] = skip[-1] = True
+    eps = {}
+    if ep is not None:
+        shape = (H, Le, D) if ep == 3 else (B, H, Le, D)
+        eps = {n: _randn(shape, 190 + i, torch.float32) for i, n in enumerate(("k_begin", "v_begin", "k_end", "v_end"))}
+    before, before_bf16 = flash_interpolated_attention_f32.launches, flash_interpolated_attention.launches
+    got = flash_interpolated_attention(q, k, v, coef, mode, skip_endpoints=skip, **eps)
+    torch.cuda.synchronize()
+    assert flash_interpolated_attention_f32.launches == before + 1
+    assert flash_interpolated_attention.launches == before_bf16
+    want = flash_interpolated_attention_plain(q, k, v, coef, mode, skip_endpoints=skip, **eps)
+    assert got.shape == want.shape and got.dtype == torch.float32 and torch.isfinite(got).all()
+    assert _attn_err(got, want) < F32_ATTN_RTOL
+    args = [x.contiguous() for x in (q, k, v)]
+    assert torch.equal(got, flash_interpolated_attention(*args, coef, mode, skip_endpoints=skip, **eps))
+
+
+@pytest.mark.parametrize("mode", [m for m in MODES if m != "self"])
+def test_flash_f32_kernel_batched_cfg_rows(dev, mode):
+    """Batched CFG's call in f32 at SDXL's D=64: 2N rows, per-row endpoints,
+    the uncond half skipped in fused modes; the f32 kernel against the plain
+    version, and its uncond half against vanilla attention."""
+    N, H, S, D = 3, 2, 200, 64
+
+    def heads(x):
+        return x.view(x.shape[0], x.shape[1], H, D).transpose(1, 2)
+
+    q, k, v = (heads(_randn((2 * N, S, H * D), 187 + i, torch.float32)) for i in range(3))
+    coef = torch.linspace(0, 1, N, device=dev).repeat(2)
+    kb, ke = per_row_endpoints(k, N)
+    vb, ve = per_row_endpoints(v, N)
+    eps = dict(k_begin=kb, v_begin=vb, k_end=ke, v_end=ve, skip_endpoints=skip_mask(coef, N))
+    got = flash_interpolated_attention_f32(q, k, v, coef, mode, **eps)
+    torch.cuda.synchronize()
+    assert _attn_err(got, flash_interpolated_attention_plain(q, k, v, coef, mode, **eps)) < F32_ATTN_RTOL
+    assert _attn_err(got[N:], flash_interpolated_attention_plain(q[N:], k[N:], v[N:])) < F32_ATTN_RTOL
 
 
 @pytest.mark.parametrize("D", [40, 64])
@@ -435,4 +521,74 @@ def test_conv_layout_kernel_matches_plain(dev, layout):
         x = x[:, :, 1:]
     got = blocked_input(x)
     assert got.shape == (x.shape[0], x.shape[1] // 8, x.shape[2], x.shape[3], 8)
+    assert torch.equal(got, blocked_input_plain(x))
+
+
+# the f32 kernel's tile classes: 2 x 64-pixel tiles against W = 96 and 100
+# (half and ragged column tiles), N tiles of 160 against Cout 320 (exact)
+# and 130 (ragged), an 8-channel K chunk against Cin = 36 (the last chunk
+# half zero-filled), and the three SDXL classes at 128^2 with all 7 frames
+F32_CONV_CLASSES = [(2, 36, cout, w, w) for w in (96, 100) for cout in (320, 130)] + [
+    (7, 960, 320, 128, 128), (7, 640, 320, 128, 128), (7, 640, 640, 128, 128)]
+
+
+@pytest.mark.parametrize("B,Cin,Cout,H,W", [
+    (2, 64, 64, 16, 16),
+    (1, 40, 24, 13, 7),     # ragged pixels, Cout not a multiple of the 160-channel N tile
+    (3, 12, 130, 9, 11),    # Cin % 8 != 0: the last K chunk's second block zero-filled
+] + F32_CONV_CLASSES)
+def test_conv_f32_kernel_matches_plain(dev, B, Cin, Cout, H, W):
+    """The f32 conv kernel, routed by conv3x3_same as an f32 UNet calls it,
+    against cuDNN in full f32: one launch of the f32 instance, none of the
+    bf16 one, a channels-last f32 result within the f32 promise."""
+    x = _randn((B, Cin, H, W), 140, torch.float32)
+    w = _randn((Cout, Cin, 3, 3), 141, torch.float32) * (9 * Cin) ** -0.5
+    b = _randn((Cout,), 142, torch.float32)
+    before, before_bf16 = conv3x3_same_f32.launches, conv3x3_same.launches
+    got = conv3x3_same(x, w, b)
+    torch.cuda.synchronize()
+    assert conv3x3_same_f32.launches == before + 1 and conv3x3_same.launches == before_bf16
+    want = F.conv2d(x, w, b, padding=1)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    err = (got - want).abs().max().item() / want.abs().max().item()
+    assert err < F32_CONV_RTOL
+    # packed=True launches the same instance: the same bits
+    assert torch.equal(got, conv3x3_same(x, w, b, packed=True))
+
+
+def test_conv_f32_retiles_a_weight_updated_in_place(dev):
+    """The f32 weight tiling is kept between calls and redone after an
+    in-place update."""
+    x = _randn((2, 64, 12, 10), 143, torch.float32)
+    w = torch.nn.Parameter(_randn((96, 64, 3, 3), 144, torch.float32) * 64 ** -0.5)
+    b = _randn((96,), 145, torch.float32)
+    with torch.no_grad():
+        first = conv3x3_same(x, w, b)
+        w.mul_(-2)
+        second = conv3x3_same(x, w, b)
+    torch.cuda.synchronize()
+    want = F.conv2d(x, w.detach(), b, padding=1)
+    assert not torch.equal(first, second)
+    assert (second - want).abs().max().item() < F32_CONV_RTOL * want.abs().max().item()
+
+
+@pytest.mark.parametrize("layout", ["nchw", "channels_last", "channel_slice", "misaligned_slice", "row_slice"])
+def test_conv_f32_layout_kernel_matches_plain(dev, layout):
+    """The f32 layout kernel writes (B, C/4, H, W, 4) from x at its own
+    strides, bit for bit: NCHW, channels-last (16-byte loads), a
+    channels-last view 16 bytes in, one 8 bytes in (no 16-byte loads), and
+    a view of rows."""
+    from aid_tpu_torch.ops.conv import blocked_input, blocked_input_plain
+
+    x = _randn((3, 48, 13, 11), 146, torch.float32)
+    if layout == "channels_last":
+        x = x.contiguous(memory_format=torch.channels_last)
+    elif layout == "channel_slice":
+        x = x.contiguous(memory_format=torch.channels_last)[:, 4:40]
+    elif layout == "misaligned_slice":
+        x = x.contiguous(memory_format=torch.channels_last)[:, 2:38]
+    elif layout == "row_slice":
+        x = x[:, :, 1:]
+    got = blocked_input(x)
+    assert got.shape == (x.shape[0], x.shape[1] // 4, x.shape[2], x.shape[3], 4)
     assert torch.equal(got, blocked_input_plain(x))

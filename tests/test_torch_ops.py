@@ -565,3 +565,375 @@ def test_flash_tile_constants_follow_the_kernel_source():
     found = {int(d): (int(bq), int(bk), int(st)) for d, bq, bk, st in re.findall(pat, src)}
     assert found == FA.KERNEL_TILES
     assert sorted(found) == HEAD_DIMS
+
+
+# ---------------------------------------------------------------------------
+# the f32 instances: csrc/flash_interpolated_attention_f32.cu, csrc/conv3x3_f32.cu
+# ---------------------------------------------------------------------------
+
+# mma.sync.m16n8k8 (tf32) fragment layout by lane (g = lane / 4, t = lane % 4):
+# A a0..a3 at (row, k) = (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4);
+# B b0, b1 at (k, n) = (t, g), (t + 4, g); C c0..c3 at (row, n) = (g, 2t),
+# (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1).
+_LANE_G, _LANE_T = torch.arange(32) // 4, torch.arange(32) % 4
+_A_ROW = torch.stack([_LANE_G, _LANE_G + 8, _LANE_G, _LANE_G + 8], 1)
+_A_K = torch.stack([_LANE_T, _LANE_T, _LANE_T + 4, _LANE_T + 4], 1)
+_B_K = torch.stack([_LANE_T, _LANE_T + 4], 1)
+_B_N = torch.stack([_LANE_G, _LANE_G], 1)
+_C_ROW = torch.stack([_LANE_G, _LANE_G, _LANE_G + 8, _LANE_G + 8], 1)
+_C_N = torch.stack([2 * _LANE_T, 2 * _LANE_T + 1, 2 * _LANE_T, 2 * _LANE_T + 1], 1)
+
+
+def _a_matrix(regs: torch.Tensor) -> torch.Tensor:
+    """(..., 32, 4) A registers -> (..., 16, 8) matrix."""
+    out = regs.new_zeros(*regs.shape[:-2], 16, 8)
+    out[..., _A_ROW, _A_K] = regs
+    return out
+
+
+def _b_matrix(regs: torch.Tensor) -> torch.Tensor:
+    """(..., 32, 2) B registers -> (..., 8, 8) matrix (k, n)."""
+    out = regs.new_zeros(*regs.shape[:-2], 8, 8)
+    out[..., _B_K, _B_N] = regs
+    return out
+
+
+def _c_regs(mat: torch.Tensor) -> torch.Tensor:
+    """(..., 16, 8) accumulator matrix -> (..., 32, 4) C registers."""
+    return mat[..., _C_ROW, _C_N]
+
+
+def _pair_offsets(ld: int, rows8: bool) -> torch.Tensor:
+    """The kernels' 8-byte fragment loads from a tile of pitch ld: rows g (and
+    g + 8 for A), columns 2t and 2t + 1, in register order."""
+    g, t = _LANE_G, _LANE_T
+    if rows8:  # A: (g, 2t), (g + 8, 2t), (g, 2t + 1), (g + 8, 2t + 1)
+        return torch.stack([g * ld + 2 * t, (g + 8) * ld + 2 * t, g * ld + 2 * t + 1, (g + 8) * ld + 2 * t + 1], 1)
+    return torch.stack([g * ld + 2 * t, g * ld + 2 * t + 1], 1)  # B: (n = g; k = t, t + 4)
+
+
+def _emulate_flash_f32_kernel(ops: dict) -> torch.Tensor:
+    """csrc/flash_interpolated_attention_f32.cu's data movement, replayed in
+    plain torch (f64 arithmetic) from the C entry's own arguments
+    (``kernel_operands``): each block's 64-row Q tile and each segment's
+    K/V tiles copied row by row at the operands' strides into tiles of the
+    kernel's pitches (zeros past the segment; a batch stride of 0 reads one
+    shared endpoint), every product through the m16n8k8 fragments the kernel
+    loads (Q and K pairs of columns 2t, 2t + 1; P from the S accumulator;
+    V rows 2t, 2t + 1 of column g), the online softmax with the masked key
+    tail, the outer modes' parked state and the strided output store."""
+    from aid_tpu_torch.ops.flash_attention import KERNEL_F32_ROWS, KERNEL_F32_TILES
+
+    tensors, dims = ops["tensors"], ops["dims"]
+    B, H, Sq, Lk, Le, D = dims[:6]
+    BK, LDQ, LDV = KERNEL_F32_TILES[D]
+    BQ, NT = KERNEL_F32_ROWS, D // 8
+    sl2 = ops["scale"] * 1.4426950408889634
+    flat = [torch.as_strided(x, (x.untyped_storage().nbytes() // 4 - x.storage_offset(),), (1,),
+                             x.storage_offset()).double() for x in tensors]
+    strides = [dims[6 + 3 * i:9 + 3 * i] for i in range(8)]
+
+    def rows_tile(i, b, h, row0, length, rows, ld):  # load_rows: rows past `length` zero-filled
+        sb, sh, ss = strides[i]
+        tile = torch.zeros(rows * ld, dtype=torch.float64)
+        r = torch.arange(rows)[:, None]
+        c = torch.arange(D)[None, :]
+        ok = (row0 + r < length).expand(rows, D)
+        idx = torch.where(ok, b * sb + h * sh + (row0 + r) * ss + c, 0)
+        tile[(r * ld + c)[ok]] = flat[i][idx[ok]]
+        return tile
+
+    offa, offb = _pair_offsets(LDQ, True), _pair_offsets(LDQ, False)
+    lane_g, lane_t = _LANE_G, _LANE_T
+    coef, skip = ops["coef"], ops["skip"]
+    has_own, n_sets = ops["has_own"], ops["n_sets"]
+    out_flat = torch.zeros_like(flat[7])
+    for b in range(B):
+        skipped = n_sets > 0 and skip is not None and bool(skip[b])
+        segs = ([(1, 2, Lk)] if has_own else []) + ([(3, 4, Le)] if n_sets and not skipped else []) + (
+            [(5, 6, Le)] if n_sets == 2 and not skipped else [])
+        blend = n_sets == 2 and not skipped
+        c = float(coef[b]) if blend else 0.0
+        for h in range(H):
+            for q0 in range(0, Sq, BQ):
+                qt = rows_tile(0, b, h, q0, Sq, BQ, LDQ)
+                # A registers of every warp and k step: (warp, kk, lane, reg)
+                a_idx = (torch.arange(4)[:, None, None, None] * 16 * LDQ + torch.arange(NT)[None, :, None, None] * 8
+                         + offa[None, None])
+                qa = _a_matrix(qt[a_idx])  # (4, NT, 16, 8)
+                o = torch.zeros(4, 16, D, dtype=torch.float64)
+                m = torch.full((4, 16), -math.inf, dtype=torch.float64)
+                lsum = torch.zeros(4, 16, dtype=torch.float64)
+                park = None
+                for n, (ki, vi, length) in enumerate(segs):
+                    if blend and n == len(segs) - 1:  # the end segment: (1 - c) O_begin / l exchanged
+                        if has_own:
+                            park, (o, m, lsum) = o / lsum[..., None] * (1 - c), park
+                        else:
+                            park = o / lsum[..., None] * (1 - c)
+                            o = torch.zeros_like(o)
+                            m, lsum = torch.full_like(m, -math.inf), torch.zeros_like(lsum)
+                    for r0 in range(0, length, BK):
+                        kt = rows_tile(ki, b, h, r0, length, BK, LDQ)
+                        vt = rows_tile(vi, b, h, r0, length, BK, LDV)
+                        b_idx = (torch.arange(BK // 8)[:, None, None, None] * 8 * LDQ
+                                 + torch.arange(NT)[None, :, None, None] * 8 + offb[None, None])
+                        kb_ = _b_matrix(kt[b_idx])  # (BK/8, NT, 8, 8)
+                        s_mat = torch.einsum("wkrc,nkcm->wnrm", qa, kb_)  # (4, BK/8, 16, 8)
+                        s = torch.cat(list(s_mat.unbind(1)), dim=-1)  # (4, 16, BK)
+                        s[..., min(BK, length - r0):] = -math.inf
+                        mn = torch.maximum(m, s.max(dim=-1).values)
+                        alpha = torch.exp2((m - mn) * sl2)
+                        p = torch.exp2(s * sl2 - (mn * sl2)[..., None])
+                        m, lsum = mn, lsum * alpha + p.sum(dim=-1)
+                        # P's A registers from its C registers: a = (c0, c2, c1, c3)
+                        pc = _c_regs(p.reshape(4, 16, BK // 8, 8).transpose(1, 2))  # (4, BK/8, 32, 4)
+                        pa = _a_matrix(pc[..., [0, 2, 1, 3]])
+                        v_idx = ((torch.arange(BK // 8)[:, None, None] * 8 + 2 * lane_t[None, None, :]) * LDV
+                                 + torch.arange(NT)[None, :, None] * 8 + lane_g[None, None, :])
+                        vb_ = _b_matrix(torch.stack([vt[v_idx], vt[v_idx + LDV]], -1))  # (BK/8, NT, 8, 8)
+                        pv = torch.einsum("wkrc,kncm->wnrm", pa, vb_)  # (4, NT, 16, 8)
+                        o = o * alpha[..., None] + torch.cat(list(pv.unbind(1)), dim=-1)
+                    if blend and has_own and n == 0:
+                        park = (o, m, lsum)
+                o = o / lsum[..., None] * (c if blend else 1.0)
+                if blend:
+                    o = o + park
+                sb, sh, ss = strides[7]
+                rows = q0 + torch.arange(64).reshape(4, 16)
+                keep = (rows < Sq)[..., None].expand(4, 16, D)
+                dst = b * sb + h * sh + rows[..., None] * ss + torch.arange(D)
+                out_flat[dst[keep]] = o[keep]
+    out = tensors[7]
+    return torch.as_strided(out_flat, out.shape, out.stride()).float()
+
+
+@pytest.mark.parametrize("D", HEAD_DIMS)
+@pytest.mark.parametrize("mode,endpoints", [("self", None), ("fused_outer", 3), ("pure_outer", 4),
+                                            ("fused_inner", None), ("pure_inner", 3), ("fused_outer", None)])
+def test_flash_f32_kernel_data_movement_replayed(D, mode, endpoints):
+    """The f32 attention kernel's tile copies (the operands' strides, zeros
+    past each segment, shared endpoints through a batch stride of 0), its
+    m16n8k8 fragments with the permuted k order, P taken from the S
+    accumulator, the outer modes' parked state and the strided output,
+    replayed on the CPU from the wrapper's own C arguments, compute the
+    attention: on (B, S, H*D) projections viewed as (B, H, S, D), skip rows
+    at both ends, q tails past the 64-row tile, 77-key segments (ragged in
+    64- and 32-key tiles). f64 arithmetic in the replay, so only the order
+    of sums differs from the plain version."""
+    from aid_tpu_torch.ops.flash_attention import kernel_operands
+
+    g = torch.Generator().manual_seed(100 + D)
+    B, H, S, L, Le = 3, 2, 70, 77, 40
+
+    def heads(n):
+        return torch.randn(B, n, H * D, generator=g).view(B, n, H, D).transpose(1, 2)
+
+    q, k, v = heads(S), heads(L), heads(L)
+    coef = torch.tensor([0.0, 0.4, 1.0])
+    skip = torch.tensor([True, False, True])
+    eps = {}
+    if endpoints is not None:
+        shape = (H, Le, D) if endpoints == 3 else (B, H, Le, D)
+        eps = {n: torch.randn(shape, generator=g) for n in ("k_begin", "v_begin", "k_end", "v_end")}
+    ops = kernel_operands(q, k, v, coef, mode, skip_endpoints=skip, **eps)
+    assert ops["entry"] == "aid_flash_attn_f32"
+    got = _emulate_flash_f32_kernel(ops)
+    want = flash_interpolated_attention_plain(q, k, v, coef, mode, skip_endpoints=skip, **eps)
+    assert got.shape == want.shape
+    assert th.max_rel_err(got.numpy(), want.numpy()) < 1e-5
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_flash_kernel_operands_f32(mode):
+    """kernel_operands at f32, with no device: the f32 entry, the 30 dims and
+    strides of the (B, S, H*D) views and of the (B, Sq, H, D) output buffer,
+    shared endpoints with a batch stride of 0, and the lerped inner endpoint
+    made in f32 and kept f32 (not rounded through bf16); bf16 operands keep
+    the bf16 entry, and mixed or f16 operands raise."""
+    from aid_tpu_torch.ops.flash_attention import kernel_operands
+
+    B, H, S, L, D = 3, 2, 50, 40, 80
+    g = torch.Generator().manual_seed(7)
+
+    def heads(n, dtype=torch.float32):
+        return torch.randn(B, n, H * D, generator=g).to(dtype).view(B, n, H, D).transpose(1, 2)
+
+    q, k, v = heads(S), heads(L), heads(L)
+    coef = torch.tensor([0.0, 0.3, 1.0])
+    eps = {n: torch.randn(H, 23, D, generator=g) for n in ("k_begin", "v_begin", "k_end", "v_end")}
+    ops = kernel_operands(q, k, v, coef, mode, skip_endpoints=torch.tensor([True, False, True]), **eps)
+    assert ops["entry"] == "aid_flash_attn_f32"
+    assert all(x.dtype == torch.float32 for x in ops["tensors"])
+    dims = ops["dims"]
+    assert len(dims) == 30 and dims[:6] == [B, H, S, L, 40 if mode == "self" else 23, D][:4] + dims[4:5] + [D]
+    assert dims[6:9] == [S * H * D, D, H * D]  # q: (b, h, s) element strides of the view
+    out = ops["tensors"][-1]
+    assert out.shape == (B, H, S, D) and dims[27:30] == [S * H * D, D, H * D]
+    if mode == "self":
+        assert ops["coef"] is None and ops["skip"] is None and ops["n_sets"] == 0
+    elif AttnMode(mode).is_inner:
+        kb = ops["tensors"][3]
+        want = (1 - coef.reshape(B, 1, 1, 1)) * eps["k_begin"] + coef.reshape(B, 1, 1, 1) * eps["k_end"]
+        assert kb.dtype == torch.float32 and torch.equal(kb, want)  # exact: made in f32 and kept f32
+        assert ops["n_sets"] == 1 and dims[15:18] == [H * 23 * D, 23 * D, D]
+    else:
+        assert ops["n_sets"] == 2 and dims[15:18] == [0, 23 * D, D]  # shared: a batch stride of 0
+    assert (ops["skip"] is not None) == AttnMode(mode).is_fused
+    assert kernel_operands(q.bfloat16(), k.bfloat16(), v.bfloat16())["entry"] == "aid_flash_attn_bf16"
+    with pytest.raises(NotImplementedError):
+        kernel_operands(q, k.bfloat16(), v.bfloat16())
+    with pytest.raises(NotImplementedError):
+        kernel_operands(q.half(), k.half(), v.half())
+
+
+def test_flash_f32_tile_constants_follow_the_kernel_source():
+    """ops/flash_attention.py's f32 tile table, which the replay above uses,
+    is the one csrc/flash_interpolated_attention_f32.cu compiles with."""
+    import re
+    from pathlib import Path
+
+    from aid_tpu_torch.ops import flash_attention as FA
+
+    src = (Path(FA.__file__).resolve().parents[1] / "csrc" / "flash_interpolated_attention_f32.cu").read_text()
+    pat = r"struct Tiles<(\d+)> \{ static constexpr int kBK = (\d+), kLdQK = (\d+), kLdV = (\d+); \};"
+    found = {int(d): (int(bk), int(lq), int(lv)) for d, bk, lq, lv in re.findall(pat, src)}
+    assert found == FA.KERNEL_F32_TILES
+    assert int(re.search(r"constexpr int kBQ = (\d+);", src).group(1)) == FA.KERNEL_F32_ROWS
+
+
+def _emulate_conv_f32_kernel(x, w, b):
+    """csrc/conv3x3_f32.cu's data movement, replayed in plain torch (f64
+    arithmetic): the operands through ``kernel_operands``' f32 layouts (x in
+    4-channel blocks, w tiled by N tile and 8-channel K chunk); per block
+    and chunk the (2 + 2) x (64 + 2) window copied 16 bytes a pixel and block
+    (zeros outside the image and past Cin) into 8-float pixels, and the
+    chunk's weights as one contiguous run; each warp's m16n8k8 fragments read
+    as the kernel addresses them for every tap (pixel row g and g + 8 of the
+    shifted window, channels 2t and 2t + 1; weight row g); each chunk's sum
+    added to the accumulators; the masked channels-last store."""
+    from aid_tpu_torch.ops import conv as C
+
+    xb, wt, bf, _ = C.kernel_operands(x, w, b)
+    B, G, H, W, _ = xb.shape
+    Cin, Cout, BN, KC = 4 * G, bf.shape[0], C.F32_N_TILE, C.F32_K_CHUNK
+    TR, TW = C.F32_TILE_ROWS, C.F32_TILE_COLS
+    WR, WC = TR + 2, TW + 2
+    xd, wd = xb.double(), wt.double()
+    offa, offb = _pair_offsets(KC, True), _pair_offsets(KC, False)
+    warp = torch.arange(8)
+    wm, wn = warp % 4, warp // 4
+    r, xw = wm // 2, (wm % 2) * 32
+    tap = torch.arange(9)
+    dy, dx = tap // 3, tap % 3
+    mi, nj = torch.arange(2), torch.arange(BN // 2 // 8)
+    # A register addresses: (warp, tap, mi, lane, reg); B: (warp, tap, nj, lane, reg)
+    a_idx = (((r[:, None, None] + dy[None, :, None]) * WC + xw[:, None, None] + 16 * mi[None, None, :]
+              + dx[None, :, None]) * KC)[..., None, None] + offa
+    b_idx = ((tap[None, :, None] * BN + wn[:, None, None] * (BN // 2) + 8 * nj[None, None, :]) * KC)[..., None, None] + offb
+    out = torch.zeros(B, Cout, H, W, dtype=torch.float64)
+    py, px = torch.arange(WR)[:, None], torch.arange(WC)[None, :]
+    for bi in range(B):
+        for y0 in range(0, H, TR):
+            for x0 in range(0, W, TW):
+                for nt in range(wt.shape[0]):
+                    acc = torch.zeros(8, 2, BN // 2 // 8, 16, 8, dtype=torch.float64)
+                    for kt in range(wt.shape[1]):
+                        win = torch.zeros(WR, WC, KC, dtype=torch.float64)
+                        iy, ix = y0 - 1 + py, x0 - 1 + px
+                        inside = ((iy >= 0) & (iy < H) & (ix >= 0) & (ix < W)).expand(WR, WC)
+                        for j in range(2):
+                            cg = 2 * kt + j
+                            if cg < G:
+                                win[..., 4 * j:4 * j + 4][inside] = xd[bi, cg][iy.clamp(0, H - 1),
+                                                                              ix.clamp(0, W - 1)][inside]
+                        win, wts = win.reshape(-1), wd[nt, kt].reshape(-1)
+                        am = _a_matrix(win[a_idx])  # (warp, tap, mi, 16, 8)
+                        bm = _b_matrix(wts[b_idx])  # (warp, tap, nj, 8, 8)
+                        acc += torch.einsum("wtmrc,wtnck->wmnrk", am, bm)  # the chunk's sum over taps, added
+                    for w_ in range(8):
+                        y = y0 + int(r[w_])
+                        if y >= H:
+                            continue
+                        for m in range(2):
+                            xs = x0 + int(xw[w_]) + 16 * m + torch.arange(16)
+                            for n in range(BN // 2 // 8):
+                                co = nt * BN + int(wn[w_]) * (BN // 2) + 8 * n + torch.arange(8)
+                                keep_x, keep_c = xs < W, co < Cout
+                                blk = acc[w_, m, n][keep_x][:, keep_c]
+                                out[bi, co[keep_c][None, :], y, xs[keep_x][:, None]] = blk + bf[co[keep_c]].double()
+    return out.float()
+
+
+@pytest.mark.parametrize("B,Cin,Cout,H,W", [
+    (1, 12, 24, 5, 7),      # Cin % 8 != 0 (the last chunk's second block zero-filled), ragged everything
+    (2, 16, 170, 3, 70),    # two column tiles, two N tiles (the second ragged), a half row tile
+])
+def test_conv_f32_kernel_layouts_replayed(B, Cin, Cout, H, W):
+    """The f32 conv kernel's operand layouts (4-channel blocks, the (N tile,
+    8-channel chunk, tap, 160, 8) weight tiling), window and weight copies and
+    m16n8k8 fragments, replayed on the CPU from kernel_operands, compute the
+    conv. f64 in the replay: only the order of sums differs."""
+    from aid_tpu_torch.ops.conv import conv3x3_same_plain
+
+    g = torch.Generator().manual_seed(6)
+    x = torch.randn(B, Cin, H, W, generator=g) * 2 + 1
+    w = torch.randn(Cout, Cin, 3, 3, generator=g) * (9 * Cin) ** -0.5
+    b = torch.randn(Cout, generator=g)
+    got = _emulate_conv_f32_kernel(x, w, b)
+    want = conv3x3_same_plain(x, w, b)
+    assert got.shape == want.shape
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+def test_conv_f32_layouts():
+    """The f32 layouts the kernel reads: blocked_input_plain puts 4 channels
+    (16 bytes) in a block, and tiled_weight tiles an f32 weight as (N tile,
+    8-channel chunk, dy, dx, co, ci % 8) with zeros past Cout and Cin, kept
+    apart from a bf16 copy's tiling."""
+    from aid_tpu_torch.ops.conv import blocked_input_plain, tiled_weight
+
+    g = torch.Generator().manual_seed(9)
+    x = torch.randn(2, 12, 3, 5, generator=g)
+    xb = blocked_input_plain(x)
+    assert xb.shape == (2, 3, 3, 5, 4) and torch.equal(xb[1, 2, 1, 4], x[1, 8:12, 1, 4])
+    assert blocked_input_plain(torch.zeros(1, 16, 2, 2, dtype=torch.bfloat16)).shape == (1, 2, 2, 2, 8)
+    w = torch.randn(170, 20, 3, 3, generator=g)
+    wt = tiled_weight(w)
+    assert wt.shape == (2, 3, 3, 3, 160, 8) and wt.dtype == torch.float32
+    assert torch.equal(wt[1, 2, 2, 0, 9, 3], w[169, 19, 2, 0]) and not wt[1, 2, :, :, :, 4:].any()
+    assert not wt[1, :, :, :, 10:].any()
+    wb = w.bfloat16()
+    assert tiled_weight(wb).shape == (2, 2, 3, 3, 2, 160, 8) and tiled_weight(w) is wt
+
+
+def test_conv_f32_tile_constants_follow_the_kernel_source():
+    """ops/conv.py's f32 tile constants, which the f32 weight tiling and the
+    replay above use, are the ones csrc/conv3x3_f32.cu compiles with."""
+    import re
+    from pathlib import Path
+
+    from aid_tpu_torch.ops import conv as C
+
+    src = (Path(C.__file__).resolve().parents[1] / "csrc" / "conv3x3_f32.cu").read_text()
+    found = {name: int(v) for name, v in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+    assert (found["kTR"], found["kTW"], found["kBN"], found["kKc"]) == (
+        C.F32_TILE_ROWS, C.F32_TILE_COLS, C.F32_N_TILE, C.F32_K_CHUNK)
+
+
+@pytest.mark.parametrize("passes,within", [(3, True), (1, False)])
+def test_three_tf32_passes_keep_the_f32_conv_promise(passes, within):
+    """Why the f32 conv kernel spends three tensor-core passes per product:
+    an SDXL-like conv's GEMM at K = 9 * 960 (256 output pixels, 64 output
+    channels, x ~ N(0, 1), w ~ N(0, 1/K)) in 3xTF32 stays within the f32
+    conv's 1e-4 of max |out| (chip_smoke.py's F32_CONV_TOL) of the f64
+    result; plain TF32 misses it."""
+    f32_conv_tol = 1e-4
+    rng = np.random.default_rng(1)
+    K = 9 * 960
+    patches = torch.from_numpy(rng.standard_normal((256, K), dtype=np.float32))
+    w = torch.from_numpy((rng.standard_normal((64, K)) * K ** -0.5).astype(np.float32))
+    want = patches.double() @ w.double().T
+    got = _tf32_matmul(patches, w, passes)
+    err = ((got - want).abs().max() / want.abs().max()).item()
+    assert (err < f32_conv_tol) == within, err

@@ -103,7 +103,9 @@ def build_variant(src: Path, out_dir: Path, nvcc: str, flags) -> tuple:
     out_dir.mkdir(parents=True, exist_ok=True)
     vsrc, vlib = out_dir / "flash_f32_d512_variant.cu", out_dir / "libflash_f32_d512_variant.so"
     vsrc.write_text(text)
-    proc = subprocess.run([nvcc, *flags, "-shared", "-o", str(vlib), str(vsrc)], capture_output=True, text=True)
+    # -I: the variant includes csrc/tf32_mma.cuh from the source's own directory
+    proc = subprocess.run([nvcc, *flags, "-I", str(src.parent), "-shared", "-o", str(vlib), str(vsrc)],
+                          capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on the variant:\n{proc.stderr}")
     return vlib, [ln.strip() for ln in proc.stderr.splitlines() if "spill" in ln or "Used" in ln]
