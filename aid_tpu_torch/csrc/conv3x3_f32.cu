@@ -45,6 +45,21 @@
 //     accumulation would drift by ~1e-4 of max |out| (the D=512 attention
 //     measured 1.3e-4 over 6144 accumulations).
 // The output is channels-last (B, H, W, Cout) f32, as conv3x3.cu writes bf16.
+//
+// The GroupNorm+SiLU prologue in f32: the f32 instance of
+// aid_tpu/ops/conv.py::_kernel_packed_gnsilu (conv.py:78-121), y =
+// conv(silu(x * scale + shift)) + b with per-(batch, channel) f32 factors
+// folded from the one-pass GN statistics (ops/conv.py::gn_scale_shift). The
+// bf16 kernel applies the prologue to each staged window chunk (conv3x3.cu);
+// here it is applied in the layout pass instead, aid_conv3x3_gnsilu_f32
+// (blocked_f32_kernel<.., true>), which already reads x once and writes the
+// blocked copy once: it writes silu(x * scale + shift), and the conv kernel
+// above runs unchanged on it. Its zero-filled SAME halo is then the zero the
+// reference pads with AFTER the prologue (a halo that took silu(shift) would
+// be the fault the parity tests plant), and the 3xTF32 main loop, already at
+// 255 registers, takes no extra work. The cost is nothing in bytes (the
+// pass moves the same 2 x 4 bytes an element, plus the (B, Cin) factors)
+// and ~6 f32 operations an element on the CUDA cores.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -189,15 +204,22 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+__device__ __forceinline__ float silu_affine(float v, float s, float h) {
+  const float a = v * s + h;
+  return a / (1.f + expf(-a));
+}
+
 // xb[b][g][y][x][0..4) = x[b][4g .. 4g + 4)[y][x] for x (B, C, H, W) at any
 // element strides: one thread per 16-byte block of xb. With the channels
 // contiguous (kVec) a thread loads its 16 bytes at once and the block index
 // runs fastest; otherwise the column runs fastest, so each of a thread's four
-// loads is one coalesced row segment across the warp (NCHW).
-template <bool kVec>
+// loads is one coalesced row segment across the warp (NCHW). With kPro each
+// element becomes silu(x * scale + shift), scale and shift (B, C) f32.
+template <bool kVec, bool kPro>
 __global__ void __launch_bounds__(256)
-    blocked_f32_kernel(const float* __restrict__ x, float4* __restrict__ xb, int G, int H, int W, long long sb,
-                       long long sc, long long sh, long long sw, long long n) {
+    blocked_f32_kernel(const float* __restrict__ x, float4* __restrict__ xb, const float4* __restrict__ scale,
+                       const float4* __restrict__ shift, int G, int H, int W, long long sb, long long sc,
+                       long long sh, long long sw, long long n) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   long long r;
@@ -218,9 +240,40 @@ __global__ void __launch_bounds__(256)
     r /= G;
   }
   const float* p = x + r * sb + 4LL * g * sc + y * sh + px * sw;
-  const float4 v = kVec ? __ldg(reinterpret_cast<const float4*>(p))
-                        : make_float4(__ldg(p), __ldg(p + sc), __ldg(p + 2 * sc), __ldg(p + 3 * sc));
+  float4 v = kVec ? __ldg(reinterpret_cast<const float4*>(p))
+                  : make_float4(__ldg(p), __ldg(p + sc), __ldg(p + 2 * sc), __ldg(p + 3 * sc));
+  if (kPro) {
+    const float4 s = __ldg(scale + r * G + g), h = __ldg(shift + r * G + g);
+    v = make_float4(silu_affine(v.x, s.x, h.x), silu_affine(v.y, s.y, h.y), silu_affine(v.z, s.z, h.z),
+                    silu_affine(v.w, s.w, h.w));
+  }
   xb[((r * G + g) * H + y) * W + px] = v;
+}
+
+template <bool kPro>
+int launch_blocked(const void* x, void* xb, const void* scale, const void* shift, int B, int C, int H, int W,
+                   const long long* strides, void* stream) {
+  if (C % 4 != 0) return (int)cudaErrorInvalidValue;
+  if ((reinterpret_cast<uintptr_t>(xb) | reinterpret_cast<uintptr_t>(scale) | reinterpret_cast<uintptr_t>(shift)) &
+      15) {
+    return (int)cudaErrorMisalignedAddress;
+  }
+  const long long n = (long long)B * (C / 4) * H * W;
+  if (n == 0) return 0;
+  const long long sb = strides[0], sc = strides[1], sh = strides[2], sw = strides[3];
+  const bool vec = sc == 1 && (reinterpret_cast<uintptr_t>(x) & 15) == 0 && sb % 4 == 0 && sh % 4 == 0 && sw % 4 == 0;
+  const unsigned blocks = (unsigned)((n + 255) / 256);
+  const float* src = static_cast<const float*>(x);
+  float4* dst = static_cast<float4*>(xb);
+  const float4* s4 = static_cast<const float4*>(scale);
+  const float4* h4 = static_cast<const float4*>(shift);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (vec) {
+    blocked_f32_kernel<true, kPro><<<blocks, 256, 0, st>>>(src, dst, s4, h4, C / 4, H, W, sb, sc, sh, sw, n);
+  } else {
+    blocked_f32_kernel<false, kPro><<<blocks, 256, 0, st>>>(src, dst, s4, h4, C / 4, H, W, sb, sc, sh, sw, n);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -230,22 +283,16 @@ __global__ void __launch_bounds__(256)
 // aid_conv3x3_f32 takes. Returns the launch's cudaError_t (0 on success).
 extern "C" int aid_conv3x3_blocked_f32(const void* x, void* xb, int B, int C, int H, int W,
                                        const long long* strides, void* stream) {
-  if (C % 4 != 0) return (int)cudaErrorInvalidValue;
-  if (reinterpret_cast<uintptr_t>(xb) & 15) return (int)cudaErrorMisalignedAddress;
-  const long long n = (long long)B * (C / 4) * H * W;
-  if (n == 0) return 0;
-  const long long sb = strides[0], sc = strides[1], sh = strides[2], sw = strides[3];
-  const bool vec = sc == 1 && (reinterpret_cast<uintptr_t>(x) & 15) == 0 && sb % 4 == 0 && sh % 4 == 0 && sw % 4 == 0;
-  const unsigned blocks = (unsigned)((n + 255) / 256);
-  const float* src = static_cast<const float*>(x);
-  float4* dst = static_cast<float4*>(xb);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (vec) {
-    blocked_f32_kernel<true><<<blocks, 256, 0, st>>>(src, dst, C / 4, H, W, sb, sc, sh, sw, n);
-  } else {
-    blocked_f32_kernel<false><<<blocks, 256, 0, st>>>(src, dst, C / 4, H, W, sb, sc, sh, sw, n);
-  }
-  return (int)cudaGetLastError();
+  return launch_blocked<false>(x, xb, nullptr, nullptr, B, C, H, W, strides, stream);
+}
+
+// The f32 GN+SiLU conv's prologue: as aid_conv3x3_blocked_f32, each element
+// written as silu(x * scale + shift), scale and shift (B, C) f32,
+// contiguous and 16-byte aligned. aid_conv3x3_f32 on its output is the
+// whole GN+SiLU conv. Returns the launch's cudaError_t (0 on success).
+extern "C" int aid_conv3x3_gnsilu_f32(const void* x, void* xb, const void* scale, const void* shift, int B, int C,
+                                      int H, int W, const long long* strides, void* stream) {
+  return launch_blocked<true>(x, xb, scale, shift, B, C, H, W, strides, stream);
 }
 
 // x: (B, Cin / 4, H, W, 4) f32 (channels in blocks of 4), w: the (Cout, Cin,

@@ -1,0 +1,260 @@
+"""Build pipelines from local diffusers-format checkpoint directories.
+
+Counterpart of ``aid_tpu.models.loader`` (loader.py:31-310, 532-557), the
+JAX package's entry point: read each subfolder's config.json and
+safetensors, build the matching modules and assemble an
+``InterpolationPipeline`` (SD 1.x / 2.x) or, for a directory with a
+``text_encoder_2``, an ``InterpolationXLPipeline``. Paths are local; nothing
+is downloaded.
+
+The port's modules carry diffusers' and transformers' parameter names and
+layouts, so a checkpoint loads with ``load_state_dict(strict=True)`` and no
+conversion. Each module is built on the meta device and takes the tensors
+the safetensors reader (``utils/safetensors.py``) put on the target device
+in the target dtype, so no random initialisation runs and no second copy is
+made. Defaults are the JAX loader's: UNet bf16, text encoders f32, the VAE
+f32 when its config sets ``force_upcast`` (bf16 otherwise). Every module
+lands on ``device``, "cuda" unless the caller asks for "cpu".
+
+Not ported: the parameter cache (``cache_dir``, orbax), single-file
+checkpoints, LoRA, textual inversion and the safety checker: an SD
+directory that has one makes the loader raise (ROADMAP Queue 1), since the
+JAX pipeline would black out the frames it flags. The JAX XL loader reads no
+safety checker, and neither does this one.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Optional
+
+import torch
+
+from aid_tpu_torch.models import configs as C
+from aid_tpu_torch.models.clip import CLIPTextModel
+from aid_tpu_torch.models.unet import UNet2DCondition
+from aid_tpu_torch.models.vae import AutoencoderKL
+from aid_tpu_torch.utils.safetensors import load_safetensors
+from aid_tpu_torch.utils.tokenizer import load_tokenizer
+
+
+def _read_config(path: str) -> dict:
+    with open(os.path.join(path, "config.json")) as f:
+        return json.load(f)
+
+
+def unet_config_from_diffusers(cfg: dict) -> C.UNetConfig:
+    """diffusers UNet2DConditionModel config.json -> UNetConfig (loader.py:36-69)."""
+    down_types = cfg["down_block_types"]
+    levels = len(down_types)
+
+    def per_level(v, default):
+        v = cfg.get(v, default)
+        return tuple(v) if isinstance(v, (list, tuple)) else (v,) * levels
+
+    # diffusers' legacy naming: attention_head_dim is the HEAD COUNT when
+    # num_attention_heads is unset (SD 1.x: 8 heads; SD 2.1: [5, 10, 20, 20]
+    # heads, so 64 channels a head at widths 320/640/1280)
+    heads = cfg.get("num_attention_heads") or cfg.get("attention_head_dim", 8)
+    heads = tuple(heads) if isinstance(heads, (list, tuple)) else (heads,) * levels
+    return C.UNetConfig(
+        sample_size=cfg.get("sample_size", 64),
+        in_channels=cfg.get("in_channels", 4),
+        out_channels=cfg.get("out_channels", 4),
+        block_out_channels=tuple(cfg["block_out_channels"]),
+        cross_attention_levels=tuple("CrossAttn" in t for t in down_types),
+        layers_per_block=cfg.get("layers_per_block", 2),
+        transformer_layers_per_block=per_level("transformer_layers_per_block", 1),
+        num_attention_heads=heads,
+        cross_attention_dim=cfg.get("cross_attention_dim", 768),
+        use_linear_projection=cfg.get("use_linear_projection", False),
+        norm_num_groups=cfg.get("norm_num_groups", 32),
+        freq_shift=cfg.get("freq_shift", 0),
+        flip_sin_to_cos=cfg.get("flip_sin_to_cos", True),
+        addition_embed_type=cfg.get("addition_embed_type"),
+        addition_time_embed_dim=cfg.get("addition_time_embed_dim") or 256,
+        projection_class_embeddings_input_dim=cfg.get("projection_class_embeddings_input_dim"),
+    )
+
+
+def vae_config_from_diffusers(cfg: dict) -> C.VAEConfig:
+    lm, ls = cfg.get("latents_mean"), cfg.get("latents_std")
+    return C.VAEConfig(
+        in_channels=cfg.get("in_channels", 3),
+        out_channels=cfg.get("out_channels", 3),
+        latent_channels=cfg.get("latent_channels", 4),
+        block_out_channels=tuple(cfg["block_out_channels"]),
+        layers_per_block=cfg.get("layers_per_block", 2),
+        norm_num_groups=cfg.get("norm_num_groups", 32),
+        scaling_factor=cfg.get("scaling_factor", 0.18215),
+        latents_mean=tuple(lm) if lm else None,
+        latents_std=tuple(ls) if ls else None,
+        force_upcast=cfg.get("force_upcast", True),
+    )
+
+
+def clip_text_config_from_transformers(cfg: dict) -> C.CLIPTextConfig:
+    proj = cfg.get("projection_dim") if "CLIPTextModelWithProjection" in (cfg.get("architectures") or []) else None
+    return C.CLIPTextConfig(
+        vocab_size=cfg["vocab_size"],
+        hidden_size=cfg["hidden_size"],
+        intermediate_size=cfg["intermediate_size"],
+        num_hidden_layers=cfg["num_hidden_layers"],
+        num_attention_heads=cfg["num_attention_heads"],
+        max_position_embeddings=cfg.get("max_position_embeddings", 77),
+        hidden_act=cfg.get("hidden_act", "quick_gelu"),
+        projection_dim=proj,
+        eos_token_id=cfg.get("eos_token_id", 49407),
+    )
+
+
+def vae_decode_dtype(cfg: C.VAEConfig) -> torch.dtype:
+    """force_upcast -> float32 decode (SD, SDXL), otherwise bfloat16
+    (sdxl-vae-fp16-fix, playground-v2.5), as in the JAX loader."""
+    return torch.float32 if cfg.force_upcast else torch.bfloat16
+
+
+#: buffers that transformers checkpoints may carry and the port's modules do not hold
+_NOT_WEIGHTS = ("text_model.embeddings.position_ids",)
+
+
+def _load_module(cls, cfg, path: str, dtype: torch.dtype, device):
+    """``cls(cfg)`` built on the meta device, then given the safetensors of
+    ``path`` read onto ``device`` in ``dtype`` (strict: every name must
+    match, none may be left over)."""
+    with torch.device("meta"):
+        module = cls(cfg, dtype=dtype)
+    sd = {k: v for k, v in load_safetensors(path, dtype=dtype, device=device).items() if k not in _NOT_WEIGHTS}
+    module.load_state_dict(sd, strict=True, assign=True)
+    return module.eval()
+
+
+def load_unet(path: str, dtype: torch.dtype = torch.bfloat16, device="cuda") -> UNet2DCondition:
+    return _load_module(UNet2DCondition, unet_config_from_diffusers(_read_config(path)), path, dtype, device)
+
+
+def load_vae(path: str, dtype: Optional[torch.dtype] = None, device="cuda") -> AutoencoderKL:
+    """``dtype=None`` follows the checkpoint's ``force_upcast``."""
+    cfg = vae_config_from_diffusers(_read_config(path))
+    return _load_module(AutoencoderKL, cfg, path, dtype or vae_decode_dtype(cfg), device)
+
+
+def load_text_encoder(path: str, dtype: torch.dtype = torch.float32, device="cuda") -> CLIPTextModel:
+    return _load_module(CLIPTextModel, clip_text_config_from_transformers(_read_config(path)), path, dtype, device)
+
+
+#: a checkpoint's scheduler class -> the port's scheduler (loader.py:208-215)
+_SCHEDULER_CLASSES = {
+    "DDIMScheduler": "ddim",
+    "PNDMScheduler": "pndm",  # the SD 1.x derivatives' default
+    "UniPCMultistepScheduler": "unipc",
+    "EulerDiscreteScheduler": "euler",
+    "EDMDPMSolverMultistepScheduler": "edm",  # playground-v2.5
+    "DPMSolverMultistepScheduler": "unipc",  # the closest functional match
+}
+
+
+def load_scheduler(repo_path: str, scheduler_name: str = "auto"):
+    """A scheduler from ``<repo_path>/scheduler/scheduler_config.json``.
+
+    ``"auto"`` dispatches on the config's ``_class_name``; an explicit name
+    ("ddim", "pndm", "unipc", "euler", "edm") overrides it. The EDM sigma
+    parameters and Euler's Karras flag are read from the config."""
+    from aid_tpu_torch.schedulers import (
+        DDIMScheduler,
+        EDMDPMSolverScheduler,
+        EulerDiscreteScheduler,
+        PNDMScheduler,
+        SchedulerConfig,
+        UniPCScheduler,
+    )
+
+    sc = {}
+    sch_path = os.path.join(repo_path, "scheduler", "scheduler_config.json")
+    if os.path.exists(sch_path):
+        with open(sch_path) as f:
+            sc = json.load(f)
+    if scheduler_name == "auto":
+        scheduler_name = _SCHEDULER_CLASSES.get(sc.get("_class_name", "DDIMScheduler"), "ddim")
+
+    if scheduler_name == "edm":
+        return EDMDPMSolverScheduler(
+            sigma_min=sc.get("sigma_min", 0.002), sigma_max=sc.get("sigma_max", 80.0),
+            sigma_data=sc.get("sigma_data", 0.5), rho=sc.get("rho", 7.0),
+            prediction_type=sc.get("prediction_type", "epsilon"))
+    cfg = SchedulerConfig(
+        num_train_timesteps=sc.get("num_train_timesteps", 1000),
+        beta_start=sc.get("beta_start", 0.00085),
+        beta_end=sc.get("beta_end", 0.012),
+        beta_schedule=sc.get("beta_schedule", "scaled_linear"),
+        prediction_type=sc.get("prediction_type", "epsilon"),
+        timestep_spacing=sc.get("timestep_spacing", "leading"),
+        steps_offset=sc.get("steps_offset", 1),
+        set_alpha_to_one=sc.get("set_alpha_to_one", False),
+        clip_sample=sc.get("clip_sample", False),
+        rescale_betas_zero_snr=sc.get("rescale_betas_zero_snr", False),
+    )
+    if scheduler_name == "euler":
+        return EulerDiscreteScheduler(cfg, use_karras_sigmas=sc.get("use_karras_sigmas", False))
+    if scheduler_name == "pndm":
+        return PNDMScheduler(cfg, skip_prk_steps=sc.get("skip_prk_steps", True))
+    return {"ddim": DDIMScheduler, "unipc": UniPCScheduler}[scheduler_name](cfg)
+
+
+def _refuse_safety_checker(repo_path: str) -> None:
+    if os.path.exists(os.path.join(repo_path, "safety_checker", "config.json")):
+        raise NotImplementedError(
+            f"{repo_path} has a safety_checker, which the JAX pipeline runs on every decode (it blacks out "
+            "flagged frames); the port has none yet (ROADMAP Queue 1 item 5), so it refuses the directory "
+            "rather than change the results")
+
+
+def load_interpolation_pipeline(
+    repo_path: str,
+    scheduler_name: Optional[str] = None,
+    dtype: torch.dtype = torch.bfloat16,
+    guidance_scale: Optional[float] = None,
+    device="cuda",
+):
+    """An ``InterpolationPipeline`` from a local SD 1.x / 2.x directory
+    (unet/ vae/ text_encoder/ tokenizer/ scheduler/), or, when it has a
+    ``text_encoder_2``, an ``InterpolationXLPipeline`` through
+    :func:`load_interpolation_xl_pipeline`. ``scheduler_name=None`` is the
+    family default ("ddim" for SD, the checkpoint's own class for SDXL);
+    ``guidance_scale=None`` likewise (7.5 / 5.0). ``dtype`` is the UNet's.
+    """
+    from aid_tpu_torch.pipelines.interpolation import InterpolationPipeline
+
+    if os.path.isdir(os.path.join(repo_path, "text_encoder_2")):
+        return load_interpolation_xl_pipeline(repo_path, scheduler_name="auto" if scheduler_name is None
+                                              else scheduler_name, dtype=dtype, guidance_scale=guidance_scale,
+                                              device=device)
+    _refuse_safety_checker(repo_path)
+    return InterpolationPipeline(
+        unet=load_unet(os.path.join(repo_path, "unet"), dtype=dtype, device=device),
+        vae=load_vae(os.path.join(repo_path, "vae"), device=device),
+        text_encoder=load_text_encoder(os.path.join(repo_path, "text_encoder"), device=device),
+        tokenizer=load_tokenizer(os.path.join(repo_path, "tokenizer")),
+        scheduler=load_scheduler(repo_path, scheduler_name or "ddim"),
+        guidance_scale=7.5 if guidance_scale is None else guidance_scale,
+    )
+
+
+def load_interpolation_xl_pipeline(repo_path: str, scheduler_name: str = "auto", dtype: torch.dtype = torch.bfloat16,
+                                   guidance_scale: Optional[float] = None, device="cuda"):
+    """An ``InterpolationXLPipeline`` from a local SDXL directory;
+    ``scheduler_name="auto"`` honours the checkpoint's scheduler class (so
+    playground-v2.5 loads its EDM solver)."""
+    from aid_tpu_torch.pipelines.sdxl import InterpolationXLPipeline
+
+    return InterpolationXLPipeline(
+        unet=load_unet(os.path.join(repo_path, "unet"), dtype=dtype, device=device),
+        vae=load_vae(os.path.join(repo_path, "vae"), device=device),
+        text_encoder=load_text_encoder(os.path.join(repo_path, "text_encoder"), device=device),
+        tokenizer=load_tokenizer(os.path.join(repo_path, "tokenizer")),
+        text_encoder_2=load_text_encoder(os.path.join(repo_path, "text_encoder_2"), device=device),
+        tokenizer_2=load_tokenizer(os.path.join(repo_path, "tokenizer_2")),
+        scheduler=load_scheduler(repo_path, scheduler_name),
+        **({} if guidance_scale is None else {"guidance_scale": guidance_scale}),
+    )

@@ -149,6 +149,14 @@ def library() -> ctypes.CDLL:
         vp,                  # cudaStream_t
     ]
     lib.aid_conv3x3_blocked_f32.restype = ctypes.c_int
+    lib.aid_conv3x3_gnsilu_f32.argtypes = [
+        vp, vp,              # x (B, C, H, W) at any strides, xb = silu(x * scale + shift) as (B, C/4, H, W, 4), f32
+        vp, vp,              # scale, shift (B, C) f32
+        i32, i32, i32, i32,  # B, C, H, W
+        i64p,                # x's element strides (b, c, h, w)
+        vp,                  # cudaStream_t
+    ]
+    lib.aid_conv3x3_gnsilu_f32.restype = ctypes.c_int
     lib.aid_flash_attn_f32_d512.argtypes = [
         vp, vp, vp, vp,      # q, k, v, out (f32)
         i64p,                # dims + strides, see flash_attention_f32_d512.cu

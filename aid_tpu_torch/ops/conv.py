@@ -16,10 +16,15 @@ of the same two TPU kernels) and counts in ``conv3x3_same_f32.launches``.
 
 ``conv3x3_gnsilu`` is the counterpart of ``aid_tpu.ops.conv.conv3x3_gnsilu``:
 conv(silu(group_norm(x))) with the SAME padding applied after the prologue.
-On a CUDA tensor it launches the same kernel with its prologue, which
+On a bf16 CUDA tensor it launches the same kernel with its prologue, which
 replaces ``_kernel_packed_gnsilu`` (conv.py:78-121), counted in
-``conv3x3_gnsilu.launches``. The GroupNorm statistics are computed here with
-plain torch ops, as the JAX package computes them in XLA outside its kernel.
+``conv3x3_gnsilu.launches``. On an f32 CUDA tensor it routes to
+:func:`conv3x3_gnsilu_f32`: the f32 layout pass with the prologue
+(``aid_conv3x3_gnsilu_f32`` in ``csrc/conv3x3_f32.cu``, which writes
+silu(x * scale + shift) in the 4-channel blocked layout), then the f32 conv
+kernel unchanged, counted in ``conv3x3_gnsilu_f32.launches``. The GroupNorm
+statistics are computed here with plain torch ops, as the JAX package
+computes them in XLA outside its kernel.
 
 On a CPU tensor both run their plain versions. The sources' headers say what
 bounds the kernel on the card and how the design answers. The interface
@@ -93,10 +98,19 @@ def tiled_weight(w: torch.Tensor) -> torch.Tensor:
     return wt
 
 
-def blocked_input_plain(x: torch.Tensor) -> torch.Tensor:
+def silu_affine(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
+    """The prologue: silu(x * scale + shift) in f32 with (B, C) factors,
+    rounded to x's dtype."""
+    return F.silu(x.float() * scale[:, :, None, None] + shift[:, :, None, None]).to(x.dtype)
+
+
+def blocked_input_plain(x: torch.Tensor, scale=None, shift=None) -> torch.Tensor:
     """x (B, C, H, W) as (B, C/n, H, W, n) with n channels in a 16-byte
     block (8 in bf16, 4 in f32), each pixel's block one contiguous run (the
-    layout kernels' plain version)."""
+    layout kernels' plain version); with ``scale``/``shift`` (B, C) f32,
+    :func:`silu_affine` of x (the f32 prologue layout's plain version)."""
+    if scale is not None:
+        x = silu_affine(x, scale, shift)
     B, C, H, W = x.shape
     n = 16 // x.element_size()
     return x.reshape(B, C // n, n, H, W).permute(0, 1, 3, 4, 2).contiguous()
@@ -106,27 +120,36 @@ def blocked_input_plain(x: torch.Tensor) -> torch.Tensor:
 _LAYOUT = {torch.bfloat16: ("aid_conv3x3_blocked_bf16", 8), torch.float32: ("aid_conv3x3_blocked_f32", 4)}
 
 
-def blocked_input(x: torch.Tensor) -> torch.Tensor:
+def blocked_input(x: torch.Tensor, scale=None, shift=None) -> torch.Tensor:
     """:func:`blocked_input_plain` of a bf16 x with C % 8 == 0 or an f32 x
     with C % 4 == 0: on a CUDA tensor by the layout kernel of
     ``csrc/conv3x3.cu`` (bf16) or ``csrc/conv3x3_f32.cu`` (f32), which reads
     x at its own strides (NCHW, channels-last or a view) once and writes the
-    result once; on a CPU tensor by the plain version."""
-    if not use_kernel(x):
-        return blocked_input_plain(x)
+    result once; on a CPU tensor by the plain version. ``scale``/``shift``
+    (f32 x only) apply the GN+SiLU prologue in the same pass
+    (``aid_conv3x3_gnsilu_f32``)."""
+    factors = () if scale is None else (scale.float().contiguous(), shift.float().contiguous())
+    if not use_kernel(x, *factors):
+        return blocked_input_plain(x, scale, shift)
     B, C, H, W = x.shape
     entry, n = _LAYOUT.get(x.dtype, (None, 8))
     if entry is None or C % n:
         raise NotImplementedError(f"the layout kernels take bf16 with C % 8 == 0 or f32 with C % 4 == 0; got "
                                   f"{x.dtype}, C = {C}")
+    if factors:
+        if x.dtype != torch.float32 or any(f.shape != (B, C) for f in factors):
+            raise NotImplementedError(f"the prologue layout takes f32 x and (B, C) factors; got {x.dtype}, "
+                                      f"{[tuple(f.shape) for f in factors]}")
+        entry = "aid_conv3x3_gnsilu_f32"
     xb = torch.empty((B, C // n, H, W, n), dtype=x.dtype, device=x.device)
     strides = (ctypes.c_longlong * 4)(*x.stride())
 
     from aid_tpu_torch.ops import _build
 
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    code = getattr(_build.library(), entry)(x.data_ptr(), xb.data_ptr(), B, C, H, W, strides, stream)
-    _build.check(code, "conv input layout launch")
+    code = getattr(_build.library(), entry)(x.data_ptr(), xb.data_ptr(), *(f.data_ptr() for f in factors),
+                                            B, C, H, W, strides, stream)
+    _build.check(code, f"{entry} launch")
     return xb
 
 
@@ -135,19 +158,21 @@ def kernel_operands(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *factors:
     reads them: x as (B, Cin/n, H, W, n) by :func:`blocked_input` (channels
     in 16-byte blocks, so that one row of the kernel's input window is one
     contiguous run), w by :func:`tiled_weight`, b and ``factors`` (the
-    prologue's scale, shift) f32. bf16 takes Cin % 8 == 0, f32 Cin % 4 == 0
-    and no prologue. Returns the tuple :func:`launch_kernel` takes."""
+    prologue's scale, shift) f32. bf16 takes Cin % 8 == 0 and passes the
+    factors on to the kernel; f32 takes Cin % 4 == 0 and applies them in the
+    layout pass, so its tuple has none. Returns the tuple
+    :func:`launch_kernel` takes."""
     B, Cin, H, W = x.shape
     Cout = w.shape[0]
     if w.shape != (Cout, Cin, 3, 3) or b.shape != (Cout,):
         raise ValueError(f"weight {tuple(w.shape)} / bias {tuple(b.shape)} do not fit input {tuple(x.shape)}")
     if x.dtype not in _LAYOUT or w.dtype != x.dtype:
         raise NotImplementedError(f"conv kernels take bf16 or f32 x and w of one dtype; got x {x.dtype}, w {w.dtype}")
-    if factors and x.dtype == torch.float32:
-        raise NotImplementedError("the GN+SiLU conv kernel takes bf16 only (ROADMAP Queue 2 lists the f32 instance)")
     n = _LAYOUT[x.dtype][1]
     if Cin % n or Cout % 2:
         raise NotImplementedError(f"conv kernel needs Cin % {n} == 0 and Cout % 2 == 0; got {Cin}, {Cout}")
+    if factors and x.dtype == torch.float32:
+        return blocked_input(x, *factors), tiled_weight(w), b.float().contiguous(), ()
     return blocked_input(x), tiled_weight(w), b.float().contiguous(), tuple(f.float().contiguous() for f in factors)
 
 
@@ -235,9 +260,7 @@ def conv3x3_gnsilu_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, gamm
     """The prologue kernel's plain version: the same one-pass statistics,
     silu(x * scale + shift) in f32 rounded to x's dtype, then F.conv2d with
     zero padding (so the halo is zero AFTER the prologue)."""
-    scale, shift = gn_scale_shift(x, gamma, beta, num_groups, eps)
-    a = x.float() * scale[:, :, None, None] + shift[:, :, None, None]
-    return F.conv2d(F.silu(a).to(x.dtype), w, b, padding=1)
+    return F.conv2d(silu_affine(x, *gn_scale_shift(x, gamma, beta, num_groups, eps)), w, b, padding=1)
 
 
 def conv3x3_gnsilu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
@@ -245,11 +268,13 @@ def conv3x3_gnsilu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, gamma: tor
     """y = conv2d(silu(group_norm(x, gamma, beta)), w, SAME) + b.
 
     x: (B, Cin, H, W); w: (Cout, Cin, 3, 3); b: (Cout,); gamma, beta: (Cin,).
-    On CUDA the kernel takes bf16 x and w with Cin % 8 == 0 and Cout % 2 == 0
-    and raises on anything else (there is no f32 instance yet).
+    On CUDA the kernel takes bf16 x and w with Cin % 8 == 0 and Cout % 2 ==
+    0; f32 goes to :func:`conv3x3_gnsilu_f32`; anything else raises.
     """
     if not use_kernel(x, w, b, gamma, beta):
         return conv3x3_gnsilu_plain(x, w, b, gamma, beta, num_groups, eps)
+    if x.dtype == torch.float32:
+        return conv3x3_gnsilu_f32(x, w, b, gamma, beta, num_groups, eps)
     out = launch_kernel("aid_conv3x3_gnsilu_bf16",
                         *kernel_operands(x, w, b, *gn_scale_shift(x, gamma, beta, num_groups, eps)))
     conv3x3_gnsilu.launches += 1
@@ -258,3 +283,22 @@ def conv3x3_gnsilu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, gamma: tor
 
 #: kernel launches since the last reset (chip_smoke.py reads it around each path)
 conv3x3_gnsilu.launches = 0
+
+
+def conv3x3_gnsilu_f32(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                       num_groups: int = 32, eps: float = 1e-5) -> torch.Tensor:
+    """conv3x3_gnsilu in f32: the prologue in the f32 layout pass
+    (``aid_conv3x3_gnsilu_f32``), then ``csrc/conv3x3_f32.cu``'s conv (3xTF32
+    products, f32 sums) on CUDA tensors with Cin % 4 == 0 and Cout % 2 == 0,
+    returning a channels-last tensor; the plain version on CPU tensors."""
+    if not use_kernel(x, w, b, gamma, beta):
+        return conv3x3_gnsilu_plain(x, w, b, gamma, beta, num_groups, eps)
+    if x.dtype != torch.float32:
+        raise NotImplementedError(f"the f32 GN+SiLU conv takes f32; got {x.dtype}")
+    out = launch_kernel("aid_conv3x3_f32", *kernel_operands(x, w, b, *gn_scale_shift(x, gamma, beta, num_groups, eps)))
+    conv3x3_gnsilu_f32.launches += 1
+    return out
+
+
+#: kernel launches since the last reset (chip_smoke.py reads it around each path)
+conv3x3_gnsilu_f32.launches = 0

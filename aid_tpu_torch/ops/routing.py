@@ -34,15 +34,17 @@ def reference_ops():
 def use_kernel(*tensors: torch.Tensor) -> bool:
     """True when the op must launch its CUDA kernel for these tensors.
 
-    False for CPU tensors (and for CUDA tensors inside ``reference_ops()``).
-    Raises for mixed devices or a device that has neither route.
+    False for CPU tensors, and for tensors on any device inside
+    ``reference_ops()`` (the meta device too, where a check reads shapes
+    off a forward). Raises for mixed devices, or, outside
+    ``reference_ops()``, for a device that has neither route.
     """
     devices = {t.device.type for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"tensors on mixed devices: {sorted(devices)}")
     dev = devices.pop()
-    if dev == "cpu":
+    if dev == "cpu" or _reference_depth:
         return False
     if dev == "cuda":
-        return _reference_depth == 0
+        return True
     raise ValueError(f"no route for device type {dev!r}: CPU runs the plain version, CUDA the kernel")

@@ -94,7 +94,6 @@ def denoise_steps(
     if added_cond is not None and added_cond_uncond is None:
         added_cond_uncond = added_cond
     uncond_mode = AidMode.vanilla()
-    step_kw = dict(eta=eta, generator=generator) if eta > 0.0 else {}
 
     if cfg_mode == "batched":
         N = latents.shape[0]
@@ -127,7 +126,9 @@ def denoise_steps(
         noise = noise_uncond + guidance_scale * (noise_text.float() - noise_uncond)
         if guidance_rescale > 0.0:
             noise = rescale_noise_cfg(noise, noise_text.float(), guidance_rescale)
-        latents, sched_state = scheduler.step(sched_state, noise, i, latents, **step_kw)
+        # every scheduler takes the step noise's arguments, as in the JAX
+        # engine (engine.py:120-130); only DDIM with eta > 0 uses them
+        latents, sched_state = scheduler.step(sched_state, noise, i, latents, eta=eta, generator=generator)
     return latents, sched_state
 
 

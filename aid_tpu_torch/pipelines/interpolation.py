@@ -81,8 +81,13 @@ def _no_ip(*image_embeds) -> None:
 @dataclasses.dataclass
 class InterpolationPipeline:
     """SD1.x / 2.x attention-interpolation pipeline. ``tokenizer`` is any
-    callable ``prompt -> (1, max_len) int ids``; ``scheduler`` is the port's
-    DDIM (the default) or Euler."""
+    callable ``prompt -> (1, max_len) int ids``; ``scheduler`` is any of the
+    port's five: DDIM (the default), Euler, PNDM, UniPC or EDM DPM-Solver++.
+    The multistep ones carry their history in the scheduler state, which
+    the chunked path hands from chunk to chunk; every entry point loops over
+    ``state.timesteps`` (PNDM's has n + 1 entries) and takes the AID warmup
+    from ``num_inference_steps``. ``models/loader.py`` builds one from a
+    diffusers directory."""
 
     unet: Any
     vae: Any

@@ -51,7 +51,8 @@ class InterpolationXLPipeline(InterpolationPipeline):
             return num_inference_steps
         if not (0.0 < denoising_end < 1.0):
             raise ValueError(f"denoising_end must be in (0, 1), got {denoising_end}")
-        T = self.scheduler.config.num_train_timesteps
+        # the EDM solver has no train-timestep config: 1000, as in sdxl.py:63
+        T = self.scheduler.config.num_train_timesteps if hasattr(self.scheduler, "config") else 1000
         cutoff = round(T - denoising_end * T)
         state = self.scheduler.init(num_inference_steps)
         return int(np.sum(state.timesteps.cpu().numpy() >= cutoff))

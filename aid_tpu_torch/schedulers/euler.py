@@ -10,7 +10,7 @@ in f32 and is cast back to the sample dtype.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -69,8 +69,11 @@ class EulerDiscreteScheduler:
         sigma = state.sigmas[step_index]
         return sample.float() / torch.sqrt(sigma ** 2 + 1.0)
 
-    def step(self, state: EulerState, model_output: torch.Tensor, step_index: int, sample: torch.Tensor):
-        """One Euler step; returns (prev_sample, state)."""
+    def step(self, state: EulerState, model_output: torch.Tensor, step_index: int, sample: torch.Tensor,
+             eta: float = 0.0, generator: Optional[torch.Generator] = None):
+        """One Euler step; returns (prev_sample, state). ``eta``/``generator``
+        are accepted for the engine's signature and unused (deterministic
+        Euler), as in the JAX package."""
         cfg = self.config
         sigma = state.sigmas[step_index]
         x = sample.float()

@@ -5,7 +5,8 @@ numpy int32 arrays, which the pipelines move to the text encoders' device).
 ``CLIPBPETokenizer`` loads a standard CLIP vocab.json + merges.txt, the
 files shipped with every SD checkpoint, with no network access.
 ``HashTokenizer`` is a deterministic offline stand-in for tests and
-random-weight runs.
+random-weight runs; ``write_byte_level_tokenizer`` writes a small CLIP
+tokenizer directory for random-weight checkpoints.
 """
 
 from __future__ import annotations
@@ -180,3 +181,23 @@ def load_tokenizer(path: str, max_length: int = 77,
         max_length,
         pad_token=pad_token if pad_token is not None else _read_pad_token(path),
     )
+
+
+def write_byte_level_tokenizer(path: str) -> None:
+    """Write a tokenizer directory that :func:`load_tokenizer` reads: a
+    vocab of CLIP's 256 byte symbols, each also with its word-final
+    ``</w>`` form (ids 0-511, "!" first, as in CLIP's own vocab), then
+    ``<|startoftext|>`` and ``<|endoftext|>`` (512, 513); no merges, so a
+    word becomes one id a byte; padding with "!", as SD 2.x's tokenizer and
+    SDXL's tokenizer_2 ship. For random-weight checkpoints written without
+    a download."""
+    symbols = list(_bytes_to_unicode().values())
+    vocab = {s: i for i, s in enumerate(symbols + [s + "</w>" for s in symbols])}
+    vocab.update({"<|startoftext|>": len(vocab), "<|endoftext|>": len(vocab) + 1})
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "vocab.json"), "w") as f:
+        json.dump(vocab, f)
+    with open(os.path.join(path, "merges.txt"), "w", encoding="utf-8") as f:
+        f.write("#version: 0.2\n")
+    with open(os.path.join(path, "tokenizer_config.json"), "w") as f:
+        json.dump({"pad_token": "!"}, f)

@@ -31,14 +31,24 @@ read just after:
     f32 instance at D=64 and every wide conv through the f32 conv kernel;
   * the f32 SD1.5 UNet in ``InterpolationPipeline.interpolate`` (PAID, 7
     frames, 512px, 25 DDIM steps, f32 CLIP and VAE): the f32 attention at
-    D=40/80/160.
+    D=40/80/160;
+  * SD2.1 at 768px through the port's entry point: a full-width diffusers
+    directory (SD 2.1's UNet, OpenCLIP ViT-H text encoder and VAE, f16
+    weights ~ N(0, 0.02) from a seed, a byte-level tokenizer padding with
+    "!", a v-prediction scheduler config) written into the git-ignored
+    build/ and loaded as the JAX app loads it,
+    ``load_interpolation_pipeline(dir, scheduler_name="unipc",
+    guidance_scale=10.0)``; ``interpolate`` to seven 768px frames over 25
+    UniPC steps with the bf16 UNet (attention at D=64 over 9216 / 2304 /
+    576 / 144 tokens, the conv kernel at 96^2), then the f32 UNet with the
+    fused GN+SiLU configuration (the f32 GN+SiLU conv) and 2 UniPC steps.
 
 Phases (each prints its own lines; any failure exits non-zero):
   1. device      needs CUDA; prints the card's name and power limit
   2. build       compiles the CUDA kernels from aid_tpu_torch/csrc, one nvcc
                  per source at once; ptxas resources
   3. kernels     each kernel against its plain PyTorch version at the paths'
-                 shapes (SDXL and SD1.5), with stated tolerances; its time
+                 shapes (SDXL, SD1.5 and SD2.1), with stated tolerances; its time
                  through its wrapper and (attention and conv) launched
                  alone on operands already laid out, the plain version's,
                  its bound from the shapes and the card's peaks, and one
@@ -74,6 +84,12 @@ Phases (each prints its own lines; any failure exits non-zero):
                  interpolate() with f32 CLIP and VAE; stage times, s/step
                  (best and p50 of three warm runs), peak memory, f32
                  attention launches at D=40, 80 and 160
+ 13. SD2.1       the loader on a written SD2.1 directory (every module on
+                 the card, UNet bf16, VAE f32); a bf16 fused_outer forward
+                 kernels vs plain with two planted faults; interpolate() at
+                 768px, 25 UniPC steps (checksum, s/step, stage times, peak
+                 memory, launches); reloaded in f32: the forward check, the
+                 fused GN+SiLU forward with its planted halo fault, 2 steps
 Phase 1 turns TF32 off for cuBLAS and cuDNN, so every plain f32 version and
 library call computes in full f32.
 The second-to-last line is the kernels' JSON record, the last the result.
@@ -347,7 +363,7 @@ def library_conv_ms(x, w, b, reps: int) -> dict:
 
 def kernel_wrappers() -> dict:
     """Each kernel's wrapper, by the name its launch count is reported under."""
-    from aid_tpu_torch.ops.conv import conv3x3_gnsilu, conv3x3_same, conv3x3_same_f32
+    from aid_tpu_torch.ops.conv import conv3x3_gnsilu, conv3x3_gnsilu_f32, conv3x3_same, conv3x3_same_f32
     from aid_tpu_torch.ops.flash_attention import (
         flash_interpolated_attention,
         flash_interpolated_attention_f32,
@@ -359,7 +375,8 @@ def kernel_wrappers() -> dict:
             "flash_interpolated_attention_f32": flash_interpolated_attention_f32,
             "flash_self_attention_f32": flash_self_attention_f32,
             "flash_self_attention_bf16": flash_self_attention_bf16,
-            "conv3x3_same": conv3x3_same, "conv3x3_same_f32": conv3x3_same_f32, "conv3x3_gnsilu": conv3x3_gnsilu}
+            "conv3x3_same": conv3x3_same, "conv3x3_same_f32": conv3x3_same_f32, "conv3x3_gnsilu": conv3x3_gnsilu,
+            "conv3x3_gnsilu_f32": conv3x3_gnsilu_f32}
 
 
 def reset_counts() -> None:
@@ -432,11 +449,13 @@ def phase_build():
             print(f"  {line.strip()}", flush=True)
 
 
-def phase_kernels(coef, sd_coef, fused_classes):
+def phase_kernels(coef, sd_coef, fused_classes, sd21_classes):
     """Each kernel vs its plain version at the paths' shapes, timed beside
     its bound and, where one PyTorch call computes the same function, that
-    call (library_ms). Returns {kernel name: record} for the kernels line,
-    each record at the kernel's heaviest main-path shape."""
+    call (library_ms). ``fused_classes`` / ``sd21_classes``: {(H, W, Cin,
+    Cout): calls per forward} of the GN+SiLU conv in the SDXL and SD 2.1
+    UNets. Returns {kernel name: record} for the kernels line, each record
+    at the kernel's heaviest main-path shape."""
     import torch
 
     from aid_tpu_torch.models.layers import skip_mask
@@ -574,13 +593,42 @@ def phase_kernels(coef, sd_coef, fused_classes):
         [(f"SD1.5 {label}", mode, 8, Sq, L, D, reps, Le) for label, mode, Sq, L, D, reps, Le in sd_cases],
         sd_coef, "SD1.5 fused_outer 4096", "SD1.5 self 4096")
 
+    # SD 2.1 (phase 13), 5 / 10 / 20 / 20 heads at D = 64 over 96^2 / 48^2 /
+    # 24^2 / 12^2 tokens: the new sequence lengths, 576 and 144 keys ragged
+    # against the 128-key tile, 144 queries under one 192-row tile;
+    # Beta(25, 25) coefficients (its 25-step sequence)
+    sd21_cases = [
+        ("SD2.1 self 9216", "self", 5, 9216, 9216, 64, 3, None),
+        ("SD2.1 fused_outer 9216", "fused_outer", 5, 9216, 9216, 64, 2, None),
+        ("SD2.1 cross fused_outer 9216x77", "fused_outer", 5, 9216, 77, 64, 10, None),
+        ("SD2.1 fused_outer 2304", "fused_outer", 10, 2304, 2304, 64, 10, None),
+        ("SD2.1 self 576", "self", 20, 576, 576, 64, 20, None),
+        ("SD2.1 fused_outer 576", "fused_outer", 20, 576, 576, 64, 20, None),
+        ("SD2.1 self 144", "self", 20, 144, 144, 64, 20, None),
+        ("SD2.1 fused_outer 144", "fused_outer", 20, 144, 144, 64, 20, None),
+    ]
+
+    def with_sd21(record, sd21, keys=("ms", "kernel_ms", "plain_ms", "bound_ms", "self_ms", "self_kernel_ms",
+                                      "self_bound_ms", "self_library_ms")):
+        """``record`` with its worst error over the SD 2.1 cases too and the
+        SD 2.1 main case's ``keys`` beside it (sd21_*)."""
+        return {**record, "max_abs_err": max(record["max_abs_err"], sd21["max_abs_err"]),
+                **{f"sd21_{k}": sd21[k] for k in keys}}
+
+    records["flash_interpolated_attention"] = with_sd21(
+        records["flash_interpolated_attention"],
+        attention_record(sd21_cases, sd_coef, "SD2.1 fused_outer 9216", "SD2.1 self 9216"))
+
     # the f32 instance at the f32 UNets' shapes (phases 11 and 12): SDXL's
     # D=64 self, fused_outer and 77-key cross calls at both attention levels
     # and the other modes at one shape; SD1.5's D=40/80/160, fewer reps
     f32_sdxl = [(label, mode, H, Sq, L, D, max(1, reps // 2), Le)
                 for label, mode, H, Sq, L, D, reps, Le in sdxl_cases if "cross self 1024" not in label]
-    records["flash_interpolated_attention_f32"] = attention_record(f32_sdxl, coef, "fused_outer 4096", "self 4096",
-                                                                   torch.float32)
+    records["flash_interpolated_attention_f32"] = with_sd21(
+        attention_record(f32_sdxl, coef, "fused_outer 4096", "self 4096", torch.float32),
+        attention_record([(label, mode, H, Sq, L, D, max(1, reps // 2), Le)
+                          for label, mode, H, Sq, L, D, reps, Le in sd21_cases], sd_coef,
+                         "SD2.1 fused_outer 9216", "SD2.1 self 9216", torch.float32))
     f32_sd = [(f"SD1.5 {label}", mode, 8, Sq, L, D, max(1, reps // 2), Le) for label, mode, Sq, L, D, reps, Le
               in sd_cases if not label.startswith(("pure", "fused_inner")) or Sq == 256]
     records["flash_interpolated_attention_f32(D=40/80/160)"] = attention_record(
@@ -591,13 +639,16 @@ def phase_kernels(coef, sd_coef, fused_classes):
         model makes, the layout kernel's pass over x included, the weight's
         tiling kept from the first call), launched alone on operands
         already laid out by conv.kernel_operands (kernel_ms), the layout
-        kernel alone on NCHW x (layout_ms; exact against its plain version
-        from NCHW and channels-last x, whose torch copy is timed too), the
+        kernel alone on NCHW x (layout_ms; against its plain version from
+        NCHW and channels-last x, whose torch copy is timed too), the
         plain version, cuDNN with both layouts (the prologue-free conv
         only). f32 operands take the f32 kernel, F32_CONV_TOL and a bound at
-        three TF32 passes. Returns (record, want)."""
+        three TF32 passes; f32 with ``factors`` (gamma, beta) is the f32
+        GN+SiLU conv, whose prologue is the layout pass's
+        (aid_conv3x3_gnsilu_f32: layout_ms), then the f32 conv launch
+        (kernel_ms). Returns (record, want)."""
         f32 = x.dtype == torch.float32
-        entry = "aid_conv3x3_gnsilu_bf16" if factors else ("aid_conv3x3_f32" if f32 else "aid_conv3x3_bf16")
+        entry = "aid_conv3x3_f32" if f32 else ("aid_conv3x3_gnsilu_bf16" if factors else "aid_conv3x3_bf16")
         wrapper = (lambda: conv3x3_gnsilu(x, w, b, *factors, 32)) if factors else (
             lambda: conv3x3_same(x, w, b, packed=packed))
         plain = (lambda: conv3x3_gnsilu_plain(x, w, b, *factors, 32)) if factors else (
@@ -607,20 +658,27 @@ def phase_kernels(coef, sd_coef, fused_classes):
         want = plain()
         diff = (got.float() - want.float()).abs()
         ref = want.float().abs().max().item()
-        tol = (GNSILU_TOL if factors else F32_CONV_TOL if f32 else CONV_TOL) * ref
+        tol = (F32_CONV_TOL if f32 else GNSILU_TOL if factors else CONV_TOL) * ref
         if ring is None:
             errs = {"": diff.max().item()}
         else:
             errs = {"interior ": diff[:, :, ~ring].max().item(), "border ": diff[:, :, ring].max().item()}
-        ops = conv.kernel_operands(x, w, b, *(conv.gn_scale_shift(x, *factors, 32, 1e-5) if factors else ()))
-        blocked = conv.blocked_input_plain(x)
-        if not (torch.equal(ops[0], blocked) and torch.equal(
-                conv.blocked_input(x.contiguous(memory_format=torch.channels_last)), blocked)):
+        scale_shift = conv.gn_scale_shift(x, *factors, 32, 1e-5) if factors else ()
+        ops = conv.kernel_operands(x, w, b, *scale_shift)
+        prologue = scale_shift if f32 else ()  # the f32 layout pass applies the prologue
+        blocked = conv.blocked_input_plain(x, *prologue)
+        got_layouts = (ops[0], conv.blocked_input(x.contiguous(memory_format=torch.channels_last), *prologue))
+        if prologue:  # fma and expf against torch's mul, add and silu: a few f32 ulps
+            layout_ok = all((g - blocked).abs().max().item() <= 1e-6 * blocked.abs().max().item()
+                            for g in got_layouts)
+        else:
+            layout_ok = all(torch.equal(g, blocked) for g in got_layouts)
+        if not layout_ok:
             fail(f"{label}: the conv's layout kernel disagrees with its plain version")
-        del blocked
+        del blocked, got_layouts
         kernel_ms = cuda_ms(lambda: conv.launch_kernel(entry, *ops), reps)
-        layout_ms = cuda_ms(lambda: conv.blocked_input(x), reps)
-        layout_plain_ms = cuda_ms(lambda: conv.blocked_input_plain(x), reps)
+        layout_ms = cuda_ms(lambda: conv.blocked_input(x, *prologue), reps)
+        layout_plain_ms = cuda_ms(lambda: conv.blocked_input_plain(x, *prologue), reps)
         ms = cuda_ms(wrapper, reps)
         plain_ms = cuda_ms(plain, reps)
         Bx, cin, H, W = x.shape
@@ -649,7 +707,18 @@ def phase_kernels(coef, sd_coef, fused_classes):
         if cin == 960:
             main = r
         del x, w, b
-    records["conv3x3_same"] = {**main, "max_abs_err": worst}
+    # SD 2.1's 96^2 classes: W = 96 is one full and one half-empty 64-column tile
+    for cin, cout in ((960, 320), (640, 640)):
+        x = randn(B, cin, 96, 96)
+        w = randn(cout, cin, 3, 3) * (9 * cin) ** -0.5
+        b = randn(cout)
+        r, _ = conv_case(f"conv3x3 B={B} {cin}->{cout} @96x96 (SD2.1)", x, w, b)
+        worst = max(worst, r["max_abs_err"])
+        if cin == 960:
+            sd21 = r
+        del x, w, b
+    conv_keys = ("ms", "kernel_ms", "plain_ms", "bound_ms", "library_ms")
+    records["conv3x3_same"] = with_sd21({**main, "max_abs_err": worst}, sd21, conv_keys)
 
     # TPU kernel #4: conv3x3_same(packed=True), the same kernel instance
     x = randn(B, 640, 128, 128)
@@ -666,18 +735,21 @@ def phase_kernels(coef, sd_coef, fused_classes):
     # the f32 conv at the f32 SDXL UNet's classes (phase 11), f32 draws at
     # full mantissa; cuDNN in f32 with TF32 off is the library call
     worst = 0.0
-    for cin, cout in ((960, 320), (640, 320), (640, 640)):
-        x = torch.randn((B, cin, 128, 128), generator=gen, device=dev)
+    for cin, cout, hw in ((960, 320, 128), (640, 320, 128), (640, 640, 128), (960, 320, 96), (640, 640, 96)):
+        x = torch.randn((B, cin, hw, hw), generator=gen, device=dev)
         w = torch.randn((cout, cin, 3, 3), generator=gen, device=dev) * (9 * cin) ** -0.5
         b = torch.randn((cout,), generator=gen, device=dev)
-        r, _ = conv_case(f"conv3x3 f32 B={B} {cin}->{cout} @128x128", x, w, b, reps=3)
+        r, _ = conv_case(f"conv3x3 f32 B={B} {cin}->{cout} @{hw}x{hw}{' (SD2.1)' if hw == 96 else ''}", x, w, b,
+                         reps=3)
         worst = max(worst, r["max_abs_err"])
-        if cin == 960:
+        if (cin, hw) == (960, 128):
             main = r
             if not torch.equal(conv3x3_same(x, w, b, packed=True), conv3x3_same(x, w, b)):
                 fail("f32 conv3x3_same(packed=True) does not launch the f32 kernel")
+        elif (cin, hw) == (960, 96):
+            sd21 = r
         del x, w, b
-    records["conv3x3_same_f32"] = {**main, "max_abs_err": worst}
+    records["conv3x3_same_f32"] = with_sd21({**main, "max_abs_err": worst}, sd21, conv_keys)
 
     # kernel A: the VAE mid-block attention in f32, one head over 16384
     # tokens (SDXL, one 1024px frame) and over 4096 tokens of 7 frames at
@@ -782,6 +854,48 @@ def phase_kernels(coef, sd_coef, fused_classes):
     if not f_ring > GNSILU_TOL * ref:
         fail("the border-ring check does not see a halo fault")
     records["conv3x3_gnsilu"] = {**main, "max_abs_err": worst}
+    bf16_main = main
+
+    # TPU kernel #5 in f32: the prologue in the f32 layout pass, then the f32
+    # conv kernel; at SDXL's (7,960,128,128) -> 320 beside the bf16 kernel
+    # above, then at every class of SD 2.1's f32 UNet with the fused
+    # configuration on (phase 13); f32 draws at full mantissa, off zero mean
+    worst, total_ms, total_plain, sd21_ms = 0.0, 0.0, 0.0, {}
+    for (H, W, cin, cout), calls in [((128, 128, 960, 320), 0)] + sorted(sd21_classes.items()):
+        x = torch.randn((B, cin, H, W), generator=gen, device=dev) * 2.0 + 1.0
+        w = torch.randn((cout, cin, 3, 3), generator=gen, device=dev) * (9 * cin) ** -0.5
+        b = torch.randn((cout,), generator=gen, device=dev)
+        gamma = 1.0 + 0.3 * torch.randn(cin, generator=gen, device=dev)
+        beta = 0.5 * torch.randn(cin, generator=gen, device=dev)
+        ring = torch.zeros(H, W, dtype=torch.bool, device=dev)
+        ring[0], ring[-1], ring[:, 0], ring[:, -1] = True, True, True, True
+        where = f"({calls}/SD2.1 forward)" if calls else "(SDXL class)"
+        r, want = conv_case(f"conv3x3_gnsilu f32 B={B} {cin}->{cout} @{H}x{W} {where}", x, w, b, (gamma, beta),
+                            ring, reps=3)
+        worst = max(worst, r["max_abs_err"])
+        if calls:
+            total_ms += calls * r["ms"]
+            total_plain += calls * r["plain_ms"]
+            sd21_ms[f"{H}x{W} {cin}->{cout}"] = r["ms"]
+        else:
+            main = r
+            print(f"conv3x3_gnsilu at (7,960,128,128) -> 320: f32 {r['ms']:.3f} ms through the wrapper (bf16 "
+                  f"{bf16_main['ms']:.3f}), launched alone {r['kernel_ms']:.3f} (bf16 {bf16_main['kernel_ms']:.3f})",
+                  flush=True)
+        if (H, W, cin, cout) == max(sd21_classes):
+            # the ring check must see a halo that took silu(shift) in f32 too
+            ref = want.abs().max().item()
+            fdiff = (halo_fault_plain(x, w, b, gamma, beta, 32) - want).abs()
+            f_ring = fdiff[:, :, ring].max().item()
+            print(f"conv3x3_gnsilu f32 planted halo fault @{H}x{W}: border {f_ring:.3e}, interior "
+                  f"{fdiff[:, :, ~ring].max().item():.3e} (tol {F32_CONV_TOL * ref:.3e})", flush=True)
+            if not f_ring > F32_CONV_TOL * ref:
+                fail("the f32 border-ring check does not see a halo fault")
+        del x, w, b, want
+    print(f"conv3x3_gnsilu f32 per SD2.1 fused UNet forward (B={B}, {sum(sd21_classes.values())} calls): kernel "
+          f"{total_ms:.2f} ms through the wrapper, plain chain {total_plain:.2f} ms", flush=True)
+    records["conv3x3_gnsilu_f32"] = {**main, "max_abs_err": worst, "sd21_forward_ms": total_ms,
+                                     "sd21_forward_plain_ms": total_plain, "sd21_class_ms": sd21_ms}
     return records
 
 
@@ -806,12 +920,32 @@ def fused_conv_classes(unet, sample, ehs, added) -> dict:
     try:
         with torch.no_grad(), reference_ops():
             unet(sample[:1], torch.tensor(500.0, device=sample.device), ehs[:1], None,
-                 {k: v[:1] for k, v in added.items()})
+                 None if added is None else {k: v[:1] for k, v in added.items()})
     finally:
         layers.conv3x3_gnsilu, layers._FUSED_GN_CONV = real, False
     if not seen:
         fail("the fused configuration routed no conv to conv3x3_gnsilu")
     return seen
+
+
+def sd21_fused_conv_classes() -> dict:
+    """fused_conv_classes of the SD 2.1 UNet, read off one 96^2 frame on the
+    meta device (shapes only: no weights, no memory, nothing on the card):
+    the classes phase 3 times the f32 GN+SiLU conv at, as phase 13's fused
+    configuration routes them."""
+    import torch
+
+    from aid_tpu_torch.models.configs import SD21_UNET
+    from aid_tpu_torch.models.unet import UNet2DCondition
+
+    meta = torch.device("meta")
+    unet = UNet2DCondition(SD21_UNET, device=meta, dtype=torch.bfloat16).eval()
+    s = SD21_UNET.sample_size
+    sample = torch.zeros((1, 4, s, s), device=meta, dtype=torch.bfloat16)
+    ehs = torch.zeros((1, 77, SD21_UNET.cross_attention_dim), device=meta, dtype=torch.bfloat16)
+    classes = fused_conv_classes(unet, sample, ehs, None)
+    print(f"SD2.1 fused GN+SiLU conv classes (H, W, Cin, Cout): calls per forward {classes}", flush=True)
+    return classes
 
 
 def build_headline(frames: int = 7, latent: int = 128, seed: int = 0, dtype=None):
@@ -1602,6 +1736,256 @@ def phase_f32_sd15(card: str, steps: int, unet=None, text_cfg=None, vae_cfg=None
     return counts
 
 
+# SD 2.1 at 768px as the JAX app runs it (aid_tpu/apps/gradio_app.py:39):
+# UniPC, guidance 10, 25 steps, the loader's default dtype (bf16 UNet).
+SD21_STEPS = 25
+SD21_GUIDANCE = 10.0
+# The SD 2.1 whole UNet in bf16 (phase 13), kernels vs plain, the LARGEST
+# PER-FRAME relative L2 of the output, as SD15_UNET_TOL. On an H100 (these
+# seeds; deterministic): sound 2.80-2.97e-3 in every frame; planted faults
+# fused_outer computed as self 5.53e-2 at most, endpoints swapped 7.30e-3 at
+# most (frame 1; frames 0, 3 and 6 do not move). SD 1.5's 4.5e-3 lies
+# between: 1.5x the sound reading, 0.62x the smaller fault. Phase 13
+# measures both faults in every run and fails if the bound does not
+# separate either.
+SD21_UNET_TOL = 4.5e-3
+
+
+def sd21_diffusers_configs() -> dict:
+    """config.json of each module of a diffusers SD 2.1 (768-v) directory,
+    as published, and its scheduler_config.json (v-prediction DDIM,
+    scaled_linear 0.00085-0.012, steps_offset 1, set_alpha_to_one false)."""
+    from aid_tpu_torch.models.configs import OPENCLIP_VIT_H_TEXT as T, SD21_UNET as U, SD_VAE as V
+
+    return {
+        "unet": {"_class_name": "UNet2DConditionModel", "sample_size": U.sample_size, "in_channels": 4,
+                 "out_channels": 4, "down_block_types": ["CrossAttnDownBlock2D"] * 3 + ["DownBlock2D"],
+                 "up_block_types": ["UpBlock2D"] + ["CrossAttnUpBlock2D"] * 3,
+                 "block_out_channels": list(U.block_out_channels), "layers_per_block": U.layers_per_block,
+                 "attention_head_dim": list(U.num_attention_heads), "use_linear_projection": True,
+                 "cross_attention_dim": U.cross_attention_dim, "norm_num_groups": 32, "flip_sin_to_cos": True,
+                 "freq_shift": 0},
+        "vae": {"_class_name": "AutoencoderKL", "in_channels": 3, "out_channels": 3, "latent_channels": 4,
+                "block_out_channels": list(V.block_out_channels), "layers_per_block": V.layers_per_block,
+                "norm_num_groups": 32, "scaling_factor": V.scaling_factor, "sample_size": 768},
+        "text_encoder": {"architectures": ["CLIPTextModel"], "vocab_size": T.vocab_size,
+                         "hidden_size": T.hidden_size, "intermediate_size": T.intermediate_size,
+                         "num_hidden_layers": T.num_hidden_layers, "num_attention_heads": T.num_attention_heads,
+                         "max_position_embeddings": 77, "hidden_act": "gelu", "bos_token_id": 0, "eos_token_id": 2,
+                         "projection_dim": 512},
+        "scheduler": {"_class_name": "DDIMScheduler", "prediction_type": "v_prediction",
+                      "beta_schedule": "scaled_linear", "beta_start": 0.00085, "beta_end": 0.012,
+                      "num_train_timesteps": 1000, "steps_offset": 1, "set_alpha_to_one": False,
+                      "clip_sample": False},
+    }
+
+
+def write_sd21_checkpoint(root: str, seed: int = 0, device: str = "cuda", configs=None) -> int:
+    """Write a full-width SD 2.1 diffusers directory under ``root``: each
+    module's config.json, its weights ~ N(0, 0.02) from a seeded generator
+    stored in f16 (as SD 2.1's published fp16 variant; ~2.6 GB), a
+    byte-level tokenizer padding with "!", and the scheduler config.
+    ``configs`` (sd21_diffusers_configs by default) and ``device`` let a
+    test write a tiny copy on the CPU. Returns the bytes of weights written."""
+    import torch
+
+    from aid_tpu_torch.models import loader
+    from aid_tpu_torch.models.clip import CLIPTextModel
+    from aid_tpu_torch.models.unet import UNet2DCondition
+    from aid_tpu_torch.models.vae import AutoencoderKL
+    from aid_tpu_torch.utils.safetensors import save_safetensors
+    from aid_tpu_torch.utils.tokenizer import write_byte_level_tokenizer
+
+    configs = configs or sd21_diffusers_configs()
+    gen = torch.Generator(device=device).manual_seed(seed)
+    modules = {"unet": (UNet2DCondition, loader.unet_config_from_diffusers, "diffusion_pytorch_model"),
+               "vae": (AutoencoderKL, loader.vae_config_from_diffusers, "diffusion_pytorch_model"),
+               "text_encoder": (CLIPTextModel, loader.clip_text_config_from_transformers, "model")}
+    nbytes = 0
+    for sub, cfg in configs.items():
+        os.makedirs(os.path.join(root, sub))
+        name = "scheduler_config.json" if sub == "scheduler" else "config.json"
+        with open(os.path.join(root, sub, name), "w") as f:
+            json.dump(cfg, f)
+        if sub == "scheduler":
+            continue
+        cls, read, stem = modules[sub]
+        with torch.device("meta"):
+            shapes = {k: v.shape for k, v in cls(read(cfg)).state_dict().items()}
+        weights = {k: (torch.randn(shape, generator=gen, device=device) * 0.02).half() for k, shape in shapes.items()}
+        save_safetensors(weights, os.path.join(root, sub, f"{stem}.fp16.safetensors"))
+        nbytes += sum(w.numel() * w.element_size() for w in weights.values())
+        del weights
+    write_byte_level_tokenizer(os.path.join(root, "tokenizer"))
+    return nbytes
+
+
+def check_fused_vs_plain(label: str, forward, tol: float, counter: str) -> dict:
+    """The fused GN+SiLU configuration (``layers._FUSED_GN_CONV``) of one
+    UNet forward ``forward()`` through the kernels and through the plain
+    versions, and with the planted halo fault (the plain GN+SiLU conv
+    padding before its prologue): the largest per-frame relative L2 must lie
+    under ``tol`` and the fault over it; ``counter`` must have launched.
+    Returns the forward's launch counts."""
+    import torch
+
+    from aid_tpu_torch.models import layers
+    from aid_tpu_torch.ops import conv
+    from aid_tpu_torch.ops.routing import reference_ops
+
+    real_plain = conv.conv3x3_gnsilu_plain
+    try:
+        layers._FUSED_GN_CONV = True
+        with torch.no_grad():
+            reset_counts()
+            got = forward()
+            torch.cuda.synchronize()
+            counts = read_counts()
+            with reference_ops():
+                want = forward()
+                conv.conv3x3_gnsilu_plain = halo_fault_plain
+                fault = forward()
+    finally:
+        conv.conv3x3_gnsilu_plain = real_plain
+        layers._FUSED_GN_CONV = False
+    if not torch.isfinite(got).all():
+        fail(f"{label}: the kernel output is not finite")
+    print(f"{label}: {counts[counter]} {counter} launches", flush=True)
+    if counts[counter] <= 0:
+        fail(f"{label}: {counter} was not launched")
+    check_bound(label, frame_rel_l2(got, want), frame_rel_l2(fault, want), tol, "halo not re-zeroed")
+    return counts
+
+
+def phase_sd21(card: str) -> list:
+    """SD 2.1 at 768px through the port's loader, as the JAX app loads it:
+    a full-width diffusers directory written from a seed into the checkout's
+    git-ignored build/ (removed at the end), then
+    ``load_interpolation_pipeline(dir, scheduler_name="unipc",
+    guidance_scale=10.0)`` with no device and no dtype: every module on the
+    card, the UNet in bf16, the VAE in f32 (force_upcast). In bf16: one
+    fused_outer forward kernels vs plain (two planted faults), then
+    ``interpolate`` (7 frames, SD21_STEPS UniPC steps, sequential CFG). In
+    f32 (reloaded with ``dtype=torch.float32``): the forward check, the same
+    with the fused GN+SiLU configuration (the f32 GN+SiLU conv) and its
+    planted halo fault, then 2 UniPC steps. Returns the paths' launch
+    counts."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from aid_tpu_torch.models import configs as C
+    from aid_tpu_torch.models import loader
+    from aid_tpu_torch.models.layers import AidContext, AidMode
+    from aid_tpu_torch.schedulers import UniPCScheduler
+
+    steps = SD21_STEPS
+    print(f"== phase 13: SD2.1 at 768px through the loader (load_interpolation_pipeline, UniPC, guidance "
+          f"{SD21_GUIDANCE}): bf16 forward kernels vs plain, interpolate (7 frames, {steps} steps); f32 forward, "
+          f"fused GN+SiLU forward, 2 steps", flush=True)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="sd21-checkpoint-", dir=os.path.join(ROOT, "build"))
+    paths = []
+    try:
+        t0 = time.perf_counter()
+        nbytes = write_sd21_checkpoint(root)
+        print(f"wrote a full-width SD2.1 diffusers directory ({nbytes / 2**30:.2f} GiB of f16 weights) in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+        def load(**kw):
+            t0 = time.perf_counter()
+            pipe = loader.load_interpolation_pipeline(root, scheduler_name="unipc", guidance_scale=SD21_GUIDANCE, **kw)
+            torch.cuda.synchronize()
+            args = ", ".join(f"{k}={v}" for k, v in kw.items()) or "no device, no dtype"
+            print(f"load_interpolation_pipeline({args}) in {time.perf_counter() - t0:.2f} s", flush=True)
+            return pipe
+
+        pipe = load()
+        placed = {name: ({p.device.type for p in m.parameters()}, {p.dtype for p in m.parameters()})
+                  for name, m in (("unet", pipe.unet), ("vae", pipe.vae), ("text_encoder", pipe.text_encoder))}
+        print(f"modules (devices, dtypes): {placed}; scheduler {type(pipe.scheduler).__name__} "
+              f"({pipe.scheduler.config.prediction_type}); guidance {pipe.guidance_scale}", flush=True)
+        want_dtypes = {"unet": torch.bfloat16, "vae": torch.float32, "text_encoder": torch.float32}
+        if any(placed[n] != ({"cuda"}, {want_dtypes[n]}) for n in placed):
+            fail(f"the loader placed the SD2.1 modules at {placed}; every module on the card, the UNet in bf16 and "
+                 f"the VAE and text encoder in f32 expected")
+        if not isinstance(pipe.scheduler, UniPCScheduler) or pipe.scheduler.config.prediction_type != "v_prediction":
+            fail("the loader did not build UniPC with v-prediction")
+        if pipe.unet.config != C.SD21_UNET:
+            fail(f"the loaded UNet config {pipe.unet.config} is not configs.SD21_UNET")
+
+        unet, cfg = pipe.unet, pipe.unet.config
+        s, dev = cfg.sample_size, torch.device("cuda")
+        coef = sd15_coef().to(dev)  # Beta(25, 25): the 25-step sequence's coefficients
+        gen = torch.Generator(device=dev).manual_seed(5)
+        sample = torch.randn((7, cfg.in_channels, s, s), generator=gen, device=dev)
+        ehs = torch.randn((7, 77, cfg.cross_attention_dim), generator=gen, device=dev)
+        t = torch.tensor(500, device=dev)
+        aid = AidContext(coef=coef, mode=AidMode.from_name("fused_outer"))
+
+        def forward(aid_ctx, m=unet, dtype=torch.bfloat16):
+            return m(sample.to(dtype), t, ehs.to(dtype), aid_ctx)
+
+        counts = check_unet_vs_plain(f"unet SD2.1 fused_outer B=7 {s}x{s} (bf16)", forward, aid, SD21_UNET_TOL)
+        check_path("SD2.1 bf16 forward", counts, ("flash_interpolated_attention[D=64]", "conv3x3_same"))
+
+        latent_a, latent_b = pipe.generate_latent(gen), pipe.generate_latent(gen)
+
+        def interpolate(**kw):
+            return pipe.interpolate(latent_a, latent_b, "prompt A", "prompt B", size=7, **kw)
+
+        px = s * 2 ** (len(pipe.vae.config.block_out_channels) - 1)
+        images, counts, times, decoder_inputs, elapsed, peak = run_image_path(
+            pipe, pipe.vae, lambda: interpolate(num_inference_steps=steps), steps, 7)
+        check_images(f"SD2.1 interpolate ({steps} UniPC steps)", images, (7, px, px, 3), times, elapsed, peak, card)
+        checksum = float(decoder_inputs[0].float().sum())
+        print(f"SD2.1 interpolate: final latents checksum {checksum!r}; launches of the bf16 attention at D=64 "
+              f"{counts['flash_interpolated_attention[D=64]']}, of the conv kernel {counts['conv3x3_same']}",
+              flush=True)
+        if not math.isfinite(checksum):
+            fail(f"SD2.1 interpolate: non-finite checksum {checksum}")
+        check_path("SD2.1 interpolate", counts,
+                   ("flash_interpolated_attention[D=64]", "conv3x3_same", "flash_self_attention_f32"))
+        inside = ((images > 0) & (images < 255)).reshape(7, -1).mean(axis=1)
+        frame = int(inside.argmax())
+        check_decoder(pipe.vae.decode, decoder_inputs[0][frame:frame + 1], images, frame)
+        paths.append(counts)
+        del pipe, unet, images, decoder_inputs
+        torch.cuda.empty_cache()
+
+        pipe = load(dtype=torch.float32)
+        unet = pipe.unet
+        if {p.dtype for p in unet.parameters()} != {torch.float32}:
+            fail("load_interpolation_pipeline(dtype=torch.float32) did not give an f32 UNet")
+
+        def forward32(aid_ctx=aid):
+            return forward(aid_ctx, unet, torch.float32)
+
+        counts = check_unet_vs_plain(f"f32 SD2.1 unet fused_outer B=7 {s}x{s}", forward32, aid, F32_UNET_TOL)
+        check_f32_only("f32 SD2.1 forward", counts, ("flash_interpolated_attention_f32[D=64]", "conv3x3_same_f32"))
+        counts = check_fused_vs_plain(f"f32 SD2.1 unet, fused GN+SiLU, fused_outer B=7 {s}x{s}", forward32,
+                                      F32_UNET_TOL, "conv3x3_gnsilu_f32")
+        check_f32_only("f32 SD2.1 fused GN forward", counts,
+                       ("flash_interpolated_attention_f32[D=64]", "conv3x3_same_f32", "conv3x3_gnsilu_f32"))
+        paths.append(counts)
+
+        final, counts, times, _, elapsed, peak = run_image_path(
+            pipe, pipe.vae, lambda: interpolate(num_inference_steps=2, output_type="latent"), 2, 7)
+        checksum = float(final.float().sum())
+        print(f"f32 SD2.1 interpolate, 2 UniPC steps: latents {tuple(final.shape)} {final.dtype}, checksum "
+              f"{checksum!r}; {times['s_per_step']:.3f} s/step (the first steps); encode "
+              f"{' / '.join(f'{x:.3f}' for x in times['encode'])} s per prompt pair; peak memory "
+              f"{peak / 2**30:.2f} GiB on {card}", flush=True)
+        if tuple(final.shape) != (7, cfg.in_channels, s, s) or not math.isfinite(checksum):
+            fail(f"f32 SD2.1 interpolate returned {tuple(final.shape)}, checksum {checksum}")
+        check_f32_only("f32 SD2.1 interpolate", counts, ("flash_interpolated_attention_f32[D=64]", "conv3x3_same_f32"))
+        paths.append(counts)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return paths
+
+
 # the keys every entry of the kernels line carries, in this order
 KERNEL_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
                "bound_by", "library_ms")
@@ -1671,6 +2055,16 @@ def kernels_line(kernels: dict, launches: dict) -> str:
                              {"also_replaces": "aid_tpu/ops/conv.py:47",
                               "contract": "f32, (7,960,128,128) -> 320, 3xTF32; "
                                           + conv_note.replace("aid_conv3x3_blocked_bf16", "aid_conv3x3_blocked_f32")}),
+        "conv3x3_gnsilu_f32": ("aid_tpu_torch/csrc/conv3x3_f32.cu", "aid_tpu/ops/conv.py:78", ("conv3x3_gnsilu_f32",),
+                               {"contract": "f32, (7,960,128,128) -> 320 with the GN+SiLU prologue, 3xTF32; ms: "
+                                            "through the wrapper, as the model calls it (w tiled once; x laid out "
+                                            "with the prologue applied by aid_conv3x3_gnsilu_f32 of the same "
+                                            "source, which every launch runs first); kernel_ms: the conv launch "
+                                            "alone on operands laid out by aid_tpu_torch/ops/conv.py::"
+                                            "kernel_operands; layout_ms: the layout kernel with the prologue "
+                                            "alone, layout_plain_ms: torch's prologue and permuting copy; "
+                                            "sd21_*: the classes of SD 2.1's f32 UNet with the fused "
+                                            "configuration, per forward"}),
     }
     record = []
     for name, (src, replaces, counters, extra) in rows.items():
@@ -1697,9 +2091,10 @@ def main(argv=None) -> int:
     import torch
 
     phase_build()
+    sd21_classes = sd21_fused_conv_classes()
     unet, sample, ehs, uncond, added, coef = build_headline()
     fused_classes = fused_conv_classes(unet, sample, ehs, added)
-    kernels = phase_kernels(coef, sd15_coef(), fused_classes)
+    kernels = phase_kernels(coef, sd15_coef(), fused_classes, sd21_classes)
     phase_unet(unet, sample, ehs, added, coef)
     paths = [phase_main(unet, sample, ehs, uncond, added, coef, args.steps, card)]
     paths += phase_engine(unet, sample, ehs, uncond, added, coef, card)
@@ -1717,6 +2112,8 @@ def main(argv=None) -> int:
     paths.append(phase_f32_sdxl(card))
     torch.cuda.empty_cache()
     paths.append(phase_f32_sd15(card, SD15_STEPS))
+    torch.cuda.empty_cache()
+    paths += phase_sd21(card)
     launches = {name: sum(p[name] for p in paths) for name in paths[0]}
     print(f"launches over the {len(paths)} paths: {launches}", flush=True)
 

@@ -6,6 +6,7 @@ where it lies alone. Neither check imports torch: the preamble only sets the
 import path, and the lone script stops before its first phase.
 """
 
+import dataclasses
 import os
 import shutil
 import subprocess
@@ -54,7 +55,7 @@ def _load_smoke():
 KERNEL_NAMES = ("flash_interpolated_attention", "flash_interpolated_attention(D=40/80/160)",
                 "flash_self_attention_f32", "flash_self_attention_bf16", "conv3x3_same", "conv3x3_same(packed=True)",
                 "conv3x3_gnsilu", "flash_interpolated_attention_f32", "flash_interpolated_attention_f32(D=40/80/160)",
-                "conv3x3_same_f32")
+                "conv3x3_same_f32", "conv3x3_gnsilu_f32")
 
 
 def test_kernels_line_carries_bound_and_library_time():
@@ -69,7 +70,7 @@ def test_kernels_line_carries_bound_and_library_time():
     smoke = _load_smoke()
     records = {}
     for i, name in enumerate(KERNEL_NAMES):
-        lib = None if name.startswith("flash_interpolated") or name == "conv3x3_gnsilu" else 0.5 + i
+        lib = None if name.startswith(("flash_interpolated", "conv3x3_gnsilu")) else 0.5 + i
         records[name] = {"max_abs_err": 1e-3 * i, "ms": 1.0 + i, "plain_ms": 2.0 + i, "bound_ms": 0.25 * (i + 1),
                          "bound_by": "operations", "library_ms": lib, "library": lib and "cudnn channels_last"}
         records[name]["kernel_ms"] = 0.5 + i
@@ -77,6 +78,7 @@ def test_kernels_line_carries_bound_and_library_time():
                 for d in (40, 64, 80, 160)}
     launches.update({c: 3 for c in ("flash_self_attention_f32", "flash_self_attention_bf16", "conv3x3_same",
                                     "conv3x3_gnsilu", "conv3x3_same_f32")})
+    launches["conv3x3_gnsilu_f32"] = 4
     entries = json.loads(smoke.kernels_line(records, launches))["kernels"]
     assert [e["name"] for e in entries] == list(KERNEL_NAMES)
     for e, name in zip(entries, KERNEL_NAMES):
@@ -104,6 +106,10 @@ def test_kernels_line_carries_bound_and_library_time():
     assert by_name["flash_interpolated_attention_f32(D=40/80/160)"]["launches"] == 9
     assert by_name["conv3x3_same_f32"]["source"].endswith("conv3x3_f32.cu")
     assert by_name["conv3x3_same_f32"]["launches"] == 3 and by_name["conv3x3_same_f32"]["replaces"].endswith(":30")
+    # the f32 GN+SiLU conv: TPU kernel #5, in the f32 conv's source, its own count
+    gn32 = by_name["conv3x3_gnsilu_f32"]
+    assert gn32["source"].endswith("conv3x3_f32.cu") and gn32["replaces"] == "aid_tpu/ops/conv.py:78"
+    assert gn32["launches"] == 4 and gn32["library_ms"] is None
 
 
 def test_f32_phases_follow_the_bf16_paths():
@@ -148,3 +154,73 @@ def test_bounds_follow_the_work():
     assert by == "operations" and abs(ms - 0.911) < 1e-3
     ms, by = smoke.conv_bound(7, 128, 128, 960, 320, tf32_passes=3)  # 634 GFLOP at three TF32 passes
     assert by == "operations" and abs(ms - 3.843) < 1e-3
+
+
+def test_sd21_phase_follows_the_f32_paths():
+    """Phase 13 (SD 2.1 through the loader) exists with its banner, runs
+    last in main(), writes its checkpoint inside the checkout's git-ignored
+    build/ and removes it, loads it with no device and no dtype as the app
+    does, and checks the f32 GN+SiLU conv's launches; its SD 2.1 configs
+    read back as the port's presets."""
+    import inspect
+
+    smoke = _load_smoke()
+    src = inspect.getsource(smoke.phase_sd21)
+    assert "== phase 13: SD2.1" in src and "13. SD2.1" in smoke.__doc__
+    main = inspect.getsource(smoke.main)
+    assert main.index("phase_f32_sd15") < main.index("phase_sd21(card)")
+    assert main.index("sd21_fused_conv_classes()") < main.index("phase_kernels(")
+    assert 'dir=os.path.join(ROOT, "build")' in src and "shutil.rmtree(root" in src
+    assert "scheduler_name=\"unipc\", guidance_scale=SD21_GUIDANCE, **kw)" in src and "pipe = load()" in src
+    assert '"conv3x3_gnsilu_f32")' in src and "check_fused_vs_plain(" in src
+    assert smoke.SD21_STEPS == 25 and smoke.SD21_GUIDANCE == 10.0
+    assert "build/" in (REPO / ".gitignore").read_text().split()
+
+    from aid_tpu_torch.models import configs, loader
+
+    cfgs = smoke.sd21_diffusers_configs()
+    assert loader.unet_config_from_diffusers(cfgs["unet"]) == configs.SD21_UNET
+    assert loader.vae_config_from_diffusers(cfgs["vae"]) == configs.SD_VAE
+    text = loader.clip_text_config_from_transformers(cfgs["text_encoder"])
+    assert text == dataclasses.replace(configs.OPENCLIP_VIT_H_TEXT, eos_token_id=2)
+    assert cfgs["scheduler"]["prediction_type"] == "v_prediction" and cfgs["scheduler"]["steps_offset"] == 1
+
+
+def test_sd21_checkpoint_writer_round_trips(tmp_path):
+    """write_sd21_checkpoint at a tiny size on the CPU: every module's
+    weights land as f16 safetensors under the diffusers names that the
+    loader reads strictly, and the tokenizer pads with "!" (id 0)."""
+    import torch
+
+    from aid_tpu_torch.models import loader
+
+    smoke = _load_smoke()
+    cfgs = smoke.sd21_diffusers_configs()
+    cfgs["unet"].update(block_out_channels=[32, 64], down_block_types=["CrossAttnDownBlock2D", "DownBlock2D"],
+                        up_block_types=["UpBlock2D", "CrossAttnUpBlock2D"], layers_per_block=1,
+                        attention_head_dim=[2, 2], cross_attention_dim=32, norm_num_groups=8, sample_size=8)
+    cfgs["vae"].update(block_out_channels=[16, 32], layers_per_block=1, norm_num_groups=4)
+    cfgs["text_encoder"].update(vocab_size=1000, hidden_size=32, intermediate_size=64, num_hidden_layers=2,
+                                num_attention_heads=2)
+    nbytes = smoke.write_sd21_checkpoint(str(tmp_path), device="cpu", configs=cfgs)
+    pipe = loader.load_interpolation_pipeline(str(tmp_path), scheduler_name="unipc", device="cpu")
+    n_params = sum(p.numel() for m in (pipe.unet, pipe.vae, pipe.text_encoder) for p in m.parameters())
+    assert nbytes == 2 * n_params
+    stds = [p.float().std().item() for p in pipe.unet.parameters() if p.numel() > 1000]
+    assert stds and all(0.015 < s < 0.025 for s in stds)  # N(0, 0.02), read back from f16
+    assert pipe.tokenizer.pad_id == 0 and pipe.scheduler.config.prediction_type == "v_prediction"
+
+
+def test_sd21_fused_conv_classes_read_on_meta():
+    """The SD 2.1 GN+SiLU conv classes that phase 3 times are read off a
+    forward on the meta device (no weights, no card): the resnet convs at
+    96^2 and 48^2 with cin >= 320, as gn_conv_fused routes them; phase 13
+    takes no parameter but the card's name."""
+    import inspect
+
+    smoke = _load_smoke()
+    classes = smoke.sd21_fused_conv_classes()
+    assert classes == {(96, 96, 320, 320): 7, (48, 48, 320, 640): 1, (48, 48, 640, 640): 6,
+                       (48, 48, 1920, 640): 1, (48, 48, 1280, 640): 1, (48, 48, 960, 640): 1,
+                       (96, 96, 960, 320): 1, (96, 96, 640, 320): 2}
+    assert list(inspect.signature(smoke.phase_sd21).parameters) == ["card"]

@@ -16,7 +16,13 @@ import torch.nn.functional as F
 
 from aid_tpu_torch.models.layers import per_row_endpoints, skip_mask
 from aid_tpu_torch.ops.attention import AttnMode, dispatch_attention
-from aid_tpu_torch.ops.conv import conv3x3_gnsilu, conv3x3_gnsilu_plain, conv3x3_same, conv3x3_same_f32
+from aid_tpu_torch.ops.conv import (
+    conv3x3_gnsilu,
+    conv3x3_gnsilu_f32,
+    conv3x3_gnsilu_plain,
+    conv3x3_same,
+    conv3x3_same_f32,
+)
 from aid_tpu_torch.ops.flash_attention import (
     flash_interpolated_attention,
     flash_interpolated_attention_f32,
@@ -231,9 +237,9 @@ def test_flash_kernel_refuses_what_it_does_not_take(dev):
     x = _randn((1, 12, 8, 8), 33)  # Cin % 8 != 0
     with pytest.raises(NotImplementedError):
         conv3x3_gnsilu(x, _randn((8, 12, 3, 3), 34), _randn((8,), 35), _randn((12,), 36), _randn((12,), 37), 4)
-    x = _randn((1, 16, 8, 8), 38, torch.float32)  # the GN+SiLU conv has no f32 instance
+    x = _randn((1, 16, 8, 8), 38, torch.float32)  # the GN+SiLU conv has no f16 instance
     with pytest.raises(NotImplementedError):
-        conv3x3_gnsilu(x, _randn((8, 16, 3, 3), 34, torch.float32), _randn((8,), 35, torch.float32),
+        conv3x3_gnsilu(x.half(), _randn((8, 16, 3, 3), 34).half(), _randn((8,), 35, torch.float32),
                        _randn((16,), 36, torch.float32), _randn((16,), 37, torch.float32), 4)
     with pytest.raises(NotImplementedError):  # nor has f16 a conv instance
         conv3x3_same(x.half(), _randn((8, 16, 3, 3), 34).half(), _randn((8,), 35).half())
@@ -592,3 +598,103 @@ def test_conv_f32_layout_kernel_matches_plain(dev, layout):
     got = blocked_input(x)
     assert got.shape == (x.shape[0], x.shape[1] // 4, x.shape[2], x.shape[3], 4)
     assert torch.equal(got, blocked_input_plain(x))
+
+
+@pytest.mark.parametrize("B,Cin,Cout,H,W,groups", [
+    (1, 320, 320, 13, 11, 32),    # pixels not a multiple of the 128-pixel tile
+    (3, 12, 24, 5, 6, 4),         # Cin % 8 != 0: the last K chunk's second block zero-filled
+    (2, 2560, 1280, 9, 7, 32),    # the widest SDXL resnet input
+    (1, 320, 320, 96, 96, 32),    # SD 2.1's fused classes at 96^2 (one full, one half column tile)
+    (1, 640, 320, 96, 96, 32),
+    (1, 640, 640, 48, 48, 32),    # and at 48^2
+    (1, 1280, 640, 48, 48, 32),
+])
+def test_conv_gnsilu_f32_kernel_matches_plain(dev, B, Cin, Cout, H, W, groups):
+    """The f32 GN+SiLU conv (the prologue in the f32 layout pass, then the
+    f32 conv kernel), routed by conv3x3_gnsilu as an f32 UNet calls it,
+    against its plain version in full f32: one launch of the f32 instance,
+    none of the bf16 ones, the border ring (where a halo that took
+    silu(shift) would show) and the interior each within the f32 promise."""
+    x = _randn((B, Cin, H, W), 160, torch.float32) * 2.0 + 1.0
+    w = _randn((Cout, Cin, 3, 3), 161, torch.float32) * (9 * Cin) ** -0.5
+    b = _randn((Cout,), 162, torch.float32)
+    gamma = 1.0 + 0.3 * _randn((Cin,), 163, torch.float32)
+    beta = 0.5 * _randn((Cin,), 164, torch.float32)
+    before = (conv3x3_gnsilu_f32.launches, conv3x3_gnsilu.launches, conv3x3_same_f32.launches)
+    got = conv3x3_gnsilu(x, w, b, gamma, beta, groups)
+    torch.cuda.synchronize()
+    assert (conv3x3_gnsilu_f32.launches, conv3x3_gnsilu.launches, conv3x3_same_f32.launches) == (
+        before[0] + 1, before[1], before[2])
+    want = conv3x3_gnsilu_plain(x, w, b, gamma, beta, groups)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    err = (got - want).abs()
+    ref = want.abs().max().item()
+    ring = _ring(H, W, dev)
+    assert err[:, :, ring].max().item() < F32_CONV_RTOL * ref
+    assert err[:, :, ~ring].max().item() < F32_CONV_RTOL * ref
+
+
+@pytest.mark.parametrize("layout", ["nchw", "channels_last", "row_slice"])
+def test_conv_f32_prologue_layout_matches_plain(dev, layout):
+    """The f32 layout pass with the prologue writes silu(x * scale + shift)
+    as (B, C/4, H, W, 4) from x at its own strides, within a few f32 ulps
+    of the plain version (fma and expf against torch's separate mul, add
+    and silu)."""
+    from aid_tpu_torch.ops.conv import blocked_input, blocked_input_plain
+
+    x = _randn((3, 48, 13, 11), 165, torch.float32) * 3.0
+    if layout == "channels_last":
+        x = x.contiguous(memory_format=torch.channels_last)
+    elif layout == "row_slice":
+        x = x[:, :, 1:]
+    sc, sh = _randn((3, 48), 166, torch.float32), _randn((3, 48), 167, torch.float32)
+    got = blocked_input(x, sc, sh)
+    want = blocked_input_plain(x, sc, sh)
+    assert got.shape == want.shape == (3, 12, x.shape[2], 11, 4)
+    assert (got - want).abs().max().item() <= 1e-6 * want.abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("S,L", [
+    (144, 144),   # SD 2.1's 12^2 self-attention: queries under one 192-row tile, a ragged 16-key tail
+    (576, 576),   # its 24^2 self-attention: 576 keys, not a multiple of the 128-key tile
+    (144, 77),    # a 77-key cross-attention at 12^2
+])
+def test_flash_kernels_at_sd21_shapes(dev, dtype, mode, S, L):
+    """The bf16 and f32 attention at D=64 with SD 2.1's 20 heads at its new
+    ragged sequence lengths, as its UNet calls them ((B, S, H*D) views), in
+    every mode with skip rows at both ends."""
+    B, H, D = 3, 20, 64
+
+    def heads(x):
+        return x.view(x.shape[0], x.shape[1], H, D).transpose(1, 2)
+
+    q = heads(_randn((B, S, H * D), 170, dtype))
+    k, v = heads(_randn((B, L, H * D), 171, dtype)), heads(_randn((B, L, H * D), 172, dtype))
+    coef = torch.tensor([0.0, 0.4, 1.0], device=dev)
+    skip = skip_mask(coef, B)
+    counter = flash_interpolated_attention_f32 if dtype == torch.float32 else flash_interpolated_attention
+    before = counter.launches
+    got = flash_interpolated_attention(q, k, v, coef, mode, skip_endpoints=skip)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    want = flash_interpolated_attention_plain(q, k, v, coef, mode, skip_endpoints=skip)
+    assert got.shape == want.shape and got.dtype == dtype and torch.isfinite(got).all()
+    assert _attn_err(got, want) < (F32_ATTN_RTOL if dtype == torch.float32 else ATTN_RTOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("Cin,Cout", [(960, 320), (640, 320), (640, 640)])
+def test_conv_kernels_at_sd21_width(dev, dtype, Cin, Cout):
+    """The bf16 and f32 conv at W = 96 (SD 2.1's 96^2 up-block convs: one
+    full 64-column tile and one half-empty tile per row), a few rows."""
+    x = _randn((2, Cin, 6, 96), 175, dtype)
+    w = _randn((Cout, Cin, 3, 3), 176, dtype) * (9 * Cin) ** -0.5
+    b = _randn((Cout,), 177, dtype)
+    got = conv3x3_same(x, w, b)
+    torch.cuda.synchronize()
+    want = F.conv2d(x.float(), w.float(), b.float(), padding=1)
+    assert got.shape == want.shape and got.dtype == dtype
+    err = (got.float() - want).abs().max().item() / want.abs().max().item()
+    assert err < (F32_CONV_RTOL if dtype == torch.float32 else CONV_RTOL)

@@ -251,7 +251,8 @@ def test_denoise_steps_and_range_match_jax():
 
 
 def test_import_leaves_jax_out():
-    """The port never imports jax, flax or the JAX package (only modules the
+    """The port never imports jax, flax or the JAX package, nor the
+    safetensors package, which the card's machine lacks (only modules the
     import itself adds count, so a jax preloaded at interpreter start does not)."""
     code = ("import sys; before = set(sys.modules); "
             "import aid_tpu_torch, aid_tpu_torch.ops.flash_attention, aid_tpu_torch.ops.conv, "
@@ -259,8 +260,11 @@ def test_import_leaves_jax_out():
             "aid_tpu_torch.models.vae, aid_tpu_torch.models.freeu, aid_tpu_torch.models.unet, "
             "aid_tpu_torch.models.layers, aid_tpu_torch.models.clip, aid_tpu_torch.pipelines.engine, "
             "aid_tpu_torch.pipelines.sdxl, aid_tpu_torch.pipelines.interpolation, "
-            "aid_tpu_torch.schedulers.ddim, aid_tpu_torch.utils.tokenizer; "
-            "bad = sorted(m for m in set(sys.modules) - before if m.split('.')[0] in ('jax', 'flax', 'aid_tpu')); "
+            "aid_tpu_torch.schedulers.ddim, aid_tpu_torch.utils.tokenizer, aid_tpu_torch.models.loader, "
+            "aid_tpu_torch.schedulers.unipc, aid_tpu_torch.schedulers.pndm, aid_tpu_torch.schedulers.edm_dpm, "
+            "aid_tpu_torch.utils.safetensors; "
+            "bad = sorted(m for m in set(sys.modules) - before "
+            "if m.split('.')[0] in ('jax', 'flax', 'aid_tpu', 'safetensors')); "
             "print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -14,6 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 import torch_helpers as th
 from aid_tpu.ops import interp as jax_interp
@@ -210,7 +211,8 @@ def test_conv_routing_classes():
 
 def test_cpu_routes_to_plain_versions():
     """CPU tensors never launch a kernel (the counters stay put); other
-    devices have no route; reference_ops nests."""
+    devices have no route, except inside reference_ops, where every device
+    takes the plain version; reference_ops nests."""
     x = torch.zeros(1, 8)
     assert not use_kernel(x)
     with pytest.raises(ValueError):
@@ -227,6 +229,7 @@ def test_cpu_routes_to_plain_versions():
         with reference_ops():
             assert not use_kernel(x)
         assert not use_kernel(x)
+        assert not use_kernel(torch.zeros(1, device="meta"))
 
 
 def _emulate_conv_kernel(x, w, b, factors=()):
@@ -802,9 +805,11 @@ def test_flash_f32_tile_constants_follow_the_kernel_source():
     assert int(re.search(r"constexpr int kBQ = (\d+);", src).group(1)) == FA.KERNEL_F32_ROWS
 
 
-def _emulate_conv_f32_kernel(x, w, b):
+def _emulate_conv_f32_kernel(x, w, b, *factors):
     """csrc/conv3x3_f32.cu's data movement, replayed in plain torch (f64
-    arithmetic): the operands through ``kernel_operands``' f32 layouts (x in
+    arithmetic): the operands through ``kernel_operands``' f32 layouts (with
+    ``factors``, the GN+SiLU prologue's scale and shift, applied by the
+    layout pass; x in
     4-channel blocks, w tiled by N tile and 8-channel K chunk); per block
     and chunk the (2 + 2) x (64 + 2) window copied 16 bytes a pixel and block
     (zeros outside the image and past Cin) into 8-float pixels, and the
@@ -814,7 +819,8 @@ def _emulate_conv_f32_kernel(x, w, b):
     added to the accumulators; the masked channels-last store."""
     from aid_tpu_torch.ops import conv as C
 
-    xb, wt, bf, _ = C.kernel_operands(x, w, b)
+    xb, wt, bf, fac = C.kernel_operands(x, w, b, *factors)
+    assert fac == ()  # the prologue is the layout pass's: the conv launch takes no factors
     B, G, H, W, _ = xb.shape
     Cin, Cout, BN, KC = 4 * G, bf.shape[0], C.F32_N_TILE, C.F32_K_CHUNK
     TR, TW = C.F32_TILE_ROWS, C.F32_TILE_COLS
@@ -884,6 +890,70 @@ def test_conv_f32_kernel_layouts_replayed(B, Cin, Cout, H, W):
     want = conv3x3_same_plain(x, w, b)
     assert got.shape == want.shape
     assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+@pytest.mark.parametrize("B,Cin,Cout,H,W,groups", [
+    (1, 12, 24, 5, 7, 4),     # Cin % 8 != 0, ragged everything
+    (2, 16, 170, 3, 70, 8),   # two column tiles, two N tiles, a half row tile
+])
+def test_conv_gnsilu_f32_kernel_replayed(B, Cin, Cout, H, W, groups):
+    """The f32 GN+SiLU conv: the prologue applied in the layout pass (the
+    blocked copy holds silu(x * scale + shift)), then the f32 conv kernel's
+    copies and fragments replayed unchanged, compute conv3x3_gnsilu_plain;
+    the window's zero fill outside the image is the zero halo after the
+    prologue. Input and gamma/beta far from 0/1, so a halo that took
+    silu(shift) would show on the border. f64 in the replay."""
+    from aid_tpu_torch.ops.conv import conv3x3_gnsilu_plain, gn_scale_shift
+
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn(B, Cin, H, W, generator=g) * 3 + 1.5
+    w = torch.randn(Cout, Cin, 3, 3, generator=g) * (9 * Cin) ** -0.5
+    b = torch.randn(Cout, generator=g)
+    gamma, beta = 1 + 0.3 * torch.randn(Cin, generator=g), 0.5 * torch.randn(Cin, generator=g)
+    got = _emulate_conv_f32_kernel(x, w, b, *gn_scale_shift(x, gamma, beta, groups, 1e-5))
+    want = conv3x3_gnsilu_plain(x, w, b, gamma, beta, groups)
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+def test_conv_gnsilu_f32_operands():
+    """kernel_operands with f32 factors: x laid out with the prologue
+    applied (blocked_input_plain of silu_affine(x)), the factors consumed;
+    bf16 passes them on to its kernel, as before."""
+    from aid_tpu_torch.ops import conv as C
+
+    g = torch.Generator().manual_seed(8)
+    x = torch.randn(2, 8, 3, 5, generator=g) * 2 + 1
+    w, b = torch.randn(6, 8, 3, 3, generator=g), torch.randn(6, generator=g)
+    sc, sh = torch.randn(2, 8, generator=g), torch.randn(2, 8, generator=g)
+    xb, wt, bf, fac = C.kernel_operands(x, w, b, sc, sh)
+    want = F.silu(x * sc[:, :, None, None] + sh[:, :, None, None])
+    assert fac == () and torch.equal(xb, C.blocked_input_plain(want))
+    assert torch.equal(xb, C.blocked_input(x, sc, sh)) and xb.shape == (2, 2, 3, 5, 4)
+    xb16, _, _, fac16 = C.kernel_operands(x.bfloat16(), w.bfloat16(), b, sc, sh)
+    assert torch.equal(xb16, C.blocked_input_plain(x.bfloat16())) and len(fac16) == 2
+
+
+@pytest.mark.parametrize("hw,cin,cout,groups", [(16, 64, 48, 8), (8, 32, 32, 32)])
+def test_conv_gnsilu_f32_plain_matches_pallas_interpret(hw, cin, cout, groups):
+    """The f32 conv3x3_gnsilu (and conv3x3_gnsilu_f32, on the CPU its plain
+    version) against the JAX conv3x3_gnsilu in f32 through the Pallas kernel
+    in interpret mode, within 1e-5 of max |ref|: both compute the one-pass
+    statistics and the f32 prologue, then an f32 conv; only summation order
+    differs (~1e-7)."""
+    from aid_tpu_torch.ops.conv import conv3x3_gnsilu_f32
+
+    x = th.normal(61, (2, hw, hw, cin), scale=3.0) + 1.5
+    w = th.normal(62, (3, 3, cin, cout), scale=cin ** -0.5)
+    b = th.normal(63, (cout,))
+    gamma, beta = 1.0 + th.normal(64, (cin,), scale=0.3), th.normal(65, (cin,), scale=0.5)
+    want = np.asarray(jax_conv3x3_gnsilu(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), jnp.asarray(gamma),
+                                         jnp.asarray(beta), num_groups=groups, block_rows=8, interpret=True))
+    args = (th.nhwc_to_nchw(x), torch.from_numpy(np.ascontiguousarray(w.transpose(3, 2, 0, 1))), torch.from_numpy(b),
+            torch.from_numpy(gamma), torch.from_numpy(beta), groups)
+    for fn in (conv3x3_gnsilu, conv3x3_gnsilu_f32):
+        got = fn(*args)
+        assert got.dtype == torch.float32
+        assert th.max_rel_err(th.nchw_to_nhwc(got), want) < 1e-5
 
 
 def test_conv_f32_layouts():
