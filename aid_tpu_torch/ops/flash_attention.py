@@ -17,7 +17,9 @@ Four kernels take CUDA calls:
     ``flash_interpolated_attention.launches_by_head_dim``;
   * f32 with head dim 40, 64, 80 or 160, every mode (the same attentions in
     an f32 UNet, the reference's default dtype): the same C signature in
-    ``csrc/flash_interpolated_attention_f32.cu`` (3xTF32), reached through
+    ``csrc/flash_interpolated_attention_f32.cu`` (3xTF32; wgmma on TMA tiles
+    that a producer warpgroup splits and transposes at D = 40/64/80,
+    mma.sync at D = 160), reached through
     :func:`flash_interpolated_attention_f32` and counted by its
     ``launches`` and ``launches_by_head_dim``;
   * f32 with head dim 512, self mode (the VAE mid-block attention, one head
@@ -52,10 +54,15 @@ D512 = 512  # the VAE mid block's head dim: the self-mode kernels in f32 and bf1
 #: tile, K/V stages in its ring), csrc/flash_interpolated_attention.cu's
 #: Tiles<D>: one consumer warpgroup per 64 query rows.
 KERNEL_TILES = {40: (192, 128, 3), 64: (192, 128, 3), 80: (128, 128, 2), 160: (64, 64, 3)}
-#: the f32 kernel's tiles by head dim: (keys per K/V tile, row pitch of Q and
-#: K, row pitch of V, in floats), csrc/flash_interpolated_attention_f32.cu's
-#: Tiles<D>; every block holds 64 query rows, 16 a warp.
-KERNEL_F32_TILES = {40: (64, 40, 44), 64: (64, 72, 68), 80: (64, 88, 84), 160: (32, 168, 164)}
+#: the f32 kernel's wgmma instances by head dim: (query rows per block, keys
+#: per K/V tile, stages in its ring), csrc/flash_interpolated_attention_f32.cu's
+#: Tiles<D>: one consumer warpgroup per 64 query rows.
+KERNEL_F32_TILES = {40: (192, 32, 4), 64: (128, 64, 2), 80: (128, 32, 3)}
+#: the f32 kernel's mma.sync instance (head dim 160): (keys per K/V tile,
+#: keys per K/V tile in the outer modes, row pitch of Q and K, row pitch of
+#: V, in floats), MmaTiles<D> of the same source; every block holds
+#: KERNEL_F32_ROWS query rows, 16 a warp.
+KERNEL_F32_MMA_TILES = {160: (16, 32, 168, 164)}
 KERNEL_F32_ROWS = 64
 #: the C entry of the D <= 160 kernels by operand dtype (one C signature)
 KERNEL_ENTRIES = {torch.bfloat16: "aid_flash_attn_bf16", torch.float32: "aid_flash_attn_f32"}
@@ -254,9 +261,11 @@ def kernel_operands(
 
     tensors = [q, k, v, *eps]
     names = ("q", "k", "v", "k_begin", "v_begin", "k_end", "v_end")
-    for i, (name, x) in enumerate(zip(names, tensors)):
-        if any(x is y for y in tensors[:i]):
-            continue  # checked already
+    checked = set()
+    for name, x in zip(names, tensors):
+        if id(x) in checked:
+            continue
+        checked.add(id(x))
         if x.device != dev:
             raise ValueError(f"{name} is on {x.device}, q on {dev}")
         _check_operand(name, x, q.dtype)
@@ -268,6 +277,22 @@ def kernel_operands(
                 scale=D ** -0.5 if scale is None else scale,
                 has_own=int(mode in (AttnMode.SELF, AttnMode.FUSED_OUTER, AttnMode.FUSED_INNER)),
                 n_sets=2 if mode.is_outer else (1 if mode.is_inner else 0))
+
+
+_DIMS_ARRAYS: dict = {}
+
+
+def _dims_array(dims: list):
+    """The C entry's dims as a ctypes array, one per distinct dims: a model
+    calls the kernel at a few shapes, and building the array took an eighth
+    of the wrapper's host work. The C side only reads it."""
+    key = tuple(dims)
+    arr = _DIMS_ARRAYS.get(key)
+    if arr is None:
+        if len(_DIMS_ARRAYS) >= 1024:
+            _DIMS_ARRAYS.clear()
+        arr = _DIMS_ARRAYS[key] = (ctypes.c_longlong * len(key))(*key)
+    return arr
 
 
 def kernel_launch(*args, **kwargs) -> tuple:
@@ -283,7 +308,7 @@ def kernel_launch(*args, **kwargs) -> tuple:
     lib = _build.library()
     c_args = (*(x.data_ptr() for x in tensors),
               *(None if x is None else x.data_ptr() for x in (ops["coef"], ops["skip"])),
-              (ctypes.c_longlong * len(ops["dims"]))(*ops["dims"]), float(ops["scale"]), ops["has_own"],
+              _dims_array(ops["dims"]), float(ops["scale"]), ops["has_own"],
               ops["n_sets"], torch.cuda.current_stream(out.device).cuda_stream)
 
     fn = getattr(lib, ops["entry"])
@@ -354,7 +379,8 @@ def flash_interpolated_attention_f32(
 ) -> torch.Tensor:
     """:func:`flash_interpolated_attention`'s contract in f32 at head dim
     40, 64, 80 or 160, every mode (an f32 UNet's attentions):
-    ``csrc/flash_interpolated_attention_f32.cu`` (both products in 3xTF32)
+    ``csrc/flash_interpolated_attention_f32.cu`` (both products in 3xTF32:
+    its wgmma instance at D = 40/64/80, its mma.sync instance at D = 160)
     on CUDA tensors, the plain version on CPU tensors. Returns (B, H, Sq, D)
     f32; on CUDA a view of a (B, Sq, H, D) buffer, as the bf16 kernel writes.
     """

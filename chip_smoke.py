@@ -526,7 +526,8 @@ def phase_kernels(coef, sd_coef, fused_classes, sd21_classes):
                    if f32 and library else "")
         ok = math.isfinite(err) and err <= tol * ref
         print(f"attention {'f32 ' if f32 else ''}{label:32s} B={B} H={H} D={D}: max_abs_err {err:.3e} (max|ref| "
-              f"{ref:.3e}, tol {tol * ref:.3e}) rel_l2 {rl2:.3e}  kernel {ms:.4f} ms (launch alone {kernel_ms:.4f})  "
+              f"{ref:.3e}, tol {tol * ref:.3e}) rel_l2 {rl2:.3e}  kernel {ms:.4f} ms (launch alone {kernel_ms:.4f}, "
+              f"{bound_ms / kernel_ms:.1%} of the bound)  "
               f"plain {plain_ms:.3f} ms  {yardsticks(bound_ms, bound_by, library)}{lib_err}  {'ok' if ok else 'FAIL'}",
               flush=True)
         if not ok:
@@ -537,11 +538,16 @@ def phase_kernels(coef, sd_coef, fused_classes, sd21_classes):
 
     def attention_record(cases, coefs, main_label, self_label, dtype=torch.bfloat16):
         """Run ``cases``; the record is the main (fused_outer) case's, with
-        the self case's time, bound and fastest SDPA beside it."""
-        worst = 0.0
+        the self case's time, bound and fastest SDPA beside it. f32 records
+        also carry every case (``shapes``: through the wrapper, launched
+        alone, the bound and its share of the launch alone, the library)."""
+        worst, shapes = 0.0, {}
         for label, mode, H, Sq, L, D, reps, Le in cases:
             r = attention(label, mode, coefs, H, Sq, L, D, reps, Le, dtype)
             worst = max(worst, r["max_abs_err"])
+            shapes[f"{label} ({coefs.shape[0]},{H},{Sq},{D})"] = {
+                **{k: r[k] for k in ("ms", "kernel_ms", "bound_ms", "library_ms")},
+                "bound_share": r["bound_ms"] / r["kernel_ms"]}
             if label == main_label:
                 main = r
             if label == self_label:
@@ -549,7 +555,8 @@ def phase_kernels(coef, sd_coef, fused_classes, sd21_classes):
         return {**main, "max_abs_err": worst, "library_ms": None, "library": None,
                 "self_ms": self_case["ms"], "self_kernel_ms": self_case["kernel_ms"],
                 "self_bound_ms": self_case["bound_ms"],
-                "self_library_ms": self_case["library_ms"], "self_library": self_case["library"]}
+                "self_library_ms": self_case["library_ms"], "self_library": self_case["library"],
+                **({"shapes": shapes} if dtype == torch.float32 else {})}
 
     # SDXL, D=64 (label, mode, H, Sq, Lkv, D, reps, Le): self/fused_outer
     # self-attention and the 77-token cross-attention at both SDXL attention
@@ -612,8 +619,9 @@ def phase_kernels(coef, sd_coef, fused_classes, sd21_classes):
                                       "self_bound_ms", "self_library_ms")):
         """``record`` with its worst error over the SD 2.1 cases too and the
         SD 2.1 main case's ``keys`` beside it (sd21_*)."""
+        shapes = {**record["shapes"], **sd21["shapes"]} if "shapes" in record else None
         return {**record, "max_abs_err": max(record["max_abs_err"], sd21["max_abs_err"]),
-                **{f"sd21_{k}": sd21[k] for k in keys}}
+                **{f"sd21_{k}": sd21[k] for k in keys}, **({"shapes": shapes} if shapes else {})}
 
     records["flash_interpolated_attention"] = with_sd21(
         records["flash_interpolated_attention"],
@@ -2007,6 +2015,7 @@ def kernels_line(kernels: dict, launches: dict) -> str:
                  "layout_ms: the layout kernel alone, layout_plain_ms: torch's permuting copy")
     attn_note = ("ms: through the wrapper, as the model calls it; kernel_ms: the launch alone on operands "
                  "aid_tpu_torch/ops/flash_attention.py::kernel_launch prepared once")
+    f32_wgmma = "wgmma 3xTF32 (raw hi), TMA, a split/transpose producer warpgroup"
     # name -> (source, TPU kernel replaced, the launch counts it is read from, extra fields)
     rows = {
         "flash_interpolated_attention": (
@@ -2042,15 +2051,18 @@ def kernels_line(kernels: dict, launches: dict) -> str:
                            {"contract": f"bf16, (7,960,128,128) -> 320 with the GN+SiLU prologue; {conv_note}"}),
         "flash_interpolated_attention_f32": (
             flash_f32_src, flash_replaces[0], ("flash_interpolated_attention_f32[D=64]",),
-            {**flash_replaces[1], "contract": "f32, head dim 64, every mode (an f32 SDXL / SD2.x UNet), 3xTF32; "
-                                              "ms at fused_outer (7,10,4096,64), self_* at self (7,10,4096,64); "
-                                              f"{attn_note}"}),
+            {**flash_replaces[1], "design": f32_wgmma,
+             "contract": "f32, head dim 64, every mode (an f32 SDXL / SD2.x UNet), 3xTF32; "
+                         "ms at fused_outer (7,10,4096,64), self_* at self (7,10,4096,64); "
+                         f"{attn_note}"}),
         "flash_interpolated_attention_f32(D=40/80/160)": (
             flash_f32_src, flash_replaces[0],
             tuple(f"flash_interpolated_attention_f32[D={d}]" for d in (40, 80, 160)),
-            {**flash_replaces[1], "contract": "f32, head dims 40/80/160, every mode (an f32 SD1.x UNet), 3xTF32; "
-                                              "ms at fused_outer (7,8,4096,40), self_* at self (7,8,4096,40); "
-                                              f"{attn_note}"}),
+            {**flash_replaces[1], "design": f"{f32_wgmma} at D=40/80; mma.sync 3xTF32, fragments split in "
+                                            "registers, at D=160",
+             "contract": "f32, head dims 40/80/160, every mode (an f32 SD1.x UNet), 3xTF32; "
+                         "ms at fused_outer (7,8,4096,40), self_* at self (7,8,4096,40); "
+                         f"{attn_note}"}),
         "conv3x3_same_f32": ("aid_tpu_torch/csrc/conv3x3_f32.cu", "aid_tpu/ops/conv.py:30", ("conv3x3_same_f32",),
                              {"also_replaces": "aid_tpu/ops/conv.py:47",
                               "contract": "f32, (7,960,128,128) -> 320, 3xTF32; "

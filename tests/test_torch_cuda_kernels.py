@@ -24,6 +24,8 @@ from aid_tpu_torch.ops.conv import (
     conv3x3_same_f32,
 )
 from aid_tpu_torch.ops.flash_attention import (
+    KERNEL_F32_MMA_TILES,
+    KERNEL_F32_TILES,
     flash_interpolated_attention,
     flash_interpolated_attention_f32,
     flash_interpolated_attention_plain,
@@ -320,14 +322,25 @@ def test_flash_d512_refuses_other_instances(dev):
     (3, 2, 200, 129, None, None),   # Sq past a 64-row q tile, 129 keys: a 1-key last tile (64- and 32-key tiles)
     (2, 3, 77, 77, 23, 4),          # 77 keys and queries (a ragged key tail), per-row endpoints of 23 keys
     (4, 2, 130, 77, 129, 3),        # shared 3D endpoints of 129 keys
+    # the edges of each instance's own tiles ("bk": its keys per tile; query rows 192 / 128 / 128 / 64 at
+    # D = 40 / 64 / 80 / 160)
+    (3, 2, 129, 1, 1, 3),           # one key and a shared one-key endpoint, Sq one row past 128 (or 64 x 2)
+    (3, 2, 127, "bk-1", "bk+1", 4),  # Sq one row short of 128, per-row endpoints one key past the tile
+    (3, 2, 255, "bk+1", "bk-1", 3),  # Sq one short of 256, shared endpoints one key short (15, 31 or 63)
 ])
 def test_flash_f32_kernel_matches_plain(dev, D, mode, B, H, S, L, Le, ep):
     """The f32 kernel at every head dim and mode, as an f32 UNet calls it:
     (B, S, H*D) projections viewed as (B, H, S, D) (columns past D are the
-    next head's), q and key tails past every tile, per-row and shared
-    endpoints, skip rows at both ends; one launch of the f32 instance, within
-    the f32 promise of the plain version (TF32 off), and the strided views
-    equal to contiguous copies bit for bit."""
+    next head's), q tails past, at and short of every query tile, key
+    segments of 1, tile - 1 and tile + 1 keys and other ragged tails,
+    per-row and shared endpoints, skip rows at both ends (the middle rows
+    blend); one launch of the f32 instance, within the f32 promise of the
+    plain version (TF32 off), and the strided views equal to contiguous
+    copies bit for bit."""
+    bk = (KERNEL_F32_TILES[D][1] if D in KERNEL_F32_TILES
+          else KERNEL_F32_MMA_TILES[D][1 if AttnMode(mode).is_outer else 0])
+    L, Le = ({"bk-1": bk - 1, "bk+1": bk + 1}.get(x, x) for x in (L, Le))
+
     def heads(x):
         return x.view(x.shape[0], x.shape[1], H, D).transpose(1, 2)
 

@@ -395,20 +395,61 @@ def _tf32_matmul(a: torch.Tensor, b: torch.Tensor, passes: int) -> torch.Tensor:
     return out
 
 
-@pytest.mark.parametrize("passes,within", [(3, True), (1, False)])
-def test_three_tf32_passes_keep_the_f32_attention_promise(passes, within):
-    """Why the f32 D=512 kernel spends three tensor-core passes per product:
-    softmax(Q K^T / sqrt(d)) V at (1, 1, 1024, 512) with both products in
-    3xTF32 stays within the f32 attention's 1e-4 of max |out| (chip_smoke.py's
+def _tf32_tiled_attention(q, k, v, passes: int, bk: int = 64) -> torch.Tensor:
+    """softmax(q k^T / sqrt(d)) v as csrc/flash_interpolated_attention_f32.cu's
+    wgmma instances round it: operands split with the raw f32 value as hi
+    (read truncated to tf32) and lo = a - trunc(a) (read truncated too), 3
+    passes (hi*hi + hi*lo + lo*hi) or 1 (plain TF32, hi*hi); an online
+    softmax over ``bk``-key tiles with P in f32, each tile's P V summed from
+    zero (f64 here, rounded to the f32 accumulator) and folded into the f32
+    O by an FMA, as the kernel folds it."""
+    def mm(a, b):  # a @ b.T, operands as the tensor cores read them
+        out = _tf32_trunc(a).double() @ _tf32_trunc(b).double().T
+        if passes == 3:
+            out = out + _tf32_trunc(a).double() @ _tf32_trunc(b - _tf32_trunc(b)).double().T
+            out = out + _tf32_trunc(a - _tf32_trunc(a)).double() @ _tf32_trunc(b).double().T
+        return out
+
+    sl2 = q.shape[-1] ** -0.5 * 1.4426950408889634
+    o = torch.zeros(q.shape[0], v.shape[1])
+    m = torch.full((q.shape[0],), -math.inf)
+    lsum = torch.zeros(q.shape[0])
+    for r0 in range(0, k.shape[0], bk):
+        s = mm(q, k[r0:r0 + bk]).float()
+        mn = torch.maximum(m, s.max(dim=1).values)
+        alpha = torch.exp2((m - mn) * sl2)
+        p = torch.exp2(s * sl2 - (mn * sl2)[:, None])
+        m, lsum = mn, lsum * alpha + p.sum(dim=1)
+        part = mm(p, v[r0:r0 + bk].T.contiguous()).float()
+        o = torch.addcmul(part, o, alpha[:, None])  # fmaf(o, alpha, part) up to one rounding
+    return o.double() / lsum.double()[:, None]
+
+
+@pytest.mark.parametrize("passes,within,split", [(3, True, "rna"), (1, False, "rna"), (3, True, "raw"),
+                                                 (1, False, "raw")],
+                         ids=["3-True", "1-False", "raw-3-True", "raw-1-False"])
+def test_three_tf32_passes_keep_the_f32_attention_promise(passes, within, split):
+    """Why the f32 attention kernels spend three tensor-core passes per
+    product. ``rna`` (the D=512 kernel's split, hi = cvt.rna): softmax(Q K^T
+    / sqrt(d)) V at (1, 1, 1024, 512) with both products in 3xTF32 stays
+    within the f32 attention's 1e-4 of max |out| (chip_smoke.py's
     F32_ATTN_TOL, the VAE decode's promise) of the f64 result; plain TF32
-    misses it."""
+    misses it. ``raw`` (the D = 40/64/80 kernel's split, hi = the raw f32
+    value read truncated, ~4x coarser): at D = 64 over a key stream as long
+    as SD 2.1's fused_outer (9216 own + 9216 endpoint keys), with the
+    kernel's online softmax over 64-key tiles and each tile's P V folded in
+    f32, 3xTF32 still stays within 1e-4 of max |out|; plain TF32 does not."""
     f32_attn_tol = 1e-4
     rng = np.random.default_rng(0)
-    S, D = 1024, 512
-    q, k, v = (torch.from_numpy(rng.standard_normal((S, D), dtype=np.float32)) for _ in range(3))
+    S, L, D = (1024, 1024, 512) if split == "rna" else (128, 18432, 64)
+    q = torch.from_numpy(rng.standard_normal((S, D), dtype=np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((L, D), dtype=np.float32)) for _ in range(2))
     want = torch.softmax(q.double() @ k.double().T * D ** -0.5, dim=-1) @ v.double()
-    p = torch.softmax(_tf32_matmul(q, k, passes) * D ** -0.5, dim=-1).float()
-    got = _tf32_matmul(p, v.T.contiguous(), passes)
+    if split == "rna":
+        p = torch.softmax(_tf32_matmul(q, k, passes) * D ** -0.5, dim=-1).float()
+        got = _tf32_matmul(p, v.T.contiguous(), passes)
+    else:
+        got = _tf32_tiled_attention(q, k, v, passes)
     err = ((got - want).abs().max() / want.abs().max()).item()
     assert (err < f32_attn_tol) == within, err
 
@@ -615,21 +656,168 @@ def _pair_offsets(ld: int, rows8: bool) -> torch.Tensor:
     return torch.stack([g * ld + 2 * t, g * ld + 2 * t + 1], 1)  # B: (n = g; k = t, t + 4)
 
 
+def _tf32_read(x: torch.Tensor) -> torch.Tensor:
+    """An f32 operand as the tensor cores read it (tf32: the low 13 mantissa
+    bits dropped), in f64."""
+    return _tf32_trunc(x.float()).double()
+
+
+def _tf32_rest(x: torch.Tensor) -> torch.Tensor:
+    """x - trunc(x) in f32 (tf32_rest in csrc/tf32_mma.cuh): the lo operand
+    of the split whose hi operand is the raw f32 value."""
+    x = x.float()
+    return x - _tf32_trunc(x)
+
+
 def _emulate_flash_f32_kernel(ops: dict) -> torch.Tensor:
-    """csrc/flash_interpolated_attention_f32.cu's data movement, replayed in
-    plain torch (f64 arithmetic) from the C entry's own arguments
-    (``kernel_operands``): each block's 64-row Q tile and each segment's
+    """The wgmma instances of csrc/flash_interpolated_attention_f32.cu (head
+    dims 40, 64, 80), replayed in plain torch from the C entry's own
+    arguments (``kernel_operands``).
+
+    Each operand is read as its tensor map reads it: (D, H, S, B) over the
+    tensor's storage at the strides in ``dims`` (a batch stride of 0: batch
+    extent 1), boxes of 32 f32 by a tile of rows, zeros outside the extents
+    (columns past D, rows past the segment), stored 128-byte swizzled. Q's
+    A fragments are loaded from the block's Q tile and split (hi = the raw
+    value, lo = its rest); the split warps write K_lo chunk by chunk and
+    V^T, (V^T)_lo with each 8-key group permuted (0,2,4,6,1,3,5,7); S = Q
+    K^T reads K and K_lo through K-major descriptors (start + 32 bytes per
+    k8 step, 8-row groups 1024 bytes apart), P's A fragment is taken from
+    the S accumulator registers as the kernel takes it, and P V reads V^T
+    and (V^T)_lo the same way. Every operand is truncated to tf32 where the
+    tensor cores read it, products summed in f64; the online softmax, the
+    per-tile fold, the parked outer state and the strided output store
+    follow the kernel."""
+    from aid_tpu_torch.ops.flash_attention import KERNEL_F32_TILES
+
+    tensors, dims = ops["tensors"], ops["dims"]
+    B, H, Sq, Lk, Le, D = dims[:6]
+    BQ, BK, _ = KERNEL_F32_TILES[D]
+    chunks, ks_qk, ks_pv = -(-D // 32), D // 8, BK // 8
+    sl2 = ops["scale"] * 1.4426950408889634
+    flat = [torch.as_strided(x, (x.untyped_storage().nbytes() // 4 - x.storage_offset(),), (1,),
+                             x.storage_offset()) for x in tensors]
+    strides = [dims[6 + 3 * i:9 + 3 * i] for i in range(8)]
+    extents = [Sq, Lk, Lk, Le, Le, Le, Le]
+
+    def tile(i, h, s0, b, rows):  # the boxes of a row tile, one after the other (f32 elements, swizzled)
+        sb, sh, ss = strides[i]
+        b = 0 if sb == 0 else b
+        r, x = torch.arange(rows)[:, None], torch.arange(32)[None, :]
+        out = torch.zeros(chunks * rows * 32)
+        for c in range(chunks):
+            ok = (32 * c + x < D) & (s0 + r < extents[i])
+            idx = torch.where(ok, b * sb + h * sh + (s0 + r) * ss + 32 * c + x, 0)
+            out[c * rows * 32 + _swizzle128(r * 128 + x * 4).reshape(-1) // 4] = torch.where(
+                ok, flat[i][idx], 0.0).reshape(-1)
+        return out
+
+    def kmajor(smem, start, rows):  # (rows, 8) through a K-major descriptor at byte `start`
+        r, kc = torch.arange(rows)[:, None], torch.arange(8)[None, :]
+        return smem[_swizzle128(start + (r // 8) * 1024 + (r % 8) * 128 + kc * 4) // 4]
+
+    # the split warps: V^T (D rows per 32 keys) from the raw V tile, each 8-key group permuted
+    lane, w8 = torch.arange(32), torch.arange(8)
+    pos = torch.tensor([0, 4, 1, 5, 2, 6, 3, 7])  # key w of a group -> its position in V^T's row
+
+    def transposed(vraw):
+        vt = torch.zeros(BK // 32 * D * 32)
+        for cb in range(chunks):
+            d = 32 * cb + lane
+            keep = d < D
+            for grp in range(BK // 8):
+                src = cb * BK * 32 + _swizzle128((8 * grp + w8[None, :]) * 128 + lane[:, None] * 4) // 4  # (lane, w)
+                row = (grp // 4) * D * 128 + d[:, None] * 128 + (grp % 4) * 32 + pos[None, :] * 4
+                vt[(_swizzle128(row) // 4)[keep]] = vraw[src[keep]]
+        return vt
+
+    g, t = _LANE_G, _LANE_T
+    coef, skip = ops["coef"], ops["skip"]
+    has_own, n_sets = ops["has_own"], ops["n_sets"]
+    out_flat = torch.zeros(flat[7].shape, dtype=torch.float64)
+    for b in range(B):
+        skipped = n_sets > 0 and skip is not None and bool(skip[b])
+        segs = ([(1, 2, Lk)] if has_own else []) + ([(3, 4, Le)] if n_sets and not skipped else []) + (
+            [(5, 6, Le)] if n_sets == 2 and not skipped else [])
+        blend = n_sets == 2 and not skipped
+        c = float(coef[b]) if blend else 0.0
+        for h in range(H):
+            for q0 in range(0, Sq, BQ):
+                for wg in range(BQ // 64):
+                    qt = tile(0, h, q0 + 64 * wg, b, 64)
+                    # A registers (warp, k8 step, lane, reg): rows 16 warp + g (+8), columns 8 kk + t (+4)
+                    e = torch.arange(4)
+                    rr = 16 * torch.arange(4)[:, None, None, None] + g[None, None, :, None] + 8 * (e & 1)
+                    cc = 8 * torch.arange(ks_qk)[None, :, None, None] + t[None, None, :, None] + 4 * (e >> 1)
+                    qv = qt[(cc // 32) * 64 * 32 + _swizzle128(rr * 128 + (cc % 32) * 4) // 4]
+                    qhi, qlo = _a_matrix(_tf32_read(qv)), _a_matrix(_tf32_read(_tf32_rest(qv)))  # (4, KS, 16, 8)
+                    o = torch.zeros(4, 16, D, dtype=torch.float64)
+                    m = torch.full((4, 16), -math.inf, dtype=torch.float64)
+                    lsum = torch.zeros(4, 16, dtype=torch.float64)
+                    park = None
+                    for n, (ki, vi, length) in enumerate(segs):
+                        if blend and n == len(segs) - 1:  # the end segment: (1 - c) O_begin / l exchanged
+                            if has_own:
+                                park, (o, m, lsum) = o / lsum[..., None] * (1 - c), park
+                            else:
+                                park = o / lsum[..., None] * (1 - c)
+                                o = torch.zeros_like(o)
+                                m, lsum = torch.full_like(m, -math.inf), torch.zeros_like(lsum)
+                        for r0 in range(0, length, BK):
+                            kt, vraw = tile(ki, h, r0, b, BK), tile(vi, h, r0, b, BK)
+                            klo = _tf32_rest(kt)  # chunk by chunk, in place of the raw K
+                            vt = transposed(vraw)
+                            vtlo = _tf32_rest(vt)
+                            offs = [(kk // 4) * BK * 128 + (kk % 4) * 32 for kk in range(ks_qk)]
+                            kh = torch.stack([_tf32_read(kmajor(kt, o_, BK)) for o_ in offs])  # (KS, BK, 8)
+                            kl = torch.stack([_tf32_read(kmajor(klo, o_, BK)) for o_ in offs])
+                            s = (torch.einsum("wkrc,knc->wrn", qlo, kh) + torch.einsum("wkrc,knc->wrn", qhi, kl)
+                                 + torch.einsum("wkrc,knc->wrn", qhi, kh))  # (4, 16, BK), keys in order
+                            s[..., min(BK, length - r0):] = -math.inf
+                            mn = torch.maximum(m, s.max(dim=-1).values)
+                            alpha = torch.exp2((m - mn) * sl2)
+                            p = torch.exp2(s * sl2 - (mn * sl2)[..., None]).float()  # f32 in the kernel
+                            m, lsum = mn, lsum * alpha + p.double().sum(dim=-1)
+                            # P's A registers from its S registers: a = (c0, c2, c1, c3) of n8 tile j
+                            pc = _c_regs(p.reshape(4, 16, BK // 8, 8).transpose(1, 2))  # (4, BK/8, 32, 4)
+                            pa = pc[..., [0, 2, 1, 3]]
+                            ph, pl = _a_matrix(_tf32_read(pa)), _a_matrix(_tf32_read(_tf32_rest(pa)))
+                            offs = [(ks // 4) * D * 128 + (ks % 4) * 32 for ks in range(ks_pv)]
+                            vh = torch.stack([_tf32_read(kmajor(vt, o_, D)) for o_ in offs])  # (BK/8, D, 8)
+                            vl = torch.stack([_tf32_read(kmajor(vtlo, o_, D)) for o_ in offs])
+                            part = (torch.einsum("wkrc,knc->wrn", pl, vh) + torch.einsum("wkrc,knc->wrn", ph, vl)
+                                    + torch.einsum("wkrc,knc->wrn", ph, vh))
+                            o = o * alpha[..., None] + part
+                        if blend and has_own and n == 0:
+                            park = (o, m, lsum)
+                    o = o / lsum[..., None] * (c if blend else 1.0)
+                    if blend:
+                        o = o + park
+                    sb, sh, ss = strides[7]
+                    rows = q0 + 64 * wg + torch.arange(64).reshape(4, 16)
+                    keep = (rows < Sq)[..., None].expand(4, 16, D)
+                    dst = b * sb + h * sh + rows[..., None] * ss + torch.arange(D)
+                    out_flat[dst[keep]] = o[keep]
+    out = tensors[7]
+    return torch.as_strided(out_flat, out.shape, out.stride()).float()
+
+
+def _emulate_flash_f32_mma_kernel(ops: dict) -> torch.Tensor:
+    """The mma.sync instance of csrc/flash_interpolated_attention_f32.cu (head
+    dim 160), replayed in plain torch (f64 arithmetic) from the C entry's own
+    arguments (``kernel_operands``): each block's 64-row Q tile and each segment's
     K/V tiles copied row by row at the operands' strides into tiles of the
     kernel's pitches (zeros past the segment; a batch stride of 0 reads one
     shared endpoint), every product through the m16n8k8 fragments the kernel
     loads (Q and K pairs of columns 2t, 2t + 1; P from the S accumulator;
     V rows 2t, 2t + 1 of column g), the online softmax with the masked key
     tail, the outer modes' parked state and the strided output store."""
-    from aid_tpu_torch.ops.flash_attention import KERNEL_F32_ROWS, KERNEL_F32_TILES
+    from aid_tpu_torch.ops.flash_attention import KERNEL_F32_MMA_TILES, KERNEL_F32_ROWS
 
     tensors, dims = ops["tensors"], ops["dims"]
     B, H, Sq, Lk, Le, D = dims[:6]
-    BK, LDQ, LDV = KERNEL_F32_TILES[D]
+    bk, bk_outer, LDQ, LDV = KERNEL_F32_MMA_TILES[D]
+    BK = bk_outer if ops["n_sets"] == 2 else bk
     BQ, NT = KERNEL_F32_ROWS, D // 8
     sl2 = ops["scale"] * 1.4426950408889634
     flat = [torch.as_strided(x, (x.untyped_storage().nbytes() // 4 - x.storage_offset(),), (1,),
@@ -715,15 +903,20 @@ def _emulate_flash_f32_kernel(ops: dict) -> torch.Tensor:
 @pytest.mark.parametrize("mode,endpoints", [("self", None), ("fused_outer", 3), ("pure_outer", 4),
                                             ("fused_inner", None), ("pure_inner", 3), ("fused_outer", None)])
 def test_flash_f32_kernel_data_movement_replayed(D, mode, endpoints):
-    """The f32 attention kernel's tile copies (the operands' strides, zeros
-    past each segment, shared endpoints through a batch stride of 0), its
-    m16n8k8 fragments with the permuted k order, P taken from the S
-    accumulator, the outer modes' parked state and the strided output,
-    replayed on the CPU from the wrapper's own C arguments, compute the
-    attention: on (B, S, H*D) projections viewed as (B, H, S, D), skip rows
-    at both ends, q tails past the 64-row tile, 77-key segments (ragged in
-    64- and 32-key tiles). f64 arithmetic in the replay, so only the order
-    of sums differs from the plain version."""
+    """The f32 attention kernel's data movement, replayed on the CPU from the
+    wrapper's own C arguments, computes the attention. At D = 40/64/80 (the
+    wgmma instances): the tensor-map boxes (zero fill past D and past each
+    segment, a shared endpoint through a batch extent of 1), the 128-byte
+    swizzle, Q's register fragments, the split warps' K_lo and permuted
+    V^T, (V^T)_lo, the K-major descriptors, P's A fragment from the S
+    registers and the raw-hi split, read as tf32. At D = 160 (the mma.sync
+    instance): the tile copies and m16n8k8 fragments with the permuted k
+    order. Both with the outer modes' parked state and the strided output,
+    on (B, S, H*D) projections viewed as (B, H, S, D), skip rows at both
+    ends, q tails past the query tile, 77-key segments ragged against 64-
+    and 32-key tiles. f64 sums in the replay: it differs from the plain
+    version by the 3xTF32 split (~2^-20 of the output) and the order of
+    sums; a wrong box, swizzle, permutation or descriptor is O(1)."""
     from aid_tpu_torch.ops.flash_attention import kernel_operands
 
     g = torch.Generator().manual_seed(100 + D)
@@ -741,7 +934,7 @@ def test_flash_f32_kernel_data_movement_replayed(D, mode, endpoints):
         eps = {n: torch.randn(shape, generator=g) for n in ("k_begin", "v_begin", "k_end", "v_end")}
     ops = kernel_operands(q, k, v, coef, mode, skip_endpoints=skip, **eps)
     assert ops["entry"] == "aid_flash_attn_f32"
-    got = _emulate_flash_f32_kernel(ops)
+    got = _emulate_flash_f32_mma_kernel(ops) if D == 160 else _emulate_flash_f32_kernel(ops)
     want = flash_interpolated_attention_plain(q, k, v, coef, mode, skip_endpoints=skip, **eps)
     assert got.shape == want.shape
     assert th.max_rel_err(got.numpy(), want.numpy()) < 1e-5
@@ -791,17 +984,26 @@ def test_flash_kernel_operands_f32(mode):
 
 
 def test_flash_f32_tile_constants_follow_the_kernel_source():
-    """ops/flash_attention.py's f32 tile table, which the replay above uses,
-    is the one csrc/flash_interpolated_attention_f32.cu compiles with."""
+    """ops/flash_attention.py's f32 tile tables, which the replays above use,
+    are the ones csrc/flash_interpolated_attention_f32.cu compiles with: query
+    rows, keys per tile and ring stages of the wgmma instances (D = 40, 64,
+    80), keys (in the outer modes and the others) and row pitches of the
+    mma.sync instance (D = 160) and its query rows; every head dim has
+    exactly one instance."""
     import re
     from pathlib import Path
 
     from aid_tpu_torch.ops import flash_attention as FA
 
     src = (Path(FA.__file__).resolve().parents[1] / "csrc" / "flash_interpolated_attention_f32.cu").read_text()
-    pat = r"struct Tiles<(\d+)> \{ static constexpr int kBK = (\d+), kLdQK = (\d+), kLdV = (\d+); \};"
-    found = {int(d): (int(bk), int(lq), int(lv)) for d, bk, lq, lv in re.findall(pat, src)}
+    pat = r"struct Tiles<(\d+)> \{ static constexpr int kBQ = (\d+), kBK = (\d+), kStages = (\d+); \};"
+    found = {int(d): (int(bq), int(bk), int(st)) for d, bq, bk, st in re.findall(pat, src)}
     assert found == FA.KERNEL_F32_TILES
+    pat = (r"struct MmaTiles<(\d+)> \{ static constexpr int kBK = (\d+), kBKOuter = (\d+), kLdQK = (\d+), "
+           r"kLdV = (\d+); \};")
+    found_mma = {int(d): tuple(map(int, rest)) for d, *rest in re.findall(pat, src)}
+    assert found_mma == FA.KERNEL_F32_MMA_TILES
+    assert sorted([*found, *found_mma]) == HEAD_DIMS
     assert int(re.search(r"constexpr int kBQ = (\d+);", src).group(1)) == FA.KERNEL_F32_ROWS
 
 
