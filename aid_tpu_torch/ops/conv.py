@@ -11,8 +11,9 @@ all 9*Cin, so both flags launch the same kernel instance and count in
 ``conv3x3_same.launches``.
 
 On an f32 CUDA tensor ``conv3x3_same`` routes to :func:`conv3x3_same_f32`,
-which launches ``csrc/conv3x3_f32.cu`` (3xTF32 products; the f32 instance
-of the same two TPU kernels) and counts in ``conv3x3_same_f32.launches``.
+which launches ``csrc/conv3x3_f32.cu`` (3xTF32 products on tf32 wgmma; the
+f32 instance of the same two TPU kernels) and counts in
+``conv3x3_same_f32.launches``.
 
 ``conv3x3_gnsilu`` is the counterpart of ``aid_tpu.ops.conv.conv3x3_gnsilu``:
 conv(silu(group_norm(x))) with the SAME padding applied after the prologue.
@@ -21,8 +22,8 @@ replaces ``_kernel_packed_gnsilu`` (conv.py:78-121), counted in
 ``conv3x3_gnsilu.launches``. On an f32 CUDA tensor it routes to
 :func:`conv3x3_gnsilu_f32`: the f32 layout pass with the prologue
 (``aid_conv3x3_gnsilu_f32`` in ``csrc/conv3x3_f32.cu``, which writes
-silu(x * scale + shift) in the 4-channel blocked layout), then the f32 conv
-kernel unchanged, counted in ``conv3x3_gnsilu_f32.launches``. The GroupNorm
+silu(x * scale + shift) in the 4-channel blocked layout, with its lo part),
+then the f32 conv kernel unchanged, counted in ``conv3x3_gnsilu_f32.launches``. The GroupNorm
 statistics are computed here with plain torch ops, as the JAX package
 computes them in XLA outside its kernel.
 
@@ -32,8 +33,10 @@ keeps PyTorch's NCHW / OIHW layout; the kernel reads activations with
 their channels in blocks of 8 and weights tiled by its N tile and K chunk,
 so the wrappers convert both (:func:`kernel_operands`) and return
 channels-last tensors. The f32 kernel reads channels in blocks of 4 (16
-bytes again) and weights tiled by its own N tile and K chunk. A weight is tiled once and the tiling kept for
-later calls (:func:`tiled_weight`): at inference the weights are constant,
+bytes again), each blocked tensor followed by its lo part (what the tensor
+cores drop when they read the raw f32 value as tf32), and weights tiled by
+its own N tile and K chunk, raw and lo. A weight is tiled once and the tiling
+kept for later calls (:func:`tiled_weight`): at inference the weights are constant,
 so a call copies only its activation, on the card by the layout kernel of
 the same source (:func:`blocked_input`).
 """
@@ -60,25 +63,36 @@ def conv3x3_same_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> tor
 #: follow them.
 KERNEL_TILE_ROWS, KERNEL_TILE_COLS = 4, 64
 KERNEL_N_TILE, KERNEL_K_CHUNK = 160, 16
-#: the same of the f32 kernel, csrc/conv3x3_f32.cu's kTR, kTW, kBN and kKc
+#: the same of the f32 kernel, csrc/conv3x3_f32.cu's kTR, kTW, kBN and kKc,
+#: and its stages (kStages)
 F32_TILE_ROWS, F32_TILE_COLS = 2, 64
 F32_N_TILE, F32_K_CHUNK = 160, 8
+F32_STAGES = 2
 
 #: weight -> (the weight's storage and version when tiled, its tiling)
 _TILED = WeakIdKeyDictionary()
 
 
+def tf32_rest(x: torch.Tensor) -> torch.Tensor:
+    """x - trunc(x) to tf32: the low 13 mantissa bits of an f32 tensor,
+    which the tensor cores drop when they read x as tf32 (exact in f32).
+    With the raw value as hi, hi*hi + hi*lo + lo*hi is 3xTF32."""
+    return x - (x.view(torch.int32) & -8192).view(torch.float32)
+
+
 def tiled_weight(w: torch.Tensor) -> torch.Tensor:
     """w (Cout, Cin, 3, 3) tiled as the kernel of its dtype reads it, with
     zeros past Cout and Cin, so that each N tile's K chunk is one contiguous
-    copy: bf16 as (ceil(Cout/160), ceil(Cin/16), 3, 3, 2, 160, 8), which
-    lands as the wgmma operand; f32 as (ceil(Cout/160), ceil(Cin/8), 3, 3,
-    160, 8), 8 channels a row. The tiling is kept while w lives, keyed by
-    w's storage, dtype and version counter: a parameter is tiled on its
-    first call, and again only after an in-place update (``load_state_dict``,
-    ``copy_`` under ``torch.no_grad``) or a move to new storage. Writes that
-    bypass the version counter are not seen: those through ``w.data``, and
-    those to an inference tensor, which has no counter."""
+    copy that lands as the wgmma B operands: bf16 as (ceil(Cout/160),
+    ceil(Cin/16), 3, 3, 2, 160, 8); f32 as (ceil(Cout/160), ceil(Cin/8), 2,
+    3, 3, 2, 160, 4), the raw weight and its :func:`tf32_rest` of each chunk
+    one after the other, 4 channels (16 bytes) a row. The tiling is kept
+    while w lives, keyed by w's storage, dtype and version counter: a
+    parameter is tiled on its first call, and again only after an in-place
+    update (``load_state_dict``, ``copy_`` under ``torch.no_grad``) or a move
+    to new storage. Writes that bypass the version counter are not seen:
+    those through ``w.data``, and those to an inference tensor, which has no
+    counter."""
     key = (w.data_ptr(), w.dtype, None if w.is_inference() else w._version)
     hit = _TILED.get(w)
     if hit is not None and hit[0] == key:
@@ -90,10 +104,9 @@ def tiled_weight(w: torch.Tensor) -> torch.Tensor:
     with torch.no_grad():
         wp = w.new_zeros((nt * bn, nk * kc, 3, 3))
         wp[:Cout, :Cin] = w
-        if f32:
-            wt = wp.view(nt, bn, nk, kc, 3, 3).permute(0, 2, 4, 5, 1, 3).contiguous()
-        else:
-            wt = wp.view(nt, bn, nk, 2, 8, 3, 3).permute(0, 2, 5, 6, 3, 1, 4).contiguous()
+        # (N tile, K chunk, dy, dx, channel group, co, ci in the group)
+        wt = wp.view(nt, bn, nk, 2, kc // 2, 3, 3).permute(0, 2, 5, 6, 3, 1, 4)
+        wt = torch.stack((wt, tf32_rest(wt)), dim=2) if f32 else wt.contiguous()
     _TILED[w] = (key, wt)
     return wt
 
@@ -107,13 +120,16 @@ def silu_affine(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor) -> to
 def blocked_input_plain(x: torch.Tensor, scale=None, shift=None) -> torch.Tensor:
     """x (B, C, H, W) as (B, C/n, H, W, n) with n channels in a 16-byte
     block (8 in bf16, 4 in f32), each pixel's block one contiguous run (the
-    layout kernels' plain version); with ``scale``/``shift`` (B, C) f32,
-    :func:`silu_affine` of x (the f32 prologue layout's plain version)."""
+    layout kernels' plain version). f32 returns (2, B, C/4, H, W, 4): that
+    and its :func:`tf32_rest`, one after the other. With ``scale``/``shift``
+    (B, C) f32, :func:`silu_affine` of x first (the f32 prologue layout's
+    plain version)."""
     if scale is not None:
         x = silu_affine(x, scale, shift)
     B, C, H, W = x.shape
     n = 16 // x.element_size()
-    return x.reshape(B, C // n, n, H, W).permute(0, 1, 3, 4, 2).contiguous()
+    xb = x.reshape(B, C // n, n, H, W).permute(0, 1, 3, 4, 2)
+    return torch.stack((xb, tf32_rest(xb))) if x.dtype == torch.float32 else xb.contiguous()
 
 
 #: the layout kernel by dtype: (C entry, channels a 16-byte block)
@@ -141,7 +157,8 @@ def blocked_input(x: torch.Tensor, scale=None, shift=None) -> torch.Tensor:
             raise NotImplementedError(f"the prologue layout takes f32 x and (B, C) factors; got {x.dtype}, "
                                       f"{[tuple(f.shape) for f in factors]}")
         entry = "aid_conv3x3_gnsilu_f32"
-    xb = torch.empty((B, C // n, H, W, n), dtype=x.dtype, device=x.device)
+    parts = (2,) if x.dtype == torch.float32 else ()  # f32: the raw blocks, then their lo part
+    xb = torch.empty((*parts, B, C // n, H, W, n), dtype=x.dtype, device=x.device)
     strides = (ctypes.c_longlong * 4)(*x.stride())
 
     from aid_tpu_torch.ops import _build
@@ -161,7 +178,8 @@ def kernel_operands(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *factors:
     prologue's scale, shift) f32. bf16 takes Cin % 8 == 0 and passes the
     factors on to the kernel; f32 takes Cin % 4 == 0 and applies them in the
     layout pass, so its tuple has none. Returns the tuple
-    :func:`launch_kernel` takes."""
+    :func:`launch_kernel` takes (f32: x as (2, B, Cin/4, H, W, 4), raw then
+    lo)."""
     B, Cin, H, W = x.shape
     Cout = w.shape[0]
     if w.shape != (Cout, Cin, 3, 3) or b.shape != (Cout,):
@@ -180,7 +198,7 @@ def launch_kernel(entry: str, xb: torch.Tensor, wt: torch.Tensor, bf: torch.Tens
     """Launch the C entry point ``entry`` on operands from
     :func:`kernel_operands`; returns a channels-last (B, Cout, H, W) tensor.
     Counts nothing: the wrappers below count their launches."""
-    B, G, H, W, n = xb.shape
+    B, G, H, W, n = xb.shape[-5:]
     Cout = bf.shape[0]
     out = torch.empty((B, Cout, H, W), dtype=xb.dtype, device=xb.device, memory_format=torch.channels_last)
 
@@ -220,7 +238,7 @@ conv3x3_same.launches = 0
 
 def conv3x3_same_f32(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """conv3x3_same in f32 at f32 accuracy: ``csrc/conv3x3_f32.cu`` (3xTF32
-    products, f32 sums) on CUDA tensors with Cin % 4 == 0 and Cout % 2 == 0,
+    products on tf32 wgmma, each K chunk's sum folded in f32) on CUDA tensors with Cin % 4 == 0 and Cout % 2 == 0,
     returning a channels-last tensor; the plain version on CPU tensors."""
     if not use_kernel(x, w, b):
         return conv3x3_same_plain(x, w, b)

@@ -27,15 +27,17 @@ Four kernels take CUDA calls:
     ``csrc/flash_attention_f32_d512.cu``, reached through
     :func:`flash_self_attention_f32` and counted by its ``launches``;
   * bf16 with head dim 512, self mode (the same attention in a bf16 VAE):
-    ``csrc/flash_attention_bf16_d512.cu``, reached through
+    ``csrc/flash_attention_bf16_d512.cu`` (wgmma on TMA tiles, D split
+    across two consumer warpgroups), reached through
     :func:`flash_self_attention_bf16` and counted by its ``launches``.
 Any other dtype, head dim or mode on a CUDA tensor raises
 ``NotImplementedError`` (ROADMAP Queue 2 lists the instances still to port).
 :func:`kernel_operands` checks the operands of the D <= 160 kernels (bf16 or
 f32, one C signature) and lays out their C entry's arguments (the CPU tests
-replay the kernels' data movement from them); :func:`kernel_launch` and, for
-the D=512 kernels, :func:`d512_launch` return the launch itself, which
-``chip_smoke.py`` times apart from the wrapper's host work.
+replay the kernels' data movement from them), :func:`d512_operands` those of
+the D=512 kernels; :func:`kernel_launch` and :func:`d512_launch` return the
+launch itself, which ``chip_smoke.py`` times apart from the wrapper's host
+work.
 """
 
 from __future__ import annotations
@@ -107,13 +109,20 @@ def _check_operand(name: str, x: torch.Tensor, dtype=torch.bfloat16, head_dims=K
         raise ValueError(f"{name}: 16-byte row alignment needed, strides {strides}")
 
 
-def d512_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: Optional[float] = None) -> tuple:
-    """The D=512 self-attention kernel of q's dtype (f32: ``csrc/
-    flash_attention_f32_d512.cu``, bf16: ``csrc/flash_attention_bf16_d512.cu``)
-    prepared for launching on CUDA tensors: checks the operands, allocates
-    the output and returns ``(out, launch)``, where ``launch()`` runs the
-    kernel into ``out`` on the current stream, as often as it is called.
-    Counts nothing: the wrappers count their launches."""
+#: the bf16 D=512 kernel's tiles: (query rows per block, keys per K/V tile,
+#: slots in each of the K and V rings, consumer warpgroups splitting D),
+#: csrc/flash_attention_bf16_d512.cu's kBQ, kBK, kStages and kWG
+D512_BF16_TILES = (64, 32, 2, 2)
+
+
+def d512_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: Optional[float] = None) -> dict:
+    """Check the operands of the D=512 self-attention kernel of q's dtype
+    (f32: ``csrc/flash_attention_f32_d512.cu``, bf16: ``csrc/
+    flash_attention_bf16_d512.cu``) and lay out one call of its C entry:
+    ``entry``, ``tensors`` (q, k, v and the output: f32 (B, H, Sq, D); bf16 a
+    (B, H, Sq, D) view of a new (B, Sq, H, D) buffer, as the other bf16
+    kernel writes), ``dims`` (B, H, Sq, Lk, then the (b, h, s) element
+    strides of the four) and ``scale``. Nothing here needs a device."""
     B, H, Sq, D = q.shape
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise NotImplementedError(f"the D={D512} self-attention kernels take f32 or bf16; q is {q.dtype} "
@@ -126,22 +135,32 @@ def d512_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: Option
         raise ValueError("empty query or key sequence")
     if q.dtype == torch.float32:
         entry, out = "aid_flash_attn_f32_d512", torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    else:  # a view of a (B, Sq, H, D) buffer, as the other bf16 kernel writes
+    else:
         entry, out = "aid_flash_attn_bf16_d512", torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device).transpose(1, 2)
     dims = [B, H, Sq, k.shape[2]]
     for x in (q, k, v, out):
         dims += _bhs_strides(x)
+    return dict(entry=entry, tensors=(q, k, v, out), dims=dims, scale=float(D ** -0.5 if scale is None else scale))
+
+
+def d512_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: Optional[float] = None) -> tuple:
+    """:func:`d512_operands` on CUDA tensors, prepared for launching:
+    returns ``(out, launch)``, where ``launch()`` runs the kernel into
+    ``out`` on the current stream, as often as it is called. Counts
+    nothing: the wrappers count their launches."""
+    ops = d512_operands(q, k, v, scale)
+    entry, out, dims = ops["entry"], ops["tensors"][-1], ops["dims"]
 
     from aid_tpu_torch.ops import _build
 
     fn = getattr(_build.library(), entry)
-    c_args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), (ctypes.c_longlong * len(dims))(*dims),
-              float(D ** -0.5 if scale is None else scale), torch.cuda.current_stream(q.device).cuda_stream)
+    c_args = (*(x.data_ptr() for x in ops["tensors"]), (ctypes.c_longlong * len(dims))(*dims), ops["scale"],
+              torch.cuda.current_stream(q.device).cuda_stream)
 
     def launch() -> None:
         _build.check(fn(*c_args), f"{entry} launch")
 
-    launch.operands = (q, k, v, out)  # the pointers in c_args stay valid while launch lives
+    launch.operands = ops  # the pointers in c_args stay valid while launch lives
     return out, launch
 
 

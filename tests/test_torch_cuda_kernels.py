@@ -275,6 +275,9 @@ def test_flash_f32_d512_kernel_matches_plain(dev, B, H, S, L):
     (1, 2, 65, 33),        # one past each
     (3, 1, 100, 200),      # more keys than queries
     (2, 3, 129, 97),       # B, H > 1, ragged in both
+    (1, 1, 64, 32),        # one whole tile of each: no pipelined step
+    (1, 1, 128, 64),       # two whole key tiles: one pipelined step, then the last tile
+    (2, 1, 65, 95),        # three key tiles, the last one key short, both rings wrapping
 ])
 def test_flash_bf16_d512_kernel_matches_plain(dev, B, H, S, L):
     """The bf16 D=512 self kernel, routed as the bf16 VAE calls it, against
@@ -545,16 +548,21 @@ def test_conv_layout_kernel_matches_plain(dev, layout):
 
 # the f32 kernel's tile classes: 2 x 64-pixel tiles against W = 96 and 100
 # (half and ragged column tiles), N tiles of 160 against Cout 320 (exact)
-# and 130 (ragged), an 8-channel K chunk against Cin = 36 (the last chunk
-# half zero-filled), and the three SDXL classes at 128^2 with all 7 frames
+# and 130 (ragged), an 8-channel K chunk against Cin = 36 (the last chunk's
+# second 4-channel group zero-filled by the TMA box), and the three SDXL
+# classes at 128^2 with all 7 frames
 F32_CONV_CLASSES = [(2, 36, cout, w, w) for w in (96, 100) for cout in (320, 130)] + [
     (7, 960, 320, 128, 128), (7, 640, 320, 128, 128), (7, 640, 640, 128, 128)]
+# one class with all three edges at once: W = 96, Cin % 8 == 4, a Cout
+# under one N tile
+F32_CONV_EDGES = (2, 20, 26, 5, 96)
 
 
 @pytest.mark.parametrize("B,Cin,Cout,H,W", [
     (2, 64, 64, 16, 16),
     (1, 40, 24, 13, 7),     # ragged pixels, Cout not a multiple of the 160-channel N tile
     (3, 12, 130, 9, 11),    # Cin % 8 != 0: the last K chunk's second block zero-filled
+    F32_CONV_EDGES,
 ] + F32_CONV_CLASSES)
 def test_conv_f32_kernel_matches_plain(dev, B, Cin, Cout, H, W):
     """The f32 conv kernel, routed by conv3x3_same as an f32 UNet calls it,
@@ -575,12 +583,13 @@ def test_conv_f32_kernel_matches_plain(dev, B, Cin, Cout, H, W):
     assert torch.equal(got, conv3x3_same(x, w, b, packed=True))
 
 
-def test_conv_f32_retiles_a_weight_updated_in_place(dev):
-    """The f32 weight tiling is kept between calls and redone after an
-    in-place update."""
-    x = _randn((2, 64, 12, 10), 143, torch.float32)
-    w = torch.nn.Parameter(_randn((96, 64, 3, 3), 144, torch.float32) * 64 ** -0.5)
-    b = _randn((96,), 145, torch.float32)
+@pytest.mark.parametrize("B,Cin,Cout,H,W", [(2, 64, 96, 12, 10), F32_CONV_EDGES])
+def test_conv_f32_retiles_a_weight_updated_in_place(dev, B, Cin, Cout, H, W):
+    """The f32 weight tiling (raw and lo) is kept between calls and redone
+    after an in-place update."""
+    x = _randn((B, Cin, H, W), 143, torch.float32)
+    w = torch.nn.Parameter(_randn((Cout, Cin, 3, 3), 144, torch.float32) * Cin ** -0.5)
+    b = _randn((Cout,), 145, torch.float32)
     with torch.no_grad():
         first = conv3x3_same(x, w, b)
         w.mul_(-2)
@@ -591,15 +600,16 @@ def test_conv_f32_retiles_a_weight_updated_in_place(dev):
     assert (second - want).abs().max().item() < F32_CONV_RTOL * want.abs().max().item()
 
 
-@pytest.mark.parametrize("layout", ["nchw", "channels_last", "channel_slice", "misaligned_slice", "row_slice"])
+@pytest.mark.parametrize("layout", ["nchw", "channels_last", "channel_slice", "misaligned_slice", "row_slice",
+                                    "c20_w96"])
 def test_conv_f32_layout_kernel_matches_plain(dev, layout):
-    """The f32 layout kernel writes (B, C/4, H, W, 4) from x at its own
-    strides, bit for bit: NCHW, channels-last (16-byte loads), a
-    channels-last view 16 bytes in, one 8 bytes in (no 16-byte loads), and
-    a view of rows."""
+    """The f32 layout kernel writes (B, C/4, H, W, 4) and its lo part right
+    after it from x at its own strides, bit for bit: NCHW, channels-last
+    (16-byte loads), a channels-last view 16 bytes in, one 8 bytes in (no
+    16-byte loads), a view of rows, and C % 8 == 4 at W = 96."""
     from aid_tpu_torch.ops.conv import blocked_input, blocked_input_plain
 
-    x = _randn((3, 48, 13, 11), 146, torch.float32)
+    x = _randn((2, 20, 5, 96) if layout == "c20_w96" else (3, 48, 13, 11), 146, torch.float32)
     if layout == "channels_last":
         x = x.contiguous(memory_format=torch.channels_last)
     elif layout == "channel_slice":
@@ -609,7 +619,7 @@ def test_conv_f32_layout_kernel_matches_plain(dev, layout):
     elif layout == "row_slice":
         x = x[:, :, 1:]
     got = blocked_input(x)
-    assert got.shape == (x.shape[0], x.shape[1] // 4, x.shape[2], x.shape[3], 4)
+    assert got.shape == (2, x.shape[0], x.shape[1] // 4, x.shape[2], x.shape[3], 4)
     assert torch.equal(got, blocked_input_plain(x))
 
 
@@ -621,6 +631,7 @@ def test_conv_f32_layout_kernel_matches_plain(dev, layout):
     (1, 640, 320, 96, 96, 32),
     (1, 640, 640, 48, 48, 32),    # and at 48^2
     (1, 1280, 640, 48, 48, 32),
+    (*F32_CONV_EDGES, 4),         # W = 96, Cin % 8 == 4, Cout under one N tile
 ])
 def test_conv_gnsilu_f32_kernel_matches_plain(dev, B, Cin, Cout, H, W, groups):
     """The f32 GN+SiLU conv (the prologue in the f32 layout pass, then the
@@ -647,24 +658,28 @@ def test_conv_gnsilu_f32_kernel_matches_plain(dev, B, Cin, Cout, H, W, groups):
     assert err[:, :, ~ring].max().item() < F32_CONV_RTOL * ref
 
 
-@pytest.mark.parametrize("layout", ["nchw", "channels_last", "row_slice"])
+@pytest.mark.parametrize("layout", ["nchw", "channels_last", "row_slice", "c20_w96"])
 def test_conv_f32_prologue_layout_matches_plain(dev, layout):
     """The f32 layout pass with the prologue writes silu(x * scale + shift)
     as (B, C/4, H, W, 4) from x at its own strides, within a few f32 ulps
     of the plain version (fma and expf against torch's separate mul, add
-    and silu)."""
-    from aid_tpu_torch.ops.conv import blocked_input, blocked_input_plain
+    and silu), and right after it that value's lo part, bit for bit (a
+    value an ulp off may cross a tf32 step, so lo is held to the kernel's
+    own blocks, not to the plain version's)."""
+    from aid_tpu_torch.ops.conv import blocked_input, blocked_input_plain, tf32_rest
 
-    x = _randn((3, 48, 13, 11), 165, torch.float32) * 3.0
+    B, C, H, W = (2, 20, 5, 96) if layout == "c20_w96" else (3, 48, 13, 11)
+    x = _randn((B, C, H, W), 165, torch.float32) * 3.0
     if layout == "channels_last":
         x = x.contiguous(memory_format=torch.channels_last)
     elif layout == "row_slice":
         x = x[:, :, 1:]
-    sc, sh = _randn((3, 48), 166, torch.float32), _randn((3, 48), 167, torch.float32)
+    sc, sh = _randn((B, C), 166, torch.float32), _randn((B, C), 167, torch.float32)
     got = blocked_input(x, sc, sh)
     want = blocked_input_plain(x, sc, sh)
-    assert got.shape == want.shape == (3, 12, x.shape[2], 11, 4)
-    assert (got - want).abs().max().item() <= 1e-6 * want.abs().max().item()
+    assert got.shape == want.shape == (2, B, C // 4, x.shape[2], W, 4)
+    assert (got[0] - want[0]).abs().max().item() <= 1e-6 * want[0].abs().max().item()
+    assert torch.equal(got[1], tf32_rest(got[0]))
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -697,11 +712,13 @@ def test_flash_kernels_at_sd21_shapes(dev, dtype, mode, S, L):
     assert _attn_err(got, want) < (F32_ATTN_RTOL if dtype == torch.float32 else ATTN_RTOL)
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("Cin,Cout", [(960, 320), (640, 320), (640, 640)])
+@pytest.mark.parametrize("dtype,Cin,Cout", [(dtype, cin, cout) for dtype in (torch.bfloat16, torch.float32)
+                                             for cin, cout in ((960, 320), (640, 320), (640, 640))]
+                         + [(torch.float32, 36, 130)])
 def test_conv_kernels_at_sd21_width(dev, dtype, Cin, Cout):
     """The bf16 and f32 conv at W = 96 (SD 2.1's 96^2 up-block convs: one
-    full 64-column tile and one half-empty tile per row), a few rows."""
+    full 64-column tile and one half-empty tile per row), a few rows; in
+    f32 also at Cin % 8 == 4 and a ragged Cout."""
     x = _randn((2, Cin, 6, 96), 175, dtype)
     w = _randn((Cout, Cin, 3, 3), 176, dtype) * (9 * Cin) ** -0.5
     b = _randn((Cout,), 177, dtype)

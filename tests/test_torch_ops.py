@@ -611,6 +611,159 @@ def test_flash_tile_constants_follow_the_kernel_source():
     assert sorted(found) == HEAD_DIMS
 
 
+def _wgmma_acc_index(n_cols: int) -> tuple:
+    """(row, col) of accumulator register i of warpgroup thread ct in a wgmma
+    m64nN f32 result: (128, N / 2) index tensors. Warp w = ct / 32 holds rows
+    16 w + g and 16 w + g + 8, n8 tile j columns 8 j + 2 t and 8 j + 2 t + 1
+    (g = lane / 4, t = lane % 4)."""
+    ct, i = torch.arange(128)[:, None], torch.arange(n_cols // 2)[None, :]
+    lane, j, e = ct % 32, i // 4, i % 4
+    return 16 * (ct // 32) + lane // 4 + 8 * (e // 2), 8 * j + 2 * (lane % 4) + e % 2
+
+
+def _emulate_flash_bf16_d512_kernel(ops: dict) -> torch.Tensor:
+    """csrc/flash_attention_bf16_d512.cu's data movement, replayed in plain
+    torch from the C entry's own arguments (``d512_operands``).
+
+    Each operand is read as its tensor map reads it: (512, H, S, B) over the
+    tensor's storage at the strides in ``dims``, boxes of 64 columns by 64
+    query rows or 32 keys, zeros past Sq or Lk, stored 128-byte swizzled.
+    Each consumer warpgroup computes partial scores over its four boxes of
+    Q and K through K-major descriptors, writes them to the exchange buffer
+    in its accumulator order and adds the other warpgroup's; both run the
+    same online softmax, P in bf16, and O += P V over their 256 columns
+    through the MN-major descriptor (LBO one box). The output leaves
+    through the warpgroups' halves of the swizzled Q tile and a TMA store
+    clipped at Sq. f32 arithmetic."""
+    from aid_tpu_torch.ops.flash_attention import D512_BF16_TILES
+
+    BQ, BK, _, NWG = D512_BF16_TILES
+    D, cols = 512, 512 // NWG
+    boxes_wg = cols // 64
+    tensors, dims = ops["tensors"], ops["dims"]
+    B, H, Sq, Lk = dims[:4]
+    sl2 = ops["scale"] * 1.4426950408889634
+    flat = [torch.as_strided(x, (x.untyped_storage().nbytes() // 2 - x.storage_offset(),), (1,),
+                             x.storage_offset()).float() for x in tensors]
+    strides = [dims[4 + 3 * i:7 + 3 * i] for i in range(4)]
+    extents = [Sq, Lk, Lk, Sq]
+
+    def box(i, c, h, s0, b, rows):  # one TMA box of map i into a swizzled tile (bf16 elements)
+        sb, sh, ss = strides[i]
+        r, x = torch.arange(rows)[:, None], torch.arange(64)[None, :]
+        ok = (s0 + r < extents[i]).expand(rows, 64)
+        idx = torch.where(ok, b * sb + h * sh + (s0 + r) * ss + 64 * c + x, 0)
+        tile = torch.zeros(rows * 64)
+        tile[_swizzle128(r * 128 + x * 2).reshape(-1) // 2] = torch.where(ok, flat[i][idx], 0.0).reshape(-1)
+        return tile
+
+    def kmajor(smem, start, rows):  # (rows, 16) through a K-major descriptor
+        r, kc = torch.arange(rows)[:, None], torch.arange(16)[None, :]
+        return smem[_swizzle128(start + (r // 8) * 1024 + (r % 8) * 128 + kc * 2) // 2]
+
+    def mnmajor(smem, start, lbo):  # (16 keys, 256 columns) through the MN-major (transposed) descriptor
+        kr, n = torch.arange(16)[:, None], torch.arange(cols)[None, :]
+        return smem[_swizzle128(start + (kr // 8) * 1024 + (kr % 8) * 128 + (n // 64) * lbo + (n % 64) * 2) // 2]
+
+    arow, acol = _wgmma_acc_index(BK)
+    tiles = -(-Sq // BQ)
+    out_flat = torch.zeros_like(flat[3])
+    for b in range(B):
+        for h in range(H):
+            for blk in range(tiles):
+                q0 = blk * BQ
+                qt = torch.cat([box(0, c, h, q0, b, BQ) for c in range(8)])
+                o = [torch.zeros(BQ, cols) for _ in range(NWG)]
+                m, lsum = torch.full((BQ,), -math.inf), torch.zeros(BQ)
+                for r0 in range(0, Lk, BK):
+                    kt = torch.cat([box(1, c, h, r0, b, BK) for c in range(8)])
+                    vt = torch.cat([box(2, c, h, r0, b, BK) for c in range(8)])
+                    xbuf = torch.zeros(NWG, 16, 128)
+                    for w in range(NWG):  # partial scores over the warpgroup's boxes, in accumulator order
+                        part = sum(kmajor(qt, (boxes_wg * w + kk // 4) * BQ * 128 + (kk % 4) * 32, BQ)
+                                   @ kmajor(kt, (boxes_wg * w + kk // 4) * BK * 128 + (kk % 4) * 32, BK).T
+                                   for kk in range(cols // 16))
+                        xbuf[w] = part[arow, acol].T
+                    scores = []
+                    for w in range(NWG):  # own + the other's, read back by the same thread index
+                        regs = xbuf[w] + xbuf[1 - w]
+                        sw = torch.zeros(BQ, BK)
+                        sw[arow, acol] = regs.T
+                        scores.append(sw)
+                    assert torch.equal(scores[0], scores[1])
+                    s = scores[0]
+                    s[:, min(BK, Lk - r0):] = -math.inf
+                    mn = torch.maximum(m, s.max(dim=1).values)
+                    alpha = torch.exp2((m - mn) * sl2)
+                    p = torch.exp2(s * sl2 - (mn * sl2)[:, None])
+                    m, lsum = mn, lsum * alpha + p.sum(dim=1)
+                    pb = p.to(torch.bfloat16).float()
+                    for w in range(NWG):
+                        o[w] = o[w] * alpha[:, None] + sum(
+                            pb[:, 16 * kk:16 * kk + 16] @ mnmajor(vt, boxes_wg * w * BK * 128 + kk * 2048, BK * 128)
+                            for kk in range(BK // 16))
+                ob = (torch.cat(o, dim=1) / lsum[:, None]).to(torch.bfloat16).float()
+                r, col = torch.arange(BQ)[:, None], torch.arange(D)[None, :]
+                tile = torch.zeros(BQ * D)
+                addr = (col // 64) * (BQ * 128) + _swizzle128(r * 128 + (col % 64) * 2)
+                tile[(addr // 2).reshape(-1)] = ob.reshape(-1)
+                sb, sh, ss = strides[3]
+                keep = (q0 + r < Sq).expand(BQ, D)
+                dst = (b * sb + h * sh + (q0 + r) * ss + col)[keep]
+                out_flat[dst] = tile[(addr // 2)[keep]]
+    out = tensors[3]
+    return torch.as_strided(out_flat, out.shape, out.stride()).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("Sq,Lk", [(150, 77), (63, 33), (129, 32), (65, 31)])
+def test_flash_bf16_d512_kernel_data_movement_replayed(Sq, Lk):
+    """The bf16 D=512 kernel's tensor-map boxes (zeros past Sq and Lk), the
+    D split across two warpgroups and their partial-score exchange, the
+    128-byte swizzle and the wgmma descriptors, replayed on the CPU from the
+    wrapper's own C arguments, compute the attention: on (B, S, H*512)
+    projections viewed as (B, H, S, 512) (the next head's columns lie past
+    each row), at ragged Sq (a query tile one row short of, or past, the
+    64-row tile) and Lk (one key past a tile, a tile and one short).
+    Against the plain version in f32, the replay differs by P's bf16
+    rounding and the output's (a wrong box, swizzle, descriptor or
+    exchange is O(1))."""
+    from aid_tpu_torch.ops.attention import _softmax_attn
+    from aid_tpu_torch.ops.flash_attention import d512_operands
+
+    g = torch.Generator().manual_seed(Sq + Lk)
+    B, H, D = 2, 2, 512
+
+    def heads(n):
+        return torch.randn(B, n, H * D, generator=g).to(torch.bfloat16).view(B, n, H, D).transpose(1, 2)
+
+    q, k, v = heads(Sq), heads(Lk), heads(Lk)
+    ops = d512_operands(q, k, v)
+    assert ops["entry"] == "aid_flash_attn_bf16_d512" and ops["dims"][:4] == [B, H, Sq, Lk]
+    got = _emulate_flash_bf16_d512_kernel(ops)
+    want = _softmax_attn(q.float(), k.float(), v.float(), D ** -0.5)
+    assert got.shape == want.shape
+    assert th.max_rel_err(got.float().numpy(), want.numpy()) < 1e-2
+
+
+def test_flash_bf16_d512_tile_constants_follow_the_kernel_source():
+    """ops/flash_attention.py's D512_BF16_TILES, which the replay above uses,
+    are the constants csrc/flash_attention_bf16_d512.cu compiles with, and
+    its shared memory (Q, the K/V stages, the double-buffered exchange) fits
+    the 227 KB a block can use."""
+    import re
+    from pathlib import Path
+
+    from aid_tpu_torch.ops import flash_attention as FA
+
+    src = (Path(FA.__file__).resolve().parents[1] / "csrc" / "flash_attention_bf16_d512.cu").read_text()
+    found = {name: int(v) for name, v in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+    bq, bk, stages, wg = FA.D512_BF16_TILES
+    assert (found["kBQ"], found["kBK"], found["kStages"], found["kWG"]) == FA.D512_BF16_TILES
+    smem = 1024 + bq * 1024 + stages * 2 * bk * 1024 + 2 * wg * 16 * 128 * 4 + (4 * stages + 1) * 8
+    assert smem <= 232448
+    assert bq * 512 // wg // 128 <= 128  # each warpgroup's share of the 64 x 512 f32 accumulator, a thread
+
+
 # ---------------------------------------------------------------------------
 # the f32 instances: csrc/flash_interpolated_attention_f32.cu, csrc/conv3x3_f32.cu
 # ---------------------------------------------------------------------------
@@ -1009,79 +1162,92 @@ def test_flash_f32_tile_constants_follow_the_kernel_source():
 
 def _emulate_conv_f32_kernel(x, w, b, *factors):
     """csrc/conv3x3_f32.cu's data movement, replayed in plain torch (f64
-    arithmetic): the operands through ``kernel_operands``' f32 layouts (with
+    arithmetic on the operands as the tensor cores read them, tf32).
+
+    The operands go through ``kernel_operands``' f32 layouts (with
     ``factors``, the GN+SiLU prologue's scale and shift, applied by the
-    layout pass; x in
-    4-channel blocks, w tiled by N tile and 8-channel K chunk); per block
-    and chunk the (2 + 2) x (64 + 2) window copied 16 bytes a pixel and block
-    (zeros outside the image and past Cin) into 8-float pixels, and the
-    chunk's weights as one contiguous run; each warp's m16n8k8 fragments read
-    as the kernel addresses them for every tap (pixel row g and g + 8 of the
-    shifted window, channels 2t and 2t + 1; weight row g); each chunk's sum
-    added to the accumulators; the masked channels-last store."""
+    layout pass): x as (2, B, Cin/4, H, W, 4), the 4-channel blocked copy and
+    then its lo part; w tiled by N tile and 8-channel K chunk, raw then lo.
+    Per block and chunk the stage is built as bytes of shared memory: the
+    kernel's two TMA boxes (8-byte elements of the map whose dim 3 runs over
+    the raw images and then the lo ones: image b, then image B + b; zeros
+    outside the tensor) and the chunk's weights as one contiguous run. Each
+    warpgroup (one output row) reads every tap's operands through the
+    no-swizzle K-major descriptors the kernel builds (start address moved by
+    (dy * 66 + dx) * 16 bytes, LBO between the two 4-channel groups of a k8
+    step, SBO between 8-row groups), sums the chunk's 27 products (hi*hi +
+    hi*lo + lo*hi, hi the raw value) from zero and folds the sum into its
+    accumulator; the store is masked and channels-last. A layout, box or
+    descriptor that disagrees with the others breaks the conv."""
     from aid_tpu_torch.ops import conv as C
 
     xb, wt, bf, fac = C.kernel_operands(x, w, b, *factors)
     assert fac == ()  # the prologue is the layout pass's: the conv launch takes no factors
-    B, G, H, W, _ = xb.shape
-    Cin, Cout, BN, KC = 4 * G, bf.shape[0], C.F32_N_TILE, C.F32_K_CHUNK
+    parts, B, G, H, W, _ = xb.shape
+    assert parts == 2
+    Cout, BN, KC = bf.shape[0], C.F32_N_TILE, C.F32_K_CHUNK
     TR, TW = C.F32_TILE_ROWS, C.F32_TILE_COLS
     WR, WC = TR + 2, TW + 2
-    xd, wd = xb.double(), wt.double()
-    offa, offb = _pair_offsets(KC, True), _pair_offsets(KC, False)
-    warp = torch.arange(8)
-    wm, wn = warp % 4, warp // 4
-    r, xw = wm // 2, (wm % 2) * 32
-    tap = torch.arange(9)
-    dy, dx = tap // 3, tap % 3
-    mi, nj = torch.arange(2), torch.arange(BN // 2 // 8)
-    # A register addresses: (warp, tap, mi, lane, reg); B: (warp, tap, nj, lane, reg)
-    a_idx = (((r[:, None, None] + dy[None, :, None]) * WC + xw[:, None, None] + 16 * mi[None, None, :]
-              + dx[None, :, None]) * KC)[..., None, None] + offa
-    b_idx = ((tap[None, :, None] * BN + wn[:, None, None] * (BN // 2) + 8 * nj[None, None, :]) * KC)[..., None, None] + offb
+    plane = WR * WC * 16  # bytes of one 4-channel group of the window
+    win_bytes, tap_bytes = 2 * plane, 2 * BN * 16
+    wts_bytes = 9 * tap_bytes
+    xe = xb.reshape(2 * B, G, H, 2 * W, 2)  # the map: 8-byte elements, raw images then lo images
+    m = torch.arange(TW)[:, None]
+    n = torch.arange(BN)[:, None]
+    k = torch.arange(KC)[None, :]
+
+    def operand(start, rows, lbo):  # f32 element index of (row, k) through a no-swizzle K-major descriptor
+        return (start + (rows // 8) * 128 + (rows % 8) * 16 + (k // 4) * lbo + (k % 4) * 4) // 4
+
     out = torch.zeros(B, Cout, H, W, dtype=torch.float64)
-    py, px = torch.arange(WR)[:, None], torch.arange(WC)[None, :]
     for bi in range(B):
         for y0 in range(0, H, TR):
             for x0 in range(0, W, TW):
                 for nt in range(wt.shape[0]):
-                    acc = torch.zeros(8, 2, BN // 2 // 8, 16, 8, dtype=torch.float64)
+                    acc = torch.zeros(TR, TW, BN, dtype=torch.float64)
                     for kt in range(wt.shape[1]):
-                        win = torch.zeros(WR, WC, KC, dtype=torch.float64)
-                        iy, ix = y0 - 1 + py, x0 - 1 + px
-                        inside = ((iy >= 0) & (iy < H) & (ix >= 0) & (ix < W)).expand(WR, WC)
-                        for j in range(2):
-                            cg = 2 * kt + j
-                            if cg < G:
-                                win[..., 4 * j:4 * j + 4][inside] = xd[bi, cg][iy.clamp(0, H - 1),
-                                                                              ix.clamp(0, W - 1)][inside]
-                        win, wts = win.reshape(-1), wd[nt, kt].reshape(-1)
-                        am = _a_matrix(win[a_idx])  # (warp, tap, mi, 16, 8)
-                        bm = _b_matrix(wts[b_idx])  # (warp, tap, nj, 8, 8)
-                        acc += torch.einsum("wtmrc,wtnck->wmnrk", am, bm)  # the chunk's sum over taps, added
-                    for w_ in range(8):
-                        y = y0 + int(r[w_])
-                        if y >= H:
-                            continue
-                        for m in range(2):
-                            xs = x0 + int(xw[w_]) + 16 * m + torch.arange(16)
-                            for n in range(BN // 2 // 8):
-                                co = nt * BN + int(wn[w_]) * (BN // 2) + 8 * n + torch.arange(8)
-                                keep_x, keep_c = xs < W, co < Cout
-                                blk = acc[w_, m, n][keep_x][:, keep_c]
-                                out[bi, co[keep_c][None, :], y, xs[keep_x][:, None]] = blk + bf[co[keep_c]].double()
+                        stage = []
+                        for img in (bi, B + bi):  # the raw window's box, then the lo window's
+                            box = torch.zeros(2, WR, 2 * WC, 2)  # (groups, rows, elements, f32)
+                            for g in range(2):
+                                for r in range(WR):
+                                    gy, yy = 2 * kt + g, y0 - 1 + r
+                                    if gy < G and 0 <= yy < H:
+                                        e0 = 2 * (x0 - 1)
+                                        lo, hi = max(e0, 0), min(e0 + 2 * WC, 2 * W)
+                                        box[g, r, lo - e0:hi - e0] = xe[img, gy, yy, lo:hi]
+                            stage.append(box.reshape(-1))
+                        stage.append(wt[nt, kt].reshape(-1))  # one bulk copy: raw weights, then lo
+                        smem = _tf32_read(torch.cat(stage))
+                        for r in range(TR):  # warpgroup r: output row y0 + r
+                            part = torch.zeros(TW, BN, dtype=torch.float64)
+                            for tap in range(9):
+                                dy, dx = divmod(tap, 3)
+                                a_at = (r * WC + dy * WC + dx) * 16
+                                ahi, alo = (smem[operand(p + a_at, m, plane)] for p in (0, win_bytes))
+                                bhi, blo = (smem[operand(p + tap * tap_bytes, n, BN * 16)]
+                                            for p in (2 * win_bytes, 2 * win_bytes + wts_bytes))
+                                part += ahi @ bhi.T + ahi @ blo.T + alo @ bhi.T
+                            acc[r] += part  # the chunk's sum, folded
+                    for r in range(TR):
+                        y, xs, nn = y0 + r, min(TW, W - x0), min(BN, Cout - nt * BN)
+                        if y < H:
+                            out[bi, nt * BN:nt * BN + nn, y, x0:x0 + xs] = (
+                                acc[r, :xs, :nn].T + bf[nt * BN:nt * BN + nn, None].double())
     return out.float()
 
 
 @pytest.mark.parametrize("B,Cin,Cout,H,W", [
     (1, 12, 24, 5, 7),      # Cin % 8 != 0 (the last chunk's second block zero-filled), ragged everything
     (2, 16, 170, 3, 70),    # two column tiles, two N tiles (the second ragged), a half row tile
+    (1, 20, 26, 3, 96),     # W = 96 (SD 2.1): a full and a half-empty column tile; Cin % 8 == 4, Cout ragged
 ])
 def test_conv_f32_kernel_layouts_replayed(B, Cin, Cout, H, W):
-    """The f32 conv kernel's operand layouts (4-channel blocks, the (N tile,
-    8-channel chunk, tap, 160, 8) weight tiling), window and weight copies and
-    m16n8k8 fragments, replayed on the CPU from kernel_operands, compute the
-    conv. f64 in the replay: only the order of sums differs."""
+    """The f32 conv kernel's operand layouts (4-channel blocks followed by
+    their lo part, the (N tile, 8-channel chunk, [raw, lo], tap, 2, 160, 4)
+    weight tiling), TMA boxes, bulk copy, shifted no-swizzle descriptors and
+    per-chunk fold, replayed on the CPU from kernel_operands, compute the
+    conv in 3xTF32: within 1e-5 of max |out| of the f32 conv."""
     from aid_tpu_torch.ops.conv import conv3x3_same_plain
 
     g = torch.Generator().manual_seed(6)
@@ -1100,11 +1266,11 @@ def test_conv_f32_kernel_layouts_replayed(B, Cin, Cout, H, W):
 ])
 def test_conv_gnsilu_f32_kernel_replayed(B, Cin, Cout, H, W, groups):
     """The f32 GN+SiLU conv: the prologue applied in the layout pass (the
-    blocked copy holds silu(x * scale + shift)), then the f32 conv kernel's
-    copies and fragments replayed unchanged, compute conv3x3_gnsilu_plain;
+    blocked copy holds silu(x * scale + shift) and its lo part), then the f32
+    conv kernel's boxes, descriptors and fold replayed unchanged, compute conv3x3_gnsilu_plain;
     the window's zero fill outside the image is the zero halo after the
     prologue. Input and gamma/beta far from 0/1, so a halo that took
-    silu(shift) would show on the border. f64 in the replay."""
+    silu(shift) would show on the border. 3xTF32 in the replay."""
     from aid_tpu_torch.ops.conv import conv3x3_gnsilu_plain, gn_scale_shift
 
     g = torch.Generator().manual_seed(7)
@@ -1130,7 +1296,8 @@ def test_conv_gnsilu_f32_operands():
     xb, wt, bf, fac = C.kernel_operands(x, w, b, sc, sh)
     want = F.silu(x * sc[:, :, None, None] + sh[:, :, None, None])
     assert fac == () and torch.equal(xb, C.blocked_input_plain(want))
-    assert torch.equal(xb, C.blocked_input(x, sc, sh)) and xb.shape == (2, 2, 3, 5, 4)
+    assert torch.equal(xb, C.blocked_input(x, sc, sh)) and xb.shape == (2, 2, 2, 3, 5, 4)
+    assert torch.equal(xb[1], C.tf32_rest(xb[0])) and xb[1].any()
     xb16, _, _, fac16 = C.kernel_operands(x.bfloat16(), w.bfloat16(), b, sc, sh)
     assert torch.equal(xb16, C.blocked_input_plain(x.bfloat16())) and len(fac16) == 2
 
@@ -1160,28 +1327,35 @@ def test_conv_gnsilu_f32_plain_matches_pallas_interpret(hw, cin, cout, groups):
 
 def test_conv_f32_layouts():
     """The f32 layouts the kernel reads: blocked_input_plain puts 4 channels
-    (16 bytes) in a block, and tiled_weight tiles an f32 weight as (N tile,
-    8-channel chunk, dy, dx, co, ci % 8) with zeros past Cout and Cin, kept
-    apart from a bf16 copy's tiling."""
+    (16 bytes) in a block and follows the blocks with their lo part, and
+    tiled_weight tiles an f32 weight as (N tile, 8-channel chunk, [raw, lo],
+    dy, dx, channel group, co, ci % 4) with zeros past Cout and Cin, kept
+    apart from a bf16 copy's tiling; raw + lo is the weight, lo is what tf32
+    drops."""
+    from aid_tpu_torch.ops import conv as C
     from aid_tpu_torch.ops.conv import blocked_input_plain, tiled_weight
 
     g = torch.Generator().manual_seed(9)
     x = torch.randn(2, 12, 3, 5, generator=g)
     xb = blocked_input_plain(x)
-    assert xb.shape == (2, 3, 3, 5, 4) and torch.equal(xb[1, 2, 1, 4], x[1, 8:12, 1, 4])
+    assert xb.shape == (2, 2, 3, 3, 5, 4) and torch.equal(xb[0, 1, 2, 1, 4], x[1, 8:12, 1, 4])
+    assert xb[1].any() and torch.equal(xb[1], C.tf32_rest(xb[0]))
     assert blocked_input_plain(torch.zeros(1, 16, 2, 2, dtype=torch.bfloat16)).shape == (1, 2, 2, 2, 8)
     w = torch.randn(170, 20, 3, 3, generator=g)
     wt = tiled_weight(w)
-    assert wt.shape == (2, 3, 3, 3, 160, 8) and wt.dtype == torch.float32
-    assert torch.equal(wt[1, 2, 2, 0, 9, 3], w[169, 19, 2, 0]) and not wt[1, 2, :, :, :, 4:].any()
-    assert not wt[1, :, :, :, 10:].any()
+    assert wt.shape == (2, 3, 2, 3, 3, 2, 160, 4) and wt.dtype == torch.float32
+    assert torch.equal(wt[1, 2, 0, 2, 0, 0, 9, 3], w[169, 19, 2, 0]) and not wt[1, 2, :, :, :, 1].any()
+    assert not wt[1, :, :, :, :, :, 10:].any()
+    assert torch.equal(wt[:, :, 1], C.tf32_rest(wt[:, :, 0])) and wt[:, :, 1].any()
     wb = w.bfloat16()
     assert tiled_weight(wb).shape == (2, 2, 3, 3, 2, 160, 8) and tiled_weight(w) is wt
 
 
 def test_conv_f32_tile_constants_follow_the_kernel_source():
     """ops/conv.py's f32 tile constants, which the f32 weight tiling and the
-    replay above use, are the ones csrc/conv3x3_f32.cu compiles with."""
+    replay above use, are the ones csrc/conv3x3_f32.cu compiles with; the
+    stage the replay builds (two window boxes, raw and lo weights) is the
+    kernel's kStageBytes, and two stages fit the 227 KB a block can use."""
     import re
     from pathlib import Path
 
@@ -1189,8 +1363,13 @@ def test_conv_f32_tile_constants_follow_the_kernel_source():
 
     src = (Path(C.__file__).resolve().parents[1] / "csrc" / "conv3x3_f32.cu").read_text()
     found = {name: int(v) for name, v in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
-    assert (found["kTR"], found["kTW"], found["kBN"], found["kKc"]) == (
-        C.F32_TILE_ROWS, C.F32_TILE_COLS, C.F32_N_TILE, C.F32_K_CHUNK)
+    assert (found["kTR"], found["kTW"], found["kBN"], found["kKc"], found["kStages"]) == (
+        C.F32_TILE_ROWS, C.F32_TILE_COLS, C.F32_N_TILE, C.F32_K_CHUNK, C.F32_STAGES)
+    window = (C.F32_TILE_ROWS + 2) * (C.F32_TILE_COLS + 2) * 16 * 2  # two 4-channel groups
+    weights = 9 * 2 * C.F32_N_TILE * 16  # one part of a chunk's weights
+    assert "kStageBytes = 2 * kWinBytes + 2 * kWtsBytes" in src
+    assert C.F32_STAGES * (2 * window + 2 * weights) + 2 * C.F32_STAGES * 8 + 128 <= 232448
+    assert re.search(r"kThreads = (\d+);", src).group(1) == str(128 * C.F32_TILE_ROWS)  # a warpgroup a row
 
 
 @pytest.mark.parametrize("passes,within", [(3, True), (1, False)])
