@@ -26,7 +26,8 @@
 // lo, hi*hi + hi*lo + lo*hi summed in f32 (lo*lo dropped); three passes at
 // the 495 TFLOP/s TF32 rate are the bound.
 //
-// Head dims 40, 64 and 80: wgmma, TMA and a split/transpose warpgroup.
+// Every head dim (40, 64, 80, 160): wgmma, TMA and a split/transpose
+// warpgroup.
 //   * hi is the raw f32 operand: the tensor cores read a tf32 operand's top
 //     19 bits, so hi = trunc(a) costs nothing and only lo = a - trunc(a)
 //     (exact in f32, read truncated in turn) is made. Relative error of the
@@ -38,8 +39,8 @@
 //     the extent D, so columns past D (the second box at D = 40, the third
 //     half at D = 80) come in as zeros and rows past a segment's length as
 //     zeros, never as the next head's or batch row's. Shared (H, Le, D)
-//     endpoints get a map of batch extent 1. Each block's 128 query rows
-//     arrive the same way, once;
+//     endpoints get a map of batch extent 1. Each block's query rows arrive
+//     the same way, once;
 //   * S = Q K^T runs wgmma m64nBKk8 tf32 with Q as A from registers (hi and
 //     lo, loaded and split once a block: Q in shared memory as well would
 //     not leave room for two stages) and K as B in its TMA tile, which is
@@ -52,14 +53,14 @@
 //     V^T's keys are permuted within each 8-key group (0,2,4,6,1,3,5,7), so
 //     the S accumulator (keys 2t and 2t+1 of each n8 tile in one thread) is
 //     P's A fragment (k = t and t + 4) with no shuffle; P_lo is split in
-//     registers;
+//     registers. V^T's rows are 32 keys (128 bytes, the 128-byte swizzle) or,
+//     for 16-key tiles, 16 keys (64 bytes under the 64-byte swizzle);
 //   * the producer warpgroup (40 registers a thread after setmaxnreg): one
 //     thread keeps the TMA ring full across the segment loop (own, begin,
 //     end), three warps split and transpose each arrived stage and arrive
-//     on its "ready" mbarrier. Two or three consumer warpgroups (the rest of
-//     the registers) of 64 query rows each run the products and the online
-//     softmax in f32 (exp2f, log2(e) folded into the scale) and release the
-//     stage;
+//     on its "ready" mbarrier. The consumer warpgroups (the rest of the
+//     registers) run the products and the online softmax in f32 (exp2f,
+//     log2(e) folded into the scale) and release the stage;
 //   * each tile's P V is summed from zero on the tensor cores and folded
 //     into O by an f32 FMA: summed in place, the tensor cores' truncating
 //     accumulation drifted 1.3e-4 of max |out| over 16384 keys (the D=512
@@ -70,37 +71,47 @@
 //     begin segment continues it to (1-c) O / l, which is exchanged with
 //     the parked state, and the end segment continues that
 //     (flash_interpolated_attention.cu's scheme).
+// At D = 40/64/80 each consumer warpgroup owns 64 query rows and all D
+// columns. At D = 160 one warpgroup cannot hold them: Q's hi and lo are 160
+// registers a thread, and Q in shared memory (80 KB for hi and lo) beside a
+// 32-key stage (100 KB: raw K, K_lo, raw V, V^T, (V^T)_lo) leaves no second
+// stage. So D = 160 splits D between two consumer warpgroups on the same 64
+// rows, flash_attention_bf16_d512.cu's scheme: each holds Q's hi and lo for
+// its 80 columns in registers (80 a thread) and a 64 x 80 O (40), the D = 80
+// instance's per-warpgroup work. Each computes partial scores over its 80
+// columns (k8 steps 10 w .. 10 w + 9: every step is 32 bytes inside one
+// 32-float box, so the descriptors start inside a swizzle atom as at every
+// head dim), writes them to shared memory in accumulator order, meets the
+// other at one named barrier and adds theirs (double-buffered by tile
+// parity; the sum is commutative, so both hold the same scores bit for bit),
+// and both run the same softmax: P never leaves registers, and each runs P V
+// over its 80 columns (V^T rows 80 w .., 512-byte aligned). The region a
+// row group's Q arrived in parks both warpgroups' outer state (2 x 22.5 KB).
+// Room decides the key tile: 16 keys (a 50 KB stage) in three stages.
 // The tile table (Tiles below): shared memory per 64 rows of Q or parked
-// state (the larger), per stage raw K, raw V and K_lo (BK x 128 bytes per
-// 32-column box) and V^T, (V^T)_lo (D x 128 bytes per 32 keys); ptxas
-// (CUDA 12.8) reports the launch bound's registers (128 at 512 threads, 168
-// at 384) and no spill for every instance; setmaxnreg gives the consumers:
-//   D   rows keys stages  stage bytes   shared memory   consumer registers
-//   40   192   32    4      34816           189,544         152
-//   64   128   64    2      81920           201,784         232
-//   80   128   32    3      57344           222,288         232
+// state (the larger), the exchange (D = 160), per stage raw K, raw V and
+// K_lo (BK x 128 bytes per 32-column box) and V^T, (V^T)_lo (D x BK x 4
+// bytes); ptxas (CUDA 12.8) reports the launch bound's registers (128 at 512
+// threads, 168 at 384) and no spill for every instance; setmaxnreg gives the
+// consumers:
+//   D   rows keys stages  warpgroups  stage bytes   shared memory   consumer registers
+//   40   192   32    4     3 x 40        34816           189,544         152
+//   64   128   64    2     2 x 64        81920           201,784         232
+//   80   128   32    3     2 x 80        57344           222,288         232
+//   160   64   16    3     2 x 80        51200           216,144         232
 // A third stage does not fit at D = 64 beside the Q / parked regions, nor
-// 64-key tiles at D = 80 (139 KB a stage). At D = 40, three warpgroups and
-// 32-key tiles beat two and 64 (fused_outer (7,8,4096,40) 4.16 against 4.50
-// ms, self 1.88 against 1.90-1.98; H100, tools/attention_bench.py); at
-// D = 64, 32-key tiles in four stages won at the 77- and 144-key calls
-// (0.128 against 0.152 ms at 4096 x 77 keys) and lost at 9216 tokens (7.56
-// against 7.33 ms), so 64 stays.
+// 64-key tiles at D = 80 (139 KB a stage), nor a second 32-key stage at
+// D = 160 beside the exchange. At D = 40, three warpgroups and 32-key tiles
+// beat two and 64 (fused_outer (7,8,4096,40) 4.16 against 4.50 ms, self 1.88
+// against 1.90-1.98; H100, tools/attention_bench.py); at D = 64, 32-key
+// tiles in four stages won at the 77- and 144-key calls (0.128 against 0.152
+// ms at 4096 x 77 keys) and lost at 9216 tokens (7.56 against 7.33 ms), so
+// 64 stays. D = 160's SD 1.5 shapes (256 and 64 tokens) are latency-bound
+// calls of 28-224 blocks: 64 rows a block, not more.
 // The tensor maps are encoded on the host with cuTensorMapEncodeTiled, taken
 // through cudaGetDriverEntryPoint (no -lcuda), kept in a small cache keyed by
 // everything they encode (pointer, extents, strides, box), and passed as
 // __grid_constant__ parameters.
-//
-// Head dim 160 keeps the mma.sync design (namespace mma below). Its per-
-// stage bytes at 32 keys (raw K, K_lo, raw V, V^T, (V^T)_lo: 100 KB) leave
-// no room for a second stage, Q cannot live in registers (160 a thread for
-// hi and lo) nor in shared memory (80 KB), and its SD 1.5 shapes (256 and 64
-// tokens) are latency-bound calls of 28-224 blocks. There each warp splits
-// its fragments in registers from one f32 copy of each tile
-// (mma.sync.m16n8k8.tf32): 64 query rows a block, 4 warps of 16, 16-key
-// tiles (32 in the outer modes) in two cp.async stages, row pitches that
-// make every fragment load free of bank conflicts, the same per-tile fold
-// and parked outer state.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -124,21 +135,21 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// ---------------------------------------------------------------------------
-// D = 40, 64, 80: wgmma 3xTF32, TMA, a split/transpose warpgroup
-// ---------------------------------------------------------------------------
-
 // The tile table (tests/test_torch_ops.py reads it): query rows per block,
 // keys per K/V tile, stages in the ring.
 template <int D> struct Tiles;
 template <> struct Tiles<40> { static constexpr int kBQ = 192, kBK = 32, kStages = 4; };
 template <> struct Tiles<64> { static constexpr int kBQ = 128, kBK = 64, kStages = 2; };
 template <> struct Tiles<80> { static constexpr int kBQ = 128, kBK = 32, kStages = 3; };
+template <> struct Tiles<160> { static constexpr int kBQ = 64, kBK = 16, kStages = 3; };
 
 template <int D>
 struct Cfg {
   static constexpr int kBQ = Tiles<D>::kBQ, kBK = Tiles<D>::kBK, kStages = Tiles<D>::kStages;
-  static constexpr int kWG = kBQ / 64;                  // consumer warpgroups, 64 query rows each
+  static constexpr int kSplit = D > 128 ? 2 : 1;        // consumer warpgroups sharing 64 query rows, splitting D
+  static constexpr int kDW = D / kSplit;                // a warpgroup's columns of Q K^T's depth and of O
+  static constexpr int kRG = kBQ / 64;                  // row groups of 64 query rows
+  static constexpr int kWG = kRG * kSplit;              // consumer warpgroups
   static constexpr int kThreads = 128 * (kWG + 1);      // + the producer warpgroup
   static constexpr int kProducerRegs = 40;
   // what is left of the SM's 65536 registers, per consumer thread, a multiple of 8, at most 240
@@ -146,15 +157,22 @@ struct Cfg {
                                           ? 240 : (65536 - 128 * kProducerRegs) / (128 * kWG) / 8 * 8;
   static constexpr int kSplitWarps = 3;                 // the producer's warps 1..3
   static constexpr int kChunks = (D + 31) / 32;         // 32-float boxes of a row
-  static constexpr int kKSteps = D / 8;                 // k8 steps of Q K^T
-  static constexpr int kQBytes = 64 * 128 * kChunks;    // one warpgroup's Q tile
+  static constexpr int kKSteps = kDW / 8;               // a warpgroup's k8 steps of Q K^T
+  static constexpr int kQBytes = 64 * 128 * kChunks;    // one row group's Q tile
   static constexpr int kKVBytes = kBK * 128 * kChunks;  // one raw K or V tile, or K_lo
-  static constexpr int kVTBytes = (kBK / 32) * D * 128; // V^T or (V^T)_lo: D rows per 32 keys
+  static constexpr int kVTRow = (kBK < 32 ? kBK : 32) * 4;  // bytes of a V^T row: 128 or 64 (the swizzle's width)
+  static constexpr int kVTGroups = kVTRow / 32;         // 8-key groups (k8 steps) in a V^T row
+  static constexpr int kVTBytes = kBK * 4 * D;          // V^T or (V^T)_lo: D rows per kVTRow bytes of keys
   static constexpr int kStageBytes = 3 * kKVBytes + 2 * kVTBytes;  // K, V, K_lo, V^T, (V^T)_lo
-  static constexpr int kSlot = D / 2 + 4;               // parked words a thread: O, m[2], l[2]
-  static constexpr int kRegionBytes = ((kQBytes > 128 * kSlot * 4 ? kQBytes : 128 * kSlot * 4) + 1023) / 1024 * 1024;
-  static constexpr int smem_bytes() { return 1024 + kWG * kRegionBytes + kStages * kStageBytes + (3 * kStages + 1) * 8; }
-  static_assert(D % 8 == 0 && kBK % 32 == 0, "k8 steps, 32-key boxes of V^T");
+  static constexpr int kSlot = kDW / 2 + 4;             // parked words a thread: O, m[2], l[2]
+  static constexpr int kParkBytes = kSplit * 128 * kSlot * 4;  // a row group's parked state
+  static constexpr int kRegionBytes = ((kQBytes > kParkBytes ? kQBytes : kParkBytes) + 1023) / 1024 * 1024;
+  static constexpr int kXBytes = kSplit > 1 ? 2 * kSplit * (kBK / 2) * 128 * 4 : 0;  // the exchange, by tile parity
+  static constexpr int smem_bytes() {
+    return 1024 + kRG * kRegionBytes + kRG * kXBytes + kStages * kStageBytes + (3 * kStages + 1) * 8;
+  }
+  static_assert(kDW % 8 == 0 && (kBK % 32 == 0 || kBK == 16), "k8 steps, 128- or 64-byte rows of V^T");
+  static_assert(kSplit == 1 || kSplit == 2, "the exchange adds one other warpgroup's partial scores");
   static_assert(kWG * kConsumerRegs * 128 + kProducerRegs * 128 <= 65536, "registers");
   static_assert(smem_bytes() <= 232448, "over the 227 KB a block can use");
 };
@@ -213,29 +231,42 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
 // 128-byte rows: 16-byte chunk j of row r lies at chunk j ^ (r % 8)
 __device__ __forceinline__ uint32_t swz(uint32_t off) { return off ^ (((off >> 7) & 7) << 4); }
 
+// V^T's layout: rows of 128 bytes under the 128-byte swizzle, or of 64
+// bytes under the 64-byte one (16-byte chunk j of 512-byte-aligned row r at
+// j ^ (r / 2 % 4)), and the wgmma descriptor that reads it
+template <int ROW>
+__device__ __forceinline__ uint32_t vt_swz(uint32_t off) {
+  return ROW == 128 ? swz(off) : off ^ (((off >> 7) & 3) << 4);
+}
+template <int ROW>
+__device__ __forceinline__ uint64_t vt_desc(uint32_t addr) {
+  return ROW == 128 ? desc_sw128(addr) : desc_sw64(addr);
+}
+
 // The running softmax state of this thread's two query rows (g and g + 8
-// of its warp's 16): O in the wgmma accumulator layout, the running max m
-// of the raw scores and this thread's partial row sums l.
-template <int D>
+// of its warp's 16): O's N columns of this warpgroup in the wgmma
+// accumulator layout, the running max m of the raw scores and this
+// thread's partial row sums l.
+template <int N>
 struct State {
-  float o[D / 2];
+  float o[N / 2];
   float m[2], l[2];
 };
 
-template <int D>
-__device__ __forceinline__ void init_state(State<D>& st) {
+template <int N>
+__device__ __forceinline__ void init_state(State<N>& st) {
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) st.o[i] = 0.f;
+  for (int i = 0; i < N / 2; ++i) st.o[i] = 0.f;
   st.m[0] = st.m[1] = -INFINITY;
   st.l[0] = st.l[1] = 0.f;
 }
 
 // (w / l) O: the row sums reduced over the quad
-template <int D>
-__device__ __forceinline__ void normalise(State<D>& st, float w) {
+template <int N>
+__device__ __forceinline__ void normalise(State<N>& st, float w) {
   const float i0 = w / quad_sum(st.l[0]), i1 = w / quad_sum(st.l[1]);
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
+  for (int j = 0; j < N / 8; ++j) {
     st.o[4 * j] *= i0;
     st.o[4 * j + 1] *= i0;
     st.o[4 * j + 2] *= i1;
@@ -243,23 +274,27 @@ __device__ __forceinline__ void normalise(State<D>& st, float w) {
   }
 }
 
-// One stage of online softmax for this warpgroup's 64 query rows: raw K,
-// K_lo, V^T and (V^T)_lo at their offsets from `stage`; `valid` keys of the
-// tile are real (the rest are zero rows past the segment).
+// One stage of online softmax for this warpgroup's 64 query rows and its
+// columns part * kDW ..: raw K, K_lo, V^T and (V^T)_lo at their offsets from
+// `stage`; `valid` keys of the tile are real (the rest are zero rows past
+// the segment). With D split (kSplit = 2), `xs` is the row group's exchange
+// buffer and `it` the tile's index in the stream (its parity picks the half).
 template <int D>
-__device__ __forceinline__ void tile_update(State<D>& st, const uint32_t (&qhi)[D / 8][4],
-                                            const uint32_t (&qlo)[D / 8][4], uint32_t stage, int valid,
-                                            float sl2) {
+__device__ __forceinline__ void tile_update(State<Cfg<D>::kDW>& st, const uint32_t (&qhi)[Cfg<D>::kKSteps][4],
+                                            const uint32_t (&qlo)[Cfg<D>::kKSteps][4], uint32_t stage, int valid,
+                                            float sl2, int part, float* xs, int it) {
   using C = Cfg<D>;
-  constexpr int BK = C::kBK;
+  constexpr int BK = C::kBK, DW = C::kDW, ROW = C::kVTRow;
   const int t = threadIdx.x & 3;
   const uint32_t kt = stage, klo = stage + 2 * C::kKVBytes, vt = stage + 3 * C::kKVBytes, vtlo = vt + C::kVTBytes;
-  // S = Q K^T: hi*hi into s, hi*lo + lo*hi into sm; k8 step kk is box kk / 4, 32 bytes in per step
+  // S = Q K^T over this warpgroup's columns: hi*hi into s, hi*lo + lo*hi
+  // into sm; k8 step ks is box ks / 4, 32 bytes in per step
   float s[BK / 2], sm[BK / 2];
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < C::kKSteps; ++kk) {
-    const uint32_t off = (kk / 4) * (BK * 128) + (kk % 4) * 32;
+    const int ks = part * C::kKSteps + kk;
+    const uint32_t off = (ks / 4) * (BK * 128) + (ks % 4) * 32;
     wgmma_tf32(sm, qlo[kk], desc_sw128(kt + off), kk > 0);
     wgmma_tf32(sm, qhi[kk], desc_sw128(klo + off), 1);
     wgmma_tf32(s, qhi[kk], desc_sw128(kt + off), kk > 0);
@@ -270,8 +305,20 @@ __device__ __forceinline__ void tile_update(State<D>& st, const uint32_t (&qhi)[
   reg_fence(sm);
 
 #pragma unroll
+  for (int i = 0; i < BK / 2; ++i) s[i] += sm[i];
+  if (C::kSplit > 1) {
+    // partial scores out in accumulator order, meet the other warpgroup, add theirs
+    const int ct = threadIdx.x & 127;
+    float* mine = xs + ((it & 1) * C::kSplit + part) * (BK / 2) * 128 + ct;
+    const float* theirs = xs + ((it & 1) * C::kSplit + (1 - part)) * (BK / 2) * 128 + ct;
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) mine[i * 128] = s[i];
+    asm volatile("bar.sync %0, %1;\n" ::"r"(1 + (int)(threadIdx.x >> 7) / C::kSplit), "n"(128 * C::kSplit) : "memory");
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) s[i] += theirs[i * 128];
+  }
+#pragma unroll
   for (int i = 0; i < BK / 2; ++i) {
-    s[i] += sm[i];
     if (valid < BK && (i / 4) * 8 + 2 * t + (i & 1) >= valid) s[i] = -INFINITY;  // keys past the segment
   }
   float mx0 = -INFINITY, mx1 = -INFINITY;
@@ -308,27 +355,28 @@ __device__ __forceinline__ void tile_update(State<D>& st, const uint32_t (&qhi)[
   st.l[0] = st.l[0] * al0 + ls0;
   st.l[1] = st.l[1] * al1 + ls1;
 
-  // this tile's P V from zero (hi*lo and lo*hi first), folded into O by FMA
-  float part[D / 2];
+  // this tile's P V over this warpgroup's columns (V^T rows part * DW ..)
+  // from zero (hi*lo and lo*hi first), folded into O by FMA
+  float pv[DW / 2];
   wgmma_fence();
 #pragma unroll
   for (int ks = 0; ks < BK / 8; ++ks) {
-    const uint32_t off = (ks / 4) * (D * 128) + (ks % 4) * 32;
-    wgmma_tf32(part, pl[ks], desc_sw128(vt + off), ks > 0);
-    wgmma_tf32(part, ph[ks], desc_sw128(vtlo + off), 1);
-    wgmma_tf32(part, ph[ks], desc_sw128(vt + off), 1);
+    const uint32_t off = (ks / C::kVTGroups) * (D * ROW) + part * DW * ROW + (ks % C::kVTGroups) * 32;
+    wgmma_tf32(pv, pl[ks], vt_desc<ROW>(vt + off), ks > 0);
+    wgmma_tf32(pv, ph[ks], vt_desc<ROW>(vtlo + off), 1);
+    wgmma_tf32(pv, ph[ks], vt_desc<ROW>(vt + off), 1);
   }
   wgmma_commit();
   wgmma_wait0();
-  reg_fence(part);
+  reg_fence(pv);
   reg_fence(ph);
   reg_fence(pl);
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    st.o[4 * j] = fmaf(st.o[4 * j], al0, part[4 * j]);
-    st.o[4 * j + 1] = fmaf(st.o[4 * j + 1], al0, part[4 * j + 1]);
-    st.o[4 * j + 2] = fmaf(st.o[4 * j + 2], al1, part[4 * j + 2]);
-    st.o[4 * j + 3] = fmaf(st.o[4 * j + 3], al1, part[4 * j + 3]);
+  for (int j = 0; j < DW / 8; ++j) {
+    st.o[4 * j] = fmaf(st.o[4 * j], al0, pv[4 * j]);
+    st.o[4 * j + 1] = fmaf(st.o[4 * j + 1], al0, pv[4 * j + 1]);
+    st.o[4 * j + 2] = fmaf(st.o[4 * j + 2], al1, pv[4 * j + 2]);
+    st.o[4 * j + 3] = fmaf(st.o[4 * j + 3], al1, pv[4 * j + 3]);
   }
 }
 
@@ -341,7 +389,7 @@ __device__ __forceinline__ void tile_update(State<D>& st, const uint32_t (&qhi)[
 template <int D>
 __device__ __forceinline__ void split_stage(unsigned char* stage, int sp, int warp, int lane) {
   using C = Cfg<D>;
-  constexpr int BK = C::kBK;
+  constexpr int BK = C::kBK, ROW = C::kVTRow;
   const float4* kr = reinterpret_cast<const float4*>(stage);
   float4* kl = reinterpret_cast<float4*>(stage + 2 * C::kKVBytes);
   for (int i = sp; i < C::kKVBytes / 16; i += 32 * C::kSplitWarps) {
@@ -358,14 +406,14 @@ __device__ __forceinline__ void split_stage(unsigned char* stage, int sp, int wa
     for (int w = 0; w < 8; ++w) {
       v[w] = *reinterpret_cast<const float*>(vr + cb * (BK * 128) + swz((8 * grp + w) * 128 + lane * 4));
     }
-    const uint32_t row = (grp / 4) * (D * 128) + d * 128 + (grp % 4) * 32;
-    float4* even = reinterpret_cast<float4*>(vt + swz(row));
-    float4* odd = reinterpret_cast<float4*>(vt + swz(row + 16));
+    const uint32_t row = (grp / C::kVTGroups) * (D * ROW) + d * ROW + (grp % C::kVTGroups) * 32;
+    float4* even = reinterpret_cast<float4*>(vt + vt_swz<ROW>(row));
+    float4* odd = reinterpret_cast<float4*>(vt + vt_swz<ROW>(row + 16));
     *even = make_float4(v[0], v[2], v[4], v[6]);
     *odd = make_float4(v[1], v[3], v[5], v[7]);
-    *reinterpret_cast<float4*>(vt + C::kVTBytes + swz(row)) =
+    *reinterpret_cast<float4*>(vt + C::kVTBytes + vt_swz<ROW>(row)) =
         make_float4(tf32_rest(v[0]), tf32_rest(v[2]), tf32_rest(v[4]), tf32_rest(v[6]));
-    *reinterpret_cast<float4*>(vt + C::kVTBytes + swz(row + 16)) =
+    *reinterpret_cast<float4*>(vt + C::kVTBytes + vt_swz<ROW>(row + 16)) =
         make_float4(tf32_rest(v[1]), tf32_rest(v[3]), tf32_rest(v[5]), tf32_rest(v[7]));
   }
 }
@@ -385,7 +433,8 @@ __global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;  // 128-byte-swizzled tiles are 1024-byte aligned
-  const uint32_t regions = base, stages = base + C::kWG * C::kRegionBytes;
+  // per row group its Q / parked region, then its exchange buffer (D split only), then the ring
+  const uint32_t regions = base, xchg = base + C::kRG * C::kRegionBytes, stages = xchg + C::kRG * C::kXBytes;
   const uint32_t full = stages + S * C::kStageBytes, ready = full + 8 * S, empty = ready + 8 * S, qbar = empty + 8 * S;
 
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * C::kBQ;
@@ -413,8 +462,8 @@ __global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
     const int warp = (tid >> 5) & 3, lane = tid & 31;
     if (warp == 0) {
       if (lane == 0) {
-        mbar_expect_tx(qbar, C::kWG * C::kQBytes);
-        for (int w = 0; w < C::kWG; ++w) {
+        mbar_expect_tx(qbar, C::kRG * C::kQBytes);
+        for (int w = 0; w < C::kRG; ++w) {
           for (int c = 0; c < C::kChunks; ++c) {
             tma_load(regions + w * C::kRegionBytes + c * 8192, &qm, qbar, 32 * c, h, q0 + 64 * w, b);
           }
@@ -448,32 +497,36 @@ __global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
       }
     }
   } else {
-    // consumer warpgroup wg: query rows q0 + 64 wg ...
+    // consumer warpgroup wg: query rows q0 + 64 rg .., columns kDW part ..
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(C::kConsumerRegs));
     const int warp = (tid >> 5) & 3, lane = tid & 31, g = lane >> 2, t = lane & 3;
-    unsigned char* region = smem_raw + (regions + wg * C::kRegionBytes - raw);
+    const int rg = wg / C::kSplit, part = wg % C::kSplit;
+    unsigned char* region = smem_raw + (regions + rg * C::kRegionBytes - raw);
+    float* xs = reinterpret_cast<float*>(smem_raw + (xchg + rg * C::kXBytes - raw));
     mbar_wait(qbar, 0);
-    // Q's A fragments, hi (raw) and lo, for every k8 step: rows 16 warp + g (+ 8), columns 8 kk + t (+ 4)
-    uint32_t qhi[D / 8][4], qlo[D / 8][4];
+    // Q's A fragments, hi (raw) and lo, for this warpgroup's k8 steps: rows
+    // 16 warp + g (+ 8), columns kDW part + 8 kk + t (+ 4)
+    uint32_t qhi[C::kKSteps][4], qlo[C::kKSteps][4];
 #pragma unroll
-    for (int kk = 0; kk < D / 8; ++kk) {
+    for (int kk = 0; kk < C::kKSteps; ++kk) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int r = 16 * warp + g + 8 * (e & 1), c = 8 * kk + t + 4 * (e >> 1);
+        const int r = 16 * warp + g + 8 * (e & 1), c = C::kDW * part + 8 * kk + t + 4 * (e >> 1);
         const float x = *reinterpret_cast<const float*>(region + (c / 32) * 8192 + swz(r * 128 + (c % 32) * 4));
         qhi[kk][e] = __float_as_uint(x);
         qlo[kk][e] = __float_as_uint(tf32_rest(x));
       }
     }
 
-    State<D> st;
+    constexpr int DW = C::kDW;
+    State<DW> st;
     init_state(st);
     int it = 0;
     auto segment = [&](int len) {
       for (int r0 = 0; r0 < len; r0 += BK, ++it) {
         const int s = it % S;
         mbar_wait(ready + 8 * s, (it / S) & 1);
-        tile_update<D>(st, qhi, qlo, stages + s * C::kStageBytes, min(BK, len - r0), p.scale_log2);
+        tile_update<D>(st, qhi, qlo, stages + s * C::kStageBytes, min(BK, len - r0), p.scale_log2, part, xs, it);
         __syncwarp();
         if (lane == 0) mbar_arrive(empty + 8 * s);
       }
@@ -481,55 +534,56 @@ __global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
     if (HAS_OWN) segment(p.Lk);
     if (n_eps == 2) {
       // this thread's parked words, one column of (kSlot, 128) per thread (conflict free);
-      // the region held this warpgroup's Q tile, which is in registers now
-      float* park = reinterpret_cast<float*>(region) + (tid & 127);
+      // the region held this row group's Q tile, which every warpgroup of it
+      // has in registers by now (each passed a tile's exchange, or has its own rows)
+      float* park = reinterpret_cast<float*>(region) + part * C::kSlot * 128 + (tid & 127);
       const float c = p.coef[b];
       if (HAS_OWN) {  // park the own segment's state: the end segment continues it too
 #pragma unroll
-        for (int i = 0; i < D / 2; ++i) park[i * 128] = st.o[i];
+        for (int i = 0; i < DW / 2; ++i) park[i * 128] = st.o[i];
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
-          park[(D / 2 + r) * 128] = st.m[r];
-          park[(D / 2 + 2 + r) * 128] = st.l[r];
+          park[(DW / 2 + r) * 128] = st.m[r];
+          park[(DW / 2 + 2 + r) * 128] = st.l[r];
         }
       }
       segment(p.Le);  // begin
       normalise(st, 1.f - c);
       if (HAS_OWN) {  // exchange (1 - c) O_begin / l with the parked own state
 #pragma unroll
-        for (int i = 0; i < D / 2; ++i) {
+        for (int i = 0; i < DW / 2; ++i) {
           const float own = park[i * 128];
           park[i * 128] = st.o[i];
           st.o[i] = own;
         }
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
-          st.m[r] = park[(D / 2 + r) * 128];
-          st.l[r] = park[(D / 2 + 2 + r) * 128];
+          st.m[r] = park[(DW / 2 + r) * 128];
+          st.l[r] = park[(DW / 2 + 2 + r) * 128];
         }
       } else {
 #pragma unroll
-        for (int i = 0; i < D / 2; ++i) park[i * 128] = st.o[i];
+        for (int i = 0; i < DW / 2; ++i) park[i * 128] = st.o[i];
         init_state(st);
       }
       segment(p.Le);  // end
       normalise(st, c);
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) st.o[i] += park[i * 128];
+      for (int i = 0; i < DW / 2; ++i) st.o[i] += park[i * 128];
     } else {
       if (n_eps == 1) segment(p.Le);
       normalise(st, 1.f);
     }
 
-    // rows g and g + 8 of this warp, columns 8j + 2t, 8j + 2t + 1: float2 stores at the output's strides
-    float* ob = p.out + b * p.sob + h * p.soh;
+    // rows g and g + 8 of this warp, columns kDW part + 8j + 2t (+ 1): float2 stores at the output's strides
+    float* ob = p.out + b * p.sob + h * p.soh + DW * part;
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf) {
-      const int row = q0 + 64 * wg + 16 * warp + g + 8 * hf;
+      const int row = q0 + 64 * rg + 16 * warp + g + 8 * hf;
       if (row >= p.Sq) continue;
       float* orow = ob + (long long)row * p.sos + 2 * t;
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
+      for (int j = 0; j < DW / 8; ++j) {
         *reinterpret_cast<float2*>(orow + 8 * j) = make_float2(st.o[4 * j + 2 * hf], st.o[4 * j + 2 * hf + 1]);
       }
     }
@@ -669,397 +723,6 @@ int launch_d(const void* const (&ptrs)[8], const long long* dims, int has_own, i
   return (int)cudaErrorInvalidValue;
 }
 
-// ---------------------------------------------------------------------------
-// D = 160: mma.sync.m16n8k8.tf32, fragments split in registers
-// ---------------------------------------------------------------------------
-namespace mma {
-
-// The tile table (tests/test_torch_ops.py reads it): keys per K/V tile, keys
-// per K/V tile in the outer modes, the row pitch of Q and K, the row pitch of
-// V (floats). 16-key tiles keep a block at 85.5 KB, two to an SM (self
-// (7,8,256,160): 0.082 against 0.107 ms with 32-key tiles); the outer
-// modes' parked state (43 KB) leaves one block an SM either way, and there
-// 32-key tiles win (fused_outer: 0.296 against 0.356 ms; H100,
-// tools/attention_bench.py).
-template <int D> struct MmaTiles;
-template <> struct MmaTiles<160> { static constexpr int kBK = 16, kBKOuter = 32, kLdQK = 168, kLdV = 164; };
-
-constexpr int kBQ = 64;        // query rows per block
-constexpr int kThreads = 128;  // 4 warps of 16 query rows
-
-template <int D, bool OUTER>
-struct Cfg {
-  static constexpr int kBK = OUTER ? MmaTiles<D>::kBKOuter : MmaTiles<D>::kBK;
-  static constexpr int kLdQK = MmaTiles<D>::kLdQK, kLdV = MmaTiles<D>::kLdV;
-  static constexpr int kNT = D / 8;                     // n8 tiles of O, k8 steps of Q K^T
-  static constexpr int kNC = kNT % 5 == 0 ? 5 : 4;      // O's n8 tiles per P V pass
-  static constexpr int kSlot = D / 2 + 4;               // parked words a thread: O, m[2], l[2]
-  static constexpr int kKOff = kBQ * kLdQK;
-  static constexpr int kVOff = kKOff + 2 * kBK * kLdQK;
-  static constexpr int kParkOff = kVOff + 2 * kBK * kLdV;
-  static constexpr int kSmemBytes = 4 * (kParkOff + (OUTER ? kThreads * kSlot : 0));
-  static_assert(D % 8 == 0 && kBK % 8 == 0 && kNT % kNC == 0, "m16n8k8 steps");
-  static_assert(kLdQK % 32 == 8 || kLdQK % 32 == 24, "Q/K fragment loads conflict free");
-  static_assert(kLdV % 16 == 4 || kLdV % 16 == 12, "V fragment loads conflict free");
-  static_assert(kSmemBytes <= 232448, "over the 227 KB a block can use");
-};
-
-struct Strides {
-  long long b, h, s;
-};
-
-struct Params {
-  const float* q;
-  const float* k;
-  const float* v;
-  const float* kb;
-  const float* vb;
-  const float* ke;
-  const float* ve;
-  float* out;
-  const float* coef;    // (B,) f32, read by the outer modes only
-  const uint8_t* skip;  // (B,) bool or null, read by the fused endpoint modes only
-  int Sq, Lk, Le;
-  Strides sq, sk, sv, skb, svb, ske, sve, so;
-  float scale_log2;     // softmax scale * log2(e)
-};
-
-// One key segment of a (b, h) stream: K and V rows and their count.
-struct Seg {
-  const float* k;
-  const float* v;
-  long long sk, sv;
-  int len;
-};
-
-// Stage rows [row0, row0 + ROWS) of one sequence into rows of LD floats;
-// rows at or past len are zero-filled.
-template <int D, int LD, int ROWS>
-__device__ __forceinline__ void load_rows(float* dst, const float* base, long long stride, int row0, int len) {
-  constexpr int kC = D / 4;  // 16-byte chunks of a row
-  for (int i = threadIdx.x; i < ROWS * kC; i += kThreads) {
-    const int r = i / kC, c = (i - r * kC) * 4;
-    const int row = row0 + r;
-    const bool ok = row < len;
-    cp_async16(dst + r * LD + c, ok ? base + (long long)row * stride + c : base, ok);
-  }
-}
-
-// The running softmax state of this thread's two query rows (g and g + 8 of
-// its warp's 16): O in the m16n8 accumulator layout, the running max m of
-// the raw scores and this thread's partial row sums l.
-template <int D>
-struct State {
-  float o[D / 8][4];
-  float m[2], l[2];
-};
-
-template <int D>
-__device__ __forceinline__ void init_state(State<D>& st) {
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) st.o[j][e] = 0.f;
-  }
-  st.m[0] = st.m[1] = -INFINITY;
-  st.l[0] = st.l[1] = 0.f;
-}
-
-// (w / l) O, the row sums reduced over the quad
-template <int D>
-__device__ __forceinline__ void normalise(State<D>& st, float w) {
-  const float i0 = w / quad_sum(st.l[0]), i1 = w / quad_sum(st.l[1]);
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    st.o[j][0] *= i0;
-    st.o[j][1] *= i0;
-    st.o[j][2] *= i1;
-    st.o[j][3] *= i1;
-  }
-}
-
-// One K/V tile of online softmax for this warp's 16 query rows; `valid`
-// keys of the tile are real. The S accumulator of m16n8k8 is P's A
-// fragment once the k order inside an 8-wide step is permuted (fragment
-// k = t and t + 4 taken from columns 2t and 2t + 1, the same order for both
-// operands), and each thread's pair of Q or K values is one 8-byte load.
-template <int D, bool OUTER>
-__device__ __forceinline__ void tile_update(State<D>& st, const float* qa, const float* kt, const float* vt,
-                                            int valid, float sl2, int g, int t) {
-  using C = Cfg<D, OUTER>;
-  constexpr int BK = C::kBK, NT = C::kNT, NC = C::kNC;
-  // S = Q K^T in 3xTF32: big and small terms in separate accumulators
-  float s[BK / 8][4], sm[BK / 8][4];
-#pragma unroll
-  for (int nj = 0; nj < BK / 8; ++nj) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[nj][e] = sm[nj][e] = 0.f;
-  }
-#pragma unroll
-  for (int kk = 0; kk < NT; ++kk) {
-    uint32_t ahi[4], alo[4];
-    load_a_split(qa + kk * 8, C::kLdQK, g, t, ahi, alo);
-#pragma unroll
-    for (int nj = 0; nj < BK / 8; ++nj) {
-      const float2 kv = *reinterpret_cast<const float2*>(kt + (nj * 8 + g) * C::kLdQK + kk * 8 + 2 * t);
-      uint32_t bhi0, blo0, bhi1, blo1;
-      split_tf32(kv.x, bhi0, blo0);
-      split_tf32(kv.y, bhi1, blo1);
-      mma_tf32(sm[nj], alo, bhi0, bhi1);
-      mma_tf32(sm[nj], ahi, blo0, blo1);
-      mma_tf32(s[nj], ahi, bhi0, bhi1);
-    }
-  }
-  float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-  for (int nj = 0; nj < BK / 8; ++nj) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      s[nj][e] += sm[nj][e];
-      if (nj * 8 + 2 * t + (e & 1) >= valid) s[nj][e] = -INFINITY;  // keys past the segment
-    }
-    mx0 = fmaxf(mx0, fmaxf(s[nj][0], s[nj][1]));
-    mx1 = fmaxf(mx1, fmaxf(s[nj][2], s[nj][3]));
-  }
-  // every tile holds at least one real key, so the new max is finite
-  const float mn0 = fmaxf(st.m[0], quad_max(mx0)), mn1 = fmaxf(st.m[1], quad_max(mx1));
-  const float al0 = exp2f((st.m[0] - mn0) * sl2), al1 = exp2f((st.m[1] - mn1) * sl2);  // 0 on the first tile
-  st.m[0] = mn0;
-  st.m[1] = mn1;
-  const float ms0 = mn0 * sl2, ms1 = mn1 * sl2;
-  float ls0 = 0.f, ls1 = 0.f;
-#pragma unroll
-  for (int nj = 0; nj < BK / 8; ++nj) {
-    s[nj][0] = exp2f(fmaf(s[nj][0], sl2, -ms0));  // masked keys: exp2(-inf) = 0
-    s[nj][1] = exp2f(fmaf(s[nj][1], sl2, -ms0));
-    s[nj][2] = exp2f(fmaf(s[nj][2], sl2, -ms1));
-    s[nj][3] = exp2f(fmaf(s[nj][3], sl2, -ms1));
-    ls0 += s[nj][0] + s[nj][1];
-    ls1 += s[nj][2] + s[nj][3];
-  }
-  st.l[0] = st.l[0] * al0 + ls0;
-  st.l[1] = st.l[1] * al1 + ls1;
-
-  // O = O * alpha + P V: P's A fragment of k-step ks is S's n-tile ks (keys
-  // 2t and 2t + 1 as fragment k = t and t + 4); V's B fragment is rows 2t and
-  // 2t + 1 of the step, column g. Summed per tile from zero, folded by FMA.
-#pragma unroll
-  for (int nc = 0; nc < NT; nc += NC) {
-    float part[NC][4];
-#pragma unroll
-    for (int nj = 0; nj < NC; ++nj) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) part[nj][e] = 0.f;
-    }
-#pragma unroll
-    for (int ks = 0; ks < BK / 8; ++ks) {
-      uint32_t ahi[4], alo[4];
-      split_tf32(s[ks][0], ahi[0], alo[0]);  // (row g, key 2t)
-      split_tf32(s[ks][2], ahi[1], alo[1]);  // (row g + 8, key 2t)
-      split_tf32(s[ks][1], ahi[2], alo[2]);  // (row g, key 2t + 1)
-      split_tf32(s[ks][3], ahi[3], alo[3]);  // (row g + 8, key 2t + 1)
-      const float* vp = vt + (ks * 8 + 2 * t) * C::kLdV + nc * 8 + g;
-#pragma unroll
-      for (int nj = 0; nj < NC; ++nj) {
-        uint32_t bhi0, blo0, bhi1, blo1;
-        split_tf32(vp[nj * 8], bhi0, blo0);
-        split_tf32(vp[C::kLdV + nj * 8], bhi1, blo1);
-        mma_tf32(part[nj], alo, bhi0, bhi1);
-        mma_tf32(part[nj], ahi, blo0, blo1);
-        mma_tf32(part[nj], ahi, bhi0, bhi1);
-      }
-    }
-#pragma unroll
-    for (int nj = 0; nj < NC; ++nj) {
-      float* oo = st.o[nc + nj];
-      oo[0] = fmaf(oo[0], al0, part[nj][0]);
-      oo[1] = fmaf(oo[1], al0, part[nj][1]);
-      oo[2] = fmaf(oo[2], al1, part[nj][2]);
-      oo[3] = fmaf(oo[3], al1, part[nj][3]);
-    }
-  }
-}
-
-// HAS_OWN / NSETS as for the wgmma design above.
-template <int D, bool HAS_OWN, int NSETS>
-__global__ void __launch_bounds__(kThreads) flash_f32_mma_kernel(const Params p) {
-  using C = Cfg<D, NSETS == 2>;
-  constexpr int BK = C::kBK;
-  extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;
-  float* Ks = smem + C::kKOff;
-  float* Vs = smem + C::kVOff;
-  float* park = smem + C::kParkOff + threadIdx.x;  // one column of (kSlot, 128) per thread: conflict free
-
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kBQ;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
-  const bool skip = NSETS > 0 && p.skip != nullptr && p.skip[b] != 0;
-  const bool blend = NSETS == 2 && !skip;
-
-  // the stream's segments in order: own, begin, end (a shared endpoint has a
-  // batch stride of 0)
-  const Seg own{p.k + b * p.sk.b + h * p.sk.h, p.v + b * p.sv.b + h * p.sv.h, p.sk.s, p.sv.s, p.Lk};
-  const Seg beg{p.kb + b * p.skb.b + h * p.skb.h, p.vb + b * p.svb.b + h * p.svb.h, p.skb.s, p.svb.s, p.Le};
-  const Seg end{p.ke + b * p.ske.b + h * p.ske.h, p.ve + b * p.sve.b + h * p.sve.h, p.ske.s, p.sve.s, p.Le};
-  const int n_own = HAS_OWN ? (p.Lk + BK - 1) / BK : 0;
-  const int n_beg = NSETS > 0 && !skip ? (p.Le + BK - 1) / BK : 0;
-  const int n_end = NSETS == 2 ? n_beg : 0;
-  const int total = n_own + n_beg + n_end;
-
-  auto locate = [&](int it, int& r0) -> Seg {  // tile `it` of the stream: its segment and first key
-    if (it < n_own) {
-      r0 = it * BK;
-      return own;
-    }
-    it -= n_own;
-    if (it < n_beg) {
-      r0 = it * BK;
-      return beg;
-    }
-    r0 = (it - n_beg) * BK;
-    return end;
-  };
-  auto load_tile = [&](int it) {
-    int r0;
-    const Seg s = locate(it, r0);
-    load_rows<D, C::kLdQK, BK>(Ks + (it & 1) * BK * C::kLdQK, s.k, s.sk, r0, s.len);
-    load_rows<D, C::kLdV, BK>(Vs + (it & 1) * BK * C::kLdV, s.v, s.sv, r0, s.len);
-  };
-
-  load_rows<D, C::kLdQK, kBQ>(Qs, p.q + b * p.sq.b + h * p.sq.h, p.sq.s, q0, p.Sq);
-  if (total > 0) load_tile(0);
-  cp_async_commit();
-
-  State<D> st;
-  init_state(st);
-  const float c = NSETS == 2 ? p.coef[b] : 0.f;
-  const float* qa = Qs + warp * 16 * C::kLdQK;
-  for (int it = 0; it < total; ++it) {
-    if (it + 1 < total) load_tile(it + 1);  // into the stage tile it - 1 left
-    cp_async_commit();                      // possibly empty: keeps the group count in step
-    cp_async_wait<1>();                     // tile it (and Q) has landed for this thread ...
-    __syncthreads();                        // ... and for every thread
-    int r0;
-    const Seg s = locate(it, r0);
-    tile_update<D, NSETS == 2>(st, qa, Ks + (it & 1) * BK * C::kLdQK, Vs + (it & 1) * BK * C::kLdV,
-                               min(BK, s.len - r0), p.scale_log2, g, t);
-    if (blend) {
-      if (HAS_OWN && it == n_own - 1) {  // park the own segment's state: the end segment continues it too
-#pragma unroll
-        for (int j = 0; j < D / 8; ++j) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) park[(4 * j + e) * kThreads] = st.o[j][e];
-        }
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          park[(D / 2 + r) * kThreads] = st.m[r];
-          park[(D / 2 + 2 + r) * kThreads] = st.l[r];
-        }
-      }
-      if (it == n_own + n_beg - 1) {  // the begin segment is done
-        normalise(st, 1.f - c);
-        if (HAS_OWN) {  // exchange (1 - c) O_begin / l with the parked own state
-#pragma unroll
-          for (int j = 0; j < D / 8; ++j) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const float parked = park[(4 * j + e) * kThreads];
-              park[(4 * j + e) * kThreads] = st.o[j][e];
-              st.o[j][e] = parked;
-            }
-          }
-#pragma unroll
-          for (int r = 0; r < 2; ++r) {
-            st.m[r] = park[(D / 2 + r) * kThreads];
-            st.l[r] = park[(D / 2 + 2 + r) * kThreads];
-          }
-        } else {
-#pragma unroll
-          for (int j = 0; j < D / 8; ++j) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) park[(4 * j + e) * kThreads] = st.o[j][e];
-          }
-          init_state(st);
-        }
-      }
-    }
-    __syncthreads();  // this stage's K and V are consumed
-  }
-  if (blend) {
-    normalise(st, c);
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) st.o[j][e] += park[(4 * j + e) * kThreads];
-    }
-  } else {
-    normalise(st, 1.f);
-  }
-
-  float* ob = p.out + b * p.so.b + h * p.so.h;
-#pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {
-    const int row = q0 + warp * 16 + g + 8 * hf;
-    if (row >= p.Sq) continue;
-    float* orow = ob + (long long)row * p.so.s + 2 * t;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      *reinterpret_cast<float2*>(orow + 8 * j) = make_float2(st.o[j][2 * hf], st.o[j][2 * hf + 1]);
-    }
-  }
-}
-
-template <int D, bool HAS_OWN, int NSETS>
-int launch(const Params& p, int B, int H, cudaStream_t s) {
-  constexpr int smem = Cfg<D, NSETS == 2>::kSmemBytes;
-  static bool attribute_set = false;  // once per instance and process
-  if (!attribute_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        reinterpret_cast<const void*>(&flash_f32_mma_kernel<D, HAS_OWN, NSETS>),
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-    attribute_set = true;
-  }
-  const dim3 grid((p.Sq + kBQ - 1) / kBQ, H, B);
-  flash_f32_mma_kernel<D, HAS_OWN, NSETS><<<grid, kThreads, smem, s>>>(p);
-  return (int)cudaGetLastError();
-}
-
-template <int D>
-int launch_d(const void* const (&ptrs)[8], const long long* dims, int has_own, int n_sets, float scale,
-             const void* coef, const void* skip, cudaStream_t s) {
-  Params p;
-  p.q = static_cast<const float*>(ptrs[0]);
-  p.k = static_cast<const float*>(ptrs[1]);
-  p.v = static_cast<const float*>(ptrs[2]);
-  p.kb = static_cast<const float*>(ptrs[3]);
-  p.vb = static_cast<const float*>(ptrs[4]);
-  p.ke = static_cast<const float*>(ptrs[5]);
-  p.ve = static_cast<const float*>(ptrs[6]);
-  p.out = static_cast<float*>(const_cast<void*>(ptrs[7]));
-  p.coef = static_cast<const float*>(coef);
-  p.skip = static_cast<const uint8_t*>(skip);
-  p.Sq = (int)dims[2];
-  p.Lk = (int)dims[3];
-  p.Le = (int)dims[4];
-  Strides* st[8] = {&p.sq, &p.sk, &p.sv, &p.skb, &p.svb, &p.ske, &p.sve, &p.so};
-  for (int i = 0; i < 8; ++i) {
-    st[i]->b = dims[6 + 3 * i];
-    st[i]->h = dims[7 + 3 * i];
-    st[i]->s = dims[8 + 3 * i];
-  }
-  p.scale_log2 = scale * 1.4426950408889634f;
-  const int B = (int)dims[0], H = (int)dims[1];
-  if (has_own && n_sets == 0) return launch<D, true, 0>(p, B, H, s);
-  if (has_own && n_sets == 1) return launch<D, true, 1>(p, B, H, s);
-  if (has_own && n_sets == 2) return launch<D, true, 2>(p, B, H, s);
-  if (!has_own && n_sets == 1) return launch<D, false, 1>(p, B, H, s);
-  if (!has_own && n_sets == 2) return launch<D, false, 2>(p, B, H, s);
-  return (int)cudaErrorInvalidValue;
-}
-
-}  // namespace mma
-
 }  // namespace
 
 // The C signature of aid_flash_attn_bf16 (flash_interpolated_attention.cu)
@@ -1082,12 +745,12 @@ extern "C" int aid_flash_attn_f32(const void* q, const void* k, const void* v, c
   }
   if (dims[2] <= 0 || dims[3] <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dims[5] != 160 && encode_tiled() == nullptr) return (int)cudaErrorNotSupported;
+  if (encode_tiled() == nullptr) return (int)cudaErrorNotSupported;
   switch (dims[5]) {
     case 40: return launch_d<40>(ptrs, dims, has_own, n_sets, scale, coef, skip, s);
     case 64: return launch_d<64>(ptrs, dims, has_own, n_sets, scale, coef, skip, s);
     case 80: return launch_d<80>(ptrs, dims, has_own, n_sets, scale, coef, skip, s);
-    case 160: return mma::launch_d<160>(ptrs, dims, has_own, n_sets, scale, coef, skip, s);
+    case 160: return launch_d<160>(ptrs, dims, has_own, n_sets, scale, coef, skip, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -3,8 +3,8 @@
 // copies with zero fill, the 3xTF32 building blocks on
 // mma.sync.m16n8k8.tf32 (a = hi + lo, hi*hi + hi*lo + lo*hi in f32), and
 // those on wgmma.mma_async ... tf32 (k8): A from registers, B K-major in
-// 128-byte-swizzled shared memory. Included inside each source's anonymous
-// namespace.
+// 128- or 64-byte-swizzled shared memory. Included inside each source's
+// anonymous namespace.
 
 // 16-byte async copy global -> shared; copies zeros when !pred.
 __device__ __forceinline__ void cp_async16(float* dst, const float* src, bool pred) {
@@ -64,6 +64,12 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16) | ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
 }
 
+// the same for a K-major tile of 64-byte rows (16 f32) under the 64-byte
+// swizzle: 8-row groups 512 bytes apart; a k8 step moves the start 32 bytes
+__device__ __forceinline__ uint64_t desc_sw64(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16) | ((uint64_t)(512 >> 4) << 32) | (2ull << 62);
+}
+
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
 __device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
 __device__ __forceinline__ void wgmma_wait0() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
@@ -89,6 +95,15 @@ __device__ __forceinline__ void reg_fence(uint32_t (&r)[N][4]) {
 // (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4), g = lane / 4, t = lane % 4.
 // The accumulator is m16n8's per n8 tile j: d[4j..4j+3] at (g, 8j + 2t),
 // (g, 8j + 2t + 1), (g + 8, 8j + 2t), (g + 8, 8j + 2t + 1).
+// D(64 x 16, f32) (+)= A(64 x 8, tf32 registers) B(8 x 16, tf32, K-major in shared memory)
+__device__ __forceinline__ void wgmma_tf32(float (&d)[8], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
 // D(64 x 32, f32) (+)= A(64 x 8, tf32 registers) B(8 x 32, tf32, K-major in shared memory)
 __device__ __forceinline__ void wgmma_tf32(float (&d)[16], const uint32_t (&a)[4], uint64_t db, int scale_d) {
   asm volatile(

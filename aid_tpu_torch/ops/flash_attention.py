@@ -18,9 +18,9 @@ Four kernels take CUDA calls:
   * f32 with head dim 40, 64, 80 or 160, every mode (the same attentions in
     an f32 UNet, the reference's default dtype): the same C signature in
     ``csrc/flash_interpolated_attention_f32.cu`` (3xTF32; wgmma on TMA tiles
-    that a producer warpgroup splits and transposes at D = 40/64/80,
-    mma.sync at D = 160), reached through
-    :func:`flash_interpolated_attention_f32` and counted by its
+    that a producer warpgroup splits and transposes; at D = 160 two
+    consumer warpgroups split D and exchange partial scores), reached
+    through :func:`flash_interpolated_attention_f32` and counted by its
     ``launches`` and ``launches_by_head_dim``;
   * f32 with head dim 512, self mode (the VAE mid-block attention, one head
     over 4096 tokens at 512px, 16384 at 1024px):
@@ -30,12 +30,20 @@ Four kernels take CUDA calls:
     ``csrc/flash_attention_bf16_d512.cu`` (wgmma on TMA tiles, D split
     across two consumer warpgroups), reached through
     :func:`flash_self_attention_bf16` and counted by its ``launches``.
-Any other dtype, head dim or mode on a CUDA tensor raises
-``NotImplementedError`` (ROADMAP Queue 2 lists the instances still to port).
-:func:`kernel_operands` checks the operands of the D <= 160 kernels (bf16 or
-f32, one C signature) and lays out their C entry's arguments (the CPU tests
-replay the kernels' data movement from them), :func:`d512_operands` those of
-the D=512 kernels; :func:`kernel_launch` and :func:`d512_launch` return the
+A head dim that no instance takes is zero-padded to the next that does,
+as the JAX package pads (aid_tpu/ops/flash_attention.py:784, 800-801):
+below 160 to the next of 40, 64, 80, 160 in every mode, between 160 and
+512 to 512 in self mode; the scale stays the unpadded D's and the output
+is sliced back. Zero columns add nothing to Q K^T, and V's are cut off, so
+the padding is exact; it costs one copy of each operand, on calls that no
+full-size model makes, and the launch counts book such calls under the
+padded head dim. Any other dtype (f16), a head dim over 160 outside self
+mode or over 512 raises ``NotImplementedError`` on a CUDA tensor (ROADMAP
+Queue 2 lists the instances still to port). :func:`kernel_operands` checks
+the operands of the D <= 160 kernels (bf16 or f32, one C signature), pads
+them and lays out their C entry's arguments (the CPU tests replay the
+kernels' data movement from them), :func:`d512_operands` those of the
+D=512 kernels; :func:`kernel_launch` and :func:`d512_launch` return the
 launch itself, which ``chip_smoke.py`` times apart from the wrapper's host
 work.
 """
@@ -56,16 +64,13 @@ D512 = 512  # the VAE mid block's head dim: the self-mode kernels in f32 and bf1
 #: tile, K/V stages in its ring), csrc/flash_interpolated_attention.cu's
 #: Tiles<D>: one consumer warpgroup per 64 query rows.
 KERNEL_TILES = {40: (192, 128, 3), 64: (192, 128, 3), 80: (128, 128, 2), 160: (64, 64, 3)}
-#: the f32 kernel's wgmma instances by head dim: (query rows per block, keys
-#: per K/V tile, stages in its ring), csrc/flash_interpolated_attention_f32.cu's
-#: Tiles<D>: one consumer warpgroup per 64 query rows.
-KERNEL_F32_TILES = {40: (192, 32, 4), 64: (128, 64, 2), 80: (128, 32, 3)}
-#: the f32 kernel's mma.sync instance (head dim 160): (keys per K/V tile,
-#: keys per K/V tile in the outer modes, row pitch of Q and K, row pitch of
-#: V, in floats), MmaTiles<D> of the same source; every block holds
-#: KERNEL_F32_ROWS query rows, 16 a warp.
-KERNEL_F32_MMA_TILES = {160: (16, 32, 168, 164)}
-KERNEL_F32_ROWS = 64
+#: the f32 kernel's instances by head dim: (query rows per block, keys per
+#: K/V tile, stages in its ring), csrc/flash_interpolated_attention_f32.cu's
+#: Tiles<D>: one consumer warpgroup per 64 query rows and
+#: KERNEL_F32_D_SPLIT[D] of them, each over D / KERNEL_F32_D_SPLIT[D]
+#: columns (its Cfg<D>::kSplit).
+KERNEL_F32_TILES = {40: (192, 32, 4), 64: (128, 64, 2), 80: (128, 32, 3), 160: (64, 16, 3)}
+KERNEL_F32_D_SPLIT = {40: 1, 64: 1, 80: 1, 160: 2}
 #: the C entry of the D <= 160 kernels by operand dtype (one C signature)
 KERNEL_ENTRIES = {torch.bfloat16: "aid_flash_attn_bf16", torch.float32: "aid_flash_attn_f32"}
 
@@ -94,13 +99,36 @@ def flash_interpolated_attention_plain(
     return out
 
 
-def _check_operand(name: str, x: torch.Tensor, dtype=torch.bfloat16, head_dims=KERNEL_HEAD_DIMS) -> None:
+def padded_head_dim(D: int, mode: AttnMode | str = AttnMode.SELF) -> int:
+    """The head dim of the instance that takes a call at head dim D: the
+    next of :data:`KERNEL_HEAD_DIMS` at or above D up to 160 (every mode),
+    :data:`D512` above 160 in self mode. Raises ``NotImplementedError``
+    where no instance is wide enough (over 160 outside self mode, over
+    512)."""
+    for Dp in KERNEL_HEAD_DIMS:
+        if D <= Dp:
+            return Dp
+    if AttnMode(mode) == AttnMode.SELF and D <= D512:
+        return D512
+    raise NotImplementedError(f"no flash kernel takes head dim {D} in {AttnMode(mode).value} mode: over "
+                              f"{KERNEL_HEAD_DIMS[-1]} only self mode pads (to {D512}), and not past {D512} "
+                              "(ROADMAP Queue 2 E lists what still raises)")
+
+
+def _pad_head_dim(x: torch.Tensor, Dp: int) -> torch.Tensor:
+    """x zero-padded along its last dim to Dp (a new contiguous tensor), or x."""
+    return x if x.shape[-1] == Dp else torch.nn.functional.pad(x, (0, Dp - x.shape[-1]))
+
+
+def _check_dtype(name: str, x: torch.Tensor, dtype=torch.bfloat16) -> None:
     if x.dtype != dtype:
         raise NotImplementedError(f"flash kernel takes {dtype} here; {name} is {x.dtype} "
                                   "(ROADMAP Queue 2 lists the instances still to port)")
-    if x.shape[-1] not in head_dims:
-        raise NotImplementedError(f"flash kernel takes head dims {head_dims} here; {name} has {x.shape[-1]} "
-                                  "(ROADMAP Queue 2 lists the instances still to port)")
+
+
+def _check_operand(name: str, x: torch.Tensor, dtype=torch.bfloat16) -> None:
+    """x as a kernel reads it: its dtype, a contiguous head dim and 16-byte rows."""
+    _check_dtype(name, x, dtype)
     strides = x.stride()
     if strides[-1] != 1:
         raise ValueError(f"{name}: the head dim must be contiguous, strides {strides}")
@@ -119,28 +147,37 @@ def d512_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: Opti
     """Check the operands of the D=512 self-attention kernel of q's dtype
     (f32: ``csrc/flash_attention_f32_d512.cu``, bf16: ``csrc/
     flash_attention_bf16_d512.cu``) and lay out one call of its C entry:
-    ``entry``, ``tensors`` (q, k, v and the output: f32 (B, H, Sq, D); bf16 a
-    (B, H, Sq, D) view of a new (B, Sq, H, D) buffer, as the other bf16
-    kernel writes), ``dims`` (B, H, Sq, Lk, then the (b, h, s) element
-    strides of the four) and ``scale``. Nothing here needs a device."""
+    ``entry``, ``tensors`` (q, k, v and the output: f32 (B, H, Sq, 512);
+    bf16 a (B, H, Sq, 512) view of a new (B, Sq, H, 512) buffer, as the
+    other bf16 kernel writes), ``dims`` (B, H, Sq, Lk, then the (b, h, s)
+    element strides of the four), ``scale``, ``head_dim`` (the caller's D)
+    and ``out`` (the output at that D). A head dim between 160 and 512 is
+    zero-padded to 512, the scale kept at the unpadded D. Nothing here
+    needs a device."""
     B, H, Sq, D = q.shape
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise NotImplementedError(f"the D={D512} self-attention kernels take f32 or bf16; q is {q.dtype} "
                                   "(ROADMAP Queue 2 lists the instances still to port)")
     if k.dim() != 4 or k.shape[:2] != (B, H) or k.shape[-1] != D or v.shape != k.shape:
         raise ValueError(f"k/v shapes {tuple(k.shape)}/{tuple(v.shape)} do not match q {tuple(q.shape)}")
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        _check_operand(name, x, q.dtype, (D512,))
+    if not KERNEL_HEAD_DIMS[-1] < D <= D512:
+        raise NotImplementedError(f"the D={D512} self-attention kernels take head dims {KERNEL_HEAD_DIMS[-1] + 1}.."
+                                  f"{D512} (padded to {D512}); q has {D} (ROADMAP Queue 2 E lists what still raises)")
     if Sq == 0 or k.shape[2] == 0:
         raise ValueError("empty query or key sequence")
+    q, k, v = (_pad_head_dim(x, D512) for x in (q, k, v))
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        _check_operand(name, x, q.dtype)
     if q.dtype == torch.float32:
         entry, out = "aid_flash_attn_f32_d512", torch.empty(q.shape, dtype=q.dtype, device=q.device)
     else:
-        entry, out = "aid_flash_attn_bf16_d512", torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device).transpose(1, 2)
+        entry = "aid_flash_attn_bf16_d512"
+        out = torch.empty((B, Sq, H, D512), dtype=q.dtype, device=q.device).transpose(1, 2)
     dims = [B, H, Sq, k.shape[2]]
     for x in (q, k, v, out):
         dims += _bhs_strides(x)
-    return dict(entry=entry, tensors=(q, k, v, out), dims=dims, scale=float(D ** -0.5 if scale is None else scale))
+    return dict(entry=entry, tensors=(q, k, v, out), dims=dims, scale=float(D ** -0.5 if scale is None else scale),
+                head_dim=D, out=out[..., :D])
 
 
 def d512_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: Optional[float] = None) -> tuple:
@@ -149,7 +186,7 @@ def d512_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: Option
     ``out`` on the current stream, as often as it is called. Counts
     nothing: the wrappers count their launches."""
     ops = d512_operands(q, k, v, scale)
-    entry, out, dims = ops["entry"], ops["tensors"][-1], ops["dims"]
+    entry, out, dims = ops["entry"], ops["out"], ops["dims"]
 
     from aid_tpu_torch.ops import _build
 
@@ -168,15 +205,19 @@ def flash_self_attention_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              scale: Optional[float] = None) -> torch.Tensor:
     """softmax(q k^T * scale) v in f32 with head dim 512 (the VAE mid-block
     contract): ``csrc/flash_attention_f32_d512.cu`` on CUDA tensors, the
-    plain ``_softmax_attn`` on CPU tensors.
+    plain ``_softmax_attn`` on CPU tensors. On CUDA a head dim between 160
+    and 512 pads to 512; one of 160 or less (a tiny VAE's) takes the D <= 160
+    kernel in self mode, padded where needed.
 
-    q: (B, H, Sq, 512), k/v: (B, H, Lk, 512), all f32. Returns (B, H, Sq, 512) f32.
+    q: (B, H, Sq, D), k/v: (B, H, Lk, D), all f32. Returns (B, H, Sq, D) f32.
     """
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if not use_kernel(q, k, v):
         return _softmax_attn(q, k, v, scale)
-    _check_operand("q", q, torch.float32, (D512,))
+    _check_dtype("q", q, torch.float32)
+    if q.shape[-1] <= KERNEL_HEAD_DIMS[-1]:
+        return flash_interpolated_attention_f32(q, k, v, scale=scale)
     out, launch = d512_launch(q, k, v, scale)
     launch()
     flash_self_attention_f32.launches += 1
@@ -192,17 +233,21 @@ def flash_self_attention_bf16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """softmax(q k^T * scale) v in bf16 with head dim 512 (the mid-block
     attention of a bf16 VAE): ``csrc/flash_attention_bf16_d512.cu`` on CUDA
     tensors, the plain ``_softmax_attn`` (f32 logits and softmax, the
-    probabilities rounded to bf16 before P V) on CPU tensors.
+    probabilities rounded to bf16 before P V) on CPU tensors. On CUDA a head
+    dim between 160 and 512 pads to 512; one of 160 or less takes the bf16
+    D <= 160 kernel in self mode, padded where needed.
 
-    q: (B, H, Sq, 512), k/v: (B, H, Lk, 512), all bf16. Returns (B, H, Sq,
-    512) bf16; on CUDA a view of a (B, Sq, H, 512) buffer, as the other bf16
-    kernel writes.
+    q: (B, H, Sq, D), k/v: (B, H, Lk, D), all bf16. Returns (B, H, Sq, D)
+    bf16; on CUDA a view of a (B, Sq, H, D) buffer, as the other bf16 kernel
+    writes (sliced from a padded one where D was padded).
     """
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if not use_kernel(q, k, v):
         return _softmax_attn(q, k, v, scale)
-    _check_operand("q", q, torch.bfloat16, (D512,))
+    _check_dtype("q", q, torch.bfloat16)
+    if q.shape[-1] <= KERNEL_HEAD_DIMS[-1]:
+        return flash_interpolated_attention(q, k, v, scale=scale)
     out, launch = d512_launch(q, k, v, scale)
     launch()
     flash_self_attention_bf16.launches += 1
@@ -235,15 +280,23 @@ def kernel_operands(
     """Check the operands of the D <= 160 kernel of q's dtype (bf16 or f32)
     and lay out one call of its C entry (``entry``, :data:`KERNEL_ENTRIES`):
     ``tensors`` (q, k, v, k_begin, v_begin, k_end, v_end and the output, a
-    (B, H, Sq, D) view of a new (B, Sq, H, D) buffer), ``dims`` (the entry's
-    30 shape and stride values), ``coef`` and ``skip`` (None where the mode
-    reads neither), ``scale``, ``has_own`` and ``n_sets``. Self mode reads
-    no endpoint: its slots repeat k and v. Nothing here needs a device."""
+    (B, H, Sq, Dp) view of a new (B, Sq, H, Dp) buffer), ``dims`` (the
+    entry's 30 shape and stride values), ``coef`` and ``skip`` (None where
+    the mode reads neither), ``scale``, ``has_own``, ``n_sets``,
+    ``head_dim`` (the caller's D) and ``out`` (the output at that D). A head
+    dim that no instance takes is zero-padded to the next one, Dp
+    (:func:`padded_head_dim`), after the endpoints are made and before the
+    layout is checked; the scale stays D's. Self mode reads no endpoint: its
+    slots repeat k and v. Nothing here needs a device."""
     mode = AttnMode(mode)
     B, H, Sq, D = q.shape
     if q.dtype not in KERNEL_ENTRIES:
         raise NotImplementedError(f"the flash kernels take bf16 or f32 at head dims {KERNEL_HEAD_DIMS}; q is "
                                   f"{q.dtype} (ROADMAP Queue 2 lists the instances still to port)")
+    Dp = padded_head_dim(D, mode)
+    if Dp > KERNEL_HEAD_DIMS[-1]:
+        raise NotImplementedError(f"head dim {D} pads to {Dp}: the D={D512} self-attention kernels take it "
+                                  "(d512_operands), not this one")
     if k.dim() != 4 or k.shape[:2] != (B, H) or k.shape[-1] != D or v.shape != k.shape:
         raise ValueError(f"k/v shapes {tuple(k.shape)}/{tuple(v.shape)} do not match q {tuple(q.shape)}")
     if Sq == 0 or k.shape[2] == 0:
@@ -279,6 +332,12 @@ def kernel_operands(
             skip = torch.as_tensor(skip_endpoints, device=dev).reshape(B).to(torch.bool).contiguous()
 
     tensors = [q, k, v, *eps]
+    if Dp != D:  # one padded copy per distinct tensor (self mode's slots repeat k and v)
+        padded = {}
+        for x in tensors:
+            if id(x) not in padded:
+                padded[id(x)] = _pad_head_dim(x, Dp)
+        tensors = [padded[id(x)] for x in tensors]
     names = ("q", "k", "v", "k_begin", "v_begin", "k_end", "v_end")
     checked = set()
     for name, x in zip(names, tensors):
@@ -288,14 +347,15 @@ def kernel_operands(
         if x.device != dev:
             raise ValueError(f"{name} is on {x.device}, q on {dev}")
         _check_operand(name, x, q.dtype)
-    tensors.append(torch.empty((B, Sq, H, D), dtype=q.dtype, device=dev).transpose(1, 2))
-    dims = [B, H, Sq, k.shape[2], tensors[3].shape[-2], D]
+    out = torch.empty((B, Sq, H, Dp), dtype=q.dtype, device=dev).transpose(1, 2)
+    tensors.append(out)
+    dims = [B, H, Sq, k.shape[2], tensors[3].shape[-2], Dp]
     for x in tensors:
         dims += _bhs_strides(x)
     return dict(entry=KERNEL_ENTRIES[q.dtype], tensors=tensors, dims=dims, coef=coef_t, skip=skip,
                 scale=D ** -0.5 if scale is None else scale,
                 has_own=int(mode in (AttnMode.SELF, AttnMode.FUSED_OUTER, AttnMode.FUSED_INNER)),
-                n_sets=2 if mode.is_outer else (1 if mode.is_inner else 0))
+                n_sets=2 if mode.is_outer else (1 if mode.is_inner else 0), head_dim=D, out=out[..., :D])
 
 
 _DIMS_ARRAYS: dict = {}
@@ -320,7 +380,7 @@ def kernel_launch(*args, **kwargs) -> tuple:
     ``out`` on the current stream, as often as it is called. Counts
     nothing: the wrapper counts its launches."""
     ops = kernel_operands(*args, **kwargs)
-    tensors, out = ops["tensors"], ops["tensors"][-1]
+    tensors, out = ops["tensors"], ops["out"]
 
     from aid_tpu_torch.ops import _build
 
@@ -365,7 +425,7 @@ def flash_interpolated_attention(
             q, k, v, coef, mode, k_begin=k_begin, v_begin=v_begin, k_end=k_end, v_end=v_end,
             scale=scale, skip_endpoints=skip_endpoints)
 
-    if mode == AttnMode.SELF and q.shape[-1] == D512:
+    if mode == AttnMode.SELF and q.shape[-1] > KERNEL_HEAD_DIMS[-1]:  # the D=512 kernels, padded up to 512
         if q.dtype == torch.float32:
             return flash_self_attention_f32(q, k, v, scale)
         if q.dtype == torch.bfloat16:
@@ -374,12 +434,12 @@ def flash_interpolated_attention(
         return flash_interpolated_attention_f32(q, k, v, coef, mode, k_begin=k_begin, v_begin=v_begin, k_end=k_end,
                                                 v_end=v_end, scale=scale, skip_endpoints=skip_endpoints)
 
-    _check_operand("q", q)  # bf16 from here on; kernel_operands checks the rest
+    _check_dtype("q", q)  # bf16 from here on; kernel_operands checks the rest
     out, launch = kernel_launch(q, k, v, coef, mode, k_begin=k_begin, v_begin=v_begin, k_end=k_end, v_end=v_end,
                                 scale=scale, skip_endpoints=skip_endpoints)
     launch()
     flash_interpolated_attention.launches += 1
-    flash_interpolated_attention.launches_by_head_dim[q.shape[-1]] += 1
+    flash_interpolated_attention.launches_by_head_dim[launch.operands["dims"][5]] += 1
     return out
 
 
@@ -397,29 +457,31 @@ def flash_interpolated_attention_f32(
     skip_endpoints: Optional[torch.Tensor] = None,  # (B,) bool: rows whose endpoint segments are dropped
 ) -> torch.Tensor:
     """:func:`flash_interpolated_attention`'s contract in f32 at head dim
-    40, 64, 80 or 160, every mode (an f32 UNet's attentions):
-    ``csrc/flash_interpolated_attention_f32.cu`` (both products in 3xTF32:
-    its wgmma instance at D = 40/64/80, its mma.sync instance at D = 160)
-    on CUDA tensors, the plain version on CPU tensors. Returns (B, H, Sq, D)
-    f32; on CUDA a view of a (B, Sq, H, D) buffer, as the bf16 kernel writes.
+    40, 64, 80 or 160, every mode (an f32 UNet's attentions), and at any
+    other head dim up to 160 padded to the next of those:
+    ``csrc/flash_interpolated_attention_f32.cu`` (both products in 3xTF32
+    on wgmma; at D = 160 two warpgroups split D) on CUDA tensors, the plain
+    version on CPU tensors. Returns (B, H, Sq, D) f32; on CUDA a view of a
+    (B, Sq, H, Dp) buffer, as the bf16 kernel writes.
     """
     mode = AttnMode(mode)
     if not use_kernel(q, k, v):
         return flash_interpolated_attention_plain(
             q, k, v, coef, mode, k_begin=k_begin, v_begin=v_begin, k_end=k_end, v_end=v_end,
             scale=scale, skip_endpoints=skip_endpoints)
-    _check_operand("q", q, torch.float32)
+    _check_dtype("q", q, torch.float32)
     out, launch = kernel_launch(q, k, v, coef, mode, k_begin=k_begin, v_begin=v_begin, k_end=k_end, v_end=v_end,
                                 scale=scale, skip_endpoints=skip_endpoints)
     launch()
     flash_interpolated_attention_f32.launches += 1
-    flash_interpolated_attention_f32.launches_by_head_dim[q.shape[-1]] += 1
+    flash_interpolated_attention_f32.launches_by_head_dim[launch.operands["dims"][5]] += 1
     return out
 
 
 def reset_launch_counts() -> None:
     """Set the D <= 160 kernels' launch counts (bf16 and f32, total and per
-    head dim) to 0."""
+    instance head dim: a padded call counts under the head dim it pads to)
+    to 0."""
     for fn in (flash_interpolated_attention, flash_interpolated_attention_f32):
         fn.launches = 0
         fn.launches_by_head_dim = dict.fromkeys(KERNEL_HEAD_DIMS, 0)

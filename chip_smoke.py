@@ -41,7 +41,9 @@ read just after:
     guidance_scale=10.0)``; ``interpolate`` to seven 768px frames over 25
     UniPC steps with the bf16 UNet (attention at D=64 over 9216 / 2304 /
     576 / 144 tokens, the conv kernel at 96^2), then the f32 UNet with the
-    fused GN+SiLU configuration (the f32 GN+SiLU conv) and 2 UniPC steps.
+    fused GN+SiLU configuration (the f32 GN+SiLU conv) and 2 UniPC steps;
+  * the tiny SD1.x-like UNet (``configs.TINY_UNET``) in f32: its head dims
+    16 and 32, which no kernel instance takes, padded to the D=40 instance.
 
 Phases (each prints its own lines; any failure exits non-zero):
   1. device      needs CUDA; prints the card's name and power limit
@@ -90,6 +92,9 @@ Phases (each prints its own lines; any failure exits non-zero):
                  768px, 25 UniPC steps (checksum, s/step, stage times, peak
                  memory, launches); reloaded in f32: the forward check, the
                  fused GN+SiLU forward with its planted halo fault, 2 steps
+ 14. padded D    the tiny f32 UNet's fused_outer forward, kernels vs plain
+                 with two planted faults; every attention launch lands on
+                 the D=40 instance
 Phase 1 turns TF32 off for cuBLAS and cuDNN, so every plain f32 version and
 library call computes in full f32.
 The second-to-last line is the kernels' JSON record, the last the result.
@@ -294,15 +299,16 @@ def conv_bound(B, H, W, cin, cout, prologue=False, tf32_passes=None) -> tuple:
     return bound(ops, nbytes)
 
 
-def attention_bound(mode, B, H, Sq, L, D, Le=None, elem=2, skip_rows=0, tf32_passes=None) -> tuple:
+def attention_bound(mode, B, H, Sq, L, D, Le=None, elem=2, skip_rows=0, tf32_passes=None, per_row=False) -> tuple:
     """The attention's bound from the key segments the kernel's segment
     loop visits (flash_interpolated_attention.cu: the own segment in self
     and fused modes, begin and end in outer modes, one lerped segment in
     inner modes; skip rows of fused modes visit their own segment only):
     4 * D flops per (query, key) pair (Q K^T and P V; the exps are not
     counted). Bytes: q and out, the own K/V where the mode reads it, and
-    the K and V of both endpoints where they are passed apart (``Le``) or,
-    in pure modes, are rows 0 and B-1 of K/V. ``tf32_passes`` = 3 reckons f32 operands at three TF32
+    the K and V of both endpoints where they are passed apart (``Le``; one
+    set per batch row with ``per_row``) or, in pure modes, are rows 0 and
+    B-1 of K/V. ``tf32_passes`` = 3 reckons f32 operands at three TF32
     tensor-core passes (3xTF32); None means bf16."""
     has_own = mode in ("self", "fused_outer", "fused_inner")
     n_seg = {"self": 0, "fused_outer": 2, "pure_outer": 2, "fused_inner": 1, "pure_inner": 1}[mode]
@@ -311,7 +317,7 @@ def attention_bound(mode, B, H, Sq, L, D, Le=None, elem=2, skip_rows=0, tf32_pas
     flops = 4.0 * H * Sq * D * keys
     nbytes = elem * (2.0 * B * H * Sq * D + (2.0 * B * H * L * D if has_own else 0.0))
     if n_seg and (Le is not None or not has_own):
-        nbytes += elem * 4.0 * H * seg_len * D  # K and V of both endpoints
+        nbytes += elem * 4.0 * (B if per_row else 1) * H * seg_len * D  # K and V of both endpoints
     ops = {"bf16": flops} if tf32_passes is None else {"tf32": tf32_passes * flops}
     return bound(ops, nbytes)
 
@@ -506,8 +512,9 @@ def phase_kernels(coef, sd_coef, fused_classes, sd21_classes):
         q = heads(make(B, Sq, H * D))
         k, v = heads(make(B, L, H * D)), heads(make(B, L, H * D))
         kw = {} if mode == "self" else {"skip_endpoints": skip_mask(c, B)}
-        if Le is not None:
-            kw.update({n: make(H, Le, D) for n in ("k_begin", "v_begin", "k_end", "v_end")})
+        if Le is not None:  # shared (H, Le, D) endpoints; ("per_row", Le): (B, H, Le, D)
+            shape = (B, H, Le[1], D) if isinstance(Le, tuple) else (H, Le, D)
+            kw.update({n: make(*shape) for n in ("k_begin", "v_begin", "k_end", "v_end")})
         got = flash_interpolated_attention(q, k, v, c, mode, **kw)
         torch.cuda.synchronize()
         want = flash_interpolated_attention_plain(q, k, v, c, mode, **kw)
@@ -519,8 +526,9 @@ def phase_kernels(coef, sd_coef, fused_classes, sd21_classes):
         ms = cuda_ms(lambda: flash_interpolated_attention(q, k, v, c, mode, **kw), reps)
         plain_ms = cuda_ms(lambda: flash_interpolated_attention_plain(q, k, v, c, mode, **kw), max(1, reps // 5))
         skip_rows = int(kw["skip_endpoints"].sum()) if "skip_endpoints" in kw else 0
-        bound_ms, bound_by = attention_bound(mode, B, H, Sq, L, D, Le, skip_rows=skip_rows, elem=4 if f32 else 2,
-                                             tf32_passes=3 if f32 else None)
+        per_row = isinstance(Le, tuple)
+        bound_ms, bound_by = attention_bound(mode, B, H, Sq, L, D, Le[1] if per_row else Le, skip_rows=skip_rows,
+                                             elem=4 if f32 else 2, tf32_passes=3 if f32 else None, per_row=per_row)
         library = sdpa_backends(q, k, v, want, reps) if mode == "self" else {}
         lib_err = (f"; library max_abs_err {', '.join(f'{n} {t[1]:.3e}' for n, t in library.items())}"
                    if f32 and library else "")
@@ -532,6 +540,15 @@ def phase_kernels(coef, sd_coef, fused_classes, sd21_classes):
               flush=True)
         if not ok:
             fail(f"attention {label} (D={D}, {dtype}): kernel disagrees with the plain version")
+        if f32 and D == 160 and mode != "self":
+            # a planted fault the tolerance must see: the plain version with its
+            # softmax scale 0.1% off
+            fault = flash_interpolated_attention_plain(q, k, v, c, mode, scale=1.001 * D ** -0.5, **kw)
+            ferr = (got.float() - fault.float()).abs().max().item()
+            print(f"  planted fault (scale x 1.001): max_abs_err {ferr:.3e} against tol {tol * ref:.3e}  "
+                  f"{'ok' if ferr > tol * ref else 'FAIL'}", flush=True)
+            if not ferr > tol * ref:
+                fail(f"attention {label} (D={D}, f32): the tolerance does not see a 0.1% scale fault ({ferr:.3e})")
         lib_name, lib_ms = fastest(library)
         return {"max_abs_err": err, "ms": ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                 "bound_by": bound_by, "library_ms": lib_ms, "library": lib_name}
@@ -639,6 +656,9 @@ def phase_kernels(coef, sd_coef, fused_classes, sd21_classes):
                          "SD2.1 fused_outer 9216", "SD2.1 self 9216", torch.float32))
     f32_sd = [(f"SD1.5 {label}", mode, 8, Sq, L, D, max(1, reps // 2), Le) for label, mode, Sq, L, D, reps, Le
               in sd_cases if not label.startswith(("pure", "fused_inner")) or Sq == 256]
+    # D=160's own tile edges: endpoints of their own length, shared and per row
+    f32_sd += [("SD1.5 fused_outer 256, shared Le=77", "fused_outer", 8, 256, 256, 160, 5, 77),
+               ("SD1.5 pure_inner 64, per-row Le=33", "pure_inner", 8, 64, 64, 160, 5, ("per_row", 33))]
     records["flash_interpolated_attention_f32(D=40/80/160)"] = attention_record(
         f32_sd, sd_coef, "SD1.5 fused_outer 4096", "SD1.5 self 4096", torch.float32)
 
@@ -2000,6 +2020,39 @@ KERNEL_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err",
                "bound_by", "library_ms")
 
 
+def phase_tiny_padded(card: str) -> None:
+    """The tiny SD1.x-like UNet (``configs.TINY_UNET``: head dims 16 and 32,
+    which no kernel instance takes) in f32, 7 frames at 8x8 latents with
+    SD1.5's coefficients, N(0, 0.02) weights: one fused_outer forward
+    through the kernels, every attention zero-padded to the D=40 instance,
+    against the plain versions with the two planted faults
+    (check_unet_vs_plain, F32_UNET_TOL). Fails unless the attention
+    launches all land on D=40."""
+    import torch
+
+    from aid_tpu_torch.models.configs import TINY_UNET
+    from aid_tpu_torch.models.layers import AidContext, AidMode
+
+    print("== phase 14: padded head dims, the tiny f32 UNet (D=16 and 32 on the D=40 instance), kernels vs plain",
+          flush=True)
+    unet = build_sd15(seed=5, cfg=TINY_UNET, dtype=torch.float32)
+    coef = sd15_coef().cuda()
+    cfg, dev, frames = unet.config, coef.device, coef.shape[0]
+    s = cfg.sample_size
+    gen = torch.Generator(device=dev).manual_seed(3)
+    sample = torch.randn((frames, cfg.in_channels, s, s), generator=gen, device=dev)
+    ehs = torch.randn((frames, 77, cfg.cross_attention_dim), generator=gen, device=dev)
+    t = torch.tensor(500, device=dev)
+    counts = check_unet_vs_plain(f"tiny f32 unet fused_outer B={frames} {s}x{s} on {card}",
+                                 lambda aid: unet(sample, t, ehs, aid),
+                                 AidContext(coef=coef, mode=AidMode.from_name("fused_outer")), F32_UNET_TOL)
+    by_dim = {d: counts[f"flash_interpolated_attention_f32[D={d}]"] for d in (40, 64, 80, 160)}
+    print(f"tiny f32 UNet forward: f32 attention launches by instance head dim {by_dim} (bf16 attention "
+          f"{counts['flash_interpolated_attention']})", flush=True)
+    if not by_dim[40] > 0 or sum(by_dim.values()) != by_dim[40] or counts["flash_interpolated_attention"]:
+        fail(f"the tiny UNet's padded head dims did not all reach the f32 D=40 instance: {by_dim}")
+
+
 def kernels_line(kernels: dict, launches: dict) -> str:
     """The kernels' JSON record: one entry per kernel, with KERNEL_KEYS
     first, then what phase 3 measured besides (the conv's kernel_ms, the
@@ -2066,8 +2119,10 @@ def kernels_line(kernels: dict, launches: dict) -> str:
         "flash_interpolated_attention_f32(D=40/80/160)": (
             flash_f32_src, flash_replaces[0],
             tuple(f"flash_interpolated_attention_f32[D={d}]" for d in (40, 80, 160)),
-            {**flash_replaces[1], "design": f"{f32_wgmma} at D=40/80; mma.sync 3xTF32, fragments split in "
-                                            "registers, at D=160",
+            {**flash_replaces[1], "design": f"{f32_wgmma}; at D=160 two consumer warpgroups of 80 columns "
+                                            "each on the same 64 rows (Q hi and lo in registers), exchanging "
+                                            "partial scores through shared memory once a 16-key tile, V^T under "
+                                            "the 64-byte swizzle",
              "contract": "f32, head dims 40/80/160, every mode (an f32 SD1.x UNet), 3xTF32; "
                          "ms at fused_outer (7,8,4096,40), self_* at self (7,8,4096,40); "
                          f"{attn_note}"}),
@@ -2135,6 +2190,7 @@ def main(argv=None) -> int:
     paths.append(phase_f32_sd15(card, SD15_STEPS))
     torch.cuda.empty_cache()
     paths += phase_sd21(card)
+    phase_tiny_padded(card)
     launches = {name: sum(p[name] for p in paths) for name in paths[0]}
     print(f"launches over the {len(paths)} paths: {launches}", flush=True)
 

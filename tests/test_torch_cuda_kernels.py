@@ -24,14 +24,15 @@ from aid_tpu_torch.ops.conv import (
     conv3x3_same_f32,
 )
 from aid_tpu_torch.ops.flash_attention import (
-    KERNEL_F32_MMA_TILES,
     KERNEL_F32_TILES,
     flash_interpolated_attention,
     flash_interpolated_attention_f32,
     flash_interpolated_attention_plain,
     flash_self_attention_bf16,
     flash_self_attention_f32,
+    padded_head_dim,
 )
+from aid_tpu_torch.ops.routing import reference_ops
 
 pytestmark = pytest.mark.cuda
 
@@ -217,7 +218,9 @@ def test_flash_kernel_refuses_what_it_does_not_take(dev):
     """On a CUDA tensor a dtype, head dim or mode with no kernel instance
     raises: no quiet fallback to the plain version. f32 at a UNet head dim
     has its instance: it launches the f32 kernel and matches the plain
-    version."""
+    version. A head dim with no instance of its own (48) pads to the next
+    (64) in bf16 and f32: one launch each, counted under D=64, matching the
+    plain version at D=48."""
     q = _randn((2, 2, 64, 64), 30, torch.float32)
     before = flash_interpolated_attention_f32.launches
     got = flash_interpolated_attention(q, q, q)
@@ -226,14 +229,21 @@ def test_flash_kernel_refuses_what_it_does_not_take(dev):
     assert _attn_err(got, flash_interpolated_attention_plain(q, q, q)) < F32_ATTN_RTOL
     with pytest.raises(NotImplementedError):  # f16 has no instance
         flash_interpolated_attention(q.half(), q.half(), q.half())
-    q = _randn((2, 2, 64, 48), 31)  # a head dim with no kernel instance
-    with pytest.raises(NotImplementedError):
-        flash_interpolated_attention(q, q, q)
-    with pytest.raises(NotImplementedError):
-        flash_interpolated_attention(q.float(), q.float(), q.float())
+    q = _randn((2, 2, 64, 48), 31)  # a head dim with no kernel instance of its own: padded to 64
+    for fn, x, rtol in ((flash_interpolated_attention, q, ATTN_RTOL),
+                        (flash_interpolated_attention_f32, q.float(), F32_ATTN_RTOL)):
+        before = fn.launches_by_head_dim[64]
+        got = flash_interpolated_attention(x, x, x)
+        torch.cuda.synchronize()
+        assert fn.launches_by_head_dim[64] == before + 1
+        assert got.shape == x.shape and got.dtype == x.dtype
+        assert _attn_err(got, flash_interpolated_attention_plain(x, x, x)) < rtol
     q = _randn((2, 1, 64, 512), 32, torch.float32)
     with pytest.raises(NotImplementedError):  # the f32 D=512 kernel is self mode only
         flash_interpolated_attention(q, q, q, torch.tensor([0.0, 1.0], device=dev), "fused_outer")
+    q = _randn((1, 1, 16, 520), 39, torch.float32)
+    with pytest.raises(NotImplementedError):  # past 512 nothing pads
+        flash_interpolated_attention(q, q, q)
     with pytest.raises(NotImplementedError):
         flash_self_attention_f32(q.to(torch.bfloat16), q.to(torch.bfloat16), q.to(torch.bfloat16))
     x = _randn((1, 12, 8, 8), 33)  # Cin % 8 != 0
@@ -245,6 +255,114 @@ def test_flash_kernel_refuses_what_it_does_not_take(dev):
                        _randn((16,), 36, torch.float32), _randn((16,), 37, torch.float32), 4)
     with pytest.raises(NotImplementedError):  # nor has f16 a conv instance
         conv3x3_same(x.half(), _randn((8, 16, 3, 3), 34).half(), _randn((8,), 35).half())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("D,mode", [(D, m) for D in (16, 32, 48, 100) for m in MODES] + [(200, "self")])
+def test_flash_kernels_pad_head_dims(dev, dtype, D, mode):
+    """A head dim that no instance takes is zero-padded to the next one that
+    does (below 160 to 40/64/80/160 in every mode, 200 to 512 in self mode)
+    and launches that instance once, counted under the padded head dim; the
+    result, sliced back to D, matches the plain version at D with the
+    unpadded scale: (B, S, H*D) projections viewed as (B, H, S, D), skip
+    rows at both ends, shared endpoints (outer and fused inner modes) and
+    per-row ones (pure inner), 77 keys and 130 queries ragged against every
+    tile."""
+    B, H, S, L, Le = 3, 2, 130, 77, 23
+
+    def heads(x):
+        return x.view(x.shape[0], x.shape[1], H, D).transpose(1, 2)
+
+    q = heads(_randn((B, S, H * D), 400 + D, dtype))
+    k, v = heads(_randn((B, L, H * D), 401 + D, dtype)), heads(_randn((B, L, H * D), 402 + D, dtype))
+    coef = torch.linspace(0, 1, B, device=dev)
+    skip = torch.zeros(B, dtype=torch.bool, device=dev)
+    skip[0] = skip[-1] = True
+    eps = {}
+    if mode != "self":
+        shape = (B, H, Le, D) if mode == "pure_inner" else (H, Le, D)
+        eps = {n: _randn(shape, 410 + i, dtype) for i, n in enumerate(("k_begin", "v_begin", "k_end", "v_end"))}
+    Dp = padded_head_dim(D, mode)
+    f32 = dtype == torch.float32
+    if Dp == 512:
+        fn = flash_self_attention_f32 if f32 else flash_self_attention_bf16
+
+        def count():
+            return fn.launches
+    else:
+        fn = flash_interpolated_attention_f32 if f32 else flash_interpolated_attention
+
+        def count():
+            return fn.launches_by_head_dim[Dp]
+
+    before = count()
+    got = flash_interpolated_attention(q, k, v, coef, mode, skip_endpoints=skip, **eps)
+    torch.cuda.synchronize()
+    assert count() == before + 1
+    want = flash_interpolated_attention_plain(q, k, v, coef, mode, skip_endpoints=skip, **eps)
+    assert got.shape == want.shape == (B, H, S, D) and got.dtype == dtype and torch.isfinite(got).all()
+    assert _attn_err(got, want) < (F32_ATTN_RTOL if f32 else ATTN_RTOL)
+
+
+def _tiny_model(name, dtype):
+    """A tiny configuration of the port's UNet (SD1.x-like or SDXL-like:
+    head dims 16 and 32) or its VAE (a mid-block attention at D = 32) with
+    N(0, 0.02) weights from a seed, on the card, and a call of it on seeded
+    inputs: fused_outer AID over 5 frames for the UNets, the decoder for
+    the VAE."""
+    from aid_tpu_torch.models import configs
+    from aid_tpu_torch.models.layers import AidContext, AidMode
+    from aid_tpu_torch.models.unet import UNet2DCondition
+    from aid_tpu_torch.models.vae import AutoencoderKL
+
+    dev, frames = torch.device("cuda"), 5
+    gen = _gen(500)
+    model = (AutoencoderKL(configs.TINY_VAE, device=dev, dtype=dtype) if name == "TINY_VAE"
+             else UNet2DCondition(getattr(configs, name), device=dev, dtype=dtype)).eval()
+    with torch.no_grad():
+        for p in model.parameters():
+            p.normal_(0.0, 0.02, generator=gen)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32).to(dtype)
+
+    if name == "TINY_VAE":
+        z = randn(frames, configs.TINY_VAE.latent_channels, 8, 8)
+        return lambda: model.decode(z)
+    cfg = model.config
+    sample = randn(frames, cfg.in_channels, cfg.sample_size, cfg.sample_size)
+    ehs = randn(frames, 77, cfg.cross_attention_dim)
+    added = None
+    if cfg.addition_embed_type == "text_time":
+        pooled = cfg.projection_class_embeddings_input_dim - 6 * cfg.addition_time_embed_dim
+        added = {"text_embeds": randn(frames, pooled),
+                 "time_ids": torch.tensor([[64.0, 64.0, 0.0, 0.0, 64.0, 64.0]], device=dev).expand(frames, 6)}
+    aid = AidContext(coef=torch.linspace(0, 1, frames, device=dev), mode=AidMode.from_name("fused_outer"))
+    return lambda: model(sample, torch.tensor(500, device=dev), ehs, aid, added)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("name", ["TINY_UNET", "TINY_SDXL_UNET", "TINY_VAE"])
+def test_tiny_models_run_the_kernels(dev, dtype, name):
+    """The repo's tiny configurations run on the card: their head dims (16
+    and 32) take the D=40 instance padded, in bf16 and f32, and the output
+    through the kernels matches the same model through the plain versions
+    (largest per-frame relative L2 under the attention's own bound: 1e-4 in
+    f32, 2e-2 in bf16), with the launches counted under D=40 and none at
+    another head dim."""
+    call = _tiny_model(name, dtype)
+    fn = flash_interpolated_attention_f32 if dtype == torch.float32 else flash_interpolated_attention
+    before = dict(fn.launches_by_head_dim)
+    with torch.no_grad():
+        got = call()
+        torch.cuda.synchronize()
+        launched = {d: fn.launches_by_head_dim[d] - before[d] for d in before}
+        with reference_ops():
+            want = call()
+    assert launched[40] > 0 and sum(launched.values()) == launched[40]
+    assert got.shape == want.shape and got.dtype == dtype and torch.isfinite(got).all()
+    diff = (got.float() - want.float()).flatten(1).norm(dim=1) / want.float().flatten(1).norm(dim=1)
+    assert diff.max().item() < (F32_ATTN_RTOL if dtype == torch.float32 else ATTN_RTOL)
 
 
 @pytest.mark.parametrize("B,H,S,L", [
@@ -340,8 +458,7 @@ def test_flash_f32_kernel_matches_plain(dev, D, mode, B, H, S, L, Le, ep):
     blend); one launch of the f32 instance, within the f32 promise of the
     plain version (TF32 off), and the strided views equal to contiguous
     copies bit for bit."""
-    bk = (KERNEL_F32_TILES[D][1] if D in KERNEL_F32_TILES
-          else KERNEL_F32_MMA_TILES[D][1 if AttnMode(mode).is_outer else 0])
+    bk = KERNEL_F32_TILES[D][1]
     L, Le = ({"bk-1": bk - 1, "bk+1": bk + 1}.get(x, x) for x in (L, Le))
 
     def heads(x):

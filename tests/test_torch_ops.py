@@ -822,31 +822,48 @@ def _tf32_rest(x: torch.Tensor) -> torch.Tensor:
     return x - _tf32_trunc(x)
 
 
+def _swizzle64(addr: torch.Tensor) -> torch.Tensor:
+    """The 64-byte swizzle of a byte address in a 512-byte-aligned tile:
+    16-byte chunk j of row r (64-byte rows) lies at chunk j ^ (r / 2 % 4)."""
+    return addr ^ (((addr >> 7) & 3) << 4)
+
+
 def _emulate_flash_f32_kernel(ops: dict) -> torch.Tensor:
-    """The wgmma instances of csrc/flash_interpolated_attention_f32.cu (head
-    dims 40, 64, 80), replayed in plain torch from the C entry's own
-    arguments (``kernel_operands``).
+    """csrc/flash_interpolated_attention_f32.cu (every head dim), replayed
+    in plain torch from the C entry's own arguments (``kernel_operands``).
 
     Each operand is read as its tensor map reads it: (D, H, S, B) over the
     tensor's storage at the strides in ``dims`` (a batch stride of 0: batch
     extent 1), boxes of 32 f32 by a tile of rows, zeros outside the extents
-    (columns past D, rows past the segment), stored 128-byte swizzled. Q's
-    A fragments are loaded from the block's Q tile and split (hi = the raw
-    value, lo = its rest); the split warps write K_lo chunk by chunk and
-    V^T, (V^T)_lo with each 8-key group permuted (0,2,4,6,1,3,5,7); S = Q
-    K^T reads K and K_lo through K-major descriptors (start + 32 bytes per
-    k8 step, 8-row groups 1024 bytes apart), P's A fragment is taken from
-    the S accumulator registers as the kernel takes it, and P V reads V^T
-    and (V^T)_lo the same way. Every operand is truncated to tf32 where the
-    tensor cores read it, products summed in f64; the online softmax, the
-    per-tile fold, the parked outer state and the strided output store
-    follow the kernel."""
-    from aid_tpu_torch.ops.flash_attention import KERNEL_F32_TILES
+    (columns past D, rows past the segment), stored 128-byte swizzled. Each
+    consumer warpgroup owns 64 query rows and, where the instance splits D
+    (``KERNEL_F32_D_SPLIT``: two warpgroups at D = 160), D / split columns:
+    its Q A fragments are loaded from the row group's Q tile at its columns
+    and split (hi = the raw value, lo = its rest); the split warps write K_lo
+    chunk by chunk and V^T, (V^T)_lo with each 8-key group permuted
+    (0,2,4,6,1,3,5,7), in rows of 128 bytes (128-byte swizzle) or, for
+    16-key tiles, 64 bytes (64-byte swizzle); S = Q K^T reads K and K_lo
+    through K-major descriptors (start + 32 bytes per k8 step, the
+    warpgroup's steps only, 8-row groups 1024 bytes apart). With D split,
+    each warpgroup's partial scores go to the exchange buffer in its
+    accumulator order and come back added to the other's, read by the same
+    thread index; both must hold the same scores. P's A fragment is taken
+    from the S accumulator registers as the kernel takes it, and P V reads
+    the warpgroup's rows of V^T and (V^T)_lo the same way (8-row groups 1024
+    or 512 bytes apart). Every operand is truncated to tf32 where the tensor
+    cores read it, products summed in f64; the online softmax, the per-tile
+    fold, the parked outer state and the strided output store at the
+    warpgroup's columns follow the kernel."""
+    from aid_tpu_torch.ops.flash_attention import KERNEL_F32_D_SPLIT, KERNEL_F32_TILES
 
     tensors, dims = ops["tensors"], ops["dims"]
     B, H, Sq, Lk, Le, D = dims[:6]
     BQ, BK, _ = KERNEL_F32_TILES[D]
-    chunks, ks_qk, ks_pv = -(-D // 32), D // 8, BK // 8
+    split = KERNEL_F32_D_SPLIT[D]
+    DW = D // split  # a warpgroup's columns
+    chunks, ks_qk, ks_pv = -(-D // 32), DW // 8, BK // 8
+    vt_row = min(BK, 32) * 4  # bytes of a V^T row
+    vt_groups, vt_swz = vt_row // 32, (_swizzle128 if vt_row == 128 else _swizzle64)
     sl2 = ops["scale"] * 1.4426950408889634
     flat = [torch.as_strided(x, (x.untyped_storage().nbytes() // 4 - x.storage_offset(),), (1,),
                              x.storage_offset()) for x in tensors]
@@ -865,26 +882,27 @@ def _emulate_flash_f32_kernel(ops: dict) -> torch.Tensor:
                 ok, flat[i][idx], 0.0).reshape(-1)
         return out
 
-    def kmajor(smem, start, rows):  # (rows, 8) through a K-major descriptor at byte `start`
+    def kmajor(smem, start, rows, row=128, swz=_swizzle128):  # (rows, 8) through a K-major descriptor at `start`
         r, kc = torch.arange(rows)[:, None], torch.arange(8)[None, :]
-        return smem[_swizzle128(start + (r // 8) * 1024 + (r % 8) * 128 + kc * 4) // 4]
+        return smem[swz(start + (r // 8) * (8 * row) + (r % 8) * row + kc * 4) // 4]
 
-    # the split warps: V^T (D rows per 32 keys) from the raw V tile, each 8-key group permuted
+    # the split warps: V^T (D rows of vt_row bytes of keys) from the raw V tile, each 8-key group permuted
     lane, w8 = torch.arange(32), torch.arange(8)
     pos = torch.tensor([0, 4, 1, 5, 2, 6, 3, 7])  # key w of a group -> its position in V^T's row
 
     def transposed(vraw):
-        vt = torch.zeros(BK // 32 * D * 32)
+        vt = torch.zeros(BK * D)
         for cb in range(chunks):
             d = 32 * cb + lane
             keep = d < D
             for grp in range(BK // 8):
                 src = cb * BK * 32 + _swizzle128((8 * grp + w8[None, :]) * 128 + lane[:, None] * 4) // 4  # (lane, w)
-                row = (grp // 4) * D * 128 + d[:, None] * 128 + (grp % 4) * 32 + pos[None, :] * 4
-                vt[(_swizzle128(row) // 4)[keep]] = vraw[src[keep]]
+                row = (grp // vt_groups) * D * vt_row + d[:, None] * vt_row + (grp % vt_groups) * 32 + pos[None, :] * 4
+                vt[(vt_swz(row) // 4)[keep]] = vraw[src[keep]]
         return vt
 
     g, t = _LANE_G, _LANE_T
+    arow, acol = _wgmma_acc_index(BK)  # the exchange's accumulator order: (thread, register) -> (row, key)
     coef, skip = ops["coef"], ops["skip"]
     has_own, n_sets = ops["has_own"], ops["n_sets"]
     out_flat = torch.zeros(flat[7].shape, dtype=torch.float64)
@@ -896,15 +914,18 @@ def _emulate_flash_f32_kernel(ops: dict) -> torch.Tensor:
         c = float(coef[b]) if blend else 0.0
         for h in range(H):
             for q0 in range(0, Sq, BQ):
-                for wg in range(BQ // 64):
-                    qt = tile(0, h, q0 + 64 * wg, b, 64)
-                    # A registers (warp, k8 step, lane, reg): rows 16 warp + g (+8), columns 8 kk + t (+4)
+                for rg in range(BQ // 64):
+                    qt = tile(0, h, q0 + 64 * rg, b, 64)
+                    # A registers of each warpgroup w (w, warp, k8 step, lane, reg): rows 16 warp + g (+8),
+                    # columns DW w + 8 kk + t (+4)
                     e = torch.arange(4)
-                    rr = 16 * torch.arange(4)[:, None, None, None] + g[None, None, :, None] + 8 * (e & 1)
-                    cc = 8 * torch.arange(ks_qk)[None, :, None, None] + t[None, None, :, None] + 4 * (e >> 1)
+                    rr = 16 * torch.arange(4)[None, :, None, None, None] + g[None, None, None, :, None] + 8 * (e & 1)
+                    cc = (DW * torch.arange(split)[:, None, None, None, None]
+                          + 8 * torch.arange(ks_qk)[None, None, :, None, None] + t[None, None, None, :, None]
+                          + 4 * (e >> 1))
                     qv = qt[(cc // 32) * 64 * 32 + _swizzle128(rr * 128 + (cc % 32) * 4) // 4]
-                    qhi, qlo = _a_matrix(_tf32_read(qv)), _a_matrix(_tf32_read(_tf32_rest(qv)))  # (4, KS, 16, 8)
-                    o = torch.zeros(4, 16, D, dtype=torch.float64)
+                    qhi, qlo = _a_matrix(_tf32_read(qv)), _a_matrix(_tf32_read(_tf32_rest(qv)))  # (W, 4, KS, 16, 8)
+                    o = torch.zeros(split, 4, 16, DW, dtype=torch.float64)
                     m = torch.full((4, 16), -math.inf, dtype=torch.float64)
                     lsum = torch.zeros(4, 16, dtype=torch.float64)
                     park = None
@@ -921,11 +942,25 @@ def _emulate_flash_f32_kernel(ops: dict) -> torch.Tensor:
                             klo = _tf32_rest(kt)  # chunk by chunk, in place of the raw K
                             vt = transposed(vraw)
                             vtlo = _tf32_rest(vt)
-                            offs = [(kk // 4) * BK * 128 + (kk % 4) * 32 for kk in range(ks_qk)]
-                            kh = torch.stack([_tf32_read(kmajor(kt, o_, BK)) for o_ in offs])  # (KS, BK, 8)
-                            kl = torch.stack([_tf32_read(kmajor(klo, o_, BK)) for o_ in offs])
-                            s = (torch.einsum("wkrc,knc->wrn", qlo, kh) + torch.einsum("wkrc,knc->wrn", qhi, kl)
-                                 + torch.einsum("wkrc,knc->wrn", qhi, kh))  # (4, 16, BK), keys in order
+                            partial = []
+                            for w in range(split):  # S over the warpgroup's k8 steps: (4, 16, BK), keys in order
+                                offs = [(ks // 4) * BK * 128 + (ks % 4) * 32 for ks in range(w * ks_qk, (w + 1) * ks_qk)]
+                                kh = torch.stack([_tf32_read(kmajor(kt, o_, BK)) for o_ in offs])  # (KS, BK, 8)
+                                kl = torch.stack([_tf32_read(kmajor(klo, o_, BK)) for o_ in offs])
+                                partial.append(torch.einsum("wkrc,knc->wrn", qhi[w], kh)
+                                               + (torch.einsum("wkrc,knc->wrn", qlo[w], kh)
+                                                  + torch.einsum("wkrc,knc->wrn", qhi[w], kl)))
+                            if split == 1:
+                                s = partial[0]
+                            else:  # the exchange: out in accumulator order, back added by the same thread
+                                xbuf = [p_.reshape(64, BK)[arow, acol] for p_ in partial]  # (128 threads, BK/2)
+                                scores = []
+                                for w in range(split):
+                                    sw = torch.zeros(64, BK, dtype=torch.float64)
+                                    sw[arow, acol] = xbuf[w] + xbuf[1 - w]
+                                    scores.append(sw.reshape(4, 16, BK))
+                                assert torch.equal(scores[0], scores[1])
+                                s = scores[0]
                             s[..., min(BK, length - r0):] = -math.inf
                             mn = torch.maximum(m, s.max(dim=-1).values)
                             alpha = torch.exp2((m - mn) * sl2)
@@ -935,119 +970,25 @@ def _emulate_flash_f32_kernel(ops: dict) -> torch.Tensor:
                             pc = _c_regs(p.reshape(4, 16, BK // 8, 8).transpose(1, 2))  # (4, BK/8, 32, 4)
                             pa = pc[..., [0, 2, 1, 3]]
                             ph, pl = _a_matrix(_tf32_read(pa)), _a_matrix(_tf32_read(_tf32_rest(pa)))
-                            offs = [(ks // 4) * D * 128 + (ks % 4) * 32 for ks in range(ks_pv)]
-                            vh = torch.stack([_tf32_read(kmajor(vt, o_, D)) for o_ in offs])  # (BK/8, D, 8)
-                            vl = torch.stack([_tf32_read(kmajor(vtlo, o_, D)) for o_ in offs])
-                            part = (torch.einsum("wkrc,knc->wrn", pl, vh) + torch.einsum("wkrc,knc->wrn", ph, vl)
-                                    + torch.einsum("wkrc,knc->wrn", ph, vh))
-                            o = o * alpha[..., None] + part
+                            for w in range(split):  # P V over the warpgroup's rows of V^T
+                                offs = [(ks // vt_groups) * D * vt_row + w * DW * vt_row + (ks % vt_groups) * 32
+                                        for ks in range(ks_pv)]
+                                vh = torch.stack([_tf32_read(kmajor(vt, o_, DW, vt_row, vt_swz)) for o_ in offs])
+                                vl = torch.stack([_tf32_read(kmajor(vtlo, o_, DW, vt_row, vt_swz)) for o_ in offs])
+                                pv = (torch.einsum("wkrc,knc->wrn", pl, vh) + torch.einsum("wkrc,knc->wrn", ph, vl)
+                                      + torch.einsum("wkrc,knc->wrn", ph, vh))  # (4, 16, DW)
+                                o[w] = o[w] * alpha[..., None] + pv
                         if blend and has_own and n == 0:
-                            park = (o, m, lsum)
+                            park = (o.clone(), m, lsum)  # o itself is updated in place per warpgroup
                     o = o / lsum[..., None] * (c if blend else 1.0)
                     if blend:
                         o = o + park
                     sb, sh, ss = strides[7]
-                    rows = q0 + 64 * wg + torch.arange(64).reshape(4, 16)
-                    keep = (rows < Sq)[..., None].expand(4, 16, D)
-                    dst = b * sb + h * sh + rows[..., None] * ss + torch.arange(D)
-                    out_flat[dst[keep]] = o[keep]
-    out = tensors[7]
-    return torch.as_strided(out_flat, out.shape, out.stride()).float()
-
-
-def _emulate_flash_f32_mma_kernel(ops: dict) -> torch.Tensor:
-    """The mma.sync instance of csrc/flash_interpolated_attention_f32.cu (head
-    dim 160), replayed in plain torch (f64 arithmetic) from the C entry's own
-    arguments (``kernel_operands``): each block's 64-row Q tile and each segment's
-    K/V tiles copied row by row at the operands' strides into tiles of the
-    kernel's pitches (zeros past the segment; a batch stride of 0 reads one
-    shared endpoint), every product through the m16n8k8 fragments the kernel
-    loads (Q and K pairs of columns 2t, 2t + 1; P from the S accumulator;
-    V rows 2t, 2t + 1 of column g), the online softmax with the masked key
-    tail, the outer modes' parked state and the strided output store."""
-    from aid_tpu_torch.ops.flash_attention import KERNEL_F32_MMA_TILES, KERNEL_F32_ROWS
-
-    tensors, dims = ops["tensors"], ops["dims"]
-    B, H, Sq, Lk, Le, D = dims[:6]
-    bk, bk_outer, LDQ, LDV = KERNEL_F32_MMA_TILES[D]
-    BK = bk_outer if ops["n_sets"] == 2 else bk
-    BQ, NT = KERNEL_F32_ROWS, D // 8
-    sl2 = ops["scale"] * 1.4426950408889634
-    flat = [torch.as_strided(x, (x.untyped_storage().nbytes() // 4 - x.storage_offset(),), (1,),
-                             x.storage_offset()).double() for x in tensors]
-    strides = [dims[6 + 3 * i:9 + 3 * i] for i in range(8)]
-
-    def rows_tile(i, b, h, row0, length, rows, ld):  # load_rows: rows past `length` zero-filled
-        sb, sh, ss = strides[i]
-        tile = torch.zeros(rows * ld, dtype=torch.float64)
-        r = torch.arange(rows)[:, None]
-        c = torch.arange(D)[None, :]
-        ok = (row0 + r < length).expand(rows, D)
-        idx = torch.where(ok, b * sb + h * sh + (row0 + r) * ss + c, 0)
-        tile[(r * ld + c)[ok]] = flat[i][idx[ok]]
-        return tile
-
-    offa, offb = _pair_offsets(LDQ, True), _pair_offsets(LDQ, False)
-    lane_g, lane_t = _LANE_G, _LANE_T
-    coef, skip = ops["coef"], ops["skip"]
-    has_own, n_sets = ops["has_own"], ops["n_sets"]
-    out_flat = torch.zeros_like(flat[7])
-    for b in range(B):
-        skipped = n_sets > 0 and skip is not None and bool(skip[b])
-        segs = ([(1, 2, Lk)] if has_own else []) + ([(3, 4, Le)] if n_sets and not skipped else []) + (
-            [(5, 6, Le)] if n_sets == 2 and not skipped else [])
-        blend = n_sets == 2 and not skipped
-        c = float(coef[b]) if blend else 0.0
-        for h in range(H):
-            for q0 in range(0, Sq, BQ):
-                qt = rows_tile(0, b, h, q0, Sq, BQ, LDQ)
-                # A registers of every warp and k step: (warp, kk, lane, reg)
-                a_idx = (torch.arange(4)[:, None, None, None] * 16 * LDQ + torch.arange(NT)[None, :, None, None] * 8
-                         + offa[None, None])
-                qa = _a_matrix(qt[a_idx])  # (4, NT, 16, 8)
-                o = torch.zeros(4, 16, D, dtype=torch.float64)
-                m = torch.full((4, 16), -math.inf, dtype=torch.float64)
-                lsum = torch.zeros(4, 16, dtype=torch.float64)
-                park = None
-                for n, (ki, vi, length) in enumerate(segs):
-                    if blend and n == len(segs) - 1:  # the end segment: (1 - c) O_begin / l exchanged
-                        if has_own:
-                            park, (o, m, lsum) = o / lsum[..., None] * (1 - c), park
-                        else:
-                            park = o / lsum[..., None] * (1 - c)
-                            o = torch.zeros_like(o)
-                            m, lsum = torch.full_like(m, -math.inf), torch.zeros_like(lsum)
-                    for r0 in range(0, length, BK):
-                        kt = rows_tile(ki, b, h, r0, length, BK, LDQ)
-                        vt = rows_tile(vi, b, h, r0, length, BK, LDV)
-                        b_idx = (torch.arange(BK // 8)[:, None, None, None] * 8 * LDQ
-                                 + torch.arange(NT)[None, :, None, None] * 8 + offb[None, None])
-                        kb_ = _b_matrix(kt[b_idx])  # (BK/8, NT, 8, 8)
-                        s_mat = torch.einsum("wkrc,nkcm->wnrm", qa, kb_)  # (4, BK/8, 16, 8)
-                        s = torch.cat(list(s_mat.unbind(1)), dim=-1)  # (4, 16, BK)
-                        s[..., min(BK, length - r0):] = -math.inf
-                        mn = torch.maximum(m, s.max(dim=-1).values)
-                        alpha = torch.exp2((m - mn) * sl2)
-                        p = torch.exp2(s * sl2 - (mn * sl2)[..., None])
-                        m, lsum = mn, lsum * alpha + p.sum(dim=-1)
-                        # P's A registers from its C registers: a = (c0, c2, c1, c3)
-                        pc = _c_regs(p.reshape(4, 16, BK // 8, 8).transpose(1, 2))  # (4, BK/8, 32, 4)
-                        pa = _a_matrix(pc[..., [0, 2, 1, 3]])
-                        v_idx = ((torch.arange(BK // 8)[:, None, None] * 8 + 2 * lane_t[None, None, :]) * LDV
-                                 + torch.arange(NT)[None, :, None] * 8 + lane_g[None, None, :])
-                        vb_ = _b_matrix(torch.stack([vt[v_idx], vt[v_idx + LDV]], -1))  # (BK/8, NT, 8, 8)
-                        pv = torch.einsum("wkrc,kncm->wnrm", pa, vb_)  # (4, NT, 16, 8)
-                        o = o * alpha[..., None] + torch.cat(list(pv.unbind(1)), dim=-1)
-                    if blend and has_own and n == 0:
-                        park = (o, m, lsum)
-                o = o / lsum[..., None] * (c if blend else 1.0)
-                if blend:
-                    o = o + park
-                sb, sh, ss = strides[7]
-                rows = q0 + torch.arange(64).reshape(4, 16)
-                keep = (rows < Sq)[..., None].expand(4, 16, D)
-                dst = b * sb + h * sh + rows[..., None] * ss + torch.arange(D)
-                out_flat[dst[keep]] = o[keep]
+                    rows = q0 + 64 * rg + torch.arange(64).reshape(4, 16)
+                    keep = (rows < Sq)[..., None].expand(4, 16, DW)
+                    for w in range(split):
+                        dst = b * sb + h * sh + rows[..., None] * ss + DW * w + torch.arange(DW)
+                        out_flat[dst[keep]] = o[w][keep]
     out = tensors[7]
     return torch.as_strided(out_flat, out.shape, out.stride()).float()
 
@@ -1057,19 +998,21 @@ def _emulate_flash_f32_mma_kernel(ops: dict) -> torch.Tensor:
                                             ("fused_inner", None), ("pure_inner", 3), ("fused_outer", None)])
 def test_flash_f32_kernel_data_movement_replayed(D, mode, endpoints):
     """The f32 attention kernel's data movement, replayed on the CPU from the
-    wrapper's own C arguments, computes the attention. At D = 40/64/80 (the
-    wgmma instances): the tensor-map boxes (zero fill past D and past each
-    segment, a shared endpoint through a batch extent of 1), the 128-byte
-    swizzle, Q's register fragments, the split warps' K_lo and permuted
-    V^T, (V^T)_lo, the K-major descriptors, P's A fragment from the S
-    registers and the raw-hi split, read as tf32. At D = 160 (the mma.sync
-    instance): the tile copies and m16n8k8 fragments with the permuted k
-    order. Both with the outer modes' parked state and the strided output,
-    on (B, S, H*D) projections viewed as (B, H, S, D), skip rows at both
-    ends, q tails past the query tile, 77-key segments ragged against 64-
-    and 32-key tiles. f64 sums in the replay: it differs from the plain
-    version by the 3xTF32 split (~2^-20 of the output) and the order of
-    sums; a wrong box, swizzle, permutation or descriptor is O(1)."""
+    wrapper's own C arguments, computes the attention at every head dim: the
+    tensor-map boxes (zero fill past D and past each segment, a shared
+    endpoint through a batch extent of 1), the 128-byte swizzle, Q's
+    register fragments, the split warps' K_lo and permuted V^T, (V^T)_lo
+    (128-byte rows; 64-byte rows under the 64-byte swizzle for D = 160's
+    16-key tiles), the K-major descriptors, P's A fragment from the S
+    registers and the raw-hi split, read as tf32; at D = 160 also the D
+    split across two warpgroups and their partial-score exchange in
+    accumulator order. With the outer modes' parked state and the strided
+    output, on (B, S, H*D) projections viewed as (B, H, S, D), skip rows at
+    both ends, q tails past the query tile, 77-key segments ragged against
+    64-, 32- and 16-key tiles. f64 sums in the replay: it differs from the
+    plain version by the 3xTF32 split (~2^-20 of the output) and the order
+    of sums; a wrong box, swizzle, permutation, descriptor or exchange is
+    O(1)."""
     from aid_tpu_torch.ops.flash_attention import kernel_operands
 
     g = torch.Generator().manual_seed(100 + D)
@@ -1087,7 +1030,7 @@ def test_flash_f32_kernel_data_movement_replayed(D, mode, endpoints):
         eps = {n: torch.randn(shape, generator=g) for n in ("k_begin", "v_begin", "k_end", "v_end")}
     ops = kernel_operands(q, k, v, coef, mode, skip_endpoints=skip, **eps)
     assert ops["entry"] == "aid_flash_attn_f32"
-    got = _emulate_flash_f32_mma_kernel(ops) if D == 160 else _emulate_flash_f32_kernel(ops)
+    got = _emulate_flash_f32_kernel(ops)
     want = flash_interpolated_attention_plain(q, k, v, coef, mode, skip_endpoints=skip, **eps)
     assert got.shape == want.shape
     assert th.max_rel_err(got.numpy(), want.numpy()) < 1e-5
@@ -1136,13 +1079,81 @@ def test_flash_kernel_operands_f32(mode):
         kernel_operands(q.half(), k.half(), v.half())
 
 
+# head dims that no instance takes, in every mode, and one past 160 in self mode
+PAD_CASES = [(D, mode) for D in (16, 32, 48, 100) for mode in MODES] + [(200, "self")]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("D,mode", PAD_CASES)
+def test_flash_operands_pad_head_dims(D, mode, dtype):
+    """A head dim that no kernel instance takes is zero-padded, as the JAX
+    wrapper pads (aid_tpu/ops/flash_attention.py:784, 800-801): below 160 to
+    the next of 40/64/80/160 in every mode (kernel_operands), between 160
+    and 512 to 512 in self mode (d512_operands). Every operand the entry
+    reads has the padded head dim with zeros past D, the scale is the
+    unpadded D's, and ``out`` is the output sliced back to D. The padded
+    call replayed on the CPU (the bf16 and f32 kernels' replays above; at
+    D = 200 the bf16 D=512 kernel's replay, in f32 the padded operands' own
+    softmax at the entry's scale) computes the plain version at the
+    unpadded D, with skip rows at both ends and shared endpoints of their
+    own ragged length; at D = 48 it is held against the JAX wrapper in
+    interpret mode too. f32 to 1e-5 of max |ref| (the 3xTF32 split and the
+    order of sums), bf16 to 1e-2 (P's bf16 rounding and the output's)."""
+    from aid_tpu_torch.ops.attention import _softmax_attn
+    from aid_tpu_torch.ops.flash_attention import d512_operands, kernel_operands, padded_head_dim
+
+    g = torch.Generator().manual_seed(300 + D)
+    B, H, S, L, Le = 3, 2, 70, 37, 21
+    f32 = dtype == torch.float32
+
+    def heads(n):
+        return torch.randn(B, n, H * D, generator=g).to(dtype).view(B, n, H, D).transpose(1, 2)
+
+    q, k, v = heads(S), heads(L), heads(L)
+    coef = torch.tensor([0.0, 0.4, 1.0])
+    skip = torch.tensor([True, False, True])
+    eps = {} if mode == "self" else {n: torch.randn(H, Le, D, generator=g).to(dtype)
+                                     for n in ("k_begin", "v_begin", "k_end", "v_end")}
+    Dp = padded_head_dim(D, mode)
+    assert Dp == {16: 40, 32: 40, 48: 64, 100: 160, 200: 512}[D]
+    if Dp == 512:
+        ops = d512_operands(q, k, v)
+        assert ops["dims"][:4] == [B, H, S, L]
+        if f32:
+            qp, kp, vp = ops["tensors"][:3]
+            got = _softmax_attn(qp.double(), kp.double(), vp.double(), ops["scale"]).float()
+        else:
+            got = _emulate_flash_bf16_d512_kernel(ops)
+    else:
+        ops = kernel_operands(q, k, v, coef, mode, skip_endpoints=skip, **eps)
+        assert ops["dims"][5] == Dp
+        got = _emulate_flash_f32_kernel(ops) if f32 else _emulate_flash_kernel(ops)
+    assert all(x.shape[-1] == Dp and not x[..., D:].any() for x in ops["tensors"][:-1])
+    assert ops["head_dim"] == D and ops["scale"] == D ** -0.5
+    out = ops["out"]
+    assert out.shape == (B, H, S, D) and out.data_ptr() == ops["tensors"][-1].data_ptr()
+    got = got[..., :D]
+    want = flash_interpolated_attention_plain(q.float(), k.float(), v.float(), coef, mode, skip_endpoints=skip,
+                                              **{n: e.float() for n, e in eps.items()})
+    tol = 1e-5 if f32 else 1e-2
+    assert got.shape == want.shape
+    assert th.max_rel_err(got.float().numpy(), want.numpy()) < tol
+    if D == 48:
+        jax_want = jax_flash(*(jnp.asarray(x.float().numpy()) for x in (q, k, v)), jnp.asarray(coef.numpy()), mode,
+                             skip_endpoints=jnp.asarray(skip.numpy()), block_q=64, block_k=64, interpret=True,
+                             **{n: jnp.asarray(e.float().numpy()) for n, e in eps.items()})
+        assert th.max_rel_err(got.float().numpy(), np.asarray(jax_want)) < (FLASH_TOL if f32 else 1e-2)
+
+
 def test_flash_f32_tile_constants_follow_the_kernel_source():
-    """ops/flash_attention.py's f32 tile tables, which the replays above use,
-    are the ones csrc/flash_interpolated_attention_f32.cu compiles with: query
-    rows, keys per tile and ring stages of the wgmma instances (D = 40, 64,
-    80), keys (in the outer modes and the others) and row pitches of the
-    mma.sync instance (D = 160) and its query rows; every head dim has
-    exactly one instance."""
+    """ops/flash_attention.py's f32 tile table, which the replay above uses,
+    is the one csrc/flash_interpolated_attention_f32.cu compiles with: query
+    rows, keys per tile and ring stages for every head dim, one wgmma
+    instance each, and the D split (kSplit: two warpgroups above D = 128,
+    so at 160 alone). The header's table agrees with the shared memory
+    Cfg<D> adds up: the Q / parked regions, the exchange, the stages (raw
+    K, raw V, K_lo and V^T, (V^T)_lo), all within the 227 KB a block can
+    use; no mma.sync instance is left."""
     import re
     from pathlib import Path
 
@@ -1152,12 +1163,23 @@ def test_flash_f32_tile_constants_follow_the_kernel_source():
     pat = r"struct Tiles<(\d+)> \{ static constexpr int kBQ = (\d+), kBK = (\d+), kStages = (\d+); \};"
     found = {int(d): (int(bq), int(bk), int(st)) for d, bq, bk, st in re.findall(pat, src)}
     assert found == FA.KERNEL_F32_TILES
-    pat = (r"struct MmaTiles<(\d+)> \{ static constexpr int kBK = (\d+), kBKOuter = (\d+), kLdQK = (\d+), "
-           r"kLdV = (\d+); \};")
-    found_mma = {int(d): tuple(map(int, rest)) for d, *rest in re.findall(pat, src)}
-    assert found_mma == FA.KERNEL_F32_MMA_TILES
-    assert sorted([*found, *found_mma]) == HEAD_DIMS
-    assert int(re.search(r"constexpr int kBQ = (\d+);", src).group(1)) == FA.KERNEL_F32_ROWS
+    assert sorted(found) == HEAD_DIMS
+    assert "kSplit = D > 128 ? 2 : 1;" in src
+    assert FA.KERNEL_F32_D_SPLIT == {d: 2 if d > 128 else 1 for d in HEAD_DIMS}
+    assert "mma.sync" not in src and "namespace mma" not in src
+    table = {int(r[0]): tuple(int(x.replace(",", "")) for x in r[1:])
+             for r in re.findall(r"^//\s+(\d+)\s+(\d+)\s+(\d+)\s+(\d+)\s+\d+ x \d+\s+(\d+)\s+([\d,]+)\s+\d+$",
+                                 src, re.M)}
+    assert sorted(table) == HEAD_DIMS
+    for d, (bq, bk, stages) in FA.KERNEL_F32_TILES.items():
+        split = FA.KERNEL_F32_D_SPLIT[d]
+        chunks, slot = -(-d // 32), d // split // 2 + 4
+        region = -(-max(64 * 128 * chunks, split * 128 * slot * 4) // 1024) * 1024
+        xbytes = 2 * split * (bk // 2) * 128 * 4 if split > 1 else 0
+        stage = 3 * bk * 128 * chunks + 2 * bk * 4 * d
+        smem = 1024 + bq // 64 * (region + xbytes) + stages * stage + (3 * stages + 1) * 8
+        assert table[d] == (bq, bk, stages, stage, smem)
+        assert smem <= 232448
 
 
 def _emulate_conv_f32_kernel(x, w, b, *factors):

@@ -1,11 +1,13 @@
 """Time the flash attention kernel launched alone at the main paths' shapes.
 
-    python3 tools/attention_bench.py [--reps 20] [--dtype bf16|f32] [--d512] [--root DIR]
+    python3 tools/attention_bench.py [--reps 20] [--dtype bf16|f32] [--d512] [--only TEXT] [--root DIR]
 
 For each shape class of ``chip_smoke.py`` phase 3 (bf16: SDXL at D=64, SD1.5
 at D=40/80/160; f32: every f32 shape of PERF.md's kernel table, SDXL's and SD
-2.1's D=64 and SD1.5's D=40/80/160; 7 frames, (B, S, H*D) projections viewed
-as (B, H, S, D), the coef-0/1 end rows as skip rows) it prepares one launch
+2.1's D=64 and SD1.5's D=40/80/160, the latter at 256 and 64 tokens and the
+77-key cross-attention; 7 frames, (B, S, H*D) projections viewed as (B, H,
+S, D), the coef-0/1 end rows as skip rows; ``--only`` keeps the labels that
+contain its text, say ``D=160``) it prepares one launch
 with ``ops.flash_attention.kernel_launch`` and times that launch alone with
 CUDA events, beside the bound (``chip_smoke.attention_bound``; f32 at three
 TF32 passes) and, in self mode, SDPA on the same inputs (bf16: cuDNN; f32:
@@ -65,6 +67,10 @@ F32_SHAPES = [
     ("fused_outer 1024 D=80", "fused_outer", 8, 1024, 1024, 80),
     ("self 256 D=160", "self", 8, 256, 256, 160),
     ("fused_outer 256 D=160", "fused_outer", 8, 256, 256, 160),
+    ("self 64 (mid block) D=160", "self", 8, 64, 64, 160),
+    ("fused_outer 64 (mid block) D=160", "fused_outer", 8, 64, 64, 160),
+    ("cross self 256x77 D=160", "self", 8, 256, 77, 160),
+    ("cross fused_outer 256x77 D=160", "fused_outer", 8, 256, 77, 160),
 ]
 
 
@@ -116,6 +122,7 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--dtype", choices=("bf16", "f32"), default="bf16")
     ap.add_argument("--d512", action="store_true", help="the bf16 D=512 self-attention (VAE mid block)")
+    ap.add_argument("--only", default="", help="time only the shapes whose label contains this text")
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]),
                     help="the checkout whose package and chip_smoke.py are timed (default: this one)")
     args = ap.parse_args(argv)
@@ -149,6 +156,8 @@ def main(argv=None) -> int:
     skip = skip_mask(coef, B)
     result = {}
     for label, mode, H, Sq, L, D in F32_SHAPES if f32 else SHAPES:
+        if args.only not in label:
+            continue
         def heads(n):
             x = torch.randn((B, n, H * D), generator=gen, device=dev).to(dtype)
             return x.view(B, n, H, D).transpose(1, 2)
