@@ -8,11 +8,16 @@ The JAX package ``aid_tpu`` is the reference; this package never imports it
               conv and GN+SiLU conv kernel wrappers, kernel build
   csrc/       the CUDA C++ kernels (sm_90a), built by ops/_build.py at first use
   models/     configs, UNet building blocks, UNet2DCondition, VAE decode,
-              CLIP text encoder, param conversion
-  schedulers/ DDIM, Euler
+              CLIP text and vision towers, the safety checker, param
+              conversion, the loader
+  prior/      the coefficient selection: Beta-prior explore-and-select (its
+              DP search native through ctypes), Bayesian (alpha, beta)
+              search, the CLIP scorer
+  metrics/    LPIPS and the Gini smoothness
+  schedulers/ DDIM, Euler, PNDM, UniPC, EDM DPM-Solver++
   pipelines/  the warmup-split CFG denoise engine, VAE decode to uint8, the
               SD1.x interpolation pipeline and its SDXL subclass
-  utils/      tokenizers
+  utils/      tokenizers, the safetensors reader, the invisible watermark
 
 On a CPU tensor every op runs its plain PyTorch version; on a CUDA tensor it
 runs its kernel (see ``ops/routing.py``).

@@ -1,13 +1,20 @@
-"""CLIP text encoder as a PyTorch module (transformers parameter names).
+"""CLIP text and vision towers as PyTorch modules (transformers parameter names).
 
-Counterpart of ``aid_tpu.models.clip.CLIPTextModel``. Parameter names are
+Counterparts of ``aid_tpu.models.clip.CLIPTextModel`` and
+``CLIPVisionModel``. The text tower's parameter names are
 those of transformers' ``CLIPTextModel`` / ``CLIPTextModelWithProjection``
 (``text_model.embeddings.token_embedding``, ``text_model.encoder.layers.N.
 self_attn.q_proj``, ``mlp.fc1``, ``text_model.final_layer_norm``,
 ``text_projection``), so one class serves CLIP ViT-L (SD1.x, SDXL encoder 1)
-and OpenCLIP bigG with its 1280-wide projection (SDXL encoder 2). Its
-attention is plain PyTorch over at most 77 tokens, as the JAX package
-computes it with plain einsums (no kernel).
+and OpenCLIP bigG with its 1280-wide projection (SDXL encoder 2). The vision
+tower's are transformers' ``CLIPVisionModelWithProjection``'s
+(``vision_model.embeddings.{patch_embedding, class_embedding,
+position_embedding}``, ``vision_model.pre_layrnorm``, ``vision_model.encoder.
+layers.N``, ``vision_model.post_layernorm``, ``visual_projection``): the CLIP
+scorer of the coefficient selection and, inside ``models/safety.py``, the
+safety checker. Attention is plain PyTorch in both towers (at most 77 text
+tokens, 257 image tokens at ViT-L/14), as the JAX package leaves it to XLA
+(clip.py:47).
 """
 
 from __future__ import annotations
@@ -16,7 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from aid_tpu_torch.models.configs import CLIPTextConfig
+from aid_tpu_torch.models.configs import CLIPTextConfig, CLIPVisionConfig
 
 
 def _act(name: str):
@@ -37,7 +44,7 @@ class CLIPAttention(nn.Module):
         self.v_proj = nn.Linear(dim, dim, **kw)
         self.out_proj = nn.Linear(dim, dim, **kw)
 
-    def forward(self, x, causal_mask: torch.Tensor):
+    def forward(self, x, causal_mask=None):
         B, S, C = x.shape
         hd = C // self.num_heads
 
@@ -46,7 +53,8 @@ class CLIPAttention(nn.Module):
 
         q, k, v = heads(self.q_proj(x)), heads(self.k_proj(x)), heads(self.v_proj(x))
         logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * hd ** -0.5
-        logits = logits.masked_fill(~causal_mask, torch.finfo(torch.float32).min)
+        if causal_mask is not None:
+            logits = logits.masked_fill(~causal_mask, torch.finfo(torch.float32).min)
         probs = torch.softmax(logits, dim=-1).to(x.dtype)
         out = torch.matmul(probs, v).transpose(1, 2).reshape(B, S, C)
         return self.out_proj(out)
@@ -72,7 +80,7 @@ class CLIPEncoderLayer(nn.Module):
         self.layer_norm2 = nn.LayerNorm(cfg.hidden_size, eps=1e-5, **kw)
         self.mlp = CLIPMLP(cfg.hidden_size, cfg.intermediate_size, cfg.hidden_act, **kw)
 
-    def forward(self, x, causal_mask):
+    def forward(self, x, causal_mask=None):
         x = x + self.self_attn(self.layer_norm1(x), causal_mask)
         return x + self.mlp(self.layer_norm2(x))
 
@@ -144,3 +152,55 @@ class CLIPTextModel(nn.Module):
         if cfg.projection_dim is not None:
             pooled = self.text_projection(pooled)
         return out, pooled, hidden_states
+
+
+class _VisionEmbeddings(nn.Module):
+    def __init__(self, cfg: CLIPVisionConfig, **kw):
+        super().__init__()
+        self.class_embedding = nn.Parameter(torch.randn(cfg.hidden_size, **kw) * 0.02)
+        self.patch_embedding = nn.Conv2d(3, cfg.hidden_size, cfg.patch_size, stride=cfg.patch_size, bias=False, **kw)
+        self.position_embedding = nn.Embedding((cfg.image_size // cfg.patch_size) ** 2 + 1, cfg.hidden_size, **kw)
+
+
+class CLIPVisionTransformer(nn.Module):
+    """transformers' ``CLIPVisionTransformer``: ``forward(pixel_values)``
+    returns (pooled, hidden_states). Pooled is ``post_layernorm`` of the
+    last layer's class token; ``hidden_states`` has the pre-layer-normed
+    embeddings and the output of every layer (clip.py:138-151)."""
+
+    def __init__(self, config: CLIPVisionConfig, **kw):
+        super().__init__()
+        self.embeddings = _VisionEmbeddings(config, **kw)
+        self.pre_layrnorm = nn.LayerNorm(config.hidden_size, eps=1e-5, **kw)
+        self.encoder = _Encoder(config, **kw)
+        self.post_layernorm = nn.LayerNorm(config.hidden_size, eps=1e-5, **kw)
+
+    def forward(self, pixel_values: torch.Tensor):
+        emb = self.embeddings
+        patches = emb.patch_embedding(pixel_values.to(emb.patch_embedding.weight.dtype))
+        patches = patches.flatten(2).transpose(1, 2)  # (B, h*w, C), row-major patches as the NHWC reshape
+        cls = emb.class_embedding.expand(patches.shape[0], 1, -1)
+        x = torch.cat([cls, patches], dim=1) + emb.position_embedding.weight[None, :patches.shape[1] + 1]
+        x = self.pre_layrnorm(x)
+        hidden_states = [x]
+        for layer in self.encoder.layers:
+            x = layer(x)
+            hidden_states.append(x)
+        return self.post_layernorm(x[:, 0]), hidden_states
+
+
+class CLIPVisionModel(nn.Module):
+    """``forward(pixel_values)`` ((B, 3, S, S), CLIP-preprocessed) returns
+    (image_embeds, penultimate_hidden) as the JAX model does: the projected
+    pooled class token and the hidden states of the second-to-last layer."""
+
+    def __init__(self, config: CLIPVisionConfig, *, device=None, dtype=torch.float32):
+        super().__init__()
+        self.config = config
+        kw = dict(device=device, dtype=dtype)
+        self.vision_model = CLIPVisionTransformer(config, **kw)
+        self.visual_projection = nn.Linear(config.hidden_size, config.projection_dim, bias=False, **kw)
+
+    def forward(self, pixel_values: torch.Tensor):
+        pooled, hidden_states = self.vision_model(pixel_values)
+        return self.visual_projection(pooled), hidden_states[-2]

@@ -136,6 +136,7 @@ SDXL_TEXT_ENCODER_2 = CLIPTextConfig(
     num_attention_heads=20, hidden_act="gelu", projection_dim=1280,
 )
 
+CLIP_VIT_B32_VISION = CLIPVisionConfig()  # openai/clip-vit-base-patch32: the selection's CLIP scorer
 CLIP_VIT_H_VISION = CLIPVisionConfig(
     image_size=224, patch_size=14, hidden_size=1280, intermediate_size=5120,
     num_hidden_layers=32, num_attention_heads=16, projection_dim=1024,

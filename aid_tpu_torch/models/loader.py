@@ -3,9 +3,9 @@
 Counterpart of ``aid_tpu.models.loader`` (loader.py:31-310, 532-557), the
 JAX package's entry point: read each subfolder's config.json and
 safetensors, build the matching modules and assemble an
-``InterpolationPipeline`` (SD 1.x / 2.x) or, for a directory with a
-``text_encoder_2``, an ``InterpolationXLPipeline``. Paths are local; nothing
-is downloaded.
+``InterpolationPipeline`` (SD 1.x / 2.x, with the ``safety_checker/`` a
+directory ships) or, for a directory with a ``text_encoder_2``, an
+``InterpolationXLPipeline``. Paths are local; nothing is downloaded.
 
 The port's modules carry diffusers' and transformers' parameter names and
 layouts, so a checkpoint loads with ``load_state_dict(strict=True)`` and no
@@ -13,14 +13,13 @@ conversion. Each module is built on the meta device and takes the tensors
 the safetensors reader (``utils/safetensors.py``) put on the target device
 in the target dtype, so no random initialisation runs and no second copy is
 made. Defaults are the JAX loader's: UNet bf16, text encoders f32, the VAE
-f32 when its config sets ``force_upcast`` (bf16 otherwise). Every module
-lands on ``device``, "cuda" unless the caller asks for "cpu".
+f32 when its config sets ``force_upcast`` (bf16 otherwise), the safety
+checker f32. Every module lands on ``device``, "cuda" unless the caller asks
+for "cpu".
 
 Not ported: the parameter cache (``cache_dir``, orbax), single-file
-checkpoints, LoRA, textual inversion and the safety checker: an SD
-directory that has one makes the loader raise (ROADMAP Queue 1), since the
-JAX pipeline would black out the frames it flags. The JAX XL loader reads no
-safety checker, and neither does this one.
+checkpoints, LoRA and textual inversion. The JAX XL loader reads no safety
+checker, and neither does this one.
 """
 
 from __future__ import annotations
@@ -33,6 +32,7 @@ import torch
 
 from aid_tpu_torch.models import configs as C
 from aid_tpu_torch.models.clip import CLIPTextModel
+from aid_tpu_torch.models.safety import SafetyChecker
 from aid_tpu_torch.models.unet import UNet2DCondition
 from aid_tpu_torch.models.vae import AutoencoderKL
 from aid_tpu_torch.utils.safetensors import load_safetensors
@@ -115,8 +115,12 @@ def vae_decode_dtype(cfg: C.VAEConfig) -> torch.dtype:
     return torch.float32 if cfg.force_upcast else torch.bfloat16
 
 
-#: buffers that transformers checkpoints may carry and the port's modules do not hold
-_NOT_WEIGHTS = ("text_model.embeddings.position_ids",)
+def _weights(path: str, dtype: torch.dtype, device) -> dict:
+    """The safetensors of ``path`` on ``device`` in ``dtype``, without the
+    ``embeddings.position_ids`` buffers transformers checkpoints may carry
+    and the port's modules do not hold."""
+    return {k: v for k, v in load_safetensors(path, dtype=dtype, device=device).items()
+            if not k.endswith("embeddings.position_ids")}
 
 
 def _load_module(cls, cfg, path: str, dtype: torch.dtype, device):
@@ -125,8 +129,7 @@ def _load_module(cls, cfg, path: str, dtype: torch.dtype, device):
     match, none may be left over)."""
     with torch.device("meta"):
         module = cls(cfg, dtype=dtype)
-    sd = {k: v for k, v in load_safetensors(path, dtype=dtype, device=device).items() if k not in _NOT_WEIGHTS}
-    module.load_state_dict(sd, strict=True, assign=True)
+    module.load_state_dict(_weights(path, dtype, device), strict=True, assign=True)
     return module.eval()
 
 
@@ -142,6 +145,37 @@ def load_vae(path: str, dtype: Optional[torch.dtype] = None, device="cuda") -> A
 
 def load_text_encoder(path: str, dtype: torch.dtype = torch.float32, device="cuda") -> CLIPTextModel:
     return _load_module(CLIPTextModel, clip_text_config_from_transformers(_read_config(path)), path, dtype, device)
+
+
+def clip_vision_config_from_transformers(cfg: dict) -> C.CLIPVisionConfig:
+    """transformers CLIPVisionConfig or CLIPConfig (loader.py:159-172): a
+    safety_checker / image_encoder config may nest the tower under
+    ``vision_config``, with ``projection_dim`` at the top level."""
+    vc = cfg.get("vision_config", cfg)
+    return C.CLIPVisionConfig(
+        image_size=vc.get("image_size", 224),
+        patch_size=vc.get("patch_size", 32),
+        hidden_size=vc.get("hidden_size", 768),
+        intermediate_size=vc.get("intermediate_size", 3072),
+        num_hidden_layers=vc.get("num_hidden_layers", 12),
+        num_attention_heads=vc.get("num_attention_heads", 12),
+        projection_dim=cfg.get("projection_dim", vc.get("projection_dim", 512)),
+        hidden_act=vc.get("hidden_act", "quick_gelu"),
+    )
+
+
+def load_safety_checker(path: str, device="cuda") -> SafetyChecker:
+    """A ``SafetyChecker`` in f32 from a checkpoint's ``safety_checker/``
+    (loader.py:175-184); the concept counts come from the weights."""
+    cfg = clip_vision_config_from_transformers(_read_config(path))
+    sd = _weights(path, torch.float32, device)
+    if "concept_embeds" not in sd:
+        raise FileNotFoundError(f"{path} holds no safety-checker weights (no .safetensors with concept_embeds)")
+    with torch.device("meta"):
+        module = SafetyChecker(cfg, num_concepts=sd["concept_embeds"].shape[0],
+                               num_special=sd["special_care_embeds"].shape[0])
+    module.load_state_dict(sd, strict=True, assign=True)
+    return module.eval()
 
 
 #: a checkpoint's scheduler class -> the port's scheduler (loader.py:208-215)
@@ -202,14 +236,6 @@ def load_scheduler(repo_path: str, scheduler_name: str = "auto"):
     return {"ddim": DDIMScheduler, "unipc": UniPCScheduler}[scheduler_name](cfg)
 
 
-def _refuse_safety_checker(repo_path: str) -> None:
-    if os.path.exists(os.path.join(repo_path, "safety_checker", "config.json")):
-        raise NotImplementedError(
-            f"{repo_path} has a safety_checker, which the JAX pipeline runs on every decode (it blacks out "
-            "flagged frames); the port has none yet (ROADMAP Queue 1 item 5), so it refuses the directory "
-            "rather than change the results")
-
-
 def load_interpolation_pipeline(
     repo_path: str,
     scheduler_name: Optional[str] = None,
@@ -223,6 +249,8 @@ def load_interpolation_pipeline(
     :func:`load_interpolation_xl_pipeline`. ``scheduler_name=None`` is the
     family default ("ddim" for SD, the checkpoint's own class for SDXL);
     ``guidance_scale=None`` likewise (7.5 / 5.0). ``dtype`` is the UNet's.
+    An SD directory's ``safety_checker/`` (when its config.json exists) is
+    loaded in f32 on ``device`` and runs on every decode (loader.py:296-299).
     """
     from aid_tpu_torch.pipelines.interpolation import InterpolationPipeline
 
@@ -230,7 +258,7 @@ def load_interpolation_pipeline(
         return load_interpolation_xl_pipeline(repo_path, scheduler_name="auto" if scheduler_name is None
                                               else scheduler_name, dtype=dtype, guidance_scale=guidance_scale,
                                               device=device)
-    _refuse_safety_checker(repo_path)
+    safety_dir = os.path.join(repo_path, "safety_checker")
     return InterpolationPipeline(
         unet=load_unet(os.path.join(repo_path, "unet"), dtype=dtype, device=device),
         vae=load_vae(os.path.join(repo_path, "vae"), device=device),
@@ -238,6 +266,8 @@ def load_interpolation_pipeline(
         tokenizer=load_tokenizer(os.path.join(repo_path, "tokenizer")),
         scheduler=load_scheduler(repo_path, scheduler_name or "ddim"),
         guidance_scale=7.5 if guidance_scale is None else guidance_scale,
+        safety_checker=(load_safety_checker(safety_dir, device=device)
+                        if os.path.exists(os.path.join(safety_dir, "config.json")) else None),
     )
 
 

@@ -6,7 +6,8 @@ generation, ``interrupt`` and both callback kinds, the entry points
 ``interpolate`` (PAID guide prompt, explicit ``ts``), ``interpolate_single``,
 ``interpolate_save_gpu`` (both ways), ``denoising_interpolate`` and
 ``__call__``, ``_decode``, batched CFG (``cfg_mode``), VAE tiling
-(``enable_vae_tiling``) and the bf16 decode (``enable_bf16_vae_decode``). Modules are the port's ``nn.Module``s with
+(``enable_vae_tiling``), the bf16 decode (``enable_bf16_vae_decode``) and
+the safety checker, run on every decode when set (``run_safety``). Modules are the port's ``nn.Module``s with
 their weights inside, so there are no separate parameter trees. Latents are
 NCHW; decoded images are NHWC uint8 numpy, as the JAX package returns them.
 
@@ -23,7 +24,7 @@ different numbers from one seed, so parity tests hand both pipelines the
 same latents.
 
 Not yet ported: the IP-Adapter attachments (image embeds raise
-``NotImplementedError``), the prompt-embeds shortcuts and the safety checker.
+``NotImplementedError``) and the prompt-embeds shortcuts.
 """
 
 from __future__ import annotations
@@ -106,6 +107,9 @@ class InterpolationPipeline:
     # Spatial VAE tiling: None = off, else the latent tile edge (64 = 512px
     # tiles); see enable_vae_tiling()
     vae_tile_latent_size: Optional[int] = None
+    # models.safety.SafetyChecker run on every decode (flagged frames come
+    # out black); None skips it, as the JAX pipeline does without one
+    safety_checker: Any = None
 
     @property
     def device(self) -> torch.device:
@@ -474,4 +478,15 @@ class InterpolationPipeline:
         images = engine.decode_latents(self.vae, latents, cfg.scaling_factor, latents_mean=cfg.latents_mean,
                                        latents_std=cfg.latents_std, per_frame=per_frame,
                                        tile_latent_size=self.vae_tile_latent_size)
-        return engine.to_uint8(images)
+        images = engine.to_uint8(images)
+        if self.safety_checker is not None:
+            images, _ = self.run_safety(images)
+        return images
+
+    def run_safety(self, images: np.ndarray):
+        """(frames with the flagged ones set to 0, (N,) bool flags) of the
+        safety checker on (N, H, W, 3) uint8 frames. ``_decode`` applies it
+        to every decode; a caller that needs the flags calls this."""
+        from aid_tpu_torch.models.safety import run_safety_checker
+
+        return run_safety_checker(images, self.safety_checker)

@@ -12,9 +12,11 @@ gives the inherited vanilla entry points (``__call__``,
 ``interpolate_single``. Batched CFG, VAE tiling and the bf16 decode are the
 base class's. Latents are slerped channels-last, as in the base module.
 
+``watermarker`` (``utils.watermark.InvisibleWatermark``) marks every
+decoded frame when set (sdxl.py:40-53); None, the default, leaves them.
+
 Not yet ported: the IP-Adapter branch (image embeds raise
-``NotImplementedError``), the prompt-embeds entry points, the invisible
-watermark (the JAX default, None, is what runs here).
+``NotImplementedError``) and the prompt-embeds entry points.
 """
 
 from __future__ import annotations
@@ -44,6 +46,14 @@ class InterpolationXLPipeline(InterpolationPipeline):
     tokenizer_2: Any = None
     guidance_scale: float = 5.0
     default_size: int = 1024
+    # an InvisibleWatermark applied to every decoded frame; None = off
+    watermarker: Any = None
+
+    def _decode(self, latents: torch.Tensor, per_frame: bool = False):
+        images = super()._decode(latents, per_frame=per_frame)
+        if self.watermarker is not None:
+            images = self.watermarker.apply(images)
+        return images
 
     def _effective_steps(self, num_inference_steps: int, denoising_end: Optional[float]) -> int:
         """Steps to run before ``denoising_end`` (sdxl.py:55-66)."""

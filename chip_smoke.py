@@ -43,7 +43,18 @@ read just after:
     576 / 144 tokens, the conv kernel at 96^2), then the f32 UNet with the
     fused GN+SiLU configuration (the f32 GN+SiLU conv) and 2 UniPC steps;
   * the tiny SD1.x-like UNet (``configs.TINY_UNET``) in f32: its head dims
-    16 and 32, which no kernel instance takes, padded to the D=40 instance.
+    16 and 32, which no kernel instance takes, padded to the D=40 instance;
+  * SD 1.5 through the port's entry point with a safety checker: a
+    full-width diffusers directory (SD 1.5's UNet, CLIP ViT-L text encoder,
+    SD VAE, a DDIM config and a ``safety_checker/`` with the published
+    ViT-L/14 configuration; f16 weights ~ N(0, 0.02) from a seed) loaded
+    with ``load_interpolation_pipeline(dir)``; ``interpolate`` to seven
+    512px frames over 25 DDIM steps with the checker on the decode;
+  * PAID coefficient selection on that pipeline: the Beta-prior
+    ``BetaPriorPipeline.generate_interpolation`` (exploration 16, selection
+    7, batch_k 4 and 1) with a random CLIP ViT-B/32 scorer, and the Bayesian
+    (alpha, beta) search (``bayesian_prior_selection``, size 3) with a
+    random full-width VGG16 LPIPS.
 
 Phases (each prints its own lines; any failure exits non-zero):
   1. device      needs CUDA; prints the card's name and power limit
@@ -69,7 +80,8 @@ Phases (each prints its own lines; any failure exits non-zero):
                  the bf16 VAE; stage times, launch counts, the raw decoder
                  output through the kernels vs the plain versions (f32 and
                  bf16, the bf16 one with a planted fault), one frame's tiled
-                 decode (512px tiles) kernels vs plain
+                 decode (512px tiles) kernels vs plain; one more run with
+                 the invisible watermark, its 48 bits read back from a frame
   9. SD1.5 UNet  one full-width SD1.5 forward in fused_outer, kernels vs
                  plain, with two planted faults
  10. SD1.5 out   interpolate() in sequential and batched CFG (s/step, best
@@ -95,6 +107,18 @@ Phases (each prints its own lines; any failure exits non-zero):
  14. padded D    the tiny f32 UNet's fused_outer forward, kernels vs plain
                  with two planted faults; every attention launch lands on
                  the D=40 instance
+ 15. SD1.5 safety the loader on a written SD1.5 directory with a
+                 safety_checker/ (every module on the card; UNet bf16, the
+                 rest f32); interpolate() at 512px, 25 DDIM steps, the
+                 checker on the decode (its seconds per frame); thresholds
+                 rigged to flag every frame, then none, through the decode
+ 16. selection   on phase 15's pipeline: the Beta-prior selection with
+                 batch_k 4 and 1 (selection count, sorted coefficients in
+                 [0, 1], finite decoder inputs; stage times: explore, CLIP
+                 scoring, DP, in all; launches by head dim), _gen_batch's
+                 middles against interpolate_single with a planted t fault,
+                 the Bayesian search with LPIPS (its seconds per pair)
+The smoke prints its own wall time before the kernels line.
 Phase 1 turns TF32 off for cuBLAS and cuDNN, so every plain f32 version and
 library call computes in full f32.
 The second-to-last line is the kernels' JSON record, the last the result.
@@ -1238,6 +1262,21 @@ def phase_fused(unet, sample, ehs, uncond, added, coef, n_fused_calls: int, card
     return counts
 
 
+def timed(fn, stages: dict, stage: str):
+    """``fn`` wrapped to append its seconds to ``stages[stage]``: host clock
+    around the call, the card synchronized before and after."""
+    import torch
+
+    def run(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        stages.setdefault(stage, []).append(time.perf_counter() - t0)
+        return out
+    return run
+
+
 def run_image_path(pipe, vae, call, steps: int, frames: int):
     """Drive one image-out entry point with the launch counts set to 0 just
     before it and read just after; time its stages (encode per prompt
@@ -1252,24 +1291,14 @@ def run_image_path(pipe, vae, call, steps: int, frames: int):
     decoder_inputs = []
     decode = vae.decode
 
-    def timed(fn, stage):
-        def run(*args, **kwargs):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*args, **kwargs)
-            torch.cuda.synchronize()
-            stages[stage].append(time.perf_counter() - t0)
-            return out
-        return run
-
     def decode_keep_input(z):
         decoder_inputs.append(z)
         return decode(z)
 
     real_denoise = engine.denoise_sequence
-    pipe.encode_prompt = timed(pipe.encode_prompt, "encode")
-    vae.decode = timed(decode_keep_input, "decode")
-    engine.denoise_sequence = timed(real_denoise, "denoise")
+    pipe.encode_prompt = timed(pipe.encode_prompt, stages, "encode")
+    vae.decode = timed(decode_keep_input, stages, "decode")
+    engine.denoise_sequence = timed(real_denoise, stages, "denoise")
     try:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1426,6 +1455,25 @@ def phase_image(unet, steps: int, card: str):
                   BF16_VAE_TOL, "tiled bf16 decode (64-latent tiles)", attention_unnormalised_fault)
     print(f"tiled decode of one frame: {read_counts()['flash_self_attention_bf16']} bf16 D=512 launches (one per "
           f"tile)", flush=True)
+
+    # the invisible watermark on one more run: every frame marked, the bits
+    # read back from one of them
+    from aid_tpu_torch.utils.watermark import WATERMARK_BITS, InvisibleWatermark
+
+    pipe.watermarker = InvisibleWatermark()
+    try:
+        t0 = time.perf_counter()
+        marked = call()
+        elapsed = time.perf_counter() - t0
+    finally:
+        pipe.watermarker = None
+    bits = InvisibleWatermark().decode(marked[3])
+    ok = bits.tolist() == WATERMARK_BITS
+    print(f"interpolate with the watermarker: {elapsed:.2f} s in all; {float((marked != images).mean()):.4f} of the "
+          f"values differ from the unmarked run; frame 3's decoded bits {''.join(map(str, bits))} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail(f"the watermark read back from frame 3 is {bits.tolist()}, not the 48-bit message")
     return [counts, counts_bf16]
 
 
@@ -1809,17 +1857,20 @@ def sd21_diffusers_configs() -> dict:
     }
 
 
-def write_sd21_checkpoint(root: str, seed: int = 0, device: str = "cuda", configs=None) -> int:
-    """Write a full-width SD 2.1 diffusers directory under ``root``: each
-    module's config.json, its weights ~ N(0, 0.02) from a seeded generator
-    stored in f16 (as SD 2.1's published fp16 variant; ~2.6 GB), a
-    byte-level tokenizer padding with "!", and the scheduler config.
-    ``configs`` (sd21_diffusers_configs by default) and ``device`` let a
-    test write a tiny copy on the CPU. Returns the bytes of weights written."""
+def write_checkpoint(root: str, seed: int = 0, device: str = "cuda", configs=None) -> int:
+    """Write a full-width SD diffusers directory under ``root`` (SD 2.1's
+    unless ``configs`` says otherwise): each module's config.json, its
+    weights ~ N(0, 0.02) from a seeded generator stored in f16 (as the
+    published fp16 variants; ~2.6 GB for SD 2.1), a byte-level tokenizer
+    padding with "!", and the scheduler config. ``configs``
+    (sd21_diffusers_configs by default; sd15_diffusers_configs adds a
+    ``safety_checker``) and ``device`` let a test write a tiny copy on the
+    CPU. Returns the bytes of weights written."""
     import torch
 
     from aid_tpu_torch.models import loader
     from aid_tpu_torch.models.clip import CLIPTextModel
+    from aid_tpu_torch.models.safety import SafetyChecker
     from aid_tpu_torch.models.unet import UNet2DCondition
     from aid_tpu_torch.models.vae import AutoencoderKL
     from aid_tpu_torch.utils.safetensors import save_safetensors
@@ -1829,7 +1880,8 @@ def write_sd21_checkpoint(root: str, seed: int = 0, device: str = "cuda", config
     gen = torch.Generator(device=device).manual_seed(seed)
     modules = {"unet": (UNet2DCondition, loader.unet_config_from_diffusers, "diffusion_pytorch_model"),
                "vae": (AutoencoderKL, loader.vae_config_from_diffusers, "diffusion_pytorch_model"),
-               "text_encoder": (CLIPTextModel, loader.clip_text_config_from_transformers, "model")}
+               "text_encoder": (CLIPTextModel, loader.clip_text_config_from_transformers, "model"),
+               "safety_checker": (SafetyChecker, loader.clip_vision_config_from_transformers, "model")}
     nbytes = 0
     for sub, cfg in configs.items():
         os.makedirs(os.path.join(root, sub))
@@ -1918,7 +1970,7 @@ def phase_sd21(card: str) -> list:
     paths = []
     try:
         t0 = time.perf_counter()
-        nbytes = write_sd21_checkpoint(root)
+        nbytes = write_checkpoint(root)
         print(f"wrote a full-width SD2.1 diffusers directory ({nbytes / 2**30:.2f} GiB of f16 weights) in "
               f"{time.perf_counter() - t0:.2f} s", flush=True)
 
@@ -2053,6 +2105,346 @@ def phase_tiny_padded(card: str) -> None:
         fail(f"the tiny UNet's padded head dims did not all reach the f32 D=40 instance: {by_dim}")
 
 
+# Phase 16's check of the batched exploration: each middle frame of one
+# (k + 2)-frame _gen_batch run against the middle of interpolate_single at
+# the same t (uint8 frames as float, relative L2 per frame). The two runs
+# differ only in their batch (4 rows against 3: other GEMM shapes in bf16).
+# On an H100 (these seeds; deterministic): sound 7.5e-5 and 7.9e-5; the
+# planted fault, t shifted by 0.05, 1.71e-3 (the random-weight model's
+# frames move little with the start latent). 4e-4 lies between: 5x the
+# sound reading, 0.23x the fault.
+SELECT_BATCH_TOL = 4e-4
+# Phase 16's depth: exploration 16 / selection 7 as bench.py's "dynamic
+# selection" workload, at SD 1.5's 25 DDIM steps; the Bayesian search at
+# size 3 with 25 steps and at most BAYES_ITERS GP iterations after its 3x3
+# probe grid (its default is 15: cut to stay inside the smoke's time).
+SELECT_EXPLORATION, SELECT_SIZE, BAYES_ITERS = 16, 7, 4
+
+
+def sd15_diffusers_configs() -> dict:
+    """config.json of each module of a diffusers SD 1.5 directory, as
+    published (CLIP ViT-L text encoder with the legacy eos id 2, the SD VAE
+    at 512px), a DDIM scheduler config (epsilon, scaled_linear 0.00085-0.012,
+    steps_offset 1), and the safety checker's config with the values of
+    CompVis's public stable-diffusion-safety-checker: a CLIP ViT-L/14 vision
+    tower (hidden 1024, intermediate 4096, 24 layers, 16 heads, patch 14,
+    image 224) under ``vision_config`` and projection_dim 768."""
+    from aid_tpu_torch.models.configs import CLIP_VIT_L_TEXT as T, SD15_UNET as U, SD_VAE as V
+
+    return {
+        "unet": {"_class_name": "UNet2DConditionModel", "sample_size": U.sample_size, "in_channels": 4,
+                 "out_channels": 4, "down_block_types": ["CrossAttnDownBlock2D"] * 3 + ["DownBlock2D"],
+                 "up_block_types": ["UpBlock2D"] + ["CrossAttnUpBlock2D"] * 3,
+                 "block_out_channels": list(U.block_out_channels), "layers_per_block": U.layers_per_block,
+                 "attention_head_dim": U.num_attention_heads[0], "cross_attention_dim": U.cross_attention_dim,
+                 "norm_num_groups": 32, "flip_sin_to_cos": True, "freq_shift": 0},
+        "vae": {"_class_name": "AutoencoderKL", "in_channels": 3, "out_channels": 3, "latent_channels": 4,
+                "block_out_channels": list(V.block_out_channels), "layers_per_block": V.layers_per_block,
+                "norm_num_groups": 32, "scaling_factor": V.scaling_factor, "sample_size": 512},
+        "text_encoder": {"architectures": ["CLIPTextModel"], "vocab_size": T.vocab_size,
+                         "hidden_size": T.hidden_size, "intermediate_size": T.intermediate_size,
+                         "num_hidden_layers": T.num_hidden_layers, "num_attention_heads": T.num_attention_heads,
+                         "max_position_embeddings": 77, "hidden_act": "quick_gelu", "bos_token_id": 0,
+                         "eos_token_id": 2, "projection_dim": 768},
+        "safety_checker": {"_class_name": "StableDiffusionSafetyChecker", "architectures": ["StableDiffusionSafetyChecker"],
+                           "projection_dim": 768,
+                           "vision_config": {"hidden_size": 1024, "intermediate_size": 4096, "num_hidden_layers": 24,
+                                             "num_attention_heads": 16, "patch_size": 14, "image_size": 224,
+                                             "hidden_act": "quick_gelu"}},
+        "scheduler": {"_class_name": "DDIMScheduler", "prediction_type": "epsilon", "beta_schedule": "scaled_linear",
+                      "beta_start": 0.00085, "beta_end": 0.012, "num_train_timesteps": 1000, "steps_offset": 1,
+                      "set_alpha_to_one": False, "clip_sample": False},
+    }
+
+
+def phase_sd15_safety(card: str, device: str = "cuda", configs=None):
+    """SD 1.5 with a safety checker through the loader: a full-width
+    diffusers directory written from a seed into the checkout's git-ignored
+    build/ (removed once loaded), ``load_interpolation_pipeline(dir)`` with
+    no device and no dtype (every module on the card; UNet bf16, text
+    encoder, VAE and checker f32), ``interpolate`` to seven 512px frames
+    over SD15_STEPS DDIM steps with the checker on the decode, then the
+    thresholds rigged both ways through the pipeline's decode: every frame
+    black, then none. Returns the pipeline, its thresholds left at +10 (the
+    checker runs, nothing is blacked out), and the path's launch counts.
+    ``device``/``configs`` (sd15_diffusers_configs by default) exist for
+    rehearsing on the CPU at a tiny size."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from aid_tpu_torch.models import loader
+    from aid_tpu_torch.models.safety import SafetyChecker
+    from aid_tpu_torch.schedulers import DDIMScheduler
+
+    steps = SD15_STEPS
+    print(f"== phase 15: SD1.5 with a safety checker through the loader (load_interpolation_pipeline, DDIM): "
+          f"interpolate (7 frames at 512px, {steps} steps) with the checker on the decode, thresholds rigged "
+          f"both ways", flush=True)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="sd15-checkpoint-", dir=os.path.join(ROOT, "build"))
+    try:
+        t0 = time.perf_counter()
+        configs = configs or sd15_diffusers_configs()
+        nbytes = write_checkpoint(root, seed=1, device=device, configs=configs)
+        print(f"wrote a full-width SD1.5 diffusers directory with a safety_checker/ ({nbytes / 2**30:.2f} GiB of "
+              f"f16 weights) in {time.perf_counter() - t0:.2f} s", flush=True)
+        t0 = time.perf_counter()
+        pipe = loader.load_interpolation_pipeline(root, **({} if device == "cuda" else {"device": device}))
+        torch.cuda.synchronize()
+        print(f"load_interpolation_pipeline(dir) (no device, no dtype) in {time.perf_counter() - t0:.2f} s",
+              flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    checker = pipe.safety_checker
+    placed = {name: ({p.device.type for p in m.parameters()}, {p.dtype for p in m.parameters()})
+              for name, m in (("unet", pipe.unet), ("vae", pipe.vae), ("text_encoder", pipe.text_encoder),
+                              ("safety_checker", checker))}
+    print(f"modules (devices, dtypes): {placed}; scheduler {type(pipe.scheduler).__name__}; guidance "
+          f"{pipe.guidance_scale}", flush=True)
+    want = {"unet": torch.bfloat16, "vae": torch.float32, "text_encoder": torch.float32,
+            "safety_checker": torch.float32}
+    if not isinstance(checker, SafetyChecker) or any(placed[n] != ({device}, {want[n]}) for n in placed):
+        fail(f"the loader placed the SD1.5 modules at {placed}; every module on the card, the UNet in bf16, the "
+             f"rest in f32 expected")
+    if (pipe.unet.config != loader.unet_config_from_diffusers(configs["unet"])
+            or not isinstance(pipe.scheduler, DDIMScheduler)):
+        fail(f"the loaded UNet config {pipe.unet.config} is not the written one, or the scheduler is not DDIM")
+    print(f"safety checker: CLIP vision {checker.config}, {checker.concept_embeds.shape[0]} concepts, "
+          f"{checker.special_care_embeds.shape[0]} special", flush=True)
+
+    runs = []
+    checker.register_forward_hook(lambda m, i, o: runs.append(int(o.shape[0])))
+    gen = torch.Generator(device=device).manual_seed(4)
+    latent_a, latent_b = pipe.generate_latent(gen), pipe.generate_latent(gen)
+    px = pipe.unet.config.sample_size * 2 ** (len(pipe.vae.config.block_out_channels) - 1)
+    images, counts, times, decoder_inputs, elapsed, peak = run_image_path(
+        pipe, pipe.vae, lambda: pipe.interpolate(latent_a, latent_b, "prompt A", "prompt B", size=7,
+                                                 num_inference_steps=steps), steps, 7)
+    check_images(f"SD1.5 interpolate with the safety checker ({steps} DDIM steps)", images, (7, px, px, 3), times,
+                 elapsed, peak, card)
+    check_path("SD1.5 with the safety checker", counts,
+               ("flash_interpolated_attention[D=40]", "flash_interpolated_attention[D=80]",
+                "flash_interpolated_attention[D=160]", "flash_self_attention_f32"))
+    if runs != [7]:
+        fail(f"the safety checker ran on {runs} frames; once on the 7 frames of the decode expected")
+    black = [bool((im == 0).all()) for im in images]
+    print(f"the written checker (N(0, 0.02) thresholds) blacked out {sum(black)} of 7 frames: {black}", flush=True)
+
+    # the checker alone, timed on the decode's frames
+    _, flags = pipe.run_safety(images)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reps = 3
+    for _ in range(reps):
+        pipe.run_safety(images)
+    torch.cuda.synchronize()
+    print(f"safety checker: {(time.perf_counter() - t0) / reps / 7:.4f} s per frame (7 frames of {px}px, f32 CLIP "
+          f"vision tower at {checker.config.image_size}px, resize included) on {card}; flags {flags.tolist()}",
+          flush=True)
+
+    # rigged both ways, through the pipeline's decode
+    z = decoder_inputs[0] * pipe.vae.config.scaling_factor
+    for thresh, want_black in ((-10.0, True), (10.0, False)):
+        with torch.no_grad():
+            checker.concept_embeds_weights.fill_(thresh)
+            checker.special_care_embeds_weights.fill_(thresh)
+        out = pipe._decode(z)
+        got = [bool((im == 0).all()) for im in out]
+        ok = got == [want_black] * 7
+        print(f"thresholds rigged to {thresh:+.0f}: frames black {got}  {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            fail(f"the rigged safety checker ({thresh:+.0f}) left frames black {got}; {want_black} for all expected")
+    if runs != [7] * (reps + 4):
+        fail(f"the safety checker ran {len(runs)} times; once a decode or run_safety call ({reps + 4}) expected")
+    return pipe, counts
+
+
+def seeded_lpips(device, seed: int = 0):
+    """Full-width VGG16 LPIPS with random weights from a seeded generator:
+    He-normal convs (the features keep their scale through 13 layers),
+    zero biases, non-negative heads as trained LPIPS heads are."""
+    import torch
+
+    from aid_tpu_torch.metrics.lpips import LPIPS
+
+    model = LPIPS(device=device).eval()
+    gen = torch.Generator(device=device).manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.startswith("lin"):
+                p.uniform_(0.0, 0.2, generator=gen)
+            elif name.endswith("weight"):
+                p.normal_(0.0, (2.0 / p[0].numel()) ** 0.5, generator=gen)
+            else:
+                p.zero_()
+    return model
+
+
+def phase_selection(pipe, card: str, scorer_cfg=None):
+    """PAID coefficient selection on phase 15's pipeline (bf16 UNet, f32 VAE,
+    the safety checker on every decode, thresholds at +10): the Beta-prior
+    ``generate_interpolation`` with a CLIP ViT-B/32 scorer (openai/
+    clip-vit-base-patch32's published config, f32 N(0, 0.02) weights),
+    exploration 16 and selection 7 with batch_k 4, then 1 (the scorer's
+    weights initialised as transformers initialises CLIP: N(0, 0.02), norm
+    scales 1, biases 0; with N(0, 0.02) norm scales its features barely
+    differ between frames and the Beta fits degenerate); the batched
+    exploration's middles against interpolate_single (with a planted t
+    fault); the Bayesian (alpha, beta) search at size 3 with full-width
+    VGG16 LPIPS. Stage times, launches by head dim. Returns the paths'
+    launch counts. ``scorer_cfg`` exists for rehearsing on the CPU."""
+    import numpy as np
+    import torch
+
+    from aid_tpu_torch.metrics.lpips import compute_lpips
+    from aid_tpu_torch.models.clip import CLIPVisionModel
+    from aid_tpu_torch.models.configs import CLIP_VIT_B32_VISION
+    from aid_tpu_torch.prior.bayes import bayesian_prior_selection
+    from aid_tpu_torch.prior import dp_solver
+    from aid_tpu_torch.prior.beta import BetaPriorPipeline
+    from aid_tpu_torch.prior.clip_scorer import make_clip_feature_fn
+
+    steps = SD15_STEPS
+    print(f"== phase 16: PAID selection on phase 15's pipeline: Beta prior (exploration {SELECT_EXPLORATION}, "
+          f"selection {SELECT_SIZE}, batch_k 4 then 1, CLIP ViT-B/32 scorer), the batched exploration against "
+          f"interpolate_single, Bayesian (alpha, beta) search with VGG16 LPIPS (size 3)", flush=True)
+    print(f"depth: {steps} DDIM steps (not cut); Bayesian search at most {BAYES_ITERS} GP iterations after its 3x3 "
+          f"grid (cut from 15), target_score 1.0 so that no probe ends it early", flush=True)
+    dev = pipe.device
+    vision = CLIPVisionModel(scorer_cfg or CLIP_VIT_B32_VISION, device=dev).eval()
+    px = pipe.unet.config.sample_size * 2 ** (len(pipe.vae.config.block_out_channels) - 1)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    norms = {f"{n}.weight" for n, m in vision.named_modules() if isinstance(m, torch.nn.LayerNorm)}
+    with torch.no_grad():
+        for name, p in vision.named_parameters():
+            if name in norms:
+                p.fill_(1.0)
+            elif name.endswith("bias"):
+                p.zero_()
+            else:
+                p.normal_(0.0, 0.02, generator=gen)
+    latent_a, latent_b = pipe._seeded_latent(21), pipe._seeded_latent(22)
+    stages, decodes = {}, []
+    real_decode = pipe.vae.decode
+
+    def decode_checked(z):
+        decodes.append(bool(torch.isfinite(z).all()))
+        return real_decode(z)
+
+    heads = ("flash_interpolated_attention[D=40]", "flash_interpolated_attention[D=80]",
+             "flash_interpolated_attention[D=160]")
+    paths = []
+    pipe.vae.decode = decode_checked
+    try:
+        for batch_k in (4, 1):
+            stages.clear(), decodes.clear()
+            bp = BetaPriorPipeline(pipe, timed(make_clip_feature_fn(vision), stages, "clip"))
+            bp._gen, bp._gen_batch = timed(bp._gen, stages, "explore"), timed(bp._gen_batch, stages, "explore")
+            chosen = []
+            real_select = bp.extract_uniform_points_plus
+
+            def select(*args, _real=real_select):
+                chosen[:] = _real(*args)
+                return chosen
+
+            bp.extract_uniform_points_plus = timed(select, stages, "dp")
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            frames = bp.generate_interpolation("prompt A", "prompt B", latent_start=latent_a, latent_end=latent_b,
+                                               num_inference_steps=steps, exploration_size=SELECT_EXPLORATION,
+                                               interpolation_size=SELECT_SIZE, batch_k=batch_k)
+            torch.cuda.synchronize()
+            total = time.perf_counter() - t0
+            counts = read_counts()
+            coefs = [bp.xs[i] for i in chosen]
+            label = f"Beta-prior selection, batch_k {batch_k}"
+            print(f"{label}: {total:.2f} s in all on {card}: explore {sum(stages['explore']):.2f} s in "
+                  f"{len(stages['explore'])} runs, CLIP scoring {sum(stages['clip']):.3f} s in {len(stages['clip'])} "
+                  f"calls, DP {sum(stages['dp']) * 1e3:.2f} ms, {len(decodes)} decodes; alpha {bp.alpha:.4f} beta "
+                  f"{bp.beta_param:.4f}", flush=True)
+            print(f"{label}: explored {len(bp.xs)} coefficients {[round(x, 4) for x in bp.xs]}; selected "
+                  f"{chosen} -> {[round(c, 4) for c in coefs]}; adjacent CLIP distances "
+                  f"{[float(f'{d:.3e}') for d in bp.ds]}; DP solver "
+                  f"{'native ' + dp_solver.library_path().name if dp_solver.library_path().exists() else 'Python'}",
+                  flush=True)
+            print(f"{label}: launches of the bf16 attention by head dim "
+                  f"{ {h.split('[')[1][:-1]: counts[h] for h in heads} }, of the f32 D=512 attention "
+                  f"{counts['flash_self_attention_f32']}", flush=True)
+            ok = (len(frames) == SELECT_SIZE and len(bp.xs) == SELECT_EXPLORATION and coefs == sorted(coefs)
+                  and coefs[0] == 0.0 and coefs[-1] == 1.0 and all(0.0 <= c <= 1.0 for c in bp.xs)
+                  and all(f.shape == (px, px, 3) and f.dtype == np.uint8 for f in frames) and all(decodes))
+            if not ok:
+                fail(f"{label}: {len(frames)} frames, {len(bp.xs)} explored, coefficients {coefs}, decoder inputs "
+                     f"finite {all(decodes)}")
+            check_path(label, counts, heads + ("flash_self_attention_f32",))
+            if counts["flash_self_attention_f32"] != len(decodes):
+                fail(f"{label}: {counts['flash_self_attention_f32']} f32 D=512 launches for {len(decodes)} decodes")
+            paths.append(counts)
+    finally:
+        del pipe.vae.decode
+
+    # the batched exploration: each middle against interpolate_single at its t
+    bp = BetaPriorPipeline(pipe, None)
+    kw = dict(prompt_start="prompt A", prompt_end="prompt B", latent_start=latent_a, latent_end=latent_b,
+              num_inference_steps=steps)
+    ts = [0.62, 0.31]
+    middles = bp._gen_batch(ts, **kw)
+
+    def rel(a, b):
+        return float(np.linalg.norm(a.astype(np.float64) - b) / np.linalg.norm(b.astype(np.float64)))
+
+    singles = [bp._gen(t, **kw)[1] for t in ts]
+    sound = [rel(m, s) for m, s in zip(middles, singles)]
+    fault = [rel(middles[0], bp._gen(ts[0] + 0.05, **kw)[1])]
+    check_bound("_gen_batch middles vs interpolate_single at the same t (uint8 frames)", sound, fault,
+                SELECT_BATCH_TOL, "t shifted by 0.05")
+
+    # the Bayesian (alpha, beta) search
+    lpips = seeded_lpips(dev)
+    lpips_pair = []
+
+    def lpips_fn(images):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        d = compute_lpips(images, lpips)
+        torch.cuda.synchronize()
+        lpips_pair.append((time.perf_counter() - t0) / (len(images) - 1))
+        return d
+
+    stages.clear()
+    pipe.interpolate_save_gpu = timed(pipe.interpolate_save_gpu, stages, "objective")
+    try:
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        # target_score 1.0 (equal distances) is out of reach, so the search
+        # runs its grid and GP iterations instead of leaving at a probe
+        a, b = bayesian_prior_selection(pipe, latent_a, latent_b, "prompt A", "prompt B", lpips_fn, size=3,
+                                        num_inference_steps=steps, n_iter=BAYES_ITERS, target_score=1.0)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        counts = read_counts()
+    finally:
+        del pipe.interpolate_save_gpu
+    # the GP's search window keeps a minimum width of 0.1 (bayes.py's
+    # GPOptimizer, as the JAX package's), so a suggestion may lie up to 0.1
+    # past the box's upper edge
+    p_max = float(steps) + 0.1
+    print(f"Bayesian selection: (alpha, beta) = ({a:.4f}, {b:.4f}) in {total:.2f} s on {card}: "
+          f"{len(stages.get('objective', []))} objective runs ({sum(stages.get('objective', [])):.2f} s), LPIPS "
+          f"{len(lpips_pair)} calls, {float(np.median(lpips_pair)) * 1e3:.2f} ms per pair (median, {px}px, f32)",
+          flush=True)
+    if not (1.0 <= a <= p_max and 1.0 <= b <= p_max and lpips_pair):
+        fail(f"Bayesian selection returned ({a}, {b}) outside [1, {p_max}] or ran no LPIPS")
+    check_path("Bayesian selection", counts, heads + ("flash_self_attention_f32",))
+    paths.append(counts)
+    return paths
+
+
 def kernels_line(kernels: dict, launches: dict) -> str:
     """The kernels' JSON record: one entry per kernel, with KERNEL_KEYS
     first, then what phase 3 measured besides (the conv's kernel_ms, the
@@ -2163,6 +2555,7 @@ def main(argv=None) -> int:
     except ImportError as e:
         fail(f"the port's package aid_tpu_torch is not beside this script in {ROOT}: {e}")
 
+    start = time.perf_counter()
     card = phase_device()
     import torch
 
@@ -2191,8 +2584,14 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     paths += phase_sd21(card)
     phase_tiny_padded(card)
+    torch.cuda.empty_cache()
+    pipe, counts = phase_sd15_safety(card)
+    paths.append(counts)
+    paths += phase_selection(pipe, card)
+    del pipe
     launches = {name: sum(p[name] for p in paths) for name in paths[0]}
     print(f"launches over the {len(paths)} paths: {launches}", flush=True)
+    print(f"smoke wall time {time.perf_counter() - start:.1f} s (the limit is 1200 s)", flush=True)
 
     print(kernels_line(kernels, launches), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -187,7 +187,7 @@ def test_sd21_phase_follows_the_f32_paths():
 
 
 def test_sd21_checkpoint_writer_round_trips(tmp_path):
-    """write_sd21_checkpoint at a tiny size on the CPU: every module's
+    """write_checkpoint at a tiny size on the CPU: every module's
     weights land as f16 safetensors under the diffusers names that the
     loader reads strictly, and the tokenizer pads with "!" (id 0)."""
     import torch
@@ -202,7 +202,7 @@ def test_sd21_checkpoint_writer_round_trips(tmp_path):
     cfgs["vae"].update(block_out_channels=[16, 32], layers_per_block=1, norm_num_groups=4)
     cfgs["text_encoder"].update(vocab_size=1000, hidden_size=32, intermediate_size=64, num_hidden_layers=2,
                                 num_attention_heads=2)
-    nbytes = smoke.write_sd21_checkpoint(str(tmp_path), device="cpu", configs=cfgs)
+    nbytes = smoke.write_checkpoint(str(tmp_path), device="cpu", configs=cfgs)
     pipe = loader.load_interpolation_pipeline(str(tmp_path), scheduler_name="unipc", device="cpu")
     n_params = sum(p.numel() for m in (pipe.unet, pipe.vae, pipe.text_encoder) for p in m.parameters())
     assert nbytes == 2 * n_params
@@ -224,3 +224,111 @@ def test_sd21_fused_conv_classes_read_on_meta():
                        (48, 48, 1920, 640): 1, (48, 48, 1280, 640): 1, (48, 48, 960, 640): 1,
                        (96, 96, 960, 320): 1, (96, 96, 640, 320): 2}
     assert list(inspect.signature(smoke.phase_sd21).parameters) == ["card"]
+
+
+def _tiny_sd15_configs(smoke):
+    """sd15_diffusers_configs cut to the tiny test sizes (CLIP vision as
+    configs.TINY_CLIP_VISION)."""
+    from aid_tpu_torch.models.configs import TINY_CLIP_VISION as V
+
+    cfgs = smoke.sd15_diffusers_configs()
+    cfgs["unet"].update(block_out_channels=[32, 64], down_block_types=["CrossAttnDownBlock2D", "DownBlock2D"],
+                        up_block_types=["UpBlock2D", "CrossAttnUpBlock2D"], layers_per_block=1,
+                        attention_head_dim=2, cross_attention_dim=32, norm_num_groups=8, sample_size=8)
+    cfgs["vae"].update(block_out_channels=[16, 32], layers_per_block=1, norm_num_groups=4)
+    cfgs["text_encoder"].update(vocab_size=1000, hidden_size=32, intermediate_size=64, num_hidden_layers=2,
+                                num_attention_heads=2)
+    cfgs["safety_checker"]["projection_dim"] = V.projection_dim
+    cfgs["safety_checker"]["vision_config"].update(hidden_size=V.hidden_size, intermediate_size=V.intermediate_size,
+                                                   num_hidden_layers=V.num_hidden_layers,
+                                                   num_attention_heads=V.num_attention_heads,
+                                                   patch_size=V.patch_size, image_size=V.image_size)
+    return cfgs
+
+
+def test_selection_phases_follow_the_padded_phase():
+    """Phases 15 (SD 1.5 with a safety checker through the loader) and 16
+    (PAID selection on its pipeline) exist with their banners, run after
+    phase 14 in main(); the SD 1.5 configs read back as the port's presets,
+    the checker's as CompVis's published ViT-L/14 with projection 768;
+    phase 8 reads the watermark back."""
+    import inspect
+
+    smoke = _load_smoke()
+    assert "== phase 15: SD1.5 with a safety checker" in inspect.getsource(smoke.phase_sd15_safety)
+    assert "== phase 16: PAID selection" in inspect.getsource(smoke.phase_selection)
+    for tag in ("15. SD1.5 safety", "16. selection"):
+        assert tag in smoke.__doc__
+    main = inspect.getsource(smoke.main)
+    assert (main.index("phase_tiny_padded(card)") < main.index("phase_sd15_safety(card)")
+            < main.index("phase_selection(pipe, card)") < main.index("kernels_line("))
+    assert "smoke wall time" in main
+    assert "InvisibleWatermark().decode(" in inspect.getsource(smoke.phase_image)
+    assert (smoke.SELECT_EXPLORATION, smoke.SELECT_SIZE) == (16, 7)
+
+    from aid_tpu_torch.models import configs, loader
+
+    cfgs = smoke.sd15_diffusers_configs()
+    assert loader.unet_config_from_diffusers(cfgs["unet"]) == configs.SD15_UNET
+    assert loader.vae_config_from_diffusers(cfgs["vae"]) == configs.SD_VAE
+    text = loader.clip_text_config_from_transformers(cfgs["text_encoder"])
+    assert text == dataclasses.replace(configs.CLIP_VIT_L_TEXT, eos_token_id=2)
+    vision = loader.clip_vision_config_from_transformers(cfgs["safety_checker"])
+    assert vision == configs.CLIPVisionConfig(image_size=224, patch_size=14, hidden_size=1024, intermediate_size=4096,
+                                              num_hidden_layers=24, num_attention_heads=16, projection_dim=768)
+    assert configs.CLIP_VIT_B32_VISION == configs.CLIPVisionConfig(
+        image_size=224, patch_size=32, hidden_size=768, intermediate_size=3072, num_hidden_layers=12,
+        num_attention_heads=12, projection_dim=512, hidden_act="quick_gelu")
+
+
+def test_sd15_checkpoint_writer_with_safety_checker(tmp_path):
+    """write_checkpoint with the SD 1.5 configs writes the
+    safety_checker/ too, under the diffusers names the loader reads
+    strictly; the loader attaches it to the pipeline."""
+    from aid_tpu_torch.models import loader
+    from aid_tpu_torch.models.safety import SafetyChecker
+
+    smoke = _load_smoke()
+    nbytes = smoke.write_checkpoint(str(tmp_path), device="cpu", configs=_tiny_sd15_configs(smoke))
+    pipe = loader.load_interpolation_pipeline(str(tmp_path), device="cpu")
+    modules = (pipe.unet, pipe.vae, pipe.text_encoder, pipe.safety_checker)
+    assert isinstance(pipe.safety_checker, SafetyChecker)
+    assert nbytes == 2 * sum(p.numel() for m in modules for p in m.parameters())
+    assert {p.dtype for p in pipe.safety_checker.parameters()} == {torch_float32()}
+
+
+def torch_float32():
+    import torch
+
+    return torch.float32
+
+
+def test_selection_phases_rehearse_on_the_cpu(monkeypatch):
+    """Phases 15 and 16 end to end at the tiny size on the CPU (3 DDIM
+    steps), torch.cuda's timing calls stubbed: every check but the kernel
+    launch counts (no kernel runs here) must pass, and the selection must
+    return its three paths."""
+    import torch
+
+    smoke = _load_smoke()
+    for name in ("synchronize", "reset_peak_memory_stats"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a, **k: 0)
+    skipped = []
+
+    def fail(msg):
+        if "launch" not in msg:
+            raise AssertionError(msg)
+        skipped.append(msg)
+
+    monkeypatch.setattr(smoke, "fail", fail)
+    monkeypatch.setattr(smoke, "SD15_STEPS", 3)
+    # the tiny model barely moves with t: the batching bound at its scale
+    monkeypatch.setattr(smoke, "SELECT_BATCH_TOL", 1e-4)
+    from aid_tpu_torch.models.configs import TINY_CLIP_VISION
+
+    pipe, counts = smoke.phase_sd15_safety("cpu", device="cpu", configs=_tiny_sd15_configs(smoke))
+    assert pipe.safety_checker is not None and set(counts) >= {"flash_self_attention_f32"}
+    paths = smoke.phase_selection(pipe, "cpu", scorer_cfg=TINY_CLIP_VISION)
+    assert len(paths) == 3
+    assert skipped and all("launch" in m for m in skipped)

@@ -262,7 +262,9 @@ def test_import_leaves_jax_out():
             "aid_tpu_torch.pipelines.sdxl, aid_tpu_torch.pipelines.interpolation, "
             "aid_tpu_torch.schedulers.ddim, aid_tpu_torch.utils.tokenizer, aid_tpu_torch.models.loader, "
             "aid_tpu_torch.schedulers.unipc, aid_tpu_torch.schedulers.pndm, aid_tpu_torch.schedulers.edm_dpm, "
-            "aid_tpu_torch.utils.safetensors; "
+            "aid_tpu_torch.utils.safetensors, aid_tpu_torch.models.safety, aid_tpu_torch.utils.watermark, "
+            "aid_tpu_torch.prior.clip_scorer, aid_tpu_torch.prior.beta, aid_tpu_torch.prior.bayes, "
+            "aid_tpu_torch.prior.dp_solver, aid_tpu_torch.metrics.gini, aid_tpu_torch.metrics.lpips; "
             "bad = sorted(m for m in set(sys.modules) - before "
             "if m.split('.')[0] in ('jax', 'flax', 'aid_tpu', 'safetensors')); "
             "print(bad); sys.exit(1 if bad else 0)")

@@ -195,7 +195,7 @@ def test_loader_defaults_to_the_card():
     import inspect
 
     for fn in (loader.load_interpolation_pipeline, loader.load_interpolation_xl_pipeline, loader.load_unet,
-               loader.load_vae, loader.load_text_encoder):
+               loader.load_vae, loader.load_text_encoder, loader.load_safety_checker):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__name__
 
 
@@ -263,11 +263,80 @@ def test_scheduler_dispatch_matches_jax(tmp_path):
     assert type(loader.load_scheduler(str(tmp_path), "euler")).__name__ == "EulerDiscreteScheduler"
 
 
-def test_safety_checker_directory_raises(tmp_path):
-    (tmp_path / "safety_checker").mkdir()
-    (tmp_path / "safety_checker" / "config.json").write_text("{}")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        loader.load_interpolation_pipeline(str(tmp_path), device="cpu")
+def _write_safety_checker(root, seed=9):
+    """A tiny diffusers ``safety_checker/`` (CLIPConfig with a nested
+    vision_config, diffusers names, the position_ids buffer transformers
+    exports carry) under ``root``; returns the weights written."""
+    from aid_tpu_torch.models.configs import TINY_CLIP_VISION as V
+    from aid_tpu_torch.models.safety import SafetyChecker
+
+    sub = os.path.join(root, "safety_checker")
+    os.makedirs(sub)
+    sd = th.numpy_state_dict(th.seed_module(SafetyChecker(V), seed))
+    tokens = (V.image_size // V.patch_size) ** 2 + 1
+    save_file({**sd, "vision_model.vision_model.embeddings.position_ids": np.arange(tokens, dtype=np.int64)[None]},
+              os.path.join(sub, "model.safetensors"))
+    with open(os.path.join(sub, "config.json"), "w") as f:
+        json.dump({"_class_name": "StableDiffusionSafetyChecker", "projection_dim": V.projection_dim,
+                   "vision_config": {"hidden_size": V.hidden_size, "intermediate_size": V.intermediate_size,
+                                     "num_hidden_layers": V.num_hidden_layers,
+                                     "num_attention_heads": V.num_attention_heads, "patch_size": V.patch_size,
+                                     "image_size": V.image_size, "hidden_act": V.hidden_act}}, f)
+    return sd
+
+
+def test_safety_checker_directory_raises(sd2_dir, tmp_path):
+    """A directory with a ``safety_checker/`` loads it (config read as the
+    JAX loader reads it, weights bit for bit, f32 on the device asked for)
+    and the pipeline's decode runs it: thresholds rigged to -10 black out
+    every frame, rigged to +10 leave the frames of the pipeline without a
+    checker. A checker directory without weights raises."""
+    import shutil
+
+    from aid_tpu.models.safety import convert_safety_checker_state_dict
+    from aid_tpu_torch.models.safety import SafetyChecker
+
+    root = str(tmp_path / "sd2")
+    shutil.copytree(sd2_dir, root)
+    written = _write_safety_checker(root)
+    pipe = loader.load_interpolation_pipeline(root, dtype=torch.float32, device="cpu")
+    checker = pipe.safety_checker
+    assert isinstance(checker, SafetyChecker)
+    sub = os.path.join(root, "safety_checker")
+    want_cfg = jloader.clip_vision_config_from_transformers(jloader._read_config(sub))
+    assert dataclasses.asdict(checker.config) == dataclasses.asdict(want_cfg)
+    assert {(p.device.type, p.dtype) for p in checker.parameters()} == {("cpu", torch.float32)}
+    got = checker.state_dict()
+    assert got.keys() == written.keys()
+    for k, v in written.items():
+        np.testing.assert_array_equal(got[k].numpy(), v, err_msg=k)
+    _, jparams = jloader.load_safety_checker(sub)
+    # the JAX tree keeps the position_ids buffer as an unread leaf; the port's loader drops it
+    flat_want = [(path, leaf) for path, leaf in jax.tree_util.tree_flatten_with_path(jparams)[0]
+                 if "position_ids" not in jax.tree_util.keystr(path)]
+    flat_got = dict(jax.tree_util.tree_flatten_with_path(convert_safety_checker_state_dict(got))[0])
+    assert len(flat_got) == len(flat_want)
+    for path, leaf in flat_want:
+        np.testing.assert_array_equal(np.asarray(flat_got[path]), np.asarray(leaf))
+
+    s = UNET_CFG.sample_size
+    a, b = th.nhwc_to_nchw(th.normal(45, (1, s, s, 4))), th.nhwc_to_nchw(th.normal(46, (1, s, s, 4)))
+    kw = dict(size=3, num_inference_steps=2)
+    plain = dataclasses.replace(pipe, safety_checker=None).interpolate(a, b, "a red cat", "a blue dog", **kw)
+    assert plain.shape == (3, 2 * s, 2 * s, 3) and plain.max() > 0
+    for thresh, black in ((-10.0, True), (10.0, False)):
+        with torch.no_grad():
+            checker.concept_embeds_weights.fill_(thresh)
+            checker.special_care_embeds_weights.fill_(thresh)
+        out = pipe.interpolate(a, b, "a red cat", "a blue dog", **kw)
+        if black:
+            assert (out == 0).all()
+        else:
+            np.testing.assert_array_equal(out, plain)
+
+    os.remove(os.path.join(sub, "model.safetensors"))
+    with pytest.raises(FileNotFoundError, match="no safety-checker weights"):
+        loader.load_interpolation_pipeline(root, device="cpu")
 
 
 def test_sdxl_directory_goes_to_the_xl_loader(tmp_path, monkeypatch):

@@ -113,3 +113,26 @@ def with_pipeline_option(jax_pipe, pipe, option):
     else:
         jax_pipe.cfg_mode = pipe.cfg_mode = "batched"
     return jax_pipe, pipe
+
+
+def seed_module(module: torch.nn.Module, seed: int) -> torch.nn.Module:
+    """Every parameter of ``module`` from numpy's seeded normal: tensors of
+    rank >= 2 scaled by 1/sqrt(fan-in), norm scales 1 + 0.1 n, other vectors
+    0.1 n. The port's ``state_dict()`` then feeds the JAX converters, so both
+    packages hold the same weights."""
+    r = rng(seed)
+    norms = (torch.nn.LayerNorm, torch.nn.GroupNorm)
+    norm_scales = {f"{n}.weight" for n, m in module.named_modules() if isinstance(m, norms)}
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            n = r.standard_normal(tuple(p.shape))
+            if p.dim() >= 2:
+                n = n / np.sqrt(np.prod(p.shape[1:]))
+            else:
+                n = 1.0 + 0.1 * n if name in norm_scales else 0.1 * n
+            p.copy_(torch.from_numpy(n.astype(np.float32)))
+    return module.eval()
+
+
+def numpy_state_dict(module: torch.nn.Module) -> dict:
+    return {k: v.detach().cpu().numpy() for k, v in module.state_dict().items()}
