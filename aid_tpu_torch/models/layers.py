@@ -14,8 +14,13 @@ resnet conv of the classes ``gn_conv_fused`` names runs
 ``ops.conv.conv3x3_gnsilu`` (its kernel on CUDA, its plain version on the
 CPU) with the same parameters, so the ``state_dict`` is the same either way.
 
-Not yet ported: the IP-Adapter branch of ``CrossAttention`` and frame
-sharding (``frame_axis``).
+A cross-attention layer of a UNet with IP tokens (``ip_num_tokens > 0``)
+holds the IP-Adapter's ``to_k_ip`` / ``to_v_ip`` and adds its image-prompt
+branch (aid_tpu/models/layers.py:455-493): attention of the layer's queries
+over the projected image tokens, in the mode ``AidMode.ip`` names, through
+the same ``dispatch_attention`` (its kernel on CUDA).
+
+Not yet ported: frame sharding (``frame_axis``).
 """
 
 from __future__ import annotations
@@ -38,6 +43,11 @@ class AidMode:
 
     ``text``: interpolation mode of the native (self/cross text) attention
     branch of every layer.
+    ``ip``: the image-prompt branch when an IP-Adapter is loaded: None (no
+    branch), ``"own"`` (each frame attends its own IP tokens, the vanilla
+    IP-Adapter) or one of the four interpolating modes' names.
+    ``ip_coef_scaled``: the IP branch is weighted by the frame's
+    coefficient instead of the adapter's scale (scale control).
     ``cfg_split``: batched-CFG split point. When set to N, the batch is
     [N cond frames; N uncond frames] in ONE forward: cond rows take their
     endpoints from cond rows 0 / N-1, uncond rows use their OWN K/V as both
@@ -45,20 +55,26 @@ class AidMode:
     """
 
     text: AttnMode = AttnMode.SELF
+    ip: Optional[str] = None
+    ip_coef_scaled: bool = False
     cfg_split: Optional[int] = None
 
     @staticmethod
-    def vanilla() -> "AidMode":
-        return AidMode(text=AttnMode.SELF)
+    def vanilla(has_ip: bool = False, scale_control: bool = False) -> "AidMode":
+        if scale_control:
+            return AidMode(text=AttnMode.SELF, ip="own", ip_coef_scaled=True)
+        return AidMode(text=AttnMode.SELF, ip="own" if has_ip else None)
 
     @staticmethod
-    def from_name(name: str) -> "AidMode":
-        """Map the reference's early/late strings to an AidMode."""
+    def from_name(name: str, has_ip: bool = False) -> "AidMode":
+        """Map the reference's early/late strings to an AidMode;
+        ``"scale_control"`` is text ``fused_outer`` with the IP branch
+        ``"own"`` and coefficient-scaled."""
         if name == "self":
-            return AidMode.vanilla()
+            return AidMode.vanilla(has_ip=has_ip)
         if name == "scale_control":
-            raise NotImplementedError("scale_control needs the IP-Adapter branch, not yet ported")
-        return AidMode(text=AttnMode(name))
+            return AidMode(text=AttnMode.FUSED_OUTER, ip="own", ip_coef_scaled=True)
+        return AidMode(text=AttnMode(name), ip=name if has_ip else None)
 
 
 @dataclasses.dataclass
@@ -68,11 +84,16 @@ class AidContext:
 
     ``force_vanilla``: optional bool, scalar (a Python bool or a 0-d tensor)
     or (B,), rows whose attention is computed as vanilla attention although
-    the mode interpolates (the fused denoise loop's late steps)."""
+    the mode interpolates (the fused denoise loop's late steps).
+    ``ip_hidden_states``: (B, T, cross_attention_dim) projected image-prompt
+    tokens of this pass, or None (no IP branch).
+    ``ip_scale``: the adapter's global scale."""
 
     coef: torch.Tensor
     mode: AidMode = AidMode()
     force_vanilla: Optional[Union[bool, torch.Tensor]] = None
+    ip_hidden_states: Optional[torch.Tensor] = None
+    ip_scale: float = 1.0
     _skip: dict = dataclasses.field(default_factory=dict, init=False, repr=False, compare=False)
 
     def skip_rows(self, n_cond: int) -> torch.Tensor:
@@ -230,10 +251,13 @@ def per_row_endpoints(x: torch.Tensor, n: int):
 
 
 class CrossAttention(nn.Module):
-    """Multi-head attention with the AID interpolation family built in."""
+    """Multi-head attention with the AID interpolation family built in.
+    ``has_ip`` (cross-attention layers of a UNet with IP tokens) adds the
+    IP-Adapter's bias-free ``to_k_ip`` / ``to_v_ip`` over the
+    ``cross_attention_dim``-wide image tokens."""
 
     def __init__(self, query_dim: int, num_heads: int, head_dim: int, cross_attention_dim: Optional[int] = None,
-                 *, device=None, dtype=torch.float32):
+                 has_ip: bool = False, *, device=None, dtype=torch.float32):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         inner = num_heads * head_dim
@@ -243,6 +267,10 @@ class CrossAttention(nn.Module):
         self.to_k = nn.Linear(kv_dim, inner, bias=False, **kw)
         self.to_v = nn.Linear(kv_dim, inner, bias=False, **kw)
         self.to_out = nn.ModuleList([nn.Linear(inner, query_dim, **kw)])
+        self.has_ip = has_ip
+        if has_ip:
+            self.to_k_ip = nn.Linear(kv_dim, inner, bias=False, **kw)
+            self.to_v_ip = nn.Linear(kv_dim, inner, bias=False, **kw)
 
     def forward(self, hidden, encoder_hidden=None, aid: Optional[AidContext] = None):
         B, S, _ = hidden.shape
@@ -268,8 +296,38 @@ class CrossAttention(nn.Module):
             if force is not None:  # forced rows drop their endpoint segments too (aid_tpu/models/layers.py:444-445)
                 skip = skip | torch.as_tensor(force, dtype=torch.bool, device=skip.device)
         out = dispatch_attention(q, k, v, coef, mode, skip_endpoints=skip, force_vanilla=force, **eps)
+        if self.has_ip and aid is not None and aid.mode.ip is not None and aid.ip_hidden_states is not None:
+            out = self._add_ip(q, out, aid, heads)
         out = out.transpose(1, 2).reshape(B, S, self.num_heads * self.head_dim)
         return self.to_out[0](out)
+
+    def _add_ip(self, q, out, aid: AidContext, heads):
+        """``out`` plus the IP branch (aid_tpu/models/layers.py:463-493): the
+        queries over the image tokens' K/V in ``aid.mode.ip``'s mode
+        (``"own"``: each frame's own tokens, self mode). Under batched CFG
+        the interpolating modes take per-row endpoints as the text branch
+        does, but no skip rows: only ``force_vanilla`` drops endpoint
+        segments here (``dispatch_attention`` folds it). The branch adds
+        ``ip_scale`` times its output, the scale in the output's dtype, or
+        (scale control) the frame's coefficient times it, summed in f32."""
+        ip = aid.ip_hidden_states.to(q.dtype)
+        ip_k, ip_v = heads(self.to_k_ip(ip)), heads(self.to_v_ip(ip))
+        ip_mode = AttnMode.SELF if aid.mode.ip == "own" else AttnMode(aid.mode.ip)
+        eps, force = {}, None
+        if ip_mode != AttnMode.SELF:
+            if aid.mode.cfg_split:
+                kb, ke = per_row_endpoints(ip_k, aid.mode.cfg_split)
+                vb, ve = per_row_endpoints(ip_v, aid.mode.cfg_split)
+                eps = dict(k_begin=kb, v_begin=vb, k_end=ke, v_end=ve)
+            force = aid.force_vanilla
+        ip_out = dispatch_attention(q, ip_k, ip_v, aid.coef, ip_mode, force_vanilla=force, **eps)
+        if aid.mode.ip_coef_scaled:
+            w = aid.coef.float().reshape(-1, 1, 1, 1)
+            return (out.float() + w * ip_out.float()).to(out.dtype)
+        # a 0-d CPU tensor enters the CUDA op as a scalar: a device tensor
+        # made from the float would be a host-to-device copy, which waits for
+        # the stream on every call
+        return out + torch.tensor(aid.ip_scale, dtype=out.dtype) * ip_out
 
 
 class GEGLU(nn.Module):
@@ -307,14 +365,14 @@ class BasicTransformerBlock(nn.Module):
     """LN->self-attn, LN->cross-attn, LN->GEGLU FF, all residual. AID applies
     to both attn1 and attn2."""
 
-    def __init__(self, dim: int, num_heads: int, head_dim: int, cross_attention_dim: int,
+    def __init__(self, dim: int, num_heads: int, head_dim: int, cross_attention_dim: int, has_ip: bool = False,
                  *, device=None, dtype=torch.float32):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.norm1 = nn.LayerNorm(dim, eps=1e-5, **kw)
         self.attn1 = CrossAttention(dim, num_heads, head_dim, **kw)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5, **kw)
-        self.attn2 = CrossAttention(dim, num_heads, head_dim, cross_attention_dim, **kw)
+        self.attn2 = CrossAttention(dim, num_heads, head_dim, cross_attention_dim, has_ip, **kw)
         self.norm3 = nn.LayerNorm(dim, eps=1e-5, **kw)
         self.ff = FeedForward(dim, **kw)
 
@@ -329,7 +387,7 @@ class Transformer2D(nn.Module):
 
     def __init__(self, in_channels: int, num_heads: int, head_dim: int, num_layers: int,
                  cross_attention_dim: int, norm_num_groups: int = 32, use_linear_projection: bool = False,
-                 *, device=None, dtype=torch.float32):
+                 has_ip: bool = False, *, device=None, dtype=torch.float32):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         inner = num_heads * head_dim
@@ -342,7 +400,7 @@ class Transformer2D(nn.Module):
             self.proj_in = nn.Conv2d(in_channels, inner, 1, **kw)
             self.proj_out = nn.Conv2d(inner, in_channels, 1, **kw)
         self.transformer_blocks = nn.ModuleList([
-            BasicTransformerBlock(inner, num_heads, head_dim, cross_attention_dim, **kw)
+            BasicTransformerBlock(inner, num_heads, head_dim, cross_attention_dim, has_ip, **kw)
             for _ in range(num_layers)
         ])
 

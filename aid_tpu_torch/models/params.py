@@ -8,13 +8,20 @@ and ``_torch_path_to_flax`` (params.py:45-100) and the per-model renames of
 ``convert_vae_state_dict`` and ``convert_clip_text_state_dict``
 (params.py:139-162). Diffusers and transformers checkpoints need no
 conversion at all: the port's modules carry their names and layouts.
+
+An h94-format IP-Adapter checkpoint (``{"image_proj": ..., "ip_adapter":
+{"<idx>.to_k_ip.weight", ...}}``) needs one: its per-layer weights are
+numbered by the UNet's attention processors, which
+:func:`unet_attention_order` turns into the port's module names
+(:func:`ip_adapter_state_dict`). Its ``image_proj`` loads as it is
+(``models.ip_adapter``).
 """
 
 from __future__ import annotations
 
 import re
 from collections import OrderedDict
-from typing import Dict
+from typing import Dict, List, Mapping
 
 import numpy as np
 import torch
@@ -114,3 +121,49 @@ def clip_text_state_dict_from_flax(tree: Dict) -> "OrderedDict[str, torch.Tensor
         return f"mlp.{m.group(1)}" if m else key
 
     return _state_dict(tree, unfold)
+
+
+def unet_attention_order(config) -> List[str]:
+    """The UNet's cross-attention (attn2) modules, as dotted names, in the
+    order of diffusers' ``attn_processors``: down blocks, UP blocks, then
+    the mid block LAST (aid_tpu/models/params.py:236-262). diffusers assigns
+    ``up_blocks`` before ``mid_block``, and torch registers children in
+    assignment order, so IP-Adapter checkpoints number their layers that
+    way: in SD 1.5 the odd indices 1..29 are down and up, 31 is the mid
+    block."""
+    names = []
+
+    def add(base, level):
+        for ti in range(max(config.transformer_layers_per_block[level], 1)):
+            names.append(f"{base}.transformer_blocks.{ti}.attn2")
+
+    for level in range(config.num_levels):
+        if config.cross_attention_levels[level]:
+            for j in range(config.layers_per_block):
+                add(f"down_blocks.{level}.attentions.{j}", level)
+    for up_idx, level in enumerate(reversed(range(config.num_levels))):
+        if config.cross_attention_levels[level]:
+            for j in range(config.layers_per_block + 1):
+                add(f"up_blocks.{up_idx}.attentions.{j}", level)
+    top = config.num_levels - 1
+    mid_level = top if config.cross_attention_levels[top] else next(
+        i for i in reversed(range(config.num_levels)) if config.cross_attention_levels[i])
+    add("mid_block.attentions.0", mid_level)
+    return names
+
+
+def ip_adapter_state_dict(checkpoint: Mapping, config) -> "OrderedDict[str, torch.Tensor]":
+    """An h94-format checkpoint's per-layer ``to_k_ip`` / ``to_v_ip``
+    weights under the port's UNet names (``<attn2>.to_k_ip.weight``): its
+    sorted layer indices are matched, one for one, with
+    :func:`unet_attention_order`. Their counts must agree."""
+    ip = checkpoint["ip_adapter"]
+    idxs = sorted({int(k.split(".")[0]) for k in ip})
+    order = unet_attention_order(config)
+    if len(idxs) != len(order):
+        raise ValueError(f"the IP checkpoint has {len(idxs)} cross-attention entries, the UNet {len(order)}")
+    out: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    for idx, name in zip(idxs, order):
+        for proj in ("to_k_ip", "to_v_ip"):
+            out[f"{name}.{proj}.weight"] = torch.as_tensor(ip[f"{idx}.{proj}.weight"])
+    return out

@@ -6,7 +6,9 @@ parameter names (``down_blocks.1.attentions.0...``, ``mid_block.resnets.0``,
 SD1.x/2.x four-level layout and SDXL's three levels with per-level
 transformer depth and ``text_time`` added conditioning (pooled text embeds +
 micro-conditioning time_ids), and FreeU on the first two up blocks
-(``freeu=FreeUConfig(...)``). Not yet ported: IP-Adapter K/V projections.
+(``freeu=FreeUConfig(...)``). With ``ip_num_tokens > 0`` every
+cross-attention layer holds the IP-Adapter's ``to_k_ip`` / ``to_v_ip``, and
+the image tokens ride in the ``AidContext`` (``ip_hidden_states``).
 """
 
 from __future__ import annotations
@@ -44,8 +46,6 @@ class UNet2DCondition(nn.Module):
     def __init__(self, config: UNetConfig, *, device=None, dtype=torch.float32):
         super().__init__()
         cfg = config
-        if cfg.ip_num_tokens:
-            raise NotImplementedError("IP-Adapter projections are not yet ported")
         self.config = cfg
         self.dtype = dtype
         kw = dict(device=device, dtype=dtype)
@@ -64,7 +64,7 @@ class UNet2DCondition(nn.Module):
             heads = cfg.num_attention_heads[level]
             return Transformer2D(
                 channels, heads, channels // heads, max(cfg.transformer_layers_per_block[level], 1),
-                cfg.cross_attention_dim, groups, cfg.use_linear_projection, **kw)
+                cfg.cross_attention_dim, groups, cfg.use_linear_projection, cfg.ip_num_tokens > 0, **kw)
 
         # down path; skip_ch tracks the channels of every skip connection
         ch = boc[0]

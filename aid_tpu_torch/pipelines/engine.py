@@ -23,16 +23,23 @@ compose (the pipelines' interruptible path); ``denoise_range`` is the
 vanilla-attention loop of the denoising-interpolation baseline and plain
 text-to-image.
 
+IP-Adapter (engine.py:60-143): ``ip_embeds`` are the cond pass's projected
+image tokens (B, T, cross_attention_dim), ``ip_uncond_embeds`` the uncond
+pass's, ``ip_scale`` the adapter's scale. The uncond pass keeps the IP
+branch in ``"own"`` mode (coefficient-scaled as the early mode is) on the
+negative tokens; batched CFG stacks cond and uncond tokens, the uncond ones
+zeros where none are given (zero tokens through the bias-free projections
+add exactly nothing, as the sequential pass without them).
+
 ``decode_latents``, ``tiled_decode`` and ``to_uint8`` are the counterparts
 of engine.py:319-426: the VAE decode in the VAE's parameter dtype from f32
 latents, optionally one frame at a time or in overlapping spatial tiles,
 with the latents mean/std denormalisation.
-
-Not yet ported: IP-Adapter embeds.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
@@ -51,8 +58,12 @@ def rescale_noise_cfg(noise_cfg: torch.Tensor, noise_pred_text: torch.Tensor, gu
     return guidance_rescale * rescaled + (1.0 - guidance_rescale) * noise_cfg
 
 
-def _make_aid(mode: AidMode, coef: torch.Tensor, force_vanilla=None) -> Optional[AidContext]:
-    return None if mode.text == AttnMode.SELF else AidContext(coef=coef, mode=mode, force_vanilla=force_vanilla)
+def _make_aid(mode: AidMode, coef: torch.Tensor, force_vanilla=None, ip_states=None,
+              ip_scale: float = 1.0) -> Optional[AidContext]:
+    if mode.text == AttnMode.SELF and mode.ip is None:
+        return None
+    return AidContext(coef=coef, mode=mode, force_vanilla=force_vanilla, ip_hidden_states=ip_states,
+                      ip_scale=ip_scale)
 
 
 CFG_MODES = ("sequential", "batched")
@@ -82,33 +93,43 @@ def denoise_steps(
     generator: Optional[torch.Generator] = None,  # the step noise when eta > 0
     cfg_mode: str = "sequential",  # "sequential" (two passes a step) | "batched" (one 2N-row pass)
     loop_mode: str = "auto",  # "auto" (= "split") | "split" | "fused"
+    ip_embeds: Optional[torch.Tensor] = None,  # (B, T, D) projected cond IP tokens
+    ip_uncond_embeds: Optional[torch.Tensor] = None,  # (B, T, D) the uncond pass's
+    ip_scale: float = 1.0,
 ):
     """Warmup-split CFG steps ``[start, end)`` of a schedule; returns
     ``(latents, sched_state)`` so chunks compose. The caller's ``latents``
-    are never written in place. ``cfg_mode`` and ``loop_mode`` as in the
-    module docstring (engine.py:68-169)."""
+    are never written in place. ``cfg_mode``, ``loop_mode`` and the IP
+    arguments as in the module docstring (engine.py:60-169)."""
     if cfg_mode not in CFG_MODES:
         raise ValueError(f"cfg_mode must be one of {CFG_MODES}, got {cfg_mode!r}")
     if loop_mode not in LOOP_MODES:
         raise ValueError(f"loop_mode must be one of {LOOP_MODES}, got {loop_mode!r}")
     if added_cond is not None and added_cond_uncond is None:
         added_cond_uncond = added_cond
-    uncond_mode = AidMode.vanilla()
+    # the uncond pass: AID off, the IP branch (if any) on its own tokens (engine.py:81-91)
+    uncond_mode = AidMode(text=AttnMode.SELF, ip=None if early.ip is None else "own",
+                          ip_coef_scaled=early.ip_coef_scaled)
 
     if cfg_mode == "batched":
         N = latents.shape[0]
         embs_all = torch.cat([embs, uncond_embs])
         coef_all = None if coef is None else torch.cat([coef, coef])
+        ip_all = None
+        if ip_embeds is not None:
+            ip_all = torch.cat([ip_embeds, torch.zeros_like(ip_embeds) if ip_uncond_embeds is None
+                                else ip_uncond_embeds])
         added_all = None if added_cond is None else {
             k: torch.cat([v, added_cond_uncond[k]]) for k, v in added_cond.items()}
 
     def unet_noise(latent_in, t, mode: AidMode, force=None):
         if cfg_mode == "batched":
-            aid = _make_aid(AidMode(text=mode.text, cfg_split=N), coef_all, force)
+            aid = _make_aid(dataclasses.replace(mode, cfg_split=N), coef_all, force, ip_all, ip_scale)
             out = unet(torch.cat([latent_in, latent_in]), t, embs_all, aid, added_all)
             return out[:N], out[N:]
-        noise_text = unet(latent_in, t, embs, _make_aid(mode, coef, force), added_cond)
-        noise_uncond = unet(latent_in, t, uncond_embs, _make_aid(uncond_mode, coef), added_cond_uncond)
+        noise_text = unet(latent_in, t, embs, _make_aid(mode, coef, force, ip_embeds, ip_scale), added_cond)
+        noise_uncond = unet(latent_in, t, uncond_embs, _make_aid(uncond_mode, coef, None, ip_uncond_embeds, ip_scale),
+                            added_cond_uncond)
         return noise_text, noise_uncond
 
     # one mode on every step, its endpoint segments dropped from the warmup
@@ -143,14 +164,17 @@ def denoise_sequence(unet, scheduler, latents, embs, uncond_embs, coef, sched_st
 
 def denoise_range(unet, scheduler, latents, embs, uncond_embs, sched_state, guidance_scale, *, start: int,
                   end: int, eta: float = 0.0, generator: Optional[torch.Generator] = None, added_cond=None,
-                  added_cond_uncond=None):
+                  added_cond_uncond=None, ip_embeds=None, ip_uncond_embeds=None, ip_scale: float = 1.0):
     """Vanilla-attention CFG steps ``[start, end)``; returns
     ``(latents, sched_state)``. The composition primitive of the
-    denoising-interpolation baseline and of ``__call__``."""
-    vanilla = AidMode.vanilla()
+    denoising-interpolation baseline and of ``__call__``. With
+    ``ip_embeds`` each frame also attends its own image tokens (the
+    vanilla IP-Adapter)."""
+    vanilla = AidMode.vanilla(has_ip=ip_embeds is not None)
     return denoise_steps(unet, scheduler, latents, embs, uncond_embs, None, sched_state, guidance_scale,
                          early=vanilla, late=vanilla, start=start, end=end, warmup_steps=0, eta=eta,
-                         generator=generator, added_cond=added_cond, added_cond_uncond=added_cond_uncond)
+                         generator=generator, added_cond=added_cond, added_cond_uncond=added_cond_uncond,
+                         ip_embeds=ip_embeds, ip_uncond_embeds=ip_uncond_embeds, ip_scale=ip_scale)
 
 
 @torch.no_grad()

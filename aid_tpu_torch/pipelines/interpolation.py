@@ -23,13 +23,27 @@ Random latents come from a ``torch.Generator``: torch and JAX draw
 different numbers from one seed, so parity tests hand both pipelines the
 same latents.
 
-Not yet ported: the IP-Adapter attachments (image embeds raise
-``NotImplementedError``) and the prompt-embeds shortcuts.
+IP-Adapter (interpolation.py:177-300): ``load_aid_ip_adapter`` attaches an
+h94-format checkpoint (a dict or a ``.safetensors`` path) to a UNet built
+with ``ip_num_tokens > 0``: its per-layer ``to_k_ip`` / ``to_v_ip`` go into
+the UNet, its ``image_proj`` becomes ``ip_proj`` (an ``ImageProjection``, or
+a Plus ``Resampler`` where it has ``latents``). ``encode_image`` runs the
+attached CLIP vision tower (pooled embeds for a standard adapter, the
+penultimate hidden states for Plus), and ``interpolate_single`` takes the
+embeds: each frame's image tokens are the projection of the endpoints'
+embeds and of their lerp/slerp. ``early="scale_control"`` per call
+selects scale control, where the IP branch is weighted by each frame's
+coefficient (the JAX pipeline sets it at load time; the port keeps no mode
+state on the pipeline and leaves out the reference's unused
+``default_early`` / ``load_aid``).
+
+Not yet ported: the prompt-embeds shortcuts.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from collections.abc import Mapping
 from typing import Any, Optional
 
 import numpy as np
@@ -74,11 +88,6 @@ def _check_ts(ts) -> np.ndarray:
     return ts
 
 
-def _no_ip(*image_embeds) -> None:
-    if any(x is not None for x in image_embeds):
-        raise NotImplementedError("image embeds need the IP-Adapter branch, which is not yet ported")
-
-
 @dataclasses.dataclass
 class InterpolationPipeline:
     """SD1.x / 2.x attention-interpolation pipeline. ``tokenizer`` is any
@@ -110,6 +119,13 @@ class InterpolationPipeline:
     # models.safety.SafetyChecker run on every decode (flagged frames come
     # out black); None skips it, as the JAX pipeline does without one
     safety_checker: Any = None
+    # IP-Adapter attachments (load_aid_ip_adapter): the image projection
+    # (None: no adapter), its scale, whether it is a Plus resampler, and the
+    # CLIP vision tower encode_image runs
+    ip_proj: Any = None
+    ip_scale: float = 1.0
+    ip_plus: bool = False
+    image_encoder: Any = None
 
     @property
     def device(self) -> torch.device:
@@ -173,8 +189,104 @@ class InterpolationPipeline:
     def _interp_pair(self, a, b, t, init: str):
         return lerp(a, b, t) if init == "linear" else slerp(a, b, t)
 
+    @property
+    def has_ip(self) -> bool:
+        return self.ip_proj is not None
+
+    @torch.no_grad()
+    def _project_ip(self, image_embeds: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+        """CLIP image embeds (B, D), or Plus hidden states (B, S, D) -> IP
+        tokens (B, T, cross_attention_dim); None stays None."""
+        if image_embeds is None:
+            return None
+        if not self.has_ip:
+            raise ValueError("image embeds need an IP-Adapter: call load_aid_ip_adapter first")
+        return self.ip_proj(torch.as_tensor(image_embeds, device=self.device))
+
     def _aid_modes(self, early: str, late: str):
-        return AidMode.from_name(early), AidMode.from_name(late)
+        """The early and late steps' AidModes. ``early="scale_control"``
+        (interpolation.py:186-188) weights the IP branch by each frame's
+        coefficient in every step: text ``fused_outer`` early and vanilla
+        late, so it takes only ``late="self"``."""
+        if early == "scale_control":
+            if not self.has_ip:
+                raise ValueError("early='scale_control' needs an IP-Adapter: call load_aid_ip_adapter first")
+            if late != "self":
+                raise ValueError(f"early='scale_control' runs its late steps vanilla; got late={late!r}")
+            return AidMode.from_name("scale_control"), AidMode.vanilla(scale_control=True)
+        return AidMode.from_name(early, has_ip=self.has_ip), AidMode.from_name(late, has_ip=self.has_ip)
+
+    @torch.no_grad()
+    def load_aid_ip_adapter(self, checkpoint, image_encoder=None, scale: float = 1.0):
+        """Attach an IP-Adapter (interpolation.py:197-269).
+
+        ``checkpoint``: an h94-format dict (``image_proj`` and
+        ``ip_adapter``) or a path to its ``.safetensors`` file, whose keys
+        split on their first ``.`` into those two groups. The per-layer
+        weights are copied into the UNet's IP projections, which exist only
+        where its config has ``ip_num_tokens > 0``; the projection is built
+        from ``image_proj`` in f32 on the pipeline's device (a Plus
+        resampler where it has ``latents``). ``image_encoder``: the
+        ``CLIPVisionModel`` that ``encode_image`` runs. Scale control is
+        chosen per call, with ``early="scale_control"``."""
+        from aid_tpu_torch.models.ip_adapter import Resampler, image_projection_from_state_dict
+        from aid_tpu_torch.models.params import ip_adapter_state_dict
+        from aid_tpu_torch.utils.safetensors import load_safetensors
+
+        cfg = self.unet.config
+        if not cfg.ip_num_tokens:
+            raise ValueError("the UNet has no IP-Adapter projections: build it from a config with ip_num_tokens > 0")
+        if not isinstance(checkpoint, Mapping):
+            flat, checkpoint = load_safetensors(str(checkpoint)), {"image_proj": {}, "ip_adapter": {}}
+            for k, v in flat.items():
+                group, rest = k.split(".", 1)
+                checkpoint[group][rest] = v
+        params = dict(self.unet.named_parameters())
+        for name, w in ip_adapter_state_dict(checkpoint, cfg).items():
+            if params[name].shape != w.shape:
+                raise ValueError(f"{name}: the checkpoint's shape {tuple(w.shape)}, the UNet's "
+                                 f"{tuple(params[name].shape)}")
+            params[name].copy_(w)
+        self.ip_proj = image_projection_from_state_dict(checkpoint["image_proj"], cfg.cross_attention_dim,
+                                                        cfg.ip_num_tokens, device=self.device)
+        self.ip_plus = isinstance(self.ip_proj, Resampler)
+        self.ip_scale = scale
+        self.image_encoder = image_encoder
+        return self
+
+    @torch.no_grad()
+    def encode_image(self, images) -> torch.Tensor:
+        """Frames (N, H, W, 3), uint8 or float in [0, 1], numpy or torch ->
+        CLIP image embeds from the attached vision tower
+        (interpolation.py:285-296): the projected pooled embeds (N, D) for a
+        standard adapter, the penultimate hidden states (N, S, D) for Plus."""
+        if self.image_encoder is None:
+            raise ValueError("no image encoder attached: pass image_encoder to load_aid_ip_adapter")
+        from aid_tpu_torch.prior.clip_scorer import preprocess
+
+        weight = self.image_encoder.visual_projection.weight
+        px = preprocess(images, self.image_encoder.config.image_size, device=weight.device).to(weight.dtype)
+        embeds, penultimate = self.image_encoder(px)
+        return penultimate if self.ip_plus else embeds
+
+    def _ip_embeds(self, it: float, init: str, image_embeds_start, image_embeds_end, negative_image_embeds):
+        """The cond and uncond image embeds of a 3-frame run
+        (interpolation.py:556-565): [start, interpolated, end] and the
+        negative embeds three times. Without ``image_embeds_start`` (scale
+        control) the start is the negative embeds, which default to zeros.
+        (None, None) without ``image_embeds_end``."""
+        if image_embeds_end is None:
+            return None, None
+        image_embeds_end = torch.as_tensor(image_embeds_end, device=self.device)
+        if negative_image_embeds is None:
+            negative_image_embeds = torch.zeros_like(image_embeds_end)
+        negative_image_embeds = torch.as_tensor(negative_image_embeds, device=self.device)
+        if image_embeds_start is None:
+            image_embeds_start = negative_image_embeds
+        image_embeds_start = torch.as_tensor(image_embeds_start, device=self.device)
+        ip_t = self._interp_pair(image_embeds_start, image_embeds_end, it, init)
+        return (torch.cat([image_embeds_start, ip_t, image_embeds_end]),
+                torch.cat([negative_image_embeds] * 3))
 
     def _run_sequence(
         self,
@@ -188,6 +300,8 @@ class InterpolationPipeline:
         late: str,
         guidance_scale: Optional[float],
         guidance_rescale: float = 0.0,
+        ip_image_embeds: Optional[torch.Tensor] = None,
+        ip_uncond_image_embeds: Optional[torch.Tensor] = None,
         added_cond: Optional[dict] = None,
         added_cond_uncond: Optional[dict] = None,
         output_type: str = "np",
@@ -209,6 +323,8 @@ class InterpolationPipeline:
         warmup_steps = min(int(num_inference_steps * warmup_ratio), num_run_steps)
         early_mode, late_mode = self._aid_modes(early, late)
         common = dict(early=early_mode, late=late_mode, warmup_steps=warmup_steps, guidance_rescale=guidance_rescale,
+                      ip_embeds=self._project_ip(ip_image_embeds),
+                      ip_uncond_embeds=self._project_ip(ip_uncond_image_embeds), ip_scale=self.ip_scale,
                       added_cond=added_cond, added_cond_uncond=added_cond_uncond, cfg_mode=self.cfg_mode)
         chunk = self.denoise_chunk_size
         if callback_on_step_end is not None:
@@ -324,10 +440,13 @@ class InterpolationPipeline:
         """3-frame [A, interpolated, B] generation: the middle latent is
         slerp(A, B, it) per pixel, its text embeds the guide prompt's (PAID)
         or the lerp/slerp (``init``) of the endpoints', coefficients
-        [0, it, 1]. Missing latents come from ``seed`` and ``seed + 1``."""
+        [0, it, 1]. Missing latents come from ``seed`` and ``seed + 1``.
+        With an IP-Adapter loaded, ``image_embeds_start/end`` (from
+        ``encode_image``) are interpolated the same way; with only
+        ``image_embeds_end`` (scale control, ``early="scale_control"``)
+        the start is ``negative_image_embeds``, zeros by default."""
         if not 0.0 < it < 1.0:
             raise ValueError("t must be between 0 and 1")
-        _no_ip(image_embeds_start, image_embeds_end, negative_image_embeds)
         latent_start = self._seeded_latent(seed) if latent_start is None else latent_start.to(self.device)
         latent_end = self._seeded_latent(seed + 1) if latent_end is None else latent_end.to(self.device)
         latents = torch.cat([latent_start, slerp_latent(latent_start, latent_end, it), latent_end], dim=0)
@@ -341,9 +460,11 @@ class InterpolationPipeline:
         un_t = self._interp_pair(un_s, un_e, it, init)
         embs = torch.cat([emb_s, emb_t, emb_e], dim=0)
         uncond = torch.cat([un_s, un_t, un_e], dim=0)
+        ip_cond, ip_uncond = self._ip_embeds(it, init, image_embeds_start, image_embeds_end, negative_image_embeds)
         coef = torch.tensor([0.0, it, 1.0], dtype=torch.float32, device=self.device)
         return self._run_sequence(latents, embs, uncond, coef, num_inference_steps, warmup_ratio, early, late,
-                                  guidance_scale, guidance_rescale, output_type=output_type,
+                                  guidance_scale, guidance_rescale, ip_image_embeds=ip_cond,
+                                  ip_uncond_image_embeds=ip_uncond, output_type=output_type,
                                   callback_on_chunk_end=callback_on_chunk_end,
                                   callback_on_step_end=callback_on_step_end)
 

@@ -15,8 +15,11 @@ base class's. Latents are slerped channels-last, as in the base module.
 ``watermarker`` (``utils.watermark.InvisibleWatermark``) marks every
 decoded frame when set (sdxl.py:40-53); None, the default, leaves them.
 
-Not yet ported: the IP-Adapter branch (image embeds raise
-``NotImplementedError``) and the prompt-embeds entry points.
+``interpolate_single`` takes image embeds as the base class's does
+(sdxl.py:352-372), with an IP-Adapter loaded through the inherited
+``load_aid_ip_adapter``.
+
+Not yet ported: the prompt-embeds entry points.
 """
 
 from __future__ import annotations
@@ -31,7 +34,6 @@ from aid_tpu_torch.ops.interp import generate_beta_schedule, linear_interpolatio
 from aid_tpu_torch.pipelines.interpolation import (
     InterpolationPipeline,
     _check_ts,
-    _no_ip,
     slerp_latent,
     slerp_latents,
 )
@@ -235,7 +237,6 @@ class InterpolationXLPipeline(InterpolationPipeline):
         kwargs, whose negatives change only the uncond pass's time_ids."""
         if not 0.0 < it < 1.0:
             raise ValueError("t must be between 0 and 1")
-        _no_ip(image_embeds_start, image_embeds_end, negative_image_embeds)
         height = height or self.default_size
         width = width or self.default_size
         latent_start = self._seeded_latent(seed) if latent_start is None else latent_start.to(self.device)
@@ -256,13 +257,14 @@ class InterpolationXLPipeline(InterpolationPipeline):
         uncond = torch.cat([un_s, un_t, un_e], dim=0)
         pooled = torch.cat([pooled_s, pooled_t, pooled_e], dim=0)
         neg_pooled = torch.cat([neg_pooled_s, neg_pooled_t, neg_pooled_e], dim=0)
+        ip_cond, ip_uncond = self._ip_embeds(it, init, image_embeds_start, image_embeds_end, negative_image_embeds)
         coef = torch.tensor([0.0, it, 1.0], dtype=torch.float32, device=self.device)
         time_ids, neg_time_ids = self._time_ids_pair(
             3, height, width, original_size, crops_coords_top_left, target_size, negative_original_size,
             negative_crops_coords_top_left, negative_target_size)
         return self._run_sequence(
             latents, embs, uncond, coef, num_inference_steps, warmup_ratio, early, late, guidance_scale,
-            guidance_rescale,
+            guidance_rescale, ip_image_embeds=ip_cond, ip_uncond_image_embeds=ip_uncond,
             added_cond={"text_embeds": pooled, "time_ids": time_ids},
             added_cond_uncond={"text_embeds": neg_pooled, "time_ids": neg_time_ids},
             output_type="latent" if denoising_end is not None else output_type,

@@ -54,7 +54,14 @@ read just after:
     ``BetaPriorPipeline.generate_interpolation`` (exploration 16, selection
     7, batch_k 4 and 1) with a random CLIP ViT-B/32 scorer, and the Bayesian
     (alpha, beta) search (``bayesian_prior_selection``, size 3) with a
-    random full-width VGG16 LPIPS.
+    random full-width VGG16 LPIPS;
+  * IP-Adapter on the full-width SD1.5 UNet (bf16, 16 image tokens): an
+    IP-Adapter-Plus at h94's ip-adapter-plus_sd15 widths and a standard
+    4-token adapter (on a UNet with 4 tokens), N(0, 0.02) weights written
+    as .safetensors files in the published layout and loaded with
+    ``load_aid_ip_adapter(path)``, a random ViT-H/14 image encoder;
+    ``interpolate_single(0.5)`` from two images through ``encode_image``,
+    then in scale control.
 
 Phases (each prints its own lines; any failure exits non-zero):
   1. device      needs CUDA; prints the card's name and power limit
@@ -118,6 +125,12 @@ Phases (each prints its own lines; any failure exits non-zero):
                  scoring, DP, in all; launches by head dim), _gen_batch's
                  middles against interpolate_single with a planted t fault,
                  the Bayesian search with LPIPS (its seconds per pair)
+ 17. IP-Adapter  the Plus adapter: one forward kernels vs plain with the IP
+                 branch in fused_outer, pure_inner and scale control (two
+                 planted faults each; the bf16 attention's launches by head
+                 dim count the IP calls), interpolate_single(0.5) from two
+                 images through encode_image (s/step), the same in scale
+                 control; the standard 4-token adapter's forward check
 The smoke prints its own wall time before the kernels line.
 Phase 1 turns TF32 off for cuBLAS and cuDNN, so every plain f32 version and
 library call computes in full f32.
@@ -1544,22 +1557,27 @@ def phase_sd15_unet(unet, coef):
     return counts
 
 
-def check_unet_vs_plain(label: str, forward, aid, tol: float) -> dict:
+def check_unet_vs_plain(label: str, forward, aid, tol: float, faults=None) -> dict:
     """One UNet forward ``forward(aid)`` through the kernels and through the
-    plain versions, with two faults planted through the plain versions
-    (fused_outer computed as self; begin and end endpoints exchanged): the
-    LARGEST PER-FRAME relative L2 must lie under ``tol`` and both faults over
-    it. Returns the forward's launch counts."""
+    plain versions, with faults planted through the plain versions: the
+    LARGEST PER-FRAME relative L2 must lie under ``tol`` and every fault's
+    over it. ``faults``: name -> (the AidContext of the faulty forward, a
+    function of the plain attention giving its faulty stand-in, or None);
+    by default fused_outer computed as self, and the begin and end
+    endpoints exchanged. Returns the forward's launch counts."""
     import torch
 
     from aid_tpu_torch.ops import flash_attention
     from aid_tpu_torch.ops.routing import reference_ops
 
+    if faults is None:
+        faults = {"fused_outer->self": (None, None), "endpoints swapped": (aid, swapped_endpoints)}
+    readings = {}
     with torch.no_grad():
         reset_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        got = forward(aid)
+        readings["kernels"] = forward(aid)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         counts = read_counts()
@@ -1567,28 +1585,30 @@ def check_unet_vs_plain(label: str, forward, aid, tol: float) -> dict:
             want = forward(aid)
             torch.cuda.synchronize()
             t2 = time.perf_counter()
-            fault_self = forward(None)
-            real_plain = flash_attention.flash_interpolated_attention_plain
-            flash_attention.flash_interpolated_attention_plain = swapped_endpoints(real_plain)
-            try:
-                fault_swap = forward(aid)
-            finally:
-                flash_attention.flash_interpolated_attention_plain = real_plain
-    if not torch.isfinite(got).all():
+            for name, (fault_aid, plant) in faults.items():
+                real_plain = flash_attention.flash_interpolated_attention_plain
+                if plant is not None:
+                    flash_attention.flash_interpolated_attention_plain = plant(real_plain)
+                try:
+                    readings[name] = forward(fault_aid)
+                finally:
+                    flash_attention.flash_interpolated_attention_plain = real_plain
+    if not torch.isfinite(readings["kernels"]).all():
         fail(f"{label}: the kernel output is not finite")
-    readings = {"kernels": got, "fused_outer->self": fault_self, "endpoints swapped": fault_swap}
     per_frame = {name: frame_rel_l2(x, want) for name, x in readings.items()}
     for name, x in readings.items():
         print(f"  {name:18s} rel_l2 whole {rel_l2(x, want):.3e}, by frame "
               f"{' '.join(f'{r:.3e}' for r in per_frame[name])}", flush=True)
-    rel, f_self, f_swap = (max(per_frame[name]) for name in readings)
+    worst = {name: max(per_frame[name]) for name in readings}
+    rel = worst["kernels"]
     ok = math.isfinite(rel) and rel <= tol
+    planted = ", ".join(f"{name} {worst[name]:.3e}" for name in faults)
     print(f"{label}: largest per-frame rel_l2 kernels vs plain {rel:.3e} (tol {tol:.1e}; planted faults: "
-          f"fused_outer->self {f_self:.3e}, endpoints swapped {f_swap:.3e}); forward "
-          f"{t1 - t0:.3f} s with kernels (first call), {t2 - t1:.3f} s plain  {'ok' if ok else 'FAIL'}", flush=True)
-    for name, f in (("fused_outer->self", f_self), ("endpoints swapped", f_swap)):
-        if not f > tol:
-            fail(f"{label}: the bound {tol:.1e} does not separate the planted fault {name} ({f:.3e})")
+          f"{planted}); forward {t1 - t0:.3f} s with kernels (first call), {t2 - t1:.3f} s plain  "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    for name in faults:
+        if not worst[name] > tol:
+            fail(f"{label}: the bound {tol:.1e} does not separate the planted fault {name} ({worst[name]:.3e})")
     if not ok:
         fail(f"{label}: the output through the kernels disagrees with the plain versions")
     return counts
@@ -2445,6 +2465,279 @@ def phase_selection(pipe, card: str, scorer_cfg=None):
     return paths
 
 
+# The IP-Adapter UNet forwards of phase 17 (SD 1.5, bf16, 7 frames), kernels
+# vs plain: the LARGEST PER-FRAME relative L2, as SD15_UNET_TOL, whose
+# reasoning they share (each cross layer adds one IP attention call, ~0.3%
+# from its plain version in bf16, like every other call). On an H100 (these
+# seeds): sound 2.83-3.19e-3 in the four forwards; the planted faults: IP
+# endpoints swapped 1.27e-2 / 2.36e-2 (Plus, fused_outer / pure_inner) and
+# 9.80e-3 (4 tokens; the endpoint frames move, the interior ones by
+# |1 - 2c| of it), ip_scale dropped (weight 1) 9.9e-2 to 1.2e-1; in scale control
+# fused_outer computed as self 3.75e-2 and the coefficient weight dropped
+# 2.26e-1. 4.5e-3 lies between: 1.4x the largest sound reading, 0.46x the
+# smallest fault. Phase 17 measures every fault in every run.
+IP_UNET_TOL = SD15_UNET_TOL
+# The adapters of phase 17: the scale they are loaded with (h94's examples
+# use 0.5-1.0), the Plus resampler at h94's ip-adapter-plus_sd15 widths
+# (ViT-H/14 penultimate states of 1280, hidden 768, depth 4, 12 heads of 64,
+# 16 queries); the standard adapter takes ViT-H/14's projected embeds (1024).
+IP_SCALE = 0.5
+IP_PLUS_WIDTHS = dict(embed_dim=1280, hidden_dim=768, depth=4, heads=12, num_queries=16)
+
+
+def seed_adapter_module(module, gen):
+    """Random weights as transformers and diffusers initialise theirs:
+    weights (and the resampler's latents) N(0, 0.02) from ``gen``, biases
+    0, LayerNorm scales 1. With N(0, 0.02) norm scales the image tokens
+    would come out ~50x smaller than the text tokens, and the IP branch
+    would sink under bf16's noise."""
+    import torch
+
+    norms = {f"{n}.weight" for n, m in module.named_modules() if isinstance(m, torch.nn.LayerNorm)}
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            if name in norms:
+                p.fill_(1.0)
+            elif name.endswith("bias"):
+                p.zero_()
+            else:
+                p.normal_(0.0, 0.02, generator=gen)
+    return module.eval()
+
+
+def write_ip_adapter(path: str, unet, image_proj, gen) -> dict:
+    """An IP-Adapter checkpoint for ``unet`` in the published files' own
+    layout and dtype (f16), one ``.safetensors`` file: ``image_proj.*``
+    (``image_proj``'s state_dict) and ``ip_adapter.<idx>.to_{k,v}_ip.weight``
+    at idx 1, 3, ... in the UNet's attention-processor order (down, up, mid
+    last: 1..31 for SD 1.5), N(0, 0.02) from ``gen`` at each layer's width.
+    Returns the tensors written."""
+    import torch
+
+    from aid_tpu_torch.models.params import unet_attention_order
+    from aid_tpu_torch.utils.safetensors import save_safetensors
+
+    tensors = {f"image_proj.{k}": v for k, v in image_proj.state_dict().items()}
+    for i, name in enumerate(unet_attention_order(unet.config)):
+        attn = unet.get_submodule(name)
+        for proj in ("to_k_ip", "to_v_ip"):
+            shape = getattr(attn, proj).weight.shape
+            tensors[f"ip_adapter.{2 * i + 1}.{proj}.weight"] = torch.empty(
+                shape, device=gen.device).normal_(0.0, 0.02, generator=gen)
+    tensors = {k: v.detach().to("cpu", torch.float16).contiguous() for k, v in tensors.items()}
+    save_safetensors(tensors, path)
+    return tensors
+
+
+def check_ip_loaded(label: str, pipe, written: dict, plus: bool) -> None:
+    """The written file came back through ``load_aid_ip_adapter``: every
+    ``ip_adapter`` weight in its UNet layer (in the UNet's dtype), the
+    projection's state equal to ``image_proj`` (in f32), the kind detected."""
+    import torch
+
+    from aid_tpu_torch.models.ip_adapter import ImageProjection, Resampler
+    from aid_tpu_torch.models.params import unet_attention_order
+
+    params = dict(pipe.unet.named_parameters())
+    order = unet_attention_order(pipe.unet.config)
+    bad = []
+    for key, w in written.items():
+        group, rest = key.split(".", 1)
+        if group == "ip_adapter":
+            idx, proj, _ = rest.split(".")
+            got = params[f"{order[(int(idx) - 1) // 2]}.{proj}.weight"]
+            ok = torch.equal(got.cpu(), w.to(got.dtype))
+        else:
+            ok = torch.equal(pipe.ip_proj.state_dict()[rest].cpu(), w.float())
+        if not ok:
+            bad.append(key)
+    kind = Resampler if plus else ImageProjection
+    print(f"{label}: {len(written)} tensors loaded ({len(order)} cross-attention layers), projection "
+          f"{type(pipe.ip_proj).__name__}, plus={pipe.ip_plus}", flush=True)
+    if bad or pipe.ip_plus != plus or not isinstance(pipe.ip_proj, kind):
+        fail(f"{label}: the file did not load back: {bad[:4]}, plus={pipe.ip_plus}, {type(pipe.ip_proj).__name__}")
+
+
+def ip_swapped_endpoints(tokens: int):
+    """A planted fault: the begin and end endpoints exchanged in the IP
+    branch's calls only (the plain attention's calls over ``tokens`` keys)."""
+    def plant(plain):
+        swapped = swapped_endpoints(plain)
+
+        def fault(q, k, v, *args, **kwargs):
+            return (swapped if k.shape[-2] == tokens else plain)(q, k, v, *args, **kwargs)
+        return fault
+    return plant
+
+
+def expected_attention_launches(unet, with_ip: bool) -> dict:
+    """Attention calls of one forward by head dim: each transformer block's
+    self- and cross-attention, and its IP call where ``with_ip``."""
+    from aid_tpu_torch.models.layers import CrossAttention
+    from aid_tpu_torch.ops.flash_attention import padded_head_dim
+
+    want = {}
+    for m in unet.modules():
+        if isinstance(m, CrossAttention):
+            d = padded_head_dim(m.head_dim)
+            want[d] = want.get(d, 0) + 1 + int(with_ip and m.has_ip)
+    return want
+
+
+def phase_ip_adapter(card: str, unet_cfg=None, text_cfg=None, vae_cfg=None, vision_cfg=None, plus_widths=None,
+                     device: str = "cuda") -> list:
+    """IP-Adapter on the full-width SD 1.5 UNet (bf16, N(0, 0.02) weights)
+    with 16 image tokens: a Plus adapter at h94's ip-adapter-plus_sd15
+    widths written as one .safetensors file in the published layout and
+    loaded with ``load_aid_ip_adapter(path)``, a random ViT-H/14
+    ``CLIPVisionModel`` (f32) as its image encoder. (a) one forward, 7
+    frames, kernels vs plain, with the IP branch in fused_outer, in
+    pure_inner and in scale control, each with two planted faults; the
+    bf16 attention's launches by head dim must count the IP calls; (b)
+    ``interpolate_single(0.5)`` from two seeded random 224px images through
+    ``encode_image`` (penultimate states), 25 DDIM steps, s/step; (c) the
+    same in scale control, ``image_embeds_start=None``; (d) a standard
+    4-token adapter (ImageProjection 1024 -> 4 x 768) on a UNet with 4 IP
+    tokens: the forward check of (a) in fused_outer. The pipeline's text
+    encoder (CLIP ViT-L) and VAE are random f32 modules as phase 10's.
+    Returns the launch counts of (b) and (c). The other arguments exist for
+    rehearsing on the CPU at a tiny size."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from aid_tpu_torch.models.clip import CLIPTextModel, CLIPVisionModel
+    from aid_tpu_torch.models.configs import CLIP_VIT_H_VISION, CLIP_VIT_L_TEXT, SD15_UNET, SD_VAE
+    from aid_tpu_torch.models.ip_adapter import ImageProjection, Resampler
+    from aid_tpu_torch.models.layers import AidContext, AidMode
+    from aid_tpu_torch.models.vae import AutoencoderKL
+    from aid_tpu_torch.pipelines.interpolation import InterpolationPipeline
+    from aid_tpu_torch.schedulers.ddim import DDIMScheduler
+    from aid_tpu_torch.utils.tokenizer import HashTokenizer
+
+    steps = SD15_STEPS
+    unet_cfg, text_cfg, vae_cfg = unet_cfg or SD15_UNET, text_cfg or CLIP_VIT_L_TEXT, vae_cfg or SD_VAE
+    vision_cfg, plus_widths = vision_cfg or CLIP_VIT_H_VISION, plus_widths or IP_PLUS_WIDTHS
+    nq = plus_widths["num_queries"]
+    print(f"== phase 17: IP-Adapter on the SD1.5 UNet: a Plus adapter ({nq} tokens, resampler {plus_widths}) "
+          f"and a standard one (4 tokens), written as .safetensors and loaded with load_aid_ip_adapter(path); "
+          f"forwards kernels vs plain (fused_outer, pure_inner, scale_control IP), interpolate_single(0.5) "
+          f"through encode_image ({steps} DDIM steps), scale control", flush=True)
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    torch.manual_seed(9)  # the text encoder's and VAE's default initialisations draw from it
+    with torch.no_grad():
+        text = CLIPTextModel(text_cfg, device=dev).eval()
+        vae = AutoencoderKL(vae_cfg, device=dev).eval()
+        encoder = seed_adapter_module(CLIPVisionModel(vision_cfg, device=dev), gen)
+    px = unet_cfg.sample_size * 2 ** (len(vae_cfg.block_out_channels) - 1)
+    size = vision_cfg.image_size
+    images = (torch.rand((9, size, size, 3), generator=gen, device=dev) * 255).to(torch.uint8).cpu().numpy()
+    frames = 7
+    coef = sd15_coef().to(dev)
+    s = unet_cfg.sample_size
+    sample = torch.randn((frames, unet_cfg.in_channels, s, s), generator=gen, device=dev).to(torch.bfloat16)
+    ehs = torch.randn((frames, 77, unet_cfg.cross_attention_dim), generator=gen, device=dev).to(torch.bfloat16)
+    t = torch.tensor(500, device=dev)
+    heads = tuple(f"flash_interpolated_attention[D={d}]" for d in (40, 80, 160))
+
+    def pipeline(tokens: int, hidden_dim: int):
+        cfg = dataclasses.replace(unet_cfg, ip_num_tokens=tokens, ip_hidden_dim=hidden_dim)
+        unet = build_sd15(seed=17 + tokens, cfg=cfg, device=device)
+        return InterpolationPipeline(unet=unet, vae=vae, text_encoder=text,
+                                     tokenizer=HashTokenizer(text_cfg.vocab_size), scheduler=DDIMScheduler())
+
+    def check_forwards(pipe, label, ways):
+        """The forward check of (a)/(d) in each IP way, on image tokens
+        projected from 7 of the random images."""
+        tokens = pipe._project_ip(pipe.encode_image(images[:frames]))
+        T = tokens.shape[1]
+        want = expected_attention_launches(pipe.unet, with_ip=True)
+        for way in ways:
+            if way == "scale_control":
+                aid = AidContext(coef=coef, mode=AidMode.from_name("scale_control"), ip_hidden_states=tokens,
+                                 ip_scale=IP_SCALE)
+                faults = {"fused_outer->self": (dataclasses.replace(aid, mode=AidMode.vanilla(scale_control=True)),
+                                                None),
+                          "coef weight dropped": (dataclasses.replace(aid, mode=AidMode.vanilla(has_ip=True),
+                                                                      ip_scale=1.0), None)}
+            else:
+                aid = AidContext(coef=coef, mode=AidMode.from_name(way, has_ip=True), ip_hidden_states=tokens,
+                                 ip_scale=IP_SCALE)
+                faults = {"IP endpoints swapped": (aid, ip_swapped_endpoints(T)),
+                          "ip_scale dropped": (dataclasses.replace(aid, ip_scale=1.0), None)}
+            counts = check_unet_vs_plain(f"{label} {way} B={frames} {s}x{s}, {T} IP tokens",
+                                         lambda a: pipe.unet(sample, t, ehs, a), aid, IP_UNET_TOL, faults)
+            got = {d: counts[f"flash_interpolated_attention[D={d}]"] for d in want}
+            print(f"  attention launches by head dim {got}: self + text cross + IP calls {want}", flush=True)
+            if got != want:
+                fail(f"{label} {way}: bf16 attention launches by head dim {got}, want {want} (the IP calls included)")
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="ip-adapter-", dir=os.path.join(ROOT, "build"))
+    try:
+        # the Plus adapter
+        pipe = pipeline(nq, plus_widths["embed_dim"])
+        resampler = seed_adapter_module(Resampler(unet_cfg.cross_attention_dim, device=dev, **plus_widths), gen)
+        path = os.path.join(root, "ip-adapter-plus_sd15.safetensors")
+        written = write_ip_adapter(path, pipe.unet, resampler, gen)
+        del resampler
+        pipe.load_aid_ip_adapter(path, image_encoder=encoder, scale=IP_SCALE)
+        check_ip_loaded("Plus adapter", pipe, written, plus=True)
+        check_forwards(pipe, "unet SD1.5 + IP-Adapter-Plus", ("fused_outer", "pure_inner", "scale_control"))
+
+        # (b) interpolate_single from two images, (c) the same in scale control
+        latent_a, latent_b = pipe._seeded_latent(31), pipe._seeded_latent(32)
+        paths = []
+        for sc in (False, True):
+            label = "interpolate_single(0.5) " + ("scale control, image_embeds_start=None" if sc else
+                                                  "from two images")
+            e0, e1 = (pipe.encode_image(images[7 + i:8 + i]) for i in range(2))
+            if tuple(e1.shape) != (1, (size // vision_cfg.patch_size) ** 2 + 1, vision_cfg.hidden_size):
+                fail(f"encode_image gave {tuple(e1.shape)}, not the penultimate hidden states")
+            kw = dict(image_embeds_start=None if sc else e0, image_embeds_end=e1, num_inference_steps=steps,
+                      early="scale_control" if sc else "fused_outer")
+            walls = []
+            for run in range(3):  # the first one checked and counted, then two warm ones timed
+                torch.cuda.synchronize()
+                reset_counts()
+                t0 = time.perf_counter()
+                latents = pipe.interpolate_single(0.5, latent_a, latent_b, "prompt A", "prompt B",
+                                                  output_type="latent", **kw)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                if run == 0:
+                    counts = read_counts()
+            frames_out = pipe._decode(latents)
+            ok = (tuple(latents.shape) == (3, unet_cfg.in_channels, s, s) and bool(torch.isfinite(latents).all())
+                  and frames_out.shape == (3, px, px, 3) and frames_out.dtype == np.uint8)
+            print(f"{label}: {steps} steps, s/step {walls[0] / steps:.4f} (first), warm best "
+                  f"{min(walls[1:]) / steps:.4f} of {[round(w / steps, 4) for w in walls[1:]]} on {card}; latents "
+                  f"finite {bool(torch.isfinite(latents).all())}, frames {frames_out.shape} {frames_out.dtype}  "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                fail(f"{label}: latents {tuple(latents.shape)}, frames {frames_out.shape}")
+            check_path(label, counts, heads)
+            paths.append(counts)
+        del pipe
+
+        # (d) the standard 4-token adapter
+        pipe = pipeline(4, vision_cfg.projection_dim)
+        proj = seed_adapter_module(ImageProjection(vision_cfg.projection_dim, unet_cfg.cross_attention_dim, 4,
+                                                   device=dev), gen)
+        path = os.path.join(root, "ip-adapter_sd15.safetensors")
+        written = write_ip_adapter(path, pipe.unet, proj, gen)
+        pipe.load_aid_ip_adapter(path, image_encoder=encoder, scale=IP_SCALE)
+        check_ip_loaded("standard adapter", pipe, written, plus=False)
+        check_forwards(pipe, "unet SD1.5 + IP-Adapter", ("fused_outer",))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return paths
+
+
 def kernels_line(kernels: dict, launches: dict) -> str:
     """The kernels' JSON record: one entry per kernel, with KERNEL_KEYS
     first, then what phase 3 measured besides (the conv's kernel_ms, the
@@ -2589,6 +2882,8 @@ def main(argv=None) -> int:
     paths.append(counts)
     paths += phase_selection(pipe, card)
     del pipe
+    torch.cuda.empty_cache()
+    paths += phase_ip_adapter(card)
     launches = {name: sum(p[name] for p in paths) for name in paths[0]}
     print(f"launches over the {len(paths)} paths: {launches}", flush=True)
     print(f"smoke wall time {time.perf_counter() - start:.1f} s (the limit is 1200 s)", flush=True)

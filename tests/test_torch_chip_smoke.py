@@ -332,3 +332,91 @@ def test_selection_phases_rehearse_on_the_cpu(monkeypatch):
     paths = smoke.phase_selection(pipe, "cpu", scorer_cfg=TINY_CLIP_VISION)
     assert len(paths) == 3
     assert skipped and all("launch" in m for m in skipped)
+
+
+def test_ip_adapter_phase_follows_the_selection_phases():
+    """Phase 17 (IP-Adapter) exists with its banner and runs after phase 16
+    in main(), before the kernels line."""
+    import inspect
+
+    smoke = _load_smoke()
+    assert "== phase 17: IP-Adapter" in inspect.getsource(smoke.phase_ip_adapter)
+    assert "17. IP-Adapter" in smoke.__doc__
+    main = inspect.getsource(smoke.main)
+    assert (main.index("phase_selection(pipe, card)") < main.index("phase_ip_adapter(card)")
+            < main.index("kernels_line("))
+    assert smoke.IP_PLUS_WIDTHS == dict(embed_dim=1280, hidden_dim=768, depth=4, heads=12, num_queries=16)
+
+
+TINY_PLUS = dict(embed_dim=32, hidden_dim=64, depth=2, heads=1, num_queries=16)
+
+
+def test_ip_adapter_writer_round_trips(tmp_path):
+    """write_ip_adapter writes one .safetensors file in the published
+    layout: ``image_proj.*`` and ``ip_adapter.<idx>.to_{k,v}_ip.weight`` at
+    idx 1, 3, ... (one pair per cross-attention layer, in the processor
+    order), f16; load_aid_ip_adapter(path) takes it back into the UNet and
+    a Plus resampler, and check_ip_loaded agrees."""
+    import dataclasses
+
+    import torch
+
+    from aid_tpu_torch.models import configs
+    from aid_tpu_torch.models.ip_adapter import Resampler
+    from aid_tpu_torch.models.params import unet_attention_order
+    from aid_tpu_torch.pipelines.interpolation import InterpolationPipeline
+    from aid_tpu_torch.utils.safetensors import load_safetensors
+
+    smoke = _load_smoke()
+    cfg = dataclasses.replace(configs.TINY_UNET, ip_num_tokens=16, ip_hidden_dim=32)
+    unet = smoke.build_sd15(cfg=cfg, device="cpu", dtype=torch.float32)
+    gen = torch.Generator().manual_seed(0)
+    proj = smoke.seed_adapter_module(Resampler(cfg.cross_attention_dim, **TINY_PLUS), gen)
+    path = str(tmp_path / "ip.safetensors")
+    written = smoke.write_ip_adapter(path, unet, proj, gen)
+    n = len(unet_attention_order(cfg))
+    ip_keys = sorted(k for k in written if k.startswith("ip_adapter."))
+    assert ip_keys == sorted(f"ip_adapter.{2 * i + 1}.{p}.weight" for i in range(n) for p in ("to_k_ip", "to_v_ip"))
+    assert {k.split(".", 1)[1] for k in written if k.startswith("image_proj.")} == set(proj.state_dict())
+    on_disk = load_safetensors(path)
+    assert set(on_disk) == set(written) and {v.dtype for v in on_disk.values()} == {torch.float16}
+    pipe = InterpolationPipeline(unet=unet, vae=None, text_encoder=None, tokenizer=None)
+    pipe.load_aid_ip_adapter(path, scale=0.5)
+    failures = []
+    smoke.fail = failures.append
+    smoke.check_ip_loaded("tiny Plus", pipe, written, plus=True)
+    assert not failures and pipe.ip_plus and isinstance(pipe.ip_proj, Resampler)
+    mid = unet_attention_order(cfg)[-1]  # the mid block last: the highest index
+    last = written[f"ip_adapter.{2 * n - 1}.to_k_ip.weight"]
+    assert torch.equal(unet.get_submodule(mid).to_k_ip.weight, last.float())
+    smoke.check_ip_loaded("tiny Plus, a layer changed", pipe, {**written, ip_keys[0]: -written[ip_keys[0]]}, plus=True)
+    assert failures and "did not load back" in failures[0]
+
+
+def test_ip_adapter_phase_rehearses_on_the_cpu(monkeypatch):
+    """Phase 17 end to end at the tiny size on the CPU (3 DDIM steps),
+    torch.cuda's timing calls stubbed: the files written and loaded, every
+    forward check (the sound reading is 0 here, so the bound is set under
+    the faults' readings) and both interpolate_single runs pass; only the
+    kernel launch counts fail (no kernel runs here)."""
+    import torch
+
+    from aid_tpu_torch.models import configs
+
+    smoke = _load_smoke()
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    skipped = []
+
+    def fail(msg):
+        if "launch" not in msg:
+            raise AssertionError(msg)
+        skipped.append(msg)
+
+    monkeypatch.setattr(smoke, "fail", fail)
+    monkeypatch.setattr(smoke, "SD15_STEPS", 3)
+    monkeypatch.setattr(smoke, "IP_UNET_TOL", 1e-7)
+    paths = smoke.phase_ip_adapter("cpu", unet_cfg=configs.TINY_UNET, text_cfg=configs.TINY_CLIP_TEXT,
+                                   vae_cfg=configs.TINY_VAE, vision_cfg=configs.TINY_CLIP_VISION,
+                                   plus_widths=TINY_PLUS, device="cpu")
+    assert len(paths) == 2
+    assert skipped and all("launch" in m for m in skipped)

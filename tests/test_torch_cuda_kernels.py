@@ -529,6 +529,130 @@ def test_flash_kernel_batched_cfg_rows(dev, D, mode):
     assert _attn_err(got[N:], flash_interpolated_attention_plain(q[N:], k[N:], v[N:])) < ATTN_RTOL
 
 
+# The IP-Adapter branch's calls: the cross layers' queries over 4 (standard
+# adapter) or 16 (Plus) image tokens, each segment shorter than one key tile
+# of every instance (16..128 keys), at SD 1.5's head dims and SDXL's 64.
+IP_ENDPOINTS = ["rows", "shared", "per_row"]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("D", [40, 64, 80, 160])
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("T", [4, 16])
+@pytest.mark.parametrize("ep", IP_ENDPOINTS)
+def test_flash_kernels_ip_segments(dev, dtype, D, mode, T, ep):
+    """The kernels against their plain versions on the IP branch's calls:
+    an own KV of T = 4 or 16 image tokens and endpoints of T tokens, every
+    mode, bf16 and f32, 200 queries (a q tail at every tile). Endpoints are
+    rows 0 / B-1 of the tokens (the sequential pass), one shared (H, T, D)
+    pair, or per row as batched CFG makes them ([cond; uncond], 2 x 3 rows,
+    each uncond row its own); the operands are (B, T, H*D) projections
+    viewed as (B, H, T, D), as CrossAttention passes them. One launch of
+    the instance of the dtype, counted under D."""
+    B = 6 if ep == "per_row" else 3
+    H, S = 2, 200
+
+    def heads(x):
+        return x.view(x.shape[0], x.shape[1], H, D).transpose(1, 2)
+
+    q = heads(_randn((B, S, H * D), 600 + D, dtype))
+    k, v = heads(_randn((B, T, H * D), 601 + D, dtype)), heads(_randn((B, T, H * D), 602 + D, dtype))
+    coef = torch.linspace(0, 1, B // 2 if ep == "per_row" else B, device=dev)
+    eps = {}
+    if ep == "per_row":
+        coef = coef.repeat(2)
+        kb, ke = per_row_endpoints(k, B // 2)
+        vb, ve = per_row_endpoints(v, B // 2)
+        eps = dict(k_begin=kb, v_begin=vb, k_end=ke, v_end=ve)
+    elif ep == "shared":
+        eps = {n: _randn((H, T, D), 610 + i, dtype) for i, n in enumerate(("k_begin", "v_begin", "k_end", "v_end"))}
+    fn = flash_interpolated_attention_f32 if dtype == torch.float32 else flash_interpolated_attention
+    before = fn.launches_by_head_dim[D]
+    got = flash_interpolated_attention(q, k, v, coef, mode, **eps)
+    torch.cuda.synchronize()
+    assert fn.launches_by_head_dim[D] == before + 1
+    want = flash_interpolated_attention_plain(q, k, v, coef, mode, **eps)
+    assert got.shape == want.shape and got.dtype == dtype and torch.isfinite(got).all()
+    assert _attn_err(got, want) < (F32_ATTN_RTOL if dtype == torch.float32 else ATTN_RTOL)
+    if ep == "per_row" and mode != "self":  # each uncond row's own tokens as its endpoints: vanilla attention
+        van = flash_interpolated_attention_plain(q[3:], k[3:], v[3:])
+        assert _attn_err(got[3:], van) < (F32_ATTN_RTOL if dtype == torch.float32 else ATTN_RTOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("mode", [m for m in MODES if m != "self"])
+def test_ip_force_vanilla_is_one_launch(dev, dtype, mode):
+    """force_vanilla on a 4-token IP call (the fused loop's late steps):
+    one launch, the forced rows attend their own tokens alone."""
+    q, k, v = _randn((4, 2, 150, 40), 620, dtype), _randn((4, 2, 4, 40), 621, dtype), _randn((4, 2, 4, 40), 622, dtype)
+    coef = torch.tensor([0.0, 0.3, 0.7, 1.0], device=dev)
+    force = torch.tensor([False, True, False, True], device=dev)
+    fn = flash_interpolated_attention_f32 if dtype == torch.float32 else flash_interpolated_attention
+    before = fn.launches
+    got = dispatch_attention(q, k, v, coef, mode, skip_endpoints=force, force_vanilla=force)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    tol = F32_ATTN_RTOL if dtype == torch.float32 else ATTN_RTOL
+    assert _attn_err(got[force], flash_interpolated_attention_plain(q, k, v)[force]) < tol
+    assert _attn_err(got[~force], flash_interpolated_attention_plain(q, k, v, coef, mode)[~force]) < tol
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("ip", ["own", "fused_outer", "pure_inner", "scale_control", "batched_fused_inner"])
+def test_tiny_ip_unet_runs_the_kernels(dev, dtype, ip):
+    """TINY_UNET_IP with 4 image tokens on the card: every attention,
+    the IP branch's included, launches the D=40 instance (head dims 16 and
+    32 padded), and the output matches the same forward through the plain
+    versions as in test_tiny_models_run_the_kernels. The weights are
+    N(0, 0.2), so that attention outputs weigh in the residual stream: the
+    IP branch moves the output by more than twice that bound."""
+    import dataclasses
+
+    from aid_tpu_torch.models import configs
+    from aid_tpu_torch.models.layers import AidContext, AidMode
+    from aid_tpu_torch.models.params import unet_attention_order
+    from aid_tpu_torch.models.unet import UNet2DCondition
+
+    cfg, frames, gen = configs.TINY_UNET_IP, 3, _gen(630)
+    model = UNet2DCondition(cfg, device=dev, dtype=dtype).eval()
+    with torch.no_grad():
+        for p in model.parameters():
+            p.normal_(0.0, 0.2, generator=gen)
+    batched = ip.startswith("batched")
+    rows = 2 * frames if batched else frames
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32).to(dtype)
+
+    sample = randn(rows, cfg.in_channels, cfg.sample_size, cfg.sample_size)
+    ehs, tokens = randn(rows, 77, cfg.cross_attention_dim), randn(rows, cfg.ip_num_tokens, cfg.cross_attention_dim)
+    coef = torch.linspace(0, 1, frames, device=dev).repeat(2 if batched else 1)
+    name = ip.removeprefix("batched_")
+    mode = (AidMode.vanilla(has_ip=True) if name == "own" else AidMode.from_name(name, has_ip=True))
+    if batched:
+        mode = dataclasses.replace(mode, cfg_split=frames)
+    aid = AidContext(coef=coef, mode=mode, ip_hidden_states=tokens, ip_scale=0.7)
+    fn = flash_interpolated_attention_f32 if dtype == torch.float32 else flash_interpolated_attention
+    t = torch.tensor(500, device=dev)
+    with torch.no_grad():
+        before = fn.launches_by_head_dim[40]
+        got = model(sample, t, ehs, aid)
+        torch.cuda.synchronize()
+        launched = fn.launches_by_head_dim[40] - before
+        with reference_ops():
+            want = model(sample, t, ehs, aid)
+            no_ip = model(sample, t, ehs, dataclasses.replace(aid, ip_hidden_states=None))
+    # each transformer block: a self-attention, a text cross-attention and an IP call
+    assert launched == 3 * len(unet_attention_order(cfg))
+    tol = F32_ATTN_RTOL if dtype == torch.float32 else ATTN_RTOL
+
+    def worst(a):
+        return ((a.float() - want.float()).flatten(1).norm(dim=1) / want.float().flatten(1).norm(dim=1)).max().item()
+
+    assert torch.isfinite(got).all() and worst(got) < tol
+    assert worst(no_ip) > 2 * tol
+
+
 @pytest.mark.parametrize("mode", [m for m in MODES if m != "self"])
 def test_force_vanilla_is_one_launch(dev, mode):
     """dispatch_attention's force_vanilla on the card: one kernel launch

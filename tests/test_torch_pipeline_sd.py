@@ -43,9 +43,11 @@ def _perturbed(params, seed):
         lambda a: np.asarray(a, np.float32) + (noise.standard_normal(a.shape) * 0.05).astype(np.float32), params)
 
 
-@pytest.fixture(scope="module")
-def pipes():
-    base = tiny_pipeline()
+def sd_pipes(unet_cfg=configs.TINY_UNET):
+    """(JAX pipeline, port pipeline) over the same perturbed weights; an
+    ``ip_num_tokens > 0`` config (TINY_UNET_IP) gives UNets with the
+    IP-Adapter's projections."""
+    base = tiny_pipeline(unet_cfg=unet_cfg)
     unet_p, vae_p, text_p = (_perturbed(p, s) for p, s in ((base.unet_params, 21), (base.vae_params, 22),
                                                             (base.text_params, 23)))
     jax_pipe = dataclasses.replace(base, unet_params=th.to_jnp(unet_p), vae_params=th.to_jnp(vae_p),
@@ -55,10 +57,15 @@ def pipes():
     text = CLIPTextModel(configs.TINY_CLIP_TEXT)
     text.load_state_dict(clip_text_state_dict_from_flax(text_p), strict=True)
     pipe = InterpolationPipeline(
-        unet=th.port_unet(configs.TINY_UNET, unet_p), vae=vae.eval(), text_encoder=text.eval(),
+        unet=th.port_unet(unet_cfg, unet_p), vae=vae.eval(), text_encoder=text.eval(),
         tokenizer=HashTokenizer(configs.TINY_CLIP_TEXT.vocab_size), scheduler=DDIMScheduler(),
         vae_scale_factor=base.vae_scale_factor)
     return jax_pipe, pipe
+
+
+@pytest.fixture(scope="module")
+def pipes():
+    return sd_pipes()
 
 
 def _latents(seed=40):
@@ -222,11 +229,27 @@ def test_step_callback_matches_jax(pipes):
 
 
 def test_entry_point_guards(pipes):
-    """Image embeds need the IP-Adapter branch, not yet ported; t must lie in (0, 1)."""
+    """Image embeds need an IP-Adapter: without one they raise, with one
+    (a UNet with IP tokens, an h94-format checkpoint loaded on both sides)
+    interpolate_single agrees with the JAX pipeline; t must lie in (0, 1)."""
+    from test_torch_ip_adapter import checkpoint
+
     _, pipe = pipes
     _, (ta, tb) = _both(*_latents())
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="load_aid_ip_adapter"):
         pipe.interpolate_single(0.5, ta, tb, image_embeds_end=torch.zeros(1, 8), num_inference_steps=1)
+    jax_ip, ip_pipe = sd_pipes(configs.TINY_UNET_IP)
+    sd = checkpoint(configs.TINY_UNET_IP, 14)
+    jax_ip.load_aid_ip_adapter(sd, scale=0.6)
+    ip_pipe.load_aid_ip_adapter(sd, scale=0.6)
+    e0, e1 = (th.normal(80 + i, (1, configs.TINY_UNET_IP.ip_hidden_dim)) for i in range(2))
+    (ja, jb), (ta, tb) = _both(*_latents())
+    kw = dict(prompt_start="a red cat", prompt_end="a blue dog", num_inference_steps=STEPS, output_type="latent")
+    want = jax_ip.interpolate_single(0.5, ja, jb, image_embeds_start=jnp.asarray(e0),
+                                     image_embeds_end=jnp.asarray(e1), **kw)
+    got = ip_pipe.interpolate_single(0.5, ta, tb, image_embeds_start=torch.from_numpy(e0),
+                                     image_embeds_end=torch.from_numpy(e1), **kw)
+    _same_latents(got, want)
     for it in (0.0, 1.0):
         with pytest.raises(ValueError):
             pipe.interpolate_single(it, ta, tb, num_inference_steps=1)

@@ -48,11 +48,13 @@ def _perturbed(params, seed):
         lambda a: np.asarray(a, np.float32) + (noise.standard_normal(a.shape) * 0.05).astype(np.float32), params)
 
 
-@pytest.fixture(scope="module")
-def pipes():
+def xl_pipes(unet_cfg=UNET_CFG):
+    """(JAX XL pipeline, port XL pipeline) over the same perturbed weights;
+    an ``ip_num_tokens > 0`` config gives UNets with the IP-Adapter's
+    projections."""
     from aid_tpu.models import configs as jax_configs
 
-    jax_unet, unet_params = th.jax_unet_and_params(UNET_CFG, seed=3)
+    jax_unet, unet_params = th.jax_unet_and_params(unet_cfg, seed=3)
     jvae = JaxVAE(configs.TINY_VAE)
     vae_params = _perturbed(jvae.init(jax.random.PRNGKey(1), jnp.zeros((1, 16, 16, 3))), 11)
     encoders = []
@@ -72,10 +74,15 @@ def pipes():
     vae = AutoencoderKL(configs.TINY_VAE)
     vae.load_state_dict(vae_state_dict_from_flax(vae_params), strict=True)
     pipe = InterpolationXLPipeline(
-        unet=th.port_unet(UNET_CFG, unet_params), vae=vae.eval(), text_encoder=t1,
+        unet=th.port_unet(unet_cfg, unet_params), vae=vae.eval(), text_encoder=t1,
         tokenizer=HashTokenizer(configs.TINY_CLIP_TEXT.vocab_size), scheduler=EulerDiscreteScheduler(),
         text_encoder_2=t2, tokenizer_2=HashTokenizer(TEXT2_CFG.vocab_size), vae_scale_factor=2, default_size=16)
     return jax_pipe, pipe
+
+
+@pytest.fixture(scope="module")
+def pipes():
+    return xl_pipes()
 
 
 def _latents():
@@ -162,13 +169,30 @@ def test_vanilla_entry_points_match_jax(pipes):
 
 
 def test_xl_image_embeds_raise(pipes):
-    """The IP-Adapter branch is not ported: image embeds raise on the XL
-    entry point as on the SD1.x one."""
+    """Image embeds on the XL entry point raise without an IP-Adapter, as on
+    the SD1.x one; with one loaded on both sides (a UNet with IP tokens)
+    interpolate_single agrees with the JAX XL pipeline."""
+    from test_torch_ip_adapter import checkpoint
+
     _, pipe = pipes
     a, b = _latents()
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="load_aid_ip_adapter"):
         pipe.interpolate_single(0.5, th.nhwc_to_nchw(a), th.nhwc_to_nchw(b), image_embeds_end=torch.zeros(1, 8),
                                 num_inference_steps=1)
+    cfg = dataclasses.replace(UNET_CFG, ip_num_tokens=4, ip_hidden_dim=8)
+    jax_ip, ip_pipe = xl_pipes(cfg)
+    sd = checkpoint(cfg, 15)
+    jax_ip.load_aid_ip_adapter(sd, scale=0.6)
+    ip_pipe.load_aid_ip_adapter(sd, scale=0.6)
+    e0, e1 = (th.normal(90 + i, (1, 8)) for i in range(2))
+    kw = dict(prompt_start="a red cat", prompt_end="a blue dog", num_inference_steps=2, output_type="latent")
+    want = jax_ip.interpolate_single(0.5, jnp.asarray(a), jnp.asarray(b), image_embeds_start=jnp.asarray(e0),
+                                     image_embeds_end=jnp.asarray(e1), **kw)
+    got = ip_pipe.interpolate_single(0.5, th.nhwc_to_nchw(a), th.nhwc_to_nchw(b),
+                                     image_embeds_start=torch.from_numpy(e0), image_embeds_end=torch.from_numpy(e1),
+                                     **kw)
+    assert torch.isfinite(got).all()
+    assert th.max_rel_err(th.nchw_to_nhwc(got), np.asarray(want)) < SLICE_TOL
 
 
 @pytest.mark.parametrize("option", ["bf16_vae", "vae_tiling", "batched_cfg"])

@@ -3,7 +3,8 @@
     python3 tools/attention_bench.py [--reps 20] [--dtype bf16|f32] [--d512] [--only TEXT] [--root DIR]
 
 For each shape class of ``chip_smoke.py`` phase 3 (bf16: SDXL at D=64, SD1.5
-at D=40/80/160; f32: every f32 shape of PERF.md's kernel table, SDXL's and SD
+at D=40/80/160 and SD1.5's IP-Adapter calls over 16 and 4 image tokens,
+which also time the call through the wrapper; f32: every f32 shape of PERF.md's kernel table, SDXL's and SD
 2.1's D=64 and SD1.5's D=40/80/160, the latter at 256 and 64 tokens and the
 77-key cross-attention; 7 frames, (B, S, H*D) projections viewed as (B, H,
 S, D), the coef-0/1 end rows as skip rows; ``--only`` keeps the labels that
@@ -46,6 +47,15 @@ SHAPES = [
     ("fused_outer 1024 D=80", "fused_outer", 8, 1024, 1024, 80),
     ("self 256 D=160", "self", 8, 256, 256, 160),
     ("fused_outer 256 D=160", "fused_outer", 8, 256, 256, 160),
+    # SD1.5's IP-Adapter calls: the queries over 16 (Plus) or 4 image tokens, no skip rows
+    ("IP self 4096x16 D=40", "self", 8, 4096, 16, 40),
+    ("IP fused_outer 4096x16 D=40", "fused_outer", 8, 4096, 16, 40),
+    ("IP self 4096x4 D=40", "self", 8, 4096, 4, 40),
+    ("IP fused_outer 4096x4 D=40", "fused_outer", 8, 4096, 4, 40),
+    ("IP self 1024x16 D=80", "self", 8, 1024, 16, 80),
+    ("IP fused_outer 1024x16 D=80", "fused_outer", 8, 1024, 16, 80),
+    ("IP self 256x16 D=160", "self", 8, 256, 16, 160),
+    ("IP fused_outer 256x16 D=160", "fused_outer", 8, 256, 16, 160),
 ]
 # the f32 shapes of PERF.md's kernel table (SDXL and SD 2.1 at D=64, SD1.5 at D=40/80/160)
 F32_SHAPES = [
@@ -163,7 +173,7 @@ def main(argv=None) -> int:
             return x.view(B, n, H, D).transpose(1, 2)
 
         q, k, v = heads(Sq), heads(L), heads(L)
-        kw = {} if mode == "self" else {"skip_endpoints": skip}
+        kw = {} if mode == "self" or label.startswith("IP") else {"skip_endpoints": skip}
         out, launch = kernel_launch(q, k, v, coef, mode, **kw)
         launch()
         want = flash_interpolated_attention_plain(q, k, v, coef, mode, **kw)
@@ -171,10 +181,10 @@ def main(argv=None) -> int:
         if not err <= tol:
             raise SystemExit(f"{label}: the kernel disagrees with the plain version ({err:.3e})")
         ms = cuda_ms(launch, args.reps)
-        bound_ms, by = attention_bound(mode, B, H, Sq, L, D, skip_rows=0 if mode == "self" else int(skip.sum()),
+        bound_ms, by = attention_bound(mode, B, H, Sq, L, D, skip_rows=int(skip.sum()) if "skip_endpoints" in kw else 0,
                                        elem=4 if f32 else 2, tf32_passes=3 if f32 else None)
         line = f"{label:32s} launch alone {ms:.4f} ms  bound {bound_ms:.4f} ms ({by}, {bound_ms / ms:.1%})"
-        if f32:
+        if f32 or label.startswith("IP"):
             wrapper_ms = cuda_ms(lambda: flash_interpolated_attention(q, k, v, coef, mode, **kw), args.reps)
             line += f"  through the wrapper {wrapper_ms:.4f} ms"
         if mode == "self":
