@@ -9,7 +9,8 @@ The JAX package ``aid_tpu`` is the reference; this package never imports it
   csrc/       the CUDA C++ kernels (sm_90a), built by ops/_build.py at first use
   models/     configs, UNet building blocks, UNet2DCondition, VAE decode,
               CLIP text and vision towers, the safety checker, param
-              conversion, the loader
+              conversion (LDM single files, LoRA merge, textual
+              inversion), the loader (diffusers directories, single files)
   prior/      the coefficient selection: Beta-prior explore-and-select (its
               DP search native through ctypes), Bayesian (alpha, beta)
               search, the CLIP scorer
@@ -17,7 +18,9 @@ The JAX package ``aid_tpu`` is the reference; this package never imports it
   schedulers/ DDIM, Euler, PNDM, UniPC, EDM DPM-Solver++
   pipelines/  the warmup-split CFG denoise engine, VAE decode to uint8, the
               SD1.x interpolation pipeline and its SDXL subclass
-  utils/      tokenizers, the safetensors reader, the invisible watermark
+  utils/      tokenizers, the safetensors reader, the invisible watermark,
+              the readers of exported latents and embeddings, the phase
+              timer and profiler trace, image strips and grids
 
 On a CPU tensor every op runs its plain PyTorch version; on a CUDA tensor it
 runs its kernel (see ``ops/routing.py``).

@@ -17,15 +17,22 @@ f32 when its config sets ``force_upcast`` (bf16 otherwise), the safety
 checker f32. Every module lands on ``device``, "cuda" unless the caller asks
 for "cpu".
 
-Not ported: the parameter cache (``cache_dir``, orbax), single-file
-checkpoints, LoRA and textual inversion. The JAX XL loader reads no safety
-checker, and neither does this one.
+An original single-file checkpoint (``.safetensors`` or torch ``.ckpt``)
+loads through :func:`load_single_file_pipeline` (loader.py:313-529): the
+layout (SD 1.x, SD 2.x, SDXL) and the model configs are read off the
+tensors, the weights converted by ``models.params`` into the same names,
+and the prediction type resolved by :func:`resolve_single_file_prediction_type`.
+
+Not ported: the parameter cache (``cache_dir``, orbax). The JAX XL loader
+reads no safety checker, and neither does this one.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
+import warnings
 from typing import Optional
 
 import torch
@@ -123,14 +130,22 @@ def _weights(path: str, dtype: torch.dtype, device) -> dict:
             if not k.endswith("embeddings.position_ids")}
 
 
-def _load_module(cls, cfg, path: str, dtype: torch.dtype, device):
-    """``cls(cfg)`` built on the meta device, then given the safetensors of
-    ``path`` read onto ``device`` in ``dtype`` (strict: every name must
-    match, none may be left over)."""
+def _placed(cls, cfg, sd: dict, dtype: torch.dtype, device):
+    """``cls(cfg)`` built on the meta device, then given ``sd`` on
+    ``device`` in ``dtype`` (strict: every name must match, none may be left
+    over; transformers' position_ids buffers dropped)."""
+    sd = {k: v.to(device=device, dtype=dtype).contiguous() for k, v in sd.items()
+          if not k.endswith("embeddings.position_ids")}
     with torch.device("meta"):
         module = cls(cfg, dtype=dtype)
-    module.load_state_dict(_weights(path, dtype, device), strict=True, assign=True)
+    module.load_state_dict(sd, strict=True, assign=True)
     return module.eval()
+
+
+def _load_module(cls, cfg, path: str, dtype: torch.dtype, device):
+    """``cls(cfg)`` given the safetensors of ``path``, read onto ``device``
+    in ``dtype``."""
+    return _placed(cls, cfg, load_safetensors(path, dtype=dtype, device=device), dtype, device)
 
 
 def load_unet(path: str, dtype: torch.dtype = torch.bfloat16, device="cuda") -> UNet2DCondition:
@@ -287,4 +302,154 @@ def load_interpolation_xl_pipeline(repo_path: str, scheduler_name: str = "auto",
         tokenizer_2=load_tokenizer(os.path.join(repo_path, "tokenizer_2")),
         scheduler=load_scheduler(repo_path, scheduler_name),
         **({} if guidance_scale is None else {"guidance_scale": guidance_scale}),
+    )
+
+
+def infer_single_file_prediction_type(cross_dim: int, global_step) -> str:
+    """The SD 2.x v-prediction heuristic of a single-file checkpoint
+    (loader.py:313-325, diffusers' from_single_file rule): the 768-v
+    releases trained past ``global_step`` 875 000, the 512 base run
+    stopped earlier. Only the 1024-wide cross-attention (SD 2.x) layout can
+    be v-prediction; everything else is epsilon."""
+    if cross_dim == 1024 and global_step is not None and int(global_step) >= 875_000:
+        return "v_prediction"
+    return "epsilon"
+
+
+def apply_prediction_type(scheduler, prediction_type: str):
+    """``scheduler`` with its prediction objective pinned (loader.py:328-341):
+    a copy of the frozen dataclass, through its nested ``SchedulerConfig``
+    where it has one, else through the EDM solver's own field."""
+    if hasattr(scheduler, "config"):
+        return dataclasses.replace(scheduler, config=dataclasses.replace(scheduler.config,
+                                                                         prediction_type=prediction_type))
+    return dataclasses.replace(scheduler, prediction_type=prediction_type)
+
+
+def resolve_single_file_prediction_type(ckpt_dir: str, explicit: Optional[str], cross_dim: int,
+                                        global_step) -> Optional[str]:
+    """The prediction objective of a single-file load (loader.py:344-380).
+    An ``explicit`` value wins. Next, a sidecar
+    ``scheduler/scheduler_config.json`` beside the checkpoint that pins
+    ``prediction_type``: None is returned, since ``load_scheduler`` already
+    read it. Last, :func:`infer_single_file_prediction_type`, which warns on
+    an SD 2.x file with no ``global_step`` (bare safetensors exports carry
+    none, so a 768-v model cannot be told from the base one): epsilon is
+    assumed."""
+    if explicit is not None:
+        return explicit
+    sidecar = os.path.join(ckpt_dir, "scheduler", "scheduler_config.json")
+    if os.path.exists(sidecar):
+        with open(sidecar) as f:
+            if "prediction_type" in json.load(f):
+                return None
+    if cross_dim == 1024 and global_step is None:
+        warnings.warn("SD2.x single-file checkpoint without global_step metadata (typical of bare safetensors "
+                      "exports): cannot detect whether this is a 768-v model; defaulting to epsilon. Pass "
+                      "prediction_type='v_prediction' if this is a v-objective (768px) checkpoint.", stacklevel=3)
+    return infer_single_file_prediction_type(cross_dim, global_step)
+
+
+def _read_single_file(path: str) -> dict:
+    """Every entry of a .safetensors file (the port's reader) or a torch
+    .ckpt (``torch.load(weights_only=True)``), on the CPU, as stored."""
+    if path.endswith(".safetensors"):
+        return load_safetensors(path)
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def _text_config(text_sd: dict, hidden_act: str = "quick_gelu", projection_dim: Optional[int] = None):
+    """A text tower's config read off its tensors (loader.py:438-451): the
+    vocabulary and width from the token table, the depth from the highest
+    layer index, 64 channels a head, a 4x MLP."""
+    vocab, hidden = text_sd["text_model.embeddings.token_embedding.weight"].shape
+    layers = 1 + max(int(k.split(".")[3]) for k in text_sd if k.startswith("text_model.encoder.layers."))
+    return C.CLIPTextConfig(vocab_size=vocab, hidden_size=hidden, intermediate_size=4 * hidden,
+                            num_hidden_layers=layers, num_attention_heads=hidden // 64, hidden_act=hidden_act,
+                            projection_dim=projection_dim)
+
+
+def load_single_file_pipeline(
+    checkpoint_path: str,
+    tokenizer_path: str,
+    scheduler_name: str = "ddim",
+    dtype: torch.dtype = torch.bfloat16,
+    guidance_scale: Optional[float] = None,
+    tokenizer_2_path: Optional[str] = None,
+    prediction_type: Optional[str] = None,
+    device="cuda",
+):
+    """An ``InterpolationPipeline`` (or ``InterpolationXLPipeline``) from an
+    original single-file checkpoint, ``.safetensors`` or torch ``.ckpt``
+    (loader.py:383-529).
+
+    The layout is read off the keys (``conditioner.embedders.*``: SDXL) and
+    the configs off the tensors: cross-attention width 768 is SD 1.x
+    (``configs.SD15_UNET``), 1024 SD 2.x (``SD21_UNET``, its OpenCLIP tower
+    gelu), with ``use_linear_projection`` from the rank of ``proj_in``'s
+    weight; SDXL takes ``SDXL_UNET`` and ``SDXL_VAE``, SD ``SD_VAE``. The
+    file holds no tokenizer: ``tokenizer_path`` is any SD tokenizer
+    directory. SD 2.x's tokenizer pads with "!" whatever the directory says,
+    as does SDXL's ``tokenizer_2`` unless ``tokenizer_2_path`` gives one.
+    ``global_step`` is read before the ``state_dict`` wrapper is removed;
+    ``prediction_type`` follows :func:`resolve_single_file_prediction_type`.
+    Guidance defaults to 7.5 (SD) or 5.0 (SDXL). Each module is built on the
+    meta device and takes its converted tensors on ``device`` ("cuda" unless
+    the caller asks for "cpu"): the UNet in ``dtype``, the text encoders in
+    f32, the VAE by ``force_upcast``, as :func:`load_interpolation_pipeline`
+    places them."""
+    from aid_tpu_torch.models.params import convert_ldm_checkpoint, convert_ldm_checkpoint_xl
+    from aid_tpu_torch.pipelines.interpolation import InterpolationPipeline
+
+    sd = _read_single_file(checkpoint_path)
+    global_step = sd.get("global_step")  # torch .ckpt metadata beside state_dict
+    if "state_dict" in sd and not hasattr(sd["state_dict"], "shape"):
+        sd = sd["state_dict"]
+    ckpt_dir = os.path.dirname(checkpoint_path) or "."
+    scheduler = load_scheduler(ckpt_dir, scheduler_name)
+
+    def vae(vae_sd, cfg):
+        return _placed(AutoencoderKL, cfg, vae_sd, vae_decode_dtype(cfg), device)
+
+    def text(text_sd, **kw):
+        return _placed(CLIPTextModel, _text_config(text_sd, **kw), text_sd, torch.float32, device)
+
+    if any(k.startswith("conditioner.embedders.") for k in sd):
+        from aid_tpu_torch.pipelines.sdxl import InterpolationXLPipeline
+
+        unet_sd, vae_sd, text_sd, text2_sd = convert_ldm_checkpoint_xl(sd)
+        return InterpolationXLPipeline(
+            unet=_placed(UNet2DCondition, C.SDXL_UNET, unet_sd, dtype, device),
+            vae=vae(vae_sd, C.SDXL_VAE),
+            text_encoder=text(text_sd),
+            tokenizer=load_tokenizer(tokenizer_path),
+            text_encoder_2=text(text2_sd, hidden_act="gelu",
+                                projection_dim=text2_sd["text_projection.weight"].shape[0]),
+            # the bigG tower was trained with "!" (id 0) padding, whatever an
+            # SD tokenizer directory's own config says (loader.py:477-487)
+            tokenizer_2=(load_tokenizer(tokenizer_2_path) if tokenizer_2_path
+                         else load_tokenizer(tokenizer_path, pad_token="!")),
+            scheduler=scheduler,
+            guidance_scale=5.0 if guidance_scale is None else guidance_scale,
+        )
+
+    unet_sd, vae_sd, text_sd = convert_ldm_checkpoint(sd)
+    cross_dim = unet_sd["down_blocks.0.attentions.0.transformer_blocks.0.attn2.to_k.weight"].shape[1]
+    unet_cfg = C.SD21_UNET if cross_dim == 1024 else C.SD15_UNET
+    linear_proj = unet_sd["down_blocks.0.attentions.0.proj_in.weight"].dim() == 2
+    if linear_proj != unet_cfg.use_linear_projection:
+        unet_cfg = dataclasses.replace(unet_cfg, use_linear_projection=linear_proj)
+    prediction_type = resolve_single_file_prediction_type(ckpt_dir, prediction_type, cross_dim, global_step)
+    if prediction_type is not None:
+        scheduler = apply_prediction_type(scheduler, prediction_type)
+    sd2 = cross_dim == 1024
+    return InterpolationPipeline(
+        unet=_placed(UNet2DCondition, unet_cfg, unet_sd, dtype, device),
+        vae=vae(vae_sd, C.SD_VAE),
+        text_encoder=text(text_sd, hidden_act="gelu" if sd2 else "quick_gelu"),
+        # SD 2.x's OpenCLIP tower was trained with "!" (id 0) padding; SD 1.x
+        # tokenizer directories pad with EOS (loader.py:515-525)
+        tokenizer=load_tokenizer(tokenizer_path, pad_token="!") if sd2 else load_tokenizer(tokenizer_path),
+        scheduler=scheduler,
+        guidance_scale=7.5 if guidance_scale is None else guidance_scale,
     )

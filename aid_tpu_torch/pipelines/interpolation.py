@@ -37,7 +37,12 @@ coefficient (the JAX pipeline sets it at load time; the port keeps no mode
 state on the pipeline and leaves out the reference's unused
 ``default_early`` / ``load_aid``).
 
-Not yet ported: the prompt-embeds shortcuts.
+``interpolate_single`` also takes pre-computed text embeddings
+(``prompt_embeds_start`` / ``_end`` with ``negative_prompt_embeds``, and
+``guide_prompt_embeds`` with or without them), which skip the tokenizer and
+the text encoder (interpolation.py:475-545): the way reference-exported
+embeddings (``utils/parity.py``) drive a run. ``load_textual_inversion``
+adds an embedding's placeholder to the tokenizer and the text encoder.
 """
 
 from __future__ import annotations
@@ -254,6 +259,19 @@ class InterpolationPipeline:
         self.image_encoder = image_encoder
         return self
 
+    def load_textual_inversion(self, checkpoint, token: Optional[str] = None):
+        """Add a textual-inversion embedding (a dict or a file; the layouts
+        of ``models.params.textual_inversion_embedding``) to the text
+        encoder and the tokenizer (interpolation.py:271-283): the token
+        table grows on its device, and the placeholder maps to its new ids."""
+        from aid_tpu_torch.models.params import load_textual_inversion
+
+        load_textual_inversion(self.text_encoder, self.tokenizer, checkpoint, token)
+        return self
+
+    def _embeds(self, x) -> Optional[torch.Tensor]:
+        return None if x is None else torch.as_tensor(x, device=self.device)
+
     @torch.no_grad()
     def encode_image(self, images) -> torch.Tensor:
         """Frames (N, H, W, 3), uint8 or float in [0, 1], numpy or torch ->
@@ -432,6 +450,10 @@ class InterpolationPipeline:
         image_embeds_start: Optional[torch.Tensor] = None,
         image_embeds_end: Optional[torch.Tensor] = None,
         negative_image_embeds: Optional[torch.Tensor] = None,
+        prompt_embeds_start: Optional[torch.Tensor] = None,
+        prompt_embeds_end: Optional[torch.Tensor] = None,
+        negative_prompt_embeds: Optional[torch.Tensor] = None,
+        guide_prompt_embeds: Optional[torch.Tensor] = None,
         seed: int = 0,
         output_type: str = "np",
         callback_on_chunk_end=None,
@@ -444,19 +466,32 @@ class InterpolationPipeline:
         With an IP-Adapter loaded, ``image_embeds_start/end`` (from
         ``encode_image``) are interpolated the same way; with only
         ``image_embeds_end`` (scale control, ``early="scale_control"``)
-        the start is ``negative_image_embeds``, zeros by default."""
+        the start is ``negative_image_embeds``, zeros by default.
+
+        ``prompt_embeds_start`` / ``_end`` and ``negative_prompt_embeds``
+        (each (1, S, D), all three together) stand in for the prompts and
+        skip the text encoder; ``guide_prompt_embeds`` stands in for the
+        guide prompt, with or without them (interpolation.py:525-545)."""
         if not 0.0 < it < 1.0:
             raise ValueError("t must be between 0 and 1")
         latent_start = self._seeded_latent(seed) if latent_start is None else latent_start.to(self.device)
         latent_end = self._seeded_latent(seed + 1) if latent_end is None else latent_end.to(self.device)
         latents = torch.cat([latent_start, slerp_latent(latent_start, latent_end, it), latent_end], dim=0)
 
-        emb_s, un_s = self.encode_prompt(prompt_start, negative_prompt)
-        emb_e, un_e = self.encode_prompt(prompt_end, negative_prompt)
-        if guide_prompt is not None:
-            emb_t = self.encode_prompt(guide_prompt, negative_prompt)[0]
+        if prompt_embeds_start is not None:
+            if prompt_embeds_end is None or negative_prompt_embeds is None:
+                raise ValueError("prompt_embeds_start requires prompt_embeds_end and negative_prompt_embeds")
+            emb_s, emb_e = self._embeds(prompt_embeds_start), self._embeds(prompt_embeds_end)
+            un_s = un_e = self._embeds(negative_prompt_embeds)
+            emb_g = self._embeds(guide_prompt_embeds)
         else:
-            emb_t = self._interp_pair(emb_s, emb_e, it, init)
+            emb_s, un_s = self.encode_prompt(prompt_start, negative_prompt)
+            emb_e, un_e = self.encode_prompt(prompt_end, negative_prompt)
+            if guide_prompt_embeds is not None:
+                emb_g = self._embeds(guide_prompt_embeds)
+            else:
+                emb_g = self.encode_prompt(guide_prompt, negative_prompt)[0] if guide_prompt is not None else None
+        emb_t = emb_g if emb_g is not None else self._interp_pair(emb_s, emb_e, it, init)
         un_t = self._interp_pair(un_s, un_e, it, init)
         embs = torch.cat([emb_s, emb_t, emb_e], dim=0)
         uncond = torch.cat([un_s, un_t, un_e], dim=0)

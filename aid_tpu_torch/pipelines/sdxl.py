@@ -19,7 +19,12 @@ decoded frame when set (sdxl.py:40-53); None, the default, leaves them.
 (sdxl.py:352-372), with an IP-Adapter loaded through the inherited
 ``load_aid_ip_adapter``.
 
-Not yet ported: the prompt-embeds entry points.
+``interpolate_single`` takes pre-computed embeddings in place of the two
+text encoders (sdxl.py:263-335): ``prompt_embeds_start`` / ``_end``,
+``pooled_prompt_embeds_start`` / ``_end``, ``negative_prompt_embeds`` and
+``negative_pooled_prompt_embeds`` together, and the guide's
+``guide_prompt_embeds`` (its pooled embeds optional: without them the
+middle frame's pooled embeds are interpolated) with or without them.
 """
 
 from __future__ import annotations
@@ -217,6 +222,14 @@ class InterpolationXLPipeline(InterpolationPipeline):
         image_embeds_start: Optional[torch.Tensor] = None,
         image_embeds_end: Optional[torch.Tensor] = None,
         negative_image_embeds: Optional[torch.Tensor] = None,
+        prompt_embeds_start: Optional[torch.Tensor] = None,
+        prompt_embeds_end: Optional[torch.Tensor] = None,
+        pooled_prompt_embeds_start: Optional[torch.Tensor] = None,
+        pooled_prompt_embeds_end: Optional[torch.Tensor] = None,
+        negative_prompt_embeds: Optional[torch.Tensor] = None,
+        negative_pooled_prompt_embeds: Optional[torch.Tensor] = None,
+        guide_prompt_embeds: Optional[torch.Tensor] = None,
+        guide_pooled_prompt_embeds: Optional[torch.Tensor] = None,
         height: Optional[int] = None,
         width: Optional[int] = None,
         denoising_end: Optional[float] = None,
@@ -234,7 +247,9 @@ class InterpolationXLPipeline(InterpolationPipeline):
         """SDXL 3-frame [A, interpolated, B] generation (sdxl.py:240-380):
         as the base class's, with pooled embeds interpolated beside the text
         embeds (a guide prompt brings its own) and the micro-conditioning
-        kwargs, whose negatives change only the uncond pass's time_ids."""
+        kwargs, whose negatives change only the uncond pass's time_ids.
+        Pre-computed embeddings ((1, S, D1 + D2) and pooled (1, P)) stand in
+        for the prompts as the module docstring says."""
         if not 0.0 < it < 1.0:
             raise ValueError("t must be between 0 and 1")
         height = height or self.default_size
@@ -243,10 +258,29 @@ class InterpolationXLPipeline(InterpolationPipeline):
         latent_end = self._seeded_latent(seed + 1) if latent_end is None else latent_end.to(self.device)
         latents = torch.cat([latent_start, slerp_latent(latent_start, latent_end, it), latent_end], dim=0)
 
-        emb_s, un_s, pooled_s, neg_pooled_s = self.encode_prompt(prompt_start, negative_prompt)
-        emb_e, un_e, pooled_e, neg_pooled_e = self.encode_prompt(prompt_end, negative_prompt)
-        if guide_prompt is not None:
-            emb_t, _, pooled_t, _ = self.encode_prompt(guide_prompt, negative_prompt)
+        if prompt_embeds_start is not None:
+            needed = (prompt_embeds_end, pooled_prompt_embeds_start, pooled_prompt_embeds_end, negative_prompt_embeds,
+                      negative_pooled_prompt_embeds)
+            if any(x is None for x in needed):
+                raise ValueError("prompt_embeds_start requires prompt_embeds_end, pooled_prompt_embeds_start/end, "
+                                 "negative_prompt_embeds and negative_pooled_prompt_embeds")
+            emb_s, emb_e = self._embeds(prompt_embeds_start), self._embeds(prompt_embeds_end)
+            pooled_s, pooled_e = self._embeds(pooled_prompt_embeds_start), self._embeds(pooled_prompt_embeds_end)
+            un_s = un_e = self._embeds(negative_prompt_embeds)
+            neg_pooled_s = neg_pooled_e = self._embeds(negative_pooled_prompt_embeds)
+            emb_g, pooled_g = self._embeds(guide_prompt_embeds), self._embeds(guide_pooled_prompt_embeds)
+        else:
+            emb_s, un_s, pooled_s, neg_pooled_s = self.encode_prompt(prompt_start, negative_prompt)
+            emb_e, un_e, pooled_e, neg_pooled_e = self.encode_prompt(prompt_end, negative_prompt)
+            emb_g = pooled_g = None
+            if guide_prompt_embeds is not None:
+                emb_g, pooled_g = self._embeds(guide_prompt_embeds), self._embeds(guide_pooled_prompt_embeds)
+            elif guide_prompt is not None:
+                emb_g, _, pooled_g, _ = self.encode_prompt(guide_prompt, negative_prompt)
+        if emb_g is not None:
+            # the guide's pooled embeds fall back to the interpolated ones (sdxl.py:333-340)
+            emb_t = emb_g
+            pooled_t = pooled_g if pooled_g is not None else self._interp_pair(pooled_s, pooled_e, it, init)
         else:
             emb_t = self._interp_pair(emb_s, emb_e, it, init)
             pooled_t = self._interp_pair(pooled_s, pooled_e, it, init)

@@ -61,7 +61,15 @@ read just after:
     as .safetensors files in the published layout and loaded with
     ``load_aid_ip_adapter(path)``, a random ViT-H/14 image encoder;
     ``interpolate_single(0.5)`` from two images through ``encode_image``,
-    then in scale control.
+    then in scale control;
+  * what users load into a pipeline, at SD 2.1's full width: phase 13's
+    seeded draw as one original LDM-layout ``.safetensors`` (OpenCLIP
+    ViT-H tower of 24 resblocks) loaded with ``load_single_file_pipeline``
+    and run through ``interpolate_single`` at 768px, 25 UniPC steps, against
+    the diffusers directory of the same draw; the SDXL single-file layout at
+    full width in memory; a LoRA merged into the UNet (``merge_lora``); a
+    textual-inversion file; pre-computed prompt embeddings; latents
+    exported as .npy / .pt and read back (``utils/parity.py``).
 
 Phases (each prints its own lines; any failure exits non-zero):
   1. device      needs CUDA; prints the card's name and power limit
@@ -131,6 +139,17 @@ Phases (each prints its own lines; any failure exits non-zero):
                  dim count the IP calls), interpolate_single(0.5) from two
                  images through encode_image (s/step), the same in scale
                  control; the standard 4-token adapter's forward check
+ 18. single file load_single_file_pipeline on an SD2.1 LDM file written from
+                 phase 13's draw (load seconds with PhaseTimer): UNet, VAE and
+                 23-layer text tower bit-equal to the directory load,
+                 interpolate_single(0.5) latents bit-equal to the directory
+                 pipeline's (s/step, peak memory, launches), the bare file's
+                 warning and epsilon; the SDXL layout's round trip through
+                 convert_ldm_checkpoint_xl at full width; merge_lora (every
+                 merged weight bit-equal to W + cast(1.5 B A), the rest
+                 shared) and the merged UNet's forward kernels vs plain with
+                 two planted faults; a textual inversion, prompt_embeds_* and
+                 exported latents, each run bit-equal
 The smoke prints its own wall time before the kernels line.
 Phase 1 turns TF32 off for cuBLAS and cuDNN, so every plain f32 version and
 library call computes in full f32.
@@ -2737,6 +2756,479 @@ def phase_ip_adapter(card: str, unet_cfg=None, text_cfg=None, vae_cfg=None, visi
         shutil.rmtree(root, ignore_errors=True)
     return paths
 
+# ---------------------------------------------------------------------------
+# phase 18: what users load into a pipeline (single files, LoRA, textual
+# inversion, pre-computed embeddings, exported latents)
+# ---------------------------------------------------------------------------
+
+# The LoRA of phase 18 (c): rank 8, alpha 16, merged at scale 0.75, so each
+# update is 1.5 * B @ A; factors N(0, 0.02) in f16, as published LoRAs ship.
+LORA_RANK, LORA_ALPHA, LORA_SCALE = 8, 16.0, 0.75
+# The textual-inversion placeholder of phase 18 (d), two vectors.
+TI_TOKEN = "<aid-concept>"
+
+# LDM <-> diffusers names, written here from the LDM layout itself so that
+# phase 18's files do not come from the port's own map (models/params.py):
+# a UNet resnet's sub-modules, and the VAE mid block's attention.
+_LDM_RESNET = {"norm1": "in_layers.0", "conv1": "in_layers.2", "time_emb_proj": "emb_layers.1",
+               "norm2": "out_layers.0", "conv2": "out_layers.3", "conv_shortcut": "skip_connection"}
+_LDM_VAE_ATTENTION = {"group_norm": "norm", "to_q": "q", "to_k": "k", "to_v": "v", "to_out.0": "proj_out"}
+
+
+def ldm_unet_key(key: str, cfg) -> str:
+    """A diffusers UNet key -> its name in an LDM checkpoint (under
+    ``model.diffusion_model.``). LDM numbers each side's blocks flat:
+    ``input_blocks.0`` is conv_in, then per level its resnets (sub-module 0)
+    with their attentions (1) and the downsampler's slot (``op``);
+    ``output_blocks`` per up block its resnets and attentions, the upsampler
+    after them (sub-module 2 where the block has attention, else 1)."""
+    import re
+
+    per, lb = cfg.layers_per_block + 1, cfg.layers_per_block
+
+    def resnet(rest):
+        head, _, tail = rest.partition(".")
+        return f"{_LDM_RESNET.get(head, head)}.{tail}"
+
+    m = re.fullmatch(r"(time_embedding|add_embedding)\.linear_([12])\.(.+)", key)
+    if m:
+        stem = "time_embed" if m[1] == "time_embedding" else "label_emb.0"
+        return f"{stem}.{2 * (int(m[2]) - 1)}.{m[3]}"
+    for name, ldm in (("conv_in.", "input_blocks.0.0."), ("conv_norm_out.", "out.0."), ("conv_out.", "out.2.")):
+        if key.startswith(name):
+            return ldm + key[len(name):]
+    m = re.fullmatch(r"down_blocks\.(\d+)\.(resnets|attentions)\.(\d+)\.(.+)", key)
+    if m:
+        i = 1 + int(m[1]) * per + int(m[3])
+        return f"input_blocks.{i}.0.{resnet(m[4])}" if m[2] == "resnets" else f"input_blocks.{i}.1.{m[4]}"
+    m = re.fullmatch(r"down_blocks\.(\d+)\.downsamplers\.0\.conv\.(.+)", key)
+    if m:
+        return f"input_blocks.{1 + int(m[1]) * per + lb}.0.op.{m[2]}"
+    m = re.fullmatch(r"mid_block\.resnets\.([01])\.(.+)", key)
+    if m:
+        return f"middle_block.{2 * int(m[1])}.{resnet(m[2])}"
+    if key.startswith("mid_block.attentions.0."):
+        return "middle_block.1." + key[len("mid_block.attentions.0."):]
+    m = re.fullmatch(r"up_blocks\.(\d+)\.(resnets|attentions)\.(\d+)\.(.+)", key)
+    if m:
+        i = int(m[1]) * per + int(m[3])
+        return f"output_blocks.{i}.0.{resnet(m[4])}" if m[2] == "resnets" else f"output_blocks.{i}.1.{m[4]}"
+    m = re.fullmatch(r"up_blocks\.(\d+)\.upsamplers\.0\.conv\.(.+)", key)
+    if m:
+        b = int(m[1])
+        sub = 2 if cfg.cross_attention_levels[cfg.num_levels - 1 - b] else 1
+        return f"output_blocks.{b * per + lb}.{sub}.conv.{m[2]}"
+    raise KeyError(f"no LDM name for the UNet key {key}")
+
+
+def ldm_vae_key(key: str, num_levels: int) -> str:
+    """A diffusers VAE key -> its LDM name (under ``first_stage_model.``):
+    ``mid.block_1/2``, ``mid.attn_1.{norm,q,k,v,proj_out}``, ``down.i`` and
+    ``up.i`` with the decoder's levels numbered high-resolution first,
+    ``nin_shortcut``, ``norm_out``."""
+    import re
+
+    side, _, rest = key.partition(".")
+    rest = rest.replace("conv_shortcut", "nin_shortcut").replace("conv_norm_out", "norm_out")
+    m = re.fullmatch(r"mid_block\.resnets\.([01])\.(.+)", rest)
+    if m:
+        return f"{side}.mid.block_{int(m[1]) + 1}.{m[2]}"
+    m = re.fullmatch(r"mid_block\.attentions\.0\.(group_norm|to_q|to_k|to_v|to_out\.0)\.(.+)", rest)
+    if m:
+        return f"{side}.mid.attn_1.{_LDM_VAE_ATTENTION[m[1]]}.{m[2]}"
+    m = re.fullmatch(r"(down|up)_blocks\.(\d+)\.(resnets|downsamplers|upsamplers)\.(\d+)\.(.+)", rest)
+    if m:
+        level = int(m[2]) if m[1] == "down" else num_levels - 1 - int(m[2])
+        if m[3] == "resnets":
+            return f"{side}.{m[1]}.{level}.block.{m[4]}.{m[5]}"
+        return f"{side}.{m[1]}.{level}.{m[1]}sample.{m[5]}"
+    return f"{side}.{rest}" if rest else key  # conv_in, conv_out, norm_out; the quant convs
+
+
+def open_clip_text_state_dict(sd: dict) -> dict:
+    """A transformers CLIPTextModel state dict -> OpenCLIP's text-tower
+    names: ``transformer.resblocks.N`` with q/k/v packed into
+    ``attn.in_proj_{weight,bias}``, ``positional_embedding``, ``ln_final``,
+    and ``text_projection`` stored as the (width, proj) matrix OpenCLIP
+    multiplies by."""
+    import re
+
+    import torch
+
+    leaves = {"self_attn.out_proj": "attn.out_proj", "layer_norm1": "ln_1", "layer_norm2": "ln_2",
+              "mlp.fc1": "mlp.c_fc", "mlp.fc2": "mlp.c_proj"}
+    out, packed = {}, {}
+    for k, v in sd.items():
+        if k == "text_model.embeddings.token_embedding.weight":
+            out["token_embedding.weight"] = v
+        elif k == "text_model.embeddings.position_embedding.weight":
+            out["positional_embedding"] = v
+        elif k.startswith("text_model.final_layer_norm."):
+            out["ln_final." + k.rsplit(".", 1)[1]] = v
+        elif k == "text_projection.weight":
+            out["text_projection"] = v.t()
+        else:
+            m = re.fullmatch(r"text_model\.encoder\.layers\.(\d+)\.(.+)\.(weight|bias)", k)
+            qkv = re.fullmatch(r"self_attn\.([qkv])_proj", m[2])
+            if qkv:
+                packed.setdefault((m[1], m[3]), {})[qkv[1]] = v
+            else:
+                out[f"transformer.resblocks.{m[1]}.{leaves[m[2]]}.{m[3]}"] = v
+    for (n, leaf), parts in packed.items():
+        out[f"transformer.resblocks.{n}.attn.in_proj_{leaf}"] = torch.cat([parts["q"], parts["k"], parts["v"]])
+    return out
+
+
+def ldm_checkpoint(unet_sd: dict, vae_sd: dict, unet_cfg, vae_levels: int, towers: dict) -> dict:
+    """One LDM-layout state dict: the UNet under ``model.diffusion_model.``,
+    the VAE under ``first_stage_model.`` with its mid-block attention as
+    1x1 convs, and each text tower's (already named) state dict under its
+    prefix in ``towers``."""
+    out = {"model.diffusion_model." + ldm_unet_key(k, unet_cfg): v for k, v in unet_sd.items()}
+    for k, v in vae_sd.items():
+        name = ldm_vae_key(k, vae_levels)
+        out["first_stage_model." + name] = v.reshape(*v.shape, 1, 1) if ".mid.attn_1." in name and v.dim() == 2 else v
+    for prefix, sd in towers.items():
+        out.update({prefix + k: v for k, v in sd.items()})
+    return out
+
+
+def seeded_modules(modules: dict, gen) -> dict:
+    """Every parameter of each module ~ N(0, 0.02) from ``gen``, drawn as
+    build_headline draws (modules in the given order); their state dicts."""
+    import torch
+
+    with torch.no_grad():
+        for m in modules.values():
+            for p in m.parameters():
+                p.normal_(0.0, 0.02, generator=gen)
+    return {name: m.eval().state_dict() for name, m in modules.items()}
+
+
+def check_sdxl_single_file_layout(device: str = "cuda", cfgs: dict = None) -> None:
+    """Phase 18 (b): the SDXL single-file layout at full width, in memory.
+    Phase 5's headline UNet (the same seeded bf16 draw), a CLIP ViT-L and an
+    OpenCLIP bigG tower with its projection (f32) and an SDXL VAE (f32),
+    N(0, 0.02) on the card, mapped to LDM names by this script's map (bigG
+    in OpenCLIP naming: q/k/v packed, the projection transposed, a
+    logit_scale; a model_ema entry besides) and back through
+    ``convert_ldm_checkpoint_xl``: every key and tensor must come back, none
+    dropped, none added."""
+    import torch
+
+    from aid_tpu_torch.models import configs as C
+    from aid_tpu_torch.models.clip import CLIPTextModel
+    from aid_tpu_torch.models.params import convert_ldm_checkpoint_xl
+    from aid_tpu_torch.models.unet import UNet2DCondition
+    from aid_tpu_torch.models.vae import AutoencoderKL
+
+    cfgs = cfgs or {"unet": C.SDXL_UNET, "vae": C.SDXL_VAE, "text": C.CLIP_VIT_L_TEXT,
+                    "text_2": C.SDXL_TEXT_ENCODER_2}
+    dev = torch.device(device)
+    t0 = time.perf_counter()
+    sds = seeded_modules({"unet": UNet2DCondition(cfgs["unet"], device=dev, dtype=torch.bfloat16),
+                          "vae": AutoencoderKL(cfgs["vae"], device=dev),
+                          "text": CLIPTextModel(cfgs["text"], device=dev),
+                          "text_2": CLIPTextModel(cfgs["text_2"], device=dev)},
+                         torch.Generator(device=dev).manual_seed(0))
+    levels = len(cfgs["vae"].block_out_channels)
+    ldm = ldm_checkpoint(sds["unet"], sds["vae"], cfgs["unet"], levels,
+                         {"conditioner.embedders.0.transformer.": sds["text"],
+                          "conditioner.embedders.1.model.": open_clip_text_state_dict(sds["text_2"])})
+    ldm["conditioner.embedders.1.model.logit_scale"] = torch.tensor(4.6052, device=dev)
+    ldm["model_ema.decay"] = torch.tensor(0.9999, device=dev)
+    back = dict(zip(("unet", "vae", "text", "text_2"), convert_ldm_checkpoint_xl(
+        ldm, layers_per_block=cfgs["unet"].layers_per_block, vae_levels=levels)))
+    for name, want in sds.items():
+        got = back[name]
+        if got.keys() != want.keys():
+            fail(f"SDXL single-file {name}: {len(set(want) - set(got))} keys dropped, {len(set(got) - set(want))} "
+                 f"added, e.g. {sorted(set(want) ^ set(got))[:4]}")
+        differ = [k for k in want if not torch.equal(got[k], want[k])]
+        if differ:
+            fail(f"SDXL single-file {name}: {len(differ)} tensors differ after the round trip, e.g. {differ[:3]}")
+    unet_keys = back["unet"]
+    depth = 1 + max(int(k.split(".")[5]) for k in unet_keys if k.startswith("down_blocks.") and
+                    ".transformer_blocks." in k)
+    label_emb = sum(k.startswith("add_embedding.") for k in unet_keys)
+    print(f"SDXL single-file layout in memory, {len(ldm)} LDM keys: unet {len(unet_keys)}, vae {len(back['vae'])}, "
+          f"CLIP-L {len(back['text'])}, bigG {len(back['text_2'])} keys, every tensor back bit for bit, none "
+          f"dropped or added (down-block transformer depth {depth}, {label_emb} label_emb keys) in "
+          f"{time.perf_counter() - t0:.2f} s  ok", flush=True)
+
+
+def single_file_lora(unet, gen) -> tuple:
+    """Phase 18 (c)'s LoRA for ``unet``: rank LORA_RANK, alpha LORA_ALPHA,
+    f16 factors ~ N(0, 0.02) from the host generator ``gen``. PEFT names
+    (``unet.<module>.lora_A/B.weight`` and ``.alpha``) on every attn1 /
+    attn2 to_q, to_k, to_v and to_out.0; kohya names
+    (``lora_unet_<module with _>.lora_down/up.weight``, ``.alpha``) on every
+    feed-forward's two Linears and, 4-D, on ``down_blocks.0.resnets.0.conv1``.
+    Returns (the LoRA state dict, the target weight's name -> its (A, B))."""
+    import torch
+
+    r, alpha = LORA_RANK, torch.tensor(LORA_ALPHA)
+    lora, targets = {}, {}
+
+    def add(module, peft):
+        w = unet.get_submodule(module).weight
+        rest = tuple(w.shape[2:])
+        A = (torch.randn((r, w.shape[1], *rest), generator=gen) * 0.02).half()
+        B = (torch.randn((w.shape[0], r, *(1 for _ in rest)), generator=gen) * 0.02).half()
+        targets[f"{module}.weight"] = (A, B)
+        if peft:
+            lora.update({f"unet.{module}.lora_A.weight": A, f"unet.{module}.lora_B.weight": B,
+                         f"unet.{module}.alpha": alpha})
+        else:
+            stem = "lora_unet_" + module.replace(".", "_")
+            lora.update({f"{stem}.lora_down.weight": A, f"{stem}.lora_up.weight": B, f"{stem}.alpha": alpha})
+
+    for name, _ in unet.named_modules():
+        if name.endswith((".attn1", ".attn2")):
+            for proj in ("to_q", "to_k", "to_v", "to_out.0"):
+                add(f"{name}.{proj}", peft=True)
+        elif name.endswith(".ff"):
+            for proj in ("net.0.proj", "net.2"):
+                add(f"{name}.{proj}", peft=False)
+    add("down_blocks.0.resnets.0.conv1", peft=False)
+    return lora, targets
+
+
+def check_lora_merge(unet, lora: dict, targets: dict):
+    """``merge_lora(unet, lora, LORA_SCALE)``: every target weight bit-equal
+    to W + cast(LORA_SCALE * alpha / r * B @ A), the update computed on the
+    host in f32 and cast to W's dtype, the sum in that dtype; every other
+    tensor the caller's own (shared); the caller's UNet unchanged. Returns
+    the merged UNet."""
+    import numpy as np
+    import torch
+
+    from aid_tpu_torch.models.params import merge_lora
+
+    before = {k: v.cpu().clone() for k, v in unet.state_dict().items()}
+    t0 = time.perf_counter()
+    merged = merge_lora(unet, lora, scale=LORA_SCALE)
+    seconds = time.perf_counter() - t0
+    base, got = unet.state_dict(), merged.state_dict()
+    if got.keys() != base.keys():
+        fail("merge_lora changed the UNet's keys")
+    factor = LORA_SCALE * LORA_ALPHA / LORA_RANK
+    wrong = []
+    for k, (A, B) in targets.items():
+        a, b = A.float().numpy(), B.float().numpy()
+        delta = (b.reshape(b.shape[0], -1) @ a.reshape(a.shape[0], -1)) * np.float32(factor)
+        want = before[k] + torch.from_numpy(delta.reshape(before[k].shape)).to(before[k].dtype)
+        if not torch.equal(got[k].cpu(), want) or torch.equal(want, before[k]):
+            wrong.append(k)
+    shared = sum(got[k].data_ptr() == base[k].data_ptr() for k in base if k not in targets)
+    untouched = all(torch.equal(v.cpu(), before[k]) for k, v in base.items())
+    ok = not wrong and untouched and shared == len(base) - len(targets)
+    print(f"merge_lora: {len(lora)} LoRA keys, {len(targets)} targets (PEFT attn1/attn2 q/k/v/out, kohya ff and one "
+          f"4-D conv) in {seconds:.2f} s; {len(targets) - len(wrong)} of {len(targets)} bit-equal to W + "
+          f"cast({factor} * B @ A); {shared} of {len(base) - len(targets)} other tensors shared; the caller's UNet "
+          f"unchanged: {untouched}  {'ok' if ok else 'FAIL'}", flush=True)
+    if wrong:
+        fail(f"merge_lora: {len(wrong)} merged weights differ from W + cast(scale * alpha / r * B @ A), e.g. "
+             f"{wrong[:3]}")
+    if not ok:
+        fail("merge_lora copied tensors it did not merge, or wrote the caller's UNet")
+    return merged
+
+
+def phase_single_file(card: str, configs=None, xl_cfgs=None, device: str = "cuda", steps: int = SD21_STEPS) -> list:
+    """What users load into a pipeline, at SD 2.1's full width. (a) Phase
+    13's seeded draw written once more as a diffusers directory and, from
+    its files, as one LDM-layout .safetensors by this script's key map (the
+    UNet under model.diffusion_model., the VAE under first_stage_model. with
+    4-D mid-block attention convs, the ViT-H tower in OpenCLIP naming under
+    cond_stage_model.model. with all 24 resblocks, a packed in_proj,
+    text_projection and logit_scale); ``load_single_file_pipeline`` (timed
+    with PhaseTimer) must give every UNet, VAE and (23-layer) text tensor
+    bit-equal to the directory load, and ``interpolate_single(0.5)`` over
+    ``steps`` UniPC steps the directory pipeline's latents bit for bit;
+    loaded without ``prediction_type`` it must warn and give epsilon. (b)
+    check_sdxl_single_file_layout. (c) a LoRA merged into (a)'s UNet
+    (check_lora_merge), then one fused_outer forward of the merged UNet
+    kernels vs plain with two planted faults. (d) a 2-vector A1111
+    textual-inversion .pt loaded by path and its placeholder prompted;
+    ``interpolate_single`` from ``prompt_embeds_*`` off ``encode_prompt``,
+    and from the latents written as NCHW .npy and .pt and read back with
+    ``load_reference_latents``: each bit-equal to (a)'s. The files go into
+    the checkout's git-ignored build/ and are removed at the end. Returns
+    the launch counts of (a)'s single-file run. The arguments exist for
+    rehearsing on the CPU at a tiny size."""
+    import shutil
+    import tempfile
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from aid_tpu_torch.models import loader
+    from aid_tpu_torch.models.layers import AidContext, AidMode
+    from aid_tpu_torch.utils.parity import load_reference_latents
+    from aid_tpu_torch.utils.profiling import PhaseTimer
+    from aid_tpu_torch.utils.safetensors import load_safetensors, save_safetensors
+
+    print(f"== phase 18: SD2.1 at 768px from one LDM .safetensors (load_single_file_pipeline, UniPC, guidance "
+          f"{SD21_GUIDANCE}) against the directory load of the same draw, interpolate_single ({steps} steps); the "
+          f"SDXL layout in memory; a LoRA merged, forward kernels vs plain; textual inversion, prompt embeds, "
+          f"exported latents", flush=True)
+    configs = configs or sd21_diffusers_configs()
+    dev = torch.device(device)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="single-file-", dir=os.path.join(ROOT, "build"))
+    paths = []
+    try:
+        # (a) the SD 2.1 single file
+        directory, single = os.path.join(root, "sd21"), os.path.join(root, "single", "sd21-768-v.safetensors")
+        t0 = time.perf_counter()
+        write_checkpoint(directory, device=device, configs=configs)
+        tower = open_clip_text_state_dict(load_safetensors(os.path.join(directory, "text_encoder")))
+        gen = torch.Generator(device=dev).manual_seed(18)
+        n = 1 + max(int(k.split(".")[2]) for k in tower if k.startswith("transformer.resblocks."))
+        for k in [k for k in tower if k.startswith("transformer.resblocks.0.")]:  # the last resblock, dropped on load
+            tower[k.replace(".0.", f".{n}.", 1)] = (torch.randn(tower[k].shape, generator=gen, device=dev) * 0.02).half()
+        width = tower["ln_final.weight"].shape[0]
+        tower["text_projection"] = (torch.randn((width, width), generator=gen, device=dev) * 0.02).half()
+        tower["logit_scale"] = torch.tensor(4.6052)
+        ldm = ldm_checkpoint(load_safetensors(os.path.join(directory, "unet")),
+                             load_safetensors(os.path.join(directory, "vae")),
+                             loader.unet_config_from_diffusers(configs["unet"]),
+                             len(configs["vae"]["block_out_channels"]), {"cond_stage_model.model.": tower})
+        os.makedirs(os.path.dirname(single))
+        save_safetensors(ldm, single)
+        print(f"wrote the SD2.1 diffusers directory and, from its files, one LDM single file ({len(ldm)} tensors, "
+              f"{os.path.getsize(single) / 2**30:.2f} GiB, an OpenCLIP tower of {n + 1} resblocks) in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        del ldm, tower
+
+        tokenizer = os.path.join(directory, "tokenizer")
+        dir_pipe = loader.load_interpolation_pipeline(directory, scheduler_name="unipc", guidance_scale=SD21_GUIDANCE,
+                                                      device=device)
+        timer = PhaseTimer()
+        with timer.phase("load_single_file_pipeline") as ph:
+            pipe = loader.load_single_file_pipeline(single, tokenizer, scheduler_name="unipc",
+                                                    prediction_type="v_prediction", guidance_scale=SD21_GUIDANCE,
+                                                    device=device)
+            ph.sync(pipe.unet.conv_out.weight)
+        load_s = timer.totals["load_single_file_pipeline"]
+        if type(pipe) is not type(dir_pipe) or pipe.scheduler != dir_pipe.scheduler:
+            fail(f"the single-file pipeline is a {type(pipe).__name__} with {pipe.scheduler}, the directory's a "
+                 f"{type(dir_pipe).__name__} with {dir_pipe.scheduler}")
+        if (pipe.unet.config, pipe.tokenizer.pad_id, pipe.guidance_scale) != (
+                dir_pipe.unet.config, dir_pipe.tokenizer.pad_id, dir_pipe.guidance_scale):
+            fail("the single-file pipeline's UNet config, pad id or guidance differs from the directory's")
+        text_cfg = pipe.text_encoder.config
+        equal = {}
+        for name in ("unet", "vae", "text_encoder"):
+            got, want = getattr(pipe, name).state_dict(), getattr(dir_pipe, name).state_dict()
+            if got.keys() != want.keys() or not all(
+                    got[k].dtype == want[k].dtype and torch.equal(got[k], want[k]) for k in want):
+                fail(f"the single-file {name} is not bit-equal to the directory load")
+            equal[name] = len(want)
+        if (text_cfg.num_hidden_layers, text_cfg.hidden_act) != (configs["text_encoder"]["num_hidden_layers"], "gelu"):
+            fail(f"the single-file text tower is {text_cfg}")
+        print(f"load_single_file_pipeline in {load_s:.2f} s on {card}: tensors bit-equal to the directory load "
+              f"{equal}; the text tower {text_cfg.num_hidden_layers} layers (of {n + 1} resblocks); scheduler "
+              f"{type(pipe.scheduler).__name__} ({pipe.scheduler.config.prediction_type}), pad id "
+              f"{pipe.tokenizer.pad_id}  ok", flush=True)
+
+        latent_a, latent_b = pipe.generate_latent(gen), pipe.generate_latent(gen)
+
+        def run(pipeline, a=latent_a, b=latent_b, prompt_start="prompt A", **extra):
+            return pipeline.interpolate_single(0.5, a, b, prompt_start=prompt_start, prompt_end="prompt B",
+                                               num_inference_steps=steps, output_type="latent", **extra)
+
+        want = run(dir_pipe)
+        got, counts, times, _, elapsed, peak = run_image_path(pipe, pipe.vae, lambda: run(pipe), steps, 3)
+        same = bool(torch.isfinite(got).all()) and torch.equal(got, want)
+        print(f"single-file interpolate_single(0.5), {steps} UniPC steps at "
+              f"{pipe.unet.config.sample_size * pipe.vae_scale_factor}px: latents {tuple(got.shape)}, max |single - "
+              f"directory| {(got.float() - want.float()).abs().max().item()!r}; {elapsed:.2f} s in all, "
+              f"{times['s_per_step']:.4f} s/step, peak memory {peak / 2**30:.2f} GiB on {card}; launches of the bf16 "
+              f"attention at D=64 {counts['flash_interpolated_attention[D=64]']}, of the conv kernel "
+              f"{counts['conv3x3_same']}  {'ok' if same else 'FAIL'}", flush=True)
+        if not same:
+            fail("the single-file pipeline's latents are not the directory pipeline's")
+        check_path("single-file interpolate_single", counts, ("flash_interpolated_attention[D=64]", "conv3x3_same"))
+        paths.append(counts)
+        del dir_pipe
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            bare = loader.load_single_file_pipeline(single, tokenizer, scheduler_name="unipc", device=device)
+        warned = [str(w.message) for w in caught if "global_step" in str(w.message)]
+        print(f"load_single_file_pipeline without prediction_type: {bare.scheduler.config.prediction_type}, warned "
+              f"{warned[:1]}", flush=True)
+        if bare.scheduler.config.prediction_type != "epsilon" or not warned:
+            fail("a bare SD2.x single file must warn and default to epsilon")
+        del bare
+        if device == "cuda":
+            torch.cuda.empty_cache()
+
+        # (b) the SDXL layout
+        check_sdxl_single_file_layout(device, xl_cfgs)
+        if device == "cuda":
+            torch.cuda.empty_cache()
+
+        # (c) a LoRA on (a)'s UNet
+        lora, targets = single_file_lora(pipe.unet, torch.Generator().manual_seed(19))
+        merged = check_lora_merge(pipe.unet, lora, targets)
+        cfg = merged.config
+        s = cfg.sample_size
+        fgen = torch.Generator(device=dev).manual_seed(5)
+        sample = torch.randn((7, cfg.in_channels, s, s), generator=fgen, device=dev).to(merged.dtype)
+        ehs = torch.randn((7, 77, cfg.cross_attention_dim), generator=fgen, device=dev).to(merged.dtype)
+        t = torch.tensor(500, device=dev)
+        aid = AidContext(coef=sd15_coef().to(dev), mode=AidMode.from_name("fused_outer"))
+        counts = check_unet_vs_plain(f"unet SD2.1 + LoRA fused_outer B=7 {s}x{s} (bf16)",
+                                     lambda aid_ctx: merged(sample, t, ehs, aid_ctx), aid, SD21_UNET_TOL)
+        check_path("SD2.1 + LoRA forward", counts, ("flash_interpolated_attention[D=64]", "conv3x3_same"))
+        del merged, sample, ehs
+
+        # (d) textual inversion, the prompt-embeds shortcut, exported latents
+        ti_path = os.path.join(root, "aid-concept.pt")
+        vectors = torch.randn((2, text_cfg.hidden_size), generator=torch.Generator().manual_seed(20)) * 0.02
+        torch.save({"string_to_param": {"*": vectors}, "name": TI_TOKEN, "step": 3000}, ti_path)
+        vocab = text_cfg.vocab_size
+        pipe.load_textual_inversion(ti_path)
+        ids = set(np.asarray(pipe.tokenizer(f"a photo of {TI_TOKEN}")).ravel().tolist())
+        table = pipe.text_encoder.text_model.embeddings.token_embedding.weight
+        ti_latents = run(pipe, prompt_start=f"a photo of {TI_TOKEN}")
+        ti_ok = (pipe.text_encoder.config.vocab_size == table.shape[0] == vocab + 2
+                 and torch.equal(table[-2:].cpu(), vectors) and {vocab, vocab + 1} <= ids
+                 and bool(torch.isfinite(ti_latents).all()))
+        print(f"textual inversion {TI_TOKEN} (A1111 .pt, 2 vectors): vocab {vocab} -> "
+              f"{pipe.text_encoder.config.vocab_size}, ids {vocab} and {vocab + 1} in the prompt's, interpolate_single "
+              f"with the placeholder finite  {'ok' if ti_ok else 'FAIL'}", flush=True)
+        if not ti_ok:
+            fail("the textual-inversion embedding did not load into the text encoder and the tokenizer")
+        emb_a, neg = pipe.encode_prompt("prompt A")
+        emb_b, _ = pipe.encode_prompt("prompt B")
+        via_embeds = pipe.interpolate_single(0.5, latent_a, latent_b, prompt_embeds_start=emb_a,
+                                             prompt_embeds_end=emb_b, negative_prompt_embeds=neg,
+                                             num_inference_steps=steps, output_type="latent")
+        exported = {}
+        for ext in ("npy", "pt"):
+            files = [os.path.join(root, f"latent_{name}.{ext}") for name in ("start", "end")]
+            for path, x in zip(files, (latent_a, latent_b)):
+                if ext == "npy":
+                    np.save(path, x.cpu().numpy())
+                else:
+                    torch.save(x.cpu(), path)
+            a, b = (load_reference_latents(path, device=device) for path in files)
+            exported[ext] = (a.device == latent_a.device and torch.equal(a, latent_a) and torch.equal(b, latent_b)
+                             and torch.equal(run(pipe, a, b), got))
+        ok = torch.equal(via_embeds, got) and all(exported.values())
+        print(f"interpolate_single from prompt_embeds_* off encode_prompt: bit-equal to the prompts' "
+              f"{torch.equal(via_embeds, got)}; from the latents written as NCHW .npy / .pt and read back with "
+              f"load_reference_latents: bit-equal {exported}  {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            fail("the prompt-embeds shortcut or the exported latents changed the latents")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return paths
+
 
 def kernels_line(kernels: dict, launches: dict) -> str:
     """The kernels' JSON record: one entry per kernel, with KERNEL_KEYS
@@ -2884,6 +3376,8 @@ def main(argv=None) -> int:
     del pipe
     torch.cuda.empty_cache()
     paths += phase_ip_adapter(card)
+    torch.cuda.empty_cache()
+    paths += phase_single_file(card)
     launches = {name: sum(p[name] for p in paths) for name in paths[0]}
     print(f"launches over the {len(paths)} paths: {launches}", flush=True)
     print(f"smoke wall time {time.perf_counter() - start:.1f} s (the limit is 1200 s)", flush=True)

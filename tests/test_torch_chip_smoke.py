@@ -13,6 +13,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 REPO = Path(__file__).resolve().parents[1]
 
 
@@ -420,3 +422,108 @@ def test_ip_adapter_phase_rehearses_on_the_cpu(monkeypatch):
                                    plus_widths=TINY_PLUS, device="cpu")
     assert len(paths) == 2
     assert skipped and all("launch" in m for m in skipped)
+
+
+def test_single_file_phase_follows_the_ip_adapter_phase():
+    """Phase 18 (single files, LoRA, textual inversion, prompt embeds,
+    exported latents) exists with its banner and runs last in main(),
+    before the kernels line; its files go into the checkout's git-ignored
+    build/ and are removed; it loads as the app would, with UniPC and
+    guidance 10."""
+    import inspect
+
+    smoke = _load_smoke()
+    src = inspect.getsource(smoke.phase_single_file)
+    assert "== phase 18: SD2.1 at 768px from one LDM .safetensors" in src and "18. single file" in smoke.__doc__
+    main = inspect.getsource(smoke.main)
+    assert (main.index("phase_ip_adapter(card)") < main.index("phase_single_file(card)")
+            < main.index("kernels_line("))
+    assert 'dir=os.path.join(ROOT, "build")' in src and "shutil.rmtree(root" in src
+    assert 'prediction_type="v_prediction", guidance_scale=SD21_GUIDANCE' in src
+    assert (smoke.LORA_RANK, smoke.LORA_ALPHA, smoke.LORA_SCALE) == (8, 16.0, 0.75)
+
+
+@pytest.mark.parametrize("preset", ["SD15_UNET", "SD21_UNET", "SDXL_UNET"])
+def test_smoke_ldm_map_inverts_the_ports(preset):
+    """The smoke's LDM names (written from the LDM layout) and the port's
+    converters are each other's inverse on every key of the full-size UNet,
+    its VAE and its text towers, built on the meta device: each key maps to
+    a distinct LDM name and back to itself; the OpenCLIP towers come back
+    with every key and shape (q/k/v packed and split, the projection
+    transposed twice)."""
+    import torch
+
+    from aid_tpu_torch.models import configs
+    from aid_tpu_torch.models.clip import CLIPTextModel
+    from aid_tpu_torch.models.params import _ldm_unet_key, _ldm_vae_key, convert_open_clip_text_state_dict
+    from aid_tpu_torch.models.unet import UNet2DCondition
+    from aid_tpu_torch.models.vae import AutoencoderKL
+
+    smoke = _load_smoke()
+    cfg = getattr(configs, preset)
+    xl = preset == "SDXL_UNET"
+    with torch.device("meta"):
+        unet = UNet2DCondition(cfg).state_dict()
+        vae = AutoencoderKL(configs.SDXL_VAE if xl else configs.SD_VAE).state_dict()
+        towers = {"SD15_UNET": [], "SD21_UNET": [configs.OPENCLIP_VIT_H_TEXT],
+                  "SDXL_UNET": [configs.SDXL_TEXT_ENCODER_2]}[preset]
+        towers = [CLIPTextModel(t).state_dict() for t in towers]
+    ldm = {k: smoke.ldm_unet_key(k, cfg) for k in unet}
+    assert len(set(ldm.values())) == len(unet)
+    assert all(_ldm_unet_key(v, cfg.layers_per_block) == k for k, v in ldm.items())
+    assert any(v.startswith("label_emb.0.") for v in ldm.values()) == xl
+    vae_ldm = {k: smoke.ldm_vae_key(k, 4) for k in vae}
+    assert len(set(vae_ldm.values())) == len(vae) and all(_ldm_vae_key(v, 4) == k for k, v in vae_ldm.items())
+    assert "decoder.up.3.block.0.conv1.weight" in vae_ldm.values()  # the decoder's first level, high-res first
+    for sd in towers:
+        back = convert_open_clip_text_state_dict(smoke.open_clip_text_state_dict(sd))
+        assert back.keys() == sd.keys() and all(back[k].shape == sd[k].shape for k in sd)
+    full = smoke.ldm_checkpoint(unet, vae, cfg, 4, {})
+    assert sum(v.dim() == 4 for k, v in full.items() if ".mid.attn_1." in k) == 8  # the 1x1 convs, both sides
+
+
+def test_single_file_phase_rehearses_on_the_cpu(monkeypatch):
+    """Phase 18 end to end at a tiny size on the CPU (3 UniPC steps), with
+    the port's SD 2.x presets patched to the tiny configs the written
+    directory holds (an SD 2.x file is told by its 1024-wide
+    cross-attention, so the tiny text tower keeps that width), torch.cuda's
+    timing calls stubbed: every check passes (the bit-equal weights and
+    latents, the SDXL round trip, the LoRA merge, textual inversion, the
+    embeds and the exported latents; the forward check's sound reading is 0
+    here, so the bound is set under the faults'), only the kernel launch
+    counts fail (no kernel runs here)."""
+    import dataclasses
+
+    import torch
+
+    from aid_tpu_torch.models import configs, loader
+
+    smoke = _load_smoke()
+    for name in ("synchronize", "reset_peak_memory_stats"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a, **k: 0)
+    skipped = []
+
+    def fail(msg):
+        if "launch" not in msg:
+            raise AssertionError(msg)
+        skipped.append(msg)
+
+    monkeypatch.setattr(smoke, "fail", fail)
+    monkeypatch.setattr(smoke, "SD21_UNET_TOL", 1e-7)
+    cfgs = smoke.sd21_diffusers_configs()
+    cfgs["unet"].update(block_out_channels=[32, 64], down_block_types=["CrossAttnDownBlock2D", "DownBlock2D"],
+                        up_block_types=["UpBlock2D", "CrossAttnUpBlock2D"], attention_head_dim=[2, 2],
+                        norm_num_groups=8, sample_size=8)
+    cfgs["vae"].update(block_out_channels=[16, 16, 32, 32], layers_per_block=1, norm_num_groups=4)
+    cfgs["text_encoder"].update(vocab_size=600, num_hidden_layers=2)
+    monkeypatch.setattr(configs, "SD21_UNET", loader.unet_config_from_diffusers(cfgs["unet"]))
+    monkeypatch.setattr(configs, "SD_VAE", loader.vae_config_from_diffusers(cfgs["vae"]))
+    xl = {"unet": configs.TINY_SDXL_UNET, "vae": configs.TINY_VAE, "text": configs.TINY_CLIP_TEXT,
+          "text_2": dataclasses.replace(configs.TINY_CLIP_TEXT, projection_dim=24, hidden_act="gelu")}
+    (REPO / "build").mkdir(exist_ok=True)
+    before = set(os.listdir(REPO / "build"))
+    paths = smoke.phase_single_file("cpu", configs=cfgs, xl_cfgs=xl, device="cpu", steps=3)
+    assert len(paths) == 1 and set(paths[0]) >= {"flash_interpolated_attention[D=64]", "conv3x3_same"}
+    assert len(skipped) == 4 and all("launch" in m for m in skipped)
+    assert set(os.listdir(REPO / "build")) <= before  # the files written are removed

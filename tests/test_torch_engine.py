@@ -252,8 +252,10 @@ def test_denoise_steps_and_range_match_jax():
 
 def test_import_leaves_jax_out():
     """The port never imports jax, flax or the JAX package, nor the
-    safetensors package, which the card's machine lacks (only modules the
-    import itself adds count, so a jax preloaded at interpreter start does not)."""
+    safetensors package, which the card's machine lacks, nor PIL at import
+    (the card's machine is not known to have it; utils/images.py imports it
+    inside its functions). Only modules the import itself adds count, so a
+    jax preloaded at interpreter start does not."""
     code = ("import sys; before = set(sys.modules); "
             "import aid_tpu_torch, aid_tpu_torch.ops.flash_attention, aid_tpu_torch.ops.conv, "
             "aid_tpu_torch.ops._build, aid_tpu_torch.ops.attention, aid_tpu_torch.models.params, "
@@ -264,9 +266,11 @@ def test_import_leaves_jax_out():
             "aid_tpu_torch.schedulers.unipc, aid_tpu_torch.schedulers.pndm, aid_tpu_torch.schedulers.edm_dpm, "
             "aid_tpu_torch.utils.safetensors, aid_tpu_torch.models.safety, aid_tpu_torch.utils.watermark, "
             "aid_tpu_torch.prior.clip_scorer, aid_tpu_torch.prior.beta, aid_tpu_torch.prior.bayes, "
-            "aid_tpu_torch.prior.dp_solver, aid_tpu_torch.metrics.gini, aid_tpu_torch.metrics.lpips; "
+            "aid_tpu_torch.prior.dp_solver, aid_tpu_torch.metrics.gini, aid_tpu_torch.metrics.lpips, "
+            "aid_tpu_torch.models.ip_adapter, aid_tpu_torch.utils.parity, aid_tpu_torch.utils.profiling, "
+            "aid_tpu_torch.utils.images; "
             "bad = sorted(m for m in set(sys.modules) - before "
-            "if m.split('.')[0] in ('jax', 'flax', 'aid_tpu', 'safetensors')); "
+            "if m.split('.')[0] in ('jax', 'flax', 'aid_tpu', 'safetensors', 'PIL')); "
             "print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -278,3 +278,36 @@ def test_pipeline_options_match_jax(pipes, option):
         _same_latents(pipe.interpolate(ta, tb, **kw), jax_pipe.interpolate(ja, jb, **kw))
     pipe.disable_vae_tiling()
     assert pipe.vae_tile_latent_size is None
+
+
+@pytest.mark.parametrize("case", ["endpoints", "endpoints_guide", "guide_only"])
+def test_interpolate_single_prompt_embeds_match_jax(pipes, case):
+    """Pre-computed embeddings in place of the prompts (interpolation.py:
+    525-545): the endpoints' with the negative embeds, with and without a
+    guide's; a guide's alone beside the prompts. The same seeded numpy
+    embeds to both pipelines, latents at SLICE_TOL; embeds taken off the
+    port's own encode_prompt give the prompt path's latents bit for bit;
+    prompt_embeds_start without its partners raises."""
+    jax_pipe, pipe = pipes
+    (ja, jb), (ta, tb) = _both(*_latents(55))
+    shape = (1, 77, configs.TINY_CLIP_TEXT.hidden_size)
+    e_s, e_e, neg, g = (th.normal(100 + i, shape) for i in range(4))
+    embeds = {"endpoints": dict(prompt_embeds_start=e_s, prompt_embeds_end=e_e, negative_prompt_embeds=neg),
+              "endpoints_guide": dict(prompt_embeds_start=e_s, prompt_embeds_end=e_e, negative_prompt_embeds=neg,
+                                      guide_prompt_embeds=g),
+              "guide_only": dict(guide_prompt_embeds=g)}[case]
+    kw = dict(prompt_start="a red cat", prompt_end="a blue dog", guide_prompt="ignored when embeds are given",
+              num_inference_steps=STEPS, output_type="latent")
+    want = jax_pipe.interpolate_single(0.4, ja, jb, **kw, **{k: jnp.asarray(v) for k, v in embeds.items()})
+    got = pipe.interpolate_single(0.4, ta, tb, **kw, **{k: torch.from_numpy(v) for k, v in embeds.items()})
+    _same_latents(got, want)
+
+    emb_a, un = pipe.encode_prompt("a red cat")
+    emb_b, _ = pipe.encode_prompt("a blue dog")
+    prompts = pipe.interpolate_single(0.4, ta, tb, prompt_start="a red cat", prompt_end="a blue dog",
+                                      num_inference_steps=STEPS, output_type="latent")
+    via = pipe.interpolate_single(0.4, ta, tb, prompt_embeds_start=emb_a, prompt_embeds_end=emb_b,
+                                  negative_prompt_embeds=un, num_inference_steps=STEPS, output_type="latent")
+    torch.testing.assert_close(via, prompts, rtol=0, atol=0)
+    with pytest.raises(ValueError, match="negative_prompt_embeds"):
+        pipe.interpolate_single(0.4, ta, tb, prompt_embeds_start=emb_a, prompt_embeds_end=emb_b)

@@ -212,3 +212,47 @@ def test_xl_pipeline_options_match_jax(pipes, option):
         want = np.asarray(jax_pipe.interpolate(jnp.asarray(a), jnp.asarray(b), **kw))
         got = pipe.interpolate(th.nhwc_to_nchw(a), th.nhwc_to_nchw(b), **kw)
         assert th.max_rel_err(th.nchw_to_nhwc(got), want) < SLICE_TOL
+
+
+@pytest.mark.parametrize("case", ["endpoints", "endpoints_guide", "endpoints_guide_no_pooled",
+                                  "guide_only", "guide_only_pooled"])
+def test_xl_interpolate_single_prompt_embeds_match_jax(pipes, case):
+    """Pre-computed (1, 77, 56) embeddings and (1, 24) pooled embeddings in
+    place of both text encoders (sdxl.py:263-340): the endpoints' with the
+    negatives, with a guide's with and without its pooled embeds (the
+    middle frame's pooled embeds are then interpolated), and a guide's
+    alone beside the prompts. The same seeded numpy arrays to both
+    pipelines, latents at SLICE_TOL; embeds off the port's own
+    encode_prompt give the prompt path's latents bit for bit; a missing
+    partner raises."""
+    jax_pipe, pipe = pipes
+    a, b = _latents()
+    seq, pool = (1, 77, UNET_CFG.cross_attention_dim), (1, TEXT2_CFG.projection_dim)
+    e_s, e_e, neg, g = (th.normal(110 + i, seq) for i in range(4))
+    p_s, p_e, neg_p, g_p = (th.normal(120 + i, pool) for i in range(4))
+    ends = dict(prompt_embeds_start=e_s, prompt_embeds_end=e_e, pooled_prompt_embeds_start=p_s,
+                pooled_prompt_embeds_end=p_e, negative_prompt_embeds=neg, negative_pooled_prompt_embeds=neg_p)
+    embeds = {"endpoints": ends, "endpoints_guide": {**ends, "guide_prompt_embeds": g, "guide_pooled_prompt_embeds": g_p},
+              "endpoints_guide_no_pooled": {**ends, "guide_prompt_embeds": g},
+              "guide_only": {"guide_prompt_embeds": g},
+              "guide_only_pooled": {"guide_prompt_embeds": g, "guide_pooled_prompt_embeds": g_p}}[case]
+    kw = dict(prompt_start="a red cat", prompt_end="a blue dog", num_inference_steps=2, output_type="latent")
+    want = np.asarray(jax_pipe.interpolate_single(0.4, jnp.asarray(a), jnp.asarray(b), **kw,
+                                                  **{k: jnp.asarray(v) for k, v in embeds.items()}))
+    got = pipe.interpolate_single(0.4, th.nhwc_to_nchw(a), th.nhwc_to_nchw(b), **kw,
+                                  **{k: torch.from_numpy(v) for k, v in embeds.items()})
+    assert torch.isfinite(got).all()
+    assert th.max_rel_err(th.nchw_to_nhwc(got), want) < SLICE_TOL
+
+    ta, tb = th.nhwc_to_nchw(a), th.nhwc_to_nchw(b)
+    emb_a, un, pooled_a, un_pooled = pipe.encode_prompt("a red cat")
+    emb_b, _, pooled_b, _ = pipe.encode_prompt("a blue dog")
+    prompts = pipe.interpolate_single(0.4, ta, tb, **kw)
+    via = pipe.interpolate_single(0.4, ta, tb, prompt_embeds_start=emb_a, prompt_embeds_end=emb_b,
+                                  pooled_prompt_embeds_start=pooled_a, pooled_prompt_embeds_end=pooled_b,
+                                  negative_prompt_embeds=un, negative_pooled_prompt_embeds=un_pooled,
+                                  num_inference_steps=2, output_type="latent")
+    torch.testing.assert_close(via, prompts, rtol=0, atol=0)
+    with pytest.raises(ValueError, match="negative_pooled_prompt_embeds"):
+        pipe.interpolate_single(0.4, ta, tb, prompt_embeds_start=emb_a, prompt_embeds_end=emb_b,
+                                negative_prompt_embeds=un, num_inference_steps=1)
