@@ -21,6 +21,9 @@ The JAX package ``aid_tpu`` is the reference; this package never imports it
   utils/      tokenizers, the safetensors reader, the invisible watermark,
               the readers of exported latents and embeddings, the phase
               timer and profiler trace, image strips and grids
+  parallel/   frame parallelism (frames sharded over ranks, the endpoint
+              K/V all-gathered) and tensor parallelism on torch.distributed
+  apps/       the Gradio app
 
 On a CPU tensor every op runs its plain PyTorch version; on a CUDA tensor it
 runs its kernel (see ``ops/routing.py``).

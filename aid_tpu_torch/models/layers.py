@@ -20,14 +20,21 @@ branch (aid_tpu/models/layers.py:455-493): attention of the layer's queries
 over the projected image tokens, in the mode ``AidMode.ip`` names, through
 the same ``dispatch_attention`` (its kernel on CUDA).
 
-Not yet ported: frame sharding (``frame_axis``).
+Frame sharding (aid_tpu/models/layers.py:411-431, 463-476): where the
+forward's :class:`AidContext` carries a :class:`FrameShard`, the batch is
+one rank's contiguous slice of a longer frame sequence. Every interpolating
+attention then takes its endpoints from the GLOBAL frames 0 and N-1 (the
+K/V rows all-gathered over the frame group, passed on as shared (H, L, D)
+endpoints) and its skip rows from the global frame index. The module needs
+no copy for it: PyTorch runs eagerly, so the shard is a per-forward input,
+not a traced field.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Union
+from typing import Any, Optional, Union
 
 import torch
 import torch.nn.functional as F
@@ -77,6 +84,34 @@ class AidMode:
         return AidMode(text=AttnMode(name), ip=name if has_ip else None)
 
 
+@dataclasses.dataclass(frozen=True)
+class FrameShard:
+    """One rank's slice of a frame-sharded sequence
+    (``parallel.sharded_denoise_sequence``): ``group`` is the process group
+    over the frame shards, whose rank r holds the global frames
+    [r * B, (r + 1) * B); ``offset`` is the global index of this shard's
+    first frame and ``total`` the global frame count."""
+
+    group: Any
+    offset: int
+    total: int
+
+    def endpoints(self, x: torch.Tensor):
+        """The GLOBAL frames 0 and N-1 of ``x`` (this shard's (B, H, S, D))
+        as shared (H, S, D) endpoints: every shard's first and last rows are
+        all-gathered over the group (two collectives), and group rank 0's
+        first row and the last rank's last row kept."""
+        import torch.distributed as dist
+
+        n = dist.get_world_size(self.group)
+        out = []
+        for row in (x[0].contiguous(), x[-1].contiguous()):
+            parts = [torch.empty_like(row) for _ in range(n)]
+            dist.all_gather(parts, row, group=self.group)
+            out.append(parts)
+        return out[0][0], out[1][-1]
+
+
 @dataclasses.dataclass
 class AidContext:
     """AID inputs for one UNet forward pass: ``coef`` (B,) per-frame
@@ -87,13 +122,16 @@ class AidContext:
     the mode interpolates (the fused denoise loop's late steps).
     ``ip_hidden_states``: (B, T, cross_attention_dim) projected image-prompt
     tokens of this pass, or None (no IP branch).
-    ``ip_scale``: the adapter's global scale."""
+    ``ip_scale``: the adapter's global scale.
+    ``frames``: the :class:`FrameShard` this batch is, or None (the whole
+    sequence)."""
 
     coef: torch.Tensor
     mode: AidMode = AidMode()
     force_vanilla: Optional[Union[bool, torch.Tensor]] = None
     ip_hidden_states: Optional[torch.Tensor] = None
     ip_scale: float = 1.0
+    frames: Optional[FrameShard] = None
     _skip: dict = dataclasses.field(default_factory=dict, init=False, repr=False, compare=False)
 
     def skip_rows(self, n_cond: int) -> torch.Tensor:
@@ -102,6 +140,25 @@ class AidContext:
         if n_cond not in self._skip:
             self._skip[n_cond] = skip_mask(self.coef, n_cond)
         return self._skip[n_cond]
+
+    def frame_skip_rows(self) -> torch.Tensor:
+        """This shard's skip rows by GLOBAL frame index (``frame_skip_mask``),
+        kept apart from the local rows' cache."""
+        key = ("frames", self.frames.offset, self.frames.total)
+        if key not in self._skip:
+            self._skip[key] = frame_skip_mask(self.coef, self.frames.offset, self.frames.total)
+        return self._skip[key]
+
+    def endpoint_kv(self, k: torch.Tensor, v: torch.Tensor) -> dict:
+        """Under frame sharding, the global endpoint K/V of an interpolating
+        attention (four all-gathers), or none where every row is forced
+        vanilla: ``force_vanilla`` is the same on every rank (the fused
+        loop's step index), so every rank skips the same collectives."""
+        if self.force_vanilla is True:
+            return {}
+        kb, ke = self.frames.endpoints(k)
+        vb, ve = self.frames.endpoints(v)
+        return dict(k_begin=kb, v_begin=vb, k_end=ke, v_end=ve)
 
 
 def timestep_embedding(
@@ -243,6 +300,16 @@ def skip_mask(c: torch.Tensor, n_cond: int) -> torch.Tensor:
     return torch.where(row < n_cond, cond_skip, torch.ones_like(cond_skip))
 
 
+def frame_skip_mask(c: torch.Tensor, offset: int, total: int) -> torch.Tensor:
+    """``skip_mask`` of one shard of a ``total``-frame sequence whose first
+    row is global frame ``offset`` (aid_tpu/models/layers.py:419-424): only
+    global frame 0 at coefficient 0 and global frame N-1 at coefficient 1
+    attend their own K/V through an endpoint segment. A shard's own first or
+    last row at 0 or 1 in the interior of the sequence is not skipped."""
+    row = offset + torch.arange(c.shape[0], device=c.device)
+    return ((row == 0) & (c == 0.0)) | ((row == total - 1) & (c == 1.0))
+
+
 def per_row_endpoints(x: torch.Tensor, n: int):
     """Rows [0, n): endpoints = cond rows 0 / n-1; rows [n, 2n): their own."""
     b0 = x[0:1].expand(n, *x.shape[1:])
@@ -284,7 +351,12 @@ class CrossAttention(nn.Module):
         coef = None if aid is None else aid.coef  # self mode reads no coefficients
         eps, skip, force = {}, None, None
         if mode != AttnMode.SELF:
-            if aid.mode.cfg_split:
+            if aid.frames is not None:
+                if aid.mode.cfg_split:
+                    raise ValueError("batched CFG is not supported under frame sharding")
+                eps = aid.endpoint_kv(k, v)
+                skip = aid.frame_skip_rows()
+            elif aid.mode.cfg_split:
                 n = aid.mode.cfg_split
                 kb, ke = per_row_endpoints(k, n)
                 vb, ve = per_row_endpoints(v, n)
@@ -307,20 +379,26 @@ class CrossAttention(nn.Module):
         (``"own"``: each frame's own tokens, self mode). Under batched CFG
         the interpolating modes take per-row endpoints as the text branch
         does, but no skip rows: only ``force_vanilla`` drops endpoint
-        segments here (``dispatch_attention`` folds it). The branch adds
+        segments here (``dispatch_attention`` folds it). Under frame
+        sharding they take the global endpoints and skip rows, as the text
+        branch does (aid_tpu/models/layers.py:468-473). The branch adds
         ``ip_scale`` times its output, the scale in the output's dtype, or
         (scale control) the frame's coefficient times it, summed in f32."""
         ip = aid.ip_hidden_states.to(q.dtype)
         ip_k, ip_v = heads(self.to_k_ip(ip)), heads(self.to_v_ip(ip))
         ip_mode = AttnMode.SELF if aid.mode.ip == "own" else AttnMode(aid.mode.ip)
-        eps, force = {}, None
+        eps, skip, force = {}, None, None
         if ip_mode != AttnMode.SELF:
-            if aid.mode.cfg_split:
+            if aid.frames is not None:
+                eps = aid.endpoint_kv(ip_k, ip_v)
+                skip = aid.frame_skip_rows()
+            elif aid.mode.cfg_split:
                 kb, ke = per_row_endpoints(ip_k, aid.mode.cfg_split)
                 vb, ve = per_row_endpoints(ip_v, aid.mode.cfg_split)
                 eps = dict(k_begin=kb, v_begin=vb, k_end=ke, v_end=ve)
             force = aid.force_vanilla
-        ip_out = dispatch_attention(q, ip_k, ip_v, aid.coef, ip_mode, force_vanilla=force, **eps)
+        ip_out = dispatch_attention(q, ip_k, ip_v, aid.coef, ip_mode, skip_endpoints=skip, force_vanilla=force,
+                                    **eps)
         if aid.mode.ip_coef_scaled:
             w = aid.coef.float().reshape(-1, 1, 1, 1)
             return (out.float() + w * ip_out.float()).to(out.dtype)

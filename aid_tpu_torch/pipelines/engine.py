@@ -31,6 +31,12 @@ negative tokens; batched CFG stacks cond and uncond tokens, the uncond ones
 zeros where none are given (zero tokens through the bias-free projections
 add exactly nothing, as the sequential pass without them).
 
+``frames`` (a ``models.layers.FrameShard``) runs the steps on one rank's
+slice of a frame-sharded sequence: every AID forward's context carries it,
+so the interpolating attention reads the global endpoints and skip rows.
+``parallel.sharded_denoise_sequence`` sets it; batched CFG is refused under
+it, as the JAX package asserts (layers.py:430-431).
+
 ``decode_latents``, ``tiled_decode`` and ``to_uint8`` are the counterparts
 of engine.py:319-426: the VAE decode in the VAE's parameter dtype from f32
 latents, optionally one frame at a time or in overlapping spatial tiles,
@@ -45,7 +51,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from aid_tpu_torch.models.layers import AidContext, AidMode
+from aid_tpu_torch.models.layers import AidContext, AidMode, FrameShard
 from aid_tpu_torch.ops.attention import AttnMode
 
 
@@ -59,11 +65,11 @@ def rescale_noise_cfg(noise_cfg: torch.Tensor, noise_pred_text: torch.Tensor, gu
 
 
 def _make_aid(mode: AidMode, coef: torch.Tensor, force_vanilla=None, ip_states=None,
-              ip_scale: float = 1.0) -> Optional[AidContext]:
+              ip_scale: float = 1.0, frames: Optional[FrameShard] = None) -> Optional[AidContext]:
     if mode.text == AttnMode.SELF and mode.ip is None:
         return None
     return AidContext(coef=coef, mode=mode, force_vanilla=force_vanilla, ip_hidden_states=ip_states,
-                      ip_scale=ip_scale)
+                      ip_scale=ip_scale, frames=frames)
 
 
 CFG_MODES = ("sequential", "batched")
@@ -96,13 +102,16 @@ def denoise_steps(
     ip_embeds: Optional[torch.Tensor] = None,  # (B, T, D) projected cond IP tokens
     ip_uncond_embeds: Optional[torch.Tensor] = None,  # (B, T, D) the uncond pass's
     ip_scale: float = 1.0,
+    frames: Optional[FrameShard] = None,  # this rank's slice of a frame-sharded sequence
 ):
     """Warmup-split CFG steps ``[start, end)`` of a schedule; returns
     ``(latents, sched_state)`` so chunks compose. The caller's ``latents``
-    are never written in place. ``cfg_mode``, ``loop_mode`` and the IP
-    arguments as in the module docstring (engine.py:60-169)."""
+    are never written in place. ``cfg_mode``, ``loop_mode``, the IP
+    arguments and ``frames`` as in the module docstring (engine.py:60-169)."""
     if cfg_mode not in CFG_MODES:
         raise ValueError(f"cfg_mode must be one of {CFG_MODES}, got {cfg_mode!r}")
+    if frames is not None and cfg_mode == "batched":
+        raise ValueError("batched CFG is not supported under frame sharding")
     if loop_mode not in LOOP_MODES:
         raise ValueError(f"loop_mode must be one of {LOOP_MODES}, got {loop_mode!r}")
     if added_cond is not None and added_cond_uncond is None:
@@ -127,9 +136,9 @@ def denoise_steps(
             aid = _make_aid(dataclasses.replace(mode, cfg_split=N), coef_all, force, ip_all, ip_scale)
             out = unet(torch.cat([latent_in, latent_in]), t, embs_all, aid, added_all)
             return out[:N], out[N:]
-        noise_text = unet(latent_in, t, embs, _make_aid(mode, coef, force, ip_embeds, ip_scale), added_cond)
-        noise_uncond = unet(latent_in, t, uncond_embs, _make_aid(uncond_mode, coef, None, ip_uncond_embeds, ip_scale),
-                            added_cond_uncond)
+        noise_text = unet(latent_in, t, embs, _make_aid(mode, coef, force, ip_embeds, ip_scale, frames), added_cond)
+        noise_uncond = unet(latent_in, t, uncond_embs,
+                            _make_aid(uncond_mode, coef, None, ip_uncond_embeds, ip_scale, frames), added_cond_uncond)
         return noise_text, noise_uncond
 
     # one mode on every step, its endpoint segments dropped from the warmup

@@ -69,7 +69,14 @@ read just after:
     the diffusers directory of the same draw; the SDXL single-file layout at
     full width in memory; a LoRA merged into the UNet (``merge_lora``); a
     textual-inversion file; pre-computed prompt embeddings; latents
-    exported as .npy / .pt and read back (``utils/parity.py``).
+    exported as .npy / .pt and read back (``utils/parity.py``);
+  * frame parallelism (``parallel.sharded_denoise_sequence``): the SDXL
+    denoise above in an NCCL world of one; the full-width SD1.5 UNet's
+    8-frame, 25-step DDIM sequence in a gloo world of two ranks on the one
+    card, frame-sharded (dp=2) and tensor-parallel (tp=2, ``shard_params``);
+  * the Gradio app's Generate function (``apps.gradio_app.build_app`` with
+    a stub gradio module) on the SD 1.5 safety-checker pipeline: the
+    gallery's 7-frame SD 1.5 example at 25 steps.
 
 Phases (each prints its own lines; any failure exits non-zero):
   1. device      needs CUDA; prints the card's name and power limit
@@ -150,6 +157,16 @@ Phases (each prints its own lines; any failure exits non-zero):
                  shared) and the merged UNet's forward kernels vs plain with
                  two planted faults; a textual inversion, prompt_embeds_* and
                  exported latents, each run bit-equal
+ 19. frames      (a) right after phase 7: sharded_denoise_sequence on phase
+                 5's program in an NCCL world of one, bit-equal to phase 5's
+                 latents through the same launches, its all-gathers counted;
+                 (c) right after phase 16: the app's generate on phase 15's
+                 pipeline, seven 512px uint8 frames; (b) last: two gloo
+                 ranks spawned on the one card, the SD1.5 sequence at dp=2
+                 and at tp=2 against the unsharded run (largest per-frame
+                 relative L2 under FRAMES_TOL, the planted faults local
+                 endpoints and local skip rows over it), attention launches
+                 by head dim on each rank
 The smoke prints its own wall time before the kernels line.
 Phase 1 turns TF32 off for cuBLAS and cuDNN, so every plain f32 version and
 library call computes in full f32.
@@ -1142,7 +1159,7 @@ def phase_main(unet, sample, ehs, uncond, added, coef, steps: int, card: str):
     if not math.isfinite(checksum):
         fail(f"non-finite output checksum: {checksum}")
     check_path("denoise", launches, ("flash_interpolated_attention", "conv3x3_same"))
-    return launches
+    return launches, out
 
 
 @contextlib.contextmanager
@@ -3230,6 +3247,408 @@ def phase_single_file(card: str, configs=None, xl_cfgs=None, device: str = "cuda
     return paths
 
 
+# ---------------------------------------------------------------------------
+# phase 19: frame parallelism (parallel/mesh.py) and the app (apps/gradio_app.py)
+# ---------------------------------------------------------------------------
+
+# Phase 19 (b): the SD 1.5 sequence denoised by two frame shards against the
+# unsharded run on the same card, the LARGEST PER-FRAME relative L2 of the
+# final latents after 25 DDIM steps. Sharding changes every GEMM's and
+# conv's batch (4 rows for 8), so bf16 rounding differs everywhere, as
+# batched CFG's 2N rows do (SD15_CFG_TOL). On an H100 (these seeds; the same
+# to the last digit in three runs): sound 2.239e-4 (interior 0/1
+# coefficients 2.238e-4); planted faults local endpoints 3.156e-3 (2.697e-3
+# in its smallest interior frame), local skip rows 6.538e-3 (frames 3-4
+# only). 7e-4 lies between: 3.1x the sound reading, 0.22x the smaller fault.
+FRAMES_TOL = 7e-4
+# The same two ranks at tp=2 over FRAMES_TP_STEPS steps (gloo's all-reduce
+# of the row-parallel outputs goes through the host, ~0.6 s a forward
+# here): each row-parallel projection is summed from two bf16 halves, one
+# more bf16 rounding than the unsharded GEMM. On an H100: sound 4.782e-4;
+# each rank's heads through the other rank's to_out.0 columns 2.210e-2
+# (5.364e-3 in its smallest frame). 1e-3 lies between: 2.1x the sound
+# reading, 0.19x the fault's smallest frame. (A GEGLU up-projection split
+# contiguously, the trap the CPU tests pin, reads only 5.128e-4 here: the
+# random feed-forward barely moves the latents in 4 steps.)
+FRAMES_TP_TOL = 1e-3
+FRAMES_TP_STEPS = 4
+# Phase 19 (b)'s interior coefficients at dp=2: frame 3 (shard 0's last
+# row) at 1 and frame 4 (shard 1's first row) at 0, which skip rows taken by
+# local row index would drop.
+FRAMES_TRAP_COEF = (0.0, 0.25, 0.5, 1.0, 0.0, 0.5, 0.75, 1.0)
+# Seconds the two ranks of phase 19 (b) may take: a collective one rank
+# never joins hangs the other, and the phase then fails instead.
+FRAMES_RANK_TIMEOUT = 300.0
+
+
+def init_group(backend: str, world: int, rank: int, store_dir: str) -> None:
+    """A process group through a FileStore under ``store_dir`` (no port to pick)."""
+    import torch.distributed as dist
+
+    dist.init_process_group(backend, store=dist.FileStore(os.path.join(store_dir, "store"), world), rank=rank,
+                            world_size=world)
+
+
+@contextlib.contextmanager
+def counted_all_gathers():
+    """Count ``torch.distributed.all_gather`` calls inside (a one-item list)."""
+    import torch.distributed as dist
+
+    real, n = dist.all_gather, [0]
+
+    def call(*args, **kwargs):
+        n[0] += 1
+        return real(*args, **kwargs)
+
+    dist.all_gather = call
+    try:
+        yield n
+    finally:
+        dist.all_gather = real
+
+
+def tp_heads_crossed(sharded, unet, rank: int, tp: int):
+    """A planted fault of tensor parallelism: every row-parallel ``to_out.0``
+    of ``sharded`` given the columns of the next rank's heads, so each rank
+    projects its heads' outputs through another rank's weights."""
+    import torch
+
+    from aid_tpu_torch.models.layers import CrossAttention
+    from aid_tpu_torch.parallel.mesh import RowParallelLinear
+
+    whole = dict(unet.named_modules())
+    for name, m in sharded.named_modules():
+        if isinstance(m, CrossAttention) and isinstance(m.to_out[0], RowParallelLinear):
+            w, n, other = whole[name].to_out[0].weight.detach(), m.to_out[0].weight.shape[1], (rank + 1) % tp
+            m.to_out[0].weight = torch.nn.Parameter(w[:, other * n:(other + 1) * n].contiguous(), requires_grad=False)
+    return sharded
+
+
+@contextlib.contextmanager
+def frames_fault(fault):
+    """A planted fault of frame sharding: ``"local endpoints"`` (each shard's
+    own rows 0 / B-1) or ``"local skip rows"`` (by local row index); any
+    other fault is the caller's."""
+    from aid_tpu_torch.models import layers
+
+    if fault not in ("local endpoints", "local skip rows"):
+        yield
+        return
+    if fault == "local endpoints":
+        owner, name, fake = layers.FrameShard, "endpoints", lambda self, x: (x[0], x[-1])
+    else:
+        owner, name, fake = layers, "frame_skip_mask", lambda c, offset, total: layers.skip_mask(c, c.shape[0])
+    real = getattr(owner, name)
+    setattr(owner, name, fake)
+    try:
+        yield
+    finally:
+        setattr(owner, name, real)
+
+
+def phase_frames_world_one(unet, sample, ehs, uncond, added, coef, steps: int, main_out, main_counts: dict,
+                           card: str, backend: str = "nccl") -> dict:
+    """``sharded_denoise_sequence`` on phase 5's program in a world of one:
+    the gathered endpoints are copies of rows 0 and N-1, so the latents must
+    equal phase 5's bit for bit, through the same launches. Returns the
+    path's launch counts."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from aid_tpu_torch.models.layers import AidMode
+    from aid_tpu_torch.parallel import make_mesh, sharded_denoise_sequence
+    from aid_tpu_torch.schedulers.euler import EulerDiscreteScheduler
+
+    print(f"== phase 19 (a): frame parallelism in a world of one ({backend}): sharded_denoise_sequence on phase 5's "
+          f"SDXL program ({sample.shape[0]} frames, {steps} steps, {steps // 2} fused_outer)", flush=True)
+    store = tempfile.mkdtemp(prefix="frames-store-")
+    try:
+        init_group(backend, 1, 0, store)
+    except Exception as e:  # noqa: BLE001 - any failure to start ends the smoke
+        fail(f"the {backend} process group of one did not start: {e!r}")
+    try:
+        mesh = make_mesh(dp=1, tp=1, devices=sample.device.type)
+        scheduler = EulerDiscreteScheduler()
+        state = scheduler.init(steps, device=sample.device)
+        torch.cuda.reset_peak_memory_stats()
+        outs, elapsed = [], []
+        for _ in range(2):  # the first run includes the communicator's setup
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with counted_all_gathers() as gathers:
+                outs.append(sharded_denoise_sequence(
+                    mesh, unet, scheduler, sample, ehs, uncond, coef, state, 5.0,
+                    early=AidMode.from_name("fused_outer"), late=AidMode.vanilla(), num_steps=steps,
+                    warmup_steps=steps // 2, added_cond=added))
+            torch.cuda.synchronize()
+            elapsed.append(time.perf_counter() - t0)
+            counts = read_counts()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    n_attn = sum(type(m).__name__ == "CrossAttention" for m in unet.modules())
+    gap = max((out.float() - main_out.float()).abs().max().item() for out in outs)
+    equal = all(torch.equal(out, main_out) for out in outs)
+    print(f"{elapsed[0] / steps:.3f} s/step in the first run (the communicator's setup included), "
+          f"{elapsed[1] / steps:.3f} in the second (phase 5: the first steps included); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {card}; {gathers[0]} all-gathers a run "
+          f"({4 * n_attn} a fused_outer forward: {n_attn} attention layers x k, v x first, last; 1 of the output)",
+          flush=True)
+    print(f"latents of both runs against phase 5's denoise_sequence: max |sharded - unsharded| {gap!r}, "
+          f"bit-equal {equal}; "
+          f"launches equal {counts == main_counts}  {'ok' if equal and counts == main_counts else 'FAIL'}", flush=True)
+    if gathers[0] != 4 * n_attn * (steps // 2) + 1:
+        fail(f"{gathers[0]} all-gathers; {4 * n_attn} per interpolating forward and one of the output expected")
+    if not equal:
+        fail(f"the world of one changed the latents (max gap {gap!r}): the gathered endpoints must carry the same "
+             f"values into the same kernels")
+    if counts != main_counts:
+        fail(f"the world of one launched {counts}; phase 5 launched {main_counts}")
+    check_path("frame-sharded denoise (world of one)", counts, ("flash_interpolated_attention", "conv3x3_same"))
+    return counts
+
+
+def frames_rank(rank: int, world: int, store_dir: str, spec: dict, out_dir: str) -> None:
+    """One rank of phase 19 (b): the SD 1.5 UNet from the shared seed, then
+    every run of ``spec`` through ``sharded_denoise_sequence`` (with
+    ``shard_params`` on the TP mesh, and the crossed-heads fault's own copy);
+    saves each run's latents, launch counts and seconds. Module-level, so
+    spawned ranks import it; the ``__main__`` guard keeps them from running
+    the smoke again."""
+    import torch
+    import torch.distributed as dist
+
+    from aid_tpu_torch.models.layers import AidMode
+    from aid_tpu_torch.parallel import make_mesh, shard_params, sharded_denoise_sequence
+    from aid_tpu_torch.schedulers.ddim import DDIMScheduler
+
+    device = spec["device"]
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    else:  # a rehearsal on the CPU: one thread a rank
+        torch.set_num_threads(1)
+    init_group("gloo", world, rank, store_dir)
+    try:
+        unet = build_sd15(cfg=spec["cfg"], device=device, dtype=spec["dtype"])
+        meshes = {"dp": make_mesh(dp=world, tp=1, devices=device), "tp": make_mesh(dp=1, tp=world, devices=device)}
+        sharded = {"dp": unet, "tp": shard_params(unet, meshes["tp"]),
+                   "tp crossed": tp_heads_crossed(shard_params(unet, meshes["tp"]), unet, rank, world)}
+        x = {k: v.to(device) for k, v in spec["inputs"].items()}
+        scheduler = DDIMScheduler()
+        results = {}
+        for name, (mesh, coef, fault, steps) in spec["runs"].items():
+            model = sharded["tp crossed" if fault == "heads crossed" else mesh]
+            if device == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+                torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            with frames_fault(fault):
+                out = sharded_denoise_sequence(
+                    meshes[mesh], model, scheduler, x["latents"], x["embs"], x["uncond"], x[coef],
+                    scheduler.init(steps, device=device), 7.5, early=AidMode.from_name("fused_outer"),
+                    late=AidMode.vanilla(), num_steps=steps, warmup_steps=steps // 2)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            results[name] = {"latents": out.cpu(), "counts": read_counts(), "seconds": time.perf_counter() - t0,
+                             "peak": torch.cuda.max_memory_allocated() if device == "cuda" else 0}
+        torch.save(results, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_ranks(fn, world: int, args: tuple, timeout: float) -> None:
+    """Run ``fn(rank, *args)`` in ``world`` spawned processes; fail if one
+    raises, dies or outlives ``timeout`` (then every rank is killed)."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.start_processes(fn, args=args, nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + timeout
+    try:
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                fail(f"the {world} ranks did not finish in {timeout:.0f} s (a collective some rank never joined?)")
+    except mp.ProcessRaisedException as e:
+        fail(f"a rank raised: {e}")
+    except mp.ProcessExitedException as e:
+        fail(f"a rank died: {e}")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+
+
+def phase_frames(card: str, device: str = "cuda", unet_cfg=None, steps: int = SD15_STEPS, frames: int = 8,
+                 dtype=None) -> list:
+    """Two gloo ranks on the one card (NCCL takes one rank a device): the
+    full-width SD 1.5 UNet in bf16 from one seed on each rank, ``frames``
+    frames at its 64^2 latents, ``steps`` DDIM steps with fused_outer for
+    the first half, sequential CFG, at dp=2; then the same two ranks at
+    tp=2 (8 heads, 4 a rank) over FRAMES_TP_STEPS steps. Each run against
+    the unsharded run in this process, with planted faults over the bound:
+    local endpoints, local skip rows on interior 0/1 coefficients, and (TP)
+    each rank's heads through the other rank's to_out.0 columns. Returns the sound runs' launch
+    counts, summed over the ranks. ``device``/``unet_cfg``/``dtype`` exist
+    for rehearsing on the CPU."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from aid_tpu_torch.models.layers import AidMode
+    from aid_tpu_torch.ops.interp import generate_beta_schedule
+    from aid_tpu_torch.pipelines.engine import denoise_sequence
+    from aid_tpu_torch.schedulers.ddim import DDIMScheduler
+
+    print(f"== phase 19 (b): frame parallelism in a world of two (gloo, two ranks on the one card): SD1.5, "
+          f"{frames} frames, {steps} DDIM steps ({steps // 2} fused_outer), dp=2 then tp=2, against the "
+          f"unsharded run", flush=True)
+    t_phase = time.perf_counter()
+    unet = build_sd15(cfg=unet_cfg, device=device, dtype=dtype)
+    cfg, s = unet.config, unet.config.sample_size
+    gen = torch.Generator(device=device).manual_seed(19)
+    inputs = {"latents": torch.randn((frames, cfg.in_channels, s, s), generator=gen, device=device),
+              "embs": torch.randn((frames, 77, cfg.cross_attention_dim), generator=gen, device=device),
+              "uncond": torch.randn((frames, 77, cfg.cross_attention_dim), generator=gen, device=device),
+              "beta": torch.from_numpy(generate_beta_schedule(frames, steps, steps, force_endpoints=True)).to(device),
+              "trap": torch.tensor(FRAMES_TRAP_COEF, device=device)}
+    tp_steps = min(steps, FRAMES_TP_STEPS)
+    refs = {}
+    for coef, n in (("beta", steps), ("trap", steps), ("beta", tp_steps)):
+        scheduler = DDIMScheduler()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        refs[coef, n] = denoise_sequence(unet, scheduler, inputs["latents"], inputs["embs"], inputs["uncond"],
+                                         inputs[coef], scheduler.init(n, device=device), 7.5,
+                                         early=AidMode.from_name("fused_outer"), late=AidMode.vanilla(),
+                                         num_steps=n, warmup_steps=n // 2).cpu()
+        torch.cuda.synchronize()
+        print(f"unsharded, {coef} coefficients, {n} steps: {time.perf_counter() - t0:.2f} s", flush=True)
+    del unet
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    runs = {"dp=2": ("dp", "beta", None, steps), "dp=2 local endpoints": ("dp", "beta", "local endpoints", steps),
+            "dp=2 interior 0/1": ("dp", "trap", None, steps),
+            "dp=2 interior 0/1, local skip rows": ("dp", "trap", "local skip rows", steps),
+            "tp=2": ("tp", "beta", None, tp_steps),
+            "tp=2 heads crossed": ("tp", "beta", "heads crossed", tp_steps)}
+    spec = {"device": device, "cfg": unet_cfg, "dtype": dtype, "runs": runs,
+            "inputs": {k: v.cpu() for k, v in inputs.items()}}
+    work = tempfile.mkdtemp(prefix="frames-ranks-")
+    try:
+        t0 = time.perf_counter()
+        spawn_ranks(frames_rank, 2, (2, work, spec, work), FRAMES_RANK_TIMEOUT)
+        spawned = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False) for r in range(2)]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"two ranks: {spawned:.2f} s from spawn to exit; seconds per run by rank "
+          f"{ {name: [round(r[name]['seconds'], 2) for r in ranks] for name in runs} }; peak memory by rank "
+          f"{ {name: [round(r[name]['peak'] / 2**30, 2) for r in ranks] for name in runs} } GiB on {card}", flush=True)
+    for name in runs:
+        if not torch.equal(ranks[0][name]["latents"], ranks[1][name]["latents"]):
+            fail(f"{name}: the two ranks returned different sequences")
+    got = {name: ranks[0][name]["latents"] for name in runs}
+    check_bound("dp=2 vs unsharded", frame_rel_l2(got["dp=2"], refs["beta", steps]),
+                frame_rel_l2(got["dp=2 local endpoints"], refs["beta", steps]), FRAMES_TOL, "local endpoints")
+    check_bound("dp=2 interior 0/1 coefficients vs unsharded",
+                frame_rel_l2(got["dp=2 interior 0/1"], refs["trap", steps]),
+                frame_rel_l2(got["dp=2 interior 0/1, local skip rows"], refs["trap", steps]), FRAMES_TOL,
+                "local skip rows")
+    check_bound(f"tp=2 vs unsharded ({tp_steps} steps)", frame_rel_l2(got["tp=2"], refs["beta", tp_steps]),
+                frame_rel_l2(got["tp=2 heads crossed"], refs["beta", tp_steps]), FRAMES_TP_TOL,
+                "to_out.0 columns of the other rank's heads")
+    paths = []
+    for name in ("dp=2", "dp=2 interior 0/1", "tp=2"):
+        for rank, r in enumerate(ranks):
+            by_dim = {d: r[name]["counts"].get(f"flash_interpolated_attention[D={d}]", 0) for d in (40, 80, 160)}
+            print(f"{name}, rank {rank}: attention launches by head dim {by_dim}", flush=True)
+            if not min(by_dim.values()) > 0:
+                fail(f"{name}: rank {rank} did not launch the kernel at every head dim: {by_dim}")
+        paths.append({k: sum(r[name]["counts"][k] for r in ranks) for k in ranks[0][name]["counts"]})
+    print(f"phase 19 (b): {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return paths
+
+
+def stub_gradio():
+    """A stand-in ``gradio`` module that builds nothing and keeps the
+    functions wired to buttons (``clicks``): the card's machine has no
+    gradio, and the app's logic is all in those functions."""
+    import types
+
+    g = types.ModuleType("gradio")
+    g.clicks = []
+
+    class Component:
+        def __init__(self, *args, **kwargs):
+            pass
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def change(self, fn, inputs, outputs):
+            pass
+
+        def click(self, fn, inputs, outputs):
+            g.clicks.append(fn)
+
+    for name in ("Blocks", "Examples", "Markdown", "Dropdown", "Textbox", "Row", "Slider", "Number", "Checkbox",
+                 "LinePlot", "Gallery", "Button"):
+        setattr(g, name, type(name, (Component,), {}))
+    g.update = lambda **kwargs: kwargs
+    return g
+
+
+def phase_app(pipe, card: str) -> dict:
+    """The app's Generate function (``apps.gradio_app.build_app`` with a stub
+    gradio) on phase 15's SD 1.5 pipeline: the gallery's 7-frame SD 1.5
+    example at SD15_STEPS steps, seven 512px uint8 frames from one
+    ``interpolate`` call. Returns the path's launch counts."""
+    import numpy as np
+    import torch
+
+    from aid_tpu_torch.apps import gradio_app
+
+    print(f"== phase 19 (c): the Gradio app's generate on phase 15's pipeline (stub gradio), the gallery's 7-frame "
+          f"SD1.5 example at {SD15_STEPS} steps", flush=True)
+    g, real = stub_gradio(), sys.modules.get("gradio")
+    sys.modules["gradio"] = g
+    try:
+        gradio_app.build_app(lambda name: pipe)
+    finally:
+        if real is None:
+            del sys.modules["gradio"]
+        else:
+            sys.modules["gradio"] = real
+    if len(g.clicks) != 1:
+        fail(f"build_app wired {len(g.clicks)} buttons; the Generate button expected")
+    p1, p2, guide, neg, model, size, alpha, beta, warmup, guidance, _, early, late, seed, same = \
+        gradio_app.get_examples()[1]
+    px = pipe.unet.config.sample_size * 2 ** (len(pipe.vae.config.block_out_channels) - 1)
+
+    def generate():
+        frames = g.clicks[0](model, p1, p2, guide, neg, size, alpha, beta, warmup, guidance, SD15_STEPS, early,
+                             late, seed, same)
+        return np.stack([np.asarray(im) for im in frames])
+
+    images, counts, times, decoder_inputs, elapsed, peak = run_image_path(pipe, pipe.vae, generate, SD15_STEPS, size)
+    check_images(f"the app's generate ({model}, {size} frames, {early}/{late}, guide prompt)", images,
+                 (size, px, px, 3), times, elapsed, peak, card)
+    if not all(torch.isfinite(z).all() for z in decoder_inputs):
+        fail("the app's generate decoded non-finite latents")
+    check_path("the app's generate", counts, ("flash_interpolated_attention[D=40]",
+                                              "flash_interpolated_attention[D=80]",
+                                              "flash_interpolated_attention[D=160]"))
+    return counts
+
+
 def kernels_line(kernels: dict, launches: dict) -> str:
     """The kernels' JSON record: one entry per kernel, with KERNEL_KEYS
     first, then what phase 3 measured besides (the conv's kernel_ms, the
@@ -3350,10 +3769,14 @@ def main(argv=None) -> int:
     fused_classes = fused_conv_classes(unet, sample, ehs, added)
     kernels = phase_kernels(coef, sd15_coef(), fused_classes, sd21_classes)
     phase_unet(unet, sample, ehs, added, coef)
-    paths = [phase_main(unet, sample, ehs, uncond, added, coef, args.steps, card)]
+    main_counts, main_out = phase_main(unet, sample, ehs, uncond, added, coef, args.steps, card)
+    paths = [main_counts]
     paths += phase_engine(unet, sample, ehs, uncond, added, coef, card)
     paths.append(phase_fused(unet, sample, ehs, uncond, added, coef, sum(fused_classes.values()), card))
-    del sample, ehs, uncond, added, coef
+    # phase 19 (a) runs here, on phase 5's program and its result
+    paths.append(phase_frames_world_one(unet, sample, ehs, uncond, added, coef, args.steps, main_out, main_counts,
+                                        card))
+    del sample, ehs, uncond, added, coef, main_out
     paths += phase_image(unet, args.steps, card)
     del unet
     torch.cuda.empty_cache()
@@ -3373,11 +3796,14 @@ def main(argv=None) -> int:
     pipe, counts = phase_sd15_safety(card)
     paths.append(counts)
     paths += phase_selection(pipe, card)
+    paths.append(phase_app(pipe, card))  # phase 19 (c), on phase 15's pipeline
     del pipe
     torch.cuda.empty_cache()
     paths += phase_ip_adapter(card)
     torch.cuda.empty_cache()
     paths += phase_single_file(card)
+    torch.cuda.empty_cache()
+    paths += phase_frames(card)  # phase 19 (b)
     launches = {name: sum(p[name] for p in paths) for name in paths[0]}
     print(f"launches over the {len(paths)} paths: {launches}", flush=True)
     print(f"smoke wall time {time.perf_counter() - start:.1f} s (the limit is 1200 s)", flush=True)

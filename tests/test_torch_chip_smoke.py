@@ -527,3 +527,118 @@ def test_single_file_phase_rehearses_on_the_cpu(monkeypatch):
     assert len(paths) == 1 and set(paths[0]) >= {"flash_interpolated_attention[D=64]", "conv3x3_same"}
     assert len(skipped) == 4 and all("launch" in m for m in skipped)
     assert set(os.listdir(REPO / "build")) <= before  # the files written are removed
+
+
+def _stub_cuda_and_fail(monkeypatch, smoke):
+    """torch.cuda's timing calls stubbed and every launch-count failure kept
+    aside (no kernel runs on the CPU); any other failure raises."""
+    import torch
+
+    for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a, **k: 0)
+    skipped = []
+
+    def fail(msg):
+        if "launch" not in msg:
+            raise AssertionError(msg)
+        skipped.append(msg)
+
+    monkeypatch.setattr(smoke, "fail", fail)
+    return skipped
+
+
+def test_frames_phase_follows_the_single_file_phase():
+    """Phase 19 exists with its three banners: (a) right after phase 7 on
+    phase 5's program and result, (c) on phase 15's pipeline before it is
+    freed, (b) after phase 18, before the kernels line."""
+    import inspect
+
+    smoke = _load_smoke()
+    assert "== phase 19 (a)" in inspect.getsource(smoke.phase_frames_world_one)
+    assert "== phase 19 (b)" in inspect.getsource(smoke.phase_frames)
+    assert "== phase 19 (c)" in inspect.getsource(smoke.phase_app)
+    assert "19. frames" in smoke.__doc__
+    main = inspect.getsource(smoke.main)
+    assert (main.index("phase_fused(") < main.index("phase_frames_world_one(") < main.index("phase_image(")
+            < main.index("phase_selection(pipe, card)") < main.index("phase_app(pipe, card)") < main.index("del pipe")
+            < main.index("phase_single_file(card)") < main.index("phase_frames(card)") < main.index("kernels_line("))
+
+
+def test_frames_world_one_rehearses_on_the_cpu(monkeypatch):
+    """Phase 19 (a) at the tiny SDXL size in a gloo world of one on the CPU:
+    bit-equal to phase 5's latents, its all-gathers counted."""
+    import torch
+
+    from aid_tpu_torch.models.configs import TINY_SDXL_UNET as cfg
+    from aid_tpu_torch.models.unet import UNet2DCondition
+    from aid_tpu_torch.ops.interp import generate_beta_schedule
+
+    smoke = _load_smoke()
+    skipped = _stub_cuda_and_fail(monkeypatch, smoke)
+    torch.manual_seed(0)
+    unet = UNet2DCondition(cfg).eval()
+    g = torch.Generator().manual_seed(1)
+    frames, s = 5, cfg.sample_size
+    sample = torch.randn((frames, cfg.in_channels, s, s), generator=g)
+    ehs, uncond = (torch.randn((frames, 77, cfg.cross_attention_dim), generator=g) for _ in range(2))
+    added = {"text_embeds": torch.randn((frames, 24), generator=g),
+             "time_ids": torch.tensor([[64.0, 64.0, 0.0, 0.0, 64.0, 64.0]]).expand(frames, 6)}
+    coef = torch.from_numpy(generate_beta_schedule(frames, 28, 28, force_endpoints=True))
+    counts, out = smoke.phase_main(unet, sample, ehs, uncond, added, coef, 2, "cpu")
+    got = smoke.phase_frames_world_one(unet, sample, ehs, uncond, added, coef, 2, out, counts, "cpu",
+                                       backend="gloo")
+    assert got == counts
+    assert skipped and all("launch" in m for m in skipped)
+
+
+def test_frames_world_of_two_rehearses_on_the_cpu(monkeypatch):
+    """Phase 19 (b) at the tiny SD size in f32 on the CPU (3 steps, the TP
+    run 3): two spawned gloo ranks, every bound with its planted faults;
+    only the launch counts (no kernel here) are set aside."""
+    import sys
+
+    from aid_tpu_torch.models.configs import TINY_UNET
+
+    smoke = _load_smoke()
+    # the ranks import the script by its own name to find their function
+    monkeypatch.setitem(sys.modules, "chip_smoke", smoke)
+    smoke.__name__ = smoke.frames_rank.__module__ = "chip_smoke"
+    monkeypatch.syspath_prepend(str(REPO))
+    skipped = _stub_cuda_and_fail(monkeypatch, smoke)
+    # the tiny random model barely moves in 3 steps: the bounds at its scale
+    # (sound ~5e-8; the smallest planted fault ~4e-5)
+    monkeypatch.setattr(smoke, "FRAMES_TOL", 1e-6)
+    monkeypatch.setattr(smoke, "FRAMES_TP_TOL", 1e-6)
+    import torch
+
+    paths = smoke.phase_frames("cpu", device="cpu", unet_cfg=TINY_UNET, steps=3, dtype=torch.float32)
+    assert len(paths) == 3
+    assert skipped and all("launch" in m for m in skipped)
+
+
+def test_app_phase_rehearses_on_the_cpu(monkeypatch):
+    """Phase 19 (c) on a tiny CPU pipeline: the app's generate through the
+    stub gradio gives the example's 7 frames, and gradio stays uninstalled."""
+    import sys
+
+    import torch
+
+    from aid_tpu_torch.models import configs
+    from aid_tpu_torch.models.clip import CLIPTextModel
+    from aid_tpu_torch.models.unet import UNet2DCondition
+    from aid_tpu_torch.models.vae import AutoencoderKL
+    from aid_tpu_torch.pipelines.interpolation import InterpolationPipeline
+    from aid_tpu_torch.utils.tokenizer import HashTokenizer
+
+    smoke = _load_smoke()
+    skipped = _stub_cuda_and_fail(monkeypatch, smoke)
+    monkeypatch.setattr(smoke, "SD15_STEPS", 3)
+    torch.manual_seed(0)
+    pipe = InterpolationPipeline(
+        unet=UNet2DCondition(configs.TINY_UNET).eval(), vae=AutoencoderKL(configs.TINY_VAE).eval(),
+        text_encoder=CLIPTextModel(configs.TINY_CLIP_TEXT).eval(),
+        tokenizer=HashTokenizer(configs.TINY_CLIP_TEXT.vocab_size), vae_scale_factor=2)
+    counts = smoke.phase_app(pipe, "cpu")
+    assert "flash_interpolated_attention" in counts and "gradio" not in sys.modules
+    assert skipped and all("launch" in m for m in skipped)

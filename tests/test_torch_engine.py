@@ -268,7 +268,8 @@ def test_import_leaves_jax_out():
             "aid_tpu_torch.prior.clip_scorer, aid_tpu_torch.prior.beta, aid_tpu_torch.prior.bayes, "
             "aid_tpu_torch.prior.dp_solver, aid_tpu_torch.metrics.gini, aid_tpu_torch.metrics.lpips, "
             "aid_tpu_torch.models.ip_adapter, aid_tpu_torch.utils.parity, aid_tpu_torch.utils.profiling, "
-            "aid_tpu_torch.utils.images; "
+            "aid_tpu_torch.utils.images, aid_tpu_torch.parallel, aid_tpu_torch.parallel.mesh, "
+            "aid_tpu_torch.apps, aid_tpu_torch.apps.gradio_app; "
             "bad = sorted(m for m in set(sys.modules) - before "
             "if m.split('.')[0] in ('jax', 'flax', 'aid_tpu', 'safetensors', 'PIL')); "
             "print(bad); sys.exit(1 if bad else 0)")
