@@ -110,46 +110,6 @@ static_assert(kStageBytes % 128 == 0 && kWinBytes % 128 == 0, "TMA destinations 
 
 #include "tf32_mma.cuh"
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// Wait until the barrier's phase of parity `parity` has completed (one asm
-// loop: a C++ loop around try_wait makes ptxas serialise wgmmas, C7520).
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "WAIT_%=:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT_%=;\n"
-      "}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
-// 4D TMA tile load global -> shared, completion counted on `bar` in bytes
-__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0, int c1,
-                                            int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
-      : "memory");
-}
-
 // 1D bulk copy global -> shared of `bytes` (a multiple of 16), completion counted on `bar`
 __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes, uint32_t bar) {
   asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(dst),
@@ -207,8 +167,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int s = kt % kStages;
     const uint32_t bar = full + 8 * s, win = base + s * kStageBytes;
     mbar_expect_tx(bar, kStageBytes);
-    tma_load_4d(win, &xmap, bar, 2 * (x0 - 1), y0 - 1, 2 * kt, b);
-    tma_load_4d(win + kWinBytes, &xmap, bar, 2 * (x0 - 1), y0 - 1, 2 * kt, B + b);
+    tma_load(win, &xmap, bar, 2 * (x0 - 1), y0 - 1, 2 * kt, b);
+    tma_load(win + kWinBytes, &xmap, bar, 2 * (x0 - 1), y0 - 1, 2 * kt, B + b);
     bulk_load(win + 2 * kWinBytes, wtile + (size_t)kt * 2 * kWtsBytes, 2 * kWtsBytes, bar);
   };
 
@@ -281,26 +241,6 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
     }
   }
-}
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from libcuda, found at run time (no -lcuda)
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
 }
 
 __device__ __forceinline__ float silu_affine(float v, float s, float h) {
@@ -425,13 +365,10 @@ extern "C" int aid_conv3x3_f32(const void* x, const void* w, const void* bias, v
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS) {
     return (int)cudaErrorInvalidValue;
   }
-  static bool attribute_set = false;  // once per process
-  if (!attribute_set) {
-    const cudaError_t err = cudaFuncSetAttribute(reinterpret_cast<const void*>(&conv3x3_f32_kernel),
-                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
-    if (err != cudaSuccess) return (int)err;
-    attribute_set = true;
-  }
+  static bool smem_allowed = false;
+  const cudaError_t err = allow_smem_once(reinterpret_cast<const void*>(&conv3x3_f32_kernel), kSmemBytes,
+                                          smem_allowed);
+  if (err != cudaSuccess) return (int)err;
   const int tiles_x = (W + kTW - 1) / kTW, tiles_y = (H + kTR - 1) / kTR;
   const dim3 grid((unsigned)(tiles_x * tiles_y), (unsigned)((Cout + kBN - 1) / kBN), (unsigned)B);
   conv3x3_f32_kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(

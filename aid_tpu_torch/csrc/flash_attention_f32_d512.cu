@@ -4,360 +4,523 @@
 // aid_tpu/ops/flash_attention.py::_kernel (flash_attention.py:101), which the
 // JAX package reaches from the VAE mid-block attention (vae.py:57-65): one
 // head, self mode, softmax(q k^T * scale) v with an f32 softmax and an f32
-// output. At 1024px that is 16384 tokens per frame; the plain version
-// materialises a 16384^2 f32 logit matrix (1 GiB) per frame, this kernel
-// keeps the logits on chip.
+// output. 16384 tokens per 1024px frame, 4096 per 512px frame or tile (4000
+// at the tiled decode's ragged tile); the plain version materialises the
+// S x S f32 logits (1 GiB a 1024px frame), this kernel keeps them on chip.
 //
-// What bounds it on the card: 4*S*S*D = 550 GFLOP per frame at S=16384
-// against ~134 MB of q/k/v/out, so it is compute-bound. Plain f32 FMA runs
-// at the 67 TFLOP/s CUDA-core rate (8.2 ms at best; the earlier SIMT
-// design of this file took 29.2 ms). Plain TF32 on the tensor cores keeps
+// What bounds it on the card: 4*S*S*D = 550 GFLOP per frame at S = 16384
+// against ~134 MB of q/k/v/out, so the products bind. Plain TF32 keeps only
 // ~4e-4 of max |out| (tests/test_torch_ops.py), which would break the f32
-// decode's 1e-4 promise. So both products run in 3xTF32: each operand is
-// split as a = hi + lo with hi = tf32(a) (cvt.rna) and lo = a - hi (exact
-// in f32; the tensor cores read its tf32 part, dropping the low 13 bits,
-// which a second cvt would only round: measured the same error, 11%
-// faster without it), and hi*hi + hi*lo + lo*hi accumulate in f32 (lo*lo,
-// ~2^-22 relative, is dropped). That keeps the result ~1e-6 from full f32
-// at three tensor-core passes: 3.33 ms at the 495 TFLOP/s TF32 rate is this
-// kernel's bound.
+// decode's 1e-4 promise, and f32 outside the tensor cores runs at 67
+// TFLOP/s (8.2 ms a frame at best). So each product runs as three
+// tensor-core passes, TF32 and bf16 (below): 1.5 TF32 and 1.5 bf16 passes
+// a product on average, whose times add on the tensor cores (495 and 989
+// TFLOP/s), 2.50 ms a frame, are this kernel's bound
+// (chip_smoke.F32_D512_PASSES); three TF32 passes would take 3.33. The
+// split (a = hi + lo):
+//   * hi is the raw f32 operand (the tensor cores read a tf32 operand's top
+//     19 bits), lo = a - trunc(a), exact in f32, read truncated in turn;
+//   * Q K^T = hi(Q) hi(K) + lo(Q) hi(K) in tf32 + bf16(Q) bf16(lo(K)): K's
+//     lo is stored in bf16 (half the bytes of a tf32 copy) and its pass is
+//     a bf16 wgmma;
+//   * P V = hi(P) hi(V) in tf32 + one packed bf16 pass, lo(V) P + V lo(P)
+//     (each k16 step holds 8 keys twice: bf16(lo(V)) against bf16(P), then
+//     bf16(V) against bf16(lo(P))).
+//   Modelled at D = 512 in this kernel's tile order (tests/test_torch_ops.py
+//   ::_d512_tiled_attention): 1.6e-6 of max |out| over 4096 keys, 2.3e-6
+//   over 16384; with K's lo dropped 6e-4 and 9e-4, over the 1e-4 promise.
 //
-// The instruction is mma.sync.m16n8k8.tf32, not wgmma: tf32 wgmma takes
-// only K-major operands from shared memory, so hi and lo of Q and K and a
-// transposed hi and lo of V would all have to sit there, and a 64 x 512 f32
-// tile alone is 128 KB; mma.sync takes fragments split in registers from
-// one f32 copy of each tile.
-//
-// Shared memory binds the design:
-//   * 64 query rows per block (each K/V element is then read from L2 once
-//     per 64 queries: 16 GB of L2 reads at S=16384, half of what 32-row
-//     blocks would need), 256 threads, one block per SM;
-//   * 16-key K and V tiles, each with its own buffer, each refilled as soon
-//     as its use ends: K(j+1) loads during the softmax and P V of tile j,
-//     V(j+1) during Q K^T of tile j+1 (cp.async). Q 130 KB + K 32.5 KB + V
-//     32 KB + scores 24 KB = 219.5 KB;
-//   * Q K^T: warp w computes a 32-row x 16-key patch over one quarter of d
-//     (rows 32 (w % 2), d quarter w / 2); the four quarters' partial scores
-//     are summed by the softmax. Big (hi*hi) and small (hi*lo + lo*hi)
-//     terms go to separate accumulators, the small ones of even and odd k
-//     steps apart too: twelve independent mma chains a warp;
-//   * the k order inside an 8-wide step is permuted (fragment k = t and
-//     t + 4 from columns 2t and 2t + 1), so each thread's pair of Q, K or P
-//     values is one 8-byte shared load;
-//   * online softmax in f32 (exp2 with log2(e) folded into the scale), four
-//     threads per row; row max / sum / rescale factors in shared memory;
-//   * O = O * alpha + P V: warp w owns output columns 64w .. 64w + 63 of all
-//     64 rows, 4 x 8 m16n8 tiles = 128 f32 accumulator registers a thread;
-//     P comes through shared memory to every warp. Each tile's P V is summed
-//     from zero on the tensor cores and folded into O by an f32 FMA: summed
-//     in place, the tensor cores' truncating accumulation drifted by 1.3e-4
-//     of max |out| over 16384 keys;
-//   * rows are padded (q, k: 520 floats, v: 516, scores: 24) so that every
-//     fragment load of a warp is free of bank conflicts;
-//   * ragged key tails are masked with -inf scores on zero-filled tiles,
-//     ragged query tails load zeros and are not stored.
-// What holds it back (H100, chip_smoke.py phase 3 and variants of this
-// file): 12.4 ms at (1,1,16384,512), 27% of the bound. Dropping the small
-// passes of Q K^T and of P V (1xTF32) took it to 7.3 ms, so each pass of
-// mma.sync TF32 costs ~3 ms here (~180 TFLOP/s), and splits, softmax and
-// the four barriers a 16-key tile ~3-4 ms more. 16 warps at 128 registers
-// were 15% slower.
-// At SD 1.5's batched decode, (7,1,4096,512), it is 6.06 ms: slower than
-// its plain version (5.65) and than SDPA's efficient backend (5.88).
-// ptxas (CUDA 12.8, sm_90a): 255 registers, 60 bytes of spill stores, 220 KB
-// dynamic shared memory; chip_smoke.py's build phase prints these lines
-// from every build. tools/f32_attention_spill_probe.py reads the SASS: 5
-// local stores and 5 loads sit in the key-tile loop, the other 15 run once
-// a block. Its variant with one accumulator chain fewer for Q K^T's small
-// terms spills more (144 bytes; 12 + 12 in the loop) and is 2.2% slower
-// (11.87 -> 12.13 ms at (1,1,16384,512)): at that rate the shipped
-// kernel's spills cost under 2%.
+// The design: wgmma for both products, every tile by TMA, a producer
+// warpgroup and two consumer warpgroups.
+//   * A block owns 64 query rows. Their Q tile (64 x 512 f32, 128 KB) stays
+//     in shared memory for the whole key loop, as TMA landed it: 16 boxes of
+//     32 columns (128-byte rows, the 128-byte swizzle). Each key tile, the
+//     consumers read it a 32-column chunk at a time into A fragments: the
+//     raw words (hi), their lo and their bf16 (a 64 x 512 Q in registers
+//     would not fit beside the output; read through a descriptor instead,
+//     the hi pass measured slower: every m64 A operand from shared memory
+//     is 2 KB a k8 step against the K tile's 0.5 KB).
+//   * D is split between the two consumer warpgroups (256 columns each,
+//     flash_attention_bf16_d512.cu's scheme): each computes the partial
+//     scores of the 16-key tile over its 256 columns (S = Q K^T, wgmma
+//     m64n16, K through K-major descriptors), writes them to shared memory
+//     in accumulator order, meets the other at a named barrier and adds
+//     theirs; both then hold the same f32 scores (one addition,
+//     commutative) and run the same online softmax.
+//   * Each consumer warpgroup makes its own half of K's lo in bf16 from the
+//     raw K tile while its first chunk's tf32 products run (8-column halves
+//     in the K-major layout of the bf16 pass's B operand, each 16 columns
+//     in the order the bf16 fragments hold them: t, t + 4, t + 8, t + 12 at
+//     k = 2t .. 2t + 9), then a warpgroup barrier. Made by the producer's
+//     warps instead, it measured slower: the consumers waited for it after
+//     the K tile landed.
+//   * P V runs transposed, O^T = V^T P^T: tf32 wgmma takes only K-major
+//     shared-memory operands, and V's natural tile (keys by D) is K-major
+//     for V^T as the A operand in registers. So each warpgroup's 256 rows of
+//     O^T are four m64n64 accumulators (128 registers a thread), V^T's
+//     fragments are read from the raw V tile per 64 rows, and P^T's hi
+//     (tf32, keys permuted within each 8-key step: k = t holds key 2t, k =
+//     t + 4 key 2t + 1, as V^T's fragments, free of bank conflicts) and its
+//     packed bf16 row (64 queries by 16 keys, 4 KB each, the 64-byte
+//     swizzle) are the B operands, written once a tile by the softmax, each
+//     warpgroup the rows of its half. No transposed copy of V and no V lo
+//     are stored.
+//   * Each 64-row block of O^T sums a tile's P V from zero on the tensor
+//     cores and folds it into O by an f32 FMA with the factor of each query
+//     column (from shared memory): summed in place, the tensor cores'
+//     truncating accumulation drifted 1.3e-4 of max |out| over 16384 keys
+//     (the mma.sync design this replaces).
+//   * The producer warpgroup (setmaxnreg 24, the consumers 240): one thread
+//     issues every TMA copy.
+//   * Shared memory: Q 128 KB + K 32 + K's lo 16 + V 32 + P^T 8 + the score
+//     exchange 8 + the rows' factors 0.5 = 224.5 KB, of the 227 KB a block
+//     can use. So one slot each for K and V: K(j + 1) loads while tile j's
+//     exchange, softmax and P V run, V(j + 1) while tile j + 1's Q K^T
+//     runs; 32-key tiles or a second slot do not fit beside the resident Q.
+//   * Ragged key tails are masked with -inf scores on zero-filled rows;
+//     ragged query tails load zeros and are not stored. The output leaves
+//     from the O^T registers, normalised, at the output's own strides.
+// What holds it back: the 16-key tiles. Q K^T then runs as wgmma m64n16,
+// 80 of them a warpgroup a tile, and an m64n16 costs far more than its
+// share of the tensor-core rate (tools/f32_d512_ablation.py, PERF.md §6,
+// times the kernel with Q K^T's small passes, P V, K's lo or the exchange
+// taken out). Packing Q K^T's two small passes into one bf16 product a k8
+// step (64 instructions, K's packed terms in 32 KB with the exchange and
+// P^T moved into them) measured slower; so did 64-column chunks (their
+// fragments spill).
+// The tensor maps are encoded on the host with cuTensorMapEncodeTiled, taken
+// through cudaGetDriverEntryPoint (no -lcuda at link time; tma_sm90.cuh),
+// and passed as __grid_constant__ parameters.
 
+#include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kD = 512;          // head dim
-constexpr int kBQ = 64;          // query rows per block
-constexpr int kBK = 16;          // keys per tile
-constexpr int kWarps = 8;        // 16 warps (128 registers a thread) measured 15% slower
-constexpr int kThreads = 32 * kWarps;
-constexpr int kCols = kD / kWarps;       // P V output columns per warp: 64
-constexpr int kNJ = kCols / 8;           // ... in n8 tiles
-constexpr int kQKM = 2;                  // m16 tiles per warp in Q K^T
-constexpr int kRowGroups = 4 / kQKM;     // warps per d part in Q K^T
-constexpr int kTPR = kThreads / kBQ;     // softmax threads per row: 4
-constexpr int kKPT = kBK / kTPR;         // keys per softmax thread: 4
-constexpr int kLdQK = kD + 8;    // q / k rows: 520 floats
-constexpr int kLdV = kD + 4;     // v rows: 516 floats
-constexpr int kSld = kBK + 8;    // score rows: 24 floats
-constexpr int kDParts = 4;       // Q K^T splits d into quarters
-constexpr int kQOff = 0;
-constexpr int kKOff = kQOff + kBQ * kLdQK;
-constexpr int kVOff = kKOff + kBK * kLdQK;
-constexpr int kSOff = kVOff + kBK * kLdV;     // partial score tiles, one per d quarter
-constexpr int kStatOff = kSOff + kDParts * kBQ * kSld;
-constexpr int kSmemFloats = kStatOff + 3 * kBQ;
-constexpr size_t kSmemBytes = (size_t)kSmemFloats * sizeof(float);
-
-struct Strides {
-  long long b, h, s;
-};
-
-struct Params {
-  const float* q;
-  const float* k;
-  const float* v;
-  float* out;
-  int B, H, Sq, Lk;
-  Strides sq, sk, sv, so;
-  float scale_log2;  // softmax scale * log2(e)
-};
-
 #include "tf32_mma.cuh"
 
-// Stage rows [row0, row0 + ROWS) of one (b, h) sequence into rows of LD
-// floats; rows at or past len are zero-filled. 128 threads cover one 2 KB
-// row (coalesced).
-template <int ROWS, int LD>
-__device__ __forceinline__ void load_rows(float* dst, const float* base, long long stride, int row0, int len) {
+constexpr int kD = 512;                     // head dim
+constexpr int kBQ = 64;                     // query rows per block
+constexpr int kBK = 16;                     // keys per K/V tile
+constexpr int kWG = 2;                      // consumer warpgroups, D / kWG columns each
+constexpr int kThreads = 128 * (kWG + 1);   // + the producer warpgroup
+constexpr int kCols = kD / kWG;             // 256 columns of Q K^T's depth and of O per warpgroup
+constexpr int kProducerRegs = 24, kConsumerRegs = 240;  // 128 * 24 + 256 * 240 = 384 * 168
+constexpr int kBoxes = kD / 32;             // 32-column (128-byte) boxes of an f32 row: 16
+constexpr int kQBytes = kBQ * 128 * kBoxes;        // 131072
+constexpr int kKVBytes = kBK * 128 * kBoxes;       // one K or V tile: 32768
+constexpr int kKLoBytes = kBK * 128 * (kD / 64);   // K's lo in bf16, boxes of 64 columns: 16384
+constexpr int kPBytes = kBQ * kBK * 4;             // P^T's hi (tf32), or its packed bf16 terms: 4096
+constexpr int kXBytes = kWG * (kBK / 2) * 128 * 4; // the score exchange: 8192
+// offsets from the 1024-byte-aligned base
+constexpr int kQOff = 0;
+constexpr int kKOff = kQOff + kQBytes;
+constexpr int kKLoOff = kKOff + kKVBytes;
+constexpr int kVOff = kKLoOff + kKLoBytes;
+constexpr int kPHiOff = kVOff + kKVBytes;
+constexpr int kPBfOff = kPHiOff + kPBytes;
+constexpr int kXOff = kPBfOff + kPBytes;
+constexpr int kStatOff = kXOff + kXBytes;          // alpha[64], then 1 / l [64]
+constexpr int kBarOff = kStatOff + 2 * kBQ * 4;    // qbar, kfull, kempty, vfull, vempty
+constexpr int kSmemBytes = 1024 + kBarOff + 5 * 8;
+static_assert(kSmemBytes <= 232448, "over the 227 KB a block can use");
+static_assert(128 * kProducerRegs + 128 * kWG * kConsumerRegs <= kThreads * 168, "setmaxnreg budget");
+
+struct Params {
+  float* out;
+  long long sob, soh, sos;  // the output's (b, h, s) element strides
+  int Sq, Lk;
+  float scale_log2;         // softmax scale * log2(e)
+};
+
+// The 64-byte swizzle (P^T's 64-byte rows): chunk j of row r at j ^ (r / 2 % 4)
+__device__ __forceinline__ uint32_t swz64(uint32_t off) { return off ^ (((off >> 7) & 3) << 4); }
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// S(64 x 16, f32) += A(64 x 16, bf16 registers) B(16 x 16, bf16, K-major in 128-byte-swizzled shared memory)
+__device__ __forceinline__ void wgmma_bf16_rs(float (&d)[8], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// O^T(64 x 64, f32) += A(64 x 16, bf16 registers) B(16 x 64, bf16, K-major in 64-byte-swizzled shared memory)
+__device__ __forceinline__ void wgmma_bf16_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// This warpgroup's half of K's lo in bf16 from the raw K tile (thread ct
+// of 128): item (key r, 8-column half hf of 16-column group cg) reads two
+// 16-byte chunks of box cg / 2 and writes one 16-byte chunk of box cg / 4
+// of K_lo: words i = 0..3 holding columns 8 hf + i and 8 hf + i + 4, the k
+// order of the bf16 fragments (k = 2t, 2t + 1 from columns t, t + 4; k =
+// 2t + 8, 2t + 9 from t + 8, t + 12).
+__device__ __forceinline__ void make_klo(const unsigned char* kt, unsigned char* kl, int wg, int ct) {
 #pragma unroll
-  for (int i = 0; i < (ROWS * kD / 4) / kThreads; ++i) {
-    const int idx = threadIdx.x + i * kThreads;
-    const int r = idx >> 7, c = (idx & 127) * 4;
-    const int row = row0 + r;
-    const bool ok = row < len;
-    cp_async16(dst + r * LD + c, ok ? base + (long long)row * stride + c : base, ok);
+  for (int it = 0; it < kBK * (kCols / 8) / 128; ++it) {
+    const int item = ct + 128 * it, r = item % kBK, half = (kCols / 8) * wg + item / kBK;
+    const int cg = half / 2, hf = half % 2;
+    const unsigned char* src = kt + (cg / 2) * (kBK * 128) + r * 128;
+    const float4 a = *reinterpret_cast<const float4*>(src + (((cg % 2) * 4 + 2 * hf) ^ (r % 8)) * 16);
+    const float4 c = *reinterpret_cast<const float4*>(src + (((cg % 2) * 4 + 2 * hf + 1) ^ (r % 8)) * 16);
+    unsigned char* dst = kl + (cg / 4) * (kBK * 128) + r * 128 + (((cg % 4) * 2 + hf) ^ (r % 8)) * 16;
+    *reinterpret_cast<uint4*>(dst) = make_uint4(
+        pack_bf16(tf32_rest(a.x), tf32_rest(c.x)), pack_bf16(tf32_rest(a.y), tf32_rest(c.y)),
+        pack_bf16(tf32_rest(a.z), tf32_rest(c.z)), pack_bf16(tf32_rest(a.w), tf32_rest(c.w)));
   }
 }
 
-__global__ void __launch_bounds__(kThreads, 1) flash_f32_d512_kernel(const Params p) {
-  extern __shared__ __align__(16) float smem[];
-  float* Qs = smem + kQOff;
-  float* Ks = smem + kKOff;
-  float* Vs = smem + kVOff;
-  float* Ss = smem + kSOff;  // [d half][row][key]; half 0 then holds P
-  float* row_m = smem + kStatOff;  // running max (log2 domain)
-  float* row_l = row_m + kBQ;      // running sum
-  float* row_a = row_l + kBQ;      // this tile's rescale factor
+// Maps: q, k, v, each (D, H, S, B) with boxes of 32 columns by kBQ (q) or kBK (k, v) rows.
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_f32_d512_kernel(const __grid_constant__ CUtensorMap qm, const __grid_constant__ CUtensorMap km,
+                          const __grid_constant__ CUtensorMap vm, const Params p) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;  // 128-byte-swizzled tiles are 1024-byte aligned
+  unsigned char* gbase = smem_raw + (base - raw);
+  const uint32_t qs = base + kQOff, ks = base + kKOff, kls = base + kKLoOff, vs = base + kVOff;
+  const uint32_t phs = base + kPHiOff, pbs = base + kPBfOff;
+  const uint32_t qbar = base + kBarOff, kfull = qbar + 8, kempty = qbar + 16, vfull = qbar + 24, vempty = qbar + 32;
 
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kBQ;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
-  const float* qb = p.q + b * p.sq.b + h * p.sq.h;
-  const float* kb = p.k + b * p.sk.b + h * p.sk.h;
-  const float* vb = p.v + b * p.sv.b + h * p.sv.h;
-
-  load_rows<kBQ, kLdQK>(Qs, qb, p.sq.s, q0, p.Sq);
-  cp_async_commit();
-  load_rows<kBK, kLdQK>(Ks, kb, p.sk.s, 0, p.Lk);
-  cp_async_commit();
-  load_rows<kBK, kLdV>(Vs, vb, p.sv.s, 0, p.Lk);
-  cp_async_commit();
-  if (tid < kBQ) {
-    row_m[tid] = -INFINITY;
-    row_l[tid] = 0.f;
-  }
-
-  float o[4][kNJ][4];
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi) {
-#pragma unroll
-    for (int nj = 0; nj < kNJ; ++nj) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) o[mi][nj][e] = 0.f;
-    }
-  }
-
-  // this warp's Q K^T patch: 16 kQKM rows x 16 keys over one quarter of d
-  const int s_rows = (warp % kRowGroups) * 16 * kQKM, s_part = warp / kRowGroups;
+  const int tid = threadIdx.x, wg = tid >> 7;
   const int ntiles = (p.Lk + kBK - 1) / kBK;
-  for (int tile = 0; tile < ntiles; ++tile) {
-    const int k0 = tile * kBK;
-    cp_async_wait<1>();  // Q (first tile) and K(tile) have landed for this thread ...
-    __syncthreads();     // ... and for every thread
 
-    {  // partial scores over one d quarter, 3xTF32; big (hi*hi) and small
-       // (hi*lo + lo*hi) terms in separate accumulators, the small ones of
-       // even and odd k steps apart too: 12 independent mma chains a warp
-      float big[kQKM][2][4] = {}, small[2][kQKM][2][4] = {};  // [m16][n8], small: [k parity][m16][n8]
-      const float* qa = Qs + s_rows * kLdQK + s_part * (kD / kDParts);
-      const float* ka = Ks + g * kLdQK + s_part * (kD / kDParts) + 2 * t;
-#pragma unroll 1
-      for (int d = 0; d < kD / kDParts; d += 16) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          uint32_t ahi[kQKM][4], alo[kQKM][4], bhi[2][2], blo[2][2];
-#pragma unroll
-          for (int mi = 0; mi < kQKM; ++mi) load_a_split(qa + mi * 16 * kLdQK + d + 8 * e, kLdQK, g, t, ahi[mi], alo[mi]);
-#pragma unroll
-          for (int nj = 0; nj < 2; ++nj) {
-            const float2 kv = *reinterpret_cast<const float2*>(ka + nj * 8 * kLdQK + d + 8 * e);
-            split_tf32(kv.x, bhi[nj][0], blo[nj][0]);
-            split_tf32(kv.y, bhi[nj][1], blo[nj][1]);
-          }
-#pragma unroll
-          for (int mi = 0; mi < kQKM; ++mi) {
-#pragma unroll
-            for (int nj = 0; nj < 2; ++nj) {
-              mma_tf32(small[e][mi][nj], alo[mi], bhi[nj][0], bhi[nj][1]);
-              mma_tf32(small[e][mi][nj], ahi[mi], blo[nj][0], blo[nj][1]);
-              mma_tf32(big[mi][nj], ahi[mi], bhi[nj][0], bhi[nj][1]);
-            }
-          }
-        }
-      }
-      float* sp = Ss + s_part * kBQ * kSld + (s_rows + g) * kSld + 2 * t;
-#pragma unroll
-      for (int mi = 0; mi < kQKM; ++mi) {
-#pragma unroll
-        for (int nj = 0; nj < 2; ++nj) {
-          float v[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            v[i] = big[mi][nj][i] + (small[0][mi][nj][i] + small[1][mi][nj][i]);
-          }
-          *reinterpret_cast<float2*>(sp + mi * 16 * kSld + nj * 8) = make_float2(v[0], v[1]);
-          *reinterpret_cast<float2*>(sp + (mi * 16 + 8) * kSld + nj * 8) = make_float2(v[2], v[3]);
-        }
+  if (tid == 0) {
+    mbar_init(qbar, 1);
+    mbar_init(kfull, 1);
+    mbar_init(vfull, 1);
+    mbar_init(kempty, 4 * kWG);  // one arrival per consumer warp
+    mbar_init(vempty, 4 * kWG);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == kWG) {
+    // producer warpgroup: one thread issues every copy
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (tid == 128 * kWG) {
+      mbar_expect_tx(qbar, kQBytes);
+      for (int c = 0; c < kBoxes; ++c) tma_load(qs + c * (kBQ * 128), &qm, qbar, 32 * c, h, q0, b);
+      // K(j) once tile j - 1's Q K^T is done, V(j) once its P V is
+      for (int j = 0; j < ntiles; ++j) {
+        if (j > 0) mbar_wait(kempty, (j - 1) & 1);
+        mbar_expect_tx(kfull, kKVBytes);
+        for (int c = 0; c < kBoxes; ++c) tma_load(ks + c * (kBK * 128), &km, kfull, 32 * c, h, j * kBK, b);
+        if (j > 0) mbar_wait(vempty, (j - 1) & 1);
+        mbar_expect_tx(vfull, kKVBytes);
+        for (int c = 0; c < kBoxes; ++c) tma_load(vs + c * (kBK * 128), &vm, vfull, 32 * c, h, j * kBK, b);
       }
     }
-    __syncthreads();  // the scores are complete and K is free
-    if (tile + 1 < ntiles) load_rows<kBK, kLdQK>(Ks, kb, p.sk.s, k0 + kBK, p.Lk);
-    cp_async_commit();  // possibly empty: keeps the group count in step
+  } else {
+    // consumer warpgroup wg: columns kCols * wg .. of Q K^T's depth, rows kCols * wg .. of O^T
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int ct = tid & 127, warp = ct >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+    const float* qf = reinterpret_cast<const float*>(gbase + kQOff);
+    const float* vf = reinterpret_cast<const float*>(gbase + kVOff);
+    float* xs = reinterpret_cast<float*>(gbase + kXOff);
+    float* alpha = reinterpret_cast<float*>(gbase + kStatOff);
+    float* linv = alpha + kBQ;
+    unsigned char* ph = gbase + kPHiOff;
+    unsigned char* pb = gbase + kPBfOff;
+    const float sl2 = p.scale_log2;
+    // this warpgroup writes P^T's and the factors' rows of its half (warps 2 wg, 2 wg + 1 hold them)
+    const bool writer = (warp >> 1) == wg;
+    mbar_wait(qbar, 0);
 
-    {  // online softmax: kTPR threads per row, kKPT keys each
-      const int r = tid / kTPR, kq = (tid % kTPR) * kKPT;
-      const int valid = min(kBK, p.Lk - k0);  // >= 1
-      const float m_old = row_m[r];  // read before the shuffles below, which every lane reaches
-      float x[kKPT];
-      float mx = -INFINITY;
+    float o[4][32];  // O^T rows kCols * wg + 64 mi .., in the m64n64 accumulator layout
 #pragma unroll
-      for (int i = 0; i < kKPT; ++i) {
-        float s = 0.f;
+    for (int mi = 0; mi < 4; ++mi) {
 #pragma unroll
-        for (int part = 0; part < kDParts; ++part) s += Ss[part * kBQ * kSld + r * kSld + kq + i];
-        x[i] = kq + i < valid ? s * p.scale_log2 : -INFINITY;
-        mx = fmaxf(mx, x[i]);
-      }
-#pragma unroll
-      for (int o = 1; o < kTPR; o <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_new = fmaxf(m_old, mx);  // finite: every tile holds a valid key
-      float sum = 0.f;
-#pragma unroll
-      for (int i = 0; i < kKPT; ++i) {
-        const float e = exp2f(x[i] - m_new);  // masked keys: exp2(-inf) = 0
-        Ss[r * kSld + kq + i] = e;
-        sum += e;
-      }
-#pragma unroll
-      for (int o = 1; o < kTPR; o <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      if (tid % kTPR == 0) {
-        const float a = exp2f(m_old - m_new);  // 0 on the first tile
-        row_a[r] = a;
-        row_l[r] = row_l[r] * a + sum;
-        row_m[r] = m_new;
-      }
+      for (int i = 0; i < 32; ++i) o[mi][i] = 0.f;
     }
-    cp_async_wait<1>();  // V(tile) has landed (K(tile + 1) may still be in flight)
-    __syncthreads();     // ... everywhere; P and the rescale factors are visible
+    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;  // rows 16 warp + g, + 8
 
-    // O = O * alpha + P V. The tensor cores' f32 accumulation is not
-    // rounded to nearest, and its bias would grow with 16384 keys summed in
-    // place (1.3e-4 of max |out| measured at S = 16384); so each tile's
-    // product is summed from zero and folded into O with one f32 FMA per
-    // element, which rounds to nearest.
+    // Q's fragments of 32-column chunk c (box 8 wg + c), rows 16 warp + g
+    // (+ 8), columns 8 kk + t (+ 4): hi (the raw words) and lo (tf32, k8
+    // steps kk), and bf16 (k16 steps i: columns t, t + 4 at k = 2t, 2t + 1
+    // and t + 8, t + 12 at 2t + 8, 2t + 9). Rows r and r + 8 share r % 8 =
+    // g, so the swizzle is g's.
+    auto load_q = [&](int c, uint32_t (&hi)[4][4], uint32_t (&lo)[4][4], uint32_t (&bf)[2][4]) {
+      const float* box = qf + ((kBoxes / kWG) * wg + c) * (kBQ * 32) + (16 * warp + g) * 32 + t;
+      float x[4][4];
 #pragma unroll
-    for (int nh = 0; nh < kNJ / 4; ++nh) {  // the warp's output columns 32 nh .. 32 nh + 31
-      uint32_t bhi[kBK / 8][4][2], blo[kBK / 8][4][2];
+      for (int kk = 0; kk < 4; ++kk) {
 #pragma unroll
-      for (int ks = 0; ks < kBK / 8; ++ks) {
-        const float* vp = Vs + (ks * 8 + 2 * t) * kLdV + warp * kCols + nh * 32 + g;  // keys 2t, 2t + 1
+        for (int e = 0; e < 4; ++e) x[kk][e] = box[(e & 1) * 8 * 32 + (((2 * kk + (e >> 1)) ^ g) << 2)];
+      }
 #pragma unroll
-        for (int nj = 0; nj < 4; ++nj) {
-          split_tf32(vp[nj * 8], bhi[ks][nj][0], blo[ks][nj][0]);
-          split_tf32(vp[kLdV + nj * 8], bhi[ks][nj][1], blo[ks][nj][1]);
+      for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          hi[kk][e] = __float_as_uint(x[kk][e]);
+          lo[kk][e] = __float_as_uint(tf32_rest(x[kk][e]));
         }
       }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        bf[i][0] = pack_bf16(x[2 * i][0], x[2 * i][2]);
+        bf[i][1] = pack_bf16(x[2 * i][1], x[2 * i][3]);
+        bf[i][2] = pack_bf16(x[2 * i + 1][0], x[2 * i + 1][2]);
+        bf[i][3] = pack_bf16(x[2 * i + 1][1], x[2 * i + 1][3]);
+      }
+    };
+    // V^T's fragments of O^T's 64-row block mi for the tile's two k8
+    // steps: rows (head-dim columns) kCols wg + 64 mi + 16 warp + g (+ 8),
+    // keys 2t and 2t + 1 of each step; hi (the raw words, tf32: k = t and t +
+    // 4) and the packed bf16 terms (k16: lo(V) at k = 2t, 2t + 1, V at 2t +
+    // 8, 2t + 9, against P at keys 0..7 and lo(P) at 8..15 of P^T's packed row)
+    auto load_v = [&](int mi, uint32_t (&hi)[2][4], uint32_t (&pk)[2][4]) {
+      const int box = (kBoxes / kWG) * wg + 2 * mi + (warp >> 1);
+      const float* vb = vf + box * (kBK * 32) + (g & 3);
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        float x[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = 8 * kk + 2 * t + (e >> 1), chunk = 4 * (warp & 1) + (g >> 2) + 2 * (e & 1);
+          x[e] = vb[key * 32 + ((chunk ^ (key & 7)) << 2)];
+          hi[kk][e] = __float_as_uint(x[e]);
+        }
+        pk[kk][0] = pack_bf16(tf32_rest(x[0]), tf32_rest(x[2]));
+        pk[kk][1] = pack_bf16(tf32_rest(x[1]), tf32_rest(x[3]));
+        pk[kk][2] = pack_bf16(x[0], x[2]);
+        pk[kk][3] = pack_bf16(x[1], x[3]);
+      }
+    };
+
+    for (int j = 0; j < ntiles; ++j) {
+      // ---- partial scores over this warpgroup's 256 columns: hi*hi into s,
+      // lo(Q) hi(K) and bf16(Q) bf16(lo(K)) into sm, a 32-column chunk at a time
+      float s[8], sm[8];
+      uint32_t qhi[4][4], qlo[4][4], qbf[2][4];
+      mbar_wait(kfull, j & 1);
+      load_q(0, qhi, qlo, qbf);
+#pragma unroll
+      for (int c = 0; c < kCols / 32; ++c) {
+        const int box = (kBoxes / kWG) * wg + c;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint64_t kd = desc_sw128(ks + box * (kBK * 128) + kk * 32);
+          wgmma_tf32(s, qhi[kk], kd, c + kk > 0);
+          wgmma_tf32(sm, qlo[kk], kd, c + kk > 0);
+        }
+        if (c == 0) {
+          // this warpgroup's half of K's lo while the first tf32 products run
+          wgmma_commit();
+          make_klo(gbase + kKOff, gbase + kKLoOff, wg, ct);
+          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // generic stores -> wgmma's proxy
+          asm volatile("bar.sync %0, 128;\n" ::"r"(2 + wg) : "memory");
+          wgmma_fence();
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          wgmma_bf16_rs(sm, qbf[i], desc_sw128(kls + (box / 2) * (kBK * 128) + (box % 2) * 64 + i * 32));
+        }
+        wgmma_commit();
+        if (c + 1 < kCols / 32) {
+          wgmma_wait0();  // the chunk's products are done: its fragments' registers are free
+          reg_fence(qhi);
+          reg_fence(qlo);
+          reg_fence(qbf);
+          load_q(c + 1, qhi, qlo, qbf);
+        }
+      }
+      wgmma_wait0();
+      reg_fence(s);
+      reg_fence(sm);
+      reg_fence(qhi);
+      reg_fence(qlo);
+      reg_fence(qbf);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(kempty);  // K is free
+
+      // ---- exchange: our partial scores out in accumulator order, meet the
+      // other warpgroup, add theirs
+#pragma unroll
+      for (int i = 0; i < 8; ++i) s[i] += sm[i];
+      {
+        float* mine = xs + wg * 8 * 128 + ct;
+        const float* theirs = xs + (1 - wg) * 8 * 128 + ct;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) mine[i * 128] = s[i];
+        asm volatile("bar.sync 1, %0;\n" ::"n"(128 * kWG) : "memory");
+#pragma unroll
+        for (int i = 0; i < 8; ++i) s[i] += theirs[i * 128];
+      }
+
+      // ---- online softmax of rows 16 warp + g (s[4n], s[4n + 1]) and + 8
+      // (s[4n + 2], s[4n + 3]), keys 8n + 2t and 8n + 2t + 1
+      const int valid = min(kBK, p.Lk - j * kBK);
+      if (valid < kBK) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          if ((i / 4) * 8 + 2 * t + (i & 1) >= valid) s[i] = -INFINITY;
+        }
+      }
+      const float mx0 = fmaxf(fmaxf(s[0], s[1]), fmaxf(s[4], s[5]));
+      const float mx1 = fmaxf(fmaxf(s[2], s[3]), fmaxf(s[6], s[7]));
+      // every tile holds at least one real key, so the new max is finite
+      const float mn0 = fmaxf(m0, quad_max(mx0)), mn1 = fmaxf(m1, quad_max(mx1));
+      const float al0 = exp2f((m0 - mn0) * sl2), al1 = exp2f((m1 - mn1) * sl2);  // 0 on the first tile
+      m0 = mn0;
+      m1 = mn1;
+      const float ms0 = mn0 * sl2, ms1 = mn1 * sl2;
+      float pv[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) pv[i] = exp2f(fmaf(s[i], sl2, (i & 2) ? -ms1 : -ms0));
+      l0 = l0 * al0 + (pv[0] + pv[1] + pv[4] + pv[5]);
+      l1 = l1 * al1 + (pv[2] + pv[3] + pv[6] + pv[7]);
+      if (writer) {
+        // P^T row r (a query), k8 step n. hi: keys 2t and 2t + 1 at k = t and
+        // t + 4; packed bf16: P of keys 2t, 2t + 1 at k = 2t, 2t + 1, lo(P)
+        // at k = 2t + 8, 2t + 9
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int r = 16 * warp + g + 8 * ((i >> 1) & 1);
+          *reinterpret_cast<float*>(ph + swz64(r * 64 + (i / 4) * 32 + (t + 4 * (i & 1)) * 4)) = pv[i];
+        }
+#pragma unroll
+        for (int i = 0; i < 8; i += 2) {
+          const int r = 16 * warp + g + 8 * ((i >> 1) & 1);
+          const uint32_t off = r * 64 + (i / 4) * 32 + 4 * t;
+          *reinterpret_cast<uint32_t*>(pb + swz64(off)) = pack_bf16(pv[i], pv[i + 1]);
+          *reinterpret_cast<uint32_t*>(pb + swz64(off + 16)) = pack_bf16(tf32_rest(pv[i]), tf32_rest(pv[i + 1]));
+        }
+        if (t == 0) {
+          alpha[16 * warp + g] = al0;
+          alpha[16 * warp + g + 8] = al1;
+        }
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // P^T's stores -> wgmma's proxy
+      asm volatile("bar.sync 1, %0;\n" ::"n"(128 * kWG) : "memory");
+
+      // ---- O^T = O^T * alpha + V^T P^T, a 64-row block at a time, each
+      // block's product summed from zero and folded by FMA: hi*hi in tf32,
+      // lo(V) P + V lo(P) in one packed bf16 product per k8 step
+      float2 a[8];  // the factors of this thread's query columns 8n + 2t, 8n + 2t + 1
+#pragma unroll
+      for (int n = 0; n < 8; ++n) a[n] = *reinterpret_cast<const float2*>(alpha + 8 * n + 2 * t);
+      uint32_t vhi[2][2][4], vpk[2][2][4];
+      mbar_wait(vfull, j & 1);
+      load_v(0, vhi[0], vpk[0]);
 #pragma unroll
       for (int mi = 0; mi < 4; ++mi) {
-        float part[4][4] = {};
+        float acc[32];
+        wgmma_fence();
 #pragma unroll
-        for (int ks = 0; ks < kBK / 8; ++ks) {
-          uint32_t ahi[4], alo[4];
-          load_a_split(Ss + mi * 16 * kSld + ks * 8, kSld, g, t, ahi, alo);
+        for (int kk = 0; kk < 2; ++kk) wgmma_tf32(acc, vhi[mi & 1][kk], desc_sw64(phs + kk * 32), kk > 0);
 #pragma unroll
-          for (int nj = 0; nj < 4; ++nj) {
-            mma_tf32(part[nj], alo, bhi[ks][nj][0], bhi[ks][nj][1]);
-            mma_tf32(part[nj], ahi, blo[ks][nj][0], blo[ks][nj][1]);
-            mma_tf32(part[nj], ahi, bhi[ks][nj][0], bhi[ks][nj][1]);
-          }
-        }
-        const float a0 = row_a[mi * 16 + g], a1 = row_a[mi * 16 + g + 8];
+        for (int kk = 0; kk < 2; ++kk) wgmma_bf16_rs(acc, vpk[mi & 1][kk], desc_sw64(pbs + kk * 32));
+        wgmma_commit();
+        if (mi + 1 < 4) load_v(mi + 1, vhi[(mi + 1) & 1], vpk[(mi + 1) & 1]);
+        wgmma_wait0();
+        reg_fence(acc);
+        reg_fence(vhi[mi & 1]);
+        reg_fence(vpk[mi & 1]);
 #pragma unroll
-        for (int nj = 0; nj < 4; ++nj) {
-          float* oo = o[mi][nh * 4 + nj];
-          oo[0] = fmaf(oo[0], a0, part[nj][0]);
-          oo[1] = fmaf(oo[1], a0, part[nj][1]);
-          oo[2] = fmaf(oo[2], a1, part[nj][2]);
-          oo[3] = fmaf(oo[3], a1, part[nj][3]);
+        for (int n = 0; n < 8; ++n) {
+          o[mi][4 * n] = fmaf(o[mi][4 * n], a[n].x, acc[4 * n]);
+          o[mi][4 * n + 1] = fmaf(o[mi][4 * n + 1], a[n].y, acc[4 * n + 1]);
+          o[mi][4 * n + 2] = fmaf(o[mi][4 * n + 2], a[n].x, acc[4 * n + 2]);
+          o[mi][4 * n + 3] = fmaf(o[mi][4 * n + 3], a[n].y, acc[4 * n + 3]);
         }
       }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(vempty);  // V is free
     }
-    __syncthreads();  // V and P are consumed
-    if (tile + 1 < ntiles) load_rows<kBK, kLdV>(Vs, vb, p.sv.s, k0 + kBK, p.Lk);
-    cp_async_commit();
-  }
 
-  float* ob = p.out + b * p.so.b + h * p.so.h;
+    // ---- 1 / l of every query row, then O = (O^T)^T / l at the output's strides
+    const float i0 = 1.f / quad_sum(l0), i1 = 1.f / quad_sum(l1);
+    if (writer && t == 0) {
+      linv[16 * warp + g] = i0;
+      linv[16 * warp + g + 8] = i1;
+    }
+    asm volatile("bar.sync 1, %0;\n" ::"n"(128 * kWG) : "memory");
+    float* ob = p.out + b * p.sob + h * p.soh + kCols * wg + 16 * warp + g;
 #pragma unroll
-  for (int mi = 0; mi < 4; ++mi) {
+    for (int n = 0; n < 8; ++n) {
 #pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const int r = mi * 16 + g + hf * 8, row = q0 + r;
-      if (row >= p.Sq) continue;
-      const float inv = 1.f / row_l[r];
-      float* orow = ob + (long long)row * p.so.s + warp * kCols + 2 * t;
+      for (int e = 0; e < 2; ++e) {
+        const int q = 8 * n + 2 * t + e;
+        if (q0 + q >= p.Sq) continue;
+        const float inv = linv[q];
+        float* orow = ob + (long long)(q0 + q) * p.sos;
 #pragma unroll
-      for (int nj = 0; nj < kNJ; ++nj) {
-        *reinterpret_cast<float2*>(orow + nj * 8) =
-            make_float2(o[mi][nj][2 * hf] * inv, o[mi][nj][2 * hf + 1] * inv);
+        for (int mi = 0; mi < 4; ++mi) {
+          orow[64 * mi] = o[mi][4 * n + e] * inv;
+          orow[64 * mi + 8] = o[mi][4 * n + 2 + e] * inv;
+        }
       }
     }
   }
+}
+
+// A (D, H, S, B) map of an f32 operand at element strides (b, h, s), boxes
+// of 32 columns by `rows` rows, 128-byte swizzle, zeros out of bounds.
+bool encode_map(CUtensorMap* map, const void* ptr, int H, int S, int B, const long long* strides, int rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)kD, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t bytes[3] = {(cuuint64_t)strides[1] * 4, (cuuint64_t)strides[2] * 4, (cuuint64_t)strides[0] * 4};
+  const cuuint32_t box[4] = {32, 1, (cuuint32_t)rows, 1}, unit[4] = {1, 1, 1, 1};
+  return encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<void*>(ptr), dims, bytes, box, unit,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace
 
 // dims: [B, H, Sq, Lk, then (b, h, s) element strides of q, k, v, out]
-// (16 values). Every row start must be 16-byte aligned and the head dim
-// contiguous. Returns the launch's cudaError_t (0 on success).
+// (16 values). q, k and v are f32 with the head dim contiguous, 16-byte
+// aligned, their other strides multiples of 4 elements; the output is
+// written at its own strides. Returns the launch's cudaError_t (0 on
+// success).
 extern "C" int aid_flash_attn_f32_d512(const void* q, const void* k, const void* v, void* out,
                                        const long long* dims, float scale, void* stream) {
   if (dims[2] <= 0 || dims[3] <= 0) return (int)cudaErrorInvalidValue;
+  const void* ptrs[3] = {q, k, v};
+  for (int i = 0; i < 3; ++i) {
+    if (reinterpret_cast<uintptr_t>(ptrs[i]) & 15) return (int)cudaErrorMisalignedAddress;
+    for (int j = 0; j < 3; ++j) {
+      if (dims[4 + 3 * i + j] % 4 != 0) return (int)cudaErrorMisalignedAddress;
+    }
+  }
+  if (encode_tiled() == nullptr) return (int)cudaErrorNotSupported;
+  const int B = (int)dims[0], H = (int)dims[1];
   Params p;
-  p.q = static_cast<const float*>(q);
-  p.k = static_cast<const float*>(k);
-  p.v = static_cast<const float*>(v);
   p.out = static_cast<float*>(out);
-  p.B = (int)dims[0];
-  p.H = (int)dims[1];
+  p.sob = dims[13];
+  p.soh = dims[14];
+  p.sos = dims[15];
   p.Sq = (int)dims[2];
   p.Lk = (int)dims[3];
-  Strides* st[4] = {&p.sq, &p.sk, &p.sv, &p.so};
-  for (int i = 0; i < 4; ++i) {
-    st[i]->b = dims[4 + 3 * i];
-    st[i]->h = dims[5 + 3 * i];
-    st[i]->s = dims[6 + 3 * i];
-  }
   p.scale_log2 = scale * 1.4426950408889634f;
-
-  cudaError_t err =
-      cudaFuncSetAttribute(reinterpret_cast<const void*>(&flash_f32_d512_kernel),
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
+  CUtensorMap m[3];
+  const int rows[3] = {p.Sq, p.Lk, p.Lk}, box[3] = {kBQ, kBK, kBK};
+  for (int i = 0; i < 3; ++i) {
+    if (!encode_map(&m[i], ptrs[i], H, rows[i], B, dims + 4 + 3 * i, box[i])) return (int)cudaErrorInvalidValue;
+  }
+  static bool smem_allowed = false;  // the kernel's shared memory does not change
+  const cudaError_t err = allow_smem_once(reinterpret_cast<const void*>(&flash_f32_d512_kernel), kSmemBytes,
+                                          smem_allowed);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((p.Sq + kBQ - 1) / kBQ, p.H, p.B);
-  flash_f32_d512_kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(p);
+  const dim3 grid((unsigned)((p.Sq + kBQ - 1) / kBQ), (unsigned)H, (unsigned)B);
+  flash_f32_d512_kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(m[0], m[1], m[2], p);
   return (int)cudaGetLastError();
 }

@@ -125,16 +125,6 @@ namespace {
 
 #include "tf32_mma.cuh"
 
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
 // The tile table (tests/test_torch_ops.py reads it): query rows per block,
 // keys per K/V tile, stages in the ring.
 template <int D> struct Tiles;
@@ -186,46 +176,6 @@ struct Params {
   int shared_eps;           // bit i: endpoint map i (k_begin, v_begin, k_end, v_end) is one (H, Le, D) tensor
   float scale_log2;         // softmax scale * log2(e)
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// Wait until the barrier's phase of parity `parity` has completed (one asm
-// loop: a C++ loop around try_wait makes ptxas serialise wgmmas, C7520).
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "WAIT_%=:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT_%=;\n"
-      "}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
-// One box of a (D, H, S, B) map into shared memory, completion counted on `bar` in bytes
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int d, int h, int s,
-                                         int b) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(d), "r"(h), "r"(s), "r"(b), "r"(bar)
-      : "memory");
-}
 
 // The 128-byte swizzle of a byte offset in a 1024-byte-aligned tile of
 // 128-byte rows: 16-byte chunk j of row r lies at chunk j ^ (r % 8)
@@ -590,26 +540,6 @@ __global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from libcuda, found at run time (no -lcuda)
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &q);
-#endif
-    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
 // Everything a map encodes: a map is a pure function of these, so one made
 // for the same key (a tensor at the same address, extents, strides and box)
 // is the same map.
@@ -673,13 +603,10 @@ template <int D, bool HAS_OWN, int NSETS>
 int launch(const CUtensorMap (&m)[7], const Params& p, int B, int H, cudaStream_t s) {
   using C = Cfg<D>;
   constexpr int smem = C::smem_bytes();
-  static bool attribute_set = false;  // once per instance and process
-  if (!attribute_set) {
-    const cudaError_t err = cudaFuncSetAttribute(reinterpret_cast<const void*>(&flash_f32_kernel<D, HAS_OWN, NSETS>),
-                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-    attribute_set = true;
-  }
+  static bool smem_allowed = false;  // one per instance
+  const cudaError_t err = allow_smem_once(reinterpret_cast<const void*>(&flash_f32_kernel<D, HAS_OWN, NSETS>), smem,
+                                          smem_allowed);
+  if (err != cudaSuccess) return (int)err;
   const dim3 grid((p.Sq + C::kBQ - 1) / C::kBQ, H, B);
   flash_f32_kernel<D, HAS_OWN, NSETS><<<grid, C::kThreads, smem, s>>>(m[0], m[1], m[2], m[3], m[4], m[5], m[6], p);
   return (int)cudaGetLastError();

@@ -24,8 +24,10 @@ Four kernels take CUDA calls:
     ``launches`` and ``launches_by_head_dim``;
   * f32 with head dim 512, self mode (the VAE mid-block attention, one head
     over 4096 tokens at 512px, 16384 at 1024px):
-    ``csrc/flash_attention_f32_d512.cu``, reached through
-    :func:`flash_self_attention_f32` and counted by its ``launches``;
+    ``csrc/flash_attention_f32_d512.cu`` (wgmma on TMA tiles, both products
+    in three passes, D split across two consumer warpgroups, P V as O^T =
+    V^T P^T), reached through :func:`flash_self_attention_f32` and counted
+    by its ``launches``;
   * bf16 with head dim 512, self mode (the same attention in a bf16 VAE):
     ``csrc/flash_attention_bf16_d512.cu`` (wgmma on TMA tiles, D split
     across two consumer warpgroups), reached through
@@ -141,6 +143,10 @@ def _check_operand(name: str, x: torch.Tensor, dtype=torch.bfloat16) -> None:
 #: slots in each of the K and V rings, consumer warpgroups splitting D),
 #: csrc/flash_attention_bf16_d512.cu's kBQ, kBK, kStages and kWG
 D512_BF16_TILES = (64, 32, 2, 2)
+#: the f32 D=512 kernel's tiles: (query rows per block, keys per K/V tile,
+#: consumer warpgroups splitting D), csrc/flash_attention_f32_d512.cu's kBQ,
+#: kBK and kWG; one slot each for K and V beside the resident Q tile
+F32_D512_TILES = (64, 16, 2)
 
 
 def d512_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: Optional[float] = None) -> dict:

@@ -343,15 +343,26 @@ SD15_STEPS = 25
 # limit): tensor cores in bf16 and TF32, f32 outside the tensor cores, HBM.
 # bound_ms of a kernel is the larger of its operations over the peak of
 # their type and its bytes (each input read once, each output written once)
-# over the memory rate; where a call mixes types, the slowest type sets it.
+# over the memory rate. bf16 and TF32 products share the tensor cores, so
+# their times add; f32 runs beside them on the CUDA cores, so where a call
+# also does f32 work the slower of the two units sets it.
 PEAK_OPS_PER_S = {"bf16": 989e12, "tf32": 495e12, "f32": 67e12}
+TENSOR_CORE_TYPES = ("bf16", "tf32")
 HBM_BYTES_PER_S = 3.35e12
+
+# The products of csrc/flash_attention_f32_d512.cu per flop of f32
+# attention, by type: Q K^T runs two TF32 passes (hi hi, lo(Q) hi(K)) and a
+# bf16 one (bf16(Q) bf16(lo(K))); P V runs one TF32 pass (hi hi) and one
+# packed bf16 pass holding two products (lo(V) P and V lo(P)). The two
+# products have equal flops, so 1.5 TF32 and 1.5 bf16 passes each.
+F32_D512_PASSES = {"tf32_passes": 1.5, "bf16_passes": 1.5}
 
 
 def bound(ops: dict, nbytes: float) -> tuple:
     """(least ms on the card, "operations" or "bytes") for ``ops`` {type:
     count} and ``nbytes`` of device-memory traffic."""
-    t_ops = max(n / PEAK_OPS_PER_S[kind] for kind, n in ops.items())
+    t_tensor = sum(n / PEAK_OPS_PER_S[kind] for kind, n in ops.items() if kind in TENSOR_CORE_TYPES)
+    t_ops = max([t_tensor] + [n / PEAK_OPS_PER_S[kind] for kind, n in ops.items() if kind not in TENSOR_CORE_TYPES])
     t_bytes = nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
@@ -372,7 +383,8 @@ def conv_bound(B, H, W, cin, cout, prologue=False, tf32_passes=None) -> tuple:
     return bound(ops, nbytes)
 
 
-def attention_bound(mode, B, H, Sq, L, D, Le=None, elem=2, skip_rows=0, tf32_passes=None, per_row=False) -> tuple:
+def attention_bound(mode, B, H, Sq, L, D, Le=None, elem=2, skip_rows=0, tf32_passes=None, per_row=False,
+                    bf16_passes=None) -> tuple:
     """The attention's bound from the key segments the kernel's segment
     loop visits (flash_interpolated_attention.cu: the own segment in self
     and fused modes, begin and end in outer modes, one lerped segment in
@@ -382,7 +394,8 @@ def attention_bound(mode, B, H, Sq, L, D, Le=None, elem=2, skip_rows=0, tf32_pas
     the K and V of both endpoints where they are passed apart (``Le``; one
     set per batch row with ``per_row``) or, in pure modes, are rows 0 and
     B-1 of K/V. ``tf32_passes`` = 3 reckons f32 operands at three TF32
-    tensor-core passes (3xTF32); None means bf16."""
+    tensor-core passes (3xTF32); with ``bf16_passes`` too, a split of
+    TF32 and bf16 passes (``F32_D512_PASSES``); None means bf16."""
     has_own = mode in ("self", "fused_outer", "fused_inner")
     n_seg = {"self": 0, "fused_outer": 2, "pure_outer": 2, "fused_inner": 1, "pure_inner": 1}[mode]
     seg_len = Le if Le is not None else L
@@ -391,7 +404,10 @@ def attention_bound(mode, B, H, Sq, L, D, Le=None, elem=2, skip_rows=0, tf32_pas
     nbytes = elem * (2.0 * B * H * Sq * D + (2.0 * B * H * L * D if has_own else 0.0))
     if n_seg and (Le is not None or not has_own):
         nbytes += elem * 4.0 * (B if per_row else 1) * H * seg_len * D  # K and V of both endpoints
-    ops = {"bf16": flops} if tf32_passes is None else {"tf32": tf32_passes * flops}
+    if tf32_passes is None:
+        ops = {"bf16": flops}
+    else:
+        ops = {"tf32": tf32_passes * flops, "bf16": (bf16_passes or 0) * flops}
     return bound(ops, nbytes)
 
 
@@ -854,38 +870,53 @@ def phase_kernels(coef, sd_coef, fused_classes, sd21_classes):
     records["conv3x3_same_f32"] = with_sd21({**main, "max_abs_err": worst}, sd21, conv_keys)
 
     # kernel A: the VAE mid-block attention in f32, one head over 16384
-    # tokens (SDXL, one 1024px frame) and over 4096 tokens of 7 frames at
-    # once (SD1.5, the batched 512px decode); SDPA under each backend that
-    # takes f32 at D=512, with its error, since a backend may compute f32
-    # through TF32
+    # tokens (SDXL, one 1024px frame), over 4096 tokens of 7 frames at once
+    # (SD1.5, the batched 512px decode) and over the tiled decode's ragged
+    # 4000-token tile; timed through the wrapper (ms) and launched alone on
+    # operands d512_launch prepared once (kernel_ms); SDPA under each backend
+    # that takes f32 at D=512, with its error, since a backend may compute
+    # f32 through TF32
     worst = 0.0
-    for n, S, reps in ((1, 16384, 3), (7, 4096, 5)):
+    for n, S, reps in ((1, 16384, 3), (7, 4096, 5), (1, 4000, 10)):
         q, k, v = (torch.randn((n, 1, S, 512), generator=gen, device=dev) for _ in range(3))
         got = flash_interpolated_attention(q, k, v)  # routed by dtype and head dim, as the VAE calls it
         torch.cuda.synchronize()
         want = flash_interpolated_attention_plain(q, k, v)
         err, ref = (got - want).abs().max().item(), want.abs().max().item()
+        _, launch = d512_launch(q, k, v)
+        kernel_ms = cuda_ms(launch, reps)
         ms = cuda_ms(lambda: flash_self_attention_f32(q, k, v), reps)
         plain_ms = cuda_ms(lambda: flash_interpolated_attention_plain(q, k, v), reps)
-        bound_ms, bound_by = attention_bound("self", n, 1, S, S, 512, elem=4, tf32_passes=3)
+        bound_ms, bound_by = attention_bound("self", n, 1, S, S, 512, elem=4, **F32_D512_PASSES)
+        three_tf32_ms, _ = attention_bound("self", n, 1, S, S, 512, elem=4, tf32_passes=3)
         cuda_core_ms = 4.0 * n * S * S * 512 / PEAK_OPS_PER_S["f32"] * 1e3  # the same flops in plain f32 FMA
         library = sdpa_backends(q, k, v, want, reps)
         ok = math.isfinite(err) and err <= F32_ATTN_TOL * ref
         print(f"attention f32 self ({n},1,{S},512): max_abs_err {err:.3e} (max|ref| {ref:.3e}, "
-              f"tol {F32_ATTN_TOL * ref:.3e}) rel_l2 {rel_l2(got, want):.3e}  kernel {ms:.3f} ms  "
-              f"plain {plain_ms:.3f} ms  {yardsticks(bound_ms, bound_by, library)} (3xTF32; "
-              f"{cuda_core_ms:.3f} ms at the f32 CUDA-core rate); library max_abs_err "
-              f"{', '.join(f'{b} {t[1]:.3e}' for b, t in library.items())}  {'ok' if ok else 'FAIL'}", flush=True)
+              f"tol {F32_ATTN_TOL * ref:.3e}) rel_l2 {rel_l2(got, want):.3e}  kernel {ms:.3f} ms (launch alone "
+              f"{kernel_ms:.3f}, {bound_ms / kernel_ms:.1%} of the bound, {three_tf32_ms / kernel_ms:.1%} of "
+              f"3xTF32's {three_tf32_ms:.3f} ms)  plain {plain_ms:.3f} ms  {yardsticks(bound_ms, bound_by, library)} "
+              f"(the kernel's 1.5 TF32 + 1.5 bf16 passes; {cuda_core_ms:.3f} ms at the f32 CUDA-core rate); "
+              f"library max_abs_err {', '.join(f'{b} {t[1]:.3e}' for b, t in library.items())}  "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
             fail(f"f32 D=512 attention ({n},1,{S},512): kernel disagrees with the plain version")
         worst = max(worst, err)
         if S == 16384:
             lib_name, lib_ms = fastest(library)
-            main = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                    "f32_cuda_core_bound_ms": cuda_core_ms, "library_ms": lib_ms, "library": lib_name,
+            main = {"ms": ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "bound_3xtf32_ms": three_tf32_ms, "f32_cuda_core_bound_ms": cuda_core_ms,
+                    "library_ms": lib_ms, "library": lib_name,
                     "library_max_abs_err": library[lib_name][1] if lib_name else None}
-        del q, k, v, got, want
-    records["flash_self_attention_f32"] = {**main, "max_abs_err": worst}
+        elif S == 4096:
+            sd15 = {"sd15_ms": ms, "sd15_kernel_ms": kernel_ms, "sd15_plain_ms": plain_ms,
+                    "sd15_bound_ms": bound_ms, "sd15_bound_3xtf32_ms": three_tf32_ms,
+                    "sd15_library_ms": fastest(library)[1]}
+        else:
+            tile = {"tile_ms": ms, "tile_kernel_ms": kernel_ms, "tile_plain_ms": plain_ms, "tile_bound_ms": bound_ms,
+                    "tile_library_ms": fastest(library)[1]}
+        del q, k, v, got, want, launch
+    records["flash_self_attention_f32"] = {**main, **sd15, **tile, "max_abs_err": worst}
 
     # the same attention in a bf16 VAE: one 1024px SDXL frame, SD1.5's
     # batched 512px decode (also a 512px tile or encode), and a ragged
@@ -3685,7 +3716,15 @@ def kernels_line(kernels: dict, launches: dict) -> str:
         "flash_self_attention_f32": (
             "aid_tpu_torch/csrc/flash_attention_f32_d512.cu", "aid_tpu/ops/flash_attention.py:101",
             ("flash_self_attention_f32",),
-            {"contract": "f32, head dim 512, self (VAE mid block), 3xTF32; at (1,1,16384,512)"}),
+            {"design": "wgmma (Q K^T m64n16: hi(Q) hi(K) and lo(Q) hi(K) in tf32 with Q's fragments from "
+                       "registers, bf16(Q) bf16(lo(K)) with K's lo made in bf16; O^T = V^T P^T m64n64: hi*hi in "
+                       "tf32, lo(V) P + V lo(P) in one packed bf16 pass), the Q tile resident, K and V by TMA "
+                       "from a producer warpgroup, D split across two consumer warpgroups that exchange partial "
+                       "scores",
+             "contract": "f32, head dim 512, self (VAE mid block), three tensor-core passes a product; ms at "
+                         "(1,1,16384,512), sd15_* at (7,1,4096,512), tile_* at (1,1,4000,512); ms: through the "
+                         "wrapper, as the model calls it; kernel_ms: the launch alone on operands "
+                         "aid_tpu_torch/ops/flash_attention.py::d512_launch prepared once"}),
         "flash_self_attention_bf16": (
             "aid_tpu_torch/csrc/flash_attention_bf16_d512.cu", flash_replaces[0], ("flash_self_attention_bf16",),
             {**flash_replaces[1], "design": "wgmma bf16 (Q K^T m64n32k16 from shared memory, P V m64n256k16 with "

@@ -156,6 +156,13 @@ def test_bounds_follow_the_work():
     assert by == "operations" and abs(ms - 0.911) < 1e-3
     ms, by = smoke.conv_bound(7, 128, 128, 960, 320, tf32_passes=3)  # 634 GFLOP at three TF32 passes
     assert by == "operations" and abs(ms - 3.843) < 1e-3
+    # the f32 D=512 kernel's own split: 1.5 TF32 and 1.5 bf16 passes, whose times add on the tensor cores
+    ms, by = smoke.attention_bound("self", 1, 1, 16384, 16384, 512, elem=4, **smoke.F32_D512_PASSES)
+    assert by == "operations" and abs(ms - 2.500) < 1e-3
+    ms, by = smoke.attention_bound("self", 7, 1, 4096, 4096, 512, elem=4, **smoke.F32_D512_PASSES)
+    assert by == "operations" and abs(ms - 1.094) < 1e-3
+    ms, by = smoke.bound({"bf16": 989e9, "tf32": 495e9, "f32": 67e9}, 0.0)  # f32 beside the tensor cores
+    assert by == "operations" and abs(ms - 2.0) < 1e-9
 
 
 def test_sd21_phase_follows_the_f32_paths():

@@ -371,6 +371,14 @@ def test_tiny_models_run_the_kernels(dev, dtype, name):
     (3, 2, 300, 200),     # B > 1, H > 1, fewer keys than queries
     (1, 1, 16384, 16384),  # one 1024px SDXL frame
     (2, 3, 1000, 1000),   # B, H > 1 with ragged tails
+    (1, 1, 1, 1),          # one query, one key
+    (2, 1, 63, 15),        # one row short of a query tile, one key short of a K/V tile
+    (1, 2, 65, 17),        # one past each
+    (3, 1, 100, 200),      # more keys than queries
+    (1, 1, 64, 16),        # one whole tile of each: no second key tile
+    (1, 1, 128, 32),       # two whole key tiles: K and V each refilled once
+    (2, 1, 65, 47),        # three key tiles, the last one key short: the K and V slots refilled twice
+    (7, 1, 4000, 4000),    # the tiled decode's ragged tile, seven frames
 ])
 def test_flash_f32_d512_kernel_matches_plain(dev, B, H, S, L):
     q = _randn((B, H, S, 512), 50, torch.float32)

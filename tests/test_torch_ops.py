@@ -383,10 +383,10 @@ def _tf32_trunc(x: torch.Tensor) -> torch.Tensor:
 
 
 def _tf32_matmul(a: torch.Tensor, b: torch.Tensor, passes: int) -> torch.Tensor:
-    """a @ b.T with the operands rounded as csrc/flash_attention_f32_d512.cu
-    rounds them: 1 pass is plain TF32 (hi * hi); 3 passes add hi * lo + lo *
-    hi with lo = a - hi. The products are summed in f64, so only the
-    operands' rounding is measured."""
+    """a @ b.T with the operands split by rounding, hi = tf32(a) (cvt.rna):
+    1 pass is plain TF32 (hi * hi); 3 passes add hi * lo + lo * hi with lo =
+    a - hi. The products are summed in f64, so only the operands' rounding
+    is measured."""
     ah, bh = _tf32_round(a), _tf32_round(b)
     out = ah.double() @ bh.double().T
     if passes == 3:
@@ -425,12 +425,53 @@ def _tf32_tiled_attention(q, k, v, passes: int, bk: int = 64) -> torch.Tensor:
     return o.double() / lsum.double()[:, None]
 
 
+def _d512_tiled_attention(q, k, v, k_lo: bool = True, bk: int = 16) -> torch.Tensor:
+    """softmax(q k^T / sqrt(d)) v as csrc/flash_attention_f32_d512.cu rounds
+    it, in its tile order: Q K^T = trunc(Q) trunc(K) + trunc(lo(Q)) trunc(K)
+    + bf16(Q) bf16(lo(K)) (lo = a - trunc(a); ``k_lo`` False drops the last
+    term, K's lo), P V = O^T = V^T P^T as trunc(V) trunc(P) + bf16(lo(V))
+    bf16(P) + bf16(V) bf16(lo(P)) (the packed bf16 pass); an online softmax
+    over ``bk``-key tiles with P in f32, each tile's P V summed from zero
+    (f64 here, rounded to the f32 accumulator) and folded into the f32 O by
+    an FMA."""
+    def bf16(x):
+        return x.float().to(torch.bfloat16).double()
+
+    def tf32(x):
+        return _tf32_trunc(x.float()).double()
+
+    def rest(x):
+        return x.float() - _tf32_trunc(x.float())
+
+    sl2 = q.shape[-1] ** -0.5 * 1.4426950408889634
+    qh, ql, qb = tf32(q), tf32(rest(q)), bf16(q)
+    o = torch.zeros(q.shape[0], v.shape[1])
+    m = torch.full((q.shape[0],), -math.inf)
+    lsum = torch.zeros(q.shape[0])
+    for r0 in range(0, k.shape[0], bk):
+        kt, vt = k[r0:r0 + bk], v[r0:r0 + bk]
+        s = qh @ tf32(kt).T + ql @ tf32(kt).T
+        if k_lo:
+            s = s + qb @ bf16(rest(kt)).T
+        s = s.float()
+        mn = torch.maximum(m, s.max(dim=1).values)
+        alpha = torch.exp2((m - mn) * sl2)
+        p = torch.exp2(s * sl2 - (mn * sl2)[:, None])
+        m, lsum = mn, lsum * alpha + p.sum(dim=1)
+        part = (tf32(p) @ tf32(vt) + (bf16(p) @ bf16(rest(vt)) + bf16(rest(p)) @ bf16(vt))).float()
+        o = torch.addcmul(part, o, alpha[:, None])  # fmaf(o, alpha, part) up to one rounding
+    return o.double() / lsum.double()[:, None]
+
+
 @pytest.mark.parametrize("passes,within,split", [(3, True, "rna"), (1, False, "rna"), (3, True, "raw"),
-                                                 (1, False, "raw")],
-                         ids=["3-True", "1-False", "raw-3-True", "raw-1-False"])
+                                                 (1, False, "raw"), (3, True, "d512-4096"),
+                                                 (2, False, "d512-4096"), (3, True, "d512-16384"),
+                                                 (2, False, "d512-16384")],
+                         ids=["3-True", "1-False", "raw-3-True", "raw-1-False", "d512-4096-3-True",
+                              "d512-4096-2-False", "d512-16384-3-True", "d512-16384-2-False"])
 def test_three_tf32_passes_keep_the_f32_attention_promise(passes, within, split):
     """Why the f32 attention kernels spend three tensor-core passes per
-    product. ``rna`` (the D=512 kernel's split, hi = cvt.rna): softmax(Q K^T
+    product. ``rna`` (the split with hi = cvt.rna): softmax(Q K^T
     / sqrt(d)) V at (1, 1, 1024, 512) with both products in 3xTF32 stays
     within the f32 attention's 1e-4 of max |out| (chip_smoke.py's
     F32_ATTN_TOL, the VAE decode's promise) of the f64 result; plain TF32
@@ -438,16 +479,27 @@ def test_three_tf32_passes_keep_the_f32_attention_promise(passes, within, split)
     value read truncated, ~4x coarser): at D = 64 over a key stream as long
     as SD 2.1's fused_outer (9216 own + 9216 endpoint keys), with the
     kernel's online softmax over 64-key tiles and each tile's P V folded in
-    f32, 3xTF32 still stays within 1e-4 of max |out|; plain TF32 does not."""
+    f32, 3xTF32 still stays within 1e-4 of max |out|; plain TF32 does not.
+    ``d512-L`` (the D=512 kernel's split, ``_d512_tiled_attention``): at
+    D = 512 over L = 4096 (a 512px frame) or 16384 keys (a 1024px frame), in
+    the kernel's 16-key tiles, K's lo stored in bf16 and its pass run in
+    bf16, P V's two small terms in one bf16 pass, stays within 1e-4 of max
+    |out| (~2e-6); with K's lo dropped (two passes for Q K^T) it does not
+    (~1e-3)."""
     f32_attn_tol = 1e-4
     rng = np.random.default_rng(0)
-    S, L, D = (1024, 1024, 512) if split == "rna" else (128, 18432, 64)
+    if split.startswith("d512"):
+        S, L, D = 256, int(split.split("-")[1]), 512
+    else:
+        S, L, D = (1024, 1024, 512) if split == "rna" else (128, 18432, 64)
     q = torch.from_numpy(rng.standard_normal((S, D), dtype=np.float32))
     k, v = (torch.from_numpy(rng.standard_normal((L, D), dtype=np.float32)) for _ in range(2))
     want = torch.softmax(q.double() @ k.double().T * D ** -0.5, dim=-1) @ v.double()
     if split == "rna":
         p = torch.softmax(_tf32_matmul(q, k, passes) * D ** -0.5, dim=-1).float()
         got = _tf32_matmul(p, v.T.contiguous(), passes)
+    elif split.startswith("d512"):
+        got = _d512_tiled_attention(q, k, v, k_lo=passes == 3)
     else:
         got = _tf32_tiled_attention(q, k, v, passes)
     err = ((got - want).abs().max() / want.abs().max()).item()
@@ -763,6 +815,282 @@ def test_flash_bf16_d512_tile_constants_follow_the_kernel_source():
     assert smem <= 232448
     assert bq * 512 // wg // 128 <= 128  # each warpgroup's share of the 64 x 512 f32 accumulator, a thread
 
+
+def _emulate_flash_f32_d512_kernel(ops: dict, fault: str | None = None) -> torch.Tensor:
+    """csrc/flash_attention_f32_d512.cu's data movement, replayed in plain
+    torch from the C entry's own arguments (``d512_operands``).
+
+    Each operand is read as its tensor map reads it: (512, H, S, B) over the
+    tensor's storage at the strides in ``dims``, boxes of 32 f32 by 64 query
+    rows or 16 keys, zeros past Sq or Lk, stored 128-byte swizzled. Each
+    consumer warpgroup makes its half of K's lo in bf16 as the kernel's
+    ``make_klo`` writes it (8-column halves, words of columns i and i + 4,
+    boxes of 64 columns, 128-byte swizzle); S = Q K^T over its 256 columns
+    reads K through its K-major descriptor and K's lo through the bf16
+    one, Q's hi, lo and bf16 from the A registers ``load_q`` fills; the
+    partial scores go to the exchange in accumulator order and come back
+    added to the other's (both must hold the same scores). The online
+    softmax writes P^T's hi (keys permuted within each 8-key step) and its
+    packed bf16 row (P, then lo(P), of each 8 keys), both under the 64-byte
+    swizzle, and the rows' factors, each warpgroup the rows of its half;
+    O^T = V^T P^T takes V^T's hi and packed bf16 registers (lo(V), then V)
+    from the raw V tile as ``load_v`` does and P^T through the 64-byte
+    K-major descriptors, 64 rows at a time from zero, folded by the factor
+    of each query column. Operands are truncated to tf32 (rounded to bf16
+    in the bf16 passes) where the tensor cores read them, products summed in
+    f64; the output is stored from O^T at the output's strides, rows past
+    Sq dropped. ``fault`` plants a layout fault, for the test that the
+    replay catches one: "p_swizzle" reads P^T's hi without its swizzle,
+    "q_bf" feeds the bf16 pass Q's columns in their natural order."""
+    from aid_tpu_torch.ops.flash_attention import F32_D512_TILES
+
+    BQ, BK, NWG = F32_D512_TILES
+    D = 512
+    cols, boxes = D // NWG, D // 32
+    tensors, dims = ops["tensors"], ops["dims"]
+    B, H, Sq, Lk = dims[:4]
+    sl2 = ops["scale"] * 1.4426950408889634
+    flat = [torch.as_strided(x, (x.untyped_storage().nbytes() // 4 - x.storage_offset(),), (1,),
+                             x.storage_offset()) for x in tensors]
+    strides = [dims[4 + 3 * i:7 + 3 * i] for i in range(4)]
+    extents = [Sq, Lk, Lk]
+
+    def tile(i, h, s0, b, rows):  # the 16 boxes of a row tile, one after the other (f32 elements, swizzled)
+        sb, sh, ss = strides[i]
+        r, x = torch.arange(rows)[:, None], torch.arange(32)[None, :]
+        ok = (s0 + r < extents[i]).expand(rows, 32)
+        out = torch.zeros(boxes * rows * 32)
+        for c in range(boxes):
+            idx = torch.where(ok, b * sb + h * sh + (s0 + r) * ss + 32 * c + x, 0)
+            out[c * rows * 32 + _swizzle128(r * 128 + x * 4).reshape(-1) // 4] = torch.where(
+                ok, flat[i][idx], 0.0).reshape(-1)
+        return out
+
+    def bf16(x):
+        return x.float().to(torch.bfloat16).double()
+
+    lane = torch.arange(32)
+    g, t = lane // 4, lane % 4
+    warp, e = torch.arange(4)[:, None, None], torch.arange(4)[None, None, :]
+    gg, tt = g[None, :, None], t[None, :, None]
+    # (w, 64, 256): the element of the Q tile that load_q puts in registers at (row, column) of the
+    # warpgroup's part: box 8 w + c, rows 16 warp + g (+ 8), columns 8 kk + t (+ 4), swizzled by g
+    r64, j256 = torch.arange(64)[:, None], torch.arange(cols)[None, :]
+    q_reg = torch.zeros(NWG, 64, cols, dtype=torch.long)
+    for w in range(NWG):
+        for c in range(cols // 32):
+            for kk in range(4):
+                idx = ((boxes // NWG * w + c) * (BQ * 32) + (16 * warp + gg) * 32 + tt + (e & 1) * 256
+                       + (((2 * kk + (e >> 1)) ^ gg) << 2))
+                rows = (16 * warp + gg + 8 * (e & 1)).expand(4, 32, 4)
+                q_reg[w, rows, (32 * c + 8 * kk + tt + 4 * (e >> 1)).expand(4, 32, 4)] = idx
+    # the bf16 pass's A registers: k16 step i of chunk c from k8 steps 2i, 2i + 1; k positions 2t, 2t + 1
+    # hold columns t, t + 4 and 2t + 8, 2t + 9 columns t + 8, t + 12 (of the 16)
+    bf_col = torch.zeros(16, dtype=torch.long)
+    for tq in range(4):
+        bf_col[[2 * tq, 2 * tq + 1, 2 * tq + 8, 2 * tq + 9]] = torch.tensor([tq, tq + 4, tq + 8, tq + 12])
+    if fault == "q_bf":
+        bf_col = torch.arange(16)
+    q_bf = q_reg.view(NWG, 64, cols // 16, 16)[..., bf_col].reshape(NWG, 64, cols)
+    # (w, 16, 256): K through its K-major descriptor (16 keys), K's lo through the bf16 one (64-column boxes)
+    r16 = torch.arange(BK)[:, None]
+    k_desc = torch.stack([_swizzle128((boxes // NWG * w + j256 // 32) * BK * 128 + (j256 % 32 // 8) * 32
+                                      + (r16 // 8) * 1024 + (r16 % 8) * 128 + (j256 % 8) * 4) // 4
+                          for w in range(NWG)])
+    kl_desc = torch.stack([_swizzle128((cols * w + j256) // 64 * BK * 128 + ((cols * w + j256) % 64 // 16) * 32
+                                       + (r16 // 8) * 1024 + (r16 % 8) * 128 + (j256 % 16) * 2) // 2
+                           for w in range(NWG)])
+    # make_klo: thread ct of warpgroup w, items ct + 128 it: (key r, 8-column half), two source
+    # chunks, one destination chunk of four bf16 pairs
+    ct = torch.arange(128)
+    klo_src, klo_dst = [], []
+    for w in range(NWG):
+        for it in range(BK * (cols // 8) // 128):
+            item = ct + 128 * it
+            r, half = item % BK, cols // 8 * w + item // BK
+            cg, hf = half // 2, half % 2
+            src = (cg // 2) * (BK * 32) + r * 32
+            a = src[:, None] + ((((cg % 2) * 4 + 2 * hf) ^ (r % 8)) * 4)[:, None] + torch.arange(4)
+            c_ = src[:, None] + ((((cg % 2) * 4 + 2 * hf + 1) ^ (r % 8)) * 4)[:, None] + torch.arange(4)
+            dst = ((cg // 4) * (BK * 64) + r * 64 + ((((cg % 4) * 2 + hf) ^ (r % 8)) * 8))[:, None]
+            klo_src.append(torch.stack([a, c_], -1).reshape(-1))  # word i: (a_i, c_i)
+            klo_dst.append((dst + torch.arange(8)).reshape(-1))
+    klo_src, klo_dst = torch.cat(klo_src), torch.cat(klo_dst)
+    # load_v: (w, m-tile, 64, 16): V^T's row d (of the m-tile) and k position of a tile's two k8 steps
+    v_reg = torch.zeros(NWG, cols // 64, 64, BK, dtype=torch.long)
+    for w in range(NWG):
+        for mi in range(cols // 64):
+            box = boxes // NWG * w + 2 * mi + (warp >> 1)
+            for kk in range(BK // 8):
+                key = 8 * kk + 2 * tt + (e >> 1)
+                chunk = 4 * (warp & 1) + (gg >> 2) + 2 * (e & 1)
+                idx = box * (BK * 32) + (gg & 3) + key * 32 + ((chunk ^ (key & 7)) << 2)
+                rows = (16 * warp + gg + 8 * (e & 1)).expand(4, 32, 4)
+                v_reg[w, mi, rows, (8 * kk + tt + 4 * (e >> 1)).expand(4, 32, 4)] = idx
+    # the packed bf16 registers of V^T: (w, m-tile, 64, 2 k16 steps x 16), element and whether it is lo(V):
+    # pk0 = (lo x0, lo x2) at k 2t, 2t + 1 of row g, pk1 the same for g + 8, pk2 / pk3 = (x0, x2) / (x1, x3)
+    # at 2t + 8, 2t + 9; x_e holds key 8 kk + 2t + (e >> 1) of row g + 8 (e & 1)
+    v_pk = torch.zeros(NWG, cols // 64, 64, 2 * BK, dtype=torch.long)
+    v_pk_lo = torch.zeros(2 * BK, dtype=torch.bool)
+    for kk in range(BK // 8):
+        v_pk_lo[16 * kk:16 * kk + 8] = True
+    for w in range(NWG):
+        for mi in range(cols // 64):
+            box = boxes // NWG * w + 2 * mi + (warp >> 1)
+            for kk in range(BK // 8):
+                for reg in range(4):
+                    for half in range(2):  # low and high bf16 of the register: x0 / x2 (or x1 / x3)
+                        e_ = (reg % 2) + 2 * half
+                        key = 8 * kk + 2 * tt + (e_ >> 1)
+                        chunk = 4 * (warp & 1) + (gg >> 2) + 2 * (e_ & 1)
+                        idx = box * (BK * 32) + (gg & 3) + key * 32 + ((chunk ^ (key & 7)) << 2)
+                        rows = (16 * warp + gg + 8 * (e_ & 1)).expand(4, 32, 1)
+                        kpos = (16 * kk + 2 * tt + half + 8 * (reg // 2)).expand(4, 32, 1)
+                        v_pk[w, mi, rows, kpos] = idx.expand(4, 32, 1)
+    # P^T through the 64-byte K-major descriptors: (64 queries, 16 tf32 k positions), (64, 32 bf16 ones)
+    n64, k16 = torch.arange(64)[:, None], torch.arange(BK)[None, :]
+    p_desc = ((k16 // 8) * 32 + (n64 // 8) * 512 + (n64 % 8) * 64 + (k16 % 8) * 4)
+    p_desc = (p_desc if fault == "p_swizzle" else _swizzle64(p_desc)) // 4
+    k32 = torch.arange(2 * BK)[None, :]
+    pb_desc = _swizzle64((k32 // 16) * 32 + (n64 // 8) * 512 + (n64 % 8) * 64 + (k32 % 16) * 2) // 2
+    # the softmax's P^T stores: accumulator register i of thread (warp, lane) -> (row, key) and its word
+    arow, acol = _wgmma_acc_index(BK)
+    ireg = torch.arange(BK // 2)[None, :]
+    tcol = (torch.arange(128) % 32 % 4)[:, None]
+    p_word = _swizzle64(arow * 64 + (ireg // 4) * 32 + (tcol + 4 * (ireg & 1)) * 4) // 4
+    pb_half = _swizzle64(arow * 64 + (ireg // 4) * 32 + (2 * tcol + (ireg & 1)) * 2) // 2  # bf16 P
+    pb_lo_half = _swizzle64(arow * 64 + (ireg // 4) * 32 + 16 + (2 * tcol + (ireg & 1)) * 2) // 2  # lo(P)
+    writer = ((torch.arange(128) // 32) >> 1)  # the warpgroup that writes a thread's rows
+    a_rows = 16 * (torch.arange(128) // 32) + torch.arange(128) % 32 // 4  # rows g (t = 0 writes the factors)
+
+    out_flat = torch.zeros(flat[3].shape, dtype=torch.float64)
+    for b in range(B):
+        for h in range(H):
+            for q0 in range(0, Sq, BQ):
+                qt = tile(0, h, q0, b, BQ)
+                qhi = _tf32_read(qt[q_reg])
+                qlo = _tf32_read(_tf32_rest(qt[q_reg]))
+                qbf = bf16(qt[q_bf])
+                ot = torch.zeros(NWG, cols // 64, 64, 64)  # O^T: (w, m-tile, d, query)
+                m = torch.full((64,), -math.inf)
+                lsum = torch.zeros(64)
+                for r0 in range(0, Lk, BK):
+                    kt, vt = tile(1, h, r0, b, BK), tile(2, h, r0, b, BK)
+                    kl = torch.zeros(BK * D, dtype=torch.float64)
+                    kl[klo_dst] = bf16(_tf32_rest(kt[klo_src]))
+                    xbuf = []
+                    for w in range(NWG):
+                        kh = _tf32_read(kt[k_desc[w]])
+                        part = (qhi[w] @ kh.T).float() + (qlo[w] @ kh.T + qbf[w] @ kl[kl_desc[w]].T).float()
+                        xbuf.append(part[arow, acol])  # (128 threads, 8 registers)
+                    scores = []
+                    for w in range(NWG):
+                        sw = torch.zeros(64, BK)
+                        sw[arow, acol] = xbuf[w] + xbuf[1 - w]
+                        scores.append(sw)
+                    assert torch.equal(scores[0], scores[1])
+                    s = scores[0]
+                    s[:, min(BK, Lk - r0):] = -math.inf
+                    mn = torch.maximum(m, s.max(dim=1).values)
+                    alpha = torch.exp2((m - mn) * sl2)
+                    p = torch.exp2(s * sl2 - (mn * sl2)[:, None])
+                    m, lsum = mn, lsum * alpha + p.sum(dim=1)
+                    ph, pb, factors = torch.zeros(64 * BK), torch.zeros(64 * 2 * BK), torch.zeros(64)
+                    for w in range(NWG):  # each warpgroup the rows of its half, from its own registers
+                        mine = writer == w
+                        preg = p[arow, acol][mine]
+                        ph[p_word[mine]] = preg
+                        pb[pb_half[mine]] = bf16(preg).float()
+                        pb[pb_lo_half[mine]] = bf16(_tf32_rest(preg)).float()
+                        factors[a_rows[mine]] = alpha[a_rows[mine]]
+                        factors[a_rows[mine] + 8] = alpha[a_rows[mine] + 8]
+                    bh, bp = _tf32_read(ph[p_desc]), pb[pb_desc].double()  # (query, k position)
+                    for w in range(NWG):
+                        for mi in range(cols // 64):
+                            vh = _tf32_read(vt[v_reg[w, mi]])
+                            vv = vt[v_pk[w, mi]]
+                            vp = bf16(torch.where(v_pk_lo, _tf32_rest(vv), vv))
+                            acc = ((vh @ bh.T) + (vp @ bp.T)).float()
+                            ot[w, mi] = torch.addcmul(acc, ot[w, mi], factors[None, :])
+                linv = 1.0 / lsum
+                o = (ot * linv).reshape(D, 64).T  # (query, d): d = 256 w + 64 mi + row
+                sb, sh, ss = strides[3]
+                rows = q0 + torch.arange(64)
+                keep = (rows < Sq)[:, None].expand(64, D)
+                dst = b * sb + h * sh + rows[:, None] * ss + torch.arange(D)[None, :]
+                out_flat[dst[keep]] = o[keep].double()
+    out = tensors[3]
+    return torch.as_strided(out_flat, out.shape, out.stride()).float()
+
+
+@pytest.mark.parametrize("Sq,Lk", [(150, 77), (63, 15), (65, 17), (64, 16), (129, 33)])
+def test_flash_f32_d512_kernel_data_movement_replayed(Sq, Lk):
+    """The f32 D=512 kernel's tensor-map boxes (zeros past Sq and Lk), K's
+    lo in bf16 as the consumers write it, the D split across two warpgroups
+    and their partial-score exchange, the register fragments of Q and V^T,
+    P^T under the 64-byte swizzle with its keys permuted, the descriptors
+    and the output stored from O^T, replayed on the CPU from the wrapper's
+    own C arguments: on (B, S, H*512) projections viewed as (B, H, S, 512)
+    (the next head's columns lie past each row), at ragged Sq (a query tile
+    one row short of, or past, the 64-row tile) and Lk (one key short of or
+    past a 16-key tile, one whole tile, several). Against the plain version
+    in f32 the replay differs by the three-pass rounding (~1e-6 of max
+    |out|); a wrong box, swizzle, descriptor, permutation or exchange is
+    O(1)."""
+    assert _flash_f32_d512_replay_err(Sq, Lk) < 1e-4
+
+
+def _flash_f32_d512_replay_err(Sq: int, Lk: int, fault: str | None = None) -> float:
+    """max |replay - plain| / max |plain| of the f32 D=512 kernel's replay
+    on (2, Sq, 2*512) projections viewed as (2, 2, Sq, 512)."""
+    from aid_tpu_torch.ops.attention import _softmax_attn
+    from aid_tpu_torch.ops.flash_attention import d512_operands
+
+    g = torch.Generator().manual_seed(Sq + Lk)
+    B, H, D = 2, 2, 512
+
+    def heads(n):
+        return torch.randn(B, n, H * D, generator=g).view(B, n, H, D).transpose(1, 2)
+
+    q, k, v = heads(Sq), heads(Lk), heads(Lk)
+    ops = d512_operands(q, k, v)
+    assert ops["entry"] == "aid_flash_attn_f32_d512" and ops["dims"][:4] == [B, H, Sq, Lk]
+    got = _emulate_flash_f32_d512_kernel(ops, fault)
+    want = _softmax_attn(q, k, v, D ** -0.5)
+    assert got.shape == want.shape
+    return th.max_rel_err(got.numpy(), want.numpy())
+
+
+@pytest.mark.parametrize("fault", ["p_swizzle", "q_bf"])
+def test_flash_f32_d512_replay_catches_planted_faults(fault):
+    """The replay above can fail: with P^T's hi read unswizzled (O(1) off)
+    or the bf16 pass fed Q's columns unpermuted (K's lo against the wrong
+    columns, ~5e-4 off) it misses the 1e-4 the sound replay keeps."""
+    assert _flash_f32_d512_replay_err(150, 77, fault) > 1e-4
+
+
+def test_flash_f32_d512_tile_constants_follow_the_kernel_source():
+    """ops/flash_attention.py's F32_D512_TILES, which the replay above uses,
+    are the constants csrc/flash_attention_f32_d512.cu compiles with; its
+    shared memory (the resident Q tile, one slot each of K, K's lo in bf16
+    and V, P^T's hi and packed bf16 terms, the exchange, the rows' factors
+    and five barriers) fits the 227 KB a block can use, each warpgroup's
+    share of the 64 x 512 f32 output is 128 registers a thread, and no
+    mma.sync is left."""
+    import re
+    from pathlib import Path
+
+    from aid_tpu_torch.ops import flash_attention as FA
+
+    src = (Path(FA.__file__).resolve().parents[1] / "csrc" / "flash_attention_f32_d512.cu").read_text()
+    found = {name: int(v) for name, v in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+    bq, bk, wg = FA.F32_D512_TILES
+    assert (found["kBQ"], found["kBK"], found["kWG"], found["kD"]) == (bq, bk, wg, 512)
+    smem = 1024 + bq * 512 * 4 + bk * 512 * 4 + bk * 512 * 2 + bk * 512 * 4 + 2 * bq * bk * 4 \
+        + wg * (bk // 2) * 128 * 4 + 2 * bq * 4 + 5 * 8
+    assert smem <= 232448
+    assert bq * 512 // wg // 128 == 128
+    assert "mma.sync.aligned" not in src and "cp.async.cg" not in src and "wgmma.mma_async" in src
 
 # ---------------------------------------------------------------------------
 # the f32 instances: csrc/flash_interpolated_attention_f32.cu, csrc/conv3x3_f32.cu

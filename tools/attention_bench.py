@@ -11,14 +11,15 @@ S, D), the coef-0/1 end rows as skip rows; ``--only`` keeps the labels that
 contain its text, say ``D=160``) it prepares one launch
 with ``ops.flash_attention.kernel_launch`` and times that launch alone with
 CUDA events, beside the bound (``chip_smoke.attention_bound``; f32 at three
-TF32 passes) and, in self mode, SDPA on the same inputs (bf16: cuDNN; f32:
+TF32 passes; the f32 D=512 kernel at its own split, ``F32_D512_PASSES``) and, in self mode, SDPA on the same inputs (bf16: cuDNN; f32:
 the efficient backend, the fastest that takes f32). f32 also times the call
-through the wrapper, as the model makes it. ``--d512`` times the bf16 D=512
-self-attention of a bf16 VAE's mid block instead, at its three shapes
-(one 1024px frame, 16384 tokens; seven 512px frames, 4096; the tiled
-decode's ragged 4000-token tile): launched alone on operands
+through the wrapper, as the model makes it. ``--d512`` times the D=512
+self-attention of the VAE's mid block in ``--dtype`` instead (f32: the
+reference's VAE; bf16: a bf16 VAE), at its three shapes (one 1024px frame,
+16384 tokens; seven 512px frames, 4096; the tiled decode's ragged
+4000-token tile): launched alone on operands
 ``ops.flash_attention.d512_launch`` prepared once and through the wrapper,
-beside SDPA efficient. It checks each result against
+beside SDPA efficient and the plain version. It checks each result against
 the plain version (``chip_smoke.ATTN_TOL`` / ``F32_ATTN_TOL``). ``--root``
 imports the package and ``chip_smoke.py`` of another checkout (say, the
 parent commit unpacked under ``build/``): run both in one call, in turns, to
@@ -84,14 +85,17 @@ F32_SHAPES = [
 ]
 
 
-# (frames, tokens) of the bf16 D=512 self-attention: one SDXL frame, SD 1.5's
+# (frames, tokens) of the D=512 self-attention: one SDXL frame, SD 1.5's
 # batched 512px decode, the tiled decode's ragged tile
 D512_SHAPES = [(1, 16384), (7, 4096), (1, 4000)]
 
 
-def bench_d512(reps: int) -> dict:
-    """The bf16 D=512 kernel at D512_SHAPES: {label: ms alone}; prints each
-    with its time through the wrapper, its bound and SDPA efficient's."""
+def bench_d512(reps: int, f32: bool) -> dict:
+    """The D=512 kernel of one dtype (f32: csrc/flash_attention_f32_d512.cu,
+    bounded at its own TF32 and bf16 passes beside three TF32 passes; bf16:
+    csrc/flash_attention_bf16_d512.cu) at D512_SHAPES: {label: ms alone};
+    prints each with its time through the wrapper, its bound, SDPA
+    efficient's and the plain version's."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -100,28 +104,39 @@ def bench_d512(reps: int) -> dict:
         d512_launch,
         flash_interpolated_attention_plain,
         flash_self_attention_bf16,
+        flash_self_attention_f32,
     )
-    from chip_smoke import BF16_D512_TOL, attention_bound, cuda_ms
+    import chip_smoke
+    from chip_smoke import BF16_D512_TOL, F32_ATTN_TOL, attention_bound, cuda_ms
 
+    # each checkout's bound for its own kernel's passes (the mma.sync kernel before this design ran three TF32 passes)
+    passes = getattr(chip_smoke, "F32_D512_PASSES", {"tf32_passes": 3}) if f32 else {}
+    dtype, tol, wrapper = ((torch.float32, F32_ATTN_TOL, flash_self_attention_f32) if f32
+                           else (torch.bfloat16, BF16_D512_TOL, flash_self_attention_bf16))
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(12)
     result = {}
     for n, S in D512_SHAPES:
-        q, k, v = (torch.randn((n, 1, S, 512), generator=gen, device=dev).to(torch.bfloat16) for _ in range(3))
+        q, k, v = (torch.randn((n, 1, S, 512), generator=gen, device=dev).to(dtype) for _ in range(3))
         out, launch = d512_launch(q, k, v)
         launch()
         want = flash_interpolated_attention_plain(q, k, v)
         err = (out.float() - want.float()).abs().max().item() / want.float().abs().max().item()
-        if not err <= BF16_D512_TOL:
+        if not err <= tol:
             raise SystemExit(f"({n},1,{S},512): the kernel disagrees with the plain version ({err:.3e})")
         ms = cuda_ms(launch, reps)
-        wrapper_ms = cuda_ms(lambda: flash_self_attention_bf16(q, k, v), reps)
+        wrapper_ms = cuda_ms(lambda: wrapper(q, k, v), reps)
+        plain_ms = cuda_ms(lambda: flash_interpolated_attention_plain(q, k, v), max(1, reps // 4))
         with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
             lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), reps)
-        bound_ms, by = attention_bound("self", n, 1, S, S, 512)
-        label = f"bf16 self ({n},1,{S},512)"
+        bound_ms, by = attention_bound("self", n, 1, S, S, 512, **({"elem": 4, **passes} if f32 else {}))
+        label = f"{'f32' if f32 else 'bf16'} self ({n},1,{S},512)"
+        if f32:
+            three_ms, _ = attention_bound("self", n, 1, S, S, 512, elem=4, tf32_passes=3)
+            by += f", 3xTF32 {three_ms:.4f} ms, {three_ms / ms:.1%}"
         print(f"{label:32s} launch alone {ms:.4f} ms  bound {bound_ms:.4f} ms ({by}, {bound_ms / ms:.1%})  through "
-              f"the wrapper {wrapper_ms:.4f} ms  SDPA efficient {lib_ms:.4f} ms ({ms / lib_ms:.2f}x)", flush=True)
+              f"the wrapper {wrapper_ms:.4f} ms  SDPA efficient {lib_ms:.4f} ms ({ms / lib_ms:.2f}x)  plain "
+              f"{plain_ms:.4f} ms  max_abs_err/max|ref| {err:.3e}", flush=True)
         result[label] = ms
         del q, k, v, out, want, launch
     return result
@@ -131,7 +146,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--dtype", choices=("bf16", "f32"), default="bf16")
-    ap.add_argument("--d512", action="store_true", help="the bf16 D=512 self-attention (VAE mid block)")
+    ap.add_argument("--d512", action="store_true", help="the D=512 self-attention of --dtype (VAE mid block)")
     ap.add_argument("--only", default="", help="time only the shapes whose label contains this text")
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]),
                     help="the checkout whose package and chip_smoke.py are timed (default: this one)")
@@ -152,7 +167,7 @@ def main(argv=None) -> int:
 
     card = phase_device()  # also sets full f32 matmuls (TF32 off) for the plain version
     if args.d512:
-        result = bench_d512(args.reps)
+        result = bench_d512(args.reps, args.dtype == "f32")
         print(f"on {card}, the package of {Path(args.root).resolve()}", flush=True)
         print(json.dumps(result), flush=True)
         return 0
