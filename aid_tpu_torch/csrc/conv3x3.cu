@@ -1,4 +1,4 @@
-// 3x3 stride-1 SAME convolution + bias, bf16 in, f32 accumulate, bf16 out, sm_90a.
+// 3x3 stride-1 SAME convolution + bias, bf16 or f16 in, f32 accumulate, bf16 or f16 out, sm_90a.
 //
 // Replaces the Pallas TPU kernel aid_tpu/ops/conv.py::_kernel (conv.py:30-44),
 // reached through conv3x3_same(packed=False) -> _call_9dot (conv.py:124-169,
@@ -79,16 +79,27 @@
 //     skipped and stay zero: conv pads AFTER norm and activation, and
 //     silu(sh) != 0. A fence.proxy.async and a barrier of the two
 //     warpgroups then make those generic-proxy stores visible to wgmma.
-// ptxas (CUDA 12.8, sm_90a): 190 registers (prologue instance 208), no
-// spills, 172 KB of dynamic shared memory; chip_smoke.py's build phase
-// prints these lines from every build.
+// ptxas (CUDA 12.8, sm_90a): 190 registers (prologue instance 208; the
+// f16 instances 190 and 198), no spills, 172 KB of dynamic shared memory;
+// chip_smoke.py's build phase prints these lines from every build.
+//
+// Both instances come in two element types (elem16.cuh): T = __nv_bfloat16
+// (aid_conv3x3_bf16, aid_conv3x3_gnsilu_bf16) and T = __half
+// (aid_conv3x3_f16, aid_conv3x3_gnsilu_f16, an f16 UNet's convs). They
+// differ in the wgmma type suffix, the prologue's unpacking and rounding
+// (f32 silu rounded once to T) and the output's rounding; the window's TMA
+// map reads 8-byte elements whatever T is, and the layout pass moves 16-bit
+// values without reading them, so aid_conv3x3_blocked_f16 is the same pass.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+#include "elem16.cuh"
 
 constexpr int kTR = 4;                        // output rows per tile
 constexpr int kTW = 64;                       // output columns per tile (one wgmma M of 64)
@@ -175,40 +186,39 @@ __device__ __forceinline__ void fence_operands(float (&d)[80]) {
 }
 
 // D(64 x 160, f32) += A(64 x 16, bf16) * B(16 x 160, bf16), both from shared memory, K-major
+template <class T>
 __device__ __forceinline__ void wgmma_m64n160k16(float (&d)[80], uint64_t desc_a, uint64_t desc_b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %82, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, "
-      "%72, %73, %74, %75, %76, %77, %78, %79 "
-      "}, %80, %81, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
-      : "l"(desc_a), "l"(desc_b), "r"(1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+#define AID_ASM(TY)  \
+  asm volatile(  \
+      "{\n"  \
+      ".reg .pred p;\n"  \
+      "setp.ne.b32 p, %82, 0;\n"  \
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32." TY "." TY " {"  \
+      "%0, %1, %2, %3, %4, %5, %6, %7, "  \
+      "%8, %9, %10, %11, %12, %13, %14, %15, "  \
+      "%16, %17, %18, %19, %20, %21, %22, %23, "  \
+      "%24, %25, %26, %27, %28, %29, %30, %31, "  \
+      "%32, %33, %34, %35, %36, %37, %38, %39, "  \
+      "%40, %41, %42, %43, %44, %45, %46, %47, "  \
+      "%48, %49, %50, %51, %52, %53, %54, %55, "  \
+      "%56, %57, %58, %59, %60, %61, %62, %63, "  \
+      "%64, %65, %66, %67, %68, %69, %70, %71, "  \
+      "%72, %73, %74, %75, %76, %77, %78, %79 "  \
+      "}, %80, %81, p, 1, 1, 0, 0;\n"  \
+      "}\n"  \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),  \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),  \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),  \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),  \
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),  \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),  \
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),  \
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),  \
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),  \
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])  \
+      : "l"(desc_a), "l"(desc_b), "r"(1))
+  AID_WGMMA_16(T, AID_ASM);
+#undef AID_ASM
 }
 
 // silu(a) = a * sigmoid(a) = h + h * tanh(h) with h = a / 2: one MUFU
@@ -220,27 +230,28 @@ __device__ __forceinline__ float silu_fast(float a) {
   return fmaf(h, t, h);
 }
 
-// silu(x * sc + sh) of 8 bf16 channels in place, in f32, rounded to bf16
-__device__ __forceinline__ void gn_silu8(__nv_bfloat16* p, const float* sc, const float* sh) {
+// silu(x * sc + sh) of 8 T channels in place, in f32, rounded to T
+template <class T>
+__device__ __forceinline__ void gn_silu8(T* p, const float* sc, const float* sh) {
   uint4 raw = *reinterpret_cast<const uint4*>(p);
-  __nv_bfloat162* v = reinterpret_cast<__nv_bfloat162*>(&raw);
+  uint32_t* v = reinterpret_cast<uint32_t*>(&raw);
   const float4 s0 = __ldg(reinterpret_cast<const float4*>(sc)), s1 = __ldg(reinterpret_cast<const float4*>(sc + 4));
   const float4 h0 = __ldg(reinterpret_cast<const float4*>(sh)), h1 = __ldg(reinterpret_cast<const float4*>(sh + 4));
   const float s[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
   const float h[8] = {h0.x, h0.y, h0.z, h0.w, h1.x, h1.y, h1.z, h1.w};
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
-    const float2 f = __bfloat1622float2(v[j]);
-    v[j] = __floats2bfloat162_rn(silu_fast(fmaf(f.x, s[2 * j], h[2 * j])),
-                                 silu_fast(fmaf(f.y, s[2 * j + 1], h[2 * j + 1])));
+    const float2 f = Elem<T>::unpack(v[j]);
+    v[j] = Elem<T>::pack(silu_fast(fmaf(f.x, s[2 * j], h[2 * j])), silu_fast(fmaf(f.y, s[2 * j + 1], h[2 * j + 1])));
   }
   *reinterpret_cast<uint4*>(p) = raw;
 }
 
-// + bias in f32, round once to bf16, NHWC store of one 64-pixel output row
+// + bias in f32, round once to T, NHWC store of one 64-pixel output row
 // segment (the warpgroup's accumulator rows: warp w holds pixels 16w..16w+15)
+template <class T>
 __device__ __forceinline__ void store_row(const float (&acc)[80], const float* __restrict__ bias,
-                                          __nv_bfloat16* __restrict__ out, int b, int y, int x0, int n0, int H,
+                                          T* __restrict__ out, int b, int y, int x0, int n0, int H,
                                           int W, int Cout, int warp, int lane) {
   if (y >= H) return;
   const int g = lane >> 2, t = lane & 3;
@@ -248,23 +259,23 @@ __device__ __forceinline__ void store_row(const float (&acc)[80], const float* _
   for (int half = 0; half < 2; ++half) {
     const int x = x0 + warp * 16 + g + half * 8;
     if (x >= W) continue;
-    __nv_bfloat16* o = out + (((long long)b * H + y) * W + x) * Cout;
+    T* o = out + (((long long)b * H + y) * W + x) * Cout;
 #pragma unroll
     for (int j = 0; j < kBN / 8; ++j) {
       const int co = n0 + j * 8 + 2 * t;
       if (co < Cout) {  // Cout is even, so co + 1 < Cout too
         *reinterpret_cast<uint32_t*>(o + co) =
-            pack_bf16(acc[4 * j + 2 * half] + bias[co], acc[4 * j + 2 * half + 1] + bias[co + 1]);
+            Elem<T>::pack(acc[4 * j + 2 * half] + bias[co], acc[4 * j + 2 * half + 1] + bias[co + 1]);
       }
     }
   }
 }
 
-template <bool kGnSilu>
+template <class T, bool kGnSilu>
 __global__ void __launch_bounds__(kThreads, 1)
-    conv3x3_kernel(const __grid_constant__ CUtensorMap xmap, const __nv_bfloat16* __restrict__ wt,
+    conv3x3_kernel(const __grid_constant__ CUtensorMap xmap, const T* __restrict__ wt,
                    const float* __restrict__ bias, const float* __restrict__ gn_scale,
-                   const float* __restrict__ gn_shift, __nv_bfloat16* __restrict__ out, int H, int W, int Cin,
+                   const float* __restrict__ gn_shift, T* __restrict__ out, int H, int W, int Cin,
                    int Cout, int tiles_x) {
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
@@ -317,7 +328,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int c = kt * kKc + kg * 8, iy = y0 - 1 + wr, ix = x0 - 1 + wc;
         if (c < Cin && iy >= 0 && iy < H && ix >= 0 && ix < W) {
           const long long f = (long long)b * Cin + c;
-          gn_silu8(reinterpret_cast<__nv_bfloat16*>(wp + kg * kPlaneBytes + px * 16), gn_scale + f, gn_shift + f);
+          gn_silu8(reinterpret_cast<T*>(wp + kg * kPlaneBytes + px * 16), gn_scale + f, gn_shift + f);
         }
       }
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // generic stores -> wgmma's proxy
@@ -334,8 +345,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int tap = 0; tap < 9; ++tap) {
       const int dy = tap / 3, dx = tap - 3 * dy;
       const uint64_t dat = da + (uint64_t)(dy * kWinC + dx), dbt = db + (uint64_t)(tap * (kTapBytes >> 4));
-      wgmma_m64n160k16(acc0, dat, dbt);
-      wgmma_m64n160k16(acc1, dat + kWinC, dbt);
+      wgmma_m64n160k16<T>(acc0, dat, dbt);
+      wgmma_m64n160k16<T>(acc1, dat + kWinC, dbt);
     }
     wgmma_commit();
     wgmma_wait<1>();  // chunk kt - 1's products are done: release its stage ...
@@ -376,13 +387,13 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-template <bool kGnSilu>
+template <class T, bool kGnSilu>
 int launch(const void* x, const void* w, const void* bias, const void* gn_scale, const void* gn_shift, void* out,
            int B, int H, int W, int Cin, int Cout, cudaStream_t stream) {
   if ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w)) & 15) return (int)cudaErrorMisalignedAddress;
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
-  // x: (B, Cin / 8, H, W, 8) bf16 read as 8-byte elements, so that one window
+  // x: (B, Cin / 8, H, W, 8) T read as 8-byte elements, so that one window
   // row of 66 pixels x 16 bytes is one box row of 132 elements; a box is
   // (2 channel groups, kWinR rows, kWinC pixels) of one image
   const cuuint64_t G = Cin / 8, row = (cuuint64_t)W * 16;
@@ -395,14 +406,14 @@ int launch(const void* x, const void* w, const void* bias, const void* gn_scale,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS) {
     return (int)cudaErrorInvalidValue;
   }
-  const void* fn = reinterpret_cast<const void*>(&conv3x3_kernel<kGnSilu>);
+  const void* fn = reinterpret_cast<const void*>(&conv3x3_kernel<T, kGnSilu>);
   cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (err != cudaSuccess) return (int)err;
   const int tiles_x = (W + kTW - 1) / kTW, tiles_y = (H + kTR - 1) / kTR;
   const dim3 grid((unsigned)(tiles_x * tiles_y), (unsigned)((Cout + kBN - 1) / kBN), (unsigned)B);
-  conv3x3_kernel<kGnSilu><<<grid, kThreads, kSmemBytes, stream>>>(
-      xmap, static_cast<const __nv_bfloat16*>(w), static_cast<const float*>(bias),
-      static_cast<const float*>(gn_scale), static_cast<const float*>(gn_shift), static_cast<__nv_bfloat16*>(out),
+  conv3x3_kernel<T, kGnSilu><<<grid, kThreads, kSmemBytes, stream>>>(
+      xmap, static_cast<const T*>(w), static_cast<const float*>(bias),
+      static_cast<const float*>(gn_scale), static_cast<const float*>(gn_shift), static_cast<T*>(out),
       H, W, Cin, Cout, tiles_x);
   return (int)cudaGetLastError();
 }
@@ -449,13 +460,9 @@ __global__ void __launch_bounds__(256)
   xb[((r * G + g) * H + y) * W + px] = v;
 }
 
-}  // namespace
-
-// x (B, C, H, W) bf16 at element strides {b, c, h, w} -> xb (B, C / 8, H, W,
-// 8) bf16, contiguous and 16-byte aligned; C % 8 == 0. The layout the conv
-// entry points below take. Returns the launch's cudaError_t (0 on success).
-extern "C" int aid_conv3x3_blocked_bf16(const void* x, void* xb, int B, int C, int H, int W,
-                                        const long long* strides, void* stream) {
+// xb[b][g][y][x][0..8) = x[b][8g .. 8g + 8)[y][x] for 16-bit elements of
+// any type: one read and one write of x, in blocked_kernel
+int blocked(const void* x, void* xb, int B, int C, int H, int W, const long long* strides, void* stream) {
   if (C % 8 != 0) return (int)cudaErrorInvalidValue;
   if (reinterpret_cast<uintptr_t>(xb) & 15) return (int)cudaErrorMisalignedAddress;
   const long long n = (long long)B * (C / 8) * H * W;
@@ -474,6 +481,31 @@ extern "C" int aid_conv3x3_blocked_bf16(const void* x, void* xb, int B, int C, i
   return (int)cudaGetLastError();
 }
 
+template <class T>
+int conv(const void* x, const void* w, const void* bias, void* out, const void* scale, const void* shift, int B,
+         int H, int W, int Cin, int Cout, void* stream) {
+  if (Cin % 8 != 0 || Cout % 2 != 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (scale == nullptr) return launch<T, false>(x, w, bias, nullptr, nullptr, out, B, H, W, Cin, Cout, st);
+  return launch<T, true>(x, w, bias, scale, shift, out, B, H, W, Cin, Cout, st);
+}
+
+}  // namespace
+
+// x (B, C, H, W) bf16 at element strides {b, c, h, w} -> xb (B, C / 8, H, W,
+// 8) bf16, contiguous and 16-byte aligned; C % 8 == 0. The layout the conv
+// entry points below take. Returns the launch's cudaError_t (0 on success).
+extern "C" int aid_conv3x3_blocked_bf16(const void* x, void* xb, int B, int C, int H, int W,
+                                        const long long* strides, void* stream) {
+  return blocked(x, xb, B, C, H, W, strides, stream);
+}
+
+// The same of an f16 x (the pass moves 16-bit values; it is the same kernel).
+extern "C" int aid_conv3x3_blocked_f16(const void* x, void* xb, int B, int C, int H, int W,
+                                       const long long* strides, void* stream) {
+  return blocked(x, xb, B, C, H, W, strides, stream);
+}
+
 // x: (B, Cin / 8, H, W, 8) bf16 (channels in blocks of 8), w: the
 // (Cout, Cin, 3, 3) weight tiled as (ceil(Cout / 160), ceil(Cin / 16), 3, 3,
 // 2, 160, 8) bf16 with zeros past Cout and Cin (one contiguous operand per
@@ -482,8 +514,7 @@ extern "C" int aid_conv3x3_blocked_bf16(const void* x, void* xb, int B, int C, i
 // launch's cudaError_t (0 on success).
 extern "C" int aid_conv3x3_bf16(const void* x, const void* w, const void* bias, void* out, int B, int H, int W,
                                 int Cin, int Cout, void* stream) {
-  if (Cin % 8 != 0 || Cout % 2 != 0) return (int)cudaErrorInvalidValue;
-  return launch<false>(x, w, bias, nullptr, nullptr, out, B, H, W, Cin, Cout, static_cast<cudaStream_t>(stream));
+  return conv<__nv_bfloat16>(x, w, bias, out, nullptr, nullptr, B, H, W, Cin, Cout, stream);
 }
 
 // y = conv(silu(x * scale + shift)) + bias with SAME zero padding applied
@@ -492,8 +523,22 @@ extern "C" int aid_conv3x3_bf16(const void* x, const void* w, const void* bias, 
 extern "C" int aid_conv3x3_gnsilu_bf16(const void* x, const void* w, const void* bias, void* out,
                                        const void* scale, const void* shift, int B, int H, int W, int Cin, int Cout,
                                        void* stream) {
-  if (Cin % 8 != 0 || Cout % 2 != 0) return (int)cudaErrorInvalidValue;
-  return launch<true>(x, w, bias, scale, shift, out, B, H, W, Cin, Cout, static_cast<cudaStream_t>(stream));
+  if (scale == nullptr || shift == nullptr) return (int)cudaErrorInvalidValue;
+  return conv<__nv_bfloat16>(x, w, bias, out, scale, shift, B, H, W, Cin, Cout, stream);
+}
+
+// aid_conv3x3_bf16 and aid_conv3x3_gnsilu_bf16 over f16 x, w and out (bias,
+// scale and shift stay f32).
+extern "C" int aid_conv3x3_f16(const void* x, const void* w, const void* bias, void* out, int B, int H, int W,
+                               int Cin, int Cout, void* stream) {
+  return conv<__half>(x, w, bias, out, nullptr, nullptr, B, H, W, Cin, Cout, stream);
+}
+
+extern "C" int aid_conv3x3_gnsilu_f16(const void* x, const void* w, const void* bias, void* out,
+                                      const void* scale, const void* shift, int B, int H, int W, int Cin, int Cout,
+                                      void* stream) {
+  if (scale == nullptr || shift == nullptr) return (int)cudaErrorInvalidValue;
+  return conv<__half>(x, w, bias, out, scale, shift, B, H, W, Cin, Cout, stream);
 }
 
 // Message for a cudaError_t returned by an entry point of this library.

@@ -1,4 +1,4 @@
-// Flash self-attention, bf16 in and out, head dim 512, sm_90a.
+// Flash self-attention, bf16 or f16 in and out, head dim 512, sm_90a.
 //
 // Replaces the bf16 D=512 self contract of the Pallas TPU kernel
 // aid_tpu/ops/flash_attention.py::_kernel (flash_attention.py:101; the short
@@ -70,20 +70,30 @@
 // encoded on the host with cuTensorMapEncodeTiled, taken through
 // cudaGetDriverEntryPoint (no -lcuda at link time), and passed as
 // __grid_constant__ parameters. ptxas (sm_90a): 168 registers at the
-// launch bound (setmaxnreg moves them to the consumers), no spills.
+// launch bound in both instances (setmaxnreg moves them to the consumers),
+// no spills.
 // Measured on an NVIDIA H100 80GB HBM3 at 700.00 W (tools/attention_bench.py
 // --d512, in turns with the mma.sync design this replaces), launched alone:
 // 1.29-1.30 ms at (1,1,16384,512), 43% of the bound (was 2.97); 0.68-0.71
 // at (7,1,4096,512) (1.53), where 448 blocks make 3.4 waves of 132; 0.17-
 // 0.18 at (1,1,4000,512) (0.38), against SDPA efficient's 0.33-0.37.
+//
+// One design, two element types (elem16.cuh): T = __nv_bfloat16 is
+// aid_flash_attn_bf16_d512, T = __half is aid_flash_attn_f16_d512 (the
+// mid block of a VAE loaded in f16). They differ in the wgmma type suffix,
+// the tensor maps' data type and the rounding of P and of the output; the
+// masks stay on the f32 scores.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
+
+#include "elem16.cuh"
 
 constexpr int kD = 512;                     // head dim
 constexpr int kBQ = 64;                     // query rows per block
@@ -187,11 +197,6 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
@@ -203,37 +208,45 @@ __device__ __forceinline__ float quad_sum(float x) {
 }
 
 // S(64 x 32, f32) (+)= A(64 x 16) B(16 x 32): both K-major in shared memory (128-byte swizzle)
+template <class T>
 __device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t da, uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(da), "l"(db), "r"(scale_d));
+#define AID_ASM(TY)  \
+  asm volatile(  \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"  \
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"  \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),  \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])  \
+      : "l"(da), "l"(db), "r"(scale_d))
+  AID_WGMMA_16(T, AID_ASM);
+#undef AID_ASM
 }
 
 // O(64 x 256, f32) += P(64 x 16, registers) V(16 x 256): V MN-major in shared memory (transpose bit)
+template <class T>
 __device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
-        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
-        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+#define AID_ASM(TY)  \
+  asm volatile(  \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"  \
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32." TY "." TY " {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"  \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),  \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),  \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),  \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),  \
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),  \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),  \
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),  \
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),  \
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),  \
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),  \
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),  \
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),  \
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),  \
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),  \
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),  \
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])  \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+  AID_WGMMA_16(T, AID_ASM);
+#undef AID_ASM
 }
 
 
@@ -244,10 +257,11 @@ struct Params {
 
 // Maps: q, k, v, out, each (D, H, S, B) with boxes of 64 columns by kBQ
 // (q, out) or kBK (k, v) rows.
+template <class T>
 __global__ void __launch_bounds__(kThreads, 1)
-    flash_bf16_d512_kernel(const __grid_constant__ CUtensorMap qm, const __grid_constant__ CUtensorMap km,
-                           const __grid_constant__ CUtensorMap vm, const __grid_constant__ CUtensorMap om,
-                           const Params p) {
+    flash16_d512_kernel(const __grid_constant__ CUtensorMap qm, const __grid_constant__ CUtensorMap km,
+                        const __grid_constant__ CUtensorMap vm, const __grid_constant__ CUtensorMap om,
+                        const Params p) {
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;  // 128-byte-swizzled tiles are 1024-byte aligned
@@ -306,7 +320,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int i = 0; i < kCols / 2; ++i) o[i] = 0.f;
     float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
     float s[16];               // a tile's (partial, then whole) scores
-    uint32_t pa[kBK / 16][4];  // P, bf16: the A fragments of the P V in flight
+    uint32_t pa[kBK / 16][4];  // P in T: the A fragments of the P V in flight
 
     // partial scores of tile `it` over this warpgroup's 256 columns, issued
     // (not waited for): box kk / 4 of Q and K, 32 bytes in per k16 step
@@ -317,7 +331,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
       for (int kk = 0; kk < kCols / 16; ++kk) {
         const uint32_t off = (kk % 4) * 32;
-        wgmma_ss(acc, desc_sw128(q + (kk / 4) * (kBQ * 128) + off, 16),
+        wgmma_ss<T>(acc, desc_sw128(q + (kk / 4) * (kBQ * 128) + off, 16),
                  desc_sw128(kt + (kk / 4) * (kBK * 128) + off, 16), kk > 0);
       }
       wgmma_commit();
@@ -370,8 +384,8 @@ __global__ void __launch_bounds__(kThreads, 1)
         ls0 += p0 + p1;
         ls1 += p2 + p3;
         // keys 16 kk .. 16 kk + 15 are n-tiles 2 kk and 2 kk + 1: P's A fragment for k-step kk
-        pn[j / 2][2 * (j & 1)] = pack_bf16(p0, p1);
-        pn[j / 2][2 * (j & 1) + 1] = pack_bf16(p2, p3);
+        pn[j / 2][2 * (j & 1)] = Elem<T>::pack(p0, p1);
+        pn[j / 2][2 * (j & 1) + 1] = Elem<T>::pack(p2, p3);
       }
       l0 = l0 * al0 + ls0;
       l1 = l1 * al1 + ls1;
@@ -395,7 +409,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       mbar_wait(vfull + 8 * (it % kStages), (it / kStages) & 1);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < kBK / 16; ++kk) wgmma_rs(o, pa[kk], desc_sw128(vt + kk * 2048, kBK * 128));
+      for (int kk = 0; kk < kBK / 16; ++kk) wgmma_rs<T>(o, pa[kk], desc_sw128(vt + kk * 2048, kBK * 128));
       wgmma_commit();
     };
 
@@ -431,7 +445,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     reg_fence(pa);
     release(vempty, it);
 
-    // bf16 output through this warpgroup's boxes of the Q tile (its products
+    // T output through this warpgroup's boxes of the Q tile (its products
     // are done), in the TMA box layout: 128-byte rows, 16-byte chunk j of
     // row r at j ^ (r % 8)
     const float i0 = 1.f / quad_sum(l0), i1 = 1.f / quad_sum(l1);
@@ -444,7 +458,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int r = warp * 16 + g + 8 * half;
         const float inv = half ? i1 : i0;
         *reinterpret_cast<uint32_t*>(tile + box * (kBQ * 128) + r * 128 + ((chunk ^ (r & 7)) * 16) + 4 * t) =
-            pack_bf16(o[4 * j + 2 * half] * inv, o[4 * j + 2 * half + 1] * inv);
+            Elem<T>::pack(o[4 * j + 2 * half] * inv, o[4 * j + 2 * half + 1] * inv);
       }
     }
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // generic stores -> the TMA store's proxy
@@ -479,15 +493,43 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A (D, H, S, B) map of a bf16 operand at element strides (b, h, s), boxes
+// A (D, H, S, B) map of a T operand at element strides (b, h, s), boxes
 // of 64 columns by `rows` rows, 128-byte swizzle, zeros out of bounds.
+template <class T>
 bool encode_map(CUtensorMap* map, const void* ptr, int H, int S, int B, const long long* strides, int rows) {
   const cuuint64_t dims[4] = {(cuuint64_t)kD, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
   const cuuint64_t bytes[3] = {(cuuint64_t)strides[1] * 2, (cuuint64_t)strides[2] * 2, (cuuint64_t)strides[0] * 2};
   const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1}, unit[4] = {1, 1, 1, 1};
-  return encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, bytes, box, unit,
+  return encode_tiled()(map, Elem<T>::kMapType, 4, const_cast<void*>(ptr), dims, bytes, box, unit,
                         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <class T>
+int entry(const void* const (&ptrs)[4], const long long* dims, float scale, void* stream) {
+  if (dims[2] <= 0 || dims[3] <= 0) return (int)cudaErrorInvalidValue;
+  if (encode_tiled() == nullptr) return (int)cudaErrorNotSupported;
+  const int B = (int)dims[0], H = (int)dims[1];
+  Params p;
+  p.Sq = (int)dims[2];
+  p.Lk = (int)dims[3];
+  p.scale_log2 = scale * 1.4426950408889634f;
+  CUtensorMap m[4];
+  const int rows[4] = {p.Sq, p.Lk, p.Lk, p.Sq}, box[4] = {kBQ, kBK, kBK, kBQ};
+  for (int i = 0; i < 4; ++i) {
+    if (!encode_map<T>(&m[i], ptrs[i], H, rows[i], B, dims + 4 + 3 * i, box[i])) return (int)cudaErrorInvalidValue;
+  }
+  static bool attribute_set = false;  // once per instance and process: its shared memory does not change
+  if (!attribute_set) {
+    cudaError_t err = cudaFuncSetAttribute(reinterpret_cast<const void*>(&flash16_d512_kernel<T>),
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+    if (err != cudaSuccess) return (int)err;
+    attribute_set = true;
+  }
+  const int tiles = (p.Sq + kBQ - 1) / kBQ;
+  const dim3 grid((unsigned)tiles, (unsigned)H, (unsigned)B);
+  flash16_d512_kernel<T><<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(m[0], m[1], m[2], m[3], p);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -498,28 +540,13 @@ bool encode_map(CUtensorMap* map, const void* ptr, int H, int S, int B, const lo
 // cudaError_t (0 on success).
 extern "C" int aid_flash_attn_bf16_d512(const void* q, const void* k, const void* v, void* out,
                                         const long long* dims, float scale, void* stream) {
-  if (dims[2] <= 0 || dims[3] <= 0) return (int)cudaErrorInvalidValue;
-  if (encode_tiled() == nullptr) return (int)cudaErrorNotSupported;
-  const int B = (int)dims[0], H = (int)dims[1];
-  Params p;
-  p.Sq = (int)dims[2];
-  p.Lk = (int)dims[3];
-  p.scale_log2 = scale * 1.4426950408889634f;
-  CUtensorMap m[4];
-  const void* ptrs[4] = {q, k, v, out};
-  const int rows[4] = {p.Sq, p.Lk, p.Lk, p.Sq}, box[4] = {kBQ, kBK, kBK, kBQ};
-  for (int i = 0; i < 4; ++i) {
-    if (!encode_map(&m[i], ptrs[i], H, rows[i], B, dims + 4 + 3 * i, box[i])) return (int)cudaErrorInvalidValue;
-  }
-  static bool attribute_set = false;  // once per process: the kernel's shared memory does not change
-  if (!attribute_set) {
-    cudaError_t err = cudaFuncSetAttribute(reinterpret_cast<const void*>(&flash_bf16_d512_kernel),
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
-    if (err != cudaSuccess) return (int)err;
-    attribute_set = true;
-  }
-  const int tiles = (p.Sq + kBQ - 1) / kBQ;
-  const dim3 grid((unsigned)tiles, (unsigned)H, (unsigned)B);
-  flash_bf16_d512_kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(m[0], m[1], m[2], m[3], p);
-  return (int)cudaGetLastError();
+  const void* const ptrs[4] = {q, k, v, out};
+  return entry<__nv_bfloat16>(ptrs, dims, scale, stream);
+}
+
+// The same over f16 operands.
+extern "C" int aid_flash_attn_f16_d512(const void* q, const void* k, const void* v, void* out,
+                                       const long long* dims, float scale, void* stream) {
+  const void* const ptrs[4] = {q, k, v, out};
+  return entry<__half>(ptrs, dims, scale, stream);
 }

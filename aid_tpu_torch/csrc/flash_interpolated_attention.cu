@@ -1,4 +1,4 @@
-// Flash interpolated attention for the AID family, bf16, head dims 40/64/80/160, sm_90a.
+// Flash interpolated attention for the AID family, bf16 and f16, head dims 40/64/80/160, sm_90a.
 //
 // Replaces the two Pallas TPU kernels behind
 // aid_tpu/ops/flash_attention.py::flash_interpolated_attention
@@ -75,14 +75,26 @@
 // The tensor maps are encoded on the host with cuTensorMapEncodeTiled, taken
 // through cudaGetDriverEntryPoint (no -lcuda at link time), and passed as
 // __grid_constant__ parameters.
+//
+// One design, two element types (elem16.cuh): T = __nv_bfloat16 is
+// aid_flash_attn_bf16, T = __half is aid_flash_attn_f16 (an f16 UNet, the
+// dtype SD checkpoints are stored in). They differ in the wgmma type suffix
+// (.bf16 or .f16, f32 accumulation in both), the tensor maps' data type and
+// the rounding of P and of the output; the tiles, the barriers, the
+// softmax and every mask (on the f32 scores, never stored in T) are the
+// same. P in [0, 1] rounded to f16 goes subnormal below 6.1e-5, as the JAX
+// kernel's cast of P to V's dtype does (flash_attention.py:205, 223).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
+
+#include "elem16.cuh"
 
 // The tile table (tests/test_torch_ops.py reads it): query rows per block,
 // keys per K/V tile, K/V stages in the ring.
@@ -204,11 +216,6 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
@@ -220,85 +227,109 @@ __device__ __forceinline__ float quad_sum(float x) {
 }
 
 // S(64 x 64, f32) (+)= A(64 x 16) B(16 x 64): both K-major in shared memory
+template <class T>
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
+#define AID_ASM(TY)  \
+  asm volatile(  \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"  \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"  \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),  \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),  \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),  \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])  \
+      : "l"(da), "l"(db), "r"(scale_d))
+  AID_WGMMA_16(T, AID_ASM);
+#undef AID_ASM
 }
 
 // S(64 x 128, f32) (+)= A(64 x 16) B(16 x 128): both K-major in shared memory
+template <class T>
 __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
+#define AID_ASM(TY)  \
+  asm volatile(  \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"  \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"  \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),  \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),  \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),  \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),  \
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),  \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),  \
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),  \
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])  \
+      : "l"(da), "l"(db), "r"(scale_d))
+  AID_WGMMA_16(T, AID_ASM);
+#undef AID_ASM
 }
 
 // O(64 x 40, f32) += P(64 x 16, registers) V(16 x 40): V MN-major in shared memory (transpose bit)
+template <class T>
 __device__ __forceinline__ void wgmma_rs(float (&d)[20], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %25, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19}, {%20, %21, %22, %23}, %24, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+#define AID_ASM(TY)  \
+  asm volatile(  \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %25, 0;\n"  \
+      "wgmma.mma_async.sync.aligned.m64n40k16.f32." TY "." TY " {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19}, {%20, %21, %22, %23}, %24, p, 1, 1, 1;\n}\n"  \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),  \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),  \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])  \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+  AID_WGMMA_16(T, AID_ASM);
+#undef AID_ASM
 }
 
 // O(64 x 64, f32) += P(64 x 16, registers) V(16 x 64): V MN-major in shared memory (transpose bit)
+template <class T>
 __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+#define AID_ASM(TY)  \
+  asm volatile(  \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"  \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"  \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),  \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),  \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),  \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])  \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+  AID_WGMMA_16(T, AID_ASM);
+#undef AID_ASM
 }
 
 // O(64 x 80, f32) += P(64 x 16, registers) V(16 x 80): V MN-major in shared memory (transpose bit)
+template <class T>
 __device__ __forceinline__ void wgmma_rs(float (&d)[40], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+#define AID_ASM(TY)  \
+  asm volatile(  \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"  \
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32." TY "." TY " {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"  \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),  \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),  \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),  \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),  \
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])  \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+  AID_WGMMA_16(T, AID_ASM);
+#undef AID_ASM
 }
 
 // O(64 x 160, f32) += P(64 x 16, registers) V(16 x 160): V MN-major in shared memory (transpose bit)
+template <class T>
 __device__ __forceinline__ void wgmma_rs(float (&d)[80], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %85, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79}, {%80, %81, %82, %83}, %84, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+#define AID_ASM(TY)  \
+  asm volatile(  \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %85, 0;\n"  \
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32." TY "." TY " {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79}, {%80, %81, %82, %83}, %84, p, 1, 1, 1;\n}\n"  \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),  \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),  \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),  \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),  \
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),  \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),  \
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),  \
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),  \
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),  \
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])  \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+  AID_WGMMA_16(T, AID_ASM);
+#undef AID_ASM
 }
 
 
@@ -321,7 +352,7 @@ __device__ __forceinline__ void init_state(State<D>& st) {
 
 // One K/V tile of online softmax for this warpgroup's 64 query rows. `valid`
 // keys of the tile are real (the rest are zero rows past the segment).
-template <int D>
+template <class T, int D>
 __device__ __forceinline__ void tile_update(State<D>& st, uint32_t q, uint32_t kt, uint32_t vt, int valid,
                                             float scale_log2) {
   using C = Cfg<D>;
@@ -333,7 +364,7 @@ __device__ __forceinline__ void tile_update(State<D>& st, uint32_t q, uint32_t k
 #pragma unroll
   for (int kk = 0; kk < C::kKSteps; ++kk) {
     const uint32_t off = (kk % 4) * 32;
-    wgmma_ss(s, desc_sw128(q + (kk / 4) * (64 * 128) + off, 16),
+    wgmma_ss<T>(s, desc_sw128(q + (kk / 4) * (64 * 128) + off, 16),
              desc_sw128(kt + (kk / 4) * (BK * 128) + off, 16), kk > 0);
   }
   wgmma_commit();
@@ -367,8 +398,8 @@ __device__ __forceinline__ void tile_update(State<D>& st, uint32_t q, uint32_t k
     ls0 += p0 + p1;
     ls1 += p2 + p3;
     // keys 16 kk .. 16 kk + 15 are n-tiles 2 kk and 2 kk + 1: P's A fragment for k-step kk
-    pa[j / 2][2 * (j & 1)] = pack_bf16(p0, p1);
-    pa[j / 2][2 * (j & 1) + 1] = pack_bf16(p2, p3);
+    pa[j / 2][2 * (j & 1)] = Elem<T>::pack(p0, p1);
+    pa[j / 2][2 * (j & 1) + 1] = Elem<T>::pack(p2, p3);
   }
   st.l[0] = st.l[0] * al0 + ls0;
   st.l[1] = st.l[1] * al1 + ls1;
@@ -382,7 +413,7 @@ __device__ __forceinline__ void tile_update(State<D>& st, uint32_t q, uint32_t k
   // O += P V: 16 keys (two 8-row groups, 2048 bytes) per step; V's next box is LBO away
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk) wgmma_rs(st.o, pa[kk], desc_sw128(vt + kk * 2048, BK * 128));
+  for (int kk = 0; kk < BK / 16; ++kk) wgmma_rs<T>(st.o, pa[kk], desc_sw128(vt + kk * 2048, BK * 128));
   wgmma_commit();
   wgmma_wait0();
   reg_fence(st.o);
@@ -406,7 +437,7 @@ __device__ __forceinline__ void normalise(State<D>& st, float w) {
 // NSETS: 0 = no endpoint segment (self), 1 = one cross segment (inner),
 // 2 = begin and end segments blended by coef (outer).
 // Maps: q, k, v, k_begin, v_begin, k_end, v_end, out.
-template <int D, bool HAS_OWN, int NSETS>
+template <class T, int D, bool HAS_OWN, int NSETS>
 __global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
     flash_kernel(const __grid_constant__ CUtensorMap qm, const __grid_constant__ CUtensorMap km,
                  const __grid_constant__ CUtensorMap vm, const __grid_constant__ CUtensorMap kbm,
@@ -481,7 +512,7 @@ __global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
         const int s = it % S;
         mbar_wait(full + 8 * s, (it / S) & 1);
         const uint32_t kt = kvs + s * C::kStageBytes;
-        tile_update<D>(st, q, kt, kt + C::kKVBytes, min(BK, len - r0), p.scale_log2);
+        tile_update<T, D>(st, q, kt, kt + C::kKVBytes, min(BK, len - r0), p.scale_log2);
         __syncwarp();
         if (lane == 0) mbar_arrive(empty + 8 * s);
       }
@@ -528,7 +559,7 @@ __global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
       normalise(st, 1.f);
     }
 
-    // bf16 output through this warpgroup's Q tile (its products are done),
+    // T output through this warpgroup's Q tile (its products are done),
     // in the TMA box layout: 128-byte rows, 16-byte chunk j of row r at j ^ (r % 8)
     unsigned char* tile = smem_raw + (q - raw);
 #pragma unroll
@@ -538,7 +569,7 @@ __global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
       for (int half = 0; half < 2; ++half) {
         const int r = warp * 16 + g + 8 * half;
         *reinterpret_cast<uint32_t*>(tile + box * 8192 + r * 128 + ((chunk ^ (r & 7)) * 16) + (col % 8) * 2) =
-            pack_bf16(st.o[4 * j + 2 * half], st.o[4 * j + 2 * half + 1]);
+            Elem<T>::pack(st.o[4 * j + 2 * half], st.o[4 * j + 2 * half + 1]);
       }
     }
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // generic stores -> the TMA store's proxy
@@ -571,36 +602,37 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A (D, H, S, B) map of a bf16 operand at element strides (b, h, s), boxes
+// A (D, H, S, B) map of a T operand at element strides (b, h, s), boxes
 // of 64 columns by `rows` rows, 128-byte swizzle, zeros out of bounds. A
 // batch stride of 0 (one tensor shared by every row) becomes a batch extent of 1.
+template <class T>
 bool encode_map(CUtensorMap* map, const void* ptr, int D, int H, int S, int B, const long long* strides, int rows) {
   const long long sb = strides[0], sh = strides[1], ss = strides[2];
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S, sb == 0 ? 1u : (cuuint64_t)B};
   const cuuint64_t bytes[3] = {(cuuint64_t)sh * 2, (cuuint64_t)ss * 2, (cuuint64_t)(sb == 0 ? ss * S + sh * H : sb) * 2};
   const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1}, unit[4] = {1, 1, 1, 1};
-  return encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, bytes, box, unit,
+  return encode_tiled()(map, Elem<T>::kMapType, 4, const_cast<void*>(ptr), dims, bytes, box, unit,
                         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D, bool HAS_OWN, int NSETS>
+template <class T, int D, bool HAS_OWN, int NSETS>
 int launch(const CUtensorMap (&m)[8], const Params& p, int B, int H, cudaStream_t s) {
   using C = Cfg<D>;
   constexpr int smem = C::smem_bytes(NSETS == 2);
   static bool attribute_set = false;  // once per instance and process
   if (!attribute_set) {
-    const cudaError_t err = cudaFuncSetAttribute(reinterpret_cast<const void*>(&flash_kernel<D, HAS_OWN, NSETS>),
+    const cudaError_t err = cudaFuncSetAttribute(reinterpret_cast<const void*>(&flash_kernel<T, D, HAS_OWN, NSETS>),
                                                  cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
     attribute_set = true;
   }
   const dim3 grid((p.Sq + C::kBQ - 1) / C::kBQ, H, B);
-  flash_kernel<D, HAS_OWN, NSETS><<<grid, C::kThreads, smem, s>>>(m[0], m[1], m[2], m[3], m[4], m[5], m[6], m[7], p);
+  flash_kernel<T, D, HAS_OWN, NSETS><<<grid, C::kThreads, smem, s>>>(m[0], m[1], m[2], m[3], m[4], m[5], m[6], m[7], p);
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <class T, int D>
 int launch_d(const void* const (&ptrs)[8], const long long* dims, Params& p, int has_own, int n_sets,
              cudaStream_t s) {
   const int B = (int)dims[0], H = (int)dims[1];
@@ -616,15 +648,36 @@ int launch_d(const void* const (&ptrs)[8], const long long* dims, Params& p, int
       m[i] = m[0];
       continue;
     }
-    if (!encode_map(&m[i], ptrs[i], D, H, rows[i], B, st, box[i])) return (int)cudaErrorInvalidValue;
+    if (!encode_map<T>(&m[i], ptrs[i], D, H, rows[i], B, st, box[i])) return (int)cudaErrorInvalidValue;
     if (i >= 3 && i < 7 && st[0] == 0) p.shared_eps |= 1 << (i - 3);
   }
-  if (has_own && n_sets == 0) return launch<D, true, 0>(m, p, B, H, s);
-  if (has_own && n_sets == 1) return launch<D, true, 1>(m, p, B, H, s);
-  if (has_own && n_sets == 2) return launch<D, true, 2>(m, p, B, H, s);
-  if (!has_own && n_sets == 1) return launch<D, false, 1>(m, p, B, H, s);
-  if (!has_own && n_sets == 2) return launch<D, false, 2>(m, p, B, H, s);
+  if (has_own && n_sets == 0) return launch<T, D, true, 0>(m, p, B, H, s);
+  if (has_own && n_sets == 1) return launch<T, D, true, 1>(m, p, B, H, s);
+  if (has_own && n_sets == 2) return launch<T, D, true, 2>(m, p, B, H, s);
+  if (!has_own && n_sets == 1) return launch<T, D, false, 1>(m, p, B, H, s);
+  if (!has_own && n_sets == 2) return launch<T, D, false, 2>(m, p, B, H, s);
   return (int)cudaErrorInvalidValue;
+}
+
+template <class T>
+int entry(const void* const (&ptrs)[8], const void* coef, const void* skip, const long long* dims, float scale,
+          int has_own, int n_sets, void* stream) {
+  if (encode_tiled() == nullptr) return (int)cudaErrorNotSupported;
+  Params p;
+  p.coef = static_cast<const float*>(coef);
+  p.skip = static_cast<const uint8_t*>(skip);
+  p.Sq = (int)dims[2];
+  p.Lk = (int)dims[3];
+  p.Le = (int)dims[4];
+  p.scale_log2 = scale * 1.4426950408889634f;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dims[5]) {
+    case 40: return launch_d<T, 40>(ptrs, dims, p, has_own, n_sets, s);
+    case 64: return launch_d<T, 64>(ptrs, dims, p, has_own, n_sets, s);
+    case 80: return launch_d<T, 80>(ptrs, dims, p, has_own, n_sets, s);
+    case 160: return launch_d<T, 160>(ptrs, dims, p, has_own, n_sets, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -639,21 +692,14 @@ int launch_d(const void* const (&ptrs)[8], const long long* dims, Params& p, int
 extern "C" int aid_flash_attn_bf16(const void* q, const void* k, const void* v, const void* kb, const void* vb,
                                    const void* ke, const void* ve, void* out, const void* coef, const void* skip,
                                    const long long* dims, float scale, int has_own, int n_sets, void* stream) {
-  if (encode_tiled() == nullptr) return (int)cudaErrorNotSupported;
-  Params p;
-  p.coef = static_cast<const float*>(coef);
-  p.skip = static_cast<const uint8_t*>(skip);
-  p.Sq = (int)dims[2];
-  p.Lk = (int)dims[3];
-  p.Le = (int)dims[4];
-  p.scale_log2 = scale * 1.4426950408889634f;
   const void* const ptrs[8] = {q, k, v, kb, vb, ke, ve, out};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dims[5]) {
-    case 40: return launch_d<40>(ptrs, dims, p, has_own, n_sets, s);
-    case 64: return launch_d<64>(ptrs, dims, p, has_own, n_sets, s);
-    case 80: return launch_d<80>(ptrs, dims, p, has_own, n_sets, s);
-    case 160: return launch_d<160>(ptrs, dims, p, has_own, n_sets, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return entry<__nv_bfloat16>(ptrs, coef, skip, dims, scale, has_own, n_sets, stream);
+}
+
+// The same over f16 operands (every one f16, the rest as aid_flash_attn_bf16).
+extern "C" int aid_flash_attn_f16(const void* q, const void* k, const void* v, const void* kb, const void* vb,
+                                  const void* ke, const void* ve, void* out, const void* coef, const void* skip,
+                                  const long long* dims, float scale, int has_own, int n_sets, void* stream) {
+  const void* const ptrs[8] = {q, k, v, kb, vb, ke, ve, out};
+  return entry<__half>(ptrs, coef, skip, dims, scale, has_own, n_sets, stream);
 }

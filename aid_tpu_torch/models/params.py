@@ -76,8 +76,10 @@ def _leaf_to_torch(name: str, w: np.ndarray):
     return name, w
 
 
-def _state_dict(tree: Dict, unfold) -> "OrderedDict[str, torch.Tensor]":
-    """Walk a flax tree; ``unfold(name, depth)`` gives each module name's dotted path."""
+def _state_dict(tree: Dict, unfold, dtype: Optional[torch.dtype] = None) -> "OrderedDict[str, torch.Tensor]":
+    """Walk a flax tree; ``unfold(name, depth)`` gives each module name's
+    dotted path. ``dtype``: each leaf cast to it (rounded once from the
+    tree's own values), else kept in the tree's dtype."""
     if "params" in tree:
         tree = tree["params"]
     out: "OrderedDict[str, torch.Tensor]" = OrderedDict()
@@ -88,15 +90,17 @@ def _state_dict(tree: Dict, unfold) -> "OrderedDict[str, torch.Tensor]":
                 walk(value, prefix + [unfold(key, len(prefix))])
             else:
                 name, w = _leaf_to_torch(key, np.asarray(value))
-                out[".".join(prefix + [name])] = torch.tensor(w)  # a copy: the input may be read-only
+                # a copy: the input may be read-only
+                out[".".join(prefix + [name])] = torch.tensor(w) if dtype is None else torch.tensor(w).to(dtype)
 
     walk(tree, [])
     return out
 
 
-def unet_state_dict_from_flax(tree: Dict) -> "OrderedDict[str, torch.Tensor]":
-    """JAX UNet2DCondition params (numpy leaves) -> the port's state_dict."""
-    return _state_dict(tree, lambda key, depth: _unfold(key))
+def unet_state_dict_from_flax(tree: Dict, dtype: Optional[torch.dtype] = None) -> "OrderedDict[str, torch.Tensor]":
+    """JAX UNet2DCondition params (numpy leaves) -> the port's state_dict,
+    in ``dtype`` if given (an f16 or bf16 UNet from the same f32 draw)."""
+    return _state_dict(tree, lambda key, depth: _unfold(key), dtype)
 
 
 _VAE_UNFOLD = (
@@ -108,9 +112,10 @@ _VAE_UNFOLD = (
 )
 
 
-def vae_state_dict_from_flax(tree: Dict) -> "OrderedDict[str, torch.Tensor]":
+def vae_state_dict_from_flax(tree: Dict, dtype: Optional[torch.dtype] = None) -> "OrderedDict[str, torch.Tensor]":
     """JAX AutoencoderKL params (encoder, decoder, ``quant_conv``,
-    ``post_quant_conv``) -> the port's AutoencoderKL state_dict."""
+    ``post_quant_conv``) -> the port's AutoencoderKL state_dict, in
+    ``dtype`` if given."""
 
     def unfold(key, depth):
         for pattern, repl in _VAE_UNFOLD:
@@ -118,7 +123,7 @@ def vae_state_dict_from_flax(tree: Dict) -> "OrderedDict[str, torch.Tensor]":
                 return pattern.sub(repl, key)
         return _unfold(key)
 
-    return _state_dict(tree, unfold)
+    return _state_dict(tree, unfold, dtype)
 
 
 _CLIP_TOP = {
@@ -128,9 +133,10 @@ _CLIP_TOP = {
 }
 
 
-def clip_text_state_dict_from_flax(tree: Dict) -> "OrderedDict[str, torch.Tensor]":
+def clip_text_state_dict_from_flax(tree: Dict, dtype: Optional[torch.dtype] = None) -> "OrderedDict[str, torch.Tensor]":
     """JAX CLIPTextModel params -> the port's CLIPTextModel state_dict
-    (transformers names; ``text_projection`` when the config has one)."""
+    (transformers names; ``text_projection`` when the config has one), in
+    ``dtype`` if given."""
 
     def unfold(key, depth):
         if depth == 0:
@@ -139,7 +145,7 @@ def clip_text_state_dict_from_flax(tree: Dict) -> "OrderedDict[str, torch.Tensor
         m = re.match(r"^mlp_(fc[12])$", key)
         return f"mlp.{m.group(1)}" if m else key
 
-    return _state_dict(tree, unfold)
+    return _state_dict(tree, unfold, dtype)
 
 
 def unet_attention_order(config) -> List[str]:

@@ -9,7 +9,8 @@ computes in bf16, as the JAX modules do with ``dtype=bfloat16``. The
 mid-block attention is one head over every pixel with D = the channel
 count; it goes through ``dispatch_attention`` with a zero coefficient in
 self mode, as vae.py:57-65 does, which on CUDA at D=512 is the port's f32
-flash kernel in an f32 VAE and its bf16 one in a bf16 VAE. Every conv here
+flash kernel in an f32 VAE, its bf16 one in a bf16 VAE and its f16 one in an
+f16 VAE (``loader.load_vae(dir, dtype=torch.float16)``). Every conv here
 is ``nn.Conv2d`` (cuDNN on the card), as the JAX package leaves the VAE
 convs to XLA.
 """

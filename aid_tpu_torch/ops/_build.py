@@ -113,15 +113,19 @@ def library() -> ctypes.CDLL:
         vp,                  # cudaStream_t
     ]
     lib.aid_flash_attn_bf16.restype = ctypes.c_int
-    # the same C signature over f32 operands (flash_interpolated_attention_f32.cu)
-    lib.aid_flash_attn_f32.argtypes = lib.aid_flash_attn_bf16.argtypes
-    lib.aid_flash_attn_f32.restype = ctypes.c_int
+    # the same C signature over f16 operands (flash_interpolated_attention.cu)
+    # and over f32 ones (flash_interpolated_attention_f32.cu)
+    for name in ("aid_flash_attn_f16", "aid_flash_attn_f32"):
+        getattr(lib, name).argtypes = lib.aid_flash_attn_bf16.argtypes
+        getattr(lib, name).restype = ctypes.c_int
     lib.aid_conv3x3_bf16.argtypes = [
         vp, vp, vp, vp,      # x (B,Cin/8,H,W,8), w (tiled, see conv.py), bias (f32), out (NHWC)
         i32, i32, i32, i32, i32,  # B, H, W, Cin, Cout
         vp,                  # cudaStream_t
     ]
     lib.aid_conv3x3_bf16.restype = ctypes.c_int
+    lib.aid_conv3x3_f16.argtypes = lib.aid_conv3x3_bf16.argtypes  # the same over f16 x, w and out
+    lib.aid_conv3x3_f16.restype = ctypes.c_int
     lib.aid_conv3x3_gnsilu_bf16.argtypes = [
         vp, vp, vp, vp,      # x (B,Cin/8,H,W,8), w (tiled, see conv.py), bias (f32), out (NHWC)
         vp, vp,              # GN+SiLU scale, shift: (B, Cin) f32
@@ -129,6 +133,8 @@ def library() -> ctypes.CDLL:
         vp,                  # cudaStream_t
     ]
     lib.aid_conv3x3_gnsilu_bf16.restype = ctypes.c_int
+    lib.aid_conv3x3_gnsilu_f16.argtypes = lib.aid_conv3x3_gnsilu_bf16.argtypes
+    lib.aid_conv3x3_gnsilu_f16.restype = ctypes.c_int
     lib.aid_conv3x3_blocked_bf16.argtypes = [
         vp, vp,              # x (B, C, H, W) at any strides, xb (B, C/8, H, W, 8)
         i32, i32, i32, i32,  # B, C, H, W
@@ -136,6 +142,8 @@ def library() -> ctypes.CDLL:
         vp,                  # cudaStream_t
     ]
     lib.aid_conv3x3_blocked_bf16.restype = ctypes.c_int
+    lib.aid_conv3x3_blocked_f16.argtypes = lib.aid_conv3x3_blocked_bf16.argtypes
+    lib.aid_conv3x3_blocked_f16.restype = ctypes.c_int
     lib.aid_conv3x3_f32.argtypes = [
         vp, vp, vp, vp,      # x (B,Cin/4,H,W,4), w (tiled, see conv.py), bias, out (NHWC), all f32
         i32, i32, i32, i32, i32,  # B, H, W, Cin, Cout
@@ -171,6 +179,8 @@ def library() -> ctypes.CDLL:
         vp,                  # cudaStream_t
     ]
     lib.aid_flash_attn_bf16_d512.restype = ctypes.c_int
+    lib.aid_flash_attn_f16_d512.argtypes = lib.aid_flash_attn_bf16_d512.argtypes  # the same over f16
+    lib.aid_flash_attn_f16_d512.restype = ctypes.c_int
     lib.aid_cuda_error_string.argtypes = [i32]
     lib.aid_cuda_error_string.restype = ctypes.c_char_p
     return lib

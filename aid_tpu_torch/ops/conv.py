@@ -13,7 +13,10 @@ all 9*Cin, so both flags launch the same kernel instance and count in
 On an f32 CUDA tensor ``conv3x3_same`` routes to :func:`conv3x3_same_f32`,
 which launches ``csrc/conv3x3_f32.cu`` (3xTF32 products on tf32 wgmma; the
 f32 instance of the same two TPU kernels) and counts in
-``conv3x3_same_f32.launches``.
+``conv3x3_same_f32.launches``. On an f16 CUDA tensor it routes to
+:func:`conv3x3_same_f16`, the f16 instance of ``csrc/conv3x3.cu`` (the same
+design with f16 wgmma, ``aid_conv3x3_f16``), counted in
+``conv3x3_same_f16.launches``.
 
 ``conv3x3_gnsilu`` is the counterpart of ``aid_tpu.ops.conv.conv3x3_gnsilu``:
 conv(silu(group_norm(x))) with the SAME padding applied after the prologue.
@@ -23,7 +26,10 @@ replaces ``_kernel_packed_gnsilu`` (conv.py:78-121), counted in
 :func:`conv3x3_gnsilu_f32`: the f32 layout pass with the prologue
 (``aid_conv3x3_gnsilu_f32`` in ``csrc/conv3x3_f32.cu``, which writes
 silu(x * scale + shift) in the 4-channel blocked layout, with its lo part),
-then the f32 conv kernel unchanged, counted in ``conv3x3_gnsilu_f32.launches``. The GroupNorm
+then the f32 conv kernel unchanged, counted in ``conv3x3_gnsilu_f32.launches``. On an f16
+CUDA tensor it routes to :func:`conv3x3_gnsilu_f16`, the f16 instance of the
+bf16 kernel with its prologue (``aid_conv3x3_gnsilu_f16``: silu in f32
+rounded once to f16), counted in ``conv3x3_gnsilu_f16.launches``. The GroupNorm
 statistics are computed here with plain torch ops, as the JAX package
 computes them in XLA outside its kernel.
 
@@ -83,7 +89,7 @@ def tf32_rest(x: torch.Tensor) -> torch.Tensor:
 def tiled_weight(w: torch.Tensor) -> torch.Tensor:
     """w (Cout, Cin, 3, 3) tiled as the kernel of its dtype reads it, with
     zeros past Cout and Cin, so that each N tile's K chunk is one contiguous
-    copy that lands as the wgmma B operands: bf16 as (ceil(Cout/160),
+    copy that lands as the wgmma B operands: bf16 and f16 as (ceil(Cout/160),
     ceil(Cin/16), 3, 3, 2, 160, 8); f32 as (ceil(Cout/160), ceil(Cin/8), 2,
     3, 3, 2, 160, 4), the raw weight and its :func:`tf32_rest` of each chunk
     one after the other, 4 channels (16 bytes) a row. The tiling is kept
@@ -119,7 +125,7 @@ def silu_affine(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor) -> to
 
 def blocked_input_plain(x: torch.Tensor, scale=None, shift=None) -> torch.Tensor:
     """x (B, C, H, W) as (B, C/n, H, W, n) with n channels in a 16-byte
-    block (8 in bf16, 4 in f32), each pixel's block one contiguous run (the
+    block (8 in bf16 and f16, 4 in f32), each pixel's block one contiguous run (the
     layout kernels' plain version). f32 returns (2, B, C/4, H, W, 4): that
     and its :func:`tf32_rest`, one after the other. With ``scale``/``shift``
     (B, C) f32, :func:`silu_affine` of x first (the f32 prologue layout's
@@ -133,13 +139,14 @@ def blocked_input_plain(x: torch.Tensor, scale=None, shift=None) -> torch.Tensor
 
 
 #: the layout kernel by dtype: (C entry, channels a 16-byte block)
-_LAYOUT = {torch.bfloat16: ("aid_conv3x3_blocked_bf16", 8), torch.float32: ("aid_conv3x3_blocked_f32", 4)}
+_LAYOUT = {torch.bfloat16: ("aid_conv3x3_blocked_bf16", 8), torch.float16: ("aid_conv3x3_blocked_f16", 8),
+           torch.float32: ("aid_conv3x3_blocked_f32", 4)}
 
 
 def blocked_input(x: torch.Tensor, scale=None, shift=None) -> torch.Tensor:
-    """:func:`blocked_input_plain` of a bf16 x with C % 8 == 0 or an f32 x
-    with C % 4 == 0: on a CUDA tensor by the layout kernel of
-    ``csrc/conv3x3.cu`` (bf16) or ``csrc/conv3x3_f32.cu`` (f32), which reads
+    """:func:`blocked_input_plain` of a bf16 or f16 x with C % 8 == 0 or an
+    f32 x with C % 4 == 0: on a CUDA tensor by the layout kernel of
+    ``csrc/conv3x3.cu`` (bf16, f16) or ``csrc/conv3x3_f32.cu`` (f32), which reads
     x at its own strides (NCHW, channels-last or a view) once and writes the
     result once; on a CPU tensor by the plain version. ``scale``/``shift``
     (f32 x only) apply the GN+SiLU prologue in the same pass
@@ -150,8 +157,8 @@ def blocked_input(x: torch.Tensor, scale=None, shift=None) -> torch.Tensor:
     B, C, H, W = x.shape
     entry, n = _LAYOUT.get(x.dtype, (None, 8))
     if entry is None or C % n:
-        raise NotImplementedError(f"the layout kernels take bf16 with C % 8 == 0 or f32 with C % 4 == 0; got "
-                                  f"{x.dtype}, C = {C}")
+        raise NotImplementedError(f"the layout kernels take bf16 or f16 with C % 8 == 0 or f32 with C % 4 == 0; "
+                                  f"got {x.dtype}, C = {C}")
     if factors:
         if x.dtype != torch.float32 or any(f.shape != (B, C) for f in factors):
             raise NotImplementedError(f"the prologue layout takes f32 x and (B, C) factors; got {x.dtype}, "
@@ -175,8 +182,8 @@ def kernel_operands(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *factors:
     reads them: x as (B, Cin/n, H, W, n) by :func:`blocked_input` (channels
     in 16-byte blocks, so that one row of the kernel's input window is one
     contiguous run), w by :func:`tiled_weight`, b and ``factors`` (the
-    prologue's scale, shift) f32. bf16 takes Cin % 8 == 0 and passes the
-    factors on to the kernel; f32 takes Cin % 4 == 0 and applies them in the
+    prologue's scale, shift) f32. bf16 and f16 take Cin % 8 == 0 and pass
+    the factors on to the kernel; f32 takes Cin % 4 == 0 and applies them in the
     layout pass, so its tuple has none. Returns the tuple
     :func:`launch_kernel` takes (f32: x as (2, B, Cin/4, H, W, 4), raw then
     lo)."""
@@ -185,7 +192,8 @@ def kernel_operands(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *factors:
     if w.shape != (Cout, Cin, 3, 3) or b.shape != (Cout,):
         raise ValueError(f"weight {tuple(w.shape)} / bias {tuple(b.shape)} do not fit input {tuple(x.shape)}")
     if x.dtype not in _LAYOUT or w.dtype != x.dtype:
-        raise NotImplementedError(f"conv kernels take bf16 or f32 x and w of one dtype; got x {x.dtype}, w {w.dtype}")
+        raise NotImplementedError(f"conv kernels take bf16, f16 or f32 x and w of one dtype; got x {x.dtype}, "
+                                  f"w {w.dtype}")
     n = _LAYOUT[x.dtype][1]
     if Cin % n or Cout % 2:
         raise NotImplementedError(f"conv kernel needs Cin % {n} == 0 and Cout % 2 == 0; got {Cin}, {Cout}")
@@ -211,6 +219,20 @@ def launch_kernel(entry: str, xb: torch.Tensor, wt: torch.Tensor, bf: torch.Tens
     return out
 
 
+def _launch_counted(wrapper, dtype, entry: str, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                    gn: tuple = ()) -> torch.Tensor:
+    """One launch of ``entry`` on x (which must be ``dtype``), w and b laid
+    out by :func:`kernel_operands`, counted on ``wrapper``. ``gn``: the
+    prologue's (gamma, beta, num_groups, eps), whose statistics are taken
+    once x's dtype has been checked."""
+    if x.dtype != dtype:
+        raise NotImplementedError(f"{entry} takes {dtype}; got {x.dtype} (the conv kernels take bf16, f16 or f32)")
+    factors = gn_scale_shift(x, *gn) if gn else ()
+    out = launch_kernel(entry, *kernel_operands(x, w, b, *factors))
+    wrapper.launches += 1
+    return out
+
+
 def conv3x3_same(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, packed: bool = False) -> torch.Tensor:
     """y = conv2d(x, w, stride 1, SAME) + b.
 
@@ -218,18 +240,17 @@ def conv3x3_same(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, packed: bool
     and returns x's dtype. ``packed`` names the JAX package's packed-K TPU
     kernel; on the card both flags launch the same kernel (module
     docstring). On CUDA the bf16 kernel takes Cin % 8 == 0 and Cout % 2 ==
-    0; f32 goes to :func:`conv3x3_same_f32`; anything else raises.
+    0; f32 goes to :func:`conv3x3_same_f32`, f16 to :func:`conv3x3_same_f16`;
+    anything else raises.
     """
     del packed  # one kernel serves both TPU contracts
     if not use_kernel(x, w, b):
         return conv3x3_same_plain(x, w, b)
     if x.dtype == torch.float32:
         return conv3x3_same_f32(x, w, b)
-    if x.dtype != torch.bfloat16:
-        raise NotImplementedError(f"conv kernels take bf16 or f32; got {x.dtype}")
-    out = launch_kernel("aid_conv3x3_bf16", *kernel_operands(x, w, b))
-    conv3x3_same.launches += 1
-    return out
+    if x.dtype == torch.float16:
+        return conv3x3_same_f16(x, w, b)
+    return _launch_counted(conv3x3_same, torch.bfloat16, "aid_conv3x3_bf16", x, w, b)
 
 
 #: kernel launches since the last reset (chip_smoke.py reads it around each path)
@@ -242,15 +263,25 @@ def conv3x3_same_f32(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch
     returning a channels-last tensor; the plain version on CPU tensors."""
     if not use_kernel(x, w, b):
         return conv3x3_same_plain(x, w, b)
-    if x.dtype != torch.float32:
-        raise NotImplementedError(f"the f32 conv kernel takes f32; got {x.dtype}")
-    out = launch_kernel("aid_conv3x3_f32", *kernel_operands(x, w, b))
-    conv3x3_same_f32.launches += 1
-    return out
+    return _launch_counted(conv3x3_same_f32, torch.float32, "aid_conv3x3_f32", x, w, b)
 
 
 #: kernel launches since the last reset (chip_smoke.py reads it around each path)
 conv3x3_same_f32.launches = 0
+
+
+def conv3x3_same_f16(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """conv3x3_same in f16: the f16 instance of ``csrc/conv3x3.cu`` (f16
+    wgmma, f32 accumulation, one rounding of the output to f16) on CUDA
+    tensors with Cin % 8 == 0 and Cout % 2 == 0, returning a channels-last
+    tensor; the plain version on CPU tensors."""
+    if not use_kernel(x, w, b):
+        return conv3x3_same_plain(x, w, b)
+    return _launch_counted(conv3x3_same_f16, torch.float16, "aid_conv3x3_f16", x, w, b)
+
+
+#: kernel launches since the last reset (chip_smoke.py reads it around each path)
+conv3x3_same_f16.launches = 0
 
 
 def gn_scale_shift(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, num_groups: int,
@@ -287,20 +318,38 @@ def conv3x3_gnsilu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, gamma: tor
 
     x: (B, Cin, H, W); w: (Cout, Cin, 3, 3); b: (Cout,); gamma, beta: (Cin,).
     On CUDA the kernel takes bf16 x and w with Cin % 8 == 0 and Cout % 2 ==
-    0; f32 goes to :func:`conv3x3_gnsilu_f32`; anything else raises.
+    0; f32 goes to :func:`conv3x3_gnsilu_f32`, f16 to
+    :func:`conv3x3_gnsilu_f16`; anything else raises.
     """
     if not use_kernel(x, w, b, gamma, beta):
         return conv3x3_gnsilu_plain(x, w, b, gamma, beta, num_groups, eps)
     if x.dtype == torch.float32:
         return conv3x3_gnsilu_f32(x, w, b, gamma, beta, num_groups, eps)
-    out = launch_kernel("aid_conv3x3_gnsilu_bf16",
-                        *kernel_operands(x, w, b, *gn_scale_shift(x, gamma, beta, num_groups, eps)))
-    conv3x3_gnsilu.launches += 1
-    return out
+    if x.dtype == torch.float16:
+        return conv3x3_gnsilu_f16(x, w, b, gamma, beta, num_groups, eps)
+    return _launch_counted(conv3x3_gnsilu, torch.bfloat16, "aid_conv3x3_gnsilu_bf16", x, w, b,
+                           (gamma, beta, num_groups, eps))
 
 
 #: kernel launches since the last reset (chip_smoke.py reads it around each path)
 conv3x3_gnsilu.launches = 0
+
+
+def conv3x3_gnsilu_f16(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                       num_groups: int = 32, eps: float = 1e-5) -> torch.Tensor:
+    """conv3x3_gnsilu in f16: the f16 instance of ``csrc/conv3x3.cu`` with its
+    prologue (silu(x * scale + shift) in f32 rounded once to f16 in shared
+    memory, the halo left zero, then f16 wgmma) on CUDA tensors with Cin % 8
+    == 0 and Cout % 2 == 0, returning a channels-last tensor; the plain
+    version on CPU tensors."""
+    if not use_kernel(x, w, b, gamma, beta):
+        return conv3x3_gnsilu_plain(x, w, b, gamma, beta, num_groups, eps)
+    return _launch_counted(conv3x3_gnsilu_f16, torch.float16, "aid_conv3x3_gnsilu_f16", x, w, b,
+                           (gamma, beta, num_groups, eps))
+
+
+#: kernel launches since the last reset (chip_smoke.py reads it around each path)
+conv3x3_gnsilu_f16.launches = 0
 
 
 def conv3x3_gnsilu_f32(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
@@ -311,11 +360,8 @@ def conv3x3_gnsilu_f32(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, gamma:
     returning a channels-last tensor; the plain version on CPU tensors."""
     if not use_kernel(x, w, b, gamma, beta):
         return conv3x3_gnsilu_plain(x, w, b, gamma, beta, num_groups, eps)
-    if x.dtype != torch.float32:
-        raise NotImplementedError(f"the f32 GN+SiLU conv takes f32; got {x.dtype}")
-    out = launch_kernel("aid_conv3x3_f32", *kernel_operands(x, w, b, *gn_scale_shift(x, gamma, beta, num_groups, eps)))
-    conv3x3_gnsilu_f32.launches += 1
-    return out
+    return _launch_counted(conv3x3_gnsilu_f32, torch.float32, "aid_conv3x3_f32", x, w, b,
+                           (gamma, beta, num_groups, eps))
 
 
 #: kernel launches since the last reset (chip_smoke.py reads it around each path)

@@ -9,12 +9,18 @@ kernels behind that function (``_kernel``, flash_attention.py:101, and
 bounds it on the card and how the design answers. On a CPU tensor it runs
 :func:`flash_interpolated_attention_plain`.
 
-Four kernels take CUDA calls:
+Six kernels take CUDA calls:
   * bf16 with head dim 40, 64, 80 or 160, every mode (every UNet attention:
     64 for SDXL and SD2.x, 40/80/160 for SD1.x's 8 heads at widths
     320/640/1280): ``csrc/flash_interpolated_attention.cu``, counted by
     ``flash_interpolated_attention.launches`` and, per head dim, by
     ``flash_interpolated_attention.launches_by_head_dim``;
+  * f16 with the same head dims, every mode (the same attentions in an f16
+    UNet, as the upstream CUDA reference runs it): the f16 instance of the
+    same design and C signature in ``csrc/flash_interpolated_attention.cu``
+    (``aid_flash_attn_f16``), reached through
+    :func:`flash_interpolated_attention_f16` and counted by its
+    ``launches`` and ``launches_by_head_dim``;
   * f32 with head dim 40, 64, 80 or 160, every mode (the same attentions in
     an f32 UNet, the reference's default dtype): the same C signature in
     ``csrc/flash_interpolated_attention_f32.cu`` (3xTF32; wgmma on TMA tiles
@@ -31,7 +37,10 @@ Four kernels take CUDA calls:
   * bf16 with head dim 512, self mode (the same attention in a bf16 VAE):
     ``csrc/flash_attention_bf16_d512.cu`` (wgmma on TMA tiles, D split
     across two consumer warpgroups), reached through
-    :func:`flash_self_attention_bf16` and counted by its ``launches``.
+    :func:`flash_self_attention_bf16` and counted by its ``launches``;
+  * f16 with head dim 512, self mode (an f16 VAE): the f16 instance of that
+    source (``aid_flash_attn_f16_d512``), reached through
+    :func:`flash_self_attention_f16` and counted by its ``launches``.
 A head dim that no instance takes is zero-padded to the next that does,
 as the JAX package pads (aid_tpu/ops/flash_attention.py:784, 800-801):
 below 160 to the next of 40, 64, 80, 160 in every mode, between 160 and
@@ -39,10 +48,10 @@ below 160 to the next of 40, 64, 80, 160 in every mode, between 160 and
 is sliced back. Zero columns add nothing to Q K^T, and V's are cut off, so
 the padding is exact; it costs one copy of each operand, on calls that no
 full-size model makes, and the launch counts book such calls under the
-padded head dim. Any other dtype (f16), a head dim over 160 outside self
-mode or over 512 raises ``NotImplementedError`` on a CUDA tensor (ROADMAP
-Queue 2 lists the instances still to port). :func:`kernel_operands` checks
-the operands of the D <= 160 kernels (bf16 or f32, one C signature), pads
+padded head dim. Any other dtype (float64), a head dim over 160 outside
+self mode or over 512 raises ``NotImplementedError`` on a CUDA tensor
+(ROADMAP Queue 2 lists the instances still to port). :func:`kernel_operands` checks
+the operands of the D <= 160 kernels (bf16, f16 or f32, one C signature), pads
 them and lays out their C entry's arguments (the CPU tests replay the
 kernels' data movement from them), :func:`d512_operands` those of the
 D=512 kernels; :func:`kernel_launch` and :func:`d512_launch` return the
@@ -61,10 +70,11 @@ from aid_tpu_torch.ops.attention import AttnMode, _softmax_attn, interpolated_at
 from aid_tpu_torch.ops.routing import use_kernel
 
 KERNEL_HEAD_DIMS = (40, 64, 80, 160)
-D512 = 512  # the VAE mid block's head dim: the self-mode kernels in f32 and bf16
-#: the bf16 kernel's tiles by head dim: (query rows per block, keys per K/V
-#: tile, K/V stages in its ring), csrc/flash_interpolated_attention.cu's
-#: Tiles<D>: one consumer warpgroup per 64 query rows.
+D512 = 512  # the VAE mid block's head dim: the self-mode kernels in f32, bf16 and f16
+#: the bf16 and f16 kernel's tiles by head dim: (query rows per block, keys
+#: per K/V tile, K/V stages in its ring), csrc/flash_interpolated_attention.cu's
+#: Tiles<D> (one design, two element types): one consumer warpgroup per 64
+#: query rows.
 KERNEL_TILES = {40: (192, 128, 3), 64: (192, 128, 3), 80: (128, 128, 2), 160: (64, 64, 3)}
 #: the f32 kernel's instances by head dim: (query rows per block, keys per
 #: K/V tile, stages in its ring), csrc/flash_interpolated_attention_f32.cu's
@@ -74,7 +84,11 @@ KERNEL_TILES = {40: (192, 128, 3), 64: (192, 128, 3), 80: (128, 128, 2), 160: (6
 KERNEL_F32_TILES = {40: (192, 32, 4), 64: (128, 64, 2), 80: (128, 32, 3), 160: (64, 16, 3)}
 KERNEL_F32_D_SPLIT = {40: 1, 64: 1, 80: 1, 160: 2}
 #: the C entry of the D <= 160 kernels by operand dtype (one C signature)
-KERNEL_ENTRIES = {torch.bfloat16: "aid_flash_attn_bf16", torch.float32: "aid_flash_attn_f32"}
+KERNEL_ENTRIES = {torch.bfloat16: "aid_flash_attn_bf16", torch.float16: "aid_flash_attn_f16",
+                  torch.float32: "aid_flash_attn_f32"}
+#: the C entry of the D=512 self-attention kernels by operand dtype
+D512_ENTRIES = {torch.bfloat16: "aid_flash_attn_bf16_d512", torch.float16: "aid_flash_attn_f16_d512",
+                torch.float32: "aid_flash_attn_f32_d512"}
 
 
 def flash_interpolated_attention_plain(
@@ -124,8 +138,8 @@ def _pad_head_dim(x: torch.Tensor, Dp: int) -> torch.Tensor:
 
 def _check_dtype(name: str, x: torch.Tensor, dtype=torch.bfloat16) -> None:
     if x.dtype != dtype:
-        raise NotImplementedError(f"flash kernel takes {dtype} here; {name} is {x.dtype} "
-                                  "(ROADMAP Queue 2 lists the instances still to port)")
+        raise NotImplementedError(f"flash kernel takes {dtype} here; {name} is {x.dtype} (the flash kernels "
+                                  "take bf16, f16 or f32)")
 
 
 def _check_operand(name: str, x: torch.Tensor, dtype=torch.bfloat16) -> None:
@@ -139,9 +153,9 @@ def _check_operand(name: str, x: torch.Tensor, dtype=torch.bfloat16) -> None:
         raise ValueError(f"{name}: 16-byte row alignment needed, strides {strides}")
 
 
-#: the bf16 D=512 kernel's tiles: (query rows per block, keys per K/V tile,
-#: slots in each of the K and V rings, consumer warpgroups splitting D),
-#: csrc/flash_attention_bf16_d512.cu's kBQ, kBK, kStages and kWG
+#: the bf16 and f16 D=512 kernel's tiles: (query rows per block, keys per
+#: K/V tile, slots in each of the K and V rings, consumer warpgroups
+#: splitting D), csrc/flash_attention_bf16_d512.cu's kBQ, kBK, kStages and kWG
 D512_BF16_TILES = (64, 32, 2, 2)
 #: the f32 D=512 kernel's tiles: (query rows per block, keys per K/V tile,
 #: consumer warpgroups splitting D), csrc/flash_attention_f32_d512.cu's kBQ,
@@ -151,19 +165,18 @@ F32_D512_TILES = (64, 16, 2)
 
 def d512_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: Optional[float] = None) -> dict:
     """Check the operands of the D=512 self-attention kernel of q's dtype
-    (f32: ``csrc/flash_attention_f32_d512.cu``, bf16: ``csrc/
-    flash_attention_bf16_d512.cu``) and lay out one call of its C entry:
-    ``entry``, ``tensors`` (q, k, v and the output: f32 (B, H, Sq, 512);
-    bf16 a (B, H, Sq, 512) view of a new (B, Sq, H, 512) buffer, as the
-    other bf16 kernel writes), ``dims`` (B, H, Sq, Lk, then the (b, h, s)
+    (f32: ``csrc/flash_attention_f32_d512.cu``, bf16 and f16: the two
+    instances of ``csrc/flash_attention_bf16_d512.cu``) and lay out one call
+    of its C entry (:data:`D512_ENTRIES`): ``entry``, ``tensors`` (q, k, v
+    and the output: f32 (B, H, Sq, 512); bf16 and f16 a (B, H, Sq, 512) view
+    of a new (B, Sq, H, 512) buffer, as the D <= 160 kernel writes), ``dims`` (B, H, Sq, Lk, then the (b, h, s)
     element strides of the four), ``scale``, ``head_dim`` (the caller's D)
     and ``out`` (the output at that D). A head dim between 160 and 512 is
     zero-padded to 512, the scale kept at the unpadded D. Nothing here
     needs a device."""
     B, H, Sq, D = q.shape
-    if q.dtype not in (torch.float32, torch.bfloat16):
-        raise NotImplementedError(f"the D={D512} self-attention kernels take f32 or bf16; q is {q.dtype} "
-                                  "(ROADMAP Queue 2 lists the instances still to port)")
+    if q.dtype not in D512_ENTRIES:
+        raise NotImplementedError(f"the D={D512} self-attention kernels take f32, bf16 or f16; q is {q.dtype}")
     if k.dim() != 4 or k.shape[:2] != (B, H) or k.shape[-1] != D or v.shape != k.shape:
         raise ValueError(f"k/v shapes {tuple(k.shape)}/{tuple(v.shape)} do not match q {tuple(q.shape)}")
     if not KERNEL_HEAD_DIMS[-1] < D <= D512:
@@ -175,15 +188,14 @@ def d512_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: Opti
     for name, x in (("q", q), ("k", k), ("v", v)):
         _check_operand(name, x, q.dtype)
     if q.dtype == torch.float32:
-        entry, out = "aid_flash_attn_f32_d512", torch.empty(q.shape, dtype=q.dtype, device=q.device)
+        out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     else:
-        entry = "aid_flash_attn_bf16_d512"
         out = torch.empty((B, Sq, H, D512), dtype=q.dtype, device=q.device).transpose(1, 2)
     dims = [B, H, Sq, k.shape[2]]
     for x in (q, k, v, out):
         dims += _bhs_strides(x)
-    return dict(entry=entry, tensors=(q, k, v, out), dims=dims, scale=float(D ** -0.5 if scale is None else scale),
-                head_dim=D, out=out[..., :D])
+    return dict(entry=D512_ENTRIES[q.dtype], tensors=(q, k, v, out), dims=dims,
+                scale=float(D ** -0.5 if scale is None else scale), head_dim=D, out=out[..., :D])
 
 
 def d512_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: Optional[float] = None) -> tuple:
@@ -207,6 +219,25 @@ def d512_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: Option
     return out, launch
 
 
+def _self_attention_d512(wrapper, small, q, k, v, scale):
+    """The D=512 self-attention wrappers' shared body: the plain
+    ``_softmax_attn`` on CPU tensors; on CUDA tensors of ``wrapper``'s dtype
+    (:data:`_WRAPPER_DTYPES`) ``small`` (the D <= 160 wrapper of that dtype)
+    at a head dim of 160 or less, else the D=512 kernel, counted on
+    ``wrapper``."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if not use_kernel(q, k, v):
+        return _softmax_attn(q, k, v, scale)
+    _check_dtype("q", q, _WRAPPER_DTYPES[wrapper.__name__])
+    if q.shape[-1] <= KERNEL_HEAD_DIMS[-1]:
+        return small(q, k, v, scale=scale)
+    out, launch = d512_launch(q, k, v, scale)
+    launch()
+    wrapper.launches += 1
+    return out
+
+
 def flash_self_attention_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              scale: Optional[float] = None) -> torch.Tensor:
     """softmax(q k^T * scale) v in f32 with head dim 512 (the VAE mid-block
@@ -217,17 +248,7 @@ def flash_self_attention_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     q: (B, H, Sq, D), k/v: (B, H, Lk, D), all f32. Returns (B, H, Sq, D) f32.
     """
-    if scale is None:
-        scale = q.shape[-1] ** -0.5
-    if not use_kernel(q, k, v):
-        return _softmax_attn(q, k, v, scale)
-    _check_dtype("q", q, torch.float32)
-    if q.shape[-1] <= KERNEL_HEAD_DIMS[-1]:
-        return flash_interpolated_attention_f32(q, k, v, scale=scale)
-    out, launch = d512_launch(q, k, v, scale)
-    launch()
-    flash_self_attention_f32.launches += 1
-    return out
+    return _self_attention_d512(flash_self_attention_f32, flash_interpolated_attention_f32, q, k, v, scale)
 
 
 #: kernel launches since the last reset (chip_smoke.py reads it around each path)
@@ -247,21 +268,29 @@ def flash_self_attention_bf16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     bf16; on CUDA a view of a (B, Sq, H, D) buffer, as the other bf16 kernel
     writes (sliced from a padded one where D was padded).
     """
-    if scale is None:
-        scale = q.shape[-1] ** -0.5
-    if not use_kernel(q, k, v):
-        return _softmax_attn(q, k, v, scale)
-    _check_dtype("q", q, torch.bfloat16)
-    if q.shape[-1] <= KERNEL_HEAD_DIMS[-1]:
-        return flash_interpolated_attention(q, k, v, scale=scale)
-    out, launch = d512_launch(q, k, v, scale)
-    launch()
-    flash_self_attention_bf16.launches += 1
-    return out
+    return _self_attention_d512(flash_self_attention_bf16, flash_interpolated_attention, q, k, v, scale)
 
 
 #: kernel launches since the last reset (chip_smoke.py reads it around each path)
 flash_self_attention_bf16.launches = 0
+
+
+def flash_self_attention_f16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             scale: Optional[float] = None) -> torch.Tensor:
+    """:func:`flash_self_attention_bf16` in f16 (the mid-block attention of
+    an f16 VAE): the f16 instance of ``csrc/flash_attention_bf16_d512.cu``
+    on CUDA tensors, the plain ``_softmax_attn`` (f32 logits and softmax,
+    the probabilities rounded to f16 before P V) on CPU tensors. On CUDA a
+    head dim of 160 or less takes the f16 D <= 160 kernel in self mode.
+
+    q: (B, H, Sq, D), k/v: (B, H, Lk, D), all f16. Returns (B, H, Sq, D)
+    f16; on CUDA a view of a (B, Sq, H, D) buffer.
+    """
+    return _self_attention_d512(flash_self_attention_f16, flash_interpolated_attention_f16, q, k, v, scale)
+
+
+#: kernel launches since the last reset (chip_smoke.py reads it around each path)
+flash_self_attention_f16.launches = 0
 
 
 def _bhs_strides(x: torch.Tensor) -> list:
@@ -283,8 +312,8 @@ def kernel_operands(
     scale: Optional[float] = None,
     skip_endpoints: Optional[torch.Tensor] = None,  # (B,) bool: rows whose endpoint segments are dropped
 ) -> dict:
-    """Check the operands of the D <= 160 kernel of q's dtype (bf16 or f32)
-    and lay out one call of its C entry (``entry``, :data:`KERNEL_ENTRIES`):
+    """Check the operands of the D <= 160 kernel of q's dtype (bf16, f16 or
+    f32) and lay out one call of its C entry (``entry``, :data:`KERNEL_ENTRIES`):
     ``tensors`` (q, k, v, k_begin, v_begin, k_end, v_end and the output, a
     (B, H, Sq, Dp) view of a new (B, Sq, H, Dp) buffer), ``dims`` (the
     entry's 30 shape and stride values), ``coef`` and ``skip`` (None where
@@ -297,8 +326,8 @@ def kernel_operands(
     mode = AttnMode(mode)
     B, H, Sq, D = q.shape
     if q.dtype not in KERNEL_ENTRIES:
-        raise NotImplementedError(f"the flash kernels take bf16 or f32 at head dims {KERNEL_HEAD_DIMS}; q is "
-                                  f"{q.dtype} (ROADMAP Queue 2 lists the instances still to port)")
+        raise NotImplementedError(f"the flash kernels take bf16, f16 or f32 at head dims {KERNEL_HEAD_DIMS}; q is "
+                                  f"{q.dtype}")
     Dp = padded_head_dim(D, mode)
     if Dp > KERNEL_HEAD_DIMS[-1]:
         raise NotImplementedError(f"head dim {D} pads to {Dp}: the D={D512} self-attention kernels take it "
@@ -405,6 +434,26 @@ def kernel_launch(*args, **kwargs) -> tuple:
     return out, launch
 
 
+def _launch_counted(wrapper, q, *args, **kwargs) -> torch.Tensor:
+    """One launch of the D <= 160 kernel of ``wrapper``'s dtype
+    (:data:`_WRAPPER_DTYPES`; q checked here, the rest by kernel_operands),
+    counted on ``wrapper`` in all and under the instance's head dim."""
+    _check_dtype("q", q, _WRAPPER_DTYPES[wrapper.__name__])
+    out, launch = kernel_launch(q, *args, **kwargs)
+    launch()
+    wrapper.launches += 1
+    wrapper.launches_by_head_dim[launch.operands["dims"][5]] += 1
+    return out
+
+
+#: the dtype each counting wrapper launches its kernel for
+_WRAPPER_DTYPES = {
+    "flash_interpolated_attention": torch.bfloat16, "flash_interpolated_attention_f16": torch.float16,
+    "flash_interpolated_attention_f32": torch.float32, "flash_self_attention_bf16": torch.bfloat16,
+    "flash_self_attention_f16": torch.float16, "flash_self_attention_f32": torch.float32,
+}
+
+
 def flash_interpolated_attention(
     q: torch.Tensor,  # (B, H, Sq, D)
     k: torch.Tensor,  # (B, H, Lk, D)
@@ -432,21 +481,17 @@ def flash_interpolated_attention(
             scale=scale, skip_endpoints=skip_endpoints)
 
     if mode == AttnMode.SELF and q.shape[-1] > KERNEL_HEAD_DIMS[-1]:  # the D=512 kernels, padded up to 512
-        if q.dtype == torch.float32:
-            return flash_self_attention_f32(q, k, v, scale)
-        if q.dtype == torch.bfloat16:
-            return flash_self_attention_bf16(q, k, v, scale)
-    if q.dtype == torch.float32:
-        return flash_interpolated_attention_f32(q, k, v, coef, mode, k_begin=k_begin, v_begin=v_begin, k_end=k_end,
-                                                v_end=v_end, scale=scale, skip_endpoints=skip_endpoints)
+        d512 = {torch.float32: flash_self_attention_f32, torch.bfloat16: flash_self_attention_bf16,
+                torch.float16: flash_self_attention_f16}.get(q.dtype)
+        if d512 is not None:
+            return d512(q, k, v, scale)
+    other = {torch.float32: flash_interpolated_attention_f32, torch.float16: flash_interpolated_attention_f16}
+    if q.dtype in other:
+        return other[q.dtype](q, k, v, coef, mode, k_begin=k_begin, v_begin=v_begin, k_end=k_end, v_end=v_end,
+                              scale=scale, skip_endpoints=skip_endpoints)
 
-    _check_dtype("q", q)  # bf16 from here on; kernel_operands checks the rest
-    out, launch = kernel_launch(q, k, v, coef, mode, k_begin=k_begin, v_begin=v_begin, k_end=k_end, v_end=v_end,
-                                scale=scale, skip_endpoints=skip_endpoints)
-    launch()
-    flash_interpolated_attention.launches += 1
-    flash_interpolated_attention.launches_by_head_dim[launch.operands["dims"][5]] += 1
-    return out
+    return _launch_counted(flash_interpolated_attention, q, k, v, coef, mode, k_begin=k_begin, v_begin=v_begin,
+                           k_end=k_end, v_end=v_end, scale=scale, skip_endpoints=skip_endpoints)
 
 
 def flash_interpolated_attention_f32(
@@ -475,24 +520,49 @@ def flash_interpolated_attention_f32(
         return flash_interpolated_attention_plain(
             q, k, v, coef, mode, k_begin=k_begin, v_begin=v_begin, k_end=k_end, v_end=v_end,
             scale=scale, skip_endpoints=skip_endpoints)
-    _check_dtype("q", q, torch.float32)
-    out, launch = kernel_launch(q, k, v, coef, mode, k_begin=k_begin, v_begin=v_begin, k_end=k_end, v_end=v_end,
-                                scale=scale, skip_endpoints=skip_endpoints)
-    launch()
-    flash_interpolated_attention_f32.launches += 1
-    flash_interpolated_attention_f32.launches_by_head_dim[launch.operands["dims"][5]] += 1
-    return out
+    return _launch_counted(flash_interpolated_attention_f32, q, k, v, coef, mode, k_begin=k_begin, v_begin=v_begin,
+                           k_end=k_end, v_end=v_end, scale=scale, skip_endpoints=skip_endpoints)
+
+
+def flash_interpolated_attention_f16(
+    q: torch.Tensor,  # (B, H, Sq, D) f16
+    k: torch.Tensor,  # (B, H, Lk, D)
+    v: torch.Tensor,
+    coef: Optional[torch.Tensor] = None,  # (B,); not read in self mode
+    mode: AttnMode | str = AttnMode.SELF,
+    k_begin: Optional[torch.Tensor] = None,  # (H, Le, D) shared or (B, H, Le, D) per row; default k[0]
+    v_begin: Optional[torch.Tensor] = None,
+    k_end: Optional[torch.Tensor] = None,  # default k[-1]
+    v_end: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+    skip_endpoints: Optional[torch.Tensor] = None,  # (B,) bool: rows whose endpoint segments are dropped
+) -> torch.Tensor:
+    """:func:`flash_interpolated_attention`'s contract in f16 at head dim
+    40, 64, 80 or 160, every mode (an f16 UNet's attentions), and at any
+    other head dim up to 160 padded to the next of those: the f16 instance
+    of ``csrc/flash_interpolated_attention.cu`` (``aid_flash_attn_f16``:
+    the bf16 design with f16 wgmma, f32 scores, softmax and accumulation,
+    P rounded to f16) on CUDA tensors, the plain version on CPU tensors.
+    Returns (B, H, Sq, D) f16; on CUDA a view of a (B, Sq, H, Dp) buffer.
+    """
+    mode = AttnMode(mode)
+    if not use_kernel(q, k, v):
+        return flash_interpolated_attention_plain(
+            q, k, v, coef, mode, k_begin=k_begin, v_begin=v_begin, k_end=k_end, v_end=v_end,
+            scale=scale, skip_endpoints=skip_endpoints)
+    return _launch_counted(flash_interpolated_attention_f16, q, k, v, coef, mode, k_begin=k_begin, v_begin=v_begin,
+                           k_end=k_end, v_end=v_end, scale=scale, skip_endpoints=skip_endpoints)
 
 
 def reset_launch_counts() -> None:
-    """Set the D <= 160 kernels' launch counts (bf16 and f32, total and per
-    instance head dim: a padded call counts under the head dim it pads to)
-    to 0."""
-    for fn in (flash_interpolated_attention, flash_interpolated_attention_f32):
+    """Set the D <= 160 kernels' launch counts (bf16, f16 and f32, total and
+    per instance head dim: a padded call counts under the head dim it pads
+    to) to 0."""
+    for fn in (flash_interpolated_attention, flash_interpolated_attention_f16, flash_interpolated_attention_f32):
         fn.launches = 0
         fn.launches_by_head_dim = dict.fromkeys(KERNEL_HEAD_DIMS, 0)
 
 
-#: kernel launches since the last reset, in all and by head dim, of the bf16
-#: and the f32 kernel (chip_smoke.py reads them around each path)
+#: kernel launches since the last reset, in all and by head dim, of the bf16,
+#: the f16 and the f32 kernel (chip_smoke.py reads them around each path)
 reset_launch_counts()

@@ -76,7 +76,17 @@ read just after:
     card, frame-sharded (dp=2) and tensor-parallel (tp=2, ``shard_params``);
   * the Gradio app's Generate function (``apps.gradio_app.build_app`` with
     a stub gradio module) on the SD 1.5 safety-checker pipeline: the
-    gallery's 7-frame SD 1.5 example at 25 steps.
+    gallery's 7-frame SD 1.5 example at 25 steps;
+  * f16, as the upstream CUDA reference runs SD (``torch_dtype=
+    torch.float16``): a full-width SD 1.5 directory (f16 N(0, 0.02)
+    weights) loaded with ``load_interpolation_pipeline(dir, dtype=
+    torch.float16)`` (UNet f16; text encoder and VAE f32, as the loader
+    places them), ``interpolate`` (PAID, 7 frames, 512px, 25 DDIM steps) and
+    ``interpolate_single(0.5)``; that directory's VAE loaded with
+    ``load_vae(dir, dtype=torch.float16)`` decoding one frame (the f16
+    D=512 attention); the SDXL UNet of the headline in f16 (a denoise and
+    the fused GN+SiLU configuration). Every UNet and VAE kernel there is an
+    f16 instance.
 
 Phases (each prints its own lines; any failure exits non-zero):
   1. device      needs CUDA; prints the card's name and power limit
@@ -167,9 +177,22 @@ Phases (each prints its own lines; any failure exits non-zero):
                  relative L2 under FRAMES_TOL, the planted faults local
                  endpoints and local skip rows over it), attention launches
                  by head dim on each rank
+ 20. f16         after phase 18: the f16 SD1.5 UNet's forward kernels vs
+                 plain (two planted faults), interpolate() and
+                 interpolate_single() through the loader's f16 pipeline
+                 (s/step, launches by head dim), an f16 VAE's raw decoder
+                 output kernels vs plain with a planted fault, the f16 SDXL
+                 UNet's forward kernels vs plain, a denoise (s/step) and the
+                 fused GN+SiLU forward with its halo fault; each path fails
+                 if it launched a bf16 or f32 kernel (but the f32 VAE's
+                 attention in the SD1.5 decodes). Phase 3 holds every f16
+                 instance against its plain f16 version at the bf16 rows'
+                 SDXL and SD1.5 shapes
 The smoke prints its own wall time before the kernels line.
 Phase 1 turns TF32 off for cuBLAS and cuDNN, so every plain f32 version and
-library call computes in full f32.
+library call computes in full f32, and cuBLAS's reduced-precision f16
+reductions off, so every f16 GEMM (the plain versions' and the f16 paths')
+reduces in f32.
 The second-to-last line is the kernels' JSON record, the last the result.
 """
 
@@ -338,16 +361,27 @@ F32_UNET_TOL = 1e-5
 # DDIM steps of the SD1.5 sequences (bench.py's SD1.5 workloads), run in
 # full; also the Beta(25, 25) of their frame coefficients.
 SD15_STEPS = 25
+# The f16 attention (phase 3; D <= 160 and D=512) against its plain f16
+# version: the bf16 design's roundings of P and of the output at f16's 2^-11
+# instead of bf16's 2^-8, eight times finer. A quarter of ATTN_TOL keeps twice
+# that as margin; a wrong mask, scale, segment or element type is tens of
+# percent.
+F16_ATTN_TOL = ATTN_TOL / 4
+# The f16 conv and GN+SiLU conv (phase 3) against cuDNN in f16 on the same
+# operands (f32 accumulation on both sides): one output rounding at 2^-11 and
+# summation order; a quarter of CONV_TOL for the same reason.
+F16_CONV_TOL = CONV_TOL / 4
 
 # The card's published dense peaks (NVIDIA H100 SXM data sheet, at its 700 W
-# limit): tensor cores in bf16 and TF32, f32 outside the tensor cores, HBM.
+# limit): tensor cores in bf16, f16 (the same rate) and TF32, f32 outside the
+# tensor cores, HBM.
 # bound_ms of a kernel is the larger of its operations over the peak of
 # their type and its bytes (each input read once, each output written once)
 # over the memory rate. bf16 and TF32 products share the tensor cores, so
 # their times add; f32 runs beside them on the CUDA cores, so where a call
 # also does f32 work the slower of the two units sets it.
-PEAK_OPS_PER_S = {"bf16": 989e12, "tf32": 495e12, "f32": 67e12}
-TENSOR_CORE_TYPES = ("bf16", "tf32")
+PEAK_OPS_PER_S = {"bf16": 989e12, "f16": 989e12, "tf32": 495e12, "f32": 67e12}
+TENSOR_CORE_TYPES = ("bf16", "f16", "tf32")
 HBM_BYTES_PER_S = 3.35e12
 
 # The products of csrc/flash_attention_f32_d512.cu per flop of f32
@@ -367,14 +401,15 @@ def bound(ops: dict, nbytes: float) -> tuple:
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
-def conv_bound(B, H, W, cin, cout, prologue=False, tf32_passes=None) -> tuple:
+def conv_bound(B, H, W, cin, cout, prologue=False, tf32_passes=None, kind="bf16") -> tuple:
     """The 3x3 conv's bound: 2 * 9 * Cin flops per output element on the
-    bf16 tensor cores, or with ``tf32_passes`` = 3 on f32 operands at three
-    TF32 passes (3xTF32); x, w, bias (f32), out read or written once; the
+    tensor cores in ``kind`` (bf16 or f16, 2-byte operands), or with
+    ``tf32_passes`` = 3 on f32 operands at three TF32 passes (3xTF32); x, w,
+    bias (f32), out read or written once; the
     GN+SiLU prologue adds its (B, Cin) f32 scale and shift and ~6 f32
     operations per input element (fma, halving, tanh, fma)."""
     flops = 2.0 * B * H * W * cout * 9 * cin
-    ops = {"bf16": flops} if tf32_passes is None else {"tf32": tf32_passes * flops}
+    ops = {kind: flops} if tf32_passes is None else {"tf32": tf32_passes * flops}
     elem = 2.0 if tf32_passes is None else 4.0
     nbytes = elem * (B * H * W * cin + 9 * cin * cout + B * H * W * cout) + 4.0 * cout
     if prologue:
@@ -384,7 +419,7 @@ def conv_bound(B, H, W, cin, cout, prologue=False, tf32_passes=None) -> tuple:
 
 
 def attention_bound(mode, B, H, Sq, L, D, Le=None, elem=2, skip_rows=0, tf32_passes=None, per_row=False,
-                    bf16_passes=None) -> tuple:
+                    bf16_passes=None, kind="bf16") -> tuple:
     """The attention's bound from the key segments the kernel's segment
     loop visits (flash_interpolated_attention.cu: the own segment in self
     and fused modes, begin and end in outer modes, one lerped segment in
@@ -395,7 +430,8 @@ def attention_bound(mode, B, H, Sq, L, D, Le=None, elem=2, skip_rows=0, tf32_pas
     set per batch row with ``per_row``) or, in pure modes, are rows 0 and
     B-1 of K/V. ``tf32_passes`` = 3 reckons f32 operands at three TF32
     tensor-core passes (3xTF32); with ``bf16_passes`` too, a split of
-    TF32 and bf16 passes (``F32_D512_PASSES``); None means bf16."""
+    TF32 and bf16 passes (``F32_D512_PASSES``); None means 2-byte operands
+    on the tensor cores in ``kind`` (bf16 or f16)."""
     has_own = mode in ("self", "fused_outer", "fused_inner")
     n_seg = {"self": 0, "fused_outer": 2, "pure_outer": 2, "fused_inner": 1, "pure_inner": 1}[mode]
     seg_len = Le if Le is not None else L
@@ -405,7 +441,7 @@ def attention_bound(mode, B, H, Sq, L, D, Le=None, elem=2, skip_rows=0, tf32_pas
     if n_seg and (Le is not None or not has_own):
         nbytes += elem * 4.0 * (B if per_row else 1) * H * seg_len * D  # K and V of both endpoints
     if tf32_passes is None:
-        ops = {"bf16": flops}
+        ops = {kind: flops}
     else:
         ops = {"tf32": tf32_passes * flops, "bf16": (bf16_passes or 0) * flops}
     return bound(ops, nbytes)
@@ -458,20 +494,18 @@ def library_conv_ms(x, w, b, reps: int) -> dict:
 
 def kernel_wrappers() -> dict:
     """Each kernel's wrapper, by the name its launch count is reported under."""
-    from aid_tpu_torch.ops.conv import conv3x3_gnsilu, conv3x3_gnsilu_f32, conv3x3_same, conv3x3_same_f32
-    from aid_tpu_torch.ops.flash_attention import (
-        flash_interpolated_attention,
-        flash_interpolated_attention_f32,
-        flash_self_attention_bf16,
-        flash_self_attention_f32,
-    )
+    from aid_tpu_torch.ops import conv
+    from aid_tpu_torch.ops import flash_attention as fa
 
-    return {"flash_interpolated_attention": flash_interpolated_attention,
-            "flash_interpolated_attention_f32": flash_interpolated_attention_f32,
-            "flash_self_attention_f32": flash_self_attention_f32,
-            "flash_self_attention_bf16": flash_self_attention_bf16,
-            "conv3x3_same": conv3x3_same, "conv3x3_same_f32": conv3x3_same_f32, "conv3x3_gnsilu": conv3x3_gnsilu,
-            "conv3x3_gnsilu_f32": conv3x3_gnsilu_f32}
+    return {"flash_interpolated_attention": fa.flash_interpolated_attention,
+            "flash_interpolated_attention_f32": fa.flash_interpolated_attention_f32,
+            "flash_self_attention_f32": fa.flash_self_attention_f32,
+            "flash_self_attention_bf16": fa.flash_self_attention_bf16,
+            "conv3x3_same": conv.conv3x3_same, "conv3x3_same_f32": conv.conv3x3_same_f32,
+            "conv3x3_gnsilu": conv.conv3x3_gnsilu, "conv3x3_gnsilu_f32": conv.conv3x3_gnsilu_f32,
+            "flash_interpolated_attention_f16": fa.flash_interpolated_attention_f16,
+            "flash_self_attention_f16": fa.flash_self_attention_f16,
+            "conv3x3_same_f16": conv.conv3x3_same_f16, "conv3x3_gnsilu_f16": conv.conv3x3_gnsilu_f16}
 
 
 def reset_counts() -> None:
@@ -484,11 +518,13 @@ def reset_counts() -> None:
 
 def read_counts() -> dict:
     """Every wrapper's launches, and the D <= 160 attention kernels' by head
-    dim under ``flash_interpolated_attention[D=...]`` (bf16) and
-    ``flash_interpolated_attention_f32[D=...]``."""
+    dim under ``flash_interpolated_attention[D=...]`` (bf16),
+    ``flash_interpolated_attention_f32[D=...]`` and
+    ``flash_interpolated_attention_f16[D=...]``."""
     wrappers = kernel_wrappers()
     counts = {name: fn.launches for name, fn in wrappers.items()}
-    for name in ("flash_interpolated_attention", "flash_interpolated_attention_f32"):
+    for name in ("flash_interpolated_attention", "flash_interpolated_attention_f32",
+                 "flash_interpolated_attention_f16"):
         for d, n in wrappers[name].launches_by_head_dim.items():
             counts[f"{name}[D={d}]"] = n
     return counts
@@ -526,6 +562,9 @@ def phase_device():
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; devices: {torch.cuda.device_count()}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions' f32 matmuls stay f32
     torch.backends.cudnn.allow_tf32 = False
+    # the plain versions' f16 GEMMs reduce in f32, so the f16 yardstick is no
+    # noisier than the kernels it holds (the f16 paths' own GEMMs too)
+    torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
     return card
 
 
@@ -561,16 +600,20 @@ def phase_kernels(coef, sd_coef, fused_classes, sd21_classes):
         flash_interpolated_attention,
         flash_interpolated_attention_plain,
         flash_self_attention_bf16,
+        flash_self_attention_f16,
         flash_self_attention_f32,
         kernel_launch,
     )
 
     print("== phase 3: kernels vs plain versions, bounds and library calls", flush=True)
     dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(11)
+    # the f16 rows draw from their own generator, so the bf16 and f32 rows
+    # keep the inputs they had before the f16 rows came
+    gen = main_gen = torch.Generator(device=dev).manual_seed(11)
+    f16_gen = torch.Generator(device=dev).manual_seed(16)
 
-    def randn(*shape):
-        return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32).to(torch.bfloat16)
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32).to(dtype)
 
     def yardsticks(bound_ms, bound_by, library):
         """One line of the bound and the library calls' times."""
@@ -580,17 +623,18 @@ def phase_kernels(coef, sd_coef, fused_classes, sd21_classes):
     records = {}
 
     def attention(label, mode, c, H, Sq, L, D, reps, Le=None, dtype=torch.bfloat16):
-        """One bf16 (or f32) attention case, B = len(c): (B, S, H*D)
+        """One bf16 (or f16, or f32) attention case, B = len(c): (B, S, H*D)
         projections viewed as (B, H, S, D), as the model passes them; skip
         rows as the model marks them; optional shared (H, Le, D) endpoints.
         Timed through the wrapper (ms: the call the model makes, its host
         work included) and launched alone on operands kernel_launch prepared
         once (kernel_ms). In self mode SDPA computes the same function and is
         timed under each backend that takes the input. f32 is held to
-        F32_ATTN_TOL and bounded at three TF32 passes. Returns a record."""
+        F32_ATTN_TOL and bounded at three TF32 passes, f16 to F16_ATTN_TOL
+        and bounded at the f16 tensor-core rate. Returns a record."""
         B = c.shape[0]
-        f32 = dtype == torch.float32
-        tol = F32_ATTN_TOL if f32 else ATTN_TOL
+        f32, f16 = dtype == torch.float32, dtype == torch.float16
+        tol = F32_ATTN_TOL if f32 else F16_ATTN_TOL if f16 else ATTN_TOL
 
         def heads(x):
             return x.view(x.shape[0], x.shape[1], H, D).transpose(1, 2)
@@ -617,12 +661,14 @@ def phase_kernels(coef, sd_coef, fused_classes, sd21_classes):
         skip_rows = int(kw["skip_endpoints"].sum()) if "skip_endpoints" in kw else 0
         per_row = isinstance(Le, tuple)
         bound_ms, bound_by = attention_bound(mode, B, H, Sq, L, D, Le[1] if per_row else Le, skip_rows=skip_rows,
-                                             elem=4 if f32 else 2, tf32_passes=3 if f32 else None, per_row=per_row)
+                                             elem=4 if f32 else 2, tf32_passes=3 if f32 else None, per_row=per_row,
+                                             kind="f16" if f16 else "bf16")
         library = sdpa_backends(q, k, v, want, reps) if mode == "self" else {}
         lib_err = (f"; library max_abs_err {', '.join(f'{n} {t[1]:.3e}' for n, t in library.items())}"
                    if f32 and library else "")
         ok = math.isfinite(err) and err <= tol * ref
-        print(f"attention {'f32 ' if f32 else ''}{label:32s} B={B} H={H} D={D}: max_abs_err {err:.3e} (max|ref| "
+        print(f"attention {'f32 ' if f32 else 'f16 ' if f16 else ''}{label:32s} B={B} H={H} D={D}: max_abs_err "
+              f"{err:.3e} (max|ref| "
               f"{ref:.3e}, tol {tol * ref:.3e}) rel_l2 {rl2:.3e}  kernel {ms:.4f} ms (launch alone {kernel_ms:.4f}, "
               f"{bound_ms / kernel_ms:.1%} of the bound)  "
               f"plain {plain_ms:.3f} ms  {yardsticks(bound_ms, bound_by, library)}{lib_err}  {'ok' if ok else 'FAIL'}",
@@ -751,6 +797,17 @@ def phase_kernels(coef, sd_coef, fused_classes, sd21_classes):
     records["flash_interpolated_attention_f32(D=40/80/160)"] = attention_record(
         f32_sd, sd_coef, "SD1.5 fused_outer 4096", "SD1.5 self 4096", torch.float32)
 
+    # the f16 instance at the bf16 rows' SDXL and SD1.5 shapes (phase 20's
+    # f16 UNets), half the reps
+    gen = f16_gen
+    records["flash_interpolated_attention_f16"] = attention_record(
+        [(label, mode, H, Sq, L, D, max(1, reps // 2), Le) for label, mode, H, Sq, L, D, reps, Le in sdxl_cases],
+        coef, "fused_outer 4096", "self 4096", torch.float16)
+    records["flash_interpolated_attention_f16(D=40/80/160)"] = attention_record(
+        [(f"SD1.5 {label}", mode, 8, Sq, L, D, max(1, reps // 2), Le) for label, mode, Sq, L, D, reps, Le in sd_cases],
+        sd_coef, "SD1.5 fused_outer 4096", "SD1.5 self 4096", torch.float16)
+    gen = main_gen
+
     def conv_case(label, x, w, b, factors=(), ring=None, reps=10, packed=False):
         """One conv class: the kernel through its wrapper (ms: the call the
         model makes, the layout kernel's pass over x included, the weight's
@@ -764,8 +821,9 @@ def phase_kernels(coef, sd_coef, fused_classes, sd21_classes):
         GN+SiLU conv, whose prologue is the layout pass's
         (aid_conv3x3_gnsilu_f32: layout_ms), then the f32 conv launch
         (kernel_ms). Returns (record, want)."""
-        f32 = x.dtype == torch.float32
-        entry = "aid_conv3x3_f32" if f32 else ("aid_conv3x3_gnsilu_bf16" if factors else "aid_conv3x3_bf16")
+        f32, f16 = x.dtype == torch.float32, x.dtype == torch.float16
+        suffix = "f16" if f16 else "bf16"
+        entry = "aid_conv3x3_f32" if f32 else (f"aid_conv3x3_gnsilu_{suffix}" if factors else f"aid_conv3x3_{suffix}")
         wrapper = (lambda: conv3x3_gnsilu(x, w, b, *factors, 32)) if factors else (
             lambda: conv3x3_same(x, w, b, packed=packed))
         plain = (lambda: conv3x3_gnsilu_plain(x, w, b, *factors, 32)) if factors else (
@@ -775,7 +833,7 @@ def phase_kernels(coef, sd_coef, fused_classes, sd21_classes):
         want = plain()
         diff = (got.float() - want.float()).abs()
         ref = want.float().abs().max().item()
-        tol = (F32_CONV_TOL if f32 else GNSILU_TOL if factors else CONV_TOL) * ref
+        tol = (F32_CONV_TOL if f32 else F16_CONV_TOL if f16 else GNSILU_TOL if factors else CONV_TOL) * ref
         if ring is None:
             errs = {"": diff.max().item()}
         else:
@@ -801,7 +859,7 @@ def phase_kernels(coef, sd_coef, fused_classes, sd21_classes):
         plain_ms = cuda_ms(plain, reps)
         Bx, cin, H, W = x.shape
         bound_ms, bound_by = conv_bound(Bx, H, W, cin, w.shape[0], prologue=bool(factors),
-                                        tf32_passes=3 if f32 else None)
+                                        tf32_passes=3 if f32 else None, kind=suffix)
         library = {} if factors else library_conv_ms(x, w, b, reps)
         ok = all(math.isfinite(e) and e <= tol for e in errs.values())
         print(f"{label}: max_abs_err {' '.join(f'{k}{e:.3e}' for k, e in errs.items())} (max|ref| {ref:.3e}, "
@@ -849,6 +907,25 @@ def phase_kernels(coef, sd_coef, fused_classes, sd21_classes):
     r, _ = conv_case(f"conv3x3 packed=True B={B} 640->320 @128x128", x, w, b, packed=True)
     records["conv3x3_same(packed=True)"] = r
     del x, w, b, got
+
+    # the f16 instance at the SDXL classes (phase 20's f16 SDXL UNet), both packed flags
+    worst, gen = 0.0, f16_gen
+    for cin, cout in ((960, 320), (640, 320), (640, 640)):
+        x = randn(B, cin, 128, 128, dtype=torch.float16)
+        w = randn(cout, cin, 3, 3, dtype=torch.float16) * (9 * cin) ** -0.5
+        b = randn(cout, dtype=torch.float16)
+        r, _ = conv_case(f"conv3x3 f16 B={B} {cin}->{cout} @128x128", x, w, b, reps=5)
+        worst = max(worst, r["max_abs_err"])
+        if cin == 960:
+            main = r
+        if (cin, cout) == (640, 320):
+            if not torch.equal(conv3x3_same(x, w, b, packed=True), conv3x3_same(x, w, b)):
+                fail("f16 conv3x3_same(packed=True) does not launch the prologue-free f16 kernel")
+            records["conv3x3_same_f16(packed=True)"], _ = conv_case(
+                f"conv3x3 f16 packed=True B={B} 640->320 @128x128", x, w, b, reps=5, packed=True)
+        del x, w, b
+    records["conv3x3_same_f16"] = {**main, "max_abs_err": worst}
+    gen = main_gen
 
     # the f32 conv at the f32 SDXL UNet's classes (phase 11), f32 draws at
     # full mantissa; cuDNN in f32 with TF32 off is the library call
@@ -918,76 +995,86 @@ def phase_kernels(coef, sd_coef, fused_classes, sd21_classes):
         del q, k, v, got, want, launch
     records["flash_self_attention_f32"] = {**main, **sd15, **tile, "max_abs_err": worst}
 
-    # the same attention in a bf16 VAE: one 1024px SDXL frame, SD1.5's
-    # batched 512px decode (also a 512px tile or encode), and a ragged
-    # sequence; timed through the wrapper (ms) and launched alone on
-    # operands d512_launch prepared once (kernel_ms); SDPA under each
-    # backend that takes bf16 at D=512
-    worst = 0.0
-    for n, S, reps in ((1, 16384, 5), (7, 4096, 5), (1, 4000, 10)):
-        q, k, v = (randn(n, 1, S, 512) for _ in range(3))
-        got = flash_interpolated_attention(q, k, v)  # routed by dtype and head dim, as the VAE calls it
-        torch.cuda.synchronize()
-        want = flash_interpolated_attention_plain(q, k, v)
-        err, ref = (got.float() - want.float()).abs().max().item(), want.float().abs().max().item()
-        _, launch = d512_launch(q, k, v)
-        kernel_ms = cuda_ms(launch, reps)
-        ms = cuda_ms(lambda: flash_self_attention_bf16(q, k, v), reps)
-        plain_ms = cuda_ms(lambda: flash_interpolated_attention_plain(q, k, v), reps)
-        bound_ms, bound_by = attention_bound("self", n, 1, S, S, 512)
-        library = sdpa_backends(q, k, v, want, reps)
-        ok = math.isfinite(err) and err <= BF16_D512_TOL * ref
-        print(f"attention bf16 self ({n},1,{S},512): max_abs_err {err:.3e} (max|ref| {ref:.3e}, "
-              f"tol {BF16_D512_TOL * ref:.3e}) rel_l2 {rel_l2(got, want):.3e}  kernel {ms:.4f} ms (launch alone "
-              f"{kernel_ms:.4f})  plain {plain_ms:.3f} ms  {yardsticks(bound_ms, bound_by, library)}; library "
-              f"max_abs_err {', '.join(f'{b} {t[1]:.3e}' for b, t in library.items())}  {'ok' if ok else 'FAIL'}",
-              flush=True)
-        if not ok:
-            fail(f"bf16 D=512 attention ({n},1,{S},512): kernel disagrees with the plain version")
-        worst = max(worst, err)
-        if S == 16384:
-            lib_name, lib_ms = fastest(library)
-            main = {"ms": ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                    "bound_by": bound_by, "library_ms": lib_ms, "library": lib_name}
-        elif S == 4096:
-            sd15 = {"sd15_ms": ms, "sd15_kernel_ms": kernel_ms, "sd15_bound_ms": bound_ms,
-                    "sd15_library_ms": fastest(library)[1]}
-        del q, k, v, got, want, launch
-    records["flash_self_attention_bf16"] = {**main, **sd15, "max_abs_err": worst}
+    # the same attention in a bf16 VAE, and in an f16 VAE (phase 20): one
+    # 1024px SDXL frame, SD1.5's batched 512px decode (also a 512px tile or
+    # encode), and a ragged sequence; timed through the wrapper (ms) and
+    # launched alone on operands d512_launch prepared once (kernel_ms); SDPA
+    # under each backend that takes the dtype at D=512
+    for name, dtype, tol, wrapper in (("bf16", torch.bfloat16, BF16_D512_TOL, flash_self_attention_bf16),
+                                      ("f16", torch.float16, F16_ATTN_TOL, flash_self_attention_f16)):
+        worst, gen = 0.0, f16_gen if dtype == torch.float16 else main_gen
+        for n, S, reps in ((1, 16384, 5), (7, 4096, 5), (1, 4000, 10)):
+            q, k, v = (randn(n, 1, S, 512, dtype=dtype) for _ in range(3))
+            got = flash_interpolated_attention(q, k, v)  # routed by dtype and head dim, as the VAE calls it
+            torch.cuda.synchronize()
+            want = flash_interpolated_attention_plain(q, k, v)
+            err, ref = (got.float() - want.float()).abs().max().item(), want.float().abs().max().item()
+            _, launch = d512_launch(q, k, v)
+            kernel_ms = cuda_ms(launch, reps)
+            ms = cuda_ms(lambda: wrapper(q, k, v), reps)
+            plain_ms = cuda_ms(lambda: flash_interpolated_attention_plain(q, k, v), reps)
+            bound_ms, bound_by = attention_bound("self", n, 1, S, S, 512, kind=name)
+            library = sdpa_backends(q, k, v, want, reps)
+            ok = math.isfinite(err) and err <= tol * ref
+            print(f"attention {name} self ({n},1,{S},512): max_abs_err {err:.3e} (max|ref| {ref:.3e}, "
+                  f"tol {tol * ref:.3e}) rel_l2 {rel_l2(got, want):.3e}  kernel {ms:.4f} ms (launch alone "
+                  f"{kernel_ms:.4f})  plain {plain_ms:.3f} ms  {yardsticks(bound_ms, bound_by, library)}; library "
+                  f"max_abs_err {', '.join(f'{b} {t[1]:.3e}' for b, t in library.items())}  {'ok' if ok else 'FAIL'}",
+                  flush=True)
+            if not ok:
+                fail(f"{name} D=512 attention ({n},1,{S},512): kernel disagrees with the plain version")
+            worst = max(worst, err)
+            if S == 16384:
+                lib_name, lib_ms = fastest(library)
+                main = {"ms": ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by, "library_ms": lib_ms, "library": lib_name}
+            elif S == 4096:
+                sd15 = {"sd15_ms": ms, "sd15_kernel_ms": kernel_ms, "sd15_bound_ms": bound_ms,
+                        "sd15_library_ms": fastest(library)[1]}
+            del q, k, v, got, want, launch
+        records[f"flash_self_attention_{name}"] = {**main, **sd15, "max_abs_err": worst}
+    gen = main_gen
 
     # kernel B at every (H, W, Cin, Cout) class the fused configuration routes
-    # to it; inputs off zero mean and gamma/beta off 1/0, so silu(shift) is
-    # far from 0 and a halo that took it would show on the border ring
-    worst, total_ms, total_plain = 0.0, 0.0, 0.0
-    for (H, W, cin, cout), calls in sorted(fused_classes.items()):
-        x = (randn(B, cin, H, W).float() * 2.0 + 1.0).to(torch.bfloat16)
-        w = randn(cout, cin, 3, 3) * (9 * cin) ** -0.5
-        b = randn(cout)
-        gamma = 1.0 + 0.3 * torch.randn(cin, generator=gen, device=dev)
-        beta = 0.5 * torch.randn(cin, generator=gen, device=dev)
-        ring = torch.zeros(H, W, dtype=torch.bool, device=dev)
-        ring[0], ring[-1], ring[:, 0], ring[:, -1] = True, True, True, True
-        r, want = conv_case(f"conv3x3_gnsilu B={B} {cin}->{cout} @{H}x{W} ({calls}/forward)", x, w, b,
-                            (gamma, beta), ring, reps=5)
-        worst = max(worst, r["max_abs_err"])
-        total_ms += calls * r["ms"]
-        total_plain += calls * r["plain_ms"]
-        if (H, cin, cout) == (128, 960, 320):
-            main = r
-    print(f"conv3x3_gnsilu per fused UNet forward (B={B}, {sum(fused_classes.values())} calls): "
-          f"kernel {total_ms:.2f} ms through the wrapper, plain chain {total_plain:.2f} ms", flush=True)
-    # the border-ring check must see a halo that took silu(shift): the
-    # planted fault on the last class moves the ring, not the interior
-    ref = want.float().abs().max().item()
-    fault = halo_fault_plain(x, w, b, gamma, beta, 32)
-    fdiff = (fault.float() - want.float()).abs()
-    f_ring, f_in = fdiff[:, :, ring].max().item(), fdiff[:, :, ~ring].max().item()
-    print(f"conv3x3_gnsilu planted halo fault @{H}x{W}: border {f_ring:.3e}, interior {f_in:.3e} "
-          f"(tol {GNSILU_TOL * ref:.3e})", flush=True)
-    if not f_ring > GNSILU_TOL * ref:
-        fail("the border-ring check does not see a halo fault")
-    records["conv3x3_gnsilu"] = {**main, "max_abs_err": worst}
-    bf16_main = main
+    # to it, in bf16 and in f16 (phase 20's fused f16 SDXL forward); inputs
+    # off zero mean and gamma/beta off 1/0, so silu(shift) is far from 0 and
+    # a halo that took it would show on the border ring
+    for name, dtype, tol in (("conv3x3_gnsilu", torch.bfloat16, GNSILU_TOL),
+                             ("conv3x3_gnsilu_f16", torch.float16, F16_CONV_TOL)):
+        worst, total_ms, total_plain = 0.0, 0.0, 0.0
+        gen = f16_gen if dtype == torch.float16 else main_gen
+        for (H, W, cin, cout), calls in sorted(fused_classes.items()):
+            x = (randn(B, cin, H, W).float() * 2.0 + 1.0).to(dtype)
+            w = randn(cout, cin, 3, 3, dtype=dtype) * (9 * cin) ** -0.5
+            b = randn(cout, dtype=dtype)
+            gamma = 1.0 + 0.3 * torch.randn(cin, generator=gen, device=dev)
+            beta = 0.5 * torch.randn(cin, generator=gen, device=dev)
+            ring = torch.zeros(H, W, dtype=torch.bool, device=dev)
+            ring[0], ring[-1], ring[:, 0], ring[:, -1] = True, True, True, True
+            label = f"{name} B={B} {cin}->{cout} @{H}x{W} ({calls}/forward)"
+            r, want = conv_case(label, x, w, b, (gamma, beta), ring, reps=5 if dtype == torch.bfloat16 else 3)
+            worst = max(worst, r["max_abs_err"])
+            total_ms += calls * r["ms"]
+            total_plain += calls * r["plain_ms"]
+            if (H, cin, cout) == (128, 960, 320):
+                main = r
+        print(f"{name} per fused UNet forward (B={B}, {sum(fused_classes.values())} calls): "
+              f"kernel {total_ms:.2f} ms through the wrapper, plain chain {total_plain:.2f} ms", flush=True)
+        # the border-ring check must see a halo that took silu(shift): the
+        # planted fault on the last class moves the ring, not the interior
+        ref = want.float().abs().max().item()
+        fault = halo_fault_plain(x, w, b, gamma, beta, 32)
+        fdiff = (fault.float() - want.float()).abs()
+        f_ring, f_in = fdiff[:, :, ring].max().item(), fdiff[:, :, ~ring].max().item()
+        print(f"{name} planted halo fault @{H}x{W}: border {f_ring:.3e}, interior {f_in:.3e} "
+              f"(tol {tol * ref:.3e})", flush=True)
+        if not f_ring > tol * ref:
+            fail(f"the {name} border-ring check does not see a halo fault")
+        records[name] = {**main, "max_abs_err": worst}
+        if dtype == torch.bfloat16:
+            bf16_main = main
+        del x, w, b, want, fault
+    gen = main_gen
 
     # TPU kernel #5 in f32: the prologue in the f32 layout pass, then the f32
     # conv kernel; at SDXL's (7,960,128,128) -> 320 beside the bf16 kernel
@@ -1798,13 +1885,33 @@ def phase_sd15_image(unet, card: str, steps: int, text_cfg=None, vae_cfg=None):
     return paths
 
 
-def check_f32_only(path: str, counts: dict, needed) -> None:
-    """check_path, and no launch of a bf16 kernel on an f32 path."""
+# each kernel's launch count by the dtype of the kernel
+KERNELS_BY_DTYPE = {
+    "bf16": ("flash_interpolated_attention", "flash_self_attention_bf16", "conv3x3_same", "conv3x3_gnsilu"),
+    "f16": ("flash_interpolated_attention_f16", "flash_self_attention_f16", "conv3x3_same_f16", "conv3x3_gnsilu_f16"),
+    "f32": ("flash_interpolated_attention_f32", "flash_self_attention_f32", "conv3x3_same_f32", "conv3x3_gnsilu_f32"),
+}
+
+
+def check_dtype_only(dtype: str, path: str, counts: dict, needed, allowed=()) -> None:
+    """check_path, and no launch of a kernel of another dtype on a ``dtype``
+    path except the counts named in ``allowed``."""
     check_path(path, counts, needed)
-    bf16 = {n: counts[n] for n in ("flash_interpolated_attention", "flash_self_attention_bf16", "conv3x3_same",
-                                   "conv3x3_gnsilu")}
-    if any(bf16.values()):
-        fail(f"the f32 {path} path launched bf16 kernels: {bf16}")
+    other = {n: counts[n] for d, names in KERNELS_BY_DTYPE.items() if d != dtype for n in names if n not in allowed}
+    if any(other.values()):
+        fail(f"the {dtype} {path} path launched kernels of another dtype: {other}")
+
+
+def check_f32_only(path: str, counts: dict, needed) -> None:
+    """check_path, and no launch of a bf16 or f16 kernel on an f32 path."""
+    check_dtype_only("f32", path, counts, needed)
+
+
+def check_f16_only(path: str, counts: dict, needed, allowed=()) -> None:
+    """check_path, and no launch of a bf16 or f32 kernel on an f16 path
+    except the counts named in ``allowed`` (the f32 VAE's attention where the
+    loader keeps the VAE in f32)."""
+    check_dtype_only("f16", path, counts, needed, allowed)
 
 
 def phase_f32_sdxl(card: str):
@@ -3605,6 +3712,182 @@ def phase_frames(card: str, device: str = "cuda", unet_cfg=None, steps: int = SD
     return paths
 
 
+# Phase 20's whole-model bounds, the LARGEST PER-FRAME relative L2 of the
+# output, kernels vs plain, both in f16. Every kernel differs from its plain
+# f16 version by a few f16 roundings (2^-11), and the rest of the model is
+# the same f16 code on both sides, so the sound readings sit about eight
+# times under bf16's. On an NVIDIA H100 80GB HBM3 at 700 W (these seeds;
+# deterministic), sound / smaller planted fault:
+#   * the f16 SD1.5 UNet: 2.78e-4 in every frame / endpoints swapped 3.18e-3
+#     (fused_outer computed as self 2.73e-2). 1e-3 lies between: 3.6x the
+#     sound reading, 0.31x the fault;
+#   * the f16 SDXL UNet: 3.19e-4 / endpoints swapped 8.85e-3 (self 4.48e-2).
+#     1.5e-3: 4.7x, 0.17x;
+#   * the same with the fused GN+SiLU configuration: 3.15e-4 / the halo not
+#     re-zeroed 5.52e-3 (4.74e-3 in its smallest frame). 1e-3: 3.2x, 0.18x;
+#   * the f16 VAE's raw decoder output of one 512px frame (only the D=512
+#     attention differs; the convs are cuDNN f16 on both sides): 3.46e-4 /
+#     the attention not normalised 4.1e-1. 2e-3: 5.8x the sound reading.
+# Phase 20 measures every fault in every run and fails if its bound does not
+# separate it.
+F16_SD15_UNET_TOL = 1e-3
+F16_UNET_TOL = 1.5e-3
+F16_FUSED_UNET_TOL = 1e-3
+F16_VAE_TOL = 2e-3
+
+
+def phase_f16(card: str, steps: int) -> list:
+    """Phase 20: the f16 path at full width, as the upstream CUDA reference
+    runs SD (``torch_dtype=torch.float16``), every UNet and VAE kernel an f16
+    one. (a) SD 1.5: a full-width diffusers directory written from a seed
+    (f16 safetensors) into the git-ignored build/ and loaded with
+    ``load_interpolation_pipeline(dir, dtype=torch.float16)`` (UNet f16,
+    text encoder f32, VAE f32 by force_upcast), one fused_outer forward
+    kernels vs plain with two planted faults, ``interpolate`` (PAID, 7
+    frames, 512px, SD15_STEPS DDIM steps, guidance 7.5) and
+    ``interpolate_single(0.5)``, s/step; (c) the same directory's VAE loaded
+    with ``load_vae(dir, dtype=torch.float16)``: one 512px frame's raw
+    decoder output kernels vs plain with a planted fault (the f16 D=512
+    attention); (b) SDXL, ``build_headline(dtype=torch.float16)``: one
+    fused_outer forward kernels vs plain with two planted faults, a denoise
+    at ``steps`` (s/step), and one forward in the fused GN+SiLU
+    configuration with its halo fault. No path launches a bf16 or f32 kernel
+    but the f32 VAE's attention in (a)'s decodes. Returns the paths' counts."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from aid_tpu_torch.models import loader
+    from aid_tpu_torch.models.layers import AidContext, AidMode
+    from aid_tpu_torch.schedulers import DDIMScheduler
+
+    f16, dev = torch.float16, torch.device("cuda")
+    print(f"== phase 20: f16 at full width: SD1.5 through load_interpolation_pipeline(dtype=torch.float16) (forward "
+          f"kernels vs plain, interpolate 7 frames and interpolate_single, {SD15_STEPS} DDIM steps at 512px), an f16 "
+          f"VAE decode, the f16 SDXL UNet (forward, {steps}-step denoise, fused GN+SiLU forward)", flush=True)
+    paths = []
+    heads = tuple(f"flash_interpolated_attention_f16[D={d}]" for d in (40, 80, 160))
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="sd15-f16-checkpoint-", dir=os.path.join(ROOT, "build"))
+    try:
+        configs = {k: v for k, v in sd15_diffusers_configs().items() if k != "safety_checker"}
+        t0 = time.perf_counter()
+        nbytes = write_checkpoint(root, seed=2, configs=configs)
+        print(f"wrote a full-width SD1.5 diffusers directory ({nbytes / 2**30:.2f} GiB of f16 weights) in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        t0 = time.perf_counter()
+        pipe = loader.load_interpolation_pipeline(root, dtype=f16)
+        vae16 = loader.load_vae(os.path.join(root, "vae"), dtype=f16)
+        torch.cuda.synchronize()
+        print(f"load_interpolation_pipeline(dir, dtype=torch.float16) and load_vae(dir/vae, dtype=torch.float16) in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    placed = {name: ({p.device.type for p in m.parameters()}, {p.dtype for p in m.parameters()})
+              for name, m in (("unet", pipe.unet), ("vae", pipe.vae), ("text_encoder", pipe.text_encoder),
+                              ("f16 vae", vae16))}
+    print(f"modules (devices, dtypes): {placed}; scheduler {type(pipe.scheduler).__name__}; guidance "
+          f"{pipe.guidance_scale}", flush=True)
+    want = {"unet": f16, "vae": torch.float32, "text_encoder": torch.float32, "f16 vae": f16}
+    if any(placed[n] != ({"cuda"}, {want[n]}) for n in placed) or not isinstance(pipe.scheduler, DDIMScheduler):
+        fail(f"the loader placed the f16 SD1.5 modules at {placed}; the UNet in f16, the text encoder and VAE in f32 "
+             f"(force_upcast), load_vae(dtype=torch.float16) in f16, all on the card, and DDIM expected")
+
+    # (a) the f16 SD1.5 UNet: one forward kernels vs plain, then the pipeline
+    unet, cfg = pipe.unet, pipe.unet.config
+    s = cfg.sample_size
+    gen = torch.Generator(device=dev).manual_seed(3)
+    sample = torch.randn((7, cfg.in_channels, s, s), generator=gen, device=dev).to(f16)
+    ehs = torch.randn((7, 77, cfg.cross_attention_dim), generator=gen, device=dev).to(f16)
+    t = torch.tensor(500, device=dev)
+    counts = check_unet_vs_plain(f"f16 SD1.5 unet fused_outer B=7 {s}x{s}", lambda aid: unet(sample, t, ehs, aid),
+                                 AidContext(coef=sd15_coef().to(dev), mode=AidMode.from_name("fused_outer")),
+                                 F16_SD15_UNET_TOL)
+    check_f16_only("f16 SD1.5 forward", counts, heads)
+    paths.append(counts)
+    del sample, ehs
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    latent_a, latent_b = pipe.generate_latent(gen), pipe.generate_latent(gen)
+    px = s * 2 ** (len(pipe.vae.config.block_out_channels) - 1)
+
+    def interpolate(**kw):
+        return pipe.interpolate(latent_a, latent_b, "prompt A", "prompt B", guide_prompt="a guide prompt", size=7,
+                                num_inference_steps=SD15_STEPS, **kw)
+
+    images, counts, times, decoder_inputs, elapsed, peak = run_image_path(pipe, pipe.vae, interpolate, SD15_STEPS, 7)
+    check_images(f"f16 SD1.5 interpolate (PAID, {SD15_STEPS} DDIM steps, f32 VAE)", images, (7, px, px, 3), times,
+                 elapsed, peak, card)
+    check_f16_only("f16 SD1.5 interpolate", counts, heads + ("flash_self_attention_f32",),
+                   allowed=("flash_self_attention_f32",))
+    if counts["flash_self_attention_f32"] != 1:
+        fail(f"f16 SD1.5 interpolate: {counts['flash_self_attention_f32']} launches of the f32 VAE's attention, one "
+             f"batched decode (1) expected")
+    print(f"f16 SD1.5 interpolate: launches by head dim "
+          f"{ {d: counts[f'flash_interpolated_attention_f16[D={d}]'] for d in (40, 80, 160)} }", flush=True)
+    paths.append(counts)
+    per_step = []
+    for _ in range(2):
+        _, _, warm, _, _, _ = run_image_path(pipe, pipe.vae, lambda: interpolate(output_type="latent"), SD15_STEPS, 7)
+        per_step.append(warm["s_per_step"])
+    print(f"f16 SD1.5 interpolate, sequential CFG: first run {times['s_per_step']:.4f} s/step, 2 warm runs "
+          f"{' '.join(f'{x:.4f}' for x in per_step)} s/step on {card}", flush=True)
+    single, counts, times1, _, elapsed, peak = run_image_path(
+        pipe, pipe.vae, lambda: pipe.interpolate_single(0.5, latent_a, latent_b, "prompt A", "prompt B",
+                                                        num_inference_steps=SD15_STEPS), SD15_STEPS, 3)
+    check_images("f16 SD1.5 interpolate_single(0.5)", single, (3, px, px, 3), times1, elapsed, peak, card)
+    check_f16_only("f16 SD1.5 interpolate_single", counts, heads + ("flash_self_attention_f32",),
+                   allowed=("flash_self_attention_f32",))
+    paths.append(counts)
+
+    # (c) the f16 VAE: the raw decoder output of the interpolate's least
+    # saturated frame, kernels (the f16 D=512 attention) vs plain
+    inside = ((images > 0) & (images < 255)).reshape(7, -1).mean(axis=1)
+    frame = int(inside.argmax())
+    z = decoder_inputs[0][frame:frame + 1].to(f16)
+    reset_counts()
+    check_decoder(vae16.decode, z, images, frame, F16_VAE_TOL, "raw f16 decoder output", attention_unnormalised_fault)
+    counts = read_counts()
+    check_f16_only("f16 VAE decode", counts, ("flash_self_attention_f16",))
+    if counts["flash_self_attention_f16"] != 1:
+        fail(f"f16 VAE decode: {counts['flash_self_attention_f16']} launches of the f16 D=512 attention, 1 expected")
+    paths.append(counts)
+    del pipe, unet, vae16, images, single, decoder_inputs, z
+    torch.cuda.empty_cache()
+
+    # (b) the f16 SDXL UNet: the headline program in f16
+    unet, sample, ehs, uncond, added, coef = build_headline(dtype=f16)
+    t = torch.tensor(500.0, device=dev)
+    aid = AidContext(coef=coef, mode=AidMode.from_name("fused_outer"))
+
+    def forward(aid_ctx=aid):
+        return unet(sample, t, ehs, aid_ctx, added)
+
+    needed = ("flash_interpolated_attention_f16[D=64]", "conv3x3_same_f16")
+    counts = check_unet_vs_plain(f"f16 SDXL unet fused_outer B={sample.shape[0]} 128x128", forward, aid, F16_UNET_TOL)
+    check_f16_only("f16 SDXL forward", counts, needed)
+    paths.append(counts)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    out, elapsed = run_denoise(unet, sample, ehs, uncond, added, coef, steps)
+    counts = read_counts()
+    checksum = float(out.float().sum())
+    print(f"f16 SDXL denoise: checksum {checksum!r}; output {tuple(out.shape)} {out.dtype}; {elapsed / steps:.3f} "
+          f"s/step ({steps} steps, {steps // 2} fused_outer warmup, the first included); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {card}", flush=True)
+    if tuple(out.shape) != tuple(sample.shape) or out.dtype != f16 or not math.isfinite(checksum):
+        fail(f"f16 SDXL denoise returned {tuple(out.shape)} {out.dtype}, checksum {checksum}")
+    check_f16_only("f16 SDXL denoise", counts, needed)
+    paths.append(counts)
+    counts = check_fused_vs_plain(f"f16 SDXL unet, fused GN+SiLU, fused_outer B={sample.shape[0]} 128x128", forward,
+                                  F16_FUSED_UNET_TOL, "conv3x3_gnsilu_f16")
+    check_f16_only("f16 SDXL fused GN forward", counts, needed + ("conv3x3_gnsilu_f16",))
+    paths.append(counts)
+    return paths
+
+
 def stub_gradio():
     """A stand-in ``gradio`` module that builds nothing and keeps the
     functions wired to buttons (``clicks``): the card's machine has no
@@ -3694,6 +3977,7 @@ def kernels_line(kernels: dict, launches: dict) -> str:
                  "aid_conv3x3_blocked_bf16 of the same source, which every launch runs first); kernel_ms: the "
                  "conv launch alone on operands laid out by aid_tpu_torch/ops/conv.py::kernel_operands; "
                  "layout_ms: the layout kernel alone, layout_plain_ms: torch's permuting copy")
+    conv_note_f16 = conv_note.replace("aid_conv3x3_blocked_bf16", "aid_conv3x3_blocked_f16")
     attn_note = ("ms: through the wrapper, as the model calls it; kernel_ms: the launch alone on operands "
                  "aid_tpu_torch/ops/flash_attention.py::kernel_launch prepared once")
     f32_wgmma = "wgmma 3xTF32 (raw hi), TMA, a split/transpose producer warpgroup"
@@ -3776,6 +4060,32 @@ def kernels_line(kernels: dict, launches: dict) -> str:
                                             "alone, layout_plain_ms: torch's prologue and permuting copy; "
                                             "sd21_*: the classes of SD 2.1's f32 UNet with the fused "
                                             "configuration, per forward"}),
+        # the f16 instances of the bf16 designs (one source each, the element
+        # type a template parameter): phase 20's paths
+        "flash_interpolated_attention_f16": (
+            flash_src, flash_replaces[0], ("flash_interpolated_attention_f16[D=64]",),
+            {**flash_replaces[1], "entry": "aid_flash_attn_f16",
+             "contract": "f16, head dim 64, every mode (an f16 SDXL / SD2.x UNet); ms at fused_outer "
+                         f"(7,10,4096,64), self_* at self (7,10,4096,64); {attn_note}"}),
+        "flash_interpolated_attention_f16(D=40/80/160)": (
+            flash_src, flash_replaces[0], tuple(f"flash_interpolated_attention_f16[D={d}]" for d in (40, 80, 160)),
+            {**flash_replaces[1], "entry": "aid_flash_attn_f16",
+             "contract": "f16, head dims 40/80/160, every mode (an f16 SD1.x UNet); ms at fused_outer "
+                         f"(7,8,4096,40), self_* at self (7,8,4096,40); {attn_note}"}),
+        "flash_self_attention_f16": (
+            "aid_tpu_torch/csrc/flash_attention_bf16_d512.cu", flash_replaces[0], ("flash_self_attention_f16",),
+            {**flash_replaces[1], "entry": "aid_flash_attn_f16_d512",
+             "contract": "f16, head dim 512, self (an f16 VAE's mid block); ms at (1,1,16384,512), sd15_* at "
+                         "(7,1,4096,512); ms: through the wrapper, as the model calls it; kernel_ms: the launch "
+                         "alone on operands aid_tpu_torch/ops/flash_attention.py::d512_launch prepared once"}),
+        "conv3x3_same_f16": (conv_src, "aid_tpu/ops/conv.py:30", ("conv3x3_same_f16",),
+                             {"entry": "aid_conv3x3_f16", "contract": f"f16, (7,960,128,128) -> 320; {conv_note_f16}"}),
+        "conv3x3_same_f16(packed=True)": (conv_src, "aid_tpu/ops/conv.py:47", ("conv3x3_same_f16",),
+                                          {"shares_kernel_with": "conv3x3_same_f16", "entry": "aid_conv3x3_f16",
+                                           "contract": f"f16, (7,640,128,128) -> 320; {conv_note_f16}"}),
+        "conv3x3_gnsilu_f16": (conv_src, "aid_tpu/ops/conv.py:78", ("conv3x3_gnsilu_f16",),
+                               {"entry": "aid_conv3x3_gnsilu_f16",
+                                "contract": f"f16, (7,960,128,128) -> 320 with the GN+SiLU prologue; {conv_note_f16}"}),
     }
     record = []
     for name, (src, replaces, counters, extra) in rows.items():
@@ -3841,6 +4151,8 @@ def main(argv=None) -> int:
     paths += phase_ip_adapter(card)
     torch.cuda.empty_cache()
     paths += phase_single_file(card)
+    torch.cuda.empty_cache()
+    paths += phase_f16(card, args.steps)
     torch.cuda.empty_cache()
     paths += phase_frames(card)  # phase 19 (b)
     launches = {name: sum(p[name] for p in paths) for name in paths[0]}

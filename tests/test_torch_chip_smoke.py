@@ -57,7 +57,9 @@ def _load_smoke():
 KERNEL_NAMES = ("flash_interpolated_attention", "flash_interpolated_attention(D=40/80/160)",
                 "flash_self_attention_f32", "flash_self_attention_bf16", "conv3x3_same", "conv3x3_same(packed=True)",
                 "conv3x3_gnsilu", "flash_interpolated_attention_f32", "flash_interpolated_attention_f32(D=40/80/160)",
-                "conv3x3_same_f32", "conv3x3_gnsilu_f32")
+                "conv3x3_same_f32", "conv3x3_gnsilu_f32", "flash_interpolated_attention_f16",
+                "flash_interpolated_attention_f16(D=40/80/160)", "flash_self_attention_f16", "conv3x3_same_f16",
+                "conv3x3_same_f16(packed=True)", "conv3x3_gnsilu_f16")
 
 
 def test_kernels_line_carries_bound_and_library_time():
@@ -81,6 +83,8 @@ def test_kernels_line_carries_bound_and_library_time():
     launches.update({c: 3 for c in ("flash_self_attention_f32", "flash_self_attention_bf16", "conv3x3_same",
                                     "conv3x3_gnsilu", "conv3x3_same_f32")})
     launches["conv3x3_gnsilu_f32"] = 4
+    launches.update({f"flash_interpolated_attention_f16[D={d}]": d for d in (40, 64, 80, 160)})
+    launches.update({"flash_self_attention_f16": 5, "conv3x3_same_f16": 6, "conv3x3_gnsilu_f16": 7})
     entries = json.loads(smoke.kernels_line(records, launches))["kernels"]
     assert [e["name"] for e in entries] == list(KERNEL_NAMES)
     for e, name in zip(entries, KERNEL_NAMES):
@@ -91,9 +95,10 @@ def test_kernels_line_carries_bound_and_library_time():
         if name.startswith("conv"):
             for part in ("ms: through the wrapper", "kernel_ms: the conv launch alone", "layout_ms: the layout kernel"):
                 assert part in e["contract"]
-        if name.startswith("conv") or name.startswith("flash_interpolated") or name == "flash_self_attention_bf16":
+        if name.startswith("conv") or name.startswith("flash_interpolated") or name in (
+                "flash_self_attention_bf16", "flash_self_attention_f16"):
             assert e["kernel_ms"] == records[name]["kernel_ms"]
-        if name.startswith("flash_interpolated") or name == "flash_self_attention_bf16":
+        if name.startswith("flash_interpolated") or name in ("flash_self_attention_bf16", "flash_self_attention_f16"):
             for part in ("ms: through the wrapper", "kernel_ms: the launch alone"):
                 assert part in e["contract"]
         assert (REPO / e["source"]).is_file()
@@ -112,6 +117,18 @@ def test_kernels_line_carries_bound_and_library_time():
     gn32 = by_name["conv3x3_gnsilu_f32"]
     assert gn32["source"].endswith("conv3x3_f32.cu") and gn32["replaces"] == "aid_tpu/ops/conv.py:78"
     assert gn32["launches"] == 4 and gn32["library_ms"] is None
+    # the f16 instances: the bf16 designs' sources, their own C entries and launch counts
+    f16 = {n: by_name[n] for n in KERNEL_NAMES[-6:]}
+    assert f16["flash_interpolated_attention_f16"]["source"].endswith("flash_interpolated_attention.cu")
+    assert f16["flash_interpolated_attention_f16"]["launches"] == 64
+    assert f16["flash_interpolated_attention_f16(D=40/80/160)"]["launches"] == 40 + 80 + 160
+    assert f16["flash_self_attention_f16"]["source"].endswith("flash_attention_bf16_d512.cu")
+    assert f16["flash_self_attention_f16"]["launches"] == 5
+    assert f16["conv3x3_same_f16"]["launches"] == f16["conv3x3_same_f16(packed=True)"]["launches"] == 6
+    assert f16["conv3x3_gnsilu_f16"]["launches"] == 7 and f16["conv3x3_gnsilu_f16"]["source"].endswith("conv3x3.cu")
+    assert [e["replaces"].split(":")[1] for e in f16.values()] == ["101", "101", "101", "30", "47", "78"]
+    assert {e["entry"] for e in f16.values()} == {"aid_flash_attn_f16", "aid_flash_attn_f16_d512", "aid_conv3x3_f16",
+                                                 "aid_conv3x3_gnsilu_f16"}
 
 
 def test_f32_phases_follow_the_bf16_paths():
@@ -649,3 +666,59 @@ def test_app_phase_rehearses_on_the_cpu(monkeypatch):
     counts = smoke.phase_app(pipe, "cpu")
     assert "flash_interpolated_attention" in counts and "gradio" not in sys.modules
     assert skipped and all("launch" in m for m in skipped)
+
+
+def test_f16_phase_follows_the_single_file_phase():
+    """Phase 20 (the f16 path) exists with its banner and runs after phase 18
+    and before phase 19 (b), which stays last; it writes its SD 1.5
+    directory into the checkout's git-ignored build/ and removes it, loads
+    it with dtype=torch.float16 as users do and its VAE with load_vae(dtype=
+    torch.float16), and checks (a), (b) and (c) with the f16-only guard."""
+    import inspect
+
+    smoke = _load_smoke()
+    src = inspect.getsource(smoke.phase_f16)
+    assert "== phase 20: f16" in src and "20. f16" in smoke.__doc__
+    main = inspect.getsource(smoke.main)
+    assert (main.index("phase_single_file(card)") < main.index("phase_f16(card, args.steps)")
+            < main.index("phase_frames(card)") < main.index("kernels_line("))
+    assert 'dir=os.path.join(ROOT, "build")' in src and "shutil.rmtree(root" in src
+    assert "load_interpolation_pipeline(root, dtype=f16)" in src and "load_vae(os.path.join(root, \"vae\"), dtype=f16)" in src
+    assert "build_headline(dtype=f16)" in src
+    for check in ("check_unet_vs_plain(", "check_decoder(", "check_fused_vs_plain(", "run_denoise("):
+        assert check in src, check
+    assert src.count("check_f16_only(") == 7 and '"conv3x3_gnsilu_f16"' in src
+    tols = (smoke.F16_SD15_UNET_TOL, smoke.F16_UNET_TOL, smoke.F16_FUSED_UNET_TOL, smoke.F16_VAE_TOL)
+    assert all(0 < t < 1e-2 for t in tols)
+
+
+@pytest.mark.parametrize("dtype", ["f16", "f32"])
+def test_dtype_guards_fail_on_another_dtype(dtype):
+    """check_f16_only / check_f32_only, fed read_counts()'s names: they pass
+    a path that launched its own dtype's kernels only (and, for f16, an
+    allowed f32 VAE attention), and fail on any launch of another dtype's
+    kernel or on a needed kernel left unlaunched."""
+    smoke = _load_smoke()
+
+    class Failed(Exception):
+        pass
+
+    def fail(msg):
+        raise Failed(msg)
+
+    smoke.fail = fail
+    guard = smoke.check_f16_only if dtype == "f16" else smoke.check_f32_only
+    counts = {n: 0 for n in smoke.read_counts()}
+    needed = (f"flash_interpolated_attention_{dtype}[D=64]", f"conv3x3_same_{dtype}")
+    for n in needed + (f"flash_interpolated_attention_{dtype}",):
+        counts[n] = 3
+    guard("rehearsal", counts, needed)
+    others = [n for d, names in smoke.KERNELS_BY_DTYPE.items() if d != dtype for n in names]
+    assert len(others) == 8 and set(others) <= set(counts)
+    for name in others:
+        with pytest.raises(Failed, match="another dtype"):
+            guard("rehearsal", {**counts, name: 1}, needed)
+    with pytest.raises(Failed, match="not launched"):
+        guard("rehearsal", {**counts, f"conv3x3_same_{dtype}": 0}, needed)
+    if dtype == "f16":  # the f32 VAE's attention, where the loader keeps the VAE in f32
+        guard("rehearsal", {**counts, "flash_self_attention_f32": 1}, needed, allowed=("flash_self_attention_f32",))

@@ -18,17 +18,21 @@ from aid_tpu_torch.models.layers import per_row_endpoints, skip_mask
 from aid_tpu_torch.ops.attention import AttnMode, dispatch_attention
 from aid_tpu_torch.ops.conv import (
     conv3x3_gnsilu,
+    conv3x3_gnsilu_f16,
     conv3x3_gnsilu_f32,
     conv3x3_gnsilu_plain,
     conv3x3_same,
+    conv3x3_same_f16,
     conv3x3_same_f32,
 )
 from aid_tpu_torch.ops.flash_attention import (
     KERNEL_F32_TILES,
     flash_interpolated_attention,
+    flash_interpolated_attention_f16,
     flash_interpolated_attention_f32,
     flash_interpolated_attention_plain,
     flash_self_attention_bf16,
+    flash_self_attention_f16,
     flash_self_attention_f32,
     padded_head_dim,
 )
@@ -57,6 +61,23 @@ F32_ATTN_RTOL = 1e-4
 # summation order, ~1e-6 of max |ref| at K = 9 * 960. 1e-4 as for the f32
 # attention; plain TF32 (~4e-4 at that K) or a wrong tap would not pass.
 F32_CONV_RTOL = 1e-4
+# f16 inputs and output: the bf16 design's roundings (P, the output) at f16's
+# 2^-11 relative instead of bf16's 2^-8, eight times finer; a quarter of the
+# bf16 bound keeps twice that scaling as margin. A wrong mask, scale, tile
+# or element type (f16 bits read as bf16) is tens of percent.
+F16_ATTN_RTOL = 5e-3
+# f16 conv, f32 accumulation on both sides: as CONV_RTOL at f16's finer
+# output rounding.
+F16_CONV_RTOL = 2.5e-3
+
+# by dtype: the D <= 160 attention wrapper whose counters its launches land
+# in, the D=512 one, and the attention's bound against the plain version
+ATTN_WRAPPER = {torch.bfloat16: flash_interpolated_attention, torch.float16: flash_interpolated_attention_f16,
+                torch.float32: flash_interpolated_attention_f32}
+D512_WRAPPER = {torch.bfloat16: flash_self_attention_bf16, torch.float16: flash_self_attention_f16,
+                torch.float32: flash_self_attention_f32}
+ATTN_RTOLS = {torch.bfloat16: ATTN_RTOL, torch.float16: F16_ATTN_RTOL, torch.float32: F32_ATTN_RTOL}
+DTYPES = dict(argvalues=[torch.bfloat16, torch.float32, torch.float16], ids=["bf16", "f32", "f16"])
 
 
 def _attn_err(got, want):
@@ -70,6 +91,7 @@ def dev():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False  # f16 plain versions reduce in f32
     return torch.device("cuda")
 
 
@@ -227,8 +249,8 @@ def test_flash_kernel_refuses_what_it_does_not_take(dev):
     torch.cuda.synchronize()
     assert flash_interpolated_attention_f32.launches == before + 1
     assert _attn_err(got, flash_interpolated_attention_plain(q, q, q)) < F32_ATTN_RTOL
-    with pytest.raises(NotImplementedError):  # f16 has no instance
-        flash_interpolated_attention(q.half(), q.half(), q.half())
+    with pytest.raises(NotImplementedError):  # f64 has no instance
+        flash_interpolated_attention(q.double(), q.double(), q.double())
     q = _randn((2, 2, 64, 48), 31)  # a head dim with no kernel instance of its own: padded to 64
     for fn, x, rtol in ((flash_interpolated_attention, q, ATTN_RTOL),
                         (flash_interpolated_attention_f32, q.float(), F32_ATTN_RTOL)):
@@ -249,15 +271,15 @@ def test_flash_kernel_refuses_what_it_does_not_take(dev):
     x = _randn((1, 12, 8, 8), 33)  # Cin % 8 != 0
     with pytest.raises(NotImplementedError):
         conv3x3_gnsilu(x, _randn((8, 12, 3, 3), 34), _randn((8,), 35), _randn((12,), 36), _randn((12,), 37), 4)
-    x = _randn((1, 16, 8, 8), 38, torch.float32)  # the GN+SiLU conv has no f16 instance
+    x = _randn((1, 16, 8, 8), 38, torch.float32)  # the GN+SiLU conv has no f64 instance
     with pytest.raises(NotImplementedError):
-        conv3x3_gnsilu(x.half(), _randn((8, 16, 3, 3), 34).half(), _randn((8,), 35, torch.float32),
+        conv3x3_gnsilu(x.double(), _randn((8, 16, 3, 3), 34).double(), _randn((8,), 35, torch.float32),
                        _randn((16,), 36, torch.float32), _randn((16,), 37, torch.float32), 4)
-    with pytest.raises(NotImplementedError):  # nor has f16 a conv instance
-        conv3x3_same(x.half(), _randn((8, 16, 3, 3), 34).half(), _randn((8,), 35).half())
+    with pytest.raises(NotImplementedError):  # nor has f64 a conv instance
+        conv3x3_same(x.double(), _randn((8, 16, 3, 3), 34).double(), _randn((8,), 35).double())
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("dtype", **DTYPES)
 @pytest.mark.parametrize("D,mode", [(D, m) for D in (16, 32, 48, 100) for m in MODES] + [(200, "self")])
 def test_flash_kernels_pad_head_dims(dev, dtype, D, mode):
     """A head dim that no instance takes is zero-padded to the next one that
@@ -283,14 +305,13 @@ def test_flash_kernels_pad_head_dims(dev, dtype, D, mode):
         shape = (B, H, Le, D) if mode == "pure_inner" else (H, Le, D)
         eps = {n: _randn(shape, 410 + i, dtype) for i, n in enumerate(("k_begin", "v_begin", "k_end", "v_end"))}
     Dp = padded_head_dim(D, mode)
-    f32 = dtype == torch.float32
     if Dp == 512:
-        fn = flash_self_attention_f32 if f32 else flash_self_attention_bf16
+        fn = D512_WRAPPER[dtype]
 
         def count():
             return fn.launches
     else:
-        fn = flash_interpolated_attention_f32 if f32 else flash_interpolated_attention
+        fn = ATTN_WRAPPER[dtype]
 
         def count():
             return fn.launches_by_head_dim[Dp]
@@ -301,7 +322,7 @@ def test_flash_kernels_pad_head_dims(dev, dtype, D, mode):
     assert count() == before + 1
     want = flash_interpolated_attention_plain(q, k, v, coef, mode, skip_endpoints=skip, **eps)
     assert got.shape == want.shape == (B, H, S, D) and got.dtype == dtype and torch.isfinite(got).all()
-    assert _attn_err(got, want) < (F32_ATTN_RTOL if f32 else ATTN_RTOL)
+    assert _attn_err(got, want) < ATTN_RTOLS[dtype]
 
 
 def _tiny_model(name, dtype):
@@ -341,7 +362,7 @@ def _tiny_model(name, dtype):
     return lambda: model(sample, torch.tensor(500, device=dev), ehs, aid, added)
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("dtype", **DTYPES)
 @pytest.mark.parametrize("name", ["TINY_UNET", "TINY_SDXL_UNET", "TINY_VAE"])
 def test_tiny_models_run_the_kernels(dev, dtype, name):
     """The repo's tiny configurations run on the card: their head dims (16
@@ -351,7 +372,7 @@ def test_tiny_models_run_the_kernels(dev, dtype, name):
     f32, 2e-2 in bf16), with the launches counted under D=40 and none at
     another head dim."""
     call = _tiny_model(name, dtype)
-    fn = flash_interpolated_attention_f32 if dtype == torch.float32 else flash_interpolated_attention
+    fn = ATTN_WRAPPER[dtype]
     before = dict(fn.launches_by_head_dim)
     with torch.no_grad():
         got = call()
@@ -362,7 +383,7 @@ def test_tiny_models_run_the_kernels(dev, dtype, name):
     assert launched[40] > 0 and sum(launched.values()) == launched[40]
     assert got.shape == want.shape and got.dtype == dtype and torch.isfinite(got).all()
     diff = (got.float() - want.float()).flatten(1).norm(dim=1) / want.float().flatten(1).norm(dim=1)
-    assert diff.max().item() < (F32_ATTN_RTOL if dtype == torch.float32 else ATTN_RTOL)
+    assert diff.max().item() < ATTN_RTOLS[dtype]
 
 
 @pytest.mark.parametrize("B,H,S,L", [
@@ -543,7 +564,7 @@ def test_flash_kernel_batched_cfg_rows(dev, D, mode):
 IP_ENDPOINTS = ["rows", "shared", "per_row"]
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("dtype", **DTYPES)
 @pytest.mark.parametrize("D", [40, 64, 80, 160])
 @pytest.mark.parametrize("mode", MODES)
 @pytest.mark.parametrize("T", [4, 16])
@@ -574,20 +595,20 @@ def test_flash_kernels_ip_segments(dev, dtype, D, mode, T, ep):
         eps = dict(k_begin=kb, v_begin=vb, k_end=ke, v_end=ve)
     elif ep == "shared":
         eps = {n: _randn((H, T, D), 610 + i, dtype) for i, n in enumerate(("k_begin", "v_begin", "k_end", "v_end"))}
-    fn = flash_interpolated_attention_f32 if dtype == torch.float32 else flash_interpolated_attention
+    fn = ATTN_WRAPPER[dtype]
     before = fn.launches_by_head_dim[D]
     got = flash_interpolated_attention(q, k, v, coef, mode, **eps)
     torch.cuda.synchronize()
     assert fn.launches_by_head_dim[D] == before + 1
     want = flash_interpolated_attention_plain(q, k, v, coef, mode, **eps)
     assert got.shape == want.shape and got.dtype == dtype and torch.isfinite(got).all()
-    assert _attn_err(got, want) < (F32_ATTN_RTOL if dtype == torch.float32 else ATTN_RTOL)
+    assert _attn_err(got, want) < ATTN_RTOLS[dtype]
     if ep == "per_row" and mode != "self":  # each uncond row's own tokens as its endpoints: vanilla attention
         van = flash_interpolated_attention_plain(q[3:], k[3:], v[3:])
-        assert _attn_err(got[3:], van) < (F32_ATTN_RTOL if dtype == torch.float32 else ATTN_RTOL)
+        assert _attn_err(got[3:], van) < ATTN_RTOLS[dtype]
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("dtype", **DTYPES)
 @pytest.mark.parametrize("mode", [m for m in MODES if m != "self"])
 def test_ip_force_vanilla_is_one_launch(dev, dtype, mode):
     """force_vanilla on a 4-token IP call (the fused loop's late steps):
@@ -595,17 +616,17 @@ def test_ip_force_vanilla_is_one_launch(dev, dtype, mode):
     q, k, v = _randn((4, 2, 150, 40), 620, dtype), _randn((4, 2, 4, 40), 621, dtype), _randn((4, 2, 4, 40), 622, dtype)
     coef = torch.tensor([0.0, 0.3, 0.7, 1.0], device=dev)
     force = torch.tensor([False, True, False, True], device=dev)
-    fn = flash_interpolated_attention_f32 if dtype == torch.float32 else flash_interpolated_attention
+    fn = ATTN_WRAPPER[dtype]
     before = fn.launches
     got = dispatch_attention(q, k, v, coef, mode, skip_endpoints=force, force_vanilla=force)
     torch.cuda.synchronize()
     assert fn.launches == before + 1
-    tol = F32_ATTN_RTOL if dtype == torch.float32 else ATTN_RTOL
+    tol = ATTN_RTOLS[dtype]
     assert _attn_err(got[force], flash_interpolated_attention_plain(q, k, v)[force]) < tol
     assert _attn_err(got[~force], flash_interpolated_attention_plain(q, k, v, coef, mode)[~force]) < tol
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("dtype", **DTYPES)
 @pytest.mark.parametrize("ip", ["own", "fused_outer", "pure_inner", "scale_control", "batched_fused_inner"])
 def test_tiny_ip_unet_runs_the_kernels(dev, dtype, ip):
     """TINY_UNET_IP with 4 image tokens on the card: every attention,
@@ -640,7 +661,7 @@ def test_tiny_ip_unet_runs_the_kernels(dev, dtype, ip):
     if batched:
         mode = dataclasses.replace(mode, cfg_split=frames)
     aid = AidContext(coef=coef, mode=mode, ip_hidden_states=tokens, ip_scale=0.7)
-    fn = flash_interpolated_attention_f32 if dtype == torch.float32 else flash_interpolated_attention
+    fn = ATTN_WRAPPER[dtype]
     t = torch.tensor(500, device=dev)
     with torch.no_grad():
         before = fn.launches_by_head_dim[40]
@@ -652,7 +673,7 @@ def test_tiny_ip_unet_runs_the_kernels(dev, dtype, ip):
             no_ip = model(sample, t, ehs, dataclasses.replace(aid, ip_hidden_states=None))
     # each transformer block: a self-attention, a text cross-attention and an IP call
     assert launched == 3 * len(unet_attention_order(cfg))
-    tol = F32_ATTN_RTOL if dtype == torch.float32 else ATTN_RTOL
+    tol = ATTN_RTOLS[dtype]
 
     def worst(a):
         return ((a.float() - want.float()).flatten(1).norm(dim=1) / want.float().flatten(1).norm(dim=1)).max().item()
@@ -977,3 +998,171 @@ def test_conv_kernels_at_sd21_width(dev, dtype, Cin, Cout):
     assert got.shape == want.shape and got.dtype == dtype
     err = (got.float() - want).abs().max().item() / want.abs().max().item()
     assert err < (F32_CONV_RTOL if dtype == torch.float32 else CONV_RTOL)
+
+
+# ---------------------------------------------------------------------------
+# the f16 instances: flash_interpolated_attention.cu's aid_flash_attn_f16,
+# flash_attention_bf16_d512.cu's aid_flash_attn_f16_d512, conv3x3.cu's
+# aid_conv3x3_f16 / aid_conv3x3_gnsilu_f16 / aid_conv3x3_blocked_f16
+# ---------------------------------------------------------------------------
+
+def _all_launches():
+    """Every wrapper's launch count, the per-head-dim ones included."""
+    fns = [*ATTN_WRAPPER.values(), *D512_WRAPPER.values(), conv3x3_same, conv3x3_same_f16, conv3x3_same_f32,
+           conv3x3_gnsilu, conv3x3_gnsilu_f16, conv3x3_gnsilu_f32]
+    counts = {fn.__name__: fn.launches for fn in fns}
+    for fn in ATTN_WRAPPER.values():
+        counts.update({f"{fn.__name__}[D={d}]": n for d, n in fn.launches_by_head_dim.items()})
+    return counts
+
+
+def _launched(before):
+    """The counts that moved since ``before``."""
+    return {k: n - before[k] for k, n in _all_launches().items() if n != before[k]}
+
+
+@pytest.mark.parametrize("D", [40, 64, 80, 160])
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("B,H,S,L,Le,ep", [
+    (3, 2, 200, 129, None, None),   # Sq past one q tile, 129 keys: a 1-key last tile
+    (4, 3, 130, 77, 77, 3),         # cross-like: 77 keys, shared 77-token endpoints
+    (2, 3, 77, 77, 23, 4),          # per-row endpoints of 23 keys
+])
+def test_flash_f16_kernel_matches_plain(dev, D, mode, B, H, S, L, Le, ep):
+    """The f16 instance of the D <= 160 kernel at every head dim and mode,
+    routed by dtype as an f16 UNet calls it: one launch of the f16 wrapper
+    counted under D and nothing else, on the model's (B, S, H*D) views with
+    skip rows at both ends; within F16_ATTN_RTOL of the plain version in
+    f16 (P rounded to f16), and the same bits on contiguous copies."""
+    def heads(x):
+        return x.view(x.shape[0], x.shape[1], H, D).transpose(1, 2)
+
+    f16 = torch.float16
+    q = heads(_randn((B, S, H * D), 700 + D, f16))
+    k, v = heads(_randn((B, L, H * D), 701 + D, f16)), heads(_randn((B, L, H * D), 702 + D, f16))
+    coef = torch.linspace(0, 1, B, device=dev)
+    skip = torch.zeros(B, dtype=torch.bool, device=dev)
+    skip[0] = skip[-1] = True
+    eps = {}
+    if ep is not None:
+        shape = (H, Le, D) if ep == 3 else (B, H, Le, D)
+        eps = {n: _randn(shape, 710 + i, f16) for i, n in enumerate(("k_begin", "v_begin", "k_end", "v_end"))}
+    before = _all_launches()
+    got = flash_interpolated_attention(q, k, v, coef, mode, skip_endpoints=skip, **eps)
+    torch.cuda.synchronize()
+    assert _launched(before) == {"flash_interpolated_attention_f16": 1, f"flash_interpolated_attention_f16[D={D}]": 1}
+    want = flash_interpolated_attention_plain(q, k, v, coef, mode, skip_endpoints=skip, **eps)
+    assert got.shape == want.shape and got.dtype == f16 and torch.isfinite(got).all()
+    assert _attn_err(got, want) < F16_ATTN_RTOL
+    args = [x.contiguous() for x in (q, k, v)]
+    assert torch.equal(got, flash_interpolated_attention(*args, coef, mode, skip_endpoints=skip, **eps))
+
+
+def test_flash_f16_kernel_is_not_the_bf16_one(dev):
+    """The f16 instance reads its operands as f16: the same bits handed to
+    the bf16 instance (viewed as bf16) give another result, and the f16
+    result is much closer to the f16 plain version than bf16 rounding allows."""
+    q, k, v = (_randn((2, 2, 150, 64), 720 + i, torch.float16) for i in range(3))
+    got = flash_interpolated_attention(q, k, v)
+    want = flash_interpolated_attention_plain(q, k, v)
+    as_bf16 = flash_interpolated_attention(*(x.view(torch.bfloat16) for x in (q, k, v)))
+    torch.cuda.synchronize()
+    assert _attn_err(got, want) < F16_ATTN_RTOL
+    assert not torch.equal(got.view(torch.bfloat16), as_bf16)
+    rounded = want.to(torch.bfloat16).to(torch.float16)  # the output at bf16's precision
+    assert _attn_err(got, want) < _attn_err(rounded, want)
+
+
+@pytest.mark.parametrize("B,H,S,L", [
+    (7, 1, 4096, 4096),    # SD 1.5's batched 512px decode of an f16 VAE
+    (1, 1, 4000, 4000),    # ragged: not a multiple of the 64-row / 32-key tiles
+    (1, 1, 1, 1),          # one query, one key
+    (2, 1, 63, 31),        # one row short of a q tile, one key short of a K/V tile
+    (1, 2, 65, 33),        # one past each
+    (2, 3, 129, 97),       # B, H > 1, ragged in both
+    (2, 1, 65, 95),        # three key tiles, the last one key short, both rings wrapping
+])
+def test_flash_f16_d512_kernel_matches_plain(dev, B, H, S, L):
+    """The f16 instance of the D=512 self kernel, routed as an f16 VAE calls
+    it, against its plain version in f16; (B, S, H*512) views, and equal
+    contiguous copies bit for bit; one launch of the f16 D=512 wrapper and
+    nothing else."""
+    def heads(x):
+        return x.view(x.shape[0], x.shape[1], H, 512).transpose(1, 2)
+
+    q = heads(_randn((B, S, H * 512), 730, torch.float16))
+    k, v = heads(_randn((B, L, H * 512), 731, torch.float16)), heads(_randn((B, L, H * 512), 732, torch.float16))
+    before = _all_launches()
+    got = flash_interpolated_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert _launched(before) == {"flash_self_attention_f16": 1}
+    want = flash_interpolated_attention_plain(q, k, v)
+    assert got.shape == want.shape and got.dtype == torch.float16 and torch.isfinite(got).all()
+    assert _attn_err(got, want) < F16_ATTN_RTOL
+    assert torch.equal(got, flash_self_attention_f16(*[x.contiguous() for x in (q, k, v)]))
+
+
+@pytest.mark.parametrize("B,Cin,Cout,H,W", [
+    (2, 64, 64, 16, 16),
+    (1, 40, 24, 13, 7),     # ragged pixels, Cin not a multiple of 16, Cout of 160
+    (3, 96, 130, 9, 11),
+] + REDESIGN_CLASSES)
+def test_conv_f16_kernel_matches_plain(dev, B, Cin, Cout, H, W):
+    """The f16 conv instance, routed by conv3x3_same (both packed flags) as
+    an f16 UNet calls it: one launch of the f16 wrapper per call and
+    nothing else, an f16 channels-last result within F16_CONV_RTOL of cuDNN
+    in f32 on the same f16 operands, and the same bits from both flags."""
+    f16 = torch.float16
+    x = _randn((B, Cin, H, W), 740, f16)
+    w = _randn((Cout, Cin, 3, 3), 741, f16) * Cin ** -0.5
+    b = _randn((Cout,), 742, f16)
+    before = _all_launches()
+    got = conv3x3_same(x, w, b)
+    packed = conv3x3_same(x, w, b, packed=True)
+    torch.cuda.synchronize()
+    assert _launched(before) == {"conv3x3_same_f16": 2}
+    assert torch.equal(got, packed)
+    want = F.conv2d(x.float(), w.float(), b.float(), padding=1)
+    assert got.shape == want.shape and got.dtype == f16
+    assert (got.float() - want).abs().max().item() < F16_CONV_RTOL * want.abs().max().item()
+
+
+@pytest.mark.parametrize("B,Cin,Cout,H,W,groups", [
+    (1, 320, 320, 13, 11, 32),
+    (2, 2560, 1280, 9, 7, 32),    # the widest SDXL resnet input
+    (3, 40, 24, 5, 6, 8),         # Cin not a multiple of the 16-channel K chunk
+] + [(*c, 8) for c in REDESIGN_CLASSES])
+def test_conv_gnsilu_f16_kernel_matches_plain(dev, B, Cin, Cout, H, W, groups):
+    """The f16 prologue instance against its plain version (the same
+    statistics, silu in f32 rounded to f16, cuDNN with zero padding), the
+    border ring on its own; one launch of the f16 GN+SiLU wrapper."""
+    f16 = torch.float16
+    x = (_randn((B, Cin, H, W), 750, torch.float32) * 2.0 + 1.0).to(f16)
+    w = _randn((Cout, Cin, 3, 3), 751, f16) * (9 * Cin) ** -0.5
+    b = _randn((Cout,), 752, f16)
+    gamma = 1.0 + 0.3 * _randn((Cin,), 753, torch.float32)
+    beta = 0.5 * _randn((Cin,), 754, torch.float32)
+    before = _all_launches()
+    got = conv3x3_gnsilu(x, w, b, gamma, beta, groups)
+    torch.cuda.synchronize()
+    assert _launched(before) == {"conv3x3_gnsilu_f16": 1}
+    want = conv3x3_gnsilu_plain(x, w, b, gamma, beta, groups)
+    assert got.shape == want.shape and got.dtype == f16
+    err, ref, ring = (got.float() - want.float()).abs(), want.float().abs().max().item(), _ring(H, W, dev)
+    assert err[:, :, ring].max().item() < F16_CONV_RTOL * ref
+    assert err[:, :, ~ring].max().item() < F16_CONV_RTOL * ref
+
+
+@pytest.mark.parametrize("layout", ["nchw", "channels_last", "misaligned_slice"])
+def test_conv_f16_layout_kernel_matches_plain(dev, layout):
+    """aid_conv3x3_blocked_f16 writes (B, C/8, H, W, 8) from f16 x at its own
+    strides, bit for bit."""
+    from aid_tpu_torch.ops.conv import blocked_input, blocked_input_plain
+
+    x = _randn((3, 48, 13, 11), 760, torch.float16)
+    if layout == "channels_last":
+        x = x.contiguous(memory_format=torch.channels_last)
+    elif layout == "misaligned_slice":
+        x = x.contiguous(memory_format=torch.channels_last)[:, 4:36]
+    got = blocked_input(x)
+    assert got.dtype == torch.float16 and torch.equal(got, blocked_input_plain(x))

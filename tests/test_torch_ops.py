@@ -523,11 +523,13 @@ def _emulate_flash_kernel(ops: dict) -> torch.Tensor:
     swizzled. Q K^T reads Q and K through K-major descriptors (start + 32
     bytes per k16 step, 8-row groups 1024 bytes apart), P V reads V through
     the MN-major descriptor (LBO = one box of the tile, 2048 bytes per 16
-    keys). Softmax, bf16 P, the outer modes' parked state and the swizzled
-    output tile clipped by the TMA store follow the kernel. f32 arithmetic."""
+    keys). Softmax, P in the operands' dtype (bf16, or f16 for the f16
+    instance), the outer modes' parked state and the swizzled output tile
+    clipped by the TMA store follow the kernel. f32 arithmetic."""
     from aid_tpu_torch.ops.flash_attention import KERNEL_TILES
 
     tensors, dims = ops["tensors"], ops["dims"]
+    dt = tensors[0].dtype
     B, H, Sq, Lk, Le, D = dims[:6]
     BQ, BK, _ = KERNEL_TILES[D]
     chunks, ksteps = -(-D // 64), -(-D // 16)
@@ -588,7 +590,7 @@ def _emulate_flash_kernel(ops: dict) -> torch.Tensor:
                             alpha = torch.exp2((m - mn) * sl2)
                             p = torch.exp2(s * sl2 - (mn * sl2)[:, None])
                             m, lsum = mn, lsum * alpha + p.sum(dim=1)
-                            pb = p.to(torch.bfloat16).float()
+                            pb = p.to(dt).float()
                             o = o * alpha[:, None] + sum(pb[:, 16 * kk:16 * kk + 16] @ mnmajor(vt, kk * 2048, BK * 128)
                                                          for kk in range(BK // 16))
                         if n_sets == 2 and not skipped and has_own and n == 0:
@@ -597,7 +599,7 @@ def _emulate_flash_kernel(ops: dict) -> torch.Tensor:
                     if park is not None and n_sets == 2 and not skipped:
                         o = o + park
                     # the output tile, swizzled, then the TMA store clipped to (D, Sq)
-                    ob = o.to(torch.bfloat16).float()
+                    ob = o.to(dt).float()
                     r, col = torch.arange(64)[:, None], torch.arange(64 * chunks)[None, :]
                     tile = torch.zeros(64 * 64 * chunks)
                     addr = (col // 64) * 8192 + _swizzle128(r * 128 + (col % 64) * 2)
@@ -608,7 +610,7 @@ def _emulate_flash_kernel(ops: dict) -> torch.Tensor:
                     dst = (b * sb + h * sh + rows * ss + col)[keep]
                     out_flat[dst] = tile[(addr // 2)[keep]]
     out = tensors[7]
-    return torch.as_strided(out_flat, out.shape, out.stride()).to(torch.bfloat16)
+    return torch.as_strided(out_flat, out.shape, out.stride()).to(dt)
 
 
 @pytest.mark.parametrize("D", HEAD_DIMS)
@@ -683,7 +685,8 @@ def _emulate_flash_bf16_d512_kernel(ops: dict) -> torch.Tensor:
     Each consumer warpgroup computes partial scores over its four boxes of
     Q and K through K-major descriptors, writes them to the exchange buffer
     in its accumulator order and adds the other warpgroup's; both run the
-    same online softmax, P in bf16, and O += P V over their 256 columns
+    same online softmax, P in the operands' dtype (bf16, or f16 for the f16
+    instance), and O += P V over their 256 columns
     through the MN-major descriptor (LBO one box). The output leaves
     through the warpgroups' halves of the swizzled Q tile and a TMA store
     clipped at Sq. f32 arithmetic."""
@@ -693,6 +696,7 @@ def _emulate_flash_bf16_d512_kernel(ops: dict) -> torch.Tensor:
     D, cols = 512, 512 // NWG
     boxes_wg = cols // 64
     tensors, dims = ops["tensors"], ops["dims"]
+    dt = tensors[0].dtype
     B, H, Sq, Lk = dims[:4]
     sl2 = ops["scale"] * 1.4426950408889634
     flat = [torch.as_strided(x, (x.untyped_storage().nbytes() // 2 - x.storage_offset(),), (1,),
@@ -749,12 +753,12 @@ def _emulate_flash_bf16_d512_kernel(ops: dict) -> torch.Tensor:
                     alpha = torch.exp2((m - mn) * sl2)
                     p = torch.exp2(s * sl2 - (mn * sl2)[:, None])
                     m, lsum = mn, lsum * alpha + p.sum(dim=1)
-                    pb = p.to(torch.bfloat16).float()
+                    pb = p.to(dt).float()
                     for w in range(NWG):
                         o[w] = o[w] * alpha[:, None] + sum(
                             pb[:, 16 * kk:16 * kk + 16] @ mnmajor(vt, boxes_wg * w * BK * 128 + kk * 2048, BK * 128)
                             for kk in range(BK // 16))
-                ob = (torch.cat(o, dim=1) / lsum[:, None]).to(torch.bfloat16).float()
+                ob = (torch.cat(o, dim=1) / lsum[:, None]).to(dt).float()
                 r, col = torch.arange(BQ)[:, None], torch.arange(D)[None, :]
                 tile = torch.zeros(BQ * D)
                 addr = (col // 64) * (BQ * 128) + _swizzle128(r * 128 + (col % 64) * 2)
@@ -764,7 +768,7 @@ def _emulate_flash_bf16_d512_kernel(ops: dict) -> torch.Tensor:
                 dst = (b * sb + h * sh + (q0 + r) * ss + col)[keep]
                 out_flat[dst] = tile[(addr // 2)[keep]]
     out = tensors[3]
-    return torch.as_strided(out_flat, out.shape, out.stride()).to(torch.bfloat16)
+    return torch.as_strided(out_flat, out.shape, out.stride()).to(dt)
 
 
 @pytest.mark.parametrize("Sq,Lk", [(150, 77), (63, 33), (129, 32), (65, 31)])
@@ -1369,8 +1373,8 @@ def test_flash_kernel_operands_f32(mode):
     """kernel_operands at f32, with no device: the f32 entry, the 30 dims and
     strides of the (B, S, H*D) views and of the (B, Sq, H, D) output buffer,
     shared endpoints with a batch stride of 0, and the lerped inner endpoint
-    made in f32 and kept f32 (not rounded through bf16); bf16 operands keep
-    the bf16 entry, and mixed or f16 operands raise."""
+    made in f32 and kept f32 (not rounded through bf16); bf16 and f16
+    operands take their own entries, and mixed or f64 operands raise."""
     from aid_tpu_torch.ops.flash_attention import kernel_operands
 
     B, H, S, L, D = 3, 2, 50, 40, 80
@@ -1401,10 +1405,11 @@ def test_flash_kernel_operands_f32(mode):
         assert ops["n_sets"] == 2 and dims[15:18] == [0, 23 * D, D]  # shared: a batch stride of 0
     assert (ops["skip"] is not None) == AttnMode(mode).is_fused
     assert kernel_operands(q.bfloat16(), k.bfloat16(), v.bfloat16())["entry"] == "aid_flash_attn_bf16"
+    assert kernel_operands(q.half(), k.half(), v.half())["entry"] == "aid_flash_attn_f16"
     with pytest.raises(NotImplementedError):
         kernel_operands(q, k.bfloat16(), v.bfloat16())
     with pytest.raises(NotImplementedError):
-        kernel_operands(q.half(), k.half(), v.half())
+        kernel_operands(q.double(), k.double(), v.double())
 
 
 # head dims that no instance takes, in every mode, and one past 160 in self mode

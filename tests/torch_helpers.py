@@ -75,13 +75,14 @@ def jax_unet_and_params(cfg, seed: int = 0, perturb: float = 0.05):
     return model, params
 
 
-def port_unet(cfg, params):
-    """The port's UNet2DCondition (f32, CPU) loaded strictly from JAX params."""
+def port_unet(cfg, params, dtype=torch.float32):
+    """The port's UNet2DCondition (CPU, in ``dtype``: f32 by default) loaded
+    strictly from JAX params, each leaf rounded once from its f32 value."""
     from aid_tpu_torch.models.params import unet_state_dict_from_flax
     from aid_tpu_torch.models.unet import UNet2DCondition
 
-    unet = UNet2DCondition(cfg)
-    unet.load_state_dict(unet_state_dict_from_flax(params), strict=True)
+    unet = UNet2DCondition(cfg, dtype=dtype)
+    unet.load_state_dict(unet_state_dict_from_flax(params, dtype), strict=True)
     return unet.eval()
 
 

@@ -1,13 +1,14 @@
 """Time the flash attention kernel launched alone at the main paths' shapes.
 
-    python3 tools/attention_bench.py [--reps 20] [--dtype bf16|f32] [--d512] [--only TEXT] [--root DIR]
+    python3 tools/attention_bench.py [--reps 20] [--dtype bf16|f16|f32] [--d512] [--only TEXT] [--root DIR]
 
 For each shape class of ``chip_smoke.py`` phase 3 (bf16: SDXL at D=64, SD1.5
 at D=40/80/160 and SD1.5's IP-Adapter calls over 16 and 4 image tokens,
 which also time the call through the wrapper; f32: every f32 shape of PERF.md's kernel table, SDXL's and SD
 2.1's D=64 and SD1.5's D=40/80/160, the latter at 256 and 64 tokens and the
 77-key cross-attention; 7 frames, (B, S, H*D) projections viewed as (B, H,
-S, D), the coef-0/1 end rows as skip rows; ``--only`` keeps the labels that
+S, D), the coef-0/1 end rows as skip rows; f16 at the bf16 shapes, the
+same design's f16 instance; ``--only`` keeps the labels that
 contain its text, say ``D=160``) it prepares one launch
 with ``ops.flash_attention.kernel_launch`` and times that launch alone with
 CUDA events, beside the bound (``chip_smoke.attention_bound``; f32 at three
@@ -15,12 +16,12 @@ TF32 passes; the f32 D=512 kernel at its own split, ``F32_D512_PASSES``) and, in
 the efficient backend, the fastest that takes f32). f32 also times the call
 through the wrapper, as the model makes it. ``--d512`` times the D=512
 self-attention of the VAE's mid block in ``--dtype`` instead (f32: the
-reference's VAE; bf16: a bf16 VAE), at its three shapes (one 1024px frame,
+reference's VAE; bf16 and f16: a VAE in that dtype), at its three shapes (one 1024px frame,
 16384 tokens; seven 512px frames, 4096; the tiled decode's ragged
 4000-token tile): launched alone on operands
 ``ops.flash_attention.d512_launch`` prepared once and through the wrapper,
 beside SDPA efficient and the plain version. It checks each result against
-the plain version (``chip_smoke.ATTN_TOL`` / ``F32_ATTN_TOL``). ``--root``
+the plain version (``chip_smoke.ATTN_TOL`` / ``F16_ATTN_TOL`` / ``F32_ATTN_TOL``). ``--root``
 imports the package and ``chip_smoke.py`` of another checkout (say, the
 parent commit unpacked under ``build/``): run both in one call, in turns, to
 compare two versions of the kernel on one card. The last line is one JSON
@@ -90,29 +91,30 @@ F32_SHAPES = [
 D512_SHAPES = [(1, 16384), (7, 4096), (1, 4000)]
 
 
-def bench_d512(reps: int, f32: bool) -> dict:
+def bench_d512(reps: int, name: str) -> dict:
     """The D=512 kernel of one dtype (f32: csrc/flash_attention_f32_d512.cu,
-    bounded at its own TF32 and bf16 passes beside three TF32 passes; bf16:
-    csrc/flash_attention_bf16_d512.cu) at D512_SHAPES: {label: ms alone};
+    bounded at its own TF32 and bf16 passes beside three TF32 passes; bf16
+    and f16: the two instances of csrc/flash_attention_bf16_d512.cu) at
+    D512_SHAPES: {label: ms alone};
     prints each with its time through the wrapper, its bound, SDPA
     efficient's and the plain version's."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
-    from aid_tpu_torch.ops.flash_attention import (
-        d512_launch,
-        flash_interpolated_attention_plain,
-        flash_self_attention_bf16,
-        flash_self_attention_f32,
-    )
+    from aid_tpu_torch.ops import flash_attention as fa
+    from aid_tpu_torch.ops.flash_attention import d512_launch, flash_interpolated_attention_plain
     import chip_smoke
-    from chip_smoke import BF16_D512_TOL, F32_ATTN_TOL, attention_bound, cuda_ms
+    from chip_smoke import attention_bound, cuda_ms
 
+    f32 = name == "f32"
     # each checkout's bound for its own kernel's passes (the mma.sync kernel before this design ran three TF32 passes)
-    passes = getattr(chip_smoke, "F32_D512_PASSES", {"tf32_passes": 3}) if f32 else {}
-    dtype, tol, wrapper = ((torch.float32, F32_ATTN_TOL, flash_self_attention_f32) if f32
-                           else (torch.bfloat16, BF16_D512_TOL, flash_self_attention_bf16))
+    # (the bound's kind is named for f16 only: a parent checkout's attention_bound may not take it)
+    passes = getattr(chip_smoke, "F32_D512_PASSES", {"tf32_passes": 3}) if f32 else (
+        {"kind": name} if name == "f16" else {})
+    dtype = {"bf16": torch.bfloat16, "f16": torch.float16, "f32": torch.float32}[name]
+    tol = {"bf16": "BF16_D512_TOL", "f16": "F16_ATTN_TOL", "f32": "F32_ATTN_TOL"}[name]
+    tol, wrapper = getattr(chip_smoke, tol), getattr(fa, f"flash_self_attention_{name}")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(12)
     result = {}
@@ -129,8 +131,8 @@ def bench_d512(reps: int, f32: bool) -> dict:
         plain_ms = cuda_ms(lambda: flash_interpolated_attention_plain(q, k, v), max(1, reps // 4))
         with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
             lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), reps)
-        bound_ms, by = attention_bound("self", n, 1, S, S, 512, **({"elem": 4, **passes} if f32 else {}))
-        label = f"{'f32' if f32 else 'bf16'} self ({n},1,{S},512)"
+        bound_ms, by = attention_bound("self", n, 1, S, S, 512, **({"elem": 4, **passes} if f32 else passes))
+        label = f"{name} self ({n},1,{S},512)"
         if f32:
             three_ms, _ = attention_bound("self", n, 1, S, S, 512, elem=4, tf32_passes=3)
             by += f", 3xTF32 {three_ms:.4f} ms, {three_ms / ms:.1%}"
@@ -145,7 +147,7 @@ def bench_d512(reps: int, f32: bool) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--dtype", choices=("bf16", "f32"), default="bf16")
+    ap.add_argument("--dtype", choices=("bf16", "f16", "f32"), default="bf16")
     ap.add_argument("--d512", action="store_true", help="the D=512 self-attention of --dtype (VAE mid block)")
     ap.add_argument("--only", default="", help="time only the shapes whose label contains this text")
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]),
@@ -163,17 +165,19 @@ def main(argv=None) -> int:
         flash_interpolated_attention_plain,
         kernel_launch,
     )
-    from chip_smoke import ATTN_TOL, F32_ATTN_TOL, attention_bound, cuda_ms, phase_device
+    import chip_smoke
+    from chip_smoke import attention_bound, cuda_ms, phase_device
 
     card = phase_device()  # also sets full f32 matmuls (TF32 off) for the plain version
     if args.d512:
-        result = bench_d512(args.reps, args.dtype == "f32")
+        result = bench_d512(args.reps, args.dtype)
         print(f"on {card}, the package of {Path(args.root).resolve()}", flush=True)
         print(json.dumps(result), flush=True)
         return 0
-    f32 = args.dtype == "f32"
-    dtype, tol, backend = ((torch.float32, F32_ATTN_TOL, SDPBackend.EFFICIENT_ATTENTION) if f32
-                           else (torch.bfloat16, ATTN_TOL, SDPBackend.CUDNN_ATTENTION))
+    f32, kind = args.dtype == "f32", args.dtype
+    dtype = {"bf16": torch.bfloat16, "f16": torch.float16, "f32": torch.float32}[kind]
+    tol = {"bf16": chip_smoke.ATTN_TOL, "f32": chip_smoke.F32_ATTN_TOL}.get(kind) or chip_smoke.F16_ATTN_TOL
+    backend = SDPBackend.EFFICIENT_ATTENTION if f32 else SDPBackend.CUDNN_ATTENTION
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(11)
     B = 7
@@ -197,7 +201,8 @@ def main(argv=None) -> int:
             raise SystemExit(f"{label}: the kernel disagrees with the plain version ({err:.3e})")
         ms = cuda_ms(launch, args.reps)
         bound_ms, by = attention_bound(mode, B, H, Sq, L, D, skip_rows=int(skip.sum()) if "skip_endpoints" in kw else 0,
-                                       elem=4 if f32 else 2, tf32_passes=3 if f32 else None)
+                                       elem=4 if f32 else 2, tf32_passes=3 if f32 else None,
+                                       **({"kind": kind} if kind == "f16" else {}))
         line = f"{label:32s} launch alone {ms:.4f} ms  bound {bound_ms:.4f} ms ({by}, {bound_ms / ms:.1%})"
         if f32 or label.startswith("IP"):
             wrapper_ms = cuda_ms(lambda: flash_interpolated_attention(q, k, v, coef, mode, **kw), args.reps)
