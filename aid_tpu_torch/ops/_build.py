@@ -118,6 +118,11 @@ def library() -> ctypes.CDLL:
     for name in ("aid_flash_attn_f16", "aid_flash_attn_f32"):
         getattr(lib, name).argtypes = lib.aid_flash_attn_bf16.argtypes
         getattr(lib, name).restype = ctypes.c_int
+    # the endpoint modes at D = 512 (flash_attention_bf16_d512.cu, flash_attention_f32_d512.cu):
+    # the same signature with the outer modes' f32 workspace (or null) after skip
+    for name in ("aid_flash_attn_bf16_d512_interp", "aid_flash_attn_f16_d512_interp", "aid_flash_attn_f32_d512_interp"):
+        getattr(lib, name).argtypes = [*lib.aid_flash_attn_bf16.argtypes[:10], vp, *lib.aid_flash_attn_bf16.argtypes[10:]]
+        getattr(lib, name).restype = ctypes.c_int
     lib.aid_conv3x3_bf16.argtypes = [
         vp, vp, vp, vp,      # x (B,Cin/8,H,W,8), w (tiled, see conv.py), bias (f32), out (NHWC)
         i32, i32, i32, i32, i32,  # B, H, W, Cin, Cout

@@ -9,7 +9,7 @@ kernels behind that function (``_kernel``, flash_attention.py:101, and
 bounds it on the card and how the design answers. On a CPU tensor it runs
 :func:`flash_interpolated_attention_plain`.
 
-Six kernels take CUDA calls:
+Seven kernels take CUDA calls:
   * bf16 with head dim 40, 64, 80 or 160, every mode (every UNet attention:
     64 for SDXL and SD2.x, 40/80/160 for SD1.x's 8 heads at widths
     320/640/1280): ``csrc/flash_interpolated_attention.cu``, counted by
@@ -40,23 +40,31 @@ Six kernels take CUDA calls:
     :func:`flash_self_attention_bf16` and counted by its ``launches``;
   * f16 with head dim 512, self mode (an f16 VAE): the f16 instance of that
     source (``aid_flash_attn_f16_d512``), reached through
-    :func:`flash_self_attention_f16` and counted by its ``launches``.
+    :func:`flash_self_attention_f16` and counted by its ``launches``;
+  * bf16, f16 and f32 with head dim 512 in the four endpoint modes (a UNet
+    whose heads are wider than 160): ``aid_flash_attn_{bf16,f16}_d512_interp``
+    in ``csrc/flash_attention_bf16_d512.cu`` and
+    ``aid_flash_attn_f32_d512_interp`` in ``csrc/flash_attention_f32_d512.cu``
+    (the self designs' tiles over own / begin / end segments, the outer
+    modes' first softmax set parked in a global f32 workspace the wrapper
+    allocates per call), reached through the D <= 160 wrappers of the dtype
+    and counted by their ``launches`` and ``launches_by_head_dim[512]``.
 A head dim that no instance takes is zero-padded to the next that does,
 as the JAX package pads (aid_tpu/ops/flash_attention.py:784, 800-801):
-below 160 to the next of 40, 64, 80, 160 in every mode, between 160 and
-512 to 512 in self mode; the scale stays the unpadded D's and the output
-is sliced back. Zero columns add nothing to Q K^T, and V's are cut off, so
-the padding is exact; it costs one copy of each operand, on calls that no
-full-size model makes, and the launch counts book such calls under the
-padded head dim. Any other dtype (float64), a head dim over 160 outside
-self mode or over 512 raises ``NotImplementedError`` on a CUDA tensor
-(ROADMAP Queue 2 lists the instances still to port). :func:`kernel_operands` checks
-the operands of the D <= 160 kernels (bf16, f16 or f32, one C signature), pads
-them and lays out their C entry's arguments (the CPU tests replay the
-kernels' data movement from them), :func:`d512_operands` those of the
-D=512 kernels; :func:`kernel_launch` and :func:`d512_launch` return the
-launch itself, which ``chip_smoke.py`` times apart from the wrapper's host
-work.
+below 160 to the next of 40, 64, 80, 160, between 160 and 512 to 512, in
+every mode; the scale stays the unpadded D's and the output is sliced
+back. Zero columns add nothing to Q K^T, and V's are cut off, so the
+padding is exact; it costs one copy of each operand, and the launch counts
+book such calls under the padded head dim. Any other dtype (float64) or a
+head dim over 512 raises ``NotImplementedError`` on a CUDA tensor (ROADMAP
+Queue 2 lists what is still to port). :func:`kernel_operands` checks the
+operands of the interpolating kernels (D <= 160, and D = 512 outside self
+mode; bf16, f16 or f32, one C signature, the D = 512 entries with one
+workspace pointer more), pads them and lays out their C entry's arguments
+(the CPU tests replay the kernels' data movement from them),
+:func:`d512_operands` those of the D=512 self kernels; :func:`kernel_launch`
+and :func:`d512_launch` return the launch itself, which ``chip_smoke.py``
+times apart from the wrapper's host work.
 """
 
 from __future__ import annotations
@@ -89,6 +97,15 @@ KERNEL_ENTRIES = {torch.bfloat16: "aid_flash_attn_bf16", torch.float16: "aid_fla
 #: the C entry of the D=512 self-attention kernels by operand dtype
 D512_ENTRIES = {torch.bfloat16: "aid_flash_attn_bf16_d512", torch.float16: "aid_flash_attn_f16_d512",
                 torch.float32: "aid_flash_attn_f32_d512"}
+#: the C entry of the D=512 endpoint-mode kernels by operand dtype (the D <=
+#: 160 kernels' C signature and a workspace pointer)
+D512_INTERP_ENTRIES = {torch.bfloat16: "aid_flash_attn_bf16_d512_interp",
+                       torch.float16: "aid_flash_attn_f16_d512_interp",
+                       torch.float32: "aid_flash_attn_f32_d512_interp"}
+#: the outer modes' workspace at D = 512: f32 words a consumer thread parks
+#: (its 128 output accumulators, m[2], l[2]; both sources' kParkWords), for
+#: each of the 256 consumer threads of a 64-row query block
+D512_PARK_WORDS, D512_CONSUMERS = 132, 256
 
 
 def flash_interpolated_attention_plain(
@@ -116,19 +133,16 @@ def flash_interpolated_attention_plain(
 
 
 def padded_head_dim(D: int, mode: AttnMode | str = AttnMode.SELF) -> int:
-    """The head dim of the instance that takes a call at head dim D: the
-    next of :data:`KERNEL_HEAD_DIMS` at or above D up to 160 (every mode),
-    :data:`D512` above 160 in self mode. Raises ``NotImplementedError``
-    where no instance is wide enough (over 160 outside self mode, over
-    512)."""
-    for Dp in KERNEL_HEAD_DIMS:
+    """The head dim of the instance that takes a call at head dim D in
+    ``mode``: the next of :data:`KERNEL_HEAD_DIMS` at or above D up to 160,
+    :data:`D512` from 161 to 512, in every mode. Raises
+    ``NotImplementedError`` over 512, where no instance is wide enough."""
+    mode = AttnMode(mode)
+    for Dp in (*KERNEL_HEAD_DIMS, D512):
         if D <= Dp:
             return Dp
-    if AttnMode(mode) == AttnMode.SELF and D <= D512:
-        return D512
-    raise NotImplementedError(f"no flash kernel takes head dim {D} in {AttnMode(mode).value} mode: over "
-                              f"{KERNEL_HEAD_DIMS[-1]} only self mode pads (to {D512}), and not past {D512} "
-                              "(ROADMAP Queue 2 E lists what still raises)")
+    raise NotImplementedError(f"no flash kernel takes head dim {D} in {mode.value} mode: none is wider "
+                              f"than {D512} (ROADMAP Queue 2 lists what still raises)")
 
 
 def _pad_head_dim(x: torch.Tensor, Dp: int) -> torch.Tensor:
@@ -312,26 +326,30 @@ def kernel_operands(
     scale: Optional[float] = None,
     skip_endpoints: Optional[torch.Tensor] = None,  # (B,) bool: rows whose endpoint segments are dropped
 ) -> dict:
-    """Check the operands of the D <= 160 kernel of q's dtype (bf16, f16 or
-    f32) and lay out one call of its C entry (``entry``, :data:`KERNEL_ENTRIES`):
-    ``tensors`` (q, k, v, k_begin, v_begin, k_end, v_end and the output, a
-    (B, H, Sq, Dp) view of a new (B, Sq, H, Dp) buffer), ``dims`` (the
-    entry's 30 shape and stride values), ``coef`` and ``skip`` (None where
-    the mode reads neither), ``scale``, ``has_own``, ``n_sets``,
-    ``head_dim`` (the caller's D) and ``out`` (the output at that D). A head
-    dim that no instance takes is zero-padded to the next one, Dp
-    (:func:`padded_head_dim`), after the endpoints are made and before the
-    layout is checked; the scale stays D's. Self mode reads no endpoint: its
-    slots repeat k and v. Nothing here needs a device."""
+    """Check the operands of the interpolating kernel of q's dtype (bf16,
+    f16 or f32) and head dim (the D <= 160 kernels, and the D = 512 ones in
+    the endpoint modes) and lay out one call of its C entry (``entry``,
+    :data:`KERNEL_ENTRIES` or :data:`D512_INTERP_ENTRIES`): ``tensors`` (q,
+    k, v, k_begin, v_begin, k_end, v_end and the output, a (B, H, Sq, Dp)
+    view of a new (B, Sq, H, Dp) buffer), ``dims`` (the entry's 30 shape and
+    stride values), ``coef`` and ``skip`` (None where the mode reads
+    neither), ``work`` (the D = 512 outer modes' f32 workspace, (blocks,
+    :data:`D512_PARK_WORDS`, :data:`D512_CONSUMERS`); else None), ``scale``,
+    ``has_own``, ``n_sets``, ``head_dim`` (the caller's D) and ``out`` (the
+    output at that D). A head dim that no instance takes is zero-padded to
+    the next one, Dp (:func:`padded_head_dim`), after the endpoints are made
+    and before the layout is checked; the scale stays D's. Self mode reads
+    no endpoint: its slots repeat k and v (over 160 it is the D=512 self
+    kernels', :func:`d512_operands`). Nothing here needs a device."""
     mode = AttnMode(mode)
     B, H, Sq, D = q.shape
     if q.dtype not in KERNEL_ENTRIES:
         raise NotImplementedError(f"the flash kernels take bf16, f16 or f32 at head dims {KERNEL_HEAD_DIMS}; q is "
                                   f"{q.dtype}")
     Dp = padded_head_dim(D, mode)
-    if Dp > KERNEL_HEAD_DIMS[-1]:
-        raise NotImplementedError(f"head dim {D} pads to {Dp}: the D={D512} self-attention kernels take it "
-                                  "(d512_operands), not this one")
+    if Dp == D512 and mode == AttnMode.SELF:
+        raise NotImplementedError(f"head dim {D} pads to {Dp} in self mode: the D={D512} self-attention kernels take "
+                                  "it (d512_operands), not this one")
     if k.dim() != 4 or k.shape[:2] != (B, H) or k.shape[-1] != D or v.shape != k.shape:
         raise ValueError(f"k/v shapes {tuple(k.shape)}/{tuple(v.shape)} do not match q {tuple(q.shape)}")
     if Sq == 0 or k.shape[2] == 0:
@@ -387,7 +405,11 @@ def kernel_operands(
     dims = [B, H, Sq, k.shape[2], tensors[3].shape[-2], Dp]
     for x in tensors:
         dims += _bhs_strides(x)
-    return dict(entry=KERNEL_ENTRIES[q.dtype], tensors=tensors, dims=dims, coef=coef_t, skip=skip,
+    work = None
+    if Dp == D512 and mode.is_outer:  # the parked first softmax set of each 64-row query block
+        work = torch.empty((B * H * -(-Sq // 64), D512_PARK_WORDS, D512_CONSUMERS), dtype=torch.float32, device=dev)
+    entry = (D512_INTERP_ENTRIES if Dp == D512 else KERNEL_ENTRIES)[q.dtype]
+    return dict(entry=entry, tensors=tensors, dims=dims, coef=coef_t, skip=skip, work=work,
                 scale=D ** -0.5 if scale is None else scale,
                 has_own=int(mode in (AttnMode.SELF, AttnMode.FUSED_OUTER, AttnMode.FUSED_INNER)),
                 n_sets=2 if mode.is_outer else (1 if mode.is_inner else 0), head_dim=D, out=out[..., :D])
@@ -420,8 +442,10 @@ def kernel_launch(*args, **kwargs) -> tuple:
     from aid_tpu_torch.ops import _build
 
     lib = _build.library()
+    # the D = 512 entries take the workspace pointer (null in the inner modes) after skip
+    work = (None if ops["work"] is None else ops["work"].data_ptr(),) if ops["dims"][5] == D512 else ()
     c_args = (*(x.data_ptr() for x in tensors),
-              *(None if x is None else x.data_ptr() for x in (ops["coef"], ops["skip"])),
+              *(None if x is None else x.data_ptr() for x in (ops["coef"], ops["skip"])), *work,
               _dims_array(ops["dims"]), float(ops["scale"]), ops["has_own"],
               ops["n_sets"], torch.cuda.current_stream(out.device).cuda_stream)
 
@@ -435,9 +459,10 @@ def kernel_launch(*args, **kwargs) -> tuple:
 
 
 def _launch_counted(wrapper, q, *args, **kwargs) -> torch.Tensor:
-    """One launch of the D <= 160 kernel of ``wrapper``'s dtype
-    (:data:`_WRAPPER_DTYPES`; q checked here, the rest by kernel_operands),
-    counted on ``wrapper`` in all and under the instance's head dim."""
+    """One launch of the interpolating kernel of ``wrapper``'s dtype
+    (:data:`_WRAPPER_DTYPES`; q checked here, the rest by kernel_operands)
+    and of the call's padded head dim, counted on ``wrapper`` in all and
+    under the instance's head dim (40, 64, 80, 160 or 512)."""
     _check_dtype("q", q, _WRAPPER_DTYPES[wrapper.__name__])
     out, launch = kernel_launch(q, *args, **kwargs)
     launch()
@@ -512,8 +537,10 @@ def flash_interpolated_attention_f32(
     other head dim up to 160 padded to the next of those:
     ``csrc/flash_interpolated_attention_f32.cu`` (both products in 3xTF32
     on wgmma; at D = 160 two warpgroups split D) on CUDA tensors, the plain
-    version on CPU tensors. Returns (B, H, Sq, D) f32; on CUDA a view of a
-    (B, Sq, H, Dp) buffer, as the bf16 kernel writes.
+    version on CPU tensors. A head dim from 161 to 512 in an endpoint mode
+    pads to 512 and takes ``aid_flash_attn_f32_d512_interp``
+    (``csrc/flash_attention_f32_d512.cu``). Returns (B, H, Sq, D) f32; on
+    CUDA a view of a (B, Sq, H, Dp) buffer, as the bf16 kernel writes.
     """
     mode = AttnMode(mode)
     if not use_kernel(q, k, v):
@@ -542,8 +569,10 @@ def flash_interpolated_attention_f16(
     other head dim up to 160 padded to the next of those: the f16 instance
     of ``csrc/flash_interpolated_attention.cu`` (``aid_flash_attn_f16``:
     the bf16 design with f16 wgmma, f32 scores, softmax and accumulation,
-    P rounded to f16) on CUDA tensors, the plain version on CPU tensors.
-    Returns (B, H, Sq, D) f16; on CUDA a view of a (B, Sq, H, Dp) buffer.
+    P rounded to f16) on CUDA tensors, the plain version on CPU tensors. A
+    head dim from 161 to 512 in an endpoint mode pads to 512 and takes
+    ``aid_flash_attn_f16_d512_interp``. Returns (B, H, Sq, D) f16; on CUDA
+    a view of a (B, Sq, H, Dp) buffer.
     """
     mode = AttnMode(mode)
     if not use_kernel(q, k, v):
@@ -555,14 +584,14 @@ def flash_interpolated_attention_f16(
 
 
 def reset_launch_counts() -> None:
-    """Set the D <= 160 kernels' launch counts (bf16, f16 and f32, total and
-    per instance head dim: a padded call counts under the head dim it pads
-    to) to 0."""
+    """Set the interpolating kernels' launch counts (bf16, f16 and f32, total
+    and per instance head dim, 512 the endpoint-mode D=512 entries: a padded
+    call counts under the head dim it pads to) to 0."""
     for fn in (flash_interpolated_attention, flash_interpolated_attention_f16, flash_interpolated_attention_f32):
         fn.launches = 0
-        fn.launches_by_head_dim = dict.fromkeys(KERNEL_HEAD_DIMS, 0)
+        fn.launches_by_head_dim = dict.fromkeys((*KERNEL_HEAD_DIMS, D512), 0)
 
 
 #: kernel launches since the last reset, in all and by head dim, of the bf16,
-#: the f16 and the f32 kernel (chip_smoke.py reads them around each path)
+#: the f16 and the f32 interpolating kernels (chip_smoke.py reads them around each path)
 reset_launch_counts()

@@ -86,7 +86,14 @@ read just after:
     ``load_vae(dir, dtype=torch.float16)`` decoding one frame (the f16
     D=512 attention); the SDXL UNet of the headline in f16 (a denoise and
     the fused GN+SiLU configuration). Every UNet and VAE kernel there is an
-    f16 instance.
+    f16 instance;
+  * SD 1.x at D = 320: a full-width SD 1.5 directory whose list
+    ``attention_head_dim`` [1, 2, 4, 4] both loaders read as head counts
+    (320 channels a head at every level), loaded with
+    ``load_interpolation_pipeline(dir)``; its UNet's forward in bf16, f32
+    and f16 and ``interpolate`` (PAID, 7 frames, 512px, 10 DDIM steps), every
+    attention on a D=512 kernel: the endpoint modes' new entries and the
+    self ones.
 
 Phases (each prints its own lines; any failure exits non-zero):
   1. device      needs CUDA; prints the card's name and power limit
@@ -188,6 +195,13 @@ Phases (each prints its own lines; any failure exits non-zero):
                  attention in the SD1.5 decodes). Phase 3 holds every f16
                  instance against its plain f16 version at the bf16 rows'
                  SDXL and SD1.5 shapes
+ 21. D=320       after phase 20: the SD1.x UNet with 320-wide heads through
+                 the loader, a fused_outer forward kernels vs plain in bf16
+                 (two planted faults: c and 1 - c swapped, the own segment
+                 dropped), f32 and f16 (one each), interpolate() (PAID, 10
+                 DDIM steps, s/step); every attention launch on a D=512
+                 entry. Phase 3 holds the D=512 endpoint entries against
+                 their plain versions at its shapes in bf16, f16 and f32
 The smoke prints its own wall time before the kernels line.
 Phase 1 turns TF32 off for cuBLAS and cuDNN, so every plain f32 version and
 library call computes in full f32, and cuBLAS's reduced-precision f16
@@ -596,6 +610,8 @@ def phase_kernels(coef, sd_coef, fused_classes, sd21_classes):
     from aid_tpu_torch.ops import conv
     from aid_tpu_torch.ops.conv import conv3x3_gnsilu, conv3x3_gnsilu_plain, conv3x3_same, conv3x3_same_plain
     from aid_tpu_torch.ops.flash_attention import (
+        D512,
+        KERNEL_HEAD_DIMS,
         d512_launch,
         flash_interpolated_attention,
         flash_interpolated_attention_plain,
@@ -631,10 +647,16 @@ def phase_kernels(coef, sd_coef, fused_classes, sd21_classes):
         once (kernel_ms). In self mode SDPA computes the same function and is
         timed under each backend that takes the input. f32 is held to
         F32_ATTN_TOL and bounded at three TF32 passes, f16 to F16_ATTN_TOL
-        and bounded at the f16 tensor-core rate. Returns a record."""
+        and bounded at the f16 tensor-core rate. A head dim past 160 in an
+        endpoint mode takes the D=512 endpoint entry: bounded at the caller's
+        D (f32 at the D=512 kernel's passes, F32_D512_PASSES) with the bound at
+        the padded 512 beside it (bound_padded_ms), and in the inner modes
+        timed beside SDPA over [own; K_cross] (pure: K_cross alone), the
+        lerped endpoint made as the wrapper makes it. Returns a record."""
         B = c.shape[0]
         f32, f16 = dtype == torch.float32, dtype == torch.float16
         tol = F32_ATTN_TOL if f32 else F16_ATTN_TOL if f16 else ATTN_TOL
+        wide = D > KERNEL_HEAD_DIMS[-1] and mode != "self"
 
         def heads(x):
             return x.view(x.shape[0], x.shape[1], H, D).transpose(1, 2)
@@ -660,10 +682,28 @@ def phase_kernels(coef, sd_coef, fused_classes, sd21_classes):
         plain_ms = cuda_ms(lambda: flash_interpolated_attention_plain(q, k, v, c, mode, **kw), max(1, reps // 5))
         skip_rows = int(kw["skip_endpoints"].sum()) if "skip_endpoints" in kw else 0
         per_row = isinstance(Le, tuple)
-        bound_ms, bound_by = attention_bound(mode, B, H, Sq, L, D, Le[1] if per_row else Le, skip_rows=skip_rows,
-                                             elem=4 if f32 else 2, tf32_passes=3 if f32 else None, per_row=per_row,
-                                             kind="f16" if f16 else "bf16")
+        passes = (F32_D512_PASSES if wide else {"tf32_passes": 3}) if f32 else {}
+
+        def bound_at(d):
+            return attention_bound(mode, B, H, Sq, L, d, Le[1] if per_row else Le, skip_rows=skip_rows,
+                                   elem=4 if f32 else 2, per_row=per_row, kind="f16" if f16 else "bf16", **passes)
+
+        bound_ms, bound_by = bound_at(D)
         library = sdpa_backends(q, k, v, want, reps) if mode == "self" else {}
+        padded = ""
+        if wide:
+            padded_ms = bound_at(D512)[0]
+            padded = f"; bound at the padded D={D512} {padded_ms:.3f} ms"
+            if mode in ("fused_inner", "pure_inner"):  # SDPA over [own; K_cross], K_cross lerped in f32
+                c4 = c.view(B, 1, 1, 1)
+                kb, vb = kw.get("k_begin", k[0]), kw.get("v_begin", v[0])
+                ke, ve = kw.get("k_end", k[-1]), kw.get("v_end", v[-1])
+                kc = ((1 - c4) * kb.float() + c4 * ke.float()).to(dtype)
+                vc = ((1 - c4) * vb.float() + c4 * ve.float()).to(dtype)
+                if mode == "fused_inner":
+                    kc, vc = torch.cat([k, kc], 2), torch.cat([v, vc], 2)
+                library = sdpa_backends(q, kc, vc, want, reps)
+                del kc, vc
         lib_err = (f"; library max_abs_err {', '.join(f'{n} {t[1]:.3e}' for n, t in library.items())}"
                    if f32 and library else "")
         ok = math.isfinite(err) and err <= tol * ref
@@ -671,11 +711,11 @@ def phase_kernels(coef, sd_coef, fused_classes, sd21_classes):
               f"{err:.3e} (max|ref| "
               f"{ref:.3e}, tol {tol * ref:.3e}) rel_l2 {rl2:.3e}  kernel {ms:.4f} ms (launch alone {kernel_ms:.4f}, "
               f"{bound_ms / kernel_ms:.1%} of the bound)  "
-              f"plain {plain_ms:.3f} ms  {yardsticks(bound_ms, bound_by, library)}{lib_err}  {'ok' if ok else 'FAIL'}",
-              flush=True)
+              f"plain {plain_ms:.3f} ms  {yardsticks(bound_ms, bound_by, library)}{padded}{lib_err}  "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
             fail(f"attention {label} (D={D}, {dtype}): kernel disagrees with the plain version")
-        if f32 and D == 160 and mode != "self":
+        if f32 and (D == 160 or wide) and mode != "self":
             # a planted fault the tolerance must see: the plain version with its
             # softmax scale 0.1% off
             fault = flash_interpolated_attention_plain(q, k, v, c, mode, scale=1.001 * D ** -0.5, **kw)
@@ -686,7 +726,8 @@ def phase_kernels(coef, sd_coef, fused_classes, sd21_classes):
                 fail(f"attention {label} (D={D}, f32): the tolerance does not see a 0.1% scale fault ({ferr:.3e})")
         lib_name, lib_ms = fastest(library)
         return {"max_abs_err": err, "ms": ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                "bound_by": bound_by, "library_ms": lib_ms, "library": lib_name}
+                "bound_by": bound_by, "library_ms": lib_ms, "library": lib_name,
+                **({"bound_padded_ms": padded_ms} if wide else {})}
 
     def attention_record(cases, coefs, main_label, self_label, dtype=torch.bfloat16):
         """Run ``cases``; the record is the main (fused_outer) case's, with
@@ -806,6 +847,32 @@ def phase_kernels(coef, sd_coef, fused_classes, sd21_classes):
     records["flash_interpolated_attention_f16(D=40/80/160)"] = attention_record(
         [(f"SD1.5 {label}", mode, 8, Sq, L, D, max(1, reps // 2), Le) for label, mode, Sq, L, D, reps, Le in sd_cases],
         sd_coef, "SD1.5 fused_outer 4096", "SD1.5 self 4096", torch.float16)
+    gen = main_gen
+
+    # the D=512 endpoint entries at phase 21's shapes (SD 1.x at 320-wide
+    # heads: 1 / 2 / 4 / 4 heads over 64^2 / 32^2 / 16^2 / 8^2 tokens, D = 320
+    # padded to 512): every endpoint mode at each level and the 77-key cross
+    # call, in bf16, f16 and f32; the record is fused_outer (7,1,4096,320)'s,
+    # every case under ``shapes``
+    wide_cases = [(f"SD1.x D=320 {m} {Sq}", m, H, Sq, Sq, 320, reps, None)
+                  for H, Sq, reps in ((1, 4096, 3), (2, 1024, 10), (4, 256, 20), (4, 64, 20))
+                  for m in ("fused_outer", "pure_outer", "fused_inner", "pure_inner")]
+    wide_cases.append(("SD1.x D=320 cross fused_outer 4096x77", "fused_outer", 1, 4096, 77, 320, 10, None))
+    for name, dtype in (("flash_interpolated_attention(D=512)", torch.bfloat16),
+                        ("flash_interpolated_attention_f16(D=512)", torch.float16),
+                        ("flash_interpolated_attention_f32(D=512)", torch.float32)):
+        gen = f16_gen if dtype == torch.float16 else main_gen
+        worst, shapes = 0.0, {}
+        for label, mode, H, Sq, L, D, reps, Le in wide_cases:
+            r = attention(label, mode, sd_coef, H, Sq, L, D, reps if dtype != torch.float32 else max(1, reps // 2),
+                          Le, dtype)
+            worst = max(worst, r["max_abs_err"])
+            shapes[f"{label} ({sd_coef.shape[0]},{H},{Sq},{D})"] = {
+                **{k: r[k] for k in ("ms", "kernel_ms", "plain_ms", "bound_ms", "bound_padded_ms", "library_ms")},
+                "bound_share": r["bound_ms"] / r["kernel_ms"]}
+            if label == "SD1.x D=320 fused_outer 4096":
+                main = r
+        records[name] = {**main, "max_abs_err": worst, "shapes": shapes}
     gen = main_gen
 
     def conv_case(label, x, w, b, factors=(), ring=None, reps=10, packed=False):
@@ -3888,6 +3955,149 @@ def phase_f16(card: str, steps: int) -> list:
     return paths
 
 
+# phase 21: SD 1.x at D = 320, the D=512 endpoint entries on a full-width
+# UNet. No published UNet has heads wider than 160; SD 1.5's widths with the
+# diffusers legacy attention_head_dim [1, 2, 4, 4] (read as head counts by
+# both packages' loaders) put every level at 320 channels a head.
+WIDE_HEADS = [1, 2, 4, 4]
+WIDE_STEPS = 10
+
+
+def sd15_wide_head_configs() -> dict:
+    """sd15_diffusers_configs without the safety checker, the UNet's
+    attention_head_dim the list WIDE_HEADS: 320-wide heads at every level."""
+    configs = {k: v for k, v in sd15_diffusers_configs().items() if k != "safety_checker"}
+    configs["unet"] = {**configs["unet"], "attention_head_dim": list(WIDE_HEADS)}
+    return configs
+
+
+def coef_swapped(plain):
+    """A planted fault: the plain attention with c and 1 - c exchanged in the
+    outer modes' combination."""
+    from aid_tpu_torch.ops.attention import AttnMode
+
+    def fault(q, k, v, coef=None, mode="self", **kwargs):
+        if coef is not None and AttnMode(mode).is_outer:
+            coef = 1 - coef
+        return plain(q, k, v, coef, mode, **kwargs)
+    return fault
+
+
+def own_dropped(plain):
+    """A planted fault: the plain attention with the fused modes' own
+    segment dropped (computed as the pure modes)."""
+    from aid_tpu_torch.ops.attention import AttnMode
+
+    def fault(q, k, v, coef=None, mode="self", **kwargs):
+        mode = {"fused_outer": "pure_outer", "fused_inner": "pure_inner"}.get(AttnMode(mode).value, mode)
+        return plain(q, k, v, coef, mode, **kwargs)
+    return fault
+
+
+def check_wide_only(path: str, counts: dict, needed, allowed=()) -> None:
+    """check_path, and no launch of a D <= 160 attention entry or of a
+    D=512 entry other than ``needed`` and ``allowed`` (the self entries)."""
+    check_path(path, counts, needed)
+    attention = [n for n in counts if "[D=" in n] + [n for names in KERNELS_BY_DTYPE.values() for n in names
+                                                      if n.startswith("flash_self")]
+    other = {n: counts[n] for n in attention if counts[n] and n not in needed and n not in allowed}
+    if other:
+        fail(f"the {path} path launched attention entries other than {tuple(needed) + tuple(allowed)}: {other}")
+
+
+def phase_wide_heads(card: str, device: str = "cuda", configs=None, steps: int = WIDE_STEPS) -> list:
+    """Phase 21: SD 1.x at D = 320. A full-width SD 1.5 diffusers directory
+    with attention_head_dim WIDE_HEADS (f16 weights from a seed) written into
+    the git-ignored build/ and loaded with ``load_interpolation_pipeline``
+    (UNet bf16, text encoder and VAE f32) and its UNet again in f32 and f16
+    with ``load_unet``. (a) one bf16 fused_outer forward, 7 frames at 64^2,
+    kernels vs plain under SD15_UNET_TOL with two planted faults (c and 1 - c
+    swapped, the own segment dropped), then ``interpolate`` (PAID, 7 frames,
+    512px, ``steps`` DDIM steps, guidance 7.5), s/step; (b) one f32 and one
+    f16 forward under F32_UNET_TOL / F16_SD15_UNET_TOL, each with a planted
+    fault. Every attention launch lands on a D=512 entry: the endpoint
+    entries and the self ones, none on the D <= 160 kernels. Returns the
+    paths' counts. ``device``/``configs`` exist for rehearsing on the CPU."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from aid_tpu_torch.models import loader
+    from aid_tpu_torch.models.layers import AidContext, AidMode
+
+    print(f"== phase 21: SD1.x at D=320 (SD1.5 widths, attention_head_dim {WIDE_HEADS}) through "
+          f"load_interpolation_pipeline: forward kernels vs plain in bf16, f32 and f16, interpolate 7 frames at "
+          f"512px, {steps} DDIM steps", flush=True)
+    t_phase = time.perf_counter()
+    configs = configs or sd15_wide_head_configs()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="sd15-d320-checkpoint-", dir=os.path.join(ROOT, "build"))
+    try:
+        t0 = time.perf_counter()
+        nbytes = write_checkpoint(root, seed=21, device=device, configs=configs)
+        print(f"wrote an SD1.5-width diffusers directory with 320-wide heads ({nbytes / 2**30:.2f} GiB of f16 "
+              f"weights) in {time.perf_counter() - t0:.2f} s", flush=True)
+        t0 = time.perf_counter()
+        pipe = loader.load_interpolation_pipeline(root, **({} if device == "cuda" else {"device": device}))
+        unets = {dt: loader.load_unet(os.path.join(root, "unet"), dtype=dt, device=device)
+                 for dt in (torch.float32, torch.float16)}
+        torch.cuda.synchronize()
+        print(f"load_interpolation_pipeline(dir) and load_unet(dir/unet) in f32 and f16 in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    cfg = pipe.unet.config
+    heads = [c // h for c, h in zip(cfg.block_out_channels, cfg.num_attention_heads)]
+    print(f"UNet: widths {cfg.block_out_channels}, heads {cfg.num_attention_heads}, head dims {heads}; UNet "
+          f"{pipe.unet.dtype}, VAE {next(pipe.vae.parameters()).dtype}", flush=True)
+    if (cfg != loader.unet_config_from_diffusers(configs["unet"]) or len(set(heads)) != 1 or heads[0] <= 160
+            or pipe.unet.dtype != torch.bfloat16):
+        fail(f"the loaded UNet config {cfg} is not the written one with one head dim past 160, or not bf16")
+
+    paths = []
+    dev = torch.device(device)
+    s = cfg.sample_size
+    gen = torch.Generator(device=dev).manual_seed(3)
+    sample = torch.randn((7, cfg.in_channels, s, s), generator=gen, device=dev)
+    ehs = torch.randn((7, 77, cfg.cross_attention_dim), generator=gen, device=dev)
+    t = torch.tensor(500, device=dev)
+    aid = AidContext(coef=sd15_coef().to(dev), mode=AidMode.from_name("fused_outer"))
+    faults = {"c and 1-c swapped": (aid, coef_swapped), "own segment dropped": (aid, own_dropped)}
+    for unet, tol, name, fault_names in (
+            (pipe.unet, SD15_UNET_TOL, "flash_interpolated_attention", tuple(faults)),
+            (unets[torch.float32], F32_UNET_TOL, "flash_interpolated_attention_f32", ("own segment dropped",)),
+            (unets[torch.float16], F16_SD15_UNET_TOL, "flash_interpolated_attention_f16", ("own segment dropped",))):
+        x, e = sample.to(unet.dtype), ehs.to(unet.dtype)
+        counts = check_unet_vs_plain(f"{unet.dtype} SD1.x D=320 unet fused_outer B=7 {s}x{s}",
+                                     lambda a: unet(x, t, e, a), aid, tol, {n: faults[n] for n in fault_names})
+        check_wide_only(f"{unet.dtype} SD1.x D=320 forward", counts, (f"{name}[D=512]",))
+        paths.append(counts)
+    del unets, unet, x, e, sample, ehs
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    latent_a, latent_b = pipe.generate_latent(gen), pipe.generate_latent(gen)
+    px = s * 2 ** (len(pipe.vae.config.block_out_channels) - 1)
+
+    def interpolate(**kw):
+        return pipe.interpolate(latent_a, latent_b, "prompt A", "prompt B", guide_prompt="a guide prompt", size=7,
+                                num_inference_steps=steps, **kw)
+
+    images, counts, times, _, elapsed, peak = run_image_path(pipe, pipe.vae, interpolate, steps, 7)
+    check_images(f"SD1.x D=320 interpolate (PAID, {steps} DDIM steps, guidance {pipe.guidance_scale}, f32 VAE)",
+                 images, (7, px, px, 3), times, elapsed, peak, card)
+    check_wide_only("SD1.x D=320 interpolate", counts, ("flash_interpolated_attention[D=512]",),
+                    ("flash_self_attention_bf16", "flash_self_attention_f32"))
+    print(f"SD1.x D=320 interpolate: attention launches {({n: c for n, c in counts.items() if c and 'attention' in n})}",
+          flush=True)
+    paths.append(counts)
+    _, _, warm, _, _, _ = run_image_path(pipe, pipe.vae, lambda: interpolate(output_type="latent"), steps, 7)
+    print(f"SD1.x D=320 interpolate, sequential CFG: first run {times['s_per_step']:.4f} s/step, warm run "
+          f"{warm['s_per_step']:.4f} s/step on {card}; phase 21 {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return paths
+
+
 def stub_gradio():
     """A stand-in ``gradio`` module that builds nothing and keeps the
     functions wired to buttons (``clicks``): the card's machine has no
@@ -3980,6 +4190,13 @@ def kernels_line(kernels: dict, launches: dict) -> str:
     conv_note_f16 = conv_note.replace("aid_conv3x3_blocked_bf16", "aid_conv3x3_blocked_f16")
     attn_note = ("ms: through the wrapper, as the model calls it; kernel_ms: the launch alone on operands "
                  "aid_tpu_torch/ops/flash_attention.py::kernel_launch prepared once")
+    d512_src = "aid_tpu_torch/csrc/flash_attention_bf16_d512.cu"
+    segments = ("own / begin / end segments, each its own tensor map and length; the outer modes' first softmax set "
+                "parked in a global f32 workspace the wrapper allocates per call")
+    d512_interp_design = f"the bf16 D=512 self kernel's tiles and pipeline over {segments}"
+    d512_interp_note = ("ms at fused_outer (7,1,4096,320), every case of phase 21's shapes under shapes; bound_ms at "
+                        "the caller's D = 320, bound_padded_ms at 512; library_ms: SDPA over [own; K_cross] in the "
+                        f"inner modes (none for the outer modes); {attn_note}")
     f32_wgmma = "wgmma 3xTF32 (raw hi), TMA, a split/transpose producer warpgroup"
     conv_f32_design = ("wgmma tf32 m64n160k8, both operands in shared memory, 3xTF32 (raw hi; the lo parts of x "
                        "from the layout pass, of w tiled once), one TMA window a K chunk for all nine taps, each "
@@ -4086,6 +4303,24 @@ def kernels_line(kernels: dict, launches: dict) -> str:
         "conv3x3_gnsilu_f16": (conv_src, "aid_tpu/ops/conv.py:78", ("conv3x3_gnsilu_f16",),
                                {"entry": "aid_conv3x3_gnsilu_f16",
                                 "contract": f"f16, (7,960,128,128) -> 320 with the GN+SiLU prologue; {conv_note_f16}"}),
+        # the endpoint modes past head dim 160 (phase 21's SD 1.x UNet at
+        # 320-wide heads), in the two D=512 sources
+        "flash_interpolated_attention(D=512)": (
+            d512_src, flash_replaces[0], ("flash_interpolated_attention[D=512]",),
+            {**flash_replaces[1], "entry": "aid_flash_attn_bf16_d512_interp", "design": d512_interp_design,
+             "contract": f"bf16, head dims 161-512 padded to 512, the four endpoint modes; {d512_interp_note}"}),
+        "flash_interpolated_attention_f16(D=512)": (
+            d512_src, flash_replaces[0], ("flash_interpolated_attention_f16[D=512]",),
+            {**flash_replaces[1], "entry": "aid_flash_attn_f16_d512_interp", "design": d512_interp_design,
+             "contract": f"f16, head dims 161-512 padded to 512, the four endpoint modes; {d512_interp_note}"}),
+        "flash_interpolated_attention_f32(D=512)": (
+            "aid_tpu_torch/csrc/flash_attention_f32_d512.cu", flash_replaces[0],
+            ("flash_interpolated_attention_f32[D=512]",),
+            {**flash_replaces[1], "entry": "aid_flash_attn_f32_d512_interp",
+             "design": "the f32 D=512 self kernel's tile (three tensor-core passes a product, D split across two "
+                       f"consumer warpgroups) over {segments}",
+             "contract": f"f32, head dims 161-512 padded to 512, the four endpoint modes; bound_ms at the caller's "
+                         f"D with 1.5 TF32 + 1.5 bf16 passes; {d512_interp_note}"}),
     }
     record = []
     for name, (src, replaces, counters, extra) in rows.items():
@@ -4153,6 +4388,8 @@ def main(argv=None) -> int:
     paths += phase_single_file(card)
     torch.cuda.empty_cache()
     paths += phase_f16(card, args.steps)
+    torch.cuda.empty_cache()
+    paths += phase_wide_heads(card)
     torch.cuda.empty_cache()
     paths += phase_frames(card)  # phase 19 (b)
     launches = {name: sum(p[name] for p in paths) for name in paths[0]}

@@ -59,7 +59,8 @@ KERNEL_NAMES = ("flash_interpolated_attention", "flash_interpolated_attention(D=
                 "conv3x3_gnsilu", "flash_interpolated_attention_f32", "flash_interpolated_attention_f32(D=40/80/160)",
                 "conv3x3_same_f32", "conv3x3_gnsilu_f32", "flash_interpolated_attention_f16",
                 "flash_interpolated_attention_f16(D=40/80/160)", "flash_self_attention_f16", "conv3x3_same_f16",
-                "conv3x3_same_f16(packed=True)", "conv3x3_gnsilu_f16")
+                "conv3x3_same_f16(packed=True)", "conv3x3_gnsilu_f16", "flash_interpolated_attention(D=512)",
+                "flash_interpolated_attention_f16(D=512)", "flash_interpolated_attention_f32(D=512)")
 
 
 def test_kernels_line_carries_bound_and_library_time():
@@ -85,6 +86,7 @@ def test_kernels_line_carries_bound_and_library_time():
     launches["conv3x3_gnsilu_f32"] = 4
     launches.update({f"flash_interpolated_attention_f16[D={d}]": d for d in (40, 64, 80, 160)})
     launches.update({"flash_self_attention_f16": 5, "conv3x3_same_f16": 6, "conv3x3_gnsilu_f16": 7})
+    launches.update({f"flash_interpolated_attention{t}[D=512]": n for t, n in (("", 11), ("_f16", 12), ("_f32", 13))})
     entries = json.loads(smoke.kernels_line(records, launches))["kernels"]
     assert [e["name"] for e in entries] == list(KERNEL_NAMES)
     for e, name in zip(entries, KERNEL_NAMES):
@@ -118,7 +120,7 @@ def test_kernels_line_carries_bound_and_library_time():
     assert gn32["source"].endswith("conv3x3_f32.cu") and gn32["replaces"] == "aid_tpu/ops/conv.py:78"
     assert gn32["launches"] == 4 and gn32["library_ms"] is None
     # the f16 instances: the bf16 designs' sources, their own C entries and launch counts
-    f16 = {n: by_name[n] for n in KERNEL_NAMES[-6:]}
+    f16 = {n: by_name[n] for n in KERNEL_NAMES[-9:-3]}
     assert f16["flash_interpolated_attention_f16"]["source"].endswith("flash_interpolated_attention.cu")
     assert f16["flash_interpolated_attention_f16"]["launches"] == 64
     assert f16["flash_interpolated_attention_f16(D=40/80/160)"]["launches"] == 40 + 80 + 160
@@ -129,6 +131,16 @@ def test_kernels_line_carries_bound_and_library_time():
     assert [e["replaces"].split(":")[1] for e in f16.values()] == ["101", "101", "101", "30", "47", "78"]
     assert {e["entry"] for e in f16.values()} == {"aid_flash_attn_f16", "aid_flash_attn_f16_d512", "aid_conv3x3_f16",
                                                  "aid_conv3x3_gnsilu_f16"}
+    # the D=512 endpoint entries: the two D=512 sources, their own C entries,
+    # each read from its dtype's D=512 count
+    wide = {n: by_name[n] for n in KERNEL_NAMES[-3:]}
+    assert [e["launches"] for e in wide.values()] == [11, 12, 13]
+    assert [e["entry"] for e in wide.values()] == ["aid_flash_attn_bf16_d512_interp", "aid_flash_attn_f16_d512_interp",
+                                                   "aid_flash_attn_f32_d512_interp"]
+    assert [e["source"].rsplit("/", 1)[1] for e in wide.values()] == ["flash_attention_bf16_d512.cu"] * 2 + [
+        "flash_attention_f32_d512.cu"]
+    assert all(e["replaces"] == "aid_tpu/ops/flash_attention.py:101" and e["library_ms"] is None
+               and "bound_padded_ms at 512" in e["contract"] for e in wide.values())
 
 
 def test_f32_phases_follow_the_bf16_paths():
@@ -722,3 +734,49 @@ def test_dtype_guards_fail_on_another_dtype(dtype):
         guard("rehearsal", {**counts, f"conv3x3_same_{dtype}": 0}, needed)
     if dtype == "f16":  # the f32 VAE's attention, where the loader keeps the VAE in f32
         guard("rehearsal", {**counts, "flash_self_attention_f32": 1}, needed, allowed=("flash_self_attention_f32",))
+
+
+def test_wide_heads_phase_follows_the_f16_phase():
+    """Phase 21 (SD 1.x at D = 320) exists with its banner and runs after
+    phase 20 and before phase 19 (b); its directory is SD 1.5's with the list
+    attention_head_dim [1, 2, 4, 4], which the port's loader reads as head
+    counts: 320 channels a head at every level, SD 1.5's config otherwise.
+    Phase 3 times the D=512 endpoint entries at its shapes."""
+    import inspect
+
+    from aid_tpu_torch.models import configs, loader
+
+    smoke = _load_smoke()
+    src = inspect.getsource(smoke.phase_wide_heads)
+    assert "== phase 21: SD1.x at D=320" in src and "21. D=320" in smoke.__doc__
+    main = inspect.getsource(smoke.main)
+    assert (main.index("phase_f16(card, args.steps)") < main.index("phase_wide_heads(card)")
+            < main.index("phase_frames(card)") < main.index("kernels_line("))
+    assert 'dir=os.path.join(ROOT, "build")' in src and "shutil.rmtree(root" in src
+    for check in ("check_unet_vs_plain(", "check_wide_only(", "run_image_path(", "coef_swapped", "own_dropped"):
+        assert check in src, check
+    cfg = loader.unet_config_from_diffusers(smoke.sd15_wide_head_configs()["unet"])
+    assert cfg == dataclasses.replace(configs.SD15_UNET, num_attention_heads=(1, 2, 4, 4))
+    assert [c // h for c, h in zip(cfg.block_out_channels, cfg.num_attention_heads)] == [320] * 4
+    assert "safety_checker" not in smoke.sd15_wide_head_configs()
+    assert "wide_cases" in inspect.getsource(smoke.phase_kernels)
+
+
+def test_wide_heads_phase_rehearses_on_the_cpu(monkeypatch):
+    """Phase 21 end to end at a tiny size on the CPU (heads of 192 at widths
+    192 / 384, 2 DDIM steps), torch.cuda's timing calls stubbed: the
+    directory written, loaded and removed, three forwards with their planted
+    faults over the bounds (the bounds set to the CPU's scale, where both
+    sides run the plain versions), the interpolate's 7 frames; only the
+    launch counts (no kernel here) are set aside."""
+    smoke = _load_smoke()
+    skipped = _stub_cuda_and_fail(monkeypatch, smoke)
+    for tol in ("SD15_UNET_TOL", "F32_UNET_TOL", "F16_SD15_UNET_TOL"):
+        monkeypatch.setattr(smoke, tol, 1e-7)
+    cfgs = {k: v for k, v in _tiny_sd15_configs(smoke).items() if k != "safety_checker"}
+    cfgs["unet"].update(block_out_channels=[192, 384], attention_head_dim=[1, 2])
+    before = set(os.listdir(REPO / "build")) if (REPO / "build").is_dir() else set()
+    paths = smoke.phase_wide_heads("cpu", device="cpu", configs=cfgs, steps=2)
+    assert len(paths) == 4 and all("flash_interpolated_attention[D=512]" in p for p in paths)
+    assert skipped and all("launch" in m for m in skipped)
+    assert set(os.listdir(REPO / "build")) <= before  # the directory written is removed

@@ -242,7 +242,9 @@ def test_flash_kernel_refuses_what_it_does_not_take(dev):
     has its instance: it launches the f32 kernel and matches the plain
     version. A head dim with no instance of its own (48) pads to the next
     (64) in bf16 and f32: one launch each, counted under D=64, matching the
-    plain version at D=48."""
+    plain version at D=48. f32 at D = 512 outside self mode launches the
+    f32 D=512 endpoint entry, counted under D=512, and matches the plain
+    version."""
     q = _randn((2, 2, 64, 64), 30, torch.float32)
     before = flash_interpolated_attention_f32.launches
     got = flash_interpolated_attention(q, q, q)
@@ -261,8 +263,12 @@ def test_flash_kernel_refuses_what_it_does_not_take(dev):
         assert got.shape == x.shape and got.dtype == x.dtype
         assert _attn_err(got, flash_interpolated_attention_plain(x, x, x)) < rtol
     q = _randn((2, 1, 64, 512), 32, torch.float32)
-    with pytest.raises(NotImplementedError):  # the f32 D=512 kernel is self mode only
-        flash_interpolated_attention(q, q, q, torch.tensor([0.0, 1.0], device=dev), "fused_outer")
+    coef = torch.tensor([0.0, 1.0], device=dev)
+    before = flash_interpolated_attention_f32.launches_by_head_dim[512]  # the f32 D=512 endpoint entry
+    got = flash_interpolated_attention(q, q, q, coef, "fused_outer")
+    torch.cuda.synchronize()
+    assert flash_interpolated_attention_f32.launches_by_head_dim[512] == before + 1
+    assert _attn_err(got, flash_interpolated_attention_plain(q, q, q, coef, "fused_outer")) < F32_ATTN_RTOL
     q = _randn((1, 1, 16, 520), 39, torch.float32)
     with pytest.raises(NotImplementedError):  # past 512 nothing pads
         flash_interpolated_attention(q, q, q)
@@ -280,10 +286,12 @@ def test_flash_kernel_refuses_what_it_does_not_take(dev):
 
 
 @pytest.mark.parametrize("dtype", **DTYPES)
-@pytest.mark.parametrize("D,mode", [(D, m) for D in (16, 32, 48, 100) for m in MODES] + [(200, "self")])
+@pytest.mark.parametrize("D,mode", [(D, m) for D in (16, 32, 48, 100) for m in MODES] + [(200, "self")]
+                         + [(D, m) for D in (200, 320) for m in MODES if (D, m) != (200, "self")])
 def test_flash_kernels_pad_head_dims(dev, dtype, D, mode):
     """A head dim that no instance takes is zero-padded to the next one that
-    does (below 160 to 40/64/80/160 in every mode, 200 to 512 in self mode)
+    does (below 160 to 40/64/80/160, past it to 512, in every mode: the
+    D=512 self kernels in self mode, the D=512 endpoint entries otherwise)
     and launches that instance once, counted under the padded head dim; the
     result, sliced back to D, matches the plain version at D with the
     unpadded scale: (B, S, H*D) projections viewed as (B, H, S, D), skip
@@ -305,7 +313,7 @@ def test_flash_kernels_pad_head_dims(dev, dtype, D, mode):
         shape = (B, H, Le, D) if mode == "pure_inner" else (H, Le, D)
         eps = {n: _randn(shape, 410 + i, dtype) for i, n in enumerate(("k_begin", "v_begin", "k_end", "v_end"))}
     Dp = padded_head_dim(D, mode)
-    if Dp == 512:
+    if Dp == 512 and mode == "self":
         fn = D512_WRAPPER[dtype]
 
         def count():
@@ -447,15 +455,22 @@ def test_flash_bf16_d512_kernel_matches_plain(dev, B, H, S, L):
 
 
 def test_flash_d512_refuses_other_instances(dev):
-    """At D=512 only self mode has a kernel, in f32 and bf16: the other modes
-    raise on the card. An f32 call at a UNet head dim has its own kernel:
-    it launches the f32 instance, counted by head dim, and matches the plain
-    version."""
+    """At D=512 the endpoint modes launch the bf16 D=512 endpoint entry
+    (counted under D=512 on the bf16 wrapper, not on the self kernel's) and
+    match the plain version; f64 still raises. An f32 call at a UNet head
+    dim has its own kernel: it launches the f32 instance, counted by head
+    dim, and matches the plain version."""
     q = _randn((2, 1, 64, 512), 56)
     coef = torch.tensor([0.0, 1.0], device=dev)
     for mode in ("fused_outer", "pure_outer", "fused_inner", "pure_inner"):
+        before, self_before = flash_interpolated_attention.launches_by_head_dim[512], flash_self_attention_bf16.launches
+        got = flash_interpolated_attention(q, q, q, coef, mode)
+        torch.cuda.synchronize()
+        assert flash_interpolated_attention.launches_by_head_dim[512] == before + 1
+        assert flash_self_attention_bf16.launches == self_before
+        assert _attn_err(got, flash_interpolated_attention_plain(q, q, q, coef, mode)) < ATTN_RTOL
         with pytest.raises(NotImplementedError):
-            flash_interpolated_attention(q, q, q, coef, mode)
+            flash_interpolated_attention(q.double(), q.double(), q.double(), coef, mode)
     for D in (40, 64, 80, 160):
         q = _randn((2, 2, 64, D), 57, torch.float32)
         before = flash_interpolated_attention_f32.launches_by_head_dim[D]
@@ -464,6 +479,65 @@ def test_flash_d512_refuses_other_instances(dev):
         assert flash_interpolated_attention_f32.launches_by_head_dim[D] == before + 1
         assert got.dtype == torch.float32
         assert _attn_err(got, flash_interpolated_attention_plain(q, q, q, coef, "fused_outer")) < F32_ATTN_RTOL
+
+
+# the D=512 endpoint entries' endpoint forms: rows 0 / B-1 of K/V, then
+# shared (H, Le, D) and per-row (B, H, Le, D) endpoints of an IP segment's 4
+# and 16 tokens and the text's 77, ragged against the 32- and 16-key tiles
+D512_INTERP_ENDPOINTS = [("rows", None)] + [(ep, Le) for ep in ("shared", "per_row") for Le in (4, 16, 77)]
+
+
+@pytest.mark.parametrize("dtype", **DTYPES)
+@pytest.mark.parametrize("D", [192, 320, 512])
+@pytest.mark.parametrize("mode", [m for m in MODES if m != "self"])
+@pytest.mark.parametrize("ep,Le", D512_INTERP_ENDPOINTS)
+def test_flash_d512_interp_kernels_match_plain(dev, dtype, D, mode, ep, Le):
+    """Head dims past 160 in the endpoint modes: padded to 512, one launch of
+    the D=512 endpoint entry of the dtype (aid_flash_attn_{bf16,f16,f32}
+    _d512_interp), counted under D=512 on the dtype's interpolating wrapper
+    and on no other kernel, matching the plain version at the caller's D:
+    (B, S, H*D) projections viewed as (B, H, S, D) (strided heads), skip
+    rows at both ends, 130 queries and 77 own keys ragged against the
+    64-row and 32- / 16-key tiles."""
+    B, H, S, L = 3, 2, 130, 77
+
+    def heads(x):
+        return x.view(x.shape[0], x.shape[1], H, D).transpose(1, 2)
+
+    q = heads(_randn((B, S, H * D), 700 + D, dtype))
+    k, v = heads(_randn((B, L, H * D), 701 + D, dtype)), heads(_randn((B, L, H * D), 702 + D, dtype))
+    coef = torch.tensor([0.0, 0.35, 1.0], device=dev)
+    skip = torch.tensor([True, False, True], device=dev)
+    eps = {}
+    if ep != "rows":
+        shape = (H, Le, D) if ep == "shared" else (B, H, Le, D)
+        eps = {n: _randn(shape, 710 + i, dtype) for i, n in enumerate(("k_begin", "v_begin", "k_end", "v_end"))}
+    wrapper = ATTN_WRAPPER[dtype]
+    before = dict(wrapper.launches_by_head_dim)
+    self_before = D512_WRAPPER[dtype].launches
+    got = flash_interpolated_attention(q, k, v, coef, mode, skip_endpoints=skip, **eps)
+    torch.cuda.synchronize()
+    assert wrapper.launches_by_head_dim == {**before, 512: before[512] + 1}
+    assert D512_WRAPPER[dtype].launches == self_before
+    want = flash_interpolated_attention_plain(q, k, v, coef, mode, skip_endpoints=skip, **eps)
+    assert got.shape == want.shape == (B, H, S, D) and got.dtype == dtype and torch.isfinite(got).all()
+    assert _attn_err(got, want) < ATTN_RTOLS[dtype]
+
+
+@pytest.mark.parametrize("dtype", **DTYPES)
+def test_flash_d512_self_mode_keeps_its_entries(dev, dtype):
+    """Self mode past 160 still takes the D=512 self kernels (the VAE's, and
+    a 320-wide UNet's unconditional pass): one launch of the self entry,
+    none of the endpoint entry, matching the plain version."""
+    for D in (192, 320, 512):
+        q = _randn((2, 1, 100, D), 720 + D, dtype)
+        k, v = _randn((2, 1, 77, D), 721 + D, dtype), _randn((2, 1, 77, D), 722 + D, dtype)
+        before, self_before = ATTN_WRAPPER[dtype].launches_by_head_dim[512], D512_WRAPPER[dtype].launches
+        got = flash_interpolated_attention(q, k, v)
+        torch.cuda.synchronize()
+        assert D512_WRAPPER[dtype].launches == self_before + 1
+        assert ATTN_WRAPPER[dtype].launches_by_head_dim[512] == before
+        assert _attn_err(got, flash_interpolated_attention_plain(q, k, v)) < ATTN_RTOLS[dtype]
 
 
 @pytest.mark.parametrize("D", [40, 64, 80, 160])

@@ -410,3 +410,60 @@ def test_safetensors_reader_imports_no_safetensors():
     names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
     names += [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom) and n.module]
     assert not [m for m in names if m.split(".")[0] == "safetensors"]
+
+
+# A tiny SD 1.x-like UNet whose heads are wider than the D <= 160 kernels:
+# widths (192, 384) with the legacy list attention_head_dim [1, 2], which
+# both loaders read as head counts, so every attention (both levels and the
+# mid block) runs at D = 192; on the card the D=512 instances take it.
+WIDE_HEAD_UNET_CFG = dataclasses.replace(jcfg.TINY_UNET, block_out_channels=(192, 384), num_attention_heads=(1, 2),
+                                         cross_attention_levels=(True, True))
+# f32 forwards on both sides from the same weights, as test_torch_models.py's FWD_TOL
+WIDE_HEAD_FWD_TOL = 1e-4
+
+
+def test_wide_heads_load_and_run_as_jax(tmp_path):
+    """A diffusers UNet directory with a list ``attention_head_dim`` whose
+    heads come out 192 wide: both loaders read the same UNetConfig (head
+    counts (1, 2)) and the same weights bit for bit, and the loaded UNets'
+    fused_outer and pure_inner forwards agree (f32, the port's plain
+    versions on the CPU)."""
+    cfg = WIDE_HEAD_UNET_CFG
+    _, params = th.jax_unet_and_params(cfg, seed=8)
+    path = tmp_path / "unet"
+    path.mkdir()
+    save_file(_numpy(unet_state_dict_from_flax(params)), str(path / "diffusion_pytorch_model.safetensors"))
+    with open(path / "config.json", "w") as f:
+        json.dump({"_class_name": "UNet2DConditionModel", "sample_size": cfg.sample_size,
+                   "down_block_types": ["CrossAttnDownBlock2D"] * 2, "up_block_types": ["CrossAttnUpBlock2D"] * 2,
+                   "block_out_channels": list(cfg.block_out_channels), "layers_per_block": cfg.layers_per_block,
+                   "attention_head_dim": [1, 2], "cross_attention_dim": cfg.cross_attention_dim,
+                   "norm_num_groups": cfg.norm_num_groups}, f)
+    raw = loader._read_config(str(path))
+    port_cfg = loader.unet_config_from_diffusers(raw)
+    assert dataclasses.asdict(port_cfg) == dataclasses.asdict(jloader.unet_config_from_diffusers(raw))
+    assert port_cfg.num_attention_heads == (1, 2)
+    assert [c // h for c, h in zip(port_cfg.block_out_channels, port_cfg.num_attention_heads)] == [192, 192]
+    unet = loader.load_unet(str(path), dtype=torch.float32, device="cpu")
+    jax_model, jax_params = jloader.load_unet(str(path), dtype=jnp.float32)
+    want_sd = unet_state_dict_from_flax(jax.tree_util.tree_map(np.asarray, jax_params))
+    got_sd = unet.state_dict()
+    assert got_sd.keys() == want_sd.keys()
+    for k in want_sd:
+        assert torch.equal(got_sd[k], want_sd[k]), k
+
+    from aid_tpu.models.layers import AidContext as JaxAidContext
+    from aid_tpu.models.layers import AidMode as JaxAidMode
+    from aid_tpu_torch.models.layers import AidContext, AidMode
+
+    B, s = 3, cfg.sample_size
+    x, ehs = th.normal(81, (B, s, s, cfg.in_channels)), th.normal(82, (B, 77, cfg.cross_attention_dim))
+    coef = np.array([0.0, 0.4, 1.0], np.float32)
+    for mode in ("fused_outer", "pure_inner"):
+        want = jax.jit(lambda p, x, e, c: jax_model.apply(
+            p, x, jnp.array(321.0), e, JaxAidContext(coef=c, mode=JaxAidMode.from_name(mode)), None))(
+            jax_params, jnp.asarray(x), jnp.asarray(ehs), jnp.asarray(coef))
+        with torch.no_grad():
+            got = unet(th.nhwc_to_nchw(x), torch.tensor(321.0), torch.from_numpy(ehs),
+                       AidContext(coef=torch.from_numpy(coef), mode=AidMode.from_name(mode)))
+        assert th.max_rel_err(th.nchw_to_nhwc(got), np.asarray(want)) < WIDE_HEAD_FWD_TOL, mode
