@@ -3,9 +3,10 @@
 The JAX package ``aid_tpu`` is the reference; this package never imports it
 (nor jax or flax). Layout mirrors ``aid_tpu``:
 
-  ops/        interpolation math, interpolated attention (plain version +
-              flash kernel wrappers, bf16 D=40/64/80/160 and f32 D=512), 3x3
-              conv and GN+SiLU conv kernel wrappers, kernel build
+  ops/        interpolation math, plain and interpolated attention (the
+              plain version and the flash kernels' wrappers: bf16, f16 and
+              f32 at every head dim up to 2048), 3x3 conv and GN+SiLU conv
+              kernel wrappers, kernel build
   csrc/       the CUDA C++ kernels (sm_90a), built by ops/_build.py at first use
   models/     configs, UNet building blocks, UNet2DCondition, VAE decode,
               CLIP text and vision towers, the safety checker, param
@@ -20,7 +21,8 @@ The JAX package ``aid_tpu`` is the reference; this package never imports it
               SD1.x interpolation pipeline and its SDXL subclass
   utils/      tokenizers, the safetensors reader, the invisible watermark,
               the readers of exported latents and embeddings, the phase
-              timer and profiler trace, image strips and grids
+              timer and profiler trace, image strips and grids, the
+              matmul+conv FLOP counter and MFU (utils/flops.py)
   parallel/   frame parallelism (frames sharded over ranks, the endpoint
               K/V all-gathered) and tensor parallelism on torch.distributed
   apps/       the Gradio app

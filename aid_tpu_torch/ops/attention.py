@@ -17,8 +17,9 @@ Shapes use the multi-head layout (B, H, S, D). Any strides are accepted.
 
 Routing (``dispatch_attention``): a CPU tensor takes the plain version; a
 CUDA tensor takes the hand-written kernel (``ops.flash_attention``) for
-EVERY call, the 77-token cross-attention included. The JAX package sends
-own-KV < ``FLASH_MIN_KV`` = 512 to XLA; on the card there is no such gate.
+EVERY call, the 77-token cross-attention included, at every head dim up to
+2048. The JAX package sends own-KV < ``FLASH_MIN_KV`` = 512 to XLA; on the
+card there is no such gate. :func:`attention` is plain multi-head attention.
 """
 
 from __future__ import annotations
@@ -27,6 +28,8 @@ import enum
 from typing import Optional
 
 import torch
+
+from aid_tpu_torch.utils import flops as _flops
 
 # Rows of (q-rows x keys) f32 logits the plain path materializes at once.
 # The plain version is the reference the kernel is held against on the card,
@@ -77,6 +80,14 @@ def _softmax_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: floa
         probs = torch.softmax(logits, dim=-1).to(dtype)
         outs.append(torch.matmul(probs.float(), vf[i:i + step].float()).to(dtype))
     return torch.cat(outs).reshape(B, H, Sq, D)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: Optional[float] = None) -> torch.Tensor:
+    """Plain multi-head attention on (B, H, S, D) tensors: softmax(q k^T *
+    scale) v with a float32 softmax, scale D**-0.5 by default."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    return _softmax_attn(q, k, v, scale)
 
 
 def interpolated_attention(
@@ -189,6 +200,13 @@ def dispatch_attention(
     from aid_tpu_torch.ops.flash_attention import flash_interpolated_attention
 
     mode = AttnMode(mode)
+    if _flops.counting():  # counted by its formula (utils/flops.py), as the JAX XLA path computes it
+        flops = _flops.attention_flops(q.shape, k.shape, mode.value, None if k_begin is None else k_begin.shape[-2])
+        if force_vanilla is not None and mode != AttnMode.SELF and any(
+                ep is not None and ep.shape[-2] != k.shape[-2] for ep in (k_begin, v_begin, k_end, v_end)):
+            flops += _flops.attention_flops(q.shape, k.shape)  # the vanilla result computed apart
+        return _flops.counted_call(flops, dispatch_attention, q, k, v, coef, mode, k_begin, v_begin, k_end, v_end,
+                                   scale, skip_endpoints, force_vanilla)
     if force_vanilla is not None and mode.is_fused:
         fv = torch.as_tensor(force_vanilla, dtype=torch.bool, device=q.device).expand(q.shape[0])
         skip_endpoints = fv if skip_endpoints is None else skip_endpoints | fv

@@ -56,6 +56,7 @@ import torch.nn.functional as F
 from torch.utils.weak import WeakIdKeyDictionary
 
 from aid_tpu_torch.ops.routing import use_kernel
+from aid_tpu_torch.utils import flops as _flops
 
 
 def conv3x3_same_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -244,6 +245,8 @@ def conv3x3_same(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, packed: bool
     anything else raises.
     """
     del packed  # one kernel serves both TPU contracts
+    if _flops.counting():  # counted by its formula (utils/flops.py), whatever computes it
+        return _flops.counted_call(_flops.conv3x3_flops(x.shape, w.shape), conv3x3_same, x, w, b)
     if not use_kernel(x, w, b):
         return conv3x3_same_plain(x, w, b)
     if x.dtype == torch.float32:
@@ -321,6 +324,9 @@ def conv3x3_gnsilu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, gamma: tor
     0; f32 goes to :func:`conv3x3_gnsilu_f32`, f16 to
     :func:`conv3x3_gnsilu_f16`; anything else raises.
     """
+    if _flops.counting():  # the conv's FLOPs; the prologue is not counted, as the JAX module leaves norms out
+        return _flops.counted_call(_flops.conv3x3_flops(x.shape, w.shape), conv3x3_gnsilu, x, w, b, gamma, beta,
+                                   num_groups, eps)
     if not use_kernel(x, w, b, gamma, beta):
         return conv3x3_gnsilu_plain(x, w, b, gamma, beta, num_groups, eps)
     if x.dtype == torch.float32:

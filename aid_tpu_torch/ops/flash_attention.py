@@ -1,70 +1,62 @@
-"""Flash interpolated attention: the hand-written Hopper kernel and its plain version.
+"""Flash interpolated attention: the hand-written Hopper kernels and their plain version.
 
 ``flash_interpolated_attention`` computes the contract of
 ``aid_tpu.ops.flash_attention.flash_interpolated_attention``
-(aid_tpu/ops/flash_attention.py:683-1061). On a CUDA tensor it launches
-``csrc/flash_interpolated_attention.cu``, which replaces both Pallas TPU
-kernels behind that function (``_kernel``, flash_attention.py:101, and
-``_kernel_onepass``, flash_attention.py:339); the source's header says what
-bounds it on the card and how the design answers. On a CPU tensor it runs
+(aid_tpu/ops/flash_attention.py:683-1061) at every head dim that contract
+takes, up to 2048. On a CUDA tensor it launches one of the kernels below,
+which together replace both Pallas TPU kernels behind that function
+(``_kernel``, flash_attention.py:101, and ``_kernel_onepass``,
+flash_attention.py:339); each source's header says what bounds it on the card
+and how the design answers. On a CPU tensor it runs
 :func:`flash_interpolated_attention_plain`.
 
-Seven kernels take CUDA calls:
-  * bf16 with head dim 40, 64, 80 or 160, every mode (every UNet attention:
-    64 for SDXL and SD2.x, 40/80/160 for SD1.x's 8 heads at widths
-    320/640/1280): ``csrc/flash_interpolated_attention.cu``, counted by
-    ``flash_interpolated_attention.launches`` and, per head dim, by
-    ``flash_interpolated_attention.launches_by_head_dim``;
-  * f16 with the same head dims, every mode (the same attentions in an f16
-    UNet, as the upstream CUDA reference runs it): the f16 instance of the
-    same design and C signature in ``csrc/flash_interpolated_attention.cu``
-    (``aid_flash_attn_f16``), reached through
-    :func:`flash_interpolated_attention_f16` and counted by its
-    ``launches`` and ``launches_by_head_dim``;
-  * f32 with head dim 40, 64, 80 or 160, every mode (the same attentions in
-    an f32 UNet, the reference's default dtype): the same C signature in
-    ``csrc/flash_interpolated_attention_f32.cu`` (3xTF32; wgmma on TMA tiles
-    that a producer warpgroup splits and transposes; at D = 160 two
-    consumer warpgroups split D and exchange partial scores), reached
-    through :func:`flash_interpolated_attention_f32` and counted by its
-    ``launches`` and ``launches_by_head_dim``;
-  * f32 with head dim 512, self mode (the VAE mid-block attention, one head
-    over 4096 tokens at 512px, 16384 at 1024px):
-    ``csrc/flash_attention_f32_d512.cu`` (wgmma on TMA tiles, both products
-    in three passes, D split across two consumer warpgroups, P V as O^T =
-    V^T P^T), reached through :func:`flash_self_attention_f32` and counted
-    by its ``launches``;
-  * bf16 with head dim 512, self mode (the same attention in a bf16 VAE):
-    ``csrc/flash_attention_bf16_d512.cu`` (wgmma on TMA tiles, D split
-    across two consumer warpgroups), reached through
-    :func:`flash_self_attention_bf16` and counted by its ``launches``;
-  * f16 with head dim 512, self mode (an f16 VAE): the f16 instance of that
-    source (``aid_flash_attn_f16_d512``), reached through
-    :func:`flash_self_attention_f16` and counted by its ``launches``;
-  * bf16, f16 and f32 with head dim 512 in the four endpoint modes (a UNet
-    whose heads are wider than 160): ``aid_flash_attn_{bf16,f16}_d512_interp``
-    in ``csrc/flash_attention_bf16_d512.cu`` and
-    ``aid_flash_attn_f32_d512_interp`` in ``csrc/flash_attention_f32_d512.cu``
-    (the self designs' tiles over own / begin / end segments, the outer
-    modes' first softmax set parked in a global f32 workspace the wrapper
-    allocates per call), reached through the D <= 160 wrappers of the dtype
-    and counted by their ``launches`` and ``launches_by_head_dim[512]``.
+The kernels by head dim, each in bf16, f16 and f32:
+  * D = 40, 64, 80 or 160, every mode (every published UNet's attention: 64
+    for SDXL and SD2.x, 40/80/160 for SD1.x's 8 heads at widths
+    320/640/1280): ``csrc/flash_interpolated_attention.cu`` (bf16 and its
+    f16 instance, ``aid_flash_attn_bf16`` / ``aid_flash_attn_f16``) and
+    ``csrc/flash_interpolated_attention_f32.cu`` (3xTF32 on wgmma; at D =
+    160 two consumer warpgroups split D), counted by the wrapper of the
+    dtype (:func:`flash_interpolated_attention`,
+    :func:`flash_interpolated_attention_f16`,
+    :func:`flash_interpolated_attention_f32`) in ``launches`` and, per
+    instance head dim, ``launches_by_head_dim``;
+  * D = 512, self mode (the VAE mid-block attention, one head over 4096
+    tokens at 512px, 16384 at 1024px): ``csrc/flash_attention_f32_d512.cu``
+    (wgmma, both products in three passes, D split across two consumer
+    warpgroups) and ``csrc/flash_attention_bf16_d512.cu`` (bf16 and f16),
+    reached through :func:`flash_self_attention_f32`,
+    :func:`flash_self_attention_bf16` and :func:`flash_self_attention_f16`
+    and counted by their ``launches``;
+  * D = 512 in the four endpoint modes (a UNet whose heads are 161-512
+    wide): ``aid_flash_attn_{bf16,f16,f32}_d512_interp`` in the two D=512
+    sources (the self designs' tiles over own / begin / end segments, the
+    outer modes' first softmax set parked in a global f32 workspace the
+    wrapper allocates per call), counted under ``launches_by_head_dim[512]``;
+  * D = 513-2048, every mode (an SD 1.x UNet with one head a level: 640 and
+    1280): ``aid_flash_attn_{bf16,f16,f32}_dwide`` in
+    ``csrc/flash_attention_dwide.cu`` (the Q tile resident for 16 or 32
+    rows, D split across eight warps that sum their partial scores in
+    shared memory; mma.sync, 3xTF32 in f32), counted under
+    ``launches_by_head_dim[DWIDE]``.
 A head dim that no instance takes is zero-padded to the next that does,
 as the JAX package pads (aid_tpu/ops/flash_attention.py:784, 800-801):
-below 160 to the next of 40, 64, 80, 160, between 160 and 512 to 512, in
-every mode; the scale stays the unpadded D's and the output is sliced
-back. Zero columns add nothing to Q K^T, and V's are cut off, so the
-padding is exact; it costs one copy of each operand, and the launch counts
-book such calls under the padded head dim. Any other dtype (float64) or a
-head dim over 512 raises ``NotImplementedError`` on a CUDA tensor (ROADMAP
-Queue 2 lists what is still to port). :func:`kernel_operands` checks the
-operands of the interpolating kernels (D <= 160, and D = 512 outside self
-mode; bf16, f16 or f32, one C signature, the D = 512 entries with one
-workspace pointer more), pads them and lays out their C entry's arguments
-(the CPU tests replay the kernels' data movement from them),
-:func:`d512_operands` those of the D=512 self kernels; :func:`kernel_launch`
-and :func:`d512_launch` return the launch itself, which ``chip_smoke.py``
-times apart from the wrapper's host work.
+below 160 to the next of 40, 64, 80, 160, between 160 and 512 to 512, past
+512 to a multiple of 8 (16-byte rows; the wide kernel takes the rest of its
+padding from zero-filling copies), in every mode; the scale stays the
+unpadded D's and the output is sliced back. Zero columns add nothing to
+Q K^T, and V's are cut off, so the padding is exact; it costs one copy of
+each operand, and the launch counts book such calls under the instance's
+head dim. Any other dtype (float64) or a head dim over 2048 raises
+``NotImplementedError`` on a CUDA tensor, as the JAX wrapper raises past its
+block budget. :func:`kernel_operands` checks the operands of the
+interpolating kernels (every instance but the D=512 self kernels; bf16, f16
+or f32, one C signature, the D >= 512 entries with one workspace pointer
+more), pads them and lays out their C entry's arguments (the CPU tests
+replay the kernels' data movement from them), :func:`d512_operands` those
+of the D=512 self kernels; :func:`kernel_launch` and :func:`d512_launch`
+return the launch itself, which ``chip_smoke.py`` times apart from the
+wrapper's host work.
 """
 
 from __future__ import annotations
@@ -106,6 +98,46 @@ D512_INTERP_ENTRIES = {torch.bfloat16: "aid_flash_attn_bf16_d512_interp",
 #: (its 128 output accumulators, m[2], l[2]; both sources' kParkWords), for
 #: each of the 256 consumer threads of a 64-row query block
 D512_PARK_WORDS, D512_CONSUMERS = 132, 256
+#: the widest head dim (the JAX wrapper's block budget in bf16): the wide
+#: entries take 513..DWIDE and are counted under it
+DWIDE = 2048
+#: the C entry of the wide kernels by operand dtype (csrc/flash_attention_dwide.cu;
+#: the D = 512 endpoint entries' C signature), every mode
+DWIDE_ENTRIES = {torch.bfloat16: "aid_flash_attn_bf16_dwide", torch.float16: "aid_flash_attn_f16_dwide",
+                 torch.float32: "aid_flash_attn_f32_dwide"}
+#: the wide kernel's outer-mode workspace: f32 words a block parks (its 256
+#: threads' 128 output accumulators, then the max and sum of up to 32 rows;
+#: the source's kParkBlock)
+DWIDE_PARK_FLOATS = 128 * 256 + 2 * 32
+
+
+#: the most shared memory a block of the wide kernel may take (the card's 227 KB)
+DWIDE_SMEM = 232448
+
+
+def dwide_tiles(D: int, dtype=torch.bfloat16) -> tuple:
+    """The wide kernel's tiling at an operand head dim D in ``dtype``: (Dp,
+    query rows a block, keys a tile), Dp being D rounded up to a multiple
+    of 128 (each of the eight warps takes Dp / 8 columns); 32 rows where Dp
+    <= 1024, else 16; 32 keys in bf16 and f16 (16 in f32) where the Q tile
+    and one K and one V tile fit in shared memory, else 16 (8), as
+    csrc/flash_attention_dwide.cu's host code picks them (its smem_bytes)."""
+    Dp = -(-D // 128) * 128
+    rows = 32 if Dp <= 1024 else 16
+    elem = torch.empty((), dtype=dtype).element_size()
+    keys = 8 if dtype == torch.float32 else 16
+    ld = Dp + 16 // elem
+
+    def smem(bk):  # Q, one slot of each ring, the partial scores, P and the row statistics
+        return elem * ld * (rows + 2 * bk) + 4 * (8 * rows * (bk + 8) + rows * (bk + 8) + 3 * 32)
+
+    return Dp, rows, 2 * keys if smem(2 * keys) <= DWIDE_SMEM else keys
+
+
+def instance_head_dim(Dp: int) -> int:
+    """The head dim a launch at operand head dim Dp is counted under: Dp up
+    to 512, :data:`DWIDE` for the wide entries."""
+    return Dp if Dp <= D512 else DWIDE
 
 
 def flash_interpolated_attention_plain(
@@ -133,16 +165,20 @@ def flash_interpolated_attention_plain(
 
 
 def padded_head_dim(D: int, mode: AttnMode | str = AttnMode.SELF) -> int:
-    """The head dim of the instance that takes a call at head dim D in
-    ``mode``: the next of :data:`KERNEL_HEAD_DIMS` at or above D up to 160,
-    :data:`D512` from 161 to 512, in every mode. Raises
-    ``NotImplementedError`` over 512, where no instance is wide enough."""
+    """The head dim the operands of a call at head dim D in ``mode`` are
+    padded to: the next of :data:`KERNEL_HEAD_DIMS` at or above D up to 160,
+    :data:`D512` from 161 to 512, and from 513 to :data:`DWIDE` D rounded up
+    to a multiple of 8 (the wide entries take any head dim with 16-byte
+    rows), in every mode. Raises ``NotImplementedError`` past
+    :data:`DWIDE`, as the JAX wrapper raises past its block budget."""
     mode = AttnMode(mode)
     for Dp in (*KERNEL_HEAD_DIMS, D512):
         if D <= Dp:
             return Dp
+    if D <= DWIDE:
+        return -(-D // 8) * 8
     raise NotImplementedError(f"no flash kernel takes head dim {D} in {mode.value} mode: none is wider "
-                              f"than {D512} (ROADMAP Queue 2 lists what still raises)")
+                              f"than {DWIDE}")
 
 
 def _pad_head_dim(x: torch.Tensor, Dp: int) -> torch.Tensor:
@@ -195,7 +231,8 @@ def d512_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: Opti
         raise ValueError(f"k/v shapes {tuple(k.shape)}/{tuple(v.shape)} do not match q {tuple(q.shape)}")
     if not KERNEL_HEAD_DIMS[-1] < D <= D512:
         raise NotImplementedError(f"the D={D512} self-attention kernels take head dims {KERNEL_HEAD_DIMS[-1] + 1}.."
-                                  f"{D512} (padded to {D512}); q has {D} (ROADMAP Queue 2 E lists what still raises)")
+                                  f"{D512} (padded to {D512}); q has {D} (past {D512} the wide entries take it: "
+                                  "kernel_operands)")
     if Sq == 0 or k.shape[2] == 0:
         raise ValueError("empty query or key sequence")
     q, k, v = (_pad_head_dim(x, D512) for x in (q, k, v))
@@ -236,15 +273,16 @@ def d512_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: Option
 def _self_attention_d512(wrapper, small, q, k, v, scale):
     """The D=512 self-attention wrappers' shared body: the plain
     ``_softmax_attn`` on CPU tensors; on CUDA tensors of ``wrapper``'s dtype
-    (:data:`_WRAPPER_DTYPES`) ``small`` (the D <= 160 wrapper of that dtype)
-    at a head dim of 160 or less, else the D=512 kernel, counted on
+    (:data:`_WRAPPER_DTYPES`) ``small`` (the interpolating wrapper of that
+    dtype: the D <= 160 kernels, or the wide entries past 512) at a head dim
+    of 160 or less or past 512, else the D=512 kernel, counted on
     ``wrapper``."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if not use_kernel(q, k, v):
         return _softmax_attn(q, k, v, scale)
     _check_dtype("q", q, _WRAPPER_DTYPES[wrapper.__name__])
-    if q.shape[-1] <= KERNEL_HEAD_DIMS[-1]:
+    if not KERNEL_HEAD_DIMS[-1] < q.shape[-1] <= D512:  # the D <= 160 kernels or the wide entries
         return small(q, k, v, scale=scale)
     out, launch = d512_launch(q, k, v, scale)
     launch()
@@ -258,7 +296,8 @@ def flash_self_attention_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     contract): ``csrc/flash_attention_f32_d512.cu`` on CUDA tensors, the
     plain ``_softmax_attn`` on CPU tensors. On CUDA a head dim between 160
     and 512 pads to 512; one of 160 or less (a tiny VAE's) takes the D <= 160
-    kernel in self mode, padded where needed.
+    kernel in self mode, padded where needed, and one past 512 the f32 wide
+    entry.
 
     q: (B, H, Sq, D), k/v: (B, H, Lk, D), all f32. Returns (B, H, Sq, D) f32.
     """
@@ -276,7 +315,8 @@ def flash_self_attention_bf16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     tensors, the plain ``_softmax_attn`` (f32 logits and softmax, the
     probabilities rounded to bf16 before P V) on CPU tensors. On CUDA a head
     dim between 160 and 512 pads to 512; one of 160 or less takes the bf16
-    D <= 160 kernel in self mode, padded where needed.
+    D <= 160 kernel in self mode, padded where needed, and one past 512 the
+    bf16 wide entry.
 
     q: (B, H, Sq, D), k/v: (B, H, Lk, D), all bf16. Returns (B, H, Sq, D)
     bf16; on CUDA a view of a (B, Sq, H, D) buffer, as the other bf16 kernel
@@ -295,7 +335,8 @@ def flash_self_attention_f16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     an f16 VAE): the f16 instance of ``csrc/flash_attention_bf16_d512.cu``
     on CUDA tensors, the plain ``_softmax_attn`` (f32 logits and softmax,
     the probabilities rounded to f16 before P V) on CPU tensors. On CUDA a
-    head dim of 160 or less takes the f16 D <= 160 kernel in self mode.
+    head dim of 160 or less takes the f16 D <= 160 kernel in self mode, one
+    past 512 the f16 wide entry.
 
     q: (B, H, Sq, D), k/v: (B, H, Lk, D), all f16. Returns (B, H, Sq, D)
     f16; on CUDA a view of a (B, Sq, H, D) buffer.
@@ -327,25 +368,27 @@ def kernel_operands(
     skip_endpoints: Optional[torch.Tensor] = None,  # (B,) bool: rows whose endpoint segments are dropped
 ) -> dict:
     """Check the operands of the interpolating kernel of q's dtype (bf16,
-    f16 or f32) and head dim (the D <= 160 kernels, and the D = 512 ones in
-    the endpoint modes) and lay out one call of its C entry (``entry``,
-    :data:`KERNEL_ENTRIES` or :data:`D512_INTERP_ENTRIES`): ``tensors`` (q,
+    f16 or f32) and head dim (the D <= 160 kernels, the D = 512 ones in the
+    endpoint modes, the wide ones past 512 in every mode) and lay out one
+    call of its C entry (``entry``, :data:`KERNEL_ENTRIES`,
+    :data:`D512_INTERP_ENTRIES` or :data:`DWIDE_ENTRIES`): ``tensors`` (q,
     k, v, k_begin, v_begin, k_end, v_end and the output, a (B, H, Sq, Dp)
     view of a new (B, Sq, H, Dp) buffer), ``dims`` (the entry's 30 shape and
     stride values), ``coef`` and ``skip`` (None where the mode reads
-    neither), ``work`` (the D = 512 outer modes' f32 workspace, (blocks,
-    :data:`D512_PARK_WORDS`, :data:`D512_CONSUMERS`); else None), ``scale``,
-    ``has_own``, ``n_sets``, ``head_dim`` (the caller's D) and ``out`` (the
-    output at that D). A head dim that no instance takes is zero-padded to
-    the next one, Dp (:func:`padded_head_dim`), after the endpoints are made
-    and before the layout is checked; the scale stays D's. Self mode reads
-    no endpoint: its slots repeat k and v (over 160 it is the D=512 self
-    kernels', :func:`d512_operands`). Nothing here needs a device."""
+    neither), ``work`` (the outer modes' f32 workspace: at D = 512 (blocks,
+    :data:`D512_PARK_WORDS`, :data:`D512_CONSUMERS`), past it (blocks,
+    :data:`DWIDE_PARK_FLOATS`) with a block per :func:`dwide_tiles` rows;
+    else None), ``scale``, ``has_own``, ``n_sets``, ``head_dim`` (the
+    caller's D) and ``out`` (the output at that D). A head dim that no
+    instance takes is zero-padded to the next one, Dp
+    (:func:`padded_head_dim`), after the endpoints are made and before the
+    layout is checked; the scale stays D's. Self mode reads no endpoint: its
+    slots repeat k and v (from 161 to 512 it is the D=512 self kernels',
+    :func:`d512_operands`). Nothing here needs a device."""
     mode = AttnMode(mode)
     B, H, Sq, D = q.shape
     if q.dtype not in KERNEL_ENTRIES:
-        raise NotImplementedError(f"the flash kernels take bf16, f16 or f32 at head dims {KERNEL_HEAD_DIMS}; q is "
-                                  f"{q.dtype}")
+        raise NotImplementedError(f"the flash kernels take bf16, f16 or f32; q is {q.dtype}")
     Dp = padded_head_dim(D, mode)
     if Dp == D512 and mode == AttnMode.SELF:
         raise NotImplementedError(f"head dim {D} pads to {Dp} in self mode: the D={D512} self-attention kernels take "
@@ -408,7 +451,10 @@ def kernel_operands(
     work = None
     if Dp == D512 and mode.is_outer:  # the parked first softmax set of each 64-row query block
         work = torch.empty((B * H * -(-Sq // 64), D512_PARK_WORDS, D512_CONSUMERS), dtype=torch.float32, device=dev)
-    entry = (D512_INTERP_ENTRIES if Dp == D512 else KERNEL_ENTRIES)[q.dtype]
+    elif Dp > D512 and mode.is_outer:  # ... of each block of the wide kernel's 16 or 32 rows
+        work = torch.empty((B * H * -(-Sq // dwide_tiles(Dp, q.dtype)[1]), DWIDE_PARK_FLOATS), dtype=torch.float32,
+                           device=dev)
+    entry = (DWIDE_ENTRIES if Dp > D512 else D512_INTERP_ENTRIES if Dp == D512 else KERNEL_ENTRIES)[q.dtype]
     return dict(entry=entry, tensors=tensors, dims=dims, coef=coef_t, skip=skip, work=work,
                 scale=D ** -0.5 if scale is None else scale,
                 has_own=int(mode in (AttnMode.SELF, AttnMode.FUSED_OUTER, AttnMode.FUSED_INNER)),
@@ -442,8 +488,8 @@ def kernel_launch(*args, **kwargs) -> tuple:
     from aid_tpu_torch.ops import _build
 
     lib = _build.library()
-    # the D = 512 entries take the workspace pointer (null in the inner modes) after skip
-    work = (None if ops["work"] is None else ops["work"].data_ptr(),) if ops["dims"][5] == D512 else ()
+    # the D >= 512 entries take the workspace pointer (null outside the outer modes) after skip
+    work = (None if ops["work"] is None else ops["work"].data_ptr(),) if ops["dims"][5] >= D512 else ()
     c_args = (*(x.data_ptr() for x in tensors),
               *(None if x is None else x.data_ptr() for x in (ops["coef"], ops["skip"])), *work,
               _dims_array(ops["dims"]), float(ops["scale"]), ops["has_own"],
@@ -462,12 +508,12 @@ def _launch_counted(wrapper, q, *args, **kwargs) -> torch.Tensor:
     """One launch of the interpolating kernel of ``wrapper``'s dtype
     (:data:`_WRAPPER_DTYPES`; q checked here, the rest by kernel_operands)
     and of the call's padded head dim, counted on ``wrapper`` in all and
-    under the instance's head dim (40, 64, 80, 160 or 512)."""
+    under the instance's head dim (40, 64, 80, 160, 512 or :data:`DWIDE`)."""
     _check_dtype("q", q, _WRAPPER_DTYPES[wrapper.__name__])
     out, launch = kernel_launch(q, *args, **kwargs)
     launch()
     wrapper.launches += 1
-    wrapper.launches_by_head_dim[launch.operands["dims"][5]] += 1
+    wrapper.launches_by_head_dim[instance_head_dim(launch.operands["dims"][5])] += 1
     return out
 
 
@@ -505,7 +551,7 @@ def flash_interpolated_attention(
             q, k, v, coef, mode, k_begin=k_begin, v_begin=v_begin, k_end=k_end, v_end=v_end,
             scale=scale, skip_endpoints=skip_endpoints)
 
-    if mode == AttnMode.SELF and q.shape[-1] > KERNEL_HEAD_DIMS[-1]:  # the D=512 kernels, padded up to 512
+    if mode == AttnMode.SELF and KERNEL_HEAD_DIMS[-1] < q.shape[-1] <= D512:  # the D=512 kernels, padded up to 512
         d512 = {torch.float32: flash_self_attention_f32, torch.bfloat16: flash_self_attention_bf16,
                 torch.float16: flash_self_attention_f16}.get(q.dtype)
         if d512 is not None:
@@ -539,8 +585,10 @@ def flash_interpolated_attention_f32(
     on wgmma; at D = 160 two warpgroups split D) on CUDA tensors, the plain
     version on CPU tensors. A head dim from 161 to 512 in an endpoint mode
     pads to 512 and takes ``aid_flash_attn_f32_d512_interp``
-    (``csrc/flash_attention_f32_d512.cu``). Returns (B, H, Sq, D) f32; on
-    CUDA a view of a (B, Sq, H, Dp) buffer, as the bf16 kernel writes.
+    (``csrc/flash_attention_f32_d512.cu``); one from 513 to 2048, in every
+    mode, ``aid_flash_attn_f32_dwide`` (``csrc/flash_attention_dwide.cu``).
+    Returns (B, H, Sq, D) f32; on CUDA a view of a (B, Sq, H, Dp) buffer, as
+    the bf16 kernel writes.
     """
     mode = AttnMode(mode)
     if not use_kernel(q, k, v):
@@ -571,8 +619,9 @@ def flash_interpolated_attention_f16(
     the bf16 design with f16 wgmma, f32 scores, softmax and accumulation,
     P rounded to f16) on CUDA tensors, the plain version on CPU tensors. A
     head dim from 161 to 512 in an endpoint mode pads to 512 and takes
-    ``aid_flash_attn_f16_d512_interp``. Returns (B, H, Sq, D) f16; on CUDA
-    a view of a (B, Sq, H, Dp) buffer.
+    ``aid_flash_attn_f16_d512_interp``; one from 513 to 2048, in every mode,
+    ``aid_flash_attn_f16_dwide``. Returns (B, H, Sq, D) f16; on CUDA a view
+    of a (B, Sq, H, Dp) buffer.
     """
     mode = AttnMode(mode)
     if not use_kernel(q, k, v):
@@ -585,11 +634,12 @@ def flash_interpolated_attention_f16(
 
 def reset_launch_counts() -> None:
     """Set the interpolating kernels' launch counts (bf16, f16 and f32, total
-    and per instance head dim, 512 the endpoint-mode D=512 entries: a padded
-    call counts under the head dim it pads to) to 0."""
+    and per instance head dim, 512 the endpoint-mode D=512 entries,
+    :data:`DWIDE` the wide entries: a padded call counts under the instance
+    that takes it) to 0."""
     for fn in (flash_interpolated_attention, flash_interpolated_attention_f16, flash_interpolated_attention_f32):
         fn.launches = 0
-        fn.launches_by_head_dim = dict.fromkeys((*KERNEL_HEAD_DIMS, D512), 0)
+        fn.launches_by_head_dim = dict.fromkeys((*KERNEL_HEAD_DIMS, D512, DWIDE), 0)
 
 
 #: kernel launches since the last reset, in all and by head dim, of the bf16,

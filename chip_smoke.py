@@ -93,7 +93,14 @@ read just after:
     ``load_interpolation_pipeline(dir)``; its UNet's forward in bf16, f32
     and f16 and ``interpolate`` (PAID, 7 frames, 512px, 10 DDIM steps), every
     attention on a D=512 kernel: the endpoint modes' new entries and the
-    self ones.
+    self ones;
+  * SD 1.x with one head a level: the same directory with
+    ``attention_head_dim`` [1, 1, 1, 1] (head dims 320 / 640 / 1280 /
+    1280), loaded with ``load_interpolation_pipeline(dir)``; its UNet's
+    forward in bf16, f32 and f16 and ``interpolate`` (PAID, 7 frames, 512px,
+    10 DDIM steps), every attention at D = 640 / 1280 on a wide entry
+    (``csrc/flash_attention_dwide.cu``), every one at D = 320 on a D=512
+    kernel.
 
 Phases (each prints its own lines; any failure exits non-zero):
   1. device      needs CUDA; prints the card's name and power limit
@@ -202,6 +209,18 @@ Phases (each prints its own lines; any failure exits non-zero):
                  DDIM steps, s/step); every attention launch on a D=512
                  entry. Phase 3 holds the D=512 endpoint entries against
                  their plain versions at its shapes in bf16, f16 and f32
+ 22. one head    after phase 21: the SD1.x UNet with one head a level through
+                 the loader, a fused_outer forward kernels vs plain in bf16
+                 (two planted faults: c and 1 - c swapped, the own segment
+                 dropped), f32 (one output slice, and every slice, over its
+                 own chunk of the scores) and f16 (the own segment
+                 dropped), interpolate() (PAID, 10 DDIM steps, s/step);
+                 every attention launch at D = 640 / 1280 on a wide entry,
+                 every one at D = 320 on a D=512 entry, a forward's counts
+                 those of the UNet's attention modules. Phase 3 holds the
+                 wide entries against their plain versions in bf16, f16 and
+                 f32, every mode, at its shapes, at (2,1,512,2048) and at a
+                 ragged D = 520
 The smoke prints its own wall time before the kernels line.
 Phase 1 turns TF32 off for cuBLAS and cuDNN, so every plain f32 version and
 library call computes in full f32, and cuBLAS's reduced-precision f16
@@ -613,6 +632,7 @@ def phase_kernels(coef, sd_coef, fused_classes, sd21_classes):
         D512,
         KERNEL_HEAD_DIMS,
         d512_launch,
+        dwide_tiles,
         flash_interpolated_attention,
         flash_interpolated_attention_plain,
         flash_self_attention_bf16,
@@ -647,16 +667,20 @@ def phase_kernels(coef, sd_coef, fused_classes, sd21_classes):
         once (kernel_ms). In self mode SDPA computes the same function and is
         timed under each backend that takes the input. f32 is held to
         F32_ATTN_TOL and bounded at three TF32 passes, f16 to F16_ATTN_TOL
-        and bounded at the f16 tensor-core rate. A head dim past 160 in an
-        endpoint mode takes the D=512 endpoint entry: bounded at the caller's
-        D (f32 at the D=512 kernel's passes, F32_D512_PASSES) with the bound at
-        the padded 512 beside it (bound_padded_ms), and in the inner modes
-        timed beside SDPA over [own; K_cross] (pure: K_cross alone), the
-        lerped endpoint made as the wrapper makes it. Returns a record."""
+        and bounded at the f16 tensor-core rate. A head dim from 161 to 512
+        in an endpoint mode takes the D=512 endpoint entry (f32 bounded at
+        its passes, F32_D512_PASSES), one past 512 the wide entry in every
+        mode (f32 bounded at three TF32 passes): both bounded at the caller's
+        D with the bound at the padded D the kernel computes (512, or D
+        rounded up to a multiple of 128) beside it (bound_padded_ms), and in
+        the inner modes timed beside SDPA over [own; K_cross] (pure: K_cross
+        alone), the lerped endpoint made as the wrapper makes it. Returns a
+        record."""
         B = c.shape[0]
         f32, f16 = dtype == torch.float32, dtype == torch.float16
         tol = F32_ATTN_TOL if f32 else F16_ATTN_TOL if f16 else ATTN_TOL
-        wide = D > KERNEL_HEAD_DIMS[-1] and mode != "self"
+        dwide = D > D512
+        wide = dwide or (D > KERNEL_HEAD_DIMS[-1] and mode != "self")
 
         def heads(x):
             return x.view(x.shape[0], x.shape[1], H, D).transpose(1, 2)
@@ -682,7 +706,7 @@ def phase_kernels(coef, sd_coef, fused_classes, sd21_classes):
         plain_ms = cuda_ms(lambda: flash_interpolated_attention_plain(q, k, v, c, mode, **kw), max(1, reps // 5))
         skip_rows = int(kw["skip_endpoints"].sum()) if "skip_endpoints" in kw else 0
         per_row = isinstance(Le, tuple)
-        passes = (F32_D512_PASSES if wide else {"tf32_passes": 3}) if f32 else {}
+        passes = (F32_D512_PASSES if wide and not dwide else {"tf32_passes": 3}) if f32 else {}
 
         def bound_at(d):
             return attention_bound(mode, B, H, Sq, L, d, Le[1] if per_row else Le, skip_rows=skip_rows,
@@ -692,8 +716,9 @@ def phase_kernels(coef, sd_coef, fused_classes, sd21_classes):
         library = sdpa_backends(q, k, v, want, reps) if mode == "self" else {}
         padded = ""
         if wide:
-            padded_ms = bound_at(D512)[0]
-            padded = f"; bound at the padded D={D512} {padded_ms:.3f} ms"
+            Dk = dwide_tiles(D)[0] if dwide else D512  # the columns the kernel computes
+            padded_ms = bound_at(Dk)[0]
+            padded = f"; bound at the padded D={Dk} {padded_ms:.3f} ms"
             if mode in ("fused_inner", "pure_inner"):  # SDPA over [own; K_cross], K_cross lerped in f32
                 c4 = c.view(B, 1, 1, 1)
                 kb, vb = kw.get("k_begin", k[0]), kw.get("v_begin", v[0])
@@ -871,6 +896,34 @@ def phase_kernels(coef, sd_coef, fused_classes, sd21_classes):
                 **{k: r[k] for k in ("ms", "kernel_ms", "plain_ms", "bound_ms", "bound_padded_ms", "library_ms")},
                 "bound_share": r["bound_ms"] / r["kernel_ms"]}
             if label == "SD1.x D=320 fused_outer 4096":
+                main = r
+        records[name] = {**main, "max_abs_err": worst, "shapes": shapes}
+    gen = main_gen
+
+    # the wide entries at phase 22's shapes (SD 1.x with one head a level:
+    # D = 640 over 32^2 tokens, 1280 over 16^2 and 8^2, the 77-key cross call
+    # at D = 640), at the widest head dim (2048, two frames with no skip row)
+    # and at a ragged one (520), every mode, in bf16, f16 and f32; the record
+    # is fused_outer (7,1,1024,640)'s, every case under ``shapes``
+    two = torch.tensor([0.3, 0.6], device=dev)
+    dwide_cases = [(f"SD1.x D={D} {m} {Sq}{'x77' if L == 77 else ''}", m, c, Sq, L, D, reps)
+                   for Sq, L, D, c, reps in ((1024, 1024, 640, sd_coef, 3), (1024, 77, 640, sd_coef, 5),
+                                             (256, 256, 1280, sd_coef, 5), (64, 64, 1280, sd_coef, 10),
+                                             (512, 512, 2048, two, 3), (1024, 1024, 520, sd_coef, 3))
+                   for m in ("fused_outer", "pure_outer", "fused_inner", "pure_inner", "self")]
+    for name, dtype in (("flash_interpolated_attention(D=513-2048)", torch.bfloat16),
+                        ("flash_interpolated_attention_f16(D=513-2048)", torch.float16),
+                        ("flash_interpolated_attention_f32(D=513-2048)", torch.float32)):
+        gen = f16_gen if dtype == torch.float16 else main_gen
+        worst, shapes = 0.0, {}
+        for label, mode, c, Sq, L, D, reps in dwide_cases:
+            r = attention(label, mode, c, 1, Sq, L, D, reps if dtype != torch.float32 else max(1, reps // 2),
+                          None, dtype)
+            worst = max(worst, r["max_abs_err"])
+            shapes[f"{label} ({c.shape[0]},1,{Sq},{D})"] = {
+                **{k: r[k] for k in ("ms", "kernel_ms", "plain_ms", "bound_ms", "bound_padded_ms", "library_ms")},
+                "bound_share": r["bound_ms"] / r["kernel_ms"], "library": r["library"]}
+            if label == "SD1.x D=640 fused_outer 1024":
                 main = r
         records[name] = {**main, "max_abs_err": worst, "shapes": shapes}
     gen = main_gen
@@ -3995,8 +4048,9 @@ def own_dropped(plain):
 
 
 def check_wide_only(path: str, counts: dict, needed, allowed=()) -> None:
-    """check_path, and no launch of a D <= 160 attention entry or of a
-    D=512 entry other than ``needed`` and ``allowed`` (the self entries)."""
+    """check_path, and no launch of an attention entry (D <= 160, D=512,
+    the wide ones past 512, the self ones) other than ``needed`` and
+    ``allowed``."""
     check_path(path, counts, needed)
     attention = [n for n in counts if "[D=" in n] + [n for names in KERNELS_BY_DTYPE.values() for n in names
                                                       if n.startswith("flash_self")]
@@ -4173,6 +4227,170 @@ def phase_app(pipe, card: str) -> dict:
     return counts
 
 
+# diffusers legacy attention_head_dim 1 at every level (read as a head count
+# by both loaders): one head a level, 320 / 640 / 1280 / 1280 wide
+ONE_HEAD = [1, 1, 1, 1]
+
+
+def sd15_one_head_configs() -> dict:
+    """sd15_wide_head_configs with attention_head_dim ONE_HEAD: heads past
+    512 at every level but the first."""
+    configs = sd15_wide_head_configs()
+    configs["unet"] = {**configs["unet"], "attention_head_dim": list(ONE_HEAD)}
+    return configs
+
+
+def slice_own_chunk(plain, slices: int = 1):
+    """A planted fault: the plain attention with the first ``slices`` output
+    slices (the wide kernel's warps' columns, a block's padded head dim / 8
+    each; 8: every one, the score exchange dropped) each computed from its
+    own chunk of the scores alone (q and k cut to it, the scale kept) at
+    head dims past 512."""
+    from aid_tpu_torch.ops.flash_attention import D512, dwide_tiles, padded_head_dim
+
+    def fault(q, k, v, coef=None, mode="self", k_begin=None, v_begin=None, k_end=None, v_end=None, scale=None,
+              **kwargs):
+        eps = dict(k_begin=k_begin, v_begin=v_begin, k_end=k_end, v_end=v_end)
+        out = plain(q, k, v, coef, mode, scale=scale, **eps, **kwargs)
+        D = q.shape[-1]
+        if D <= D512:
+            return out
+        width = dwide_tiles(padded_head_dim(D))[0] // 8
+        out = out.clone()
+        for j in range(min(slices, -(-D // width))):  # the slices that hold columns of D
+            cols = slice(j * width, min(D, (j + 1) * width))
+            cut = {n: None if x is None else x[..., cols] for n, x in eps.items()}
+            out[..., cols] = plain(q[..., cols], k[..., cols], v[..., cols], coef, mode,
+                                   scale=D ** -0.5 if scale is None else scale, **cut, **kwargs)
+        return out
+    return fault
+
+
+def every_slice_own_chunk(plain):
+    """slice_own_chunk over all eight slices: no partial score is exchanged."""
+    return slice_own_chunk(plain, 8)
+
+
+def phase_one_head_a_level(card: str, device: str = "cuda", configs=None, steps: int = WIDE_STEPS) -> list:
+    """Phase 22: SD 1.x with one head a level. A full-width SD 1.5 diffusers
+    directory with attention_head_dim ONE_HEAD (f16 weights from a seed)
+    written into the git-ignored build/ and loaded with
+    ``load_interpolation_pipeline`` (UNet bf16, text encoder and VAE f32) and
+    its UNet again in f32 and f16 with ``load_unet``. Head dims 320 / 640 /
+    1280: (a) one bf16 fused_outer forward, 7 frames at 64^2, kernels vs plain
+    under SD15_UNET_TOL with two planted faults (c and 1 - c swapped, the own
+    segment dropped; a slice of the output over its own chunk of the scores
+    moves a bf16 forward no more than its roundings do), then
+    ``interpolate`` (PAID, 7 frames, 512px, ``steps`` DDIM steps, guidance
+    7.5), s/step; (b) one f32 forward under F32_UNET_TOL with one output
+    slice over its own chunk and with every slice over its own (the
+    exchange dropped), and one f16 forward under F16_SD15_UNET_TOL with the
+    own segment dropped (the slice faults move an f16 forward no more than
+    its roundings do). Every attention launch at D = 640 / 1280 lands on
+    a wide entry, every one at D = 320 on a D=512 one (in a forward exactly
+    the calls the UNet's attention modules make at each), none elsewhere.
+    Returns the paths' counts. ``device``/``configs`` exist for rehearsing
+    on the CPU."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from aid_tpu_torch.models import loader
+    from aid_tpu_torch.models.layers import AidContext, AidMode, CrossAttention
+    from aid_tpu_torch.ops.flash_attention import DWIDE, instance_head_dim, padded_head_dim
+
+    print(f"== phase 22: SD1.x with one head a level (SD1.5 widths, attention_head_dim {ONE_HEAD}) through "
+          f"load_interpolation_pipeline: forward kernels vs plain in bf16, f32 and f16, interpolate 7 frames at "
+          f"512px, {steps} DDIM steps", flush=True)
+    t_phase = time.perf_counter()
+    configs = configs or sd15_one_head_configs()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="sd15-one-head-checkpoint-", dir=os.path.join(ROOT, "build"))
+    try:
+        t0 = time.perf_counter()
+        nbytes = write_checkpoint(root, seed=22, device=device, configs=configs)
+        print(f"wrote an SD1.5-width diffusers directory with one head a level ({nbytes / 2**30:.2f} GiB of f16 "
+              f"weights) in {time.perf_counter() - t0:.2f} s", flush=True)
+        t0 = time.perf_counter()
+        pipe = loader.load_interpolation_pipeline(root, **({} if device == "cuda" else {"device": device}))
+        unets = {dt: loader.load_unet(os.path.join(root, "unet"), dtype=dt, device=device)
+                 for dt in (torch.float32, torch.float16)}
+        torch.cuda.synchronize()
+        print(f"load_interpolation_pipeline(dir) and load_unet(dir/unet) in f32 and f16 in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    cfg = pipe.unet.config
+    heads = [c // h for c, h in zip(cfg.block_out_channels, cfg.num_attention_heads)]
+    print(f"UNet: widths {cfg.block_out_channels}, heads {cfg.num_attention_heads}, head dims {heads}; UNet "
+          f"{pipe.unet.dtype}, VAE {next(pipe.vae.parameters()).dtype}", flush=True)
+    if (cfg != loader.unet_config_from_diffusers(configs["unet"]) or set(cfg.num_attention_heads) != {1}
+            or max(heads) <= 512 or pipe.unet.dtype != torch.bfloat16):
+        fail(f"the loaded UNet config {cfg} is not the written one with one head a level past 512, or not bf16")
+    # the calls a forward makes, by the instance that takes them: D = 320 the
+    # D=512 entries, 640 and 1280 the wide ones
+    want = {}
+    for m in pipe.unet.modules():
+        if isinstance(m, CrossAttention):
+            d = instance_head_dim(padded_head_dim(m.head_dim))
+            want[d] = want.get(d, 0) + 1
+    print(f"attention calls a forward by instance head dim: {want}", flush=True)
+    if set(want) != {512, DWIDE}:
+        fail(f"the one-head UNet's attention calls {want} are not at D=512 and the wide entries")
+
+    paths = []
+    dev = torch.device(device)
+    s = cfg.sample_size
+    gen = torch.Generator(device=dev).manual_seed(5)
+    sample = torch.randn((7, cfg.in_channels, s, s), generator=gen, device=dev)
+    ehs = torch.randn((7, 77, cfg.cross_attention_dim), generator=gen, device=dev)
+    t = torch.tensor(500, device=dev)
+    aid = AidContext(coef=sd15_coef().to(dev), mode=AidMode.from_name("fused_outer"))
+    faults = {"c and 1-c swapped": (aid, coef_swapped), "own segment dropped": (aid, own_dropped),
+              "one slice over its own chunk": (aid, slice_own_chunk),
+              "every slice over its own chunk": (aid, every_slice_own_chunk)}
+    slices = ("one slice over its own chunk", "every slice over its own chunk")
+    for unet, tol, name, fault_names in (
+            (pipe.unet, SD15_UNET_TOL, "flash_interpolated_attention", ("c and 1-c swapped", "own segment dropped")),
+            (unets[torch.float32], F32_UNET_TOL, "flash_interpolated_attention_f32", slices),
+            (unets[torch.float16], F16_SD15_UNET_TOL, "flash_interpolated_attention_f16", ("own segment dropped",))):
+        x, e = sample.to(unet.dtype), ehs.to(unet.dtype)
+        counts = check_unet_vs_plain(f"{unet.dtype} SD1.x one head a level unet fused_outer B=7 {s}x{s}",
+                                     lambda a: unet(x, t, e, a), aid, tol, {n: faults[n] for n in fault_names})
+        needed = (f"{name}[D=512]", f"{name}[D={DWIDE}]")
+        check_wide_only(f"{unet.dtype} SD1.x one-head forward", counts, needed)
+        got = {d: counts[f"{name}[D={d}]"] for d in want}
+        if got != want:
+            fail(f"the {unet.dtype} one-head forward launched {got} attention entries by head dim, not {want}")
+        paths.append(counts)
+    del unets, unet, x, e, sample, ehs
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    latent_a, latent_b = pipe.generate_latent(gen), pipe.generate_latent(gen)
+    px = s * 2 ** (len(pipe.vae.config.block_out_channels) - 1)
+
+    def interpolate(**kw):
+        return pipe.interpolate(latent_a, latent_b, "prompt A", "prompt B", guide_prompt="a guide prompt", size=7,
+                                num_inference_steps=steps, **kw)
+
+    images, counts, times, _, elapsed, peak = run_image_path(pipe, pipe.vae, interpolate, steps, 7)
+    check_images(f"SD1.x one head a level interpolate (PAID, {steps} DDIM steps, guidance {pipe.guidance_scale}, "
+                 "f32 VAE)", images, (7, px, px, 3), times, elapsed, peak, card)
+    check_wide_only("SD1.x one-head interpolate", counts,
+                    ("flash_interpolated_attention[D=512]", f"flash_interpolated_attention[D={DWIDE}]"),
+                    ("flash_self_attention_bf16", "flash_self_attention_f32"))
+    print(f"SD1.x one head a level interpolate: attention launches "
+          f"{({n: c for n, c in counts.items() if c and 'attention' in n})}", flush=True)
+    paths.append(counts)
+    _, _, warm, _, _, _ = run_image_path(pipe, pipe.vae, lambda: interpolate(output_type="latent"), steps, 7)
+    print(f"SD1.x one head a level interpolate, sequential CFG: first run {times['s_per_step']:.4f} s/step, warm "
+          f"run {warm['s_per_step']:.4f} s/step on {card}; phase 22 {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return paths
+
+
 def kernels_line(kernels: dict, launches: dict) -> str:
     """The kernels' JSON record: one entry per kernel, with KERNEL_KEYS
     first, then what phase 3 measured besides (the conv's kernel_ms, the
@@ -4198,6 +4416,16 @@ def kernels_line(kernels: dict, launches: dict) -> str:
                         "the caller's D = 320, bound_padded_ms at 512; library_ms: SDPA over [own; K_cross] in the "
                         f"inner modes (none for the outer modes); {attn_note}")
     f32_wgmma = "wgmma 3xTF32 (raw hi), TMA, a split/transpose producer warpgroup"
+    dwide_src = "aid_tpu_torch/csrc/flash_attention_dwide.cu"
+    dwide_design = ("mma.sync (m16n8k16; f32: m16n8k8 in 3xTF32), the Q tile resident for 32 query rows (padded D up "
+                    "to 1024) or 16, D split across eight warps that sum their partial scores in shared memory once "
+                    "a key tile, K and V by zero-filling cp.async copies into one buffer each, over own / begin / "
+                    "end segments of their own lengths; the outer modes' first softmax set parked in a global f32 "
+                    "workspace the wrapper allocates per call")
+    dwide_note = ("ms at fused_outer (7,1,1024,640), every case of phase 22's shapes, (2,1,512,2048) and D = 520 "
+                  "under shapes; bound_ms at the caller's D, bound_padded_ms at D rounded up to a multiple of 128 "
+                  "(the columns the kernel computes); library_ms: SDPA in self mode and over [own; K_cross] in the "
+                  f"inner modes (none for the outer modes); {attn_note}")
     conv_f32_design = ("wgmma tf32 m64n160k8, both operands in shared memory, 3xTF32 (raw hi; the lo parts of x "
                        "from the layout pass, of w tiled once), one TMA window a K chunk for all nine taps, each "
                        "chunk's sum folded in f32")
@@ -4321,6 +4549,13 @@ def kernels_line(kernels: dict, launches: dict) -> str:
                        f"consumer warpgroups) over {segments}",
              "contract": f"f32, head dims 161-512 padded to 512, the four endpoint modes; bound_ms at the caller's "
                          f"D with 1.5 TF32 + 1.5 bf16 passes; {d512_interp_note}"}),
+        # every mode past head dim 512 (phase 22's SD 1.x UNet with one head a
+        # level), one source, three element types
+        **{f"flash_interpolated_attention{sfx}(D=513-2048)": (
+            dwide_src, flash_replaces[0], (f"flash_interpolated_attention{sfx}[D=2048]",),
+            {**flash_replaces[1], "entry": f"aid_flash_attn_{ty}_dwide", "design": dwide_design,
+             "contract": f"{ty}, head dims 513-2048, every mode{' (3xTF32)' if ty == 'f32' else ''}; {dwide_note}"})
+           for sfx, ty in (("", "bf16"), ("_f16", "f16"), ("_f32", "f32"))},
     }
     record = []
     for name, (src, replaces, counters, extra) in rows.items():
@@ -4390,6 +4625,8 @@ def main(argv=None) -> int:
     paths += phase_f16(card, args.steps)
     torch.cuda.empty_cache()
     paths += phase_wide_heads(card)
+    torch.cuda.empty_cache()
+    paths += phase_one_head_a_level(card)
     torch.cuda.empty_cache()
     paths += phase_frames(card)  # phase 19 (b)
     launches = {name: sum(p[name] for p in paths) for name in paths[0]}

@@ -60,7 +60,9 @@ KERNEL_NAMES = ("flash_interpolated_attention", "flash_interpolated_attention(D=
                 "conv3x3_same_f32", "conv3x3_gnsilu_f32", "flash_interpolated_attention_f16",
                 "flash_interpolated_attention_f16(D=40/80/160)", "flash_self_attention_f16", "conv3x3_same_f16",
                 "conv3x3_same_f16(packed=True)", "conv3x3_gnsilu_f16", "flash_interpolated_attention(D=512)",
-                "flash_interpolated_attention_f16(D=512)", "flash_interpolated_attention_f32(D=512)")
+                "flash_interpolated_attention_f16(D=512)", "flash_interpolated_attention_f32(D=512)",
+                "flash_interpolated_attention(D=513-2048)", "flash_interpolated_attention_f16(D=513-2048)",
+                "flash_interpolated_attention_f32(D=513-2048)")
 
 
 def test_kernels_line_carries_bound_and_library_time():
@@ -87,6 +89,7 @@ def test_kernels_line_carries_bound_and_library_time():
     launches.update({f"flash_interpolated_attention_f16[D={d}]": d for d in (40, 64, 80, 160)})
     launches.update({"flash_self_attention_f16": 5, "conv3x3_same_f16": 6, "conv3x3_gnsilu_f16": 7})
     launches.update({f"flash_interpolated_attention{t}[D=512]": n for t, n in (("", 11), ("_f16", 12), ("_f32", 13))})
+    launches.update({f"flash_interpolated_attention{t}[D=2048]": n for t, n in (("", 21), ("_f16", 22), ("_f32", 23))})
     entries = json.loads(smoke.kernels_line(records, launches))["kernels"]
     assert [e["name"] for e in entries] == list(KERNEL_NAMES)
     for e, name in zip(entries, KERNEL_NAMES):
@@ -120,7 +123,7 @@ def test_kernels_line_carries_bound_and_library_time():
     assert gn32["source"].endswith("conv3x3_f32.cu") and gn32["replaces"] == "aid_tpu/ops/conv.py:78"
     assert gn32["launches"] == 4 and gn32["library_ms"] is None
     # the f16 instances: the bf16 designs' sources, their own C entries and launch counts
-    f16 = {n: by_name[n] for n in KERNEL_NAMES[-9:-3]}
+    f16 = {n: by_name[n] for n in KERNEL_NAMES[-12:-6]}
     assert f16["flash_interpolated_attention_f16"]["source"].endswith("flash_interpolated_attention.cu")
     assert f16["flash_interpolated_attention_f16"]["launches"] == 64
     assert f16["flash_interpolated_attention_f16(D=40/80/160)"]["launches"] == 40 + 80 + 160
@@ -133,7 +136,7 @@ def test_kernels_line_carries_bound_and_library_time():
                                                  "aid_conv3x3_gnsilu_f16"}
     # the D=512 endpoint entries: the two D=512 sources, their own C entries,
     # each read from its dtype's D=512 count
-    wide = {n: by_name[n] for n in KERNEL_NAMES[-3:]}
+    wide = {n: by_name[n] for n in KERNEL_NAMES[-6:-3]}
     assert [e["launches"] for e in wide.values()] == [11, 12, 13]
     assert [e["entry"] for e in wide.values()] == ["aid_flash_attn_bf16_d512_interp", "aid_flash_attn_f16_d512_interp",
                                                    "aid_flash_attn_f32_d512_interp"]
@@ -141,6 +144,14 @@ def test_kernels_line_carries_bound_and_library_time():
         "flash_attention_f32_d512.cu"]
     assert all(e["replaces"] == "aid_tpu/ops/flash_attention.py:101" and e["library_ms"] is None
                and "bound_padded_ms at 512" in e["contract"] for e in wide.values())
+    # the wide entries past 512: one source, their own C entries, each read
+    # from its dtype's count under DWIDE
+    dwide = {n: by_name[n] for n in KERNEL_NAMES[-3:]}
+    assert [e["launches"] for e in dwide.values()] == [21, 22, 23]
+    assert [e["entry"] for e in dwide.values()] == ["aid_flash_attn_bf16_dwide", "aid_flash_attn_f16_dwide",
+                                                    "aid_flash_attn_f32_dwide"]
+    assert all(e["source"] == "aid_tpu_torch/csrc/flash_attention_dwide.cu" and e["also_replaces"].endswith(":339")
+               and "bound_padded_ms at D rounded up" in e["contract"] for e in dwide.values())
 
 
 def test_f32_phases_follow_the_bf16_paths():
@@ -760,6 +771,75 @@ def test_wide_heads_phase_follows_the_f16_phase():
     assert [c // h for c, h in zip(cfg.block_out_channels, cfg.num_attention_heads)] == [320] * 4
     assert "safety_checker" not in smoke.sd15_wide_head_configs()
     assert "wide_cases" in inspect.getsource(smoke.phase_kernels)
+
+
+def test_one_head_phase_follows_the_wide_heads_phase():
+    """Phase 22 (SD 1.x with one head a level) exists with its banner and
+    runs after phase 21 and before phase 19 (b); its directory is SD 1.5's
+    with attention_head_dim [1, 1, 1, 1]: head dims 320 / 640 / 1280 / 1280,
+    SD 1.5's config otherwise. Phase 3 times the wide entries at its
+    shapes, at 2048 and at a ragged 520, in every mode and dtype."""
+    import inspect
+
+    from aid_tpu_torch.models import configs, loader
+
+    smoke = _load_smoke()
+    src = inspect.getsource(smoke.phase_one_head_a_level)
+    assert "== phase 22: SD1.x with one head a level" in src and "22. one head" in smoke.__doc__
+    main = inspect.getsource(smoke.main)
+    assert (main.index("phase_wide_heads(card)") < main.index("phase_one_head_a_level(card)")
+            < main.index("phase_frames(card)") < main.index("kernels_line("))
+    assert 'dir=os.path.join(ROOT, "build")' in src and "shutil.rmtree(root" in src
+    for check in ("check_unet_vs_plain(", "check_wide_only(", "run_image_path(", "coef_swapped", "own_dropped",
+                  "every_slice_own_chunk", "slice_own_chunk"):
+        assert check in src, check
+    cfg = loader.unet_config_from_diffusers(smoke.sd15_one_head_configs()["unet"])
+    assert cfg == dataclasses.replace(configs.SD15_UNET, num_attention_heads=(1, 1, 1, 1))
+    assert [c // h for c, h in zip(cfg.block_out_channels, cfg.num_attention_heads)] == [320, 640, 1280, 1280]
+    kernels = inspect.getsource(smoke.phase_kernels)
+    assert "dwide_cases" in kernels and "(512, 512, 2048, two, 3)" in kernels and "(1024, 1024, 520" in kernels
+
+
+def test_slice_fault_moves_one_slice():
+    """The phase's planted fault changes one output slice of a wide call (a
+    block's padded D / 8 columns: 80 at D = 640) and nothing else, and
+    leaves a call at D <= 512 as it was."""
+    import torch
+
+    smoke = _load_smoke()
+    from aid_tpu_torch.ops.flash_attention import flash_interpolated_attention_plain as plain
+
+    g = torch.Generator().manual_seed(3)
+    q, k = torch.randn(3, 1, 12, 640, generator=g), torch.randn(3, 1, 20, 640, generator=g)
+    c = torch.tensor([0.0, 0.5, 1.0])
+    want = plain(q, k, k, c, "fused_outer")
+    got = smoke.slice_own_chunk(plain)(q, k, k, c, "fused_outer")
+    assert torch.equal(got[..., 80:], want[..., 80:]) and not torch.allclose(got[..., :80], want[..., :80])
+    got = smoke.every_slice_own_chunk(plain)(q, k, k, c, "fused_outer")  # the exchange dropped: every slice moves
+    assert all(not torch.allclose(got[..., j:j + 80], want[..., j:j + 80]) for j in range(0, 640, 80))
+    q = q[..., :320]
+    assert torch.equal(smoke.slice_own_chunk(plain)(q, q, q, c, "fused_outer"), plain(q, q, q, c, "fused_outer"))
+
+
+def test_one_head_phase_rehearses_on_the_cpu(monkeypatch):
+    """Phase 22 end to end at a tiny size on the CPU (one head a level at
+    widths 192 / 544: head dims 192, taken by the D=512 entries, and 544, by
+    the wide ones; 2 DDIM steps), torch.cuda's timing calls stubbed: the
+    directory written, loaded and removed, three forwards with their planted
+    faults over the bounds (set to the CPU's scale, where both sides run the
+    plain versions), the interpolate's 7 frames; only the launch counts (no
+    kernel here) are set aside."""
+    smoke = _load_smoke()
+    skipped = _stub_cuda_and_fail(monkeypatch, smoke)
+    for tol in ("SD15_UNET_TOL", "F32_UNET_TOL", "F16_SD15_UNET_TOL"):
+        monkeypatch.setattr(smoke, tol, 1e-7)
+    cfgs = {k: v for k, v in _tiny_sd15_configs(smoke).items() if k != "safety_checker"}
+    cfgs["unet"].update(block_out_channels=[192, 544], attention_head_dim=[1, 1], norm_num_groups=32)
+    before = set(os.listdir(REPO / "build")) if (REPO / "build").is_dir() else set()
+    paths = smoke.phase_one_head_a_level("cpu", device="cpu", configs=cfgs, steps=2)
+    assert len(paths) == 4 and all("flash_interpolated_attention[D=2048]" in p for p in paths)
+    assert skipped and all("launch" in m for m in skipped)
+    assert set(os.listdir(REPO / "build")) <= before  # the directory written is removed
 
 
 def test_wide_heads_phase_rehearses_on_the_cpu(monkeypatch):

@@ -36,6 +36,7 @@ from aid_tpu_torch.ops.flash_attention import (
     flash_self_attention_f32,
     padded_head_dim,
 )
+from aid_tpu_torch.ops.flash_attention import DWIDE
 from aid_tpu_torch.ops.routing import reference_ops
 
 pytestmark = pytest.mark.cuda
@@ -269,8 +270,8 @@ def test_flash_kernel_refuses_what_it_does_not_take(dev):
     torch.cuda.synchronize()
     assert flash_interpolated_attention_f32.launches_by_head_dim[512] == before + 1
     assert _attn_err(got, flash_interpolated_attention_plain(q, q, q, coef, "fused_outer")) < F32_ATTN_RTOL
-    q = _randn((1, 1, 16, 520), 39, torch.float32)
-    with pytest.raises(NotImplementedError):  # past 512 nothing pads
+    q = _randn((1, 1, 16, 2056), 39, torch.float32)
+    with pytest.raises(NotImplementedError):  # past 2048 nothing pads
         flash_interpolated_attention(q, q, q)
     with pytest.raises(NotImplementedError):
         flash_self_attention_f32(q.to(torch.bfloat16), q.to(torch.bfloat16), q.to(torch.bfloat16))
@@ -522,6 +523,79 @@ def test_flash_d512_interp_kernels_match_plain(dev, dtype, D, mode, ep, Le):
     want = flash_interpolated_attention_plain(q, k, v, coef, mode, skip_endpoints=skip, **eps)
     assert got.shape == want.shape == (B, H, S, D) and got.dtype == dtype and torch.isfinite(got).all()
     assert _attn_err(got, want) < ATTN_RTOLS[dtype]
+
+
+# the wide entries' shapes: ragged head dims (520, one 64-column box past
+# 512; 1000, under a whole 128), SD 1.x's 640 and 1280 with one head a level,
+# the widest 2048 (16-row blocks, and in f32 K and V in one buffer); 130
+# queries and 77 own keys ragged against the 32- / 16-row blocks and every
+# key tile (32 / 16 in bf16 and f16, 16 / 8 in f32)
+DWIDE_DIMS = [520, 640, 1000, 1280, 2048]
+DWIDE_ENDPOINTS = [("rows", None), ("shared", 77), ("per_row", 16)]
+
+
+@pytest.mark.parametrize("dtype", **DTYPES)
+@pytest.mark.parametrize("D", DWIDE_DIMS)
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("ep,Le", DWIDE_ENDPOINTS)
+def test_flash_dwide_kernels_match_plain(dev, dtype, D, mode, ep, Le):
+    """Head dims past 512 in every mode: one launch of the wide entry of the
+    dtype (aid_flash_attn_{bf16,f16,f32}_dwide), counted under DWIDE on the
+    dtype's interpolating wrapper and on no other kernel, matching the plain
+    version at the caller's D: (B, S, H*D) projections viewed as (B, H, S,
+    D) (strided heads), skip rows at both ends, 130 queries and 77 own keys
+    ragged against every tile, endpoints from the rows or of their own
+    length, shared or per row."""
+    if ep != "rows" and mode == "self":
+        pytest.skip("self mode reads no endpoint")
+    B, H, S, L = 3, 2, 130, 77
+
+    def heads(x):
+        return x.view(x.shape[0], x.shape[1], H, D).transpose(1, 2)
+
+    q = heads(_randn((B, S, H * D), 800 + D, dtype))
+    k, v = heads(_randn((B, L, H * D), 801 + D, dtype)), heads(_randn((B, L, H * D), 802 + D, dtype))
+    coef = torch.tensor([0.0, 0.35, 1.0], device=dev)
+    skip = torch.tensor([True, False, True], device=dev)
+    eps = {}
+    if ep != "rows":
+        shape = (H, Le, D) if ep == "shared" else (B, H, Le, D)
+        eps = {n: _randn(shape, 810 + i, dtype) for i, n in enumerate(("k_begin", "v_begin", "k_end", "v_end"))}
+    wrapper = ATTN_WRAPPER[dtype]
+    before = {fn: dict(fn.launches_by_head_dim) for fn in ATTN_WRAPPER.values()}
+    self_before = [fn.launches for fn in D512_WRAPPER.values()]
+    kw = {} if mode == "self" else {"skip_endpoints": skip}
+    got = flash_interpolated_attention(q, k, v, coef, mode, **kw, **eps)
+    torch.cuda.synchronize()
+    for fn, counts in before.items():
+        assert fn.launches_by_head_dim == ({**counts, DWIDE: counts[DWIDE] + 1} if fn is wrapper else counts)
+    assert [fn.launches for fn in D512_WRAPPER.values()] == self_before
+    want = flash_interpolated_attention_plain(q, k, v, coef, mode, **kw, **eps)
+    assert got.shape == want.shape == (B, H, S, D) and got.dtype == dtype and torch.isfinite(got).all()
+    assert _attn_err(got, want) < ATTN_RTOLS[dtype]
+
+
+@pytest.mark.parametrize("dtype", **DTYPES)
+@pytest.mark.parametrize("B,H,S,L,D", [
+    (2, 1, 1024, 1024, 640),   # SD 1.x with one head a level at 32^2
+    (2, 1, 256, 256, 1280),    # at 16^2
+    (1, 1, 64, 64, 1280),      # the mid block
+    (1, 1, 1, 1, 2048),        # one query, one key
+    (1, 2, 33, 17, 1152),      # one row past a 32-row block, one key past a tile
+])
+def test_flash_dwide_kernels_at_path_shapes(dev, dtype, B, H, S, L, D):
+    """The wide entries at the path's shapes and at the edges of their
+    tiles, in fused_outer and self mode (through flash_self_attention_* as
+    the VAE would call it), against the plain version."""
+    q, k, v = (_randn((B, H, n, D), 830 + i, dtype) for i, n in enumerate((S, L, L)))
+    coef = torch.linspace(0, 1, B, device=dev)
+    for mode in ("fused_outer", "self"):
+        got = (D512_WRAPPER[dtype](q, k, v) if mode == "self"
+               else flash_interpolated_attention(q, k, v, coef, mode))
+        torch.cuda.synchronize()
+        want = flash_interpolated_attention_plain(q, k, v, coef, mode)
+        assert got.shape == want.shape and torch.isfinite(got).all()
+        assert _attn_err(got, want) < ATTN_RTOLS[dtype]
 
 
 @pytest.mark.parametrize("dtype", **DTYPES)

@@ -175,7 +175,7 @@ def test_f16_routes_and_what_still_raises():
     with no device), the f16 wrappers route CPU tensors to their plain
     versions and count nothing; a head dim of 200 outside self mode pads to
     512 and takes the f16 D=512 endpoint entry, whose replay from its C
-    arguments matches the plain version; float64 and head dims over 512
+    arguments matches the plain version; float64 and head dims over 2048
     still raise."""
     g = torch.Generator().manual_seed(150)
     q = torch.randn(3, 2, 40, 80, generator=g).half()
@@ -201,9 +201,9 @@ def test_f16_routes_and_what_still_raises():
     want = flash_interpolated_attention_plain(q200.float(), q200.float(), q200.float(), coef, "fused_outer")
     assert th.max_rel_err(got.float().numpy(), want.numpy()) < 1e-2
     with pytest.raises(NotImplementedError):
-        padded_head_dim(520, "fused_outer")
+        padded_head_dim(2056, "fused_outer")
     with pytest.raises(NotImplementedError):
-        padded_head_dim(520, "self")
+        padded_head_dim(2056, "self")
     counts = (flash_interpolated_attention_f16.launches, flash_self_attention_f16.launches,
               conv3x3_same_f16.launches, conv3x3_gnsilu_f16.launches)
     flash_interpolated_attention(q, q, q, coef, "fused_outer")

@@ -143,7 +143,10 @@ def test_plain_skip_rows_are_vanilla():
 
 def test_plain_attention_chunking_is_exact(monkeypatch):
     """The plain path's memory chunking over (batch, head) rows changes no arithmetic."""
-    from aid_tpu_torch.ops import attention
+    import importlib
+
+    # the module (the package exports a function of the same name, as aid_tpu.ops does)
+    attention = importlib.import_module("aid_tpu_torch.ops.attention")
 
     q, k, v, coef, _ = _attn_inputs(seed=40)
     args = (torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), torch.from_numpy(coef), "fused_outer")

@@ -1,6 +1,6 @@
 """Time the flash attention kernel launched alone at the main paths' shapes.
 
-    python3 tools/attention_bench.py [--reps 20] [--dtype bf16|f16|f32] [--d512] [--only TEXT] [--root DIR]
+    python3 tools/attention_bench.py [--reps 20] [--dtype bf16|f16|f32] [--d512 | --dwide] [--only TEXT] [--root DIR]
 
 For each shape class of ``chip_smoke.py`` phase 3 (bf16: SDXL at D=64, SD1.5
 at D=40/80/160 and SD1.5's IP-Adapter calls over 16 and 4 image tokens,
@@ -20,7 +20,13 @@ reference's VAE; bf16 and f16: a VAE in that dtype), at its three shapes (one 10
 16384 tokens; seven 512px frames, 4096; the tiled decode's ragged
 4000-token tile): launched alone on operands
 ``ops.flash_attention.d512_launch`` prepared once and through the wrapper,
-beside SDPA efficient and the plain version. It checks each result against
+beside SDPA efficient and the plain version. ``--dwide`` times the wide
+entries (head dims 513-2048, csrc/flash_attention_dwide.cu) of ``--dtype`` at
+phase 22's shapes (SD 1.x with one head a level: D = 640 over 1024 tokens
+and its 77-key cross call, D = 1280 over 256 and 64), at (2,1,512,2048) and
+at a ragged D = 520, in every mode: launched alone and through the wrapper,
+beside the bound at the caller's D (f32 at three TF32 passes) and the plain
+version. It checks each result against
 the plain version (``chip_smoke.ATTN_TOL`` / ``F16_ATTN_TOL`` / ``F32_ATTN_TOL``). ``--root``
 imports the package and ``chip_smoke.py`` of another checkout (say, the
 parent commit unpacked under ``build/``): run both in one call, in turns, to
@@ -144,11 +150,67 @@ def bench_d512(reps: int, name: str) -> dict:
     return result
 
 
+# (label, mode, frames, tokens, keys, D) of the wide entries
+DWIDE_SHAPES = [(f"{m} {Sq}{'x77' if L == 77 else ''} D={D}", m, B, Sq, L, D)
+                for B, Sq, L, D in ((7, 1024, 1024, 640), (7, 1024, 77, 640), (7, 256, 256, 1280), (7, 64, 64, 1280),
+                                    (2, 512, 512, 2048), (7, 1024, 1024, 520))
+                for m in ("fused_outer", "pure_outer", "fused_inner", "pure_inner", "self")]
+
+
+def bench_dwide(reps: int, name: str, only: str) -> dict:
+    """The wide entry of one dtype at DWIDE_SHAPES (one head; 7 frames with
+    the coef-0/1 end rows as skip rows, or 2 frames with none):
+    {label: ms alone}; prints each with its time through the wrapper, its
+    bound and the plain version's."""
+    import torch
+
+    from aid_tpu_torch.models.layers import skip_mask
+    from aid_tpu_torch.ops.flash_attention import (
+        flash_interpolated_attention,
+        flash_interpolated_attention_plain,
+        kernel_launch,
+    )
+    import chip_smoke
+    from chip_smoke import attention_bound, cuda_ms
+
+    f32 = name == "f32"
+    dtype = {"bf16": torch.bfloat16, "f16": torch.float16, "f32": torch.float32}[name]
+    tol = {"bf16": chip_smoke.ATTN_TOL, "f32": chip_smoke.F32_ATTN_TOL}.get(name) or chip_smoke.F16_ATTN_TOL
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(13)
+    result = {}
+    for label, mode, B, Sq, L, D in DWIDE_SHAPES:
+        if only not in label:
+            continue
+        coef = torch.linspace(0.0, 1.0, B, device=dev) if B == 7 else torch.tensor([0.3, 0.6], device=dev)
+        q, k, v = (torch.randn((B, 1, n, D), generator=gen, device=dev).to(dtype) for n in (Sq, L, L))
+        kw = {} if mode == "self" else {"skip_endpoints": skip_mask(coef, B)}
+        out, launch = kernel_launch(q, k, v, coef, mode, **kw)
+        launch()
+        want = flash_interpolated_attention_plain(q, k, v, coef, mode, **kw)
+        err = (out.float() - want.float()).abs().max().item() / want.float().abs().max().item()
+        if not err <= tol:
+            raise SystemExit(f"{label}: the kernel disagrees with the plain version ({err:.3e})")
+        ms = cuda_ms(launch, reps)
+        wrapper_ms = cuda_ms(lambda: flash_interpolated_attention(q, k, v, coef, mode, **kw), reps)
+        plain_ms = cuda_ms(lambda: flash_interpolated_attention_plain(q, k, v, coef, mode, **kw), max(1, reps // 4))
+        skip_rows = int(kw["skip_endpoints"].sum()) if kw else 0
+        bound_ms, by = attention_bound(mode, B, 1, Sq, L, D, skip_rows=skip_rows, elem=4 if f32 else 2,
+                                       tf32_passes=3 if f32 else None, **({"kind": name} if name == "f16" else {}))
+        print(f"{name} {label:26s} ({B},1,{Sq},{D}) launch alone {ms:.4f} ms  bound {bound_ms:.4f} ms ({by}, "
+              f"{bound_ms / ms:.1%})  through the wrapper {wrapper_ms:.4f} ms  plain {plain_ms:.4f} ms  "
+              f"max_abs_err/max|ref| {err:.3e}", flush=True)
+        result[f"{name} {label}"] = ms
+        del q, k, v, out, want, launch
+    return result
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--dtype", choices=("bf16", "f16", "f32"), default="bf16")
     ap.add_argument("--d512", action="store_true", help="the D=512 self-attention of --dtype (VAE mid block)")
+    ap.add_argument("--dwide", action="store_true", help="the wide entries (head dims past 512) of --dtype")
     ap.add_argument("--only", default="", help="time only the shapes whose label contains this text")
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]),
                     help="the checkout whose package and chip_smoke.py are timed (default: this one)")
@@ -169,8 +231,8 @@ def main(argv=None) -> int:
     from chip_smoke import attention_bound, cuda_ms, phase_device
 
     card = phase_device()  # also sets full f32 matmuls (TF32 off) for the plain version
-    if args.d512:
-        result = bench_d512(args.reps, args.dtype)
+    if args.d512 or args.dwide:
+        result = bench_d512(args.reps, args.dtype) if args.d512 else bench_dwide(args.reps, args.dtype, args.only)
         print(f"on {card}, the package of {Path(args.root).resolve()}", flush=True)
         print(json.dumps(result), flush=True)
         return 0
