@@ -31,6 +31,8 @@ On a CPU tensor every op runs its plain PyTorch version; on a CUDA tensor it
 runs its kernel (see ``ops/routing.py``).
 """
 
+__version__ = "0.1.0"
+
 from aid_tpu_torch.models.configs import SD15_UNET, SDXL_UNET, TINY_SDXL_UNET, TINY_UNET, UNetConfig
 from aid_tpu_torch.models.layers import AidContext, AidMode
 from aid_tpu_torch.models.unet import UNet2DCondition
@@ -43,7 +45,20 @@ from aid_tpu_torch.schedulers.ddim import DDIMScheduler
 from aid_tpu_torch.schedulers.euler import EulerDiscreteScheduler
 
 __all__ = [
+    "ops", "models", "schedulers", "pipelines", "prior", "metrics", "parallel",
     "AidContext", "AidMode", "AttnMode", "DDIMScheduler", "EulerDiscreteScheduler", "InterpolationPipeline",
     "InterpolationXLPipeline", "SD15_UNET", "SDXL_UNET", "TINY_SDXL_UNET", "TINY_UNET", "UNet2DCondition",
     "UNetConfig", "denoise_sequence", "generate_beta_schedule",
 ]
+
+# ops, models, schedulers and pipelines are imported above; the subpackages
+# the package's own imports do not reach load when first named
+_LAZY = ("prior", "metrics", "parallel")
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        import importlib
+
+        return importlib.import_module(f"{__name__}.{name}")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -35,10 +35,13 @@ The kernels by head dim, each in bf16, f16 and f32:
     wrapper allocates per call), counted under ``launches_by_head_dim[512]``;
   * D = 513-2048, every mode (an SD 1.x UNet with one head a level: 640 and
     1280): ``aid_flash_attn_{bf16,f16,f32}_dwide`` in
-    ``csrc/flash_attention_dwide.cu`` (the Q tile resident for 16 or 32
-    rows, D split across eight warps that sum their partial scores in
-    shared memory; mma.sync, 3xTF32 in f32), counted under
-    ``launches_by_head_dim[DWIDE]``.
+    ``csrc/flash_attention_dwide.cu`` (bf16 and f16: wgmma on the transposed
+    products S^T = K Q^T and O^T = V^T P^T with 64 keys in M, K and V
+    streamed by TMA in 64-column chunks, D split across two consumer
+    warpgroups that exchange partial scores, the key stream split across
+    blocks where the grid is under one wave and merged by a combine step;
+    in f32 3xTF32 with K's and V^T's fragments from registers), counted
+    under ``launches_by_head_dim[DWIDE]``.
 A head dim that no instance takes is zero-padded to the next that does,
 as the JAX package pads (aid_tpu/ops/flash_attention.py:784, 800-801):
 below 160 to the next of 40, 64, 80, 160, between 160 and 512 to 512, past
@@ -105,33 +108,38 @@ DWIDE = 2048
 #: the D = 512 endpoint entries' C signature), every mode
 DWIDE_ENTRIES = {torch.bfloat16: "aid_flash_attn_bf16_dwide", torch.float16: "aid_flash_attn_f16_dwide",
                  torch.float32: "aid_flash_attn_f32_dwide"}
-#: the wide kernel's outer-mode workspace: f32 words a block parks (its 256
-#: threads' 128 output accumulators, then the max and sum of up to 32 rows;
-#: the source's kParkBlock)
-DWIDE_PARK_FLOATS = 128 * 256 + 2 * 32
-
-
-#: the most shared memory a block of the wide kernel may take (the card's 227 KB)
-DWIDE_SMEM = 232448
+#: the padded head dims of the wide kernel's instances (the source's wide_dp)
+DWIDE_PADDED = (640, 1024, 1280, 2048)
+#: its key split: a grid of fewer than DWIDE_SPLIT_BLOCKS blocks (the H100's
+#: SMs) splits each row block's key stream across up to DWIDE_MAX_SPLIT
+#: blocks (kSplitBlocks, kMaxSplit)
+DWIDE_SPLIT_BLOCKS, DWIDE_MAX_SPLIT = 132, 32
 
 
 def dwide_tiles(D: int, dtype=torch.bfloat16) -> tuple:
     """The wide kernel's tiling at an operand head dim D in ``dtype``: (Dp,
-    query rows a block, keys a tile), Dp being D rounded up to a multiple
-    of 128 (each of the eight warps takes Dp / 8 columns); 32 rows where Dp
-    <= 1024, else 16; 32 keys in bf16 and f16 (16 in f32) where the Q tile
-    and one K and one V tile fit in shared memory, else 16 (8), as
-    csrc/flash_attention_dwide.cu's host code picks them (its smem_bytes)."""
-    Dp = -(-D // 128) * 128
-    rows = 32 if Dp <= 1024 else 16
-    elem = torch.empty((), dtype=dtype).element_size()
-    keys = 8 if dtype == torch.float32 else 16
-    ld = Dp + 16 // elem
+    query rows a block, keys a tile), as csrc/flash_attention_dwide.cu's host
+    code picks them (wide_dp, wide_rows): Dp the first of
+    :data:`DWIDE_PADDED` at or above D (two consumer warpgroups take its
+    64-column chunks in turn); 32 rows where Dp <= 1024, else 16, and 128
+    keys (two 64-key M blocks of wgmma, one a warpgroup's softmax) in bf16
+    and f16; 16 rows where Dp = 640, else 8, and 64 keys in f32 (whose Q
+    and lo(Q) both stay in shared memory)."""
+    Dp = next(d for d in DWIDE_PADDED if D <= d)
+    if dtype == torch.float32:
+        return Dp, 16 if Dp <= 640 else 8, 64
+    return Dp, 32 if Dp <= 1024 else 16, 128
 
-    def smem(bk):  # Q, one slot of each ring, the partial scores, P and the row statistics
-        return elem * ld * (rows + 2 * bk) + 4 * (8 * rows * (bk + 8) + rows * (bk + 8) + 3 * 32)
 
-    return Dp, rows, 2 * keys if smem(2 * keys) <= DWIDE_SMEM else keys
+def dwide_split(blocks: int, tiles: int) -> int:
+    """The blocks across which the wide kernel splits each row block's key
+    stream of ``tiles`` key tiles, in a grid of ``blocks`` row blocks (the
+    source's wide_splits): 1 from :data:`DWIDE_SPLIT_BLOCKS` blocks on,
+    else min(DWIDE_SPLIT_BLOCKS // blocks, tiles, DWIDE_MAX_SPLIT), so
+    that every split holds a tile."""
+    if blocks >= DWIDE_SPLIT_BLOCKS:
+        return 1
+    return max(1, min(DWIDE_SPLIT_BLOCKS // blocks, tiles, DWIDE_MAX_SPLIT))
 
 
 def instance_head_dim(Dp: int) -> int:
@@ -375,11 +383,14 @@ def kernel_operands(
     k, v, k_begin, v_begin, k_end, v_end and the output, a (B, H, Sq, Dp)
     view of a new (B, Sq, H, Dp) buffer), ``dims`` (the entry's 30 shape and
     stride values), ``coef`` and ``skip`` (None where the mode reads
-    neither), ``work`` (the outer modes' f32 workspace: at D = 512 (blocks,
-    :data:`D512_PARK_WORDS`, :data:`D512_CONSUMERS`), past it (blocks,
-    :data:`DWIDE_PARK_FLOATS`) with a block per :func:`dwide_tiles` rows;
-    else None), ``scale``, ``has_own``, ``n_sets``, ``head_dim`` (the
-    caller's D) and ``out`` (the output at that D). A head dim that no
+    neither), ``work`` (the f32 workspace: at D = 512 the outer modes'
+    (blocks, :data:`D512_PARK_WORDS`, :data:`D512_CONSUMERS`); past it
+    (blocks * splits, sets, BQ * Dp + 2 BQ): each split's O, max and sum per
+    softmax set (2 in the outer modes, else 1), where the outer modes park a
+    set or the key stream is split, with BQ and Dp from :func:`dwide_tiles`
+    and the split from :func:`dwide_split`, also returned as ``splits``;
+    else None), ``scale``, ``has_own``, ``n_sets``,
+    ``head_dim`` (the caller's D) and ``out`` (the output at that D). A head dim that no
     instance takes is zero-padded to the next one, Dp
     (:func:`padded_head_dim`), after the endpoints are made and before the
     layout is checked; the scale stays D's. Self mode reads no endpoint: its
@@ -448,17 +459,22 @@ def kernel_operands(
     dims = [B, H, Sq, k.shape[2], tensors[3].shape[-2], Dp]
     for x in tensors:
         dims += _bhs_strides(x)
-    work = None
+    work, splits = None, 1
+    has_own = int(mode in (AttnMode.SELF, AttnMode.FUSED_OUTER, AttnMode.FUSED_INNER))
+    n_sets = 2 if mode.is_outer else (1 if mode.is_inner else 0)
     if Dp == D512 and mode.is_outer:  # the parked first softmax set of each 64-row query block
         work = torch.empty((B * H * -(-Sq // 64), D512_PARK_WORDS, D512_CONSUMERS), dtype=torch.float32, device=dev)
-    elif Dp > D512 and mode.is_outer:  # ... of each block of the wide kernel's 16 or 32 rows
-        work = torch.empty((B * H * -(-Sq // dwide_tiles(Dp, q.dtype)[1]), DWIDE_PARK_FLOATS), dtype=torch.float32,
-                           device=dev)
+    elif Dp > D512:  # each split's state (O, m, l) per softmax set, the outer modes' parked sets among them
+        Dk, BQ, BK = dwide_tiles(Dp, q.dtype)
+        blocks = B * H * -(-Sq // BQ)
+        splits = dwide_split(blocks, has_own * -(-k.shape[2] // BK) + n_sets * -(-dims[4] // BK))
+        if mode.is_outer or splits > 1:
+            work = torch.empty((blocks * splits, 2 if mode.is_outer else 1, BQ * Dk + 2 * BQ), dtype=torch.float32,
+                               device=dev)
     entry = (DWIDE_ENTRIES if Dp > D512 else D512_INTERP_ENTRIES if Dp == D512 else KERNEL_ENTRIES)[q.dtype]
-    return dict(entry=entry, tensors=tensors, dims=dims, coef=coef_t, skip=skip, work=work,
-                scale=D ** -0.5 if scale is None else scale,
-                has_own=int(mode in (AttnMode.SELF, AttnMode.FUSED_OUTER, AttnMode.FUSED_INNER)),
-                n_sets=2 if mode.is_outer else (1 if mode.is_inner else 0), head_dim=D, out=out[..., :D])
+    return dict(entry=entry, tensors=tensors, dims=dims, coef=coef_t, skip=skip, work=work, splits=splits,
+                scale=D ** -0.5 if scale is None else scale, has_own=has_own, n_sets=n_sets, head_dim=D,
+                out=out[..., :D])
 
 
 _DIMS_ARRAYS: dict = {}

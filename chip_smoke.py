@@ -671,8 +671,8 @@ def phase_kernels(coef, sd_coef, fused_classes, sd21_classes):
         in an endpoint mode takes the D=512 endpoint entry (f32 bounded at
         its passes, F32_D512_PASSES), one past 512 the wide entry in every
         mode (f32 bounded at three TF32 passes): both bounded at the caller's
-        D with the bound at the padded D the kernel computes (512, or D
-        rounded up to a multiple of 128) beside it (bound_padded_ms), and in
+        D with the bound at the padded D the kernel computes (512, or the
+        first of 640, 1024, 1280, 2048) beside it (bound_padded_ms), and in
         the inner modes timed beside SDPA over [own; K_cross] (pure: K_cross
         alone), the lerped endpoint made as the wrapper makes it. Returns a
         record."""
@@ -4241,12 +4241,15 @@ def sd15_one_head_configs() -> dict:
 
 
 def slice_own_chunk(plain, slices: int = 1):
-    """A planted fault: the plain attention with the first ``slices`` output
-    slices (the wide kernel's warps' columns, a block's padded head dim / 8
-    each; 8: every one, the score exchange dropped) each computed from its
-    own chunk of the scores alone (q and k cut to it, the scale kept) at
-    head dims past 512."""
-    from aid_tpu_torch.ops.flash_attention import D512, dwide_tiles, padded_head_dim
+    """A planted fault: the plain attention at head dims past 512 with the
+    first ``slices`` output slices (the wide kernel's two consumer
+    warpgroups' columns: warpgroup w holds the 64-column chunks w, w + 2,
+    ...) each computed from the scores over its own columns alone (q and k
+    cut to them, the scale kept): a warpgroup that skipped the exchange of
+    partial scores."""
+    import torch
+
+    from aid_tpu_torch.ops.flash_attention import D512
 
     def fault(q, k, v, coef=None, mode="self", k_begin=None, v_begin=None, k_end=None, v_end=None, scale=None,
               **kwargs):
@@ -4255,10 +4258,10 @@ def slice_own_chunk(plain, slices: int = 1):
         D = q.shape[-1]
         if D <= D512:
             return out
-        width = dwide_tiles(padded_head_dim(D))[0] // 8
         out = out.clone()
-        for j in range(min(slices, -(-D // width))):  # the slices that hold columns of D
-            cols = slice(j * width, min(D, (j + 1) * width))
+        for w in range(slices):
+            cols = torch.arange(D, device=q.device)
+            cols = cols[(cols // 64) % 2 == w]
             cut = {n: None if x is None else x[..., cols] for n, x in eps.items()}
             out[..., cols] = plain(q[..., cols], k[..., cols], v[..., cols], coef, mode,
                                    scale=D ** -0.5 if scale is None else scale, **cut, **kwargs)
@@ -4267,8 +4270,8 @@ def slice_own_chunk(plain, slices: int = 1):
 
 
 def every_slice_own_chunk(plain):
-    """slice_own_chunk over all eight slices: no partial score is exchanged."""
-    return slice_own_chunk(plain, 8)
+    """slice_own_chunk over both warpgroups' slices: no partial score is exchanged."""
+    return slice_own_chunk(plain, 2)
 
 
 def phase_one_head_a_level(card: str, device: str = "cuda", configs=None, steps: int = WIDE_STEPS) -> list:
@@ -4417,15 +4420,18 @@ def kernels_line(kernels: dict, launches: dict) -> str:
                         f"inner modes (none for the outer modes); {attn_note}")
     f32_wgmma = "wgmma 3xTF32 (raw hi), TMA, a split/transpose producer warpgroup"
     dwide_src = "aid_tpu_torch/csrc/flash_attention_dwide.cu"
-    dwide_design = ("mma.sync (m16n8k16; f32: m16n8k8 in 3xTF32), the Q tile resident for 32 query rows (padded D up "
-                    "to 1024) or 16, D split across eight warps that sum their partial scores in shared memory once "
-                    "a key tile, K and V by zero-filling cp.async copies into one buffer each, over own / begin / "
-                    "end segments of their own lengths; the outer modes' first softmax set parked in a global f32 "
-                    "workspace the wrapper allocates per call")
+    dwide_design = ("wgmma on the transposed products S^T = K Q^T and O^T = V^T P^T, the keys in M (128-key tiles as "
+                    "two 64-key M blocks, each consumer warpgroup finishing one block's softmax, 32 or 16 query rows "
+                    "in N; f32: 64-key tiles, 16 or 8 rows, 3xTF32 with K's and V^T's fragments from registers), Q "
+                    "resident, K and V by TMA from one producer thread through a ring of key-tile x 128-column "
+                    "slots, D split by 64-column chunks across two consumer warpgroups that exchange partial scores "
+                    "once a tile, over own / begin / end segments of their own lengths; the outer modes' sets parked "
+                    "in an f32 workspace the wrapper allocates per call; under one wave of blocks the key stream "
+                    "split across blocks and merged by a combine kernel (flash_dwide_combine_kernel)")
     dwide_note = ("ms at fused_outer (7,1,1024,640), every case of phase 22's shapes, (2,1,512,2048) and D = 520 "
-                  "under shapes; bound_ms at the caller's D, bound_padded_ms at D rounded up to a multiple of 128 "
-                  "(the columns the kernel computes); library_ms: SDPA in self mode and over [own; K_cross] in the "
-                  f"inner modes (none for the outer modes); {attn_note}")
+                  "under shapes; bound_ms at the caller's D, bound_padded_ms at the padded D the kernel computes "
+                  "(640, 1024, 1280 or 2048); library_ms: SDPA in self mode and over [own; K_cross] in the inner "
+                  f"modes (none for the outer modes); {attn_note}")
     conv_f32_design = ("wgmma tf32 m64n160k8, both operands in shared memory, 3xTF32 (raw hi; the lo parts of x "
                        "from the layout pass, of w tiled once), one TMA window a K chunk for all nine taps, each "
                        "chunk's sum folded in f32")

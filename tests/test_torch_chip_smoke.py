@@ -151,7 +151,8 @@ def test_kernels_line_carries_bound_and_library_time():
     assert [e["entry"] for e in dwide.values()] == ["aid_flash_attn_bf16_dwide", "aid_flash_attn_f16_dwide",
                                                     "aid_flash_attn_f32_dwide"]
     assert all(e["source"] == "aid_tpu_torch/csrc/flash_attention_dwide.cu" and e["also_replaces"].endswith(":339")
-               and "bound_padded_ms at D rounded up" in e["contract"] for e in dwide.values())
+               and "bound_padded_ms at the padded D the kernel computes" in e["contract"]
+               and "flash_dwide_combine_kernel" in e["design"] for e in dwide.values())
 
 
 def test_f32_phases_follow_the_bf16_paths():
@@ -801,9 +802,10 @@ def test_one_head_phase_follows_the_wide_heads_phase():
 
 
 def test_slice_fault_moves_one_slice():
-    """The phase's planted fault changes one output slice of a wide call (a
-    block's padded D / 8 columns: 80 at D = 640) and nothing else, and
-    leaves a call at D <= 512 as it was."""
+    """The phase's planted fault changes one output slice of a wide call
+    (the first consumer warpgroup's columns: the 64-column chunks 0, 2, 4,
+    ...) and nothing else, and leaves a call at D <= 512 as it was; with the
+    exchange dropped both warpgroups' slices move."""
     import torch
 
     smoke = _load_smoke()
@@ -814,9 +816,11 @@ def test_slice_fault_moves_one_slice():
     c = torch.tensor([0.0, 0.5, 1.0])
     want = plain(q, k, k, c, "fused_outer")
     got = smoke.slice_own_chunk(plain)(q, k, k, c, "fused_outer")
-    assert torch.equal(got[..., 80:], want[..., 80:]) and not torch.allclose(got[..., :80], want[..., :80])
+    for j in range(0, 640, 64):
+        moved = not torch.allclose(got[..., j:j + 64], want[..., j:j + 64])
+        assert moved == (j // 64 % 2 == 0), j
     got = smoke.every_slice_own_chunk(plain)(q, k, k, c, "fused_outer")  # the exchange dropped: every slice moves
-    assert all(not torch.allclose(got[..., j:j + 80], want[..., j:j + 80]) for j in range(0, 640, 80))
+    assert all(not torch.allclose(got[..., j:j + 64], want[..., j:j + 64]) for j in range(0, 640, 64))
     q = q[..., :320]
     assert torch.equal(smoke.slice_own_chunk(plain)(q, q, q, c, "fused_outer"), plain(q, q, q, c, "fused_outer"))
 

@@ -525,11 +525,12 @@ def test_flash_d512_interp_kernels_match_plain(dev, dtype, D, mode, ep, Le):
     assert _attn_err(got, want) < ATTN_RTOLS[dtype]
 
 
-# the wide entries' shapes: ragged head dims (520, one 64-column box past
-# 512; 1000, under a whole 128), SD 1.x's 640 and 1280 with one head a level,
-# the widest 2048 (16-row blocks, and in f32 K and V in one buffer); 130
-# queries and 77 own keys ragged against the 32- / 16-row blocks and every
-# key tile (32 / 16 in bf16 and f16, 16 / 8 in f32)
+# the wide entries' shapes: ragged head dims (520, one 64-column chunk past
+# 512; 1000, under the 1024 instance), SD 1.x's 640 and 1280 with one head a
+# level, the widest 2048; 130 queries and 77 own keys ragged against the
+# row blocks (32 / 16 in bf16 and f16, 16 / 8 in f32) and the key tile (128
+# keys in bf16 and f16, 64 in f32); at B = 3, H = 2 every grid is under one
+# wave of blocks, so the key stream is split and merged by the combine step
 DWIDE_DIMS = [520, 640, 1000, 1280, 2048]
 DWIDE_ENDPOINTS = [("rows", None), ("shared", 77), ("per_row", 16)]
 
@@ -581,7 +582,7 @@ def test_flash_dwide_kernels_match_plain(dev, dtype, D, mode, ep, Le):
     (2, 1, 256, 256, 1280),    # at 16^2
     (1, 1, 64, 64, 1280),      # the mid block
     (1, 1, 1, 1, 2048),        # one query, one key
-    (1, 2, 33, 17, 1152),      # one row past a 32-row block, one key past a tile
+    (1, 2, 33, 17, 1152),      # one row past a 32-row block, a ragged key tile, the 1280 instance
 ])
 def test_flash_dwide_kernels_at_path_shapes(dev, dtype, B, H, S, L, D):
     """The wide entries at the path's shapes and at the edges of their
@@ -596,6 +597,39 @@ def test_flash_dwide_kernels_at_path_shapes(dev, dtype, B, H, S, L, D):
         want = flash_interpolated_attention_plain(q, k, v, coef, mode)
         assert got.shape == want.shape and torch.isfinite(got).all()
         assert _attn_err(got, want) < ATTN_RTOLS[dtype]
+
+
+@pytest.mark.parametrize("dtype", **DTYPES)
+@pytest.mark.parametrize("B,S,L,D,mode,split", [
+    (1, 512, 512, 2048, "self", True),           # 32 or 64 row blocks over 8 key tiles
+    (7, 64, 64, 1280, "fused_outer", True),      # the mid block: own, begin and end one tile each
+    (3, 100, 300, 640, "fused_outer", True),     # 5 own tiles and 5 a set, skip rows past their own segment
+    (7, 1024, 1024, 640, "self", False),         # a full grid: no split
+])
+def test_flash_dwide_kernels_split_key_stream(dev, dtype, B, S, L, D, mode, split):
+    """Where the grid of row blocks is under one wave the wide entry splits
+    each row block's key stream across blocks and its combine step merges
+    them (the split from the wrapper's mirror of the host rule, as the
+    workspace is sized); the result matches the plain version, and one
+    launch is counted."""
+    from aid_tpu_torch.ops.flash_attention import dwide_split, dwide_tiles, kernel_operands
+
+    H = 1
+    q, k, v = (_randn((B, H, n, D), 860 + i, dtype) for i, n in enumerate((S, L, L)))
+    coef = torch.linspace(0, 1, B, device=dev)
+    kw = {} if mode == "self" else {"skip_endpoints": torch.tensor([True] + [False] * (B - 2) + [True], device=dev)}
+    ops = kernel_operands(q, k, v, coef, mode, **kw)
+    Dp, BQ, BK = dwide_tiles(D, dtype)
+    tiles = -(-L // BK) * (3 if mode == "fused_outer" else 1)
+    assert ops["splits"] == dwide_split(B * H * -(-S // BQ), tiles) and (ops["splits"] > 1) == split
+    wrapper = ATTN_WRAPPER[dtype]
+    before = wrapper.launches_by_head_dim[DWIDE]
+    got = flash_interpolated_attention(q, k, v, coef, mode, **kw)
+    torch.cuda.synchronize()
+    assert wrapper.launches_by_head_dim[DWIDE] == before + 1
+    want = flash_interpolated_attention_plain(q, k, v, coef, mode, **kw)
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    assert _attn_err(got, want) < ATTN_RTOLS[dtype]
 
 
 @pytest.mark.parametrize("dtype", **DTYPES)

@@ -1,0 +1,142 @@
+"""The step profiler's kernel classes (tools/torch_profile_step.py) against the port's kernels.
+
+Each kernel's demangled name, as a trace of the card shows it, is built from
+the template instances the host code of ``aid_tpu_torch/csrc/*.cu`` launches
+(element types, head dims, modes and flags read from the sources' dispatch
+lines) and fed to the profiler's class patterns. The set of kernels is read
+from the sources' ``__global__`` definitions, so a new kernel without a class
+fails here. Needs no card and no nvcc.
+"""
+
+import importlib.util
+import itertools
+import re
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+CSRC = ROOT / "aid_tpu_torch" / "csrc"
+
+
+def _profiler():
+    spec = importlib.util.spec_from_file_location("torch_profile_step", ROOT / "tools" / "torch_profile_step.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _kernels(text: str) -> dict:
+    """{kernel: number of template parameters} of a source's __global__ definitions."""
+    out = {}
+    for m in re.finditer(r"(?:template <([^>]*)>\s*)?__global__ void __launch_bounds__\((?:[^()]|\([^()]*\))*\)\s*"
+                         r"(\w+)\(", text):
+        out[m.group(2)] = 0 if m.group(1) is None else len(m.group(1).split(","))
+    return out
+
+
+def _all(pattern: str, text: str) -> list:
+    return sorted(set(re.findall(pattern, text)), key=str)
+
+
+def _instances(name: str, text: str) -> list:
+    """[(kernel, template arguments)] that the source's host code launches,
+    their values read from its dispatch lines."""
+    types = _all(r"(?:entry|conv|entry_interp)<(__nv_bfloat16|__half|float)>", text)
+    dims = _all(r"case (\d+): return launch_d<", text)
+    modes = _all(r"launch(?:_interp)?<[^<>]*?(true|false), (\d)>", text)
+    if name == "flash_interpolated_attention.cu":
+        return [("flash_kernel", (t, d, *m)) for t in types for d in dims for m in modes]
+    if name == "flash_interpolated_attention_f32.cu":
+        return [("flash_f32_kernel", (d, *m)) for d in dims for m in modes]
+    if name == "flash_attention_bf16_d512.cu":
+        return [("flash16_d512_kernel", (t,)) for t in types] + [
+            ("flash16_d512_interp_kernel", (t, *m)) for t in types for m in modes]
+    if name == "flash_attention_f32_d512.cu":
+        return [("flash_f32_d512_kernel", ())] + [("flash_f32_d512_interp_kernel", m) for m in modes]
+    if name == "flash_attention_dwide.cu":
+        tiles = re.findall(r"return launch<T, (\d+), f32 \? (\d+) : (\d+)>", text)  # (chunks, f32 rows, 16-bit rows)
+        return [("flash_dwide_kernel", (t, nc, rf if t == "float" else r16)) for t in types for nc, rf, r16 in tiles] + [
+            ("flash_dwide_combine_kernel", (t,)) for t in types]
+    if name == "conv3x3.cu":
+        return [("conv3x3_kernel", (t, g)) for t in types for g in _all(r"return launch<T, (true|false)>", text)] + [
+            ("blocked_kernel", (v,)) for v in _all(r"blocked_kernel<(true|false)><<<", text)]
+    if name == "conv3x3_f32.cu":
+        vec = _all(r"blocked_f32_kernel<(true|false), kPro><<<", text)
+        pro = _all(r"return launch_blocked<(true|false)>", text)
+        return [("conv3x3_f32_kernel", ())] + [("blocked_f32_kernel", vp) for vp in itertools.product(vec, pro)]
+    raise AssertionError(f"{name}: a source the profiler's classes do not know")
+
+
+def _demangled(kernel: str, args: tuple) -> str:
+    """The kernel's name as the card's trace shows it (demangled, its
+    parameters elided)."""
+    targs = f"<{', '.join(args)}>" if args else ""
+    return f"void (anonymous namespace)::{kernel}{targs}(CUtensorMap_st, (anonymous namespace)::Params)"
+
+
+def _expected(kernel: str, args: tuple) -> str:
+    """The class each kernel belongs to: the attention's mode from its
+    HAS_OWN, NSETS arguments (the last two), the D=512 self kernels, the wide
+    kernel and its combine step, the convs and their layout passes."""
+    if kernel in ("flash_kernel", "flash_f32_kernel", "flash16_d512_interp_kernel", "flash_f32_d512_interp_kernel"):
+        return {("true", "2"): "attention kernel, fused_outer",
+                ("true", "0"): "attention kernel, self and cross"}.get(args[-2:], "attention kernel, other modes")
+    if kernel in ("flash16_d512_kernel", "flash_f32_d512_kernel"):
+        return "attention kernel, D=512 self (VAE)"
+    if kernel in ("flash_dwide_kernel", "flash_dwide_combine_kernel"):
+        return "attention kernel, head dims past 512"
+    if kernel in ("conv3x3_kernel", "conv3x3_f32_kernel"):
+        return "conv kernel"
+    assert kernel in ("blocked_kernel", "blocked_f32_kernel"), kernel
+    return "conv layout pass"
+
+
+SOURCES = sorted(p.name for p in CSRC.glob("*.cu"))
+
+
+@pytest.mark.parametrize("source", SOURCES)
+def test_every_kernel_of_a_source_has_its_class(source):
+    """Every kernel a source defines is launched at the instances read from
+    its dispatch lines (template arguments as many as its parameters), and
+    each instance's demangled name lands in its class, never in the
+    elementwise catch-all."""
+    text = (CSRC / source).read_text()
+    defined = _kernels(text)
+    instances = _instances(source, text)
+    assert defined and {k for k, _ in instances} == set(defined), (source, defined)
+    assert all(len(args) == defined[k] for k, args in instances), source
+    classes = _profiler().CLASSES
+    for kernel, args in instances:
+        name = _demangled(kernel, args)
+        got = next(n for n, pat in classes if pat.search(name))
+        assert got == _expected(kernel, args), (name, got)
+
+
+def test_modes_and_instances_cover_the_kernels():
+    """The sources' dispatch gives what the port launches: the five modes of
+    the D <= 160 kernels at four head dims in three types, the four endpoint
+    modes at D = 512, four wide instances a type with their combine steps."""
+    counts = {}
+    for source in SOURCES:
+        for kernel, _ in _instances(source, (CSRC / source).read_text()):
+            counts[kernel] = counts.get(kernel, 0) + 1
+    assert counts["flash_kernel"] == 2 * 4 * 5 and counts["flash_f32_kernel"] == 4 * 5
+    assert counts["flash16_d512_interp_kernel"] == 2 * 4 and counts["flash_f32_d512_interp_kernel"] == 4
+    assert counts["flash_dwide_kernel"] == 3 * 4 and counts["flash_dwide_combine_kernel"] == 3
+    assert counts["conv3x3_kernel"] == 2 * 2 and counts["blocked_f32_kernel"] == 4
+
+
+def test_library_kernels_keep_their_classes():
+    """Names of library kernels still land in the library classes, and
+    anything else in the catch-all."""
+    classes = _profiler().CLASSES
+
+    def cls(name):
+        return next(n for n, pat in classes if pat.search(name))
+
+    assert cls("sm90_xmma_fprop_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_nhwc") == "cuDNN convs"
+    assert cls("nvjet_tst_128x256_64x4_1x2_h_bz_coopA_TNT") == "cuBLAS GEMMs"
+    assert cls("void at::native::(anonymous namespace)::RowwiseMomentsCUDAKernel<float>") == "GroupNorm / LayerNorm"
+    assert cls("void at::native::vectorized_elementwise_kernel<4, at::native::CUDAFunctor_add<float>>") == (
+        "elementwise and other")

@@ -12,13 +12,15 @@ inputs through both packages on the CPU:
     tests/test_flash_attention.py runs it;
   * the wide entries (csrc/flash_attention_dwide.cu) replayed from their C
     arguments (``kernel_operands``): the operands read through the dims'
-    strides, zero-filled past D and past each segment, the eight warps'
-    column slices and their partial scores summed in warp order, key tiles
-    of the kernel's size (``dwide_tiles``) with P rounded to the input type
-    and each tile's P V folded into O, the outer modes' state parked word for
-    word in the workspace; planted
-    faults (a slice normalised over its own chunk's scores, a wrong chunk of
-    Q, a thread-major read-back) miss the bound by orders of magnitude;
+    strides, zero-filled past D and past each segment, key tiles, the two
+    warpgroups' 64-column chunks and their partial scores added, P rounded
+    to the input type and each tile's P V folded into O, the outer modes'
+    states parked in the workspace, the key stream split across blocks where
+    the grid is under one wave (``dwide_split``) and the splits' states
+    merged as the combine step merges them, or the block finishing unsplit;
+    planted faults (a warpgroup's softmax over its own partial scores, a
+    wrong chunk of Q, a thread-major read-back, splits combined without
+    their rescale) miss the bound by orders of magnitude;
   * a tiny UNet with one head a level (widths 544 and 576) against the JAX
     UNet.
 The kernels themselves are held to the plain version on the card
@@ -47,7 +49,7 @@ from aid_tpu_torch.ops.attention import AttnMode, dispatch_attention
 from aid_tpu_torch.ops.flash_attention import (
     DWIDE,
     DWIDE_ENTRIES,
-    DWIDE_PARK_FLOATS,
+    dwide_split,
     dwide_tiles,
     flash_interpolated_attention,
     flash_interpolated_attention_plain,
@@ -175,21 +177,29 @@ def test_wrapper_matches_pallas_interpret(dtype, D, mode):
 
 def test_padded_head_dim_past_512():
     """513..2048 maps to the operands' head dim with 16-byte rows (a
-    multiple of 8), in every mode; past 2048 raises, as the JAX wrapper
-    does past its budget."""
+    multiple of 8), in every mode; past 2048 raises, as the JAX wrapper does
+    past its budget. The kernel computes the first of 640 / 1024 / 1280 /
+    2048 columns at or above it, for 32 or 16 query rows a block in 128-key
+    tiles (bf16, f16) or 16 or 8 in 64-key tiles (f32: Q and lo(Q) stay in
+    shared memory),
+    and splits a row block's key stream where its grid is under 132 blocks."""
     for mode in MODES:
         assert [padded_head_dim(D, mode) for D in (513, 520, 521, 640, 1000, 1280, 2041, 2048)] == [
             520, 520, 528, 640, 1000, 1280, 2048, 2048]
         with pytest.raises(NotImplementedError):
             padded_head_dim(2049, mode)
-    # (padded D, rows a block, keys a tile): 32 / 16 keys where the Q tile and
-    # one K and one V tile fit in 227 KB beside the scores
+    # (padded D, rows a block, keys a tile)
     assert [dwide_tiles(D) for D in (520, 640, 896, 1024, 1032, 1280, 1408, 2048)] == [
-        (640, 32, 32), (640, 32, 32), (896, 32, 32), (1024, 32, 16), (1152, 16, 32), (1280, 16, 32),
-        (1408, 16, 16), (2048, 16, 16)]
+        (640, 32, 128), (640, 32, 128), (1024, 32, 128), (1024, 32, 128), (1280, 16, 128), (1280, 16, 128),
+        (2048, 16, 128), (2048, 16, 128)]
     assert [dwide_tiles(D, torch.float32) for D in (640, 1024, 1280, 2048)] == [
-        (640, 32, 16), (1024, 32, 8), (1280, 16, 8), (2048, 16, 8)]
+        (640, 16, 64), (1024, 8, 64), (1280, 8, 64), (2048, 8, 64)]
     assert dwide_tiles(640, torch.float16) == dwide_tiles(640)
+    # (row blocks, key tiles) -> blocks a row block's stream is split across:
+    # phase 22's (7,1,64,1280) fused_outer, (2,1,512,2048) self, a full grid,
+    # one block over many tiles (capped), one tile
+    assert [dwide_split(blocks, tiles) for blocks, tiles in ((28, 3), (64, 8), (224, 16), (132, 5), (112, 12),
+                                                              (1, 100), (4, 1))] == [3, 2, 1, 1, 1, 32, 1]
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
@@ -198,9 +208,10 @@ def test_kernel_operands_wide(dtype, mode):
     """The wide entries' C arguments: the entry of the dtype in every mode
     (self included), dims[5] the caller's D where its rows are 16-byte
     multiples and the operands passed as they are (no padding copy; the
-    kernel zero-fills past D), the output a (B, Sq, H, D) buffer, the outer
-    modes' workspace one DWIDE_PARK_FLOATS block per 32 or 16 rows; a head
-    dim off the 8-element grid is padded, with the scale kept."""
+    kernel zero-fills past D), the output a (B, Sq, H, D) buffer, the
+    workspace each split's O, max and sum per softmax set where the outer
+    modes park a set or the key stream is split (here always: 6 row blocks);
+    a head dim off the 8-element grid is padded, with the scale kept."""
     q, k, v, coef, skip, eps = _inputs(640, dtype, "shared" if mode != "self" else None, seed=5)
     tq, tk, tv = (_torch(x, dtype) for x in (q, k, v))
     ops = kernel_operands(tq, tk, tv, torch.from_numpy(coef), mode, skip_endpoints=torch.from_numpy(skip),
@@ -208,8 +219,14 @@ def test_kernel_operands_wide(dtype, mode):
     assert ops["entry"] == DWIDE_ENTRIES[DTYPES[dtype]]
     assert ops["dims"][5] == 640 and ops["tensors"][0] is tq and ops["tensors"][1] is tk
     assert ops["tensors"][7].transpose(1, 2).is_contiguous() and ops["out"].shape == tq.shape
-    if AttnMode(mode).is_outer:
-        assert tuple(ops["work"].shape) == (3 * 2 * math.ceil(24 / 32), DWIDE_PARK_FLOATS)
+    BQ = 16 if dtype == "f32" else 32
+    # 40 own keys and 17 endpoint keys: one key tile a segment
+    tiles = {"self": 1, "fused_outer": 3, "pure_outer": 2, "fused_inner": 2, "pure_inner": 1}[mode]
+    splits = min(132 // (3 * 2 * math.ceil(24 / BQ)), tiles)
+    assert ops["splits"] == splits
+    if AttnMode(mode).is_outer or splits > 1:
+        sets = 2 if AttnMode(mode).is_outer else 1
+        assert tuple(ops["work"].shape) == (3 * 2 * math.ceil(24 / BQ) * splits, sets, BQ * 640 + 2 * BQ)
     else:
         assert ops["work"] is None
     assert ops["has_own"] == int(mode in ("self", "fused_outer", "fused_inner"))
@@ -224,7 +241,7 @@ def test_kernel_operands_wide(dtype, mode):
 # ---------------------------------------------------------------------------
 # The wide entries replayed from their C arguments
 
-WARPS, THREADS, SLOTS, ROWS_MAX = 8, 256, 32, 32
+WG, CHUNK = 2, 64  # consumer warpgroups; the head-dim columns of a chunk (warpgroup (c // 64) % 2 takes column c)
 
 
 def _strided(x, dims, i, shape):
@@ -234,134 +251,168 @@ def _strided(x, dims, i, shape):
     return x.as_strided(shape, (sb, sh, ss, 1))
 
 
-def _park_index(block, Sq, Dp, BQ):
-    """Word index in the workspace of each O element (row r < Sq of the
-    block's rows, column c < Dp): word 4 i + e of thread tid at (4 i + e) *
-    256 + tid, where warp c // (Dp / 8) holds the column, slot i = mi * (32
-    / row blocks) + nj its n8 tile, lane 4 g + t its accumulator pair, e its
-    place in it."""
-    r, c = torch.arange(Sq).reshape(-1, 1), torch.arange(Dp).reshape(1, -1)
-    rr = r % BQ
-    mi, g, hf = rr // 16, rr % 8, (rr % 16) // 8
-    Dw = Dp // WARPS
-    w, cc = c // Dw, c % Dw
-    nj, t, e = cc // 8, (cc % 8) // 2, 2 * hf + c % 2
-    tid = w * 32 + 4 * g + t
-    slot = mi * (SLOTS // (BQ // 16)) + nj
-    return block[r // BQ] * DWIDE_PARK_FLOATS + (4 * slot + e) * THREADS + tid, slot, tid
+def _thread_major(BQ, Dp):
+    """For each word (query q, column c) of a parked O (BQ x Dp, stored
+    [q][c]), its index were the block's words laid out thread by thread: the
+    consumer thread that holds it (warpgroup (c // 64) % 2, warp c % 64 //
+    16, lane 4 (c % 8) + q % 8 // 2) and its word there (chunk c // 128,
+    accumulator 4 (q // 8) + 2 (c % 16 // 8) + q % 2). A planted fault reads
+    the parked O back in this order."""
+    q, c = torch.arange(BQ).reshape(-1, 1), torch.arange(Dp).reshape(1, -1)
+    wg, m = (c // CHUNK) % WG, c % CHUNK
+    tid = wg * 128 + (m // 16) * 32 + 4 * (m % 8) + (q % 8) // 2
+    word = (c // (WG * CHUNK)) * (BQ // 2) + 4 * (q // 8) + 2 * ((m % 16) // 8) + q % 2
+    return (tid * (Dp // (WG * CHUNK) * (BQ // 2)) + word).reshape(-1)
 
 
 def _emulate_dwide_kernel(ops, fault=None):
     """The wide entry's output rebuilt from its C arguments in its order of
-    work (csrc/flash_attention_dwide.cu), in f32: per (b, h), all query
-    rows; each warp's slice of Dp / 8 columns takes its partial scores over
-    its slice of Q and K, the softmax sums the eight in warp order, each
-    warp's P V covers its slice of V; key tiles of ``dwide_tiles``'s size
-    over each segment, zero-filled past its length and past D, P rounded to the input
-    type, each tile's product folded into O; the outer modes' first set
-    parked in ``ops["work"]`` at the set boundaries. ``fault``: "own_chunk"
-    (each slice's softmax over its own partial scores), "q_chunk" (each warp
-    reads the next warp's slice of Q), "thread_major" (the parked words read
-    back thread by thread)."""
+    work (csrc/flash_attention_dwide.cu), in f32: per (b, h), block of BQ
+    query rows and split of the key stream (:func:`dwide_tiles`,
+    :func:`dwide_split`), Q and each key tile of K and V read through the
+    dims' strides, zero-filled past D and past each segment's length; each
+    warpgroup's partial scores over its 64-column chunks (warpgroup w the
+    chunks w, w + 2, ...), the two added; the online softmax down each query
+    column (raw maxima, the rescale at 2^((m - m_new) scale log2 e)); P rounded
+    to the input type (bf16, f16) and each tile's P V folded into O; the
+    outer modes' own state parked in the workspace as set 1's start, set 0
+    stored after the begin segment and set 1 continued from the park; each
+    split's states (O, m, l) stored at its place in ``ops["work"]`` and
+    merged as the combine step merges them, or, unsplit, normalised and
+    blended in the block. ``fault``: "own_chunk" (each warpgroup's softmax
+    and P V over its own partial scores: no exchange), "q_chunk" (each
+    chunk's scores against the next chunk of Q), "thread_major" (the parked
+    O read back thread by thread), "combine" (the combine step adds the
+    splits' states without rescaling them to the largest max)."""
     q, k, v, kb, vb, ke, ve, out = ops["tensors"]
     dims = ops["dims"]
     B, H, Sq, Lk, Le, D = dims[:6]
     dtype = q.dtype
     f32 = dtype == torch.float32
     Dp, BQ, BK = dwide_tiles(D, dtype)
-    Dw = Dp // WARPS
     assert ops["entry"] == DWIDE_ENTRIES[dtype] and D <= DWIDE
-    scale_log2 = float(np.float32(ops["scale"]) * np.float32(1.4426950408889634))
+    sl2 = float(np.float32(ops["scale"]) * np.float32(1.4426950408889634))
     has_own, n_sets = ops["has_own"], ops["n_sets"]
-    n_blocks_x = -(-Sq // BQ)
-    work = None if ops["work"] is None else ops["work"].reshape(-1)
-    if n_sets == 2:
-        assert work.numel() == B * H * n_blocks_x * DWIDE_PARK_FLOATS
-        work.fill_(math.nan)  # a word read before it is written poisons the result
+    nq = -(-Sq // BQ)
+    n_own, n_ep = (-(-Lk // BK) if has_own else 0), -(-Le // BK)
+    n_total = n_own + n_sets * n_ep
+    S = dwide_split(B * H * nq, n_total)
+    assert ops["splits"] == S
+    sets = 2 if n_sets == 2 else 1
+    per = BQ * Dp + 2 * BQ
+    if n_sets == 2 or S > 1:
+        assert tuple(ops["work"].shape) == (B * H * nq * S, sets, per)
+        ws = ops["work"]
+        ws.fill_(math.nan)  # a word read before it is written poisons the result
+    else:
+        assert ops["work"] is None
+    mine = [(torch.arange(Dp) // CHUNK) % WG == w for w in range(WG)]  # each warpgroup's columns
 
     def padded(x):  # the zero fill past D
         return torch.nn.functional.pad(x.float(), (0, Dp - D))
 
-    ops_q = padded(_strided(q, dims, 0, (B, H, Sq, D)))
+    Qall = padded(_strided(q, dims, 0, (B, H, Sq, D)))
     seg = [(padded(_strided(x, dims, i, (B, H, n, D))), padded(_strided(y, dims, i + 1, (B, H, n, D))), n)
            for i, (x, y, n) in ((1, (k, v, Lk)), (3, (kb, vb, Le)), (5, (ke, ve, Le)))]
-    res = torch.zeros(B, H, Sq, Dp)
+    res = torch.zeros(B, H, nq * BQ, Dp)
+
+    def store(blk, set_, o, m, l):
+        ws[blk, set_, :BQ * Dp] = o.reshape(-1)
+        ws[blk, set_, BQ * Dp:BQ * Dp + BQ] = m
+        ws[blk, set_, BQ * Dp + BQ:] = l
+
+    def load(blk, set_, order=None):
+        w = ws[blk, set_]
+        o = w[:BQ * Dp] if order is None else w[:BQ * Dp][order]
+        return o.reshape(BQ, Dp).clone(), w[BQ * Dp:BQ * Dp + BQ].clone(), w[BQ * Dp + BQ:].clone()
+
     for b in range(B):
         skip = bool(has_own and n_sets and ops["skip"] is not None and ops["skip"][b])
         outer = n_sets == 2 and not skip
-        order = ([0] if has_own else []) + ([] if skip else [1, 2][:n_sets])
+        n_row = n_own if skip else n_total
         for h in range(H):
-            block = (b * H + h) * n_blocks_x + torch.arange(n_blocks_x)
-            idx, _, _ = _park_index(block, Sq, Dp, BQ)
-            Q = ops_q[b, h].reshape(Sq, WARPS, Dw)
-            if fault == "q_chunk":
-                Q = Q.roll(-1, dims=1)
-            m = torch.full((WARPS, Sq), -math.inf)
-            l = torch.zeros(WARPS, Sq)
-            o = torch.zeros(Sq, WARPS, Dw)
-            for s in order:
-                K, V, n = seg[s][0][b, h], seg[s][1][b, h], seg[s][2]
-                for r0 in range(0, n, BK):
-                    Kt, Vt = torch.zeros(BK, Dp), torch.zeros(BK, Dp)
-                    Kt[:min(BK, n - r0)], Vt[:min(BK, n - r0)] = K[r0:r0 + BK], V[r0:r0 + BK]
-                    part = torch.einsum("qwd,kwd->wqk", Q, Kt.reshape(BK, WARPS, Dw))
-                    if fault == "own_chunk":
-                        sc = part
-                    else:
-                        sc = part[0].clone()
-                        for w in range(1, WARPS):  # warp order
-                            sc = sc + part[w]
-                        sc = sc.expand(WARPS, Sq, BK)
-                    x = sc * scale_log2
-                    x[..., min(BK, n - r0):] = -math.inf
-                    m_new = torch.maximum(m, x.amax(-1))
-                    p = torch.exp2(x - m_new[..., None])
-                    a = torch.exp2(m - m_new)
-                    l = l * a + p.sum(-1)
-                    m = m_new
-                    p = p if f32 else p.to(dtype).float()
-                    pv = torch.einsum("wqk,kwd->qwd", p, Vt.reshape(BK, WARPS, Dw))
-                    o = o * a.T[..., None] + pv
-                    if not outer or s == 2:
+            for qb in range(nq):
+                n = min(BQ, Sq - qb * BQ)
+                Qb = torch.zeros(BQ, Dp)
+                Qb[:n] = Qall[b, h, qb * BQ:qb * BQ + n]
+                if fault == "q_chunk":
+                    Qb = Qb.roll(-CHUNK, dims=1)
+                for sp in range(S):
+                    blk = ((b * H + h) * nq + qb) * S + sp
+                    t0, t1 = sp * n_total // S, min((sp + 1) * n_total // S, n_row)
+                    o, m, l = torch.zeros(BQ, Dp), torch.full((BQ,), -math.inf), torch.zeros(BQ)
+                    if t0 >= t1:  # a skip row's split past its own segment: an empty state
+                        store(blk, 0, o, m, l)
                         continue
-                    if r0 + BK >= n and s == 0:  # park the own segment's state
-                        work[idx.reshape(-1)] = o.reshape(Sq, Dp).reshape(-1)
-                        rows = block[torch.arange(Sq) // BQ] * DWIDE_PARK_FLOATS + 128 * THREADS
-                        work[rows + torch.arange(Sq) % BQ] = m[0]
-                        work[rows + ROWS_MAX + torch.arange(Sq) % BQ] = l[0]
-                    elif r0 + BK >= n and s == 1:  # swap (1 - c) O / l with it, or park it
-                        o = o * ((1.0 - ops["coef"][b]) / l.T[..., None])
-                        back = idx if fault != "thread_major" else _thread_major(idx, block, Sq, Dp, BQ)
-                        own = work[back.reshape(-1)].reshape(Sq, WARPS, Dw).clone() if has_own else None
-                        work[idx.reshape(-1)] = o.reshape(-1)
-                        if has_own:
-                            o = own
-                            rows = block[torch.arange(Sq) // BQ] * DWIDE_PARK_FLOATS + 128 * THREADS
-                            m = work[rows + torch.arange(Sq) % BQ].expand(WARPS, Sq).clone()
-                            l = work[rows + ROWS_MAX + torch.arange(Sq) % BQ].expand(WARPS, Sq).clone()
-                        else:
-                            o = torch.zeros_like(o)
-                            m, l = torch.full((WARPS, Sq), -math.inf), torch.zeros(WARPS, Sq)
-            if outer:
-                o = o * (ops["coef"][b] / l.T[..., None]) + work[idx.reshape(-1)].reshape(Sq, WARPS, Dw)
-            else:
-                o = o / l.T[..., None]
-            res[b, h] = o.reshape(Sq, Dp)
+
+                    def tile(it, o, m, l):
+                        s_ = 0 if it < n_own else 1 + (it - n_own) // n_ep
+                        K, V, length = seg[s_][0][b, h], seg[s_][1][b, h], seg[s_][2]
+                        r0 = (it if it < n_own else (it - n_own) % n_ep) * BK
+                        Kt, Vt = torch.zeros(BK, Dp), torch.zeros(BK, Dp)
+                        valid = min(BK, length - r0)
+                        Kt[:valid], Vt[:valid] = K[r0:r0 + valid], V[r0:r0 + valid]
+                        parts = [Kt[:, w_] @ Qb[:, w_].T for w_ in mine]  # S^T over each warpgroup's chunks
+                        scores = parts if fault == "own_chunk" else [parts[0] + parts[1]] * WG
+                        o = o.clone()
+                        for w_, st in zip(mine, scores):
+                            st = st.clone()
+                            st[valid:] = -math.inf
+                            m_new = torch.maximum(m, st.amax(0))
+                            alpha = torch.exp2((m - m_new) * sl2)
+                            p_ = torch.exp2(st * sl2 - m_new * sl2)
+                            l_new = l * alpha + p_.sum(0)
+                            p_ = p_ if f32 else p_.to(dtype).float()
+                            o[:, w_] = o[:, w_] * alpha[:, None] + p_.T @ Vt[:, w_]
+                        return o, m_new, l_new  # the last warpgroup's statistics (the same unless a fault splits them)
+
+                    runs = ([0] if has_own else []) + [1, 2] if outer else [2]
+                    for r in runs:
+                        a = n_own + (r - 1) * n_ep if outer and r > 0 else 0
+                        z = n_own + r * n_ep if outer and r < 2 else n_total
+                        for it in range(max(a, t0), min(z, t1)):
+                            o, m, l = tile(it, o, m, l)
+                        if r == 0:
+                            store(blk, 1, o, m, l)
+                        elif r == 1:
+                            store(blk, 0, o, m, l)
+                            if has_own:
+                                o, m, l = load(blk, 1, _thread_major(BQ, Dp) if fault == "thread_major" else None)
+                            else:
+                                o, m, l = torch.zeros(BQ, Dp), torch.full((BQ,), -math.inf), torch.zeros(BQ)
+                    if S > 1:
+                        store(blk, 1 if outer else 0, o, m, l)
+                    elif outer:
+                        c = float(ops["coef"][b])
+                        o0, _, l0 = load(blk, 0)
+                        res[b, h, qb * BQ:(qb + 1) * BQ] = o * (c / l)[:, None] + o0 * ((1 - c) / l0)[:, None]
+                    else:
+                        res[b, h, qb * BQ:(qb + 1) * BQ] = o / l[:, None]
+                if S > 1:  # the combine step
+                    base = ((b * H + h) * nq + qb) * S
+                    merged = torch.zeros(BQ, Dp)
+                    for set_ in range(2 if outer else 1):
+                        st = [load(base + sp, set_) for sp in range(S)]
+                        mx = torch.stack([x[1] for x in st]).amax(0)
+                        e = [torch.ones(BQ) if fault == "combine" else torch.exp2((x[1] - mx) * sl2) for x in st]
+                        L = sum(x[2] * ei for x, ei in zip(st, e))
+                        O = sum(x[0] * ei[:, None] for x, ei in zip(st, e))
+                        wt = (float(ops["coef"][b]) if set_ else 1 - float(ops["coef"][b])) if outer else 1.0
+                        merged += O * (wt / L)[:, None]
+                    res[b, h, qb * BQ:(qb + 1) * BQ] = merged
     stored = _strided(out, dims, 7, (B, H, Sq, out.shape[-1]))
-    stored.copy_(res[..., :out.shape[-1]].to(dtype))
+    stored.copy_(res[:, :, :Sq, :out.shape[-1]].to(dtype))
     return ops["out"]
 
 
-def _thread_major(idx, block, Sq, Dp, BQ):
-    """The workspace read back thread by thread (word w of thread tid at tid
-    * 128 + w): a planted fault."""
-    _, slot, tid = _park_index(block, Sq, Dp, BQ)
-    word = (idx - block[torch.arange(Sq) // BQ].reshape(-1, 1) * DWIDE_PARK_FLOATS - tid) // THREADS
-    return block[torch.arange(Sq) // BQ].reshape(-1, 1) * DWIDE_PARK_FLOATS + tid * 128 + word
-
-
-def _replay_inputs(D, dtype, mode, ep, seed):
-    q, k, v, coef, skip, eps = _inputs(D, dtype, ep, seed, S=40, L=23, Le=9)
+def _replay_inputs(D, dtype, mode, ep, seed, unsplit=False):
+    """40 queries, 140 own keys (two 128-key tiles in bf16 and f16, three
+    64-key ones in f32, the last ragged) and 9 endpoint keys, three rows; two
+    heads, which leave the grid under one wave and split the key stream, or
+    ``unsplit``: enough heads for 132 blocks."""
+    BQ = dwide_tiles(padded_head_dim(D), DTYPES[dtype])[1]
+    H = -(-132 // (3 * -(-40 // BQ))) if unsplit else 2
+    q, k, v, coef, skip, eps = _inputs(D, dtype, ep, seed, H=H, S=40, L=140, Le=9)
     args = [_torch(x, dtype) for x in (q, k, v)] + [torch.from_numpy(coef), mode]
     return args, dict(skip_endpoints=torch.from_numpy(skip), **{n: _torch(e, dtype) for n, e in eps.items()})
 
@@ -371,26 +422,32 @@ def _replay_inputs(D, dtype, mode, ep, seed):
 @pytest.mark.parametrize("D", [520, 640, 1280, 2048])
 def test_dwide_replay_matches_plain(D, mode, dtype):
     """The wide entry replayed from its C arguments matches the plain
-    version: 40 queries (a 32- or 16-row block and a ragged one), 23 own keys
-    and 9 endpoint keys ragged against every key tile, skip rows,
-    endpoints from the rows (pure modes) or shared (fused modes)."""
+    version: 40 queries (a 32-, 16- or 8-row block and a ragged one), 140
+    own keys and 9 endpoint keys ragged against the key tile, skip rows,
+    endpoints from the rows (pure modes) or shared (fused modes); at D = 640
+    and 2048 two heads (the key stream split, the combine step), at 520 and
+    1280 enough heads to fill the card (no split: the block finishes)."""
     ep = "shared" if AttnMode(mode).is_fused else None
-    args, kw = _replay_inputs(D, dtype, mode, ep, seed=300 + D)
+    args, kw = _replay_inputs(D, dtype, mode, ep, seed=300 + D, unsplit=D in (520, 1280))
     if mode == "self":
         kw = {}
-    got = _emulate_dwide_kernel(kernel_operands(*args, **kw))
+    ops = kernel_operands(*args, **kw)
+    assert (ops["splits"] == 1) == (D in (520, 1280))
+    got = _emulate_dwide_kernel(ops)
     want = flash_interpolated_attention_plain(*args, **kw)
     assert got.dtype == DTYPES[dtype] and got.shape == want.shape
     assert _err(got, want) < REPLAY_TOL[dtype]
 
 
 @pytest.mark.parametrize("dtype", ["bf16", "f32"])
-@pytest.mark.parametrize("fault", ["own_chunk", "q_chunk", "thread_major"])
+@pytest.mark.parametrize("fault", ["own_chunk", "q_chunk", "thread_major", "combine"])
 def test_dwide_replay_planted_faults_are_seen(dtype, fault):
     """Each planted fault misses the replay's bound by orders of magnitude:
-    the bound is sharp enough to see a slice normalised over its own chunk,
-    a wrong chunk of Q, or the parked words read back thread by thread
-    (fused_outer at D = 640 and 1280, per-row endpoints)."""
+    the bound is sharp enough to see a warpgroup's softmax over its own
+    partial scores, a wrong chunk of Q, the parked words read back thread by
+    thread, or the combine step adding the splits' states unrescaled
+    (fused_outer at D = 640 and 1280, per-row endpoints, the key stream
+    split)."""
     for D in (640, 1280):
         args, kw = _replay_inputs(D, dtype, "fused_outer", "per_row", seed=400 + D)
         want = flash_interpolated_attention_plain(*args, **kw)

@@ -25,8 +25,9 @@ entries (head dims 513-2048, csrc/flash_attention_dwide.cu) of ``--dtype`` at
 phase 22's shapes (SD 1.x with one head a level: D = 640 over 1024 tokens
 and its 77-key cross call, D = 1280 over 256 and 64), at (2,1,512,2048) and
 at a ragged D = 520, in every mode: launched alone and through the wrapper,
-beside the bound at the caller's D (f32 at three TF32 passes) and the plain
-version. It checks each result against
+beside the bound at the caller's D (f32 at three TF32 passes), the plain
+version and, in self and the inner modes, the fastest SDPA backend on the
+same inputs (the inner modes over [own; K_cross]). It checks each result against
 the plain version (``chip_smoke.ATTN_TOL`` / ``F16_ATTN_TOL`` / ``F32_ATTN_TOL``). ``--root``
 imports the package and ``chip_smoke.py`` of another checkout (say, the
 parent commit unpacked under ``build/``): run both in one call, in turns, to
@@ -157,11 +158,49 @@ DWIDE_SHAPES = [(f"{m} {Sq}{'x77' if L == 77 else ''} D={D}", m, B, Sq, L, D)
                 for m in ("fused_outer", "pure_outer", "fused_inner", "pure_inner", "self")]
 
 
+def dwide_sdpa(q, k, v, coef, mode: str, want, reps: int) -> tuple:
+    """(backend, ms) of the fastest SDPA backend computing the wide call's
+    function on the same inputs: self mode over (q, k, v), the inner modes
+    over [own; K_cross] (fused) or K_cross (pure), K_cross lerped in f32
+    from the rows' endpoints as the wrapper lerps it; (None, None) in the
+    outer modes, which no one call computes. A yardstick: the port never
+    calls it."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from chip_smoke import cuda_ms
+
+    if mode not in ("self", "fused_inner", "pure_inner"):
+        return None, None
+    if mode != "self":
+        c = coef.view(-1, 1, 1, 1)
+        kc = ((1 - c) * k[0].float() + c * k[-1].float()).to(k.dtype)
+        vc = ((1 - c) * v[0].float() + c * v[-1].float()).to(v.dtype)
+        k, v = (torch.cat([k, kc], 2), torch.cat([v, vc], 2)) if mode == "fused_inner" else (kc, vc)
+    best = (None, None)
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                    SDPBackend.MATH):
+        try:
+            with sdpa_kernel(backend):
+                got = F.scaled_dot_product_attention(q, k, v)
+                torch.cuda.synchronize()
+                ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), reps)
+        except RuntimeError:  # this backend does not take the input
+            continue
+        if (got.float() - want.float()).abs().max().item() > 0.1 * want.float().abs().max().item():
+            raise SystemExit(f"SDPA {backend.name} computes another function than the {mode} call")
+        if best[1] is None or ms < best[1]:
+            best = (backend.name, ms)
+    return best
+
+
 def bench_dwide(reps: int, name: str, only: str) -> dict:
     """The wide entry of one dtype at DWIDE_SHAPES (one head; 7 frames with
     the coef-0/1 end rows as skip rows, or 2 frames with none):
     {label: ms alone}; prints each with its time through the wrapper, its
-    bound and the plain version's."""
+    bound, the plain version's and, in self and the inner modes, the
+    fastest SDPA backend's on the same inputs (:func:`dwide_sdpa`)."""
     import torch
 
     from aid_tpu_torch.models.layers import skip_mask
@@ -197,8 +236,10 @@ def bench_dwide(reps: int, name: str, only: str) -> dict:
         skip_rows = int(kw["skip_endpoints"].sum()) if kw else 0
         bound_ms, by = attention_bound(mode, B, 1, Sq, L, D, skip_rows=skip_rows, elem=4 if f32 else 2,
                                        tf32_passes=3 if f32 else None, **({"kind": name} if name == "f16" else {}))
+        lib, lib_ms = dwide_sdpa(q, k, v, coef, mode, want, reps)
+        sdpa = f"SDPA {lib} {lib_ms:.4f} ms ({ms / lib_ms:.2f}x)" if lib else "SDPA —"
         print(f"{name} {label:26s} ({B},1,{Sq},{D}) launch alone {ms:.4f} ms  bound {bound_ms:.4f} ms ({by}, "
-              f"{bound_ms / ms:.1%})  through the wrapper {wrapper_ms:.4f} ms  plain {plain_ms:.4f} ms  "
+              f"{bound_ms / ms:.1%})  through the wrapper {wrapper_ms:.4f} ms  {sdpa}  plain {plain_ms:.4f} ms  "
               f"max_abs_err/max|ref| {err:.3e}", flush=True)
         result[f"{name} {label}"] = ms
         del q, k, v, out, want, launch

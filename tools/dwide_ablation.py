@@ -5,13 +5,20 @@
 There is no ``ncu`` on the machine with the card, so this probe takes parts
 out of ``csrc/flash_attention_dwide.cu`` and times what is left. Each
 variant is the shipped source with one part removed by a text edit (each
-edit must match the source exactly once, or the probe stops):
+edit must match the source exactly once, or the probe stops). Every
+element type has the same variants (the products' edits follow its code):
 
-  shipped     the source as it is
-  no_qk       no Q K^T products (the partial scores are written as zeros)
-  no_pv       no P V products (the fold of each tile into O stays)
-  no_softmax  no online softmax (P and the rescale factors stay stale)
-  no_loads    no K or V copies after the first tile (the buffers keep it)
+  shipped      the source as it is
+  no_loads     the producer's TMA copies only in each ring slot's first round
+               (later rounds arrive on the slot's barrier: stale tiles)
+  no_qk        no Q K^T products (the partial scores stay unset)
+  no_exchange  no barrier before the partial scores are read from the other
+               warpgroup (the scores are read as they are)
+  no_softmax   no exponentials and no barrier before the warps' column
+               maxima are read
+  no_pv        no P V products (the fold of each chunk into O stays)
+  no_combine   no combine step after a split launch (nothing is written)
+  no_split     the key stream never split (one block a row block)
 
 Every variant but the shipped one computes a wrong result on purpose: its
 error against the plain version is printed, not checked; the shipped one
@@ -19,8 +26,10 @@ must stay within the dtype's ``chip_smoke`` tolerance. Each is compiled by
 nvcc into its own library under ``build/dwide_ablation/`` (one nvcc per
 variant, all at once) and called through the same C entry as the port, on
 operands ``ops.flash_attention.kernel_operands`` lays out, at phase 22's
-shapes of the self and fused_outer modes (7 frames, the coef-0/1 end rows
-skip rows). Times are CUDA-event means of --reps launches, the variants
+shapes (self and fused_outer at (7,1,1024,640) and (7,1,256,1280),
+fused_outer at the mid block's (7,1,64,1280), whose grid is split) and at
+self (2,1,512,2048); 7 frames with the coef-0/1 end rows as skip rows, or 2
+with none. Times are CUDA-event means of --reps launches, the variants
 alternated (in order, then reversed); a variant's time saved against the
 shipped kernel is what the removed part costs, up to what the rest hides.
 Prints the card's name and power limit first and one JSON object last.
@@ -42,26 +51,44 @@ sys.path.insert(0, str(ROOT))
 SRC = ROOT / "aid_tpu_torch" / "csrc" / "flash_attention_dwide.cu"
 OUT = ROOT / "build" / "dwide_ablation"
 
-# variant -> [(text in the shipped source, its replacement)]
+# variant -> [(text in the shipped source, its replacement)]; the products'
+# edits differ by element type (bf16 and f16: both operands in shared memory;
+# f32: 3xTF32 with A from registers)
 EDITS = {
-    "no_qk": [("        for (int d = 0; d < Dw; d += 16) {\n", "        for (int d = 0; d < 0; d += 16) {\n"),
-              ("        for (int d = 0; d < Dw; d += 8) {\n", "        for (int d = 0; d < 0; d += 8) {\n")],
-    "no_pv": [("              mma16<T>(p0, pa[mi][ks], b[0], b[1]);\n"
-               "              mma16<T>(p1, pa[mi][ks], b[2], b[3]);\n", ""),
-              ("              mma_tf32(part, plo[mi][ks], bhi[0], bhi[1]);\n"
-               "              mma_tf32(part, phi[mi][ks], blo[0], blo[1]);\n"
-               "              mma_tf32(part, phi[mi][ks], bhi[0], bhi[1]);\n", "")],
-    "no_softmax": [("      if (tid < BQ * tpr) {\n", "      if (tid < 0) {\n")],
-    "no_loads": [("    if (it >= ntiles) return;\n", "    if (it >= 1) return;\n")],
+    "no_loads": [("            mbar_expect_tx(full + 8 * slot, W::kSlotBytes);\n",
+                  "            if (round > 0) mbar_arrive(full + 8 * slot);\n"
+                  "            else mbar_expect_tx(full + 8 * slot, W::kSlotBytes);\n"),
+                 ("            for (int x = 0; x < kWG * CB; ++x) {  // warpgroup",
+                  "            for (int x = 0; x < (round > 0 ? 0 : kWG * CB); ++x) {  // warpgroup")],
+    "no_qk": {"16": [("              wgmma_ss<T, 0>(s[mb], ", "              if (0) wgmma_ss<T, 0>(s[mb], ")],
+              "f32": [("            wgmma_tf32(s[0], fhi[x & 1][kk], qd, x + kk > 0);\n"
+                       "            wgmma_tf32(sm, flo[x & 1][kk], qd, x + kk > 0);\n"
+                       "            wgmma_tf32(sm, fhi[x & 1][kk], qld, 1);\n", "")]},
+    "no_exchange": [("        named_barrier(1, 128 * kWG);\n#pragma unroll\n        for (int i = 0; i < NA; ++i) sc[i] += "
+                     "theirs[i * 128];\n",
+                     "#pragma unroll\n        for (int i = 0; i < NA; ++i) sc[i] += theirs[i * 128];\n")],
+    "no_softmax": [("      named_barrier(1, 128 * kWG);\n      float alpha[NK], ms[NK];\n", "      float alpha[NK], ms[NK];\n"),
+                   ("pv[i] = exp2_of<T>(fmaf(sc[i], sl2, -ms[2 * (i >> 2) + (i & 1)]));", "pv[i] = sc[i];")],
+    "no_pv": {"16": [("            wgmma_ss<T, 1>(acc[c2 & 1], ", "            if (0) wgmma_ss<T, 1>(acc[c2 & 1], ")],
+              "f32": [("            wgmma_tf32(acc[c2 & 1], flo[x & 1][kk], desc_sw128(pd), kh + kk > 0);\n"
+                       "            wgmma_tf32(acc[c2 & 1], fhi[x & 1][kk], desc_sw128(pd + W::kPBoxes * W::kQBoxBytes), 1);\n"
+                       "            wgmma_tf32(acc[c2 & 1], fhi[x & 1][kk], desc_sw128(pd), 1);\n", "")]},
+    "no_combine": [("  if (err != cudaSuccess || p.splits == 1) return (int)err;\n", "  return (int)err;\n")],
+    "no_split": [("constexpr int kSplitBlocks = 132;", "constexpr int kSplitBlocks = 1;")],
 }
-SHAPES = [("self", 1024, 640), ("fused_outer", 1024, 640), ("self", 256, 1280), ("fused_outer", 256, 1280)]
+# (mode, frames, tokens, head dim)
+SHAPES = [("self", 7, 1024, 640), ("fused_outer", 7, 1024, 640), ("self", 7, 256, 1280), ("fused_outer", 7, 256, 1280),
+          ("fused_outer", 7, 64, 1280), ("self", 2, 512, 2048)]
 
 
-def variants() -> dict:
-    """{name: source text}: the shipped source and each ablation of it."""
+def variants(dtype: str) -> dict:
+    """{name: source text}: the shipped source and each ablation of it for
+    the design of ``dtype``."""
     src = SRC.read_text()
     out = {"shipped": src}
     for name, edits in EDITS.items():
+        if isinstance(edits, dict):
+            edits = edits["f32" if dtype == "f32" else "16"]
         text = src
         for old, new in edits:
             if text.count(old) != 1:
@@ -113,16 +140,15 @@ def main(argv=None) -> int:
     from chip_smoke import attention_bound, cuda_ms, phase_device
 
     card = phase_device()  # also sets full f32 matmuls (TF32 off) for the plain version
-    entries = build(variants(), args.dtype)
+    entries = build(variants(args.dtype), args.dtype)
     dtype = {"bf16": torch.bfloat16, "f16": torch.float16, "f32": torch.float32}[args.dtype]
     tol = {"bf16": chip_smoke.ATTN_TOL, "f32": chip_smoke.F32_ATTN_TOL}.get(args.dtype) or chip_smoke.F16_ATTN_TOL
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(14)
     stream = torch.cuda.current_stream().cuda_stream
-    B = 7
-    coef = torch.linspace(0.0, 1.0, B, device=dev)
     result = {}
-    for mode, S, D in SHAPES:
+    for mode, B, S, D in SHAPES:
+        coef = torch.linspace(0.0, 1.0, B, device=dev) if B == 7 else torch.tensor([0.3, 0.6], device=dev)
         q, k, v = (torch.randn((B, 1, S, D), generator=gen, device=dev).to(dtype) for _ in range(3))
         kw = {} if mode == "self" else {"skip_endpoints": skip_mask(coef, B)}
         ops = kernel_operands(q, k, v, coef, mode, **kw)
@@ -148,7 +174,8 @@ def main(argv=None) -> int:
         times = {name: [] for name in entries}
         for name in list(entries) + list(entries)[::-1]:
             times[name].append(cuda_ms(lambda: launch(entries[name]), args.reps))
-        bound_ms, _ = attention_bound(mode, B, 1, S, S, D, skip_rows=2 if kw else 0, elem=4 if dtype == torch.float32
+        skip_rows = int(kw["skip_endpoints"].sum()) if kw else 0
+        bound_ms, _ = attention_bound(mode, B, 1, S, S, D, skip_rows=skip_rows, elem=4 if dtype == torch.float32
                                       else 2, tf32_passes=3 if dtype == torch.float32 else None)
         base = min(times["shipped"])
         for name, ts in times.items():

@@ -40,13 +40,23 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-# (class, pattern on the kernel name); the first match wins
+# (class, pattern on the kernel name); the first match wins. The port's
+# kernels by source (demangled names, template arguments in order): the
+# attention's mode is its HAS_OWN, NSETS arguments after the element type and
+# head dim (flash_kernel<T, D, HAS_OWN, NSETS>, flash_f32_kernel<D, HAS_OWN,
+# NSETS>, the D=512 endpoint kernels' <T, HAS_OWN, NSETS> and <HAS_OWN,
+# NSETS>): fused_outer is true, 2, self and cross true, 0. The D=512 self
+# kernels and the wide kernel (its mode a runtime argument) and its combine
+# step have classes of their own.
+_MODED = r"(?:flash_kernel<\w+, \d+, |flash_f32_kernel<\d+, |flash16_d512_interp_kernel<\w+, |flash_f32_d512_interp_kernel<)"
 CLASSES = [
-    ("attention kernel, fused_outer", re.compile(r"flash_kernel<\d+, true, 2>")),
-    ("attention kernel, self and cross", re.compile(r"flash_kernel<\d+, true, 0>")),
-    ("attention kernel, other modes", re.compile(r"flash_kernel<")),
-    ("conv kernel", re.compile(r"conv3x3_kernel")),
-    ("conv layout pass", re.compile(r"blocked_kernel")),
+    ("attention kernel, fused_outer", re.compile(_MODED + r"true, 2>")),
+    ("attention kernel, self and cross", re.compile(_MODED + r"true, 0>")),
+    ("attention kernel, other modes", re.compile(_MODED)),
+    ("attention kernel, D=512 self (VAE)", re.compile(r"flash16_d512_kernel<|flash_f32_d512_kernel\b")),
+    ("attention kernel, head dims past 512", re.compile(r"flash_dwide_kernel<|flash_dwide_combine_kernel<")),
+    ("conv kernel", re.compile(r"conv3x3_kernel<|conv3x3_f32_kernel\b")),
+    ("conv layout pass", re.compile(r"blocked_kernel<|blocked_f32_kernel<")),
     ("cuDNN convs", re.compile(r"fprop|implicit_convolve|conv2d|cudnn", re.I)),
     ("cuBLAS GEMMs", re.compile(r"nvjet|gemm|cutlass", re.I)),
     ("GroupNorm / LayerNorm", re.compile(r"norm|Moments|ComputeFusedParams", re.I)),
