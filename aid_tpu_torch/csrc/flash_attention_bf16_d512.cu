@@ -473,333 +473,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// ---------------------------------------------------------------------------
-// The endpoint modes at D = 512 (aid_flash_attn_bf16_d512_interp and
-// aid_flash_attn_f16_d512_interp): _kernel's contract over own / begin / end
-// segments (flash_interpolated_attention.cu's header lists the modes), at
-// head dims 161..512 padded to 512 by the wrapper. The tiles, rings,
-// exchange and software pipeline are the self kernel's above; what differs:
-//   * the key stream is a list of segments: the own K/V (the pure modes have
-//     none), then K_begin/V_begin and, in the outer modes, K_end/V_end, each
-//     of its own length (Lk or Le) and tensor map; a shared (H, Le, D)
-//     endpoint has a map of batch extent 1, read at batch 0. The producer
-//     walks the segments' 32-key tiles in order through the same two rings;
-//     a segment's last tile masks its keys past the length. A skip row
-//     (fused modes) streams its own segment alone: vanilla attention;
-//   * the inner modes run one softmax set over [own; K_cross], K_cross and
-//     V_cross lerped in f32 by the wrapper and passed in the begin slot;
-//   * the outer modes need two sets, (1 - c) Attn(q, [own; begin]) +
-//     c Attn(q, [own; end]), combined in f32 and rounded once. The D <= 160
-//     kernel keeps one set in registers and parks the other in shared
-//     memory; here a set is 64 x 512 f32 = 128 KB a block, and the self
-//     design already takes 230,472 of the 232,448 bytes a block may use. So
-//     the parked set lives in a global f32 workspace that the wrapper
-//     allocates per call (kParkWords words for each of a block's 256
-//     consumer threads, word i of every thread side by side, so a warp
-//     parks one coalesced 128-byte line a word): the own segment's state
-//     (O, max, sum) is parked after its last tile, the begin segment
-//     continues it to (1 - c) O / l, which is swapped word for word with the
-//     parked state, and the end segment continues that. A block writes and
-//     reads back only its own 132 KB, which stays in L2 (132 blocks in
-//     flight: 17 MB of its 50 MB). The pure outer mode parks (1 - c) O_begin
-//     / l alone and starts the end set afresh. The pipeline drains at each
-//     set boundary: nothing is in flight while the state is parked or
-//     swapped.
-// The self kernel above is left as it was (a kernel of its own), so the
-// VAE's decode keeps its registers and times. ptxas (sm_90a): 168 registers
-// at the launch bound in all eight instances; the fused_outer ones spill 4
-// bytes (12 loaded), the rest none. Measured on an NVIDIA H100 80GB HBM3 at
-// 700.00 W (chip_smoke.py phase 3), launched alone at (7,1,4096,320), D
-// padded to 512, the two endpoint rows skip rows: fused_outer 2.03 ms,
-// pure_outer 1.76, fused_inner 1.07, pure_inner 0.73, the self kernel's
-// per-key rate within 20% (it runs (7,1,4096,512) in 0.70-0.73).
-
-constexpr int kConsumers = 128 * kWG;       // consumer threads of a block
-constexpr int kParkWords = kCols / 2 + 4;   // a consumer thread's parked state: O, m[2], l[2]
-
-struct InterpParams {
-  const float* coef;    // (B,) f32, read by the outer modes
-  const uint8_t* skip;  // (B,) bool or null, read by the fused modes
-  float* work;          // the outer modes' parked states: (blocks, kParkWords, kConsumers) f32
-  int Sq, Lk, Le;
-  int shared_eps;       // bit i: endpoint map i (k_begin, v_begin, k_end, v_end) is one (H, Le, D) tensor
-  float scale_log2;     // softmax scale * log2(e)
-};
-
-// HAS_OWN: the row's own K/V segment leads the stream (fused modes).
-// NSETS: 1 = one cross segment (inner), 2 = begin and end blended by coef (outer).
-// Maps: q, k, v, k_begin, v_begin, k_end, v_end, out; boxes of 64 columns
-// by kBQ (q, out) or kBK rows.
-template <class T, bool HAS_OWN, int NSETS>
-__global__ void __launch_bounds__(kThreads, 1)
-    flash16_d512_interp_kernel(const __grid_constant__ CUtensorMap qm, const __grid_constant__ CUtensorMap km,
-                               const __grid_constant__ CUtensorMap vm, const __grid_constant__ CUtensorMap kbm,
-                               const __grid_constant__ CUtensorMap vbm, const __grid_constant__ CUtensorMap kem,
-                               const __grid_constant__ CUtensorMap vem, const __grid_constant__ CUtensorMap om,
-                               const InterpParams p) {
-  extern __shared__ unsigned char smem_raw[];
-  const uint32_t raw = smem_addr(smem_raw);
-  const uint32_t base = (raw + 1023u) & ~1023u;  // 128-byte-swizzled tiles are 1024-byte aligned
-  const uint32_t qs = base, kvs = qs + kQBytes, xs_at = kvs + kStages * kStageBytes;
-  float* xs = reinterpret_cast<float*>(smem_raw + (xs_at - raw));  // [tile parity][warpgroup][16][128]
-  const uint32_t kfull = xs_at + kXBytes, kempty = kfull + 8 * kStages, vfull = kempty + 8 * kStages;
-  const uint32_t vempty = vfull + 8 * kStages, qbar = vempty + 8 * kStages;
-
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kBQ;
-  const int tid = threadIdx.x, wg = tid >> 7;
-  // a skip row drops its endpoint segments; the pure modes never skip
-  const bool skip = HAS_OWN && p.skip != nullptr && p.skip[b] != 0;
-  const int n_own = HAS_OWN ? (p.Lk + kBK - 1) / kBK : 0, n_ep = (p.Le + kBK - 1) / kBK;
-  const int ntiles = n_own + (skip ? 0 : NSETS * n_ep);
-  // tile `it` of the stream: its segment (0 own, 1 begin or cross, 2 end) and its first key
-  auto seg_of = [&](int it) { return it < n_own ? 0 : 1 + (it - n_own) / n_ep; };
-  auto row_of = [&](int it) { return it < n_own ? it * kBK : ((it - n_own) % n_ep) * kBK; };
-
-  if (tid == 0) {
-    for (int i = 0; i < kStages; ++i) {
-      mbar_init(kfull + 8 * i, 1);
-      mbar_init(vfull + 8 * i, 1);
-      mbar_init(kempty + 8 * i, 4 * kWG);  // one arrival per consumer warp
-      mbar_init(vempty + 8 * i, 4 * kWG);
-    }
-    mbar_init(qbar, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-
-  if (wg == kWG) {
-    // producer warpgroup: one thread issues every copy
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
-    if (tid == kWG * 128) {
-      mbar_expect_tx(qbar, kQBytes);
-      for (int c = 0; c < kBoxes; ++c) tma_load(qs + c * (kBQ * 128), &qm, qbar, 64 * c, h, q0, b);
-      for (int it = 0; it < ntiles; ++it) {
-        const int st = it % kStages, seg = seg_of(it), r0 = row_of(it);
-        for (int kv = 0; kv < 2; ++kv) {
-          const uint32_t bar = (kv ? vfull : kfull) + 8 * st;
-          const uint32_t dst = kvs + st * kStageBytes + kv * kKVBytes;
-          const CUtensorMap* map = seg == 0 ? (kv ? &vm : &km) : seg == 1 ? (kv ? &vbm : &kbm) : (kv ? &vem : &kem);
-          const int bi = seg > 0 && ((p.shared_eps >> (2 * (seg - 1) + kv)) & 1) ? 0 : b;
-          if (it >= kStages) mbar_wait((kv ? vempty : kempty) + 8 * st, (it / kStages - 1) & 1);
-          mbar_expect_tx(bar, kKVBytes);
-          for (int c = 0; c < kBoxes; ++c) tma_load(dst + c * (kBK * 128), map, bar, 64 * c, h, r0, bi);
-        }
-      }
-    }
-  } else {
-    // consumer warpgroup wg: output columns kCols * wg ..
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
-    const int ct = tid & 127, warp = ct >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
-    const uint32_t q = qs + wg * (kBoxes / kWG) * (kBQ * 128);  // this warpgroup's boxes of Q
-    mbar_wait(qbar, 0);
-
-    float o[kCols / 2];
-#pragma unroll
-    for (int i = 0; i < kCols / 2; ++i) o[i] = 0.f;
-    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
-    float s[16];               // a tile's (partial, then whole) scores
-    uint32_t pa[kBK / 16][4];  // P in T: the A fragments of the P V in flight
-
-    // partial scores of tile `it` over this warpgroup's 256 columns, issued (not waited for)
-    auto issue_qk = [&](float (&acc)[16], int it) {
-      const uint32_t kt = kvs + (it % kStages) * kStageBytes + wg * (kBoxes / kWG) * (kBK * 128);
-      mbar_wait(kfull + 8 * (it % kStages), (it / kStages) & 1);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < kCols / 16; ++kk) {
-        const uint32_t off = (kk % 4) * 32;
-        wgmma_ss<T>(acc, desc_sw128(q + (kk / 4) * (kBQ * 128) + off, 16),
-                    desc_sw128(kt + (kk / 4) * (kBK * 128) + off, 16), kk > 0);
-      }
-      wgmma_commit();
-    };
-    auto release = [&](uint32_t empty, int it) {
-      __syncwarp();
-      if (lane == 0) mbar_arrive(empty + 8 * (it % kStages));
-    };
-    auto exchange = [&](int it) {
-      float* mine = xs + (((it & 1) * kWG + wg) * 16) * 128 + ct;
-      float* theirs = xs + (((it & 1) * kWG + (1 - wg)) * 16) * 128 + ct;
-#pragma unroll
-      for (int i = 0; i < 16; ++i) mine[i * 128] = s[i];
-      asm volatile("bar.sync 1, %0;\n" ::"n"(128 * kWG) : "memory");
-#pragma unroll
-      for (int i = 0; i < 16; ++i) s[i] += theirs[i * 128];
-    };
-    float al0 = 0.f, al1 = 0.f;
-    uint32_t pn[kBK / 16][4];
-    auto softmax = [&](int it) {
-      const int valid = min(kBK, (seg_of(it) == 0 ? p.Lk : p.Le) - row_of(it));
-      if (valid < kBK) {  // the segment's last tile: keys past its length do not exist
-#pragma unroll
-        for (int i = 0; i < 16; ++i) {
-          if ((i / 4) * 8 + 2 * t + (i & 1) >= valid) s[i] = -INFINITY;
-        }
-      }
-      float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
-        mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
-      }
-      // every tile holds at least one real key, so the new max is finite
-      const float mn0 = fmaxf(m0, quad_max(mx0)), mn1 = fmaxf(m1, quad_max(mx1));
-      al0 = ex2((m0 - mn0) * p.scale_log2);
-      al1 = ex2((m1 - mn1) * p.scale_log2);
-      m0 = mn0;
-      m1 = mn1;
-      const float ms0 = mn0 * p.scale_log2, ms1 = mn1 * p.scale_log2;
-      float ls0 = 0.f, ls1 = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p0 = ex2(fmaf(s[4 * j], p.scale_log2, -ms0)), p1 = ex2(fmaf(s[4 * j + 1], p.scale_log2, -ms0));
-        const float p2 = ex2(fmaf(s[4 * j + 2], p.scale_log2, -ms1)), p3 = ex2(fmaf(s[4 * j + 3], p.scale_log2, -ms1));
-        ls0 += p0 + p1;
-        ls1 += p2 + p3;
-        pn[j / 2][2 * (j & 1)] = Elem<T>::pack(p0, p1);
-        pn[j / 2][2 * (j & 1) + 1] = Elem<T>::pack(p2, p3);
-      }
-      l0 = l0 * al0 + ls0;
-      l1 = l1 * al1 + ls1;
-    };
-    auto pv = [&](int it) {
-#pragma unroll
-      for (int kk = 0; kk < kBK / 16; ++kk) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) pa[kk][e] = pn[kk][e];
-      }
-#pragma unroll
-      for (int j = 0; j < kCols / 8; ++j) {
-        o[4 * j] *= al0;
-        o[4 * j + 1] *= al0;
-        o[4 * j + 2] *= al1;
-        o[4 * j + 3] *= al1;
-      }
-      const uint32_t vt = kvs + (it % kStages) * kStageBytes + kKVBytes + wg * (kBoxes / kWG) * (kBK * 128);
-      mbar_wait(vfull + 8 * (it % kStages), (it / kStages) & 1);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < kBK / 16; ++kk) wgmma_rs<T>(o, pa[kk], desc_sw128(vt + kk * 2048, kBK * 128));
-      wgmma_commit();
-    };
-    // tiles t0 .. t1 - 1 into the running state, software-pipelined as the
-    // self kernel's loop; nothing is in flight when it returns
-    auto run = [&](int t0, int t1) {
-      issue_qk(s, t0);
-      wgmma_wait0();
-      reg_fence(s);
-      release(kempty, t0);
-      exchange(t0);
-      softmax(t0);
-      int it = t0;
-      for (; it + 1 < t1; ++it) {
-        issue_qk(s, it + 1);
-        pv(it);
-        wgmma_wait<1>();
-        reg_fence(s);
-        release(kempty, it + 1);
-        exchange(it + 1);
-        softmax(it + 1);
-        wgmma_wait0();
-        reg_fence(o);
-        reg_fence(pa);
-        release(vempty, it);
-      }
-      pv(it);
-      wgmma_wait0();
-      reg_fence(o);
-      reg_fence(pa);
-      release(vempty, it);
-    };
-    // O = w O / l, the row sums reduced over the quad
-    auto normalise = [&](float w) {
-      const float i0 = w / quad_sum(l0), i1 = w / quad_sum(l1);
-#pragma unroll
-      for (int j = 0; j < kCols / 8; ++j) {
-        o[4 * j] *= i0;
-        o[4 * j + 1] *= i0;
-        o[4 * j + 2] *= i1;
-        o[4 * j + 3] *= i1;
-      }
-    };
-
-    if (NSETS == 2 && !skip) {
-      // this thread's parked words in the block's workspace, kConsumers apart,
-      // and the row's coefficient: made again where they are used, so that
-      // neither holds a register through the runs
-      auto parked = [&]() {
-        return p.work + (size_t)((b * gridDim.y + h) * gridDim.x + blockIdx.x) * (kParkWords * kConsumers) + tid;
-      };
-      // run 0 the own segment (fused), 1 begin, 2 end; one call site, so the
-      // pipelined loop is compiled once
-#pragma unroll 1
-      for (int r = HAS_OWN ? 0 : 1; r < 3; ++r) {
-        run(r == 0 ? 0 : n_own + (r - 1) * n_ep, r == 0 ? n_own : n_own + r * n_ep);
-        float* park = parked();
-        if (r == 0) {  // park the own segment's state: the end segment continues it too
-#pragma unroll
-          for (int i = 0; i < kCols / 2; ++i) park[i * kConsumers] = o[i];
-          park[(kCols / 2) * kConsumers] = m0;
-          park[(kCols / 2 + 1) * kConsumers] = m1;
-          park[(kCols / 2 + 2) * kConsumers] = l0;
-          park[(kCols / 2 + 3) * kConsumers] = l1;
-        } else if (r == 1) {
-          normalise(1.f - p.coef[b]);
-          if (HAS_OWN) {  // swap (1 - c) O_begin / l with the parked own state
-#pragma unroll
-            for (int i = 0; i < kCols / 2; ++i) {
-              const float own = park[i * kConsumers];
-              park[i * kConsumers] = o[i];
-              o[i] = own;
-            }
-            m0 = park[(kCols / 2) * kConsumers];
-            m1 = park[(kCols / 2 + 1) * kConsumers];
-            l0 = park[(kCols / 2 + 2) * kConsumers];
-            l1 = park[(kCols / 2 + 3) * kConsumers];
-          } else {  // park it, and start the end set afresh
-#pragma unroll
-            for (int i = 0; i < kCols / 2; ++i) {
-              park[i * kConsumers] = o[i];
-              o[i] = 0.f;
-            }
-            m0 = m1 = -INFINITY;
-            l0 = l1 = 0.f;
-          }
-        }
-      }
-      normalise(p.coef[b]);
-      float* park = parked();
-#pragma unroll
-      for (int i = 0; i < kCols / 2; ++i) o[i] += park[i * kConsumers];
-    } else {
-      run(0, ntiles);
-      normalise(1.f);
-    }
-
-    // T output through this warpgroup's boxes of the Q tile (its products are done)
-    unsigned char* tile = smem_raw + (q - raw);
-#pragma unroll
-    for (int j = 0; j < kCols / 8; ++j) {
-      const int box = j / 8, chunk = j % 8;
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int r = warp * 16 + g + 8 * half;
-        *reinterpret_cast<uint32_t*>(tile + box * (kBQ * 128) + r * 128 + ((chunk ^ (r & 7)) * 16) + 4 * t) =
-            Elem<T>::pack(o[4 * j + 2 * half], o[4 * j + 2 * half + 1]);
-      }
-    }
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // generic stores -> the TMA store's proxy
-    asm volatile("bar.sync %0, 128;\n" ::"r"(2 + wg) : "memory");
-    if (ct == 0) {
-      for (int c = 0; c < kBoxes / kWG; ++c) {
-        tma_store(&om, q + c * (kBQ * 128), kCols * wg + 64 * c, h, q0, b);
-      }
-      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-      asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");  // smem stays until read
-    }
-  }
-}
-
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
@@ -861,60 +534,6 @@ int entry(const void* const (&ptrs)[4], const long long* dims, float scale, void
   return (int)cudaGetLastError();
 }
 
-template <class T, bool HAS_OWN, int NSETS>
-int launch_interp(const CUtensorMap (&m)[8], const InterpParams& p, int B, int H, cudaStream_t s) {
-  static bool attribute_set = false;  // once per instance and process
-  if (!attribute_set) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(reinterpret_cast<const void*>(&flash16_d512_interp_kernel<T, HAS_OWN, NSETS>),
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
-    if (err != cudaSuccess) return (int)err;
-    attribute_set = true;
-  }
-  const dim3 grid((unsigned)((p.Sq + kBQ - 1) / kBQ), (unsigned)H, (unsigned)B);
-  flash16_d512_interp_kernel<T, HAS_OWN, NSETS><<<grid, kThreads, kSmemBytes, s>>>(m[0], m[1], m[2], m[3], m[4],
-                                                                                  m[5], m[6], m[7], p);
-  return (int)cudaGetLastError();
-}
-
-template <class T>
-int entry_interp(const void* const (&ptrs)[8], const void* coef, const void* skip, void* work,
-                 const long long* dims, float scale, int has_own, int n_sets, void* stream) {
-  if (dims[2] <= 0 || dims[3] <= 0 || dims[4] <= 0 || dims[5] != kD) return (int)cudaErrorInvalidValue;
-  if (n_sets == 2 && (coef == nullptr || work == nullptr)) return (int)cudaErrorInvalidValue;
-  if (encode_tiled() == nullptr) return (int)cudaErrorNotSupported;
-  const int B = (int)dims[0], H = (int)dims[1];
-  InterpParams p;
-  p.coef = static_cast<const float*>(coef);
-  p.skip = static_cast<const uint8_t*>(skip);
-  p.work = static_cast<float*>(work);
-  p.Sq = (int)dims[2];
-  p.Lk = (int)dims[3];
-  p.Le = (int)dims[4];
-  p.shared_eps = 0;
-  p.scale_log2 = scale * 1.4426950408889634f;
-  // rows of each map: queries, own keys, endpoint keys x4, queries out
-  const int rows[8] = {p.Sq, p.Lk, p.Lk, p.Le, p.Le, p.Le, p.Le, p.Sq};
-  CUtensorMap m[8];
-  for (int i = 0; i < 8; ++i) {
-    const long long* st = dims + 6 + 3 * i;
-    if (!has_own && (i == 1 || i == 2)) {  // a map the instance never reads: any valid one
-      m[i] = m[0];
-      continue;
-    }
-    if (!encode_map<T>(&m[i], ptrs[i], H, rows[i], B, st, i == 0 || i == 7 ? kBQ : kBK)) {
-      return (int)cudaErrorInvalidValue;
-    }
-    if (i >= 3 && i < 7 && st[0] == 0) p.shared_eps |= 1 << (i - 3);
-  }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (has_own && n_sets == 1) return launch_interp<T, true, 1>(m, p, B, H, s);
-  if (has_own && n_sets == 2) return launch_interp<T, true, 2>(m, p, B, H, s);
-  if (!has_own && n_sets == 1) return launch_interp<T, false, 1>(m, p, B, H, s);
-  if (!has_own && n_sets == 2) return launch_interp<T, false, 2>(m, p, B, H, s);
-  return (int)cudaErrorInvalidValue;
-}
-
 }  // namespace
 
 // dims: [B, H, Sq, Lk, then (b, h, s) element strides of q, k, v, out]
@@ -932,32 +551,4 @@ extern "C" int aid_flash_attn_f16_d512(const void* q, const void* k, const void*
                                        const long long* dims, float scale, void* stream) {
   const void* const ptrs[4] = {q, k, v, out};
   return entry<__half>(ptrs, dims, scale, stream);
-}
-
-// The endpoint modes at D = 512: the C signature of aid_flash_attn_bf16
-// (flash_interpolated_attention.cu) and one pointer more, `work`. dims are
-// [B, H, Sq, Lk, Le, 512, then (b, h, s) element strides of q, k, v,
-// k_begin, v_begin, k_end, v_end, out] (30 values; a b stride of 0 marks an
-// endpoint shared by every row); coef (B,) f32; skip (B,) bool or null;
-// has_own 1 in the fused modes, 0 in the pure ones; n_sets 2 in the outer
-// modes, 1 in the inner ones (their lerped K/V in the begin slot); work the
-// outer modes' f32 workspace, B * H * ceil(Sq / 64) * 132 * 256 floats (null
-// in the inner modes). Every operand is bf16 with its head dim contiguous,
-// 16-byte aligned, its other strides multiples of 8 elements. Returns the
-// launch's cudaError_t (0 on success).
-extern "C" int aid_flash_attn_bf16_d512_interp(const void* q, const void* k, const void* v, const void* kb,
-                                               const void* vb, const void* ke, const void* ve, void* out,
-                                               const void* coef, const void* skip, void* work, const long long* dims,
-                                               float scale, int has_own, int n_sets, void* stream) {
-  const void* const ptrs[8] = {q, k, v, kb, vb, ke, ve, out};
-  return entry_interp<__nv_bfloat16>(ptrs, coef, skip, work, dims, scale, has_own, n_sets, stream);
-}
-
-// The same over f16 operands.
-extern "C" int aid_flash_attn_f16_d512_interp(const void* q, const void* k, const void* v, const void* kb,
-                                              const void* vb, const void* ke, const void* ve, void* out,
-                                              const void* coef, const void* skip, void* work, const long long* dims,
-                                              float scale, int has_own, int n_sets, void* stream) {
-  const void* const ptrs[8] = {q, k, v, kb, vb, ke, ve, out};
-  return entry_interp<__half>(ptrs, coef, skip, work, dims, scale, has_own, n_sets, stream);
 }

@@ -962,7 +962,7 @@ int entry(const void* const (&ptrs)[8], const void* coef, const void* skip, void
 
 }  // namespace
 
-// The C signature of aid_flash_attn_bf16_d512_interp: dims are [B, H, Sq,
+// The C signature of aid_flash_attn_bf16_dmid: dims are [B, H, Sq,
 // Lk, Le, D, then (b, h, s) element strides of q, k, v, k_begin, v_begin,
 // k_end, v_end, out] (30 values; a b stride of 0 marks an endpoint shared by
 // every row), D the operands' head dim, 513..2048 on the model's path (any

@@ -473,406 +473,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// ---------------------------------------------------------------------------
-// The endpoint modes at D = 512 (aid_flash_attn_f32_d512_interp): _kernel's
-// contract over own / begin / end segments (flash_interpolated_attention.cu's
-// header lists the modes) in f32, at head dims 161..512 padded to 512 by the
-// wrapper. A tile is the self kernel's above, step for step (the three-pass
-// products, K's lo, the exchange, P^T, the fold); what differs, as in
-// flash_attention_bf16_d512.cu's endpoint kernel:
-//   * the key stream is a list of segments, the own K/V (fused modes), then
-//     K_begin/V_begin and, in the outer modes, K_end/V_end, each of its own
-//     length and tensor map (a shared (H, Le, D) endpoint: batch extent 1);
-//     a segment's last tile masks its keys past the length; a skip row
-//     (fused modes) streams its own segment alone;
-//   * the inner modes run one softmax set over [own; K_cross] (K_cross and
-//     V_cross lerped in f32 by the wrapper, in the begin slot);
-//   * the outer modes' first set, 64 x 512 f32 = 128 KB a block, has no room
-//     beside the resident Q tile (224.5 KB of the 227 KB): it is parked in a
-//     global f32 workspace the wrapper allocates per call, each consumer
-//     thread's 132 words (O^T's 128 accumulators, m[2], l[2]) side by side
-//     with the other threads'. The own segment's state is parked after its
-//     last tile, the begin segment continues it to (1 - c) O / l, swapped
-//     with the parked state; the end segment continues that to c O / l, and
-//     the parked words are added. O^T's columns are the queries, so a
-//     normalisation goes through the rows' 1 / l in shared memory.
-// The output leaves from the O^T registers, normalised, at the output's
-// strides. The self kernel above is left as it was (a kernel of its own).
-// ptxas (sm_90a): 168 registers at the launch bound; spills of 744 bytes
-// (752 loaded) in the fused_outer instance, 52 in pure_outer, 4-20 in the
-// inner ones. They cost little: launched alone at (7,1,4096,320)
-// fused_outer takes 10.0 ms on an NVIDIA H100 80GB HBM3 at 700.00 W
-// (chip_smoke.py phase 3), within 3% of the self kernel's per-key rate (it
-// runs (7,1,4096,512) in 4.0-4.2 ms).
-
-constexpr int kConsumers = 128 * kWG;   // consumer threads of a block
-constexpr int kParkWords = 4 * 32 + 4;  // a consumer thread's parked state: O^T, m[2], l[2]
-
-struct InterpParams {
-  float* out;
-  long long sob, soh, sos;  // the output's (b, h, s) element strides
-  const float* coef;        // (B,) f32, read by the outer modes
-  const uint8_t* skip;      // (B,) bool or null, read by the fused modes
-  float* work;              // the outer modes' parked states: (blocks, kParkWords, kConsumers) f32
-  int Sq, Lk, Le;
-  int shared_eps;           // bit i: endpoint map i (k_begin, v_begin, k_end, v_end) is one (H, Le, D) tensor
-  float scale_log2;         // softmax scale * log2(e)
-};
-
-// HAS_OWN: the row's own K/V segment leads the stream (fused modes).
-// NSETS: 1 = one cross segment (inner), 2 = begin and end blended by coef (outer).
-// Maps: q, k, v, k_begin, v_begin, k_end, v_end, each (D, H, S, B) with
-// boxes of 32 columns by kBQ (q) or kBK rows.
-template <bool HAS_OWN, int NSETS>
-__global__ void __launch_bounds__(kThreads, 1)
-    flash_f32_d512_interp_kernel(const __grid_constant__ CUtensorMap qm, const __grid_constant__ CUtensorMap km,
-                                 const __grid_constant__ CUtensorMap vm, const __grid_constant__ CUtensorMap kbm,
-                                 const __grid_constant__ CUtensorMap vbm, const __grid_constant__ CUtensorMap kem,
-                                 const __grid_constant__ CUtensorMap vem, const InterpParams p) {
-  extern __shared__ unsigned char smem_raw[];
-  const uint32_t raw = smem_addr(smem_raw);
-  const uint32_t base = (raw + 1023u) & ~1023u;  // 128-byte-swizzled tiles are 1024-byte aligned
-  unsigned char* gbase = smem_raw + (base - raw);
-  const uint32_t qs = base + kQOff, ks = base + kKOff, kls = base + kKLoOff, vs = base + kVOff;
-  const uint32_t phs = base + kPHiOff, pbs = base + kPBfOff;
-  const uint32_t qbar = base + kBarOff, kfull = qbar + 8, kempty = qbar + 16, vfull = qbar + 24, vempty = qbar + 32;
-
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kBQ;
-  const int tid = threadIdx.x, wg = tid >> 7;
-  // a skip row drops its endpoint segments; the pure modes never skip
-  const bool skip = HAS_OWN && p.skip != nullptr && p.skip[b] != 0;
-  const int n_own = HAS_OWN ? (p.Lk + kBK - 1) / kBK : 0, n_ep = (p.Le + kBK - 1) / kBK;
-  const int ntiles = n_own + (skip ? 0 : NSETS * n_ep);
-  // tile `j` of the stream: its segment (0 own, 1 begin or cross, 2 end) and its first key
-  auto seg_of = [&](int j) { return j < n_own ? 0 : 1 + (j - n_own) / n_ep; };
-  auto row_of = [&](int j) { return j < n_own ? j * kBK : ((j - n_own) % n_ep) * kBK; };
-
-  if (tid == 0) {
-    mbar_init(qbar, 1);
-    mbar_init(kfull, 1);
-    mbar_init(vfull, 1);
-    mbar_init(kempty, 4 * kWG);  // one arrival per consumer warp
-    mbar_init(vempty, 4 * kWG);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-
-  if (wg == kWG) {
-    // producer warpgroup: one thread issues every copy
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
-    if (tid == 128 * kWG) {
-      mbar_expect_tx(qbar, kQBytes);
-      for (int c = 0; c < kBoxes; ++c) tma_load(qs + c * (kBQ * 128), &qm, qbar, 32 * c, h, q0, b);
-      // K(j) once tile j - 1's Q K^T is done, V(j) once its P V is
-      for (int j = 0; j < ntiles; ++j) {
-        const int seg = seg_of(j), r0 = row_of(j);
-        const CUtensorMap* kmap = seg == 0 ? &km : seg == 1 ? &kbm : &kem;
-        const CUtensorMap* vmap = seg == 0 ? &vm : seg == 1 ? &vbm : &vem;
-        const int kb = seg > 0 && ((p.shared_eps >> (2 * (seg - 1))) & 1) ? 0 : b;
-        const int vb = seg > 0 && ((p.shared_eps >> (2 * (seg - 1) + 1)) & 1) ? 0 : b;
-        if (j > 0) mbar_wait(kempty, (j - 1) & 1);
-        mbar_expect_tx(kfull, kKVBytes);
-        for (int c = 0; c < kBoxes; ++c) tma_load(ks + c * (kBK * 128), kmap, kfull, 32 * c, h, r0, kb);
-        if (j > 0) mbar_wait(vempty, (j - 1) & 1);
-        mbar_expect_tx(vfull, kKVBytes);
-        for (int c = 0; c < kBoxes; ++c) tma_load(vs + c * (kBK * 128), vmap, vfull, 32 * c, h, r0, vb);
-      }
-    }
-  } else {
-    // consumer warpgroup wg: columns kCols * wg .. of Q K^T's depth, rows kCols * wg .. of O^T
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
-    const int ct = tid & 127, warp = ct >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
-    const float* qf = reinterpret_cast<const float*>(gbase + kQOff);
-    const float* vf = reinterpret_cast<const float*>(gbase + kVOff);
-    float* xs = reinterpret_cast<float*>(gbase + kXOff);
-    float* alpha = reinterpret_cast<float*>(gbase + kStatOff);
-    float* linv = alpha + kBQ;
-    unsigned char* ph = gbase + kPHiOff;
-    unsigned char* pb = gbase + kPBfOff;
-    const float sl2 = p.scale_log2;
-    // this warpgroup writes P^T's and the factors' rows of its half (warps 2 wg, 2 wg + 1 hold them)
-    const bool writer = (warp >> 1) == wg;
-    mbar_wait(qbar, 0);
-
-    float o[4][32];  // O^T rows kCols * wg + 64 mi .., in the m64n64 accumulator layout
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi) {
-#pragma unroll
-      for (int i = 0; i < 32; ++i) o[mi][i] = 0.f;
-    }
-    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;  // rows 16 warp + g, + 8
-
-    // the self kernel's fragment loads (see there)
-    auto load_q = [&](int c, uint32_t (&hi)[4][4], uint32_t (&lo)[4][4], uint32_t (&bf)[2][4]) {
-      const float* box = qf + ((kBoxes / kWG) * wg + c) * (kBQ * 32) + (16 * warp + g) * 32 + t;
-      float x[4][4];
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) x[kk][e] = box[(e & 1) * 8 * 32 + (((2 * kk + (e >> 1)) ^ g) << 2)];
-      }
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          hi[kk][e] = __float_as_uint(x[kk][e]);
-          lo[kk][e] = __float_as_uint(tf32_rest(x[kk][e]));
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        bf[i][0] = pack_bf16(x[2 * i][0], x[2 * i][2]);
-        bf[i][1] = pack_bf16(x[2 * i][1], x[2 * i][3]);
-        bf[i][2] = pack_bf16(x[2 * i + 1][0], x[2 * i + 1][2]);
-        bf[i][3] = pack_bf16(x[2 * i + 1][1], x[2 * i + 1][3]);
-      }
-    };
-    auto load_v = [&](int mi, uint32_t (&hi)[2][4], uint32_t (&pk)[2][4]) {
-      const int box = (kBoxes / kWG) * wg + 2 * mi + (warp >> 1);
-      const float* vb = vf + box * (kBK * 32) + (g & 3);
-#pragma unroll
-      for (int kk = 0; kk < 2; ++kk) {
-        float x[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = 8 * kk + 2 * t + (e >> 1), chunk = 4 * (warp & 1) + (g >> 2) + 2 * (e & 1);
-          x[e] = vb[key * 32 + ((chunk ^ (key & 7)) << 2)];
-          hi[kk][e] = __float_as_uint(x[e]);
-        }
-        pk[kk][0] = pack_bf16(tf32_rest(x[0]), tf32_rest(x[2]));
-        pk[kk][1] = pack_bf16(tf32_rest(x[1]), tf32_rest(x[3]));
-        pk[kk][2] = pack_bf16(x[0], x[2]);
-        pk[kk][3] = pack_bf16(x[1], x[3]);
-      }
-    };
-
-    // tiles t0 .. t1 - 1 into the running state, each as the self kernel's loop body
-    auto run = [&](int t0, int t1) {
-      for (int j = t0; j < t1; ++j) {
-        float s[8], sm[8];
-        uint32_t qhi[4][4], qlo[4][4], qbf[2][4];
-        mbar_wait(kfull, j & 1);
-        load_q(0, qhi, qlo, qbf);
-#pragma unroll
-        for (int c = 0; c < kCols / 32; ++c) {
-          const int box = (kBoxes / kWG) * wg + c;
-          wgmma_fence();
-#pragma unroll
-          for (int kk = 0; kk < 4; ++kk) {
-            const uint64_t kd = desc_sw128(ks + box * (kBK * 128) + kk * 32);
-            wgmma_tf32(s, qhi[kk], kd, c + kk > 0);
-            wgmma_tf32(sm, qlo[kk], kd, c + kk > 0);
-          }
-          if (c == 0) {
-            wgmma_commit();
-            make_klo(gbase + kKOff, gbase + kKLoOff, wg, ct);
-            asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // generic stores -> wgmma's proxy
-            asm volatile("bar.sync %0, 128;\n" ::"r"(2 + wg) : "memory");
-            wgmma_fence();
-          }
-#pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            wgmma_bf16_rs(sm, qbf[i], desc_sw128(kls + (box / 2) * (kBK * 128) + (box % 2) * 64 + i * 32));
-          }
-          wgmma_commit();
-          if (c + 1 < kCols / 32) {
-            wgmma_wait0();
-            reg_fence(qhi);
-            reg_fence(qlo);
-            reg_fence(qbf);
-            load_q(c + 1, qhi, qlo, qbf);
-          }
-        }
-        wgmma_wait0();
-        reg_fence(s);
-        reg_fence(sm);
-        reg_fence(qhi);
-        reg_fence(qlo);
-        reg_fence(qbf);
-        __syncwarp();
-        if (lane == 0) mbar_arrive(kempty);  // K is free
-
-#pragma unroll
-        for (int i = 0; i < 8; ++i) s[i] += sm[i];
-        {
-          float* mine = xs + wg * 8 * 128 + ct;
-          const float* theirs = xs + (1 - wg) * 8 * 128 + ct;
-#pragma unroll
-          for (int i = 0; i < 8; ++i) mine[i * 128] = s[i];
-          asm volatile("bar.sync 1, %0;\n" ::"n"(128 * kWG) : "memory");
-#pragma unroll
-          for (int i = 0; i < 8; ++i) s[i] += theirs[i * 128];
-        }
-
-        const int valid = min(kBK, (seg_of(j) == 0 ? p.Lk : p.Le) - row_of(j));
-        if (valid < kBK) {  // the segment's last tile: keys past its length do not exist
-#pragma unroll
-          for (int i = 0; i < 8; ++i) {
-            if ((i / 4) * 8 + 2 * t + (i & 1) >= valid) s[i] = -INFINITY;
-          }
-        }
-        const float mx0 = fmaxf(fmaxf(s[0], s[1]), fmaxf(s[4], s[5]));
-        const float mx1 = fmaxf(fmaxf(s[2], s[3]), fmaxf(s[6], s[7]));
-        // every tile holds at least one real key, so the new max is finite
-        const float mn0 = fmaxf(m0, quad_max(mx0)), mn1 = fmaxf(m1, quad_max(mx1));
-        const float al0 = exp2f((m0 - mn0) * sl2), al1 = exp2f((m1 - mn1) * sl2);  // 0 on a set's first tile
-        m0 = mn0;
-        m1 = mn1;
-        const float ms0 = mn0 * sl2, ms1 = mn1 * sl2;
-        float pv[8];
-#pragma unroll
-        for (int i = 0; i < 8; ++i) pv[i] = exp2f(fmaf(s[i], sl2, (i & 2) ? -ms1 : -ms0));
-        l0 = l0 * al0 + (pv[0] + pv[1] + pv[4] + pv[5]);
-        l1 = l1 * al1 + (pv[2] + pv[3] + pv[6] + pv[7]);
-        if (writer) {
-#pragma unroll
-          for (int i = 0; i < 8; ++i) {
-            const int r = 16 * warp + g + 8 * ((i >> 1) & 1);
-            *reinterpret_cast<float*>(ph + swz64(r * 64 + (i / 4) * 32 + (t + 4 * (i & 1)) * 4)) = pv[i];
-          }
-#pragma unroll
-          for (int i = 0; i < 8; i += 2) {
-            const int r = 16 * warp + g + 8 * ((i >> 1) & 1);
-            const uint32_t off = r * 64 + (i / 4) * 32 + 4 * t;
-            *reinterpret_cast<uint32_t*>(pb + swz64(off)) = pack_bf16(pv[i], pv[i + 1]);
-            *reinterpret_cast<uint32_t*>(pb + swz64(off + 16)) = pack_bf16(tf32_rest(pv[i]), tf32_rest(pv[i + 1]));
-          }
-          if (t == 0) {
-            alpha[16 * warp + g] = al0;
-            alpha[16 * warp + g + 8] = al1;
-          }
-        }
-        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // P^T's stores -> wgmma's proxy
-        asm volatile("bar.sync 1, %0;\n" ::"n"(128 * kWG) : "memory");
-
-        float2 a[8];  // the factors of this thread's query columns 8n + 2t, 8n + 2t + 1
-#pragma unroll
-        for (int n = 0; n < 8; ++n) a[n] = *reinterpret_cast<const float2*>(alpha + 8 * n + 2 * t);
-        uint32_t vhi[2][2][4], vpk[2][2][4];
-        mbar_wait(vfull, j & 1);
-        load_v(0, vhi[0], vpk[0]);
-#pragma unroll
-        for (int mi = 0; mi < 4; ++mi) {
-          float acc[32];
-          wgmma_fence();
-#pragma unroll
-          for (int kk = 0; kk < 2; ++kk) wgmma_tf32(acc, vhi[mi & 1][kk], desc_sw64(phs + kk * 32), kk > 0);
-#pragma unroll
-          for (int kk = 0; kk < 2; ++kk) wgmma_bf16_rs(acc, vpk[mi & 1][kk], desc_sw64(pbs + kk * 32));
-          wgmma_commit();
-          if (mi + 1 < 4) load_v(mi + 1, vhi[(mi + 1) & 1], vpk[(mi + 1) & 1]);
-          wgmma_wait0();
-          reg_fence(acc);
-          reg_fence(vhi[mi & 1]);
-          reg_fence(vpk[mi & 1]);
-#pragma unroll
-          for (int n = 0; n < 8; ++n) {
-            o[mi][4 * n] = fmaf(o[mi][4 * n], a[n].x, acc[4 * n]);
-            o[mi][4 * n + 1] = fmaf(o[mi][4 * n + 1], a[n].y, acc[4 * n + 1]);
-            o[mi][4 * n + 2] = fmaf(o[mi][4 * n + 2], a[n].x, acc[4 * n + 2]);
-            o[mi][4 * n + 3] = fmaf(o[mi][4 * n + 3], a[n].y, acc[4 * n + 3]);
-          }
-        }
-        __syncwarp();
-        if (lane == 0) mbar_arrive(vempty);  // V is free
-      }
-    };
-    // O^T = w O^T / l: each row's 1 / l through shared memory to the threads
-    // that hold its query column
-    auto normalise = [&](float w) {
-      const float i0 = w / quad_sum(l0), i1 = w / quad_sum(l1);
-      if (writer && t == 0) {
-        linv[16 * warp + g] = i0;
-        linv[16 * warp + g + 8] = i1;
-      }
-      asm volatile("bar.sync 1, %0;\n" ::"n"(128 * kWG) : "memory");
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float inv = linv[8 * n + 2 * t + e];
-#pragma unroll
-          for (int mi = 0; mi < 4; ++mi) {
-            o[mi][4 * n + e] *= inv;
-            o[mi][4 * n + 2 + e] *= inv;
-          }
-        }
-      }
-      asm volatile("bar.sync 1, %0;\n" ::"n"(128 * kWG) : "memory");  // linv is read before it is rewritten
-    };
-
-    if (NSETS == 2 && !skip) {
-      // this thread's parked words in the block's workspace, kConsumers apart,
-      // and the row's coefficient: made again where they are used, so that
-      // neither holds a register through the runs
-      auto parked = [&]() {
-        return p.work + (size_t)((b * gridDim.y + h) * gridDim.x + blockIdx.x) * (kParkWords * kConsumers) + tid;
-      };
-      // run 0 the own segment (fused), 1 begin, 2 end; one call site, so a
-      // tile's code is compiled once
-#pragma unroll 1
-      for (int r = HAS_OWN ? 0 : 1; r < 3; ++r) {
-        run(r == 0 ? 0 : n_own + (r - 1) * n_ep, r == 0 ? n_own : n_own + r * n_ep);
-        float* park = parked();
-        if (r == 0) {  // park the own segment's state: the end segment continues it too
-#pragma unroll
-          for (int i = 0; i < 128; ++i) park[i * kConsumers] = o[i / 32][i % 32];
-          park[128 * kConsumers] = m0;
-          park[129 * kConsumers] = m1;
-          park[130 * kConsumers] = l0;
-          park[131 * kConsumers] = l1;
-        } else if (r == 1) {
-          normalise(1.f - p.coef[b]);
-          if (HAS_OWN) {  // swap (1 - c) O_begin / l with the parked own state
-#pragma unroll
-            for (int i = 0; i < 128; ++i) {
-              const float own = park[i * kConsumers];
-              park[i * kConsumers] = o[i / 32][i % 32];
-              o[i / 32][i % 32] = own;
-            }
-            m0 = park[128 * kConsumers];
-            m1 = park[129 * kConsumers];
-            l0 = park[130 * kConsumers];
-            l1 = park[131 * kConsumers];
-          } else {  // park it, and start the end set afresh
-#pragma unroll
-            for (int i = 0; i < 128; ++i) {
-              park[i * kConsumers] = o[i / 32][i % 32];
-              o[i / 32][i % 32] = 0.f;
-            }
-            m0 = m1 = -INFINITY;
-            l0 = l1 = 0.f;
-          }
-        }
-      }
-      normalise(p.coef[b]);
-      float* park = parked();
-#pragma unroll
-      for (int i = 0; i < 128; ++i) o[i / 32][i % 32] += park[i * kConsumers];
-    } else {
-      run(0, ntiles);
-      normalise(1.f);
-    }
-
-    // O = (O^T)^T at the output's strides
-    float* ob = p.out + b * p.sob + h * p.soh + kCols * wg + 16 * warp + g;
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int q = 8 * n + 2 * t + e;
-        if (q0 + q >= p.Sq) continue;
-        float* orow = ob + (long long)(q0 + q) * p.sos;
-#pragma unroll
-        for (int mi = 0; mi < 4; ++mi) {
-          orow[64 * mi] = o[mi][4 * n + e];
-          orow[64 * mi + 8] = o[mi][4 * n + 2 + e];
-        }
-      }
-    }
-  }
-}
-
 // A (D, H, S, B) map of an f32 operand at element strides (b, h, s), boxes
 // of 32 columns by `rows` rows, 128-byte swizzle, zeros out of bounds. A
 // batch stride of 0 (one tensor shared by every row) becomes a batch extent of 1.
@@ -925,80 +525,4 @@ extern "C" int aid_flash_attn_f32_d512(const void* q, const void* k, const void*
   const dim3 grid((unsigned)((p.Sq + kBQ - 1) / kBQ), (unsigned)H, (unsigned)B);
   flash_f32_d512_kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(m[0], m[1], m[2], p);
   return (int)cudaGetLastError();
-}
-
-namespace {
-
-template <bool HAS_OWN, int NSETS>
-int launch_interp(const CUtensorMap (&m)[7], const InterpParams& p, int B, int H, cudaStream_t s) {
-  static bool smem_allowed = false;  // once per instance and process
-  const cudaError_t err = allow_smem_once(reinterpret_cast<const void*>(&flash_f32_d512_interp_kernel<HAS_OWN, NSETS>),
-                                          kSmemBytes, smem_allowed);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)((p.Sq + kBQ - 1) / kBQ), (unsigned)H, (unsigned)B);
-  flash_f32_d512_interp_kernel<HAS_OWN, NSETS><<<grid, kThreads, kSmemBytes, s>>>(m[0], m[1], m[2], m[3], m[4],
-                                                                                 m[5], m[6], p);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace
-
-// The endpoint modes at D = 512 in f32: the C signature of
-// aid_flash_attn_bf16 (flash_interpolated_attention.cu) and one pointer
-// more, `work`, as aid_flash_attn_bf16_d512_interp takes them: dims are
-// [B, H, Sq, Lk, Le, 512, then (b, h, s) element strides of q, k, v,
-// k_begin, v_begin, k_end, v_end, out] (30 values; a b stride of 0 marks an
-// endpoint shared by every row); has_own 1 in the fused modes; n_sets 2 in
-// the outer modes, 1 in the inner ones (their lerped K/V in the begin slot);
-// work the outer modes' f32 workspace, B * H * ceil(Sq / 64) * 132 * 256
-// floats (null in the inner modes). The inputs are f32 with the head dim
-// contiguous, 16-byte aligned, their other strides multiples of 4 elements;
-// the output is written at its own strides. Returns the launch's
-// cudaError_t (0 on success).
-extern "C" int aid_flash_attn_f32_d512_interp(const void* q, const void* k, const void* v, const void* kb,
-                                              const void* vb, const void* ke, const void* ve, void* out,
-                                              const void* coef, const void* skip, void* work, const long long* dims,
-                                              float scale, int has_own, int n_sets, void* stream) {
-  if (dims[2] <= 0 || dims[3] <= 0 || dims[4] <= 0 || dims[5] != kD) return (int)cudaErrorInvalidValue;
-  if (n_sets == 2 && (coef == nullptr || work == nullptr)) return (int)cudaErrorInvalidValue;
-  const void* ptrs[7] = {q, k, v, kb, vb, ke, ve};
-  for (int i = 0; i < 7; ++i) {
-    if (reinterpret_cast<uintptr_t>(ptrs[i]) & 15) return (int)cudaErrorMisalignedAddress;
-    for (int j = 0; j < 3; ++j) {
-      if (dims[6 + 3 * i + j] % 4 != 0) return (int)cudaErrorMisalignedAddress;
-    }
-  }
-  if (encode_tiled() == nullptr) return (int)cudaErrorNotSupported;
-  const int B = (int)dims[0], H = (int)dims[1];
-  InterpParams p;
-  p.out = static_cast<float*>(out);
-  p.sob = dims[27];
-  p.soh = dims[28];
-  p.sos = dims[29];
-  p.coef = static_cast<const float*>(coef);
-  p.skip = static_cast<const uint8_t*>(skip);
-  p.work = static_cast<float*>(work);
-  p.Sq = (int)dims[2];
-  p.Lk = (int)dims[3];
-  p.Le = (int)dims[4];
-  p.shared_eps = 0;
-  p.scale_log2 = scale * 1.4426950408889634f;
-  // rows of each map: queries, own keys, endpoint keys x4
-  const int rows[7] = {p.Sq, p.Lk, p.Lk, p.Le, p.Le, p.Le, p.Le};
-  CUtensorMap m[7];
-  for (int i = 0; i < 7; ++i) {
-    const long long* st = dims + 6 + 3 * i;
-    if (!has_own && (i == 1 || i == 2)) {  // a map the instance never reads: any valid one
-      m[i] = m[0];
-      continue;
-    }
-    if (!encode_map(&m[i], ptrs[i], H, rows[i], B, st, i == 0 ? kBQ : kBK)) return (int)cudaErrorInvalidValue;
-    if (i >= 3 && st[0] == 0) p.shared_eps |= 1 << (i - 3);
-  }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (has_own && n_sets == 1) return launch_interp<true, 1>(m, p, B, H, s);
-  if (has_own && n_sets == 2) return launch_interp<true, 2>(m, p, B, H, s);
-  if (!has_own && n_sets == 1) return launch_interp<false, 1>(m, p, B, H, s);
-  if (!has_own && n_sets == 2) return launch_interp<false, 2>(m, p, B, H, s);
-  return (int)cudaErrorInvalidValue;
 }

@@ -124,6 +124,7 @@
 namespace {
 
 #include "tf32_mma.cuh"
+#include "map_cache.cuh"
 
 // The tile table (tests/test_torch_ops.py reads it): query rows per block,
 // keys per K/V tile, stages in the ring.
@@ -540,63 +541,11 @@ __global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
   }
 }
 
-// Everything a map encodes: a map is a pure function of these, so one made
-// for the same key (a tensor at the same address, extents, strides and box)
-// is the same map.
-struct MapKey {
-  const void* ptr;
-  long long dims[4], bytes[3];
-  int rows;
-};
-
-// A direct-mapped cache of encoded maps: calls at the same shapes on the
-// same buffers (every step of a denoise loop, through the caching
-// allocator) skip the encoding.
-constexpr int kMapCacheSlots = 1024;
-struct MapCache {
-  std::mutex mu;
-  MapKey key[kMapCacheSlots];
-  CUtensorMap map[kMapCacheSlots];
-  bool used[kMapCacheSlots];
-};
-MapCache map_cache;
-
 // A (D, H, S, B) map of an f32 operand at element strides (b, h, s), boxes
-// of 32 columns by `rows` rows, 128-byte swizzle, zeros out of bounds. A
-// batch stride of 0 (one tensor shared by every row) becomes a batch extent of 1.
+// of 32 columns by `rows` rows, 128-byte swizzle, zeros out of bounds, from
+// the cache of maps (map_cache.cuh).
 bool encode_map(CUtensorMap* map, const void* ptr, int D, int H, int S, int B, const long long* strides, int rows) {
-  const long long sb = strides[0], sh = strides[1], ss = strides[2];
-  MapKey k;
-  memset(&k, 0, sizeof(k));  // padding too: keys compare as bytes
-  k.ptr = ptr;
-  k.dims[0] = D;
-  k.dims[1] = H;
-  k.dims[2] = S;
-  k.dims[3] = sb == 0 ? 1 : B;
-  k.bytes[0] = sh * 4;
-  k.bytes[1] = ss * 4;
-  k.bytes[2] = (sb == 0 ? ss * S + sh * H : sb) * 4;
-  k.rows = rows;
-  uint64_t hash = 1469598103934665603ull;  // FNV-1a over the key's bytes
-  for (size_t i = 0; i < sizeof(k); ++i) hash = (hash ^ reinterpret_cast<const unsigned char*>(&k)[i]) * 1099511628211ull;
-  const int slot = (int)(hash % kMapCacheSlots);
-  std::lock_guard<std::mutex> lock(map_cache.mu);
-  if (map_cache.used[slot] && memcmp(&map_cache.key[slot], &k, sizeof(k)) == 0) {
-    *map = map_cache.map[slot];
-    return true;
-  }
-  const cuuint64_t dims[4] = {(cuuint64_t)k.dims[0], (cuuint64_t)k.dims[1], (cuuint64_t)k.dims[2], (cuuint64_t)k.dims[3]};
-  const cuuint64_t bytes[3] = {(cuuint64_t)k.bytes[0], (cuuint64_t)k.bytes[1], (cuuint64_t)k.bytes[2]};
-  const cuuint32_t box[4] = {32, 1, (cuuint32_t)rows, 1}, unit[4] = {1, 1, 1, 1};
-  if (encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<void*>(ptr), dims, bytes, box, unit,
-                     CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                     CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS) {
-    return false;
-  }
-  map_cache.key[slot] = k;
-  map_cache.map[slot] = *map;
-  map_cache.used[slot] = true;
-  return true;
+  return encode_map_cached(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, ptr, D, H, S, B, strides, 32, rows);
 }
 
 template <int D, bool HAS_OWN, int NSETS>

@@ -118,10 +118,10 @@ def library() -> ctypes.CDLL:
     for name in ("aid_flash_attn_f16", "aid_flash_attn_f32"):
         getattr(lib, name).argtypes = lib.aid_flash_attn_bf16.argtypes
         getattr(lib, name).restype = ctypes.c_int
-    # the endpoint modes at D = 512 (flash_attention_bf16_d512.cu, flash_attention_f32_d512.cu):
+    # the endpoint modes at D = 161-512 (flash_attention_dmid.cu, flash_attention_dmid_f32.cu):
     # the same signature with the outer modes' f32 workspace (or null) after skip
     # and the wide entries past 512 (flash_attention_dwide.cu), every mode, the same signature
-    for name in ("aid_flash_attn_bf16_d512_interp", "aid_flash_attn_f16_d512_interp", "aid_flash_attn_f32_d512_interp",
+    for name in ("aid_flash_attn_bf16_dmid", "aid_flash_attn_f16_dmid", "aid_flash_attn_f32_dmid",
                  "aid_flash_attn_bf16_dwide", "aid_flash_attn_f16_dwide", "aid_flash_attn_f32_dwide"):
         getattr(lib, name).argtypes = [*lib.aid_flash_attn_bf16.argtypes[:10], vp, *lib.aid_flash_attn_bf16.argtypes[10:]]
         getattr(lib, name).restype = ctypes.c_int

@@ -28,11 +28,18 @@ The kernels by head dim, each in bf16, f16 and f32:
     reached through :func:`flash_self_attention_f32`,
     :func:`flash_self_attention_bf16` and :func:`flash_self_attention_f16`
     and counted by their ``launches``;
-  * D = 512 in the four endpoint modes (a UNet whose heads are 161-512
-    wide): ``aid_flash_attn_{bf16,f16,f32}_d512_interp`` in the two D=512
-    sources (the self designs' tiles over own / begin / end segments, the
-    outer modes' first softmax set parked in a global f32 workspace the
-    wrapper allocates per call), counted under ``launches_by_head_dim[512]``;
+  * D = 161-512 in the four endpoint modes (a UNet whose heads are 161-512
+    wide): ``aid_flash_attn_{bf16,f16}_dmid`` in
+    ``csrc/flash_attention_dmid.cu`` and ``aid_flash_attn_f32_dmid`` in
+    ``csrc/flash_attention_dmid_f32.cu``, at the caller's head dim (the
+    kernels round it up to their column chunk, 64 or 32, by the tensor maps'
+    zero fill): in bf16 and f16 each consumer warpgroup owns 64 query rows
+    over all of D up to D = 320 (two warpgroups a block past one wave of
+    blocks), two warpgroups split D past it; in f32 two warpgroups split the
+    work of a tile evenly (3xTF32, 32-key tiles up to D = 320). The outer
+    modes' first softmax set is parked in a global f32 workspace the wrapper
+    allocates per call (:func:`dmid_tiles`); counted under
+    ``launches_by_head_dim[512]``;
   * D = 513-2048, every mode (an SD 1.x UNet with one head a level: 640 and
     1280): ``aid_flash_attn_{bf16,f16,f32}_dwide`` in
     ``csrc/flash_attention_dwide.cu`` (bf16 and f16: wgmma on the transposed
@@ -44,9 +51,11 @@ The kernels by head dim, each in bf16, f16 and f32:
     under ``launches_by_head_dim[DWIDE]``.
 A head dim that no instance takes is zero-padded to the next that does,
 as the JAX package pads (aid_tpu/ops/flash_attention.py:784, 800-801):
-below 160 to the next of 40, 64, 80, 160, between 160 and 512 to 512, past
-512 to a multiple of 8 (16-byte rows; the wide kernel takes the rest of its
-padding from zero-filling copies), in every mode; the scale stays the
+below 160 to the next of 40, 64, 80, 160, between 160 and 512 to 512 in self
+mode (the D=512 self kernels) and to a multiple of 8 in the endpoint modes,
+past 512 to a multiple of 8 in every mode (16-byte rows; the D=161-512 and
+wide kernels take the rest of their padding from zero-filling copies); the
+scale stays the
 unpadded D's and the output is sliced back. Zero columns add nothing to
 Q K^T, and V's are cut off, so the padding is exact; it costs one copy of
 each operand, and the launch counts book such calls under the instance's
@@ -54,7 +63,7 @@ head dim. Any other dtype (float64) or a head dim over 2048 raises
 ``NotImplementedError`` on a CUDA tensor, as the JAX wrapper raises past its
 block budget. :func:`kernel_operands` checks the operands of the
 interpolating kernels (every instance but the D=512 self kernels; bf16, f16
-or f32, one C signature, the D >= 512 entries with one workspace pointer
+or f32, one C signature, the entries past 160 with one workspace pointer
 more), pads them and lays out their C entry's arguments (the CPU tests
 replay the kernels' data movement from them), :func:`d512_operands` those
 of the D=512 self kernels; :func:`kernel_launch` and :func:`d512_launch`
@@ -92,15 +101,50 @@ KERNEL_ENTRIES = {torch.bfloat16: "aid_flash_attn_bf16", torch.float16: "aid_fla
 #: the C entry of the D=512 self-attention kernels by operand dtype
 D512_ENTRIES = {torch.bfloat16: "aid_flash_attn_bf16_d512", torch.float16: "aid_flash_attn_f16_d512",
                 torch.float32: "aid_flash_attn_f32_d512"}
-#: the C entry of the D=512 endpoint-mode kernels by operand dtype (the D <=
-#: 160 kernels' C signature and a workspace pointer)
-D512_INTERP_ENTRIES = {torch.bfloat16: "aid_flash_attn_bf16_d512_interp",
-                       torch.float16: "aid_flash_attn_f16_d512_interp",
-                       torch.float32: "aid_flash_attn_f32_d512_interp"}
-#: the outer modes' workspace at D = 512: f32 words a consumer thread parks
-#: (its 128 output accumulators, m[2], l[2]; both sources' kParkWords), for
-#: each of the 256 consumer threads of a 64-row query block
-D512_PARK_WORDS, D512_CONSUMERS = 132, 256
+#: the C entry of the D=161-512 endpoint-mode kernels by operand dtype (the
+#: D <= 160 kernels' C signature and a workspace pointer)
+DMID_ENTRIES = {torch.bfloat16: "aid_flash_attn_bf16_dmid", torch.float16: "aid_flash_attn_f16_dmid",
+                torch.float32: "aid_flash_attn_f32_dmid"}
+#: the bf16 and f16 D=161-512 kernel (csrc/flash_attention_dmid.cu): keys a
+#: tile of the rows layout by 64-column chunks (Rows<NC>::kBK; 3..5 chunks),
+#: of the split layout (Split<NCW>::kBK), and the blocks of 64 rows past
+#: which the rows layout puts two warpgroups' rows in a block (kOneWave)
+DMID_ROWS_BK, DMID_SPLIT_BK, DMID_ONE_WAVE = {3: 64, 4: 64, 5: 48}, 32, 132
+#: the f32 one (csrc/flash_attention_dmid_f32.cu): 32-key tiles up to this
+#: many 32-column chunks (kWideTileChunks), 16-key tiles past it
+DMID_F32_WIDE_TILE_CHUNKS = 10
+
+
+def dmid_tiles(D: int, dtype=torch.bfloat16, B: int = 1, H: int = 1, Sq: int = 1) -> dict:
+    """The D=161-512 endpoint kernel's tiling at an operand head dim D in
+    ``dtype`` for a (B, H, Sq) grid, as the sources' host code picks it.
+    ``layout``: "rows" (bf16 and f16 up to 5 chunks of 64 columns: each
+    consumer warpgroup owns 64 query rows over all of D; ``nwg`` of them a
+    block, 2 where B * H * ceil(Sq / 64) is over :data:`DMID_ONE_WAVE`),
+    "split" (6..8 chunks, 7 run as 8: two warpgroups split D, ``ncw`` chunks
+    each) or "f32" (32-column chunks; two warpgroups split a tile's work:
+    each takes ``mbw`` of the ``mb`` 64-row M blocks of O^T, warpgroup 1 the
+    last ``mbw``, and warpgroup 0 the first ``cq0`` chunks of Q K^T, 1 the
+    rest). ``chunks``, ``BQ`` (query rows a block),
+    ``BK`` (keys a tile), and the outer modes' workspace: ``park_words``
+    words for each of ``park_threads`` consumer threads of every 64-row
+    query tile (``work_tiles`` of them, in block order)."""
+    if dtype == torch.float32:
+        C = -(-D // 32)
+        mb = -(-C // 2)
+        mbw = -(-mb // 2)
+        return dict(layout="f32", chunks=C, BQ=64, BK=32 if C <= DMID_F32_WIDE_TILE_CHUNKS else 16, nwg=2, mb=mb,
+                    mbw=mbw, cq0=C // 2, park_words=32 * mbw + 4, park_threads=256, work_tiles=B * H * -(-Sq // 64))
+    nc = -(-D // 64)
+    if nc <= 5:
+        nwg = 2 if B * H * -(-Sq // 64) > DMID_ONE_WAVE else 1
+        return dict(layout="rows", chunks=nc, BQ=64 * nwg, BK=DMID_ROWS_BK[nc], nwg=nwg, park_words=32 * nc + 4,
+                    park_threads=128, work_tiles=B * H * -(-Sq // (64 * nwg)) * nwg)
+    ncw = 3 if nc == 6 else 4
+    return dict(layout="split", chunks=2 * ncw, BQ=64, BK=DMID_SPLIT_BK, nwg=2, ncw=ncw, park_words=32 * ncw + 4,
+                park_threads=256, work_tiles=B * H * -(-Sq // 64))
+
+
 #: the widest head dim (the JAX wrapper's block budget in bf16): the wide
 #: entries take 513..DWIDE and are counted under it
 DWIDE = 2048
@@ -142,10 +186,19 @@ def dwide_split(blocks: int, tiles: int) -> int:
     return max(1, min(DWIDE_SPLIT_BLOCKS // blocks, tiles, DWIDE_MAX_SPLIT))
 
 
+def dmid_columns(D: int, dtype=torch.bfloat16) -> int:
+    """The head-dim columns the D=161-512 endpoint kernel computes at an
+    operand head dim D in ``dtype``: D rounded up to its chunks
+    (:func:`dmid_tiles`: 64 columns in bf16 and f16, 7 chunks run as 8; 32
+    in f32)."""
+    return dmid_tiles(D, dtype)["chunks"] * (32 if dtype == torch.float32 else 64)
+
+
 def instance_head_dim(Dp: int) -> int:
     """The head dim a launch at operand head dim Dp is counted under: Dp up
-    to 512, :data:`DWIDE` for the wide entries."""
-    return Dp if Dp <= D512 else DWIDE
+    to 160, :data:`D512` for the D=161-512 entries, :data:`DWIDE` for the
+    wide entries."""
+    return Dp if Dp <= KERNEL_HEAD_DIMS[-1] else D512 if Dp <= D512 else DWIDE
 
 
 def flash_interpolated_attention_plain(
@@ -174,15 +227,20 @@ def flash_interpolated_attention_plain(
 
 def padded_head_dim(D: int, mode: AttnMode | str = AttnMode.SELF) -> int:
     """The head dim the operands of a call at head dim D in ``mode`` are
-    padded to: the next of :data:`KERNEL_HEAD_DIMS` at or above D up to 160,
-    :data:`D512` from 161 to 512, and from 513 to :data:`DWIDE` D rounded up
-    to a multiple of 8 (the wide entries take any head dim with 16-byte
-    rows), in every mode. Raises ``NotImplementedError`` past
-    :data:`DWIDE`, as the JAX wrapper raises past its block budget."""
+    padded to: the next of :data:`KERNEL_HEAD_DIMS` at or above D up to 160;
+    from 161 to 512 :data:`D512` in self mode (the D=512 self kernels) and D
+    rounded up to a multiple of 8 in the endpoint modes (the D=161-512
+    entries take any head dim with 16-byte rows and round it up to their
+    column chunk themselves); from 513 to :data:`DWIDE` D rounded up to a
+    multiple of 8 in every mode (the wide entries). Raises
+    ``NotImplementedError`` past :data:`DWIDE`, as the JAX wrapper raises
+    past its block budget."""
     mode = AttnMode(mode)
-    for Dp in (*KERNEL_HEAD_DIMS, D512):
+    for Dp in KERNEL_HEAD_DIMS:
         if D <= Dp:
             return Dp
+    if D <= D512 and mode == AttnMode.SELF:
+        return D512
     if D <= DWIDE:
         return -(-D // 8) * 8
     raise NotImplementedError(f"no flash kernel takes head dim {D} in {mode.value} mode: none is wider "
@@ -376,15 +434,15 @@ def kernel_operands(
     skip_endpoints: Optional[torch.Tensor] = None,  # (B,) bool: rows whose endpoint segments are dropped
 ) -> dict:
     """Check the operands of the interpolating kernel of q's dtype (bf16,
-    f16 or f32) and head dim (the D <= 160 kernels, the D = 512 ones in the
-    endpoint modes, the wide ones past 512 in every mode) and lay out one
+    f16 or f32) and head dim (the D <= 160 kernels, the D = 161-512 ones in
+    the endpoint modes, the wide ones past 512 in every mode) and lay out one
     call of its C entry (``entry``, :data:`KERNEL_ENTRIES`,
-    :data:`D512_INTERP_ENTRIES` or :data:`DWIDE_ENTRIES`): ``tensors`` (q,
+    :data:`DMID_ENTRIES` or :data:`DWIDE_ENTRIES`): ``tensors`` (q,
     k, v, k_begin, v_begin, k_end, v_end and the output, a (B, H, Sq, Dp)
     view of a new (B, Sq, H, Dp) buffer), ``dims`` (the entry's 30 shape and
     stride values), ``coef`` and ``skip`` (None where the mode reads
-    neither), ``work`` (the f32 workspace: at D = 512 the outer modes'
-    (blocks, :data:`D512_PARK_WORDS`, :data:`D512_CONSUMERS`); past it
+    neither), ``work`` (the f32 workspace: from 161 to 512 the outer modes'
+    (work_tiles, park_words, park_threads) of :func:`dmid_tiles`; past it
     (blocks * splits, sets, BQ * Dp + 2 BQ): each split's O, max and sum per
     softmax set (2 in the outer modes, else 1), where the outer modes park a
     set or the key stream is split, with BQ and Dp from :func:`dwide_tiles`
@@ -401,7 +459,7 @@ def kernel_operands(
     if q.dtype not in KERNEL_ENTRIES:
         raise NotImplementedError(f"the flash kernels take bf16, f16 or f32; q is {q.dtype}")
     Dp = padded_head_dim(D, mode)
-    if Dp == D512 and mode == AttnMode.SELF:
+    if KERNEL_HEAD_DIMS[-1] < Dp <= D512 and mode == AttnMode.SELF:
         raise NotImplementedError(f"head dim {D} pads to {Dp} in self mode: the D={D512} self-attention kernels take "
                                   "it (d512_operands), not this one")
     if k.dim() != 4 or k.shape[:2] != (B, H) or k.shape[-1] != D or v.shape != k.shape:
@@ -462,8 +520,9 @@ def kernel_operands(
     work, splits = None, 1
     has_own = int(mode in (AttnMode.SELF, AttnMode.FUSED_OUTER, AttnMode.FUSED_INNER))
     n_sets = 2 if mode.is_outer else (1 if mode.is_inner else 0)
-    if Dp == D512 and mode.is_outer:  # the parked first softmax set of each 64-row query block
-        work = torch.empty((B * H * -(-Sq // 64), D512_PARK_WORDS, D512_CONSUMERS), dtype=torch.float32, device=dev)
+    if KERNEL_HEAD_DIMS[-1] < Dp <= D512 and mode.is_outer:  # the parked first softmax set of each 64-row tile
+        t = dmid_tiles(Dp, q.dtype, B, H, Sq)
+        work = torch.empty((t["work_tiles"], t["park_words"], t["park_threads"]), dtype=torch.float32, device=dev)
     elif Dp > D512:  # each split's state (O, m, l) per softmax set, the outer modes' parked sets among them
         Dk, BQ, BK = dwide_tiles(Dp, q.dtype)
         blocks = B * H * -(-Sq // BQ)
@@ -471,7 +530,7 @@ def kernel_operands(
         if mode.is_outer or splits > 1:
             work = torch.empty((blocks * splits, 2 if mode.is_outer else 1, BQ * Dk + 2 * BQ), dtype=torch.float32,
                                device=dev)
-    entry = (DWIDE_ENTRIES if Dp > D512 else D512_INTERP_ENTRIES if Dp == D512 else KERNEL_ENTRIES)[q.dtype]
+    entry = (DWIDE_ENTRIES if Dp > D512 else DMID_ENTRIES if Dp > KERNEL_HEAD_DIMS[-1] else KERNEL_ENTRIES)[q.dtype]
     return dict(entry=entry, tensors=tensors, dims=dims, coef=coef_t, skip=skip, work=work, splits=splits,
                 scale=D ** -0.5 if scale is None else scale, has_own=has_own, n_sets=n_sets, head_dim=D,
                 out=out[..., :D])
@@ -504,8 +563,9 @@ def kernel_launch(*args, **kwargs) -> tuple:
     from aid_tpu_torch.ops import _build
 
     lib = _build.library()
-    # the D >= 512 entries take the workspace pointer (null outside the outer modes) after skip
-    work = (None if ops["work"] is None else ops["work"].data_ptr(),) if ops["dims"][5] >= D512 else ()
+    # the entries past 160 take the workspace pointer (null where nothing is parked or split) after skip
+    work = ((None if ops["work"] is None else ops["work"].data_ptr(),) if ops["dims"][5] > KERNEL_HEAD_DIMS[-1]
+            else ())
     c_args = (*(x.data_ptr() for x in tensors),
               *(None if x is None else x.data_ptr() for x in (ops["coef"], ops["skip"])), *work,
               _dims_array(ops["dims"]), float(ops["scale"]), ops["has_own"],
@@ -600,8 +660,8 @@ def flash_interpolated_attention_f32(
     ``csrc/flash_interpolated_attention_f32.cu`` (both products in 3xTF32
     on wgmma; at D = 160 two warpgroups split D) on CUDA tensors, the plain
     version on CPU tensors. A head dim from 161 to 512 in an endpoint mode
-    pads to 512 and takes ``aid_flash_attn_f32_d512_interp``
-    (``csrc/flash_attention_f32_d512.cu``); one from 513 to 2048, in every
+    takes ``aid_flash_attn_f32_dmid`` (``csrc/flash_attention_dmid_f32.cu``,
+    at the caller's D); one from 513 to 2048, in every
     mode, ``aid_flash_attn_f32_dwide`` (``csrc/flash_attention_dwide.cu``).
     Returns (B, H, Sq, D) f32; on CUDA a view of a (B, Sq, H, Dp) buffer, as
     the bf16 kernel writes.
@@ -634,8 +694,8 @@ def flash_interpolated_attention_f16(
     of ``csrc/flash_interpolated_attention.cu`` (``aid_flash_attn_f16``:
     the bf16 design with f16 wgmma, f32 scores, softmax and accumulation,
     P rounded to f16) on CUDA tensors, the plain version on CPU tensors. A
-    head dim from 161 to 512 in an endpoint mode pads to 512 and takes
-    ``aid_flash_attn_f16_d512_interp``; one from 513 to 2048, in every mode,
+    head dim from 161 to 512 in an endpoint mode takes
+    ``aid_flash_attn_f16_dmid`` (at the caller's D); one from 513 to 2048, in every mode,
     ``aid_flash_attn_f16_dwide``. Returns (B, H, Sq, D) f16; on CUDA a view
     of a (B, Sq, H, Dp) buffer.
     """
@@ -650,7 +710,7 @@ def flash_interpolated_attention_f16(
 
 def reset_launch_counts() -> None:
     """Set the interpolating kernels' launch counts (bf16, f16 and f32, total
-    and per instance head dim, 512 the endpoint-mode D=512 entries,
+    and per instance head dim, 512 the endpoint-mode D=161-512 entries,
     :data:`DWIDE` the wide entries: a padded call counts under the instance
     that takes it) to 0."""
     for fn in (flash_interpolated_attention, flash_interpolated_attention_f16, flash_interpolated_attention_f32):

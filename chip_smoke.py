@@ -206,9 +206,10 @@ Phases (each prints its own lines; any failure exits non-zero):
                  the loader, a fused_outer forward kernels vs plain in bf16
                  (two planted faults: c and 1 - c swapped, the own segment
                  dropped), f32 and f16 (one each), interpolate() (PAID, 10
-                 DDIM steps, s/step); every attention launch on a D=512
-                 entry. Phase 3 holds the D=512 endpoint entries against
-                 their plain versions at its shapes in bf16, f16 and f32
+                 DDIM steps, s/step); every attention launch on a D=161-512
+                 endpoint entry or a D=512 self one. Phase 3 holds the
+                 D=161-512 endpoint entries against their plain versions at
+                 its shapes, at D = 384 and at D = 200 in bf16, f16 and f32
  22. one head    after phase 21: the SD1.x UNet with one head a level through
                  the loader, a fused_outer forward kernels vs plain in bf16
                  (two planted faults: c and 1 - c swapped, the own segment
@@ -216,7 +217,7 @@ Phases (each prints its own lines; any failure exits non-zero):
                  own chunk of the scores) and f16 (the own segment
                  dropped), interpolate() (PAID, 10 DDIM steps, s/step);
                  every attention launch at D = 640 / 1280 on a wide entry,
-                 every one at D = 320 on a D=512 entry, a forward's counts
+                 every one at D = 320 on a D=161-512 or D=512 self entry, a forward's counts
                  those of the UNet's attention modules. Phase 3 holds the
                  wide entries against their plain versions in bf16, f16 and
                  f32, every mode, at its shapes, at (2,1,512,2048) and at a
@@ -632,6 +633,7 @@ def phase_kernels(coef, sd_coef, fused_classes, sd21_classes):
         D512,
         KERNEL_HEAD_DIMS,
         d512_launch,
+        dmid_columns,
         dwide_tiles,
         flash_interpolated_attention,
         flash_interpolated_attention_plain,
@@ -668,11 +670,12 @@ def phase_kernels(coef, sd_coef, fused_classes, sd21_classes):
         timed under each backend that takes the input. f32 is held to
         F32_ATTN_TOL and bounded at three TF32 passes, f16 to F16_ATTN_TOL
         and bounded at the f16 tensor-core rate. A head dim from 161 to 512
-        in an endpoint mode takes the D=512 endpoint entry (f32 bounded at
-        its passes, F32_D512_PASSES), one past 512 the wide entry in every
+        in an endpoint mode takes the D=161-512 endpoint entry (f32 bounded
+        at its passes, F32_D512_PASSES), one past 512 the wide entry in every
         mode (f32 bounded at three TF32 passes): both bounded at the caller's
-        D with the bound at the padded D the kernel computes (512, or the
-        first of 640, 1024, 1280, 2048) beside it (bound_padded_ms), and in
+        D with the bound at the columns the kernel computes (D rounded up to
+        the D=161-512 kernels' chunk, or the first of 640, 1024, 1280, 2048)
+        beside it (bound_padded_ms), and in
         the inner modes timed beside SDPA over [own; K_cross] (pure: K_cross
         alone), the lerped endpoint made as the wrapper makes it. Returns a
         record."""
@@ -716,7 +719,7 @@ def phase_kernels(coef, sd_coef, fused_classes, sd21_classes):
         library = sdpa_backends(q, k, v, want, reps) if mode == "self" else {}
         padded = ""
         if wide:
-            Dk = dwide_tiles(D)[0] if dwide else D512  # the columns the kernel computes
+            Dk = dwide_tiles(D)[0] if dwide else dmid_columns(D, dtype)  # the columns the kernel computes
             padded_ms = bound_at(Dk)[0]
             padded = f"; bound at the padded D={Dk} {padded_ms:.3f} ms"
             if mode in ("fused_inner", "pure_inner"):  # SDPA over [own; K_cross], K_cross lerped in f32
@@ -874,18 +877,21 @@ def phase_kernels(coef, sd_coef, fused_classes, sd21_classes):
         sd_coef, "SD1.5 fused_outer 4096", "SD1.5 self 4096", torch.float16)
     gen = main_gen
 
-    # the D=512 endpoint entries at phase 21's shapes (SD 1.x at 320-wide
-    # heads: 1 / 2 / 4 / 4 heads over 64^2 / 32^2 / 16^2 / 8^2 tokens, D = 320
-    # padded to 512): every endpoint mode at each level and the 77-key cross
-    # call, in bf16, f16 and f32; the record is fused_outer (7,1,4096,320)'s,
-    # every case under ``shapes``
+    # the D=161-512 endpoint entries at phase 21's shapes (SD 1.x at 320-wide
+    # heads: 1 / 2 / 4 / 4 heads over 64^2 / 32^2 / 16^2 / 8^2 tokens, D =
+    # 320): every endpoint mode at each level and the 77-key cross call, and
+    # at D = 384 (bf16 / f16: D split across warpgroups; f32: 16-key tiles)
+    # and the ragged D = 200 over 32^2 tokens, in bf16, f16 and f32; the
+    # record is fused_outer (7,1,4096,320)'s, every case under ``shapes``
     wide_cases = [(f"SD1.x D=320 {m} {Sq}", m, H, Sq, Sq, 320, reps, None)
                   for H, Sq, reps in ((1, 4096, 3), (2, 1024, 10), (4, 256, 20), (4, 64, 20))
                   for m in ("fused_outer", "pure_outer", "fused_inner", "pure_inner")]
     wide_cases.append(("SD1.x D=320 cross fused_outer 4096x77", "fused_outer", 1, 4096, 77, 320, 10, None))
-    for name, dtype in (("flash_interpolated_attention(D=512)", torch.bfloat16),
-                        ("flash_interpolated_attention_f16(D=512)", torch.float16),
-                        ("flash_interpolated_attention_f32(D=512)", torch.float32)):
+    wide_cases += [(f"D={D} {m} 1024", m, 2, 1024, 1024, D, 10, None) for D in (384, 200)
+                   for m in ("fused_outer", "pure_outer", "fused_inner", "pure_inner")]
+    for name, dtype in (("flash_interpolated_attention(D=161-512)", torch.bfloat16),
+                        ("flash_interpolated_attention_f16(D=161-512)", torch.float16),
+                        ("flash_interpolated_attention_f32(D=161-512)", torch.float32)):
         gen = f16_gen if dtype == torch.float16 else main_gen
         worst, shapes = 0.0, {}
         for label, mode, H, Sq, L, D, reps, Le in wide_cases:
@@ -4008,7 +4014,7 @@ def phase_f16(card: str, steps: int) -> list:
     return paths
 
 
-# phase 21: SD 1.x at D = 320, the D=512 endpoint entries on a full-width
+# phase 21: SD 1.x at D = 320, the D=161-512 endpoint entries on a full-width
 # UNet. No published UNet has heads wider than 160; SD 1.5's widths with the
 # diffusers legacy attention_head_dim [1, 2, 4, 4] (read as head counts by
 # both packages' loaders) put every level at 320 channels a head.
@@ -4069,8 +4075,9 @@ def phase_wide_heads(card: str, device: str = "cuda", configs=None, steps: int =
     swapped, the own segment dropped), then ``interpolate`` (PAID, 7 frames,
     512px, ``steps`` DDIM steps, guidance 7.5), s/step; (b) one f32 and one
     f16 forward under F32_UNET_TOL / F16_SD15_UNET_TOL, each with a planted
-    fault. Every attention launch lands on a D=512 entry: the endpoint
-    entries and the self ones, none on the D <= 160 kernels. Returns the
+    fault. Every attention launch lands on an entry counted under D=512:
+    the D=161-512 endpoint entries and the D=512 self ones, none on the D <=
+    160 kernels. Returns the
     paths' counts. ``device``/``configs`` exist for rehearsing on the CPU."""
     import shutil
     import tempfile
@@ -4332,7 +4339,7 @@ def phase_one_head_a_level(card: str, device: str = "cuda", configs=None, steps:
             or max(heads) <= 512 or pipe.unet.dtype != torch.bfloat16):
         fail(f"the loaded UNet config {cfg} is not the written one with one head a level past 512, or not bf16")
     # the calls a forward makes, by the instance that takes them: D = 320 the
-    # D=512 entries, 640 and 1280 the wide ones
+    # D=161-512 and D=512 self entries, 640 and 1280 the wide ones
     want = {}
     for m in pipe.unet.modules():
         if isinstance(m, CrossAttention):
@@ -4412,12 +4419,18 @@ def kernels_line(kernels: dict, launches: dict) -> str:
     attn_note = ("ms: through the wrapper, as the model calls it; kernel_ms: the launch alone on operands "
                  "aid_tpu_torch/ops/flash_attention.py::kernel_launch prepared once")
     d512_src = "aid_tpu_torch/csrc/flash_attention_bf16_d512.cu"
-    segments = ("own / begin / end segments, each its own tensor map and length; the outer modes' first softmax set "
-                "parked in a global f32 workspace the wrapper allocates per call")
-    d512_interp_design = f"the bf16 D=512 self kernel's tiles and pipeline over {segments}"
-    d512_interp_note = ("ms at fused_outer (7,1,4096,320), every case of phase 21's shapes under shapes; bound_ms at "
-                        "the caller's D = 320, bound_padded_ms at 512; library_ms: SDPA over [own; K_cross] in the "
-                        f"inner modes (none for the outer modes); {attn_note}")
+    dmid_src = "aid_tpu_torch/csrc/flash_attention_dmid.cu"
+    segments = ("own / begin / end segments, each its own tensor map and length; the outer modes' own softmax state "
+                "parked in a global f32 workspace the wrapper allocates per call at the caller's chunk count")
+    dmid_design = ("wgmma on TMA tiles of the caller's tensors at the caller's D in 64-column chunks (no padded copy); "
+                   "up to 5 chunks each consumer warpgroup owns 64 query rows over all of D (no score exchange), two "
+                   "such warpgroups a block past one wave of 64-row blocks, taking turns on named barriers to issue "
+                   "their products, 48- or 64-key tiles in K and V rings of two or three slots; 6 to 8 chunks two "
+                   f"warpgroups split D and exchange partial scores (32-key tiles); over {segments}")
+    dmid_note = ("ms at fused_outer (7,1,4096,320), every case of phase 21's shapes and D = 384 and 200 under shapes; "
+                 "bound_ms at the caller's D, bound_padded_ms at the columns the kernel computes (D rounded up to its "
+                 "chunk); library_ms: SDPA over [own; K_cross] in the inner modes (none for the outer modes); "
+                 f"{attn_note}")
     f32_wgmma = "wgmma 3xTF32 (raw hi), TMA, a split/transpose producer warpgroup"
     dwide_src = "aid_tpu_torch/csrc/flash_attention_dwide.cu"
     dwide_design = ("wgmma on the transposed products S^T = K Q^T and O^T = V^T P^T, the keys in M (128-key tiles as "
@@ -4537,24 +4550,27 @@ def kernels_line(kernels: dict, launches: dict) -> str:
         "conv3x3_gnsilu_f16": (conv_src, "aid_tpu/ops/conv.py:78", ("conv3x3_gnsilu_f16",),
                                {"entry": "aid_conv3x3_gnsilu_f16",
                                 "contract": f"f16, (7,960,128,128) -> 320 with the GN+SiLU prologue; {conv_note_f16}"}),
-        # the endpoint modes past head dim 160 (phase 21's SD 1.x UNet at
-        # 320-wide heads), in the two D=512 sources
-        "flash_interpolated_attention(D=512)": (
-            d512_src, flash_replaces[0], ("flash_interpolated_attention[D=512]",),
-            {**flash_replaces[1], "entry": "aid_flash_attn_bf16_d512_interp", "design": d512_interp_design,
-             "contract": f"bf16, head dims 161-512 padded to 512, the four endpoint modes; {d512_interp_note}"}),
-        "flash_interpolated_attention_f16(D=512)": (
-            d512_src, flash_replaces[0], ("flash_interpolated_attention_f16[D=512]",),
-            {**flash_replaces[1], "entry": "aid_flash_attn_f16_d512_interp", "design": d512_interp_design,
-             "contract": f"f16, head dims 161-512 padded to 512, the four endpoint modes; {d512_interp_note}"}),
-        "flash_interpolated_attention_f32(D=512)": (
-            "aid_tpu_torch/csrc/flash_attention_f32_d512.cu", flash_replaces[0],
+        # the endpoint modes at head dims 161-512 (phase 21's SD 1.x UNet at
+        # 320-wide heads), in the two D=161-512 sources
+        "flash_interpolated_attention(D=161-512)": (
+            dmid_src, flash_replaces[0], ("flash_interpolated_attention[D=512]",),
+            {**flash_replaces[1], "entry": "aid_flash_attn_bf16_dmid", "design": dmid_design,
+             "contract": f"bf16, head dims 161-512 at the caller's D, the four endpoint modes; {dmid_note}"}),
+        "flash_interpolated_attention_f16(D=161-512)": (
+            dmid_src, flash_replaces[0], ("flash_interpolated_attention_f16[D=512]",),
+            {**flash_replaces[1], "entry": "aid_flash_attn_f16_dmid", "design": dmid_design,
+             "contract": f"f16, head dims 161-512 at the caller's D, the four endpoint modes; {dmid_note}"}),
+        "flash_interpolated_attention_f32(D=161-512)": (
+            "aid_tpu_torch/csrc/flash_attention_dmid_f32.cu", flash_replaces[0],
             ("flash_interpolated_attention_f32[D=512]",),
-            {**flash_replaces[1], "entry": "aid_flash_attn_f32_d512_interp",
-             "design": "the f32 D=512 self kernel's tile (three tensor-core passes a product, D split across two "
-                       f"consumer warpgroups) over {segments}",
-             "contract": f"f32, head dims 161-512 padded to 512, the four endpoint modes; bound_ms at the caller's "
-                         f"D with 1.5 TF32 + 1.5 bf16 passes; {d512_interp_note}"}),
+            {**flash_replaces[1], "entry": "aid_flash_attn_f32_dmid",
+             "design": "wgmma on TMA tiles of the caller's tensors at the caller's D in 32-column chunks, each product "
+                       "in three tensor-core passes (1.5 TF32 + 1.5 bf16: K's lo and P V's small terms as bf16), O^T = "
+                       "V^T P^T in 64-row M blocks, two consumer warpgroups sharing a tile's Q K^T chunks and M blocks "
+                       "and exchanging partial scores, 32-key tiles up to D = 320 (16 above) beside the resident Q "
+                       f"tile, over {segments}",
+             "contract": f"f32, head dims 161-512 at the caller's D, the four endpoint modes; bound_ms at the caller's "
+                         f"D with 1.5 TF32 + 1.5 bf16 passes; {dmid_note}"}),
         # every mode past head dim 512 (phase 22's SD 1.x UNet with one head a
         # level), one source, three element types
         **{f"flash_interpolated_attention{sfx}(D=513-2048)": (

@@ -59,8 +59,8 @@ KERNEL_NAMES = ("flash_interpolated_attention", "flash_interpolated_attention(D=
                 "conv3x3_gnsilu", "flash_interpolated_attention_f32", "flash_interpolated_attention_f32(D=40/80/160)",
                 "conv3x3_same_f32", "conv3x3_gnsilu_f32", "flash_interpolated_attention_f16",
                 "flash_interpolated_attention_f16(D=40/80/160)", "flash_self_attention_f16", "conv3x3_same_f16",
-                "conv3x3_same_f16(packed=True)", "conv3x3_gnsilu_f16", "flash_interpolated_attention(D=512)",
-                "flash_interpolated_attention_f16(D=512)", "flash_interpolated_attention_f32(D=512)",
+                "conv3x3_same_f16(packed=True)", "conv3x3_gnsilu_f16", "flash_interpolated_attention(D=161-512)",
+                "flash_interpolated_attention_f16(D=161-512)", "flash_interpolated_attention_f32(D=161-512)",
                 "flash_interpolated_attention(D=513-2048)", "flash_interpolated_attention_f16(D=513-2048)",
                 "flash_interpolated_attention_f32(D=513-2048)")
 
@@ -134,16 +134,16 @@ def test_kernels_line_carries_bound_and_library_time():
     assert [e["replaces"].split(":")[1] for e in f16.values()] == ["101", "101", "101", "30", "47", "78"]
     assert {e["entry"] for e in f16.values()} == {"aid_flash_attn_f16", "aid_flash_attn_f16_d512", "aid_conv3x3_f16",
                                                  "aid_conv3x3_gnsilu_f16"}
-    # the D=512 endpoint entries: the two D=512 sources, their own C entries,
-    # each read from its dtype's D=512 count
+    # the D=161-512 endpoint entries: the two D=161-512 sources, their own C
+    # entries, each read from its dtype's count under D=512
     wide = {n: by_name[n] for n in KERNEL_NAMES[-6:-3]}
     assert [e["launches"] for e in wide.values()] == [11, 12, 13]
-    assert [e["entry"] for e in wide.values()] == ["aid_flash_attn_bf16_d512_interp", "aid_flash_attn_f16_d512_interp",
-                                                   "aid_flash_attn_f32_d512_interp"]
-    assert [e["source"].rsplit("/", 1)[1] for e in wide.values()] == ["flash_attention_bf16_d512.cu"] * 2 + [
-        "flash_attention_f32_d512.cu"]
+    assert [e["entry"] for e in wide.values()] == ["aid_flash_attn_bf16_dmid", "aid_flash_attn_f16_dmid",
+                                                   "aid_flash_attn_f32_dmid"]
+    assert [e["source"].rsplit("/", 1)[1] for e in wide.values()] == ["flash_attention_dmid.cu"] * 2 + [
+        "flash_attention_dmid_f32.cu"]
     assert all(e["replaces"] == "aid_tpu/ops/flash_attention.py:101" and e["library_ms"] is None
-               and "bound_padded_ms at 512" in e["contract"] for e in wide.values())
+               and "at the caller's D" in e["contract"] for e in wide.values())
     # the wide entries past 512: one source, their own C entries, each read
     # from its dtype's count under DWIDE
     dwide = {n: by_name[n] for n in KERNEL_NAMES[-3:]}
@@ -753,7 +753,7 @@ def test_wide_heads_phase_follows_the_f16_phase():
     phase 20 and before phase 19 (b); its directory is SD 1.5's with the list
     attention_head_dim [1, 2, 4, 4], which the port's loader reads as head
     counts: 320 channels a head at every level, SD 1.5's config otherwise.
-    Phase 3 times the D=512 endpoint entries at its shapes."""
+    Phase 3 times the D=161-512 endpoint entries at its shapes."""
     import inspect
 
     from aid_tpu_torch.models import configs, loader
@@ -827,7 +827,7 @@ def test_slice_fault_moves_one_slice():
 
 def test_one_head_phase_rehearses_on_the_cpu(monkeypatch):
     """Phase 22 end to end at a tiny size on the CPU (one head a level at
-    widths 192 / 544: head dims 192, taken by the D=512 entries, and 544, by
+    widths 192 / 544: head dims 192, taken by the D=161-512 entries, and 544, by
     the wide ones; 2 DDIM steps), torch.cuda's timing calls stubbed: the
     directory written, loaded and removed, three forwards with their planted
     faults over the bounds (set to the CPU's scale, where both sides run the

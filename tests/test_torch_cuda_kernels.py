@@ -36,7 +36,7 @@ from aid_tpu_torch.ops.flash_attention import (
     flash_self_attention_f32,
     padded_head_dim,
 )
-from aid_tpu_torch.ops.flash_attention import DWIDE
+from aid_tpu_torch.ops.flash_attention import DWIDE, instance_head_dim
 from aid_tpu_torch.ops.routing import reference_ops
 
 pytestmark = pytest.mark.cuda
@@ -244,7 +244,7 @@ def test_flash_kernel_refuses_what_it_does_not_take(dev):
     version. A head dim with no instance of its own (48) pads to the next
     (64) in bf16 and f32: one launch each, counted under D=64, matching the
     plain version at D=48. f32 at D = 512 outside self mode launches the
-    f32 D=512 endpoint entry, counted under D=512, and matches the plain
+    f32 D=161-512 endpoint entry, counted under D=512, and matches the plain
     version."""
     q = _randn((2, 2, 64, 64), 30, torch.float32)
     before = flash_interpolated_attention_f32.launches
@@ -265,7 +265,7 @@ def test_flash_kernel_refuses_what_it_does_not_take(dev):
         assert _attn_err(got, flash_interpolated_attention_plain(x, x, x)) < rtol
     q = _randn((2, 1, 64, 512), 32, torch.float32)
     coef = torch.tensor([0.0, 1.0], device=dev)
-    before = flash_interpolated_attention_f32.launches_by_head_dim[512]  # the f32 D=512 endpoint entry
+    before = flash_interpolated_attention_f32.launches_by_head_dim[512]  # the f32 D=161-512 endpoint entry
     got = flash_interpolated_attention(q, q, q, coef, "fused_outer")
     torch.cuda.synchronize()
     assert flash_interpolated_attention_f32.launches_by_head_dim[512] == before + 1
@@ -291,9 +291,10 @@ def test_flash_kernel_refuses_what_it_does_not_take(dev):
                          + [(D, m) for D in (200, 320) for m in MODES if (D, m) != (200, "self")])
 def test_flash_kernels_pad_head_dims(dev, dtype, D, mode):
     """A head dim that no instance takes is zero-padded to the next one that
-    does (below 160 to 40/64/80/160, past it to 512, in every mode: the
-    D=512 self kernels in self mode, the D=512 endpoint entries otherwise)
-    and launches that instance once, counted under the padded head dim; the
+    does (below 160 to 40/64/80/160 in every mode; past it to 512 in self
+    mode, the D=512 self kernels; the D=161-512 endpoint entries take the
+    caller's D, a multiple of 8) and launches that instance once, counted
+    under the instance's head dim (512 for the D=161-512 entries); the
     result, sliced back to D, matches the plain version at D with the
     unpadded scale: (B, S, H*D) projections viewed as (B, H, S, D), skip
     rows at both ends, shared endpoints (outer and fused inner modes) and
@@ -323,7 +324,7 @@ def test_flash_kernels_pad_head_dims(dev, dtype, D, mode):
         fn = ATTN_WRAPPER[dtype]
 
         def count():
-            return fn.launches_by_head_dim[Dp]
+            return fn.launches_by_head_dim[instance_head_dim(Dp)]
 
     before = count()
     got = flash_interpolated_attention(q, k, v, coef, mode, skip_endpoints=skip, **eps)
@@ -456,7 +457,7 @@ def test_flash_bf16_d512_kernel_matches_plain(dev, B, H, S, L):
 
 
 def test_flash_d512_refuses_other_instances(dev):
-    """At D=512 the endpoint modes launch the bf16 D=512 endpoint entry
+    """At D=512 the endpoint modes launch the bf16 D=161-512 endpoint entry
     (counted under D=512 on the bf16 wrapper, not on the self kernel's) and
     match the plain version; f64 still raises. An f32 call at a UNet head
     dim has its own kernel: it launches the f32 instance, counted by head
@@ -482,24 +483,27 @@ def test_flash_d512_refuses_other_instances(dev):
         assert _attn_err(got, flash_interpolated_attention_plain(q, q, q, coef, "fused_outer")) < F32_ATTN_RTOL
 
 
-# the D=512 endpoint entries' endpoint forms: rows 0 / B-1 of K/V, then
+# the D=161-512 endpoint entries' endpoint forms: rows 0 / B-1 of K/V, then
 # shared (H, Le, D) and per-row (B, H, Le, D) endpoints of an IP segment's 4
 # and 16 tokens and the text's 77, ragged against the 32- and 16-key tiles
 D512_INTERP_ENDPOINTS = [("rows", None)] + [(ep, Le) for ep in ("shared", "per_row") for Le in (4, 16, 77)]
 
 
 @pytest.mark.parametrize("dtype", **DTYPES)
-@pytest.mark.parametrize("D", [192, 320, 512])
+@pytest.mark.parametrize("D", [192, 200, 320, 384, 448, 512])
 @pytest.mark.parametrize("mode", [m for m in MODES if m != "self"])
 @pytest.mark.parametrize("ep,Le", D512_INTERP_ENDPOINTS)
 def test_flash_d512_interp_kernels_match_plain(dev, dtype, D, mode, ep, Le):
-    """Head dims past 160 in the endpoint modes: padded to 512, one launch of
-    the D=512 endpoint entry of the dtype (aid_flash_attn_{bf16,f16,f32}
-    _d512_interp), counted under D=512 on the dtype's interpolating wrapper
-    and on no other kernel, matching the plain version at the caller's D:
-    (B, S, H*D) projections viewed as (B, H, S, D) (strided heads), skip
-    rows at both ends, 130 queries and 77 own keys ragged against the
-    64-row and 32- / 16-key tiles."""
+    """Head dims past 160 in the endpoint modes: one launch of the D=161-512
+    endpoint entry of the dtype (aid_flash_attn_{bf16,f16,f32}_dmid) at the
+    caller's D, every layout of the kernels (bf16 and f16: 3, 4 and 5
+    64-column chunks with warpgroups over their own rows, 6 and 8 with D
+    split; f32: 32- and 16-key tiles, 2 to 4 M blocks a warpgroup; D = 200
+    ragged against the chunks), counted under D=512 on the dtype's
+    interpolating wrapper and on no other kernel, matching the plain
+    version: (B, S, H*D) projections viewed as (B, H, S, D) (strided heads),
+    skip rows at both ends, 130 queries and 77 own keys ragged against the
+    64-row and every key tile."""
     B, H, S, L = 3, 2, 130, 77
 
     def heads(x):

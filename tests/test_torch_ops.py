@@ -685,126 +685,47 @@ def _wgmma_acc_index(n_cols: int) -> tuple:
 
 
 def _d512_maps(ops: dict) -> tuple:
-    """The tensor maps a D=512 kernel reads, from its C entry's dims: the
-    self entries' 16 values (q, k, v, out) or the endpoint entries' 30 (q,
-    k, v, k_begin, v_begin, k_end, v_end, out). Returns ((B, H, Sq), each
-    map's (b, h, s) strides, each map's row extent, the output map's index,
-    and ``runs(b)``: batch row b's key stream as the kernels walk it, a list
-    of runs (one softmax set's stretch between the outer modes' park and
-    swap points), each a list of (K map, V map, length) segments, and
-    whether the row blends two sets)."""
-    dims = ops["dims"]
-    if len(dims) == 16:  # the self entries
-        B, H, Sq, Lk = dims[:4]
-        return (B, H, Sq), [dims[4 + 3 * i:7 + 3 * i] for i in range(4)], [Sq, Lk, Lk, Sq], 3, \
-            lambda b: ([[(1, 2, Lk)]], False)
-    B, H, Sq, Lk, Le, _ = dims[:6]
-    has_own, n_sets, skip = ops["has_own"], ops["n_sets"], ops["skip"]
-
-    def runs(b):
-        own = [(1, 2, Lk)] if has_own else []
-        if has_own and skip is not None and bool(skip[b]):  # a skip row: its own segment alone
-            return [own], False
-        if n_sets == 1:
-            return [own + [(3, 4, Le)]], False
-        return ([own] if has_own else []) + [[(3, 4, Le)], [(5, 6, Le)]], True
-
-    return (B, H, Sq), [dims[6 + 3 * i:9 + 3 * i] for i in range(8)], [Sq, Lk, Lk, Le, Le, Le, Le, Sq], 7, runs
+    """The tensor maps a D=512 self kernel reads, from its C entry's 16 dims
+    (q, k, v, out): ((B, H, Sq, Lk), each map's (b, h, s) strides, each
+    map's row extent)."""
+    B, H, Sq, Lk = ops["dims"][:4]
+    return (B, H, Sq, Lk), [ops["dims"][4 + 3 * i:7 + 3 * i] for i in range(4)], [Sq, Lk, Lk, Sq]
 
 
-def _d512_replay_sets(ops: dict, runs: list, blended: bool, blk: int, coef: float, bk: int, state: tuple, update,
-                      to_words, from_words, scale_rows, fault: str | None = None):
-    """One 64-row query block of a D=512 kernel through its runs of
-    ``bk``-key tiles (:func:`_d512_maps`): ``update(state, kmap, vmap, r0,
-    length) -> state`` is one tile (state = (O, m, l) in the kernel's
-    register layout, l the full row sums), ``to_words`` / ``from_words``
-    turn O into and out of the 256 consumer threads' 128 accumulator words
-    each, ``scale_rows(O, f)`` scales each query row. The outer modes' sets
-    go through the workspace ``ops["work"]`` as the endpoint kernels address
-    it (block ``blk``'s 132 words for each consumer thread, word i of
-    thread j at [blk, i, j]): the own state parked after its run, swapped
-    with (1 - c) O / l after the begin run, added after the end run as
-    c O / l. ``fault`` "work_transposed" reads the workspace back as
-    [blk, j, i]. Returns the normalised O."""
-    from aid_tpu_torch.ops.flash_attention import D512_CONSUMERS, D512_PARK_WORDS
-
-    def run_tiles(state, run):
-        for kmap, vmap, length in run:
-            for r0 in range(0, length, bk):
-                state = update(state, kmap, vmap, r0, length)
-        return state
-
-    if not blended:
-        for run in runs:
-            state = run_tiles(state, run)
-        o, _, lsum = state
-        return scale_rows(o, 1.0 / lsum)
-    work = ops["work"].view(-1, D512_PARK_WORDS, D512_CONSUMERS)[blk]
-    ct = torch.arange(D512_CONSUMERS) % 128
-    rows = (16 * (ct // 32) + ct % 32 // 4, 16 * (ct // 32) + ct % 32 // 4 + 8)  # each thread's two query rows
-
-    def put(o, m, lsum):
-        work[:128] = to_words(o).T
-        for j, r in enumerate(rows):
-            work[128 + j], work[130 + j] = m[r], lsum[r]
-
-    def get():  # (the parked words of each thread, m, l)
-        w = work.reshape(D512_CONSUMERS, D512_PARK_WORDS).T if fault == "work_transposed" else work
-        m, lsum = torch.empty(64), torch.empty(64)
-        for j, r in enumerate(rows):
-            m[r], lsum[r] = w[128 + j], w[130 + j]
-        return w[:128].T.clone(), m, lsum
-
-    own = len(runs) == 3
-    state = run_tiles(state, runs[0])
-    if own:  # the own segment's state, parked; the begin run continues it
-        put(*state)
-        state = run_tiles(state, runs[1])
-    o, m, lsum = state
-    o = scale_rows(o, (1 - coef) / lsum)
-    if own:  # swapped with the parked own state
-        words, pm, pl = get()
-        put(o, m, lsum)
-        state = (from_words(words), pm, pl)
-    else:  # parked; the end set starts afresh
-        put(o, m, lsum)
-        state = (from_words(torch.zeros(D512_CONSUMERS, 128)), torch.full((64,), -math.inf), torch.zeros(64))
-    o, _, lsum = run_tiles(state, runs[-1])
-    return from_words(to_words(scale_rows(o, coef / lsum)) + get()[0])
+def _d512_replay_run(Lk: int, bk: int, state: tuple, update, scale_rows):
+    """One 64-row query block of a D=512 self kernel through its ``bk``-key
+    tiles: ``update(state, r0) -> state`` is one tile (state = (O, m, l) in
+    the kernel's register layout, l the full row sums), ``scale_rows(O, f)``
+    scales each query row. Returns the normalised O."""
+    for r0 in range(0, Lk, bk):
+        state = update(state, r0)
+    o, _, lsum = state
+    return scale_rows(o, 1.0 / lsum)
 
 
-def _emulate_flash_bf16_d512_kernel(ops: dict, fault: str | None = None) -> torch.Tensor:
+def _emulate_flash_bf16_d512_kernel(ops: dict) -> torch.Tensor:
     """csrc/flash_attention_bf16_d512.cu's data movement, replayed in plain
-    torch from the C entry's own arguments: the self entries'
-    (``d512_operands``) and the endpoint entries' (``kernel_operands`` at
-    a padded head dim of 512).
+    torch from the C entry's own arguments (``d512_operands``).
 
     Each operand is read as its tensor map reads it: (512, H, S, B) over the
-    tensor's storage at the strides in ``dims`` (a batch stride of 0: batch
-    extent 1, read at batch 0), boxes of 64 columns by 64 query rows or 32
-    keys, zeros past Sq or the segment's length, stored 128-byte swizzled.
+    tensor's storage at the strides in ``dims``, boxes of 64 columns by 64
+    query rows or 32 keys, zeros past Sq or Lk, stored 128-byte swizzled.
     Each consumer warpgroup computes partial scores over its four boxes of
     Q and K through K-major descriptors, writes them to the exchange buffer
     in its accumulator order and adds the other warpgroup's; both run the
     same online softmax, P in the operands' dtype (bf16, or f16 for the f16
     instance), and O += P V over their 256 columns
-    through the MN-major descriptor (LBO one box). The endpoint entries walk
-    the own, begin and end segments (:func:`_d512_maps`), masking each
-    segment's last tile, and park the outer modes' first set in the
-    workspace (:func:`_d512_replay_sets`). The output leaves through the
-    warpgroups' halves of the swizzled Q tile and a TMA store clipped at Sq.
-    f32 arithmetic. ``fault`` plants a layout fault: "work_transposed" (the
-    workspace read back thread-major), "shared_batch" (a shared endpoint
-    read at the row's batch index, past its map's batch extent of 1:
-    zeros)."""
+    through the MN-major descriptor (LBO one box), the last key tile masked
+    past Lk. The output leaves through the warpgroups' halves of the
+    swizzled Q tile and a TMA store clipped at Sq. f32 arithmetic."""
     from aid_tpu_torch.ops.flash_attention import D512_BF16_TILES
 
     BQ, BK, _, NWG = D512_BF16_TILES
     D, cols = 512, 512 // NWG
     boxes_wg = cols // 64
-    tensors, dims = ops["tensors"], ops["dims"]
+    tensors = ops["tensors"]
     dt = tensors[0].dtype
-    (B, H, Sq), strides, extents, oi, runs_of = _d512_maps(ops)
+    (B, H, Sq, Lk), strides, extents = _d512_maps(ops)
     sl2 = ops["scale"] * 1.4426950408889634
     flat = [torch.as_strided(x, (x.untyped_storage().nbytes() // 2 - x.storage_offset(),), (1,),
                              x.storage_offset()).float() for x in tensors]
@@ -813,9 +734,7 @@ def _emulate_flash_bf16_d512_kernel(ops: dict, fault: str | None = None) -> torc
         sb, sh, ss = strides[i]
         r, x = torch.arange(rows)[:, None], torch.arange(64)[None, :]
         ok = (s0 + r < extents[i]).expand(rows, 64)
-        if sb == 0 and b > 0 and fault == "shared_batch":
-            ok = ok & False
-        idx = torch.where(ok, (0 if sb == 0 else b) * sb + h * sh + (s0 + r) * ss + 64 * c + x, 0)
+        idx = torch.where(ok, b * sb + h * sh + (s0 + r) * ss + 64 * c + x, 0)
         tile = torch.zeros(rows * 64)
         tile[_swizzle128(r * 128 + x * 2).reshape(-1) // 2] = torch.where(ok, flat[i][idx], 0.0).reshape(-1)
         return tile
@@ -829,21 +748,16 @@ def _emulate_flash_bf16_d512_kernel(ops: dict, fault: str | None = None) -> torc
         return smem[_swizzle128(start + (kr // 8) * 1024 + (kr % 8) * 128 + (n // 64) * lbo + (n % 64) * 2) // 2]
 
     arow, acol = _wgmma_acc_index(BK)
-    orow, ocol = _wgmma_acc_index(cols)  # a thread's 128 output accumulators
-    tiles = -(-Sq // BQ)
-    out_flat = torch.zeros_like(flat[oi])
-    coef = ops.get("coef")
+    out_flat = torch.zeros_like(flat[3])
     for b in range(B):
-        runs, blended = runs_of(b)
         for h in range(H):
-            for blk in range(tiles):
-                q0 = blk * BQ
+            for q0 in range(0, Sq, BQ):
                 qt = torch.cat([box(0, c, h, q0, b, BQ) for c in range(8)])
 
-                def update(state, ki, vi, r0, length):
+                def update(state, r0):
                     o, m, lsum = state
-                    kt = torch.cat([box(ki, c, h, r0, b, BK) for c in range(8)])
-                    vt = torch.cat([box(vi, c, h, r0, b, BK) for c in range(8)])
+                    kt = torch.cat([box(1, c, h, r0, b, BK) for c in range(8)])
+                    vt = torch.cat([box(2, c, h, r0, b, BK) for c in range(8)])
                     xbuf = torch.zeros(NWG, 16, 128)
                     for w in range(NWG):  # partial scores over the warpgroup's boxes, in accumulator order
                         part = sum(kmajor(qt, (boxes_wg * w + kk // 4) * BQ * 128 + (kk % 4) * 32, BQ)
@@ -858,7 +772,7 @@ def _emulate_flash_bf16_d512_kernel(ops: dict, fault: str | None = None) -> torc
                         scores.append(sw)
                     assert torch.equal(scores[0], scores[1])
                     s = scores[0]
-                    s[:, min(BK, length - r0):] = -math.inf
+                    s[:, min(BK, Lk - r0):] = -math.inf
                     mn = torch.maximum(m, s.max(dim=1).values)
                     alpha = torch.exp2((m - mn) * sl2)
                     p = torch.exp2(s * sl2 - (mn * sl2)[:, None])
@@ -869,32 +783,18 @@ def _emulate_flash_bf16_d512_kernel(ops: dict, fault: str | None = None) -> torc
                         for kk in range(BK // 16)) for w in range(NWG)]
                     return o, m, lsum
 
-                def to_words(o):  # (256 threads, 128 words): warpgroup w's thread ct holds o[w][orow, ocol]
-                    return torch.cat([o[w][orow, ocol] for w in range(NWG)])
-
-                def from_words(words):
-                    o = [torch.zeros(BQ, cols) for _ in range(NWG)]
-                    for w in range(NWG):
-                        o[w][orow, ocol] = words[128 * w:128 * (w + 1)]
-                    return o
-
-                def scale_rows(o, f):
-                    return [x * f[:, None] for x in o]
-
                 state = ([torch.zeros(BQ, cols) for _ in range(NWG)], torch.full((BQ,), -math.inf), torch.zeros(BQ))
-                o = _d512_replay_sets(ops, runs, blended, (b * H + h) * tiles + blk,
-                                      float(coef[b]) if blended else 1.0, BK, state, update, to_words, from_words,
-                                      scale_rows, fault)
+                o = _d512_replay_run(Lk, BK, state, update, lambda o, f: [x * f[:, None] for x in o])
                 ob = torch.cat(o, dim=1).to(dt).float()
                 r, col = torch.arange(BQ)[:, None], torch.arange(D)[None, :]
                 tile = torch.zeros(BQ * D)
                 addr = (col // 64) * (BQ * 128) + _swizzle128(r * 128 + (col % 64) * 2)
                 tile[(addr // 2).reshape(-1)] = ob.reshape(-1)
-                sb, sh, ss = strides[oi]
+                sb, sh, ss = strides[3]
                 keep = (q0 + r < Sq).expand(BQ, D)
                 dst = (b * sb + h * sh + (q0 + r) * ss + col)[keep]
                 out_flat[dst] = tile[(addr // 2)[keep]]
-    out = tensors[oi]
+    out = tensors[3]
     return torch.as_strided(out_flat, out.shape, out.stride()).to(dt)
 
 
@@ -945,18 +845,11 @@ def test_flash_bf16_d512_tile_constants_follow_the_kernel_source():
     smem = 1024 + bq * 1024 + stages * 2 * bk * 1024 + 2 * wg * 16 * 128 * 4 + (4 * stages + 1) * 8
     assert smem <= 232448
     assert bq * 512 // wg // 128 <= 128  # each warpgroup's share of the 64 x 512 f32 accumulator, a thread
-    # the endpoint kernel's workspace, as kernel_operands allocates it and the replays address it
-    assert "kConsumers = 128 * kWG;" in src and "kParkWords = kCols / 2 + 4;" in src
-    assert (FA.D512_CONSUMERS, FA.D512_PARK_WORDS) == (128 * wg, 512 // wg // 2 + 4)
 
 
 def _emulate_flash_f32_d512_kernel(ops: dict, fault: str | None = None) -> torch.Tensor:
     """csrc/flash_attention_f32_d512.cu's data movement, replayed in plain
-    torch from the C entry's own arguments: the self entry's
-    (``d512_operands``) and the endpoint entry's (``kernel_operands`` at a
-    padded head dim of 512: own, begin and end segments, each segment's last
-    tile masked, the outer modes' first set parked in the workspace as
-    :func:`_d512_replay_sets` models it).
+    torch from the C entry's own arguments (``d512_operands``).
 
     Each operand is read as its tensor map reads it: (512, H, S, B) over the
     tensor's storage at the strides in ``dims``, boxes of 32 f32 by 64 query
@@ -979,17 +872,14 @@ def _emulate_flash_f32_d512_kernel(ops: dict, fault: str | None = None) -> torch
     f64; the output is stored from O^T at the output's strides, rows past
     Sq dropped. ``fault`` plants a layout fault, for the test that the
     replay catches one: "p_swizzle" reads P^T's hi without its swizzle,
-    "q_bf" feeds the bf16 pass Q's columns in their natural order,
-    "work_transposed" reads the outer modes' workspace back thread-major,
-    "shared_batch" reads a shared endpoint at the row's batch index (past its
-    map's batch extent of 1: zeros)."""
+    "q_bf" feeds the bf16 pass Q's columns in their natural order."""
     from aid_tpu_torch.ops.flash_attention import F32_D512_TILES
 
     BQ, BK, NWG = F32_D512_TILES
     D = 512
     cols, boxes = D // NWG, D // 32
     tensors = ops["tensors"]
-    (B, H, Sq), strides, extents, oi, runs_of = _d512_maps(ops)
+    (B, H, Sq, Lk), strides, extents = _d512_maps(ops)
     sl2 = ops["scale"] * 1.4426950408889634
     flat = [torch.as_strided(x, (x.untyped_storage().nbytes() // 4 - x.storage_offset(),), (1,),
                              x.storage_offset()) for x in tensors]
@@ -998,9 +888,6 @@ def _emulate_flash_f32_d512_kernel(ops: dict, fault: str | None = None) -> torch
         sb, sh, ss = strides[i]
         r, x = torch.arange(rows)[:, None], torch.arange(32)[None, :]
         ok = (s0 + r < extents[i]).expand(rows, 32)
-        if sb == 0 and b > 0 and fault == "shared_batch":
-            ok = ok & False
-        b = 0 if sb == 0 else b
         out = torch.zeros(boxes * rows * 32)
         for c in range(boxes):
             idx = torch.where(ok, b * sb + h * sh + (s0 + r) * ss + 32 * c + x, 0)
@@ -1105,11 +992,8 @@ def _emulate_flash_f32_d512_kernel(ops: dict, fault: str | None = None) -> torch
     writer = ((torch.arange(128) // 32) >> 1)  # the warpgroup that writes a thread's rows
     a_rows = 16 * (torch.arange(128) // 32) + torch.arange(128) % 32 // 4  # rows g (t = 0 writes the factors)
 
-    orow, ocol = _wgmma_acc_index(64)  # a thread's accumulators of each m64n64 block of O^T: (d, query)
-    out_flat = torch.zeros(flat[oi].shape, dtype=torch.float64)
-    coef = ops.get("coef")
+    out_flat = torch.zeros(flat[3].shape, dtype=torch.float64)
     for b in range(B):
-        runs, blended = runs_of(b)
         for h in range(H):
             for q0 in range(0, Sq, BQ):
                 qt = tile(0, h, q0, b, BQ)
@@ -1117,10 +1001,10 @@ def _emulate_flash_f32_d512_kernel(ops: dict, fault: str | None = None) -> torch
                 qlo = _tf32_read(_tf32_rest(qt[q_reg]))
                 qbf = bf16(qt[q_bf])
 
-                def update(state, ki, vi, r0, length):
+                def update(state, r0):
                     ot, m, lsum = state
                     ot = ot.clone()
-                    kt, vt = tile(ki, h, r0, b, BK), tile(vi, h, r0, b, BK)
+                    kt, vt = tile(1, h, r0, b, BK), tile(2, h, r0, b, BK)
                     kl = torch.zeros(BK * D, dtype=torch.float64)
                     kl[klo_dst] = bf16(_tf32_rest(kt[klo_src]))
                     xbuf = []
@@ -1135,7 +1019,7 @@ def _emulate_flash_f32_d512_kernel(ops: dict, fault: str | None = None) -> torch
                         scores.append(sw)
                     assert torch.equal(scores[0], scores[1])
                     s = scores[0]
-                    s[:, min(BK, length - r0):] = -math.inf
+                    s[:, min(BK, Lk - r0):] = -math.inf
                     mn = torch.maximum(m, s.max(dim=1).values)
                     alpha = torch.exp2((m - mn) * sl2)
                     p = torch.exp2(s * sl2 - (mn * sl2)[:, None])
@@ -1159,29 +1043,15 @@ def _emulate_flash_f32_d512_kernel(ops: dict, fault: str | None = None) -> torch
                             ot[w, mi] = torch.addcmul(acc, ot[w, mi], factors[None, :])
                     return ot, m, lsum
 
-                def to_words(ot):  # (256 threads, 128 words): word 32 mi + i of warpgroup w's thread ct
-                    return torch.cat([torch.stack([ot[w, mi][orow, ocol] for mi in range(4)], 1).reshape(128, 128)
-                                      for w in range(NWG)])
-
-                def from_words(words):
-                    ot = torch.zeros(NWG, cols // 64, 64, 64)
-                    for w in range(NWG):
-                        regs = words[128 * w:128 * (w + 1)].reshape(128, 4, 32)
-                        for mi in range(4):
-                            ot[w, mi][orow, ocol] = regs[:, mi]
-                    return ot
-
                 state = (torch.zeros(NWG, cols // 64, 64, 64), torch.full((64,), -math.inf), torch.zeros(64))
-                ot = _d512_replay_sets(ops, runs, blended, (b * H + h) * -(-Sq // BQ) + q0 // BQ,
-                                       float(coef[b]) if blended else 1.0, BK, state, update, to_words, from_words,
-                                       lambda x, f: x * f, fault)
+                ot = _d512_replay_run(Lk, BK, state, update, lambda x, f: x * f)
                 o = ot.reshape(D, 64).T  # (query, d): d = 256 w + 64 mi + row
-                sb, sh, ss = strides[oi]
+                sb, sh, ss = strides[3]
                 rows = q0 + torch.arange(64)
                 keep = (rows < Sq)[:, None].expand(64, D)
                 dst = b * sb + h * sh + rows[:, None] * ss + torch.arange(D)[None, :]
                 out_flat[dst[keep]] = o[keep].double()
-    out = tensors[oi]
+    out = tensors[3]
     return torch.as_strided(out_flat, out.shape, out.stride()).float()
 
 
@@ -1253,81 +1123,7 @@ def test_flash_f32_d512_tile_constants_follow_the_kernel_source():
     assert smem <= 232448
     assert bq * 512 // wg // 128 == 128
     assert "mma.sync.aligned" not in src and "cp.async.cg" not in src and "wgmma.mma_async" in src
-    # the endpoint kernel's workspace: O^T's 4 x 32 accumulators, m[2], l[2] for each consumer thread
-    assert "kConsumers = 128 * kWG;" in src and "kParkWords = 4 * 32 + 4;" in src
-    assert (FA.D512_CONSUMERS, FA.D512_PARK_WORDS) == (128 * wg, 4 * 32 + 4)
 
-
-# the D=512 endpoint entries' replays: (dtype, mode, endpoints, Le). Every
-# mode in bf16 and f32 with each endpoint form, the f16 instance in every
-# mode; Le of 4 (an IP segment), 16, 77 (the text tokens) and one past a
-# 32-key tile, each ragged against the 32- and 16-key tiles
-D512_INTERP_CASES = [
-    (dt, mode, ep, le) for dt in ("bf16", "f32")
-    for mode, ep, le in (("fused_outer", "shared", 77), ("pure_outer", "per_row", 16), ("fused_inner", "rows", None),
-                         ("pure_inner", "shared", 4), ("fused_outer", "rows", None), ("pure_outer", "shared", 33),
-                         ("fused_inner", "per_row", 4), ("pure_inner", "per_row", 77))
-] + [("f16", mode, "shared", 16) for mode in ("fused_outer", "pure_outer", "fused_inner", "pure_inner")]
-D512_DTYPES = {"bf16": torch.bfloat16, "f16": torch.float16, "f32": torch.float32}
-
-
-def _d512_interp_replay_err(dt: str, mode: str, endpoints: str, Le, D: int = 320, fault: str | None = None) -> float:
-    """max |replay - plain| / max |plain| of a D=512 endpoint entry's replay
-    from ``kernel_operands`` on (3, S, 2*D) projections viewed as (3, 2, S,
-    D), D padded to 512: S = 64 queries, 37 own keys, coefficients 0 / 0.4 /
-    1, the first row a skip row; ``endpoints`` "rows" (rows 0 and B-1 of
-    K/V), "shared" (H, Le, D) or "per_row" (B, H, Le, D)."""
-    from aid_tpu_torch.ops.flash_attention import D512_INTERP_ENTRIES, kernel_operands
-
-    dtype = D512_DTYPES[dt]
-    g = torch.Generator().manual_seed(D + (Le or 0) + len(mode))
-    B, H, S, L = 3, 2, 64, 37
-
-    def heads(n):
-        return torch.randn(B, n, H * D, generator=g).to(dtype).view(B, n, H, D).transpose(1, 2)
-
-    q, k, v = heads(S), heads(L), heads(L)
-    coef = torch.tensor([0.0, 0.4, 1.0])
-    skip = torch.tensor([True, False, False])
-    eps = {}
-    if endpoints != "rows":
-        shape = (H, Le, D) if endpoints == "shared" else (B, H, Le, D)
-        eps = {n: torch.randn(shape, generator=g).to(dtype) for n in ("k_begin", "v_begin", "k_end", "v_end")}
-    ops = kernel_operands(q, k, v, coef, mode, skip_endpoints=skip, **eps)
-    assert ops["entry"] == D512_INTERP_ENTRIES[dtype] and ops["dims"][5] == 512
-    assert (ops["work"] is not None) == AttnMode(mode).is_outer
-    emulate = _emulate_flash_f32_d512_kernel if dt == "f32" else _emulate_flash_bf16_d512_kernel
-    got = emulate(ops, fault)[..., :D]
-    want = flash_interpolated_attention_plain(q.float(), k.float(), v.float(), coef, mode, skip_endpoints=skip,
-                                              **{n: e.float() for n, e in eps.items()})
-    assert got.shape == want.shape
-    return th.max_rel_err(got.float().numpy(), want.numpy())
-
-
-@pytest.mark.parametrize("dt,mode,endpoints,Le", D512_INTERP_CASES)
-def test_flash_d512_interp_kernels_data_movement_replayed(dt, mode, endpoints, Le):
-    """The D=512 endpoint entries (aid_flash_attn_{bf16,f16,f32}_d512_interp)
-    replayed on the CPU from the wrapper's own C arguments at a head dim of
-    320 padded to 512: the self kernels' boxes, swizzle, descriptors,
-    exchange (and in f32 the three-pass fragments) over the own, begin and
-    end segments, each its own map and length with its last tile masked
-    (Le ragged against the tiles), a shared endpoint through a batch extent
-    of 1, the lerped inner endpoint in the begin slot, a skip row streaming
-    its own segment alone, and the outer modes' first set parked in the
-    workspace and swapped word for word. Against the plain version in f32:
-    f32 to 1e-5 of max |ref| (the three-pass split), bf16 and f16 to 1e-2
-    (P's rounding and the output's)."""
-    assert _d512_interp_replay_err(dt, mode, endpoints, Le) < (1e-5 if dt == "f32" else 1e-2)
-
-
-@pytest.mark.parametrize("dt", ["bf16", "f32"])
-@pytest.mark.parametrize("fault", ["work_transposed", "shared_batch"])
-def test_flash_d512_interp_replay_catches_planted_faults(fault, dt):
-    """The replay above can fail: with the workspace read back thread-major
-    (the parked own state scrambled across threads) or a shared endpoint
-    read at the row's batch index (zeros past its batch extent of 1), the
-    fused_outer replay misses its bound by orders of magnitude."""
-    assert _d512_interp_replay_err(dt, "fused_outer", "shared", 77, fault=fault) > 0.1
 
 # ---------------------------------------------------------------------------
 # the f32 instances: csrc/flash_interpolated_attention_f32.cu, csrc/conv3x3_f32.cu
@@ -1646,7 +1442,8 @@ def test_flash_kernel_operands_f32(mode):
 
 
 # head dims that no instance takes, in every mode: below 160 (to 40/64/160)
-# and past it (to 512)
+# and past it (to 512 in self mode; the D=161-512 endpoint entries take the
+# caller's 200 and 320, rounded up to their chunks in the kernel)
 PAD_CASES = [(D, mode) for D in (16, 32, 48, 100) for mode in MODES] + [(200, "self")] + [
     (D, mode) for D in (200, 320) for mode in MODES if (D, mode) != (200, "self")]
 
@@ -1657,18 +1454,19 @@ def test_flash_operands_pad_head_dims(D, mode, dtype):
     """A head dim that no kernel instance takes is zero-padded, as the JAX
     wrapper pads (aid_tpu/ops/flash_attention.py:784, 800-801): below 160 to
     the next of 40/64/80/160 in every mode (kernel_operands), between 160
-    and 512 to 512, in self mode for the D=512 self kernels (d512_operands)
-    and in the endpoint modes for the D=512 endpoint entries
-    (kernel_operands). Every operand the entry reads has the padded head
-    dim with zeros past D, the scale is the unpadded D's, and ``out`` is the
-    output sliced back to D. The padded call replayed on the CPU (the
-    kernels' replays above; in self mode at D = 200 the bf16 D=512 kernel's
-    replay, in f32 the padded operands' own softmax at the entry's scale)
-    computes the plain version at the unpadded D, with skip rows at both
-    ends and shared endpoints of their own ragged length; at D = 48 it is
-    held against the JAX wrapper in interpret mode too. f32 to 1e-5 of max
-    |ref| (the 3xTF32 split and the order of sums), bf16 to 1e-2 (P's bf16
-    rounding and the output's)."""
+    and 512 to 512 in self mode for the D=512 self kernels (d512_operands).
+    In the endpoint modes from 161 to 512 the D=161-512 entries take the
+    caller's tensors at D (a multiple of 8), their kernels rounding D up to
+    their chunks by the tensor maps' zero fill (tests/test_torch_dmid.py).
+    Every operand the entry reads has the entry's head dim with zeros past
+    D, the scale is the unpadded D's, and ``out`` is the output sliced back
+    to D. The call replayed on the CPU (the kernels' replays; in self mode
+    at D = 200 the bf16 D=512 kernel's replay, in f32 the padded operands'
+    own softmax at the entry's scale) computes the plain version at the
+    unpadded D, with skip rows at both ends and shared endpoints of their
+    own ragged length; at D = 48 it is held against the JAX wrapper in
+    interpret mode too. f32 to 1e-5 of max |ref| (the 3xTF32 split and the
+    order of sums), bf16 to 1e-2 (P's bf16 rounding and the output's)."""
     from aid_tpu_torch.ops.attention import _softmax_attn
     from aid_tpu_torch.ops.flash_attention import d512_operands, kernel_operands, padded_head_dim
 
@@ -1685,11 +1483,13 @@ def test_flash_operands_pad_head_dims(D, mode, dtype):
     eps = {} if mode == "self" else {n: torch.randn(H, Le, D, generator=g).to(dtype)
                                      for n in ("k_begin", "v_begin", "k_end", "v_end")}
     Dp = padded_head_dim(D, mode)
-    assert Dp == {16: 40, 32: 40, 48: 64, 100: 160, 200: 512, 320: 512}[D]
-    if Dp == 512 and mode != "self":
+    assert Dp == ({16: 40, 32: 40, 48: 64, 100: 160}.get(D) or (512 if mode == "self" else D))
+    if D > 160 and mode != "self":
+        from test_torch_dmid import _emulate_dmid16, _emulate_dmid_f32
+
         ops = kernel_operands(q, k, v, coef, mode, skip_endpoints=skip, **eps)
-        assert ops["dims"][5] == Dp and ops["entry"].endswith("_d512_interp")
-        got = (_emulate_flash_f32_d512_kernel if f32 else _emulate_flash_bf16_d512_kernel)(ops)
+        assert ops["dims"][5] == Dp and ops["entry"].endswith("_dmid")
+        got = (_emulate_dmid_f32 if f32 else _emulate_dmid16)(ops)
     elif Dp == 512:
         ops = d512_operands(q, k, v)
         assert ops["dims"][:4] == [B, H, S, L]

@@ -50,10 +50,18 @@ def _instances(name: str, text: str) -> list:
     if name == "flash_interpolated_attention_f32.cu":
         return [("flash_f32_kernel", (d, *m)) for d in dims for m in modes]
     if name == "flash_attention_bf16_d512.cu":
-        return [("flash16_d512_kernel", (t,)) for t in types] + [
-            ("flash16_d512_interp_kernel", (t, *m)) for t in types for m in modes]
+        return [("flash16_d512_kernel", (t,)) for t in types]
     if name == "flash_attention_f32_d512.cu":
-        return [("flash_f32_d512_kernel", ())] + [("flash_f32_d512_interp_kernel", m) for m in modes]
+        return [("flash_f32_d512_kernel", ())]
+    if name == "flash_attention_dmid.cu":
+        layouts = {"true": "flash16_dmid_rows_kernel", "false": "flash16_dmid_split_kernel"}
+        chunks = _all(r"return launch_modes<T, (\d), (true|false)>", text)
+        modes = _all(r"return launch_rows<T, NC, (true|false), (\d)>", text)
+        return [(layouts[rows], (t, nc, *m)) for t in types for nc, rows in chunks for m in modes]
+    if name == "flash_attention_dmid_f32.cu":
+        tiles = _all(r"return launch_modes<(\d), (\d+)>", text)  # (M blocks a warpgroup, keys a tile)
+        modes = _all(r"return launch<MBW, BK, (true|false), (\d)>", text)
+        return [("flash_f32_dmid_kernel", (*mt, *m)) for mt in tiles for m in modes]
     if name == "flash_attention_dwide.cu":
         tiles = re.findall(r"return launch<T, (\d+), f32 \? (\d+) : (\d+)>", text)  # (chunks, f32 rows, 16-bit rows)
         return [("flash_dwide_kernel", (t, nc, rf if t == "float" else r16)) for t in types for nc, rf, r16 in tiles] + [
@@ -79,7 +87,8 @@ def _expected(kernel: str, args: tuple) -> str:
     """The class each kernel belongs to: the attention's mode from its
     HAS_OWN, NSETS arguments (the last two), the D=512 self kernels, the wide
     kernel and its combine step, the convs and their layout passes."""
-    if kernel in ("flash_kernel", "flash_f32_kernel", "flash16_d512_interp_kernel", "flash_f32_d512_interp_kernel"):
+    if kernel in ("flash_kernel", "flash_f32_kernel", "flash16_dmid_rows_kernel", "flash16_dmid_split_kernel",
+                  "flash_f32_dmid_kernel"):
         return {("true", "2"): "attention kernel, fused_outer",
                 ("true", "0"): "attention kernel, self and cross"}.get(args[-2:], "attention kernel, other modes")
     if kernel in ("flash16_d512_kernel", "flash_f32_d512_kernel"):
@@ -116,13 +125,16 @@ def test_every_kernel_of_a_source_has_its_class(source):
 def test_modes_and_instances_cover_the_kernels():
     """The sources' dispatch gives what the port launches: the five modes of
     the D <= 160 kernels at four head dims in three types, the four endpoint
-    modes at D = 512, four wide instances a type with their combine steps."""
+    modes at D = 161-512 (bf16 and f16: 3, 4 and 5 chunks with a warpgroup
+    over its own rows, 3 and 4 chunks a warpgroup with D split; f32: four
+    tilings), four wide instances a type with their combine steps."""
     counts = {}
     for source in SOURCES:
         for kernel, _ in _instances(source, (CSRC / source).read_text()):
             counts[kernel] = counts.get(kernel, 0) + 1
     assert counts["flash_kernel"] == 2 * 4 * 5 and counts["flash_f32_kernel"] == 4 * 5
-    assert counts["flash16_d512_interp_kernel"] == 2 * 4 and counts["flash_f32_d512_interp_kernel"] == 4
+    assert counts["flash16_dmid_rows_kernel"] == 2 * 3 * 4 and counts["flash16_dmid_split_kernel"] == 2 * 2 * 4
+    assert counts["flash_f32_dmid_kernel"] == 4 * 4 and counts["flash16_d512_kernel"] == 2
     assert counts["flash_dwide_kernel"] == 3 * 4 and counts["flash_dwide_combine_kernel"] == 3
     assert counts["conv3x3_kernel"] == 2 * 2 and counts["blocked_f32_kernel"] == 4
 

@@ -1,6 +1,7 @@
 """Time the flash attention kernel launched alone at the main paths' shapes.
 
-    python3 tools/attention_bench.py [--reps 20] [--dtype bf16|f16|f32] [--d512 | --dwide] [--only TEXT] [--root DIR]
+    python3 tools/attention_bench.py [--reps 20] [--dtype bf16|f16|f32] [--d512 | --dmid | --dwide] [--only TEXT]
+                                     [--root DIR]
 
 For each shape class of ``chip_smoke.py`` phase 3 (bf16: SDXL at D=64, SD1.5
 at D=40/80/160 and SD1.5's IP-Adapter calls over 16 and 4 image tokens,
@@ -27,7 +28,19 @@ and its 77-key cross call, D = 1280 over 256 and 64), at (2,1,512,2048) and
 at a ragged D = 520, in every mode: launched alone and through the wrapper,
 beside the bound at the caller's D (f32 at three TF32 passes), the plain
 version and, in self and the inner modes, the fastest SDPA backend on the
-same inputs (the inner modes over [own; K_cross]). It checks each result against
+same inputs (the inner modes over [own; K_cross]). ``--dmid`` times the
+D=161-512 endpoint entries of ``--dtype`` (csrc/flash_attention_dmid.cu,
+flash_attention_dmid_f32.cu) at phase 21's shapes (SD 1.x at 320-wide heads:
+1 / 2 / 4 / 4 heads over 4096 / 1024 / 256 / 64 tokens, every endpoint mode,
+and the 77-key cross call) and at D = 200 and 384 (fused_outer over 1024
+tokens): launched alone (CUDA events over back-to-back launches, and the
+kernels' own device time from a profiler trace, which leaves out the host's
+launch work that the events of a call of a few microseconds measure) and
+through the wrapper, beside the bound at the caller's D (f32 at its 1.5
+TF32 + 1.5 bf16 passes, F32_D512_PASSES), the
+plain version and, in the inner modes, the fastest SDPA backend over [own;
+K_cross]; (B, S, H*D) projections viewed as (B, H, S, D), 7 frames with the
+coef-0/1 end rows as skip rows. It checks each result against
 the plain version (``chip_smoke.ATTN_TOL`` / ``F16_ATTN_TOL`` / ``F32_ATTN_TOL``). ``--root``
 imports the package and ``chip_smoke.py`` of another checkout (say, the
 parent commit unpacked under ``build/``): run both in one call, in turns, to
@@ -246,11 +259,104 @@ def bench_dwide(reps: int, name: str, only: str) -> dict:
     return result
 
 
+# (label, mode, H, Sq, L, D) of the D=161-512 entries: phase 21's shapes, then two other head dims
+DMID_SHAPES = [(f"{m} {Sq} D=320", m, H, Sq, Sq, 320) for H, Sq in ((1, 4096), (2, 1024), (4, 256), (4, 64))
+               for m in ("fused_outer", "pure_outer", "fused_inner", "pure_inner")] + [
+    ("cross fused_outer 4096x77 D=320", "fused_outer", 1, 4096, 77, 320),
+    ("fused_outer 1024 D=200", "fused_outer", 2, 1024, 1024, 200),
+    ("fused_outer 1024 D=384", "fused_outer", 2, 1024, 1024, 384)]
+
+
+def device_ms(fn, reps: int) -> float:
+    """Mean device time in ms of the kernel ``fn`` launches, over ``reps``
+    calls, from a profiler trace of the card: the kernel's own durations
+    (a mean over the launches the trace holds), with no host time between
+    launches (which the CUDA-event time of a call of a few microseconds is
+    made of)."""
+    import json
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+    kernels = [float(e["dur"]) for e in events if e.get("cat") == "kernel"]
+    if not kernels:  # the trace may drop an event now and then; none at all means it saw no kernel
+        raise SystemExit(f"the profiler saw none of {reps} launches")
+    return sum(kernels) / len(kernels) / 1000.0
+
+
+def bench_dmid(reps: int, name: str, only: str) -> dict:
+    """The D=161-512 endpoint entry of one dtype at DMID_SHAPES:
+    {label: ms alone}; prints each with its time through the wrapper, its
+    bound at the caller's D, the plain version's and, in the inner modes,
+    the fastest SDPA backend's over [own; K_cross] (:func:`dwide_sdpa`)."""
+    import torch
+
+    from aid_tpu_torch.models.layers import skip_mask
+    from aid_tpu_torch.ops.flash_attention import (
+        flash_interpolated_attention,
+        flash_interpolated_attention_plain,
+        kernel_launch,
+    )
+    import chip_smoke
+    from chip_smoke import attention_bound, cuda_ms
+
+    f32 = name == "f32"
+    dtype = {"bf16": torch.bfloat16, "f16": torch.float16, "f32": torch.float32}[name]
+    tol = {"bf16": chip_smoke.ATTN_TOL, "f32": chip_smoke.F32_ATTN_TOL}.get(name) or chip_smoke.F16_ATTN_TOL
+    passes = {"elem": 4, **chip_smoke.F32_D512_PASSES} if f32 else {"kind": name} if name == "f16" else {}
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(15)
+    B = 7
+    coef = torch.linspace(0.0, 1.0, B, device=dev)
+    kw = {"skip_endpoints": skip_mask(coef, B)}
+    result = {}
+    for label, mode, H, Sq, L, D in DMID_SHAPES:
+        if only not in label:
+            continue
+
+        def heads(n):
+            x = torch.randn((B, n, H * D), generator=gen, device=dev).to(dtype)
+            return x.view(B, n, H, D).transpose(1, 2)
+
+        q, k, v = heads(Sq), heads(L), heads(L)
+        out, launch = kernel_launch(q, k, v, coef, mode, **kw)
+        launch()
+        want = flash_interpolated_attention_plain(q, k, v, coef, mode, **kw)
+        err = (out.float() - want.float()).abs().max().item() / want.float().abs().max().item()
+        if not err <= tol:
+            raise SystemExit(f"{label}: the kernel disagrees with the plain version ({err:.3e})")
+        ms = cuda_ms(launch, reps)
+        dev_ms = device_ms(launch, reps)
+        wrapper_ms = cuda_ms(lambda: flash_interpolated_attention(q, k, v, coef, mode, **kw), reps)
+        plain_ms = cuda_ms(lambda: flash_interpolated_attention_plain(q, k, v, coef, mode, **kw), max(1, reps // 4))
+        bound_ms, by = attention_bound(mode, B, H, Sq, L, D, skip_rows=int(kw["skip_endpoints"].sum()), **passes)
+        lib, lib_ms = dwide_sdpa(q, k, v, coef, mode, want, reps)
+        sdpa = f"SDPA {lib} {lib_ms:.4f} ms (wrapper {wrapper_ms / lib_ms:.2f}x)" if lib else "SDPA —"
+        print(f"{name} {label:32s} (7,{H},{Sq},{D}) launch alone {ms:.4f} ms  device {dev_ms:.4f} ms  bound "
+              f"{bound_ms:.4f} ms ({by}, {bound_ms / dev_ms:.1%})  through the wrapper {wrapper_ms:.4f} ms  {sdpa}  "
+              f"plain {plain_ms:.4f} ms  max_abs_err/max|ref| {err:.3e}", flush=True)
+        result[f"{name} {label}"] = ms
+        del q, k, v, out, want, launch
+    return result
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--dtype", choices=("bf16", "f16", "f32"), default="bf16")
     ap.add_argument("--d512", action="store_true", help="the D=512 self-attention of --dtype (VAE mid block)")
+    ap.add_argument("--dmid", action="store_true", help="the D=161-512 endpoint entries of --dtype")
     ap.add_argument("--dwide", action="store_true", help="the wide entries (head dims past 512) of --dtype")
     ap.add_argument("--only", default="", help="time only the shapes whose label contains this text")
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]),
@@ -272,8 +378,10 @@ def main(argv=None) -> int:
     from chip_smoke import attention_bound, cuda_ms, phase_device
 
     card = phase_device()  # also sets full f32 matmuls (TF32 off) for the plain version
-    if args.d512 or args.dwide:
-        result = bench_d512(args.reps, args.dtype) if args.d512 else bench_dwide(args.reps, args.dtype, args.only)
+    if args.d512 or args.dwide or args.dmid:
+        result = (bench_d512(args.reps, args.dtype) if args.d512 else
+                  bench_dmid(args.reps, args.dtype, args.only) if args.dmid else
+                  bench_dwide(args.reps, args.dtype, args.only))
         print(f"on {card}, the package of {Path(args.root).resolve()}", flush=True)
         print(json.dumps(result), flush=True)
         return 0

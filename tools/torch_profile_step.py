@@ -44,11 +44,12 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 # kernels by source (demangled names, template arguments in order): the
 # attention's mode is its HAS_OWN, NSETS arguments after the element type and
 # head dim (flash_kernel<T, D, HAS_OWN, NSETS>, flash_f32_kernel<D, HAS_OWN,
-# NSETS>, the D=512 endpoint kernels' <T, HAS_OWN, NSETS> and <HAS_OWN,
-# NSETS>): fused_outer is true, 2, self and cross true, 0. The D=512 self
-# kernels and the wide kernel (its mode a runtime argument) and its combine
-# step have classes of their own.
-_MODED = r"(?:flash_kernel<\w+, \d+, |flash_f32_kernel<\d+, |flash16_d512_interp_kernel<\w+, |flash_f32_d512_interp_kernel<)"
+# NSETS>, the D=161-512 endpoint kernels' <T, chunks, HAS_OWN, NSETS> and
+# <M blocks, keys, HAS_OWN, NSETS>): fused_outer is true, 2, self and cross
+# true, 0. The D=512 self kernels and the wide kernel (its mode a runtime
+# argument) and its combine step have classes of their own.
+_MODED = r"(?:flash_kernel<\w+, \d+, |flash_f32_kernel<\d+, |flash16_dmid_(?:rows|split)_kernel<\w+, \d+, |" \
+         r"flash_f32_dmid_kernel<\d+, \d+, )"
 CLASSES = [
     ("attention kernel, fused_outer", re.compile(_MODED + r"true, 2>")),
     ("attention kernel, self and cross", re.compile(_MODED + r"true, 0>")),
