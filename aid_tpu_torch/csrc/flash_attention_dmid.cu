@@ -1,8 +1,10 @@
-// Flash interpolated attention, bf16 and f16, head dims 161-512 in the four endpoint modes, sm_90a.
+// Flash interpolated attention, bf16 and f16, head dims 161-512 in the four endpoint modes and in self
+// mode, sm_90a.
 //
-// Replaces the endpoint-mode contract of the Pallas TPU kernels behind
-// aid_tpu/ops/flash_attention.py::flash_interpolated_attention at head dims
-// 161-512: the streaming `_kernel` (flash_attention.py:101) and the
+// Replaces the endpoint-mode and self-mode contracts of the Pallas TPU
+// kernels behind aid_tpu/ops/flash_attention.py::flash_interpolated_attention
+// at head dims 161-512 (self mode at D = 512 exactly stays on the VAE's D=512
+// self kernels, flash_attention_bf16_d512.cu): the streaming `_kernel` (flash_attention.py:101) and the
 // whole-stream-resident `_kernel_onepass` (flash_attention.py:339), which the
 // JAX wrapper runs there at D padded to the next multiple of 128. On the
 // model's path that is an SD 1.x UNet whose `attention_head_dim` list is read
@@ -12,8 +14,13 @@
 //   pure_outer   (1-c_b) Attn(q, K_begin)        + c_b Attn(q, K_end)
 //   fused_inner  Attn(q, [k_b; K_cross]),  K_cross = lerp(K_begin, K_end, c_b)
 //   pure_inner   Attn(q, K_cross)
+//   self         Attn(q, [k_b])
 // with K_cross / V_cross lerped in f32 by the wrapper and passed in the begin
-// slot, and a skip row (fused modes) attending its own K/V alone.
+// slot, and a skip row (fused modes) attending its own K/V alone. Self mode
+// is the instance with no endpoint set (NSETS = 0): its key stream is the own
+// segment alone, as on a skip row, with no endpoint map, no park and no
+// workspace (the uncond pass of a UNet with 161-512-wide heads, its 77-key
+// cross calls, and the late steps of `interpolate`).
 //
 // What bounds it on the card: at (7,1,4096,320) fused_outer a call is ~365
 // GFLOP against ~80 MB of operands, so the tensor cores bind (0.369 ms at
@@ -325,8 +332,9 @@ __device__ __forceinline__ void wgmma_rs256(float (&d)[M], const uint32_t (&a)[4
 #undef AID_ASM
 }
 
-// The key stream of batch row b: the own segment's tiles (fused modes), then
-// NSETS segments of endpoint tiles, or the own tiles alone on a skip row
+// The key stream of batch row b: the own segment's tiles (fused modes and
+// self mode), then NSETS segments of endpoint tiles (none in self mode), or
+// the own tiles alone on a skip row
 template <bool HAS_OWN, int NSETS, int BK>
 struct Stream {
   int n_own, n_ep, ntiles;
@@ -434,8 +442,9 @@ __device__ __forceinline__ void blend_sets(float (&o)[NO], float& m0, float& m1,
 
 // Maps: q, k, v, k_begin, v_begin, k_end, v_end, out, each (D, H, S, B) with
 // boxes of 64 columns by 64 (q, out) or the tile's keys.
-// HAS_OWN: the row's own K/V segment leads the stream (fused modes).
-// NSETS: 1 = one cross segment (inner), 2 = begin and end blended by coef (outer).
+// HAS_OWN: the row's own K/V segment leads the stream (fused modes, self).
+// NSETS: 0 = none (self: the own segment alone), 1 = one cross segment
+// (inner), 2 = begin and end blended by coef (outer).
 template <class T, int NC, bool HAS_OWN, int NSETS>
 __global__ void __launch_bounds__(kThreads, 1)
     flash16_dmid_rows_kernel(const __grid_constant__ CUtensorMap qm, const __grid_constant__ CUtensorMap km,
@@ -925,15 +934,17 @@ int launch_split(const CUtensorMap (&m)[8], const Params& p, int H, int B, cudaS
   return (int)cudaGetLastError();
 }
 
-// one layout instance in the four endpoint modes
+// one layout instance in the four endpoint modes and self mode (n_sets 0)
 template <class T, int NC, bool ROWS>
 int launch_modes(const CUtensorMap (&m)[8], const Params& p, int H, int B, int has_own, int n_sets, cudaStream_t s) {
   if constexpr (ROWS) {
+    if (n_sets == 0) return launch_rows<T, NC, true, 0>(m, p, H, B, s);
     if (has_own && n_sets == 1) return launch_rows<T, NC, true, 1>(m, p, H, B, s);
     if (has_own && n_sets == 2) return launch_rows<T, NC, true, 2>(m, p, H, B, s);
     if (!has_own && n_sets == 1) return launch_rows<T, NC, false, 1>(m, p, H, B, s);
     return launch_rows<T, NC, false, 2>(m, p, H, B, s);
   } else {
+    if (n_sets == 0) return launch_split<T, NC, true, 0>(m, p, H, B, s);
     if (has_own && n_sets == 1) return launch_split<T, NC, true, 1>(m, p, H, B, s);
     if (has_own && n_sets == 2) return launch_split<T, NC, true, 2>(m, p, H, B, s);
     if (!has_own && n_sets == 1) return launch_split<T, NC, false, 1>(m, p, H, B, s);
@@ -949,9 +960,10 @@ int entry(const void* const (&ptrs)[8], const void* coef, const void* skip, void
   p.Sq = (int)dims[2];
   p.Lk = (int)dims[3];
   p.Le = (int)dims[4];
-  if (B <= 0 || H <= 0 || p.Sq <= 0 || p.Lk <= 0 || p.Le <= 0) return (int)cudaErrorInvalidValue;
+  if (B <= 0 || H <= 0 || p.Sq <= 0 || p.Lk <= 0 || (n_sets > 0 && p.Le <= 0)) return (int)cudaErrorInvalidValue;
   if (D <= 160 || D > 512 || D % 8 != 0) return (int)cudaErrorInvalidValue;  // 16-byte rows
-  if ((n_sets != 1 && n_sets != 2) || (n_sets == 2 && (coef == nullptr || work == nullptr))) {
+  // self mode (n_sets 0) streams the own segment: it needs has_own and reads no endpoint
+  if (n_sets < 0 || n_sets > 2 || (n_sets == 0 && !has_own) || (n_sets == 2 && (coef == nullptr || work == nullptr))) {
     return (int)cudaErrorInvalidValue;
   }
   for (int i = 0; i < 8; ++i) {
@@ -976,7 +988,7 @@ int entry(const void* const (&ptrs)[8], const void* coef, const void* skip, void
   CUtensorMap m[8];
   for (int i = 0; i < 8; ++i) {
     const long long* st = dims + 6 + 3 * i;
-    if (!has_own && (i == 1 || i == 2)) {  // a map the instance never reads: any valid one
+    if ((!has_own && (i == 1 || i == 2)) || (n_sets == 0 && i >= 3 && i < 7)) {  // never read: any valid map
       m[i] = m[0];
       continue;
     }
@@ -1002,14 +1014,16 @@ int entry(const void* const (&ptrs)[8], const void* coef, const void* skip, void
 
 }  // namespace
 
-// The endpoint modes at head dims 161-512: the C signature of
+// The endpoint modes and self mode at head dims 161-512: the C signature of
 // aid_flash_attn_bf16_dwide. dims are [B, H, Sq, Lk, Le, D, then (b, h, s)
 // element strides of q, k, v, k_begin, v_begin, k_end, v_end, out] (30
 // values; a b stride of 0 marks an endpoint shared by every row), D the
 // operands' head dim (161..512, a multiple of 8: 16-byte rows); coef (B,) f32;
-// skip (B,) bool or null; has_own 1 in the fused modes, 0 in the pure ones;
-// n_sets 2 in the outer modes, 1 in the inner ones (their lerped K/V in the
-// begin slot); work the outer modes' f32 workspace (null in the inner modes):
+// skip (B,) bool or null; has_own 1 in the fused modes and self mode, 0 in
+// the pure ones; n_sets 2 in the outer modes, 1 in the inner ones (their
+// lerped K/V in the begin slot), 0 in self mode (has_own 1: the own K/V
+// alone; coef, skip and work null, the endpoint pointers and Le not read);
+// work the outer modes' f32 workspace (null in the inner modes and self):
 // with NC = ceil(D / 64), for NC <= 5 B * H * ceil(Sq / 64 W) * W * (32 NC +
 // 4) * 128 floats, W the warpgroups a block (2 where B * H * ceil(Sq / 64) >
 // 132, else 1); for NC >= 6 B * H * ceil(Sq / 64) * (32 NCW + 4) * 256, NCW

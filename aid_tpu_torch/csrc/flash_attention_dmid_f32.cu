@@ -1,11 +1,14 @@
-// Flash interpolated attention, f32 in and out, head dims 161-512 in the four endpoint modes, sm_90a.
+// Flash interpolated attention, f32 in and out, head dims 161-512 in the four endpoint modes and in self
+// mode, sm_90a.
 //
-// Replaces the f32 endpoint-mode contract of the Pallas TPU kernels behind
-// aid_tpu/ops/flash_attention.py::flash_interpolated_attention at head dims
-// 161-512: `_kernel` (flash_attention.py:101) and `_kernel_onepass`
-// (flash_attention.py:339), reached from an f32 SD 1.x UNet whose heads are
-// 161-512 wide. The modes, the segments, the skip rows and the outer modes'
-// two softmax sets are flash_attention_dmid.cu's (see there).
+// Replaces the f32 endpoint-mode and self-mode contracts of the Pallas TPU
+// kernels behind aid_tpu/ops/flash_attention.py::flash_interpolated_attention
+// at head dims 161-512 (self mode at D = 512 exactly stays on the VAE's
+// flash_attention_f32_d512.cu): `_kernel` (flash_attention.py:101) and
+// `_kernel_onepass` (flash_attention.py:339), reached from an f32 SD 1.x UNet
+// whose heads are 161-512 wide. The modes, the segments, the skip rows, the
+// outer modes' two softmax sets and self mode's instance with no endpoint set
+// (NSETS = 0: the own segment alone) are flash_attention_dmid.cu's (see there).
 //
 // What bounds it on the card: the products. Plain TF32 keeps ~4e-4 of max
 // |out|, over the f32 promise, and f32 outside the tensor cores runs at 67
@@ -188,8 +191,9 @@ __device__ __forceinline__ void make_klo(const unsigned char* kt, unsigned char*
   }
 }
 
-// HAS_OWN: the row's own K/V segment leads the stream (fused modes).
-// NSETS: 1 = one cross segment (inner), 2 = begin and end blended by coef (outer).
+// HAS_OWN: the row's own K/V segment leads the stream (fused modes, self).
+// NSETS: 0 = none (self: the own segment alone), 1 = one cross segment
+// (inner), 2 = begin and end blended by coef (outer).
 // Maps: q, k, v, k_begin, v_begin, k_end, v_end, each (D, H, S, B) with
 // boxes of 32 columns by 64 (q) or BK rows.
 template <int MBW, int BK, bool HAS_OWN, int NSETS>
@@ -611,6 +615,7 @@ int launch(const CUtensorMap (&m)[7], const Params& p, int H, int B, cudaStream_
 
 template <int MBW, int BK>
 int launch_modes(const CUtensorMap (&m)[7], const Params& p, int H, int B, int has_own, int n_sets, cudaStream_t s) {
+  if (n_sets == 0) return launch<MBW, BK, true, 0>(m, p, H, B, s);
   if (has_own && n_sets == 1) return launch<MBW, BK, true, 1>(m, p, H, B, s);
   if (has_own && n_sets == 2) return launch<MBW, BK, true, 2>(m, p, H, B, s);
   if (!has_own && n_sets == 1) return launch<MBW, BK, false, 1>(m, p, H, B, s);
@@ -624,10 +629,12 @@ int launch_modes(const CUtensorMap (&m)[7], const Params& p, int H, int B, int h
 // Lk, Le, D, then (b, h, s) element strides of q, k, v, k_begin, v_begin,
 // k_end, v_end, out] (30 values; a b stride of 0 marks an endpoint shared by
 // every row), D the operands' head dim (161..512, a multiple of 4: 16-byte
-// rows); has_own 1 in the fused modes; n_sets 2 in the outer modes, 1 in the
-// inner ones (their lerped K/V in the begin slot); work the outer modes' f32
+// rows); has_own 1 in the fused modes and self mode; n_sets 2 in the outer
+// modes, 1 in the inner ones (their lerped K/V in the begin slot), 0 in self
+// mode (has_own 1: the own K/V alone; coef, skip and work null, the endpoint
+// pointers and Le not read); work the outer modes' f32
 // workspace, B * H * ceil(Sq / 64) * (32 MBW + 4) * 256 floats with MBW =
-// ceil(ceil(ceil(D / 32) / 2) / 2) (null in the inner modes). The inputs are
+// ceil(ceil(ceil(D / 32) / 2) / 2) (null in the inner modes and self). The inputs are
 // f32 with the head dim contiguous, 16-byte aligned, their other strides
 // multiples of 4 elements; the output is written at its own strides. Returns
 // the launch's cudaError_t (0 on success).
@@ -636,9 +643,12 @@ extern "C" int aid_flash_attn_f32_dmid(const void* q, const void* k, const void*
                                        void* work, const long long* dims, float scale, int has_own, int n_sets,
                                        void* stream) {
   const int B = (int)dims[0], H = (int)dims[1], D = (int)dims[5];
-  if (B <= 0 || H <= 0 || dims[2] <= 0 || dims[3] <= 0 || dims[4] <= 0) return (int)cudaErrorInvalidValue;
+  if (B <= 0 || H <= 0 || dims[2] <= 0 || dims[3] <= 0 || (n_sets > 0 && dims[4] <= 0)) {
+    return (int)cudaErrorInvalidValue;
+  }
   if (D <= 160 || D > 512 || D % 4 != 0) return (int)cudaErrorInvalidValue;
-  if ((n_sets != 1 && n_sets != 2) || (n_sets == 2 && (coef == nullptr || work == nullptr))) {
+  // self mode (n_sets 0) streams the own segment: it needs has_own and reads no endpoint
+  if (n_sets < 0 || n_sets > 2 || (n_sets == 0 && !has_own) || (n_sets == 2 && (coef == nullptr || work == nullptr))) {
     return (int)cudaErrorInvalidValue;
   }
   const void* ptrs[7] = {q, k, v, kb, vb, ke, ve};
@@ -671,7 +681,7 @@ extern "C" int aid_flash_attn_f32_dmid(const void* q, const void* k, const void*
   CUtensorMap m[7];
   for (int i = 0; i < 7; ++i) {
     const long long* st = dims + 6 + 3 * i;
-    if (!has_own && (i == 1 || i == 2)) {  // a map the instance never reads: any valid one
+    if ((!has_own && (i == 1 || i == 2)) || (n_sets == 0 && i >= 3)) {  // never read: any valid map
       m[i] = m[0];
       continue;
     }

@@ -118,7 +118,7 @@ def library() -> ctypes.CDLL:
     for name in ("aid_flash_attn_f16", "aid_flash_attn_f32"):
         getattr(lib, name).argtypes = lib.aid_flash_attn_bf16.argtypes
         getattr(lib, name).restype = ctypes.c_int
-    # the endpoint modes at D = 161-512 (flash_attention_dmid.cu, flash_attention_dmid_f32.cu):
+    # the endpoint modes and self mode at D = 161-512 (flash_attention_dmid.cu, flash_attention_dmid_f32.cu):
     # the same signature with the outer modes' f32 workspace (or null) after skip
     # and the wide entries past 512 (flash_attention_dwide.cu), every mode, the same signature
     for name in ("aid_flash_attn_bf16_dmid", "aid_flash_attn_f16_dmid", "aid_flash_attn_f32_dmid",

@@ -22,14 +22,19 @@ The kernels by head dim, each in bf16, f16 and f32:
     :func:`flash_interpolated_attention_f32`) in ``launches`` and, per
     instance head dim, ``launches_by_head_dim``;
   * D = 512, self mode (the VAE mid-block attention, one head over 4096
-    tokens at 512px, 16384 at 1024px): ``csrc/flash_attention_f32_d512.cu``
+    tokens at 512px, 16384 at 1024px; past the dtype's
+    :data:`DMID_SELF_MAX` also the head dims below 512, padded to 512):
+    ``csrc/flash_attention_f32_d512.cu``
     (wgmma, both products in three passes, D split across two consumer
     warpgroups) and ``csrc/flash_attention_bf16_d512.cu`` (bf16 and f16),
     reached through :func:`flash_self_attention_f32`,
     :func:`flash_self_attention_bf16` and :func:`flash_self_attention_f16`
     and counted by their ``launches``;
-  * D = 161-512 in the four endpoint modes (a UNet whose heads are 161-512
-    wide): ``aid_flash_attn_{bf16,f16}_dmid`` in
+  * D = 161-512 in the four endpoint modes and D = 161 up to the dtype's
+    :data:`DMID_SELF_MAX` in self mode (a UNet whose heads are 161-512
+    wide; self mode is the kernels' instance with no endpoint set,
+    ``n_sets`` 0, streaming the own K/V alone):
+    ``aid_flash_attn_{bf16,f16}_dmid`` in
     ``csrc/flash_attention_dmid.cu`` and ``aid_flash_attn_f32_dmid`` in
     ``csrc/flash_attention_dmid_f32.cu``, at the caller's head dim (the
     kernels round it up to their column chunk, 64 or 32, by the tensor maps'
@@ -51,8 +56,8 @@ The kernels by head dim, each in bf16, f16 and f32:
     under ``launches_by_head_dim[DWIDE]``.
 A head dim that no instance takes is zero-padded to the next that does,
 as the JAX package pads (aid_tpu/ops/flash_attention.py:784, 800-801):
-below 160 to the next of 40, 64, 80, 160, between 160 and 512 to 512 in self
-mode (the D=512 self kernels) and to a multiple of 8 in the endpoint modes,
+below 160 to the next of 40, 64, 80, 160, from 161 to 512 to a multiple of 8
+(in self mode past :data:`DMID_SELF_MAX` to 512, the D=512 self kernels),
 past 512 to a multiple of 8 in every mode (16-byte rows; the D=161-512 and
 wide kernels take the rest of their padding from zero-filling copies); the
 scale stays the
@@ -101,8 +106,9 @@ KERNEL_ENTRIES = {torch.bfloat16: "aid_flash_attn_bf16", torch.float16: "aid_fla
 #: the C entry of the D=512 self-attention kernels by operand dtype
 D512_ENTRIES = {torch.bfloat16: "aid_flash_attn_bf16_d512", torch.float16: "aid_flash_attn_f16_d512",
                 torch.float32: "aid_flash_attn_f32_d512"}
-#: the C entry of the D=161-512 endpoint-mode kernels by operand dtype (the
-#: D <= 160 kernels' C signature and a workspace pointer)
+#: the C entry of the D=161-512 kernels (the endpoint modes, and self mode up
+#: to DMID_SELF_MAX of the dtype) by operand dtype (the D <= 160 kernels' C
+#: signature and a workspace pointer)
 DMID_ENTRIES = {torch.bfloat16: "aid_flash_attn_bf16_dmid", torch.float16: "aid_flash_attn_f16_dmid",
                 torch.float32: "aid_flash_attn_f32_dmid"}
 #: the bf16 and f16 D=161-512 kernel (csrc/flash_attention_dmid.cu): keys a
@@ -113,6 +119,18 @@ DMID_ROWS_BK, DMID_SPLIT_BK, DMID_ONE_WAVE = {3: 64, 4: 64, 5: 48}, 32, 132
 #: the f32 one (csrc/flash_attention_dmid_f32.cu): 32-key tiles up to this
 #: many 32-column chunks (kWideTileChunks), 16-key tiles past it
 DMID_F32_WIDE_TILE_CHUNKS = 10
+#: self mode's last head dim on the D=161-512 kernels' self instance (at the
+#: caller's D, a multiple of 8), by dtype; past it, up to 512, the D=512 self
+#: kernels take self mode (the VAE's exact 512, and below it on copies padded
+#: to 512). Measured in turns on an H100 (700 W; tools/attention_bench.py
+#: --dmid, PERF.md section 6): through the wrapper the bf16 and f16 self
+#: instance beats the padded route at every D measured up to 504 (at 504,
+#: (7,1,4096): 0.790-0.796 ms against 0.826-0.838, though launched alone it
+#: loses, 0.784-0.786 against 0.669-0.673); the f32 one ties it at 448
+#: ((7,1,4096): 4.28-4.30 against 4.23-4.33; (7,2,1024): 0.561-0.568 against
+#: 0.632-0.647) and loses at 504 (4.59-4.61 against 4.25-4.27): its 16-key
+#: tiles at 15-16 chunks of 32 columns are slower than the D=512 design's
+DMID_SELF_MAX = {torch.bfloat16: 511, torch.float16: 511, torch.float32: 448}
 
 
 def dmid_tiles(D: int, dtype=torch.bfloat16, B: int = 1, H: int = 1, Sq: int = 1) -> dict:
@@ -194,6 +212,14 @@ def dmid_columns(D: int, dtype=torch.bfloat16) -> int:
     return dmid_tiles(D, dtype)["chunks"] * (32 if dtype == torch.float32 else 64)
 
 
+def takes_d512_self(D: int, mode: AttnMode | str = AttnMode.SELF, dtype=torch.bfloat16) -> bool:
+    """Whether a call at head dim D in ``mode`` on ``dtype`` operands takes
+    the D=512 self kernels (:func:`d512_operands`): self mode past the
+    dtype's :data:`DMID_SELF_MAX` up to :data:`D512`. Every other call at
+    161-512 takes the D=161-512 entries."""
+    return AttnMode(mode) == AttnMode.SELF and DMID_SELF_MAX.get(dtype, D512) < D <= D512
+
+
 def instance_head_dim(Dp: int) -> int:
     """The head dim a launch at operand head dim Dp is counted under: Dp up
     to 160, :data:`D512` for the D=161-512 entries, :data:`DWIDE` for the
@@ -225,21 +251,23 @@ def flash_interpolated_attention_plain(
     return out
 
 
-def padded_head_dim(D: int, mode: AttnMode | str = AttnMode.SELF) -> int:
-    """The head dim the operands of a call at head dim D in ``mode`` are
-    padded to: the next of :data:`KERNEL_HEAD_DIMS` at or above D up to 160;
-    from 161 to 512 :data:`D512` in self mode (the D=512 self kernels) and D
-    rounded up to a multiple of 8 in the endpoint modes (the D=161-512
-    entries take any head dim with 16-byte rows and round it up to their
-    column chunk themselves); from 513 to :data:`DWIDE` D rounded up to a
-    multiple of 8 in every mode (the wide entries). Raises
+def padded_head_dim(D: int, mode: AttnMode | str = AttnMode.SELF, dtype=torch.bfloat16) -> int:
+    """The head dim the operands of a call at head dim D in ``mode`` on
+    ``dtype`` operands are padded to: the next of :data:`KERNEL_HEAD_DIMS`
+    at or above D up to 160; from 161 to 512 D rounded up to a multiple of
+    8 (the D=161-512 entries, in every mode, take any head dim with 16-byte
+    rows and round it up to their column chunk themselves), but
+    :data:`D512` where :func:`takes_d512_self` (self mode past the dtype's
+    :data:`DMID_SELF_MAX`: the D=512 self kernels); from 513 to
+    :data:`DWIDE` D rounded up to a multiple of 8 in every mode (the wide
+    entries). Raises
     ``NotImplementedError`` past :data:`DWIDE`, as the JAX wrapper raises
     past its block budget."""
     mode = AttnMode(mode)
     for Dp in KERNEL_HEAD_DIMS:
         if D <= Dp:
             return Dp
-    if D <= D512 and mode == AttnMode.SELF:
+    if takes_d512_self(D, mode, dtype):
         return D512
     if D <= DWIDE:
         return -(-D // 8) * 8
@@ -340,15 +368,15 @@ def _self_attention_d512(wrapper, small, q, k, v, scale):
     """The D=512 self-attention wrappers' shared body: the plain
     ``_softmax_attn`` on CPU tensors; on CUDA tensors of ``wrapper``'s dtype
     (:data:`_WRAPPER_DTYPES`) ``small`` (the interpolating wrapper of that
-    dtype: the D <= 160 kernels, or the wide entries past 512) at a head dim
-    of 160 or less or past 512, else the D=512 kernel, counted on
-    ``wrapper``."""
+    dtype: the D <= 160 kernels, the D=161-512 entries' self instance, or
+    the wide entries past 512) unless :func:`takes_d512_self`, else the
+    D=512 kernel, counted on ``wrapper``."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if not use_kernel(q, k, v):
         return _softmax_attn(q, k, v, scale)
     _check_dtype("q", q, _WRAPPER_DTYPES[wrapper.__name__])
-    if not KERNEL_HEAD_DIMS[-1] < q.shape[-1] <= D512:  # the D <= 160 kernels or the wide entries
+    if not takes_d512_self(q.shape[-1], dtype=q.dtype):  # the D <= 160, D=161-512 or wide entries
         return small(q, k, v, scale=scale)
     out, launch = d512_launch(q, k, v, scale)
     launch()
@@ -360,10 +388,11 @@ def flash_self_attention_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              scale: Optional[float] = None) -> torch.Tensor:
     """softmax(q k^T * scale) v in f32 with head dim 512 (the VAE mid-block
     contract): ``csrc/flash_attention_f32_d512.cu`` on CUDA tensors, the
-    plain ``_softmax_attn`` on CPU tensors. On CUDA a head dim between 160
-    and 512 pads to 512; one of 160 or less (a tiny VAE's) takes the D <= 160
-    kernel in self mode, padded where needed, and one past 512 the f32 wide
-    entry.
+    plain ``_softmax_attn`` on CPU tensors. On CUDA a head dim from 161 to
+    f32's :data:`DMID_SELF_MAX` (448) takes the f32 D=161-512 entry's self
+    instance (one from 449 to 511 pads to 512), one of 160 or less (a tiny
+    VAE's) the D <= 160 kernel in self mode, padded where needed, and one
+    past 512 the f32 wide entry.
 
     q: (B, H, Sq, D), k/v: (B, H, Lk, D), all f32. Returns (B, H, Sq, D) f32.
     """
@@ -380,9 +409,9 @@ def flash_self_attention_bf16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     attention of a bf16 VAE): ``csrc/flash_attention_bf16_d512.cu`` on CUDA
     tensors, the plain ``_softmax_attn`` (f32 logits and softmax, the
     probabilities rounded to bf16 before P V) on CPU tensors. On CUDA a head
-    dim between 160 and 512 pads to 512; one of 160 or less takes the bf16
-    D <= 160 kernel in self mode, padded where needed, and one past 512 the
-    bf16 wide entry.
+    dim from 161 to 511 (:data:`DMID_SELF_MAX`) takes the bf16 D=161-512
+    entry's self instance, one of 160 or less the bf16 D <= 160 kernel in
+    self mode, padded where needed, and one past 512 the bf16 wide entry.
 
     q: (B, H, Sq, D), k/v: (B, H, Lk, D), all bf16. Returns (B, H, Sq, D)
     bf16; on CUDA a view of a (B, Sq, H, D) buffer, as the other bf16 kernel
@@ -402,7 +431,8 @@ def flash_self_attention_f16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     on CUDA tensors, the plain ``_softmax_attn`` (f32 logits and softmax,
     the probabilities rounded to f16 before P V) on CPU tensors. On CUDA a
     head dim of 160 or less takes the f16 D <= 160 kernel in self mode, one
-    past 512 the f16 wide entry.
+    from 161 to 511 (:data:`DMID_SELF_MAX`) the f16 D=161-512 entry's self
+    instance, one past 512 the f16 wide entry.
 
     q: (B, H, Sq, D), k/v: (B, H, Lk, D), all f16. Returns (B, H, Sq, D)
     f16; on CUDA a view of a (B, Sq, H, D) buffer.
@@ -434,9 +464,8 @@ def kernel_operands(
     skip_endpoints: Optional[torch.Tensor] = None,  # (B,) bool: rows whose endpoint segments are dropped
 ) -> dict:
     """Check the operands of the interpolating kernel of q's dtype (bf16,
-    f16 or f32) and head dim (the D <= 160 kernels, the D = 161-512 ones in
-    the endpoint modes, the wide ones past 512 in every mode) and lay out one
-    call of its C entry (``entry``, :data:`KERNEL_ENTRIES`,
+    f16 or f32) and head dim (the D <= 160 kernels, the D = 161-512 ones,
+    the wide ones past 512, every mode) and lay out one call of its C entry (``entry``, :data:`KERNEL_ENTRIES`,
     :data:`DMID_ENTRIES` or :data:`DWIDE_ENTRIES`): ``tensors`` (q,
     k, v, k_begin, v_begin, k_end, v_end and the output, a (B, H, Sq, Dp)
     view of a new (B, Sq, H, Dp) buffer), ``dims`` (the entry's 30 shape and
@@ -452,14 +481,16 @@ def kernel_operands(
     instance takes is zero-padded to the next one, Dp
     (:func:`padded_head_dim`), after the endpoints are made and before the
     layout is checked; the scale stays D's. Self mode reads no endpoint: its
-    slots repeat k and v (from 161 to 512 it is the D=512 self kernels',
+    slots repeat k and v (from 161 to 512 ``n_sets`` 0, the D=161-512
+    entries' self instance, with no coefficient, skip row or workspace; past
+    the dtype's :data:`DMID_SELF_MAX` it is the D=512 self kernels',
     :func:`d512_operands`). Nothing here needs a device."""
     mode = AttnMode(mode)
     B, H, Sq, D = q.shape
     if q.dtype not in KERNEL_ENTRIES:
         raise NotImplementedError(f"the flash kernels take bf16, f16 or f32; q is {q.dtype}")
-    Dp = padded_head_dim(D, mode)
-    if KERNEL_HEAD_DIMS[-1] < Dp <= D512 and mode == AttnMode.SELF:
+    Dp = padded_head_dim(D, mode, q.dtype)
+    if takes_d512_self(D, mode, q.dtype):
         raise NotImplementedError(f"head dim {D} pads to {Dp} in self mode: the D={D512} self-attention kernels take "
                                   "it (d512_operands), not this one")
     if k.dim() != 4 or k.shape[:2] != (B, H) or k.shape[-1] != D or v.shape != k.shape:
@@ -627,11 +658,10 @@ def flash_interpolated_attention(
             q, k, v, coef, mode, k_begin=k_begin, v_begin=v_begin, k_end=k_end, v_end=v_end,
             scale=scale, skip_endpoints=skip_endpoints)
 
-    if mode == AttnMode.SELF and KERNEL_HEAD_DIMS[-1] < q.shape[-1] <= D512:  # the D=512 kernels, padded up to 512
+    if takes_d512_self(q.shape[-1], mode, q.dtype):  # the D=512 kernels (the VAE's), padded to 512 past DMID_SELF_MAX
         d512 = {torch.float32: flash_self_attention_f32, torch.bfloat16: flash_self_attention_bf16,
-                torch.float16: flash_self_attention_f16}.get(q.dtype)
-        if d512 is not None:
-            return d512(q, k, v, scale)
+                torch.float16: flash_self_attention_f16}[q.dtype]
+        return d512(q, k, v, scale)
     other = {torch.float32: flash_interpolated_attention_f32, torch.float16: flash_interpolated_attention_f16}
     if q.dtype in other:
         return other[q.dtype](q, k, v, coef, mode, k_begin=k_begin, v_begin=v_begin, k_end=k_end, v_end=v_end,
@@ -660,9 +690,10 @@ def flash_interpolated_attention_f32(
     ``csrc/flash_interpolated_attention_f32.cu`` (both products in 3xTF32
     on wgmma; at D = 160 two warpgroups split D) on CUDA tensors, the plain
     version on CPU tensors. A head dim from 161 to 512 in an endpoint mode
-    takes ``aid_flash_attn_f32_dmid`` (``csrc/flash_attention_dmid_f32.cu``,
-    at the caller's D); one from 513 to 2048, in every
-    mode, ``aid_flash_attn_f32_dwide`` (``csrc/flash_attention_dwide.cu``).
+    (in self mode to 448, :data:`DMID_SELF_MAX`) takes
+    ``aid_flash_attn_f32_dmid`` (``csrc/flash_attention_dmid_f32.cu``, at
+    the caller's D); one from 513 to 2048, in every mode,
+    ``aid_flash_attn_f32_dwide`` (``csrc/flash_attention_dwide.cu``).
     Returns (B, H, Sq, D) f32; on CUDA a view of a (B, Sq, H, Dp) buffer, as
     the bf16 kernel writes.
     """
@@ -694,8 +725,9 @@ def flash_interpolated_attention_f16(
     of ``csrc/flash_interpolated_attention.cu`` (``aid_flash_attn_f16``:
     the bf16 design with f16 wgmma, f32 scores, softmax and accumulation,
     P rounded to f16) on CUDA tensors, the plain version on CPU tensors. A
-    head dim from 161 to 512 in an endpoint mode takes
-    ``aid_flash_attn_f16_dmid`` (at the caller's D); one from 513 to 2048, in every mode,
+    head dim from 161 to 512 in an endpoint mode (in self mode to 511,
+    :data:`DMID_SELF_MAX`) takes ``aid_flash_attn_f16_dmid`` (at the
+    caller's D); one from 513 to 2048, in every mode,
     ``aid_flash_attn_f16_dwide``. Returns (B, H, Sq, D) f16; on CUDA a view
     of a (B, Sq, H, Dp) buffer.
     """
@@ -710,7 +742,7 @@ def flash_interpolated_attention_f16(
 
 def reset_launch_counts() -> None:
     """Set the interpolating kernels' launch counts (bf16, f16 and f32, total
-    and per instance head dim, 512 the endpoint-mode D=161-512 entries,
+    and per instance head dim, 512 the D=161-512 entries,
     :data:`DWIDE` the wide entries: a padded call counts under the instance
     that takes it) to 0."""
     for fn in (flash_interpolated_attention, flash_interpolated_attention_f16, flash_interpolated_attention_f32):

@@ -205,11 +205,16 @@ Phases (each prints its own lines; any failure exits non-zero):
  21. D=320       after phase 20: the SD1.x UNet with 320-wide heads through
                  the loader, a fused_outer forward kernels vs plain in bf16
                  (two planted faults: c and 1 - c swapped, the own segment
-                 dropped), f32 and f16 (one each), interpolate() (PAID, 10
-                 DDIM steps, s/step); every attention launch on a D=161-512
-                 endpoint entry or a D=512 self one. Phase 3 holds the
-                 D=161-512 endpoint entries against their plain versions at
-                 its shapes, at D = 384 and at D = 200 in bf16, f16 and f32
+                 dropped), f32 and f16 (one each), a self-mode forward in
+                 each dtype (planted fault: the last key tile unmasked),
+                 interpolate() (PAID, 10 DDIM steps, s/step); every
+                 attention launch at D = 320 on a D=161-512 entry, self mode
+                 on its instance with no endpoint set (the f32 VAE's D=512
+                 self launch aside). Phase 3 holds the D=161-512 entries
+                 against their plain versions at its shapes, every mode, at
+                 D = 384 and at D = 200, self mode at 448 and 504 too (f32
+                 to 448), in bf16, f16 and f32, self mode timed beside the
+                 D=512 self route padded to 512 and SDPA
  22. one head    after phase 21: the SD1.x UNet with one head a level through
                  the loader, a fused_outer forward kernels vs plain in bf16
                  (two planted faults: c and 1 - c swapped, the own segment
@@ -217,8 +222,8 @@ Phases (each prints its own lines; any failure exits non-zero):
                  own chunk of the scores) and f16 (the own segment
                  dropped), interpolate() (PAID, 10 DDIM steps, s/step);
                  every attention launch at D = 640 / 1280 on a wide entry,
-                 every one at D = 320 on a D=161-512 or D=512 self entry, a forward's counts
-                 those of the UNet's attention modules. Phase 3 holds the
+                 every one at D = 320 on a D=161-512 entry, a forward's
+                 counts those of the UNet's attention modules. Phase 3 holds the
                  wide entries against their plain versions in bf16, f16 and
                  f32, every mode, at its shapes, at (2,1,512,2048) and at a
                  ragged D = 520
@@ -641,6 +646,7 @@ def phase_kernels(coef, sd_coef, fused_classes, sd21_classes):
         flash_self_attention_f16,
         flash_self_attention_f32,
         kernel_launch,
+        takes_d512_self,
     )
 
     print("== phase 3: kernels vs plain versions, bounds and library calls", flush=True)
@@ -670,8 +676,13 @@ def phase_kernels(coef, sd_coef, fused_classes, sd21_classes):
         timed under each backend that takes the input. f32 is held to
         F32_ATTN_TOL and bounded at three TF32 passes, f16 to F16_ATTN_TOL
         and bounded at the f16 tensor-core rate. A head dim from 161 to 512
-        in an endpoint mode takes the D=161-512 endpoint entry (f32 bounded
-        at its passes, F32_D512_PASSES), one past 512 the wide entry in every
+        takes the D=161-512 entry (in self mode up to the dtype's
+        DMID_SELF_MAX, its self instance; f32 bounded at its passes,
+        F32_D512_PASSES), timed in self mode beside the route before it, the
+        D=512 self kernels on copies padded to 512 (d512_ms: the copies and
+        the launch, as the wrapper made them; d512_kernel_ms: the launch
+        alone on operands d512_launch prepared once), one past 512 the wide
+        entry in every
         mode (f32 bounded at three TF32 passes): both bounded at the caller's
         D with the bound at the columns the kernel computes (D rounded up to
         the D=161-512 kernels' chunk, or the first of 640, 1024, 1280, 2048)
@@ -683,7 +694,7 @@ def phase_kernels(coef, sd_coef, fused_classes, sd21_classes):
         f32, f16 = dtype == torch.float32, dtype == torch.float16
         tol = F32_ATTN_TOL if f32 else F16_ATTN_TOL if f16 else ATTN_TOL
         dwide = D > D512
-        wide = dwide or (D > KERNEL_HEAD_DIMS[-1] and mode != "self")
+        wide = dwide or (D > KERNEL_HEAD_DIMS[-1] and not takes_d512_self(D, mode, dtype))
 
         def heads(x):
             return x.view(x.shape[0], x.shape[1], H, D).transpose(1, 2)
@@ -717,11 +728,20 @@ def phase_kernels(coef, sd_coef, fused_classes, sd21_classes):
 
         bound_ms, bound_by = bound_at(D)
         library = sdpa_backends(q, k, v, want, reps) if mode == "self" else {}
+        d512 = {}
+        if wide and not dwide and mode == "self":  # the route before: the D=512 self kernels, padded to 512
+            _, d512_alone = d512_launch(q, k, v)
+            d512 = {"d512_ms": cuda_ms(lambda: d512_launch(q, k, v)[1](), reps),
+                    "d512_kernel_ms": cuda_ms(d512_alone, reps)}
+            del d512_alone
         padded = ""
         if wide:
             Dk = dwide_tiles(D)[0] if dwide else dmid_columns(D, dtype)  # the columns the kernel computes
             padded_ms = bound_at(Dk)[0]
             padded = f"; bound at the padded D={Dk} {padded_ms:.3f} ms"
+            if d512:
+                padded += (f"; the D=512 self route padded to 512 {d512['d512_ms']:.4f} ms (launch alone "
+                           f"{d512['d512_kernel_ms']:.4f})")
             if mode in ("fused_inner", "pure_inner"):  # SDPA over [own; K_cross], K_cross lerped in f32
                 c4 = c.view(B, 1, 1, 1)
                 kb, vb = kw.get("k_begin", k[0]), kw.get("v_begin", v[0])
@@ -755,7 +775,7 @@ def phase_kernels(coef, sd_coef, fused_classes, sd21_classes):
         lib_name, lib_ms = fastest(library)
         return {"max_abs_err": err, "ms": ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                 "bound_by": bound_by, "library_ms": lib_ms, "library": lib_name,
-                **({"bound_padded_ms": padded_ms} if wide else {})}
+                **({"bound_padded_ms": padded_ms} if wide else {}), **d512}
 
     def attention_record(cases, coefs, main_label, self_label, dtype=torch.bfloat16):
         """Run ``cases``; the record is the main (fused_outer) case's, with
@@ -877,33 +897,45 @@ def phase_kernels(coef, sd_coef, fused_classes, sd21_classes):
         sd_coef, "SD1.5 fused_outer 4096", "SD1.5 self 4096", torch.float16)
     gen = main_gen
 
-    # the D=161-512 endpoint entries at phase 21's shapes (SD 1.x at 320-wide
-    # heads: 1 / 2 / 4 / 4 heads over 64^2 / 32^2 / 16^2 / 8^2 tokens, D =
-    # 320): every endpoint mode at each level and the 77-key cross call, and
-    # at D = 384 (bf16 / f16: D split across warpgroups; f32: 16-key tiles)
-    # and the ragged D = 200 over 32^2 tokens, in bf16, f16 and f32; the
-    # record is fused_outer (7,1,4096,320)'s, every case under ``shapes``
+    # the D=161-512 entries at phase 21's shapes (SD 1.x at 320-wide heads: 1
+    # / 2 / 4 / 4 heads over 64^2 / 32^2 / 16^2 / 8^2 tokens, D = 320): every
+    # endpoint mode and self mode at each level and the 77-key cross call in
+    # fused_outer and self mode, and at D = 384 (bf16 / f16: D split across
+    # warpgroups; f32: 16-key tiles) and the ragged D = 200 over 32^2 tokens,
+    # self mode at 448 and 504 too (f32's last head dim on the self instance,
+    # and bf16's and f16's last multiple of 8 on it: f32 takes 504 to the
+    # D=512 self kernels, so phase 3 leaves it out), in bf16, f16 and f32;
+    # the record is fused_outer (7,1,4096,320)'s, self_* self (7,1,4096,320)'s,
+    # every case under ``shapes``
     wide_cases = [(f"SD1.x D=320 {m} {Sq}", m, H, Sq, Sq, 320, reps, None)
                   for H, Sq, reps in ((1, 4096, 3), (2, 1024, 10), (4, 256, 20), (4, 64, 20))
-                  for m in ("fused_outer", "pure_outer", "fused_inner", "pure_inner")]
-    wide_cases.append(("SD1.x D=320 cross fused_outer 4096x77", "fused_outer", 1, 4096, 77, 320, 10, None))
+                  for m in ("fused_outer", "pure_outer", "fused_inner", "pure_inner", "self")]
+    wide_cases += [(f"SD1.x D=320 cross {m} 4096x77", m, 1, 4096, 77, 320, 10, None) for m in ("fused_outer", "self")]
     wide_cases += [(f"D={D} {m} 1024", m, 2, 1024, 1024, D, 10, None) for D in (384, 200)
-                   for m in ("fused_outer", "pure_outer", "fused_inner", "pure_inner")]
+                   for m in ("fused_outer", "pure_outer", "fused_inner", "pure_inner", "self")]
+    wide_cases += [(f"D={D} self 1024", "self", 2, 1024, 1024, D, 10, None) for D in (448, 504)]
     for name, dtype in (("flash_interpolated_attention(D=161-512)", torch.bfloat16),
                         ("flash_interpolated_attention_f16(D=161-512)", torch.float16),
                         ("flash_interpolated_attention_f32(D=161-512)", torch.float32)):
         gen = f16_gen if dtype == torch.float16 else main_gen
         worst, shapes = 0.0, {}
         for label, mode, H, Sq, L, D, reps, Le in wide_cases:
+            if takes_d512_self(D, mode, dtype):  # not this entry's call
+                continue
             r = attention(label, mode, sd_coef, H, Sq, L, D, reps if dtype != torch.float32 else max(1, reps // 2),
                           Le, dtype)
             worst = max(worst, r["max_abs_err"])
             shapes[f"{label} ({sd_coef.shape[0]},{H},{Sq},{D})"] = {
                 **{k: r[k] for k in ("ms", "kernel_ms", "plain_ms", "bound_ms", "bound_padded_ms", "library_ms")},
-                "bound_share": r["bound_ms"] / r["kernel_ms"]}
+                "bound_share": r["bound_ms"] / r["kernel_ms"],
+                **{k: r[k] for k in ("library", "d512_ms", "d512_kernel_ms") if mode == "self"}}
             if label == "SD1.x D=320 fused_outer 4096":
                 main = r
-        records[name] = {**main, "max_abs_err": worst, "shapes": shapes}
+            if label == "SD1.x D=320 self 4096":
+                self_case = r
+        records[name] = {**main, "max_abs_err": worst, "shapes": shapes,
+                         **{f"self_{k}": self_case[k] for k in ("ms", "kernel_ms", "bound_ms", "library_ms", "library",
+                                                               "d512_ms", "d512_kernel_ms")}}
     gen = main_gen
 
     # the wide entries at phase 22's shapes (SD 1.x with one head a level:
@@ -4053,6 +4085,23 @@ def own_dropped(plain):
     return fault
 
 
+def key_tail_unmasked(plain):
+    """A planted fault: the plain attention with self mode's last key tile
+    unmasked: the keys past the own K/V's length, up to the next multiple
+    of 64, read as zeros (a tile's fill past the tensor) and take part in
+    the softmax."""
+    import torch
+
+    from aid_tpu_torch.ops.attention import AttnMode
+
+    def fault(q, k, v, coef=None, mode="self", **kwargs):
+        if AttnMode(mode) == AttnMode.SELF:
+            pad = -k.shape[-2] % 64
+            k, v = (torch.nn.functional.pad(x, (0, 0, 0, pad)) for x in (k, v))
+        return plain(q, k, v, coef, mode, **kwargs)
+    return fault
+
+
 def check_wide_only(path: str, counts: dict, needed, allowed=()) -> None:
     """check_path, and no launch of an attention entry (D <= 160, D=512,
     the wide ones past 512, the self ones) other than ``needed`` and
@@ -4075,10 +4124,14 @@ def phase_wide_heads(card: str, device: str = "cuda", configs=None, steps: int =
     swapped, the own segment dropped), then ``interpolate`` (PAID, 7 frames,
     512px, ``steps`` DDIM steps, guidance 7.5), s/step; (b) one f32 and one
     f16 forward under F32_UNET_TOL / F16_SD15_UNET_TOL, each with a planted
-    fault. Every attention launch lands on an entry counted under D=512:
-    the D=161-512 endpoint entries and the D=512 self ones, none on the D <=
-    160 kernels. Returns the
-    paths' counts. ``device``/``configs`` exist for rehearsing on the CPU."""
+    fault; (c) in each dtype one self-mode forward (no AidContext: every
+    attention in self mode, as the uncond pass runs) under the same bound,
+    with self mode's last key tile unmasked as its planted fault. Every
+    attention launch at D = 320 lands on the D=161-512 entries (counted
+    under D=512; self mode through their instance with no endpoint set),
+    none on the D <= 160 kernels or the D=512 self ones; the one D=512 self
+    launch is the f32 VAE's. Returns the paths' counts. ``device``/``configs``
+    exist for rehearsing on the CPU."""
     import shutil
     import tempfile
 
@@ -4134,6 +4187,10 @@ def phase_wide_heads(card: str, device: str = "cuda", configs=None, steps: int =
                                      lambda a: unet(x, t, e, a), aid, tol, {n: faults[n] for n in fault_names})
         check_wide_only(f"{unet.dtype} SD1.x D=320 forward", counts, (f"{name}[D=512]",))
         paths.append(counts)
+        counts = check_unet_vs_plain(f"{unet.dtype} SD1.x D=320 unet self B=7 {s}x{s}", lambda a: unet(x, t, e, a),
+                                     None, tol, {"last key tile unmasked": (None, key_tail_unmasked)})
+        check_wide_only(f"{unet.dtype} SD1.x D=320 self forward", counts, (f"{name}[D=512]",))
+        paths.append(counts)
     del unets, unet, x, e, sample, ehs
     torch.cuda.empty_cache()
 
@@ -4149,7 +4206,7 @@ def phase_wide_heads(card: str, device: str = "cuda", configs=None, steps: int =
     check_images(f"SD1.x D=320 interpolate (PAID, {steps} DDIM steps, guidance {pipe.guidance_scale}, f32 VAE)",
                  images, (7, px, px, 3), times, elapsed, peak, card)
     check_wide_only("SD1.x D=320 interpolate", counts, ("flash_interpolated_attention[D=512]",),
-                    ("flash_self_attention_bf16", "flash_self_attention_f32"))
+                    ("flash_self_attention_f32",))  # the f32 VAE's D=512 attention
     print(f"SD1.x D=320 interpolate: attention launches {({n: c for n, c in counts.items() if c and 'attention' in n})}",
           flush=True)
     paths.append(counts)
@@ -4297,7 +4354,9 @@ def phase_one_head_a_level(card: str, device: str = "cuda", configs=None, steps:
     exchange dropped), and one f16 forward under F16_SD15_UNET_TOL with the
     own segment dropped (the slice faults move an f16 forward no more than
     its roundings do). Every attention launch at D = 640 / 1280 lands on
-    a wide entry, every one at D = 320 on a D=512 one (in a forward exactly
+    a wide entry, every one at D = 320 on a D=161-512 one, self mode too
+    (counted under D=512; the one D=512 self launch is the f32 VAE's), none
+    elsewhere (in a forward exactly
     the calls the UNet's attention modules make at each), none elsewhere.
     Returns the paths' counts. ``device``/``configs`` exist for rehearsing
     on the CPU."""
@@ -4339,7 +4398,7 @@ def phase_one_head_a_level(card: str, device: str = "cuda", configs=None, steps:
             or max(heads) <= 512 or pipe.unet.dtype != torch.bfloat16):
         fail(f"the loaded UNet config {cfg} is not the written one with one head a level past 512, or not bf16")
     # the calls a forward makes, by the instance that takes them: D = 320 the
-    # D=161-512 and D=512 self entries, 640 and 1280 the wide ones
+    # D=161-512 entries, 640 and 1280 the wide ones
     want = {}
     for m in pipe.unet.modules():
         if isinstance(m, CrossAttention):
@@ -4390,7 +4449,7 @@ def phase_one_head_a_level(card: str, device: str = "cuda", configs=None, steps:
                  "f32 VAE)", images, (7, px, px, 3), times, elapsed, peak, card)
     check_wide_only("SD1.x one-head interpolate", counts,
                     ("flash_interpolated_attention[D=512]", f"flash_interpolated_attention[D={DWIDE}]"),
-                    ("flash_self_attention_bf16", "flash_self_attention_f32"))
+                    ("flash_self_attention_f32",))  # the f32 VAE's D=512 attention
     print(f"SD1.x one head a level interpolate: attention launches "
           f"{({n: c for n, c in counts.items() if c and 'attention' in n})}", flush=True)
     paths.append(counts)
@@ -4407,6 +4466,10 @@ def kernels_line(kernels: dict, launches: dict) -> str:
     library call's name, the self case of the attention kernels, ...).
     ``kernels`` is phase 3's {name: record}, ``launches`` the counts summed
     over the paths."""
+    import torch
+
+    from aid_tpu_torch.ops.flash_attention import DMID_SELF_MAX
+
     flash_src = "aid_tpu_torch/csrc/flash_interpolated_attention.cu"
     conv_src = "aid_tpu_torch/csrc/conv3x3.cu"
     flash_f32_src = "aid_tpu_torch/csrc/flash_interpolated_attention_f32.cu"
@@ -4426,11 +4489,14 @@ def kernels_line(kernels: dict, launches: dict) -> str:
                    "up to 5 chunks each consumer warpgroup owns 64 query rows over all of D (no score exchange), two "
                    "such warpgroups a block past one wave of 64-row blocks, taking turns on named barriers to issue "
                    "their products, 48- or 64-key tiles in K and V rings of two or three slots; 6 to 8 chunks two "
-                   f"warpgroups split D and exchange partial scores (32-key tiles); over {segments}")
-    dmid_note = ("ms at fused_outer (7,1,4096,320), every case of phase 21's shapes and D = 384 and 200 under shapes; "
-                 "bound_ms at the caller's D, bound_padded_ms at the columns the kernel computes (D rounded up to its "
-                 "chunk); library_ms: SDPA over [own; K_cross] in the inner modes (none for the outer modes); "
-                 f"{attn_note}")
+                   f"warpgroups split D and exchange partial scores (32-key tiles); over {segments}; self mode the "
+                   "instance with no endpoint set (NSETS 0: the own segment alone, no park, no workspace)")
+    dmid_note = ("ms at fused_outer (7,1,4096,320), self_* at self (7,1,4096,320), every case of phase 21's shapes, "
+                 "D = 384 and 200 and self mode at 504 under shapes; bound_ms at the caller's D, bound_padded_ms at "
+                 "the columns the kernel computes (D rounded up to its chunk); library_ms: SDPA in self mode and "
+                 "over [own; K_cross] in the inner modes (none for the outer modes); d512_ms / d512_kernel_ms: self "
+                 "mode on the D=512 self kernels with q, k and v padded to 512 (the route before the self "
+                 f"instance), through the copies / the launch alone; {attn_note}")
     f32_wgmma = "wgmma 3xTF32 (raw hi), TMA, a split/transpose producer warpgroup"
     dwide_src = "aid_tpu_torch/csrc/flash_attention_dwide.cu"
     dwide_design = ("wgmma on the transposed products S^T = K Q^T and O^T = V^T P^T, the keys in M (128-key tiles as "
@@ -4555,11 +4621,13 @@ def kernels_line(kernels: dict, launches: dict) -> str:
         "flash_interpolated_attention(D=161-512)": (
             dmid_src, flash_replaces[0], ("flash_interpolated_attention[D=512]",),
             {**flash_replaces[1], "entry": "aid_flash_attn_bf16_dmid", "design": dmid_design,
-             "contract": f"bf16, head dims 161-512 at the caller's D, the four endpoint modes; {dmid_note}"}),
+             "contract": f"bf16, head dims 161-512 at the caller's D, the four endpoint modes, and self mode at "
+                         f"161-{DMID_SELF_MAX[torch.bfloat16]} (its self instance, n_sets 0); {dmid_note}"}),
         "flash_interpolated_attention_f16(D=161-512)": (
             dmid_src, flash_replaces[0], ("flash_interpolated_attention_f16[D=512]",),
             {**flash_replaces[1], "entry": "aid_flash_attn_f16_dmid", "design": dmid_design,
-             "contract": f"f16, head dims 161-512 at the caller's D, the four endpoint modes; {dmid_note}"}),
+             "contract": f"f16, head dims 161-512 at the caller's D, the four endpoint modes, and self mode at "
+                         f"161-{DMID_SELF_MAX[torch.float16]} (its self instance, n_sets 0); {dmid_note}"}),
         "flash_interpolated_attention_f32(D=161-512)": (
             "aid_tpu_torch/csrc/flash_attention_dmid_f32.cu", flash_replaces[0],
             ("flash_interpolated_attention_f32[D=512]",),
@@ -4568,9 +4636,11 @@ def kernels_line(kernels: dict, launches: dict) -> str:
                        "in three tensor-core passes (1.5 TF32 + 1.5 bf16: K's lo and P V's small terms as bf16), O^T = "
                        "V^T P^T in 64-row M blocks, two consumer warpgroups sharing a tile's Q K^T chunks and M blocks "
                        "and exchanging partial scores, 32-key tiles up to D = 320 (16 above) beside the resident Q "
-                       f"tile, over {segments}",
-             "contract": f"f32, head dims 161-512 at the caller's D, the four endpoint modes; bound_ms at the caller's "
-                         f"D with 1.5 TF32 + 1.5 bf16 passes; {dmid_note}"}),
+                       f"tile, over {segments}; self mode the instance with no endpoint set (NSETS 0)",
+             "contract": f"f32, head dims 161-512 at the caller's D, the four endpoint modes, and self mode at "
+                         f"161-{DMID_SELF_MAX[torch.float32]} (its self instance, n_sets 0); bound_ms at the caller's D "
+                         "with 1.5 TF32 "
+                         f"+ 1.5 bf16 passes; {dmid_note}"}),
         # every mode past head dim 512 (phase 22's SD 1.x UNet with one head a
         # level), one source, three element types
         **{f"flash_interpolated_attention{sfx}(D=513-2048)": (

@@ -134,8 +134,8 @@ def test_kernels_line_carries_bound_and_library_time():
     assert [e["replaces"].split(":")[1] for e in f16.values()] == ["101", "101", "101", "30", "47", "78"]
     assert {e["entry"] for e in f16.values()} == {"aid_flash_attn_f16", "aid_flash_attn_f16_d512", "aid_conv3x3_f16",
                                                  "aid_conv3x3_gnsilu_f16"}
-    # the D=161-512 endpoint entries: the two D=161-512 sources, their own C
-    # entries, each read from its dtype's count under D=512
+    # the D=161-512 entries: the two D=161-512 sources, their own C entries,
+    # each read from its dtype's count under D=512, self mode's instance named
     wide = {n: by_name[n] for n in KERNEL_NAMES[-6:-3]}
     assert [e["launches"] for e in wide.values()] == [11, 12, 13]
     assert [e["entry"] for e in wide.values()] == ["aid_flash_attn_bf16_dmid", "aid_flash_attn_f16_dmid",
@@ -143,7 +143,10 @@ def test_kernels_line_carries_bound_and_library_time():
     assert [e["source"].rsplit("/", 1)[1] for e in wide.values()] == ["flash_attention_dmid.cu"] * 2 + [
         "flash_attention_dmid_f32.cu"]
     assert all(e["replaces"] == "aid_tpu/ops/flash_attention.py:101" and e["library_ms"] is None
-               and "at the caller's D" in e["contract"] for e in wide.values())
+               and "at the caller's D" in e["contract"] and "NSETS 0" in e["design"] for e in wide.values())
+    # self mode's last head dim on the self instance: 511 in bf16 and f16, 448 in f32
+    assert [next(d for d in ("511", "448") if f"self mode at 161-{d} (its self instance, n_sets 0)" in e["contract"])
+            for e in wide.values()] == ["511", "511", "448"]
     # the wide entries past 512: one source, their own C entries, each read
     # from its dtype's count under DWIDE
     dwide = {n: by_name[n] for n in KERNEL_NAMES[-3:]}
@@ -765,13 +768,15 @@ def test_wide_heads_phase_follows_the_f16_phase():
     assert (main.index("phase_f16(card, args.steps)") < main.index("phase_wide_heads(card)")
             < main.index("phase_frames(card)") < main.index("kernels_line("))
     assert 'dir=os.path.join(ROOT, "build")' in src and "shutil.rmtree(root" in src
-    for check in ("check_unet_vs_plain(", "check_wide_only(", "run_image_path(", "coef_swapped", "own_dropped"):
+    for check in ("check_unet_vs_plain(", "check_wide_only(", "run_image_path(", "coef_swapped", "own_dropped",
+                  "key_tail_unmasked"):
         assert check in src, check
     cfg = loader.unet_config_from_diffusers(smoke.sd15_wide_head_configs()["unet"])
     assert cfg == dataclasses.replace(configs.SD15_UNET, num_attention_heads=(1, 2, 4, 4))
     assert [c // h for c, h in zip(cfg.block_out_channels, cfg.num_attention_heads)] == [320] * 4
     assert "safety_checker" not in smoke.sd15_wide_head_configs()
-    assert "wide_cases" in inspect.getsource(smoke.phase_kernels)
+    kernels = inspect.getsource(smoke.phase_kernels)
+    assert "wide_cases" in kernels and '"pure_inner", "self")' in kernels and "d512_launch(q, k, v)" in kernels
 
 
 def test_one_head_phase_follows_the_wide_heads_phase():
@@ -799,6 +804,25 @@ def test_one_head_phase_follows_the_wide_heads_phase():
     assert [c // h for c, h in zip(cfg.block_out_channels, cfg.num_attention_heads)] == [320, 640, 1280, 1280]
     kernels = inspect.getsource(smoke.phase_kernels)
     assert "dwide_cases" in kernels and "(512, 512, 2048, two, 3)" in kernels and "(1024, 1024, 520" in kernels
+
+
+def test_key_tail_fault_moves_self_mode_only():
+    """Phase 21's self-mode fault: the plain attention in self mode over
+    keys padded with zeros to the next multiple of 64 (a last key tile read
+    unmasked) moves a 77-key call, leaves a call whose keys fill their tiles
+    (64) as it was, and leaves every endpoint mode as it was."""
+    import torch
+
+    smoke = _load_smoke()
+    from aid_tpu_torch.ops.flash_attention import flash_interpolated_attention_plain as plain
+
+    g = torch.Generator().manual_seed(4)
+    q, k = torch.randn(2, 1, 10, 320, generator=g), torch.randn(2, 1, 77, 320, generator=g)
+    fault = smoke.key_tail_unmasked(plain)
+    assert not torch.allclose(fault(q, k, k), plain(q, k, k), rtol=1e-2, atol=1e-2)
+    assert torch.equal(fault(q, k[:, :, :64], k[:, :, :64]), plain(q, k[:, :, :64], k[:, :, :64]))
+    c = torch.tensor([0.3, 0.6])
+    assert torch.equal(fault(q, k, k, c, "fused_outer"), plain(q, k, k, c, "fused_outer"))
 
 
 def test_slice_fault_moves_one_slice():
@@ -851,8 +875,9 @@ def test_wide_heads_phase_rehearses_on_the_cpu(monkeypatch):
     192 / 384, 2 DDIM steps), torch.cuda's timing calls stubbed: the
     directory written, loaded and removed, three forwards with their planted
     faults over the bounds (the bounds set to the CPU's scale, where both
-    sides run the plain versions), the interpolate's 7 frames; only the
-    launch counts (no kernel here) are set aside."""
+    sides run the plain versions), a self-mode forward in each dtype with its
+    last key tile unmasked over the bound, the interpolate's 7 frames; only
+    the launch counts (no kernel here) are set aside."""
     smoke = _load_smoke()
     skipped = _stub_cuda_and_fail(monkeypatch, smoke)
     for tol in ("SD15_UNET_TOL", "F32_UNET_TOL", "F16_SD15_UNET_TOL"):
@@ -861,6 +886,6 @@ def test_wide_heads_phase_rehearses_on_the_cpu(monkeypatch):
     cfgs["unet"].update(block_out_channels=[192, 384], attention_head_dim=[1, 2])
     before = set(os.listdir(REPO / "build")) if (REPO / "build").is_dir() else set()
     paths = smoke.phase_wide_heads("cpu", device="cpu", configs=cfgs, steps=2)
-    assert len(paths) == 4 and all("flash_interpolated_attention[D=512]" in p for p in paths)
+    assert len(paths) == 7 and all("flash_interpolated_attention[D=512]" in p for p in paths)
     assert skipped and all("launch" in m for m in skipped)
     assert set(os.listdir(REPO / "build")) <= before  # the directory written is removed

@@ -35,6 +35,7 @@ from aid_tpu_torch.ops.flash_attention import (
     flash_self_attention_f16,
     flash_self_attention_f32,
     padded_head_dim,
+    takes_d512_self,
 )
 from aid_tpu_torch.ops.flash_attention import DWIDE, instance_head_dim
 from aid_tpu_torch.ops.routing import reference_ops
@@ -291,10 +292,11 @@ def test_flash_kernel_refuses_what_it_does_not_take(dev):
                          + [(D, m) for D in (200, 320) for m in MODES if (D, m) != (200, "self")])
 def test_flash_kernels_pad_head_dims(dev, dtype, D, mode):
     """A head dim that no instance takes is zero-padded to the next one that
-    does (below 160 to 40/64/80/160 in every mode; past it to 512 in self
-    mode, the D=512 self kernels; the D=161-512 endpoint entries take the
-    caller's D, a multiple of 8) and launches that instance once, counted
-    under the instance's head dim (512 for the D=161-512 entries); the
+    does (below 160 to 40/64/80/160 in every mode; past it the D=161-512
+    entries take the caller's D, a multiple of 8, in every mode, self mode
+    through their instance with no endpoint set) and launches that instance
+    once, counted under the instance's head dim (512 for the D=161-512
+    entries); the
     result, sliced back to D, matches the plain version at D with the
     unpadded scale: (B, S, H*D) projections viewed as (B, H, S, D), skip
     rows at both ends, shared endpoints (outer and fused inner modes) and
@@ -638,18 +640,53 @@ def test_flash_dwide_kernels_split_key_stream(dev, dtype, B, S, L, D, mode, spli
 
 @pytest.mark.parametrize("dtype", **DTYPES)
 def test_flash_d512_self_mode_keeps_its_entries(dev, dtype):
-    """Self mode past 160 still takes the D=512 self kernels (the VAE's, and
-    a 320-wide UNet's unconditional pass): one launch of the self entry,
-    none of the endpoint entry, matching the plain version."""
+    """Self mode at D = 512 (the VAE's) still takes the D=512 self kernels:
+    one launch of the self entry, none of the D=161-512 one; at 192 and 320
+    (a 320-wide UNet's unconditional pass) self mode takes the D=161-512
+    entry's self instance instead, counted under D=512 on the interpolating
+    wrapper, whether the call comes through the interpolating wrapper or the
+    self-attention one; each matches the plain version."""
     for D in (192, 320, 512):
         q = _randn((2, 1, 100, D), 720 + D, dtype)
         k, v = _randn((2, 1, 77, D), 721 + D, dtype), _randn((2, 1, 77, D), 722 + D, dtype)
-        before, self_before = ATTN_WRAPPER[dtype].launches_by_head_dim[512], D512_WRAPPER[dtype].launches
-        got = flash_interpolated_attention(q, k, v)
-        torch.cuda.synchronize()
-        assert D512_WRAPPER[dtype].launches == self_before + 1
-        assert ATTN_WRAPPER[dtype].launches_by_head_dim[512] == before
-        assert _attn_err(got, flash_interpolated_attention_plain(q, k, v)) < ATTN_RTOLS[dtype]
+        for fn in (flash_interpolated_attention, D512_WRAPPER[dtype]):
+            before, self_before = ATTN_WRAPPER[dtype].launches_by_head_dim[512], D512_WRAPPER[dtype].launches
+            got = fn(q, k, v)
+            torch.cuda.synchronize()
+            assert D512_WRAPPER[dtype].launches == self_before + (D == 512)
+            assert ATTN_WRAPPER[dtype].launches_by_head_dim[512] == before + (D != 512)
+            assert _attn_err(got, flash_interpolated_attention_plain(q, k, v)) < ATTN_RTOLS[dtype]
+
+
+@pytest.mark.parametrize("dtype", **DTYPES)
+@pytest.mark.parametrize("D", [192, 200, 320, 384, 448, 504])
+@pytest.mark.parametrize("B,H,S,L", [(3, 2, 130, 77), (7, 2, 1024, 333), (1, 1, 1, 1)])
+def test_flash_dmid_self_instance_matches_plain(dev, dtype, D, B, H, S, L):
+    """Self mode at 161-511 (f32 to 448, its DMID_SELF_MAX; past it one
+    launch of the D=512 self kernels): one launch of the D=161-512 entry of
+    the dtype with n_sets 0 at the caller's D (bf16 and f16: 3, 4 and 5 64-column
+    chunks with warpgroups over their own rows, one a block at (3,2,130) and
+    two at (7,2,1024), past one wave of 64-row blocks; 6 and 8 with D split;
+    f32: 32- and 16-key tiles, 2 to 4 M blocks a warpgroup; D = 200 ragged
+    against the chunks), counted under D=512 on the interpolating wrapper
+    and on no other kernel, matching the plain version: (B, S, H*D)
+    projections viewed as (B, H, S, D) (strided heads), queries and keys
+    ragged against every tile, one query over one key."""
+    def heads(x):
+        return x.view(x.shape[0], x.shape[1], H, D).transpose(1, 2)
+
+    q = heads(_randn((B, S, H * D), 730 + D, dtype))
+    k, v = heads(_randn((B, L, H * D), 731 + D, dtype)), heads(_randn((B, L, H * D), 732 + D, dtype))
+    d512 = takes_d512_self(D, "self", dtype)
+    assert padded_head_dim(D, "self", dtype) == (512 if d512 else D) and d512 == (dtype == torch.float32 and D > 448)
+    before = _all_launches()
+    got = flash_interpolated_attention(q, k, v)
+    torch.cuda.synchronize()
+    name = ATTN_WRAPPER[dtype].__name__
+    assert _launched(before) == ({D512_WRAPPER[dtype].__name__: 1} if d512 else {name: 1, f"{name}[D=512]": 1})
+    want = flash_interpolated_attention_plain(q, k, v)
+    assert got.shape == want.shape == (B, H, S, D) and got.dtype == dtype and torch.isfinite(got).all()
+    assert _attn_err(got, want) < ATTN_RTOLS[dtype]
 
 
 @pytest.mark.parametrize("D", [40, 64, 80, 160])

@@ -1,4 +1,5 @@
-"""The D=161-512 endpoint-mode kernels' data movement, replayed on the CPU.
+"""The D=161-512 kernels' data movement, replayed on the CPU: the four
+endpoint modes and self mode (the instance with no endpoint set).
 
 csrc/flash_attention_dmid.cu (bf16 and f16: the rows layout, each consumer
 warpgroup over its own 64 query rows and all of D, one or two warpgroups a
@@ -10,30 +11,42 @@ entry's own arguments (``ops.flash_attention.kernel_operands``): boxes over
 the caller's tensors (columns past D and rows past a segment zero-filled),
 the 128-byte swizzle, the wgmma descriptors and register fragments, the key
 stream's segments with their masked last tiles and skip rows, the outer
-modes' own state parked in the workspace and swapped word for word, and the
-output stored clipped at Sq and D. Their tile constants are read from the
-sources. Against the plain version in f32: bf16 and f16 to 1e-2 of max |ref|
-(P's rounding and the output's), f32 to 1e-5 (the three-pass split). Planted
-faults (a chunk too few, the own state not restored for the end set, a
-shared endpoint read at the row's batch) must miss those bounds.
+modes' own state parked in the workspace and swapped word for word, self
+mode's own segment alone, and the output stored clipped at Sq and D. Their
+tile constants are read from the sources. Against the plain version in f32:
+bf16 and f16 to 1e-2 of max |ref| (P's rounding and the output's), f32 to
+1e-5 (the three-pass split); self mode also against the JAX wrapper in
+interpret mode. Planted faults (a chunk too few, the own state not restored
+for the end set, a shared endpoint read at the row's batch, the last ragged
+own tile unmasked) must miss those bounds.
 """
 
 import math
 import re
 from pathlib import Path
 
+import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 
 import torch_helpers as th
+from aid_tpu.ops.flash_attention import flash_interpolated_attention as jax_flash
 from aid_tpu_torch.ops import flash_attention as FA
 from aid_tpu_torch.ops.attention import AttnMode
-from aid_tpu_torch.ops.flash_attention import dmid_tiles, flash_interpolated_attention_plain, kernel_operands
+from aid_tpu_torch.ops.flash_attention import (
+    dmid_tiles,
+    flash_interpolated_attention_plain,
+    kernel_operands,
+    takes_d512_self,
+)
 from test_torch_ops import _swizzle64, _swizzle128, _tf32_read, _tf32_rest, _wgmma_acc_index
 
 CSRC = Path(FA.__file__).resolve().parents[1] / "csrc"
 DTYPES = {"bf16": torch.bfloat16, "f16": torch.float16, "f32": torch.float32}
 ENDPOINT_MODES = ("fused_outer", "pure_outer", "fused_inner", "pure_inner")
+# the modes the entries take: the four endpoint modes and self mode (n_sets 0)
+REPLAY_MODES = (*ENDPOINT_MODES, "self")
 # the two query rows of each of a warpgroup's 128 threads in a wgmma accumulator: 16 warp + g and + 8
 _THREAD_ROWS = (16 * (torch.arange(128) // 32) + torch.arange(128) % 32 // 4,
                 16 * (torch.arange(128) // 32) + torch.arange(128) % 32 // 4 + 8)
@@ -55,8 +68,8 @@ def _runs(ops: dict, b: int) -> tuple:
     blends two sets."""
     Lk, Le = ops["dims"][3:5]
     own = [(1, 2, Lk)] if ops["has_own"] else []
-    if own and ops["skip"] is not None and bool(ops["skip"][b]):  # a skip row: its own segment alone
-        return [own], False
+    if own and (ops["n_sets"] == 0 or ops["skip"] is not None and bool(ops["skip"][b])):
+        return [own], False  # self mode, or a skip row: the own segment alone
     if ops["n_sets"] == 1:
         return [own + [(3, 4, Le)]], False
     return ([own] if own else []) + [[(3, 4, Le)], [(5, 6, Le)]], True
@@ -161,7 +174,9 @@ def _emulate_dmid16(ops: dict, fault: str | None = None) -> torch.Tensor:
     The output leaves through each warpgroup's part of the swizzled Q tile
     and a TMA store clipped at Sq and D. f32 arithmetic. ``fault``: "chunks"
     (a chunk too few: the kernel instance of one chunk less), "own_not_restored"
-    (:func:`_sets`), "shared_batch" (:func:`_box_reader`)."""
+    (:func:`_sets`), "shared_batch" (:func:`_box_reader`), "own_unmasked"
+    (the own segment's last ragged tile not masked: its keys past Lk, zeros
+    from the maps' fill, take part in the softmax)."""
     (B, H, Sq, D), strides, _ = _maps(ops)
     tensors = ops["tensors"]
     dt = tensors[0].dtype
@@ -224,7 +239,8 @@ def _emulate_dmid16(ops: dict, fault: str | None = None) -> torch.Tensor:
                     new = ([], [], [])
                     for w, (_, _, c0) in enumerate(qts):
                         sw = s[w].clone()
-                        sw[:, min(BK, length - r0):] = -math.inf
+                        if not (fault == "own_unmasked" and ki == 1):
+                            sw[:, min(BK, length - r0):] = -math.inf
                         mn = torch.maximum(m[w], sw.max(dim=1).values)
                         alpha = torch.exp2((m[w] - mn) * sl2)
                         p = torch.exp2(sw * sl2 - (mn * sl2)[:, None])
@@ -324,8 +340,8 @@ def _emulate_dmid_f32(ops: dict, fault: str | None = None) -> torch.Tensor:
     to bf16 in the bf16 passes) where the tensor cores read them, products
     summed in f64; the output is stored from O^T at the output's strides,
     head-dim rows past D and query rows past Sq dropped. ``fault``:
-    "chunks" (a chunk too few in Q K^T), "own_not_restored", "shared_batch"
-    (as :func:`_emulate_dmid16`)."""
+    "chunks" (a chunk too few in Q K^T), "own_not_restored", "shared_batch",
+    "own_unmasked" (as :func:`_emulate_dmid16`)."""
     (B, H, Sq, D), strides, _ = _maps(ops)
     tensors = ops["tensors"]
     t = dmid_tiles(D, torch.float32, B, H, Sq)
@@ -448,7 +464,8 @@ def _emulate_dmid_f32(ops: dict, fault: str | None = None) -> torch.Tensor:
                         scores.append(sw)
                     assert torch.equal(scores[0], scores[1])
                     s = scores[0]
-                    s[:, min(BK, length - r0):] = -math.inf
+                    if not (fault == "own_unmasked" and ki == 1):
+                        s[:, min(BK, length - r0):] = -math.inf
                     mn = torch.maximum(m, s.max(dim=1).values)
                     alpha = torch.exp2((m - mn) * sl2)
                     p = torch.exp2(s * sl2 - (mn * sl2)[:, None])
@@ -536,6 +553,7 @@ def _operands(dt: str, mode: str, D: int, endpoints: str, Le, B: int = 3, H: int
     ops = kernel_operands(q, k, v, coef, mode, skip_endpoints=skip, **eps)
     assert ops["entry"] == FA.DMID_ENTRIES[dtype] and ops["dims"][5] == D
     assert (ops["work"] is not None) == AttnMode(mode).is_outer
+    assert ops["n_sets"] == {"self": 0, "fused_inner": 1, "pure_inner": 1}.get(mode, 2)
     want = flash_interpolated_attention_plain(q.float(), k.float(), v.float(), coef, mode, skip_endpoints=skip,
                                               **{n: e.float() for n, e in eps.items()})
     return ops, want
@@ -557,7 +575,7 @@ TOL = {"bf16": 1e-2, "f16": 1e-2, "f32": 1e-5}
 # text tokens) and 33, each ragged against the 16-, 32-, 48- and 64-key tiles
 REPLAY_DIMS = (192, 200, 320, 384, 448, 512)
 REPLAY_ENDPOINTS = {"fused_outer": ("shared", 77), "pure_outer": ("per_row", 16), "fused_inner": ("rows", None),
-                    "pure_inner": ("shared", 4)}
+                    "pure_inner": ("shared", 4), "self": ("rows", None)}
 REPLAY_ENDPOINTS_ALT = {"fused_outer": ("rows", None), "pure_outer": ("shared", 33), "fused_inner": ("per_row", 4),
                         "pure_inner": ("per_row", 77)}
 
@@ -581,7 +599,7 @@ def test_dmid_kernels_data_movement_replayed(dt, D, mode):
 
 @pytest.mark.parametrize("dt", ["bf16", "f16"])
 @pytest.mark.parametrize("D", [192, 320])
-@pytest.mark.parametrize("mode", ENDPOINT_MODES)
+@pytest.mark.parametrize("mode", REPLAY_MODES)
 def test_dmid_rows_layout_two_warpgroups_replayed(dt, D, mode, monkeypatch):
     """The rows layout with two consumer warpgroups a block (128 query rows
     over each K/V tile), which the kernel takes where the grid of 64-row
@@ -589,7 +607,7 @@ def test_dmid_rows_layout_two_warpgroups_replayed(dt, D, mode, monkeypatch):
     grid takes it (the kernel and kernel_operands read it through
     dmid_tiles), 130 queries, so the last block's second warpgroup lies
     wholly past Sq; each warpgroup parks in its own row tile of the
-    workspace."""
+    workspace (self mode parks nothing)."""
     monkeypatch.setattr(FA, "DMID_ONE_WAVE", 2)
     assert dmid_tiles(D, DTYPES[dt], 3, 2, 130)["nwg"] == 2
     ep, Le = REPLAY_ENDPOINTS[mode]
@@ -607,6 +625,72 @@ def test_dmid_replay_catches_planted_faults(fault, D, dt):
     batch extent of 1), the fused_outer replay misses its bound by orders
     of magnitude."""
     assert _replay_err(dt, "fused_outer", D, "shared", 77, fault=fault) > 0.1
+
+
+# self mode's head dims on the D=161-512 entries: 3, 4 (200 ragged) and 5
+# chunks in the rows layout, 6 and 7 (run as 8) and 8 (504, the last multiple
+# of 8 under the D=512 self kernels' 512) in the split one; f32 6..16 chunks
+# (the wrapper sends f32 self mode past 448 to the D=512 self kernels, but
+# the entry takes it: its 15- and 16-chunk instances are replayed too)
+SELF_DIMS = (192, 200, 320, 384, 448, 504)
+
+
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("D", SELF_DIMS)
+@pytest.mark.parametrize("S,L", [(64, 37), (70, 77)])
+def test_dmid_self_instance_replayed(dt, D, S, L, monkeypatch):
+    """Self mode at 161-511: kernel_operands lays the call out for the
+    D=161-512 entry at the caller's D with has_own 1 and n_sets 0 (no
+    coefficient, skip row, workspace or endpoint tensor made; its endpoint
+    slots repeat k and v), and the entry's replay, which streams the own
+    segment alone with its last tile masked (37 and 77 keys ragged against
+    the 16-, 32-, 48- and 64-key tiles; 70 queries against the 64-row tile),
+    matches the plain version: bf16 and f16 to 1e-2 of max |ref|, f32 to
+    1e-5. f32 past 448, which the wrapper sends to the D=512 self kernels,
+    is laid out with the boundary lifted."""
+    assert takes_d512_self(D, "self", DTYPES[dt]) == (dt == "f32" and D > 448)
+    monkeypatch.setitem(FA.DMID_SELF_MAX, DTYPES[dt], 511)
+    ops, want = _operands(dt, "self", D, "rows", None, S=S, L=L)
+    assert ops["has_own"] == 1 and ops["n_sets"] == 0 and ops["coef"] is None and ops["skip"] is None
+    assert all(x is y for x, y in zip(ops["tensors"][3:7], ops["tensors"][1:3] * 2))
+    got = (_emulate_dmid_f32 if dt == "f32" else _emulate_dmid16)(ops)
+    assert th.max_rel_err(got.float().numpy(), want.numpy()) < TOL[dt]
+
+
+@pytest.mark.parametrize("dt", list(DTYPES))
+def test_dmid_self_replay_catches_planted_fault(dt):
+    """The self replay can fail: with the own segment's last ragged tile
+    unmasked (37 keys: the 27 past them in a 64-key tile, 11 in a 48-key
+    one, 27 in the f32 32-key tile's second, read as the maps' zeros, take
+    part in the softmax) it misses its bound more than tenfold (0.14-0.30 of
+    max |ref| against 1e-2 and 1e-5)."""
+    assert _replay_err(dt, "self", 200, "rows", None, fault="own_unmasked") > 0.1
+    assert _replay_err(dt, "self", 320, "rows", None, fault="own_unmasked") > 0.1
+
+
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("D", [200, 320])
+def test_dmid_self_matches_jax_interpret(dt, D):
+    """Self mode at D = 200 and 320 through the JAX wrapper's Pallas kernel
+    in interpret mode (which pads them to 256 and 384) on the same inputs,
+    rounded to the dtype: the port's plain version agrees to 1e-5 of max
+    |ref| (f32 on both sides; the online softmax's rounding, ~1e-6), and the
+    self entry's replay from the wrapper's C arguments to 1e-2 in bf16 and
+    f16 (P's rounding and the output's) and to 1e-5 in f32 (the three-pass
+    split)."""
+    B, H, S, L = 2, 2, 70, 77
+    rng = np.random.default_rng(D)
+    dtype = DTYPES[dt]
+    q, k, v = (torch.from_numpy(rng.standard_normal((B, n, H, D), dtype=np.float32)).to(dtype).transpose(1, 2)
+               for n in (S, L, L))
+    want = np.asarray(jax_flash(*(jnp.asarray(x.float().numpy()) for x in (q, k, v)), jnp.zeros((B,), jnp.float32),
+                                "self", block_q=64, block_k=64, interpret=True))
+    plain = flash_interpolated_attention_plain(q.float(), k.float(), v.float())
+    assert th.max_rel_err(plain.numpy(), want) < 1e-5
+    ops = kernel_operands(q, k, v)
+    assert ops["entry"] == FA.DMID_ENTRIES[dtype] and ops["dims"][5] == D and ops["n_sets"] == 0
+    got = (_emulate_dmid_f32 if dt == "f32" else _emulate_dmid16)(ops)
+    assert th.max_rel_err(got.float().numpy(), want) < TOL[dt]
 
 
 def test_dmid_tile_constants_follow_the_kernel_sources():
@@ -632,14 +716,15 @@ def test_dmid_tile_constants_follow_the_kernel_sources():
 
 
 @pytest.mark.parametrize("dt", list(DTYPES))
-@pytest.mark.parametrize("mode", ENDPOINT_MODES)
+@pytest.mark.parametrize("mode", REPLAY_MODES)
 def test_dmid_operands_pass_the_callers_tensors(dt, mode):
     """kernel_operands at D = 320 hands the D=161-512 entry the caller's q,
     k, v and endpoint tensors as they are (the same storage, no padded
-    copy; the inner modes' lerped endpoint is the one tensor made), dims[5]
-    the caller's 320 (the kernels' rounding of it: five 64-column chunks,
-    ten 32-column ones), and a workspace only where the outer modes park a
-    set, sized by dmid_tiles at the caller's chunk count."""
+    copy; the inner modes' lerped endpoint is the one tensor made; self mode
+    repeats k and v in the endpoint slots), dims[5] the caller's 320 (the
+    kernels' rounding of it: five 64-column chunks, ten 32-column ones), and
+    a workspace only where the outer modes park a set, sized by dmid_tiles
+    at the caller's chunk count."""
     dtype = DTYPES[dt]
     B, H, S, L, D = 3, 2, 64, 37, 320
     g = torch.Generator().manual_seed(5)
@@ -653,6 +738,9 @@ def test_dmid_operands_pass_the_callers_tensors(dt, mode):
         t = dmid_tiles(D, dtype, B, H, S)
         assert ops["work"].shape == (t["work_tiles"], t["park_words"], t["park_threads"])
         assert t["park_words"] == (100 if dt == "f32" else 164)
+    elif mode == "self":
+        assert ops["work"] is None and ops["n_sets"] == 0 and ops["dims"][4] == L
+        assert [x.data_ptr() for x in ops["tensors"][3:7]] == [k.data_ptr(), v.data_ptr()] * 2
     else:
         assert ops["work"] is None and ops["tensors"][3].shape == (B, H, 77, D)
     assert ops["out"].data_ptr() == ops["tensors"][7].data_ptr() and ops["out"].shape == (B, H, S, D)

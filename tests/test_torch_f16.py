@@ -174,10 +174,11 @@ def test_f16_conv_gnsilu_matches_pallas_interpret(hw, cin, cout, groups):
 def test_f16_routes_and_what_still_raises():
     """f16 operands take the f16 C entries (kernel_operands, d512_operands,
     with no device), the f16 wrappers route CPU tensors to their plain
-    versions and count nothing; a head dim of 200 outside self mode takes
-    the f16 D=161-512 endpoint entry at the caller's D (no padded copy),
-    whose replay from its C arguments matches the plain version; float64
-    and head dims over 2048 still raise."""
+    versions and count nothing; a head dim of 200 takes the f16 D=161-512
+    entry at the caller's D (no padded copy) in every mode, self mode
+    through its instance with no endpoint set, and the replay from its C
+    arguments matches the plain version; float64 and head dims over 2048
+    still raise."""
     g = torch.Generator().manual_seed(150)
     q = torch.randn(3, 2, 40, 80, generator=g).half()
     coef = torch.tensor([0.0, 0.5, 1.0])
@@ -194,13 +195,19 @@ def test_f16_routes_and_what_still_raises():
         kernel_operands(q.double(), q.double(), q.double())
     with pytest.raises(NotImplementedError):
         d512_operands(q512.double(), q512.double(), q512.double())
-    assert padded_head_dim(200, "fused_outer") == 200 and padded_head_dim(200, "self") == 512
+    assert padded_head_dim(200, "fused_outer") == 200 == padded_head_dim(200, "self")
+    assert padded_head_dim(512, "self") == 512
     q200 = torch.randn(3, 1, 64, 200, generator=g).half()
     ops = kernel_operands(q200, q200, q200, coef, "fused_outer")
     assert ops["entry"] == "aid_flash_attn_f16_dmid" and ops["dims"][5] == 200
     assert ops["tensors"][0].data_ptr() == q200.data_ptr()  # the caller's tensor, no padded copy
     got = dmid_tests._emulate_dmid16(ops)
     want = flash_interpolated_attention_plain(q200.float(), q200.float(), q200.float(), coef, "fused_outer")
+    assert th.max_rel_err(got.float().numpy(), want.numpy()) < 1e-2
+    ops = kernel_operands(q200, q200, q200)
+    assert ops["entry"] == "aid_flash_attn_f16_dmid" and ops["n_sets"] == 0 and ops["tensors"][0] is q200
+    got = dmid_tests._emulate_dmid16(ops)
+    want = flash_interpolated_attention_plain(q200.float(), q200.float(), q200.float())
     assert th.max_rel_err(got.float().numpy(), want.numpy()) < 1e-2
     with pytest.raises(NotImplementedError):
         padded_head_dim(2056, "fused_outer")

@@ -36,8 +36,9 @@ from aid_tpu_torch.ops.routing import reference_ops, use_kernel
 
 MODES = [m.value for m in AttnMode]
 HEAD_DIMS = list(KERNEL_HEAD_DIMS)  # 40, 64, 80, 160: SD1.x's three and SDXL's
-# head dims past 160, which the D=512 instances take padded in every mode
-# (an SD 1.x UNet with 320-wide heads, and the edges 192 and 512)
+# head dims past 160, which the D=161-512 entries take at the caller's D (self
+# mode at 512, the VAE's, the D=512 self kernels): an SD 1.x UNet with
+# 320-wide heads, and the edges 192 and 512
 WIDE_HEAD_DIMS = [192, 320, 512]
 
 # f32 attention on both sides: only summation order differs (~1e-7 of the
@@ -100,8 +101,8 @@ def test_flash_wrapper_matches_pallas_interpret(mode, D):
     mode: a ragged cross-attention-like shape (S=64 queries, 77 keys), coef
     0/1 endpoint rows marked as skip rows (dropped in fused modes), at every
     head dim the CUDA kernel has an instance for, and at 192, 320 and 512,
-    which the D=512 instances take (the JAX wrapper pads them to 256, 384
-    and 512)."""
+    which the D=161-512 entries and the D=512 self kernels take (the JAX
+    wrapper pads them to 256, 384 and 512)."""
     B, H, S, L = 3, 2, 64, 77
     q, k, v, _, _ = _attn_inputs(B, H, S, L, D, seed=10)
     coef = np.array([0.0, 0.35, 1.0], np.float32)
@@ -1442,8 +1443,8 @@ def test_flash_kernel_operands_f32(mode):
 
 
 # head dims that no instance takes, in every mode: below 160 (to 40/64/160)
-# and past it (to 512 in self mode; the D=161-512 endpoint entries take the
-# caller's 200 and 320, rounded up to their chunks in the kernel)
+# and past it (the D=161-512 entries take the caller's 200 and 320 in every
+# mode, self included, rounded up to their chunks in the kernel)
 PAD_CASES = [(D, mode) for D in (16, 32, 48, 100) for mode in MODES] + [(200, "self")] + [
     (D, mode) for D in (200, 320) for mode in MODES if (D, mode) != (200, "self")]
 
@@ -1453,22 +1454,19 @@ PAD_CASES = [(D, mode) for D in (16, 32, 48, 100) for mode in MODES] + [(200, "s
 def test_flash_operands_pad_head_dims(D, mode, dtype):
     """A head dim that no kernel instance takes is zero-padded, as the JAX
     wrapper pads (aid_tpu/ops/flash_attention.py:784, 800-801): below 160 to
-    the next of 40/64/80/160 in every mode (kernel_operands), between 160
-    and 512 to 512 in self mode for the D=512 self kernels (d512_operands).
-    In the endpoint modes from 161 to 512 the D=161-512 entries take the
-    caller's tensors at D (a multiple of 8), their kernels rounding D up to
-    their chunks by the tensor maps' zero fill (tests/test_torch_dmid.py).
-    Every operand the entry reads has the entry's head dim with zeros past
-    D, the scale is the unpadded D's, and ``out`` is the output sliced back
-    to D. The call replayed on the CPU (the kernels' replays; in self mode
-    at D = 200 the bf16 D=512 kernel's replay, in f32 the padded operands'
-    own softmax at the entry's scale) computes the plain version at the
-    unpadded D, with skip rows at both ends and shared endpoints of their
-    own ragged length; at D = 48 it is held against the JAX wrapper in
-    interpret mode too. f32 to 1e-5 of max |ref| (the 3xTF32 split and the
-    order of sums), bf16 to 1e-2 (P's bf16 rounding and the output's)."""
-    from aid_tpu_torch.ops.attention import _softmax_attn
-    from aid_tpu_torch.ops.flash_attention import d512_operands, kernel_operands, padded_head_dim
+    the next of 40/64/80/160 in every mode (kernel_operands). From 161 to
+    511 the D=161-512 entries take the caller's tensors at D (a multiple of
+    8) in every mode, self mode through their instance with no endpoint set,
+    their kernels rounding D up to their chunks by the tensor maps' zero
+    fill (tests/test_torch_dmid.py). Every operand the entry reads has the
+    entry's head dim with zeros past D, the scale is the unpadded D's, and
+    ``out`` is the output sliced back to D. The call replayed on the CPU
+    (the kernels' replays) computes the plain version at the unpadded D,
+    with skip rows at both ends and shared endpoints of their own ragged
+    length; at D = 48 it is held against the JAX wrapper in interpret mode
+    too. f32 to 1e-5 of max |ref| (the 3xTF32 split and the order of sums),
+    bf16 to 1e-2 (P's bf16 rounding and the output's)."""
+    from aid_tpu_torch.ops.flash_attention import kernel_operands, padded_head_dim
 
     g = torch.Generator().manual_seed(300 + D)
     B, H, S, L, Le = 3, 2, 70, 37, 21
@@ -1483,21 +1481,14 @@ def test_flash_operands_pad_head_dims(D, mode, dtype):
     eps = {} if mode == "self" else {n: torch.randn(H, Le, D, generator=g).to(dtype)
                                      for n in ("k_begin", "v_begin", "k_end", "v_end")}
     Dp = padded_head_dim(D, mode)
-    assert Dp == ({16: 40, 32: 40, 48: 64, 100: 160}.get(D) or (512 if mode == "self" else D))
-    if D > 160 and mode != "self":
+    assert Dp == ({16: 40, 32: 40, 48: 64, 100: 160}.get(D) or D)
+    if D > 160:
         from test_torch_dmid import _emulate_dmid16, _emulate_dmid_f32
 
         ops = kernel_operands(q, k, v, coef, mode, skip_endpoints=skip, **eps)
         assert ops["dims"][5] == Dp and ops["entry"].endswith("_dmid")
+        assert ops["n_sets"] == (0 if mode == "self" else 1 if "inner" in mode else 2)
         got = (_emulate_dmid_f32 if f32 else _emulate_dmid16)(ops)
-    elif Dp == 512:
-        ops = d512_operands(q, k, v)
-        assert ops["dims"][:4] == [B, H, S, L]
-        if f32:
-            qp, kp, vp = ops["tensors"][:3]
-            got = _softmax_attn(qp.double(), kp.double(), vp.double(), ops["scale"]).float()
-        else:
-            got = _emulate_flash_bf16_d512_kernel(ops)
     else:
         ops = kernel_operands(q, k, v, coef, mode, skip_endpoints=skip, **eps)
         assert ops["dims"][5] == Dp
@@ -1517,6 +1508,41 @@ def test_flash_operands_pad_head_dims(D, mode, dtype):
                              skip_endpoints=jnp.asarray(skip.numpy()), block_q=64, block_k=64, interpret=True,
                              **{n: jnp.asarray(e.float().numpy()) for n, e in eps.items()})
         assert th.max_rel_err(got.float().numpy(), np.asarray(jax_want)) < (FLASH_TOL if f32 else 1e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("D", [200, 320])
+def test_d512_operands_pad_self_head_dims(D, dtype):
+    """The D=512 self kernels' padded route, which the tools still time
+    beside the D=161-512 entries' self instance (tools/attention_bench.py
+    --dmid, chip_smoke.py phase 3): d512_operands zero-pads q, k and v from
+    D to 512 with the scale kept at D's, and the call replayed on the CPU
+    (the bf16 D=512 kernel's replay; in f32 the padded operands' own softmax
+    at the entry's scale) computes the plain version at D: 70 queries and 37
+    keys ragged against its tiles. f32 to 1e-5 of max |ref|, bf16 to 1e-2."""
+    from aid_tpu_torch.ops.attention import _softmax_attn
+    from aid_tpu_torch.ops.flash_attention import d512_operands, padded_head_dim
+
+    g = torch.Generator().manual_seed(300 + D)
+    B, H, S, L = 3, 2, 70, 37
+
+    def heads(n):
+        return torch.randn(B, n, H * D, generator=g).to(dtype).view(B, n, H, D).transpose(1, 2)
+
+    q, k, v = heads(S), heads(L), heads(L)
+    assert padded_head_dim(D, "self") == D  # the model's route: the D=161-512 entries' self instance
+    ops = d512_operands(q, k, v)
+    assert ops["dims"][:4] == [B, H, S, L] and ops["entry"].endswith("_d512")
+    assert all(x.shape[-1] == 512 and not x[..., D:].any() for x in ops["tensors"][:3])
+    assert ops["head_dim"] == D and ops["scale"] == D ** -0.5
+    if dtype == torch.float32:
+        qp, kp, vp = ops["tensors"][:3]
+        got = _softmax_attn(qp.double(), kp.double(), vp.double(), ops["scale"]).float()
+    else:
+        got = _emulate_flash_bf16_d512_kernel(ops)
+    assert ops["out"].shape == (B, H, S, D) and ops["out"].data_ptr() == ops["tensors"][-1].data_ptr()
+    want = flash_interpolated_attention_plain(q.float(), k.float(), v.float())
+    assert th.max_rel_err(got[..., :D].float().numpy(), want.numpy()) < (1e-5 if dtype == torch.float32 else 1e-2)
 
 
 def test_flash_f32_tile_constants_follow_the_kernel_source():

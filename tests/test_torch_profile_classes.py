@@ -125,16 +125,17 @@ def test_every_kernel_of_a_source_has_its_class(source):
 def test_modes_and_instances_cover_the_kernels():
     """The sources' dispatch gives what the port launches: the five modes of
     the D <= 160 kernels at four head dims in three types, the four endpoint
-    modes at D = 161-512 (bf16 and f16: 3, 4 and 5 chunks with a warpgroup
-    over its own rows, 3 and 4 chunks a warpgroup with D split; f32: four
-    tilings), four wide instances a type with their combine steps."""
+    modes and self mode at D = 161-512 (bf16 and f16: 3, 4 and 5 chunks with
+    a warpgroup over its own rows, 3 and 4 chunks a warpgroup with D split;
+    f32: four tilings), four wide instances a type with their combine
+    steps."""
     counts = {}
     for source in SOURCES:
         for kernel, _ in _instances(source, (CSRC / source).read_text()):
             counts[kernel] = counts.get(kernel, 0) + 1
     assert counts["flash_kernel"] == 2 * 4 * 5 and counts["flash_f32_kernel"] == 4 * 5
-    assert counts["flash16_dmid_rows_kernel"] == 2 * 3 * 4 and counts["flash16_dmid_split_kernel"] == 2 * 2 * 4
-    assert counts["flash_f32_dmid_kernel"] == 4 * 4 and counts["flash16_d512_kernel"] == 2
+    assert counts["flash16_dmid_rows_kernel"] == 2 * 3 * 5 and counts["flash16_dmid_split_kernel"] == 2 * 2 * 5
+    assert counts["flash_f32_dmid_kernel"] == 4 * 5 and counts["flash16_d512_kernel"] == 2
     assert counts["flash_dwide_kernel"] == 3 * 4 and counts["flash_dwide_combine_kernel"] == 3
     assert counts["conv3x3_kernel"] == 2 * 2 and counts["blocked_f32_kernel"] == 4
 

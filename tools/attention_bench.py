@@ -29,18 +29,27 @@ at a ragged D = 520, in every mode: launched alone and through the wrapper,
 beside the bound at the caller's D (f32 at three TF32 passes), the plain
 version and, in self and the inner modes, the fastest SDPA backend on the
 same inputs (the inner modes over [own; K_cross]). ``--dmid`` times the
-D=161-512 endpoint entries of ``--dtype`` (csrc/flash_attention_dmid.cu,
+D=161-512 entries of ``--dtype`` (csrc/flash_attention_dmid.cu,
 flash_attention_dmid_f32.cu) at phase 21's shapes (SD 1.x at 320-wide heads:
-1 / 2 / 4 / 4 heads over 4096 / 1024 / 256 / 64 tokens, every endpoint mode,
-and the 77-key cross call) and at D = 200 and 384 (fused_outer over 1024
-tokens): launched alone (CUDA events over back-to-back launches, and the
+1 / 2 / 4 / 4 heads over 4096 / 1024 / 256 / 64 tokens, every endpoint mode
+and self mode, and the 77-key cross call in fused_outer and self mode), at
+D = 200 and 384 (fused_outer and self over 1024 tokens) and, in self mode,
+at D = 448, 504 and 512 over 1024 and 4096 tokens (the boundary between
+the entries' self instance and the D=512 self kernels: where the wrapper
+sends the call to the D=512 self kernels, at 512 and in f32 past 448, the
+self instance is laid out by lifting ``DMID_SELF_MAX`` for the one call). Self
+mode also times the D=512 self kernels on copies of q, k and v padded to
+512 (``d512_launch``: the route before the self instance, and a checkout's
+route where it has no self instance, as the parent's: there it is also the
+call launched alone). Each case is launched alone (CUDA events over back-to-back launches, and the
 kernels' own device time from a profiler trace, which leaves out the host's
 launch work that the events of a call of a few microseconds measure) and
 through the wrapper, beside the bound at the caller's D (f32 at its 1.5
 TF32 + 1.5 bf16 passes, F32_D512_PASSES), the
-plain version and, in the inner modes, the fastest SDPA backend over [own;
-K_cross]; (B, S, H*D) projections viewed as (B, H, S, D), 7 frames with the
-coef-0/1 end rows as skip rows. It checks each result against
+plain version and, in self mode and the inner modes, the fastest SDPA
+backend (the inner modes over [own; K_cross]); (B, S, H*D) projections
+viewed as (B, H, S, D), 7 frames with the coef-0/1 end rows as skip rows.
+It checks each result against
 the plain version (``chip_smoke.ATTN_TOL`` / ``F16_ATTN_TOL`` / ``F32_ATTN_TOL``). ``--root``
 imports the package and ``chip_smoke.py`` of another checkout (say, the
 parent commit unpacked under ``build/``): run both in one call, in turns, to
@@ -259,12 +268,13 @@ def bench_dwide(reps: int, name: str, only: str) -> dict:
     return result
 
 
-# (label, mode, H, Sq, L, D) of the D=161-512 entries: phase 21's shapes, then two other head dims
+# (label, mode, H, Sq, L, D) of the D=161-512 entries: phase 21's shapes, then
+# other head dims, then self mode at the boundary with the D=512 self kernels
 DMID_SHAPES = [(f"{m} {Sq} D=320", m, H, Sq, Sq, 320) for H, Sq in ((1, 4096), (2, 1024), (4, 256), (4, 64))
-               for m in ("fused_outer", "pure_outer", "fused_inner", "pure_inner")] + [
-    ("cross fused_outer 4096x77 D=320", "fused_outer", 1, 4096, 77, 320),
-    ("fused_outer 1024 D=200", "fused_outer", 2, 1024, 1024, 200),
-    ("fused_outer 1024 D=384", "fused_outer", 2, 1024, 1024, 384)]
+               for m in ("fused_outer", "pure_outer", "fused_inner", "pure_inner", "self")] + [
+    (f"cross {m} 4096x77 D=320", m, 1, 4096, 77, 320) for m in ("fused_outer", "self")] + [
+    (f"{m} 1024 D={D}", m, 2, 1024, 1024, D) for D in (200, 384) for m in ("fused_outer", "self")] + [
+    (f"self {Sq} D={D}", "self", H, Sq, Sq, D) for D in (448, 504, 512) for H, Sq in ((2, 1024), (1, 4096))]
 
 
 def device_ms(fn, reps: int) -> float:
@@ -295,15 +305,34 @@ def device_ms(fn, reps: int) -> float:
     return sum(kernels) / len(kernels) / 1000.0
 
 
+def dmid_self_launch(fa, q, k, v) -> tuple:
+    """The self-mode call's (out, launch) on the route of the checkout whose
+    flash_attention module is ``fa``: the D=161-512 entries' self instance
+    where it has one (at every D up to 512, ``DMID_SELF_MAX`` lifted for the
+    layout), else the D=512 self kernels on copies padded to 512."""
+    if not hasattr(fa, "DMID_SELF_MAX"):
+        return fa.d512_launch(q, k, v)
+    kept = fa.DMID_SELF_MAX
+    fa.DMID_SELF_MAX = dict.fromkeys(kept, fa.D512)
+    try:
+        return fa.kernel_launch(q, k, v)
+    finally:
+        fa.DMID_SELF_MAX = kept
+
+
 def bench_dmid(reps: int, name: str, only: str) -> dict:
-    """The D=161-512 endpoint entry of one dtype at DMID_SHAPES:
-    {label: ms alone}; prints each with its time through the wrapper, its
-    bound at the caller's D, the plain version's and, in the inner modes,
-    the fastest SDPA backend's over [own; K_cross] (:func:`dwide_sdpa`)."""
+    """The D=161-512 entry of one dtype at DMID_SHAPES: {label: ms alone};
+    prints each with its time through the wrapper, its bound at the
+    caller's D, the plain version's, in self mode the D=512 self kernels'
+    on copies padded to 512 and, in self mode and the inner modes, the
+    fastest SDPA backend's (the inner modes over [own; K_cross],
+    :func:`dwide_sdpa`)."""
     import torch
 
     from aid_tpu_torch.models.layers import skip_mask
+    from aid_tpu_torch.ops import flash_attention as fa
     from aid_tpu_torch.ops.flash_attention import (
+        d512_launch,
         flash_interpolated_attention,
         flash_interpolated_attention_plain,
         kernel_launch,
@@ -319,7 +348,6 @@ def bench_dmid(reps: int, name: str, only: str) -> dict:
     gen = torch.Generator(device=dev).manual_seed(15)
     B = 7
     coef = torch.linspace(0.0, 1.0, B, device=dev)
-    kw = {"skip_endpoints": skip_mask(coef, B)}
     result = {}
     for label, mode, H, Sq, L, D in DMID_SHAPES:
         if only not in label:
@@ -330,7 +358,8 @@ def bench_dmid(reps: int, name: str, only: str) -> dict:
             return x.view(B, n, H, D).transpose(1, 2)
 
         q, k, v = heads(Sq), heads(L), heads(L)
-        out, launch = kernel_launch(q, k, v, coef, mode, **kw)
+        kw = {} if mode == "self" else {"skip_endpoints": skip_mask(coef, B)}
+        out, launch = dmid_self_launch(fa, q, k, v) if mode == "self" else kernel_launch(q, k, v, coef, mode, **kw)
         launch()
         want = flash_interpolated_attention_plain(q, k, v, coef, mode, **kw)
         err = (out.float() - want.float()).abs().max().item() / want.float().abs().max().item()
@@ -340,12 +369,19 @@ def bench_dmid(reps: int, name: str, only: str) -> dict:
         dev_ms = device_ms(launch, reps)
         wrapper_ms = cuda_ms(lambda: flash_interpolated_attention(q, k, v, coef, mode, **kw), reps)
         plain_ms = cuda_ms(lambda: flash_interpolated_attention_plain(q, k, v, coef, mode, **kw), max(1, reps // 4))
-        bound_ms, by = attention_bound(mode, B, H, Sq, L, D, skip_rows=int(kw["skip_endpoints"].sum()), **passes)
+        skip_rows = int(kw["skip_endpoints"].sum()) if kw else 0
+        bound_ms, by = attention_bound(mode, B, H, Sq, L, D, skip_rows=skip_rows, **passes)
         lib, lib_ms = dwide_sdpa(q, k, v, coef, mode, want, reps)
         sdpa = f"SDPA {lib} {lib_ms:.4f} ms (wrapper {wrapper_ms / lib_ms:.2f}x)" if lib else "SDPA —"
+        padded = ""
+        if mode == "self":  # the D=512 self kernels on copies padded to 512: with the copies, and alone
+            _, d512 = d512_launch(q, k, v)
+            padded = (f"  D=512 route padded {cuda_ms(lambda: d512_launch(q, k, v)[1](), reps):.4f} ms, alone "
+                      f"{cuda_ms(d512, reps):.4f} ms, device {device_ms(d512, reps):.4f} ms")
+            del d512
         print(f"{name} {label:32s} (7,{H},{Sq},{D}) launch alone {ms:.4f} ms  device {dev_ms:.4f} ms  bound "
               f"{bound_ms:.4f} ms ({by}, {bound_ms / dev_ms:.1%})  through the wrapper {wrapper_ms:.4f} ms  {sdpa}  "
-              f"plain {plain_ms:.4f} ms  max_abs_err/max|ref| {err:.3e}", flush=True)
+              f"plain {plain_ms:.4f} ms  max_abs_err/max|ref| {err:.3e}{padded}", flush=True)
         result[f"{name} {label}"] = ms
         del q, k, v, out, want, launch
     return result
@@ -356,7 +392,7 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--dtype", choices=("bf16", "f16", "f32"), default="bf16")
     ap.add_argument("--d512", action="store_true", help="the D=512 self-attention of --dtype (VAE mid block)")
-    ap.add_argument("--dmid", action="store_true", help="the D=161-512 endpoint entries of --dtype")
+    ap.add_argument("--dmid", action="store_true", help="the D=161-512 entries of --dtype (and the D=512 self route)")
     ap.add_argument("--dwide", action="store_true", help="the wide entries (head dims past 512) of --dtype")
     ap.add_argument("--only", default="", help="time only the shapes whose label contains this text")
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]),

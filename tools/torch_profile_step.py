@@ -44,7 +44,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 # kernels by source (demangled names, template arguments in order): the
 # attention's mode is its HAS_OWN, NSETS arguments after the element type and
 # head dim (flash_kernel<T, D, HAS_OWN, NSETS>, flash_f32_kernel<D, HAS_OWN,
-# NSETS>, the D=161-512 endpoint kernels' <T, chunks, HAS_OWN, NSETS> and
+# NSETS>, the D=161-512 kernels' <T, chunks, HAS_OWN, NSETS> and
 # <M blocks, keys, HAS_OWN, NSETS>): fused_outer is true, 2, self and cross
 # true, 0. The D=512 self kernels and the wide kernel (its mode a runtime
 # argument) and its combine step have classes of their own.
