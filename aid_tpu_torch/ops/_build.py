@@ -113,9 +113,11 @@ def library() -> ctypes.CDLL:
         vp,                  # cudaStream_t
     ]
     lib.aid_flash_attn_bf16.restype = ctypes.c_int
-    # the same C signature over f16 operands (flash_interpolated_attention.cu)
-    # and over f32 ones (flash_interpolated_attention_f32.cu)
-    for name in ("aid_flash_attn_f16", "aid_flash_attn_f32"):
+    # the same C signature over f16 operands (flash_interpolated_attention.cu),
+    # over f32 ones (flash_interpolated_attention_f32.cu),
+    # and over bf16 / f16 ones in the short-stream kernel (flash_attention_onepass.cu)
+    for name in ("aid_flash_attn_f16", "aid_flash_attn_f32", "aid_flash_attn_bf16_onepass",
+                 "aid_flash_attn_f16_onepass"):
         getattr(lib, name).argtypes = lib.aid_flash_attn_bf16.argtypes
         getattr(lib, name).restype = ctypes.c_int
     # the endpoint modes and self mode at D = 161-512 (flash_attention_dmid.cu, flash_attention_dmid_f32.cu):

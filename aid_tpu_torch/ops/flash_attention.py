@@ -20,7 +20,14 @@ The kernels by head dim, each in bf16, f16 and f32:
     dtype (:func:`flash_interpolated_attention`,
     :func:`flash_interpolated_attention_f16`,
     :func:`flash_interpolated_attention_f32`) in ``launches`` and, per
-    instance head dim, ``launches_by_head_dim``;
+    instance head dim, ``launches_by_head_dim``; in bf16 and f16 a short key
+    stream (the 77-key text cross-attention, the IP tokens, short self
+    calls: :func:`takes_onepass`) takes
+    ``csrc/flash_attention_onepass.cu`` instead (``aid_flash_attn_bf16_onepass``
+    / ``aid_flash_attn_f16_onepass``, `_kernel_onepass`'s design: the whole
+    stream of a (b, h) resident, query tiles looped over it, each segment's
+    softmax in one pass), counted also in the wrapper's
+    ``launches_onepass`` by head dim;
   * D = 512, self mode (the VAE mid-block attention, one head over 4096
     tokens at 512px, 16384 at 1024px; past the dtype's
     :data:`DMID_SELF_MAX` also the head dims below 512, padded to 512):
@@ -79,6 +86,7 @@ wrapper's host work.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -161,6 +169,69 @@ def dmid_tiles(D: int, dtype=torch.bfloat16, B: int = 1, H: int = 1, Sq: int = 1
     ncw = 3 if nc == 6 else 4
     return dict(layout="split", chunks=2 * ncw, BQ=64, BK=DMID_SPLIT_BK, nwg=2, ncw=ncw, park_words=32 * ncw + 4,
                 park_threads=256, work_tiles=B * H * -(-Sq // 64))
+
+
+#: the C entry of the short-stream kernel by operand dtype
+#: (csrc/flash_attention_onepass.cu; the D <= 160 kernels' C signature)
+ONEPASS_ENTRIES = {torch.bfloat16: "aid_flash_attn_bf16_onepass", torch.float16: "aid_flash_attn_f16_onepass"}
+#: its instances' resident stream in 16-key tiles (a stream takes the first
+#: at or above its own count), the shared memory a block can use, and the Q/O
+#: buffers of each warpgroup at head dims up to 64 and above (the source's
+#: kStreamTiles, kSmemLimit, kRingNarrow and kRingWide)
+ONEPASS_STREAM_TILES, ONEPASS_SMEM_LIMIT, ONEPASS_RING = (1, 3, 5, 10, 15), 232448, {"narrow": 3, "wide": 2}
+
+
+@functools.lru_cache(maxsize=1024)
+def onepass_tiles(D: int, Lk: int, Le: int, mode: AttnMode | str = AttnMode.SELF) -> Optional[dict]:
+    """The short-stream kernel's instance for a call at an instance head dim
+    D (40, 64, 80 or 160) over Lk own keys and Le keys an endpoint segment in
+    ``mode``, as the source's host code picks it: the segments' 16-key tiles
+    (``nt_own``, ``nt_ep``; the stream is the own segment then ``n_sets``
+    endpoint segments, each padded to whole tiles), the instance's tiles
+    ``kt`` (the first of :data:`ONEPASS_STREAM_TILES` at or above the
+    stream's), ``chunks`` (64-column boxes of a row) and ``smem`` (a block's
+    bytes at one, two and three consumer warpgroups: the resident K and V,
+    each warpgroup's ring of 64-row Q/O buffers (:data:`ONEPASS_RING`: three
+    up to D = 64, two above), the barriers, the 1024-byte alignment slack).
+    None where the stream is longer than the largest instance or one
+    warpgroup's block is over :data:`ONEPASS_SMEM_LIMIT`. Cached: the wrapper
+    asks on every call, and a model calls it at a few shapes; the dict
+    returned is shared, not to be changed."""
+    mode = AttnMode(mode)
+    has_own = mode in (AttnMode.SELF, AttnMode.FUSED_OUTER, AttnMode.FUSED_INNER)
+    n_sets = 2 if mode.is_outer else (1 if mode.is_inner else 0)
+    nt_own, nt_ep = -(-Lk // 16) if has_own else 0, -(-Le // 16) if n_sets else 0
+    kt = next((c for c in ONEPASS_STREAM_TILES if nt_own + n_sets * nt_ep <= c), None)
+    if kt is None or D not in KERNEL_HEAD_DIMS:
+        return None
+    chunks, ring = -(-D // 64), ONEPASS_RING["narrow" if D <= 64 else "wide"]
+    smem = {w: 1024 + 2 * chunks * 16 * kt * 128 + w * ring * chunks * 64 * 128 + 8 * (1 + ring * w)
+            for w in (1, 2, 3)}
+    if smem[1] > ONEPASS_SMEM_LIMIT:
+        return None
+    return dict(nt_own=nt_own, nt_ep=nt_ep, n_sets=n_sets, kt=kt, chunks=chunks, smem=smem)
+
+
+#: the route's measured limit (in turns on an H100, 700 W;
+#: tools/attention_bench.py --onepass, PERF.md section 6): a call that fits
+#: the short-stream kernel stays on the streaming one unless its (b, h) has
+#: more than ONEPASS_MIN_QUERIES query rows. One 64-row query tile gives the
+#: resident stream nothing to amortise: SD 1.5's mid-block self call,
+#: (7,8,64,160), ran at 0.0052 ms of device time against 0.0037
+ONEPASS_MIN_QUERIES = 64
+
+
+@functools.lru_cache(maxsize=4096)
+def takes_onepass(D: int, Sq: int, Lk: int, Le: int, mode: AttnMode | str = AttnMode.SELF,
+                  dtype=torch.bfloat16) -> bool:
+    """Whether a call at instance head dim D (the padded one, 40, 64, 80 or
+    160) of Sq queries over Lk own keys and Le endpoint keys in ``mode`` on
+    ``dtype`` operands takes the short-stream kernel
+    (csrc/flash_attention_onepass.cu, bf16 and f16): its whole stream fits an
+    instance (:func:`onepass_tiles`), and its (b, h) has more than
+    :data:`ONEPASS_MIN_QUERIES` query rows (the measured limit). Every other
+    call keeps the D <= 160 streaming kernel."""
+    return dtype in ONEPASS_ENTRIES and Sq > ONEPASS_MIN_QUERIES and onepass_tiles(D, Lk, Le, mode) is not None
 
 
 #: the widest head dim (the JAX wrapper's block budget in bf16): the wide
@@ -462,11 +533,17 @@ def kernel_operands(
     v_end: Optional[torch.Tensor] = None,
     scale: Optional[float] = None,
     skip_endpoints: Optional[torch.Tensor] = None,  # (B,) bool: rows whose endpoint segments are dropped
+    onepass: Optional[bool] = None,
 ) -> dict:
     """Check the operands of the interpolating kernel of q's dtype (bf16,
     f16 or f32) and head dim (the D <= 160 kernels, the D = 161-512 ones,
     the wide ones past 512, every mode) and lay out one call of its C entry (``entry``, :data:`KERNEL_ENTRIES`,
-    :data:`DMID_ENTRIES` or :data:`DWIDE_ENTRIES`): ``tensors`` (q,
+    :data:`DMID_ENTRIES` or :data:`DWIDE_ENTRIES`; in bf16 and f16
+    :data:`ONEPASS_ENTRIES` where :func:`takes_onepass`, or as ``onepass``
+    says: False keeps a routed call on the D <= 160 streaming kernel, True
+    sends a call that fits it there past the route's measured limit and
+    raises where its stream does not fit), ``onepass`` (whether it is that
+    entry): ``tensors`` (q,
     k, v, k_begin, v_begin, k_end, v_end and the output, a (B, H, Sq, Dp)
     view of a new (B, Sq, H, Dp) buffer), ``dims`` (the entry's 30 shape and
     stride values), ``coef`` and ``skip`` (None where the mode reads
@@ -562,9 +639,15 @@ def kernel_operands(
             work = torch.empty((blocks * splits, 2 if mode.is_outer else 1, BQ * Dk + 2 * BQ), dtype=torch.float32,
                                device=dev)
     entry = (DWIDE_ENTRIES if Dp > D512 else DMID_ENTRIES if Dp > KERNEL_HEAD_DIMS[-1] else KERNEL_ENTRIES)[q.dtype]
-    return dict(entry=entry, tensors=tensors, dims=dims, coef=coef_t, skip=skip, work=work, splits=splits,
-                scale=D ** -0.5 if scale is None else scale, has_own=has_own, n_sets=n_sets, head_dim=D,
-                out=out[..., :D])
+    if onepass and (q.dtype not in ONEPASS_ENTRIES or onepass_tiles(Dp, k.shape[2], dims[4], mode) is None):
+        raise NotImplementedError(f"the short-stream kernel does not take a {q.dtype} call at D={Dp} over "
+                                  f"{k.shape[2]} own and {dims[4]} endpoint keys in {mode.value} mode")
+    onepass = takes_onepass(Dp, Sq, k.shape[2], dims[4], mode, q.dtype) if onepass is None else onepass
+    if onepass:
+        entry = ONEPASS_ENTRIES[q.dtype]
+    return dict(entry=entry, onepass=onepass, tensors=tensors, dims=dims, coef=coef_t, skip=skip, work=work,
+                splits=splits, scale=D ** -0.5 if scale is None else scale, has_own=has_own, n_sets=n_sets,
+                head_dim=D, out=out[..., :D])
 
 
 _DIMS_ARRAYS: dict = {}
@@ -614,13 +697,18 @@ def kernel_launch(*args, **kwargs) -> tuple:
 def _launch_counted(wrapper, q, *args, **kwargs) -> torch.Tensor:
     """One launch of the interpolating kernel of ``wrapper``'s dtype
     (:data:`_WRAPPER_DTYPES`; q checked here, the rest by kernel_operands)
-    and of the call's padded head dim, counted on ``wrapper`` in all and
-    under the instance's head dim (40, 64, 80, 160, 512 or :data:`DWIDE`)."""
+    and of the call's padded head dim, counted on ``wrapper`` in all, under
+    the instance's head dim (40, 64, 80, 160, 512 or :data:`DWIDE`) and,
+    where the short-stream kernel took it, in ``launches_onepass`` under
+    that head dim too."""
     _check_dtype("q", q, _WRAPPER_DTYPES[wrapper.__name__])
     out, launch = kernel_launch(q, *args, **kwargs)
     launch()
+    Dp = launch.operands["dims"][5]
     wrapper.launches += 1
-    wrapper.launches_by_head_dim[instance_head_dim(launch.operands["dims"][5])] += 1
+    wrapper.launches_by_head_dim[instance_head_dim(Dp)] += 1
+    if launch.operands["onepass"]:
+        wrapper.launches_onepass[Dp] += 1
     return out
 
 
@@ -744,12 +832,15 @@ def reset_launch_counts() -> None:
     """Set the interpolating kernels' launch counts (bf16, f16 and f32, total
     and per instance head dim, 512 the D=161-512 entries,
     :data:`DWIDE` the wide entries: a padded call counts under the instance
-    that takes it) to 0."""
+    that takes it; and the short-stream kernel's launches, a part of those
+    at D <= 160, by head dim) to 0."""
     for fn in (flash_interpolated_attention, flash_interpolated_attention_f16, flash_interpolated_attention_f32):
         fn.launches = 0
         fn.launches_by_head_dim = dict.fromkeys((*KERNEL_HEAD_DIMS, D512, DWIDE), 0)
+        fn.launches_onepass = dict.fromkeys(KERNEL_HEAD_DIMS, 0)
 
 
-#: kernel launches since the last reset, in all and by head dim, of the bf16,
-#: the f16 and the f32 interpolating kernels (chip_smoke.py reads them around each path)
+#: kernel launches since the last reset, in all, by head dim and on the
+#: short-stream kernel, of the bf16, the f16 and the f32 interpolating
+#: kernels (chip_smoke.py reads them around each path)
 reset_launch_counts()

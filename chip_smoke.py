@@ -559,13 +559,19 @@ def read_counts() -> dict:
     """Every wrapper's launches, and the D <= 160 attention kernels' by head
     dim under ``flash_interpolated_attention[D=...]`` (bf16),
     ``flash_interpolated_attention_f32[D=...]`` and
-    ``flash_interpolated_attention_f16[D=...]``."""
+    ``flash_interpolated_attention_f16[D=...]``; of those, the short-stream
+    kernel's (bf16 and f16) under ``...[onepass]`` in all and
+    ``...[onepass D=...]`` by head dim."""
     wrappers = kernel_wrappers()
     counts = {name: fn.launches for name, fn in wrappers.items()}
     for name in ("flash_interpolated_attention", "flash_interpolated_attention_f32",
                  "flash_interpolated_attention_f16"):
         for d, n in wrappers[name].launches_by_head_dim.items():
             counts[f"{name}[D={d}]"] = n
+    for name in ("flash_interpolated_attention", "flash_interpolated_attention_f16"):
+        counts[f"{name}[onepass]"] = sum(wrappers[name].launches_onepass.values())
+        for d, n in wrappers[name].launches_onepass.items():
+            counts[f"{name}[onepass D={d}]"] = n
     return counts
 
 
@@ -646,7 +652,9 @@ def phase_kernels(coef, sd_coef, fused_classes, sd21_classes):
         flash_self_attention_f16,
         flash_self_attention_f32,
         kernel_launch,
+        padded_head_dim,
         takes_d512_self,
+        takes_onepass,
     )
 
     print("== phase 3: kernels vs plain versions, bounds and library calls", flush=True)
@@ -666,7 +674,19 @@ def phase_kernels(coef, sd_coef, fused_classes, sd21_classes):
 
     records = {}
 
-    def attention(label, mode, c, H, Sq, L, D, reps, Le=None, dtype=torch.bfloat16):
+    def inner_sdpa(q, k, v, c, mode, kw, dtype, want, reps):
+        """SDPA over [own; K_cross] (pure_inner: K_cross alone), K_cross
+        lerped in f32 as the wrapper makes it: the inner modes' library call."""
+        c4 = c.view(c.shape[0], 1, 1, 1)
+        kb, vb = kw.get("k_begin", k[0]), kw.get("v_begin", v[0])
+        ke, ve = kw.get("k_end", k[-1]), kw.get("v_end", v[-1])
+        kc = ((1 - c4) * kb.float() + c4 * ke.float()).to(dtype)
+        vc = ((1 - c4) * vb.float() + c4 * ve.float()).to(dtype)
+        if mode == "fused_inner":
+            kc, vc = torch.cat([k, kc], 2), torch.cat([v, vc], 2)
+        return sdpa_backends(q, kc, vc, want, reps)
+
+    def attention(label, mode, c, H, Sq, L, D, reps, Le=None, dtype=torch.bfloat16, parent=False):
         """One bf16 (or f16, or f32) attention case, B = len(c): (B, S, H*D)
         projections viewed as (B, H, S, D), as the model passes them; skip
         rows as the model marks them; optional shared (H, Le, D) endpoints.
@@ -683,7 +703,12 @@ def phase_kernels(coef, sd_coef, fused_classes, sd21_classes):
         the launch, as the wrapper made them; d512_kernel_ms: the launch
         alone on operands d512_launch prepared once), one past 512 the wide
         entry in every
-        mode (f32 bounded at three TF32 passes): both bounded at the caller's
+        mode (f32 bounded at three TF32 passes). With ``parent``, a call the
+        route sends to the short-stream kernel is timed beside the route
+        before it, the D <= 160 streaming kernel (parent_ms: its host work and
+        launch as the wrapper made them; parent_kernel_ms: the launch alone),
+        and in the inner modes beside SDPA over [own; K_cross]. The wide
+        entries are both bounded at the caller's
         D with the bound at the columns the kernel computes (D rounded up to
         the D=161-512 kernels' chunk, or the first of 640, 1024, 1280, 2048)
         beside it (bound_padded_ms), and in
@@ -715,6 +740,8 @@ def phase_kernels(coef, sd_coef, fused_classes, sd21_classes):
         ref = want.float().abs().max().item()
         rl2 = rel_l2(got, want)
         _, launch = kernel_launch(q, k, v, c, mode, **kw)  # operands checked and laid out once
+        if parent and not launch.operands["onepass"]:
+            fail(f"attention {label} (D={D}, {dtype}): the route does not send it to the short-stream kernel")
         kernel_ms = cuda_ms(launch, reps)
         ms = cuda_ms(lambda: flash_interpolated_attention(q, k, v, c, mode, **kw), reps)
         plain_ms = cuda_ms(lambda: flash_interpolated_attention_plain(q, k, v, c, mode, **kw), max(1, reps // 5))
@@ -734,7 +761,22 @@ def phase_kernels(coef, sd_coef, fused_classes, sd21_classes):
             d512 = {"d512_ms": cuda_ms(lambda: d512_launch(q, k, v)[1](), reps),
                     "d512_kernel_ms": cuda_ms(d512_alone, reps)}
             del d512_alone
+        before = {}
+        if parent:  # the route before, the D <= 160 streaming kernel, in turns with the new one (the least kept)
+            _, old_alone = kernel_launch(q, k, v, c, mode, onepass=False, **kw)
+
+            def old_call():
+                kernel_launch(q, k, v, c, mode, onepass=False, **kw)[1]()
+
+            before = {"parent_kernel_ms": cuda_ms(old_alone, reps), "parent_ms": cuda_ms(old_call, reps)}
+            kernel_ms = min(kernel_ms, cuda_ms(launch, reps))
+            ms = min(ms, cuda_ms(lambda: flash_interpolated_attention(q, k, v, c, mode, **kw), reps))
+            before = {"parent_kernel_ms": min(before["parent_kernel_ms"], cuda_ms(old_alone, reps)),
+                      "parent_ms": min(before["parent_ms"], cuda_ms(old_call, reps))}
+            del old_alone
         padded = ""
+        if parent and mode in ("fused_inner", "pure_inner"):
+            library = inner_sdpa(q, k, v, c, mode, kw, dtype, want, reps)
         if wide:
             Dk = dwide_tiles(D)[0] if dwide else dmid_columns(D, dtype)  # the columns the kernel computes
             padded_ms = bound_at(Dk)[0]
@@ -742,19 +784,14 @@ def phase_kernels(coef, sd_coef, fused_classes, sd21_classes):
             if d512:
                 padded += (f"; the D=512 self route padded to 512 {d512['d512_ms']:.4f} ms (launch alone "
                            f"{d512['d512_kernel_ms']:.4f})")
-            if mode in ("fused_inner", "pure_inner"):  # SDPA over [own; K_cross], K_cross lerped in f32
-                c4 = c.view(B, 1, 1, 1)
-                kb, vb = kw.get("k_begin", k[0]), kw.get("v_begin", v[0])
-                ke, ve = kw.get("k_end", k[-1]), kw.get("v_end", v[-1])
-                kc = ((1 - c4) * kb.float() + c4 * ke.float()).to(dtype)
-                vc = ((1 - c4) * vb.float() + c4 * ve.float()).to(dtype)
-                if mode == "fused_inner":
-                    kc, vc = torch.cat([k, kc], 2), torch.cat([v, vc], 2)
-                library = sdpa_backends(q, kc, vc, want, reps)
-                del kc, vc
+            if mode in ("fused_inner", "pure_inner"):
+                library = inner_sdpa(q, k, v, c, mode, kw, dtype, want, reps)
         lib_err = (f"; library max_abs_err {', '.join(f'{n} {t[1]:.3e}' for n, t in library.items())}"
                    if f32 and library else "")
         ok = math.isfinite(err) and err <= tol * ref
+        if before:
+            padded += (f"; the streaming kernel (the route before) {before['parent_ms']:.4f} ms (launch alone "
+                       f"{before['parent_kernel_ms']:.4f})")
         print(f"attention {'f32 ' if f32 else 'f16 ' if f16 else ''}{label:32s} B={B} H={H} D={D}: max_abs_err "
               f"{err:.3e} (max|ref| "
               f"{ref:.3e}, tol {tol * ref:.3e}) rel_l2 {rl2:.3e}  kernel {ms:.4f} ms (launch alone {kernel_ms:.4f}, "
@@ -775,7 +812,8 @@ def phase_kernels(coef, sd_coef, fused_classes, sd21_classes):
         lib_name, lib_ms = fastest(library)
         return {"max_abs_err": err, "ms": ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                 "bound_by": bound_by, "library_ms": lib_ms, "library": lib_name,
-                **({"bound_padded_ms": padded_ms} if wide else {}), **d512}
+                **({"bound_padded_ms": padded_ms} if wide else {}), **d512, **before,
+                **({"want": want, "got": got, "inputs": (q, k, v, c, mode, kw)} if parent else {})}
 
     def attention_record(cases, coefs, main_label, self_label, dtype=torch.bfloat16):
         """Run ``cases``; the record is the main (fused_outer) case's, with
@@ -895,6 +933,65 @@ def phase_kernels(coef, sd_coef, fused_classes, sd21_classes):
     records["flash_interpolated_attention_f16(D=40/80/160)"] = attention_record(
         [(f"SD1.5 {label}", mode, 8, Sq, L, D, max(1, reps // 2), Le) for label, mode, Sq, L, D, reps, Le in sd_cases],
         sd_coef, "SD1.5 fused_outer 4096", "SD1.5 self 4096", torch.float16)
+    gen = main_gen
+
+    # the short-stream kernel (csrc/flash_attention_onepass.cu) at every call
+    # of the paths' shapes the route sends it, in bf16 and f16: the 77-key
+    # text cross calls of SDXL (64^2 and 32^2 levels), SD 2.1 (96^2) and SD 1.5
+    # (every level), the other modes at SDXL's 64^2 level, the short self
+    # calls (SD 2.1's 12^2 level, SD 1.5's mid block) and the IP calls (16
+    # and 4 tokens); each beside the route before it (the streaming kernel)
+    # and, in self mode and the inner modes, SDPA; the record is the first
+    # case's (self (7,10,4096,77), beside SDPA), every case under ``shapes``
+    onepass_cases = [
+        ("SDXL cross self 4096x77", "self", coef, 10, 4096, 77, 64, 20, None),
+        ("SDXL cross fused_outer 4096x77", "fused_outer", coef, 10, 4096, 77, 64, 20, None),
+        ("SDXL cross fused_outer 1024x77", "fused_outer", coef, 20, 1024, 77, 64, 20, None),
+        ("SDXL cross self 1024x77", "self", coef, 20, 1024, 77, 64, 20, None),
+        *[(f"SDXL cross {m} 4096x77", m, coef, 10, 4096, 77, 64, 20, None)
+          for m in ("pure_outer", "fused_inner", "pure_inner")],
+        *[(f"SD2.1 cross {m} 9216x77", m, sd_coef, 5, 9216, 77, 64, 10, None) for m in ("fused_outer", "self")],
+        ("SD2.1 self 144", "self", sd_coef, 20, 144, 144, 64, 20, None),
+        *[(f"SD1.5 cross {m} {Sq}x77", m, sd_coef, 8, Sq, 77, D, 20, None)
+          for Sq, D in ((4096, 40), (1024, 80), (256, 160), (64, 160)) for m in ("fused_outer", "self")],
+        ("SD1.5 self 64 (mid block)", "self", sd_coef, 8, 64, 64, 160, 20, None),
+        *[(f"SD1.5 IP {m} 4096x16", m, sd_coef, 8, 4096, 16, 40, 20, None)
+          for m in ("fused_outer", "self", "pure_outer", "fused_inner", "pure_inner")],
+        *[(f"SD1.5 IP fused_outer {Sq}x16", "fused_outer", sd_coef, 8, Sq, 16, D, 20, None)
+          for Sq, D in ((1024, 80), (256, 160))],
+        *[(f"SD1.5 IP {m} 4096x4", m, sd_coef, 8, 4096, 4, 40, 20, None) for m in ("fused_outer", "self")],
+    ]
+    for name, dtype in (("flash_interpolated_attention(onepass)", torch.bfloat16),
+                        ("flash_interpolated_attention_f16(onepass)", torch.float16)):
+        gen = f16_gen if dtype == torch.float16 else main_gen
+        worst, shapes, main, fault_case = 0.0, {}, None, None
+        for label, mode, c, H, Sq, L, D, reps, Le in onepass_cases:
+            if not takes_onepass(padded_head_dim(D, mode, dtype), Sq, L, L if Le is None else Le, mode, dtype):
+                continue  # the route keeps it on the streaming kernel (tools/attention_bench.py --onepass)
+            r = attention(label, mode, c, H, Sq, L, D, reps if dtype == torch.bfloat16 else max(1, reps // 2), Le,
+                          dtype, parent=True)
+            got, want, inputs = r.pop("got"), r.pop("want"), r.pop("inputs")
+            if fault_case is None and mode in ("fused_outer", "pure_outer"):
+                fault_case = (label, got, want, inputs)
+            del got, want
+            worst = max(worst, r["max_abs_err"])
+            shapes[f"{label} ({c.shape[0]},{H},{Sq},{D})"] = {
+                **{k: r[k] for k in ("ms", "kernel_ms", "plain_ms", "bound_ms", "library_ms", "library", "parent_ms",
+                                     "parent_kernel_ms")}, "bound_share": r["bound_ms"] / r["kernel_ms"]}
+            main = main or r
+        # a planted fault the tolerance must see: the plain version with c and
+        # 1 - c exchanged in the outer blend
+        label, got, want, (q, k, v, c, mode, kw) = fault_case
+        tol = F16_ATTN_TOL if dtype == torch.float16 else ATTN_TOL
+        ref = want.float().abs().max().item()
+        ferr = (got.float() - coef_swapped(flash_interpolated_attention_plain)(q, k, v, c, mode, **kw).float()
+                ).abs().max().item()
+        print(f"  planted fault on {label} (c and 1 - c exchanged): max_abs_err {ferr:.3e} against tol "
+              f"{tol * ref:.3e}  {'ok' if ferr > tol * ref else 'FAIL'}", flush=True)
+        if not ferr > tol * ref:
+            fail(f"{name}: the tolerance does not see c and 1 - c exchanged on {label} ({ferr:.3e})")
+        del fault_case, got, want, q, k, v
+        records[name] = {**main, "max_abs_err": worst, "shapes": shapes}
     gen = main_gen
 
     # the D=161-512 entries at phase 21's shapes (SD 1.x at 320-wide heads: 1
@@ -1434,7 +1531,9 @@ def phase_main(unet, sample, ehs, uncond, added, coef, steps: int, card: str):
         fail(f"output shape {tuple(out.shape)} != {tuple(sample.shape)}")
     if not math.isfinite(checksum):
         fail(f"non-finite output checksum: {checksum}")
-    check_path("denoise", launches, ("flash_interpolated_attention", "conv3x3_same"))
+    # the 77-key text cross calls on the short-stream kernel
+    check_path("denoise", launches, ("flash_interpolated_attention", "flash_interpolated_attention[onepass]",
+                                     "conv3x3_same"))
     return launches, out
 
 
@@ -1970,7 +2069,7 @@ def phase_sd15_image(unet, card: str, steps: int, text_cfg=None, vae_cfg=None):
         return pipe.interpolate_single(0.5, latent_a, latent_b, "prompt A", "prompt B", num_inference_steps=steps)
 
     heads = ("flash_interpolated_attention[D=40]", "flash_interpolated_attention[D=80]",
-             "flash_interpolated_attention[D=160]")
+             "flash_interpolated_attention[D=160]", "flash_interpolated_attention[onepass]")
     paths = []
 
     def run_path(label, frames, call, vae_kernel="flash_self_attention_f32", tol=VAE_TOL, planted_fault=None):
@@ -2379,7 +2478,8 @@ def phase_sd21(card: str) -> list:
         if not math.isfinite(checksum):
             fail(f"SD2.1 interpolate: non-finite checksum {checksum}")
         check_path("SD2.1 interpolate", counts,
-                   ("flash_interpolated_attention[D=64]", "conv3x3_same", "flash_self_attention_f32"))
+                   ("flash_interpolated_attention[D=64]", "flash_interpolated_attention[onepass]", "conv3x3_same",
+                    "flash_self_attention_f32"))
         inside = ((images > 0) & (images < 255)).reshape(7, -1).mean(axis=1)
         frame = int(inside.argmax())
         check_decoder(pipe.vae.decode, decoder_inputs[0][frame:frame + 1], images, frame)
@@ -2974,7 +3074,8 @@ def phase_ip_adapter(card: str, unet_cfg=None, text_cfg=None, vae_cfg=None, visi
     sample = torch.randn((frames, unet_cfg.in_channels, s, s), generator=gen, device=dev).to(torch.bfloat16)
     ehs = torch.randn((frames, 77, unet_cfg.cross_attention_dim), generator=gen, device=dev).to(torch.bfloat16)
     t = torch.tensor(500, device=dev)
-    heads = tuple(f"flash_interpolated_attention[D={d}]" for d in (40, 80, 160))
+    heads = tuple(f"flash_interpolated_attention[D={d}]" for d in (40, 80, 160)) + (
+        "flash_interpolated_attention[onepass]",)
 
     def pipeline(tokens: int, hidden_dim: int):
         cfg = dataclasses.replace(unet_cfg, ip_num_tokens=tokens, ip_hidden_dim=hidden_dim)
@@ -3926,7 +4027,8 @@ def phase_f16(card: str, steps: int) -> list:
           f"kernels vs plain, interpolate 7 frames and interpolate_single, {SD15_STEPS} DDIM steps at 512px), an f16 "
           f"VAE decode, the f16 SDXL UNet (forward, {steps}-step denoise, fused GN+SiLU forward)", flush=True)
     paths = []
-    heads = tuple(f"flash_interpolated_attention_f16[D={d}]" for d in (40, 80, 160))
+    heads = tuple(f"flash_interpolated_attention_f16[D={d}]" for d in (40, 80, 160)) + (
+        "flash_interpolated_attention_f16[onepass]",)
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     root = tempfile.mkdtemp(prefix="sd15-f16-checkpoint-", dir=os.path.join(ROOT, "build"))
     try:
@@ -4023,7 +4125,7 @@ def phase_f16(card: str, steps: int) -> list:
     def forward(aid_ctx=aid):
         return unet(sample, t, ehs, aid_ctx, added)
 
-    needed = ("flash_interpolated_attention_f16[D=64]", "conv3x3_same_f16")
+    needed = ("flash_interpolated_attention_f16[D=64]", "flash_interpolated_attention_f16[onepass]", "conv3x3_same_f16")
     counts = check_unet_vs_plain(f"f16 SDXL unet fused_outer B={sample.shape[0]} 128x128", forward, aid, F16_UNET_TOL)
     check_f16_only("f16 SDXL forward", counts, needed)
     paths.append(counts)
@@ -4468,9 +4570,10 @@ def kernels_line(kernels: dict, launches: dict) -> str:
     over the paths."""
     import torch
 
-    from aid_tpu_torch.ops.flash_attention import DMID_SELF_MAX
+    from aid_tpu_torch.ops.flash_attention import DMID_SELF_MAX, ONEPASS_STREAM_TILES
 
     flash_src = "aid_tpu_torch/csrc/flash_interpolated_attention.cu"
+    onepass_src = "aid_tpu_torch/csrc/flash_attention_onepass.cu"
     conv_src = "aid_tpu_torch/csrc/conv3x3.cu"
     flash_f32_src = "aid_tpu_torch/csrc/flash_interpolated_attention_f32.cu"
     flash_replaces = ("aid_tpu/ops/flash_attention.py:101", {"also_replaces": "aid_tpu/ops/flash_attention.py:339"})
@@ -4511,19 +4614,31 @@ def kernels_line(kernels: dict, launches: dict) -> str:
                   "under shapes; bound_ms at the caller's D, bound_padded_ms at the padded D the kernel computes "
                   "(640, 1024, 1280 or 2048); library_ms: SDPA in self mode and over [own; K_cross] in the inner "
                   f"modes (none for the outer modes); {attn_note}")
+    onepass_design = ("the whole key stream of a (b, h) resident in shared memory, loaded once by TMA in 16-key "
+                      "tiles (own, then each endpoint segment); blocks as many as the SMs hold, each looping over "
+                      "a contiguous run of 64-row query tiles (one or two consumer warpgroups) through a ring of "
+                      "three Q/O buffers (Q two tiles ahead, O out by TMA store); S = Q K^T one wgmma over the "
+                      "whole stream, each segment's exact row max, the sets combined row by row into one weight a "
+                      "segment folded into P, P V one accumulator")
+    onepass_note = ("ms at self (7,10,4096,77), every routed case of the paths' shapes under shapes with "
+                    "parent_ms / parent_kernel_ms (the same call on the D <= 160 streaming kernel, the route before, "
+                    "through its host work / the launch alone); library_ms: SDPA in self mode and over "
+                    f"[own; K_cross] in the inner modes; {attn_note}")
     conv_f32_design = ("wgmma tf32 m64n160k8, both operands in shared memory, 3xTF32 (raw hi; the lo parts of x "
                        "from the layout pass, of w tiled once), one TMA window a K chunk for all nine taps, each "
                        "chunk's sum folded in f32")
     # name -> (source, TPU kernel replaced, the launch counts it is read from, extra fields)
     rows = {
         "flash_interpolated_attention": (
-            flash_src, flash_replaces[0], ("flash_interpolated_attention[D=64]",),
+            flash_src, flash_replaces[0], ("flash_interpolated_attention[D=64]",
+                                           "-flash_interpolated_attention[onepass D=64]"),
             {**flash_replaces[1], "contract": "bf16, head dim 64, every mode (SDXL / SD2.x UNet); ms at "
                                               "fused_outer (7,10,4096,64), self_* at self (7,10,4096,64); "
                                               f"{attn_note}"}),
         "flash_interpolated_attention(D=40/80/160)": (
             flash_src, flash_replaces[0],
-            tuple(f"flash_interpolated_attention[D={d}]" for d in (40, 80, 160)),
+            tuple(f"{sign}flash_interpolated_attention[{o}D={d}]" for d in (40, 80, 160)
+                  for sign, o in (("", ""), ("-", "onepass "))),
             {**flash_replaces[1], "contract": "bf16, head dims 40/80/160, every mode (SD1.x UNet); "
                                               "ms at fused_outer (7,8,4096,40), self_* at self (7,8,4096,40); "
                                               f"{attn_note}"}),
@@ -4593,12 +4708,14 @@ def kernels_line(kernels: dict, launches: dict) -> str:
         # the f16 instances of the bf16 designs (one source each, the element
         # type a template parameter): phase 20's paths
         "flash_interpolated_attention_f16": (
-            flash_src, flash_replaces[0], ("flash_interpolated_attention_f16[D=64]",),
+            flash_src, flash_replaces[0], ("flash_interpolated_attention_f16[D=64]",
+                                           "-flash_interpolated_attention_f16[onepass D=64]"),
             {**flash_replaces[1], "entry": "aid_flash_attn_f16",
              "contract": "f16, head dim 64, every mode (an f16 SDXL / SD2.x UNet); ms at fused_outer "
                          f"(7,10,4096,64), self_* at self (7,10,4096,64); {attn_note}"}),
         "flash_interpolated_attention_f16(D=40/80/160)": (
-            flash_src, flash_replaces[0], tuple(f"flash_interpolated_attention_f16[D={d}]" for d in (40, 80, 160)),
+            flash_src, flash_replaces[0], tuple(f"{sign}flash_interpolated_attention_f16[{o}D={d}]"
+                                                for d in (40, 80, 160) for sign, o in (("", ""), ("-", "onepass "))),
             {**flash_replaces[1], "entry": "aid_flash_attn_f16",
              "contract": "f16, head dims 40/80/160, every mode (an f16 SD1.x UNet); ms at fused_outer "
                          f"(7,8,4096,40), self_* at self (7,8,4096,40); {attn_note}"}),
@@ -4648,12 +4765,22 @@ def kernels_line(kernels: dict, launches: dict) -> str:
             {**flash_replaces[1], "entry": f"aid_flash_attn_{ty}_dwide", "design": dwide_design,
              "contract": f"{ty}, head dims 513-2048, every mode{' (3xTF32)' if ty == 'f32' else ''}; {dwide_note}"})
            for sfx, ty in (("", "bf16"), ("_f16", "f16"), ("_f32", "f32"))},
+        # the short key streams (77-key text cross-attention, the IP tokens,
+        # short self calls) at D <= 160 in bf16 and f16, one source
+        **{f"flash_interpolated_attention{sfx}(onepass)": (
+            onepass_src, "aid_tpu/ops/flash_attention.py:339", (f"flash_interpolated_attention{sfx}[onepass]",),
+            {"entry": f"aid_flash_attn_{ty}_onepass", "design": onepass_design,
+             "contract": f"{ty}, head dims 40/64/80/160, every mode, streams of up to {ONEPASS_STREAM_TILES[-1]} "
+                         f"16-key tiles that fit its shared memory; {onepass_note}"})
+           for sfx, ty in (("", "bf16"), ("_f16", "f16"))},
     }
     record = []
     for name, (src, replaces, counters, extra) in rows.items():
         r = kernels[name]
+        # a counter named "-..." is subtracted: the D <= 160 counts hold the short-stream kernel's launches too
+        n = sum(-launches[c[1:]] if c.startswith("-") else launches[c] for c in counters)
         record.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                       "launches": sum(launches[c] for c in counters), "max_abs_err": r["max_abs_err"],
+                       "launches": n, "max_abs_err": r["max_abs_err"],
                        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                        "bound_by": r["bound_by"], "library_ms": r["library_ms"], **extra,
                        **{k: v for k, v in r.items() if k not in KERNEL_KEYS}})

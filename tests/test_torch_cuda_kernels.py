@@ -36,6 +36,7 @@ from aid_tpu_torch.ops.flash_attention import (
     flash_self_attention_f32,
     padded_head_dim,
     takes_d512_self,
+    takes_onepass,
 )
 from aid_tpu_torch.ops.flash_attention import DWIDE, instance_head_dim
 from aid_tpu_torch.ops.routing import reference_ops
@@ -1389,3 +1390,71 @@ def test_conv_f16_layout_kernel_matches_plain(dev, layout):
         x = x.contiguous(memory_format=torch.channels_last)[:, 4:36]
     got = blocked_input(x)
     assert got.dtype == torch.float16 and torch.equal(got, blocked_input_plain(x))
+
+
+# The short-stream kernel (csrc/flash_attention_onepass.cu): the calls the
+# route sends it, each stream resident in shared memory. (B, H, Sq, Lk, Le,
+# endpoints): the 77-key cross call with shared 77-token endpoints and with
+# per-row ones of 23 keys, the IP tokens (16 shared, 4 per row), a 144-key
+# self stream (9 of 10 tiles), and enough (b, h, query tile) units that
+# blocks' runs cross into the next (b, h) and reload the stream.
+ONEPASS_CASES = [(3, 2, 130, 77, 77, 3), (2, 3, 200, 77, 23, 4), (4, 2, 257, 16, 16, 3), (3, 2, 100, 4, 4, 4),
+                 (2, 3, 144, 144, None, None), (7, 10, 1024, 77, None, None)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "f16"])
+@pytest.mark.parametrize("D,mode,case", [
+    (D, m, c) for D in (40, 64, 80, 160) for m in MODES for c in ONEPASS_CASES
+    if takes_onepass(D, c[2], c[3], c[3] if c[4] is None else c[4], m)])
+def test_flash_onepass_kernel_matches_plain(dev, dtype, D, mode, case):
+    """Every routed call: one launch of the short-stream kernel (counted
+    under D in launches_onepass), within the dtype's bound of the plain
+    version and of the streaming kernel on the same call; skip rows at both
+    ends, (B, S, H*D) projections viewed as (B, H, S, D)."""
+    from aid_tpu_torch.ops.flash_attention import kernel_launch
+
+    B, H, S, L, Le, ep = case
+
+    def heads(x):
+        return x.view(x.shape[0], x.shape[1], H, D).transpose(1, 2)
+
+    q = heads(_randn((B, S, H * D), 900 + D, dtype))
+    k, v = heads(_randn((B, L, H * D), 901 + D, dtype)), heads(_randn((B, L, H * D), 902 + D, dtype))
+    coef = torch.linspace(0, 1, B, device=dev)
+    skip = torch.zeros(B, dtype=torch.bool, device=dev)
+    skip[0] = skip[-1] = True
+    eps = {}
+    if ep is not None:
+        shape = (H, Le, D) if ep == 3 else (B, H, Le, D)
+        eps = {n: _randn(shape, 910 + i, dtype) for i, n in enumerate(("k_begin", "v_begin", "k_end", "v_end"))}
+    fn = ATTN_WRAPPER[dtype]
+    before, before_d = fn.launches_onepass[D], fn.launches_by_head_dim[D]
+    got = flash_interpolated_attention(q, k, v, coef, mode, skip_endpoints=skip, **eps)
+    torch.cuda.synchronize()
+    assert fn.launches_onepass[D] == before + 1 and fn.launches_by_head_dim[D] == before_d + 1
+    want = flash_interpolated_attention_plain(q, k, v, coef, mode, skip_endpoints=skip, **eps)
+    assert got.shape == want.shape and got.dtype == dtype and torch.isfinite(got).all()
+    assert _attn_err(got, want) < ATTN_RTOLS[dtype]
+    streamed, launch = kernel_launch(q, k, v, coef, mode, skip_endpoints=skip, onepass=False, **eps)
+    launch()
+    torch.cuda.synchronize()
+    assert _attn_err(got, streamed) < 2 * ATTN_RTOLS[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "f16"])
+@pytest.mark.parametrize("D,mode,S,L", [(160, "self", 100, 256), (160, "fused_outer", 100, 77),
+                                        (64, "self", 100, 576), (64, "fused_outer", 100, 144),
+                                        (160, "self", 64, 64), (40, "self", 64, 77)])
+def test_flash_onepass_longer_streams_keep_the_streaming_kernel(dev, dtype, D, mode, S, L):
+    """Calls the route keeps on the streaming kernel: streams the
+    short-stream kernel does not hold (past its largest instance, or over
+    its shared memory beside the Q ring), and those past its measured
+    limit (one 64-row query tile a (b, h)): no launch of the new one."""
+    q, k, v = _randn((3, 2, S, D), 930, dtype), _randn((3, 2, L, D), 931, dtype), _randn((3, 2, L, D), 932, dtype)
+    coef = torch.linspace(0, 1, 3, device=dev)
+    fn = ATTN_WRAPPER[dtype]
+    before = dict(fn.launches_onepass)
+    got = flash_interpolated_attention(q, k, v, coef, mode)
+    torch.cuda.synchronize()
+    assert fn.launches_onepass == before
+    assert _attn_err(got, flash_interpolated_attention_plain(q, k, v, coef, mode)) < ATTN_RTOLS[dtype]

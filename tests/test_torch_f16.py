@@ -249,7 +249,8 @@ def test_f16_flash_kernel_data_movement_replayed(D, mode, endpoints):
     if endpoints is not None:
         shape = (H, Le, D) if endpoints == 3 else (B, H, Le, D)
         eps = {n: torch.randn(shape, generator=g).half() for n in ("k_begin", "v_begin", "k_end", "v_end")}
-    ops = kernel_operands(q, k, v, coef, mode, skip_endpoints=skip, **eps)
+    # the streaming kernel's layout: the route sends these short streams to the short-stream kernel
+    ops = kernel_operands(q, k, v, coef, mode, skip_endpoints=skip, onepass=False, **eps)
     assert ops["entry"] == "aid_flash_attn_f16"
     got = ops_tests._emulate_flash_kernel(ops)
     want = flash_interpolated_attention_plain(q.float(), k.float(), v.float(), coef, mode, skip_endpoints=skip,

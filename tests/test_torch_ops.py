@@ -651,7 +651,8 @@ def test_flash_kernel_data_movement_replayed(D, mode, endpoints):
         shape = (H, Le, D) if endpoints == 3 else (B, H, Le, D)
         eps = {n: torch.randn(shape, generator=g).to(torch.bfloat16)
                for n in ("k_begin", "v_begin", "k_end", "v_end")}
-    ops = kernel_operands(q, k, v, coef, mode, skip_endpoints=skip, **eps)
+    # the streaming kernel's layout: the route sends these short streams to the short-stream kernel
+    ops = kernel_operands(q, k, v, coef, mode, skip_endpoints=skip, onepass=False, **eps)
     got = _emulate_flash_kernel(ops)
     want = flash_interpolated_attention_plain(q.float(), k.float(), v.float(), coef, mode, skip_endpoints=skip,
                                               **{n: e.float() for n, e in eps.items()})

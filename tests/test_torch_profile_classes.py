@@ -62,6 +62,13 @@ def _instances(name: str, text: str) -> list:
         tiles = _all(r"return launch_modes<(\d), (\d+)>", text)  # (M blocks a warpgroup, keys a tile)
         modes = _all(r"return launch<MBW, BK, (true|false), (\d)>", text)
         return [("flash_f32_dmid_kernel", (*mt, *m)) for mt in tiles for m in modes]
+    if name == "flash_attention_onepass.cu":  # the instances whose stream and one warpgroup's ring fit (kFits)
+        from aid_tpu_torch.ops.flash_attention import onepass_tiles
+
+        kts = _all(r"case (\d+): return launch_fit<T, D, (\d+)>", text)
+        assert all(a == b for a, b in kts)
+        return [("onepass_kernel", (t, d, kt)) for t in types for d in dims for kt, _ in kts
+                if onepass_tiles(int(d), 16 * int(kt), 16, "self") is not None]
     if name == "flash_attention_dwide.cu":
         tiles = re.findall(r"return launch<T, (\d+), f32 \? (\d+) : (\d+)>", text)  # (chunks, f32 rows, 16-bit rows)
         return [("flash_dwide_kernel", (t, nc, rf if t == "float" else r16)) for t in types for nc, rf, r16 in tiles] + [
@@ -91,6 +98,8 @@ def _expected(kernel: str, args: tuple) -> str:
                   "flash_f32_dmid_kernel"):
         return {("true", "2"): "attention kernel, fused_outer",
                 ("true", "0"): "attention kernel, self and cross"}.get(args[-2:], "attention kernel, other modes")
+    if kernel == "onepass_kernel":
+        return "attention kernel, short key streams"
     if kernel in ("flash16_d512_kernel", "flash_f32_d512_kernel"):
         return "attention kernel, D=512 self (VAE)"
     if kernel in ("flash_dwide_kernel", "flash_dwide_combine_kernel"):
@@ -128,7 +137,8 @@ def test_modes_and_instances_cover_the_kernels():
     modes and self mode at D = 161-512 (bf16 and f16: 3, 4 and 5 chunks with
     a warpgroup over its own rows, 3 and 4 chunks a warpgroup with D split;
     f32: four tilings), four wide instances a type with their combine
-    steps."""
+    steps, the short-stream kernel's instances whose stream fits beside one
+    warpgroup's Q/O ring."""
     counts = {}
     for source in SOURCES:
         for kernel, _ in _instances(source, (CSRC / source).read_text()):
@@ -138,6 +148,8 @@ def test_modes_and_instances_cover_the_kernels():
     assert counts["flash_f32_dmid_kernel"] == 4 * 5 and counts["flash16_d512_kernel"] == 2
     assert counts["flash_dwide_kernel"] == 3 * 4 and counts["flash_dwide_combine_kernel"] == 3
     assert counts["conv3x3_kernel"] == 2 * 2 and counts["blocked_f32_kernel"] == 4
+    # the short-stream kernel: five stream sizes at four head dims in two types, but 15 tiles at D=160
+    assert counts["onepass_kernel"] == 2 * (4 * 5 - 1)
 
 
 def test_library_kernels_keep_their_classes():

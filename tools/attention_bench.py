@@ -1,7 +1,7 @@
 """Time the flash attention kernel launched alone at the main paths' shapes.
 
-    python3 tools/attention_bench.py [--reps 20] [--dtype bf16|f16|f32] [--d512 | --dmid | --dwide] [--only TEXT]
-                                     [--root DIR]
+    python3 tools/attention_bench.py [--reps 20] [--dtype bf16|f16|f32] [--d512 | --dmid | --dwide | --onepass]
+                                     [--only TEXT] [--root DIR]
 
 For each shape class of ``chip_smoke.py`` phase 3 (bf16: SDXL at D=64, SD1.5
 at D=40/80/160 and SD1.5's IP-Adapter calls over 16 and 4 image tokens,
@@ -49,6 +49,11 @@ TF32 + 1.5 bf16 passes, F32_D512_PASSES), the
 plain version and, in self mode and the inner modes, the fastest SDPA
 backend (the inner modes over [own; K_cross]); (B, S, H*D) projections
 viewed as (B, H, S, D), 7 frames with the coef-0/1 end rows as skip rows.
+``--onepass`` (bf16 or f16) times the short key streams, the calls the JAX
+wrapper sends to `_kernel_onepass` (the 77-key text cross calls, short self
+calls, the IP calls), on the short-stream kernel
+(csrc/flash_attention_onepass.cu) wherever it fits and on the streaming
+kernel, the route before it, in one process (``bench_onepass``).
 It checks each result against
 the plain version (``chip_smoke.ATTN_TOL`` / ``F16_ATTN_TOL`` / ``F32_ATTN_TOL``). ``--root``
 imports the package and ``chip_smoke.py`` of another checkout (say, the
@@ -61,6 +66,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import statistics
 import sys
 from pathlib import Path
 
@@ -277,12 +283,13 @@ DMID_SHAPES = [(f"{m} {Sq} D=320", m, H, Sq, Sq, 320) for H, Sq in ((1, 4096), (
     (f"self {Sq} D={D}", "self", H, Sq, Sq, D) for D in (448, 504, 512) for H, Sq in ((2, 1024), (1, 4096))]
 
 
-def device_ms(fn, reps: int) -> float:
+def device_ms(fn, reps: int, retries: int = 2) -> float:
     """Mean device time in ms of the kernel ``fn`` launches, over ``reps``
     calls, from a profiler trace of the card: the kernel's own durations
     (a mean over the launches the trace holds), with no host time between
     launches (which the CUDA-event time of a call of a few microseconds is
-    made of)."""
+    made of). A trace that holds no launch at all is taken again, up to
+    ``retries`` times."""
     import json
     import tempfile
 
@@ -301,6 +308,8 @@ def device_ms(fn, reps: int) -> float:
         events = json.loads(path.read_text())["traceEvents"]
     kernels = [float(e["dur"]) for e in events if e.get("cat") == "kernel"]
     if not kernels:  # the trace may drop an event now and then; none at all means it saw no kernel
+        if retries:
+            return device_ms(fn, reps, retries - 1)
         raise SystemExit(f"the profiler saw none of {reps} launches")
     return sum(kernels) / len(kernels) / 1000.0
 
@@ -387,6 +396,129 @@ def bench_dmid(reps: int, name: str, only: str) -> dict:
     return result
 
 
+# (label, mode, coefficients, H, Sq, L, D): the calls the JAX wrapper sends to
+# `_kernel_onepass` on the models' paths (SDXL's, SD 2.1's and SD 1.5's 77-key
+# text cross calls in every mode that reaches them, the short self calls of
+# SD 2.1's 12^2 and 24^2 levels and SD 1.5's mid block, the IP calls over 16
+# and 4 image tokens)
+ONEPASS_SHAPES = [
+    *[(f"SDXL cross {m} 4096x77 D=64", m, "sdxl", 10, 4096, 77, 64)
+      for m in ("self", "fused_outer", "pure_outer", "fused_inner", "pure_inner")],
+    *[(f"SDXL cross {m} 1024x77 D=64", m, "sdxl", 20, 1024, 77, 64) for m in ("self", "fused_outer")],
+    *[(f"SD2.1 cross {m} 9216x77 D=64", m, "sd", 5, 9216, 77, 64) for m in ("self", "fused_outer")],
+    *[(f"SD2.1 {m} {S} D=64", m, "sd", 20, S, S, 64) for S in (144, 576) for m in ("self", "fused_outer")],
+    *[(f"SD1.5 cross {m} {Sq}x77 D={D}", m, "sd", 8, Sq, 77, D)
+      for Sq, D in ((4096, 40), (1024, 80), (256, 160), (64, 160)) for m in ("self", "fused_outer")],
+    *[(f"SD1.5 cross {m} {Sq}x77 D={D}", m, "sd", 8, Sq, 77, D)
+      for Sq, D in ((1024, 80), (256, 160)) for m in ("pure_outer", "fused_inner")],
+    *[(f"SD1.5 {m} 64 (mid block) D=160", m, "sd", 8, 64, 64, 160) for m in ("self", "fused_outer")],
+    *[(f"IP {m} 4096x16 D=40", m, "sd", 8, 4096, 16, 40)
+      for m in ("self", "fused_outer", "pure_outer", "fused_inner", "pure_inner")],
+    *[(f"IP {m} {Sq}x16 D={D}", m, "sd", 8, Sq, 16, D) for Sq, D in ((1024, 80), (256, 160))
+      for m in ("self", "fused_outer")],
+    *[(f"IP {m} 4096x4 D=40", m, "sd", 8, 4096, 4, 40) for m in ("self", "fused_outer")],
+]
+
+
+PAIRS = 10  # the short-stream bench's turns of the two routes a call
+
+
+def bench_onepass(reps: int, name: str, only: str) -> dict:
+    """The calls of ONEPASS_SHAPES in bf16 or f16: {label: ms launched
+    alone}. On a checkout with the short-stream kernel
+    (csrc/flash_attention_onepass.cu) each call is timed on it (wherever it
+    fits, whether or not the route sends the call there) and on the D <= 160
+    streaming kernel, the route before it, in PAIRS turns of the two (the
+    first of each pair alternating; medians and least times): launched
+    alone (CUDA events, and the kernel's device time from a profiler trace)
+    and with its host work (the operands laid out by kernel_launch and
+    launched, as the wrapper does it; how many pairs the new route was no
+    slower in), held to the plain version, beside the bound and, in self
+    mode
+    and the inner modes, the fastest SDPA backend; the wrapper's own time
+    follows the route. On a checkout without it (``--root`` at the parent)
+    the call is timed on that checkout's route. 7 frames, SDXL's
+    coefficients or Beta(25, 25)'s at SD's shapes with the coef-0/1 end rows
+    as skip rows; (B, S, H*D) projections viewed as (B, H, S, D)."""
+    import torch
+
+    from aid_tpu_torch.models.layers import skip_mask
+    from aid_tpu_torch.ops import flash_attention as fa
+    from aid_tpu_torch.ops.flash_attention import (
+        flash_interpolated_attention,
+        flash_interpolated_attention_plain,
+        kernel_launch,
+    )
+    import chip_smoke
+    from chip_smoke import attention_bound, cuda_ms
+
+    has = hasattr(fa, "takes_onepass")
+    dtype = {"bf16": torch.bfloat16, "f16": torch.float16}[name]
+    tol = chip_smoke.ATTN_TOL if name == "bf16" else chip_smoke.F16_ATTN_TOL
+    wrapper = flash_interpolated_attention if name == "bf16" else fa.flash_interpolated_attention_f16
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(17)
+    B = 7
+    coefs = {"sdxl": torch.tensor([0.0, 0.2, 0.35, 0.5, 0.65, 0.8, 1.0], device=dev),
+             "sd": chip_smoke.sd15_coef().to(dev)}
+    result = {}
+    for label, mode, ck, H, Sq, L, D in ONEPASS_SHAPES:
+        if only not in label:
+            continue
+        coef = coefs[ck]
+
+        def heads(n):
+            x = torch.randn((B, n, H * D), generator=gen, device=dev).to(dtype)
+            return x.view(B, n, H, D).transpose(1, 2)
+
+        q, k, v = heads(Sq), heads(L), heads(L)
+        kw = {} if mode == "self" else {"skip_endpoints": skip_mask(coef, B)}
+        want = flash_interpolated_attention_plain(q, k, v, coef, mode, **kw)
+        fits = has and fa.onepass_tiles(D, L, L, mode) is not None
+        routes = {"new": {"onepass": True}, "old": {"onepass": False}} if fits else {"route": {}}
+        launches = {}
+        for route, extra in routes.items():
+            out, launch = kernel_launch(q, k, v, coef, mode, **kw, **extra)
+            launch()
+            err = (out.float() - want.float()).abs().max().item() / want.float().abs().max().item()
+            if not err <= tol:
+                raise SystemExit(f"{label} ({route}): the kernel disagrees with the plain version ({err:.3e})")
+            launches[route] = launch
+        # the routes in turns, PAIRS times, the first of each pair alternating: each launched alone, and
+        # with its host work (the wrapper's: the operands laid out by kernel_launch, then the launch)
+        alone, call = {r: [] for r in routes}, {r: [] for r in routes}
+        for i in range(PAIRS):
+            for route in (list(routes) if i % 2 == 0 else list(routes)[::-1]):
+                extra = routes[route]
+                alone[route].append(cuda_ms(launches[route], reps))
+                call[route].append(cuda_ms(lambda: kernel_launch(q, k, v, coef, mode, **kw, **extra)[1](), reps))
+        line = []
+        for route in routes:
+            try:
+                dev_ms = f"{device_ms(launches[route], reps):.4f}"
+            except SystemExit:  # the profiler saw no launch: the device time is not measured
+                dev_ms = "not measured"
+            line.append(f"{route} alone {statistics.median(alone[route]):.4f} ms (least {min(alone[route]):.4f}) "
+                        f"device {dev_ms} with host work {statistics.median(call[route]):.4f} "
+                        f"(least {min(call[route]):.4f})")
+            result[f"{name} {label} {route}"] = statistics.median(alone[route])
+        if fits:
+            won = sum(n <= o for n, o in zip(call["new"], call["old"]))
+            line.append(f"with host work the new route no slower in {won} of {PAIRS} pairs")
+        del launches
+        wrapper_ms = cuda_ms(lambda: wrapper(q, k, v, coef, mode, **kw), reps)
+        skip_rows = int(kw["skip_endpoints"].sum()) if kw else 0
+        bound_ms, by = attention_bound(mode, B, H, Sq, L, D, skip_rows=skip_rows, **({"kind": name} if name == "f16"
+                                                                                       else {}))
+        lib, lib_ms = dwide_sdpa(q, k, v, coef, mode, want, reps)
+        sdpa = f"SDPA {lib} {lib_ms:.4f} ms" if lib else "SDPA —"
+        print(f"{name} {label:34s} (7,{H},{Sq},{D}) {' | '.join(line)} | wrapper {wrapper_ms:.4f} ms | bound "
+              f"{bound_ms:.4f} ({by}) | {sdpa}{'' if fits or not has else ' | not on the short-stream kernel'}",
+              flush=True)
+        del q, k, v, want
+    return result
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reps", type=int, default=20)
@@ -394,6 +526,8 @@ def main(argv=None) -> int:
     ap.add_argument("--d512", action="store_true", help="the D=512 self-attention of --dtype (VAE mid block)")
     ap.add_argument("--dmid", action="store_true", help="the D=161-512 entries of --dtype (and the D=512 self route)")
     ap.add_argument("--dwide", action="store_true", help="the wide entries (head dims past 512) of --dtype")
+    ap.add_argument("--onepass", action="store_true",
+                    help="the short key streams of --dtype (bf16 or f16) on the short-stream kernel and the route before")
     ap.add_argument("--only", default="", help="time only the shapes whose label contains this text")
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]),
                     help="the checkout whose package and chip_smoke.py are timed (default: this one)")
@@ -414,8 +548,9 @@ def main(argv=None) -> int:
     from chip_smoke import attention_bound, cuda_ms, phase_device
 
     card = phase_device()  # also sets full f32 matmuls (TF32 off) for the plain version
-    if args.d512 or args.dwide or args.dmid:
+    if args.d512 or args.dwide or args.dmid or args.onepass:
         result = (bench_d512(args.reps, args.dtype) if args.d512 else
+                  bench_onepass(args.reps, args.dtype, args.only) if args.onepass else
                   bench_dmid(args.reps, args.dtype, args.only) if args.dmid else
                   bench_dwide(args.reps, args.dtype, args.only))
         print(f"on {card}, the package of {Path(args.root).resolve()}", flush=True)
