@@ -116,8 +116,9 @@ def library() -> ctypes.CDLL:
     # the same C signature over f16 operands (flash_interpolated_attention.cu),
     # over f32 ones (flash_interpolated_attention_f32.cu),
     # and over bf16 / f16 ones in the short-stream kernel (flash_attention_onepass.cu)
+    # and the mid-length stream kernel (flash_attention_midstream.cu)
     for name in ("aid_flash_attn_f16", "aid_flash_attn_f32", "aid_flash_attn_bf16_onepass",
-                 "aid_flash_attn_f16_onepass"):
+                 "aid_flash_attn_f16_onepass", "aid_flash_attn_bf16_midstream", "aid_flash_attn_f16_midstream"):
         getattr(lib, name).argtypes = lib.aid_flash_attn_bf16.argtypes
         getattr(lib, name).restype = ctypes.c_int
     # the endpoint modes and self mode at D = 161-512 (flash_attention_dmid.cu, flash_attention_dmid_f32.cu):

@@ -27,7 +27,13 @@ The kernels by head dim, each in bf16, f16 and f32:
     / ``aid_flash_attn_f16_onepass``, `_kernel_onepass`'s design: the whole
     stream of a (b, h) resident, query tiles looped over it, each segment's
     softmax in one pass), counted also in the wrapper's
-    ``launches_onepass`` by head dim;
+    ``launches_onepass`` by head dim; and a stream past what that kernel
+    holds, up to the JAX wrapper's onepass_max of 3072 keys, at D = 64 or 80
+    (SDXL's and SD 2.x's 1024- and 576-token calls, SD 1.5's 1024-token
+    level: :func:`takes_midstream`) takes ``csrc/flash_attention_midstream.cu``
+    (``aid_flash_attn_bf16_midstream`` / ``aid_flash_attn_f16_midstream``:
+    a persistent grid walking one list of 192-row work items, heaviest
+    first, the streaming tile step per warpgroup), counted also in ``launches_midstream`` by head dim;
   * D = 512, self mode (the VAE mid-block attention, one head over 4096
     tokens at 512px, 16384 at 1024px; past the dtype's
     :data:`DMID_SELF_MAX` also the head dims below 512, padded to 512):
@@ -232,6 +238,76 @@ def takes_onepass(D: int, Sq: int, Lk: int, Le: int, mode: AttnMode | str = Attn
     :data:`ONEPASS_MIN_QUERIES` query rows (the measured limit). Every other
     call keeps the D <= 160 streaming kernel."""
     return dtype in ONEPASS_ENTRIES and Sq > ONEPASS_MIN_QUERIES and onepass_tiles(D, Lk, Le, mode) is not None
+
+
+#: the C entry of the mid-length stream kernel by operand dtype
+#: (csrc/flash_attention_midstream.cu; the D <= 160 kernels' C signature)
+MIDSTREAM_ENTRIES = {torch.bfloat16: "aid_flash_attn_bf16_midstream", torch.float16: "aid_flash_attn_f16_midstream"}
+#: its instances by head dim: (keys a K/V tile, K/V stages at two consumer
+#: warpgroups (one fewer at three), Q/O buffers in the ring, the most consumer
+#: warpgroups a block), the source's Mid<D>
+MIDSTREAM_TILES = {64: (128, 3, 3, 3), 80: (64, 3, 2, 2)}
+#: the longest stream (own keys plus each endpoint segment's) the route sends
+#: it: the JAX wrapper's onepass_max (aid_tpu/ops/flash_attention.py:709)
+MIDSTREAM_MAX_STREAM = 3072
+#: the shared memory a block can use (the source's kSmemLimit)
+MIDSTREAM_SMEM_LIMIT = 232448
+
+
+def midstream_tiles(D: int, Sq: int, B: int = 1, H: int = 1) -> dict:
+    """The mid-length stream kernel's schedule for a call at instance head
+    dim D (64 or 80) of Sq queries a (b, h) over B rows and H heads, as the
+    source's host code picks it: ``nwg`` consumer warpgroups of 64 query rows
+    a block (the instance's most: 3 at D = 64, 2 at 80), ``BQ`` = 64 nwg rows
+    a work item, ``tiles`` query tiles a (b, h), ``units`` the work items (B
+    H tiles; the persistent grid walks them heaviest first in a snake),
+    ``BK`` keys a K/V tile, ``stages``, ``ring`` (Q/O buffers),
+    ``idle`` (the instance whose warpgroups with every row past Sq skip the
+    math: three warpgroups and a last item with such a warpgroup) and
+    ``smem`` (a block's bytes: the Q/O ring, the K/V stages, the outer modes'
+    parked state of each consumer thread, the barriers and each buffer's
+    unit, the 1024-byte alignment slack)."""
+    bk, stages, ring, nwg = MIDSTREAM_TILES[D]
+    stages -= nwg == 3
+    tiles = -(-Sq // (64 * nwg))
+    chunks = -(-D // 64)
+    smem = (1024 + ring * nwg * 64 * 128 * chunks + stages * 2 * bk * 128 * chunks + nwg * 128 * (D // 2 + 4) * 4
+            + 8 * (2 * stages + 3 * ring))
+    return dict(nwg=nwg, BQ=64 * nwg, tiles=tiles, units=B * H * tiles, BK=bk, stages=stages, ring=ring,
+                chunks=chunks, smem=smem, idle=nwg == 3 and tiles * 192 - Sq >= 64)
+
+
+#: the route's measured limits (in turns on an H100, 700 W;
+#: tools/attention_bench.py --midstream, PERF.md section 6): a call in the
+#: kernel's contract takes it with at least MIDSTREAM_MIN_QUERIES query rows a
+#: (b, h), the fewest it measured faster at (SD 2.1's 576: self 0.044 ms
+#: against 0.048), and only in the modes MIDSTREAM_MODES lists at its head
+#: dim: every mode at D = 64, self mode at D = 80 (0.060 against 0.061; its
+#: 64-key tiles lose the outer modes and fused_inner (7,8,1024,80) by 3-6%,
+#: and pure_inner ties within 1%)
+MIDSTREAM_MIN_QUERIES = 576
+MIDSTREAM_MODES = {64: frozenset(m.value for m in AttnMode), 80: frozenset({"self"})}
+
+
+@functools.lru_cache(maxsize=4096)
+def takes_midstream(D: int, Sq: int, Lk: int, Le: int, mode: AttnMode | str = AttnMode.SELF,
+                    dtype=torch.bfloat16) -> bool:
+    """Whether a call at instance head dim D (the padded one) of Sq queries
+    over Lk own keys and Le endpoint keys in ``mode`` on ``dtype`` operands
+    takes the mid-length stream kernel (csrc/flash_attention_midstream.cu,
+    bf16 and f16 at D = 64 and 80): the short-stream kernel does not take it
+    (:func:`takes_onepass`), its stream (the own keys and each endpoint
+    segment's) is at most :data:`MIDSTREAM_MAX_STREAM` keys, `_kernel_onepass`'s
+    contract in the JAX wrapper, its (b, h) has at least
+    :data:`MIDSTREAM_MIN_QUERIES` query rows and its mode is one of
+    :data:`MIDSTREAM_MODES` at D (the measured limits). Every other call
+    keeps the D <= 160 streaming kernel."""
+    mode = AttnMode(mode)
+    has_own = mode in (AttnMode.SELF, AttnMode.FUSED_OUTER, AttnMode.FUSED_INNER)
+    n_sets = 2 if mode.is_outer else (1 if mode.is_inner else 0)
+    stream = has_own * Lk + n_sets * Le
+    return (dtype in MIDSTREAM_ENTRIES and mode.value in MIDSTREAM_MODES.get(D, ()) and stream <= MIDSTREAM_MAX_STREAM
+            and Sq >= MIDSTREAM_MIN_QUERIES and not takes_onepass(D, Sq, Lk, Le, mode, dtype))
 
 
 #: the widest head dim (the JAX wrapper's block budget in bf16): the wide
@@ -534,6 +610,7 @@ def kernel_operands(
     scale: Optional[float] = None,
     skip_endpoints: Optional[torch.Tensor] = None,  # (B,) bool: rows whose endpoint segments are dropped
     onepass: Optional[bool] = None,
+    midstream: Optional[bool] = None,
 ) -> dict:
     """Check the operands of the interpolating kernel of q's dtype (bf16,
     f16 or f32) and head dim (the D <= 160 kernels, the D = 161-512 ones,
@@ -542,7 +619,11 @@ def kernel_operands(
     :data:`ONEPASS_ENTRIES` where :func:`takes_onepass`, or as ``onepass``
     says: False keeps a routed call on the D <= 160 streaming kernel, True
     sends a call that fits it there past the route's measured limit and
-    raises where its stream does not fit), ``onepass`` (whether it is that
+    raises where its stream does not fit; else :data:`MIDSTREAM_ENTRIES`
+    where :func:`takes_midstream`, or as ``midstream`` says: False keeps a
+    routed call on the streaming kernel, True sends a bf16 or f16 call at an
+    instance head dim of :data:`MIDSTREAM_TILES` there, of any stream length,
+    and raises otherwise), ``onepass`` and ``midstream`` (whether it is that
     entry): ``tensors`` (q,
     k, v, k_begin, v_begin, k_end, v_end and the output, a (B, H, Sq, Dp)
     view of a new (B, Sq, H, Dp) buffer), ``dims`` (the entry's 30 shape and
@@ -642,12 +723,21 @@ def kernel_operands(
     if onepass and (q.dtype not in ONEPASS_ENTRIES or onepass_tiles(Dp, k.shape[2], dims[4], mode) is None):
         raise NotImplementedError(f"the short-stream kernel does not take a {q.dtype} call at D={Dp} over "
                                   f"{k.shape[2]} own and {dims[4]} endpoint keys in {mode.value} mode")
+    if midstream and (onepass or q.dtype not in MIDSTREAM_ENTRIES or Dp not in MIDSTREAM_TILES):
+        raise NotImplementedError(f"the mid-length stream kernel does not take a {q.dtype} call at D={Dp} in "
+                                  f"{mode.value} mode{' sent to the short-stream kernel' if onepass else ''}")
+    if midstream:  # forced there, whatever the stream's length
+        onepass = False
     onepass = takes_onepass(Dp, Sq, k.shape[2], dims[4], mode, q.dtype) if onepass is None else onepass
+    midstream = (not onepass and takes_midstream(Dp, Sq, k.shape[2], dims[4], mode, q.dtype) if midstream is None
+                 else midstream)
     if onepass:
         entry = ONEPASS_ENTRIES[q.dtype]
-    return dict(entry=entry, onepass=onepass, tensors=tensors, dims=dims, coef=coef_t, skip=skip, work=work,
-                splits=splits, scale=D ** -0.5 if scale is None else scale, has_own=has_own, n_sets=n_sets,
-                head_dim=D, out=out[..., :D])
+    elif midstream:
+        entry = MIDSTREAM_ENTRIES[q.dtype]
+    return dict(entry=entry, onepass=onepass, midstream=midstream, tensors=tensors, dims=dims, coef=coef_t, skip=skip,
+                work=work, splits=splits, scale=D ** -0.5 if scale is None else scale, has_own=has_own,
+                n_sets=n_sets, head_dim=D, out=out[..., :D])
 
 
 _DIMS_ARRAYS: dict = {}
@@ -700,7 +790,8 @@ def _launch_counted(wrapper, q, *args, **kwargs) -> torch.Tensor:
     and of the call's padded head dim, counted on ``wrapper`` in all, under
     the instance's head dim (40, 64, 80, 160, 512 or :data:`DWIDE`) and,
     where the short-stream kernel took it, in ``launches_onepass`` under
-    that head dim too."""
+    that head dim too, where the mid-length stream kernel took it, in
+    ``launches_midstream``."""
     _check_dtype("q", q, _WRAPPER_DTYPES[wrapper.__name__])
     out, launch = kernel_launch(q, *args, **kwargs)
     launch()
@@ -709,6 +800,8 @@ def _launch_counted(wrapper, q, *args, **kwargs) -> torch.Tensor:
     wrapper.launches_by_head_dim[instance_head_dim(Dp)] += 1
     if launch.operands["onepass"]:
         wrapper.launches_onepass[Dp] += 1
+    elif launch.operands["midstream"]:
+        wrapper.launches_midstream[Dp] += 1
     return out
 
 
@@ -832,15 +925,16 @@ def reset_launch_counts() -> None:
     """Set the interpolating kernels' launch counts (bf16, f16 and f32, total
     and per instance head dim, 512 the D=161-512 entries,
     :data:`DWIDE` the wide entries: a padded call counts under the instance
-    that takes it; and the short-stream kernel's launches, a part of those
-    at D <= 160, by head dim) to 0."""
+    that takes it; and the short-stream and the mid-length stream kernels'
+    launches, parts of those at D <= 160, by head dim) to 0."""
     for fn in (flash_interpolated_attention, flash_interpolated_attention_f16, flash_interpolated_attention_f32):
         fn.launches = 0
         fn.launches_by_head_dim = dict.fromkeys((*KERNEL_HEAD_DIMS, D512, DWIDE), 0)
         fn.launches_onepass = dict.fromkeys(KERNEL_HEAD_DIMS, 0)
+        fn.launches_midstream = dict.fromkeys(KERNEL_HEAD_DIMS, 0)
 
 
 #: kernel launches since the last reset, in all, by head dim and on the
-#: short-stream kernel, of the bf16, the f16 and the f32 interpolating
-#: kernels (chip_smoke.py reads them around each path)
+#: short-stream and mid-length stream kernels, of the bf16, the f16 and the
+#: f32 interpolating kernels (chip_smoke.py reads them around each path)
 reset_launch_counts()

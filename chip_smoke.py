@@ -561,7 +561,8 @@ def read_counts() -> dict:
     ``flash_interpolated_attention_f32[D=...]`` and
     ``flash_interpolated_attention_f16[D=...]``; of those, the short-stream
     kernel's (bf16 and f16) under ``...[onepass]`` in all and
-    ``...[onepass D=...]`` by head dim."""
+    ``...[onepass D=...]`` by head dim, and the mid-length stream kernel's
+    under ``...[midstream]`` and ``...[midstream D=...]``."""
     wrappers = kernel_wrappers()
     counts = {name: fn.launches for name, fn in wrappers.items()}
     for name in ("flash_interpolated_attention", "flash_interpolated_attention_f32",
@@ -569,9 +570,11 @@ def read_counts() -> dict:
         for d, n in wrappers[name].launches_by_head_dim.items():
             counts[f"{name}[D={d}]"] = n
     for name in ("flash_interpolated_attention", "flash_interpolated_attention_f16"):
-        counts[f"{name}[onepass]"] = sum(wrappers[name].launches_onepass.values())
-        for d, n in wrappers[name].launches_onepass.items():
-            counts[f"{name}[onepass D={d}]"] = n
+        for kind in ("onepass", "midstream"):
+            by_dim = getattr(wrappers[name], f"launches_{kind}")
+            counts[f"{name}[{kind}]"] = sum(by_dim.values())
+            for d, n in by_dim.items():
+                counts[f"{name}[{kind} D={d}]"] = n
     return counts
 
 
@@ -654,6 +657,7 @@ def phase_kernels(coef, sd_coef, fused_classes, sd21_classes):
         kernel_launch,
         padded_head_dim,
         takes_d512_self,
+        takes_midstream,
         takes_onepass,
     )
 
@@ -686,7 +690,7 @@ def phase_kernels(coef, sd_coef, fused_classes, sd21_classes):
             kc, vc = torch.cat([k, kc], 2), torch.cat([v, vc], 2)
         return sdpa_backends(q, kc, vc, want, reps)
 
-    def attention(label, mode, c, H, Sq, L, D, reps, Le=None, dtype=torch.bfloat16, parent=False):
+    def attention(label, mode, c, H, Sq, L, D, reps, Le=None, dtype=torch.bfloat16, parent=None):
         """One bf16 (or f16, or f32) attention case, B = len(c): (B, S, H*D)
         projections viewed as (B, H, S, D), as the model passes them; skip
         rows as the model marks them; optional shared (H, Le, D) endpoints.
@@ -703,9 +707,11 @@ def phase_kernels(coef, sd_coef, fused_classes, sd21_classes):
         the launch, as the wrapper made them; d512_kernel_ms: the launch
         alone on operands d512_launch prepared once), one past 512 the wide
         entry in every
-        mode (f32 bounded at three TF32 passes). With ``parent``, a call the
-        route sends to the short-stream kernel is timed beside the route
-        before it, the D <= 160 streaming kernel (parent_ms: its host work and
+        mode (f32 bounded at three TF32 passes). With ``parent`` ("onepass" or
+        "midstream"), a call the route sends to the short-stream or the
+        mid-length stream kernel (the route fails the phase if it does not) is
+        timed beside the route before it, the D <= 160 streaming kernel
+        (parent_ms: its host work and
         launch as the wrapper made them; parent_kernel_ms: the launch alone),
         and in the inner modes beside SDPA over [own; K_cross]. The wide
         entries are both bounded at the caller's
@@ -740,8 +746,8 @@ def phase_kernels(coef, sd_coef, fused_classes, sd21_classes):
         ref = want.float().abs().max().item()
         rl2 = rel_l2(got, want)
         _, launch = kernel_launch(q, k, v, c, mode, **kw)  # operands checked and laid out once
-        if parent and not launch.operands["onepass"]:
-            fail(f"attention {label} (D={D}, {dtype}): the route does not send it to the short-stream kernel")
+        if parent and not launch.operands[parent]:
+            fail(f"attention {label} (D={D}, {dtype}): the route does not send it to the {parent} kernel")
         kernel_ms = cuda_ms(launch, reps)
         ms = cuda_ms(lambda: flash_interpolated_attention(q, k, v, c, mode, **kw), reps)
         plain_ms = cuda_ms(lambda: flash_interpolated_attention_plain(q, k, v, c, mode, **kw), max(1, reps // 5))
@@ -763,10 +769,10 @@ def phase_kernels(coef, sd_coef, fused_classes, sd21_classes):
             del d512_alone
         before = {}
         if parent:  # the route before, the D <= 160 streaming kernel, in turns with the new one (the least kept)
-            _, old_alone = kernel_launch(q, k, v, c, mode, onepass=False, **kw)
+            _, old_alone = kernel_launch(q, k, v, c, mode, **{parent: False}, **kw)
 
             def old_call():
-                kernel_launch(q, k, v, c, mode, onepass=False, **kw)[1]()
+                kernel_launch(q, k, v, c, mode, **{parent: False}, **kw)[1]()
 
             before = {"parent_kernel_ms": cuda_ms(old_alone, reps), "parent_ms": cuda_ms(old_call, reps)}
             kernel_ms = min(kernel_ms, cuda_ms(launch, reps))
@@ -969,7 +975,7 @@ def phase_kernels(coef, sd_coef, fused_classes, sd21_classes):
             if not takes_onepass(padded_head_dim(D, mode, dtype), Sq, L, L if Le is None else Le, mode, dtype):
                 continue  # the route keeps it on the streaming kernel (tools/attention_bench.py --onepass)
             r = attention(label, mode, c, H, Sq, L, D, reps if dtype == torch.bfloat16 else max(1, reps // 2), Le,
-                          dtype, parent=True)
+                          dtype, parent="onepass")
             got, want, inputs = r.pop("got"), r.pop("want"), r.pop("inputs")
             if fault_case is None and mode in ("fused_outer", "pure_outer"):
                 fault_case = (label, got, want, inputs)
@@ -993,6 +999,62 @@ def phase_kernels(coef, sd_coef, fused_classes, sd21_classes):
         del fault_case, got, want, q, k, v
         records[name] = {**main, "max_abs_err": worst, "shapes": shapes}
     gen = main_gen
+
+    # the mid-length stream kernel (csrc/flash_attention_midstream.cu) at every
+    # call of the paths' shapes the route sends it, in bf16 and f16: SDXL's
+    # 1024-token level, SD 2.1's 24^2 level and SD 1.5's 32^2 level at D = 80
+    # in every mode, SD 2.1's 48^2 level in self and pure_inner mode (the
+    # calls the route keeps on the streaming kernel, as SD 1.5's outer modes,
+    # are skipped); each beside the route before it (the streaming kernel)
+    # and, in self mode and the inner modes, SDPA; the record is the first
+    # case's (SDXL self (7,20,1024,64), beside SDPA), every case under
+    # ``shapes``
+    modes = ("self", "fused_outer", "pure_outer", "fused_inner", "pure_inner")
+    midstream_cases = [
+        ("SDXL self 1024", "self", coef, 20, 1024, 1024, 64, 20, None),
+        ("SDXL fused_outer 1024", "fused_outer", coef, 20, 1024, 1024, 64, 20, None),
+        *[(f"SDXL {m} 1024", m, coef, 20, 1024, 1024, 64, 10, None)
+          for m in ("pure_outer", "fused_inner", "pure_inner")],
+        *[(f"SD2.1 {m} 576", m, sd_coef, 20, 576, 576, 64, 20 if m in ("self", "fused_outer") else 10, None)
+          for m in modes],
+        *[(f"SD2.1 {m} 2304", m, sd_coef, 10, 2304, 2304, 64, 10, None) for m in ("self", "pure_inner")],
+        *[(f"SD1.5 {m} 1024", m, sd_coef, 8, 1024, 1024, 80, 20 if m == "self" else 10, None) for m in modes],
+    ]
+    t_mid = time.perf_counter()
+    for name, dtype in (("flash_interpolated_attention(midstream)", torch.bfloat16),
+                        ("flash_interpolated_attention_f16(midstream)", torch.float16)):
+        gen = f16_gen if dtype == torch.float16 else main_gen
+        worst, shapes, main, fault_case = 0.0, {}, None, None
+        for label, mode, c, H, Sq, L, D, reps, Le in midstream_cases:
+            if not takes_midstream(padded_head_dim(D, mode, dtype), Sq, L, L if Le is None else Le, mode, dtype):
+                continue  # the route keeps it on the streaming kernel (tools/attention_bench.py --midstream)
+            r = attention(label, mode, c, H, Sq, L, D, reps if dtype == torch.bfloat16 else max(1, reps // 2), Le,
+                          dtype, parent="midstream")
+            got, want, inputs = r.pop("got"), r.pop("want"), r.pop("inputs")
+            if fault_case is None and mode in ("fused_outer", "pure_outer"):
+                fault_case = (label, got, want, inputs)
+            del got, want
+            worst = max(worst, r["max_abs_err"])
+            shapes[f"{label} ({c.shape[0]},{H},{Sq},{D})"] = {
+                **{k: r[k] for k in ("ms", "kernel_ms", "plain_ms", "bound_ms", "library_ms", "library", "parent_ms",
+                                     "parent_kernel_ms")}, "bound_share": r["bound_ms"] / r["kernel_ms"]}
+            main = main or r
+        # a planted fault the tolerance must see: the plain version with c and
+        # 1 - c exchanged in the outer blend
+        label, got, want, (q, k, v, c, mode, kw) = fault_case
+        tol = F16_ATTN_TOL if dtype == torch.float16 else ATTN_TOL
+        ref = want.float().abs().max().item()
+        ferr = (got.float() - coef_swapped(flash_interpolated_attention_plain)(q, k, v, c, mode, **kw).float()
+                ).abs().max().item()
+        print(f"  planted fault on {label} (c and 1 - c exchanged): max_abs_err {ferr:.3e} against tol "
+              f"{tol * ref:.3e}  {'ok' if ferr > tol * ref else 'FAIL'}", flush=True)
+        if not ferr > tol * ref:
+            fail(f"{name}: the tolerance does not see c and 1 - c exchanged on {label} ({ferr:.3e})")
+        del fault_case, got, want, q, k, v
+        records[name] = {**main, "max_abs_err": worst, "shapes": shapes}
+    gen = main_gen
+    print(f"  the mid-length stream cases (bf16 and f16, each beside the streaming kernel and the plain version): "
+          f"{time.perf_counter() - t_mid:.1f} s", flush=True)
 
     # the D=161-512 entries at phase 21's shapes (SD 1.x at 320-wide heads: 1
     # / 2 / 4 / 4 heads over 64^2 / 32^2 / 16^2 / 8^2 tokens, D = 320): every
@@ -1531,9 +1593,10 @@ def phase_main(unet, sample, ehs, uncond, added, coef, steps: int, card: str):
         fail(f"output shape {tuple(out.shape)} != {tuple(sample.shape)}")
     if not math.isfinite(checksum):
         fail(f"non-finite output checksum: {checksum}")
-    # the 77-key text cross calls on the short-stream kernel
+    # the 77-key text cross calls on the short-stream kernel, the 1024-token
+    # self and fused_outer calls on the mid-length stream kernel
     check_path("denoise", launches, ("flash_interpolated_attention", "flash_interpolated_attention[onepass]",
-                                     "conv3x3_same"))
+                                     "flash_interpolated_attention[midstream]", "conv3x3_same"))
     return launches, out
 
 
@@ -2069,7 +2132,8 @@ def phase_sd15_image(unet, card: str, steps: int, text_cfg=None, vae_cfg=None):
         return pipe.interpolate_single(0.5, latent_a, latent_b, "prompt A", "prompt B", num_inference_steps=steps)
 
     heads = ("flash_interpolated_attention[D=40]", "flash_interpolated_attention[D=80]",
-             "flash_interpolated_attention[D=160]", "flash_interpolated_attention[onepass]")
+             "flash_interpolated_attention[D=160]", "flash_interpolated_attention[onepass]",
+             "flash_interpolated_attention[midstream]")
     paths = []
 
     def run_path(label, frames, call, vae_kernel="flash_self_attention_f32", tol=VAE_TOL, planted_fault=None):
@@ -2478,8 +2542,8 @@ def phase_sd21(card: str) -> list:
         if not math.isfinite(checksum):
             fail(f"SD2.1 interpolate: non-finite checksum {checksum}")
         check_path("SD2.1 interpolate", counts,
-                   ("flash_interpolated_attention[D=64]", "flash_interpolated_attention[onepass]", "conv3x3_same",
-                    "flash_self_attention_f32"))
+                   ("flash_interpolated_attention[D=64]", "flash_interpolated_attention[onepass]",
+                    "flash_interpolated_attention[midstream]", "conv3x3_same", "flash_self_attention_f32"))
         inside = ((images > 0) & (images < 255)).reshape(7, -1).mean(axis=1)
         frame = int(inside.argmax())
         check_decoder(pipe.vae.decode, decoder_inputs[0][frame:frame + 1], images, frame)
@@ -4029,6 +4093,10 @@ def phase_f16(card: str, steps: int) -> list:
     paths = []
     heads = tuple(f"flash_interpolated_attention_f16[D={d}]" for d in (40, 80, 160)) + (
         "flash_interpolated_attention_f16[onepass]",)
+    # the 1024-token self calls at D = 80 (a sequence's uncond passes and late
+    # steps; the fused_outer forward's stay on row 1's kernel, the route's
+    # measured limit) on the mid-length stream kernel
+    midstream = ("flash_interpolated_attention_f16[midstream]",)
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     root = tempfile.mkdtemp(prefix="sd15-f16-checkpoint-", dir=os.path.join(ROOT, "build"))
     try:
@@ -4080,7 +4148,7 @@ def phase_f16(card: str, steps: int) -> list:
     images, counts, times, decoder_inputs, elapsed, peak = run_image_path(pipe, pipe.vae, interpolate, SD15_STEPS, 7)
     check_images(f"f16 SD1.5 interpolate (PAID, {SD15_STEPS} DDIM steps, f32 VAE)", images, (7, px, px, 3), times,
                  elapsed, peak, card)
-    check_f16_only("f16 SD1.5 interpolate", counts, heads + ("flash_self_attention_f32",),
+    check_f16_only("f16 SD1.5 interpolate", counts, heads + midstream + ("flash_self_attention_f32",),
                    allowed=("flash_self_attention_f32",))
     if counts["flash_self_attention_f32"] != 1:
         fail(f"f16 SD1.5 interpolate: {counts['flash_self_attention_f32']} launches of the f32 VAE's attention, one "
@@ -4098,7 +4166,7 @@ def phase_f16(card: str, steps: int) -> list:
         pipe, pipe.vae, lambda: pipe.interpolate_single(0.5, latent_a, latent_b, "prompt A", "prompt B",
                                                         num_inference_steps=SD15_STEPS), SD15_STEPS, 3)
     check_images("f16 SD1.5 interpolate_single(0.5)", single, (3, px, px, 3), times1, elapsed, peak, card)
-    check_f16_only("f16 SD1.5 interpolate_single", counts, heads + ("flash_self_attention_f32",),
+    check_f16_only("f16 SD1.5 interpolate_single", counts, heads + midstream + ("flash_self_attention_f32",),
                    allowed=("flash_self_attention_f32",))
     paths.append(counts)
 
@@ -4125,7 +4193,8 @@ def phase_f16(card: str, steps: int) -> list:
     def forward(aid_ctx=aid):
         return unet(sample, t, ehs, aid_ctx, added)
 
-    needed = ("flash_interpolated_attention_f16[D=64]", "flash_interpolated_attention_f16[onepass]", "conv3x3_same_f16")
+    needed = ("flash_interpolated_attention_f16[D=64]", "flash_interpolated_attention_f16[onepass]",
+              "flash_interpolated_attention_f16[midstream]", "conv3x3_same_f16")
     counts = check_unet_vs_plain(f"f16 SDXL unet fused_outer B={sample.shape[0]} 128x128", forward, aid, F16_UNET_TOL)
     check_f16_only("f16 SDXL forward", counts, needed)
     paths.append(counts)
@@ -4570,10 +4639,17 @@ def kernels_line(kernels: dict, launches: dict) -> str:
     over the paths."""
     import torch
 
-    from aid_tpu_torch.ops.flash_attention import DMID_SELF_MAX, ONEPASS_STREAM_TILES
+    from aid_tpu_torch.ops.flash_attention import (
+        DMID_SELF_MAX,
+        MIDSTREAM_MAX_STREAM,
+        MIDSTREAM_MIN_QUERIES,
+        MIDSTREAM_MODES,
+        ONEPASS_STREAM_TILES,
+    )
 
     flash_src = "aid_tpu_torch/csrc/flash_interpolated_attention.cu"
     onepass_src = "aid_tpu_torch/csrc/flash_attention_onepass.cu"
+    midstream_src = "aid_tpu_torch/csrc/flash_attention_midstream.cu"
     conv_src = "aid_tpu_torch/csrc/conv3x3.cu"
     flash_f32_src = "aid_tpu_torch/csrc/flash_interpolated_attention_f32.cu"
     flash_replaces = ("aid_tpu/ops/flash_attention.py:101", {"also_replaces": "aid_tpu/ops/flash_attention.py:339"})
@@ -4620,6 +4696,19 @@ def kernels_line(kernels: dict, launches: dict) -> str:
                       "three Q/O buffers (Q two tiles ahead, O out by TMA store); S = Q K^T one wgmma over the "
                       "whole stream, each segment's exact row max, the sets combined row by row into one weight a "
                       "segment folded into P, P V one accumulator")
+    midstream_design = ("a persistent grid, one block an SM, walking one list of (head, batch row, query tile) "
+                        "work items heaviest first (rows keeping their endpoints before skip rows, full tiles "
+                        "before a (b, h)'s last) in a snake (block i at position i of even rounds, grid - 1 - i "
+                        "of odd ones); 192-row items of three consumer "
+                        "warpgroups at D = 64 (one whose rows are all past Sq only passes the stages on), 128-row "
+                        "items of two at D = 80; a producer thread running "
+                        "ahead across items through a ring of Q/O buffers (the output out by TMA store from the "
+                        "item's Q buffer) and a K/V ring over own / begin / end segments; the online softmax on "
+                        "wgmma per 64-row warpgroup; the outer modes' own state parked and swapped in shared memory")
+    midstream_note = ("ms at self (7,20,1024,64), every routed case of the paths' shapes under shapes with "
+                      "parent_ms / parent_kernel_ms (the same call on the D <= 160 streaming kernel, the route before, "
+                      "through its host work / the launch alone); library_ms: SDPA in self mode and over "
+                      f"[own; K_cross] in the inner modes; {attn_note}")
     onepass_note = ("ms at self (7,10,4096,77), every routed case of the paths' shapes under shapes with "
                     "parent_ms / parent_kernel_ms (the same call on the D <= 160 streaming kernel, the route before, "
                     "through its host work / the launch alone); library_ms: SDPA in self mode and over "
@@ -4631,14 +4720,15 @@ def kernels_line(kernels: dict, launches: dict) -> str:
     rows = {
         "flash_interpolated_attention": (
             flash_src, flash_replaces[0], ("flash_interpolated_attention[D=64]",
-                                           "-flash_interpolated_attention[onepass D=64]"),
+                                           "-flash_interpolated_attention[onepass D=64]",
+                                           "-flash_interpolated_attention[midstream D=64]"),
             {**flash_replaces[1], "contract": "bf16, head dim 64, every mode (SDXL / SD2.x UNet); ms at "
                                               "fused_outer (7,10,4096,64), self_* at self (7,10,4096,64); "
                                               f"{attn_note}"}),
         "flash_interpolated_attention(D=40/80/160)": (
             flash_src, flash_replaces[0],
             tuple(f"{sign}flash_interpolated_attention[{o}D={d}]" for d in (40, 80, 160)
-                  for sign, o in (("", ""), ("-", "onepass "))),
+                  for sign, o in (("", ""), ("-", "onepass "), ("-", "midstream "))),
             {**flash_replaces[1], "contract": "bf16, head dims 40/80/160, every mode (SD1.x UNet); "
                                               "ms at fused_outer (7,8,4096,40), self_* at self (7,8,4096,40); "
                                               f"{attn_note}"}),
@@ -4709,13 +4799,15 @@ def kernels_line(kernels: dict, launches: dict) -> str:
         # type a template parameter): phase 20's paths
         "flash_interpolated_attention_f16": (
             flash_src, flash_replaces[0], ("flash_interpolated_attention_f16[D=64]",
-                                           "-flash_interpolated_attention_f16[onepass D=64]"),
+                                           "-flash_interpolated_attention_f16[onepass D=64]",
+                                           "-flash_interpolated_attention_f16[midstream D=64]"),
             {**flash_replaces[1], "entry": "aid_flash_attn_f16",
              "contract": "f16, head dim 64, every mode (an f16 SDXL / SD2.x UNet); ms at fused_outer "
                          f"(7,10,4096,64), self_* at self (7,10,4096,64); {attn_note}"}),
         "flash_interpolated_attention_f16(D=40/80/160)": (
             flash_src, flash_replaces[0], tuple(f"{sign}flash_interpolated_attention_f16[{o}D={d}]"
-                                                for d in (40, 80, 160) for sign, o in (("", ""), ("-", "onepass "))),
+                                                for d in (40, 80, 160)
+                                                for sign, o in (("", ""), ("-", "onepass "), ("-", "midstream "))),
             {**flash_replaces[1], "entry": "aid_flash_attn_f16",
              "contract": "f16, head dims 40/80/160, every mode (an f16 SD1.x UNet); ms at fused_outer "
                          f"(7,8,4096,40), self_* at self (7,8,4096,40); {attn_note}"}),
@@ -4772,6 +4864,18 @@ def kernels_line(kernels: dict, launches: dict) -> str:
             {"entry": f"aid_flash_attn_{ty}_onepass", "design": onepass_design,
              "contract": f"{ty}, head dims 40/64/80/160, every mode, streams of up to {ONEPASS_STREAM_TILES[-1]} "
                          f"16-key tiles that fit its shared memory; {onepass_note}"})
+           for sfx, ty in (("", "bf16"), ("_f16", "f16"))},
+        # the mid-length streams (past the short-stream kernel up to the JAX
+        # wrapper's onepass_max: SDXL's 1024-token self and fused_outer calls,
+        # SD 2.1's 576 and 2304, SD 1.5's 1024 at D = 80) in bf16 and f16, one source
+        **{f"flash_interpolated_attention{sfx}(midstream)": (
+            midstream_src, "aid_tpu/ops/flash_attention.py:339", (f"flash_interpolated_attention{sfx}[midstream]",),
+            {"entry": f"aid_flash_attn_{ty}_midstream", "design": midstream_design,
+             "contract": f"{ty}, head dims 64/80, every mode, streams past the short-stream kernel up to "
+                         f"{MIDSTREAM_MAX_STREAM} keys (own keys and each endpoint segment's) with at least "
+                         f"{MIDSTREAM_MIN_QUERIES} query rows a (b, h), in the modes measured faster at each head "
+                         f"dim ({'; '.join(f'D = {d}: ' + '/'.join(sorted(m)) for d, m in MIDSTREAM_MODES.items())}); "
+                         f"{midstream_note}"})
            for sfx, ty in (("", "bf16"), ("_f16", "f16"))},
     }
     record = []

@@ -63,7 +63,8 @@ KERNEL_NAMES = ("flash_interpolated_attention", "flash_interpolated_attention(D=
                 "flash_interpolated_attention_f16(D=161-512)", "flash_interpolated_attention_f32(D=161-512)",
                 "flash_interpolated_attention(D=513-2048)", "flash_interpolated_attention_f16(D=513-2048)",
                 "flash_interpolated_attention_f32(D=513-2048)", "flash_interpolated_attention(onepass)",
-                "flash_interpolated_attention_f16(onepass)")
+                "flash_interpolated_attention_f16(onepass)", "flash_interpolated_attention(midstream)",
+                "flash_interpolated_attention_f16(midstream)")
 
 
 def test_kernels_line_carries_bound_and_library_time():
@@ -91,10 +92,14 @@ def test_kernels_line_carries_bound_and_library_time():
     launches.update({"flash_self_attention_f16": 5, "conv3x3_same_f16": 6, "conv3x3_gnsilu_f16": 7})
     launches.update({f"flash_interpolated_attention{t}[D=512]": n for t, n in (("", 11), ("_f16", 12), ("_f32", 13))})
     launches.update({f"flash_interpolated_attention{t}[D=2048]": n for t, n in (("", 21), ("_f16", 22), ("_f32", 23))})
-    # the short-stream kernel's launches, a part of the D <= 160 counts: 1 a head dim in bf16, 2 in f16
-    for t, n in (("", 1), ("_f16", 2)):
+    # the short-stream kernel's launches, a part of the D <= 160 counts: 1 a head dim in bf16, 2 in f16; and
+    # the mid-length stream kernel's: none at D = 40 and 160, 1 at 64 and 80 in bf16, 3 in f16
+    for t, n, m in (("", 1, 1), ("_f16", 2, 3)):
         launches.update({f"flash_interpolated_attention{t}[onepass D={d}]": n for d in (40, 64, 80, 160)})
         launches[f"flash_interpolated_attention{t}[onepass]"] = 4 * n
+        launches.update({f"flash_interpolated_attention{t}[midstream D={d}]": m * (d in (64, 80))
+                         for d in (40, 64, 80, 160)})
+        launches[f"flash_interpolated_attention{t}[midstream]"] = 2 * m
     entries = json.loads(smoke.kernels_line(records, launches))["kernels"]
     assert [e["name"] for e in entries] == list(KERNEL_NAMES)
     for e, name in zip(entries, KERNEL_NAMES):
@@ -114,8 +119,9 @@ def test_kernels_line_carries_bound_and_library_time():
         assert (REPO / e["source"]).is_file()
         path, line = e["replaces"].split(":")
         assert path.startswith("aid_tpu/") and (REPO / path).is_file() and int(line) > 0
-    assert entries[0]["launches"] == 3 - 1  # the bf16 streaming kernel at D = 64, the short streams' launches not
-    assert entries[1]["launches"] == 9 - 3  # the bf16 kernel at D = 40, 80 and 160
+    # the bf16 streaming kernel at D = 64, the short and mid-length streams' launches not
+    assert entries[0]["launches"] == 3 - 1 - 1
+    assert entries[1]["launches"] == 9 - 3 - 1  # the bf16 kernel at D = 40, 80 and 160
     assert entries[3]["launches"] == 3 and entries[3]["source"].endswith("flash_attention_bf16_d512.cu")
     # the f32 instances: their own sources and launch counts
     by_name = {e["name"]: e for e in entries}
@@ -129,10 +135,10 @@ def test_kernels_line_carries_bound_and_library_time():
     assert gn32["source"].endswith("conv3x3_f32.cu") and gn32["replaces"] == "aid_tpu/ops/conv.py:78"
     assert gn32["launches"] == 4 and gn32["library_ms"] is None
     # the f16 instances: the bf16 designs' sources, their own C entries and launch counts
-    f16 = {n: by_name[n] for n in KERNEL_NAMES[-14:-8]}
+    f16 = {n: by_name[n] for n in KERNEL_NAMES[-16:-10]}
     assert f16["flash_interpolated_attention_f16"]["source"].endswith("flash_interpolated_attention.cu")
-    assert f16["flash_interpolated_attention_f16"]["launches"] == 64 - 2
-    assert f16["flash_interpolated_attention_f16(D=40/80/160)"]["launches"] == 40 + 80 + 160 - 3 * 2
+    assert f16["flash_interpolated_attention_f16"]["launches"] == 64 - 2 - 3
+    assert f16["flash_interpolated_attention_f16(D=40/80/160)"]["launches"] == 40 + 80 + 160 - 3 * 2 - 3
     assert f16["flash_self_attention_f16"]["source"].endswith("flash_attention_bf16_d512.cu")
     assert f16["flash_self_attention_f16"]["launches"] == 5
     assert f16["conv3x3_same_f16"]["launches"] == f16["conv3x3_same_f16(packed=True)"]["launches"] == 6
@@ -142,7 +148,7 @@ def test_kernels_line_carries_bound_and_library_time():
                                                  "aid_conv3x3_gnsilu_f16"}
     # the D=161-512 entries: the two D=161-512 sources, their own C entries,
     # each read from its dtype's count under D=512, self mode's instance named
-    wide = {n: by_name[n] for n in KERNEL_NAMES[-8:-5]}
+    wide = {n: by_name[n] for n in KERNEL_NAMES[-10:-7]}
     assert [e["launches"] for e in wide.values()] == [11, 12, 13]
     assert [e["entry"] for e in wide.values()] == ["aid_flash_attn_bf16_dmid", "aid_flash_attn_f16_dmid",
                                                    "aid_flash_attn_f32_dmid"]
@@ -155,7 +161,7 @@ def test_kernels_line_carries_bound_and_library_time():
             for e in wide.values()] == ["511", "511", "448"]
     # the wide entries past 512: one source, their own C entries, each read
     # from its dtype's count under DWIDE
-    dwide = {n: by_name[n] for n in KERNEL_NAMES[-5:-2]}
+    dwide = {n: by_name[n] for n in KERNEL_NAMES[-7:-4]}
     assert [e["launches"] for e in dwide.values()] == [21, 22, 23]
     assert [e["entry"] for e in dwide.values()] == ["aid_flash_attn_bf16_dwide", "aid_flash_attn_f16_dwide",
                                                     "aid_flash_attn_f32_dwide"]
@@ -164,11 +170,20 @@ def test_kernels_line_carries_bound_and_library_time():
                and "flash_dwide_combine_kernel" in e["design"] for e in dwide.values())
     # the short-stream kernel: its own source and C entries, TPU kernel #2
     # (`_kernel_onepass`), each read from its dtype's short-stream count
-    onepass = {n: by_name[n] for n in KERNEL_NAMES[-2:]}
+    onepass = {n: by_name[n] for n in KERNEL_NAMES[-4:-2]}
     assert [e["launches"] for e in onepass.values()] == [4, 8]
     assert [e["entry"] for e in onepass.values()] == ["aid_flash_attn_bf16_onepass", "aid_flash_attn_f16_onepass"]
     assert all(e["source"] == "aid_tpu_torch/csrc/flash_attention_onepass.cu"
                and e["replaces"] == "aid_tpu/ops/flash_attention.py:339" for e in onepass.values())
+    # the mid-length stream kernel: its own source and C entries, TPU kernel #2
+    # too, each read from its dtype's mid-length stream count
+    midstream = {n: by_name[n] for n in KERNEL_NAMES[-2:]}
+    assert [e["launches"] for e in midstream.values()] == [2, 6]
+    assert [e["entry"] for e in midstream.values()] == ["aid_flash_attn_bf16_midstream",
+                                                        "aid_flash_attn_f16_midstream"]
+    assert all(e["source"] == "aid_tpu_torch/csrc/flash_attention_midstream.cu"
+               and e["replaces"] == "aid_tpu/ops/flash_attention.py:339" and "3072 keys" in e["contract"]
+               for e in midstream.values())
 
 
 def test_f32_phases_follow_the_bf16_paths():

@@ -36,6 +36,7 @@ from aid_tpu_torch.ops.flash_attention import (
     flash_self_attention_f32,
     padded_head_dim,
     takes_d512_self,
+    takes_midstream,
     takes_onepass,
 )
 from aid_tpu_torch.ops.flash_attention import DWIDE, instance_head_dim
@@ -1458,3 +1459,143 @@ def test_flash_onepass_longer_streams_keep_the_streaming_kernel(dev, dtype, D, m
     torch.cuda.synchronize()
     assert fn.launches_onepass == before
     assert _attn_err(got, flash_interpolated_attention_plain(q, k, v, coef, mode)) < ATTN_RTOLS[dtype]
+
+
+# The mid-length stream kernel (csrc/flash_attention_midstream.cu): streams
+# past what the short-stream kernel holds. (B, H, Sq, Lk, Le, endpoints):
+# two 192-row items a (b, h), the second with two warpgroups idle, over a
+# ragged 300-key own segment and shared 131-key endpoints; 576 queries (three
+# items, none idle) with per-row endpoints of their own length; 384 queries
+# over 333 own keys; and SDXL's own (7, 20, 1024) (many items a block).
+MIDSTREAM_CASES = [(3, 2, 256, 300, 131, 3), (2, 3, 576, 300, 77, 4), (3, 2, 384, 333, 300, None),
+                   (7, 20, 1024, 1024, None, None)]
+
+
+def _midstream_inputs(dtype, D, case, seed):
+    B, H, S, L, Le, ep = case
+
+    def heads(x):
+        return x.view(x.shape[0], x.shape[1], H, D).transpose(1, 2)
+
+    q = heads(_randn((B, S, H * D), seed, dtype))
+    k, v = heads(_randn((B, L, H * D), seed + 1, dtype)), heads(_randn((B, L, H * D), seed + 2, dtype))
+    coef = torch.linspace(0, 1, B, device="cuda")
+    skip = torch.zeros(B, dtype=torch.bool, device="cuda")
+    skip[0] = skip[-1] = True
+    eps = {}
+    if ep is not None:
+        shape = (H, Le, D) if ep == 3 else (B, H, Le, D)
+        eps = {n: _randn(shape, seed + 10 + i, dtype) for i, n in enumerate(("k_begin", "v_begin", "k_end", "v_end"))}
+    return q, k, v, coef, dict(skip_endpoints=skip, **eps)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "f16"])
+@pytest.mark.parametrize("D,mode,case", [(D, m, c) for D in (64, 80) for m in MODES for c in MIDSTREAM_CASES])
+def test_flash_midstream_kernel_matches_plain(dev, dtype, D, mode, case):
+    """Every mode at both head dims, sent to the mid-length stream kernel
+    (kernel_launch(..., midstream=True), whatever the route's limits), within
+    the dtype's bound of the plain version and of the streaming kernel on the
+    same call; skip rows at both ends, (B, S, H*D) projections viewed as (B,
+    H, S, D)."""
+    from aid_tpu_torch.ops.flash_attention import kernel_launch
+
+    q, k, v, coef, kw = _midstream_inputs(dtype, D, case, 950 + D)
+    got, launch = kernel_launch(q, k, v, coef, mode, midstream=True, **kw)
+    launch()
+    torch.cuda.synchronize()
+    want = flash_interpolated_attention_plain(q, k, v, coef, mode, **kw)
+    assert got.shape == want.shape and got.dtype == dtype and torch.isfinite(got).all()
+    assert _attn_err(got, want) < ATTN_RTOLS[dtype]
+    streamed, launch = kernel_launch(q, k, v, coef, mode, midstream=False, **kw)
+    launch()
+    torch.cuda.synchronize()
+    assert _attn_err(got, streamed) < 2 * ATTN_RTOLS[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "f16"])
+@pytest.mark.parametrize("D,mode,H,S", [(64, "self", 20, 1024), (64, "fused_outer", 20, 1024), (64, "self", 20, 576),
+                                        (64, "fused_outer", 20, 576), (64, "self", 10, 2304), (80, "self", 8, 1024),
+                                        (64, "pure_outer", 4, 1024), (64, "fused_inner", 4, 1024),
+                                        (64, "pure_inner", 4, 1024)])
+def test_flash_midstream_route_launches_it(dev, dtype, D, mode, H, S):
+    """The paths' routed calls (SDXL's 1024-token level, SD 2.1's 576 and
+    2304, SD 1.5's 1024 at D = 80) through the wrapper: one launch of the
+    mid-length stream kernel, counted under D in launches_midstream and
+    launches_by_head_dim, the plain version's result."""
+    assert takes_midstream(D, S, S, S, mode, dtype)
+    q, k, v, coef, kw = _midstream_inputs(dtype, D, (3, H, S, S, None, None), 990 + S)
+    fn = ATTN_WRAPPER[dtype]
+    before, before_d = fn.launches_midstream[D], fn.launches_by_head_dim[D]
+    got = flash_interpolated_attention(q, k, v, coef, mode, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches_midstream[D] == before + 1 and fn.launches_by_head_dim[D] == before_d + 1
+    assert _attn_err(got, flash_interpolated_attention_plain(q, k, v, coef, mode, **kw)) < ATTN_RTOLS[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "f16"])
+@pytest.mark.parametrize("D,mode,S,L", [(64, "self", 4096, 4096), (64, "fused_outer", 1024, 1025),
+                                        (64, "self", 512, 576), (80, "fused_outer", 1024, 1024),
+                                        (80, "fused_inner", 1024, 1024), (80, "pure_inner", 1024, 1024),
+                                        (160, "self", 1024, 256), (40, "fused_outer", 1024, 1024)])
+def test_flash_midstream_route_keeps_the_rest(dev, dtype, D, mode, S, L):
+    """Calls the route keeps off the mid-length stream kernel: streams past
+    3072 keys, fewer query rows than its measured limit, D = 80 in every
+    mode but self (not measured faster), head dims it has no instance of: no
+    launch of it, the result still the plain version's."""
+    q, k, v = _randn((2, 2, S, D), 970, dtype), _randn((2, 2, L, D), 971, dtype), _randn((2, 2, L, D), 972, dtype)
+    coef = torch.linspace(0, 1, 2, device=dev)
+    fn = ATTN_WRAPPER[dtype]
+    before = dict(fn.launches_midstream)
+    got = flash_interpolated_attention(q, k, v, coef, mode)
+    torch.cuda.synchronize()
+    assert fn.launches_midstream == before
+    assert _attn_err(got, flash_interpolated_attention_plain(q, k, v, coef, mode)) < ATTN_RTOLS[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "f16"])
+@pytest.mark.parametrize("mode", ["self", "fused_outer"])
+def test_flash_midstream_kernel_past_the_route(dev, dtype, mode):
+    """Sent past the route (midstream=True): a 4096-token stream, many items a
+    block over long segments; two launches in a row give the same result."""
+    from aid_tpu_torch.ops.flash_attention import kernel_launch
+
+    q, k, v = (_randn((3, 4, 4096, 64), 980 + i, dtype) for i in range(3))
+    coef = torch.linspace(0, 1, 3, device=dev)
+    out, launch = kernel_launch(q, k, v, coef, mode, midstream=True)
+    assert launch.operands["entry"].endswith("_midstream")
+    launch()
+    torch.cuda.synchronize()
+    first = out.clone()
+    out.zero_()
+    launch()
+    torch.cuda.synchronize()
+    assert torch.equal(out, first)
+    assert _attn_err(out, flash_interpolated_attention_plain(q, k, v, coef, mode)) < ATTN_RTOLS[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "f16"])
+def test_flash_midstream_kernel_on_two_streams(dev, dtype):
+    """Two launches on two streams at once (each block takes its items by its
+    own index: no state outlives a launch), each the plain version's result
+    and the same as alone."""
+    from aid_tpu_torch.ops.flash_attention import kernel_launch
+
+    calls = []
+    for i, mode in enumerate(("self", "fused_outer")):
+        q, k, v, coef, kw = _midstream_inputs(dtype, 64, (7, 20, 1024, 1024, None, None), 1010 + 10 * i)
+        torch.cuda.synchronize()
+        with torch.cuda.stream(torch.cuda.Stream()):  # the launch runs on the stream current here
+            out, launch = kernel_launch(q, k, v, coef, mode, midstream=True, **kw)
+        launch()
+        torch.cuda.synchronize()
+        calls.append((out, launch, out.clone(), flash_interpolated_attention_plain(q, k, v, coef, mode, **kw)))
+    for _ in range(3):
+        for out, *_ in calls:
+            out.zero_()
+        torch.cuda.synchronize()
+        for _, launch, *_ in calls:
+            launch()
+        torch.cuda.synchronize()
+        for out, _, alone, want in calls:
+            assert torch.equal(out, alone)
+            assert _attn_err(out, want) < ATTN_RTOLS[dtype]

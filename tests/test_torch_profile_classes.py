@@ -69,6 +69,14 @@ def _instances(name: str, text: str) -> list:
         assert all(a == b for a, b in kts)
         return [("onepass_kernel", (t, d, kt)) for t in types for d in dims for kt, _ in kts
                 if onepass_tiles(int(d), 16 * int(kt), 16, "self") is not None]
+    if name == "flash_attention_midstream.cu":  # (warpgroups, IDLE) as the dispatch picks them, by NSETS
+        from aid_tpu_torch.ops.flash_attention import MIDSTREAM_TILES
+
+        sets = _all(r"case (\d): return launch_sets<T, D, \1>", text)
+        shapes = _all(r"launch<T, D, (\d|NWG), (true|false), NSETS>", text)  # NWG: the head dim's most (kMaxWG)
+        most = {d: str(MIDSTREAM_TILES[int(d)][3]) for d in dims}
+        return [("midstream_kernel", (t, d, most[d] if w == "NWG" else w, idle, n)) for t in types for d in dims
+                for w, idle in shapes for n in sets if w == "NWG" or int(w) <= int(most[d])]
     if name == "flash_attention_dwide.cu":
         tiles = re.findall(r"return launch<T, (\d+), f32 \? (\d+) : (\d+)>", text)  # (chunks, f32 rows, 16-bit rows)
         return [("flash_dwide_kernel", (t, nc, rf if t == "float" else r16)) for t in types for nc, rf, r16 in tiles] + [
@@ -100,6 +108,10 @@ def _expected(kernel: str, args: tuple) -> str:
                 ("true", "0"): "attention kernel, self and cross"}.get(args[-2:], "attention kernel, other modes")
     if kernel == "onepass_kernel":
         return "attention kernel, short key streams"
+    if kernel == "midstream_kernel":
+        return {"2": "attention kernel, mid-length streams, outer modes",
+                "0": "attention kernel, mid-length streams, self"}.get(args[-1],
+                                                                      "attention kernel, mid-length streams, inner modes")
     if kernel in ("flash16_d512_kernel", "flash_f32_d512_kernel"):
         return "attention kernel, D=512 self (VAE)"
     if kernel in ("flash_dwide_kernel", "flash_dwide_combine_kernel"):
@@ -138,7 +150,7 @@ def test_modes_and_instances_cover_the_kernels():
     a warpgroup over its own rows, 3 and 4 chunks a warpgroup with D split;
     f32: four tilings), four wide instances a type with their combine
     steps, the short-stream kernel's instances whose stream fits beside one
-    warpgroup's Q/O ring."""
+    warpgroup's Q/O ring, the mid-length stream kernel's by mode kind."""
     counts = {}
     for source in SOURCES:
         for kernel, _ in _instances(source, (CSRC / source).read_text()):
@@ -150,6 +162,9 @@ def test_modes_and_instances_cover_the_kernels():
     assert counts["conv3x3_kernel"] == 2 * 2 and counts["blocked_f32_kernel"] == 4
     # the short-stream kernel: five stream sizes at four head dims in two types, but 15 tiles at D=160
     assert counts["onepass_kernel"] == 2 * (4 * 5 - 1)
+    # the mid-length stream kernel: three NSETS in two types, three warpgroups (with and without idle
+    # warpgroups) at D = 64, two at 80
+    assert counts["midstream_kernel"] == 2 * 3 * (2 + 1)
 
 
 def test_library_kernels_keep_their_classes():

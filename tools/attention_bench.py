@@ -1,7 +1,7 @@
 """Time the flash attention kernel launched alone at the main paths' shapes.
 
-    python3 tools/attention_bench.py [--reps 20] [--dtype bf16|f16|f32] [--d512 | --dmid | --dwide | --onepass]
-                                     [--only TEXT] [--root DIR]
+    python3 tools/attention_bench.py [--reps 20] [--dtype bf16|f16|f32]
+                                     [--d512 | --dmid | --dwide | --onepass | --midstream] [--only TEXT] [--root DIR]
 
 For each shape class of ``chip_smoke.py`` phase 3 (bf16: SDXL at D=64, SD1.5
 at D=40/80/160 and SD1.5's IP-Adapter calls over 16 and 4 image tokens,
@@ -54,6 +54,14 @@ wrapper sends to `_kernel_onepass` (the 77-key text cross calls, short self
 calls, the IP calls), on the short-stream kernel
 (csrc/flash_attention_onepass.cu) wherever it fits and on the streaming
 kernel, the route before it, in one process (``bench_onepass``).
+``--midstream`` (bf16 or f16) does the same for the mid-length streams, the
+calls the JAX wrapper sends to `_kernel_onepass` past what the short-stream
+kernel holds (SDXL's 1024-token level, SD 2.1's 576 and SD 1.5's 1024 at D =
+80 in every mode, SD 2.1's 2304, and SDXL's 4096-token calls past the
+contract), on
+the mid-length stream kernel (csrc/flash_attention_midstream.cu) and the
+streaming kernel in turns, beside cuDNN in self mode; each line says whether
+the route sends the call to the new kernel.
 It checks each result against
 the plain version (``chip_smoke.ATTN_TOL`` / ``F16_ATTN_TOL`` / ``F32_ATTN_TOL``). ``--root``
 imports the package and ``chip_smoke.py`` of another checkout (say, the
@@ -420,14 +428,32 @@ ONEPASS_SHAPES = [
 ]
 
 
-PAIRS = 10  # the short-stream bench's turns of the two routes a call
+# (label, mode, coefficients, H, Sq, L, D): the calls the JAX wrapper sends to
+# `_kernel_onepass` with streams past the short-stream kernel (over 240 keys,
+# up to onepass_max = 3072): SDXL's 1024-token level, SD 2.1's 24^2 level and
+# SD 1.5's 32^2 level at D = 80 in every mode, SD 2.1's 48^2 level in the
+# modes whose stream stays within onepass_max; and, past the contract, SDXL's
+# 4096-token calls
+_MODES = ("self", "fused_outer", "pure_outer", "fused_inner", "pure_inner")
+MIDSTREAM_SHAPES = [
+    *[(f"SDXL {m} 1024 D=64", m, "sdxl", 20, 1024, 1024, 64) for m in _MODES],
+    *[(f"SD2.1 {m} 576 D=64", m, "sd", 20, 576, 576, 64) for m in _MODES],
+    *[(f"SD2.1 {m} 2304 D=64", m, "sd", 10, 2304, 2304, 64) for m in ("self", "pure_inner")],
+    *[(f"SD1.5 {m} 1024 D=80", m, "sd", 8, 1024, 1024, 80) for m in _MODES],
+    *[(f"SDXL {m} 4096 D=64 (past the contract)", m, "sdxl", 10, 4096, 4096, 64) for m in ("self", "fused_outer")],
+]
 
 
-def bench_onepass(reps: int, name: str, only: str) -> dict:
-    """The calls of ONEPASS_SHAPES in bf16 or f16: {label: ms launched
-    alone}. On a checkout with the short-stream kernel
-    (csrc/flash_attention_onepass.cu) each call is timed on it (wherever it
-    fits, whether or not the route sends the call there) and on the D <= 160
+PAIRS = 10  # the short-stream and mid-length stream benches' turns of the two routes a call
+
+
+def bench_onepass(reps: int, name: str, only: str, kind: str = "onepass") -> dict:
+    """The calls of ONEPASS_SHAPES (``kind`` "midstream": MIDSTREAM_SHAPES)
+    in bf16 or f16: {label: ms launched alone}. On a checkout with the
+    short-stream kernel (csrc/flash_attention_onepass.cu; the mid-length
+    stream kernel, csrc/flash_attention_midstream.cu) each call is timed on
+    it (wherever it takes the call, whether or not the route sends the call
+    there) and on the D <= 160
     streaming kernel, the route before it, in PAIRS turns of the two (the
     first of each pair alternating; medians and least times): launched
     alone (CUDA events, and the kernel's device time from a profiler trace)
@@ -452,7 +478,7 @@ def bench_onepass(reps: int, name: str, only: str) -> dict:
     import chip_smoke
     from chip_smoke import attention_bound, cuda_ms
 
-    has = hasattr(fa, "takes_onepass")
+    has = hasattr(fa, f"takes_{kind}")
     dtype = {"bf16": torch.bfloat16, "f16": torch.float16}[name]
     tol = chip_smoke.ATTN_TOL if name == "bf16" else chip_smoke.F16_ATTN_TOL
     wrapper = flash_interpolated_attention if name == "bf16" else fa.flash_interpolated_attention_f16
@@ -462,7 +488,7 @@ def bench_onepass(reps: int, name: str, only: str) -> dict:
     coefs = {"sdxl": torch.tensor([0.0, 0.2, 0.35, 0.5, 0.65, 0.8, 1.0], device=dev),
              "sd": chip_smoke.sd15_coef().to(dev)}
     result = {}
-    for label, mode, ck, H, Sq, L, D in ONEPASS_SHAPES:
+    for label, mode, ck, H, Sq, L, D in ONEPASS_SHAPES if kind == "onepass" else MIDSTREAM_SHAPES:
         if only not in label:
             continue
         coef = coefs[ck]
@@ -474,8 +500,9 @@ def bench_onepass(reps: int, name: str, only: str) -> dict:
         q, k, v = heads(Sq), heads(L), heads(L)
         kw = {} if mode == "self" else {"skip_endpoints": skip_mask(coef, B)}
         want = flash_interpolated_attention_plain(q, k, v, coef, mode, **kw)
-        fits = has and fa.onepass_tiles(D, L, L, mode) is not None
-        routes = {"new": {"onepass": True}, "old": {"onepass": False}} if fits else {"route": {}}
+        fits = has and (fa.onepass_tiles(D, L, L, mode) is not None if kind == "onepass" else
+                        D in fa.MIDSTREAM_TILES)
+        routes = {"new": {kind: True}, "old": {kind: False}} if fits else {"route": {}}
         launches = {}
         for route, extra in routes.items():
             out, launch = kernel_launch(q, k, v, coef, mode, **kw, **extra)
@@ -512,8 +539,10 @@ def bench_onepass(reps: int, name: str, only: str) -> dict:
                                                                                        else {}))
         lib, lib_ms = dwide_sdpa(q, k, v, coef, mode, want, reps)
         sdpa = f"SDPA {lib} {lib_ms:.4f} ms" if lib else "SDPA —"
+        routed = fits and kernel_launch(q, k, v, coef, mode, **kw)[1].operands[kind]
         print(f"{name} {label:34s} (7,{H},{Sq},{D}) {' | '.join(line)} | wrapper {wrapper_ms:.4f} ms | bound "
-              f"{bound_ms:.4f} ({by}) | {sdpa}{'' if fits or not has else ' | not on the short-stream kernel'}",
+              f"{bound_ms:.4f} ({by}) | {sdpa}{'' if fits or not has else f' | not on the {kind} kernel'}"
+              f"{' | routed there' if routed else ' | the route keeps the streaming kernel' if fits else ''}",
               flush=True)
         del q, k, v, want
     return result
@@ -528,6 +557,9 @@ def main(argv=None) -> int:
     ap.add_argument("--dwide", action="store_true", help="the wide entries (head dims past 512) of --dtype")
     ap.add_argument("--onepass", action="store_true",
                     help="the short key streams of --dtype (bf16 or f16) on the short-stream kernel and the route before")
+    ap.add_argument("--midstream", action="store_true",
+                    help="the mid-length key streams of --dtype (bf16 or f16) on the mid-length stream kernel and the "
+                         "route before")
     ap.add_argument("--only", default="", help="time only the shapes whose label contains this text")
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]),
                     help="the checkout whose package and chip_smoke.py are timed (default: this one)")
@@ -548,9 +580,10 @@ def main(argv=None) -> int:
     from chip_smoke import attention_bound, cuda_ms, phase_device
 
     card = phase_device()  # also sets full f32 matmuls (TF32 off) for the plain version
-    if args.d512 or args.dwide or args.dmid or args.onepass:
+    if args.d512 or args.dwide or args.dmid or args.onepass or args.midstream:
         result = (bench_d512(args.reps, args.dtype) if args.d512 else
                   bench_onepass(args.reps, args.dtype, args.only) if args.onepass else
+                  bench_onepass(args.reps, args.dtype, args.only, "midstream") if args.midstream else
                   bench_dmid(args.reps, args.dtype, args.only) if args.dmid else
                   bench_dwide(args.reps, args.dtype, args.only))
         print(f"on {card}, the package of {Path(args.root).resolve()}", flush=True)

@@ -46,9 +46,12 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 # head dim (flash_kernel<T, D, HAS_OWN, NSETS>, flash_f32_kernel<D, HAS_OWN,
 # NSETS>, the D=161-512 kernels' <T, chunks, HAS_OWN, NSETS> and
 # <M blocks, keys, HAS_OWN, NSETS>): fused_outer is true, 2, self and cross
-# true, 0. The short-stream kernel (onepass_kernel<T, D, stream tiles>, its
-# mode a runtime argument), the D=512 self kernels and the wide kernel (its
-# mode a runtime argument too) and its combine step have classes of their own.
+# true, 0. The mid-length stream kernel (midstream_kernel<T, D, warpgroups,
+# IDLE, NSETS>) has a class a mode kind by its NSETS, the last argument:
+# 2 the outer modes, 0 self mode, 1 the inner modes. The short-stream kernel
+# (onepass_kernel<T, D, stream tiles>, its mode a runtime argument), the
+# D=512 self kernels and the wide kernel (its mode a runtime argument too) and
+# its combine step have classes of their own.
 _MODED = r"(?:flash_kernel<\w+, \d+, |flash_f32_kernel<\d+, |flash16_dmid_(?:rows|split)_kernel<\w+, \d+, |" \
          r"flash_f32_dmid_kernel<\d+, \d+, )"
 CLASSES = [
@@ -56,6 +59,9 @@ CLASSES = [
     ("attention kernel, self and cross", re.compile(_MODED + r"true, 0>")),
     ("attention kernel, other modes", re.compile(_MODED)),
     ("attention kernel, short key streams", re.compile(r"onepass_kernel<")),
+    ("attention kernel, mid-length streams, outer modes", re.compile(r"midstream_kernel<[^>]*, 2>")),
+    ("attention kernel, mid-length streams, self", re.compile(r"midstream_kernel<[^>]*, 0>")),
+    ("attention kernel, mid-length streams, inner modes", re.compile(r"midstream_kernel<")),
     ("attention kernel, D=512 self (VAE)", re.compile(r"flash16_d512_kernel<|flash_f32_d512_kernel\b")),
     ("attention kernel, head dims past 512", re.compile(r"flash_dwide_kernel<|flash_dwide_combine_kernel<")),
     ("conv kernel", re.compile(r"conv3x3_kernel<|conv3x3_f32_kernel\b")),
