@@ -82,6 +82,18 @@
 // One design, two element types (elem16.cuh): T = __nv_bfloat16 is
 // aid_flash_attn_bf16_midstream, T = __half is aid_flash_attn_f16_midstream.
 // The C signature is aid_flash_attn_bf16's.
+//
+// The static-shift softmax (`static_smax`, the static branch of
+// `_kernel_onepass` at flash_attention.py:520-545) is this body built with
+// AID_STATIC_SHIFT = 1 by flash_attention_midstream_static.cu, a
+// translation unit of its own: bf16, D = 64, the four endpoint modes (NSETS
+// 1 and 2; self mode stays exact, as the JAX wrapper keeps `_kernel_onepass`'s
+// self calls), entry aid_flash_attn_bf16_midstream_static. Each tile's P
+// is ex2(min(s * scale_log2 - shift_log2, clip_log2)) with the shift C and
+// the 30-nat clip in log2 units: no row max, no quad reduction, no rescale
+// of O between Q K^T and P V; P V and l add up, the outer modes' park is
+// kept, and each row's sum is guarded (max(l, 1e-37)) as the JAX kernels'
+// denominator is.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -93,11 +105,20 @@
 
 #include <mutex>
 
+#ifndef AID_STATIC_SHIFT
+#define AID_STATIC_SHIFT 0
+#endif
+
 namespace {
+#if AID_STATIC_SHIFT
+namespace static_shift {  // kernel names of their own beside the exact instances' in one library
+#endif
 
 #include "elem16.cuh"
 #include "tma_sm90.cuh"
 #include "map_cache.cuh"
+
+constexpr bool kStatic = AID_STATIC_SHIFT != 0;
 
 // The shared memory a block can use (ops/flash_attention.py and
 // tests/test_torch_midstream.py read this line and the Mid lines below).
@@ -137,6 +158,7 @@ struct Params {
   int tiles;            // query tiles of 64 * nwg rows a (b, h)
   int units;            // work items: B * H * tiles (the list: work_item)
   float scale_log2;     // softmax scale * log2(e)
+  float shift_log2, clip_log2;  // the static shift C and the clip, * log2(e) (kStatic instances only)
 };
 
 // wgmma descriptor of a 128-byte-swizzled tile (8-row groups 1024 bytes
@@ -291,15 +313,35 @@ __device__ __forceinline__ void pv_issue(float (&o)[D / 2], const uint32_t (&pa)
 // (the rest are zero rows past the segment, masked); the running max and sum
 // move on, P (exp2 of the scores against the new max) is packed into pa, and
 // the factors that take O from the old max to the new are returned in al.
+// The kStatic instances take P at the static shift (no max; al is not set).
 template <class T, int D, int BK>
 __device__ __forceinline__ void softmax_tile(State<D>& st, float (&s)[BK / 2], int valid, float scale_log2,
-                                             uint32_t (&pa)[BK / 16][4], float (&al)[2]) {
+                                             float shift_log2, float clip_log2, uint32_t (&pa)[BK / 16][4],
+                                             float (&al)[2]) {
   const int t = threadIdx.x & 3;
   if (valid < BK) {  // the segment's last tile: keys past its length do not exist
 #pragma unroll
     for (int i = 0; i < BK / 2; ++i) {
       if ((i / 4) * 8 + 2 * t + (i & 1) >= valid) s[i] = -INFINITY;
     }
+  }
+  if constexpr (kStatic) {
+    // P = 2^min(s scale_log2 - shift_log2, clip_log2) (a masked key stays -inf and gives 0)
+    float ls0 = 0.f, ls1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      const float p0 = ex2(fminf(fmaf(s[4 * j], scale_log2, -shift_log2), clip_log2));
+      const float p1 = ex2(fminf(fmaf(s[4 * j + 1], scale_log2, -shift_log2), clip_log2));
+      const float p2 = ex2(fminf(fmaf(s[4 * j + 2], scale_log2, -shift_log2), clip_log2));
+      const float p3 = ex2(fminf(fmaf(s[4 * j + 3], scale_log2, -shift_log2), clip_log2));
+      ls0 += p0 + p1;
+      ls1 += p2 + p3;
+      pa[j / 2][2 * (j & 1)] = Elem<T>::pack(p0, p1);
+      pa[j / 2][2 * (j & 1) + 1] = Elem<T>::pack(p2, p3);
+    }
+    st.l[0] += ls0;
+    st.l[1] += ls1;
+    return;
   }
   float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
@@ -346,7 +388,7 @@ __device__ __forceinline__ void rescale(State<D>& st, const float (&al)[2]) {
 // stage of the run's tile j and returns its K tile's address (V follows),
 // `release(j)` frees it for the producer.
 template <class T, int D, int BK, class Stage, class Release>
-__device__ __forceinline__ void run_tiles(State<D>& st, uint32_t q, int len_a, int len_b, float scale_log2,
+__device__ __forceinline__ void run_tiles(State<D>& st, uint32_t q, int len_a, int len_b, const Params& p,
                                           Stage stage, Release release) {
   constexpr int kKV = BK * 128 * ((D + 63) / 64);  // one K (or V) tile: V follows K in a stage
   const int na = (len_a + BK - 1) / BK, n = na + (len_b + BK - 1) / BK;
@@ -360,8 +402,8 @@ __device__ __forceinline__ void run_tiles(State<D>& st, uint32_t q, int len_a, i
     wgmma_commit();
     wgmma_wait0();
     reg_fence(s);
-    softmax_tile<T, D, BK>(st, s, valid(j), scale_log2, pa, al);
-    rescale(st, al);
+    softmax_tile<T, D, BK>(st, s, valid(j), p.scale_log2, p.shift_log2, p.clip_log2, pa, al);
+    if constexpr (!kStatic) rescale(st, al);
     wgmma_fence();
     pv_issue<T, D, BK>(st.o, pa, kt + kKV);
     wgmma_commit();
@@ -372,10 +414,17 @@ __device__ __forceinline__ void run_tiles(State<D>& st, uint32_t q, int len_a, i
   }
 }
 
+// A row's sum: the thread's partial sums reduced over the quad; at the
+// static shift guarded, so a row whose every key underflowed gives 0
+__device__ __forceinline__ float row_sum(float l) {
+  if constexpr (kStatic) return fmaxf(quad_sum(l), 1e-37f);
+  return quad_sum(l);
+}
+
 // (1 - c) or c times O / l: the row sums reduced over the quad
 template <int D>
 __device__ __forceinline__ void normalise(State<D>& st, float w) {
-  const float i0 = w / quad_sum(st.l[0]), i1 = w / quad_sum(st.l[1]);
+  const float i0 = w / row_sum(st.l[0]), i1 = w / row_sum(st.l[1]);
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
     st.o[4 * j] *= i0;
@@ -538,7 +587,7 @@ __global__ void __launch_bounds__(Cfg<D, NWG>::kThreads, 1)
           __syncwarp();
           if (lane == 0) mbar_arrive(empty + 8 * s);  // one arrival a warp: the stage is free for the producer
         };
-        run_tiles<T, D, BK>(st, q, len_a, len_b, p.scale_log2, stage, release);
+        run_tiles<T, D, BK>(st, q, len_a, len_b, p, stage, release);
         it += (len_a + BK - 1) / BK + (len_b + BK - 1) / BK;
       };
       if (IDLE && q0 + 64 * wg >= p.Sq) {  // every row of this warpgroup past Sq: it only passes the stages on
@@ -661,7 +710,9 @@ int launch_sets(const CUtensorMap (&m)[8], Params& p, cudaStream_t s) {
 template <class T, int D>
 int launch_d(const CUtensorMap (&m)[8], Params& p, cudaStream_t s) {
   switch (p.n_sets) {
+#if !AID_STATIC_SHIFT  // the static-shift instances: the endpoint modes alone (self mode stays exact)
     case 0: return launch_sets<T, D, 0>(m, p, s);
+#endif
     case 1: return launch_sets<T, D, 1>(m, p, s);
     case 2: return launch_sets<T, D, 2>(m, p, s);
     default: return (int)cudaErrorInvalidValue;
@@ -670,10 +721,10 @@ int launch_d(const CUtensorMap (&m)[8], Params& p, cudaStream_t s) {
 
 template <class T>
 int entry(const void* const (&ptrs)[8], const void* coef, const void* skip, const long long* dims, float scale,
-          int has_own, int n_sets, void* stream) {
+          float shift_log2, float clip_log2, int has_own, int n_sets, void* stream) {
   if (encode_tiled() == nullptr) return (int)cudaErrorNotSupported;
   const int B = (int)dims[0], H = (int)dims[1], D = (int)dims[5];
-  if (n_sets < 0 || n_sets > 2 || (!has_own && n_sets == 0)) return (int)cudaErrorInvalidValue;
+  if (n_sets < (kStatic ? 1 : 0) || n_sets > 2 || (!has_own && n_sets == 0)) return (int)cudaErrorInvalidValue;
   Params p;
   p.coef = static_cast<const float*>(coef);
   p.skip = static_cast<const uint8_t*>(skip);
@@ -685,10 +736,14 @@ int entry(const void* const (&ptrs)[8], const void* coef, const void* skip, cons
   p.has_own = has_own != 0;
   p.n_sets = n_sets;
   p.scale_log2 = scale * 1.4426950408889634f;
+  p.shift_log2 = shift_log2;
+  p.clip_log2 = clip_log2;
   int bk = 0;
   switch (D) {
     case 64: bk = Mid<64>::kBK; break;
+#if !AID_STATIC_SHIFT  // the static-shift instances: D = 64 alone
     case 80: bk = Mid<80>::kBK; break;
+#endif
     default: return (int)cudaErrorInvalidValue;
   }
   // rows of each map and of its box: queries, own keys, endpoint keys x4, queries out
@@ -711,12 +766,33 @@ int entry(const void* const (&ptrs)[8], const void* coef, const void* skip, cons
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64: return launch_d<T, 64>(m, p, s);
+#if !AID_STATIC_SHIFT
     case 80: return launch_d<T, 80>(m, p, s);
+#endif
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
+#if AID_STATIC_SHIFT
+}  // namespace static_shift
+using static_shift::entry;
+#endif
 }  // namespace
+
+#if AID_STATIC_SHIFT
+// The static-shift instance over bf16 operands: aid_flash_attn_bf16_midstream's
+// arguments with the shift C and the clip after the scale, both times log2(e)
+// (p = 2^min(s * scale * log2(e) - shift_log2, clip_log2)); D must be 64 and
+// n_sets 1 or 2. Returns the launch's cudaError_t (0 on success).
+extern "C" int aid_flash_attn_bf16_midstream_static(const void* q, const void* k, const void* v, const void* kb,
+                                                    const void* vb, const void* ke, const void* ve, void* out,
+                                                    const void* coef, const void* skip, const long long* dims,
+                                                    float scale, float shift_log2, float clip_log2, int has_own,
+                                                    int n_sets, void* stream) {
+  const void* const ptrs[8] = {q, k, v, kb, vb, ke, ve, out};
+  return entry<__nv_bfloat16>(ptrs, coef, skip, dims, scale, shift_log2, clip_log2, has_own, n_sets, stream);
+}
+#else
 
 // dims: [B, H, Sq, Lk, Le, D, then (b, h, s) element strides of
 //        q, k, v, k_begin, v_begin, k_end, v_end, out]  (30 values), as
@@ -730,7 +806,7 @@ extern "C" int aid_flash_attn_bf16_midstream(const void* q, const void* k, const
                                              const void* coef, const void* skip, const long long* dims, float scale,
                                              int has_own, int n_sets, void* stream) {
   const void* const ptrs[8] = {q, k, v, kb, vb, ke, ve, out};
-  return entry<__nv_bfloat16>(ptrs, coef, skip, dims, scale, has_own, n_sets, stream);
+  return entry<__nv_bfloat16>(ptrs, coef, skip, dims, scale, 0.f, 0.f, has_own, n_sets, stream);
 }
 
 // The same over f16 operands (every one f16, the rest as aid_flash_attn_bf16_midstream).
@@ -739,5 +815,6 @@ extern "C" int aid_flash_attn_f16_midstream(const void* q, const void* k, const 
                                             const void* coef, const void* skip, const long long* dims, float scale,
                                             int has_own, int n_sets, void* stream) {
   const void* const ptrs[8] = {q, k, v, kb, vb, ke, ve, out};
-  return entry<__half>(ptrs, coef, skip, dims, scale, has_own, n_sets, stream);
+  return entry<__half>(ptrs, coef, skip, dims, scale, 0.f, 0.f, has_own, n_sets, stream);
 }
+#endif

@@ -84,6 +84,22 @@
 // softmax and every mask (on the f32 scores, never stored in T) are the
 // same. P in [0, 1] rounded to f16 goes subnormal below 6.1e-5, as the JAX
 // kernel's cast of P to V's dtype does (flash_attention.py:205, 223).
+//
+// The static-shift softmax (`static_smax`, flash_attention.py:44-65 and the
+// branches of `_kernel` at :210-256 and `_kernel_onepass` at :520-545) is
+// the same body built with AID_STATIC_SHIFT = 1: flash_interpolated_attention_static.cu
+// includes this file so, as a translation unit of its own (the exact
+// instances here compile as before, and the parallel build's wall does not
+// grow by its instances). There each tile's P is ex2(min(s * scale_log2 -
+// shift_log2, clip_log2)), the shift C and the clip (30 nats) folded into
+// log2 units by the wrapper as the scale is: no row max, no quad reduction,
+// no rescale of O and l, so the chain from Q K^T to P V loses its two
+// serial steps; P V and l just add up, the outer modes park the own
+// segment's state as the exact instances do, and a row's sum is guarded
+// (max(l, 1e-37)) as the JAX kernels' denominator is. The same softmax while
+// every set's row max lies in [C - 72, C + 30]; ex2.approx.ftz flushes below
+// 2^-126 ~ e^-87, the window's lower edge. bf16 only (aid_flash_attn_bf16_static):
+// in f16, exp(-40) is below the smallest subnormal.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -92,9 +108,18 @@
 #include <math.h>
 #include <stdint.h>
 
+#ifndef AID_STATIC_SHIFT
+#define AID_STATIC_SHIFT 0
+#endif
+
 namespace {
+#if AID_STATIC_SHIFT
+namespace static_shift {  // kernel names of their own beside the exact instances' in one library
+#endif
 
 #include "elem16.cuh"
+
+constexpr bool kStatic = AID_STATIC_SHIFT != 0;
 
 // The tile table (tests/test_torch_ops.py reads it): query rows per block,
 // keys per K/V tile, K/V stages in the ring.
@@ -131,6 +156,7 @@ struct Params {
   int Sq, Lk, Le;
   int shared_eps;     // bit i: endpoint map i (k_begin, v_begin, k_end, v_end) is one (H, Le, D) tensor
   float scale_log2;   // softmax scale * log2(e)
+  float shift_log2, clip_log2;  // the static shift C and the clip, * log2(e) (kStatic instances only)
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -351,10 +377,11 @@ __device__ __forceinline__ void init_state(State<D>& st) {
 }
 
 // One K/V tile of online softmax for this warpgroup's 64 query rows. `valid`
-// keys of the tile are real (the rest are zero rows past the segment).
+// keys of the tile are real (the rest are zero rows past the segment). The
+// kStatic instances take P at the static shift instead (see the header).
 template <class T, int D>
 __device__ __forceinline__ void tile_update(State<D>& st, uint32_t q, uint32_t kt, uint32_t vt, int valid,
-                                            float scale_log2) {
+                                            float scale_log2, float shift_log2, float clip_log2) {
   using C = Cfg<D>;
   constexpr int BK = C::kBK;
   const int t = threadIdx.x & 3;
@@ -376,6 +403,32 @@ __device__ __forceinline__ void tile_update(State<D>& st, uint32_t q, uint32_t k
     for (int i = 0; i < BK / 2; ++i) {
       if ((i / 4) * 8 + 2 * t + (i & 1) >= valid) s[i] = -INFINITY;
     }
+  }
+  if constexpr (kStatic) {
+    // P = 2^min(s scale_log2 - shift_log2, clip_log2): no max, no rescale (a masked key stays -inf and gives 0)
+    float ls0 = 0.f, ls1 = 0.f;
+    uint32_t pa[BK / 16][4];
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      const float p0 = ex2(fminf(fmaf(s[4 * j], scale_log2, -shift_log2), clip_log2));
+      const float p1 = ex2(fminf(fmaf(s[4 * j + 1], scale_log2, -shift_log2), clip_log2));
+      const float p2 = ex2(fminf(fmaf(s[4 * j + 2], scale_log2, -shift_log2), clip_log2));
+      const float p3 = ex2(fminf(fmaf(s[4 * j + 3], scale_log2, -shift_log2), clip_log2));
+      ls0 += p0 + p1;
+      ls1 += p2 + p3;
+      pa[j / 2][2 * (j & 1)] = Elem<T>::pack(p0, p1);
+      pa[j / 2][2 * (j & 1) + 1] = Elem<T>::pack(p2, p3);
+    }
+    st.l[0] += ls0;
+    st.l[1] += ls1;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) wgmma_rs<T>(st.o, pa[kk], desc_sw128(vt + kk * 2048, BK * 128));
+    wgmma_commit();
+    wgmma_wait0();
+    reg_fence(st.o);
+    reg_fence(pa);
+    return;
   }
   float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
@@ -420,10 +473,17 @@ __device__ __forceinline__ void tile_update(State<D>& st, uint32_t q, uint32_t k
   reg_fence(pa);
 }
 
+// A row's sum: the thread's partial sums reduced over the quad; at the
+// static shift guarded, so a row whose every key underflowed gives 0
+__device__ __forceinline__ float row_sum(float l) {
+  if constexpr (kStatic) return fmaxf(quad_sum(l), 1e-37f);
+  return quad_sum(l);
+}
+
 // (1 - c) or c times O / l: the row sums reduced over the quad
 template <int D>
 __device__ __forceinline__ void normalise(State<D>& st, float w) {
-  const float i0 = w / quad_sum(st.l[0]), i1 = w / quad_sum(st.l[1]);
+  const float i0 = w / row_sum(st.l[0]), i1 = w / row_sum(st.l[1]);
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
     st.o[4 * j] *= i0;
@@ -512,7 +572,8 @@ __global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
         const int s = it % S;
         mbar_wait(full + 8 * s, (it / S) & 1);
         const uint32_t kt = kvs + s * C::kStageBytes;
-        tile_update<T, D>(st, q, kt, kt + C::kKVBytes, min(BK, len - r0), p.scale_log2);
+        tile_update<T, D>(st, q, kt, kt + C::kKVBytes, min(BK, len - r0), p.scale_log2, p.shift_log2,
+                          p.clip_log2);
         __syncwarp();
         if (lane == 0) mbar_arrive(empty + 8 * s);
       }
@@ -661,7 +722,7 @@ int launch_d(const void* const (&ptrs)[8], const long long* dims, Params& p, int
 
 template <class T>
 int entry(const void* const (&ptrs)[8], const void* coef, const void* skip, const long long* dims, float scale,
-          int has_own, int n_sets, void* stream) {
+          float shift_log2, float clip_log2, int has_own, int n_sets, void* stream) {
   if (encode_tiled() == nullptr) return (int)cudaErrorNotSupported;
   Params p;
   p.coef = static_cast<const float*>(coef);
@@ -670,6 +731,8 @@ int entry(const void* const (&ptrs)[8], const void* coef, const void* skip, cons
   p.Lk = (int)dims[3];
   p.Le = (int)dims[4];
   p.scale_log2 = scale * 1.4426950408889634f;
+  p.shift_log2 = shift_log2;
+  p.clip_log2 = clip_log2;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dims[5]) {
     case 40: return launch_d<T, 40>(ptrs, dims, p, has_own, n_sets, s);
@@ -680,8 +743,25 @@ int entry(const void* const (&ptrs)[8], const void* coef, const void* skip, cons
   }
 }
 
+#if AID_STATIC_SHIFT
+}  // namespace static_shift
+using static_shift::entry;
+#endif
 }  // namespace
 
+#if AID_STATIC_SHIFT
+// The static-shift instance over bf16 operands: aid_flash_attn_bf16's
+// arguments with the shift C and the clip after the scale, both times
+// log2(e) (p = 2^min(s * scale * log2(e) - shift_log2, clip_log2)), every
+// mode at D = 40, 64, 80 or 160. Returns the launch's cudaError_t.
+extern "C" int aid_flash_attn_bf16_static(const void* q, const void* k, const void* v, const void* kb,
+                                          const void* vb, const void* ke, const void* ve, void* out, const void* coef,
+                                          const void* skip, const long long* dims, float scale, float shift_log2,
+                                          float clip_log2, int has_own, int n_sets, void* stream) {
+  const void* const ptrs[8] = {q, k, v, kb, vb, ke, ve, out};
+  return entry<__nv_bfloat16>(ptrs, coef, skip, dims, scale, shift_log2, clip_log2, has_own, n_sets, stream);
+}
+#else
 // dims: [B, H, Sq, Lk, Le, D, then (b, h, s) element strides of
 //        q, k, v, k_begin, v_begin, k_end, v_end, out]  (30 values); a b
 // stride of 0 marks an endpoint shared by every row. Every operand is bf16
@@ -693,7 +773,7 @@ extern "C" int aid_flash_attn_bf16(const void* q, const void* k, const void* v, 
                                    const void* ke, const void* ve, void* out, const void* coef, const void* skip,
                                    const long long* dims, float scale, int has_own, int n_sets, void* stream) {
   const void* const ptrs[8] = {q, k, v, kb, vb, ke, ve, out};
-  return entry<__nv_bfloat16>(ptrs, coef, skip, dims, scale, has_own, n_sets, stream);
+  return entry<__nv_bfloat16>(ptrs, coef, skip, dims, scale, 0.f, 0.f, has_own, n_sets, stream);
 }
 
 // The same over f16 operands (every one f16, the rest as aid_flash_attn_bf16).
@@ -701,5 +781,6 @@ extern "C" int aid_flash_attn_f16(const void* q, const void* k, const void* v, c
                                   const void* ke, const void* ve, void* out, const void* coef, const void* skip,
                                   const long long* dims, float scale, int has_own, int n_sets, void* stream) {
   const void* const ptrs[8] = {q, k, v, kb, vb, ke, ve, out};
-  return entry<__half>(ptrs, coef, skip, dims, scale, has_own, n_sets, stream);
+  return entry<__half>(ptrs, coef, skip, dims, scale, 0.f, 0.f, has_own, n_sets, stream);
 }
+#endif

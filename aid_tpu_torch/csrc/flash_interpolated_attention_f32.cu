@@ -112,6 +112,17 @@
 // through cudaGetDriverEntryPoint (no -lcuda), kept in a small cache keyed by
 // everything they encode (pointer, extents, strides, box), and passed as
 // __grid_constant__ parameters.
+//
+// The static-shift softmax (`static_smax`, the static branches of `_kernel`
+// at flash_attention.py:210-256 and `_kernel_onepass` at :520-545) is this
+// body built with AID_STATIC_SHIFT = 1 by
+// flash_interpolated_attention_f32_static.cu, a translation unit of its own:
+// every mode at D = 40/64/80/160, entry aid_flash_attn_f32_static. Each
+// tile's P is exp2f(min(s * sl2 - shift_log2, clip_log2)) with the shift C and
+// the 30-nat clip in log2 units: no row max, no quad reduction, and each
+// tile's P V is added to O with no rescale; P's hi/lo split is unchanged, the
+// outer modes' park is kept, and each row's sum is guarded (max(l, 1e-37)) as
+// the JAX kernels' denominator is.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -121,10 +132,19 @@
 
 #include <mutex>
 
+#ifndef AID_STATIC_SHIFT
+#define AID_STATIC_SHIFT 0
+#endif
+
 namespace {
+#if AID_STATIC_SHIFT
+namespace static_shift {  // kernel names of their own beside the exact instances' in one library
+#endif
 
 #include "tf32_mma.cuh"
 #include "map_cache.cuh"
+
+constexpr bool kStatic = AID_STATIC_SHIFT != 0;
 
 // The tile table (tests/test_torch_ops.py reads it): query rows per block,
 // keys per K/V tile, stages in the ring.
@@ -176,6 +196,7 @@ struct Params {
   int Sq, Lk, Le;
   int shared_eps;           // bit i: endpoint map i (k_begin, v_begin, k_end, v_end) is one (H, Le, D) tensor
   float scale_log2;         // softmax scale * log2(e)
+  float shift_log2, clip_log2;  // the static shift C and the clip, * log2(e) (kStatic instances only)
 };
 
 // The 128-byte swizzle of a byte offset in a 1024-byte-aligned tile of
@@ -212,10 +233,17 @@ __device__ __forceinline__ void init_state(State<N>& st) {
   st.l[0] = st.l[1] = 0.f;
 }
 
+// A row's sum: the thread's partial sums reduced over the quad; at the
+// static shift guarded, so a row whose every key underflowed gives 0
+__device__ __forceinline__ float row_sum(float l) {
+  if constexpr (kStatic) return fmaxf(quad_sum(l), 1e-37f);
+  return quad_sum(l);
+}
+
 // (w / l) O: the row sums reduced over the quad
 template <int N>
 __device__ __forceinline__ void normalise(State<N>& st, float w) {
-  const float i0 = w / quad_sum(st.l[0]), i1 = w / quad_sum(st.l[1]);
+  const float i0 = w / row_sum(st.l[0]), i1 = w / row_sum(st.l[1]);
 #pragma unroll
   for (int j = 0; j < N / 8; ++j) {
     st.o[4 * j] *= i0;
@@ -230,10 +258,13 @@ __device__ __forceinline__ void normalise(State<N>& st, float w) {
 // `stage`; `valid` keys of the tile are real (the rest are zero rows past
 // the segment). With D split (kSplit = 2), `xs` is the row group's exchange
 // buffer and `it` the tile's index in the stream (its parity picks the half).
+// The kStatic instances take P at the static shift (shift_log2, clip_log2)
+// and add P V to O with no rescale.
 template <int D>
 __device__ __forceinline__ void tile_update(State<Cfg<D>::kDW>& st, const uint32_t (&qhi)[Cfg<D>::kKSteps][4],
                                             const uint32_t (&qlo)[Cfg<D>::kKSteps][4], uint32_t stage, int valid,
-                                            float sl2, int part, float* xs, int it) {
+                                            float sl2, float shift_log2, float clip_log2, int part, float* xs,
+                                            int it) {
   using C = Cfg<D>;
   constexpr int BK = C::kBK, DW = C::kDW, ROW = C::kVTRow;
   const int t = threadIdx.x & 3;
@@ -272,26 +303,44 @@ __device__ __forceinline__ void tile_update(State<Cfg<D>::kDW>& st, const uint32
   for (int i = 0; i < BK / 2; ++i) {
     if (valid < BK && (i / 4) * 8 + 2 * t + (i & 1) >= valid) s[i] = -INFINITY;  // keys past the segment
   }
-  float mx0 = -INFINITY, mx1 = -INFINITY;
+  // the exact softmax's running max (al: the factors that take O to the new
+  // max); the static shift's P has a fixed offset and clip instead, al = 1
+  float al0 = 1.f, al1 = 1.f, ms0 = shift_log2, ms1 = shift_log2, clip = clip_log2;
+  if constexpr (!kStatic) {
+    float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
-  for (int j = 0; j < BK / 8; ++j) {
-    mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
-    mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+    for (int j = 0; j < BK / 8; ++j) {
+      mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
+      mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+    }
+    // every tile holds at least one real key, so the new max is finite
+    const float mn0 = fmaxf(st.m[0], quad_max(mx0)), mn1 = fmaxf(st.m[1], quad_max(mx1));
+    al0 = exp2f((st.m[0] - mn0) * sl2);  // 0 on the first tile
+    al1 = exp2f((st.m[1] - mn1) * sl2);
+    st.m[0] = mn0;
+    st.m[1] = mn1;
+    ms0 = mn0 * sl2;
+    ms1 = mn1 * sl2;
+    clip = INFINITY;
   }
-  // every tile holds at least one real key, so the new max is finite
-  const float mn0 = fmaxf(st.m[0], quad_max(mx0)), mn1 = fmaxf(st.m[1], quad_max(mx1));
-  const float al0 = exp2f((st.m[0] - mn0) * sl2), al1 = exp2f((st.m[1] - mn1) * sl2);  // 0 on the first tile
-  st.m[0] = mn0;
-  st.m[1] = mn1;
-  const float ms0 = mn0 * sl2, ms1 = mn1 * sl2;
   float ls0 = 0.f, ls1 = 0.f;
   // P's A fragment of k8 step j is S's n8 tile j: V^T holds key 2t at k = t
   // and key 2t + 1 at k = t + 4, so a0..a3 = P(g, 2t), P(g+8, 2t), P(g, 2t+1), P(g+8, 2t+1)
   uint32_t ph[BK / 8][4], pl[BK / 8][4];
 #pragma unroll
   for (int j = 0; j < BK / 8; ++j) {
-    const float p0 = exp2f(fmaf(s[4 * j], sl2, -ms0)), p1 = exp2f(fmaf(s[4 * j + 1], sl2, -ms0));
-    const float p2 = exp2f(fmaf(s[4 * j + 2], sl2, -ms1)), p3 = exp2f(fmaf(s[4 * j + 3], sl2, -ms1));
+    float p0, p1, p2, p3;
+    if constexpr (kStatic) {
+      p0 = exp2f(fminf(fmaf(s[4 * j], sl2, -ms0), clip));
+      p1 = exp2f(fminf(fmaf(s[4 * j + 1], sl2, -ms0), clip));
+      p2 = exp2f(fminf(fmaf(s[4 * j + 2], sl2, -ms1), clip));
+      p3 = exp2f(fminf(fmaf(s[4 * j + 3], sl2, -ms1), clip));
+    } else {
+      p0 = exp2f(fmaf(s[4 * j], sl2, -ms0));
+      p1 = exp2f(fmaf(s[4 * j + 1], sl2, -ms0));
+      p2 = exp2f(fmaf(s[4 * j + 2], sl2, -ms1));
+      p3 = exp2f(fmaf(s[4 * j + 3], sl2, -ms1));
+    }
     ls0 += p0 + p1;
     ls1 += p2 + p3;
     ph[j][0] = __float_as_uint(p0);
@@ -324,10 +373,17 @@ __device__ __forceinline__ void tile_update(State<Cfg<D>::kDW>& st, const uint32
   reg_fence(pl);
 #pragma unroll
   for (int j = 0; j < DW / 8; ++j) {
-    st.o[4 * j] = fmaf(st.o[4 * j], al0, pv[4 * j]);
-    st.o[4 * j + 1] = fmaf(st.o[4 * j + 1], al0, pv[4 * j + 1]);
-    st.o[4 * j + 2] = fmaf(st.o[4 * j + 2], al1, pv[4 * j + 2]);
-    st.o[4 * j + 3] = fmaf(st.o[4 * j + 3], al1, pv[4 * j + 3]);
+    if constexpr (kStatic) {
+      st.o[4 * j] += pv[4 * j];
+      st.o[4 * j + 1] += pv[4 * j + 1];
+      st.o[4 * j + 2] += pv[4 * j + 2];
+      st.o[4 * j + 3] += pv[4 * j + 3];
+    } else {
+      st.o[4 * j] = fmaf(st.o[4 * j], al0, pv[4 * j]);
+      st.o[4 * j + 1] = fmaf(st.o[4 * j + 1], al0, pv[4 * j + 1]);
+      st.o[4 * j + 2] = fmaf(st.o[4 * j + 2], al1, pv[4 * j + 2]);
+      st.o[4 * j + 3] = fmaf(st.o[4 * j + 3], al1, pv[4 * j + 3]);
+    }
   }
 }
 
@@ -477,7 +533,8 @@ __global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
       for (int r0 = 0; r0 < len; r0 += BK, ++it) {
         const int s = it % S;
         mbar_wait(ready + 8 * s, (it / S) & 1);
-        tile_update<D>(st, qhi, qlo, stages + s * C::kStageBytes, min(BK, len - r0), p.scale_log2, part, xs, it);
+        tile_update<D>(st, qhi, qlo, stages + s * C::kStageBytes, min(BK, len - r0), p.scale_log2, p.shift_log2,
+                       p.clip_log2, part, xs, it);
         __syncwarp();
         if (lane == 0) mbar_arrive(empty + 8 * s);
       }
@@ -563,7 +620,7 @@ int launch(const CUtensorMap (&m)[7], const Params& p, int B, int H, cudaStream_
 
 template <int D>
 int launch_d(const void* const (&ptrs)[8], const long long* dims, int has_own, int n_sets, float scale,
-             const void* coef, const void* skip, cudaStream_t s) {
+             float shift_log2, float clip_log2, const void* coef, const void* skip, cudaStream_t s) {
   const int B = (int)dims[0], H = (int)dims[1];
   Params p;
   p.out = static_cast<float*>(const_cast<void*>(ptrs[7]));
@@ -576,6 +633,8 @@ int launch_d(const void* const (&ptrs)[8], const long long* dims, int has_own, i
   p.Lk = (int)dims[3];
   p.Le = (int)dims[4];
   p.scale_log2 = scale * 1.4426950408889634f;
+  p.shift_log2 = shift_log2;
+  p.clip_log2 = clip_log2;
   // rows of each map: queries, own keys, endpoint keys x4
   const int rows[7] = {p.Sq, p.Lk, p.Lk, p.Le, p.Le, p.Le, p.Le};
   const int box[7] = {64, Cfg<D>::kBK, Cfg<D>::kBK, Cfg<D>::kBK, Cfg<D>::kBK, Cfg<D>::kBK, Cfg<D>::kBK};
@@ -599,8 +658,46 @@ int launch_d(const void* const (&ptrs)[8], const long long* dims, int has_own, i
   return (int)cudaErrorInvalidValue;
 }
 
+// The f32 entries' body: the operands' alignment checked, then the instance of the head dim
+int entry(const void* const (&ptrs)[8], const void* coef, const void* skip, const long long* dims, float scale,
+          float shift_log2, float clip_log2, int has_own, int n_sets, void* stream) {
+  for (const void* ptr : ptrs) {
+    if (reinterpret_cast<uintptr_t>(ptr) & 15) return (int)cudaErrorMisalignedAddress;
+  }
+  for (int i = 6; i < 30; ++i) {
+    if (dims[i] % 4 != 0) return (int)cudaErrorMisalignedAddress;
+  }
+  if (dims[2] <= 0 || dims[3] <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (encode_tiled() == nullptr) return (int)cudaErrorNotSupported;
+  switch (dims[5]) {
+    case 40: return launch_d<40>(ptrs, dims, has_own, n_sets, scale, shift_log2, clip_log2, coef, skip, s);
+    case 64: return launch_d<64>(ptrs, dims, has_own, n_sets, scale, shift_log2, clip_log2, coef, skip, s);
+    case 80: return launch_d<80>(ptrs, dims, has_own, n_sets, scale, shift_log2, clip_log2, coef, skip, s);
+    case 160: return launch_d<160>(ptrs, dims, has_own, n_sets, scale, shift_log2, clip_log2, coef, skip, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+#if AID_STATIC_SHIFT
+}  // namespace static_shift
+using static_shift::entry;
+#endif
 }  // namespace
 
+#if AID_STATIC_SHIFT
+// The static-shift instance: aid_flash_attn_f32's arguments with the shift C
+// and the clip after the scale, both times log2(e) (p = 2^min(s * scale *
+// log2(e) - shift_log2, clip_log2)), every mode at D = 40, 64, 80 or 160.
+// Returns the launch's cudaError_t (0 on success).
+extern "C" int aid_flash_attn_f32_static(const void* q, const void* k, const void* v, const void* kb,
+                                         const void* vb, const void* ke, const void* ve, void* out, const void* coef,
+                                         const void* skip, const long long* dims, float scale, float shift_log2,
+                                         float clip_log2, int has_own, int n_sets, void* stream) {
+  const void* const ptrs[8] = {q, k, v, kb, vb, ke, ve, out};
+  return entry(ptrs, coef, skip, dims, scale, shift_log2, clip_log2, has_own, n_sets, stream);
+}
+#else
 // The C signature of aid_flash_attn_bf16 (flash_interpolated_attention.cu)
 // for f32 operands. dims: [B, H, Sq, Lk, Le, D, then (b, h, s) element
 // strides of q, k, v, k_begin, v_begin, k_end, v_end, out] (30 values); a b
@@ -613,20 +710,6 @@ extern "C" int aid_flash_attn_f32(const void* q, const void* k, const void* v, c
                                   const void* ke, const void* ve, void* out, const void* coef, const void* skip,
                                   const long long* dims, float scale, int has_own, int n_sets, void* stream) {
   const void* const ptrs[8] = {q, k, v, kb, vb, ke, ve, out};
-  for (const void* ptr : ptrs) {
-    if (reinterpret_cast<uintptr_t>(ptr) & 15) return (int)cudaErrorMisalignedAddress;
-  }
-  for (int i = 6; i < 30; ++i) {
-    if (dims[i] % 4 != 0) return (int)cudaErrorMisalignedAddress;
-  }
-  if (dims[2] <= 0 || dims[3] <= 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (encode_tiled() == nullptr) return (int)cudaErrorNotSupported;
-  switch (dims[5]) {
-    case 40: return launch_d<40>(ptrs, dims, has_own, n_sets, scale, coef, skip, s);
-    case 64: return launch_d<64>(ptrs, dims, has_own, n_sets, scale, coef, skip, s);
-    case 80: return launch_d<80>(ptrs, dims, has_own, n_sets, scale, coef, skip, s);
-    case 160: return launch_d<160>(ptrs, dims, has_own, n_sets, scale, coef, skip, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return entry(ptrs, coef, skip, dims, scale, 0.f, 0.f, has_own, n_sets, stream);
 }
+#endif

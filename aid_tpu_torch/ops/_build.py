@@ -128,6 +128,13 @@ def library() -> ctypes.CDLL:
                  "aid_flash_attn_bf16_dwide", "aid_flash_attn_f16_dwide", "aid_flash_attn_f32_dwide"):
         getattr(lib, name).argtypes = [*lib.aid_flash_attn_bf16.argtypes[:10], vp, *lib.aid_flash_attn_bf16.argtypes[10:]]
         getattr(lib, name).restype = ctypes.c_int
+    # the static-shift instances (flash_interpolated_attention_static.cu, _f32_static.cu,
+    # flash_attention_midstream_static.cu): the D <= 160 signature with the shift and the
+    # clip (f32, times log2(e)) after the scale
+    for name in ("aid_flash_attn_bf16_static", "aid_flash_attn_f32_static", "aid_flash_attn_bf16_midstream_static"):
+        getattr(lib, name).argtypes = [*lib.aid_flash_attn_bf16.argtypes[:12], ctypes.c_float, ctypes.c_float,
+                                       *lib.aid_flash_attn_bf16.argtypes[12:]]
+        getattr(lib, name).restype = ctypes.c_int
     lib.aid_conv3x3_bf16.argtypes = [
         vp, vp, vp, vp,      # x (B,Cin/8,H,W,8), w (tiled, see conv.py), bias (f32), out (NHWC)
         i32, i32, i32, i32, i32,  # B, H, W, Cin, Cout

@@ -87,6 +87,19 @@ replay the kernels' data movement from them), :func:`d512_operands` those
 of the D=512 self kernels; :func:`kernel_launch` and :func:`d512_launch`
 return the launch itself, which ``chip_smoke.py`` times apart from the
 wrapper's host work.
+
+The static-shift softmax (``static_smax``, aid_tpu/ops/flash_attention.py:
+44-65): with a shift C, p = exp(min(s * scale - C, STATIC_SHIFT_CLIP)) with
+no running row max, the same softmax while every row max lies in [C - 72,
+C + 30]. Its instances, the exact sources built with ``AID_STATIC_SHIFT`` in
+translation units of their own: the bf16 and f32 kernels at D <= 160 in
+every mode (``csrc/flash_interpolated_attention_static.cu``,
+``csrc/flash_interpolated_attention_f32_static.cu``) and the bf16
+mid-length stream kernel at D = 64 in the endpoint modes
+(``csrc/flash_attention_midstream_static.cu``), counted in
+``launches_static`` / ``launches_static_midstream``.
+:func:`resolve_static_smax` turns the model path's ``"auto"`` into the
+shift or None as the JAX wrapper does, less the calls the port keeps exact.
 """
 
 from __future__ import annotations
@@ -374,27 +387,168 @@ def instance_head_dim(Dp: int) -> int:
     return Dp if Dp <= KERNEL_HEAD_DIMS[-1] else D512 if Dp <= D512 else DWIDE
 
 
+#: the static-shift softmax (aid_tpu/ops/flash_attention.py:44-65): with a
+#: shift C, each accumulator set's probabilities are exp(min(s * scale - C,
+#: STATIC_SHIFT_CLIP)) over their own sum, with no row max, no rescale of the
+#: accumulators; the same softmax while every set's row max lies in [C - 72,
+#: C + 30] ([-32, +70] at the model path's C = STATIC_SHIFT_C)
+STATIC_SHIFT_C = 40.0
+STATIC_SHIFT_CLIP = 30.0
+_LOG2E = 1.4426950408889634
+#: the C entries of the static-shift instances by operand dtype (the D <= 160
+#: C signature with the shift and the clip, in log2 units, after the scale):
+#: the D <= 160 streaming kernels (csrc/flash_interpolated_attention_static.cu,
+#: csrc/flash_interpolated_attention_f32_static.cu, every mode) and the bf16
+#: mid-length stream kernel (csrc/flash_attention_midstream_static.cu, the
+#: endpoint modes at STATIC_MIDSTREAM_DIMS); f16 has none: exp(-40) is below
+#: f16's smallest subnormal, so P would flush to 0
+STATIC_ENTRIES = {torch.bfloat16: "aid_flash_attn_bf16_static", torch.float32: "aid_flash_attn_f32_static"}
+STATIC_MIDSTREAM_ENTRIES = {torch.bfloat16: "aid_flash_attn_bf16_midstream_static"}
+STATIC_MIDSTREAM_DIMS = (64,)
+#: the JAX wrapper's constants that decide its "auto" (aid_tpu/ops/flash_attention.py:
+#: 80, 88, 703, 708 and its 128-lane block rounding), copied
+JAX_ONEPASS_MAX, JAX_SPLIT_ONEPASS_MAX, JAX_ONEPASS_MAX_RESIDENT_COLS = 3072, 16384, 20 * 1024
+JAX_BLOCK_K, JAX_LANES = 1024, 128
+#: the call classes ("streaming" or "midstream" kernel, dtype, instance head
+#: dim, mode) where the card measured the static instance slower than the
+#: exact one: "auto" keeps them exact. In turns on an H100 (700 W;
+#: tools/attention_bench.py --static, ten pairs, two calls; PERF.md section
+#: 6): f32 self mode at D = 64, (7,10,4096,64) 2.867 / 2.826 ms against
+#: 2.855 / 2.815 (no slower in 4 and 2 of 10 pairs; the 3xTF32 products
+#: bind, and the clip costs what the max saved), while every bf16 class and
+#: the other f32 ones measured 1-12% faster. A call the short-stream kernel
+#: takes stays exact under "auto" too: its static instance would be the
+#: streaming kernel's, 14% slower at (7,10,4096,77) fused_outer (0.0963
+#: against 0.0847 ms)
+STATIC_SHIFT_SLOWER = frozenset({("streaming", "f32", 64, "self")})
+
+_STATIC_DTYPE_NAMES = {torch.bfloat16: "bf16", torch.float16: "f16", torch.float32: "f32"}
+
+
+def jax_static_smax(q_shape, dtype, Lk: int, mode: AttnMode | str = AttnMode.SELF, Le: Optional[int] = None,
+                    split_capable: bool = False, *, onepass_max: int = JAX_ONEPASS_MAX, block_k: int = JAX_BLOCK_K,
+                    split_onepass_max: int = JAX_SPLIT_ONEPASS_MAX,
+                    resident_cols: int = JAX_ONEPASS_MAX_RESIDENT_COLS) -> Optional[float]:
+    """What the JAX wrapper resolves ``static_smax="auto"`` to for a call of
+    ``q_shape`` (B, H, Sq, D) on ``dtype`` operands over Lk own keys and Le
+    keys an endpoint segment (aid_tpu/ops/flash_attention.py:764-891, its
+    defaults pad_d=False, exp_impl "f32"): None (exact) where `_kernel_onepass`
+    takes a self call, else STATIC_SHIFT_C. ``split_capable``: outer modes
+    with shared (H, Le, D) endpoints (or none passed), which the JAX wrapper
+    routes to the one-pass kernel up to ``split_onepass_max``. Needs no
+    device."""
+    mode = AttnMode(mode)
+    H, D = q_shape[1], q_shape[3]
+    Le = Lk if Le is None else Le
+
+    def ceil_to(x, m):
+        return -(-x // m) * m
+
+    Dp = D if D <= JAX_LANES or D % JAX_LANES == 0 else ceil_to(D, JAX_LANES)
+    itemsize = {torch.float32: 4, torch.float64: 8}.get(dtype, 2)
+    max_rows = max(JAX_LANES, (512 * 1024) // (Dp * itemsize) // JAX_LANES * JAX_LANES)
+    bk = min(block_k, max_rows, ceil_to(max(Lk, Le), JAX_LANES))
+    include_self = mode in (AttnMode.SELF, AttnMode.FUSED_OUTER, AttnMode.FUSED_INNER)
+    n_self = ceil_to(Lk, bk) // bk if include_self else 0
+    n_ep = (2 if mode.is_outer else 1 if mode.is_inner else 0) * (ceil_to(Le, bk) // bk)
+    Ltot = (n_self + n_ep) * bk
+    limit = onepass_max
+    if split_capable and mode.is_outer and onepass_max:
+        limit = max(onepass_max, split_onepass_max)
+    hgroup = None
+    if Ltot <= limit:
+        hgroup = next((g for g in range(H, 0, -1) if H % g == 0 and g * Ltot <= resident_cols), None)
+    return None if (hgroup is not None and mode == AttnMode.SELF) else STATIC_SHIFT_C
+
+
+def static_route(D: int, Sq: int, Lk: int, Le: int, mode: AttnMode | str = AttnMode.SELF, dtype=torch.bfloat16) -> str:
+    """The kernel a static-shift call at instance head dim D takes: "midstream"
+    (the bf16 mid-length stream kernel's static instance, where
+    :func:`takes_midstream` holds in an endpoint mode at
+    :data:`STATIC_MIDSTREAM_DIMS`) or "streaming" (the D <= 160 kernel's: every
+    other call, the short-stream kernel's calls among them)."""
+    mode = AttnMode(mode)
+    if (dtype in STATIC_MIDSTREAM_ENTRIES and D in STATIC_MIDSTREAM_DIMS and mode != AttnMode.SELF
+            and takes_midstream(D, Sq, Lk, Le, mode, dtype)):
+        return "midstream"
+    return "streaming"
+
+
+def resolve_static_smax(q: torch.Tensor, k: torch.Tensor, mode: AttnMode | str = AttnMode.SELF, k_begin=None,
+                        k_end=None, v_begin=None, v_end=None, static_smax="auto") -> Optional[float]:
+    """The shift a call computes with (a float C) or None (exact). A float
+    stays (raising ``ValueError`` on f16 operands: exp(-40) ~ 4e-18 is under
+    f16's smallest subnormal, so P would flush to 0; the JAX package has no
+    f16); None stays. ``"auto"`` takes the JAX wrapper's choice
+    (:func:`jax_static_smax`) and keeps a call
+    exact where the port has no instance measured no slower: in f16, on the
+    plain route (CPU tensors, ``reference_ops``: the JAX model path is exact
+    on the CPU), past head dim 160 (the static instances of the wider kernels
+    are queued in ROADMAP.md), on the short-stream kernel's calls, and in
+    :data:`STATIC_SHIFT_SLOWER`. Strings other than "auto" raise, as
+    aid_tpu/ops/flash_attention.py:764-766."""
+    if isinstance(static_smax, str) and static_smax != "auto":
+        raise ValueError(f"static_smax must be None, a float, or 'auto'; got {static_smax!r}")
+    if static_smax is None:
+        return None
+    if static_smax != "auto":
+        if q.dtype == torch.float16:
+            raise ValueError("static_smax is not supported in f16: exp(-C) at C = 40 (~4e-18) is below f16's "
+                             "smallest subnormal (6e-8), so the probabilities would flush to 0; pass "
+                             "static_smax=None or 'auto' (exact in f16)")
+        return float(static_smax)
+    if q.dtype not in STATIC_ENTRIES or not use_kernel(q, k):
+        return None
+    Le = k.shape[-2] if k_begin is None else k_begin.shape[-2]
+    split = all(e.dim() == 3 for e in (k_begin, v_begin, k_end, v_end) if e is not None)
+    return _auto_shift(tuple(q.shape), q.dtype, k.shape[-2], AttnMode(mode), Le, split)
+
+
+@functools.lru_cache(maxsize=4096)
+def _auto_shift(q_shape, dtype, Lk: int, mode: AttnMode, Le: int, split_capable: bool):
+    """"auto" on the kernel route for a call's shapes (cached: the model
+    path asks on every call, at a few shapes): the JAX wrapper's choice,
+    then exact past head dim 160, on the short-stream kernel's calls and in
+    :data:`STATIC_SHIFT_SLOWER`."""
+    if jax_static_smax(q_shape, dtype, Lk, mode, Le, split_capable) is None:
+        return None
+    D, Sq = q_shape[3], q_shape[2]
+    if D > KERNEL_HEAD_DIMS[-1]:
+        return None
+    Dp = padded_head_dim(D, mode, dtype)
+    if takes_onepass(Dp, Sq, Lk, Le, mode, dtype):
+        return None
+    if (static_route(Dp, Sq, Lk, Le, mode, dtype), _STATIC_DTYPE_NAMES[dtype], Dp, mode.value) in STATIC_SHIFT_SLOWER:
+        return None
+    return STATIC_SHIFT_C
+
+
 def flash_interpolated_attention_plain(
     q, k, v, coef=None, mode: AttnMode | str = AttnMode.SELF,
     k_begin=None, v_begin=None, k_end=None, v_end=None,
-    scale: Optional[float] = None, skip_endpoints=None,
+    scale: Optional[float] = None, skip_endpoints=None, static_smax: Optional[float] = None,
 ) -> torch.Tensor:
     """The kernel's plain PyTorch version: ``interpolated_attention``, with
     fused-mode skip rows replaced by vanilla attention over their own K/V
-    (what the kernel computes when it drops their endpoint segments)."""
+    (what the kernel computes when it drops their endpoint segments). A
+    float ``static_smax`` C makes each accumulator set's softmax the static
+    shift's, exp(min(s * scale - C, STATIC_SHIFT_CLIP)) over its own sum in
+    f32, the probabilities rounded to the input dtype for P V as in the
+    exact one."""
     mode = AttnMode(mode)
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if coef is None and mode != AttnMode.SELF:
         coef = torch.zeros(q.shape[0], dtype=torch.float32, device=q.device)
+    static = None if static_smax is None else (float(static_smax), STATIC_SHIFT_CLIP)
     out = interpolated_attention(q, k, v, coef, mode, k_begin=k_begin, v_begin=v_begin,
-                                 k_end=k_end, v_end=v_end, scale=scale)
+                                 k_end=k_end, v_end=v_end, scale=scale, static=static)
     if skip_endpoints is not None and mode.is_fused:
         rows = torch.as_tensor(skip_endpoints, device=q.device).reshape(-1).bool()
         if bool(rows.any()):
             idx = rows.nonzero().reshape(-1)
             out = out.clone()
-            out[idx] = _softmax_attn(q[idx], k[idx], v[idx], scale)
+            out[idx] = _softmax_attn(q[idx], k[idx], v[idx], scale, static)
     return out
 
 
@@ -611,6 +765,7 @@ def kernel_operands(
     skip_endpoints: Optional[torch.Tensor] = None,  # (B,) bool: rows whose endpoint segments are dropped
     onepass: Optional[bool] = None,
     midstream: Optional[bool] = None,
+    static_smax: Optional[float] = None,
 ) -> dict:
     """Check the operands of the interpolating kernel of q's dtype (bf16,
     f16 or f32) and head dim (the D <= 160 kernels, the D = 161-512 ones,
@@ -642,7 +797,15 @@ def kernel_operands(
     slots repeat k and v (from 161 to 512 ``n_sets`` 0, the D=161-512
     entries' self instance, with no coefficient, skip row or workspace; past
     the dtype's :data:`DMID_SELF_MAX` it is the D=512 self kernels',
-    :func:`d512_operands`). Nothing here needs a device."""
+    :func:`d512_operands`). ``static_smax``, a resolved shift C
+    (:func:`resolve_static_smax`) or None, lays out the static-shift
+    instance (:data:`STATIC_ENTRIES`; :data:`STATIC_MIDSTREAM_ENTRIES` where
+    :func:`static_route` says "midstream", or as ``midstream`` says) with
+    ``static`` = (C log2(e), STATIC_SHIFT_CLIP log2(e)), the shift and clip in
+    the kernels' exp2 units, passed after the scale; None where exact. A
+    shift in f16 raises ``ValueError``, past head dim 160 or on the
+    short-stream kernel ``NotImplementedError``: no instance, no fallback.
+    Nothing here needs a device."""
     mode = AttnMode(mode)
     B, H, Sq, D = q.shape
     if q.dtype not in KERNEL_ENTRIES:
@@ -728,16 +891,37 @@ def kernel_operands(
                                   f"{mode.value} mode{' sent to the short-stream kernel' if onepass else ''}")
     if midstream:  # forced there, whatever the stream's length
         onepass = False
+    static = None
+    if static_smax is not None:  # the static-shift instances: the streaming kernels' and the bf16 mid-length one's
+        if q.dtype not in STATIC_ENTRIES:
+            raise ValueError(f"no static-shift instance takes {q.dtype} (f16: exp(-C) flushes to 0); pass "
+                             "static_smax=None")
+        if Dp > KERNEL_HEAD_DIMS[-1]:
+            raise NotImplementedError(f"no static-shift instance at head dim {D} (padded {Dp}): the D=161-512, "
+                                      "D=512 self and wide kernels' static instances are queued in ROADMAP.md "
+                                      "(Queue 2, the static-shift instances past D=160); pass static_smax=None")
+        if onepass:
+            raise NotImplementedError("the short-stream kernel has no static-shift instance (its calls take the "
+                                      "streaming kernel's)")
+        if midstream and (q.dtype not in STATIC_MIDSTREAM_ENTRIES or Dp not in STATIC_MIDSTREAM_DIMS
+                          or mode == AttnMode.SELF):
+            raise NotImplementedError(f"the mid-length stream kernel has no static-shift instance for a {q.dtype} "
+                                      f"call at D={Dp} in {mode.value} mode")
+        onepass = False
+        if midstream is None:
+            midstream = static_route(Dp, Sq, k.shape[2], dims[4], mode, q.dtype) == "midstream"
+        entry = (STATIC_MIDSTREAM_ENTRIES if midstream else STATIC_ENTRIES)[q.dtype]
+        static = (float(static_smax) * _LOG2E, STATIC_SHIFT_CLIP * _LOG2E)
     onepass = takes_onepass(Dp, Sq, k.shape[2], dims[4], mode, q.dtype) if onepass is None else onepass
     midstream = (not onepass and takes_midstream(Dp, Sq, k.shape[2], dims[4], mode, q.dtype) if midstream is None
                  else midstream)
-    if onepass:
+    if static is None and onepass:
         entry = ONEPASS_ENTRIES[q.dtype]
-    elif midstream:
+    elif static is None and midstream:
         entry = MIDSTREAM_ENTRIES[q.dtype]
-    return dict(entry=entry, onepass=onepass, midstream=midstream, tensors=tensors, dims=dims, coef=coef_t, skip=skip,
-                work=work, splits=splits, scale=D ** -0.5 if scale is None else scale, has_own=has_own,
-                n_sets=n_sets, head_dim=D, out=out[..., :D])
+    return dict(entry=entry, onepass=onepass, midstream=midstream, static=static, tensors=tensors, dims=dims,
+                coef=coef_t, skip=skip, work=work, splits=splits, scale=D ** -0.5 if scale is None else scale,
+                has_own=has_own, n_sets=n_sets, head_dim=D, out=out[..., :D])
 
 
 _DIMS_ARRAYS: dict = {}
@@ -770,9 +954,10 @@ def kernel_launch(*args, **kwargs) -> tuple:
     # the entries past 160 take the workspace pointer (null where nothing is parked or split) after skip
     work = ((None if ops["work"] is None else ops["work"].data_ptr(),) if ops["dims"][5] > KERNEL_HEAD_DIMS[-1]
             else ())
+    # the static-shift entries take the shift and the clip (log2 units) after the scale
     c_args = (*(x.data_ptr() for x in tensors),
               *(None if x is None else x.data_ptr() for x in (ops["coef"], ops["skip"])), *work,
-              _dims_array(ops["dims"]), float(ops["scale"]), ops["has_own"],
+              _dims_array(ops["dims"]), float(ops["scale"]), *(ops["static"] or ()), ops["has_own"],
               ops["n_sets"], torch.cuda.current_stream(out.device).cuda_stream)
 
     fn = getattr(lib, ops["entry"])
@@ -791,16 +976,21 @@ def _launch_counted(wrapper, q, *args, **kwargs) -> torch.Tensor:
     the instance's head dim (40, 64, 80, 160, 512 or :data:`DWIDE`) and,
     where the short-stream kernel took it, in ``launches_onepass`` under
     that head dim too, where the mid-length stream kernel took it, in
-    ``launches_midstream``."""
+    ``launches_midstream``; a static-shift instance's launches count apart
+    from those in ``launches_static`` (the streaming kernel's) and
+    ``launches_static_midstream``."""
     _check_dtype("q", q, _WRAPPER_DTYPES[wrapper.__name__])
     out, launch = kernel_launch(q, *args, **kwargs)
     launch()
-    Dp = launch.operands["dims"][5]
+    ops = launch.operands
+    Dp = ops["dims"][5]
     wrapper.launches += 1
     wrapper.launches_by_head_dim[instance_head_dim(Dp)] += 1
-    if launch.operands["onepass"]:
+    if ops["static"] is not None:
+        (wrapper.launches_static_midstream if ops["midstream"] else wrapper.launches_static)[Dp] += 1
+    elif ops["onepass"]:
         wrapper.launches_onepass[Dp] += 1
-    elif launch.operands["midstream"]:
+    elif ops["midstream"]:
         wrapper.launches_midstream[Dp] += 1
     return out
 
@@ -825,31 +1015,45 @@ def flash_interpolated_attention(
     v_end: Optional[torch.Tensor] = None,
     scale: Optional[float] = None,
     skip_endpoints: Optional[torch.Tensor] = None,  # (B,) bool: rows whose endpoint segments are dropped
+    static_smax=None,  # None (exact), a float C, or "auto": see resolve_static_smax
 ) -> torch.Tensor:
     """Flash interpolated attention (see module docstring).
 
     ``skip_endpoints`` is honoured in fused modes only: those rows attend
     their own K/V alone, which is vanilla attention. Pure modes ignore it.
+    ``static_smax`` (aid_tpu/ops/flash_attention.py:44-65, 728-746): None,
+    the default, is the exact softmax; a float C the static shift, computed
+    by the plain version on any device and on CUDA by the static-shift
+    instance (bf16 and f32 at head dims up to 160: a bf16 call the
+    mid-length stream kernel takes in an endpoint mode at D = 64 on its
+    instance, every other on the streaming kernel's; past 160
+    ``NotImplementedError``, in f16 ``ValueError``); ``"auto"`` as
+    :func:`resolve_static_smax` resolves it.
     Returns (B, H, Sq, D) in q's dtype; on CUDA the result is a view of a
     (B, Sq, H, D) buffer, so merging heads afterwards needs no copy.
     """
     mode = AttnMode(mode)
+    shift = resolve_static_smax(q, k, mode, k_begin, k_end, v_begin, v_end, static_smax)
     if not use_kernel(q, k, v):
         return flash_interpolated_attention_plain(
             q, k, v, coef, mode, k_begin=k_begin, v_begin=v_begin, k_end=k_end, v_end=v_end,
-            scale=scale, skip_endpoints=skip_endpoints)
+            scale=scale, skip_endpoints=skip_endpoints, static_smax=shift)
 
     if takes_d512_self(q.shape[-1], mode, q.dtype):  # the D=512 kernels (the VAE's), padded to 512 past DMID_SELF_MAX
+        if shift is not None:
+            raise NotImplementedError(f"no static-shift instance at head dim {q.shape[-1]} in self mode: the D=512 "
+                                      "self kernels' static instances are queued in ROADMAP.md (Queue 2, the "
+                                      "static-shift instances past D=160); pass static_smax=None")
         d512 = {torch.float32: flash_self_attention_f32, torch.bfloat16: flash_self_attention_bf16,
                 torch.float16: flash_self_attention_f16}[q.dtype]
         return d512(q, k, v, scale)
     other = {torch.float32: flash_interpolated_attention_f32, torch.float16: flash_interpolated_attention_f16}
     if q.dtype in other:
         return other[q.dtype](q, k, v, coef, mode, k_begin=k_begin, v_begin=v_begin, k_end=k_end, v_end=v_end,
-                              scale=scale, skip_endpoints=skip_endpoints)
+                              scale=scale, skip_endpoints=skip_endpoints, static_smax=shift)
 
     return _launch_counted(flash_interpolated_attention, q, k, v, coef, mode, k_begin=k_begin, v_begin=v_begin,
-                           k_end=k_end, v_end=v_end, scale=scale, skip_endpoints=skip_endpoints)
+                           k_end=k_end, v_end=v_end, scale=scale, skip_endpoints=skip_endpoints, static_smax=shift)
 
 
 def flash_interpolated_attention_f32(
@@ -864,6 +1068,7 @@ def flash_interpolated_attention_f32(
     v_end: Optional[torch.Tensor] = None,
     scale: Optional[float] = None,
     skip_endpoints: Optional[torch.Tensor] = None,  # (B,) bool: rows whose endpoint segments are dropped
+    static_smax=None,  # None (exact), a float C, or "auto": see resolve_static_smax
 ) -> torch.Tensor:
     """:func:`flash_interpolated_attention`'s contract in f32 at head dim
     40, 64, 80 or 160, every mode (an f32 UNet's attentions), and at any
@@ -874,17 +1079,21 @@ def flash_interpolated_attention_f32(
     (in self mode to 448, :data:`DMID_SELF_MAX`) takes
     ``aid_flash_attn_f32_dmid`` (``csrc/flash_attention_dmid_f32.cu``, at
     the caller's D); one from 513 to 2048, in every mode,
-    ``aid_flash_attn_f32_dwide`` (``csrc/flash_attention_dwide.cu``).
-    Returns (B, H, Sq, D) f32; on CUDA a view of a (B, Sq, H, Dp) buffer, as
-    the bf16 kernel writes.
+    ``aid_flash_attn_f32_dwide`` (``csrc/flash_attention_dwide.cu``). A
+    shift (``static_smax``, as in :func:`flash_interpolated_attention`) takes
+    ``aid_flash_attn_f32_static`` at head dims up to 160. Returns (B, H, Sq,
+    D) f32; on CUDA a view of a (B, Sq, H, Dp) buffer, as the bf16 kernel
+    writes.
     """
     mode = AttnMode(mode)
+    shift = resolve_static_smax(q, k, mode, k_begin, k_end, v_begin, v_end, static_smax)
     if not use_kernel(q, k, v):
         return flash_interpolated_attention_plain(
             q, k, v, coef, mode, k_begin=k_begin, v_begin=v_begin, k_end=k_end, v_end=v_end,
-            scale=scale, skip_endpoints=skip_endpoints)
+            scale=scale, skip_endpoints=skip_endpoints, static_smax=shift)
     return _launch_counted(flash_interpolated_attention_f32, q, k, v, coef, mode, k_begin=k_begin, v_begin=v_begin,
-                           k_end=k_end, v_end=v_end, scale=scale, skip_endpoints=skip_endpoints)
+                           k_end=k_end, v_end=v_end, scale=scale, skip_endpoints=skip_endpoints,
+                           static_smax=shift)
 
 
 def flash_interpolated_attention_f16(
@@ -899,6 +1108,7 @@ def flash_interpolated_attention_f16(
     v_end: Optional[torch.Tensor] = None,
     scale: Optional[float] = None,
     skip_endpoints: Optional[torch.Tensor] = None,  # (B,) bool: rows whose endpoint segments are dropped
+    static_smax=None,  # None (exact), a float C, or "auto": see resolve_static_smax
 ) -> torch.Tensor:
     """:func:`flash_interpolated_attention`'s contract in f16 at head dim
     40, 64, 80 or 160, every mode (an f16 UNet's attentions), and at any
@@ -909,16 +1119,20 @@ def flash_interpolated_attention_f16(
     head dim from 161 to 512 in an endpoint mode (in self mode to 511,
     :data:`DMID_SELF_MAX`) takes ``aid_flash_attn_f16_dmid`` (at the
     caller's D); one from 513 to 2048, in every mode,
-    ``aid_flash_attn_f16_dwide``. Returns (B, H, Sq, D) f16; on CUDA a view
-    of a (B, Sq, H, Dp) buffer.
+    ``aid_flash_attn_f16_dwide``. No static-shift instance: a float
+    ``static_smax`` raises ``ValueError`` (exp(-40) flushes to 0 in f16),
+    ``"auto"`` is exact. Returns (B, H, Sq, D) f16; on CUDA a view of a (B,
+    Sq, H, Dp) buffer.
     """
     mode = AttnMode(mode)
+    shift = resolve_static_smax(q, k, mode, k_begin, k_end, v_begin, v_end, static_smax)
     if not use_kernel(q, k, v):
         return flash_interpolated_attention_plain(
             q, k, v, coef, mode, k_begin=k_begin, v_begin=v_begin, k_end=k_end, v_end=v_end,
-            scale=scale, skip_endpoints=skip_endpoints)
+            scale=scale, skip_endpoints=skip_endpoints, static_smax=shift)
     return _launch_counted(flash_interpolated_attention_f16, q, k, v, coef, mode, k_begin=k_begin, v_begin=v_begin,
-                           k_end=k_end, v_end=v_end, scale=scale, skip_endpoints=skip_endpoints)
+                           k_end=k_end, v_end=v_end, scale=scale, skip_endpoints=skip_endpoints,
+                           static_smax=shift)
 
 
 def reset_launch_counts() -> None:
@@ -926,12 +1140,16 @@ def reset_launch_counts() -> None:
     and per instance head dim, 512 the D=161-512 entries,
     :data:`DWIDE` the wide entries: a padded call counts under the instance
     that takes it; and the short-stream and the mid-length stream kernels'
-    launches, parts of those at D <= 160, by head dim) to 0."""
+    launches and the static-shift instances' (the streaming kernel's and the
+    mid-length stream kernel's), parts of those at D <= 160, by head dim) to
+    0."""
     for fn in (flash_interpolated_attention, flash_interpolated_attention_f16, flash_interpolated_attention_f32):
         fn.launches = 0
         fn.launches_by_head_dim = dict.fromkeys((*KERNEL_HEAD_DIMS, D512, DWIDE), 0)
         fn.launches_onepass = dict.fromkeys(KERNEL_HEAD_DIMS, 0)
         fn.launches_midstream = dict.fromkeys(KERNEL_HEAD_DIMS, 0)
+        fn.launches_static = dict.fromkeys(KERNEL_HEAD_DIMS, 0)
+        fn.launches_static_midstream = dict.fromkeys(KERNEL_HEAD_DIMS, 0)
 
 
 #: kernel launches since the last reset, in all, by head dim and on the

@@ -113,9 +113,15 @@ Phases (each prints its own lines; any failure exits non-zero):
                  its bound from the shapes and the card's peaks, and one
                  PyTorch call computing the same function where there is
                  one (cuDNN conv in both layouts, SDPA under each backend)
-                 as the yardstick library_ms
+                 as the yardstick library_ms; the static-shift instances
+                 (static_smax = 40) beside the exact route, at the window's
+                 edges and against two planted faults (the clip dropped, the
+                 shift left in a per-tile rescale)
   4. whole UNet  one full-width SDXL forward in fused_outer through the
-                 kernels and through the plain versions (test-only seam)
+                 kernels and through the plain versions (test-only seam);
+                 its logit window (as after every forward check below) must
+                 lie in [-32, +70], where the model path's static shift is
+                 the exact softmax
   5. denoise     the SDXL main path; launch counts, finite checksum, s/step,
                  peak memory
   6. engine      2 SDXL steps in batched CFG against sequential, and in the
@@ -561,8 +567,11 @@ def read_counts() -> dict:
     ``flash_interpolated_attention_f32[D=...]`` and
     ``flash_interpolated_attention_f16[D=...]``; of those, the short-stream
     kernel's (bf16 and f16) under ``...[onepass]`` in all and
-    ``...[onepass D=...]`` by head dim, and the mid-length stream kernel's
-    under ``...[midstream]`` and ``...[midstream D=...]``."""
+    ``...[onepass D=...]`` by head dim, the mid-length stream kernel's
+    under ``...[midstream]`` and ``...[midstream D=...]``, and the
+    static-shift instances' (bf16 and f32) under ``...[static]`` /
+    ``...[static D=...]`` (the streaming kernels') and ``...[static
+    midstream]`` / ``...[static midstream D=...]``."""
     wrappers = kernel_wrappers()
     counts = {name: fn.launches for name, fn in wrappers.items()}
     for name in ("flash_interpolated_attention", "flash_interpolated_attention_f32",
@@ -575,7 +584,55 @@ def read_counts() -> dict:
             counts[f"{name}[{kind}]"] = sum(by_dim.values())
             for d, n in by_dim.items():
                 counts[f"{name}[{kind} D={d}]"] = n
+    for name in ("flash_interpolated_attention", "flash_interpolated_attention_f32"):
+        for kind, attr in (("static", "launches_static"), ("static midstream", "launches_static_midstream")):
+            by_dim = getattr(wrappers[name], attr)
+            counts[f"{name}[{kind}]"] = sum(by_dim.values())
+            for d, n in by_dim.items():
+                counts[f"{name}[{kind} D={d}]"] = n
     return counts
+
+
+def static_needed(dtype: str, classes) -> tuple:
+    """The static-shift counters a path of ``dtype`` must show for its call
+    classes [(kernel, head dim, mode)] under "auto": each class's, unless
+    the card measured it slower (``STATIC_SHIFT_SLOWER``: "auto" keeps it
+    exact)."""
+    from aid_tpu_torch.ops.flash_attention import STATIC_SHIFT_SLOWER
+
+    name = {"bf16": "flash_interpolated_attention", "f32": "flash_interpolated_attention_f32"}[dtype]
+    kinds = {"streaming": "static", "midstream": "static midstream"}
+    return tuple(sorted({f"{name}[{kinds[kernel]}]" for kernel, d, mode in classes
+                         if (kernel, dtype, d, mode) not in STATIC_SHIFT_SLOWER}))
+
+
+@contextlib.contextmanager
+def logit_window(label: str):
+    """Within: every dispatch_attention call reports its per-set row-max
+    window (``LOGIT_WINDOW_RECORDER``); after: the whole run's window is
+    printed and must lie inside STATIC_WINDOW, where the static shift is the
+    exact softmax."""
+    import importlib
+
+    import torch
+
+    attn = importlib.import_module("aid_tpu_torch.ops.attention")
+    seen = []
+    attn.LOGIT_WINDOW_RECORDER = lambda lo, hi: seen.append(torch.stack([lo.float(), hi.float()]))
+    try:
+        yield
+    finally:
+        attn.LOGIT_WINDOW_RECORDER = None
+    if not seen:
+        fail(f"{label}: no attention call reported a logit window")
+    both = torch.stack(seen)
+    lo, hi = both[:, 0].min().item(), both[:, 1].max().item()
+    ok = STATIC_WINDOW[0] <= lo and hi <= STATIC_WINDOW[1]
+    print(f"logit window of {label}: per-set row maxes in [{lo:.4f}, {hi:.4f}] over {len(seen)} attention calls "
+          f"(the static shift is exact in [{STATIC_WINDOW[0]:g}, {STATIC_WINDOW[1]:g}])  {'ok' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        fail(f"{label}: attention logits outside the static shift's window")
 
 
 def check_path(path: str, counts: dict, needed) -> None:
@@ -631,6 +688,61 @@ def phase_build():
             print(f"  {line.strip()}", flush=True)
 
 
+# The static-shift softmax's window (aid_tpu/ops/flash_attention.py:44-65):
+# with C = 40 and the 30-nat clip, exp(min(s - C, 30)) is the exact softmax
+# while every accumulator set's row max lies in [C - 72, C + 30]; below, the
+# probabilities reach the e^-87 floor of bf16 (ex2.approx.ftz's too), above,
+# the clip flattens the largest. Phase 4 and every forward check
+# (check_unet_vs_plain) read their UNet's window (LOGIT_WINDOW_RECORDER) and
+# fail outside it.
+STATIC_WINDOW = (40.0 - 72.0, 40.0 + 30.0)
+
+
+def window_inputs(dtype, hot: bool, B: int, H: int, S: int, D: int, gen) -> tuple:
+    """(q, k, v, scale) for a static-shift instance at the window's edges
+    (tests/test_flash_attention.py:250-281): cold, a dedicated column biases
+    every logit to -25 at scale 1 (row maxes near -23, the exact softmax
+    still); hot, scale 32 / sqrt(D) puts the logits at N(0, 32^2) (row maxes
+    near +120 over thousands of keys: the clip flattens the largest, and the
+    exact softmax is far off)."""
+    import torch
+
+    q, k, v = (torch.randn((B, H, S, D), generator=gen, device=gen.device) for _ in range(3))
+    if hot:
+        return q.to(dtype), k.to(dtype), v.to(dtype), 32.0 / D ** 0.5
+    qc = torch.cat([q[..., :-1] * 0.1, torch.ones_like(q[..., :1])], -1)
+    kc = torch.cat([k[..., :-1], torch.full_like(k[..., :1], -25.0)], -1)
+    return qc.to(dtype), kc.to(dtype), v.to(dtype), 1.0
+
+
+def shift_in_rescale_fault(q, k, v, coef, mode: str, C: float, bk: int, clip: float = 30.0):
+    """A planted fault of the static-shift instances: the plain static shift
+    (self mode over the own keys, pure_inner over the endpoints lerped in f32
+    and rounded as the wrapper lerps them) with the shift left in a per-tile
+    rescale: O and l times e^-C before each ``bk``-key tile, as if the
+    running max had moved by C every tile. Returns (B, H, Sq, D) f32."""
+    import torch
+
+    if mode == "pure_inner":
+        c4 = coef.view(-1, 1, 1, 1)
+        k = ((1 - c4) * k[0].float() + c4 * k[-1].float()).to(q.dtype)
+        v = ((1 - c4) * v[0].float() + c4 * v[-1].float()).to(q.dtype)
+    elif mode != "self":
+        raise ValueError(f"the planted rescale fault takes self and pure_inner calls, not {mode}")
+    B, H, Sq, D = q.shape
+    scale, decay = D ** -0.5, math.exp(-C)
+    qf = q.reshape(B * H, Sq, D).float()
+    kf, vf = (x.expand(B, H, *x.shape[-2:]).reshape(B * H, -1, D) for x in (k, v))
+    o = torch.zeros_like(qf)
+    lsum = torch.zeros(B * H, Sq, 1, device=q.device)
+    for t0 in range(0, kf.shape[1], bk):
+        s = torch.matmul(qf, kf[:, t0:t0 + bk].float().transpose(-1, -2)) * scale
+        p = torch.exp(torch.clamp_max(s - C, clip))
+        o = o * decay + torch.matmul(p.to(q.dtype).float(), vf[:, t0:t0 + bk].float())
+        lsum = lsum * decay + p.sum(-1, keepdim=True)
+    return (o / lsum.clamp_min(1e-37)).reshape(B, H, Sq, D)
+
+
 def phase_kernels(coef, sd_coef, fused_classes, sd21_classes):
     """Each kernel vs its plain version at the paths' shapes, timed beside
     its bound and, where one PyTorch call computes the same function, that
@@ -645,7 +757,11 @@ def phase_kernels(coef, sd_coef, fused_classes, sd21_classes):
     from aid_tpu_torch.ops.conv import conv3x3_gnsilu, conv3x3_gnsilu_plain, conv3x3_same, conv3x3_same_plain
     from aid_tpu_torch.ops.flash_attention import (
         D512,
+        KERNEL_F32_TILES,
         KERNEL_HEAD_DIMS,
+        KERNEL_TILES,
+        MIDSTREAM_TILES,
+        STATIC_SHIFT_C,
         d512_launch,
         dmid_columns,
         dwide_tiles,
@@ -690,7 +806,7 @@ def phase_kernels(coef, sd_coef, fused_classes, sd21_classes):
             kc, vc = torch.cat([k, kc], 2), torch.cat([v, vc], 2)
         return sdpa_backends(q, kc, vc, want, reps)
 
-    def attention(label, mode, c, H, Sq, L, D, reps, Le=None, dtype=torch.bfloat16, parent=None):
+    def attention(label, mode, c, H, Sq, L, D, reps, Le=None, dtype=torch.bfloat16, parent=None, static=False):
         """One bf16 (or f16, or f32) attention case, B = len(c): (B, S, H*D)
         projections viewed as (B, H, S, D), as the model passes them; skip
         rows as the model marks them; optional shared (H, Le, D) endpoints.
@@ -719,9 +835,14 @@ def phase_kernels(coef, sd_coef, fused_classes, sd21_classes):
         the D=161-512 kernels' chunk, or the first of 640, 1024, 1280, 2048)
         beside it (bound_padded_ms), and in
         the inner modes timed beside SDPA over [own; K_cross] (pure: K_cross
-        alone), the lerped endpoint made as the wrapper makes it. Returns a
-        record."""
+        alone), the lerped endpoint made as the wrapper makes it. With
+        ``static``, the call takes the static-shift instance (static_smax =
+        STATIC_SHIFT_C; the route fails the phase if it does not) and is held
+        to the plain version's static shift, timed beside the exact route
+        (exact_ms: the wrapper with static_smax None; exact_kernel_ms: its
+        launch alone), in turns. Returns a record."""
         B = c.shape[0]
+        shift = STATIC_SHIFT_C if static else None
         f32, f16 = dtype == torch.float32, dtype == torch.float16
         tol = F32_ATTN_TOL if f32 else F16_ATTN_TOL if f16 else ATTN_TOL
         dwide = D > D512
@@ -739,18 +860,21 @@ def phase_kernels(coef, sd_coef, fused_classes, sd21_classes):
         if Le is not None:  # shared (H, Le, D) endpoints; ("per_row", Le): (B, H, Le, D)
             shape = (B, H, Le[1], D) if isinstance(Le, tuple) else (H, Le, D)
             kw.update({n: make(*shape) for n in ("k_begin", "v_begin", "k_end", "v_end")})
-        got = flash_interpolated_attention(q, k, v, c, mode, **kw)
+        got = flash_interpolated_attention(q, k, v, c, mode, static_smax=shift, **kw)
         torch.cuda.synchronize()
-        want = flash_interpolated_attention_plain(q, k, v, c, mode, **kw)
+        want = flash_interpolated_attention_plain(q, k, v, c, mode, static_smax=shift, **kw)
         err = (got.float() - want.float()).abs().max().item()
         ref = want.float().abs().max().item()
         rl2 = rel_l2(got, want)
-        _, launch = kernel_launch(q, k, v, c, mode, **kw)  # operands checked and laid out once
+        _, launch = kernel_launch(q, k, v, c, mode, static_smax=shift, **kw)  # operands checked and laid out once
         if parent and not launch.operands[parent]:
             fail(f"attention {label} (D={D}, {dtype}): the route does not send it to the {parent} kernel")
+        if static and launch.operands["static"] is None:
+            fail(f"attention {label} (D={D}, {dtype}): no static-shift instance took it")
         kernel_ms = cuda_ms(launch, reps)
-        ms = cuda_ms(lambda: flash_interpolated_attention(q, k, v, c, mode, **kw), reps)
-        plain_ms = cuda_ms(lambda: flash_interpolated_attention_plain(q, k, v, c, mode, **kw), max(1, reps // 5))
+        ms = cuda_ms(lambda: flash_interpolated_attention(q, k, v, c, mode, static_smax=shift, **kw), reps)
+        plain_ms = cuda_ms(lambda: flash_interpolated_attention_plain(q, k, v, c, mode, static_smax=shift, **kw),
+                           max(1, reps // 5))
         skip_rows = int(kw["skip_endpoints"].sum()) if "skip_endpoints" in kw else 0
         per_row = isinstance(Le, tuple)
         passes = (F32_D512_PASSES if wide and not dwide else {"tf32_passes": 3}) if f32 else {}
@@ -780,6 +904,19 @@ def phase_kernels(coef, sd_coef, fused_classes, sd21_classes):
             before = {"parent_kernel_ms": min(before["parent_kernel_ms"], cuda_ms(old_alone, reps)),
                       "parent_ms": min(before["parent_ms"], cuda_ms(old_call, reps))}
             del old_alone
+        if static:  # the exact route, in turns with the static instance (the least of two kept)
+            _, exact_alone = kernel_launch(q, k, v, c, mode, **kw)
+
+            def exact_call():
+                flash_interpolated_attention(q, k, v, c, mode, **kw)
+
+            before = {"exact_kernel_ms": cuda_ms(exact_alone, reps), "exact_ms": cuda_ms(exact_call, reps)}
+            kernel_ms = min(kernel_ms, cuda_ms(launch, reps))
+            ms = min(ms, cuda_ms(lambda: flash_interpolated_attention(q, k, v, c, mode, static_smax=shift, **kw), reps))
+            before = {"exact_kernel_ms": min(before["exact_kernel_ms"], cuda_ms(exact_alone, reps)),
+                      "exact_ms": min(before["exact_ms"], cuda_ms(exact_call, reps)),
+                      "exact_entry": exact_alone.operands["entry"]}
+            del exact_alone
         padded = ""
         if parent and mode in ("fused_inner", "pure_inner"):
             library = inner_sdpa(q, k, v, c, mode, kw, dtype, want, reps)
@@ -795,10 +932,14 @@ def phase_kernels(coef, sd_coef, fused_classes, sd21_classes):
         lib_err = (f"; library max_abs_err {', '.join(f'{n} {t[1]:.3e}' for n, t in library.items())}"
                    if f32 and library else "")
         ok = math.isfinite(err) and err <= tol * ref
-        if before:
+        if before and parent:
             padded += (f"; the streaming kernel (the route before) {before['parent_ms']:.4f} ms (launch alone "
                        f"{before['parent_kernel_ms']:.4f})")
-        print(f"attention {'f32 ' if f32 else 'f16 ' if f16 else ''}{label:32s} B={B} H={H} D={D}: max_abs_err "
+        if before and static:
+            padded += (f"; {launch.operands['entry']} against the exact {before['exact_entry']} "
+                       f"{before['exact_ms']:.4f} ms (launch alone {before['exact_kernel_ms']:.4f})")
+        print(f"attention {'static ' if static else ''}{'f32 ' if f32 else 'f16 ' if f16 else ''}{label:32s} B={B} "
+              f"H={H} D={D}: max_abs_err "
               f"{err:.3e} (max|ref| "
               f"{ref:.3e}, tol {tol * ref:.3e}) rel_l2 {rl2:.3e}  kernel {ms:.4f} ms (launch alone {kernel_ms:.4f}, "
               f"{bound_ms / kernel_ms:.1%} of the bound)  "
@@ -819,7 +960,7 @@ def phase_kernels(coef, sd_coef, fused_classes, sd21_classes):
         return {"max_abs_err": err, "ms": ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                 "bound_by": bound_by, "library_ms": lib_ms, "library": lib_name,
                 **({"bound_padded_ms": padded_ms} if wide else {}), **d512, **before,
-                **({"want": want, "got": got, "inputs": (q, k, v, c, mode, kw)} if parent else {})}
+                **({"want": want, "got": got, "inputs": (q, k, v, c, mode, kw)} if parent or static else {})}
 
     def attention_record(cases, coefs, main_label, self_label, dtype=torch.bfloat16):
         """Run ``cases``; the record is the main (fused_outer) case's, with
@@ -1055,6 +1196,99 @@ def phase_kernels(coef, sd_coef, fused_classes, sd21_classes):
     gen = main_gen
     print(f"  the mid-length stream cases (bf16 and f16, each beside the streaming kernel and the plain version): "
           f"{time.perf_counter() - t_mid:.1f} s", flush=True)
+
+    # the static-shift instances (static_smax = C = 40: what "auto" takes on
+    # the model path where the JAX model path shifts) at the paths' shapes
+    # the route sends each, each beside the exact route and the plain
+    # version's static shift: the streaming kernels' (bf16 and f32; SD 1.5's
+    # D = 160 calls stay exact on the path, own KV under 512, and are held
+    # here all the same) and the bf16 mid-length stream kernel's (the
+    # endpoint modes at D = 64). Then, at one shape each, the window's edges
+    # (row maxes near -23: the exact result; far past +70: the clipped one)
+    # and two planted faults the tolerance must see: the clip dropped (which
+    # is the exact softmax) on the hot input, and the shift left in a
+    # per-tile rescale (O and l times e^-C before each tile)
+    t_static = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(26)
+    static_sets = [
+        ("flash_interpolated_attention(static)", torch.bfloat16, False, [
+            ("SDXL self 4096", "self", coef, 10, 4096, 4096, 64, 10),
+            ("SDXL fused_outer 4096", "fused_outer", coef, 10, 4096, 4096, 64, 5),
+            ("SD1.5 self 4096", "self", sd_coef, 8, 4096, 4096, 40, 10),
+            ("SD1.5 fused_outer 4096", "fused_outer", sd_coef, 8, 4096, 4096, 40, 5),
+            ("SD1.5 fused_outer 1024", "fused_outer", sd_coef, 8, 1024, 1024, 80, 20),
+            ("SD1.5 fused_outer 256", "fused_outer", sd_coef, 8, 256, 256, 160, 20),
+            ("SD2.1 self 9216", "self", sd_coef, 5, 9216, 9216, 64, 3),
+            ("SD2.1 fused_outer 2304", "fused_outer", sd_coef, 10, 2304, 2304, 64, 10)]),
+        ("flash_interpolated_attention(static midstream)", torch.bfloat16, True, [
+            ("SDXL fused_outer 1024", "fused_outer", coef, 20, 1024, 1024, 64, 20),
+            *[(f"SDXL {m} 1024", m, coef, 20, 1024, 1024, 64, 10) for m in ("pure_outer", "fused_inner", "pure_inner")],
+            ("SD2.1 fused_outer 576", "fused_outer", sd_coef, 20, 576, 576, 64, 20)]),
+        ("flash_interpolated_attention_f32(static)", torch.float32, False, [
+            ("SDXL self 4096", "self", coef, 10, 4096, 4096, 64, 3),
+            ("SDXL fused_outer 4096", "fused_outer", coef, 10, 4096, 4096, 64, 2),
+            ("SDXL fused_outer 1024", "fused_outer", coef, 20, 1024, 1024, 64, 5),
+            ("SD1.5 self 4096", "self", sd_coef, 8, 4096, 4096, 40, 3),
+            ("SD1.5 fused_outer 4096", "fused_outer", sd_coef, 8, 4096, 4096, 40, 2),
+            ("SD1.5 fused_outer 1024", "fused_outer", sd_coef, 8, 1024, 1024, 80, 5),
+            ("SD1.5 fused_outer 256", "fused_outer", sd_coef, 8, 256, 256, 160, 10)]),
+    ]
+    for name, dtype, midstream, cases in static_sets:
+        tol = F32_ATTN_TOL if dtype == torch.float32 else ATTN_TOL
+        worst, shapes, main, rescale_case = 0.0, {}, None, None
+        for label, mode, c, H, Sq, L, D, reps in cases:
+            r = attention(label, mode, c, H, Sq, L, D, reps, None, dtype, static=True)
+            got, want, inputs = r.pop("got"), r.pop("want"), r.pop("inputs")
+            routed = kernel_launch(*inputs[:5], static_smax=STATIC_SHIFT_C, **inputs[5])[1].operands["midstream"]
+            if routed != midstream:
+                fail(f"{name} {label}: the static call took the {'mid-length' if routed else 'streaming'} kernel")
+            if rescale_case is None and mode in ("self", "pure_inner"):
+                rescale_case = (label, got, want, inputs)
+            del got, want
+            worst = max(worst, r["max_abs_err"])
+            shapes[f"{label} ({c.shape[0]},{H},{Sq},{D})"] = {
+                **{k: r[k] for k in ("ms", "kernel_ms", "exact_ms", "exact_kernel_ms", "plain_ms", "bound_ms",
+                                     "library_ms", "library")}, "bound_share": r["bound_ms"] / r["kernel_ms"]}
+            main = main or r
+        # the shift left in a per-tile rescale: the plain static shift with O and l times e^-C before each tile
+        label, got, want, (q, k, v, c, mode, kw) = rescale_case
+        ref = want.float().abs().max().item()
+        bk = (MIDSTREAM_TILES if midstream else KERNEL_F32_TILES if dtype == torch.float32 else KERNEL_TILES)[
+            padded_head_dim(q.shape[-1], mode, dtype)][1 if not midstream else 0]
+        fault = shift_in_rescale_fault(q, k, v, c, mode, STATIC_SHIFT_C, bk)
+        ferr = (got.float() - fault).abs().max().item()
+        print(f"  planted fault on {label} (the shift left in a per-tile rescale, {bk}-key tiles): max_abs_err "
+              f"{ferr:.3e} against tol {tol * ref:.3e}  {'ok' if ferr > tol * ref else 'FAIL'}", flush=True)
+        if not ferr > tol * ref:
+            fail(f"{name}: the tolerance does not see the shift left in the rescale on {label} ({ferr:.3e})")
+        del rescale_case, got, want, fault
+        # the window's edges at the first case's shape, and the clip dropped
+        label, mode, c, H, Sq, L, D, _ = cases[0]
+        window = {}
+        for hot in (False, True):
+            q, k, v, scale = window_inputs(dtype, hot, c.shape[0], H, Sq, D, gen)
+            kw = {} if mode == "self" else {"skip_endpoints": skip_mask(c, c.shape[0])}
+            out, launch = kernel_launch(q, k, v, c, mode, scale=scale, static_smax=STATIC_SHIFT_C, **kw)
+            launch()
+            clipped = flash_interpolated_attention_plain(q, k, v, c, mode, scale=scale, static_smax=STATIC_SHIFT_C,
+                                                         **kw)
+            exact = flash_interpolated_attention_plain(q, k, v, c, mode, scale=scale, **kw)  # = the clip dropped
+            ref = clipped.float().abs().max().item()
+            err = (out.float() - clipped.float()).abs().max().item()
+            xerr = (out.float() - exact.float()).abs().max().item()
+            ok = torch.isfinite(out).all().item() and err <= tol * ref and (xerr > tol * ref if hot else
+                                                                             xerr <= tol * ref)
+            edge = "far past the top (clipped)" if hot else "near the bottom"
+            print(f"  {label} row maxes {edge}: max_abs_err {err:.3e} against the plain static shift, {xerr:.3e} "
+                  f"against the exact softmax{' (the planted fault: the clip dropped)' if hot else ''}, tol "
+                  f"{tol * ref:.3e}  {'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                fail(f"{name} {label}: wrong at the window's edge ({edge})")
+            window["clipped" if hot else "bottom"] = {"max_abs_err": err, "exact_err": xerr}
+            del q, k, v, out, launch, clipped, exact
+        records[name] = {**main, "max_abs_err": worst, "shapes": shapes, "window": window}
+    gen = main_gen
+    print(f"  the static-shift cases: {time.perf_counter() - t_static:.1f} s", flush=True)
 
     # the D=161-512 entries at phase 21's shapes (SD 1.x at 320-wide heads: 1
     # / 2 / 4 / 4 heads over 64^2 / 32^2 / 16^2 / 8^2 tokens, D = 320): every
@@ -1550,6 +1784,9 @@ def phase_unet(unet, sample, ehs, added, coef):
         fail(f"the whole-UNet bound {UNET_TOL:.0e} does not separate a planted fault ({fault_rel:.3e})")
     if not ok:
         fail("whole-UNet output through the kernels disagrees with the plain versions")
+    with torch.no_grad(), logit_window(f"the SDXL UNet (bf16, fused_outer, B={sample.shape[0]} 128x128)"):
+        unet(sample, t, ehs, aid, added)
+        torch.cuda.synchronize()
     return rel
 
 
@@ -1594,9 +1831,13 @@ def phase_main(unet, sample, ehs, uncond, added, coef, steps: int, card: str):
     if not math.isfinite(checksum):
         fail(f"non-finite output checksum: {checksum}")
     # the 77-key text cross calls on the short-stream kernel, the 1024-token
-    # self and fused_outer calls on the mid-length stream kernel
+    # self calls on the mid-length stream kernel; under "auto" the 4096-token
+    # self and fused_outer calls on the streaming kernel's static-shift
+    # instance and the 1024-token fused_outer calls on the mid-length one's
+    static = static_needed("bf16", [("streaming", 64, "self"), ("streaming", 64, "fused_outer"),
+                                    ("midstream", 64, "fused_outer")])
     check_path("denoise", launches, ("flash_interpolated_attention", "flash_interpolated_attention[onepass]",
-                                     "flash_interpolated_attention[midstream]", "conv3x3_same"))
+                                     "flash_interpolated_attention[midstream]", "conv3x3_same", *static))
     return launches, out
 
 
@@ -2038,7 +2279,9 @@ def check_unet_vs_plain(label: str, forward, aid, tol: float, faults=None) -> di
     over it. ``faults``: name -> (the AidContext of the faulty forward, a
     function of the plain attention giving its faulty stand-in, or None);
     by default fused_outer computed as self, and the begin and end
-    endpoints exchanged. Returns the forward's launch counts."""
+    endpoints exchanged. Then one more forward reads the logit window of
+    every attention call (logit_window). Returns the forward's launch
+    counts."""
     import torch
 
     from aid_tpu_torch.ops import flash_attention
@@ -2085,6 +2328,9 @@ def check_unet_vs_plain(label: str, forward, aid, tol: float, faults=None) -> di
             fail(f"{label}: the bound {tol:.1e} does not separate the planted fault {name} ({worst[name]:.3e})")
     if not ok:
         fail(f"{label}: the output through the kernels disagrees with the plain versions")
+    with torch.no_grad(), logit_window(label):  # one more forward, each call's row maxes read
+        forward(aid)
+        torch.cuda.synchronize()
     return counts
 
 
@@ -2252,7 +2498,8 @@ def phase_f32_sdxl(card: str):
     counts = check_unet_vs_plain(f"f32 SDXL unet fused_outer B={sample.shape[0]} 128x128",
                                  lambda aid: unet(sample, t, ehs, aid, added),
                                  AidContext(coef=coef, mode=AidMode.from_name("fused_outer")), F32_UNET_TOL)
-    check_f32_only("f32 SDXL forward", counts, ("flash_interpolated_attention_f32[D=64]", "conv3x3_same_f32"))
+    check_f32_only("f32 SDXL forward", counts, ("flash_interpolated_attention_f32[D=64]", "conv3x3_same_f32",
+                                                *static_needed("f32", [("streaming", 64, "fused_outer")])))
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     out, elapsed = run_denoise(unet, sample, ehs, uncond, added, coef, 2)
@@ -2524,7 +2771,9 @@ def phase_sd21(card: str) -> list:
             return m(sample.to(dtype), t, ehs.to(dtype), aid_ctx)
 
         counts = check_unet_vs_plain(f"unet SD2.1 fused_outer B=7 {s}x{s} (bf16)", forward, aid, SD21_UNET_TOL)
-        check_path("SD2.1 bf16 forward", counts, ("flash_interpolated_attention[D=64]", "conv3x3_same"))
+        check_path("SD2.1 bf16 forward", counts, ("flash_interpolated_attention[D=64]", "conv3x3_same",
+                                                  *static_needed("bf16", [("streaming", 64, "fused_outer"),
+                                                                          ("midstream", 64, "fused_outer")])))
 
         latent_a, latent_b = pipe.generate_latent(gen), pipe.generate_latent(gen)
 
@@ -4631,12 +4880,13 @@ def phase_one_head_a_level(card: str, device: str = "cuda", configs=None, steps:
     return paths
 
 
-def kernels_line(kernels: dict, launches: dict) -> str:
+def kernels_line(kernels: dict, launches: dict, by_path=None) -> str:
     """The kernels' JSON record: one entry per kernel, with KERNEL_KEYS
     first, then what phase 3 measured besides (the conv's kernel_ms, the
     library call's name, the self case of the attention kernels, ...).
     ``kernels`` is phase 3's {name: record}, ``launches`` the counts summed
-    over the paths."""
+    over the paths, ``by_path`` each path's counts in order (the static
+    entries list theirs)."""
     import torch
 
     from aid_tpu_torch.ops.flash_attention import (
@@ -4721,14 +4971,16 @@ def kernels_line(kernels: dict, launches: dict) -> str:
         "flash_interpolated_attention": (
             flash_src, flash_replaces[0], ("flash_interpolated_attention[D=64]",
                                            "-flash_interpolated_attention[onepass D=64]",
-                                           "-flash_interpolated_attention[midstream D=64]"),
+                                           "-flash_interpolated_attention[midstream D=64]",
+                                           "-flash_interpolated_attention[static D=64]",
+                                           "-flash_interpolated_attention[static midstream D=64]"),
             {**flash_replaces[1], "contract": "bf16, head dim 64, every mode (SDXL / SD2.x UNet); ms at "
                                               "fused_outer (7,10,4096,64), self_* at self (7,10,4096,64); "
                                               f"{attn_note}"}),
         "flash_interpolated_attention(D=40/80/160)": (
             flash_src, flash_replaces[0],
             tuple(f"{sign}flash_interpolated_attention[{o}D={d}]" for d in (40, 80, 160)
-                  for sign, o in (("", ""), ("-", "onepass "), ("-", "midstream "))),
+                  for sign, o in (("", ""), ("-", "onepass "), ("-", "midstream "), ("-", "static "))),
             {**flash_replaces[1], "contract": "bf16, head dims 40/80/160, every mode (SD1.x UNet); "
                                               "ms at fused_outer (7,8,4096,40), self_* at self (7,8,4096,40); "
                                               f"{attn_note}"}),
@@ -4765,14 +5017,16 @@ def kernels_line(kernels: dict, launches: dict) -> str:
         "conv3x3_gnsilu": (conv_src, "aid_tpu/ops/conv.py:78", ("conv3x3_gnsilu",),
                            {"contract": f"bf16, (7,960,128,128) -> 320 with the GN+SiLU prologue; {conv_note}"}),
         "flash_interpolated_attention_f32": (
-            flash_f32_src, flash_replaces[0], ("flash_interpolated_attention_f32[D=64]",),
+            flash_f32_src, flash_replaces[0], ("flash_interpolated_attention_f32[D=64]",
+                                               "-flash_interpolated_attention_f32[static D=64]"),
             {**flash_replaces[1], "design": f32_wgmma,
              "contract": "f32, head dim 64, every mode (an f32 SDXL / SD2.x UNet), 3xTF32; "
                          "ms at fused_outer (7,10,4096,64), self_* at self (7,10,4096,64); "
                          f"{attn_note}"}),
         "flash_interpolated_attention_f32(D=40/80/160)": (
             flash_f32_src, flash_replaces[0],
-            tuple(f"flash_interpolated_attention_f32[D={d}]" for d in (40, 80, 160)),
+            tuple(f"{sign}flash_interpolated_attention_f32[{o}D={d}]" for d in (40, 80, 160)
+                  for sign, o in (("", ""), ("-", "static "))),
             {**flash_replaces[1], "design": f"{f32_wgmma}; at D=160 two consumer warpgroups of 80 columns "
                                             "each on the same 64 rows (Q hi and lo in registers), exchanging "
                                             "partial scores through shared memory once a 16-key tile, V^T under "
@@ -4878,11 +5132,42 @@ def kernels_line(kernels: dict, launches: dict) -> str:
                          f"{midstream_note}"})
            for sfx, ty in (("", "bf16"), ("_f16", "f16"))},
     }
+    # the static-shift instances (static_smax, C = 40): the static branches of both TPU kernels
+    static_note = (f"static_smax = 40; {attn_note}; "
+                   "exact_ms / exact_kernel_ms: the same call on the exact route, in turns; window: its edges at the "
+                   "first case's shape (bottom: row maxes near -23 against the exact softmax; clipped: far past +70 "
+                   "against the plain static shift, the exact softmax's distance being the planted fault 'the clip "
+                   "dropped'); launches_by_path: the static launches of each path in order; every case under shapes")
+    static_design = ("the exact instance's body built with AID_STATIC_SHIFT = 1 in a translation unit of its own: P = "
+                     "2^min(s scale log2(e) - C log2(e), 30 log2(e)), no row max, no quad reduction, no rescale of O "
+                     "and l; the outer modes' park kept; each row's sum guarded at 1e-37")
+    static_replaces = ("aid_tpu/ops/flash_attention.py:210", {"also_replaces": "aid_tpu/ops/flash_attention.py:520"})
+    rows.update({
+        "flash_interpolated_attention(static)": (
+            "aid_tpu_torch/csrc/flash_interpolated_attention_static.cu", static_replaces[0],
+            ("flash_interpolated_attention[static]",),
+            {**static_replaces[1], "entry": "aid_flash_attn_bf16_static", "design": static_design,
+             "contract": f"bf16, head dims 40/64/80/160, every mode; ms at self (7,10,4096,64); {static_note}"}),
+        "flash_interpolated_attention(static midstream)": (
+            "aid_tpu_torch/csrc/flash_attention_midstream_static.cu", "aid_tpu/ops/flash_attention.py:520",
+            ("flash_interpolated_attention[static midstream]",),
+            {"entry": "aid_flash_attn_bf16_midstream_static", "design": f"{midstream_design}; {static_design}",
+             "contract": f"bf16, head dim 64, the four endpoint modes (self stays exact), the mid-length stream "
+                         f"kernel's calls; ms at fused_outer (7,20,1024,64); {static_note}"}),
+        "flash_interpolated_attention_f32(static)": (
+            "aid_tpu_torch/csrc/flash_interpolated_attention_f32_static.cu", static_replaces[0],
+            ("flash_interpolated_attention_f32[static]",),
+            {**static_replaces[1], "entry": "aid_flash_attn_f32_static", "design": f"{f32_wgmma}; {static_design}",
+             "contract": f"f32, head dims 40/64/80/160, every mode, 3xTF32; ms at self (7,10,4096,64); "
+                         f"{static_note}"}),
+    })
     record = []
     for name, (src, replaces, counters, extra) in rows.items():
         r = kernels[name]
         # a counter named "-..." is subtracted: the D <= 160 counts hold the short-stream kernel's launches too
         n = sum(-launches[c[1:]] if c.startswith("-") else launches[c] for c in counters)
+        if by_path is not None and "(static" in name:
+            extra = {**extra, "launches_by_path": [p[counters[0]] for p in by_path]}
         record.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                        "launches": n, "max_abs_err": r["max_abs_err"],
                        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -4956,7 +5241,7 @@ def main(argv=None) -> int:
     print(f"launches over the {len(paths)} paths: {launches}", flush=True)
     print(f"smoke wall time {time.perf_counter() - start:.1f} s (the limit is 1200 s)", flush=True)
 
-    print(kernels_line(kernels, launches), flush=True)
+    print(kernels_line(kernels, launches, paths), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}), flush=True)
     return 0

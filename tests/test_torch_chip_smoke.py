@@ -65,6 +65,9 @@ KERNEL_NAMES = ("flash_interpolated_attention", "flash_interpolated_attention(D=
                 "flash_interpolated_attention_f32(D=513-2048)", "flash_interpolated_attention(onepass)",
                 "flash_interpolated_attention_f16(onepass)", "flash_interpolated_attention(midstream)",
                 "flash_interpolated_attention_f16(midstream)")
+# the static-shift instances' entries, after the rest
+STATIC_KERNEL_NAMES = ("flash_interpolated_attention(static)", "flash_interpolated_attention(static midstream)",
+                       "flash_interpolated_attention_f32(static)")
 
 
 def test_kernels_line_carries_bound_and_library_time():
@@ -78,7 +81,7 @@ def test_kernels_line_carries_bound_and_library_time():
 
     smoke = _load_smoke()
     records = {}
-    for i, name in enumerate(KERNEL_NAMES):
+    for i, name in enumerate(KERNEL_NAMES + STATIC_KERNEL_NAMES):
         lib = None if name.startswith(("flash_interpolated", "conv3x3_gnsilu")) else 0.5 + i
         records[name] = {"max_abs_err": 1e-3 * i, "ms": 1.0 + i, "plain_ms": 2.0 + i, "bound_ms": 0.25 * (i + 1),
                          "bound_by": "operations", "library_ms": lib, "library": lib and "cudnn channels_last"}
@@ -100,9 +103,19 @@ def test_kernels_line_carries_bound_and_library_time():
         launches.update({f"flash_interpolated_attention{t}[midstream D={d}]": m * (d in (64, 80))
                          for d in (40, 64, 80, 160)})
         launches[f"flash_interpolated_attention{t}[midstream]"] = 2 * m
-    entries = json.loads(smoke.kernels_line(records, launches))["kernels"]
-    assert [e["name"] for e in entries] == list(KERNEL_NAMES)
-    for e, name in zip(entries, KERNEL_NAMES):
+    # the static-shift instances' launches, parts of the D <= 160 counts too: the streaming kernels' 1 a head
+    # dim in bf16 (none at 160), 2 in f32; the bf16 mid-length stream kernel's 1 at D = 64
+    for t, n in (("", 1), ("_f32", 2)):
+        launches.update({f"flash_interpolated_attention{t}[static D={d}]": n * (d != 160 or t == "_f32")
+                         for d in (40, 64, 80, 160)})
+        launches[f"flash_interpolated_attention{t}[static]"] = 3 * n if t == "" else 4 * n
+        launches.update({f"flash_interpolated_attention{t}[static midstream D={d}]": int(d == 64 and t == "")
+                         for d in (40, 64, 80, 160)})
+        launches[f"flash_interpolated_attention{t}[static midstream]"] = int(t == "")
+    paths = [{k: n if i else 0 for k, n in launches.items()} for i in range(2)]  # the first path launched none
+    entries = json.loads(smoke.kernels_line(records, launches, paths))["kernels"]
+    assert [e["name"] for e in entries] == list(KERNEL_NAMES + STATIC_KERNEL_NAMES)
+    for e, name in zip(entries, KERNEL_NAMES + STATIC_KERNEL_NAMES):
         assert tuple(e)[:len(smoke.KERNEL_KEYS)] == smoke.KERNEL_KEYS
         assert e["route"] == "cuda" and e["bound_by"] in ("bytes", "operations")
         assert e["bound_ms"] == records[name]["bound_ms"] and e["library_ms"] == records[name]["library_ms"]
@@ -119,15 +132,15 @@ def test_kernels_line_carries_bound_and_library_time():
         assert (REPO / e["source"]).is_file()
         path, line = e["replaces"].split(":")
         assert path.startswith("aid_tpu/") and (REPO / path).is_file() and int(line) > 0
-    # the bf16 streaming kernel at D = 64, the short and mid-length streams' launches not
-    assert entries[0]["launches"] == 3 - 1 - 1
-    assert entries[1]["launches"] == 9 - 3 - 1  # the bf16 kernel at D = 40, 80 and 160
+    # the bf16 streaming kernel at D = 64, the short and mid-length streams' and the static instances' launches not
+    assert entries[0]["launches"] == 3 - 1 - 1 - 1 - 1
+    assert entries[1]["launches"] == 9 - 3 - 1 - 2  # the bf16 kernel at D = 40, 80 and 160
     assert entries[3]["launches"] == 3 and entries[3]["source"].endswith("flash_attention_bf16_d512.cu")
     # the f32 instances: their own sources and launch counts
     by_name = {e["name"]: e for e in entries}
     assert by_name["flash_interpolated_attention_f32"]["source"].endswith("flash_interpolated_attention_f32.cu")
-    assert by_name["flash_interpolated_attention_f32"]["launches"] == 3
-    assert by_name["flash_interpolated_attention_f32(D=40/80/160)"]["launches"] == 9
+    assert by_name["flash_interpolated_attention_f32"]["launches"] == 3 - 2
+    assert by_name["flash_interpolated_attention_f32(D=40/80/160)"]["launches"] == 9 - 3 * 2
     assert by_name["conv3x3_same_f32"]["source"].endswith("conv3x3_f32.cu")
     assert by_name["conv3x3_same_f32"]["launches"] == 3 and by_name["conv3x3_same_f32"]["replaces"].endswith(":30")
     # the f32 GN+SiLU conv: TPU kernel #5, in the f32 conv's source, its own count
@@ -184,6 +197,19 @@ def test_kernels_line_carries_bound_and_library_time():
     assert all(e["source"] == "aid_tpu_torch/csrc/flash_attention_midstream.cu"
                and e["replaces"] == "aid_tpu/ops/flash_attention.py:339" and "3072 keys" in e["contract"]
                for e in midstream.values())
+    # the static-shift instances: their own sources and C entries, the static
+    # branches of both TPU kernels, their counts in all and on each path
+    static = [by_name[n] for n in STATIC_KERNEL_NAMES]
+    assert [e["launches"] for e in static] == [3, 1, 8]
+    assert [e["launches_by_path"] for e in static] == [[0, 3], [0, 1], [0, 8]]
+    assert [e["entry"] for e in static] == ["aid_flash_attn_bf16_static", "aid_flash_attn_bf16_midstream_static",
+                                            "aid_flash_attn_f32_static"]
+    assert [e["source"].rsplit("/", 1)[1] for e in static] == [
+        "flash_interpolated_attention_static.cu", "flash_attention_midstream_static.cu",
+        "flash_interpolated_attention_f32_static.cu"]
+    assert [e["replaces"] for e in static] == ["aid_tpu/ops/flash_attention.py:210",
+                                               "aid_tpu/ops/flash_attention.py:520",
+                                               "aid_tpu/ops/flash_attention.py:210"]
 
 
 def test_f32_phases_follow_the_bf16_paths():
@@ -917,3 +943,39 @@ def test_wide_heads_phase_rehearses_on_the_cpu(monkeypatch):
     assert len(paths) == 7 and all("flash_interpolated_attention[D=512]" in p for p in paths)
     assert skipped and all("launch" in m for m in skipped)
     assert set(os.listdir(REPO / "build")) <= before  # the directory written is removed
+
+
+def test_static_shift_helpers_rehearse_on_the_cpu():
+    """Phase 3's static-shift helpers and the logit-window check at a tiny
+    size on the CPU: the window inputs put the row maxes near -23 (cold) and
+    past +70 (hot); the planted per-tile-rescale fault equals the plain
+    static shift when it has one tile (or no shift to leave in) and is far
+    from it over several tiles; the logit window of a dispatch_attention
+    call is read and passes, and logits past +70 fail the smoke."""
+    import torch
+
+    from aid_tpu_torch.ops.attention import _row_maxes, dispatch_attention
+    from aid_tpu_torch.ops.flash_attention import flash_interpolated_attention_plain
+
+    smoke = _load_smoke()
+    assert smoke.STATIC_WINDOW == (-32.0, 70.0)
+    gen = torch.Generator().manual_seed(4)
+    for hot in (False, True):
+        q, k, v, scale = smoke.window_inputs(torch.float32, hot, 2, 2, 300, 64, gen)
+        m = _row_maxes(q, k, scale)
+        # hot: most rows past +70 over 300 keys (the smoke's thousands reach further)
+        assert (m.median() > 70 and m.max() > 100) if hot else ((m > -32) & (m < -15)).all()
+    coef = torch.tensor([0.2, 0.7])
+    q, k, v = (torch.randn(2, 2, 48, 64, generator=gen) for _ in range(3))
+    for mode in ("self", "pure_inner"):
+        want = flash_interpolated_attention_plain(q, k, v, coef, mode, static_smax=40.0)
+        assert torch.allclose(smoke.shift_in_rescale_fault(q, k, v, coef, mode, 40.0, 64), want, atol=1e-5)
+        zero = flash_interpolated_attention_plain(q, k, v, coef, mode, static_smax=0.0)
+        assert torch.allclose(smoke.shift_in_rescale_fault(q, k, v, coef, mode, 0.0, 16), zero, atol=1e-5)
+        far = (smoke.shift_in_rescale_fault(q, k, v, coef, mode, 40.0, 16) - want).abs().max()
+        assert far > 0.1 * want.abs().max()
+    with smoke.logit_window("a tiny call"):
+        dispatch_attention(q, k, v, coef, "fused_outer")
+    with pytest.raises(SystemExit):
+        with smoke.logit_window("a hot call"):
+            dispatch_attention(q * 100, k, v, coef, "self")

@@ -1599,3 +1599,171 @@ def test_flash_midstream_kernel_on_two_streams(dev, dtype):
         for out, _, alone, want in calls:
             assert torch.equal(out, alone)
             assert _attn_err(out, want) < ATTN_RTOLS[dtype]
+
+
+# ---------------------------------------------------------------------------
+# the static-shift instances (static_smax, C = 40): flash_interpolated_attention_static.cu
+# (bf16), flash_interpolated_attention_f32_static.cu (f32), flash_attention_midstream_static.cu
+# (bf16, D = 64, the endpoint modes), held to the plain version's static shift
+# ---------------------------------------------------------------------------
+
+STATIC_DTYPES = dict(argvalues=[torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+# (B, H, S, L, Le, endpoints): ragged q and kv tails with rows 0 / B-1 as
+# endpoints, 77 keys with shared 77-token endpoints, per-row endpoints of their own length
+STATIC_CASES = [(3, 2, 100, 100, None, None), (4, 3, 130, 77, 77, 3), (2, 2, 64, 64, 23, 4)]
+
+
+def _static_inputs(dtype, D, case, seed):
+    B, H, S, L, Le, ep = case
+    q, k, v = (_randn((B, H, n, D), seed + i, dtype) for i, n in enumerate((S, L, L)))
+    coef = torch.linspace(0, 1, B, device="cuda")
+    skip = torch.zeros(B, dtype=torch.bool, device="cuda")
+    skip[0] = skip[-1] = True
+    eps = {}
+    if ep is not None:
+        shape = (H, Le, D) if ep == 3 else (B, H, Le, D)
+        eps = {n: _randn(shape, seed + 10 + i, dtype) for i, n in enumerate(("k_begin", "v_begin", "k_end", "v_end"))}
+    return q, k, v, coef, dict(skip_endpoints=skip, **eps)
+
+
+@pytest.mark.parametrize("dtype", **STATIC_DTYPES)
+@pytest.mark.parametrize("D", [40, 64, 80, 160])
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("case", STATIC_CASES)
+def test_flash_static_kernel_matches_plain(dev, dtype, D, mode, case):
+    """The streaming kernels' static-shift instances in every mode and head
+    dim: within the dtype's bound of the plain version's static shift, and of
+    the exact kernel on the same call (logits well inside the window)."""
+    from aid_tpu_torch.ops.flash_attention import STATIC_ENTRIES, kernel_launch
+
+    q, k, v, coef, kw = _static_inputs(dtype, D, case, 1100 + D)
+    got, launch = kernel_launch(q, k, v, coef, mode, static_smax=40.0, midstream=False, **kw)
+    assert launch.operands["entry"] == STATIC_ENTRIES[dtype] and not launch.operands["onepass"]
+    launch()
+    torch.cuda.synchronize()
+    want = flash_interpolated_attention_plain(q, k, v, coef, mode, static_smax=40.0, **kw)
+    assert got.shape == want.shape and got.dtype == dtype and torch.isfinite(got).all()
+    assert _attn_err(got, want) < ATTN_RTOLS[dtype]
+    exact, launch = kernel_launch(q, k, v, coef, mode, onepass=False, midstream=False, **kw)
+    launch()
+    torch.cuda.synchronize()
+    assert _attn_err(got, exact) < 2 * ATTN_RTOLS[dtype]
+
+
+@pytest.mark.parametrize("mode", [m for m in MODES if m != "self"])
+@pytest.mark.parametrize("case", MIDSTREAM_CASES)
+def test_flash_static_midstream_kernel_matches_plain(dev, mode, case):
+    """The mid-length stream kernel's static-shift instance (bf16, D = 64, the
+    endpoint modes) on the schedule's cases: within ATTN_RTOL of the plain
+    version's static shift and of the exact instance."""
+    from aid_tpu_torch.ops.flash_attention import kernel_launch
+
+    q, k, v, coef, kw = _midstream_inputs(torch.bfloat16, 64, case, 1200)
+    got, launch = kernel_launch(q, k, v, coef, mode, static_smax=40.0, midstream=True, **kw)
+    assert launch.operands["entry"] == "aid_flash_attn_bf16_midstream_static"
+    launch()
+    torch.cuda.synchronize()
+    want = flash_interpolated_attention_plain(q, k, v, coef, mode, static_smax=40.0, **kw)
+    assert torch.isfinite(got).all() and _attn_err(got, want) < ATTN_RTOL
+    exact, launch = kernel_launch(q, k, v, coef, mode, midstream=True, **kw)
+    launch()
+    torch.cuda.synchronize()
+    assert _attn_err(got, exact) < 2 * ATTN_RTOL
+
+
+def _window_inputs(dtype, hot, B=2, H=2, S=300, D=64):
+    """aid_tpu's window-edge inputs (tests/test_flash_attention.py:250-281):
+    cold, every logit biased to -25 through a dedicated column (row maxes near
+    -23 at scale 1); hot, q x 40 and k leaning on q (row maxes in the
+    thousands at D**-0.5)."""
+    q, k, v = (_randn((B, H, S, D), 1300 + i, torch.float32) for i in range(3))
+    if hot:
+        qh = q * 40.0
+        return qh.to(dtype), (k + qh * 0.1).to(dtype), v.to(dtype), None
+    qc = torch.cat([q[..., :-1] * 0.1, torch.ones_like(q[..., :1])], -1)
+    kc = torch.cat([k[..., :-1], torch.full_like(k[..., :1], -25.0)], -1)
+    return qc.to(dtype), kc.to(dtype), v.to(dtype), 1.0
+
+
+@pytest.mark.parametrize("dtype", **STATIC_DTYPES)
+@pytest.mark.parametrize("mode", ["self", "fused_outer", "pure_inner"])
+@pytest.mark.parametrize("midstream", [False, True], ids=["streaming", "midstream"])
+def test_flash_static_kernels_at_the_window_edges(dev, dtype, mode, midstream):
+    """Near the window's bottom (row max ~ -23) the static instances give the
+    exact softmax; far above its top they give the plain version's CLIPPED
+    result, finite, far from the exact one."""
+    from aid_tpu_torch.ops.flash_attention import kernel_launch
+
+    if midstream and (dtype == torch.float32 or mode == "self"):
+        pytest.skip("the mid-length stream kernel's static instance is bf16 in the endpoint modes")
+    coef = torch.tensor([0.25, 0.75], device=dev)
+    for hot in (False, True):
+        q, k, v, scale = _window_inputs(dtype, hot)
+        got, launch = kernel_launch(q, k, v, coef, mode, scale=scale, static_smax=40.0, midstream=midstream)
+        launch()
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all()
+        clipped = flash_interpolated_attention_plain(q, k, v, coef, mode, scale=scale, static_smax=40.0)
+        exact = flash_interpolated_attention_plain(q, k, v, coef, mode, scale=scale)
+        assert _attn_err(got, clipped) < ATTN_RTOLS[dtype]
+        if hot:
+            assert _attn_err(got, exact) > 10 * ATTN_RTOLS[dtype]
+        else:
+            assert _attn_err(got, exact) < ATTN_RTOLS[dtype]
+
+
+@pytest.mark.parametrize("dtype,D,mode,H,S,route", [
+    (torch.bfloat16, 64, "self", 10, 4096, "streaming"), (torch.bfloat16, 64, "fused_outer", 4, 4096, "streaming"),
+    (torch.bfloat16, 64, "fused_outer", 20, 1024, "midstream"), (torch.bfloat16, 64, "pure_inner", 20, 1024,
+                                                                 "midstream"),
+    (torch.bfloat16, 40, "self", 8, 4096, "streaming"), (torch.bfloat16, 80, "fused_outer", 8, 1024, "streaming"),
+    (torch.float32, 64, "fused_outer", 4, 4096, "streaming"), (torch.float32, 40, "self", 8, 4096, "streaming")])
+def test_flash_static_auto_launches_the_static_instances(dev, dtype, D, mode, H, S, route):
+    """"auto" through the wrapper at the model paths' call classes the JAX
+    wrapper shifts: one launch of the static instance the class takes
+    (unless PERF.md measured it slower: STATIC_SHIFT_SLOWER keeps it exact),
+    counted in launches_static / launches_static_midstream, the plain
+    version's result."""
+    from aid_tpu_torch.ops.flash_attention import STATIC_SHIFT_SLOWER
+
+    names = {torch.bfloat16: "bf16", torch.float32: "f32"}
+    q, k, v, coef, kw = _midstream_inputs(dtype, D, (3, H, S, S, None, None), 1400 + S)
+    fn = ATTN_WRAPPER[dtype]
+    counter = fn.launches_static_midstream if route == "midstream" else fn.launches_static
+    before, before_d = counter[D], fn.launches_by_head_dim[D]
+    got = flash_interpolated_attention(q, k, v, coef, mode, static_smax="auto", **kw)
+    torch.cuda.synchronize()
+    slower = (route, names[dtype], D, mode) in STATIC_SHIFT_SLOWER
+    assert counter[D] == before + (0 if slower else 1) and fn.launches_by_head_dim[D] == before_d + 1
+    assert _attn_err(got, flash_interpolated_attention_plain(q, k, v, coef, mode, **kw)) < ATTN_RTOLS[dtype]
+
+
+@pytest.mark.parametrize("mode,S,L", [("self", 1024, 1024), ("fused_outer", 4096, 77), ("self", 256, 256)])
+def test_flash_static_auto_keeps_exact_classes_exact(dev, mode, S, L):
+    """"auto" keeps the classes the JAX model path keeps exact on their exact
+    kernels: a one-pass self call (1024 tokens), the short-stream kernel's
+    77-key call, own KV under FLASH_MIN_KV through dispatch_attention; and
+    f16 everywhere. No static launch."""
+    for dtype in (torch.bfloat16, torch.float16):
+        q, k, v = _randn((2, 4, S, 64), 1500, dtype), _randn((2, 4, L, 64), 1501, dtype), _randn((2, 4, L, 64), 1502,
+                                                                                                   dtype)
+        coef = torch.linspace(0, 1, 2, device=dev)
+        fn = ATTN_WRAPPER[dtype]
+        before = (dict(fn.launches_static), dict(fn.launches_static_midstream))
+        dispatch_attention(q, k, v, coef, mode)
+        flash_interpolated_attention(q, k, v, coef, mode, static_smax="auto")
+        torch.cuda.synchronize()
+        assert (fn.launches_static, fn.launches_static_midstream) == before
+
+
+def test_flash_static_shift_refuses_what_has_no_instance(dev):
+    """A float shift with no static instance raises (no fallback): in f16
+    (ValueError), past head dim 160 and on the D=512 self kernels
+    (NotImplementedError)."""
+    q = _randn((2, 2, 64, 64), 1600, torch.float16)
+    with pytest.raises(ValueError, match="f16"):
+        flash_interpolated_attention_f16(q, q, q, None, "self", static_smax=40.0)
+    for D, mode in ((192, "fused_outer"), (512, "self"), (640, "self")):
+        x = _randn((2, 1, 64, D), 1601, torch.bfloat16)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            flash_interpolated_attention(x, x, x, torch.zeros(2, device=dev), mode, static_smax=40.0)

@@ -535,7 +535,10 @@ def _emulate_flash_kernel(ops: dict) -> torch.Tensor:
     the MN-major descriptor (LBO = one box of the tile, 2048 bytes per 16
     keys). Softmax, P in the operands' dtype (bf16, or f16 for the f16
     instance), the outer modes' parked state and the swizzled output tile
-    clipped by the TMA store follow the kernel. f32 arithmetic."""
+    clipped by the TMA store follow the kernel. f32 arithmetic. With
+    ``static`` in the operands (the static-shift entry: the shift and the
+    clip in log2 units), P is 2^min(s scale log2(e) - shift, clip) with no
+    running max or rescale, each row's sum guarded at 1e-37."""
     from aid_tpu_torch.ops.flash_attention import KERNEL_TILES
 
     tensors, dims = ops["tensors"], ops["dims"]
@@ -573,6 +576,11 @@ def _emulate_flash_kernel(ops: dict) -> torch.Tensor:
 
     coef, skip = ops["coef"], ops["skip"]
     has_own, n_sets = ops["has_own"], ops["n_sets"]
+    static = ops.get("static")
+
+    def norm(o, lsum):  # O / l, the static instance's sum guarded
+        return o / (lsum if static is None else lsum.clamp_min(1e-37))[..., None]
+
     out_flat = torch.zeros_like(flat[7])
     for b in range(B):
         skipped = n_sets > 0 and skip is not None and bool(skip[b])
@@ -587,25 +595,30 @@ def _emulate_flash_kernel(ops: dict) -> torch.Tensor:
                     for n, (ki, vi, length) in enumerate(segs):
                         if n_sets == 2 and not skipped and n == len(segs) - 1:  # the end segment
                             if has_own:
-                                park, (o, m, lsum) = o / lsum[:, None] * (1 - coef[b]), park
+                                park, (o, m, lsum) = norm(o, lsum) * (1 - coef[b]), park
                             else:
-                                park = o / lsum[:, None] * (1 - coef[b])
+                                park = norm(o, lsum) * (1 - coef[b])
                                 o, m, lsum = torch.zeros(64, D), torch.full((64,), -math.inf), torch.zeros(64)
                         for r0 in range(0, length, BK):
                             kt, vt = tiles(ki, h, r0, b, BK), tiles(vi, h, r0, b, BK)
                             s = sum(kmajor(qt, (kk // 4) * 8192 + (kk % 4) * 32, 64)
                                     @ kmajor(kt, (kk // 4) * BK * 128 + (kk % 4) * 32, BK).T for kk in range(ksteps))
                             s[:, min(BK, length - r0):] = -math.inf
-                            mn = torch.maximum(m, s.max(dim=1).values)
-                            alpha = torch.exp2((m - mn) * sl2)
-                            p = torch.exp2(s * sl2 - (mn * sl2)[:, None])
-                            m, lsum = mn, lsum * alpha + p.sum(dim=1)
+                            if static is None:
+                                mn = torch.maximum(m, s.max(dim=1).values)
+                                alpha = torch.exp2((m - mn) * sl2)
+                                p = torch.exp2(s * sl2 - (mn * sl2)[:, None])
+                                m, lsum = mn, lsum * alpha + p.sum(dim=1)
+                            else:
+                                alpha = torch.ones(64)
+                                p = torch.exp2(torch.clamp_max(s * sl2 - static[0], static[1]))
+                                lsum = lsum + p.sum(dim=1)
                             pb = p.to(dt).float()
                             o = o * alpha[:, None] + sum(pb[:, 16 * kk:16 * kk + 16] @ mnmajor(vt, kk * 2048, BK * 128)
                                                          for kk in range(BK // 16))
                         if n_sets == 2 and not skipped and has_own and n == 0:
                             park = (o, m, lsum)
-                    o = o / lsum[:, None] * (coef[b] if n_sets == 2 and not skipped else 1.0)
+                    o = norm(o, lsum) * (coef[b] if n_sets == 2 and not skipped else 1.0)
                     if park is not None and n_sets == 2 and not skipped:
                         o = o + park
                     # the output tile, swizzled, then the TMA store clipped to (D, Sq)
@@ -1216,7 +1229,9 @@ def _emulate_flash_f32_kernel(ops: dict) -> torch.Tensor:
     or 512 bytes apart). Every operand is truncated to tf32 where the tensor
     cores read it, products summed in f64; the online softmax, the per-tile
     fold, the parked outer state and the strided output store at the
-    warpgroup's columns follow the kernel."""
+    warpgroup's columns follow the kernel; with ``static`` (the static-shift
+    entry) P is 2^min(s scale log2(e) - shift, clip) with no running max, and
+    each tile's P V is added to O unscaled."""
     from aid_tpu_torch.ops.flash_attention import KERNEL_F32_D_SPLIT, KERNEL_F32_TILES
 
     tensors, dims = ops["tensors"], ops["dims"]
@@ -1268,6 +1283,11 @@ def _emulate_flash_f32_kernel(ops: dict) -> torch.Tensor:
     arow, acol = _wgmma_acc_index(BK)  # the exchange's accumulator order: (thread, register) -> (row, key)
     coef, skip = ops["coef"], ops["skip"]
     has_own, n_sets = ops["has_own"], ops["n_sets"]
+    static = ops.get("static")
+
+    def norm(o, lsum):  # O / l, the static instance's sum guarded
+        return o / (lsum if static is None else lsum.clamp_min(1e-37))[..., None]
+
     out_flat = torch.zeros(flat[7].shape, dtype=torch.float64)
     for b in range(B):
         skipped = n_sets > 0 and skip is not None and bool(skip[b])
@@ -1295,9 +1315,9 @@ def _emulate_flash_f32_kernel(ops: dict) -> torch.Tensor:
                     for n, (ki, vi, length) in enumerate(segs):
                         if blend and n == len(segs) - 1:  # the end segment: (1 - c) O_begin / l exchanged
                             if has_own:
-                                park, (o, m, lsum) = o / lsum[..., None] * (1 - c), park
+                                park, (o, m, lsum) = norm(o, lsum) * (1 - c), park
                             else:
-                                park = o / lsum[..., None] * (1 - c)
+                                park = norm(o, lsum) * (1 - c)
                                 o = torch.zeros_like(o)
                                 m, lsum = torch.full_like(m, -math.inf), torch.zeros_like(lsum)
                         for r0 in range(0, length, BK):
@@ -1325,10 +1345,15 @@ def _emulate_flash_f32_kernel(ops: dict) -> torch.Tensor:
                                 assert torch.equal(scores[0], scores[1])
                                 s = scores[0]
                             s[..., min(BK, length - r0):] = -math.inf
-                            mn = torch.maximum(m, s.max(dim=-1).values)
-                            alpha = torch.exp2((m - mn) * sl2)
-                            p = torch.exp2(s * sl2 - (mn * sl2)[..., None]).float()  # f32 in the kernel
-                            m, lsum = mn, lsum * alpha + p.double().sum(dim=-1)
+                            if static is None:
+                                mn = torch.maximum(m, s.max(dim=-1).values)
+                                alpha = torch.exp2((m - mn) * sl2)
+                                p = torch.exp2(s * sl2 - (mn * sl2)[..., None]).float()  # f32 in the kernel
+                                m, lsum = mn, lsum * alpha + p.double().sum(dim=-1)
+                            else:
+                                alpha = torch.ones_like(lsum)
+                                p = torch.exp2(torch.clamp_max(s * sl2 - static[0], static[1])).float()
+                                lsum = lsum + p.double().sum(dim=-1)
                             # P's A registers from its S registers: a = (c0, c2, c1, c3) of n8 tile j
                             pc = _c_regs(p.reshape(4, 16, BK // 8, 8).transpose(1, 2))  # (4, BK/8, 32, 4)
                             pa = pc[..., [0, 2, 1, 3]]
@@ -1343,7 +1368,7 @@ def _emulate_flash_f32_kernel(ops: dict) -> torch.Tensor:
                                 o[w] = o[w] * alpha[..., None] + pv
                         if blend and has_own and n == 0:
                             park = (o.clone(), m, lsum)  # o itself is updated in place per warpgroup
-                    o = o / lsum[..., None] * (c if blend else 1.0)
+                    o = norm(o, lsum) * (c if blend else 1.0)
                     if blend:
                         o = o + park
                     sb, sh, ss = strides[7]
@@ -1397,6 +1422,53 @@ def test_flash_f32_kernel_data_movement_replayed(D, mode, endpoints):
     want = flash_interpolated_attention_plain(q, k, v, coef, mode, skip_endpoints=skip, **eps)
     assert got.shape == want.shape
     assert th.max_rel_err(got.numpy(), want.numpy()) < 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("D", HEAD_DIMS)
+@pytest.mark.parametrize("mode,endpoints", [("self", None), ("fused_outer", 3), ("pure_outer", 4),
+                                            ("fused_inner", None), ("pure_inner", 3)])
+@pytest.mark.parametrize("hot", [False, True], ids=["in_window", "clipped"])
+def test_flash_static_branch_replayed(dtype, D, mode, endpoints, hot):
+    """The static-shift instances (csrc/flash_interpolated_attention_static.cu,
+    csrc/flash_interpolated_attention_f32_static.cu: the same data movement,
+    P at the static shift with no running max or rescale) replayed from the
+    wrapper's own C arguments, the shift and the clip among them, against
+    the plain version's static shift (C = 40): in the window, and at a scale
+    that puts the row maxes far past +70, where the clip decides the result
+    and the exact softmax is far off. 77-key segments ragged against every
+    tile, skip rows at both ends, the outer modes' parked state."""
+    from aid_tpu_torch.ops.flash_attention import STATIC_ENTRIES, kernel_operands
+
+    g = torch.Generator().manual_seed(300 + D)
+    B, H, S, L, Le = 3, 2, 70, 77, 40
+
+    def heads(n):
+        return torch.randn(B, n, H * D, generator=g).to(dtype).view(B, n, H, D).transpose(1, 2)
+
+    q, k, v = heads(S), heads(L), heads(L)
+    coef = torch.tensor([0.0, 0.4, 1.0])
+    skip = torch.tensor([True, False, True])
+    eps = {}
+    if endpoints is not None:
+        shape = (H, Le, D) if endpoints == 3 else (B, H, Le, D)
+        eps = {n: torch.randn(shape, generator=g).to(dtype) for n in ("k_begin", "v_begin", "k_end", "v_end")}
+    scale = 100.0 / D ** 0.5 if hot else None  # logits ~ N(0, 100^2): row maxes in the hundreds
+    ops = kernel_operands(q, k, v, coef, mode, scale=scale, skip_endpoints=skip, static_smax=40.0, **eps)
+    assert ops["entry"] == STATIC_ENTRIES[dtype]
+    got = (_emulate_flash_kernel if dtype == torch.bfloat16 else _emulate_flash_f32_kernel)(ops).float()
+    # the plain version on the same operands: the inner modes' K_cross rounded to the dtype as the wrapper
+    # rounds it, which moves logits in the hundreds by tenths of a nat
+    args = (q, k, v, coef, mode)
+    kw = dict(scale=scale, skip_endpoints=skip, **eps)
+    want = flash_interpolated_attention_plain(*args, static_smax=40.0, **kw).float()
+    # f32: the replay's 1e-5 in the window; clipped, logits in the hundreds carry 3xTF32's ~2^-20 relative
+    # error as ~3e-4 nats, which moves the weights of keys at the clip's edge (1.5e-5 of the output measured
+    # at D = 40): the f32 attention's 1e-4 then
+    tol = 1e-2 if dtype == torch.bfloat16 else 1e-4 if hot else 1e-5
+    assert th.max_rel_err(got.numpy(), want.numpy()) < tol
+    exact_err = th.max_rel_err(got.numpy(), flash_interpolated_attention_plain(*args, **kw).float().numpy())
+    assert exact_err > 0.1 if hot else exact_err < tol
 
 
 @pytest.mark.parametrize("mode", MODES)

@@ -39,9 +39,24 @@ def _all(pattern: str, text: str) -> list:
     return sorted(set(re.findall(pattern, text)), key=str)
 
 
+def _source_text(name: str) -> str:
+    """A source's text; a static-shift source (``#define AID_STATIC_SHIFT 1``
+    then ``#include`` of the exact source) gives the source it includes."""
+    text = (CSRC / name).read_text()
+    m = re.search(r'#define AID_STATIC_SHIFT 1\s+#include "(\w+\.cu)"', text)
+    return (CSRC / m.group(1)).read_text() if m else text
+
+
 def _instances(name: str, text: str) -> list:
     """[(kernel, template arguments)] that the source's host code launches,
-    their values read from its dispatch lines."""
+    their values read from its dispatch lines; a static-shift source's are
+    its included source's where AID_STATIC_SHIFT keeps them (bf16 only; the
+    mid-length stream kernel at D = 64 in the endpoint modes)."""
+    if name.endswith("_static.cu"):
+        exact = _instances(name.replace("_static.cu", ".cu"), text)
+        if name == "flash_attention_midstream_static.cu":
+            return [(k, a) for k, a in exact if a[0] == "__nv_bfloat16" and a[1] == "64" and a[-1] != "0"]
+        return [(k, a) for k, a in exact if k == "flash_f32_kernel" or a[0] == "__nv_bfloat16"]
     types = _all(r"(?:entry|conv|entry_interp)<(__nv_bfloat16|__half|float)>", text)
     dims = _all(r"case (\d+): return launch_d<", text)
     modes = _all(r"launch(?:_interp)?<[^<>]*?(true|false), (\d)>", text)
@@ -131,7 +146,7 @@ def test_every_kernel_of_a_source_has_its_class(source):
     its dispatch lines (template arguments as many as its parameters), and
     each instance's demangled name lands in its class, never in the
     elementwise catch-all."""
-    text = (CSRC / source).read_text()
+    text = _source_text(source)
     defined = _kernels(text)
     instances = _instances(source, text)
     assert defined and {k for k, _ in instances} == set(defined), (source, defined)
@@ -150,12 +165,15 @@ def test_modes_and_instances_cover_the_kernels():
     a warpgroup over its own rows, 3 and 4 chunks a warpgroup with D split;
     f32: four tilings), four wide instances a type with their combine
     steps, the short-stream kernel's instances whose stream fits beside one
-    warpgroup's Q/O ring, the mid-length stream kernel's by mode kind."""
+    warpgroup's Q/O ring, the mid-length stream kernel's by mode kind; and
+    the static-shift instances (bf16 and f32 at D <= 160 in every mode, the
+    bf16 mid-length stream kernel at D = 64 in the endpoint modes)."""
     counts = {}
     for source in SOURCES:
-        for kernel, _ in _instances(source, (CSRC / source).read_text()):
+        for kernel, _ in _instances(source, _source_text(source)):
             counts[kernel] = counts.get(kernel, 0) + 1
-    assert counts["flash_kernel"] == 2 * 4 * 5 and counts["flash_f32_kernel"] == 4 * 5
+    # the static-shift instances: bf16 and f32 at four head dims in five modes
+    assert counts["flash_kernel"] == 2 * 4 * 5 + 4 * 5 and counts["flash_f32_kernel"] == 2 * 4 * 5
     assert counts["flash16_dmid_rows_kernel"] == 2 * 3 * 5 and counts["flash16_dmid_split_kernel"] == 2 * 2 * 5
     assert counts["flash_f32_dmid_kernel"] == 4 * 5 and counts["flash16_d512_kernel"] == 2
     assert counts["flash_dwide_kernel"] == 3 * 4 and counts["flash_dwide_combine_kernel"] == 3
@@ -164,7 +182,7 @@ def test_modes_and_instances_cover_the_kernels():
     assert counts["onepass_kernel"] == 2 * (4 * 5 - 1)
     # the mid-length stream kernel: three NSETS in two types, three warpgroups (with and without idle
     # warpgroups) at D = 64, two at 80
-    assert counts["midstream_kernel"] == 2 * 3 * (2 + 1)
+    assert counts["midstream_kernel"] == 2 * 3 * (2 + 1) + 2 * 2  # + static: bf16 D = 64, NSETS 1 and 2, idle or not
 
 
 def test_library_kernels_keep_their_classes():

@@ -1,7 +1,8 @@
 """Time the flash attention kernel launched alone at the main paths' shapes.
 
     python3 tools/attention_bench.py [--reps 20] [--dtype bf16|f16|f32]
-                                     [--d512 | --dmid | --dwide | --onepass | --midstream] [--only TEXT] [--root DIR]
+                                     [--d512 | --dmid | --dwide | --onepass | --midstream | --static [--headline N]]
+                                     [--only TEXT] [--root DIR]
 
 For each shape class of ``chip_smoke.py`` phase 3 (bf16: SDXL at D=64, SD1.5
 at D=40/80/160 and SD1.5's IP-Adapter calls over 16 and 4 image tokens,
@@ -62,6 +63,19 @@ contract), on
 the mid-length stream kernel (csrc/flash_attention_midstream.cu) and the
 streaming kernel in turns, beside cuDNN in self mode; each line says whether
 the route sends the call to the new kernel.
+``--static`` times the static-shift instances (``static_smax`` = 40: the
+streaming kernels' in bf16 and f32, the bf16 mid-length stream kernel's) at
+the call classes the model path's "auto" shifts (``STATIC_SHIFTS``: SDXL's
+4096- and 1024-token calls, SD 1.5's 4096 at D = 40 and 1024 at D = 80, SD
+2.1's 9216, 2304 and 576, the f32 UNets' 4096 and 1024) and at a 77-key call the short-stream kernel
+takes exactly, each in PAIRS turns with the exact route on the same inputs
+(launched alone, and through the wrapper with static_smax 40 against None;
+medians and least times, and the kernels' device time from a profiler trace),
+held to the plain version's static shift and exact softmax. ``--headline N``
+adds the SDXL headline (``chip_smoke.build_headline``: 7 frames at 128^2, N
+Euler steps, half fused_outer) in turns under "auto" and exact everywhere
+(``FLASH_MIN_KV`` raised past every call, which makes "auto" exact), s/step
+of each.
 It checks each result against
 the plain version (``chip_smoke.ATTN_TOL`` / ``F16_ATTN_TOL`` / ``F32_ATTN_TOL``). ``--root``
 imports the package and ``chip_smoke.py`` of another checkout (say, the
@@ -548,6 +562,136 @@ def bench_onepass(reps: int, name: str, only: str, kind: str = "onepass") -> dic
     return result
 
 
+# (label, dtype, mode, coefficients, H, Sq, L, D): the call classes "auto"
+# shifts on the paths, and one it keeps exact (a 77-key call the short-stream
+# kernel takes; its static instance would be the streaming kernel's)
+STATIC_SHIFTS = [
+    *[(f"SDXL {m} 4096 D=64", "bf16", m, "sdxl", 10, 4096, 4096, 64) for m in ("self", "fused_outer")],
+    *[(f"SDXL {m} 1024 D=64", "bf16", m, "sdxl", 20, 1024, 1024, 64)
+      for m in ("fused_outer", "pure_outer", "fused_inner", "pure_inner")],
+    *[(f"SD1.5 {m} 4096 D=40", "bf16", m, "sd", 8, 4096, 4096, 40) for m in ("self", "fused_outer")],
+    ("SD1.5 fused_outer 1024 D=80", "bf16", "fused_outer", "sd", 8, 1024, 1024, 80),
+    ("SD2.1 self 9216 D=64", "bf16", "self", "sd", 5, 9216, 9216, 64),
+    ("SD2.1 fused_outer 2304 D=64", "bf16", "fused_outer", "sd", 10, 2304, 2304, 64),
+    ("SD2.1 fused_outer 576 D=64", "bf16", "fused_outer", "sd", 20, 576, 576, 64),
+    *[(f"f32 SDXL {m} 4096 D=64", "f32", m, "sdxl", 10, 4096, 4096, 64) for m in ("self", "fused_outer")],
+    ("f32 SDXL fused_outer 1024 D=64", "f32", "fused_outer", "sdxl", 20, 1024, 1024, 64),
+    *[(f"f32 SD1.5 {m} 4096 D=40", "f32", m, "sd", 8, 4096, 4096, 40) for m in ("self", "fused_outer")],
+    ("f32 SD1.5 fused_outer 1024 D=80", "f32", "fused_outer", "sd", 8, 1024, 1024, 80),
+    ("SDXL cross fused_outer 4096x77 D=64", "bf16", "fused_outer", "sdxl", 10, 4096, 77, 64),
+]
+
+
+def bench_static(reps: int, only: str) -> dict:
+    """STATIC_SHIFTS: {label: {static / exact: median ms launched alone}}.
+    Each call on its static-shift instance (kernel_launch with static_smax =
+    STATIC_SHIFT_C, the instance the route gives it) and on its exact route,
+    in PAIRS turns (the first of each pair alternating): launched alone and
+    through the wrapper (static_smax 40 against None), medians and least
+    times, the kernels' device time from a profiler trace, the bound; each
+    held to the plain version (its static shift; the exact softmax). 7
+    frames, (B, S, H*D) projections viewed as (B, H, S, D), the coef-0/1 end
+    rows as skip rows."""
+    import torch
+
+    from aid_tpu_torch.models.layers import skip_mask
+    from aid_tpu_torch.ops import flash_attention as fa
+    from aid_tpu_torch.ops.flash_attention import (
+        STATIC_SHIFT_C,
+        flash_interpolated_attention,
+        flash_interpolated_attention_plain,
+        kernel_launch,
+    )
+    import chip_smoke
+    from chip_smoke import attention_bound, cuda_ms
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(19)
+    B = 7
+    coefs = {"sdxl": torch.tensor([0.0, 0.2, 0.35, 0.5, 0.65, 0.8, 1.0], device=dev),
+             "sd": chip_smoke.sd15_coef().to(dev)}
+    result = {}
+    for label, name, mode, ck, H, Sq, L, D in STATIC_SHIFTS:
+        if only not in label:
+            continue
+        dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[name]
+        tol = chip_smoke.ATTN_TOL if name == "bf16" else chip_smoke.F32_ATTN_TOL
+        coef = coefs[ck]
+
+        def heads(n):
+            x = torch.randn((B, n, H * D), generator=gen, device=dev).to(dtype)
+            return x.view(B, n, H, D).transpose(1, 2)
+
+        q, k, v = heads(Sq), heads(L), heads(L)
+        kw = {} if mode == "self" else {"skip_endpoints": skip_mask(coef, B)}
+        routes = {"static": STATIC_SHIFT_C, "exact": None}
+        launches = {}
+        for route, shift in routes.items():
+            out, launch = kernel_launch(q, k, v, coef, mode, static_smax=shift, **kw)
+            launch()
+            want = flash_interpolated_attention_plain(q, k, v, coef, mode, static_smax=shift, **kw)
+            err = (out.float() - want.float()).abs().max().item() / want.float().abs().max().item()
+            if not err <= tol:
+                raise SystemExit(f"{label} ({route}): the kernel disagrees with the plain version ({err:.3e})")
+            launches[route] = launch
+        alone, call = {r: [] for r in routes}, {r: [] for r in routes}
+        for i in range(PAIRS):
+            for route in (list(routes) if i % 2 == 0 else list(routes)[::-1]):
+                shift = routes[route]
+                alone[route].append(cuda_ms(launches[route], reps))
+                call[route].append(cuda_ms(
+                    lambda: flash_interpolated_attention(q, k, v, coef, mode, static_smax=shift, **kw), reps))
+        tag = label if label.startswith(name) else f"{name} {label}"
+        line, result[tag] = [], {}
+        for route in routes:
+            try:
+                dev_ms = f"{device_ms(launches[route], reps):.4f}"
+            except SystemExit:  # the profiler saw no launch: the device time is not measured
+                dev_ms = "not measured"
+            entry = launches[route].operands["entry"]
+            line.append(f"{route} ({entry}) alone {statistics.median(alone[route]):.4f} ms (least "
+                        f"{min(alone[route]):.4f}) device {dev_ms} wrapper {statistics.median(call[route]):.4f} "
+                        f"(least {min(call[route]):.4f})")
+            result[tag][route] = statistics.median(alone[route])
+        won = sum(a <= b for a, b in zip(alone["static"], alone["exact"]))
+        ratio = statistics.median(alone["static"]) / statistics.median(alone["exact"])
+        skip_rows = int(kw["skip_endpoints"].sum()) if kw else 0
+        bound_ms, by = attention_bound(mode, B, H, Sq, L, D, skip_rows=skip_rows, elem=4 if name == "f32" else 2,
+                                       tf32_passes=3 if name == "f32" else None)
+        print(f"{tag:41s} (7,{H},{Sq},{D}) {' | '.join(line)} | static/exact alone {ratio:.4f}, static no "
+              f"slower alone in {won} of {PAIRS} pairs | bound {bound_ms:.4f} ({by}) | the route under auto: "
+              f"{'static' if fa.resolve_static_smax(q, k, mode) is not None else 'exact'}", flush=True)
+        del q, k, v, launches
+    return result
+
+
+def bench_static_headline(steps: int) -> dict:
+    """The SDXL headline's denoise (chip_smoke.build_headline, ``steps`` Euler
+    steps, half fused_outer) under "auto" and exact everywhere, in turns
+    (a 2-step warmup of each, then four pairs, the first of each pair
+    alternating): {mode: [s/step]}."""
+    import importlib
+
+    from chip_smoke import build_headline, run_denoise
+
+    attn = importlib.import_module("aid_tpu_torch.ops.attention")
+    unet, sample, ehs, uncond, added, coef = build_headline()
+    gate = attn.FLASH_MIN_KV
+    times = {"auto": [], "exact": []}
+    for i, mode in enumerate(("auto", "exact") + ("auto", "exact", "exact", "auto") * 2):
+        attn.FLASH_MIN_KV = gate if mode == "auto" else 1 << 30  # past every call: "auto" resolves exact
+        try:
+            _, elapsed = run_denoise(unet, sample, ehs, uncond, added, coef, steps if i >= 2 else 2)
+        finally:
+            attn.FLASH_MIN_KV = gate
+        if i >= 2:
+            times[mode].append(elapsed / steps)
+            print(f"SDXL headline, {steps} steps, {mode}: {elapsed / steps:.4f} s/step", flush=True)
+    print(f"SDXL headline s/step medians: auto {statistics.median(times['auto']):.4f}, exact "
+          f"{statistics.median(times['exact']):.4f}", flush=True)
+    return times
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reps", type=int, default=20)
@@ -560,6 +704,10 @@ def main(argv=None) -> int:
     ap.add_argument("--midstream", action="store_true",
                     help="the mid-length key streams of --dtype (bf16 or f16) on the mid-length stream kernel and the "
                          "route before")
+    ap.add_argument("--static", action="store_true",
+                    help="the static-shift instances beside the exact route at the call classes 'auto' shifts")
+    ap.add_argument("--headline", type=int, default=0,
+                    help="with --static: also the SDXL headline's denoise of this many steps, auto against exact")
     ap.add_argument("--only", default="", help="time only the shapes whose label contains this text")
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]),
                     help="the checkout whose package and chip_smoke.py are timed (default: this one)")
@@ -580,6 +728,13 @@ def main(argv=None) -> int:
     from chip_smoke import attention_bound, cuda_ms, phase_device
 
     card = phase_device()  # also sets full f32 matmuls (TF32 off) for the plain version
+    if args.static:
+        result = bench_static(args.reps, args.only)
+        if args.headline:
+            result["headline s/step"] = bench_static_headline(args.headline)
+        print(f"on {card}, the package of {Path(args.root).resolve()}", flush=True)
+        print(json.dumps(result), flush=True)
+        return 0
     if args.d512 or args.dwide or args.dmid or args.onepass or args.midstream:
         result = (bench_d512(args.reps, args.dtype) if args.d512 else
                   bench_onepass(args.reps, args.dtype, args.only) if args.onepass else
