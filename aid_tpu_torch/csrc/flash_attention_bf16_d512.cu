@@ -83,6 +83,20 @@
 // mid block of a VAE loaded in f16). They differ in the wgmma type suffix,
 // the tensor maps' data type and the rounding of P and of the output; the
 // masks stay on the f32 scores.
+//
+// The static-shift softmax (`static_smax`, the static branch of `_kernel` at
+// flash_attention.py:210-256) is this body built with AID_STATIC_SHIFT = 1 by
+// flash_attention_bf16_d512_static.cu, a translation unit of its own, bf16 only
+// (entry aid_flash_attn_bf16_d512_static; in f16, exp(-40) is below the
+// smallest subnormal). Each tile's P is ex2(min(s * scale_log2 - shift_log2,
+// clip_log2)), the shift C and the 30-nat clip in log2 units after the scale:
+// no row max, no quad max, no rescale of l, and no o *= alpha over each
+// warpgroup's 256 columns before its P V; each row's sum is guarded (max(l,
+// 1e-37)) as the JAX kernels' denominator is. The softmax leaves P in f32
+// and it is packed into P V's A registers once the previous P V is done,
+// before the next tile's Q K^T is issued (take_p): packed in the softmax,
+// beside that P V in flight, P took its A registers and ptxas serialised
+// every wgmma (C7513), 4-7% slower than the exact instance.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -91,9 +105,18 @@
 #include <math.h>
 #include <stdint.h>
 
+#ifndef AID_STATIC_SHIFT
+#define AID_STATIC_SHIFT 0
+#endif
+
 namespace {
+#if AID_STATIC_SHIFT
+namespace static_shift {  // kernel names of their own beside the exact instances' in one library
+#endif
 
 #include "elem16.cuh"
+
+constexpr bool kStatic = AID_STATIC_SHIFT != 0;
 
 constexpr int kD = 512;                     // head dim
 constexpr int kBQ = 64;                     // query rows per block
@@ -253,7 +276,15 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4]
 struct Params {
   int Sq, Lk;
   float scale_log2;  // softmax scale * log2(e)
+  float shift_log2, clip_log2;  // the static shift C and the clip, * log2(e) (kStatic instance only)
 };
+
+// A row's sum: the thread's partial sums reduced over the quad; at the
+// static shift guarded, so a row whose every key underflowed gives 0
+__device__ __forceinline__ float row_sum(float l) {
+  if constexpr (kStatic) return fmaxf(quad_sum(l), 1e-37f);
+  return quad_sum(l);
+}
 
 // Maps: q, k, v, out, each (D, H, S, B) with boxes of 64 columns by kBQ
 // (q, out) or kBK (k, v) rows.
@@ -352,9 +383,11 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int i = 0; i < 16; ++i) s[i] += theirs[i * 128];
     };
     // online softmax of tile `it` (scores in s) into P (pn) and the
-    // rescale factors of O (al0, al1); O itself is rescaled by pv
+    // rescale factors of O (al0, al1); O itself is rescaled by pv. The
+    // static instance takes P at the static shift: no max, no factors
     float al0 = 0.f, al1 = 0.f;
     uint32_t pn[kBK / 16][4];
+    [[maybe_unused]] float pf[kBK / 2];  // the static instance's P in f32, packed into pa by take_p
     auto softmax = [&](int it) {
       const int valid = min(kBK, p.Lk - it * kBK);
       if (valid < kBK) {  // the last tile: keys past Lk do not exist
@@ -362,6 +395,26 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int i = 0; i < 16; ++i) {
           if ((i / 4) * 8 + 2 * t + (i & 1) >= valid) s[i] = -INFINITY;
         }
+      }
+      if constexpr (kStatic) {
+        // P = 2^min(s scale_log2 - shift_log2, clip_log2) (a masked key stays -inf and gives 0)
+        float ls0 = 0.f, ls1 = 0.f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float p0 = ex2(fminf(fmaf(s[4 * j], p.scale_log2, -p.shift_log2), p.clip_log2));
+          const float p1 = ex2(fminf(fmaf(s[4 * j + 1], p.scale_log2, -p.shift_log2), p.clip_log2));
+          const float p2 = ex2(fminf(fmaf(s[4 * j + 2], p.scale_log2, -p.shift_log2), p.clip_log2));
+          const float p3 = ex2(fminf(fmaf(s[4 * j + 3], p.scale_log2, -p.shift_log2), p.clip_log2));
+          ls0 += p0 + p1;
+          ls1 += p2 + p3;
+          pf[4 * j] = p0;
+          pf[4 * j + 1] = p1;
+          pf[4 * j + 2] = p2;
+          pf[4 * j + 3] = p3;
+        }
+        l0 += ls0;
+        l1 += ls1;
+        return;
       }
       float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
@@ -390,19 +443,21 @@ __global__ void __launch_bounds__(kThreads, 1)
       l0 = l0 * al0 + ls0;
       l1 = l1 * al1 + ls1;
     };
-    // O = O * alpha + P V of tile `it` (P taken from pn), issued (not waited for)
+    // O = O * alpha + P V of tile `it` (P taken from pn; the static instance's by take_p), issued (not waited for)
     auto pv = [&](int it) {
+      if constexpr (!kStatic) {
 #pragma unroll
-      for (int kk = 0; kk < kBK / 16; ++kk) {
+        for (int kk = 0; kk < kBK / 16; ++kk) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) pa[kk][e] = pn[kk][e];
-      }
+          for (int e = 0; e < 4; ++e) pa[kk][e] = pn[kk][e];
+        }
 #pragma unroll
-      for (int j = 0; j < kCols / 8; ++j) {
-        o[4 * j] *= al0;
-        o[4 * j + 1] *= al0;
-        o[4 * j + 2] *= al1;
-        o[4 * j + 3] *= al1;
+        for (int j = 0; j < kCols / 8; ++j) {
+          o[4 * j] *= al0;
+          o[4 * j + 1] *= al0;
+          o[4 * j + 2] *= al1;
+          o[4 * j + 3] *= al1;
+        }
       }
       // 16 keys (2048 bytes) a step over this warpgroup's 256 columns, the next box LBO away
       const uint32_t vt = kvs + (it % kStages) * kStageBytes + kKVBytes + wg * (kBoxes / kWG) * (kBK * 128);
@@ -419,6 +474,21 @@ __global__ void __launch_bounds__(kThreads, 1)
     // and softmax. Nothing is in flight across the loop's back edge, and no
     // instruction reads the accumulator of a product in flight (which would
     // make ptxas serialise the products).
+    // The static instance's softmax leaves P in f32 (pf) and packs it into
+    // P V's A registers here, once the previous P V is done and before the
+    // next Q K^T is issued. Packed in the softmax, beside P V in flight, P
+    // took that product's A registers and ptxas serialised every wgmma
+    // (C7513); the exact instance's compiled code packs after the wait
+    auto take_p = [&]() {
+      if constexpr (kStatic) {
+#pragma unroll
+        for (int j = 0; j < kBK / 8; ++j) {
+          pa[j / 2][2 * (j & 1)] = Elem<T>::pack(pf[4 * j], pf[4 * j + 1]);
+          pa[j / 2][2 * (j & 1) + 1] = Elem<T>::pack(pf[4 * j + 2], pf[4 * j + 3]);
+        }
+        reg_fence(pa);
+      }
+    };
     issue_qk(s, 0);
     wgmma_wait0();
     reg_fence(s);
@@ -427,6 +497,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     softmax(0);
     int it = 0;
     for (; it + 1 < ntiles; ++it) {
+      take_p();
       issue_qk(s, it + 1);
       pv(it);
       wgmma_wait<1>();  // Q K^T of tile it + 1 is done (P V of tile it may run): its K is free
@@ -439,6 +510,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       reg_fence(pa);
       release(vempty, it);
     }
+    take_p();
     pv(it);  // the last tile
     wgmma_wait0();
     reg_fence(o);
@@ -448,7 +520,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     // T output through this warpgroup's boxes of the Q tile (its products
     // are done), in the TMA box layout: 128-byte rows, 16-byte chunk j of
     // row r at j ^ (r % 8)
-    const float i0 = 1.f / quad_sum(l0), i1 = 1.f / quad_sum(l1);
+    const float i0 = 1.f / row_sum(l0), i1 = 1.f / row_sum(l1);
     unsigned char* tile = smem_raw + (q - raw);
 #pragma unroll
     for (int j = 0; j < kCols / 8; ++j) {
@@ -508,7 +580,8 @@ bool encode_map(CUtensorMap* map, const void* ptr, int H, int S, int B, const lo
 }
 
 template <class T>
-int entry(const void* const (&ptrs)[4], const long long* dims, float scale, void* stream) {
+int entry(const void* const (&ptrs)[4], const long long* dims, float scale, float shift_log2, float clip_log2,
+          void* stream) {
   if (dims[2] <= 0 || dims[3] <= 0) return (int)cudaErrorInvalidValue;
   if (encode_tiled() == nullptr) return (int)cudaErrorNotSupported;
   const int B = (int)dims[0], H = (int)dims[1];
@@ -516,6 +589,8 @@ int entry(const void* const (&ptrs)[4], const long long* dims, float scale, void
   p.Sq = (int)dims[2];
   p.Lk = (int)dims[3];
   p.scale_log2 = scale * 1.4426950408889634f;
+  p.shift_log2 = shift_log2;
+  p.clip_log2 = clip_log2;
   CUtensorMap m[4];
   const int rows[4] = {p.Sq, p.Lk, p.Lk, p.Sq}, box[4] = {kBQ, kBK, kBK, kBQ};
   for (int i = 0; i < 4; ++i) {
@@ -534,8 +609,24 @@ int entry(const void* const (&ptrs)[4], const long long* dims, float scale, void
   return (int)cudaGetLastError();
 }
 
+#if AID_STATIC_SHIFT
+}  // namespace static_shift
+using static_shift::entry;
+#endif
 }  // namespace
 
+#if AID_STATIC_SHIFT
+// The static-shift instance over bf16 operands: aid_flash_attn_bf16_d512's
+// arguments with the shift C and the clip after the scale, both times
+// log2(e) (p = 2^min(s * scale * log2(e) - shift_log2, clip_log2)). Returns
+// the launch's cudaError_t.
+extern "C" int aid_flash_attn_bf16_d512_static(const void* q, const void* k, const void* v, void* out,
+                                               const long long* dims, float scale, float shift_log2,
+                                               float clip_log2, void* stream) {
+  const void* const ptrs[4] = {q, k, v, out};
+  return entry<__nv_bfloat16>(ptrs, dims, scale, shift_log2, clip_log2, stream);
+}
+#else
 // dims: [B, H, Sq, Lk, then (b, h, s) element strides of q, k, v, out]
 // (16 values). Every operand is bf16 with its head dim contiguous, 16-byte
 // aligned, its other strides multiples of 8 elements. Returns the launch's
@@ -543,12 +634,13 @@ int entry(const void* const (&ptrs)[4], const long long* dims, float scale, void
 extern "C" int aid_flash_attn_bf16_d512(const void* q, const void* k, const void* v, void* out,
                                         const long long* dims, float scale, void* stream) {
   const void* const ptrs[4] = {q, k, v, out};
-  return entry<__nv_bfloat16>(ptrs, dims, scale, stream);
+  return entry<__nv_bfloat16>(ptrs, dims, scale, 0.f, 0.f, stream);
 }
 
 // The same over f16 operands.
 extern "C" int aid_flash_attn_f16_d512(const void* q, const void* k, const void* v, void* out,
                                        const long long* dims, float scale, void* stream) {
   const void* const ptrs[4] = {q, k, v, out};
-  return entry<__half>(ptrs, dims, scale, stream);
+  return entry<__half>(ptrs, dims, scale, 0.f, 0.f, stream);
 }
+#endif

@@ -89,6 +89,23 @@
 // UNet). They differ in the wgmma type suffix, the tensor maps' data type and
 // the rounding of P and of the output; every mask and running max stays on
 // the f32 scores.
+//
+// The static-shift softmax (`static_smax`, the static branch of `_kernel` at
+// flash_attention.py:210-256) is this body built with AID_STATIC_SHIFT = 1 by
+// flash_attention_dmid_static.cu, a translation unit of its own, bf16 only
+// (entry aid_flash_attn_bf16_dmid_static, both layouts, every mode and self
+// mode; in f16, exp(-40) is below the smallest subnormal). Each tile's P is
+// ex2(min(s * scale_log2 - shift_log2, clip_log2)), the shift C and the
+// 30-nat clip in log2 units after the scale: no row max, no quad max, no
+// rescale of O and l. Each softmax set's P V and sum just add up, so the
+// outer modes' park keeps O and l and no max (the workspace's layout is the
+// exact instances'; the max words go unused), and the own segment's state is
+// added to both sets unchanged, as the JAX branch's w0 / w1 weights do. Each
+// row's sum is guarded (max(l, 1e-37)) as the JAX kernels' denominator is. In
+// the split layout the static softmax leaves P in f32, packed into P V's A
+// registers once the previous P V is done, before the next tile's Q K^T is
+// issued (take_p): packed in the softmax, beside that P V in flight, P took
+// its A registers and ptxas serialised every wgmma (C7513).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -100,11 +117,20 @@
 
 #include <mutex>
 
+#ifndef AID_STATIC_SHIFT
+#define AID_STATIC_SHIFT 0
+#endif
+
 namespace {
+#if AID_STATIC_SHIFT
+namespace static_shift {  // kernel names of their own beside the exact instances' in one library
+#endif
 
 #include "elem16.cuh"
 #include "tma_sm90.cuh"
 #include "map_cache.cuh"
+
+constexpr bool kStatic = AID_STATIC_SHIFT != 0;
 
 constexpr int kThreads = 384;        // two consumer warpgroups and the producer warpgroup
 constexpr int kSmemLimit = 232448;   // the 227 KB a block can use
@@ -153,7 +179,15 @@ struct Params {
   int nwg;              // rows layout: consumer warpgroups a block (1 or 2); split layout: 2
   int shared_eps;       // bit i: endpoint map i (k_begin, v_begin, k_end, v_end) is one (H, Le, D) tensor
   float scale_log2;     // softmax scale * log2(e)
+  float shift_log2, clip_log2;  // the static shift C and the clip, * log2(e) (kStatic instances only)
 };
+
+// A row's sum: the thread's partial sums reduced over the quad; at the
+// static shift guarded, so a row whose every key underflowed gives 0
+__device__ __forceinline__ float row_sum(float l) {
+  if constexpr (kStatic) return fmaxf(quad_sum(l), 1e-37f);
+  return quad_sum(l);
+}
 
 // wgmma descriptor of a 128-byte-swizzled tile (8-row groups 1024 bytes
 // apart, SBO): K-major operands (Q, K) step along K by moving the start 32
@@ -191,6 +225,14 @@ __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
+}
+
+// The static shift's P of one score: 2^min(s scale_log2 - shift_log2, clip_log2)
+// (a masked key stays -inf and gives 0); a template, so the exact build, which
+// never calls it, compiles it away without a word
+template <class P>
+__device__ __forceinline__ float static_p(float s, const P& p) {
+  return ex2(fminf(fmaf(s, p.scale_log2, -p.shift_log2), p.clip_log2));
 }
 
 // One box from shared memory into a (D, H, S, B) map; parts out of bounds are not written
@@ -406,8 +448,10 @@ __device__ __forceinline__ void blend_sets(float (&o)[NO], float& m0, float& m1,
     if (r == 0) {  // park the own segment's state: the end segment continues it too
 #pragma unroll
       for (int i = 0; i < NO; ++i) park[i * stride] = o[i];
-      park[NO * stride] = m0;
-      park[(NO + 1) * stride] = m1;
+      if constexpr (!kStatic) {  // the static shift keeps no max
+        park[NO * stride] = m0;
+        park[(NO + 1) * stride] = m1;
+      }
       park[(NO + 2) * stride] = l0;
       park[(NO + 3) * stride] = l1;
     } else if (r == 1) {
@@ -419,8 +463,10 @@ __device__ __forceinline__ void blend_sets(float (&o)[NO], float& m0, float& m1,
           park[i * stride] = o[i];
           o[i] = own;
         }
-        m0 = park[NO * stride];
-        m1 = park[(NO + 1) * stride];
+        if constexpr (!kStatic) {
+          m0 = park[NO * stride];
+          m1 = park[(NO + 1) * stride];
+        }
         l0 = park[(NO + 2) * stride];
         l1 = park[(NO + 3) * stride];
       } else {  // park it, and start the end set afresh
@@ -429,7 +475,7 @@ __device__ __forceinline__ void blend_sets(float (&o)[NO], float& m0, float& m1,
           park[i * stride] = o[i];
           o[i] = 0.f;
         }
-        m0 = m1 = -INFINITY;
+        if constexpr (!kStatic) m0 = m1 = -INFINITY;
         l0 = l1 = 0.f;
       }
     }
@@ -550,6 +596,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (lane == 0) mbar_arrive(empty + 8 * (it % S));
   };
   // online softmax of tile it (scores in s) into P (pa); O rescaled in place
+  // (the static instances: P at the static shift, no max, no rescale)
   auto softmax = [&](int it) {
     const int valid = st.valid(it, p);
     if (valid < BK) {  // the segment's last tile: keys past its length do not exist
@@ -557,6 +604,21 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int i = 0; i < BK / 2; ++i) {
         if ((i / 4) * 8 + 2 * t + (i & 1) >= valid) s[i] = -INFINITY;
       }
+    }
+    if constexpr (kStatic) {
+      float ls0 = 0.f, ls1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+        const float p0 = static_p(s[4 * j], p), p1 = static_p(s[4 * j + 1], p);
+        const float p2 = static_p(s[4 * j + 2], p), p3 = static_p(s[4 * j + 3], p);
+        ls0 += p0 + p1;
+        ls1 += p2 + p3;
+        pa[j / 2][2 * (j & 1)] = Elem<T>::pack(p0, p1);
+        pa[j / 2][2 * (j & 1) + 1] = Elem<T>::pack(p2, p3);
+      }
+      l0 += ls0;
+      l1 += ls1;
+      return;
     }
     float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
@@ -631,7 +693,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   };
   // O = w O / l, the row sums reduced over the quad
   auto normalise = [&](float w) {
-    const float i0 = w / quad_sum(l0), i1 = w / quad_sum(l1);
+    const float i0 = w / row_sum(l0), i1 = w / row_sum(l1);
 #pragma unroll
     for (int j = 0; j < NC * 8; ++j) {
       o[4 * j] *= i0;
@@ -766,6 +828,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   };
   float al0 = 0.f, al1 = 0.f;
   uint32_t pn[BK / 16][4];
+  [[maybe_unused]] float pf[BK / 2];  // the static instances' P in f32, packed into pa by take_p
   auto softmax = [&](int it) {
     const int valid = st.valid(it, p);
     if (valid < BK) {
@@ -773,6 +836,23 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int i = 0; i < 16; ++i) {
         if ((i / 4) * 8 + 2 * t + (i & 1) >= valid) s[i] = -INFINITY;
       }
+    }
+    if constexpr (kStatic) {  // P at the static shift: no max, no factors
+      float ls0 = 0.f, ls1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p0 = static_p(s[4 * j], p), p1 = static_p(s[4 * j + 1], p);
+        const float p2 = static_p(s[4 * j + 2], p), p3 = static_p(s[4 * j + 3], p);
+        ls0 += p0 + p1;
+        ls1 += p2 + p3;
+        pf[4 * j] = p0;
+        pf[4 * j + 1] = p1;
+        pf[4 * j + 2] = p2;
+        pf[4 * j + 3] = p3;
+      }
+      l0 += ls0;
+      l1 += ls1;
+      return;
     }
     float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
@@ -799,19 +879,21 @@ __global__ void __launch_bounds__(kThreads, 1)
     l0 = l0 * al0 + ls0;
     l1 = l1 * al1 + ls1;
   };
-  // O = O * alpha + P V of tile it (P taken from pn), issued (not waited for)
+  // O = O * alpha + P V of tile it (P taken from pn; the static instances' by take_p), issued (not waited for)
   auto pv = [&](int it) {
+    if constexpr (!kStatic) {
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
+      for (int kk = 0; kk < BK / 16; ++kk) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) pa[kk][e] = pn[kk][e];
-    }
+        for (int e = 0; e < 4; ++e) pa[kk][e] = pn[kk][e];
+      }
 #pragma unroll
-    for (int j = 0; j < kCols / 8; ++j) {
-      o[4 * j] *= al0;
-      o[4 * j + 1] *= al0;
-      o[4 * j + 2] *= al1;
-      o[4 * j + 3] *= al1;
+      for (int j = 0; j < kCols / 8; ++j) {
+        o[4 * j] *= al0;
+        o[4 * j + 1] *= al0;
+        o[4 * j + 2] *= al1;
+        o[4 * j + 3] *= al1;
+      }
     }
     const uint32_t vt = vs + (it % S) * L::kTileBytes + wg * NCW * L::kBoxBytes;
     mbar_wait(vfull + 8 * (it % S), (it / S) & 1);
@@ -829,6 +911,20 @@ __global__ void __launch_bounds__(kThreads, 1)
   // tiles t0 .. t1 - 1 into the running state, software-pipelined within the
   // warpgroup: tile it + 1's Q K^T before tile it's P V, its exchange and
   // softmax beside that P V. Nothing is in flight when it returns.
+  // The static instances' softmax leaves P in f32 (pf) and packs it into P
+  // V's A registers here, once the previous P V is done and before the next
+  // Q K^T is issued (packed in the softmax, beside P V in flight, P took that
+  // product's A registers and ptxas serialised every wgmma, C7513)
+  auto take_p = [&]() {
+    if constexpr (kStatic) {
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+        pa[j / 2][2 * (j & 1)] = Elem<T>::pack(pf[4 * j], pf[4 * j + 1]);
+        pa[j / 2][2 * (j & 1) + 1] = Elem<T>::pack(pf[4 * j + 2], pf[4 * j + 3]);
+      }
+      reg_fence(pa);
+    }
+  };
   auto run = [&](int t0, int t1) {
     issue_qk(t0);
     wgmma_wait<0>();
@@ -838,6 +934,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     softmax(t0);
     int it = t0;
     for (; it + 1 < t1; ++it) {
+      take_p();
       issue_qk(it + 1);
       pv(it);
       wgmma_wait<1>();  // Q K^T of tile it + 1 is done (P V of tile it may run): its K is free
@@ -850,6 +947,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       reg_fence(pa);
       release(vempty, it);
     }
+    take_p();
     pv(it);
     wgmma_wait<0>();
     reg_fence(o);
@@ -857,7 +955,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     release(vempty, it);
   };
   auto normalise = [&](float w) {
-    const float i0 = w / quad_sum(l0), i1 = w / quad_sum(l1);
+    const float i0 = w / row_sum(l0), i1 = w / row_sum(l1);
 #pragma unroll
     for (int j = 0; j < kCols / 8; ++j) {
       o[4 * j] *= i0;
@@ -954,7 +1052,7 @@ int launch_modes(const CUtensorMap (&m)[8], const Params& p, int H, int B, int h
 
 template <class T>
 int entry(const void* const (&ptrs)[8], const void* coef, const void* skip, void* work, const long long* dims,
-          float scale, int has_own, int n_sets, void* stream) {
+          float scale, float shift_log2, float clip_log2, int has_own, int n_sets, void* stream) {
   const int B = (int)dims[0], H = (int)dims[1], D = (int)dims[5];
   Params p;
   p.Sq = (int)dims[2];
@@ -983,6 +1081,8 @@ int entry(const void* const (&ptrs)[8], const void* coef, const void* skip, void
   p.work = static_cast<float*>(work);
   p.shared_eps = 0;
   p.scale_log2 = scale * 1.4426950408889634f;
+  p.shift_log2 = shift_log2;
+  p.clip_log2 = clip_log2;
   // rows of each map: queries, own keys, endpoint keys x4, queries out
   const int rows_of[8] = {p.Sq, p.Lk, p.Lk, p.Le, p.Le, p.Le, p.Le, p.Sq};
   CUtensorMap m[8];
@@ -1012,8 +1112,26 @@ int entry(const void* const (&ptrs)[8], const void* coef, const void* skip, void
   }
 }
 
+#if AID_STATIC_SHIFT
+}  // namespace static_shift
+using static_shift::entry;
+#endif
 }  // namespace
 
+#if AID_STATIC_SHIFT
+// The static-shift instance over bf16 operands: aid_flash_attn_bf16_dmid's
+// arguments with the shift C and the clip after the scale, both times
+// log2(e) (p = 2^min(s * scale * log2(e) - shift_log2, clip_log2)), every
+// mode and self mode, the same workspace. Returns the launch's cudaError_t.
+extern "C" int aid_flash_attn_bf16_dmid_static(const void* q, const void* k, const void* v, const void* kb,
+                                               const void* vb, const void* ke, const void* ve, void* out,
+                                               const void* coef, const void* skip, void* work, const long long* dims,
+                                               float scale, float shift_log2, float clip_log2, int has_own,
+                                               int n_sets, void* stream) {
+  const void* const ptrs[8] = {q, k, v, kb, vb, ke, ve, out};
+  return entry<__nv_bfloat16>(ptrs, coef, skip, work, dims, scale, shift_log2, clip_log2, has_own, n_sets, stream);
+}
+#else
 // The endpoint modes and self mode at head dims 161-512: the C signature of
 // aid_flash_attn_bf16_dwide. dims are [B, H, Sq, Lk, Le, D, then (b, h, s)
 // element strides of q, k, v, k_begin, v_begin, k_end, v_end, out] (30
@@ -1035,7 +1153,7 @@ extern "C" int aid_flash_attn_bf16_dmid(const void* q, const void* k, const void
                                         void* work, const long long* dims, float scale, int has_own, int n_sets,
                                         void* stream) {
   const void* const ptrs[8] = {q, k, v, kb, vb, ke, ve, out};
-  return entry<__nv_bfloat16>(ptrs, coef, skip, work, dims, scale, has_own, n_sets, stream);
+  return entry<__nv_bfloat16>(ptrs, coef, skip, work, dims, scale, 0.f, 0.f, has_own, n_sets, stream);
 }
 
 // The same over f16 operands.
@@ -1044,5 +1162,6 @@ extern "C" int aid_flash_attn_f16_dmid(const void* q, const void* k, const void*
                                        void* work, const long long* dims, float scale, int has_own, int n_sets,
                                        void* stream) {
   const void* const ptrs[8] = {q, k, v, kb, vb, ke, ve, out};
-  return entry<__half>(ptrs, coef, skip, work, dims, scale, has_own, n_sets, stream);
+  return entry<__half>(ptrs, coef, skip, work, dims, scale, 0.f, 0.f, has_own, n_sets, stream);
 }
+#endif

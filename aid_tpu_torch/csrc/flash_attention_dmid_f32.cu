@@ -61,6 +61,20 @@
 // encoded on the host with cuTensorMapEncodeTiled (tma_sm90.cuh) and kept in
 // a small cache keyed by everything they encode (map_cache.cuh). Measured
 // times, bounds and the ablation are in PERF.md.
+//
+// The static-shift softmax (`static_smax`, the static branch of `_kernel` at
+// flash_attention.py:210-256) is this body built with AID_STATIC_SHIFT = 1 by
+// flash_attention_dmid_f32_static.cu, a translation unit of its own (entry
+// aid_flash_attn_f32_dmid_static, every mode and self mode). As in
+// flash_attention_f32_d512.cu's static instance, each tile's P is
+// exp2f(min(s * sl2 - shift_log2, clip_log2)), the shift C and the 30-nat
+// clip in log2 units after the scale: no row max, no quad max, no rows'
+// factors written to shared memory, and each M block's tile product (still
+// summed from zero on the tensor cores) is added to O with no factor. The
+// outer modes' park keeps O and l and no max (the workspace's layout is the
+// exact instances'; the max words go unused), the own segment's state added
+// to both sets unchanged, as the JAX branch's w0 / w1 weights do. Each row's
+// sum is guarded (max(l, 1e-37)) as the JAX kernels' denominator is.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -71,10 +85,19 @@
 
 #include <mutex>
 
+#ifndef AID_STATIC_SHIFT
+#define AID_STATIC_SHIFT 0
+#endif
+
 namespace {
+#if AID_STATIC_SHIFT
+namespace static_shift {  // kernel names of their own beside the exact instances' in one library
+#endif
 
 #include "tf32_mma.cuh"
 #include "map_cache.cuh"
+
+constexpr bool kStatic = AID_STATIC_SHIFT != 0;
 
 constexpr int kWG = 2;                      // consumer warpgroups
 constexpr int kThreads = 128 * (kWG + 1);   // + the producer warpgroup
@@ -113,7 +136,15 @@ struct Params {
   int cq0;                  // warpgroup 0's Q K^T chunks (warpgroup 1 the rest)
   int shared_eps;           // bit i: endpoint map i (k_begin, v_begin, k_end, v_end) is one (H, Le, D) tensor
   float scale_log2;         // softmax scale * log2(e)
+  float shift_log2, clip_log2;  // the static shift C and the clip, * log2(e) (kStatic instances only)
 };
+
+// A row's sum: the thread's partial sums reduced over the quad; at the
+// static shift guarded, so a row whose every key underflowed gives 0
+__device__ __forceinline__ float row_sum(float l) {
+  if constexpr (kStatic) return fmaxf(quad_sum(l), 1e-37f);
+  return quad_sum(l);
+}
 
 // P^T's rows under the swizzle of their width: 64 bytes (16 keys; chunk j of
 // row r at j ^ (r / 2 % 4)) or 128 bytes (32 keys; j ^ (r % 8))
@@ -283,7 +314,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
     for (int i = 0; i < 32; ++i) o[mi][i] = 0.f;
   }
-  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;  // rows 16 warp + g, + 8
+  [[maybe_unused]] float m0 = -INFINITY, m1 = -INFINITY;  // rows 16 warp + g, + 8 (the static instances keep no max)
+  float l0 = 0.f, l1 = 0.f;
 
   // Q's fragments of chunk c (box c), rows 16 warp + g (+ 8), columns 8 kk
   // + t (+ 4): hi (the raw words) and lo (tf32, k8 steps kk), and bf16 (k16
@@ -416,29 +448,44 @@ __global__ void __launch_bounds__(kThreads, 1)
           if ((i / 4) * 8 + 2 * t + (i & 1) >= valid) s[i] = -INFINITY;
         }
       }
-      float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-      for (int n = 0; n < KS; ++n) {
-        mx0 = fmaxf(mx0, fmaxf(s[4 * n], s[4 * n + 1]));
-        mx1 = fmaxf(mx1, fmaxf(s[4 * n + 2], s[4 * n + 3]));
-      }
-      // every tile holds at least one real key, so the new max is finite
-      const float mn0 = fmaxf(m0, quad_max(mx0)), mn1 = fmaxf(m1, quad_max(mx1));
-      const float al0 = exp2f((m0 - mn0) * sl2), al1 = exp2f((m1 - mn1) * sl2);  // 0 on a set's first tile
-      m0 = mn0;
-      m1 = mn1;
-      const float ms0 = mn0 * sl2, ms1 = mn1 * sl2;
+      // the exact softmax's running max (al: the factors that take O to the new
+      // max); the static shift's P has a fixed offset and clip instead, no factors
+      float al0 = 1.f, al1 = 1.f;
       float pv[NK];
+      if constexpr (kStatic) {
+        // P = 2^min(s sl2 - shift_log2, clip_log2) (a masked key stays -inf and gives 0)
 #pragma unroll
-      for (int i = 0; i < NK; ++i) pv[i] = exp2f(fmaf(s[i], sl2, (i & 2) ? -ms1 : -ms0));
+        for (int i = 0; i < NK; ++i) pv[i] = exp2f(fminf(fmaf(s[i], sl2, -p.shift_log2), p.clip_log2));
+      } else {
+        float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+        for (int n = 0; n < KS; ++n) {
+          mx0 = fmaxf(mx0, fmaxf(s[4 * n], s[4 * n + 1]));
+          mx1 = fmaxf(mx1, fmaxf(s[4 * n + 2], s[4 * n + 3]));
+        }
+        // every tile holds at least one real key, so the new max is finite
+        const float mn0 = fmaxf(m0, quad_max(mx0)), mn1 = fmaxf(m1, quad_max(mx1));
+        al0 = exp2f((m0 - mn0) * sl2);  // 0 on a set's first tile
+        al1 = exp2f((m1 - mn1) * sl2);
+        m0 = mn0;
+        m1 = mn1;
+        const float ms0 = mn0 * sl2, ms1 = mn1 * sl2;
+#pragma unroll
+        for (int i = 0; i < NK; ++i) pv[i] = exp2f(fmaf(s[i], sl2, (i & 2) ? -ms1 : -ms0));
+      }
       float ls0 = 0.f, ls1 = 0.f;
 #pragma unroll
       for (int n = 0; n < KS; ++n) {
         ls0 += pv[4 * n] + pv[4 * n + 1];
         ls1 += pv[4 * n + 2] + pv[4 * n + 3];
       }
-      l0 = l0 * al0 + ls0;
-      l1 = l1 * al1 + ls1;
+      if constexpr (kStatic) {
+        l0 += ls0;
+        l1 += ls1;
+      } else {
+        l0 = l0 * al0 + ls0;
+        l1 = l1 * al1 + ls1;
+      }
       if (writer) {
         // P^T row r (a query), k8 step n. hi: keys 2t and 2t + 1 at k = t and
         // t + 4; packed bf16: P of keys 2t, 2t + 1 at k = 2t, 2t + 1, lo(P)
@@ -456,7 +503,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           *reinterpret_cast<uint32_t*>(pb + swz_p<BK>(off + 16)) =
               pack_bf16(tf32_rest(pv[i]), tf32_rest(pv[i + 1]));
         }
-        if (t == 0) {
+        if (!kStatic && t == 0) {
           alpha[16 * warp + g] = al0;
           alpha[16 * warp + g + 8] = al1;
         }
@@ -486,11 +533,18 @@ __global__ void __launch_bounds__(kThreads, 1)
         reg_fence(vpk[mi & 1]);
 #pragma unroll
         for (int n = 0; n < 8; ++n) {  // the factors of this thread's query columns 8n + 2t, 8n + 2t + 1
-          const float2 a = *reinterpret_cast<const float2*>(alpha + 8 * n + 2 * t);
-          o[mi][4 * n] = fmaf(o[mi][4 * n], a.x, acc[4 * n]);
-          o[mi][4 * n + 1] = fmaf(o[mi][4 * n + 1], a.y, acc[4 * n + 1]);
-          o[mi][4 * n + 2] = fmaf(o[mi][4 * n + 2], a.x, acc[4 * n + 2]);
-          o[mi][4 * n + 3] = fmaf(o[mi][4 * n + 3], a.y, acc[4 * n + 3]);
+          if constexpr (kStatic) {  // the static shift's product adds with no factor
+            o[mi][4 * n] += acc[4 * n];
+            o[mi][4 * n + 1] += acc[4 * n + 1];
+            o[mi][4 * n + 2] += acc[4 * n + 2];
+            o[mi][4 * n + 3] += acc[4 * n + 3];
+          } else {
+            const float2 a = *reinterpret_cast<const float2*>(alpha + 8 * n + 2 * t);
+            o[mi][4 * n] = fmaf(o[mi][4 * n], a.x, acc[4 * n]);
+            o[mi][4 * n + 1] = fmaf(o[mi][4 * n + 1], a.y, acc[4 * n + 1]);
+            o[mi][4 * n + 2] = fmaf(o[mi][4 * n + 2], a.x, acc[4 * n + 2]);
+            o[mi][4 * n + 3] = fmaf(o[mi][4 * n + 3], a.y, acc[4 * n + 3]);
+          }
         }
       }
       __syncwarp();
@@ -500,7 +554,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   // O^T = w O^T / l: each row's 1 / l through shared memory to the threads
   // that hold its query column
   auto normalise = [&](float w) {
-    const float i0 = w / quad_sum(l0), i1 = w / quad_sum(l1);
+    const float i0 = w / row_sum(l0), i1 = w / row_sum(l1);
     if (writer && t == 0) {
       linv[16 * warp + g] = i0;
       linv[16 * warp + g + 8] = i1;
@@ -536,8 +590,10 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (r == 0) {  // park the own segment's state: the end segment continues it too
 #pragma unroll
         for (int i = 0; i < 32 * MBW; ++i) park[i * 256] = o[i / 32][i % 32];
-        park[(32 * MBW) * 256] = m0;
-        park[(32 * MBW + 1) * 256] = m1;
+        if constexpr (!kStatic) {  // the static shift keeps no max
+          park[(32 * MBW) * 256] = m0;
+          park[(32 * MBW + 1) * 256] = m1;
+        }
         park[(32 * MBW + 2) * 256] = l0;
         park[(32 * MBW + 3) * 256] = l1;
       } else if (r == 1) {
@@ -549,8 +605,10 @@ __global__ void __launch_bounds__(kThreads, 1)
             park[i * 256] = o[i / 32][i % 32];
             o[i / 32][i % 32] = own;
           }
-          m0 = park[(32 * MBW) * 256];
-          m1 = park[(32 * MBW + 1) * 256];
+          if constexpr (!kStatic) {
+            m0 = park[(32 * MBW) * 256];
+            m1 = park[(32 * MBW + 1) * 256];
+          }
           l0 = park[(32 * MBW + 2) * 256];
           l1 = park[(32 * MBW + 3) * 256];
         } else {  // park it, and start the end set afresh
@@ -559,7 +617,7 @@ __global__ void __launch_bounds__(kThreads, 1)
             park[i * 256] = o[i / 32][i % 32];
             o[i / 32][i % 32] = 0.f;
           }
-          m0 = m1 = -INFINITY;
+          if constexpr (!kStatic) m0 = m1 = -INFINITY;
           l0 = l1 = 0.f;
         }
       }
@@ -622,26 +680,10 @@ int launch_modes(const CUtensorMap (&m)[7], const Params& p, int H, int B, int h
   return launch<MBW, BK, false, 2>(m, p, H, B, s);
 }
 
-}  // namespace
-
-// The endpoint modes at head dims 161-512 in f32: the C signature of
-// aid_flash_attn_bf16_dmid (flash_attention_dmid.cu). dims are [B, H, Sq,
-// Lk, Le, D, then (b, h, s) element strides of q, k, v, k_begin, v_begin,
-// k_end, v_end, out] (30 values; a b stride of 0 marks an endpoint shared by
-// every row), D the operands' head dim (161..512, a multiple of 4: 16-byte
-// rows); has_own 1 in the fused modes and self mode; n_sets 2 in the outer
-// modes, 1 in the inner ones (their lerped K/V in the begin slot), 0 in self
-// mode (has_own 1: the own K/V alone; coef, skip and work null, the endpoint
-// pointers and Le not read); work the outer modes' f32
-// workspace, B * H * ceil(Sq / 64) * (32 MBW + 4) * 256 floats with MBW =
-// ceil(ceil(ceil(D / 32) / 2) / 2) (null in the inner modes and self). The inputs are
-// f32 with the head dim contiguous, 16-byte aligned, their other strides
-// multiples of 4 elements; the output is written at its own strides. Returns
-// the launch's cudaError_t (0 on success).
-extern "C" int aid_flash_attn_f32_dmid(const void* q, const void* k, const void* v, const void* kb, const void* vb,
-                                       const void* ke, const void* ve, void* out, const void* coef, const void* skip,
-                                       void* work, const long long* dims, float scale, int has_own, int n_sets,
-                                       void* stream) {
+// The f32 entries' body: the operands checked, the maps encoded, the instance launched
+int entry(const void* q, const void* k, const void* v, const void* kb, const void* vb, const void* ke,
+          const void* ve, void* out, const void* coef, const void* skip, void* work, const long long* dims,
+          float scale, float shift_log2, float clip_log2, int has_own, int n_sets, void* stream) {
   const int B = (int)dims[0], H = (int)dims[1], D = (int)dims[5];
   if (B <= 0 || H <= 0 || dims[2] <= 0 || dims[3] <= 0 || (n_sets > 0 && dims[4] <= 0)) {
     return (int)cudaErrorInvalidValue;
@@ -676,6 +718,8 @@ extern "C" int aid_flash_attn_f32_dmid(const void* q, const void* k, const void*
   p.cq0 = p.C / 2;  // each warpgroup half the chunks of Q K^T and MBW M blocks of P V
   p.shared_eps = 0;
   p.scale_log2 = scale * 1.4426950408889634f;
+  p.shift_log2 = shift_log2;
+  p.clip_log2 = clip_log2;
   // rows of each map: queries, own keys, endpoint keys x4
   const int rows[7] = {p.Sq, p.Lk, p.Lk, p.Le, p.Le, p.Le, p.Le};
   CUtensorMap m[7];
@@ -694,3 +738,45 @@ extern "C" int aid_flash_attn_f32_dmid(const void* q, const void* k, const void*
   if (mbw == 3) return launch_modes<3, 16>(m, p, H, B, has_own, n_sets, s);
   return launch_modes<4, 16>(m, p, H, B, has_own, n_sets, s);
 }
+
+#if AID_STATIC_SHIFT
+}  // namespace static_shift
+using static_shift::entry;
+#endif
+}  // namespace
+
+#if AID_STATIC_SHIFT
+// The static-shift instance: aid_flash_attn_f32_dmid's arguments with the
+// shift C and the clip after the scale, both times log2(e) (p = 2^min(s *
+// scale * log2(e) - shift_log2, clip_log2)), every mode and self mode, the
+// same workspace. Returns the launch's cudaError_t.
+extern "C" int aid_flash_attn_f32_dmid_static(const void* q, const void* k, const void* v, const void* kb,
+                                              const void* vb, const void* ke, const void* ve, void* out,
+                                              const void* coef, const void* skip, void* work, const long long* dims,
+                                              float scale, float shift_log2, float clip_log2, int has_own,
+                                              int n_sets, void* stream) {
+  return entry(q, k, v, kb, vb, ke, ve, out, coef, skip, work, dims, scale, shift_log2, clip_log2, has_own, n_sets,
+               stream);
+}
+#else
+// The endpoint modes at head dims 161-512 in f32: the C signature of
+// aid_flash_attn_bf16_dmid (flash_attention_dmid.cu). dims are [B, H, Sq,
+// Lk, Le, D, then (b, h, s) element strides of q, k, v, k_begin, v_begin,
+// k_end, v_end, out] (30 values; a b stride of 0 marks an endpoint shared by
+// every row), D the operands' head dim (161..512, a multiple of 4: 16-byte
+// rows); has_own 1 in the fused modes and self mode; n_sets 2 in the outer
+// modes, 1 in the inner ones (their lerped K/V in the begin slot), 0 in self
+// mode (has_own 1: the own K/V alone; coef, skip and work null, the endpoint
+// pointers and Le not read); work the outer modes' f32
+// workspace, B * H * ceil(Sq / 64) * (32 MBW + 4) * 256 floats with MBW =
+// ceil(ceil(ceil(D / 32) / 2) / 2) (null in the inner modes and self). The inputs are
+// f32 with the head dim contiguous, 16-byte aligned, their other strides
+// multiples of 4 elements; the output is written at its own strides. Returns
+// the launch's cudaError_t (0 on success).
+extern "C" int aid_flash_attn_f32_dmid(const void* q, const void* k, const void* v, const void* kb, const void* vb,
+                                       const void* ke, const void* ve, void* out, const void* coef, const void* skip,
+                                       void* work, const long long* dims, float scale, int has_own, int n_sets,
+                                       void* stream) {
+  return entry(q, k, v, kb, vb, ke, ve, out, coef, skip, work, dims, scale, 0.f, 0.f, has_own, n_sets, stream);
+}
+#endif

@@ -91,6 +91,20 @@
 // The tensor maps are encoded on the host with cuTensorMapEncodeTiled, taken
 // through cudaGetDriverEntryPoint (no -lcuda at link time; tma_sm90.cuh),
 // and passed as __grid_constant__ parameters.
+//
+// The static-shift softmax (`static_smax`, the static branch of `_kernel` at
+// flash_attention.py:210-256) is this body built with AID_STATIC_SHIFT = 1 by
+// flash_attention_f32_d512_static.cu, a translation unit of its own (entry
+// aid_flash_attn_f32_d512_static). Each tile's P is exp2f(min(s * sl2 -
+// shift_log2, clip_log2)), the shift C and the 30-nat clip in log2 units after
+// the scale: no row max and no quad max, no rows' factors in shared memory
+// (the stat block holds 1 / l alone), and each 64-row block of O^T's tile
+// product is added to O with no factor. The product is still summed from zero
+// and added in f32, not accumulated in place on the tensor cores: their
+// truncating accumulation is the drift the fold avoids (above), and the
+// decode's 1e-4 promise holds it. P's hi/lo split is unchanged (P ~ e^-40
+// stays well inside f32's, tf32's and bf16's exponent range), and each row's
+// sum is guarded (max(l, 1e-37)) as the JAX kernels' denominator is.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -98,9 +112,18 @@
 #include <math.h>
 #include <stdint.h>
 
+#ifndef AID_STATIC_SHIFT
+#define AID_STATIC_SHIFT 0
+#endif
+
 namespace {
+#if AID_STATIC_SHIFT
+namespace static_shift {  // kernel names of their own beside the exact instance's in one library
+#endif
 
 #include "tf32_mma.cuh"
+
+constexpr bool kStatic = AID_STATIC_SHIFT != 0;
 
 constexpr int kD = 512;                     // head dim
 constexpr int kBQ = 64;                     // query rows per block
@@ -123,8 +146,8 @@ constexpr int kVOff = kKLoOff + kKLoBytes;
 constexpr int kPHiOff = kVOff + kKVBytes;
 constexpr int kPBfOff = kPHiOff + kPBytes;
 constexpr int kXOff = kPBfOff + kPBytes;
-constexpr int kStatOff = kXOff + kXBytes;          // alpha[64], then 1 / l [64]
-constexpr int kBarOff = kStatOff + 2 * kBQ * 4;    // qbar, kfull, kempty, vfull, vempty
+constexpr int kStatOff = kXOff + kXBytes;          // alpha[64] (exact instance only), then 1 / l [64]
+constexpr int kBarOff = kStatOff + (kStatic ? 1 : 2) * kBQ * 4;    // qbar, kfull, kempty, vfull, vempty
 constexpr int kSmemBytes = 1024 + kBarOff + 5 * 8;
 static_assert(kSmemBytes <= 232448, "over the 227 KB a block can use");
 static_assert(128 * kProducerRegs + 128 * kWG * kConsumerRegs <= kThreads * 168, "setmaxnreg budget");
@@ -134,6 +157,7 @@ struct Params {
   long long sob, soh, sos;  // the output's (b, h, s) element strides
   int Sq, Lk;
   float scale_log2;         // softmax scale * log2(e)
+  float shift_log2, clip_log2;  // the static shift C and the clip, * log2(e) (kStatic instance only)
 };
 
 // The 64-byte swizzle (P^T's 64-byte rows): chunk j of row r at j ^ (r / 2 % 4)
@@ -186,6 +210,13 @@ __device__ __forceinline__ void make_klo(const unsigned char* kt, unsigned char*
   }
 }
 
+// A row's sum: the thread's partial sums reduced over the quad; at the
+// static shift guarded, so a row whose every key underflowed gives 0
+__device__ __forceinline__ float row_sum(float l) {
+  if constexpr (kStatic) return fmaxf(quad_sum(l), 1e-37f);
+  return quad_sum(l);
+}
+
 // Maps: q, k, v, each (D, H, S, B) with boxes of 32 columns by kBQ (q) or kBK (k, v) rows.
 __global__ void __launch_bounds__(kThreads, 1)
     flash_f32_d512_kernel(const __grid_constant__ CUtensorMap qm, const __grid_constant__ CUtensorMap km,
@@ -236,7 +267,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     const float* vf = reinterpret_cast<const float*>(gbase + kVOff);
     float* xs = reinterpret_cast<float*>(gbase + kXOff);
     float* alpha = reinterpret_cast<float*>(gbase + kStatOff);
-    float* linv = alpha + kBQ;
+    float* linv = alpha + (kStatic ? 0 : kBQ);  // the static instance keeps no factors
     unsigned char* ph = gbase + kPHiOff;
     unsigned char* pb = gbase + kPBfOff;
     const float sl2 = p.scale_log2;
@@ -375,19 +406,31 @@ __global__ void __launch_bounds__(kThreads, 1)
           if ((i / 4) * 8 + 2 * t + (i & 1) >= valid) s[i] = -INFINITY;
         }
       }
-      const float mx0 = fmaxf(fmaxf(s[0], s[1]), fmaxf(s[4], s[5]));
-      const float mx1 = fmaxf(fmaxf(s[2], s[3]), fmaxf(s[6], s[7]));
-      // every tile holds at least one real key, so the new max is finite
-      const float mn0 = fmaxf(m0, quad_max(mx0)), mn1 = fmaxf(m1, quad_max(mx1));
-      const float al0 = exp2f((m0 - mn0) * sl2), al1 = exp2f((m1 - mn1) * sl2);  // 0 on the first tile
-      m0 = mn0;
-      m1 = mn1;
-      const float ms0 = mn0 * sl2, ms1 = mn1 * sl2;
+      // the exact softmax's running max (al: the factors that take O to the new
+      // max); the static shift's P has a fixed offset and clip instead, no factors
+      float al0 = 1.f, al1 = 1.f;
       float pv[8];
+      if constexpr (kStatic) {
+        // P = 2^min(s sl2 - shift_log2, clip_log2) (a masked key stays -inf and gives 0)
 #pragma unroll
-      for (int i = 0; i < 8; ++i) pv[i] = exp2f(fmaf(s[i], sl2, (i & 2) ? -ms1 : -ms0));
-      l0 = l0 * al0 + (pv[0] + pv[1] + pv[4] + pv[5]);
-      l1 = l1 * al1 + (pv[2] + pv[3] + pv[6] + pv[7]);
+        for (int i = 0; i < 8; ++i) pv[i] = exp2f(fminf(fmaf(s[i], sl2, -p.shift_log2), p.clip_log2));
+        l0 += pv[0] + pv[1] + pv[4] + pv[5];
+        l1 += pv[2] + pv[3] + pv[6] + pv[7];
+      } else {
+        const float mx0 = fmaxf(fmaxf(s[0], s[1]), fmaxf(s[4], s[5]));
+        const float mx1 = fmaxf(fmaxf(s[2], s[3]), fmaxf(s[6], s[7]));
+        // every tile holds at least one real key, so the new max is finite
+        const float mn0 = fmaxf(m0, quad_max(mx0)), mn1 = fmaxf(m1, quad_max(mx1));
+        al0 = exp2f((m0 - mn0) * sl2);  // 0 on the first tile
+        al1 = exp2f((m1 - mn1) * sl2);
+        m0 = mn0;
+        m1 = mn1;
+        const float ms0 = mn0 * sl2, ms1 = mn1 * sl2;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) pv[i] = exp2f(fmaf(s[i], sl2, (i & 2) ? -ms1 : -ms0));
+        l0 = l0 * al0 + (pv[0] + pv[1] + pv[4] + pv[5]);
+        l1 = l1 * al1 + (pv[2] + pv[3] + pv[6] + pv[7]);
+      }
       if (writer) {
         // P^T row r (a query), k8 step n. hi: keys 2t and 2t + 1 at k = t and
         // t + 4; packed bf16: P of keys 2t, 2t + 1 at k = 2t, 2t + 1, lo(P)
@@ -404,7 +447,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           *reinterpret_cast<uint32_t*>(pb + swz64(off)) = pack_bf16(pv[i], pv[i + 1]);
           *reinterpret_cast<uint32_t*>(pb + swz64(off + 16)) = pack_bf16(tf32_rest(pv[i]), tf32_rest(pv[i + 1]));
         }
-        if (t == 0) {
+        if (!kStatic && t == 0) {
           alpha[16 * warp + g] = al0;
           alpha[16 * warp + g + 8] = al1;
         }
@@ -414,10 +457,13 @@ __global__ void __launch_bounds__(kThreads, 1)
 
       // ---- O^T = O^T * alpha + V^T P^T, a 64-row block at a time, each
       // block's product summed from zero and folded by FMA: hi*hi in tf32,
-      // lo(V) P + V lo(P) in one packed bf16 product per k8 step
+      // lo(V) P + V lo(P) in one packed bf16 product per k8 step (the static
+      // instance adds each block's product, with no factor)
       float2 a[8];  // the factors of this thread's query columns 8n + 2t, 8n + 2t + 1
+      if constexpr (!kStatic) {
 #pragma unroll
-      for (int n = 0; n < 8; ++n) a[n] = *reinterpret_cast<const float2*>(alpha + 8 * n + 2 * t);
+        for (int n = 0; n < 8; ++n) a[n] = *reinterpret_cast<const float2*>(alpha + 8 * n + 2 * t);
+      }
       uint32_t vhi[2][2][4], vpk[2][2][4];
       mbar_wait(vfull, j & 1);
       load_v(0, vhi[0], vpk[0]);
@@ -437,10 +483,17 @@ __global__ void __launch_bounds__(kThreads, 1)
         reg_fence(vpk[mi & 1]);
 #pragma unroll
         for (int n = 0; n < 8; ++n) {
-          o[mi][4 * n] = fmaf(o[mi][4 * n], a[n].x, acc[4 * n]);
-          o[mi][4 * n + 1] = fmaf(o[mi][4 * n + 1], a[n].y, acc[4 * n + 1]);
-          o[mi][4 * n + 2] = fmaf(o[mi][4 * n + 2], a[n].x, acc[4 * n + 2]);
-          o[mi][4 * n + 3] = fmaf(o[mi][4 * n + 3], a[n].y, acc[4 * n + 3]);
+          if constexpr (kStatic) {
+            o[mi][4 * n] += acc[4 * n];
+            o[mi][4 * n + 1] += acc[4 * n + 1];
+            o[mi][4 * n + 2] += acc[4 * n + 2];
+            o[mi][4 * n + 3] += acc[4 * n + 3];
+          } else {
+            o[mi][4 * n] = fmaf(o[mi][4 * n], a[n].x, acc[4 * n]);
+            o[mi][4 * n + 1] = fmaf(o[mi][4 * n + 1], a[n].y, acc[4 * n + 1]);
+            o[mi][4 * n + 2] = fmaf(o[mi][4 * n + 2], a[n].x, acc[4 * n + 2]);
+            o[mi][4 * n + 3] = fmaf(o[mi][4 * n + 3], a[n].y, acc[4 * n + 3]);
+          }
         }
       }
       __syncwarp();
@@ -448,7 +501,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
 
     // ---- 1 / l of every query row, then O = (O^T)^T / l at the output's strides
-    const float i0 = 1.f / quad_sum(l0), i1 = 1.f / quad_sum(l1);
+    const float i0 = 1.f / row_sum(l0), i1 = 1.f / row_sum(l1);
     if (writer && t == 0) {
       linv[16 * warp + g] = i0;
       linv[16 * warp + g + 8] = i1;
@@ -486,15 +539,9 @@ bool encode_map(CUtensorMap* map, const void* ptr, int H, int S, int B, const lo
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-}  // namespace
-
-// dims: [B, H, Sq, Lk, then (b, h, s) element strides of q, k, v, out]
-// (16 values). q, k and v are f32 with the head dim contiguous, 16-byte
-// aligned, their other strides multiples of 4 elements; the output is
-// written at its own strides. Returns the launch's cudaError_t (0 on
-// success).
-extern "C" int aid_flash_attn_f32_d512(const void* q, const void* k, const void* v, void* out,
-                                       const long long* dims, float scale, void* stream) {
+// The entries' body: the operands' alignment checked, the maps encoded, the kernel launched
+int entry(const void* q, const void* k, const void* v, void* out, const long long* dims, float scale,
+          float shift_log2, float clip_log2, void* stream) {
   if (dims[2] <= 0 || dims[3] <= 0) return (int)cudaErrorInvalidValue;
   const void* ptrs[3] = {q, k, v};
   for (int i = 0; i < 3; ++i) {
@@ -513,6 +560,8 @@ extern "C" int aid_flash_attn_f32_d512(const void* q, const void* k, const void*
   p.Sq = (int)dims[2];
   p.Lk = (int)dims[3];
   p.scale_log2 = scale * 1.4426950408889634f;
+  p.shift_log2 = shift_log2;
+  p.clip_log2 = clip_log2;
   CUtensorMap m[3];
   const int rows[3] = {p.Sq, p.Lk, p.Lk}, box[3] = {kBQ, kBK, kBK};
   for (int i = 0; i < 3; ++i) {
@@ -526,3 +575,30 @@ extern "C" int aid_flash_attn_f32_d512(const void* q, const void* k, const void*
   flash_f32_d512_kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(m[0], m[1], m[2], p);
   return (int)cudaGetLastError();
 }
+
+#if AID_STATIC_SHIFT
+}  // namespace static_shift
+using static_shift::entry;
+#endif
+}  // namespace
+
+#if AID_STATIC_SHIFT
+// The static-shift instance: aid_flash_attn_f32_d512's arguments with the
+// shift C and the clip after the scale, both times log2(e) (p = 2^min(s *
+// scale * log2(e) - shift_log2, clip_log2)). Returns the launch's cudaError_t.
+extern "C" int aid_flash_attn_f32_d512_static(const void* q, const void* k, const void* v, void* out,
+                                              const long long* dims, float scale, float shift_log2, float clip_log2,
+                                              void* stream) {
+  return entry(q, k, v, out, dims, scale, shift_log2, clip_log2, stream);
+}
+#else
+// dims: [B, H, Sq, Lk, then (b, h, s) element strides of q, k, v, out]
+// (16 values). q, k and v are f32 with the head dim contiguous, 16-byte
+// aligned, their other strides multiples of 4 elements; the output is
+// written at its own strides. Returns the launch's cudaError_t (0 on
+// success).
+extern "C" int aid_flash_attn_f32_d512(const void* q, const void* k, const void* v, void* out,
+                                       const long long* dims, float scale, void* stream) {
+  return entry(q, k, v, out, dims, scale, 0.f, 0.f, stream);
+}
+#endif

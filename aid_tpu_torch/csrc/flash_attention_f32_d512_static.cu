@@ -1,0 +1,8 @@
+// The static-shift instance of the f32 D=512 self-attention kernel, sm_90a:
+// flash_attention_f32_d512.cu built with AID_STATIC_SHIFT = 1 (its header says
+// what changes), entry aid_flash_attn_f32_d512_static (the VAE mid block's
+// attention in f32). It follows the static branch of the Pallas TPU kernel
+// `_kernel` (aid_tpu/ops/flash_attention.py:210-256). A translation unit of its
+// own, so the build compiles it beside the exact instance, one nvcc each.
+#define AID_STATIC_SHIFT 1
+#include "flash_attention_f32_d512.cu"

@@ -94,10 +94,18 @@ no running row max, the same softmax while every row max lies in [C - 72,
 C + 30]. Its instances, the exact sources built with ``AID_STATIC_SHIFT`` in
 translation units of their own: the bf16 and f32 kernels at D <= 160 in
 every mode (``csrc/flash_interpolated_attention_static.cu``,
-``csrc/flash_interpolated_attention_f32_static.cu``) and the bf16
+``csrc/flash_interpolated_attention_f32_static.cu``), the bf16
 mid-length stream kernel at D = 64 in the endpoint modes
 (``csrc/flash_attention_midstream_static.cu``), counted in
-``launches_static`` / ``launches_static_midstream``.
+``launches_static`` / ``launches_static_midstream``; the bf16 and f32
+D=161-512 kernels in every mode and self mode
+(``csrc/flash_attention_dmid_static.cu``,
+``csrc/flash_attention_dmid_f32_static.cu``), counted in
+``launches_static_dmid`` by head dim; and the D=512 self kernels in f32 and
+bf16 (``csrc/flash_attention_f32_d512_static.cu``,
+``csrc/flash_attention_bf16_d512_static.cu``: the VAE mid block), counted
+in the D=512 wrappers' ``launches_static``. Past D = 512 (the wide kernels)
+and in f16 there is none.
 :func:`resolve_static_smax` turns the model path's ``"auto"`` into the
 shift or None as the JAX wrapper does, less the calls the port keeps exact.
 """
@@ -405,13 +413,22 @@ _LOG2E = 1.4426950408889634
 STATIC_ENTRIES = {torch.bfloat16: "aid_flash_attn_bf16_static", torch.float32: "aid_flash_attn_f32_static"}
 STATIC_MIDSTREAM_ENTRIES = {torch.bfloat16: "aid_flash_attn_bf16_midstream_static"}
 STATIC_MIDSTREAM_DIMS = (64,)
+#: the static-shift instances of the D=512 self kernels (csrc/flash_attention_f32_d512_static.cu,
+#: csrc/flash_attention_bf16_d512_static.cu: the D=512 entries' C signature with the shift and the
+#: clip after the scale) and of the D=161-512 kernels (csrc/flash_attention_dmid_static.cu,
+#: csrc/flash_attention_dmid_f32_static.cu: every mode and self mode, the dmid entries' signature
+#: with the shift and the clip after the scale), by operand dtype; none in f16, none past D = 512
+STATIC_D512_ENTRIES = {torch.bfloat16: "aid_flash_attn_bf16_d512_static",
+                       torch.float32: "aid_flash_attn_f32_d512_static"}
+STATIC_DMID_ENTRIES = {torch.bfloat16: "aid_flash_attn_bf16_dmid_static",
+                       torch.float32: "aid_flash_attn_f32_dmid_static"}
 #: the JAX wrapper's constants that decide its "auto" (aid_tpu/ops/flash_attention.py:
 #: 80, 88, 703, 708 and its 128-lane block rounding), copied
 JAX_ONEPASS_MAX, JAX_SPLIT_ONEPASS_MAX, JAX_ONEPASS_MAX_RESIDENT_COLS = 3072, 16384, 20 * 1024
 JAX_BLOCK_K, JAX_LANES = 1024, 128
-#: the call classes ("streaming" or "midstream" kernel, dtype, instance head
-#: dim, mode) where the card measured the static instance slower than the
-#: exact one: "auto" keeps them exact. In turns on an H100 (700 W;
+#: the call classes (the static_route kernel: "streaming", "midstream",
+#: "dmid" or "d512"; dtype, instance head dim, mode) where the card measured
+#: the static instance slower than the exact one: "auto" keeps them exact. In turns on an H100 (700 W;
 #: tools/attention_bench.py --static, ten pairs, two calls; PERF.md section
 #: 6): f32 self mode at D = 64, (7,10,4096,64) 2.867 / 2.826 ms against
 #: 2.855 / 2.815 (no slower in 4 and 2 of 10 pairs; the 3xTF32 products
@@ -462,12 +479,18 @@ def jax_static_smax(q_shape, dtype, Lk: int, mode: AttnMode | str = AttnMode.SEL
 
 
 def static_route(D: int, Sq: int, Lk: int, Le: int, mode: AttnMode | str = AttnMode.SELF, dtype=torch.bfloat16) -> str:
-    """The kernel a static-shift call at instance head dim D takes: "midstream"
-    (the bf16 mid-length stream kernel's static instance, where
-    :func:`takes_midstream` holds in an endpoint mode at
-    :data:`STATIC_MIDSTREAM_DIMS`) or "streaming" (the D <= 160 kernel's: every
-    other call, the short-stream kernel's calls among them)."""
+    """The kernel a static-shift call at instance head dim D takes: "d512"
+    (the D=512 self kernels' static instance, where :func:`takes_d512_self`),
+    "dmid" (the D=161-512 kernels' static instance: every other call from
+    161 to 512), "midstream" (the bf16 mid-length stream kernel's static
+    instance, where :func:`takes_midstream` holds in an endpoint mode at
+    :data:`STATIC_MIDSTREAM_DIMS`) or "streaming" (the D <= 160 kernel's:
+    every other call, the short-stream kernel's calls among them)."""
     mode = AttnMode(mode)
+    if takes_d512_self(D, mode, dtype):
+        return "d512"
+    if KERNEL_HEAD_DIMS[-1] < D <= D512:
+        return "dmid"
     if (dtype in STATIC_MIDSTREAM_ENTRIES and D in STATIC_MIDSTREAM_DIMS and mode != AttnMode.SELF
             and takes_midstream(D, Sq, Lk, Le, mode, dtype)):
         return "midstream"
@@ -483,8 +506,8 @@ def resolve_static_smax(q: torch.Tensor, k: torch.Tensor, mode: AttnMode | str =
     (:func:`jax_static_smax`) and keeps a call
     exact where the port has no instance measured no slower: in f16, on the
     plain route (CPU tensors, ``reference_ops``: the JAX model path is exact
-    on the CPU), past head dim 160 (the static instances of the wider kernels
-    are queued in ROADMAP.md), on the short-stream kernel's calls, and in
+    on the CPU), past head dim 512 (the wide kernels' static instances are
+    queued in ROADMAP.md), on the short-stream kernel's calls, and in
     :data:`STATIC_SHIFT_SLOWER`. Strings other than "auto" raise, as
     aid_tpu/ops/flash_attention.py:764-766."""
     if isinstance(static_smax, str) and static_smax != "auto":
@@ -508,12 +531,12 @@ def resolve_static_smax(q: torch.Tensor, k: torch.Tensor, mode: AttnMode | str =
 def _auto_shift(q_shape, dtype, Lk: int, mode: AttnMode, Le: int, split_capable: bool):
     """"auto" on the kernel route for a call's shapes (cached: the model
     path asks on every call, at a few shapes): the JAX wrapper's choice,
-    then exact past head dim 160, on the short-stream kernel's calls and in
+    then exact past head dim 512, on the short-stream kernel's calls and in
     :data:`STATIC_SHIFT_SLOWER`."""
     if jax_static_smax(q_shape, dtype, Lk, mode, Le, split_capable) is None:
         return None
     D, Sq = q_shape[3], q_shape[2]
-    if D > KERNEL_HEAD_DIMS[-1]:
+    if D > D512:
         return None
     Dp = padded_head_dim(D, mode, dtype)
     if takes_onepass(Dp, Sq, Lk, Le, mode, dtype):
@@ -608,7 +631,20 @@ D512_BF16_TILES = (64, 32, 2, 2)
 F32_D512_TILES = (64, 16, 2)
 
 
-def d512_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: Optional[float] = None) -> dict:
+def _static_log2(static_smax, dtype) -> Optional[tuple]:
+    """A resolved shift C (or None) as the static instances take it: (C
+    log2(e), STATIC_SHIFT_CLIP log2(e)), the shift and the clip in the
+    kernels' exp2 units; a shift on f16 operands raises ``ValueError``."""
+    if static_smax is None:
+        return None
+    if dtype not in STATIC_ENTRIES:
+        raise ValueError(f"no static-shift instance takes {dtype} (f16: exp(-C) flushes to 0); pass "
+                         "static_smax=None")
+    return float(static_smax) * _LOG2E, STATIC_SHIFT_CLIP * _LOG2E
+
+
+def d512_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: Optional[float] = None,
+                  static_smax: Optional[float] = None) -> dict:
     """Check the operands of the D=512 self-attention kernel of q's dtype
     (f32: ``csrc/flash_attention_f32_d512.cu``, bf16 and f16: the two
     instances of ``csrc/flash_attention_bf16_d512.cu``) and lay out one call
@@ -617,8 +653,12 @@ def d512_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: Opti
     of a new (B, Sq, H, 512) buffer, as the D <= 160 kernel writes), ``dims`` (B, H, Sq, Lk, then the (b, h, s)
     element strides of the four), ``scale``, ``head_dim`` (the caller's D)
     and ``out`` (the output at that D). A head dim between 160 and 512 is
-    zero-padded to 512, the scale kept at the unpadded D. Nothing here
-    needs a device."""
+    zero-padded to 512, the scale kept at the unpadded D. ``static_smax``,
+    a resolved shift C or None, lays out the static-shift instance
+    (:data:`STATIC_D512_ENTRIES`) with ``static`` = (C log2(e),
+    STATIC_SHIFT_CLIP log2(e)), passed after the scale; None (exact) where
+    none; on f16 a shift raises ``ValueError``. Nothing here needs a
+    device."""
     B, H, Sq, D = q.shape
     if q.dtype not in D512_ENTRIES:
         raise NotImplementedError(f"the D={D512} self-attention kernels take f32, bf16 or f16; q is {q.dtype}")
@@ -630,6 +670,7 @@ def d512_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: Opti
                                   "kernel_operands)")
     if Sq == 0 or k.shape[2] == 0:
         raise ValueError("empty query or key sequence")
+    static = _static_log2(static_smax, q.dtype)
     q, k, v = (_pad_head_dim(x, D512) for x in (q, k, v))
     for name, x in (("q", q), ("k", k), ("v", v)):
         _check_operand(name, x, q.dtype)
@@ -640,23 +681,26 @@ def d512_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: Opti
     dims = [B, H, Sq, k.shape[2]]
     for x in (q, k, v, out):
         dims += _bhs_strides(x)
-    return dict(entry=D512_ENTRIES[q.dtype], tensors=(q, k, v, out), dims=dims,
+    entry = (D512_ENTRIES if static is None else STATIC_D512_ENTRIES)[q.dtype]
+    return dict(entry=entry, static=static, tensors=(q, k, v, out), dims=dims,
                 scale=float(D ** -0.5 if scale is None else scale), head_dim=D, out=out[..., :D])
 
 
-def d512_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: Optional[float] = None) -> tuple:
+def d512_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: Optional[float] = None,
+                static_smax: Optional[float] = None) -> tuple:
     """:func:`d512_operands` on CUDA tensors, prepared for launching:
     returns ``(out, launch)``, where ``launch()`` runs the kernel into
     ``out`` on the current stream, as often as it is called. Counts
     nothing: the wrappers count their launches."""
-    ops = d512_operands(q, k, v, scale)
+    ops = d512_operands(q, k, v, scale, static_smax)
     entry, out, dims = ops["entry"], ops["out"], ops["dims"]
 
     from aid_tpu_torch.ops import _build
 
     fn = getattr(_build.library(), entry)
+    # the static-shift entries take the shift and the clip (log2 units) after the scale
     c_args = (*(x.data_ptr() for x in ops["tensors"]), (ctypes.c_longlong * len(dims))(*dims), ops["scale"],
-              torch.cuda.current_stream(q.device).cuda_stream)
+              *(ops["static"] or ()), torch.cuda.current_stream(q.device).cuda_stream)
 
     def launch() -> None:
         _build.check(fn(*c_args), f"{entry} launch")
@@ -665,47 +709,59 @@ def d512_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: Option
     return out, launch
 
 
-def _self_attention_d512(wrapper, small, q, k, v, scale):
-    """The D=512 self-attention wrappers' shared body: the plain
-    ``_softmax_attn`` on CPU tensors; on CUDA tensors of ``wrapper``'s dtype
-    (:data:`_WRAPPER_DTYPES`) ``small`` (the interpolating wrapper of that
-    dtype: the D <= 160 kernels, the D=161-512 entries' self instance, or
-    the wide entries past 512) unless :func:`takes_d512_self`, else the
-    D=512 kernel, counted on ``wrapper``."""
+def _self_attention_d512(wrapper, small, q, k, v, scale, static_smax):
+    """The D=512 self-attention wrappers' shared body: ``static_smax``
+    resolved (:func:`resolve_static_smax`: None, a float C, or "auto"; a
+    float raises ``ValueError`` on f16), then the plain ``_softmax_attn`` (at
+    the static shift where one) on CPU tensors; on CUDA tensors of
+    ``wrapper``'s dtype (:data:`_WRAPPER_DTYPES`) ``small`` (the
+    interpolating wrapper of that dtype: the D <= 160 kernels, the
+    D=161-512 entries' self instance, or the wide entries past 512) unless
+    :func:`takes_d512_self`, else the D=512 kernel (its static-shift
+    instance where shifted, counted in ``wrapper.launches_static`` too),
+    counted on ``wrapper``."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
+    shift = resolve_static_smax(q, k, AttnMode.SELF, static_smax=static_smax)
     if not use_kernel(q, k, v):
-        return _softmax_attn(q, k, v, scale)
+        return _softmax_attn(q, k, v, scale, None if shift is None else (shift, STATIC_SHIFT_CLIP))
     _check_dtype("q", q, _WRAPPER_DTYPES[wrapper.__name__])
     if not takes_d512_self(q.shape[-1], dtype=q.dtype):  # the D <= 160, D=161-512 or wide entries
-        return small(q, k, v, scale=scale)
-    out, launch = d512_launch(q, k, v, scale)
+        return small(q, k, v, scale=scale, static_smax=shift)
+    out, launch = d512_launch(q, k, v, scale, shift)
     launch()
     wrapper.launches += 1
+    if shift is not None:
+        wrapper.launches_static += 1
     return out
 
 
 def flash_self_attention_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                             scale: Optional[float] = None) -> torch.Tensor:
+                             scale: Optional[float] = None, static_smax=None) -> torch.Tensor:
     """softmax(q k^T * scale) v in f32 with head dim 512 (the VAE mid-block
     contract): ``csrc/flash_attention_f32_d512.cu`` on CUDA tensors, the
     plain ``_softmax_attn`` on CPU tensors. On CUDA a head dim from 161 to
     f32's :data:`DMID_SELF_MAX` (448) takes the f32 D=161-512 entry's self
     instance (one from 449 to 511 pads to 512), one of 160 or less (a tiny
     VAE's) the D <= 160 kernel in self mode, padded where needed, and one
-    past 512 the f32 wide entry.
+    past 512 the f32 wide entry. ``static_smax`` (None, the default: exact;
+    a float C; or "auto", as :func:`resolve_static_smax` resolves it): the
+    static-shift softmax, on CUDA at D=512 the static instance
+    ``aid_flash_attn_f32_d512_static``.
 
     q: (B, H, Sq, D), k/v: (B, H, Lk, D), all f32. Returns (B, H, Sq, D) f32.
     """
-    return _self_attention_d512(flash_self_attention_f32, flash_interpolated_attention_f32, q, k, v, scale)
+    return _self_attention_d512(flash_self_attention_f32, flash_interpolated_attention_f32, q, k, v, scale, static_smax)
 
 
-#: kernel launches since the last reset (chip_smoke.py reads it around each path)
+#: kernel launches since the last reset (chip_smoke.py reads it around each path); of those, the
+#: static-shift instance's in ``launches_static``
 flash_self_attention_f32.launches = 0
+flash_self_attention_f32.launches_static = 0
 
 
 def flash_self_attention_bf16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                              scale: Optional[float] = None) -> torch.Tensor:
+                              scale: Optional[float] = None, static_smax=None) -> torch.Tensor:
     """softmax(q k^T * scale) v in bf16 with head dim 512 (the mid-block
     attention of a bf16 VAE): ``csrc/flash_attention_bf16_d512.cu`` on CUDA
     tensors, the plain ``_softmax_attn`` (f32 logits and softmax, the
@@ -713,36 +769,43 @@ def flash_self_attention_bf16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dim from 161 to 511 (:data:`DMID_SELF_MAX`) takes the bf16 D=161-512
     entry's self instance, one of 160 or less the bf16 D <= 160 kernel in
     self mode, padded where needed, and one past 512 the bf16 wide entry.
+    ``static_smax`` as in :func:`flash_self_attention_f32` (the static
+    instance ``aid_flash_attn_bf16_d512_static``).
 
     q: (B, H, Sq, D), k/v: (B, H, Lk, D), all bf16. Returns (B, H, Sq, D)
     bf16; on CUDA a view of a (B, Sq, H, D) buffer, as the other bf16 kernel
     writes (sliced from a padded one where D was padded).
     """
-    return _self_attention_d512(flash_self_attention_bf16, flash_interpolated_attention, q, k, v, scale)
+    return _self_attention_d512(flash_self_attention_bf16, flash_interpolated_attention, q, k, v, scale, static_smax)
 
 
-#: kernel launches since the last reset (chip_smoke.py reads it around each path)
+#: kernel launches since the last reset (chip_smoke.py reads it around each path); of those, the
+#: static-shift instance's in ``launches_static``
 flash_self_attention_bf16.launches = 0
+flash_self_attention_bf16.launches_static = 0
 
 
 def flash_self_attention_f16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                             scale: Optional[float] = None) -> torch.Tensor:
+                             scale: Optional[float] = None, static_smax=None) -> torch.Tensor:
     """:func:`flash_self_attention_bf16` in f16 (the mid-block attention of
     an f16 VAE): the f16 instance of ``csrc/flash_attention_bf16_d512.cu``
     on CUDA tensors, the plain ``_softmax_attn`` (f32 logits and softmax,
     the probabilities rounded to f16 before P V) on CPU tensors. On CUDA a
     head dim of 160 or less takes the f16 D <= 160 kernel in self mode, one
     from 161 to 511 (:data:`DMID_SELF_MAX`) the f16 D=161-512 entry's self
-    instance, one past 512 the f16 wide entry.
+    instance, one past 512 the f16 wide entry. No static-shift instance: a
+    float ``static_smax`` raises ``ValueError``, "auto" is exact.
 
     q: (B, H, Sq, D), k/v: (B, H, Lk, D), all f16. Returns (B, H, Sq, D)
     f16; on CUDA a view of a (B, Sq, H, D) buffer.
     """
-    return _self_attention_d512(flash_self_attention_f16, flash_interpolated_attention_f16, q, k, v, scale)
+    return _self_attention_d512(flash_self_attention_f16, flash_interpolated_attention_f16, q, k, v, scale, static_smax)
 
 
-#: kernel launches since the last reset (chip_smoke.py reads it around each path)
+#: kernel launches since the last reset (chip_smoke.py reads it around each path); of those, the
+#: static-shift instance's in ``launches_static``
 flash_self_attention_f16.launches = 0
+flash_self_attention_f16.launches_static = 0
 
 
 def _bhs_strides(x: torch.Tensor) -> list:
@@ -800,10 +863,11 @@ def kernel_operands(
     :func:`d512_operands`). ``static_smax``, a resolved shift C
     (:func:`resolve_static_smax`) or None, lays out the static-shift
     instance (:data:`STATIC_ENTRIES`; :data:`STATIC_MIDSTREAM_ENTRIES` where
-    :func:`static_route` says "midstream", or as ``midstream`` says) with
+    :func:`static_route` says "midstream", or as ``midstream`` says; from 161
+    to 512 :data:`STATIC_DMID_ENTRIES`, with the exact entry's workspace) with
     ``static`` = (C log2(e), STATIC_SHIFT_CLIP log2(e)), the shift and clip in
     the kernels' exp2 units, passed after the scale; None where exact. A
-    shift in f16 raises ``ValueError``, past head dim 160 or on the
+    shift in f16 raises ``ValueError``, past head dim 512 or on the
     short-stream kernel ``NotImplementedError``: no instance, no fallback.
     Nothing here needs a device."""
     mode = AttnMode(mode)
@@ -892,14 +956,12 @@ def kernel_operands(
     if midstream:  # forced there, whatever the stream's length
         onepass = False
     static = None
-    if static_smax is not None:  # the static-shift instances: the streaming kernels' and the bf16 mid-length one's
-        if q.dtype not in STATIC_ENTRIES:
-            raise ValueError(f"no static-shift instance takes {q.dtype} (f16: exp(-C) flushes to 0); pass "
-                             "static_smax=None")
-        if Dp > KERNEL_HEAD_DIMS[-1]:
-            raise NotImplementedError(f"no static-shift instance at head dim {D} (padded {Dp}): the D=161-512, "
-                                      "D=512 self and wide kernels' static instances are queued in ROADMAP.md "
-                                      "(Queue 2, the static-shift instances past D=160); pass static_smax=None")
+    if static_smax is not None:  # the static-shift instances: the streaming, bf16 mid-length and D=161-512 ones
+        static = _static_log2(static_smax, q.dtype)
+        if Dp > D512:
+            raise NotImplementedError(f"no static-shift instance at head dim {D} (padded {Dp}): the wide kernels' "
+                                      "static instances (and their static combine) are queued in ROADMAP.md "
+                                      "(Queue 2, the static-shift instances past D=512); pass static_smax=None")
         if onepass:
             raise NotImplementedError("the short-stream kernel has no static-shift instance (its calls take the "
                                       "streaming kernel's)")
@@ -908,10 +970,12 @@ def kernel_operands(
             raise NotImplementedError(f"the mid-length stream kernel has no static-shift instance for a {q.dtype} "
                                       f"call at D={Dp} in {mode.value} mode")
         onepass = False
-        if midstream is None:
-            midstream = static_route(Dp, Sq, k.shape[2], dims[4], mode, q.dtype) == "midstream"
-        entry = (STATIC_MIDSTREAM_ENTRIES if midstream else STATIC_ENTRIES)[q.dtype]
-        static = (float(static_smax) * _LOG2E, STATIC_SHIFT_CLIP * _LOG2E)
+        if Dp > KERNEL_HEAD_DIMS[-1]:
+            midstream, entry = False, STATIC_DMID_ENTRIES[q.dtype]
+        else:
+            if midstream is None:
+                midstream = static_route(Dp, Sq, k.shape[2], dims[4], mode, q.dtype) == "midstream"
+            entry = (STATIC_MIDSTREAM_ENTRIES if midstream else STATIC_ENTRIES)[q.dtype]
     onepass = takes_onepass(Dp, Sq, k.shape[2], dims[4], mode, q.dtype) if onepass is None else onepass
     midstream = (not onepass and takes_midstream(Dp, Sq, k.shape[2], dims[4], mode, q.dtype) if midstream is None
                  else midstream)
@@ -977,8 +1041,9 @@ def _launch_counted(wrapper, q, *args, **kwargs) -> torch.Tensor:
     where the short-stream kernel took it, in ``launches_onepass`` under
     that head dim too, where the mid-length stream kernel took it, in
     ``launches_midstream``; a static-shift instance's launches count apart
-    from those in ``launches_static`` (the streaming kernel's) and
-    ``launches_static_midstream``."""
+    from those in ``launches_static`` (the streaming kernel's),
+    ``launches_static_midstream`` and ``launches_static_dmid`` (the D=161-512
+    kernels', by the operands' head dim)."""
     _check_dtype("q", q, _WRAPPER_DTYPES[wrapper.__name__])
     out, launch = kernel_launch(q, *args, **kwargs)
     launch()
@@ -986,7 +1051,9 @@ def _launch_counted(wrapper, q, *args, **kwargs) -> torch.Tensor:
     Dp = ops["dims"][5]
     wrapper.launches += 1
     wrapper.launches_by_head_dim[instance_head_dim(Dp)] += 1
-    if ops["static"] is not None:
+    if ops["static"] is not None and Dp > KERNEL_HEAD_DIMS[-1]:
+        wrapper.launches_static_dmid[Dp] = wrapper.launches_static_dmid.get(Dp, 0) + 1
+    elif ops["static"] is not None:
         (wrapper.launches_static_midstream if ops["midstream"] else wrapper.launches_static)[Dp] += 1
     elif ops["onepass"]:
         wrapper.launches_onepass[Dp] += 1
@@ -1024,9 +1091,11 @@ def flash_interpolated_attention(
     ``static_smax`` (aid_tpu/ops/flash_attention.py:44-65, 728-746): None,
     the default, is the exact softmax; a float C the static shift, computed
     by the plain version on any device and on CUDA by the static-shift
-    instance (bf16 and f32 at head dims up to 160: a bf16 call the
+    instance (bf16 and f32: at head dims up to 160 a bf16 call the
     mid-length stream kernel takes in an endpoint mode at D = 64 on its
-    instance, every other on the streaming kernel's; past 160
+    instance, every other on the streaming kernel's; from 161 to 512 the
+    D=161-512 kernels' instance, self mode past the dtype's
+    :data:`DMID_SELF_MAX` the D=512 self kernels'; past 512
     ``NotImplementedError``, in f16 ``ValueError``); ``"auto"`` as
     :func:`resolve_static_smax` resolves it.
     Returns (B, H, Sq, D) in q's dtype; on CUDA the result is a view of a
@@ -1040,13 +1109,9 @@ def flash_interpolated_attention(
             scale=scale, skip_endpoints=skip_endpoints, static_smax=shift)
 
     if takes_d512_self(q.shape[-1], mode, q.dtype):  # the D=512 kernels (the VAE's), padded to 512 past DMID_SELF_MAX
-        if shift is not None:
-            raise NotImplementedError(f"no static-shift instance at head dim {q.shape[-1]} in self mode: the D=512 "
-                                      "self kernels' static instances are queued in ROADMAP.md (Queue 2, the "
-                                      "static-shift instances past D=160); pass static_smax=None")
         d512 = {torch.float32: flash_self_attention_f32, torch.bfloat16: flash_self_attention_bf16,
                 torch.float16: flash_self_attention_f16}[q.dtype]
-        return d512(q, k, v, scale)
+        return d512(q, k, v, scale, static_smax=shift)
     other = {torch.float32: flash_interpolated_attention_f32, torch.float16: flash_interpolated_attention_f16}
     if q.dtype in other:
         return other[q.dtype](q, k, v, coef, mode, k_begin=k_begin, v_begin=v_begin, k_end=k_end, v_end=v_end,
@@ -1081,7 +1146,8 @@ def flash_interpolated_attention_f32(
     the caller's D); one from 513 to 2048, in every mode,
     ``aid_flash_attn_f32_dwide`` (``csrc/flash_attention_dwide.cu``). A
     shift (``static_smax``, as in :func:`flash_interpolated_attention`) takes
-    ``aid_flash_attn_f32_static`` at head dims up to 160. Returns (B, H, Sq,
+    ``aid_flash_attn_f32_static`` at head dims up to 160,
+    ``aid_flash_attn_f32_dmid_static`` from 161 to 512. Returns (B, H, Sq,
     D) f32; on CUDA a view of a (B, Sq, H, Dp) buffer, as the bf16 kernel
     writes.
     """
@@ -1141,8 +1207,9 @@ def reset_launch_counts() -> None:
     :data:`DWIDE` the wide entries: a padded call counts under the instance
     that takes it; and the short-stream and the mid-length stream kernels'
     launches and the static-shift instances' (the streaming kernel's and the
-    mid-length stream kernel's), parts of those at D <= 160, by head dim) to
-    0."""
+    mid-length stream kernel's), parts of those at D <= 160, by head dim,
+    and the D=161-512 kernels', by the operands' head dim) to 0, and the
+    D=512 self wrappers' static-shift launches."""
     for fn in (flash_interpolated_attention, flash_interpolated_attention_f16, flash_interpolated_attention_f32):
         fn.launches = 0
         fn.launches_by_head_dim = dict.fromkeys((*KERNEL_HEAD_DIMS, D512, DWIDE), 0)
@@ -1150,6 +1217,9 @@ def reset_launch_counts() -> None:
         fn.launches_midstream = dict.fromkeys(KERNEL_HEAD_DIMS, 0)
         fn.launches_static = dict.fromkeys(KERNEL_HEAD_DIMS, 0)
         fn.launches_static_midstream = dict.fromkeys(KERNEL_HEAD_DIMS, 0)
+        fn.launches_static_dmid = {}
+    for fn in (flash_self_attention_f32, flash_self_attention_bf16, flash_self_attention_f16):
+        fn.launches_static = 0
 
 
 #: kernel launches since the last reset, in all, by head dim and on the

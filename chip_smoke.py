@@ -114,7 +114,8 @@ Phases (each prints its own lines; any failure exits non-zero):
                  PyTorch call computing the same function where there is
                  one (cuDNN conv in both layouts, SDPA under each backend)
                  as the yardstick library_ms; the static-shift instances
-                 (static_smax = 40) beside the exact route, at the window's
+                 (static_smax = 40: the D <= 160, mid-length, D=161-512 and
+                 D=512 self ones) beside the exact route, at the window's
                  edges and against two planted faults (the clip dropped, the
                  shift left in a per-tile rescale)
   4. whole UNet  one full-width SDXL forward in fused_outer through the
@@ -129,9 +130,13 @@ Phases (each prints its own lines; any failure exits non-zero):
   7. fused GN    the fused-prologue configuration: a whole-UNet check with a
                  planted halo fault, then a 2-step denoise both ways
   8. image out   SDXL interpolate() at 1024px with the f32 VAE, then with
-                 the bf16 VAE; stage times, launch counts, the raw decoder
+                 the bf16 VAE, each also with VAE tiling at 32-latent tiles
+                 (1024-token attention the JAX wrapper keeps exact: the
+                 exact D=512 kernels); stage times, launch counts, the raw decoder
                  output through the kernels vs the plain versions (f32 and
-                 bf16, the bf16 one with a planted fault), one frame's tiled
+                 bf16, the bf16 one with a planted fault; the VAE's attention
+                 on the D=512 static-shift instances under "auto", its logit
+                 window read on one decode), one frame's tiled
                  decode (512px tiles) kernels vs plain; one more run with
                  the invisible watermark, its 48 bits read back from a frame
   9. SD1.5 UNet  one full-width SD1.5 forward in fused_outer, kernels vs
@@ -570,8 +575,11 @@ def read_counts() -> dict:
     ``...[onepass D=...]`` by head dim, the mid-length stream kernel's
     under ``...[midstream]`` and ``...[midstream D=...]``, and the
     static-shift instances' (bf16 and f32) under ``...[static]`` /
-    ``...[static D=...]`` (the streaming kernels') and ``...[static
-    midstream]`` / ``...[static midstream D=...]``."""
+    ``...[static D=...]`` (the streaming kernels'), ``...[static
+    midstream]`` / ``...[static midstream D=...]`` and ``...[static dmid]``
+    / ``...[static dmid D=...]`` (the D=161-512 kernels', by the operands'
+    head dim, the dims launched); the D=512 self wrappers' static launches
+    under ``flash_self_attention_*[static]``."""
     wrappers = kernel_wrappers()
     counts = {name: fn.launches for name, fn in wrappers.items()}
     for name in ("flash_interpolated_attention", "flash_interpolated_attention_f32",
@@ -585,24 +593,29 @@ def read_counts() -> dict:
             for d, n in by_dim.items():
                 counts[f"{name}[{kind} D={d}]"] = n
     for name in ("flash_interpolated_attention", "flash_interpolated_attention_f32"):
-        for kind, attr in (("static", "launches_static"), ("static midstream", "launches_static_midstream")):
+        for kind, attr in (("static", "launches_static"), ("static midstream", "launches_static_midstream"),
+                           ("static dmid", "launches_static_dmid")):
             by_dim = getattr(wrappers[name], attr)
             counts[f"{name}[{kind}]"] = sum(by_dim.values())
-            for d, n in by_dim.items():
+            for d, n in sorted(by_dim.items()):
                 counts[f"{name}[{kind} D={d}]"] = n
+    for name in ("flash_self_attention_f32", "flash_self_attention_bf16", "flash_self_attention_f16"):
+        counts[f"{name}[static]"] = wrappers[name].launches_static
     return counts
 
 
 def static_needed(dtype: str, classes) -> tuple:
     """The static-shift counters a path of ``dtype`` must show for its call
-    classes [(kernel, head dim, mode)] under "auto": each class's, unless
-    the card measured it slower (``STATIC_SHIFT_SLOWER``: "auto" keeps it
-    exact)."""
+    classes [(kernel, head dim, mode)] under "auto" (kernel as
+    ``static_route`` names it: "streaming", "midstream", "dmid" or "d512"):
+    each class's, unless the card measured it slower
+    (``STATIC_SHIFT_SLOWER``: "auto" keeps it exact)."""
     from aid_tpu_torch.ops.flash_attention import STATIC_SHIFT_SLOWER
 
     name = {"bf16": "flash_interpolated_attention", "f32": "flash_interpolated_attention_f32"}[dtype]
-    kinds = {"streaming": "static", "midstream": "static midstream"}
-    return tuple(sorted({f"{name}[{kinds[kernel]}]" for kernel, d, mode in classes
+    kinds = {"streaming": f"{name}[static]", "midstream": f"{name}[static midstream]",
+             "dmid": f"{name}[static dmid]", "d512": f"flash_self_attention_{dtype}[static]"}
+    return tuple(sorted({kinds[kernel] for kernel, d, mode in classes
                          if (kernel, dtype, d, mode) not in STATIC_SHIFT_SLOWER}))
 
 
@@ -757,13 +770,18 @@ def phase_kernels(coef, sd_coef, fused_classes, sd21_classes):
     from aid_tpu_torch.ops.conv import conv3x3_gnsilu, conv3x3_gnsilu_plain, conv3x3_same, conv3x3_same_plain
     from aid_tpu_torch.ops.flash_attention import (
         D512,
+        D512_BF16_TILES,
+        F32_D512_TILES,
         KERNEL_F32_TILES,
         KERNEL_HEAD_DIMS,
         KERNEL_TILES,
         MIDSTREAM_TILES,
+        STATIC_D512_ENTRIES,
+        STATIC_DMID_ENTRIES,
         STATIC_SHIFT_C,
         d512_launch,
         dmid_columns,
+        dmid_tiles,
         dwide_tiles,
         flash_interpolated_attention,
         flash_interpolated_attention_plain,
@@ -984,6 +1002,55 @@ def phase_kernels(coef, sd_coef, fused_classes, sd21_classes):
                 "self_library_ms": self_case["library_ms"], "self_library": self_case["library"],
                 **({"shapes": shapes} if dtype == torch.float32 else {})}
 
+    def d512_static(label, c, H, Sq, D, reps, dtype):
+        """One self call of the D=512 self kernels' static-shift instance
+        (B = len(c), (B, H, Sq, D), a head dim under 512 padded to it as the
+        wrapper pads it): through the wrapper at static_smax = STATIC_SHIFT_C
+        (ms) and launched alone on operands d512_launch prepared once
+        (kernel_ms), in turns with the exact instance (exact_ms,
+        exact_kernel_ms), held to the plain version's static shift (f32 to
+        F32_ATTN_TOL, bf16 to BF16_D512_TOL), bounded at the caller's D (f32
+        at its 1.5 TF32 + 1.5 bf16 passes), beside SDPA under each backend
+        that takes the input. Returns a record, as attention's."""
+        B, f32 = c.shape[0], dtype == torch.float32
+        tol = F32_ATTN_TOL if f32 else BF16_D512_TOL
+        wrapper = flash_self_attention_f32 if f32 else flash_self_attention_bf16
+        q, k, v = (torch.randn((B, H, Sq, D), generator=gen, device=dev, dtype=torch.float32).to(dtype)
+                   for _ in range(3))
+        shift = STATIC_SHIFT_C
+        got = wrapper(q, k, v, static_smax=shift)
+        torch.cuda.synchronize()
+        want = flash_interpolated_attention_plain(q, k, v, static_smax=shift)
+        err, ref = (got.float() - want.float()).abs().max().item(), want.float().abs().max().item()
+        _, launch = d512_launch(q, k, v, static_smax=shift)
+        _, exact_alone = d512_launch(q, k, v)
+        if launch.operands["entry"] != STATIC_D512_ENTRIES[dtype]:
+            fail(f"D=512 static {label} ({dtype}): the call took {launch.operands['entry']}")
+        times = {"kernel_ms": [], "ms": [], "exact_kernel_ms": [], "exact_ms": []}
+        for _ in range(2):  # in turns, the least of two kept
+            times["kernel_ms"].append(cuda_ms(launch, reps))
+            times["exact_kernel_ms"].append(cuda_ms(exact_alone, reps))
+            times["ms"].append(cuda_ms(lambda: wrapper(q, k, v, static_smax=shift), reps))
+            times["exact_ms"].append(cuda_ms(lambda: wrapper(q, k, v), reps))
+        times = {n: min(t) for n, t in times.items()}
+        plain_ms = cuda_ms(lambda: flash_interpolated_attention_plain(q, k, v, static_smax=shift), max(1, reps // 5))
+        passes = F32_D512_PASSES if f32 else {}
+        bound_ms, bound_by = attention_bound("self", B, H, Sq, Sq, D, elem=4 if f32 else 2, **passes)
+        library = sdpa_backends(q, k, v, want, reps)
+        ok = math.isfinite(err) and err <= tol * ref
+        print(f"attention static {'f32' if f32 else 'bf16'} D=512 self {label:26s} ({B},{H},{Sq},{D}): max_abs_err "
+              f"{err:.3e} (max|ref| {ref:.3e}, tol {tol * ref:.3e}) rel_l2 {rel_l2(got, want):.3e}  kernel "
+              f"{times['ms']:.4f} ms (launch alone {times['kernel_ms']:.4f}, {bound_ms / times['kernel_ms']:.1%} of the "
+              f"bound)  plain {plain_ms:.3f} ms  {yardsticks(bound_ms, bound_by, library)}; "
+              f"{launch.operands['entry']} against the exact {exact_alone.operands['entry']} {times['exact_ms']:.4f} "
+              f"ms (launch alone {times['exact_kernel_ms']:.4f})  {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            fail(f"D=512 static {label} ({dtype}): kernel disagrees with the plain version")
+        lib_name, lib_ms = fastest(library)
+        return {"max_abs_err": err, **times, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": lib_ms, "library": lib_name, "exact_entry": exact_alone.operands["entry"],
+                "want": want, "got": got, "inputs": (q, k, v, c, "self", {})}
+
     # SDXL, D=64 (label, mode, H, Sq, Lkv, D, reps, Le): self/fused_outer
     # self-attention and the 77-token cross-attention at both SDXL attention
     # levels, then the other three modes at one small shape
@@ -1202,16 +1269,23 @@ def phase_kernels(coef, sd_coef, fused_classes, sd21_classes):
     # the route sends each, each beside the exact route and the plain
     # version's static shift: the streaming kernels' (bf16 and f32; SD 1.5's
     # D = 160 calls stay exact on the path, own KV under 512, and are held
-    # here all the same) and the bf16 mid-length stream kernel's (the
-    # endpoint modes at D = 64). Then, at one shape each, the window's edges
-    # (row maxes near -23: the exact result; far past +70: the clipped one)
-    # and two planted faults the tolerance must see: the clip dropped (which
-    # is the exact softmax) on the hot input, and the shift left in a
-    # per-tile rescale (O and l times e^-C before each tile)
+    # here all the same), the bf16 mid-length stream kernel's (the endpoint
+    # modes at D = 64), the D=161-512 kernels' (bf16 and f32: phase 21's
+    # D = 320 in every mode, and the self calls at 448 and 504 the route
+    # sends them) and the D=512 self kernels' (f32 and bf16: the VAE's
+    # 1024px frame, seven 512px frames, the tiled decode's ragged tile; f32's
+    # self calls past 448, padded to 512). Then, at one shape each, the
+    # window's edges (row maxes near -23: the exact result; far past +70: the
+    # clipped one) and two planted faults the tolerance must see: the clip
+    # dropped (which is the exact softmax) on the hot input, and the shift
+    # left in a per-tile rescale (O and l times e^-C before each of the
+    # instance's own key tiles)
     t_static = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(26)
+    one = torch.zeros(1, device=dev)  # a single-frame decode's batch of one
+    modes5 = ("fused_outer", "pure_outer", "fused_inner", "pure_inner", "self")
     static_sets = [
-        ("flash_interpolated_attention(static)", torch.bfloat16, False, [
+        ("flash_interpolated_attention(static)", torch.bfloat16, "streaming", [
             ("SDXL self 4096", "self", coef, 10, 4096, 4096, 64, 10),
             ("SDXL fused_outer 4096", "fused_outer", coef, 10, 4096, 4096, 64, 5),
             ("SD1.5 self 4096", "self", sd_coef, 8, 4096, 4096, 40, 10),
@@ -1220,11 +1294,11 @@ def phase_kernels(coef, sd_coef, fused_classes, sd21_classes):
             ("SD1.5 fused_outer 256", "fused_outer", sd_coef, 8, 256, 256, 160, 20),
             ("SD2.1 self 9216", "self", sd_coef, 5, 9216, 9216, 64, 3),
             ("SD2.1 fused_outer 2304", "fused_outer", sd_coef, 10, 2304, 2304, 64, 10)]),
-        ("flash_interpolated_attention(static midstream)", torch.bfloat16, True, [
+        ("flash_interpolated_attention(static midstream)", torch.bfloat16, "midstream", [
             ("SDXL fused_outer 1024", "fused_outer", coef, 20, 1024, 1024, 64, 20),
             *[(f"SDXL {m} 1024", m, coef, 20, 1024, 1024, 64, 10) for m in ("pure_outer", "fused_inner", "pure_inner")],
             ("SD2.1 fused_outer 576", "fused_outer", sd_coef, 20, 576, 576, 64, 20)]),
-        ("flash_interpolated_attention_f32(static)", torch.float32, False, [
+        ("flash_interpolated_attention_f32(static)", torch.float32, "streaming", [
             ("SDXL self 4096", "self", coef, 10, 4096, 4096, 64, 3),
             ("SDXL fused_outer 4096", "fused_outer", coef, 10, 4096, 4096, 64, 2),
             ("SDXL fused_outer 1024", "fused_outer", coef, 20, 1024, 1024, 64, 5),
@@ -1232,29 +1306,60 @@ def phase_kernels(coef, sd_coef, fused_classes, sd21_classes):
             ("SD1.5 fused_outer 4096", "fused_outer", sd_coef, 8, 4096, 4096, 40, 2),
             ("SD1.5 fused_outer 1024", "fused_outer", sd_coef, 8, 1024, 1024, 80, 5),
             ("SD1.5 fused_outer 256", "fused_outer", sd_coef, 8, 256, 256, 160, 10)]),
+        ("flash_interpolated_attention(static dmid)", torch.bfloat16, "dmid", [
+            *[(f"SD1.x D=320 {m} 4096", m, sd_coef, 1, 4096, 4096, 320, 5) for m in modes5],
+            ("SD1.x D=320 fused_outer 1024", "fused_outer", sd_coef, 2, 1024, 1024, 320, 10),
+            *[(f"self 1024 D={D}", "self", sd_coef, 2, 1024, 1024, D, 10) for D in (448, 504)]]),
+        ("flash_interpolated_attention_f32(static dmid)", torch.float32, "dmid", [
+            *[(f"SD1.x D=320 {m} 4096", m, sd_coef, 1, 4096, 4096, 320, 2) for m in modes5],
+            ("SD1.x D=320 fused_outer 1024", "fused_outer", sd_coef, 2, 1024, 1024, 320, 5),
+            ("self 1024 D=448", "self", sd_coef, 2, 1024, 1024, 448, 5)]),
+        ("flash_self_attention_f32(static)", torch.float32, "d512", [
+            ("VAE 1024px frame", "self", one, 1, 16384, 16384, 512, 2),
+            ("VAE 512px, 7 frames", "self", sd_coef, 1, 4096, 4096, 512, 3),
+            ("VAE tiled decode's tile", "self", one, 1, 4000, 4000, 512, 5),
+            ("self 1024 D=504 (padded)", "self", sd_coef, 2, 1024, 1024, 504, 5)]),
+        ("flash_self_attention_bf16(static)", torch.bfloat16, "d512", [
+            ("VAE 1024px frame", "self", one, 1, 16384, 16384, 512, 5),
+            ("VAE 512px, 7 frames", "self", sd_coef, 1, 4096, 4096, 512, 5),
+            ("VAE tiled decode's tile", "self", one, 1, 4000, 4000, 512, 10)]),
     ]
-    for name, dtype, midstream, cases in static_sets:
+    for name, dtype, kind, cases in static_sets:
         tol = F32_ATTN_TOL if dtype == torch.float32 else ATTN_TOL
         worst, shapes, main, rescale_case = 0.0, {}, None, None
         for label, mode, c, H, Sq, L, D, reps in cases:
-            r = attention(label, mode, c, H, Sq, L, D, reps, None, dtype, static=True)
+            if kind == "d512":
+                r = d512_static(label, c, H, Sq, D, reps, dtype)
+            else:
+                r = attention(label, mode, c, H, Sq, L, D, reps, None, dtype, static=True)
             got, want, inputs = r.pop("got"), r.pop("want"), r.pop("inputs")
-            routed = kernel_launch(*inputs[:5], static_smax=STATIC_SHIFT_C, **inputs[5])[1].operands["midstream"]
-            if routed != midstream:
-                fail(f"{name} {label}: the static call took the {'mid-length' if routed else 'streaming'} kernel")
+            if kind != "d512":
+                entry = kernel_launch(*inputs[:5], static_smax=STATIC_SHIFT_C, **inputs[5])[1].operands["entry"]
+                routed = ("dmid" if entry == STATIC_DMID_ENTRIES[dtype] else
+                          "midstream" if "midstream" in entry else "streaming")
+                if routed != kind:
+                    fail(f"{name} {label}: the static call took {entry}, not the {kind} kernel's instance")
             if rescale_case is None and mode in ("self", "pure_inner"):
                 rescale_case = (label, got, want, inputs)
             del got, want
             worst = max(worst, r["max_abs_err"])
             shapes[f"{label} ({c.shape[0]},{H},{Sq},{D})"] = {
                 **{k: r[k] for k in ("ms", "kernel_ms", "exact_ms", "exact_kernel_ms", "plain_ms", "bound_ms",
-                                     "library_ms", "library")}, "bound_share": r["bound_ms"] / r["kernel_ms"]}
+                                     "library_ms", "library")}, "bound_share": r["bound_ms"] / r["kernel_ms"],
+                "static_over_exact_alone": r["kernel_ms"] / r["exact_kernel_ms"]}
             main = main or r
-        # the shift left in a per-tile rescale: the plain static shift with O and l times e^-C before each tile
+        # the shift left in a per-tile rescale: the plain static shift with O and l times e^-C before each of
+        # the instance's own key tiles
         label, got, want, (q, k, v, c, mode, kw) = rescale_case
         ref = want.float().abs().max().item()
-        bk = (MIDSTREAM_TILES if midstream else KERNEL_F32_TILES if dtype == torch.float32 else KERNEL_TILES)[
-            padded_head_dim(q.shape[-1], mode, dtype)][1 if not midstream else 0]
+        Dp = padded_head_dim(q.shape[-1], mode, dtype)
+        if kind == "d512":
+            bk = (F32_D512_TILES if dtype == torch.float32 else D512_BF16_TILES)[1]
+        elif kind == "dmid":
+            bk = dmid_tiles(Dp, dtype, *q.shape[:3])["BK"]
+        else:
+            bk = (MIDSTREAM_TILES if kind == "midstream" else KERNEL_F32_TILES if dtype == torch.float32
+                  else KERNEL_TILES)[Dp][0 if kind == "midstream" else 1]
         fault = shift_in_rescale_fault(q, k, v, c, mode, STATIC_SHIFT_C, bk)
         ferr = (got.float() - fault).abs().max().item()
         print(f"  planted fault on {label} (the shift left in a per-tile rescale, {bk}-key tiles): max_abs_err "
@@ -1268,7 +1373,10 @@ def phase_kernels(coef, sd_coef, fused_classes, sd21_classes):
         for hot in (False, True):
             q, k, v, scale = window_inputs(dtype, hot, c.shape[0], H, Sq, D, gen)
             kw = {} if mode == "self" else {"skip_endpoints": skip_mask(c, c.shape[0])}
-            out, launch = kernel_launch(q, k, v, c, mode, scale=scale, static_smax=STATIC_SHIFT_C, **kw)
+            if kind == "d512":
+                out, launch = d512_launch(q, k, v, scale, static_smax=STATIC_SHIFT_C)
+            else:
+                out, launch = kernel_launch(q, k, v, c, mode, scale=scale, static_smax=STATIC_SHIFT_C, **kw)
             launch()
             clipped = flash_interpolated_attention_plain(q, k, v, c, mode, scale=scale, static_smax=STATIC_SHIFT_C,
                                                          **kw)
@@ -2118,11 +2226,39 @@ def check_decoder(decode, z, images, frame: int, tol: float = VAE_TOL, label: st
     return rel
 
 
+def tiled_vae_path(pipe, vae, call, steps: int, card: str, dtype: str) -> dict:
+    """``call`` with the pipeline's VAE tiling on at 32-latent tiles
+    (``enable_vae_tiling(32)``: 256px tiles, a 1024-token mid-block
+    attention each, which the JAX wrapper keeps exact as a one-pass self
+    call): the images, the VAE's attention on the exact D=512 kernel of
+    ``dtype`` and none on its static-shift instance. Returns the path's
+    counts."""
+    pipe.enable_vae_tiling(32)
+    try:
+        images, counts, times, _, elapsed, peak = run_image_path(pipe, vae, call, steps, 7)
+    finally:
+        pipe.disable_vae_tiling()
+    label = f"interpolate, {dtype} VAE in 32-latent tiles"
+    check_images(label, images, (7, 1024, 1024, 3), times, elapsed, peak, card)
+    name = f"flash_self_attention_{dtype}"
+    check_path(f"image out, {dtype} VAE in 32-latent tiles", counts, ("flash_interpolated_attention", name,
+                                                                     "conv3x3_same"))
+    print(f"{label}: {counts[name]} D=512 launches, {counts[name + '[static]']} on the static-shift instance "
+          f"(the 1024-token tiles stay exact under \"auto\")", flush=True)
+    if counts[name + "[static]"]:
+        fail(f"{label}: the 1024-token tiles took the static-shift instance; the JAX wrapper keeps them exact")
+    return counts
+
+
 def phase_image(unet, steps: int, card: str):
     """InterpolationXLPipeline.interpolate at 1024px with the f32 VAE, then
-    with the bf16 VAE: stage times, launch counts, peak memory, one frame's
-    raw decoder output through the kernels vs the plain versions, and that
-    frame's tiled bf16 decode. Returns the two paths' launch counts."""
+    with the bf16 VAE: stage times, launch counts (the VAE's attention on
+    the D=512 static-shift instance of its dtype under "auto", unless
+    STATIC_SHIFT_SLOWER keeps it exact), peak memory, one frame's raw
+    decoder output through the kernels vs the plain versions (the f32 one's
+    logit window read and held inside STATIC_WINDOW), that frame's tiled
+    bf16 decode, and each VAE in 32-latent tiles (``tiled_vae_path``: the
+    exact D=512 kernels). Returns the four paths' launch counts."""
     import numpy as np
     import torch
 
@@ -2154,10 +2290,17 @@ def phase_image(unet, steps: int, card: str):
 
     images, counts, times, decoder_inputs, elapsed, peak = run_image_path(pipe, vae, call, steps, 7)
     check_images("interpolate", images, (7, 1024, 1024, 3), times, elapsed, peak, card)
-    check_path("image out", counts, ("flash_interpolated_attention", "flash_self_attention_f32", "conv3x3_same"))
-    if counts["flash_self_attention_f32"] != 7:
-        fail(f"the f32 attention kernel ran {counts['flash_self_attention_f32']} times, once per frame (7) expected")
+    vae_static = static_needed("f32", [("d512", 512, "self")])  # the VAE's attention under "auto"
+    check_path("image out", counts, ("flash_interpolated_attention", "flash_self_attention_f32", "conv3x3_same",
+                                     *vae_static))
+    if counts["flash_self_attention_f32"] != 7 or counts["flash_self_attention_f32[static]"] != 7 * len(vae_static):
+        fail(f"the f32 attention kernel ran {counts['flash_self_attention_f32']} times "
+             f"({counts['flash_self_attention_f32[static]']} on its static-shift instance), once per frame (7) "
+             f"expected")
     check_decoder(vae.decode, decoder_inputs[3], images, 3)  # frame by frame: input 3 is frame 3
+    with torch.no_grad(), logit_window("the f32 VAE decode of frame 3 (its mid-block attention, D=512)"):
+        vae.decode(decoder_inputs[3])
+    counts_tiled = tiled_vae_path(pipe, vae, call, steps, card, "f32")
 
     # the same call with the bf16 VAE: its mid-block attention is the bf16
     # D=512 kernel, once per frame
@@ -2166,7 +2309,8 @@ def phase_image(unet, steps: int, card: str):
     images, counts_bf16, times, decoder_inputs, elapsed, peak = run_image_path(pipe, vae, call, steps, 7)
     check_images("interpolate, bf16 VAE", images, (7, 1024, 1024, 3), times, elapsed, peak, card)
     check_path("image out, bf16 VAE", counts_bf16,
-               ("flash_interpolated_attention", "flash_self_attention_bf16", "conv3x3_same"))
+               ("flash_interpolated_attention", "flash_self_attention_bf16", "conv3x3_same",
+                *static_needed("bf16", [("d512", 512, "self")])))
     if counts_bf16["flash_self_attention_bf16"] != 7 or counts_bf16["flash_self_attention_f32"]:
         fail(f"the bf16 VAE ran the bf16 D=512 kernel {counts_bf16['flash_self_attention_bf16']} times and the f32 "
              f"one {counts_bf16['flash_self_attention_f32']} times; 7 and 0 expected")
@@ -2181,8 +2325,10 @@ def phase_image(unet, steps: int, card: str):
     reset_counts()
     check_decoder(lambda z: engine.tiled_decode(vae, z, tile_latent_size=64), decoder_inputs[3], images, 3,
                   BF16_VAE_TOL, "tiled bf16 decode (64-latent tiles)", attention_unnormalised_fault)
-    print(f"tiled decode of one frame: {read_counts()['flash_self_attention_bf16']} bf16 D=512 launches (one per "
-          f"tile)", flush=True)
+    tiled = read_counts()
+    print(f"tiled decode of one frame: {tiled['flash_self_attention_bf16']} bf16 D=512 launches (one per tile), "
+          f"{tiled['flash_self_attention_bf16[static]']} of them on its static-shift instance", flush=True)
+    counts_bf16_tiled = tiled_vae_path(pipe, vae, call, steps, card, "bf16")
 
     # the invisible watermark on one more run: every frame marked, the bits
     # read back from one of them
@@ -2202,7 +2348,7 @@ def phase_image(unet, steps: int, card: str):
           f"{'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
         fail(f"the watermark read back from frame 3 is {bits.tolist()}, not the 48-bit message")
-    return [counts, counts_bf16]
+    return [counts, counts_tiled, counts_bf16, counts_bf16_tiled]
 
 
 def sd15_coef():
@@ -4534,6 +4680,19 @@ def check_wide_only(path: str, counts: dict, needed, allowed=()) -> None:
         fail(f"the {path} path launched attention entries other than {tuple(needed) + tuple(allowed)}: {other}")
 
 
+def check_static_dims(path: str, counts: dict, name: str, dims) -> None:
+    """The static-shift launches of a path with head dims past 160: those of
+    ``name`` (an interpolating wrapper) only on the D=161-512 kernels at
+    ``dims`` (no other dtype's, none on the D <= 160 ones' instances, none
+    at another head dim); none past 512, where the wide kernels have no
+    static instance and "auto" stays exact."""
+    shifted = {n: c for n, c in counts.items() if c and "[static" in n and " D=" in n}
+    other = {n: c for n, c in shifted.items() if n not in {f"{name}[static dmid D={d}]" for d in dims}}
+    print(f"static-shift launches of the {path} path by head dim: {shifted}", flush=True)
+    if other:
+        fail(f"the {path} path launched static-shift instances other than {name}'s at D = {tuple(dims)}: {other}")
+
+
 def phase_wide_heads(card: str, device: str = "cuda", configs=None, steps: int = WIDE_STEPS) -> list:
     """Phase 21: SD 1.x at D = 320. A full-width SD 1.5 diffusers directory
     with attention_head_dim WIDE_HEADS (f16 weights from a seed) written into
@@ -4550,8 +4709,12 @@ def phase_wide_heads(card: str, device: str = "cuda", configs=None, steps: int =
     attention launch at D = 320 lands on the D=161-512 entries (counted
     under D=512; self mode through their instance with no endpoint set),
     none on the D <= 160 kernels or the D=512 self ones; the one D=512 self
-    launch is the f32 VAE's. Returns the paths' counts. ``device``/``configs``
-    exist for rehearsing on the CPU."""
+    launch is the f32 VAE's. Under "auto" the calls the JAX wrapper shifts
+    (the 64^2 level's fused_outer and self calls; own KV under FLASH_MIN_KV
+    and one-pass self calls stay exact) launch the D=161-512 kernels'
+    static-shift instance in bf16 and f32 (``...[static dmid]``, unless
+    STATIC_SHIFT_SLOWER keeps the class exact), none in f16. Returns the
+    paths' counts. ``device``/``configs`` exist for rehearsing on the CPU."""
     import shutil
     import tempfile
 
@@ -4603,13 +4766,18 @@ def phase_wide_heads(card: str, device: str = "cuda", configs=None, steps: int =
             (unets[torch.float32], F32_UNET_TOL, "flash_interpolated_attention_f32", ("own segment dropped",)),
             (unets[torch.float16], F16_SD15_UNET_TOL, "flash_interpolated_attention_f16", ("own segment dropped",))):
         x, e = sample.to(unet.dtype), ehs.to(unet.dtype)
+        dt = {torch.bfloat16: "bf16", torch.float32: "f32"}.get(unet.dtype)  # f16: no static instance
         counts = check_unet_vs_plain(f"{unet.dtype} SD1.x D=320 unet fused_outer B=7 {s}x{s}",
                                      lambda a: unet(x, t, e, a), aid, tol, {n: faults[n] for n in fault_names})
-        check_wide_only(f"{unet.dtype} SD1.x D=320 forward", counts, (f"{name}[D=512]",))
+        check_wide_only(f"{unet.dtype} SD1.x D=320 forward", counts,
+                        (f"{name}[D=512]", *(static_needed(dt, [("dmid", 320, "fused_outer")]) if dt else ())))
+        check_static_dims(f"{unet.dtype} SD1.x D=320 forward", counts, name, (320,) if dt else ())
         paths.append(counts)
         counts = check_unet_vs_plain(f"{unet.dtype} SD1.x D=320 unet self B=7 {s}x{s}", lambda a: unet(x, t, e, a),
                                      None, tol, {"last key tile unmasked": (None, key_tail_unmasked)})
-        check_wide_only(f"{unet.dtype} SD1.x D=320 self forward", counts, (f"{name}[D=512]",))
+        check_wide_only(f"{unet.dtype} SD1.x D=320 self forward", counts,
+                        (f"{name}[D=512]", *(static_needed(dt, [("dmid", 320, "self")]) if dt else ())))
+        check_static_dims(f"{unet.dtype} SD1.x D=320 self forward", counts, name, (320,) if dt else ())
         paths.append(counts)
     del unets, unet, x, e, sample, ehs
     torch.cuda.empty_cache()
@@ -4625,8 +4793,12 @@ def phase_wide_heads(card: str, device: str = "cuda", configs=None, steps: int =
     images, counts, times, _, elapsed, peak = run_image_path(pipe, pipe.vae, interpolate, steps, 7)
     check_images(f"SD1.x D=320 interpolate (PAID, {steps} DDIM steps, guidance {pipe.guidance_scale}, f32 VAE)",
                  images, (7, px, px, 3), times, elapsed, peak, card)
-    check_wide_only("SD1.x D=320 interpolate", counts, ("flash_interpolated_attention[D=512]",),
+    check_wide_only("SD1.x D=320 interpolate", counts,
+                    ("flash_interpolated_attention[D=512]",
+                     *static_needed("bf16", [("dmid", 320, "fused_outer"), ("dmid", 320, "self")]),
+                     *static_needed("f32", [("d512", 512, "self")])),
                     ("flash_self_attention_f32",))  # the f32 VAE's D=512 attention
+    check_static_dims("SD1.x D=320 interpolate", counts, "flash_interpolated_attention", (320,))
     print(f"SD1.x D=320 interpolate: attention launches {({n: c for n, c in counts.items() if c and 'attention' in n})}",
           flush=True)
     paths.append(counts)
@@ -4778,8 +4950,10 @@ def phase_one_head_a_level(card: str, device: str = "cuda", configs=None, steps:
     (counted under D=512; the one D=512 self launch is the f32 VAE's), none
     elsewhere (in a forward exactly
     the calls the UNet's attention modules make at each), none elsewhere.
-    Returns the paths' counts. ``device``/``configs`` exist for rehearsing
-    on the CPU."""
+    Under "auto" the D = 640 and 1280 calls stay exact (the wide kernels
+    have no static instance): the static-shift launches are the D=161-512
+    kernels' at D = 320 only. Returns the paths' counts.
+    ``device``/``configs`` exist for rehearsing on the CPU."""
     import shutil
     import tempfile
 
@@ -4849,6 +5023,8 @@ def phase_one_head_a_level(card: str, device: str = "cuda", configs=None, steps:
                                      lambda a: unet(x, t, e, a), aid, tol, {n: faults[n] for n in fault_names})
         needed = (f"{name}[D=512]", f"{name}[D={DWIDE}]")
         check_wide_only(f"{unet.dtype} SD1.x one-head forward", counts, needed)
+        check_static_dims(f"{unet.dtype} SD1.x one-head forward", counts, name,
+                          (320,) if unet.dtype != torch.float16 else ())
         got = {d: counts[f"{name}[D={d}]"] for d in want}
         if got != want:
             fail(f"the {unet.dtype} one-head forward launched {got} attention entries by head dim, not {want}")
@@ -4870,6 +5046,7 @@ def phase_one_head_a_level(card: str, device: str = "cuda", configs=None, steps:
     check_wide_only("SD1.x one-head interpolate", counts,
                     ("flash_interpolated_attention[D=512]", f"flash_interpolated_attention[D={DWIDE}]"),
                     ("flash_self_attention_f32",))  # the f32 VAE's D=512 attention
+    check_static_dims("SD1.x one-head interpolate", counts, "flash_interpolated_attention", (320,))
     print(f"SD1.x one head a level interpolate: attention launches "
           f"{({n: c for n, c in counts.items() if c and 'attention' in n})}", flush=True)
     paths.append(counts)
@@ -4986,7 +5163,7 @@ def kernels_line(kernels: dict, launches: dict, by_path=None) -> str:
                                               f"{attn_note}"}),
         "flash_self_attention_f32": (
             "aid_tpu_torch/csrc/flash_attention_f32_d512.cu", "aid_tpu/ops/flash_attention.py:101",
-            ("flash_self_attention_f32",),
+            ("flash_self_attention_f32", "-flash_self_attention_f32[static]"),
             {"design": "wgmma (Q K^T m64n16: hi(Q) hi(K) and lo(Q) hi(K) in tf32 with Q's fragments from "
                        "registers, bf16(Q) bf16(lo(K)) with K's lo made in bf16; O^T = V^T P^T m64n64: hi*hi in "
                        "tf32, lo(V) P + V lo(P) in one packed bf16 pass), the Q tile resident, K and V by TMA "
@@ -4997,7 +5174,8 @@ def kernels_line(kernels: dict, launches: dict, by_path=None) -> str:
                          "wrapper, as the model calls it; kernel_ms: the launch alone on operands "
                          "aid_tpu_torch/ops/flash_attention.py::d512_launch prepared once"}),
         "flash_self_attention_bf16": (
-            "aid_tpu_torch/csrc/flash_attention_bf16_d512.cu", flash_replaces[0], ("flash_self_attention_bf16",),
+            "aid_tpu_torch/csrc/flash_attention_bf16_d512.cu", flash_replaces[0],
+            ("flash_self_attention_bf16", "-flash_self_attention_bf16[static]"),
             {**flash_replaces[1], "design": "wgmma bf16 (Q K^T m64n32k16 from shared memory, P V m64n256k16 with "
                                             "P from registers, V through the transpose bit), TMA K and V rings "
                                             "filled by a producer warpgroup, D split across two consumer "
@@ -5082,7 +5260,8 @@ def kernels_line(kernels: dict, launches: dict, by_path=None) -> str:
         # the endpoint modes at head dims 161-512 (phase 21's SD 1.x UNet at
         # 320-wide heads), in the two D=161-512 sources
         "flash_interpolated_attention(D=161-512)": (
-            dmid_src, flash_replaces[0], ("flash_interpolated_attention[D=512]",),
+            dmid_src, flash_replaces[0], ("flash_interpolated_attention[D=512]",
+                                          "-flash_interpolated_attention[static dmid]"),
             {**flash_replaces[1], "entry": "aid_flash_attn_bf16_dmid", "design": dmid_design,
              "contract": f"bf16, head dims 161-512 at the caller's D, the four endpoint modes, and self mode at "
                          f"161-{DMID_SELF_MAX[torch.bfloat16]} (its self instance, n_sets 0); {dmid_note}"}),
@@ -5093,7 +5272,7 @@ def kernels_line(kernels: dict, launches: dict, by_path=None) -> str:
                          f"161-{DMID_SELF_MAX[torch.float16]} (its self instance, n_sets 0); {dmid_note}"}),
         "flash_interpolated_attention_f32(D=161-512)": (
             "aid_tpu_torch/csrc/flash_attention_dmid_f32.cu", flash_replaces[0],
-            ("flash_interpolated_attention_f32[D=512]",),
+            ("flash_interpolated_attention_f32[D=512]", "-flash_interpolated_attention_f32[static dmid]"),
             {**flash_replaces[1], "entry": "aid_flash_attn_f32_dmid",
              "design": "wgmma on TMA tiles of the caller's tensors at the caller's D in 32-column chunks, each product "
                        "in three tensor-core passes (1.5 TF32 + 1.5 bf16: K's lo and P V's small terms as bf16), O^T = "
@@ -5133,11 +5312,11 @@ def kernels_line(kernels: dict, launches: dict, by_path=None) -> str:
            for sfx, ty in (("", "bf16"), ("_f16", "f16"))},
     }
     # the static-shift instances (static_smax, C = 40): the static branches of both TPU kernels
-    static_note = (f"static_smax = 40; {attn_note}; "
-                   "exact_ms / exact_kernel_ms: the same call on the exact route, in turns; window: its edges at the "
+    static_tail = ("exact_ms / exact_kernel_ms: the same call on the exact route, in turns; window: its edges at the "
                    "first case's shape (bottom: row maxes near -23 against the exact softmax; clipped: far past +70 "
                    "against the plain static shift, the exact softmax's distance being the planted fault 'the clip "
                    "dropped'); launches_by_path: the static launches of each path in order; every case under shapes")
+    static_note = f"static_smax = 40; {attn_note}; {static_tail}"
     static_design = ("the exact instance's body built with AID_STATIC_SHIFT = 1 in a translation unit of its own: P = "
                      "2^min(s scale log2(e) - C log2(e), 30 log2(e)), no row max, no quad reduction, no rescale of O "
                      "and l; the outer modes' park kept; each row's sum guarded at 1e-37")
@@ -5160,14 +5339,57 @@ def kernels_line(kernels: dict, launches: dict, by_path=None) -> str:
             {**static_replaces[1], "entry": "aid_flash_attn_f32_static", "design": f"{f32_wgmma}; {static_design}",
              "contract": f"f32, head dims 40/64/80/160, every mode, 3xTF32; ms at self (7,10,4096,64); "
                          f"{static_note}"}),
+        # past head dim 160: the D=161-512 kernels' (phase 21's SD 1.x at 320-wide heads) and the D=512 self
+        # kernels' (the VAE mid block) static instances
+        "flash_interpolated_attention(static dmid)": (
+            "aid_tpu_torch/csrc/flash_attention_dmid_static.cu", static_replaces[0],
+            ("flash_interpolated_attention[static dmid]",),
+            {**static_replaces[1], "entry": "aid_flash_attn_bf16_dmid_static",
+             "design": f"{dmid_design}; {static_design} (the park keeps O and l, no max)",
+             "contract": f"bf16, head dims 161-512 at the caller's D, the four endpoint modes and self mode at "
+                         f"161-{DMID_SELF_MAX[torch.bfloat16]}; ms at fused_outer (7,1,4096,320); library_ms: SDPA "
+                         f"in self mode (none for the endpoint modes); {static_note}"}),
+        "flash_interpolated_attention_f32(static dmid)": (
+            "aid_tpu_torch/csrc/flash_attention_dmid_f32_static.cu", static_replaces[0],
+            ("flash_interpolated_attention_f32[static dmid]",),
+            {**static_replaces[1], "entry": "aid_flash_attn_f32_dmid_static",
+             "design": "the f32 D=161-512 design (3xTF32 as 1.5 TF32 + 1.5 bf16 passes, 32-column chunks, two "
+                       f"warpgroups sharing a tile's work); {static_design} (each M block's tile product added "
+                       "with no factor; the park keeps O and l, no max)",
+             "contract": f"f32, head dims 161-512 at the caller's D, the four endpoint modes and self mode at "
+                         f"161-{DMID_SELF_MAX[torch.float32]}; ms at fused_outer (7,1,4096,320); bound_ms at 1.5 "
+                         f"TF32 + 1.5 bf16 passes; library_ms: SDPA in self mode (none for the endpoint modes); "
+                         f"{static_note}"}),
+        "flash_self_attention_f32(static)": (
+            "aid_tpu_torch/csrc/flash_attention_f32_d512_static.cu", static_replaces[0],
+            ("flash_self_attention_f32[static]",),
+            {**static_replaces[1], "entry": "aid_flash_attn_f32_d512_static",
+             "design": "the f32 D=512 design (wgmma, three tensor-core passes a product, D split across two "
+                       f"consumer warpgroups); {static_design} (no rows' factors in shared memory; each 64-row "
+                       "block of O^T's tile product still summed from zero and added in f32)",
+             "contract": f"f32, head dim 512 (and self calls past {DMID_SELF_MAX[torch.float32]}, padded to 512), "
+                         "self (the VAE mid block); ms at (1,1,16384,512), every case under shapes; ms: through the "
+                         "wrapper at static_smax = 40; kernel_ms: the launch alone on operands "
+                         "aid_tpu_torch/ops/flash_attention.py::d512_launch prepared once; bound_ms at 1.5 TF32 + "
+                         f"1.5 bf16 passes; {static_tail}"}),
+        "flash_self_attention_bf16(static)": (
+            "aid_tpu_torch/csrc/flash_attention_bf16_d512_static.cu", static_replaces[0],
+            ("flash_self_attention_bf16[static]",),
+            {**static_replaces[1], "entry": "aid_flash_attn_bf16_d512_static",
+             "design": "the bf16 D=512 design (wgmma, TMA K and V rings, D split across two consumer warpgroups, "
+                       f"software-pipelined); {static_design} (no o *= alpha over each warpgroup's 256 columns)",
+             "contract": "bf16, head dim 512, self (a bf16 VAE's mid block); ms at (1,1,16384,512), every case "
+                         "under shapes; ms: through the wrapper at static_smax = 40; kernel_ms: the launch alone on "
+                         "operands aid_tpu_torch/ops/flash_attention.py::d512_launch prepared once; "
+                         f"{static_tail}"}),
     })
     record = []
     for name, (src, replaces, counters, extra) in rows.items():
         r = kernels[name]
         # a counter named "-..." is subtracted: the D <= 160 counts hold the short-stream kernel's launches too
-        n = sum(-launches[c[1:]] if c.startswith("-") else launches[c] for c in counters)
+        n = sum(-launches.get(c[1:], 0) if c.startswith("-") else launches[c] for c in counters)
         if by_path is not None and "(static" in name:
-            extra = {**extra, "launches_by_path": [p[counters[0]] for p in by_path]}
+            extra = {**extra, "launches_by_path": [p.get(counters[0], 0) for p in by_path]}
         record.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                        "launches": n, "max_abs_err": r["max_abs_err"],
                        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -5237,7 +5459,8 @@ def main(argv=None) -> int:
     paths += phase_one_head_a_level(card)
     torch.cuda.empty_cache()
     paths += phase_frames(card)  # phase 19 (b)
-    launches = {name: sum(p[name] for p in paths) for name in paths[0]}
+    # the union of the paths' counters (the D=161-512 static counts name the head dims each path launched)
+    launches = {name: sum(p.get(name, 0) for p in paths) for name in dict.fromkeys(n for p in paths for n in p)}
     print(f"launches over the {len(paths)} paths: {launches}", flush=True)
     print(f"smoke wall time {time.perf_counter() - start:.1f} s (the limit is 1200 s)", flush=True)
 

@@ -67,7 +67,9 @@ KERNEL_NAMES = ("flash_interpolated_attention", "flash_interpolated_attention(D=
                 "flash_interpolated_attention_f16(midstream)")
 # the static-shift instances' entries, after the rest
 STATIC_KERNEL_NAMES = ("flash_interpolated_attention(static)", "flash_interpolated_attention(static midstream)",
-                       "flash_interpolated_attention_f32(static)")
+                       "flash_interpolated_attention_f32(static)", "flash_interpolated_attention(static dmid)",
+                       "flash_interpolated_attention_f32(static dmid)", "flash_self_attention_f32(static)",
+                       "flash_self_attention_bf16(static)")
 
 
 def test_kernels_line_carries_bound_and_library_time():
@@ -112,6 +114,13 @@ def test_kernels_line_carries_bound_and_library_time():
         launches.update({f"flash_interpolated_attention{t}[static midstream D={d}]": int(d == 64 and t == "")
                          for d in (40, 64, 80, 160)})
         launches[f"flash_interpolated_attention{t}[static midstream]"] = int(t == "")
+    # the D=161-512 kernels' static launches, parts of their D=512 counts: 5 in bf16, 6 in f32 (by head dim, the
+    # dims a path launched); the D=512 self kernels', parts of theirs: 2 in f32, 1 in bf16
+    for t, n in (("", 5), ("_f32", 6)):
+        launches[f"flash_interpolated_attention{t}[static dmid]"] = n
+        launches[f"flash_interpolated_attention{t}[static dmid D=320]"] = n
+    launches.update({"flash_self_attention_f32[static]": 2, "flash_self_attention_bf16[static]": 1,
+                     "flash_self_attention_f16[static]": 0})
     paths = [{k: n if i else 0 for k, n in launches.items()} for i in range(2)]  # the first path launched none
     entries = json.loads(smoke.kernels_line(records, launches, paths))["kernels"]
     assert [e["name"] for e in entries] == list(KERNEL_NAMES + STATIC_KERNEL_NAMES)
@@ -135,7 +144,7 @@ def test_kernels_line_carries_bound_and_library_time():
     # the bf16 streaming kernel at D = 64, the short and mid-length streams' and the static instances' launches not
     assert entries[0]["launches"] == 3 - 1 - 1 - 1 - 1
     assert entries[1]["launches"] == 9 - 3 - 1 - 2  # the bf16 kernel at D = 40, 80 and 160
-    assert entries[3]["launches"] == 3 and entries[3]["source"].endswith("flash_attention_bf16_d512.cu")
+    assert entries[3]["launches"] == 3 - 1 and entries[3]["source"].endswith("flash_attention_bf16_d512.cu")
     # the f32 instances: their own sources and launch counts
     by_name = {e["name"]: e for e in entries}
     assert by_name["flash_interpolated_attention_f32"]["source"].endswith("flash_interpolated_attention_f32.cu")
@@ -162,7 +171,7 @@ def test_kernels_line_carries_bound_and_library_time():
     # the D=161-512 entries: the two D=161-512 sources, their own C entries,
     # each read from its dtype's count under D=512, self mode's instance named
     wide = {n: by_name[n] for n in KERNEL_NAMES[-10:-7]}
-    assert [e["launches"] for e in wide.values()] == [11, 12, 13]
+    assert [e["launches"] for e in wide.values()] == [11 - 5, 12, 13 - 6]  # less the static instances' launches
     assert [e["entry"] for e in wide.values()] == ["aid_flash_attn_bf16_dmid", "aid_flash_attn_f16_dmid",
                                                    "aid_flash_attn_f32_dmid"]
     assert [e["source"].rsplit("/", 1)[1] for e in wide.values()] == ["flash_attention_dmid.cu"] * 2 + [
@@ -200,16 +209,21 @@ def test_kernels_line_carries_bound_and_library_time():
     # the static-shift instances: their own sources and C entries, the static
     # branches of both TPU kernels, their counts in all and on each path
     static = [by_name[n] for n in STATIC_KERNEL_NAMES]
-    assert [e["launches"] for e in static] == [3, 1, 8]
-    assert [e["launches_by_path"] for e in static] == [[0, 3], [0, 1], [0, 8]]
+    assert [e["launches"] for e in static] == [3, 1, 8, 5, 6, 2, 1]
+    assert [e["launches_by_path"] for e in static] == [[0, 3], [0, 1], [0, 8], [0, 5], [0, 6], [0, 2], [0, 1]]
     assert [e["entry"] for e in static] == ["aid_flash_attn_bf16_static", "aid_flash_attn_bf16_midstream_static",
-                                            "aid_flash_attn_f32_static"]
+                                            "aid_flash_attn_f32_static", "aid_flash_attn_bf16_dmid_static",
+                                            "aid_flash_attn_f32_dmid_static", "aid_flash_attn_f32_d512_static",
+                                            "aid_flash_attn_bf16_d512_static"]
     assert [e["source"].rsplit("/", 1)[1] for e in static] == [
         "flash_interpolated_attention_static.cu", "flash_attention_midstream_static.cu",
-        "flash_interpolated_attention_f32_static.cu"]
+        "flash_interpolated_attention_f32_static.cu", "flash_attention_dmid_static.cu",
+        "flash_attention_dmid_f32_static.cu", "flash_attention_f32_d512_static.cu",
+        "flash_attention_bf16_d512_static.cu"]
     assert [e["replaces"] for e in static] == ["aid_tpu/ops/flash_attention.py:210",
                                                "aid_tpu/ops/flash_attention.py:520",
-                                               "aid_tpu/ops/flash_attention.py:210"]
+                                               "aid_tpu/ops/flash_attention.py:210"] + [
+        "aid_tpu/ops/flash_attention.py:210"] * 4
 
 
 def test_f32_phases_follow_the_bf16_paths():

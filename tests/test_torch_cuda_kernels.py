@@ -39,7 +39,7 @@ from aid_tpu_torch.ops.flash_attention import (
     takes_midstream,
     takes_onepass,
 )
-from aid_tpu_torch.ops.flash_attention import DWIDE, instance_head_dim
+from aid_tpu_torch.ops.flash_attention import DWIDE, instance_head_dim, takes_d512_self
 from aid_tpu_torch.ops.routing import reference_ops
 
 pytestmark = pytest.mark.cuda
@@ -1758,12 +1758,164 @@ def test_flash_static_auto_keeps_exact_classes_exact(dev, mode, S, L):
 
 def test_flash_static_shift_refuses_what_has_no_instance(dev):
     """A float shift with no static instance raises (no fallback): in f16
-    (ValueError), past head dim 160 and on the D=512 self kernels
-    (NotImplementedError)."""
+    (ValueError, the D=512 self wrapper's too), past head dim 512 (the wide
+    kernels: NotImplementedError)."""
     q = _randn((2, 2, 64, 64), 1600, torch.float16)
     with pytest.raises(ValueError, match="f16"):
         flash_interpolated_attention_f16(q, q, q, None, "self", static_smax=40.0)
-    for D, mode in ((192, "fused_outer"), (512, "self"), (640, "self")):
-        x = _randn((2, 1, 64, D), 1601, torch.bfloat16)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            flash_interpolated_attention(x, x, x, torch.zeros(2, device=dev), mode, static_smax=40.0)
+    x = _randn((1, 1, 64, 512), 1602, torch.float16)
+    with pytest.raises(ValueError, match="f16"):
+        flash_self_attention_f16(x, x, x, static_smax=40.0)
+    for dtype in (torch.bfloat16, torch.float32):
+        for D, mode in ((520, "fused_outer"), (640, "self"), (2048, "pure_inner")):
+            x = _randn((2, 1, 64, D), 1601, dtype)
+            with pytest.raises(NotImplementedError, match="ROADMAP"):
+                ATTN_WRAPPER[dtype](x, x, x, torch.zeros(2, device=dev), mode, static_smax=40.0)
+
+
+# the static-shift instances past head dim 160: flash_attention_dmid_static.cu (bf16) and
+# flash_attention_dmid_f32_static.cu (f32), every mode and self mode at the caller's head dim, and the
+# D=512 self kernels' (flash_attention_{f32,bf16}_d512_static.cu, the VAE mid block)
+STATIC_DMID_DIMS = [192, 320, 448, 504, 512]
+
+
+@pytest.mark.parametrize("dtype,D,mode", [
+    pytest.param(dt, D, m, id=f"{name}-{D}-{m}") for dt, name in ((torch.bfloat16, "bf16"), (torch.float32, "f32"))
+    for D in STATIC_DMID_DIMS for m in MODES if not takes_d512_self(D, m, dt)])
+@pytest.mark.parametrize("case", STATIC_CASES)
+def test_flash_static_dmid_kernel_matches_plain(dev, dtype, D, mode, case):
+    """The D=161-512 kernels' static-shift instances in every mode and self
+    mode (where the D=512 self kernels do not take it: their test is below)
+    at the caller's head dim: the rows layout (192, 320), the split one
+    (448, 504, 512), f32's 32- and 16-key tiles; within the dtype's bound of
+    the plain version's static shift, and of the exact instance on the same
+    call (logits well inside the window)."""
+    from aid_tpu_torch.ops.flash_attention import STATIC_DMID_ENTRIES, kernel_launch
+
+    q, k, v, coef, kw = _static_inputs(dtype, D, case, 1700 + D)
+    got, launch = kernel_launch(q, k, v, coef, mode, static_smax=40.0, **kw)
+    assert launch.operands["entry"] == STATIC_DMID_ENTRIES[dtype]
+    launch()
+    torch.cuda.synchronize()
+    want = flash_interpolated_attention_plain(q, k, v, coef, mode, static_smax=40.0, **kw)
+    assert got.shape == want.shape and got.dtype == dtype and torch.isfinite(got).all()
+    assert _attn_err(got, want) < ATTN_RTOLS[dtype]
+    exact, launch = kernel_launch(q, k, v, coef, mode, **kw)
+    launch()
+    torch.cuda.synchronize()
+    assert _attn_err(got, exact) < 2 * ATTN_RTOLS[dtype]
+
+
+@pytest.mark.parametrize("dtype", **STATIC_DTYPES)
+@pytest.mark.parametrize("B,H,S,L,D", [(1, 1, 16384, 16384, 512), (7, 1, 4096, 4096, 512), (1, 1, 4000, 4000, 512),
+                                       (2, 2, 150, 77, 512), (1, 1, 1, 1, 512), (2, 1, 130, 33, 504)])
+def test_flash_static_d512_kernel_matches_plain(dev, dtype, B, H, S, L, D):
+    """The D=512 self kernels' static-shift instances at the VAE's shapes (a
+    1024px frame, seven 512px frames, the tiled decode's ragged tile), ragged
+    tails, one key, and a head dim the f32 route pads to 512: within the
+    dtype's bound of the plain version's static shift and of the exact
+    instance, one launch counted in the wrapper's launches_static."""
+    from aid_tpu_torch.ops.flash_attention import STATIC_D512_ENTRIES, d512_launch
+
+    q, k, v = (_randn((B, H, n, D), 1800 + i, dtype) for i, n in enumerate((S, L, L)))
+    got, launch = d512_launch(q, k, v, static_smax=40.0)
+    assert launch.operands["entry"] == STATIC_D512_ENTRIES[dtype]
+    launch()
+    torch.cuda.synchronize()
+    want = flash_interpolated_attention_plain(q, k, v, static_smax=40.0)
+    assert got.shape == want.shape and got.dtype == dtype and torch.isfinite(got).all()
+    assert _attn_err(got, want) < ATTN_RTOLS[dtype]
+    wrapper = D512_WRAPPER[dtype]
+    before = (wrapper.launches, wrapper.launches_static)
+    through = wrapper(q, k, v, static_smax=40.0)
+    torch.cuda.synchronize()
+    routed = takes_d512_self(D, dtype=dtype)
+    assert (wrapper.launches, wrapper.launches_static) == (before[0] + routed, before[1] + routed)
+    assert _attn_err(through, want) < ATTN_RTOLS[dtype]
+    exact, launch = d512_launch(q, k, v)
+    launch()
+    torch.cuda.synchronize()
+    assert _attn_err(got, exact) < 2 * ATTN_RTOLS[dtype]
+
+
+@pytest.mark.parametrize("dtype", **STATIC_DTYPES)
+@pytest.mark.parametrize("D,mode", [(320, "self"), (320, "fused_outer"), (448, "pure_inner"), (512, "self"),
+                                    (512, "pure_outer")])
+def test_flash_static_wide_head_kernels_at_the_window_edges(dev, dtype, D, mode):
+    """The window's edges on the new static instances (the D=161-512 ones
+    and, at 512 in self mode, the D=512 self ones): near the bottom (row max
+    ~ -23) the exact softmax; far above the top the plain version's CLIPPED
+    result, finite, far from the exact one."""
+    coef = torch.tensor([0.25, 0.75], device=dev)
+    for hot in (False, True):
+        q, k, v, scale = _window_inputs(dtype, hot, D=D)
+        got = flash_interpolated_attention(q, k, v, coef, mode, scale=scale, static_smax=40.0)  # routed by dtype
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all()
+        clipped = flash_interpolated_attention_plain(q, k, v, coef, mode, scale=scale, static_smax=40.0)
+        exact = flash_interpolated_attention_plain(q, k, v, coef, mode, scale=scale)
+        assert _attn_err(got, clipped) < ATTN_RTOLS[dtype]
+        if hot:
+            assert _attn_err(got, exact) > 10 * ATTN_RTOLS[dtype]
+        else:
+            assert _attn_err(got, exact) < ATTN_RTOLS[dtype]
+
+
+@pytest.mark.parametrize("dtype", **STATIC_DTYPES)
+@pytest.mark.parametrize("B,H,S,D,mode", [(7, 1, 4096, 320, "fused_outer"), (7, 1, 4096, 320, "self"),
+                                          (7, 2, 1024, 320, "fused_outer"), (3, 2, 1024, 448, "pure_inner"),
+                                          (1, 1, 4096, 512, "self")])
+def test_flash_static_auto_launches_the_wide_head_instances(dev, dtype, B, H, S, D, mode):
+    """"auto" through dispatch_attention at the wide-head and VAE call
+    classes the JAX wrapper shifts: one launch of the D=161-512 kernels'
+    static instance (launches_static_dmid, by head dim) or, in self mode
+    past the dtype's DMID_SELF_MAX, the D=512 self kernels' (the wrapper's
+    launches_static), unless STATIC_SHIFT_SLOWER keeps the class exact; the
+    plain version's result."""
+    from aid_tpu_torch.ops.flash_attention import STATIC_SHIFT_SLOWER, static_route
+
+    names = {torch.bfloat16: "bf16", torch.float32: "f32"}
+    q, k, v, coef, kw = _midstream_inputs(dtype, D, (B, H, S, S, None, None), 1900 + D)
+    kw = kw if mode != "self" else {}
+    d512 = takes_d512_self(D, mode, dtype)
+    route = static_route(D, S, S, S, mode, dtype)
+    assert route == ("d512" if d512 else "dmid")
+    slower = (route, names[dtype], D, mode) in STATIC_SHIFT_SLOWER
+    fn, wrapper = ATTN_WRAPPER[dtype], D512_WRAPPER[dtype]
+    before = (dict(fn.launches_static_dmid), wrapper.launches_static)
+    got = dispatch_attention(q, k, v, coef, mode, **kw)
+    torch.cuda.synchronize()
+    after = (dict(fn.launches_static_dmid), wrapper.launches_static)
+    shifted = 0 if slower else 1
+    if d512:
+        assert after == (before[0], before[1] + shifted)
+    else:
+        assert after[0].get(D, 0) == before[0].get(D, 0) + shifted and after[1] == before[1]
+    want = flash_interpolated_attention_plain(q, k, v, coef, mode, static_smax=None if slower else 40.0, **kw)
+    assert _attn_err(got, want) < ATTN_RTOLS[dtype]
+
+
+@pytest.mark.parametrize("dtype", **STATIC_DTYPES)
+def test_flash_static_slower_class_stays_exact(dev, dtype, monkeypatch):
+    """A class in STATIC_SHIFT_SLOWER keeps "auto" exact on its exact
+    instance: with the D=161-512 fused_outer class and the D=512 self class
+    put there, no static launch, the exact result."""
+    from aid_tpu_torch.ops import flash_attention as fa
+
+    name = {torch.bfloat16: "bf16", torch.float32: "f32"}[dtype]
+    monkeypatch.setattr(fa, "STATIC_SHIFT_SLOWER", frozenset({("dmid", name, 320, "fused_outer"),
+                                                               ("d512", name, 512, "self")}))
+    fa._auto_shift.cache_clear()
+    try:
+        fn, wrapper = ATTN_WRAPPER[dtype], D512_WRAPPER[dtype]
+        for D, mode, B, S in ((320, "fused_outer", 3, 1024), (512, "self", 1, 4096)):
+            q, k, v, coef, kw = _midstream_inputs(dtype, D, (B, 1, S, S, None, None), 2000 + D)
+            kw = kw if mode != "self" else {}
+            before = (dict(fn.launches_static_dmid), wrapper.launches_static)
+            got = dispatch_attention(q, k, v, coef, mode, **kw)
+            torch.cuda.synchronize()
+            assert (dict(fn.launches_static_dmid), wrapper.launches_static) == before
+            want = flash_interpolated_attention_plain(q, k, v, coef, mode, **kw)
+            assert _attn_err(got, want) < ATTN_RTOLS[dtype]
+    finally:
+        fa._auto_shift.cache_clear()

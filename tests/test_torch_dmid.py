@@ -40,7 +40,7 @@ from aid_tpu_torch.ops.flash_attention import (
     kernel_operands,
     takes_d512_self,
 )
-from test_torch_ops import _swizzle64, _swizzle128, _tf32_read, _tf32_rest, _wgmma_acc_index
+from test_torch_ops import _softmax_tile, _swizzle64, _swizzle128, _tf32_read, _tf32_rest, _wgmma_acc_index
 
 CSRC = Path(FA.__file__).resolve().parents[1] / "csrc"
 DTYPES = {"bf16": torch.bfloat16, "f16": torch.float16, "f32": torch.float32}
@@ -107,26 +107,27 @@ def _box_reader(ops: dict, width: int, fault: str | None):
 
 
 def _sets(runs: list, blended: bool, coef: float, state: tuple, run_tiles, put, get, zero, scale_rows,
-          fault: str | None) -> object:
+          fault: str | None, guard=lambda lsum: lsum) -> object:
     """One query tile's runs as the endpoint kernels chain them: a blended
     row's own state (O, m, l) parked after its run (``put``), the begin run
     continuing it to (1 - c) O / l, swapped with the parked own state
     (``get``), the end run continuing that to c O / l, plus the parked
     words; the pure outer mode parks (1 - c) O / l and starts the end set
     afresh (``zero``). ``fault`` "own_not_restored": the end set continues
-    the begin set's state. Returns the normalised O."""
+    the begin set's state. ``guard`` maps the row sums before they divide
+    (the static instances' max(l, 1e-37)). Returns the normalised O."""
     if not blended:
         for run in runs:
             state = run_tiles(state, run)
         o, _, lsum = state
-        return scale_rows(o, 1.0 / lsum)
+        return scale_rows(o, 1.0 / guard(lsum))
     own = len(runs) == 3
     state = run_tiles(state, runs[0])
     if own:
         put(*state)
         state = run_tiles(state, runs[1])
     o, m, lsum = state
-    o = scale_rows(o, (1 - coef) / lsum)
+    o = scale_rows(o, (1 - coef) / guard(lsum))
     if own:
         words = get()
         put(o, m, lsum)
@@ -135,7 +136,7 @@ def _sets(runs: list, blended: bool, coef: float, state: tuple, run_tiles, put, 
         put(o, m, lsum)
         state = zero()
     o, _, lsum = run_tiles(state, runs[-1])
-    return scale_rows(o, coef / lsum) + get()[0]
+    return scale_rows(o, coef / guard(lsum)) + get()[0]
 
 
 class _PerWG(list):
@@ -176,10 +177,13 @@ def _emulate_dmid16(ops: dict, fault: str | None = None) -> torch.Tensor:
     (a chunk too few: the kernel instance of one chunk less), "own_not_restored"
     (:func:`_sets`), "shared_batch" (:func:`_box_reader`), "own_unmasked"
     (the own segment's last ragged tile not masked: its keys past Lk, zeros
-    from the maps' fill, take part in the softmax)."""
+    from the maps' fill, take part in the softmax). With ``ops["static"]``
+    (the static-shift instance) P is the static shift's, with no max or
+    rescale, and the park keeps O and l alone."""
     (B, H, Sq, D), strides, _ = _maps(ops)
     tensors = ops["tensors"]
     dt = tensors[0].dtype
+    static = ops.get("static")
     t = dmid_tiles(D, dt, B, H, Sq)
     rows_layout = t["layout"] == "rows"
     BK, nwg = t["BK"], t["nwg"]
@@ -241,14 +245,12 @@ def _emulate_dmid16(ops: dict, fault: str | None = None) -> torch.Tensor:
                         sw = s[w].clone()
                         if not (fault == "own_unmasked" and ki == 1):
                             sw[:, min(BK, length - r0):] = -math.inf
-                        mn = torch.maximum(m[w], sw.max(dim=1).values)
-                        alpha = torch.exp2((m[w] - mn) * sl2)
-                        p = torch.exp2(sw * sl2 - (mn * sl2)[:, None])
+                        p, mn, lw, alpha = _softmax_tile(sw, m[w], lsum[w], sl2, static)
                         pb = p.to(dt).float()
                         ow = o[w] * alpha[:, None] + sum(
                             pb[:, 16 * kk:16 * kk + 16] @ mnmajor(vt, c0 * BK * 128 + kk * 2048, BK * 128)
                             for kk in range(BK // 16))
-                        for lst, x in zip(new, (ow, mn, lsum[w] * alpha + p.sum(dim=1))):
+                        for lst, x in zip(new, (ow, mn, lw)):
                             lst.append(x)
                     return new
 
@@ -269,7 +271,9 @@ def _emulate_dmid16(ops: dict, fault: str | None = None) -> torch.Tensor:
                         words = slot(w)
                         words[:cols // 2] = o[w][orow, ocol].T
                         for j, r in enumerate(_THREAD_ROWS):
-                            words[cols // 2 + j], words[cols // 2 + 2 + j] = m[w][r], lsum[w][r]
+                            if static is None:  # the static shift parks no max
+                                words[cols // 2 + j] = m[w][r]
+                            words[cols // 2 + 2 + j] = lsum[w][r]
 
                 def get():
                     o, m, lsum = [], [], []
@@ -298,7 +302,8 @@ def _emulate_dmid16(ops: dict, fault: str | None = None) -> torch.Tensor:
                     return tuple(_PerWG(x) for x in run_tiles(state, run))
 
                 o = _sets(runs, blended, float(coef[b]) if blended else 1.0, zero_sets(), run_sets, put, get_sets,
-                          zero_sets, _scale_rows, fault)
+                          zero_sets, _scale_rows, fault,
+                          (lambda lw: lw) if static is None else (lambda lw: _PerWG(x.clamp_min(1e-37) for x in lw)))
                 for w, (r0, _, c0) in enumerate(qts):
                     ob = o[w].to(dt).float()
                     r, col = torch.arange(64)[:, None], torch.arange(cols)[None, :]
@@ -341,9 +346,12 @@ def _emulate_dmid_f32(ops: dict, fault: str | None = None) -> torch.Tensor:
     summed in f64; the output is stored from O^T at the output's strides,
     head-dim rows past D and query rows past Sq dropped. ``fault``:
     "chunks" (a chunk too few in Q K^T), "own_not_restored", "shared_batch",
-    "own_unmasked" (as :func:`_emulate_dmid16`)."""
+    "own_unmasked" (as :func:`_emulate_dmid16`). With ``ops["static"]``
+    (the static-shift instance) P is the static shift's, with no max and
+    factors of 1, and the park keeps O and l alone."""
     (B, H, Sq, D), strides, _ = _maps(ops)
     tensors = ops["tensors"]
+    static = ops.get("static")
     t = dmid_tiles(D, torch.float32, B, H, Sq)
     C, BK, mb, mbw, cq0 = t["chunks"], t["BK"], t["mb"], t["mbw"], t["cq0"]
     chunks = [range(0, cq0), range(cq0, C - (fault == "chunks"))]  # each warpgroup's Q K^T chunks
@@ -466,10 +474,7 @@ def _emulate_dmid_f32(ops: dict, fault: str | None = None) -> torch.Tensor:
                     s = scores[0]
                     if not (fault == "own_unmasked" and ki == 1):
                         s[:, min(BK, length - r0):] = -math.inf
-                    mn = torch.maximum(m, s.max(dim=1).values)
-                    alpha = torch.exp2((m - mn) * sl2)
-                    p = torch.exp2(s * sl2 - (mn * sl2)[:, None])
-                    m, lsum = mn, lsum * alpha + p.sum(dim=1)
+                    p, m, lsum, alpha = _softmax_tile(s, m, lsum, sl2, static)
                     ph, pb, factors = torch.zeros(64 * BK), torch.zeros(64 * 2 * BK), torch.zeros(64)
                     for w in range(2):  # each warpgroup the rows of its half, from its own registers
                         mine = writer == w
@@ -501,7 +506,8 @@ def _emulate_dmid_f32(ops: dict, fault: str | None = None) -> torch.Tensor:
                         for mi, gm in enumerate(mblocks[w]):
                             slot[32 * mi:32 * mi + 32, 128 * w:128 * w + 128] = ot[gm][orow, ocol].T
                         for jr, r in enumerate(_THREAD_ROWS):
-                            slot[32 * mbw + jr, 128 * w:128 * w + 128] = m[r]
+                            if static is None:  # the static shift parks no max
+                                slot[32 * mbw + jr, 128 * w:128 * w + 128] = m[r]
                             slot[32 * mbw + 2 + jr, 128 * w:128 * w + 128] = lsum[r]
 
                 def get():
@@ -518,7 +524,8 @@ def _emulate_dmid_f32(ops: dict, fault: str | None = None) -> torch.Tensor:
                     return torch.zeros(mb, 64, 64), torch.full((64,), -math.inf), torch.zeros(64)
 
                 ot = _sets(runs, blended, float(coef[b]) if blended else 1.0, zero(), run_tiles, put, get, zero,
-                           lambda x, f: x * f, fault)
+                           lambda x, f: x * f, fault,
+                           (lambda lw: lw) if static is None else (lambda lw: lw.clamp_min(1e-37)))
                 o = ot.reshape(64 * mb, 64).T  # (query, d): d = 64 gm + row
                 sb, sh, ss = strides[7]
                 rows = q0 + torch.arange(64)
@@ -531,11 +538,12 @@ def _emulate_dmid_f32(ops: dict, fault: str | None = None) -> torch.Tensor:
 
 
 def _operands(dt: str, mode: str, D: int, endpoints: str, Le, B: int = 3, H: int = 2, S: int = 64, L: int = 37,
-              seed: int = 0) -> tuple:
+              seed: int = 0, static_smax=None, scale=None) -> tuple:
     """(ops, plain result) of a D=161-512 call from ``kernel_operands`` on
     (B, S, H*D) projections viewed as (B, H, S, D): coefficients 0 .. 1,
     the first row a skip row; ``endpoints`` "rows" (rows 0 and B-1 of K/V),
-    "shared" (H, Le, D) or "per_row" (B, H, Le, D)."""
+    "shared" (H, Le, D) or "per_row" (B, H, Le, D). ``static_smax`` lays out
+    the static-shift instance, the plain result at its shift."""
     dtype = DTYPES[dt]
     g = torch.Generator().manual_seed(seed + D + (Le or 0) + len(mode))
 
@@ -550,12 +558,20 @@ def _operands(dt: str, mode: str, D: int, endpoints: str, Le, B: int = 3, H: int
     if endpoints != "rows":
         shape = (H, Le, D) if endpoints == "shared" else (B, H, Le, D)
         eps = {n: torch.randn(shape, generator=g).to(dtype) for n in ("k_begin", "v_begin", "k_end", "v_end")}
-    ops = kernel_operands(q, k, v, coef, mode, skip_endpoints=skip, **eps)
-    assert ops["entry"] == FA.DMID_ENTRIES[dtype] and ops["dims"][5] == D
+    ops = kernel_operands(q, k, v, coef, mode, scale=scale, skip_endpoints=skip, static_smax=static_smax, **eps)
+    entries = FA.DMID_ENTRIES if static_smax is None else FA.STATIC_DMID_ENTRIES
+    assert ops["entry"] == entries[dtype] and ops["dims"][5] == D
     assert (ops["work"] is not None) == AttnMode(mode).is_outer
     assert ops["n_sets"] == {"self": 0, "fused_inner": 1, "pure_inner": 1}.get(mode, 2)
-    want = flash_interpolated_attention_plain(q.float(), k.float(), v.float(), coef, mode, skip_endpoints=skip,
-                                              **{n: e.float() for n, e in eps.items()})
+    # at the static shift, the inner modes' K_cross as the wrapper rounds it: logits in the hundreds (a hot
+    # scale) move by tenths of a nat with its rounding
+    ops_eps = {}
+    if static_smax is not None and AttnMode(mode).is_inner:
+        kc, vc = ops["tensors"][3], ops["tensors"][4]
+        ops_eps = {"k_begin": kc, "v_begin": vc, "k_end": kc, "v_end": vc}
+    want = flash_interpolated_attention_plain(q.float(), k.float(), v.float(), coef, mode, scale=scale,
+                                              skip_endpoints=skip, static_smax=static_smax,
+                                              **{n: e.float() for n, e in {**eps, **ops_eps}.items()})
     return ops, want
 
 
@@ -565,6 +581,55 @@ def _replay_err(dt: str, mode: str, D: int, endpoints: str, Le, fault: str | Non
     got = (_emulate_dmid_f32 if dt == "f32" else _emulate_dmid16)(ops, fault)
     assert got.shape == want.shape and got.dtype == DTYPES[dt]
     return th.max_rel_err(got.float().numpy(), want.numpy())
+
+
+def _static_replay_errs(dt: str, mode: str, D: int, endpoints: str, Le, hot: bool) -> tuple:
+    """(against the plain static shift, against the exact softmax) of the
+    static-shift instance's replay at C = 40: in the window, or at a scale
+    that puts the row maxes far past +70 (hot)."""
+    scale = 100.0 / D ** 0.5 if hot else None
+    ops, want = _operands(dt, mode, D, endpoints, Le, static_smax=40.0, scale=scale)
+    assert ops["static"] == pytest.approx((40.0 * math.log2(math.e), 30.0 * math.log2(math.e)), rel=1e-12)
+    got = (_emulate_dmid_f32 if dt == "f32" else _emulate_dmid16)(ops).float().numpy()
+    exact = _operands(dt, mode, D, endpoints, Le, scale=scale)[1]
+    return th.max_rel_err(got, want.numpy()), th.max_rel_err(got, exact.numpy())
+
+
+# the static-shift instances (bf16 and f32) at the replay's head dims; every mode in the window, and far past
+# its top at the rows layout's and split layout's widths (bf16) and the 32- and 16-key tiles (f32)
+STATIC_REPLAY_DIMS = (200, 320, 448, 512)
+STATIC_HOT = [("bf16", 320, "fused_outer"), ("bf16", 448, "pure_outer"), ("bf16", 504, "self"),
+              ("f32", 320, "fused_outer"), ("f32", 448, "pure_inner"), ("f32", 512, "fused_inner")]
+
+
+@pytest.mark.parametrize("dt,D,mode", [(dt, D, mode) for dt in ("bf16", "f32") for D in STATIC_REPLAY_DIMS
+                                        for mode in REPLAY_MODES if not takes_d512_self(D, mode, DTYPES[dt])])
+def test_dmid_static_instances_replayed(dt, D, mode):
+    """aid_flash_attn_{bf16,f32}_dmid_static (csrc/flash_attention_dmid_static.cu,
+    csrc/flash_attention_dmid_f32_static.cu: the same data movement, P at the
+    static shift with no running max or rescale, the outer modes' park
+    keeping O and l alone) replayed from the wrapper's own C arguments, the
+    shift and the clip among them, against the plain version's static shift
+    (C = 40), every mode and self mode (self mode where the D=512 self
+    kernels do not take it: test_torch_ops.py replays those): to 1e-2 (bf16)
+    and 1e-5 (f32) of max |ref|, as the exact instances' replays, and in the
+    window as close to the exact softmax."""
+    ep, Le = (REPLAY_ENDPOINTS if D % 128 else REPLAY_ENDPOINTS_ALT).get(mode, ("rows", None))
+    err, exact_err = _static_replay_errs(dt, mode, D, ep, Le, hot=False)
+    assert err < TOL[dt] and exact_err < TOL[dt]
+
+
+@pytest.mark.parametrize("dt,D,mode", STATIC_HOT)
+def test_dmid_static_instances_at_the_clip(dt, D, mode):
+    """Far past the window's top (row maxes in the hundreds) the static
+    instances' replay gives the plain static shift's clipped result, tens
+    of percent off the exact softmax: the clip is applied where the JAX
+    kernel applies it. f32 to 1e-4 there: the three-pass split's ~2^-20
+    relative error of logits in the hundreds moves the weights of keys at
+    the clip's edge (test_flash_static_branch_replayed)."""
+    ep, Le = (REPLAY_ENDPOINTS if D % 128 else REPLAY_ENDPOINTS_ALT).get(mode, ("rows", None))
+    err, exact_err = _static_replay_errs(dt, mode, D, ep, Le, hot=True)
+    assert err < (1e-2 if dt == "bf16" else 1e-4) and exact_err > 0.1
 
 
 TOL = {"bf16": 1e-2, "f16": 1e-2, "f32": 1e-5}

@@ -435,7 +435,7 @@ def _tf32_tiled_attention(q, k, v, passes: int, bk: int = 64) -> torch.Tensor:
     return o.double() / lsum.double()[:, None]
 
 
-def _d512_tiled_attention(q, k, v, k_lo: bool = True, bk: int = 16) -> torch.Tensor:
+def _d512_tiled_attention(q, k, v, k_lo: bool = True, bk: int = 16, static: float | None = None) -> torch.Tensor:
     """softmax(q k^T / sqrt(d)) v as csrc/flash_attention_f32_d512.cu rounds
     it, in its tile order: Q K^T = trunc(Q) trunc(K) + trunc(lo(Q)) trunc(K)
     + bf16(Q) bf16(lo(K)) (lo = a - trunc(a); ``k_lo`` False drops the last
@@ -443,7 +443,8 @@ def _d512_tiled_attention(q, k, v, k_lo: bool = True, bk: int = 16) -> torch.Ten
     bf16(P) + bf16(V) bf16(lo(P)) (the packed bf16 pass); an online softmax
     over ``bk``-key tiles with P in f32, each tile's P V summed from zero
     (f64 here, rounded to the f32 accumulator) and folded into the f32 O by
-    an FMA."""
+    an FMA; with ``static`` = C the static instance's softmax, P = exp(min(s
+    - C, 30)) with no max, each tile's P V added with no factor."""
     def bf16(x):
         return x.float().to(torch.bfloat16).double()
 
@@ -464,10 +465,8 @@ def _d512_tiled_attention(q, k, v, k_lo: bool = True, bk: int = 16) -> torch.Ten
         if k_lo:
             s = s + qb @ bf16(rest(kt)).T
         s = s.float()
-        mn = torch.maximum(m, s.max(dim=1).values)
-        alpha = torch.exp2((m - mn) * sl2)
-        p = torch.exp2(s * sl2 - (mn * sl2)[:, None])
-        m, lsum = mn, lsum * alpha + p.sum(dim=1)
+        log2 = None if static is None else (static * 1.4426950408889634, 30.0 * 1.4426950408889634)
+        p, m, lsum, alpha = _softmax_tile(s, m, lsum, sl2, log2)
         part = (tf32(p) @ tf32(vt) + (bf16(p) @ bf16(rest(vt)) + bf16(rest(p)) @ bf16(vt))).float()
         o = torch.addcmul(part, o, alpha[:, None])  # fmaf(o, alpha, part) up to one rounding
     return o.double() / lsum.double()[:, None]
@@ -707,15 +706,31 @@ def _d512_maps(ops: dict) -> tuple:
     return (B, H, Sq, Lk), [ops["dims"][4 + 3 * i:7 + 3 * i] for i in range(4)], [Sq, Lk, Lk, Sq]
 
 
-def _d512_replay_run(Lk: int, bk: int, state: tuple, update, scale_rows):
+def _d512_replay_run(Lk: int, bk: int, state: tuple, update, scale_rows, static=None):
     """One 64-row query block of a D=512 self kernel through its ``bk``-key
     tiles: ``update(state, r0) -> state`` is one tile (state = (O, m, l) in
     the kernel's register layout, l the full row sums), ``scale_rows(O, f)``
-    scales each query row. Returns the normalised O."""
+    scales each query row. Returns the normalised O (at the static shift,
+    ``static`` not None, each row's sum guarded as the kernel guards it)."""
     for r0 in range(0, Lk, bk):
         state = update(state, r0)
     o, _, lsum = state
-    return scale_rows(o, 1.0 / lsum)
+    return scale_rows(o, 1.0 / (lsum if static is None else lsum.clamp_min(1e-37)))
+
+
+def _softmax_tile(s, m, lsum, sl2, static):
+    """One key tile of a kernel's softmax over its f32 scores s (rows by
+    keys, -inf past the segment): the exact one's running max (m, and
+    alpha, the factor that takes O and l to the new max), or, with
+    ``static`` = (shift, clip) in log2 units, the static shift's P with no
+    max (alpha 1). Returns (p, m, lsum, alpha)."""
+    if static is not None:
+        p = torch.exp2(torch.clamp_max(s * sl2 - static[0], static[1]))
+        return p, m, lsum + p.sum(dim=1), torch.ones_like(lsum)
+    mn = torch.maximum(m, s.max(dim=1).values)
+    alpha = torch.exp2((m - mn) * sl2)
+    p = torch.exp2(s * sl2 - (mn * sl2)[:, None])
+    return p, mn, lsum * alpha + p.sum(dim=1), alpha
 
 
 def _emulate_flash_bf16_d512_kernel(ops: dict) -> torch.Tensor:
@@ -728,8 +743,9 @@ def _emulate_flash_bf16_d512_kernel(ops: dict) -> torch.Tensor:
     Each consumer warpgroup computes partial scores over its four boxes of
     Q and K through K-major descriptors, writes them to the exchange buffer
     in its accumulator order and adds the other warpgroup's; both run the
-    same online softmax, P in the operands' dtype (bf16, or f16 for the f16
-    instance), and O += P V over their 256 columns
+    same online softmax (the static shift's, with no max or rescale, where
+    ``ops["static"]`` holds it), P in the operands' dtype (bf16, or f16 for
+    the f16 instance), and O += P V over their 256 columns
     through the MN-major descriptor (LBO one box), the last key tile masked
     past Lk. The output leaves through the warpgroups' halves of the
     swizzled Q tile and a TMA store clipped at Sq. f32 arithmetic."""
@@ -788,10 +804,7 @@ def _emulate_flash_bf16_d512_kernel(ops: dict) -> torch.Tensor:
                     assert torch.equal(scores[0], scores[1])
                     s = scores[0]
                     s[:, min(BK, Lk - r0):] = -math.inf
-                    mn = torch.maximum(m, s.max(dim=1).values)
-                    alpha = torch.exp2((m - mn) * sl2)
-                    p = torch.exp2(s * sl2 - (mn * sl2)[:, None])
-                    m, lsum = mn, lsum * alpha + p.sum(dim=1)
+                    p, m, lsum, alpha = _softmax_tile(s, m, lsum, sl2, ops.get("static"))
                     pb = p.to(dt).float()
                     o = [o[w] * alpha[:, None] + sum(
                         pb[:, 16 * kk:16 * kk + 16] @ mnmajor(vt, boxes_wg * w * BK * 128 + kk * 2048, BK * 128)
@@ -799,7 +812,8 @@ def _emulate_flash_bf16_d512_kernel(ops: dict) -> torch.Tensor:
                     return o, m, lsum
 
                 state = ([torch.zeros(BQ, cols) for _ in range(NWG)], torch.full((BQ,), -math.inf), torch.zeros(BQ))
-                o = _d512_replay_run(Lk, BK, state, update, lambda o, f: [x * f[:, None] for x in o])
+                o = _d512_replay_run(Lk, BK, state, update, lambda o, f: [x * f[:, None] for x in o],
+                                     ops.get("static"))
                 ob = torch.cat(o, dim=1).to(dt).float()
                 r, col = torch.arange(BQ)[:, None], torch.arange(D)[None, :]
                 tile = torch.zeros(BQ * D)
@@ -878,7 +892,9 @@ def _emulate_flash_f32_d512_kernel(ops: dict, fault: str | None = None) -> torch
     added to the other's (both must hold the same scores). The online
     softmax writes P^T's hi (keys permuted within each 8-key step) and its
     packed bf16 row (P, then lo(P), of each 8 keys), both under the 64-byte
-    swizzle, and the rows' factors, each warpgroup the rows of its half;
+    swizzle, and the rows' factors, each warpgroup the rows of its half (the
+    static shift's P, where ``ops["static"]`` holds it, with no max and
+    factors of 1);
     O^T = V^T P^T takes V^T's hi and packed bf16 registers (lo(V), then V)
     from the raw V tile as ``load_v`` does and P^T through the 64-byte
     K-major descriptors, 64 rows at a time from zero, folded by the factor
@@ -1035,10 +1051,7 @@ def _emulate_flash_f32_d512_kernel(ops: dict, fault: str | None = None) -> torch
                     assert torch.equal(scores[0], scores[1])
                     s = scores[0]
                     s[:, min(BK, Lk - r0):] = -math.inf
-                    mn = torch.maximum(m, s.max(dim=1).values)
-                    alpha = torch.exp2((m - mn) * sl2)
-                    p = torch.exp2(s * sl2 - (mn * sl2)[:, None])
-                    m, lsum = mn, lsum * alpha + p.sum(dim=1)
+                    p, m, lsum, alpha = _softmax_tile(s, m, lsum, sl2, ops.get("static"))
                     ph, pb, factors = torch.zeros(64 * BK), torch.zeros(64 * 2 * BK), torch.zeros(64)
                     for w in range(NWG):  # each warpgroup the rows of its half, from its own registers
                         mine = writer == w
@@ -1059,7 +1072,7 @@ def _emulate_flash_f32_d512_kernel(ops: dict, fault: str | None = None) -> torch
                     return ot, m, lsum
 
                 state = (torch.zeros(NWG, cols // 64, 64, 64), torch.full((64,), -math.inf), torch.zeros(64))
-                ot = _d512_replay_run(Lk, BK, state, update, lambda x, f: x * f)
+                ot = _d512_replay_run(Lk, BK, state, update, lambda x, f: x * f, ops.get("static"))
                 o = ot.reshape(D, 64).T  # (query, d): d = 256 w + 64 mi + row
                 sb, sh, ss = strides[3]
                 rows = q0 + torch.arange(64)
@@ -1114,6 +1127,58 @@ def test_flash_f32_d512_replay_catches_planted_faults(fault):
     or the bf16 pass fed Q's columns unpermuted (K's lo against the wrong
     columns, ~5e-4 off) it misses the 1e-4 the sound replay keeps."""
     assert _flash_f32_d512_replay_err(150, 77, fault) > 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("hot", [False, True], ids=["in_window", "clipped"])
+def test_flash_d512_static_branch_replayed(dtype, hot):
+    """The D=512 self kernels' static-shift instances
+    (csrc/flash_attention_{bf16,f32}_d512_static.cu: the same data movement,
+    P at the static shift with no running max, no factors and no rescale)
+    replayed from the wrapper's own C arguments, the shift and the clip
+    among them, against the plain version's static shift (C = 40): in the
+    window, and at a scale that puts the row maxes far past +70, where the
+    clip decides the result and the exact softmax is far off. A ragged
+    query tile and a key tail ragged against the 16- and 32-key tiles."""
+    from aid_tpu_torch.ops.attention import _softmax_attn
+    from aid_tpu_torch.ops.flash_attention import STATIC_D512_ENTRIES, STATIC_SHIFT_CLIP, d512_operands
+
+    Sq, Lk, B, H, D = 70, 41, 1, 2, 512
+    g = torch.Generator().manual_seed(512 + hot)
+
+    def heads(n):
+        return torch.randn(B, n, H * D, generator=g).to(dtype).view(B, n, H, D).transpose(1, 2)
+
+    q, k, v = heads(Sq), heads(Lk), heads(Lk)
+    scale = 100.0 / D ** 0.5 if hot else D ** -0.5  # logits ~ N(0, 100^2): row maxes in the hundreds
+    ops = d512_operands(q, k, v, scale, static_smax=40.0)
+    assert ops["entry"] == STATIC_D512_ENTRIES[dtype]
+    got = (_emulate_flash_bf16_d512_kernel if dtype == torch.bfloat16 else _emulate_flash_f32_d512_kernel)(ops)
+    want = _softmax_attn(q.float(), k.float(), v.float(), scale, (40.0, STATIC_SHIFT_CLIP))
+    # f32: the three-pass split's ~1e-6 in the window; clipped, logits in the hundreds carry its ~2^-20
+    # relative error as ~1e-4 nats at the clip's edge (test_flash_static_branch_replayed)
+    tol = 1e-2 if dtype == torch.bfloat16 else 1e-4
+    assert th.max_rel_err(got.float().numpy(), want.numpy()) < tol
+    exact_err = th.max_rel_err(got.float().numpy(), _softmax_attn(q.float(), k.float(), v.float(), scale).numpy())
+    assert exact_err > 0.1 if hot else exact_err < tol
+
+
+@pytest.mark.parametrize("L", [4096, 16384])
+def test_d512_static_split_keeps_the_f32_promise(L):
+    """The f32 D=512 static instance's numerics in its tile order
+    (``_d512_tiled_attention`` with the static shift: P = exp(min(s - 40,
+    30)) near e^-40, its hi/lo split and bf16 terms unchanged, each 16-key
+    tile's P V summed from zero and added in f32 with no factor) stay within
+    the f32 decode's 1e-4 of max |out| of the f64 softmax over a 512px
+    frame's 4096 keys and a 1024px frame's 16384, as the exact instance
+    does (test_three_tf32_passes_keep_the_f32_attention_promise)."""
+    rng = np.random.default_rng(L)
+    S, D = 256, 512
+    q = torch.from_numpy(rng.standard_normal((S, D), dtype=np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((L, D), dtype=np.float32)) for _ in range(2))
+    want = torch.softmax(q.double() @ k.double().T * D ** -0.5, dim=-1) @ v.double()
+    got = _d512_tiled_attention(q, k, v, static=40.0)
+    assert ((got - want).abs().max() / want.abs().max()).item() < 1e-4
 
 
 def test_flash_f32_d512_tile_constants_follow_the_kernel_source():

@@ -50,13 +50,14 @@ def _source_text(name: str) -> str:
 def _instances(name: str, text: str) -> list:
     """[(kernel, template arguments)] that the source's host code launches,
     their values read from its dispatch lines; a static-shift source's are
-    its included source's where AID_STATIC_SHIFT keeps them (bf16 only; the
-    mid-length stream kernel at D = 64 in the endpoint modes)."""
+    its included source's where AID_STATIC_SHIFT keeps them (the f32
+    kernels' every instance, the 16-bit kernels' bf16 ones; the mid-length
+    stream kernel at D = 64 in the endpoint modes)."""
     if name.endswith("_static.cu"):
         exact = _instances(name.replace("_static.cu", ".cu"), text)
         if name == "flash_attention_midstream_static.cu":
             return [(k, a) for k, a in exact if a[0] == "__nv_bfloat16" and a[1] == "64" and a[-1] != "0"]
-        return [(k, a) for k, a in exact if k == "flash_f32_kernel" or a[0] == "__nv_bfloat16"]
+        return [(k, a) for k, a in exact if k in F32_KERNELS or a[0] == "__nv_bfloat16"]
     types = _all(r"(?:entry|conv|entry_interp)<(__nv_bfloat16|__half|float)>", text)
     dims = _all(r"case (\d+): return launch_d<", text)
     modes = _all(r"launch(?:_interp)?<[^<>]*?(true|false), (\d)>", text)
@@ -106,11 +107,17 @@ def _instances(name: str, text: str) -> list:
     raise AssertionError(f"{name}: a source the profiler's classes do not know")
 
 
-def _demangled(kernel: str, args: tuple) -> str:
+# the f32 attention kernels: a static-shift source keeps all their instances
+F32_KERNELS = ("flash_f32_kernel", "flash_f32_dmid_kernel", "flash_f32_d512_kernel")
+
+
+def _demangled(kernel: str, args: tuple, static: bool = False) -> str:
     """The kernel's name as the card's trace shows it (demangled, its
-    parameters elided)."""
+    parameters elided); a static-shift instance's in its namespace
+    ``static_shift``."""
     targs = f"<{', '.join(args)}>" if args else ""
-    return f"void (anonymous namespace)::{kernel}{targs}(CUtensorMap_st, (anonymous namespace)::Params)"
+    ns = "(anonymous namespace)::static_shift::" if static else "(anonymous namespace)::"
+    return f"void {ns}{kernel}{targs}(CUtensorMap_st, {ns}Params)"
 
 
 def _expected(kernel: str, args: tuple) -> str:
@@ -153,7 +160,7 @@ def test_every_kernel_of_a_source_has_its_class(source):
     assert all(len(args) == defined[k] for k, args in instances), source
     classes = _profiler().CLASSES
     for kernel, args in instances:
-        name = _demangled(kernel, args)
+        name = _demangled(kernel, args, static=source.endswith("_static.cu"))
         got = next(n for n, pat in classes if pat.search(name))
         assert got == _expected(kernel, args), (name, got)
 
@@ -167,15 +174,20 @@ def test_modes_and_instances_cover_the_kernels():
     steps, the short-stream kernel's instances whose stream fits beside one
     warpgroup's Q/O ring, the mid-length stream kernel's by mode kind; and
     the static-shift instances (bf16 and f32 at D <= 160 in every mode, the
-    bf16 mid-length stream kernel at D = 64 in the endpoint modes)."""
+    bf16 mid-length stream kernel at D = 64 in the endpoint modes, bf16 and
+    f32 at D = 161-512 in every mode and self mode, the D=512 self kernels in
+    bf16 and f32)."""
     counts = {}
     for source in SOURCES:
         for kernel, _ in _instances(source, _source_text(source)):
             counts[kernel] = counts.get(kernel, 0) + 1
     # the static-shift instances: bf16 and f32 at four head dims in five modes
     assert counts["flash_kernel"] == 2 * 4 * 5 + 4 * 5 and counts["flash_f32_kernel"] == 2 * 4 * 5
-    assert counts["flash16_dmid_rows_kernel"] == 2 * 3 * 5 and counts["flash16_dmid_split_kernel"] == 2 * 2 * 5
-    assert counts["flash_f32_dmid_kernel"] == 4 * 5 and counts["flash16_d512_kernel"] == 2
+    # and bf16 (3 + 2 chunk counts) and f32 (four tilings) at D = 161-512 in five modes, the D=512 self kernels'
+    assert counts["flash16_dmid_rows_kernel"] == 2 * 3 * 5 + 3 * 5
+    assert counts["flash16_dmid_split_kernel"] == 2 * 2 * 5 + 2 * 5
+    assert counts["flash_f32_dmid_kernel"] == 2 * 4 * 5
+    assert counts["flash16_d512_kernel"] == 2 + 1 and counts["flash_f32_d512_kernel"] == 1 + 1
     assert counts["flash_dwide_kernel"] == 3 * 4 and counts["flash_dwide_combine_kernel"] == 3
     assert counts["conv3x3_kernel"] == 2 * 2 and counts["blocked_f32_kernel"] == 4
     # the short-stream kernel: five stream sizes at four head dims in two types, but 15 tiles at D=160

@@ -26,17 +26,24 @@ from aid_tpu_torch.ops import flash_attention as fa
 from aid_tpu_torch.ops.attention import AttnMode, dispatch_attention
 from aid_tpu_torch.ops.flash_attention import (
     STATIC_SHIFT_C,
+    d512_operands,
     flash_interpolated_attention,
     flash_interpolated_attention_plain,
+    flash_self_attention_bf16,
+    flash_self_attention_f16,
+    flash_self_attention_f32,
     jax_static_smax,
     kernel_operands,
     resolve_static_smax,
+    takes_d512_self,
 )
 
 # the module (``aid_tpu_torch.ops.attention`` as an attribute is the function the package exports)
 port_attn = importlib.import_module("aid_tpu_torch.ops.attention")
 MODES = [m.value for m in AttnMode]
-HEAD_DIMS = [40, 64, 80, 160]
+# the D <= 160 instances' head dims, then the D=161-512 kernels' (320: SD 1.x's wide heads) and the
+# VAE's 512 (its endpoint modes on the D=161-512 kernels, self mode on the D=512 self kernels)
+HEAD_DIMS = [40, 64, 80, 160, 320, 512]
 # f32: the interpret-mode kernels' tiled sums and their exp against one
 # softmax, ~1e-6 of the output (tests/test_flash_attention.py pins 2e-4);
 # bf16: P and the output rounded to bf16 at other points in the two
@@ -78,7 +85,8 @@ def test_plain_static_shift_matches_jax_kernels(dtype, D, mode, onepass_max):
     """Every mode and head dim, 70 queries over 150 keys (ragged against the
     128-wide blocks, so both JAX kernels mask), skip rows at both ends in
     the fused modes, through `_kernel_onepass` (onepass_max 3072) and
-    `_kernel` (0) at static_smax = 40."""
+    `_kernel` (0) at static_smax = 40; D = 320 the JAX wrapper pads to 384,
+    D = 512 it runs as it is."""
     q, k, v, coef = _data(4, 2, 70, 150, D, seed=D + 3)
     skip = np.array([True, False, False, True])
     kw = {"skip_endpoints": skip} if mode in ("fused_outer", "fused_inner") else {}
@@ -132,6 +140,55 @@ def test_plain_static_shift_at_the_window_edges(dtype, mode):
             assert _err(got.float().numpy(), exact.float().numpy()) < TOLS[dtype]
 
 
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("D,mode", [(320, "fused_outer"), (320, "self"), (512, "pure_inner"), (512, "self")])
+def test_plain_static_shift_at_the_window_edges_wide_heads(dtype, D, mode):
+    """The window's edges at the D=161-512 kernels' and the VAE's head dims:
+    near the bottom (row maxes ~ -23) the static shift is the exact result;
+    far above the top (row maxes in the thousands) it is JAX's CLIPPED
+    result, finite, more than ten tolerances from the exact one."""
+    coef = np.array([0.25, 0.75], np.float32)
+    for hot in (False, True):
+        q, k, v, scale = _window_data(hot, D=D, seed=D)
+        want = jax_flash(*_jax(dtype, q, k, v), jnp.asarray(coef), mode, interpret=True, static_smax=40.0,
+                         scale=scale, onepass_max=0, block_q=128, block_k=128)
+        tq, tk, tv = _torch(dtype, q, k, v)
+        got = flash_interpolated_attention_plain(tq, tk, tv, torch.from_numpy(coef), mode, scale=scale,
+                                                 static_smax=40.0)
+        exact = flash_interpolated_attention_plain(tq, tk, tv, torch.from_numpy(coef), mode, scale=scale)
+        assert torch.isfinite(got).all() and bool(jnp.all(jnp.isfinite(want)))
+        assert _err(got.float().numpy(), want) < TOLS[dtype]
+        if hot:
+            assert _err(got.float().numpy(), exact.float().numpy()) > 10 * TOLS[dtype]
+        else:
+            assert _err(got.float().numpy(), exact.float().numpy()) < TOLS[dtype]
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("Sq,Lk", [(70, 333), (256, 129)])
+def test_vae_self_static_shift_matches_jax_kernel(dtype, Sq, Lk):
+    """The VAE mid block's call (one head, D = 512, B = 1, self mode) with a
+    key count ragged against the 128-key blocks: the JAX `_kernel` at
+    static_smax = 40 in interpret mode against the port's D=512 wrapper of
+    the dtype on CPU tensors at the same shift (its plain route), and
+    against flash_interpolated_attention's; "auto" and None there are the
+    exact softmax."""
+    rng = np.random.default_rng(Sq + Lk)
+    q = rng.normal(size=(1, 1, Sq, 512)).astype(np.float32)
+    k, v = (rng.normal(size=(1, 1, Lk, 512)).astype(np.float32) for _ in range(2))
+    want = jax_flash(*_jax(dtype, q, k, v), None, "self", interpret=True, static_smax=40.0, onepass_max=0,
+                     block_q=128, block_k=128)
+    tq, tk, tv = _torch(dtype, q, k, v)
+    wrapper = {"f32": flash_self_attention_f32, "bf16": flash_self_attention_bf16}[dtype]
+    got = wrapper(tq, tk, tv, static_smax=40.0)
+    assert got.dtype == TORCH_DTYPES[dtype] and got.shape == (1, 1, Sq, 512)
+    assert _err(got.float().numpy(), want) < TOLS[dtype]
+    assert torch.equal(flash_interpolated_attention(tq, tk, tv, static_smax=40.0), got)
+    exact = wrapper(tq, tk, tv)
+    assert torch.equal(wrapper(tq, tk, tv, static_smax="auto"), exact)
+    assert torch.equal(flash_interpolated_attention_plain(tq, tk, tv), exact)
+
+
 def test_auto_on_the_plain_route_is_exact_bit_for_bit():
     """On CPU tensors "auto" is the exact softmax, bit for bit, through the
     wrapper of each dtype and through dispatch_attention (the model path's
@@ -166,11 +223,12 @@ def test_string_validation_and_f16():
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
-@pytest.mark.parametrize("D,mode", [(192, "fused_outer"), (320, "self"), (512, "pure_inner"), (640, "fused_outer")])
+@pytest.mark.parametrize("D,mode", [(520, "fused_outer"), (640, "self"), (1280, "pure_inner"), (2048, "fused_outer")])
 def test_no_static_instance_past_160_raises(dtype, D, mode):
-    """The kernel route's layout of a float shift past head dim 160 raises
-    NotImplementedError naming the ROADMAP entry (no fallback), while the
-    plain version computes it on any device."""
+    """The kernel route's layout of a float shift past head dim 512 (the
+    wide kernels; up to 512 the D=161-512 and D=512 self kernels have static
+    instances) raises NotImplementedError naming the ROADMAP entry (no
+    fallback), while the plain version computes it on any device."""
     q, k, v, coef = _data(2, 1, 8, 8, D, seed=D)
     tq, tk, tv = _torch(dtype, q, k, v)
     c = torch.from_numpy(coef)
@@ -185,25 +243,65 @@ def test_kernel_operands_lay_out_the_static_instances(D, mode):
     """A float shift lays out the static entry of the dtype: bf16 on the
     mid-length stream kernel's in an endpoint mode at D = 64 where the route
     takes that kernel, else on the streaming kernel's (the short-stream
-    kernel's calls too); f32 on its one. The shift and the clip are passed
-    in log2 units; None keeps the exact entries."""
+    kernel's calls too); f32 on its one; from 161 to 512 on the D=161-512
+    kernels' (with the exact entry's workspace), and in self mode at 512 on
+    the D=512 self kernels' (d512_operands). The shift and the clip are
+    passed in log2 units; None keeps the exact entries."""
+    static_log2 = (40.0 * np.log2(np.e), 30.0 * np.log2(np.e))
     for S, L in ((1024, 1024), (600, 77)):
         q, k, v = (torch.zeros(()).expand(2, 2, n, D) for n in (S, L, L))
         for dtype in (torch.bfloat16, torch.float32):
             x = [t.to(dtype).contiguous() for t in (q, k, v)]
+            if takes_d512_self(D, mode, dtype):
+                ops, exact = d512_operands(*x, static_smax=40.0), d512_operands(*x)
+                assert ops["entry"] == fa.STATIC_D512_ENTRIES[dtype] and exact["entry"] == fa.D512_ENTRIES[dtype]
+                np.testing.assert_allclose(ops["static"], static_log2, rtol=1e-12)
+                assert exact["static"] is None and ops["dims"] == exact["dims"]
+                continue
             ops = kernel_operands(*x, torch.zeros(2), mode, static_smax=40.0)
             exact = kernel_operands(*x, torch.zeros(2), mode)
             mid = (dtype == torch.bfloat16 and D == 64 and mode != "self" and exact["midstream"])
             want = ("aid_flash_attn_bf16_midstream_static" if mid else
                     {torch.bfloat16: "aid_flash_attn_bf16_static", torch.float32: "aid_flash_attn_f32_static"}[dtype])
+            if D > 160:
+                want = fa.STATIC_DMID_ENTRIES[dtype]
+                assert exact["entry"] == fa.DMID_ENTRIES[dtype]
+                assert (ops["work"] is None) == (exact["work"] is None)
+                assert ops["work"] is None or ops["work"].shape == exact["work"].shape
             assert ops["entry"] == want and not ops["onepass"] and ops["midstream"] == mid
-            np.testing.assert_allclose(ops["static"], (40.0 * np.log2(np.e), 30.0 * np.log2(np.e)), rtol=1e-12)
+            np.testing.assert_allclose(ops["static"], static_log2, rtol=1e-12)
             assert exact["static"] is None and not exact["entry"].endswith("_static")
     x = [torch.zeros(2, 2, 1024, 64, dtype=torch.bfloat16) for _ in range(3)]
     with pytest.raises(NotImplementedError):
         kernel_operands(*x, static_smax=40.0, midstream=True)  # self mode: no mid-length static instance
     with pytest.raises(NotImplementedError):
         kernel_operands(*[t[:, :, :77] for t in x], static_smax=40.0, onepass=True)
+
+
+@pytest.mark.parametrize("D", [200, 504, 512])
+def test_d512_operands_lay_out_the_static_instances(D):
+    """d512_operands lays out the D=512 self kernels' static entry of the
+    dtype (bf16, f32) for a float shift, with the shift and the clip in log2
+    units, the same dims and padded tensors as the exact entry's; None keeps
+    the exact entry; a shift on f16 raises ValueError (no instance: exp(-40)
+    flushes to 0), as the D=512 wrappers do on any device."""
+    for dtype in (torch.bfloat16, torch.float32, torch.float16):
+        x = [torch.zeros(1, 1, n, D, dtype=dtype) for n in (100, 77, 77)]
+        exact = d512_operands(*x)
+        assert exact["entry"] == fa.D512_ENTRIES[dtype] and exact["static"] is None
+        if dtype == torch.float16:
+            with pytest.raises(ValueError, match="f16"):
+                d512_operands(*x, static_smax=40.0)
+            with pytest.raises(ValueError, match="f16"):
+                flash_self_attention_f16(*x, static_smax=40.0)
+            assert torch.equal(flash_self_attention_f16(*x, static_smax="auto"), flash_self_attention_f16(*x))
+            continue
+        ops = d512_operands(*x, static_smax=40.0)
+        assert ops["entry"] == fa.STATIC_D512_ENTRIES[dtype]
+        np.testing.assert_allclose(ops["static"], (40.0 * np.log2(np.e), 30.0 * np.log2(np.e)), rtol=1e-12)
+        assert ops["dims"] == exact["dims"] and ops["scale"] == exact["scale"] == D ** -0.5
+        assert all(a.shape == b.shape == (*b.shape[:3], 512) for a, b in zip(ops["tensors"], exact["tensors"]))
+        assert ops["out"].shape == (1, 1, 100, D)
 
 
 # ---------------------------------------------------------------------------
@@ -296,6 +394,25 @@ CLASSES = [
     ("f32 SD1.5 fused_outer 1024", "f32", "fused_outer", 7, 8, 1024, 1024, 80, None, 40.0, "streaming"),
     ("f16 SDXL fused_outer 4096", "f16", "fused_outer", 7, 10, 4096, 4096, 64, None, 40.0, "streaming"),
     ("f16 SDXL self 4096", "f16", "self", 7, 10, 4096, 4096, 64, None, 40.0, "streaming"),
+    # SD 1.x read with 320-wide heads (1 / 2 / 4 heads over 64^2 / 32^2 / 16^2 tokens): the D=161-512 kernels
+    ("SD1.x D=320 self 4096", "bf16", "self", 7, 1, 4096, 4096, 320, None, 40.0, "dmid"),
+    ("SD1.x D=320 fused_outer 4096", "bf16", "fused_outer", 7, 1, 4096, 4096, 320, None, 40.0, "dmid"),
+    ("SD1.x D=320 self 1024", "bf16", "self", 7, 2, 1024, 1024, 320, None, None, None),
+    ("SD1.x D=320 fused_outer 1024", "bf16", "fused_outer", 7, 2, 1024, 1024, 320, None, 40.0, "dmid"),
+    ("SD1.x D=320 pure_inner 256", "bf16", "pure_inner", 7, 4, 256, 256, 320, None, None, None),
+    ("f32 SD1.x D=320 fused_outer 4096", "f32", "fused_outer", 7, 1, 4096, 4096, 320, None, 40.0, "dmid"),
+    ("f32 SD1.x D=320 self 4096", "f32", "self", 7, 1, 4096, 4096, 320, None, 40.0, "dmid"),
+    ("f16 SD1.x D=320 fused_outer 4096", "f16", "fused_outer", 7, 1, 4096, 4096, 320, None, 40.0, "dmid"),
+    # one head a level (640 / 1280): the wide kernels, exact in the port
+    ("SD1.x D=640 fused_outer 1024", "bf16", "fused_outer", 7, 1, 1024, 1024, 640, None, 40.0, None),
+    # the VAE mid block (one head at D = 512, self mode): a 1024px frame, 7 512px frames, the tiled decode's
+    # ragged tile; the D=512 self kernels
+    ("VAE f32 self 16384", "f32", "self", 1, 1, 16384, 16384, 512, None, 40.0, "d512"),
+    ("VAE f32 self 4096 x7", "f32", "self", 7, 1, 4096, 4096, 512, None, 40.0, "d512"),
+    ("VAE f32 self 4000 (tile)", "f32", "self", 1, 1, 4000, 4000, 512, None, 40.0, "d512"),
+    ("VAE bf16 self 16384", "bf16", "self", 1, 1, 16384, 16384, 512, None, 40.0, "d512"),
+    ("VAE bf16 self 4096 x7", "bf16", "self", 7, 1, 4096, 4096, 512, None, 40.0, "d512"),
+    ("VAE f16 self 16384", "f16", "self", 1, 1, 16384, 16384, 512, None, 40.0, "d512"),
 ]
 
 
@@ -308,10 +425,11 @@ def _shaped(dtype, *shape):
 def test_auto_resolves_each_call_class(monkeypatch, label, dtype, mode, B, H, Sq, Lk, D, endpoints, jax_shift,
                                        route):
     """Each published call class through dispatch_attention on the kernel
-    route (``use_kernel`` made true, the launch captured): the JAX model
-    path's choice (own KV under FLASH_MIN_KV exact; one-pass self exact; the
-    rest C = 40), then the port's exact classes (f16; a class the card
-    measured slower, STATIC_SHIFT_SLOWER). Derived by hand from
+    route (``use_kernel`` made true, the launch captured: the interpolating
+    kernels' and the D=512 self kernels'): the JAX model path's choice (own
+    KV under FLASH_MIN_KV exact; one-pass self exact; the rest C = 40), then
+    the port's exact classes (f16; past D = 512, the wide kernels; a class
+    the card measured slower, STATIC_SHIFT_SLOWER). Derived by hand from
     aid_tpu/ops/flash_attention.py:863-891 and the shapes, not from the
     resolution itself."""
     dt = {"bf16": torch.bfloat16, "f32": torch.float32, "f16": torch.float16}[dtype]
@@ -321,15 +439,23 @@ def test_auto_resolves_each_call_class(monkeypatch, label, dtype, mode, B, H, Sq
         seen.append(static_smax)
         return q
 
+    def d512_launch(q, k, v, scale=None, static_smax=None):
+        seen.append(static_smax)
+        return q, lambda: None
+
     monkeypatch.setattr(fa, "use_kernel", lambda *t: True)
     monkeypatch.setattr(fa, "_launch_counted", launch)
+    monkeypatch.setattr(fa, "d512_launch", d512_launch)
+    for wrapper in (fa.flash_self_attention_f32, fa.flash_self_attention_bf16, fa.flash_self_attention_f16):
+        monkeypatch.setattr(wrapper, "launches", 0)
+        monkeypatch.setattr(wrapper, "launches_static", 0)
     q, k = _shaped(dt, B, H, Sq, D), _shaped(dt, B, H, Lk, D)
     eps = {}
     if endpoints == "per_row":
         eps = {n: _shaped(dt, B, H, Lk, D) for n in ("k_begin", "v_begin", "k_end", "v_end")}
     dispatch_attention(q, k, k, torch.zeros(B), mode, **eps)
     want = jax_shift
-    if dt == torch.float16 or (route, dtype, D, mode) in fa.STATIC_SHIFT_SLOWER:
+    if dt == torch.float16 or D > fa.D512 or (route, dtype, D, mode) in fa.STATIC_SHIFT_SLOWER:
         want = None
     assert seen == [want]
     if Lk >= port_attn.FLASH_MIN_KV:  # the JAX wrapper's own choice (shorter calls are exact by the gate)
@@ -366,15 +492,20 @@ def test_auto_for_rows_all_forced_vanilla_is_the_self_calls(monkeypatch, mode):
 
 def test_auto_keeps_the_plain_route_and_wide_heads_exact(monkeypatch):
     """Without the kernel route (CPU tensors) "auto" is exact; on it, head
-    dims past 160 (no static instance yet) are exact."""
+    dims up to 512 take the JAX wrapper's C (the D=161-512 kernels' and the
+    D=512 self kernels' static instances), past 512 (no static instance
+    yet: the wide kernels) they are exact."""
     q = _shaped(torch.bfloat16, 7, 10, 4096, 64)
     assert resolve_static_smax(q, q, "self") is None
     monkeypatch.setattr(fa, "use_kernel", lambda *t: True)
     assert resolve_static_smax(q, q, "self") == STATIC_SHIFT_C
-    for D in (192, 320, 512, 640):
-        w = _shaped(torch.bfloat16, 7, 1, 4096, D)
-        assert fa.jax_static_smax(tuple(w.shape), torch.bfloat16, 4096, "fused_outer") == STATIC_SHIFT_C
-        assert resolve_static_smax(w, w, "fused_outer") is None
+    for dtype in (torch.bfloat16, torch.float32):
+        for D in (192, 320, 512, 640):
+            w = _shaped(dtype, 7, 1, 4096, D)
+            assert fa.jax_static_smax(tuple(w.shape), dtype, 4096, "fused_outer") == STATIC_SHIFT_C
+            assert resolve_static_smax(w, w, "fused_outer") == (STATIC_SHIFT_C if D <= 512 else None)
+        vae = _shaped(dtype, 1, 1, 16384, 512)
+        assert resolve_static_smax(vae, vae, "self") == STATIC_SHIFT_C
     assert resolve_static_smax(q, q, "self", static_smax=None) is None
     assert resolve_static_smax(q, q, "self", static_smax=12.5) == 12.5
 

@@ -64,10 +64,16 @@ the mid-length stream kernel (csrc/flash_attention_midstream.cu) and the
 streaming kernel in turns, beside cuDNN in self mode; each line says whether
 the route sends the call to the new kernel.
 ``--static`` times the static-shift instances (``static_smax`` = 40: the
-streaming kernels' in bf16 and f32, the bf16 mid-length stream kernel's) at
-the call classes the model path's "auto" shifts (``STATIC_SHIFTS``: SDXL's
-4096- and 1024-token calls, SD 1.5's 4096 at D = 40 and 1024 at D = 80, SD
-2.1's 9216, 2304 and 576, the f32 UNets' 4096 and 1024) and at a 77-key call the short-stream kernel
+streaming kernels' in bf16 and f32, the bf16 mid-length stream kernel's, the
+D=161-512 kernels' and the D=512 self kernels' in bf16 and f32) at the call
+classes the model path's "auto" shifts (``STATIC_SHIFTS``: SDXL's 4096- and
+1024-token calls, SD 1.5's 4096 at D = 40 and 1024 at D = 80, SD 2.1's 9216,
+2304 and 576, the f32 UNets' 4096 and 1024; the VAE mid block at D = 512 over
+one 1024px frame, seven 512px frames and the tiled decode's 4000-token tile;
+SD 1.x's 320-wide heads over (7,1,4096) in every mode and (7,2,1024)
+fused_outer, the self calls at 448 and 504 that the route sends to each
+D=161-512 instance, and the endpoint modes over (7,2,1024) at D = 384 and
+512, the bf16 kernel's split layout) and at a 77-key call the short-stream kernel
 takes exactly, each in PAIRS turns with the exact route on the same inputs
 (launched alone, and through the wrapper with static_smax 40 against None;
 medians and least times, and the kernels' device time from a profiler trace),
@@ -562,9 +568,9 @@ def bench_onepass(reps: int, name: str, only: str, kind: str = "onepass") -> dic
     return result
 
 
-# (label, dtype, mode, coefficients, H, Sq, L, D): the call classes "auto"
-# shifts on the paths, and one it keeps exact (a 77-key call the short-stream
-# kernel takes; its static instance would be the streaming kernel's)
+# (label, dtype, mode, coefficients, H, Sq, L, D[, B = 7]): the call classes
+# "auto" shifts on the paths, and one it keeps exact (a 77-key call the
+# short-stream kernel takes; its static instance would be the streaming kernel's)
 STATIC_SHIFTS = [
     *[(f"SDXL {m} 4096 D=64", "bf16", m, "sdxl", 10, 4096, 4096, 64) for m in ("self", "fused_outer")],
     *[(f"SDXL {m} 1024 D=64", "bf16", m, "sdxl", 20, 1024, 1024, 64)
@@ -579,6 +585,17 @@ STATIC_SHIFTS = [
     *[(f"f32 SD1.5 {m} 4096 D=40", "f32", m, "sd", 8, 4096, 4096, 40) for m in ("self", "fused_outer")],
     ("f32 SD1.5 fused_outer 1024 D=80", "f32", "fused_outer", "sd", 8, 1024, 1024, 80),
     ("SDXL cross fused_outer 4096x77 D=64", "bf16", "fused_outer", "sdxl", 10, 4096, 77, 64),
+    # the VAE mid block: the D=512 self kernels' static instances
+    *[(f"{n} VAE self {S} D=512 x{B}", n, "self", "sd", 1, S, S, 512, B)
+      for n in ("f32", "bf16") for B, S in ((1, 16384), (7, 4096), (1, 4000))],
+    # SD 1.x with 320-wide heads, and self mode at 448 and 504: the D=161-512 kernels' static instances
+    *[(f"{n} SD1.x {m} 4096 D=320", n, m, "sd", 1, 4096, 4096, 320) for n in ("bf16", "f32")
+      for m in ("fused_outer", "pure_outer", "fused_inner", "pure_inner", "self")],
+    *[(f"{n} SD1.x fused_outer 1024 D=320", n, "fused_outer", "sd", 2, 1024, 1024, 320) for n in ("bf16", "f32")],
+    *[(f"{n} self 1024 D={D}", n, "self", "sd", 2, 1024, 1024, D) for n in ("bf16", "f32") for D in (448, 504)],
+    # the 16-bit kernel's split layout (6 to 8 chunks: two warpgroups split D) in endpoint modes, f32 beside
+    *[(f"{n} split D={D} {m} 1024", n, m, "sd", 2, 1024, 1024, D) for n in ("bf16", "f32") for D in (384, 512)
+      for m in ("fused_outer", "pure_outer", "fused_inner", "pure_inner")],
 ]
 
 
@@ -611,12 +628,14 @@ def bench_static(reps: int, only: str) -> dict:
     coefs = {"sdxl": torch.tensor([0.0, 0.2, 0.35, 0.5, 0.65, 0.8, 1.0], device=dev),
              "sd": chip_smoke.sd15_coef().to(dev)}
     result = {}
-    for label, name, mode, ck, H, Sq, L, D in STATIC_SHIFTS:
-        if only not in label:
+    for label, name, mode, ck, H, Sq, L, D, *rows in STATIC_SHIFTS:
+        if not any(part in label for part in only.split(",")):  # --only: labels holding any of its parts
             continue
+        B = rows[0] if rows else 7
         dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[name]
         tol = chip_smoke.ATTN_TOL if name == "bf16" else chip_smoke.F32_ATTN_TOL
-        coef = coefs[ck]
+        coef = coefs[ck][:B] if B < 7 else coefs[ck]
+        d512 = fa.takes_d512_self(D, mode, dtype)  # the D=512 self kernels take it: d512_launch lays it out
 
         def heads(n):
             x = torch.randn((B, n, H * D), generator=gen, device=dev).to(dtype)
@@ -627,7 +646,10 @@ def bench_static(reps: int, only: str) -> dict:
         routes = {"static": STATIC_SHIFT_C, "exact": None}
         launches = {}
         for route, shift in routes.items():
-            out, launch = kernel_launch(q, k, v, coef, mode, static_smax=shift, **kw)
+            if d512:
+                out, launch = fa.d512_launch(q, k, v, static_smax=shift)
+            else:
+                out, launch = kernel_launch(q, k, v, coef, mode, static_smax=shift, **kw)
             launch()
             want = flash_interpolated_attention_plain(q, k, v, coef, mode, static_smax=shift, **kw)
             err = (out.float() - want.float()).abs().max().item() / want.float().abs().max().item()
@@ -656,9 +678,11 @@ def bench_static(reps: int, only: str) -> dict:
         won = sum(a <= b for a, b in zip(alone["static"], alone["exact"]))
         ratio = statistics.median(alone["static"]) / statistics.median(alone["exact"])
         skip_rows = int(kw["skip_endpoints"].sum()) if kw else 0
+        # f32: three TF32 passes at D <= 160, the D=512 design's split (F32_D512_PASSES) past it
+        passes = ({} if name != "f32" else chip_smoke.F32_D512_PASSES if D > 160 else {"tf32_passes": 3})
         bound_ms, by = attention_bound(mode, B, H, Sq, L, D, skip_rows=skip_rows, elem=4 if name == "f32" else 2,
-                                       tf32_passes=3 if name == "f32" else None)
-        print(f"{tag:41s} (7,{H},{Sq},{D}) {' | '.join(line)} | static/exact alone {ratio:.4f}, static no "
+                                       **passes)
+        print(f"{tag:41s} ({B},{H},{Sq},{D}) {' | '.join(line)} | static/exact alone {ratio:.4f}, static no "
               f"slower alone in {won} of {PAIRS} pairs | bound {bound_ms:.4f} ({by}) | the route under auto: "
               f"{'static' if fa.resolve_static_smax(q, k, mode) is not None else 'exact'}", flush=True)
         del q, k, v, launches
@@ -708,7 +732,8 @@ def main(argv=None) -> int:
                     help="the static-shift instances beside the exact route at the call classes 'auto' shifts")
     ap.add_argument("--headline", type=int, default=0,
                     help="with --static: also the SDXL headline's denoise of this many steps, auto against exact")
-    ap.add_argument("--only", default="", help="time only the shapes whose label contains this text")
+    ap.add_argument("--only", default="", help="time only the shapes whose label contains this text (with "
+                                               "--static: any of its comma-separated parts)")
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]),
                     help="the checkout whose package and chip_smoke.py are timed (default: this one)")
     args = ap.parse_args(argv)

@@ -7,11 +7,12 @@ this one) with the flags of that checkout's own ``ops/_build.py`` (nvcc
 ``-Xptxas -v``, one process per source, all at once; the objects are thrown
 away) and prints one line per kernel: its demangled name
 (``c++filt`` where the toolkit's host has it), registers, spill stores and
-loads in bytes, and its source. Run it on the parent unpacked under
+loads in bytes, ptxas's performance remarks on it (say C7513: its wgmma
+serialised), and its source. Run it on the parent unpacked under
 ``build/`` and on this checkout in one call to hold a change of the sources
 against the registers and spills of every kernel that was there before. The
 last line is one JSON object {kernel: [registers, spill stores, spill
-loads]}. Needs nvcc (the CUDA toolkit); no card is used.
+loads, remark codes...]}. Needs nvcc (the CUDA toolkit); no card is used.
 """
 
 from __future__ import annotations
@@ -27,9 +28,14 @@ from pathlib import Path
 
 
 def parse(report: str) -> dict:
-    """{mangled kernel: (registers, spill store bytes, spill load bytes, source)} from ptxas -v output."""
+    """{mangled kernel: [registers, spill store bytes, spill load bytes, source, remark codes]} from ptxas
+    -v output; a remark is a "Potential Performance Loss" line naming the kernel (C7513: wgmma serialised)."""
     kernels, name, source = {}, None, "?"
     for line in report.splitlines():
+        m = re.search(r"\((C\d+)\) Potential Performance Loss: .* in the function '(\w+)'", line)
+        if m:
+            kernels.setdefault(m.group(2), [None, 0, 0, source, []])[4].append(m.group(1))
+            continue
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             name = m.group(1)
@@ -40,11 +46,11 @@ def parse(report: str) -> dict:
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and name:
-            kernels.setdefault(name, [None, 0, 0, source])[1:3] = [int(m.group(1)), int(m.group(2))]
+            kernels.setdefault(name, [None, 0, 0, source, []])[1:3] = [int(m.group(1)), int(m.group(2))]
             continue
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
-            kernels.setdefault(name, [None, 0, 0, source])[0] = int(m.group(1))
+            kernels.setdefault(name, [None, 0, 0, source, []])[0] = int(m.group(1))
     return kernels
 
 
@@ -80,11 +86,12 @@ def main(argv=None) -> int:
                 reports[name] = row
     names = demangle(sorted(reports))
     for mangled in sorted(reports, key=lambda n: (reports[n][3], names[n])):
-        regs, st, ld, src = reports[mangled]
-        print(f"{src:40s} {regs} registers, {st} bytes spill stores, {ld} bytes spill loads  {names[mangled]}",
+        regs, st, ld, src, remarks = reports[mangled]
+        note = f" ({', '.join(sorted(set(remarks)))}: performance remarks)" if remarks else ""
+        print(f"{src:40s} {regs} registers, {st} bytes spill stores, {ld} bytes spill loads{note}  {names[mangled]}",
               flush=True)
     print(f"the kernels of {root}", flush=True)
-    print(json.dumps({names[n]: reports[n][:3] for n in sorted(reports)}), flush=True)
+    print(json.dumps({names[n]: reports[n][:3] + sorted(set(reports[n][4])) for n in sorted(reports)}), flush=True)
     return 0
 
 

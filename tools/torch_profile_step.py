@@ -51,7 +51,9 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 # 2 the outer modes, 0 self mode, 1 the inner modes. The short-stream kernel
 # (onepass_kernel<T, D, stream tiles>, its mode a runtime argument), the
 # D=512 self kernels and the wide kernel (its mode a runtime argument too) and
-# its combine step have classes of their own.
+# its combine step have classes of their own. The static-shift instances (the
+# same kernels in the namespace static_shift: the D <= 160, mid-length, D=161-512
+# and D=512 self ones) land in their exact instances' classes.
 _MODED = r"(?:flash_kernel<\w+, \d+, |flash_f32_kernel<\d+, |flash16_dmid_(?:rows|split)_kernel<\w+, \d+, |" \
          r"flash_f32_dmid_kernel<\d+, \d+, )"
 CLASSES = [
