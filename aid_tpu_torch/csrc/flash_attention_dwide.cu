@@ -92,6 +92,27 @@
 // D = 512 kernels once per 64); tools/dwide_ablation.py times the
 // producer's loads, Q K^T, the exchange, the softmax, P V and the combine
 // step apart, and PERF.md has its times.
+//
+// The static-shift softmax (`static_smax`, the static branch of `_kernel` at
+// flash_attention.py:210-256) is this body built with AID_STATIC_SHIFT = 1 by
+// flash_attention_dwide_static.cu, a translation unit of its own, bf16 and
+// f32 (entries aid_flash_attn_bf16_dwide_static and
+// aid_flash_attn_f32_dwide_static, every mode; in f16, exp(-40) is below the
+// smallest subnormal). Each tile's P is 2^min(s * scale_log2 - shift_log2,
+// clip_log2), the shift C and the 30-nat clip in log2 units after the scale:
+// no column maxima (their shuffles, the warps' maxima in shared memory and
+// the named barrier between them go: two barriers a tile, the exchange and
+// P^T written), no rescale factor, and each chunk's P V is added to O with
+// no factor (in bf16 the P V wgmma accumulates into O^T in place, with no
+// second accumulator and no fold: as fast as the fold kept, measured, and 32
+// registers fewer in flight; f32 keeps its fold, an add, as the f32 D=512
+// and D=161-512 static instances do). Each softmax set's O and l just add up, so the outer modes'
+// park keeps O and l and no max (the workspace's layout is the exact
+// instances'; the max words go unused), the own segment's state continuing
+// into both sets unchanged, as the JAX branch's w0 / w1 weights do, and the
+// combine step is O = sum_s O_s / sum_s l_s per set, with no max pass and no
+// weight. Each row's sum is guarded (max(l, 1e-37)) as the JAX kernels'
+// denominator is.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -102,11 +123,19 @@
 
 #include <type_traits>
 
+#ifndef AID_STATIC_SHIFT
+#define AID_STATIC_SHIFT 0
+#endif
+
 namespace {
+#if AID_STATIC_SHIFT
+namespace static_shift {  // kernel names of their own beside the exact instances' in one library
+#endif
 
 #include "elem16.cuh"
 #include "tf32_mma.cuh"
 
+constexpr bool kStatic = AID_STATIC_SHIFT != 0;
 constexpr int kWG = 2;                         // consumer warpgroups, splitting D by 64-column chunks
 constexpr int kThreads = 128 * (kWG + 1);      // + the producer warpgroup
 constexpr int kMaxRing = 12;
@@ -145,7 +174,7 @@ struct Wide {
   static constexpr int kPBoxes = kBK * (int)sizeof(T) / 128;    // P^T's boxes a copy: kBK keys of each query row
   static constexpr int kPBytes = (kF32 ? 2 : 1) * kPBoxes * kQBoxBytes;  // P^T (f32: raw, then lo)
   static constexpr int kXBytes = 2 * kWG * 128 * (BQ / 2) * 4;  // the partial scores, by tile parity
-  static constexpr int kRedBytes = 2 * kWG * 4 * BQ * 4;        // the warps' column maxima, by tile parity
+  static constexpr int kRedBytes = kStatic ? 0 : 2 * kWG * 4 * BQ * 4;  // the warps' column maxima, by tile parity
   static constexpr int kLBytes = kWG * 4 * BQ * 4;              // the warps' column sums
   static constexpr int kFixed = kQBytes + kQLoBytes + kPBytes + kXBytes + kRedBytes + kLBytes;
   static constexpr int kFit = (kSmemLimit - 1024 - kFixed - 8 * (2 * kMaxRing + 1)) / kSlotBytes;
@@ -175,6 +204,7 @@ struct WideParams {
   int splits;             // blocks a row block's key stream is split across
   int shared_eps;         // bit i: endpoint map i (k_begin, v_begin, k_end, v_end) is one (H, Le, D) tensor
   float scale_log2;       // softmax scale * log2(e)
+  float shift_log2, clip_log2;  // the static shift C and the clip, * log2(e) (kStatic instances only)
 };
 
 template <class T>
@@ -362,7 +392,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     const float sl2 = p.scale_log2;
     const int sets = p.n_sets == 2 ? 2 : 1;
     float* xs = reinterpret_cast<float*>(gbase + W::kXOff);
-    float* red = reinterpret_cast<float*>(gbase + W::kRedOff);
+    [[maybe_unused]] float* red = reinterpret_cast<float*>(gbase + W::kRedOff);
     float* lred = reinterpret_cast<float*>(gbase + W::kLOff);
     const uint32_t pt = base + W::kPOff;
     auto generic = [&](uint32_t addr) { return reinterpret_cast<float*>(gbase + (addr - base)); };
@@ -420,7 +450,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (wg == 0 && warp == 0 && g == 0) {
 #pragma unroll
         for (int k = 0; k < NK; ++k) {
-          w[BQ * Dp + query(k)] = m[k];
+          if constexpr (!kStatic) w[BQ * Dp + query(k)] = m[k];  // the static shift keeps no max
           w[BQ * Dp + BQ + query(k)] = L[k];
         }
       }
@@ -445,10 +475,16 @@ __global__ void __launch_bounds__(kThreads, 1)
       __syncwarp();
       if (lane == 0) mbar_arrive(empty + 8 * s);
     };
-    // O^T chunk = O^T * alpha + acc, by FMA
+    // O^T chunk = O^T * alpha + acc, by FMA (at the static shift, f32's: O^T + acc)
     auto fold = [&](float (&oc)[NA], const float (&acc)[NA], const float (&alpha)[NK]) {
 #pragma unroll
-      for (int i = 0; i < NA; ++i) oc[i] = fmaf(oc[i], alpha[2 * (i >> 2) + (i & 1)], acc[i]);
+      for (int i = 0; i < NA; ++i) {
+        if constexpr (kStatic) {
+          oc[i] += acc[i];
+        } else {
+          oc[i] = fmaf(oc[i], alpha[2 * (i >> 2) + (i & 1)], acc[i]);
+        }
+      }
     };
 
     mbar_wait(qbar, 0);
@@ -567,43 +603,55 @@ __global__ void __launch_bounds__(kThreads, 1)
           if (64 * mown + 16 * warp + g + 8 * ((i >> 1) & 1) >= valid) sc[i] = -INFINITY;
         }
       }
-      float* rd = red + par * 4 * kWG * BQ;  // [warp of the block][query]
-#pragma unroll
-      for (int k = 0; k < NK; ++k) {
-        const int j = k >> 1, e = k & 1;
-        float x = fmaxf(sc[4 * j + e], sc[4 * j + 2 + e]);
-        x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 4));
-        x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 8));
-        x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 16));
-        if (g == 0) rd[wpos * BQ + query(k)] = x;
-      }
-      named_barrier(1, 128 * kWG);
-      float alpha[NK], ms[NK];
-#pragma unroll
-      for (int j = 0; j < NK / 2; ++j) {
-        float2 x = *reinterpret_cast<const float2*>(rd + 8 * j + 2 * t);
-#pragma unroll
-        for (int w = 1; w < 4 * kWG; ++w) {
-          const float2 y = *reinterpret_cast<const float2*>(rd + w * BQ + 8 * j + 2 * t);
-          x.x = fmaxf(x.x, y.x);
-          x.y = fmaxf(x.y, y.y);
-        }
-        // every tile holds a real key, so the new max is finite
-        const float mn0 = fmaxf(m[2 * j], x.x), mn1 = fmaxf(m[2 * j + 1], x.y);
-        alpha[2 * j] = exp2_of<T>((m[2 * j] - mn0) * sl2);  // 0 on a set's first tile
-        alpha[2 * j + 1] = exp2_of<T>((m[2 * j + 1] - mn1) * sl2);
-        m[2 * j] = mn0;
-        m[2 * j + 1] = mn1;
-        ms[2 * j] = mn0 * sl2;
-        ms[2 * j + 1] = mn1 * sl2;
-      }
+      float alpha[NK];
       float pv[NA];  // P of keys 64 mown + 16 warp + g (+ 8) by this thread's query columns
+      if constexpr (kStatic) {
+        // P = 2^min(s sl2 - shift_log2, clip_log2) (a masked key stays -inf and gives 0); the sum just adds up
 #pragma unroll
-      for (int i = 0; i < NA; ++i) pv[i] = exp2_of<T>(fmaf(sc[i], sl2, -ms[2 * (i >> 2) + (i & 1)]));
+        for (int i = 0; i < NA; ++i) pv[i] = exp2_of<T>(fminf(fmaf(sc[i], sl2, -p.shift_log2), p.clip_log2));
 #pragma unroll
-      for (int j = 0; j < NK / 2; ++j) {
-        l[2 * j] = fmaf(l[2 * j], alpha[2 * j], pv[4 * j] + pv[4 * j + 2]);
-        l[2 * j + 1] = fmaf(l[2 * j + 1], alpha[2 * j + 1], pv[4 * j + 1] + pv[4 * j + 3]);
+        for (int j = 0; j < NK / 2; ++j) {
+          l[2 * j] += pv[4 * j] + pv[4 * j + 2];
+          l[2 * j + 1] += pv[4 * j + 1] + pv[4 * j + 3];
+        }
+      } else {
+        float* rd = red + par * 4 * kWG * BQ;  // [warp of the block][query]
+#pragma unroll
+        for (int k = 0; k < NK; ++k) {
+          const int j = k >> 1, e = k & 1;
+          float x = fmaxf(sc[4 * j + e], sc[4 * j + 2 + e]);
+          x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 4));
+          x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 8));
+          x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 16));
+          if (g == 0) rd[wpos * BQ + query(k)] = x;
+        }
+        named_barrier(1, 128 * kWG);
+        float ms[NK];
+#pragma unroll
+        for (int j = 0; j < NK / 2; ++j) {
+          float2 x = *reinterpret_cast<const float2*>(rd + 8 * j + 2 * t);
+#pragma unroll
+          for (int w = 1; w < 4 * kWG; ++w) {
+            const float2 y = *reinterpret_cast<const float2*>(rd + w * BQ + 8 * j + 2 * t);
+            x.x = fmaxf(x.x, y.x);
+            x.y = fmaxf(x.y, y.y);
+          }
+          // every tile holds a real key, so the new max is finite
+          const float mn0 = fmaxf(m[2 * j], x.x), mn1 = fmaxf(m[2 * j + 1], x.y);
+          alpha[2 * j] = exp2_of<T>((m[2 * j] - mn0) * sl2);  // 0 on a set's first tile
+          alpha[2 * j + 1] = exp2_of<T>((m[2 * j + 1] - mn1) * sl2);
+          m[2 * j] = mn0;
+          m[2 * j + 1] = mn1;
+          ms[2 * j] = mn0 * sl2;
+          ms[2 * j + 1] = mn1 * sl2;
+        }
+#pragma unroll
+        for (int i = 0; i < NA; ++i) pv[i] = exp2_of<T>(fmaf(sc[i], sl2, -ms[2 * (i >> 2) + (i & 1)]));
+#pragma unroll
+        for (int j = 0; j < NK / 2; ++j) {
+          l[2 * j] = fmaf(l[2 * j], alpha[2 * j], pv[4 * j] + pv[4 * j + 2]);
+          l[2 * j + 1] = fmaf(l[2 * j + 1], alpha[2 * j + 1], pv[4 * j + 1] + pv[4 * j + 3]);
+        }
       }
       if constexpr (!F32) {
         // P^T rounded to T (query rows of 64 keys a box, 128-byte swizzle):
@@ -632,8 +680,9 @@ __global__ void __launch_bounds__(kThreads, 1)
       named_barrier(1, 128 * kWG);
 
       // ---- O^T = O^T * alpha + V^T P^T over this warpgroup's chunks, each
-      // chunk's product summed from zero and folded by FMA
-      float acc[2][NA];
+      // chunk's product summed from zero and folded by FMA (bf16 at the static
+      // shift: accumulated into O^T in place, with no factor to fold by)
+      [[maybe_unused]] float acc[2][NA];
       if constexpr (!F32) {
 #pragma unroll
         for (int c2 = 0; c2 < NC; ++c2) {
@@ -642,14 +691,23 @@ __global__ void __launch_bounds__(kThreads, 1)
           wgmma_fence();
 #pragma unroll
           for (int kk = 0; kk < 4 * MB; ++kk) {  // 16 keys a step: V's rows, P^T's box kk / 4
-            wgmma_ss<T, 1>(acc[c2 & 1], desc_sw128(vt + 2048 * kk, W::kBoxBytes),
-                           desc_sw128(pt + (kk >> 2) * W::kQBoxBytes + 32 * (kk & 3), 16), kk > 0);
+            const uint64_t dv = desc_sw128(vt + 2048 * kk, W::kBoxBytes);
+            const uint64_t dp = desc_sw128(pt + (kk >> 2) * W::kQBoxBytes + 32 * (kk & 3), 16);
+            if constexpr (kStatic) {
+              wgmma_ss<T, 1>(o[c2], dv, dp, 1);
+            } else {
+              wgmma_ss<T, 1>(acc[c2 & 1], dv, dp, kk > 0);
+            }
           }
           wgmma_commit();
           if (c2 > 0) {
             wgmma_wait<1>();  // the last chunk's product is done: fold it, free its slot
-            reg_fence(acc[(c2 - 1) & 1]);
-            fold(o[c2 - 1], acc[(c2 - 1) & 1], alpha);
+            if constexpr (kStatic) {
+              reg_fence(o[c2 - 1]);
+            } else {
+              reg_fence(acc[(c2 - 1) & 1]);
+              fold(o[c2 - 1], acc[(c2 - 1) & 1], alpha);
+            }
             release(prev);
           }
           prev = slot;
@@ -704,8 +762,12 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
       }
       wgmma_wait0();
-      reg_fence(acc[(NC - 1) & 1]);
-      fold(o[NC - 1], acc[(NC - 1) & 1], alpha);
+      if constexpr (kStatic && !F32) {
+        reg_fence(o[NC - 1]);
+      } else {
+        reg_fence(acc[(NC - 1) & 1]);
+        fold(o[NC - 1], acc[(NC - 1) & 1], alpha);
+      }
       release(prev);
       par ^= 1;
     };
@@ -733,7 +795,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
 #pragma unroll
         for (int k = 0; k < NK; ++k) {
-          m[k] = p.has_own ? w[BQ * Dp + query(k)] : -INFINITY;
+          if constexpr (!kStatic) m[k] = p.has_own ? w[BQ * Dp + query(k)] : -INFINITY;
           // the parked sum is whole: one thread of each column's warp-0 quad carries
           // it (of warpgroup 0 where the two warpgroups' parts add up)
           l[k] = p.has_own && warp == 0 && g == 0 && (MB == 1 || wg == 0) ? w[BQ * Dp + BQ + query(k)] : 0.f;
@@ -753,8 +815,13 @@ __global__ void __launch_bounds__(kThreads, 1)
     const float* w0 = outer ? state(0) : nullptr;
 #pragma unroll
     for (int k = 0; k < NK; ++k) {
-      inv[k] = cb / L[k];
-      inv0[k] = outer ? (1.f - cb) / w0[BQ * Dp + BQ + query(k)] : 0.f;
+      if constexpr (kStatic) {  // each set's sum guarded, as the JAX kernels' denominator
+        inv[k] = cb / fmaxf(L[k], 1e-37f);
+        inv0[k] = outer ? (1.f - cb) / fmaxf(w0[BQ * Dp + BQ + query(k)], 1e-37f) : 0.f;
+      } else {
+        inv[k] = cb / L[k];
+        inv0[k] = outer ? (1.f - cb) / w0[BQ * Dp + BQ + query(k)] : 0.f;
+      }
     }
 #pragma unroll
     for (int c2 = 0; c2 < NC; ++c2) {
@@ -807,7 +874,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 // The combine step of a split launch: one thread a query row and pair of
 // head-dim columns (blocks of 128 pairs, by query row, by (b, h)). Per set,
 // the splits' states weighted by 2^(m_s - max m): O = sum e_s O_s / sum e_s
-// l_s; the outer modes blend (1 - c) set 0 + c set 1; rounded once to T.
+// l_s (at the static shift unweighted, O = sum O_s / sum l_s, the sum
+// guarded); the outer modes blend (1 - c) set 0 + c set 1; rounded once to T.
 template <class T>
 __global__ void __launch_bounds__(128) flash_dwide_combine_kernel(const WideParams p, int H, int Dp, int BQ) {
   const int cp = blockIdx.x * blockDim.x + threadIdx.x, row = blockIdx.y;
@@ -819,6 +887,20 @@ __global__ void __launch_bounds__(128) flash_dwide_combine_kernel(const WidePara
   const float* part = p.work + (size_t)((b * H + h) * nq + row / BQ) * p.splits * sets * per;
   float rx = 0.f, ry = 0.f;
   for (int set = 0; set < (outer ? 2 : 1); ++set) {
+    if constexpr (kStatic) {  // an empty state (a skip row's split past its own segment) is zeros
+      float L = 0.f, ox = 0.f, oy = 0.f;
+      for (int s = 0; s < p.splits; ++s) {
+        const float* w = part + (s * sets + set) * per;
+        const float2 v = *reinterpret_cast<const float2*>(w + q * Dp + 2 * cp);
+        L += w[BQ * Dp + BQ + q];
+        ox += v.x;
+        oy += v.y;
+      }
+      const float wt = (outer ? (set ? p.coef[b] : 1.f - p.coef[b]) : 1.f) / fmaxf(L, 1e-37f);
+      rx = fmaf(ox, wt, rx);
+      ry = fmaf(oy, wt, ry);
+      continue;
+    }
     float mx = -INFINITY;
     for (int s = 0; s < p.splits; ++s) mx = fmaxf(mx, part[(s * sets + set) * per + BQ * Dp + q]);
     float L = 0.f, ox = 0.f, oy = 0.f;
@@ -899,7 +981,7 @@ int launch(const CUtensorMap (&m)[8], const WideParams& p, int nq, int H, int B,
 
 template <class T>
 int entry(const void* const (&ptrs)[8], const void* coef, const void* skip, void* work, const long long* dims,
-          float scale, int has_own, int n_sets, void* stream) {
+          float scale, float shift_log2, float clip_log2, int has_own, int n_sets, void* stream) {
   constexpr int per16 = 16 / (int)sizeof(T);  // elements in 16 bytes
   const int B = (int)dims[0], H = (int)dims[1];
   WideParams p;
@@ -932,6 +1014,8 @@ int entry(const void* const (&ptrs)[8], const void* coef, const void* skip, void
   p.n_sets = n_sets;
   p.shared_eps = 0;
   p.scale_log2 = scale * 1.4426950408889634f;
+  p.shift_log2 = shift_log2;
+  p.clip_log2 = clip_log2;
   // rows of each map: queries, own keys, endpoint keys x4, queries out
   const int rows[8] = {p.Sq, p.Lk, p.Lk, p.Le, p.Le, p.Le, p.Le, p.Sq};
   CUtensorMap m[8];
@@ -960,8 +1044,37 @@ int entry(const void* const (&ptrs)[8], const void* coef, const void* skip, void
   }
 }
 
+#if AID_STATIC_SHIFT
+}  // namespace static_shift
+using static_shift::entry;
+#endif
 }  // namespace
 
+#if AID_STATIC_SHIFT
+// The static-shift instance over bf16 operands: aid_flash_attn_bf16_dwide's
+// arguments with the shift C and the clip after the scale, both times
+// log2(e) (p = 2^min(s * scale * log2(e) - shift_log2, clip_log2)), every
+// mode, the same workspace (its max words unused). Returns the launch's
+// cudaError_t.
+extern "C" int aid_flash_attn_bf16_dwide_static(const void* q, const void* k, const void* v, const void* kb,
+                                                const void* vb, const void* ke, const void* ve, void* out,
+                                                const void* coef, const void* skip, void* work, const long long* dims,
+                                                float scale, float shift_log2, float clip_log2, int has_own,
+                                                int n_sets, void* stream) {
+  const void* const ptrs[8] = {q, k, v, kb, vb, ke, ve, out};
+  return entry<__nv_bfloat16>(ptrs, coef, skip, work, dims, scale, shift_log2, clip_log2, has_own, n_sets, stream);
+}
+
+// The same over f32 operands (3xTF32).
+extern "C" int aid_flash_attn_f32_dwide_static(const void* q, const void* k, const void* v, const void* kb,
+                                               const void* vb, const void* ke, const void* ve, void* out,
+                                               const void* coef, const void* skip, void* work, const long long* dims,
+                                               float scale, float shift_log2, float clip_log2, int has_own,
+                                               int n_sets, void* stream) {
+  const void* const ptrs[8] = {q, k, v, kb, vb, ke, ve, out};
+  return entry<float>(ptrs, coef, skip, work, dims, scale, shift_log2, clip_log2, has_own, n_sets, stream);
+}
+#else
 // The C signature of aid_flash_attn_bf16_dmid: dims are [B, H, Sq,
 // Lk, Le, D, then (b, h, s) element strides of q, k, v, k_begin, v_begin,
 // k_end, v_end, out] (30 values; a b stride of 0 marks an endpoint shared by
@@ -983,7 +1096,7 @@ extern "C" int aid_flash_attn_bf16_dwide(const void* q, const void* k, const voi
                                          const void* skip, void* work, const long long* dims, float scale,
                                          int has_own, int n_sets, void* stream) {
   const void* const ptrs[8] = {q, k, v, kb, vb, ke, ve, out};
-  return entry<__nv_bfloat16>(ptrs, coef, skip, work, dims, scale, has_own, n_sets, stream);
+  return entry<__nv_bfloat16>(ptrs, coef, skip, work, dims, scale, 0.f, 0.f, has_own, n_sets, stream);
 }
 
 // The same over f16 operands.
@@ -992,7 +1105,7 @@ extern "C" int aid_flash_attn_f16_dwide(const void* q, const void* k, const void
                                         const void* skip, void* work, const long long* dims, float scale,
                                         int has_own, int n_sets, void* stream) {
   const void* const ptrs[8] = {q, k, v, kb, vb, ke, ve, out};
-  return entry<__half>(ptrs, coef, skip, work, dims, scale, has_own, n_sets, stream);
+  return entry<__half>(ptrs, coef, skip, work, dims, scale, 0.f, 0.f, has_own, n_sets, stream);
 }
 
 // The same over f32 operands (3xTF32).
@@ -1001,5 +1114,6 @@ extern "C" int aid_flash_attn_f32_dwide(const void* q, const void* k, const void
                                         const void* skip, void* work, const long long* dims, float scale,
                                         int has_own, int n_sets, void* stream) {
   const void* const ptrs[8] = {q, k, v, kb, vb, ke, ve, out};
-  return entry<float>(ptrs, coef, skip, work, dims, scale, has_own, n_sets, stream);
+  return entry<float>(ptrs, coef, skip, work, dims, scale, 0.f, 0.f, has_own, n_sets, stream);
 }
+#endif

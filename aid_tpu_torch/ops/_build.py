@@ -198,14 +198,16 @@ def library() -> ctypes.CDLL:
     lib.aid_flash_attn_bf16_d512.restype = ctypes.c_int
     lib.aid_flash_attn_f16_d512.argtypes = lib.aid_flash_attn_bf16_d512.argtypes  # the same over f16
     lib.aid_flash_attn_f16_d512.restype = ctypes.c_int
-    # the static-shift instances of the D=512 self kernels (flash_attention_{f32,bf16}_d512_static.cu)
-    # and of the D=161-512 ones (flash_attention_dmid_static.cu, flash_attention_dmid_f32_static.cu):
-    # their exact entry's signature with the shift and the clip (f32, times log2(e)) after the scale
+    # the static-shift instances of the D=512 self kernels (flash_attention_{f32,bf16}_d512_static.cu),
+    # of the D=161-512 ones (flash_attention_dmid_static.cu, flash_attention_dmid_f32_static.cu) and of
+    # the wide ones (flash_attention_dwide_static.cu): their exact entry's signature with the shift and
+    # the clip (f32, times log2(e)) after the scale
     for name in ("aid_flash_attn_f32_d512_static", "aid_flash_attn_bf16_d512_static"):
         getattr(lib, name).argtypes = [*lib.aid_flash_attn_bf16_d512.argtypes[:6], ctypes.c_float, ctypes.c_float,
                                        *lib.aid_flash_attn_bf16_d512.argtypes[6:]]
         getattr(lib, name).restype = ctypes.c_int
-    for name in ("aid_flash_attn_bf16_dmid_static", "aid_flash_attn_f32_dmid_static"):
+    for name in ("aid_flash_attn_bf16_dmid_static", "aid_flash_attn_f32_dmid_static",
+                 "aid_flash_attn_bf16_dwide_static", "aid_flash_attn_f32_dwide_static"):
         getattr(lib, name).argtypes = [*lib.aid_flash_attn_bf16_dmid.argtypes[:13], ctypes.c_float, ctypes.c_float,
                                        *lib.aid_flash_attn_bf16_dmid.argtypes[13:]]
         getattr(lib, name).restype = ctypes.c_int

@@ -101,13 +101,17 @@ mid-length stream kernel at D = 64 in the endpoint modes
 D=161-512 kernels in every mode and self mode
 (``csrc/flash_attention_dmid_static.cu``,
 ``csrc/flash_attention_dmid_f32_static.cu``), counted in
-``launches_static_dmid`` by head dim; and the D=512 self kernels in f32 and
+``launches_static_dmid`` by head dim; the D=512 self kernels in f32 and
 bf16 (``csrc/flash_attention_f32_d512_static.cu``,
 ``csrc/flash_attention_bf16_d512_static.cu``: the VAE mid block), counted
-in the D=512 wrappers' ``launches_static``. Past D = 512 (the wide kernels)
-and in f16 there is none.
+in the D=512 wrappers' ``launches_static``; and the bf16 and f32 wide
+kernels at D = 513-2048 in every mode, their key split's combine step
+static too (``csrc/flash_attention_dwide_static.cu``), counted in
+``launches_static_dwide`` by the instance's head dim (640, 1024, 1280 or
+2048). In f16 there is none.
 :func:`resolve_static_smax` turns the model path's ``"auto"`` into the
-shift or None as the JAX wrapper does, less the calls the port keeps exact.
+shift or None as the JAX wrapper does, less the calls the port keeps exact
+(f16; f32 past a padded head dim of 1024, where the JAX wrapper raises).
 """
 
 from __future__ import annotations
@@ -417,17 +421,28 @@ STATIC_MIDSTREAM_DIMS = (64,)
 #: csrc/flash_attention_bf16_d512_static.cu: the D=512 entries' C signature with the shift and the
 #: clip after the scale) and of the D=161-512 kernels (csrc/flash_attention_dmid_static.cu,
 #: csrc/flash_attention_dmid_f32_static.cu: every mode and self mode, the dmid entries' signature
-#: with the shift and the clip after the scale), by operand dtype; none in f16, none past D = 512
+#: with the shift and the clip after the scale), by operand dtype; none in f16
 STATIC_D512_ENTRIES = {torch.bfloat16: "aid_flash_attn_bf16_d512_static",
                        torch.float32: "aid_flash_attn_f32_d512_static"}
 STATIC_DMID_ENTRIES = {torch.bfloat16: "aid_flash_attn_bf16_dmid_static",
                        torch.float32: "aid_flash_attn_f32_dmid_static"}
+#: the static-shift instances of the wide kernels (csrc/flash_attention_dwide_static.cu: the wide
+#: entries' signature with the shift and the clip after the scale, every mode, the key split's
+#: combine step O = sum O_s / sum l_s), by operand dtype; none in f16
+STATIC_DWIDE_ENTRIES = {torch.bfloat16: "aid_flash_attn_bf16_dwide_static",
+                        torch.float32: "aid_flash_attn_f32_dwide_static"}
 #: the JAX wrapper's constants that decide its "auto" (aid_tpu/ops/flash_attention.py:
 #: 80, 88, 703, 708 and its 128-lane block rounding), copied
 JAX_ONEPASS_MAX, JAX_SPLIT_ONEPASS_MAX, JAX_ONEPASS_MAX_RESIDENT_COLS = 3072, 16384, 20 * 1024
 JAX_BLOCK_K, JAX_LANES = 1024, 128
+#: the widest head dim the JAX wrapper runs its Pallas kernels at, by the
+#: operands' byte width (its 512 KB block budget over 128 rows,
+#: aid_tpu/ops/flash_attention.py:806-816; past it the wrapper raises): "auto"
+#: keeps a wider call exact, the JAX package making no choice to mirror
+JAX_BLOCK_BUDGET_D = {2: 2048, 4: 1024}
 #: the call classes (the static_route kernel: "streaming", "midstream",
-#: "dmid" or "d512"; dtype, instance head dim, mode) where the card measured
+#: "dmid", "d512" or "dwide"; dtype, instance head dim, mode; "dwide" keyed by
+#: the wide instance's 640, 1024, 1280 or 2048) where the card measured
 #: the static instance slower than the exact one: "auto" keeps them exact. In turns on an H100 (700 W;
 #: tools/attention_bench.py --static, ten pairs, two calls; PERF.md section
 #: 6): f32 self mode at D = 64, (7,10,4096,64) 2.867 / 2.826 ms against
@@ -436,8 +451,12 @@ JAX_BLOCK_K, JAX_LANES = 1024, 128
 #: the other f32 ones measured 1-12% faster. A call the short-stream kernel
 #: takes stays exact under "auto" too: its static instance would be the
 #: streaming kernel's, 14% slower at (7,10,4096,77) fused_outer (0.0963
-#: against 0.0847 ms)
-STATIC_SHIFT_SLOWER = frozenset({("streaming", "f32", 64, "self")})
+#: against 0.0847 ms). Past 512 (the wide kernels, ten pairs alone, medians):
+#: every bf16 class 2-9% faster and every f32 one through 1024 2-5%, but f32
+#: self at 2048, (2,1,512,2048) 0.2566 against 0.2527 ms (no slower in 0 of
+#: 10 pairs; "auto" keeps f32 past 1024 exact in any case, where the JAX
+#: wrapper raises)
+STATIC_SHIFT_SLOWER = frozenset({("streaming", "f32", 64, "self"), ("dwide", "f32", 2048, "self")})
 
 _STATIC_DTYPE_NAMES = {torch.bfloat16: "bf16", torch.float16: "f16", torch.float32: "f32"}
 
@@ -479,14 +498,17 @@ def jax_static_smax(q_shape, dtype, Lk: int, mode: AttnMode | str = AttnMode.SEL
 
 
 def static_route(D: int, Sq: int, Lk: int, Le: int, mode: AttnMode | str = AttnMode.SELF, dtype=torch.bfloat16) -> str:
-    """The kernel a static-shift call at instance head dim D takes: "d512"
-    (the D=512 self kernels' static instance, where :func:`takes_d512_self`),
+    """The kernel a static-shift call at instance head dim D takes: "dwide"
+    (the wide kernels' static instance: every call past 512), "d512" (the
+    D=512 self kernels' static instance, where :func:`takes_d512_self`),
     "dmid" (the D=161-512 kernels' static instance: every other call from
     161 to 512), "midstream" (the bf16 mid-length stream kernel's static
     instance, where :func:`takes_midstream` holds in an endpoint mode at
     :data:`STATIC_MIDSTREAM_DIMS`) or "streaming" (the D <= 160 kernel's:
     every other call, the short-stream kernel's calls among them)."""
     mode = AttnMode(mode)
+    if D > D512:
+        return "dwide"
     if takes_d512_self(D, mode, dtype):
         return "d512"
     if KERNEL_HEAD_DIMS[-1] < D <= D512:
@@ -506,9 +528,11 @@ def resolve_static_smax(q: torch.Tensor, k: torch.Tensor, mode: AttnMode | str =
     (:func:`jax_static_smax`) and keeps a call
     exact where the port has no instance measured no slower: in f16, on the
     plain route (CPU tensors, ``reference_ops``: the JAX model path is exact
-    on the CPU), past head dim 512 (the wide kernels' static instances are
-    queued in ROADMAP.md), on the short-stream kernel's calls, and in
-    :data:`STATIC_SHIFT_SLOWER`. Strings other than "auto" raise, as
+    on the CPU), on the short-stream kernel's calls, and in
+    :data:`STATIC_SHIFT_SLOWER`; and exact past the JAX wrapper's block
+    budget (:data:`JAX_BLOCK_BUDGET_D`: f32 past a padded head dim of 1024),
+    where that wrapper raises and makes no choice. Up to 2048 in bf16 and to
+    1024 in f32 the wide kernels' static instances take the shift. Strings other than "auto" raise, as
     aid_tpu/ops/flash_attention.py:764-766."""
     if isinstance(static_smax, str) and static_smax != "auto":
         raise ValueError(f"static_smax must be None, a float, or 'auto'; got {static_smax!r}")
@@ -531,17 +555,20 @@ def resolve_static_smax(q: torch.Tensor, k: torch.Tensor, mode: AttnMode | str =
 def _auto_shift(q_shape, dtype, Lk: int, mode: AttnMode, Le: int, split_capable: bool):
     """"auto" on the kernel route for a call's shapes (cached: the model
     path asks on every call, at a few shapes): the JAX wrapper's choice,
-    then exact past head dim 512, on the short-stream kernel's calls and in
-    :data:`STATIC_SHIFT_SLOWER`."""
+    then exact past its block budget (:data:`JAX_BLOCK_BUDGET_D`), on the
+    short-stream kernel's calls and in :data:`STATIC_SHIFT_SLOWER` (a wide
+    call keyed by its instance's padded head dim, :func:`dwide_tiles`)."""
     if jax_static_smax(q_shape, dtype, Lk, mode, Le, split_capable) is None:
         return None
     D, Sq = q_shape[3], q_shape[2]
-    if D > D512:
+    if -(-D // JAX_LANES) * JAX_LANES > JAX_BLOCK_BUDGET_D[4 if dtype == torch.float32 else 2]:
         return None
     Dp = padded_head_dim(D, mode, dtype)
     if takes_onepass(Dp, Sq, Lk, Le, mode, dtype):
         return None
-    if (static_route(Dp, Sq, Lk, Le, mode, dtype), _STATIC_DTYPE_NAMES[dtype], Dp, mode.value) in STATIC_SHIFT_SLOWER:
+    route = static_route(Dp, Sq, Lk, Le, mode, dtype)
+    Dk = dwide_tiles(Dp, dtype)[0] if route == "dwide" else Dp
+    if (route, _STATIC_DTYPE_NAMES[dtype], Dk, mode.value) in STATIC_SHIFT_SLOWER:
         return None
     return STATIC_SHIFT_C
 
@@ -864,11 +891,13 @@ def kernel_operands(
     (:func:`resolve_static_smax`) or None, lays out the static-shift
     instance (:data:`STATIC_ENTRIES`; :data:`STATIC_MIDSTREAM_ENTRIES` where
     :func:`static_route` says "midstream", or as ``midstream`` says; from 161
-    to 512 :data:`STATIC_DMID_ENTRIES`, with the exact entry's workspace) with
+    to 512 :data:`STATIC_DMID_ENTRIES`, past 512 :data:`STATIC_DWIDE_ENTRIES`,
+    each with the exact entry's workspace and, past 512, its ``splits``) with
     ``static`` = (C log2(e), STATIC_SHIFT_CLIP log2(e)), the shift and clip in
     the kernels' exp2 units, passed after the scale; None where exact. A
-    shift in f16 raises ``ValueError``, past head dim 512 or on the
-    short-stream kernel ``NotImplementedError``: no instance, no fallback.
+    shift in f16 raises ``ValueError``, on the short-stream kernel
+    ``NotImplementedError``: no instance, no fallback (a head dim past 2048
+    raises ``NotImplementedError`` whatever the shift, :func:`padded_head_dim`).
     Nothing here needs a device."""
     mode = AttnMode(mode)
     B, H, Sq, D = q.shape
@@ -956,12 +985,8 @@ def kernel_operands(
     if midstream:  # forced there, whatever the stream's length
         onepass = False
     static = None
-    if static_smax is not None:  # the static-shift instances: the streaming, bf16 mid-length and D=161-512 ones
+    if static_smax is not None:  # the static-shift instances: the streaming, bf16 mid-length, D=161-512 and wide ones
         static = _static_log2(static_smax, q.dtype)
-        if Dp > D512:
-            raise NotImplementedError(f"no static-shift instance at head dim {D} (padded {Dp}): the wide kernels' "
-                                      "static instances (and their static combine) are queued in ROADMAP.md "
-                                      "(Queue 2, the static-shift instances past D=512); pass static_smax=None")
         if onepass:
             raise NotImplementedError("the short-stream kernel has no static-shift instance (its calls take the "
                                       "streaming kernel's)")
@@ -970,7 +995,9 @@ def kernel_operands(
             raise NotImplementedError(f"the mid-length stream kernel has no static-shift instance for a {q.dtype} "
                                       f"call at D={Dp} in {mode.value} mode")
         onepass = False
-        if Dp > KERNEL_HEAD_DIMS[-1]:
+        if Dp > D512:
+            midstream, entry = False, STATIC_DWIDE_ENTRIES[q.dtype]
+        elif Dp > KERNEL_HEAD_DIMS[-1]:
             midstream, entry = False, STATIC_DMID_ENTRIES[q.dtype]
         else:
             if midstream is None:
@@ -1042,8 +1069,9 @@ def _launch_counted(wrapper, q, *args, **kwargs) -> torch.Tensor:
     that head dim too, where the mid-length stream kernel took it, in
     ``launches_midstream``; a static-shift instance's launches count apart
     from those in ``launches_static`` (the streaming kernel's),
-    ``launches_static_midstream`` and ``launches_static_dmid`` (the D=161-512
-    kernels', by the operands' head dim)."""
+    ``launches_static_midstream``, ``launches_static_dmid`` (the D=161-512
+    kernels', by the operands' head dim) and ``launches_static_dwide`` (the
+    wide kernels', by the instance's padded head dim, :func:`dwide_tiles`)."""
     _check_dtype("q", q, _WRAPPER_DTYPES[wrapper.__name__])
     out, launch = kernel_launch(q, *args, **kwargs)
     launch()
@@ -1051,7 +1079,10 @@ def _launch_counted(wrapper, q, *args, **kwargs) -> torch.Tensor:
     Dp = ops["dims"][5]
     wrapper.launches += 1
     wrapper.launches_by_head_dim[instance_head_dim(Dp)] += 1
-    if ops["static"] is not None and Dp > KERNEL_HEAD_DIMS[-1]:
+    if ops["static"] is not None and Dp > D512:
+        Dk = dwide_tiles(Dp, q.dtype)[0]
+        wrapper.launches_static_dwide[Dk] += 1
+    elif ops["static"] is not None and Dp > KERNEL_HEAD_DIMS[-1]:
         wrapper.launches_static_dmid[Dp] = wrapper.launches_static_dmid.get(Dp, 0) + 1
     elif ops["static"] is not None:
         (wrapper.launches_static_midstream if ops["midstream"] else wrapper.launches_static)[Dp] += 1
@@ -1095,8 +1126,8 @@ def flash_interpolated_attention(
     mid-length stream kernel takes in an endpoint mode at D = 64 on its
     instance, every other on the streaming kernel's; from 161 to 512 the
     D=161-512 kernels' instance, self mode past the dtype's
-    :data:`DMID_SELF_MAX` the D=512 self kernels'; past 512
-    ``NotImplementedError``, in f16 ``ValueError``); ``"auto"`` as
+    :data:`DMID_SELF_MAX` the D=512 self kernels'; from 513 to 2048 the wide
+    kernels' instance; in f16 ``ValueError``); ``"auto"`` as
     :func:`resolve_static_smax` resolves it.
     Returns (B, H, Sq, D) in q's dtype; on CUDA the result is a view of a
     (B, Sq, H, D) buffer, so merging heads afterwards needs no copy.
@@ -1147,7 +1178,9 @@ def flash_interpolated_attention_f32(
     ``aid_flash_attn_f32_dwide`` (``csrc/flash_attention_dwide.cu``). A
     shift (``static_smax``, as in :func:`flash_interpolated_attention`) takes
     ``aid_flash_attn_f32_static`` at head dims up to 160,
-    ``aid_flash_attn_f32_dmid_static`` from 161 to 512. Returns (B, H, Sq,
+    ``aid_flash_attn_f32_dmid_static`` from 161 to 512,
+    ``aid_flash_attn_f32_dwide_static`` from 513 to 2048 (under ``"auto"``
+    to 1024 only, as the JAX wrapper takes f32). Returns (B, H, Sq,
     D) f32; on CUDA a view of a (B, Sq, H, Dp) buffer, as the bf16 kernel
     writes.
     """
@@ -1208,8 +1241,9 @@ def reset_launch_counts() -> None:
     that takes it; and the short-stream and the mid-length stream kernels'
     launches and the static-shift instances' (the streaming kernel's and the
     mid-length stream kernel's), parts of those at D <= 160, by head dim,
-    and the D=161-512 kernels', by the operands' head dim) to 0, and the
-    D=512 self wrappers' static-shift launches."""
+    the D=161-512 kernels', by the operands' head dim, and the wide
+    kernels', by the instance's padded head dim) to 0, and the D=512 self
+    wrappers' static-shift launches."""
     for fn in (flash_interpolated_attention, flash_interpolated_attention_f16, flash_interpolated_attention_f32):
         fn.launches = 0
         fn.launches_by_head_dim = dict.fromkeys((*KERNEL_HEAD_DIMS, D512, DWIDE), 0)
@@ -1218,6 +1252,7 @@ def reset_launch_counts() -> None:
         fn.launches_static = dict.fromkeys(KERNEL_HEAD_DIMS, 0)
         fn.launches_static_midstream = dict.fromkeys(KERNEL_HEAD_DIMS, 0)
         fn.launches_static_dmid = {}
+        fn.launches_static_dwide = dict.fromkeys(DWIDE_PADDED, 0)
     for fn in (flash_self_attention_f32, flash_self_attention_bf16, flash_self_attention_f16):
         fn.launches_static = 0
 

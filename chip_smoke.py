@@ -114,10 +114,12 @@ Phases (each prints its own lines; any failure exits non-zero):
                  PyTorch call computing the same function where there is
                  one (cuDNN conv in both layouts, SDPA under each backend)
                  as the yardstick library_ms; the static-shift instances
-                 (static_smax = 40: the D <= 160, mid-length, D=161-512 and
-                 D=512 self ones) beside the exact route, at the window's
-                 edges and against two planted faults (the clip dropped, the
-                 shift left in a per-tile rescale)
+                 (static_smax = 40: the D <= 160, mid-length, D=161-512,
+                 D=512 self and wide ones) beside the exact route, at the
+                 window's edges and against two planted faults (the clip
+                 dropped, the shift left in a per-tile rescale), the wide
+                 ones against a third (each split of the key stream
+                 normalised by its own sum before the splits are added)
   4. whole UNet  one full-width SDXL forward in fused_outer through the
                  kernels and through the plain versions (test-only seam);
                  its logit window (as after every forward check below) must
@@ -234,7 +236,11 @@ Phases (each prints its own lines; any failure exits non-zero):
                  dropped), interpolate() (PAID, 10 DDIM steps, s/step);
                  every attention launch at D = 640 / 1280 on a wide entry,
                  every one at D = 320 on a D=161-512 entry, a forward's
-                 counts those of the UNet's attention modules. Phase 3 holds the
+                 counts those of the UNet's attention modules; under "auto"
+                 the bf16 and f32 paths' endpoint-mode calls at D = 640 on
+                 the wide static instance (the 1280-wide levels' own KV is
+                 under FLASH_MIN_KV: exact), f16 on none, the bf16 forward's
+                 logit window in [-32, +70]. Phase 3 holds the
                  wide entries against their plain versions in bf16, f16 and
                  f32, every mode, at its shapes, at (2,1,512,2048) and at a
                  ragged D = 520
@@ -576,10 +582,12 @@ def read_counts() -> dict:
     under ``...[midstream]`` and ``...[midstream D=...]``, and the
     static-shift instances' (bf16 and f32) under ``...[static]`` /
     ``...[static D=...]`` (the streaming kernels'), ``...[static
-    midstream]`` / ``...[static midstream D=...]`` and ``...[static dmid]``
+    midstream]`` / ``...[static midstream D=...]``, ``...[static dmid]``
     / ``...[static dmid D=...]`` (the D=161-512 kernels', by the operands'
-    head dim, the dims launched); the D=512 self wrappers' static launches
-    under ``flash_self_attention_*[static]``."""
+    head dim, the dims launched) and ``...[static dwide]`` / ``...[static
+    dwide D=...]`` (the wide kernels', by the instance's padded head dim:
+    640, 1024, 1280, 2048); the D=512 self wrappers' static launches under
+    ``flash_self_attention_*[static]``."""
     wrappers = kernel_wrappers()
     counts = {name: fn.launches for name, fn in wrappers.items()}
     for name in ("flash_interpolated_attention", "flash_interpolated_attention_f32",
@@ -594,7 +602,7 @@ def read_counts() -> dict:
                 counts[f"{name}[{kind} D={d}]"] = n
     for name in ("flash_interpolated_attention", "flash_interpolated_attention_f32"):
         for kind, attr in (("static", "launches_static"), ("static midstream", "launches_static_midstream"),
-                           ("static dmid", "launches_static_dmid")):
+                           ("static dmid", "launches_static_dmid"), ("static dwide", "launches_static_dwide")):
             by_dim = getattr(wrappers[name], attr)
             counts[f"{name}[{kind}]"] = sum(by_dim.values())
             for d, n in sorted(by_dim.items()):
@@ -607,14 +615,16 @@ def read_counts() -> dict:
 def static_needed(dtype: str, classes) -> tuple:
     """The static-shift counters a path of ``dtype`` must show for its call
     classes [(kernel, head dim, mode)] under "auto" (kernel as
-    ``static_route`` names it: "streaming", "midstream", "dmid" or "d512"):
-    each class's, unless the card measured it slower
-    (``STATIC_SHIFT_SLOWER``: "auto" keeps it exact)."""
+    ``static_route`` names it: "streaming", "midstream", "dmid", "d512" or
+    "dwide", this one at its instance's padded head dim): each class's,
+    unless the card measured it slower (``STATIC_SHIFT_SLOWER``: "auto"
+    keeps it exact)."""
     from aid_tpu_torch.ops.flash_attention import STATIC_SHIFT_SLOWER
 
     name = {"bf16": "flash_interpolated_attention", "f32": "flash_interpolated_attention_f32"}[dtype]
     kinds = {"streaming": f"{name}[static]", "midstream": f"{name}[static midstream]",
-             "dmid": f"{name}[static dmid]", "d512": f"flash_self_attention_{dtype}[static]"}
+             "dmid": f"{name}[static dmid]", "d512": f"flash_self_attention_{dtype}[static]",
+             "dwide": f"{name}[static dwide]"}
     return tuple(sorted({kinds[kernel] for kernel, d, mode in classes
                          if (kernel, dtype, d, mode) not in STATIC_SHIFT_SLOWER}))
 
@@ -756,6 +766,70 @@ def shift_in_rescale_fault(q, k, v, coef, mode: str, C: float, bk: int, clip: fl
     return (o / lsum.clamp_min(1e-37)).reshape(B, H, Sq, D)
 
 
+def split_normalised_fault(q, k, v, coef, mode: str, kw: dict, C: float, bk: int, splits: int,
+                           clip: float = 30.0):
+    """A planted fault of the wide kernels' static instance on a split call:
+    the plain static shift over each split's part of the key stream (the
+    own segment's ``bk``-key tiles, then each endpoint segment's, as the
+    kernel splits them: split s takes tiles [s n / S, (s + 1) n / S), a
+    skip row's cut at its own segment), each split's state normalised by
+    its own sum before the splits are added, instead of O = sum O_s / sum
+    l_s. Endpoints from ``kw`` (shared or per row) or the rows 0 and B - 1,
+    the inner modes' lerped in f32 and rounded as the wrapper lerps them.
+    Returns (B, H, Sq, D) f32."""
+    import torch
+
+    B, H, Sq, D = q.shape
+    has_own = mode in ("self", "fused_outer", "fused_inner")
+    outer, inner = mode in ("fused_outer", "pure_outer"), mode in ("fused_inner", "pure_inner")
+    n_sets = 2 if outer else 1 if inner else 0
+
+    def rows(x):  # (B, H, L, D): an endpoint shared over the rows is expanded
+        return x.expand(B, *x.shape[-3:]) if x.dim() == 3 else x
+
+    eps = []
+    if n_sets:
+        kb, vb = rows(kw.get("k_begin", k[0])), rows(kw.get("v_begin", v[0]))
+        ke, ve = rows(kw.get("k_end", k[-1])), rows(kw.get("v_end", v[-1]))
+        if inner:
+            c4 = coef.view(-1, 1, 1, 1)
+            kb = ((1 - c4) * kb.float() + c4 * ke.float()).to(q.dtype)
+            vb = ((1 - c4) * vb.float() + c4 * ve.float()).to(q.dtype)
+        eps = [(kb, vb), (ke, ve)][:n_sets]
+    segs = ([(k, v)] if has_own else []) + eps
+    n_tiles = [-(-x.shape[2] // bk) for x, _ in segs]
+    n_own = n_tiles[0] if has_own else 0
+    n_total = sum(n_tiles)
+    skip = kw.get("skip_endpoints")
+    scale = D ** -0.5
+    out = torch.zeros(B, H, Sq, D, device=q.device)
+    for b in range(B):
+        skipped = bool(has_own and n_sets and skip is not None and skip[b])
+        n_row = n_own if skipped else n_total
+        kk = torch.cat([x[b] for x, _ in segs], 1).float()
+        vv = torch.cat([y[b] for _, y in segs], 1).float()
+        tile = torch.cat([t0 + torch.arange(x.shape[2], device=q.device) // bk
+                          for (x, _), t0 in zip(segs, [sum(n_tiles[:i]) for i in range(len(segs))])])
+        seg = torch.cat([torch.full((x.shape[2],), i, device=q.device) for i, (x, _) in enumerate(segs)])
+        s = torch.matmul(q[b].float(), kk.transpose(-1, -2)) * scale
+        p = torch.exp(torch.clamp_max(s - C, clip))
+        first = 1 if has_own else 0  # the first endpoint segment's index
+        if outer and not skipped:  # set 0: own + begin, set 1: own + end
+            sets = [((seg < first) | (seg == first), 1 - coef[b]), ((seg < first) | (seg == first + 1), coef[b])]
+        else:
+            sets = [(seg >= 0, 1.0)]
+        for member, wt in sets:
+            acc = torch.zeros(H, Sq, D, device=q.device)
+            for sp in range(splits):
+                t0, t1 = sp * n_total // splits, min((sp + 1) * n_total // splits, n_row)
+                m = member & (tile >= t0) & (tile < t1)
+                ps = p * m
+                o = torch.matmul(ps.to(q.dtype).float(), vv)
+                acc += o / ps.sum(-1, keepdim=True).clamp_min(1e-37)
+            out[b] += wt * acc
+    return out
+
+
 def phase_kernels(coef, sd_coef, fused_classes, sd21_classes):
     """Each kernel vs its plain version at the paths' shapes, timed beside
     its bound and, where one PyTorch call computes the same function, that
@@ -778,6 +852,7 @@ def phase_kernels(coef, sd_coef, fused_classes, sd21_classes):
         MIDSTREAM_TILES,
         STATIC_D512_ENTRIES,
         STATIC_DMID_ENTRIES,
+        STATIC_DWIDE_ENTRIES,
         STATIC_SHIFT_C,
         d512_launch,
         dmid_columns,
@@ -1274,15 +1349,22 @@ def phase_kernels(coef, sd_coef, fused_classes, sd21_classes):
     # D = 320 in every mode, and the self calls at 448 and 504 the route
     # sends them) and the D=512 self kernels' (f32 and bf16: the VAE's
     # 1024px frame, seven 512px frames, the tiled decode's ragged tile; f32's
-    # self calls past 448, padded to 512). Then, at one shape each, the
-    # window's edges (row maxes near -23: the exact result; far past +70: the
-    # clipped one) and two planted faults the tolerance must see: the clip
-    # dropped (which is the exact softmax) on the hot input, and the shift
-    # left in a per-tile rescale (O and l times e^-C before each of the
-    # instance's own key tiles)
+    # self calls past 448, padded to 512) and the wide kernels' (bf16 and
+    # f32: phase 22's D = 640 in every mode and its 77-key cross call, its
+    # 1280-wide levels over 256 and 64 tokens, a ragged D = 520, self at
+    # (2,1,512,2048); the key stream split at 64 tokens and in bf16's 2048,
+    # f32 at an explicit shift past the 1024 its "auto" takes). Then, at one
+    # shape each, the window's edges (row maxes near -23: the exact result;
+    # far past +70: the clipped one) and two planted faults the tolerance
+    # must see: the clip dropped (which is the exact softmax) on the hot
+    # input, and the shift left in a per-tile rescale (O and l times e^-C
+    # before each of the instance's own key tiles); on the wide kernels' first
+    # split case a third, each split normalised by its own sum before the
+    # splits are added
     t_static = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(26)
     one = torch.zeros(1, device=dev)  # a single-frame decode's batch of one
+    two = torch.tensor([0.3, 0.6], device=dev)  # two rows, neither an endpoint (no skip row)
     modes5 = ("fused_outer", "pure_outer", "fused_inner", "pure_inner", "self")
     static_sets = [
         ("flash_interpolated_attention(static)", torch.bfloat16, "streaming", [
@@ -1314,6 +1396,18 @@ def phase_kernels(coef, sd_coef, fused_classes, sd21_classes):
             *[(f"SD1.x D=320 {m} 4096", m, sd_coef, 1, 4096, 4096, 320, 2) for m in modes5],
             ("SD1.x D=320 fused_outer 1024", "fused_outer", sd_coef, 2, 1024, 1024, 320, 5),
             ("self 1024 D=448", "self", sd_coef, 2, 1024, 1024, 448, 5)]),
+        ("flash_interpolated_attention(static dwide)", torch.bfloat16, "dwide", [
+            *[(f"SD1.x D=640 {m} 1024", m, sd_coef, 1, 1024, 1024, 640, 10) for m in modes5],
+            ("SD1.x D=640 cross fused_outer 1024x77", "fused_outer", sd_coef, 1, 1024, 77, 640, 10),
+            ("SD1.x D=1280 fused_outer 256", "fused_outer", sd_coef, 1, 256, 256, 1280, 20),
+            ("SD1.x D=1280 fused_outer 64 (mid block)", "fused_outer", sd_coef, 1, 64, 64, 1280, 20),
+            ("fused_outer 1024 D=520", "fused_outer", sd_coef, 1, 1024, 1024, 520, 10),
+            ("self 512 D=2048", "self", two, 1, 512, 512, 2048, 10)]),
+        ("flash_interpolated_attention_f32(static dwide)", torch.float32, "dwide", [
+            *[(f"SD1.x D=640 {m} 1024", m, sd_coef, 1, 1024, 1024, 640, 3) for m in modes5],
+            ("fused_outer 256 D=1024", "fused_outer", sd_coef, 1, 256, 256, 1024, 5),
+            ("SD1.x D=1280 fused_outer 64 (mid block)", "fused_outer", sd_coef, 1, 64, 64, 1280, 10),
+            ("self 512 D=2048", "self", two, 1, 512, 512, 2048, 3)]),
         ("flash_self_attention_f32(static)", torch.float32, "d512", [
             ("VAE 1024px frame", "self", one, 1, 16384, 16384, 512, 2),
             ("VAE 512px, 7 frames", "self", sd_coef, 1, 4096, 4096, 512, 3),
@@ -1326,7 +1420,7 @@ def phase_kernels(coef, sd_coef, fused_classes, sd21_classes):
     ]
     for name, dtype, kind, cases in static_sets:
         tol = F32_ATTN_TOL if dtype == torch.float32 else ATTN_TOL
-        worst, shapes, main, rescale_case = 0.0, {}, None, None
+        worst, shapes, main, rescale_case, split_case = 0.0, {}, None, None, None
         for label, mode, c, H, Sq, L, D, reps in cases:
             if kind == "d512":
                 r = d512_static(label, c, H, Sq, D, reps, dtype)
@@ -1334,11 +1428,16 @@ def phase_kernels(coef, sd_coef, fused_classes, sd21_classes):
                 r = attention(label, mode, c, H, Sq, L, D, reps, None, dtype, static=True)
             got, want, inputs = r.pop("got"), r.pop("want"), r.pop("inputs")
             if kind != "d512":
-                entry = kernel_launch(*inputs[:5], static_smax=STATIC_SHIFT_C, **inputs[5])[1].operands["entry"]
+                ops = kernel_launch(*inputs[:5], static_smax=STATIC_SHIFT_C, **inputs[5])[1].operands
+                entry = ops["entry"]
                 routed = ("dmid" if entry == STATIC_DMID_ENTRIES[dtype] else
+                          "dwide" if entry == STATIC_DWIDE_ENTRIES[dtype] else
                           "midstream" if "midstream" in entry else "streaming")
                 if routed != kind:
                     fail(f"{name} {label}: the static call took {entry}, not the {kind} kernel's instance")
+                if kind == "dwide" and split_case is None and ops["splits"] > 1:
+                    split_case = (label, got, want, inputs, ops["splits"])
+                del ops
             if rescale_case is None and mode in ("self", "pure_inner"):
                 rescale_case = (label, got, want, inputs)
             del got, want
@@ -1357,6 +1456,8 @@ def phase_kernels(coef, sd_coef, fused_classes, sd21_classes):
             bk = (F32_D512_TILES if dtype == torch.float32 else D512_BF16_TILES)[1]
         elif kind == "dmid":
             bk = dmid_tiles(Dp, dtype, *q.shape[:3])["BK"]
+        elif kind == "dwide":
+            bk = dwide_tiles(Dp, dtype)[2]
         else:
             bk = (MIDSTREAM_TILES if kind == "midstream" else KERNEL_F32_TILES if dtype == torch.float32
                   else KERNEL_TILES)[Dp][0 if kind == "midstream" else 1]
@@ -1367,6 +1468,20 @@ def phase_kernels(coef, sd_coef, fused_classes, sd21_classes):
         if not ferr > tol * ref:
             fail(f"{name}: the tolerance does not see the shift left in the rescale on {label} ({ferr:.3e})")
         del rescale_case, got, want, fault
+        if kind == "dwide":  # each split normalised by its own sum before the splits are added
+            if split_case is None:
+                fail(f"{name}: no case split the key stream, so the combine step went unchecked")
+            label, got, want, (q, k, v, c, mode, kw), splits = split_case
+            ref = want.float().abs().max().item()
+            fault = split_normalised_fault(q, k, v, c, mode, kw, STATIC_SHIFT_C, dwide_tiles(q.shape[-1], dtype)[2],
+                                           splits)
+            ferr = (got.float() - fault).abs().max().item()
+            print(f"  planted fault on {label} (each of {splits} splits normalised by its own sum before they are "
+                  f"added): max_abs_err {ferr:.3e} against tol {tol * ref:.3e}  {'ok' if ferr > tol * ref else 'FAIL'}",
+                  flush=True)
+            if not ferr > tol * ref:
+                fail(f"{name}: the tolerance does not see each split normalised alone on {label} ({ferr:.3e})")
+            del split_case, got, want, fault
         # the window's edges at the first case's shape, and the clip dropped
         label, mode, c, H, Sq, L, D, _ = cases[0]
         window = {}
@@ -4680,17 +4795,20 @@ def check_wide_only(path: str, counts: dict, needed, allowed=()) -> None:
         fail(f"the {path} path launched attention entries other than {tuple(needed) + tuple(allowed)}: {other}")
 
 
-def check_static_dims(path: str, counts: dict, name: str, dims) -> None:
+def check_static_dims(path: str, counts: dict, name: str, dims, wide_dims=()) -> None:
     """The static-shift launches of a path with head dims past 160: those of
     ``name`` (an interpolating wrapper) only on the D=161-512 kernels at
-    ``dims`` (no other dtype's, none on the D <= 160 ones' instances, none
-    at another head dim); none past 512, where the wide kernels have no
-    static instance and "auto" stays exact."""
+    ``dims`` and on the wide kernels at the instance head dims ``wide_dims``
+    (no other dtype's, none on the D <= 160 ones' instances, none at another
+    head dim: past 512 "auto" shifts only where the JAX wrapper does and the
+    model path's FLASH_MIN_KV lets it)."""
     shifted = {n: c for n, c in counts.items() if c and "[static" in n and " D=" in n}
-    other = {n: c for n, c in shifted.items() if n not in {f"{name}[static dmid D={d}]" for d in dims}}
+    allowed = {f"{name}[static dmid D={d}]" for d in dims} | {f"{name}[static dwide D={d}]" for d in wide_dims}
+    other = {n: c for n, c in shifted.items() if n not in allowed}
     print(f"static-shift launches of the {path} path by head dim: {shifted}", flush=True)
     if other:
-        fail(f"the {path} path launched static-shift instances other than {name}'s at D = {tuple(dims)}: {other}")
+        fail(f"the {path} path launched static-shift instances other than {name}'s at D = {tuple(dims)} and the "
+             f"wide ones at {tuple(wide_dims)}: {other}")
 
 
 def phase_wide_heads(card: str, device: str = "cuda", configs=None, steps: int = WIDE_STEPS) -> list:
@@ -4950,9 +5068,14 @@ def phase_one_head_a_level(card: str, device: str = "cuda", configs=None, steps:
     (counted under D=512; the one D=512 self launch is the f32 VAE's), none
     elsewhere (in a forward exactly
     the calls the UNet's attention modules make at each), none elsewhere.
-    Under "auto" the D = 640 and 1280 calls stay exact (the wide kernels
-    have no static instance): the static-shift launches are the D=161-512
-    kernels' at D = 320 only. Returns the paths' counts.
+    Under "auto" the static-shift launches are the D=161-512 kernels' at D
+    = 320 and, in bf16 and f32, the wide kernels' at D = 640 (the endpoint
+    modes' 1024-token calls the JAX wrapper shifts; required on the bf16 and
+    f32 forwards and ``interpolate``); the D = 1280 calls stay exact (their
+    own KV, 256 and 64 tokens, is under FLASH_MIN_KV, as the JAX model path
+    keeps them on XLA), f16 launches none, and the bf16 forward's logit
+    window (check_unet_vs_plain) lies in [-32, +70]. Returns the paths'
+    counts.
     ``device``/``configs`` exist for rehearsing on the CPU."""
     import shutil
     import tempfile
@@ -5021,10 +5144,13 @@ def phase_one_head_a_level(card: str, device: str = "cuda", configs=None, steps:
         x, e = sample.to(unet.dtype), ehs.to(unet.dtype)
         counts = check_unet_vs_plain(f"{unet.dtype} SD1.x one head a level unet fused_outer B=7 {s}x{s}",
                                      lambda a: unet(x, t, e, a), aid, tol, {n: faults[n] for n in fault_names})
-        needed = (f"{name}[D=512]", f"{name}[D={DWIDE}]")
+        # under "auto" the 1024-token fused_outer calls at D = 640 on the wide static instance (bf16 and f32)
+        dt = {torch.bfloat16: "bf16", torch.float32: "f32"}.get(unet.dtype)  # f16: no static instance
+        needed = (f"{name}[D=512]", f"{name}[D={DWIDE}]", *(static_needed(dt, [("dwide", 640, "fused_outer")])
+                                                            if dt else ()))
         check_wide_only(f"{unet.dtype} SD1.x one-head forward", counts, needed)
-        check_static_dims(f"{unet.dtype} SD1.x one-head forward", counts, name,
-                          (320,) if unet.dtype != torch.float16 else ())
+        check_static_dims(f"{unet.dtype} SD1.x one-head forward", counts, name, (320,) if dt else (),
+                          (640,) if dt else ())
         got = {d: counts[f"{name}[D={d}]"] for d in want}
         if got != want:
             fail(f"the {unet.dtype} one-head forward launched {got} attention entries by head dim, not {want}")
@@ -5044,9 +5170,10 @@ def phase_one_head_a_level(card: str, device: str = "cuda", configs=None, steps:
     check_images(f"SD1.x one head a level interpolate (PAID, {steps} DDIM steps, guidance {pipe.guidance_scale}, "
                  "f32 VAE)", images, (7, px, px, 3), times, elapsed, peak, card)
     check_wide_only("SD1.x one-head interpolate", counts,
-                    ("flash_interpolated_attention[D=512]", f"flash_interpolated_attention[D={DWIDE}]"),
+                    ("flash_interpolated_attention[D=512]", f"flash_interpolated_attention[D={DWIDE}]",
+                     *static_needed("bf16", [("dwide", 640, "fused_outer")])),
                     ("flash_self_attention_f32",))  # the f32 VAE's D=512 attention
-    check_static_dims("SD1.x one-head interpolate", counts, "flash_interpolated_attention", (320,))
+    check_static_dims("SD1.x one-head interpolate", counts, "flash_interpolated_attention", (320,), (640,))
     print(f"SD1.x one head a level interpolate: attention launches "
           f"{({n: c for n, c in counts.items() if c and 'attention' in n})}", flush=True)
     paths.append(counts)
@@ -5286,7 +5413,9 @@ def kernels_line(kernels: dict, launches: dict, by_path=None) -> str:
         # every mode past head dim 512 (phase 22's SD 1.x UNet with one head a
         # level), one source, three element types
         **{f"flash_interpolated_attention{sfx}(D=513-2048)": (
-            dwide_src, flash_replaces[0], (f"flash_interpolated_attention{sfx}[D=2048]",),
+            dwide_src, flash_replaces[0], (f"flash_interpolated_attention{sfx}[D=2048]",
+                                           *((f"-flash_interpolated_attention{sfx}[static dwide]",) if ty != "f16"
+                                             else ())),
             {**flash_replaces[1], "entry": f"aid_flash_attn_{ty}_dwide", "design": dwide_design,
              "contract": f"{ty}, head dims 513-2048, every mode{' (3xTF32)' if ty == 'f32' else ''}; {dwide_note}"})
            for sfx, ty in (("", "bf16"), ("_f16", "f16"), ("_f32", "f32"))},
@@ -5321,6 +5450,7 @@ def kernels_line(kernels: dict, launches: dict, by_path=None) -> str:
                      "2^min(s scale log2(e) - C log2(e), 30 log2(e)), no row max, no quad reduction, no rescale of O "
                      "and l; the outer modes' park kept; each row's sum guarded at 1e-37")
     static_replaces = ("aid_tpu/ops/flash_attention.py:210", {"also_replaces": "aid_tpu/ops/flash_attention.py:520"})
+    f32_auto = " (3xTF32; under auto to 1024, the widest the JAX wrapper takes in f32)"
     rows.update({
         "flash_interpolated_attention(static)": (
             "aid_tpu_torch/csrc/flash_interpolated_attention_static.cu", static_replaces[0],
@@ -5360,6 +5490,18 @@ def kernels_line(kernels: dict, launches: dict, by_path=None) -> str:
                          f"161-{DMID_SELF_MAX[torch.float32]}; ms at fused_outer (7,1,4096,320); bound_ms at 1.5 "
                          f"TF32 + 1.5 bf16 passes; library_ms: SDPA in self mode (none for the endpoint modes); "
                          f"{static_note}"}),
+        # past head dim 512: the wide kernels' static instances (phase 22's SD 1.x with one head a level)
+        **{f"flash_interpolated_attention{sfx}(static dwide)": (
+            "aid_tpu_torch/csrc/flash_attention_dwide_static.cu", static_replaces[0],
+            (f"flash_interpolated_attention{sfx}[static dwide]",),
+            {**static_replaces[1], "entry": f"aid_flash_attn_{ty}_dwide_static",
+             "design": f"{dwide_design}; {static_design} (no column maxima: two named barriers a tile; each chunk's "
+                       "P V added to O with no factor; the combine step O = sum O_s / sum l_s, with no max pass)",
+             "contract": f"{ty}, head dims 513-2048, every mode{f32_auto if ty == 'f32' else ''}; ms at fused_outer "
+                         "(7,1,1024,640); bound_ms at the caller's D; library_ms: SDPA in self mode (none for the "
+                         "other modes); "
+                         f"{static_note}"})
+           for sfx, ty in (("", "bf16"), ("_f32", "f32"))},
         "flash_self_attention_f32(static)": (
             "aid_tpu_torch/csrc/flash_attention_f32_d512_static.cu", static_replaces[0],
             ("flash_self_attention_f32[static]",),

@@ -68,7 +68,8 @@ KERNEL_NAMES = ("flash_interpolated_attention", "flash_interpolated_attention(D=
 # the static-shift instances' entries, after the rest
 STATIC_KERNEL_NAMES = ("flash_interpolated_attention(static)", "flash_interpolated_attention(static midstream)",
                        "flash_interpolated_attention_f32(static)", "flash_interpolated_attention(static dmid)",
-                       "flash_interpolated_attention_f32(static dmid)", "flash_self_attention_f32(static)",
+                       "flash_interpolated_attention_f32(static dmid)", "flash_interpolated_attention(static dwide)",
+                       "flash_interpolated_attention_f32(static dwide)", "flash_self_attention_f32(static)",
                        "flash_self_attention_bf16(static)")
 
 
@@ -119,6 +120,11 @@ def test_kernels_line_carries_bound_and_library_time():
     for t, n in (("", 5), ("_f32", 6)):
         launches[f"flash_interpolated_attention{t}[static dmid]"] = n
         launches[f"flash_interpolated_attention{t}[static dmid D=320]"] = n
+    # the wide kernels' static launches, parts of their D=2048 counts: 7 in bf16, 4 in f32 (by the instance's
+    # padded head dim)
+    for t, n in (("", 7), ("_f32", 4)):
+        launches[f"flash_interpolated_attention{t}[static dwide]"] = n
+        launches[f"flash_interpolated_attention{t}[static dwide D=640]"] = n
     launches.update({"flash_self_attention_f32[static]": 2, "flash_self_attention_bf16[static]": 1,
                      "flash_self_attention_f16[static]": 0})
     paths = [{k: n if i else 0 for k, n in launches.items()} for i in range(2)]  # the first path launched none
@@ -184,7 +190,7 @@ def test_kernels_line_carries_bound_and_library_time():
     # the wide entries past 512: one source, their own C entries, each read
     # from its dtype's count under DWIDE
     dwide = {n: by_name[n] for n in KERNEL_NAMES[-7:-4]}
-    assert [e["launches"] for e in dwide.values()] == [21, 22, 23]
+    assert [e["launches"] for e in dwide.values()] == [21 - 7, 22, 23 - 4]  # less the static instances' launches
     assert [e["entry"] for e in dwide.values()] == ["aid_flash_attn_bf16_dwide", "aid_flash_attn_f16_dwide",
                                                     "aid_flash_attn_f32_dwide"]
     assert all(e["source"] == "aid_tpu_torch/csrc/flash_attention_dwide.cu" and e["also_replaces"].endswith(":339")
@@ -209,21 +215,25 @@ def test_kernels_line_carries_bound_and_library_time():
     # the static-shift instances: their own sources and C entries, the static
     # branches of both TPU kernels, their counts in all and on each path
     static = [by_name[n] for n in STATIC_KERNEL_NAMES]
-    assert [e["launches"] for e in static] == [3, 1, 8, 5, 6, 2, 1]
-    assert [e["launches_by_path"] for e in static] == [[0, 3], [0, 1], [0, 8], [0, 5], [0, 6], [0, 2], [0, 1]]
+    assert [e["launches"] for e in static] == [3, 1, 8, 5, 6, 7, 4, 2, 1]
+    assert [e["launches_by_path"] for e in static] == [[0, 3], [0, 1], [0, 8], [0, 5], [0, 6], [0, 7], [0, 4], [0, 2],
+                                                       [0, 1]]
     assert [e["entry"] for e in static] == ["aid_flash_attn_bf16_static", "aid_flash_attn_bf16_midstream_static",
                                             "aid_flash_attn_f32_static", "aid_flash_attn_bf16_dmid_static",
-                                            "aid_flash_attn_f32_dmid_static", "aid_flash_attn_f32_d512_static",
+                                            "aid_flash_attn_f32_dmid_static", "aid_flash_attn_bf16_dwide_static",
+                                            "aid_flash_attn_f32_dwide_static", "aid_flash_attn_f32_d512_static",
                                             "aid_flash_attn_bf16_d512_static"]
     assert [e["source"].rsplit("/", 1)[1] for e in static] == [
         "flash_interpolated_attention_static.cu", "flash_attention_midstream_static.cu",
         "flash_interpolated_attention_f32_static.cu", "flash_attention_dmid_static.cu",
-        "flash_attention_dmid_f32_static.cu", "flash_attention_f32_d512_static.cu",
-        "flash_attention_bf16_d512_static.cu"]
+        "flash_attention_dmid_f32_static.cu", "flash_attention_dwide_static.cu", "flash_attention_dwide_static.cu",
+        "flash_attention_f32_d512_static.cu", "flash_attention_bf16_d512_static.cu"]
     assert [e["replaces"] for e in static] == ["aid_tpu/ops/flash_attention.py:210",
                                                "aid_tpu/ops/flash_attention.py:520",
                                                "aid_tpu/ops/flash_attention.py:210"] + [
-        "aid_tpu/ops/flash_attention.py:210"] * 4
+        "aid_tpu/ops/flash_attention.py:210"] * 6
+    assert all("flash_dwide_combine_kernel" in e["design"] and "O = sum O_s / sum l_s" in e["design"]
+               for e in static[5:7])
 
 
 def test_f32_phases_follow_the_bf16_paths():
@@ -993,3 +1003,29 @@ def test_static_shift_helpers_rehearse_on_the_cpu():
     with pytest.raises(SystemExit):
         with smoke.logit_window("a hot call"):
             dispatch_attention(q * 100, k, v, coef, "self")
+
+
+@pytest.mark.parametrize("mode", ["fused_outer", "pure_outer", "fused_inner", "pure_inner", "self"])
+def test_split_normalised_fault_rehearses_on_the_cpu(mode):
+    """Phase 3's planted fault for the wide kernels' static combine step at a
+    tiny size on the CPU: with one split it is the plain static shift (skip
+    rows, shared endpoints of their own length, the inner modes' lerp), and
+    with the key stream in several splits (each normalised alone) it is far
+    from it."""
+    import torch
+
+    from aid_tpu_torch.models.layers import skip_mask
+    from aid_tpu_torch.ops.flash_attention import flash_interpolated_attention_plain
+
+    smoke = _load_smoke()
+    gen = torch.Generator().manual_seed(6)
+    coef = torch.tensor([0.0, 0.3, 0.8, 1.0])
+    q, k, v = (torch.randn(4, 2, 24, 32, generator=gen) for _ in range(3))
+    kw = {} if mode == "self" else {"skip_endpoints": skip_mask(coef, 4)}
+    if mode != "self":
+        kw.update({n: torch.randn(2, 20, 32, generator=gen) for n in ("k_begin", "v_begin", "k_end", "v_end")})
+    want = flash_interpolated_attention_plain(q, k, v, coef, mode, static_smax=40.0, **kw)
+    one = smoke.split_normalised_fault(q, k, v, coef, mode, kw, 40.0, 8, 1)
+    assert torch.allclose(one, want, atol=1e-5)
+    far = (smoke.split_normalised_fault(q, k, v, coef, mode, kw, 40.0, 8, 3) - want).abs().max()
+    assert far > 0.1 * want.abs().max()

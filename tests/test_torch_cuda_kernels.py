@@ -1758,18 +1758,22 @@ def test_flash_static_auto_keeps_exact_classes_exact(dev, mode, S, L):
 
 def test_flash_static_shift_refuses_what_has_no_instance(dev):
     """A float shift with no static instance raises (no fallback): in f16
-    (ValueError, the D=512 self wrapper's too), past head dim 512 (the wide
-    kernels: NotImplementedError)."""
+    (ValueError, the D=512 self wrapper's and the wide head dims' too), past
+    head dim 2048 (no kernel at all: NotImplementedError). Up to 2048 bf16
+    and f32 have their instances (the wide ones' test is below)."""
     q = _randn((2, 2, 64, 64), 1600, torch.float16)
     with pytest.raises(ValueError, match="f16"):
         flash_interpolated_attention_f16(q, q, q, None, "self", static_smax=40.0)
     x = _randn((1, 1, 64, 512), 1602, torch.float16)
     with pytest.raises(ValueError, match="f16"):
         flash_self_attention_f16(x, x, x, static_smax=40.0)
+    x = _randn((2, 1, 64, 640), 1603, torch.float16)
+    with pytest.raises(ValueError, match="f16"):
+        flash_interpolated_attention_f16(x, x, x, torch.zeros(2, device=dev), "fused_outer", static_smax=40.0)
     for dtype in (torch.bfloat16, torch.float32):
-        for D, mode in ((520, "fused_outer"), (640, "self"), (2048, "pure_inner")):
-            x = _randn((2, 1, 64, D), 1601, dtype)
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
+        for mode in ("fused_outer", "self"):
+            x = _randn((2, 1, 64, 2056), 1601, dtype)
+            with pytest.raises(NotImplementedError):
                 ATTN_WRAPPER[dtype](x, x, x, torch.zeros(2, device=dev), mode, static_smax=40.0)
 
 
@@ -1840,10 +1844,11 @@ def test_flash_static_d512_kernel_matches_plain(dev, dtype, B, H, S, L, D):
 
 @pytest.mark.parametrize("dtype", **STATIC_DTYPES)
 @pytest.mark.parametrize("D,mode", [(320, "self"), (320, "fused_outer"), (448, "pure_inner"), (512, "self"),
-                                    (512, "pure_outer")])
+                                    (512, "pure_outer"), (640, "fused_outer"), (1280, "self"), (2048, "pure_inner")])
 def test_flash_static_wide_head_kernels_at_the_window_edges(dev, dtype, D, mode):
-    """The window's edges on the new static instances (the D=161-512 ones
-    and, at 512 in self mode, the D=512 self ones): near the bottom (row max
+    """The window's edges on the static instances past 160 (the D=161-512
+    ones, at 512 in self mode the D=512 self ones, past 512 the wide ones,
+    split: two rows of 300 queries): near the bottom (row max
     ~ -23) the exact softmax; far above the top the plain version's CLIPPED
     result, finite, far from the exact one."""
     coef = torch.tensor([0.25, 0.75], device=dev)
@@ -1919,3 +1924,78 @@ def test_flash_static_slower_class_stays_exact(dev, dtype, monkeypatch):
             assert _attn_err(got, want) < ATTN_RTOLS[dtype]
     finally:
         fa._auto_shift.cache_clear()
+
+
+# the wide kernels' static-shift instances (flash_attention_dwide_static.cu, bf16 and f32, every mode):
+# (B, H, S, L, Le, endpoints, split): the key stream split across blocks (the static combine step), shared
+# 150-key endpoints over 200 own keys split (two key tiles a segment at least, so the pure modes split too),
+# per-row endpoints of their own length with enough blocks to fill the card (unsplit)
+STATIC_DWIDE_CASES = [(2, 1, 100, 300, None, None, True), (4, 1, 40, 200, 150, 3, True),
+                      (7, 4, 600, 200, 45, 4, False)]
+
+
+@pytest.mark.parametrize("dtype", **STATIC_DTYPES)
+@pytest.mark.parametrize("D", [520, 640, 1280, 2048])
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("case", STATIC_DWIDE_CASES, ids=["split", "split-shared", "unsplit-per-row"])
+def test_flash_static_dwide_kernel_matches_plain(dev, dtype, D, mode, case):
+    """The wide kernels' static-shift instances in every mode, split (the
+    static combine step) and unsplit: the exact entry's layout (workspace,
+    split); within the dtype's bound of the plain version's static shift,
+    and of the exact instance on the same call (logits well inside the
+    window); one launch counted in launches_static_dwide under the
+    instance's padded head dim through the wrapper."""
+    from aid_tpu_torch.ops.flash_attention import STATIC_DWIDE_ENTRIES, dwide_tiles, kernel_launch
+
+    *shape, split = case
+    q, k, v, coef, kw = _static_inputs(dtype, D, shape, 2100 + D)
+    kw = kw if mode != "self" else {}
+    got, launch = kernel_launch(q, k, v, coef, mode, static_smax=40.0, **kw)
+    exact, exact_launch = kernel_launch(q, k, v, coef, mode, **kw)
+    ops = launch.operands
+    assert ops["entry"] == STATIC_DWIDE_ENTRIES[dtype] and (ops["splits"] > 1) == split
+    assert ops["splits"] == exact_launch.operands["splits"]
+    launch()
+    exact_launch()
+    torch.cuda.synchronize()
+    want = flash_interpolated_attention_plain(q, k, v, coef, mode, static_smax=40.0, **kw)
+    assert got.shape == want.shape and got.dtype == dtype and torch.isfinite(got).all()
+    assert _attn_err(got, want) < ATTN_RTOLS[dtype]
+    assert _attn_err(got, exact) < 2 * ATTN_RTOLS[dtype]
+    fn = ATTN_WRAPPER[dtype]
+    Dk = dwide_tiles(D, dtype)[0]
+    before = fn.launches_static_dwide[Dk]
+    through = fn(q, k, v, coef, mode, static_smax=40.0, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches_static_dwide[Dk] == before + 1
+    assert torch.equal(through, got)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.float16], ids=["bf16", "f32", "f16"])
+@pytest.mark.parametrize("B,H,S,D,mode", [(7, 1, 1024, 640, "fused_outer"), (7, 1, 1024, 640, "pure_inner"),
+                                          (2, 1, 1024, 1280, "fused_outer"), (2, 1, 1024, 1024, "fused_inner"),
+                                          (7, 1, 1024, 640, "self")])
+def test_flash_static_auto_launches_the_dwide_instances(dev, dtype, B, H, S, D, mode):
+    """"auto" through dispatch_attention past head dim 512: one launch of
+    the wide kernels' static instance (launches_static_dwide, by the
+    instance's padded head dim) where the JAX wrapper shifts (its endpoint
+    modes) and no class of STATIC_SHIFT_SLOWER keeps it exact; none in f16,
+    in f32 past 1024 (where the JAX wrapper raises) or in self mode over
+    1024 tokens (the JAX wrapper's one-pass self call); the plain version's
+    result, at the shift "auto" took."""
+    from aid_tpu_torch.ops.flash_attention import STATIC_SHIFT_SLOWER, dwide_tiles, static_route
+
+    name = {torch.bfloat16: "bf16", torch.float32: "f32", torch.float16: "f16"}[dtype]
+    q, k, v, coef, kw = _midstream_inputs(dtype, D, (B, H, S, S, None, None), 2200 + D)
+    kw = kw if mode != "self" else {}
+    assert static_route(D, S, S, S, mode, dtype) == "dwide"
+    Dk = dwide_tiles(D, dtype)[0]
+    shifted = (dtype == torch.bfloat16 or (dtype == torch.float32 and D <= 1024)) and mode != "self" and (
+        "dwide", name, Dk, mode) not in STATIC_SHIFT_SLOWER
+    fn = ATTN_WRAPPER[dtype]
+    before = dict(fn.launches_static_dwide)
+    got = dispatch_attention(q, k, v, coef, mode, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches_static_dwide == {**before, Dk: before[Dk] + shifted}
+    want = flash_interpolated_attention_plain(q, k, v, coef, mode, static_smax=40.0 if shifted else None, **kw)
+    assert _attn_err(got, want) < ATTN_RTOLS[dtype]

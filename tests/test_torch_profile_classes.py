@@ -51,13 +51,14 @@ def _instances(name: str, text: str) -> list:
     """[(kernel, template arguments)] that the source's host code launches,
     their values read from its dispatch lines; a static-shift source's are
     its included source's where AID_STATIC_SHIFT keeps them (the f32
-    kernels' every instance, the 16-bit kernels' bf16 ones; the mid-length
-    stream kernel at D = 64 in the endpoint modes)."""
+    kernels' every instance, the 16-bit kernels' bf16 ones, the wide
+    kernel's bf16 and f32 ones; the mid-length stream kernel at D = 64 in the
+    endpoint modes)."""
     if name.endswith("_static.cu"):
         exact = _instances(name.replace("_static.cu", ".cu"), text)
         if name == "flash_attention_midstream_static.cu":
             return [(k, a) for k, a in exact if a[0] == "__nv_bfloat16" and a[1] == "64" and a[-1] != "0"]
-        return [(k, a) for k, a in exact if k in F32_KERNELS or a[0] == "__nv_bfloat16"]
+        return [(k, a) for k, a in exact if k in F32_KERNELS or a[0] in ("__nv_bfloat16", "float")]
     types = _all(r"(?:entry|conv|entry_interp)<(__nv_bfloat16|__half|float)>", text)
     dims = _all(r"case (\d+): return launch_d<", text)
     modes = _all(r"launch(?:_interp)?<[^<>]*?(true|false), (\d)>", text)
@@ -176,7 +177,8 @@ def test_modes_and_instances_cover_the_kernels():
     the static-shift instances (bf16 and f32 at D <= 160 in every mode, the
     bf16 mid-length stream kernel at D = 64 in the endpoint modes, bf16 and
     f32 at D = 161-512 in every mode and self mode, the D=512 self kernels in
-    bf16 and f32)."""
+    bf16 and f32, the wide kernel's four instances and combine step in bf16
+    and f32)."""
     counts = {}
     for source in SOURCES:
         for kernel, _ in _instances(source, _source_text(source)):
@@ -188,7 +190,8 @@ def test_modes_and_instances_cover_the_kernels():
     assert counts["flash16_dmid_split_kernel"] == 2 * 2 * 5 + 2 * 5
     assert counts["flash_f32_dmid_kernel"] == 2 * 4 * 5
     assert counts["flash16_d512_kernel"] == 2 + 1 and counts["flash_f32_d512_kernel"] == 1 + 1
-    assert counts["flash_dwide_kernel"] == 3 * 4 and counts["flash_dwide_combine_kernel"] == 3
+    # the wide kernel: four instances and the combine step in three types, and their static bf16 and f32 ones
+    assert counts["flash_dwide_kernel"] == 3 * 4 + 2 * 4 and counts["flash_dwide_combine_kernel"] == 3 + 2
     assert counts["conv3x3_kernel"] == 2 * 2 and counts["blocked_f32_kernel"] == 4
     # the short-stream kernel: five stream sizes at four head dims in two types, but 15 tiles at D=160
     assert counts["onepass_kernel"] == 2 * (4 * 5 - 1)

@@ -141,9 +141,11 @@ def test_plain_static_shift_at_the_window_edges(dtype, mode):
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
-@pytest.mark.parametrize("D,mode", [(320, "fused_outer"), (320, "self"), (512, "pure_inner"), (512, "self")])
+@pytest.mark.parametrize("D,mode", [(320, "fused_outer"), (320, "self"), (512, "pure_inner"), (512, "self"),
+                                    (640, "fused_outer"), (1024, "self")])
 def test_plain_static_shift_at_the_window_edges_wide_heads(dtype, D, mode):
-    """The window's edges at the D=161-512 kernels' and the VAE's head dims:
+    """The window's edges at the D=161-512 kernels', the VAE's and the wide
+    kernels' head dims (640, and 1024: the widest the JAX wrapper takes in f32):
     near the bottom (row maxes ~ -23) the static shift is the exact result;
     far above the top (row maxes in the thousands) it is JAX's CLIPPED
     result, finite, more than ten tolerances from the exact one."""
@@ -225,16 +227,36 @@ def test_string_validation_and_f16():
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 @pytest.mark.parametrize("D,mode", [(520, "fused_outer"), (640, "self"), (1280, "pure_inner"), (2048, "fused_outer")])
 def test_no_static_instance_past_160_raises(dtype, D, mode):
-    """The kernel route's layout of a float shift past head dim 512 (the
-    wide kernels; up to 512 the D=161-512 and D=512 self kernels have static
-    instances) raises NotImplementedError naming the ROADMAP entry (no
-    fallback), while the plain version computes it on any device."""
+    """Past head dim 512 a float shift no longer raises in bf16 and f32: the
+    kernel route lays out the wide kernels' static instance
+    (STATIC_DWIDE_ENTRIES) with the exact entry's dims, workspace and key
+    split, and the plain version computes it on any device. (What still
+    raises, f16 and a head dim past 2048, is the next test's.)"""
     q, k, v, coef = _data(2, 1, 8, 8, D, seed=D)
     tq, tk, tv = _torch(dtype, q, k, v)
     c = torch.from_numpy(coef)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        kernel_operands(tq, tk, tv, c, mode, static_smax=40.0)
+    ops, exact = kernel_operands(tq, tk, tv, c, mode, static_smax=40.0), kernel_operands(tq, tk, tv, c, mode)
+    assert ops["entry"] == fa.STATIC_DWIDE_ENTRIES[TORCH_DTYPES[dtype]] and exact["entry"] == fa.DWIDE_ENTRIES[
+        TORCH_DTYPES[dtype]]
+    np.testing.assert_allclose(ops["static"], (40.0 * np.log2(np.e), 30.0 * np.log2(np.e)), rtol=1e-12)
+    assert ops["dims"] == exact["dims"] and ops["splits"] == exact["splits"] and ops["scale"] == exact["scale"]
+    assert (ops["work"] is None) == (exact["work"] is None)
+    assert ops["work"] is None or ops["work"].shape == exact["work"].shape
     assert torch.isfinite(flash_interpolated_attention(tq, tk, tv, c, mode, static_smax=40.0)).all()
+
+
+def test_static_shift_past_512_raises_only_without_an_instance():
+    """What a float shift past 512 still raises, with no fallback: f16 (no
+    instance: exp(-40) flushes to 0) ValueError, a head dim past 2048 (no
+    kernel at all, as the JAX wrapper past its budget) NotImplementedError."""
+    q, k, v, coef = _data(2, 1, 8, 8, 640, seed=3)
+    hq, hk, hv = (torch.from_numpy(x).half() for x in (q, k, v))
+    with pytest.raises(ValueError, match="f16"):
+        kernel_operands(hq, hk, hv, torch.from_numpy(coef), "fused_outer", static_smax=40.0)
+    for dtype in (torch.bfloat16, torch.float32):
+        x = torch.zeros(1, 1, 4, 2056, dtype=dtype)
+        with pytest.raises(NotImplementedError):
+            kernel_operands(x, x, x, static_smax=40.0)
 
 
 @pytest.mark.parametrize("D", HEAD_DIMS)
@@ -403,8 +425,17 @@ CLASSES = [
     ("f32 SD1.x D=320 fused_outer 4096", "f32", "fused_outer", 7, 1, 4096, 4096, 320, None, 40.0, "dmid"),
     ("f32 SD1.x D=320 self 4096", "f32", "self", 7, 1, 4096, 4096, 320, None, 40.0, "dmid"),
     ("f16 SD1.x D=320 fused_outer 4096", "f16", "fused_outer", 7, 1, 4096, 4096, 320, None, 40.0, "dmid"),
-    # one head a level (640 / 1280): the wide kernels, exact in the port
-    ("SD1.x D=640 fused_outer 1024", "bf16", "fused_outer", 7, 1, 1024, 1024, 640, None, 40.0, None),
+    # one head a level (640 / 1280 over 32^2 / 16^2 / 8^2 tokens): the wide kernels; own KV under
+    # FLASH_MIN_KV (the 1280-wide levels) exact, and f32 past the JAX wrapper's 1024 (it raises there)
+    ("SD1.x D=640 fused_outer 1024", "bf16", "fused_outer", 7, 1, 1024, 1024, 640, None, 40.0, "dwide"),
+    ("SD1.x D=640 pure_inner 1024", "bf16", "pure_inner", 7, 1, 1024, 1024, 640, None, 40.0, "dwide"),
+    ("SD1.x D=640 self 1024", "bf16", "self", 7, 1, 1024, 1024, 640, None, None, None),
+    ("SD1.x D=1280 fused_outer 256", "bf16", "fused_outer", 7, 1, 256, 256, 1280, None, None, None),
+    ("SD1.x D=2048 fused_outer 1024", "bf16", "fused_outer", 7, 1, 1024, 1024, 2048, None, 40.0, "dwide"),
+    ("f32 SD1.x D=640 fused_outer 1024", "f32", "fused_outer", 7, 1, 1024, 1024, 640, None, 40.0, "dwide"),
+    ("f32 SD1.x D=1024 fused_inner 1024", "f32", "fused_inner", 7, 1, 1024, 1024, 1024, None, 40.0, "dwide"),
+    ("f32 SD1.x D=1280 fused_outer 1024", "f32", "fused_outer", 7, 1, 1024, 1024, 1280, None, 40.0, "dwide"),
+    ("f16 SD1.x D=640 fused_outer 1024", "f16", "fused_outer", 7, 1, 1024, 1024, 640, None, 40.0, "dwide"),
     # the VAE mid block (one head at D = 512, self mode): a 1024px frame, 7 512px frames, the tiled decode's
     # ragged tile; the D=512 self kernels
     ("VAE f32 self 16384", "f32", "self", 1, 1, 16384, 16384, 512, None, 40.0, "d512"),
@@ -428,10 +459,11 @@ def test_auto_resolves_each_call_class(monkeypatch, label, dtype, mode, B, H, Sq
     route (``use_kernel`` made true, the launch captured: the interpolating
     kernels' and the D=512 self kernels'): the JAX model path's choice (own
     KV under FLASH_MIN_KV exact; one-pass self exact; the rest C = 40), then
-    the port's exact classes (f16; past D = 512, the wide kernels; a class
-    the card measured slower, STATIC_SHIFT_SLOWER). Derived by hand from
-    aid_tpu/ops/flash_attention.py:863-891 and the shapes, not from the
-    resolution itself."""
+    the port's exact classes (f16; f32 past a head dim of 1024, where the JAX
+    wrapper raises; a class the card measured slower, STATIC_SHIFT_SLOWER,
+    the wide kernels' keyed by their instance's padded head dim). Derived by
+    hand from aid_tpu/ops/flash_attention.py:806-816, 863-891 and the
+    shapes, not from the resolution itself."""
     dt = {"bf16": torch.bfloat16, "f32": torch.float32, "f16": torch.float16}[dtype]
     seen = []
 
@@ -455,7 +487,8 @@ def test_auto_resolves_each_call_class(monkeypatch, label, dtype, mode, B, H, Sq
         eps = {n: _shaped(dt, B, H, Lk, D) for n in ("k_begin", "v_begin", "k_end", "v_end")}
     dispatch_attention(q, k, k, torch.zeros(B), mode, **eps)
     want = jax_shift
-    if dt == torch.float16 or D > fa.D512 or (route, dtype, D, mode) in fa.STATIC_SHIFT_SLOWER:
+    Dk = fa.dwide_tiles(D, dt)[0] if route == "dwide" else D
+    if dt == torch.float16 or (dt == torch.float32 and D > 1024) or (route, dtype, Dk, mode) in fa.STATIC_SHIFT_SLOWER:
         want = None
     assert seen == [want]
     if Lk >= port_attn.FLASH_MIN_KV:  # the JAX wrapper's own choice (shorter calls are exact by the gate)
@@ -493,19 +526,22 @@ def test_auto_for_rows_all_forced_vanilla_is_the_self_calls(monkeypatch, mode):
 def test_auto_keeps_the_plain_route_and_wide_heads_exact(monkeypatch):
     """Without the kernel route (CPU tensors) "auto" is exact; on it, head
     dims up to 512 take the JAX wrapper's C (the D=161-512 kernels' and the
-    D=512 self kernels' static instances), past 512 (no static instance
-    yet: the wide kernels) they are exact."""
+    D=512 self kernels' static instances), and past 512 too where the JAX
+    wrapper runs its kernels (the wide kernels' static instances: bf16 to
+    2048, f32 to 1024); f32 past 1024, where the JAX wrapper raises, and f16
+    are exact."""
     q = _shaped(torch.bfloat16, 7, 10, 4096, 64)
     assert resolve_static_smax(q, q, "self") is None
     monkeypatch.setattr(fa, "use_kernel", lambda *t: True)
     assert resolve_static_smax(q, q, "self") == STATIC_SHIFT_C
-    for dtype in (torch.bfloat16, torch.float32):
-        for D in (192, 320, 512, 640):
+    for dtype in (torch.bfloat16, torch.float32, torch.float16):
+        for D in (192, 320, 512, 640, 1024, 1032, 1280, 2048):
             w = _shaped(dtype, 7, 1, 4096, D)
             assert fa.jax_static_smax(tuple(w.shape), dtype, 4096, "fused_outer") == STATIC_SHIFT_C
-            assert resolve_static_smax(w, w, "fused_outer") == (STATIC_SHIFT_C if D <= 512 else None)
+            shifted = dtype == torch.bfloat16 or (dtype == torch.float32 and D <= 1024)
+            assert resolve_static_smax(w, w, "fused_outer") == (STATIC_SHIFT_C if shifted else None), (dtype, D)
         vae = _shaped(dtype, 1, 1, 16384, 512)
-        assert resolve_static_smax(vae, vae, "self") == STATIC_SHIFT_C
+        assert resolve_static_smax(vae, vae, "self") == (None if dtype == torch.float16 else STATIC_SHIFT_C)
     assert resolve_static_smax(q, q, "self", static_smax=None) is None
     assert resolve_static_smax(q, q, "self", static_smax=12.5) == 12.5
 

@@ -21,6 +21,13 @@ inputs through both packages on the CPU:
     planted faults (a warpgroup's softmax over its own partial scores, a
     wrong chunk of Q, a thread-major read-back, splits combined without
     their rescale) miss the bound by orders of magnitude;
+  * the static-shift softmax past 512: the plain version's against the
+    Pallas kernel's static branch in interpret mode, and the static wide
+    entries (csrc/flash_attention_dwide_static.cu) replayed the same way,
+    P = 2^min(s scale log2 e - C log2 e, 30 log2 e) with no max, each
+    chunk's P V added with no factor, the combine step O = sum O_s / sum
+    l_s; planted faults (each split normalised alone, the shift left in a
+    per-tile rescale, the clip dropped) miss the bound;
   * a tiny UNet with one head a level (widths 544 and 576) against the JAX
     UNet.
 The kernels themselves are held to the plain version on the card
@@ -49,6 +56,8 @@ from aid_tpu_torch.ops.attention import AttnMode, dispatch_attention
 from aid_tpu_torch.ops.flash_attention import (
     DWIDE,
     DWIDE_ENTRIES,
+    STATIC_DWIDE_ENTRIES,
+    STATIC_SHIFT_C,
     dwide_split,
     dwide_tiles,
     flash_interpolated_attention,
@@ -175,6 +184,30 @@ def test_wrapper_matches_pallas_interpret(dtype, D, mode):
     assert _err(got, want) < FLASH_TOL[dtype]
 
 
+@pytest.mark.parametrize("dtype,D", [c for c in PALLAS_CASES if c[0] != "f16"])
+@pytest.mark.parametrize("mode", MODES)
+def test_plain_static_shift_matches_pallas_interpret(dtype, D, mode):
+    """The plain static shift (static_smax = STATIC_SHIFT_C; what the static
+    wide entries are held to on the card) against the Pallas `_kernel`'s
+    static branch (aid_tpu/ops/flash_attention.py:210-256; onepass_max 0) in
+    interpret mode past 512, as the exact case above: skip rows, shared
+    endpoints of their own length outside self mode; on logits inside the
+    window (scale D^-0.5) and far past its top (scale 32 / sqrt(D): the clip
+    binds), where the two softmaxes both clip."""
+    ep = None if mode == "self" else "shared"
+    q, k, v, coef, skip, eps = _inputs(D, dtype, ep, seed=950 + D, S=16, L=24, Le=9)
+    for scale in (D ** -0.5, 32.0 / math.sqrt(D)):
+        want = jax_flash(*[_jax(x, dtype) for x in (q, k, v)], jnp.asarray(coef), mode,
+                         skip_endpoints=jnp.asarray(skip), block_q=64, block_k=64, interpret=True, onepass_max=0,
+                         static_smax=STATIC_SHIFT_C, scale=scale, **{n: _jax(e, dtype) for n, e in eps.items()})
+        got = flash_interpolated_attention_plain(*[_torch(x, dtype) for x in (q, k, v)], torch.from_numpy(coef), mode,
+                                                 skip_endpoints=torch.from_numpy(skip), scale=scale,
+                                                 static_smax=STATIC_SHIFT_C,
+                                                 **{n: _torch(e, dtype) for n, e in eps.items()})
+        assert torch.isfinite(got).all()
+        assert _err(got, want) < FLASH_TOL[dtype], scale
+
+
 def test_padded_head_dim_past_512():
     """513..2048 maps to the operands' head dim with 16-byte rows (a
     multiple of 8), in every mode; past 2048 raises, as the JAX wrapper does
@@ -279,19 +312,30 @@ def _emulate_dwide_kernel(ops, fault=None):
     stored after the begin segment and set 1 continued from the park; each
     split's states (O, m, l) stored at its place in ``ops["work"]`` and
     merged as the combine step merges them, or, unsplit, normalised and
-    blended in the block. ``fault``: "own_chunk" (each warpgroup's softmax
-    and P V over its own partial scores: no exchange), "q_chunk" (each
-    chunk's scores against the next chunk of Q), "thread_major" (the parked
-    O read back thread by thread), "combine" (the combine step adds the
-    splits' states without rescaling them to the largest max)."""
+    blended in the block. The static-shift entry (``ops["static"]``: the
+    shift and the clip in log2 units) takes P = 2^min(s sl2 - shift, clip)
+    with no max (the max words of a state are never written), adds each
+    tile's P V and sum with no factor, and combines the splits as O = sum
+    O_s / sum l_s, each set's sum guarded at 1e-37. ``fault``: "own_chunk"
+    (each warpgroup's softmax and P V over its own partial scores: no
+    exchange), "q_chunk" (each chunk's scores against the next chunk of Q),
+    "thread_major" (the parked O read back thread by thread), "combine" (the
+    combine step adds the splits' states without rescaling them to the
+    largest max); at the static shift "split_alone" (each split's state
+    normalised by its own sum before the splits are added), "rescale" (the
+    shift left in a per-tile rescale: O and l times 2^-shift before each key
+    tile) and "clip" (the clip dropped)."""
     q, k, v, kb, vb, ke, ve, out = ops["tensors"]
     dims = ops["dims"]
     B, H, Sq, Lk, Le, D = dims[:6]
     dtype = q.dtype
     f32 = dtype == torch.float32
     Dp, BQ, BK = dwide_tiles(D, dtype)
-    assert ops["entry"] == DWIDE_ENTRIES[dtype] and D <= DWIDE
+    static = ops["static"]
+    assert ops["entry"] == (DWIDE_ENTRIES if static is None else STATIC_DWIDE_ENTRIES)[dtype] and D <= DWIDE
     sl2 = float(np.float32(ops["scale"]) * np.float32(1.4426950408889634))
+    if static is not None:  # the shift and the clip as the C entry takes them (f32)
+        shift, clip = (float(np.float32(x)) for x in static)
     has_own, n_sets = ops["has_own"], ops["n_sets"]
     nq = -(-Sq // BQ)
     n_own, n_ep = (-(-Lk // BK) if has_own else 0), -(-Le // BK)
@@ -308,6 +352,9 @@ def _emulate_dwide_kernel(ops, fault=None):
         assert ops["work"] is None
     mine = [(torch.arange(Dp) // CHUNK) % WG == w for w in range(WG)]  # each warpgroup's columns
 
+    def guard(x):  # the static instances guard each sum at 1e-37; the exact ones divide as they are
+        return x if static is None else x.clamp_min(1e-37)
+
     def padded(x):  # the zero fill past D
         return torch.nn.functional.pad(x.float(), (0, Dp - D))
 
@@ -318,7 +365,8 @@ def _emulate_dwide_kernel(ops, fault=None):
 
     def store(blk, set_, o, m, l):
         ws[blk, set_, :BQ * Dp] = o.reshape(-1)
-        ws[blk, set_, BQ * Dp:BQ * Dp + BQ] = m
+        if static is None:  # the static shift keeps no max: its words stay unwritten
+            ws[blk, set_, BQ * Dp:BQ * Dp + BQ] = m
         ws[blk, set_, BQ * Dp + BQ:] = l
 
     def load(blk, set_, order=None):
@@ -355,6 +403,18 @@ def _emulate_dwide_kernel(ops, fault=None):
                         parts = [Kt[:, w_] @ Qb[:, w_].T for w_ in mine]  # S^T over each warpgroup's chunks
                         scores = parts if fault == "own_chunk" else [parts[0] + parts[1]] * WG
                         o = o.clone()
+                        if static is not None:
+                            if fault == "rescale":
+                                o, l = o * 2.0 ** -shift, l * 2.0 ** -shift
+                            for w_, st in zip(mine, scores):
+                                st = st.clone()
+                                st[valid:] = -math.inf
+                                e_ = st * sl2 - shift
+                                p_ = torch.exp2(e_ if fault == "clip" else e_.clamp_max(clip))
+                                l_new = l + p_.sum(0)
+                                p_ = p_ if f32 else p_.to(dtype).float()
+                                o[:, w_] = o[:, w_] + p_.T @ Vt[:, w_]
+                            return o, m, l_new
                         for w_, st in zip(mine, scores):
                             st = st.clone()
                             st[valid:] = -math.inf
@@ -385,19 +445,28 @@ def _emulate_dwide_kernel(ops, fault=None):
                     elif outer:
                         c = float(ops["coef"][b])
                         o0, _, l0 = load(blk, 0)
-                        res[b, h, qb * BQ:(qb + 1) * BQ] = o * (c / l)[:, None] + o0 * ((1 - c) / l0)[:, None]
+                        res[b, h, qb * BQ:(qb + 1) * BQ] = (o * (c / guard(l))[:, None]
+                                                             + o0 * ((1 - c) / guard(l0))[:, None])
                     else:
-                        res[b, h, qb * BQ:(qb + 1) * BQ] = o / l[:, None]
+                        res[b, h, qb * BQ:(qb + 1) * BQ] = o / guard(l)[:, None]
                 if S > 1:  # the combine step
                     base = ((b * H + h) * nq + qb) * S
                     merged = torch.zeros(BQ, Dp)
                     for set_ in range(2 if outer else 1):
                         st = [load(base + sp, set_) for sp in range(S)]
+                        wt = (float(ops["coef"][b]) if set_ else 1 - float(ops["coef"][b])) if outer else 1.0
+                        if static is not None:  # no max pass, no weight
+                            if fault == "split_alone":
+                                merged += sum(x[0] / guard(x[2])[:, None] for x in st) * wt
+                                continue
+                            L = sum(x[2] for x in st)
+                            O = sum(x[0] for x in st)
+                            merged += O * (wt / guard(L))[:, None]
+                            continue
                         mx = torch.stack([x[1] for x in st]).amax(0)
                         e = [torch.ones(BQ) if fault == "combine" else torch.exp2((x[1] - mx) * sl2) for x in st]
                         L = sum(x[2] * ei for x, ei in zip(st, e))
                         O = sum(x[0] * ei[:, None] for x, ei in zip(st, e))
-                        wt = (float(ops["coef"][b]) if set_ else 1 - float(ops["coef"][b])) if outer else 1.0
                         merged += O * (wt / L)[:, None]
                     res[b, h, qb * BQ:(qb + 1) * BQ] = merged
     stored = _strided(out, dims, 7, (B, H, Sq, out.shape[-1]))
@@ -455,6 +524,59 @@ def test_dwide_replay_planted_faults_are_seen(dtype, fault):
         err = _err(_emulate_dwide_kernel(kernel_operands(*args, **kw), fault=fault), want)
         # a NaN (a parked word read before it was written) misses the bound too
         assert sound < REPLAY_TOL[dtype] and not err <= 10 * REPLAY_TOL[dtype], (D, sound, err)
+
+
+@pytest.mark.parametrize("split", [True, False], ids=["split", "unsplit"])
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("D", [520, 640, 1280, 2048])
+def test_dwide_static_replay_matches_plain(D, mode, dtype, split):
+    """The static wide entry (static_smax = STATIC_SHIFT_C) replayed from its
+    C arguments matches the plain version's static shift, as the exact
+    replay's inputs: two heads (the key stream split, the static combine
+    step) or enough heads for 132 blocks (unsplit: the block normalises and
+    blends); the layout is the exact entry's, workspace and split."""
+    ep = "shared" if AttnMode(mode).is_fused else None
+    args, kw = _replay_inputs(D, dtype, mode, ep, seed=500 + D, unsplit=not split)
+    if mode == "self":
+        kw = {}
+    ops = kernel_operands(*args, **kw, static_smax=STATIC_SHIFT_C)
+    exact = kernel_operands(*args, **kw)
+    assert ops["entry"] == STATIC_DWIDE_ENTRIES[DTYPES[dtype]] and (ops["splits"] > 1) == split
+    assert ops["splits"] == exact["splits"] and ops["dims"] == exact["dims"]
+    assert (ops["work"] is None) == (exact["work"] is None)
+    assert ops["work"] is None or ops["work"].shape == exact["work"].shape
+    got = _emulate_dwide_kernel(ops)
+    want = flash_interpolated_attention_plain(*args, **kw, static_smax=STATIC_SHIFT_C)
+    assert got.dtype == DTYPES[dtype] and got.shape == want.shape
+    assert _err(got, want) < REPLAY_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+@pytest.mark.parametrize("fault", ["split_alone", "rescale", "clip"])
+def test_dwide_static_replay_planted_faults_are_seen(dtype, fault):
+    """Each planted fault of the static instance misses the replay's bound:
+    each split's state normalised by its own sum before the splits are added,
+    the shift left in a per-tile rescale (O and l times e^-C before each key
+    tile), the clip dropped (the exact softmax, on logits far past the
+    window's top: scale 32 / sqrt(D) puts the row maxes near +80); fused_outer
+    at D = 640 and 1280, per-row endpoints, the key stream split for the
+    first fault, unsplit for the others (a split of these inputs holds one
+    key tile, so a rescale before each tile would move nothing)."""
+    for D in (640, 1280):
+        split = fault == "split_alone"
+        args, kw = _replay_inputs(D, dtype, "fused_outer", "per_row", seed=600 + D, unsplit=not split)
+        kw["scale"] = 32.0 / math.sqrt(D) if fault == "clip" else None
+        ops = kernel_operands(*args, **kw, static_smax=STATIC_SHIFT_C)
+        assert (ops["splits"] > 1) == split
+        want = flash_interpolated_attention_plain(*args, **kw, static_smax=STATIC_SHIFT_C)
+        sound = _err(_emulate_dwide_kernel(ops), want)
+        err = _err(_emulate_dwide_kernel(kernel_operands(*args, **kw, static_smax=STATIC_SHIFT_C), fault=fault),
+                   want)
+        # on the hot input the f32 exponents' arguments are near 2^7 in log2 units, where an f32 ulp (1.5e-5)
+        # moves each p by 1e-5 of itself: the f32 bound there is FLASH_TOL's (measured 1.5e-5)
+        tol = FLASH_TOL[dtype] if fault == "clip" and dtype == "f32" else REPLAY_TOL[dtype]
+        assert sound < tol and not err <= 10 * tol, (D, sound, err)
 
 
 # ---------------------------------------------------------------------------

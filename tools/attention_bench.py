@@ -65,7 +65,8 @@ streaming kernel in turns, beside cuDNN in self mode; each line says whether
 the route sends the call to the new kernel.
 ``--static`` times the static-shift instances (``static_smax`` = 40: the
 streaming kernels' in bf16 and f32, the bf16 mid-length stream kernel's, the
-D=161-512 kernels' and the D=512 self kernels' in bf16 and f32) at the call
+D=161-512 kernels', the D=512 self kernels' and the wide kernels' in bf16 and
+f32) at the call
 classes the model path's "auto" shifts (``STATIC_SHIFTS``: SDXL's 4096- and
 1024-token calls, SD 1.5's 4096 at D = 40 and 1024 at D = 80, SD 2.1's 9216,
 2304 and 576, the f32 UNets' 4096 and 1024; the VAE mid block at D = 512 over
@@ -73,10 +74,14 @@ one 1024px frame, seven 512px frames and the tiled decode's 4000-token tile;
 SD 1.x's 320-wide heads over (7,1,4096) in every mode and (7,2,1024)
 fused_outer, the self calls at 448 and 504 that the route sends to each
 D=161-512 instance, and the endpoint modes over (7,2,1024) at D = 384 and
-512, the bf16 kernel's split layout) and at a 77-key call the short-stream kernel
+512, the bf16 kernel's split layout; SD 1.x with one head a level, D = 640 over
+(7,1,1024) in every mode, its 77-key cross call, the 1280-wide levels over 256
+and 64 tokens, a ragged 520 and self (2,1,512,2048), f32 fused_outer at 1024)
+and at a 77-key call the short-stream kernel
 takes exactly, each in PAIRS turns with the exact route on the same inputs
 (launched alone, and through the wrapper with static_smax 40 against None;
-medians and least times, and the kernels' device time from a profiler trace),
+medians and least times, and the kernels' device time from a profiler trace;
+past D = 160 the fastest SDPA backend in self and the inner modes),
 held to the plain version's static shift and exact softmax. ``--headline N``
 adds the SDXL headline (``chip_smoke.build_headline``: 7 frames at 128^2, N
 Euler steps, half fused_outer) in turns under "auto" and exact everywhere
@@ -531,6 +536,8 @@ def bench_onepass(reps: int, name: str, only: str, kind: str = "onepass") -> dic
             if not err <= tol:
                 raise SystemExit(f"{label} ({route}): the kernel disagrees with the plain version ({err:.3e})")
             launches[route] = launch
+            if shift is None:
+                exact_want = want
         # the routes in turns, PAIRS times, the first of each pair alternating: each launched alone, and
         # with its host work (the wrapper's: the operands laid out by kernel_launch, then the launch)
         alone, call = {r: [] for r in routes}, {r: [] for r in routes}
@@ -596,6 +603,17 @@ STATIC_SHIFTS = [
     # the 16-bit kernel's split layout (6 to 8 chunks: two warpgroups split D) in endpoint modes, f32 beside
     *[(f"{n} split D={D} {m} 1024", n, m, "sd", 2, 1024, 1024, D) for n in ("bf16", "f32") for D in (384, 512)
       for m in ("fused_outer", "pure_outer", "fused_inner", "pure_inner")],
+    # SD 1.x with one head a level (phase 22): the wide kernels' static instances at D = 640 over 1024 tokens in
+    # every mode, bf16 and f32; in bf16 its 77-key cross call, the 1280-wide levels over 256 and 64 tokens (the
+    # 64-token one split, with the combine step), a ragged 520 and self (2,1,512,2048) (split); in f32 (where
+    # "auto" stops at 1024) fused_outer (7,1,256,1024) and self (2,1,512,2048) at an explicit shift
+    *[(f"{n} wide {m} 1024 D=640", n, m, "sd", 1, 1024, 1024, 640) for n in ("bf16", "f32")
+      for m in ("fused_outer", "pure_outer", "fused_inner", "pure_inner", "self")],
+    ("bf16 wide cross fused_outer 1024x77 D=640", "bf16", "fused_outer", "sd", 1, 1024, 77, 640),
+    *[(f"bf16 wide fused_outer {S} D=1280", "bf16", "fused_outer", "sd", 1, S, S, 1280) for S in (256, 64)],
+    ("bf16 wide fused_outer 1024 D=520", "bf16", "fused_outer", "sd", 1, 1024, 1024, 520),
+    ("f32 wide fused_outer 256 D=1024", "f32", "fused_outer", "sd", 1, 256, 256, 1024),
+    *[(f"{n} wide self 512 D=2048 x2", n, "self", "sd", 1, 512, 512, 2048, 2) for n in ("bf16", "f32")],
 ]
 
 
@@ -605,10 +623,12 @@ def bench_static(reps: int, only: str) -> dict:
     STATIC_SHIFT_C, the instance the route gives it) and on its exact route,
     in PAIRS turns (the first of each pair alternating): launched alone and
     through the wrapper (static_smax 40 against None), medians and least
-    times, the kernels' device time from a profiler trace, the bound; each
-    held to the plain version (its static shift; the exact softmax). 7
-    frames, (B, S, H*D) projections viewed as (B, H, S, D), the coef-0/1 end
-    rows as skip rows."""
+    times, the kernels' device time from a profiler trace, the bound, the
+    fastest SDPA backend computing the same function past D = 160 in self
+    and the inner modes (:func:`dwide_sdpa`, on the exact result; "—" in the
+    outer modes); each held to the plain version (its static shift; the
+    exact softmax). 7 frames, (B, S, H*D) projections viewed as (B, H, S,
+    D), the coef-0/1 end rows as skip rows."""
     import torch
 
     from aid_tpu_torch.models.layers import skip_mask
@@ -644,7 +664,7 @@ def bench_static(reps: int, only: str) -> dict:
         q, k, v = heads(Sq), heads(L), heads(L)
         kw = {} if mode == "self" else {"skip_endpoints": skip_mask(coef, B)}
         routes = {"static": STATIC_SHIFT_C, "exact": None}
-        launches = {}
+        launches, exact_want = {}, None
         for route, shift in routes.items():
             if d512:
                 out, launch = fa.d512_launch(q, k, v, static_smax=shift)
@@ -656,6 +676,8 @@ def bench_static(reps: int, only: str) -> dict:
             if not err <= tol:
                 raise SystemExit(f"{label} ({route}): the kernel disagrees with the plain version ({err:.3e})")
             launches[route] = launch
+            if shift is None:
+                exact_want = want
         alone, call = {r: [] for r in routes}, {r: [] for r in routes}
         for i in range(PAIRS):
             for route in (list(routes) if i % 2 == 0 else list(routes)[::-1]):
@@ -678,14 +700,16 @@ def bench_static(reps: int, only: str) -> dict:
         won = sum(a <= b for a, b in zip(alone["static"], alone["exact"]))
         ratio = statistics.median(alone["static"]) / statistics.median(alone["exact"])
         skip_rows = int(kw["skip_endpoints"].sum()) if kw else 0
-        # f32: three TF32 passes at D <= 160, the D=512 design's split (F32_D512_PASSES) past it
-        passes = ({} if name != "f32" else chip_smoke.F32_D512_PASSES if D > 160 else {"tf32_passes": 3})
+        # f32: three TF32 passes at D <= 160 and past 512, the D=512 design's split (F32_D512_PASSES) between
+        passes = ({} if name != "f32" else chip_smoke.F32_D512_PASSES if 160 < D <= 512 else {"tf32_passes": 3})
         bound_ms, by = attention_bound(mode, B, H, Sq, L, D, skip_rows=skip_rows, elem=4 if name == "f32" else 2,
                                        **passes)
+        lib, lib_ms = dwide_sdpa(q, k, v, coef, mode, exact_want, reps) if D > 160 else (None, None)
+        sdpa = f"SDPA {lib} {lib_ms:.4f} ms" if lib else "SDPA —"
         print(f"{tag:41s} ({B},{H},{Sq},{D}) {' | '.join(line)} | static/exact alone {ratio:.4f}, static no "
-              f"slower alone in {won} of {PAIRS} pairs | bound {bound_ms:.4f} ({by}) | the route under auto: "
-              f"{'static' if fa.resolve_static_smax(q, k, mode) is not None else 'exact'}", flush=True)
-        del q, k, v, launches
+              f"slower alone in {won} of {PAIRS} pairs | bound {bound_ms:.4f} ({by}) | {sdpa} | the route under "
+              f"auto: {'static' if fa.resolve_static_smax(q, k, mode) is not None else 'exact'}", flush=True)
+        del q, k, v, launches, exact_want
     return result
 
 
